@@ -1,0 +1,59 @@
+"""Anchor generation (port of ``oadg_tpu/core/anchor/anchor_generator.py:26``).
+
+Base anchors per level from ratios x scales around a stride-sized cell
+(ratio-major), computed in numpy float32 exactly as the JAX package does;
+``grid_priors`` (``:89``) lays them out location-major with the anchors
+innermost, the (H, W, A) order of the head's NHWC-flattened outputs.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...utils.registry import PRIOR_GENERATORS
+
+
+@PRIOR_GENERATORS.register_module()
+class AnchorGenerator:
+
+    def __init__(self, strides: Sequence[int], ratios: Sequence[float],
+                 scales: Sequence[float]):
+        self.strides = list(strides)
+        self.scales = np.asarray(scales, dtype=np.float32)
+        self.ratios = np.asarray(ratios, dtype=np.float32)
+        self.base_anchors = [self._base_anchors(s) for s in self.strides]
+
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [a.shape[0] for a in self.base_anchors]
+
+    def _base_anchors(self, base_size) -> np.ndarray:
+        """Anchors centered on (0, 0) for one level, (A, 4)."""
+        w = h = float(base_size)
+        xc = yc = 0.0
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1 / h_ratios
+        ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        return np.stack([xc - 0.5 * ws, yc - 0.5 * hs,
+                         xc + 0.5 * ws, yc + 0.5 * hs], axis=-1).astype(np.float32)
+
+    def grid_priors(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    device=None) -> List[torch.Tensor]:
+        """Per level, anchors (H * W * A, 4) float32 on ``device``."""
+        if len(featmap_sizes) != len(self.strides):
+            raise ValueError(f"{len(featmap_sizes)} feature maps for "
+                             f"{len(self.strides)} anchor levels")
+        out = []
+        for (fh, fw), stride, base in zip(featmap_sizes, self.strides,
+                                          self.base_anchors):
+            sx = torch.arange(fw, dtype=torch.float32, device=device) * stride
+            sy = torch.arange(fh, dtype=torch.float32, device=device) * stride
+            yy, xx = torch.meshgrid(sy, sx, indexing="ij")
+            shifts = torch.stack([xx, yy, xx, yy], dim=-1)        # (H, W, 4)
+            anchors = (torch.from_numpy(base).to(device)[None, None]
+                       + shifts[:, :, None, :])
+            out.append(anchors.reshape(-1, 4))
+        return out

@@ -1,0 +1,3 @@
+from .nms import batched_nms_padded, multiclass_nms, nms_padded
+
+__all__ = ["nms_padded", "batched_nms_padded", "multiclass_nms"]

@@ -1,0 +1,101 @@
+"""JAX variables -> the port's ``state_dict``.
+
+``jax_variables_to_state_dict`` is the exact inverse of
+``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
+kernels become OIHW, ``(in, out)`` dense kernels become ``(out, in)``, and the
+first shared FC's input is reordered from the JAX package's HWC flattening of
+the RoI features back to mmdet's CHW (``:102-108``). Frozen-BN ``scale`` /
+``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean``
+/ ``running_var``. A leaf with no mmdet name raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _bn_name(scope: str) -> str:
+    """Frozen-BN module path inside a backbone block / the stem."""
+    if scope == "downsample_bn":
+        return "downsample.1"
+    m = re.fullmatch(r"FrozenBN_(\d+)", scope)
+    if m is None:
+        raise KeyError(scope)
+    return f"bn{int(m.group(1)) + 1}"
+
+
+def _torch_key(path: Tuple[str, ...]) -> str:
+    """Flax leaf path (collection dropped) -> mmdet state_dict key."""
+    head, rest = path[0], path[1:]
+    if head == "backbone_m":
+        if rest[0] == "conv1":                       # stem conv
+            return "backbone.conv1.weight"
+        if rest[0].startswith("FrozenBN_"):          # stem BN
+            return f"backbone.bn1.{_BN_LEAF[rest[-1]]}"
+        layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[0]).groups()
+        pre = f"backbone.layer{layer}.{block}"
+        scope = rest[1]
+        if scope == "downsample_conv":
+            return f"{pre}.downsample.0.weight"
+        if scope.startswith("conv"):
+            return f"{pre}.{scope}.weight"
+        return f"{pre}.{_bn_name(scope)}.{_BN_LEAF[rest[-1]]}"
+    if head == "neck_m":
+        kind, idx = re.fullmatch(r"(lateral|fpn_conv)_(\d+)", rest[0]).groups()
+        group = "lateral_convs" if kind == "lateral" else "fpn_convs"
+        leaf = "weight" if rest[-1] == "kernel" else "bias"
+        return f"neck.{group}.{idx}.conv.{leaf}"
+    if head == "rpn":
+        leaf = "weight" if rest[-1] == "kernel" else "bias"
+        return f"rpn_head.{rest[0]}.{leaf}"
+    if head == "roi" and rest[0] == "head":
+        name = rest[1]
+        leaf = "weight" if rest[-1] == "kernel" else "bias"
+        m = re.fullmatch(r"(shared_fc|fc_cont)(\d+)", name)
+        if m:
+            group = "shared_fcs" if m.group(1) == "shared_fc" else "fc_cont"
+            return f"roi_head.bbox_head.{group}.{m.group(2)}.{leaf}"
+        if name in ("fc_cls", "fc_reg"):
+            return f"roi_head.bbox_head.{name}.{leaf}"
+    raise KeyError("/".join(path))
+
+
+def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
+                                roi_channels: int = 256) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX two-stage detector
+    (numpy or jax arrays) -> the port's ``state_dict`` (CPU float tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, v in _leaves(variables.get(collection) or {}):
+            try:
+                key = _torch_key(path)
+            except (KeyError, AttributeError) as e:
+                raise KeyError(f"no mmdet name for {collection}/"
+                               f"{'/'.join(path)}") from e
+            if path[-1] == "kernel":
+                if v.ndim == 4:                          # HWIO -> OIHW
+                    v = v.transpose(3, 2, 0, 1)
+                else:                                    # (in, out) -> (out, in)
+                    v = v.T
+                    if key == "roi_head.bbox_head.shared_fcs.0.weight":
+                        o, i = v.shape
+                        s2 = roi_feat_size * roi_feat_size
+                        ch = i // s2 if i % s2 == 0 else roi_channels
+                        v = (v.reshape(o, roi_feat_size, roi_feat_size, ch)
+                             .transpose(0, 3, 1, 2).reshape(o, i))
+            sd[key] = torch.tensor(np.asarray(v, dtype=np.float32))
+    return sd

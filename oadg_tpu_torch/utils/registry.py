@@ -1,0 +1,47 @@
+"""Name -> class registries for the types the configs name
+(port of ``oadg_tpu/utils/registry.py``, reduced to what the serving slice
+builds: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+
+class Registry:
+    """A string -> class map filled by ``@REGISTRY.register_module()``."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.module_dict: Dict[str, Any] = {}
+
+    def get(self, key: str):
+        return self.module_dict.get(key)
+
+    def register_module(self):
+        def _decorator(cls):
+            if cls.__name__ in self.module_dict:
+                raise KeyError(f"{cls.__name__} is already registered in {self.name}")
+            self.module_dict[cls.__name__] = cls
+            return cls
+        return _decorator
+
+
+def build_from_cfg(cfg: dict, registry: Registry,
+                   default_args: Optional[dict] = None):
+    """``registry[cfg['type']](**rest, **default_args)``; cfg keys win."""
+    args = dict(default_args or {})
+    args.update(cfg)
+    name = args.pop("type")
+    cls = registry.get(name)
+    if cls is None:
+        raise KeyError(f"{name} is not registered in {registry.name} "
+                       "(the port builds only the serving slice's types)")
+    return cls(**args)
+
+
+BACKBONES = Registry("backbone")
+NECKS = Registry("neck")
+HEADS = Registry("head")
+ROI_EXTRACTORS = Registry("roi_extractor")
+DETECTORS = Registry("detector")
+PRIOR_GENERATORS = Registry("prior_generator")
+BBOX_CODERS = Registry("bbox_coder")

@@ -1,0 +1,125 @@
+"""Port RoIAlign (oadg_tpu_torch/ops/roi_align.py) against the JAX package.
+
+The port's plain version (what a CPU tensor runs, and what the CUDA kernel is
+held to on the card) is compared with ``_roi_align_multilevel_impl`` and with
+the TPU window kernel ``roi_fwd_window_pallas`` run in interpret mode through
+``_roi_align_forward``, as ``tests/test_pallas_roi.py`` runs it. Rois cover
+both window classes, an extreme-aspect violator, a box partly outside the
+map, a tiny box and every level; one level set has levels smaller than the
+TPU window.
+
+Tolerances: rtol=1e-5, atol=1e-6 against the impl (tap indices and weights
+agree bit for bit, only the sum order differs); rtol=1e-4, atol=1e-5
+against the interpreted kernel, which reassociates the sum
+(tests/test_pallas_roi.py holds the same limits).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from oadg_tpu.ops.roi_align import (_roi_align_forward,
+                                    _roi_align_multilevel_impl,
+                                    map_roi_levels as jax_map_roi_levels)
+from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_FWD, map_roi_levels,
+                                          roi_align_multilevel,
+                                          roi_align_multilevel_ref)
+
+torch.set_num_threads(2)
+
+# (batch, image h, image w, strides): image size / stride gives each level
+LEVEL_SETS = {
+    "two_levels": (2, 256, 384, (4, 8)),               # 64x96, 32x48
+    "four_levels": (1, 256, 640, (4, 8, 16, 32)),      # down to 8x20
+    "small_coarse": (1, 256, 384, (4, 32)),            # 64x96, 8x12
+}
+SPECIAL_ROIS = [
+    [0, 10, 10, 40, 40],        # small window class
+    [0, 4, 8, 150, 160],        # full window class
+    [0, 0, 0, 370, 20],         # extreme aspect -> violator pass
+    [0, -5, 3, 190, 120],       # partly outside the map
+    [0, 100, 100, 108, 108],    # tiny
+    [0, 20, 30, 20.5, 30],      # zero area
+    [0, 0, 0, 250, 250],        # coarse level
+    [0, 300, 200, 383, 255],    # beyond the right edge
+]
+
+
+def _inputs(name, n_random, seed=0):
+    b, h, w, strides = LEVEL_SETS[name]
+    rng = np.random.RandomState(seed)
+    feats = [rng.rand(b, h // s, w // s, 8).astype(np.float32) for s in strides]
+    bw = np.exp(rng.uniform(np.log(2), np.log(600), n_random))
+    bh = np.exp(rng.uniform(np.log(2), np.log(600), n_random))
+    cx, cy = rng.uniform(-20, w + 20, n_random), rng.uniform(-20, h + 20, n_random)
+    rand = np.stack([rng.randint(0, b, n_random), cx - bw / 2, cy - bh / 2,
+                     cx + bw / 2, cy + bh / 2], 1)
+    special = np.asarray(SPECIAL_ROIS, np.float64)
+    special[:, 0] = np.arange(len(special)) % b
+    rois = np.concatenate([special, rand]).astype(np.float32)
+    return feats, rois, strides
+
+
+def _port(feats, rois, strides):
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
+    out = roi_align_multilevel(tf, torch.from_numpy(rois), 7, strides, 2, 56)
+    return out.numpy().transpose(0, 2, 3, 1)            # -> (R, 7, 7, C)
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_SETS))
+def test_roi_align_matches_jax_impl(name):
+    feats, rois, strides = _inputs(name, 120)
+    want = _roi_align_multilevel_impl(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois), output_size=7,
+        featmap_strides=strides, sampling_ratio=2, finest_scale=56, chunk=256)
+    got = _port(feats, rois, strides)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_SETS))
+def test_roi_align_matches_interpreted_tpu_kernel(name, monkeypatch):
+    feats, rois, strides = _inputs(name, 8, seed=1)
+    monkeypatch.setenv("OADG_ROI_FWD", "pallas")
+    want = jax.jit(lambda fs: _roi_align_forward(
+        fs, jnp.asarray(rois), 7, strides, 2, 56, 256))(
+        [jnp.asarray(f) for f in feats])
+    got = _port(feats, rois, strides)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_map_roi_levels_equal():
+    rng = np.random.RandomState(2)
+    side = np.exp(rng.uniform(np.log(1), np.log(2000), (4000, 2)))
+    x1 = rng.uniform(0, 100, 4000)
+    rois = np.stack([np.zeros(4000), x1, x1, x1 + side[:, 0], x1 + side[:, 1]],
+                    1).astype(np.float32)
+    # boxes whose sqrt(area) / 56 sits on a level boundary
+    edge = np.array([[0, 0, 0, 56, 56], [0, 0, 0, 112, 112], [0, 0, 0, 224, 224],
+                     [0, 0, 0, 448, 448], [0, 5, 5, 5, 5]], np.float32)
+    rois = np.concatenate([rois, edge])
+    want = np.asarray(jax.jit(lambda r: jax_map_roi_levels(r, 4, 56))(
+        jnp.asarray(rois)))
+    got = map_roi_levels(torch.from_numpy(rois), 4, 56).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got)) == {0, 1, 2, 3}
+
+
+def test_cpu_tensors_take_the_plain_version():
+    feats, rois, strides = _inputs("two_levels", 4)
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
+    before = ROI_ALIGN_FWD.launches
+    a = roi_align_multilevel(tf, torch.from_numpy(rois), 7, strides, 2, 56)
+    b = roi_align_multilevel_ref(tf, torch.from_numpy(rois), 7, strides, 2, 56)
+    assert ROI_ALIGN_FWD.launches == before
+    assert a.shape == (len(rois), 8, 7, 7) and a.dtype == torch.float32
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    feats, rois, strides = _inputs("two_levels", 4)
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
+    with pytest.raises(ValueError, match="CUDA"):
+        ROI_ALIGN_FWD(tf, torch.from_numpy(rois), 7, strides, 2, 56)
+
