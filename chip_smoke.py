@@ -9,28 +9,45 @@ non-zero exit code:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit, the torch and CUDA versions; turns TF32 off for matmuls and
    convolutions so float32 means float32.
-2. build: compiles every CUDA kernel of the serving path from
-   ``oadg_tpu_torch/ops/csrc/`` with nvcc.
-3. kernels: each kernel against its plain PyTorch version at the flagship's
-   serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64, C=256,
-   1000 rois), in float32 and with bfloat16 features; CUDA-event medians of
-   both.
+2. build: compiles every CUDA kernel of the serving and training paths
+   from ``oadg_tpu_torch/ops/csrc/``, one nvcc per source, all at once.
+3. kernels: each kernel against its plain PyTorch version, in float32 and
+   with bfloat16 features, with CUDA-event medians of both and the least
+   time the card could take (bytes over 3.35 TB/s): B1 (RoIAlign forward)
+   at the serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64,
+   C=256, 1000 rois), B2 (RoIAlign backward) at the training shapes (4
+   images, 2048 sampled + 40 random rois).
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
    request, then 3 timed requests of 1024x2048 uint8 images through
-   ``DetectorHandle.test``. Every kernel must have launched in those 3
-   requests. One request's RoI head is run again with the plain RoIAlign and
-   compared.
+   ``DetectorHandle.test``. B1 must have launched once per request. One
+   request's RoI head is run again with the plain RoIAlign and compared.
 5. reference: the same seeded model on the CPU (plain PyTorch throughout,
    the path the CPU tests hold to the JAX package) against the card on a
    small 256x512 request: FPN outputs, and the RoI head on the card's
    proposals.
-6. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
+6. train: the flagship built for training (``num_views=2``), SGD with the
+   config's LR schedule through ``make_train_step``, one warm-up step and 3
+   timed steps on 2 images x 2 views of 1024x2048 (view 2: the image with
+   seeded noise, as OA-Mix is not ported yet; 32 seeded gts each). B1 and B2
+   must each launch twice per step; losses finite, ``loss_cont`` > 0, every
+   trainable parameter moved, every frozen one (stem, ``layer1``) unchanged.
+   One more step checks B2's level gradients inside the path against the
+   plain backward on the same ``dy``. Then the step's time by stage (a
+   synchronize after each, medians of 3) and the device's busy share of one
+   step under ``torch.profiler``.
+7. train reference: one step of the same seeded model on the CPU and on the
+   card, 2 x 2 views of 256x512, the draws made on the CPU and handed to
+   both, the card's proposals used on both: losses, and the gradients of
+   ``rpn_head.rpn_conv``, ``roi_head.bbox_head.fc_cls`` and
+   ``backbone.layer4.*.conv3``.
+8. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,10 +62,19 @@ IMG_H, IMG_W = 1024, 2048
 STRIDES = (4, 8, 16, 32)
 CHANNELS = 256
 NUM_ROIS = 1000
+TRAIN_IMAGES = 4            # 2 images x 2 views
+TRAIN_ROIS = 512            # rcnn sampler num, per image
+RANDOM_ROIS = 10            # oagrb random proposals, per image
+NUM_GTS = 32
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+CITYSCAPES_TRAIN_IMAGES = 2975
 # Kernel vs plain version, measured in this run (max abs error over the
-# largest feature magnitude): float32 taps and weights are bit-identical, so
-# only the sum order differs; bfloat16 features are widened to f32 on both
-# sides before any arithmetic.
+# largest magnitude of the result: feature for B1, gradient for B2):
+# float32 taps and weights are bit-identical, so only the sum order differs
+# (B2 sums with atomics, in an order that changes from run to run);
+# bfloat16 features are widened to f32 before any arithmetic, and B2's
+# bfloat16 gradient is the rounding of its f32 sum, so it may sit one
+# bfloat16 step (2**-8 relative) from the rounding of the plain sum.
 TOL_F32 = 1e-5
 TOL_BF16 = 1e-4
 # RoI head on kernel vs plain RoIAlign features, and the card vs the CPU,
@@ -98,24 +124,27 @@ def phase_device():
 
 
 def phase_build():
-    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD
-    lib = ROI_ALIGN_FWD.library
+    from oadg_tpu_torch.ops._kernels import build_all
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library]
     t0 = time.perf_counter()
-    so = lib.build()
-    log("build", f"{lib.source.relative_to(ROOT)} -> {so.name} in "
-                 f"{time.perf_counter() - t0:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", f"ptxas: {line.strip()}")
-    lib.load()
+    built = build_all(libs)
+    log("build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s "
+                 "(one nvcc each, in parallel)")
+    for lib in libs:
+        log("build", f"{lib.source.relative_to(ROOT)} -> {built[lib.source.name].name}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"ptxas: {line.strip()}")
+        lib.load()
 
 
-def flagship_rois(rng):
-    """1000 seeded rois on one 1024x2048 image: ordinary boxes of log-uniform
-    size plus edge, out-of-range, extreme-aspect, tiny and zero (padded)
-    boxes, covering every level."""
-    n_special = 100
-    n = NUM_ROIS - n_special
+def flagship_rois(rng, num=NUM_ROIS, image=0):
+    """``num`` seeded rois on one 1024x2048 image: ordinary boxes of
+    log-uniform size plus edge, out-of-range, extreme-aspect, tiny and zero
+    (padded) boxes (a tenth), covering every level."""
+    n_special = num // 10 // 5 * 5
+    n = num - n_special
     w = np.exp(rng.uniform(np.log(4), np.log(1500), n))
     h = np.exp(rng.uniform(np.log(4), np.log(900), n))
     cx = rng.uniform(0, IMG_W, n)
@@ -132,14 +161,32 @@ def flagship_rois(rng):
             [10 + i, 100, 2000, 100 + 3 + i % 7],           # extreme aspect
             [500 + i, 300 + i, 500 + i + 0.5 * (i % 3), 300 + i],  # tiny / zero
         ]
-    boxes = np.concatenate([boxes, np.asarray(special)], 0).astype(np.float32)
-    return np.concatenate([np.zeros((NUM_ROIS, 1), np.float32), boxes], 1)
+    boxes = np.concatenate([boxes, np.asarray(special).reshape(-1, 4)],
+                           0).astype(np.float32)
+    return np.concatenate([np.full((num, 1), image, np.float32), boxes], 1)
+
+
+def training_rois(rng):
+    """The RoI head's rois of one training step at full size: 512 sampled
+    per image and 10 random proposals per image over 4 images."""
+    parts = [flagship_rois(rng, TRAIN_ROIS, b) for b in range(TRAIN_IMAGES)]
+    parts += [flagship_rois(rng, RANDOM_ROIS, b) for b in range(TRAIN_IMAGES)]
+    return np.concatenate(parts)
+
+
+def bound_ms(nbytes):
+    """Least time for ``nbytes`` of device-memory traffic on the card; both
+    kernels' FLOPs are negligible beside it."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernels():
     """Each kernel vs its plain version; returns the kernels' report rows."""
     import torch
-    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD, roi_align_multilevel_ref
+    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
+                                              distinct_taps,
+                                              roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
     rng = np.random.RandomState(0)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -147,6 +194,8 @@ def phase_kernels():
                          generator=gen).contiguous(memory_format=torch.channels_last)
              for s in STRIDES]
     rois = torch.from_numpy(flagship_rois(rng)).to(dev)
+    shapes = [f.shape for f in feats]
+    taps = distinct_taps(shapes, rois, 7, STRIDES, 2, 56)
     rows = []
     for name, fs, tol in (("f32", feats, TOL_F32),
                           ("bf16", [f.bfloat16() for f in feats], TOL_BF16)):
@@ -163,14 +212,77 @@ def phase_kernels():
         ms = cuda_ms(lambda: ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56), 50)
         plain_ms = cuda_ms(lambda: roi_align_multilevel_ref(fs, rois, 7, STRIDES,
                                                             2, 56), 10)
+        # output written once, each distinct tap cell's channels read once
+        nbytes = got.numel() * 4 + taps * CHANNELS * fs[0].element_size()
         log("kernels", f"roi_align_fwd {name}: kernel {ms:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms (CUDA-event medians, R={NUM_ROIS})")
+                       f"{plain_ms:.4f} ms (CUDA-event medians, R={NUM_ROIS}); "
+                       f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, "
+                       f"{taps} distinct tap cells)")
         if name == "f32":
             rows.append({"name": "roi_align_fwd", "route": "cuda",
                          "source": "oadg_tpu_torch/ops/csrc/roi_align_fwd.cu",
                          "replaces": "oadg_tpu/ops/pallas_roi_bwd.py:248",
                          "launches": None, "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms})
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                         "library_ms": None})
+
+    # B2 at the training shapes: 4 images, 2048 sampled + 40 random rois
+    feats = [torch.randn(TRAIN_IMAGES, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
+                         generator=gen).contiguous(memory_format=torch.channels_last)
+             for s in STRIDES]
+    rois = torch.from_numpy(training_rois(rng)).to(dev)
+    r = rois.shape[0]
+    dy = torch.randn(r, CHANNELS, 7, 7, device=dev, generator=gen)
+    shapes = [f.shape for f in feats]
+    taps = distinct_taps(shapes, rois, 7, STRIDES, 2, 56)
+    table = sum(math.prod(sh) for sh in shapes)
+    want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, STRIDES, 2, 56)
+    scale = max(float(w.abs().max()) for w in want)
+    for name, fs in (("f32", feats), ("bf16", [f.bfloat16() for f in feats])):
+        got = ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+        if name == "f32":
+            limit = TOL_F32 * scale
+            ok = err <= limit
+        else:
+            limit = TOL_BF16 * scale
+            ok = all(bool(((g.float() - w).abs() <= 2 ** -8 * w.abs() + limit).all())
+                     for g, w in zip(got, want))
+        ok = ok and all(g.dtype == fs[0].dtype and g.shape == f.shape
+                        and bool(torch.isfinite(g).all()) for g, f in zip(got, fs))
+        log("kernels", f"roi_align_bwd {name}: {len(got)} levels, R={r}, "
+                       f"max_abs_err {err:.3e} (limit {limit:.3e}"
+                       f"{' + 2^-8 |value|' if name == 'bf16' else ''}; largest "
+                       f"gradient {scale:.3e})")
+        if not ok:
+            raise AssertionError(f"roi_align_bwd {name} disagrees with the plain "
+                                 f"version: {err} > {limit}")
+        ms = cuda_ms(lambda: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), 20)
+        plain_ms = cuda_ms(lambda: roi_align_multilevel_ref_backward(
+            dy, shapes, rois, 7, STRIDES, 2, 56), 5)
+        # dy read once, the f32 table zeroed once, each distinct tap cell's
+        # channels read and written once; bf16 adds the cast (f32 read, bf16
+        # write)
+        nbytes = dy.numel() * 4 + table * 4 + 2 * taps * CHANNELS * 4
+        if name == "bf16":
+            nbytes += table * (4 + 2)
+        log("kernels", f"roi_align_bwd {name}: kernel {ms:.4f} ms, plain "
+                       f"{plain_ms:.4f} ms (CUDA-event medians, zeroed table "
+                       f"included); bound {bound_ms(nbytes):.4f} ms "
+                       f"({nbytes / 1e6:.1f} MB: dy {dy.numel() * 4 / 1e6:.1f}, "
+                       f"table {table * 4 / 1e6:.1f}, {taps} distinct tap cells)")
+        if name == "f32":
+            rows.append({"name": "roi_align_bwd", "route": "cuda",
+                         "source": "oadg_tpu_torch/ops/csrc/roi_align_bwd.cu",
+                         "replaces": "oadg_tpu/ops/pallas_roi_bwd.py:316",
+                         "launches": None, "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                         "library_ms": None})
+    del feats, want, got
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -205,7 +317,7 @@ def phase_slice(rows):
                  f"{statistics.median(latencies):.3f}; roi_align_fwd launches {launches}")
     if launches != 3:
         raise AssertionError(f"roi_align_fwd launched {launches} times in 3 requests")
-    rows[0]["launches"] = launches
+    rows[0]["launches_serving"] = launches
 
     for dets, labels, valid in results:
         if tuple(dets.shape) != (1, 100, 5) or not torch.isfinite(dets).all():
@@ -228,9 +340,9 @@ def phase_slice(rows):
                                                  batch["img_shape"])
         rois = det.roi_head.proposals_to_rois(boxes)
         head = det.roi_head.bbox_head
-        cls_k, reg_k = head(det.roi_head.bbox_roi_extractor(feats, rois))
+        cls_k, reg_k, _ = head(det.roi_head.bbox_roi_extractor(feats, rois))
         ex = det.roi_head.bbox_roi_extractor
-        cls_p, reg_p = head(roi_align_multilevel_ref(
+        cls_p, reg_p, _ = head(roi_align_multilevel_ref(
             feats[:len(ex.featmap_strides)], rois, 7, ex.featmap_strides,
             ex.sampling_ratio, ex.finest_scale))
     for name, a, b in (("cls_score", cls_k, cls_p), ("bbox_pred", reg_k, reg_p)):
@@ -268,6 +380,266 @@ def phase_reference(handle):
         check_close("reference", f"RoI head {name} card vs CPU", a, b)
 
 
+def train_batch(rng, h, w, cfg, device):
+    """2 images x 2 views, views-major, through ``prepare_image``: seeded
+    uint8 images, view 2 each image with seeded noise (OA-Mix is not ported
+    yet), and 32 seeded gts of log-uniform size over the 8 classes, the same
+    in both views."""
+    import torch
+    from oadg_tpu_torch.apis import prepare_image
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
+    views = [np.clip(im.astype(np.int16) + rng.randint(-24, 25, im.shape), 0, 255)
+             .astype(np.uint8) for im in images]
+    parts = [prepare_image(im, cfg, device) for im in images + views]
+    bw = np.exp(rng.uniform(np.log(16), np.log(w / 2), (2, NUM_GTS)))
+    bh = np.exp(rng.uniform(np.log(16), np.log(h / 2), (2, NUM_GTS)))
+    x1 = rng.uniform(0, w - bw)
+    y1 = rng.uniform(0, h - bh)
+    gt = np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32)
+    labels = rng.randint(0, 8, (2, NUM_GTS))
+    img = torch.cat([b["img"] for b in parts])
+    if img.is_cuda:
+        img = img.contiguous(memory_format=torch.channels_last)
+    return {"img": img,
+            "img_shape": torch.cat([b["img_shape"] for b in parts]),
+            "gt_bboxes": torch.from_numpy(np.concatenate([gt, gt])).to(device),
+            "gt_labels": torch.from_numpy(np.concatenate([labels, labels])).to(device),
+            "gt_valid": torch.ones((4, NUM_GTS), dtype=torch.bool, device=device)}
+
+
+def build_trainer(device, cfg):
+    """The flagship built for OA-DG training with seeded random weights,
+    SGD and the config's LR schedule, through the port's entry points."""
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
+                                       make_train_step)
+    handle = init_detector(cfg, device=device, seed=0, num_views=cfg["num_views"])
+    steps_per_epoch = -(-CITYSCAPES_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])
+    step = make_train_step(
+        handle.model, build_optimizer(handle.model, cfg["optimizer"]),
+        build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"], steps_per_epoch))
+    return handle.model, step
+
+
+class _RecordingBackward:
+    """Stands in for ``ROI_ALIGN_BWD`` for one step: calls it and keeps its
+    inputs and outputs, so that the gradient the kernel gave inside the
+    path can be held to the plain backward on the same ``dy``."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.calls = []
+
+    def __call__(self, feats, rois, grad_out, *cfg):
+        out = self.kernel(feats, rois, grad_out, *cfg)
+        self.calls.append(([f.shape for f in feats], rois.clone(), grad_out.clone(),
+                           cfg, [o.detach().clone() for o in out]))
+        return out
+
+
+def phase_train(rows):
+    import torch
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
+                                              roi_align_multilevel_ref_backward)
+    dev = torch.device("cuda", 0)
+    cfg = load_config(FLAGSHIP)
+    t0 = time.perf_counter()
+    model, step = build_trainer("cuda", cfg)
+    batch = train_batch(np.random.RandomState(3), IMG_H, IMG_W, cfg, dev)
+    log("train", f"flagship for training (num_views {cfg['num_views']}, f32, "
+                 f"channels-last) and a batch of 2 images x 2 views of "
+                 f"{IMG_H}x{IMG_W} in {time.perf_counter() - t0:.2f} s")
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    frozen = [k for k, p in params.items() if not p.requires_grad]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(batch, gen)                                           # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ROI_ALIGN_FWD.launches = ROI_ALIGN_BWD.launches = 0
+    times, logs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logs.append(step(batch, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd = ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches
+    peak = torch.cuda.max_memory_allocated()
+    for i, lv in enumerate(logs):
+        log("train", f"step {i + 1}: " + ", ".join(
+            f"{k} {float(v):.5f}" for k, v in lv.items()))
+    log("train", f"3 steps: ms {[round(t, 3) for t in times]}, median "
+                 f"{statistics.median(times):.3f}; max_memory_allocated "
+                 f"{peak / 2 ** 30:.2f} GiB; roi_align_fwd launches {fwd}, "
+                 f"roi_align_bwd launches {bwd}")
+    if (fwd, bwd) != (6, 6):
+        raise AssertionError(f"3 steps launched roi_align_fwd {fwd} and "
+                             f"roi_align_bwd {bwd} times, not 6 and 6")
+    rows[0]["launches"], rows[1]["launches"] = fwd, bwd
+    for lv in logs:
+        if not all(bool(torch.isfinite(v).all()) for v in lv.values()):
+            raise AssertionError(f"a loss is not finite: {lv}")
+        if not float(lv["loss_cont"]) > 0:
+            raise AssertionError("loss_cont is not positive")
+    still = [k for k, p in params.items() if p.requires_grad
+             and torch.equal(p.detach(), before[k])]
+    moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+    log("train", f"{len(params) - len(frozen)} trainable parameters, "
+                 f"{len(still)} unmoved; {len(frozen)} frozen (stem, layer1), "
+                 f"{len(moved)} moved")
+    if still or moved or not frozen:
+        raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}")
+
+    # One more step with B2's calls recorded: the level gradients the kernel
+    # gave inside the path against the plain backward on the same dy.
+    recorder = _RecordingBackward(ROI_ALIGN_BWD)
+    roi_align.ROI_ALIGN_BWD = recorder
+    step(batch, gen)
+    roi_align.ROI_ALIGN_BWD = ROI_ALIGN_BWD
+    torch.cuda.synchronize()
+    for i, (shapes, rois, dy, rcfg, got) in enumerate(recorder.calls):
+        want = roi_align_multilevel_ref_backward(dy, shapes, rois, *rcfg)
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+        log("train", f"roi_align_bwd call {i} in the step (R={rois.shape[0]}): "
+                     f"FPN-map gradients vs plain backward max_abs_err {err:.3e} "
+                     f"(limit {TOL_F32 * scale:.3e})")
+        if not err <= TOL_F32 * scale:
+            raise AssertionError(f"roi_align_bwd in the step disagrees: {err}")
+    if len(recorder.calls) != 2:
+        raise AssertionError(f"{len(recorder.calls)} backward calls in a step")
+    train_breakdown(model, step, batch, gen)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+
+def train_breakdown(model, step, batch, gen):
+    """The training step by stage, each ended by a synchronize (so the
+    stages add up to more than an unstaged step), medians of 3; then one
+    unstaged step under torch.profiler for the device's busy time."""
+    import torch
+    from oadg_tpu_torch.utils.draws import UniformDraws
+
+    def staged():
+        marks = [("start", time.perf_counter())]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        draws = UniformDraws(gen)
+        opt = step.optimizer
+        opt.zero_grad(set_to_none=True)
+        img = batch["img"]
+        feats = model.extract_feat(img)
+        mark("backbone + FPN forward")
+        cls_scores, bbox_preds = model.rpn_head(feats)
+        losses = model.rpn_head.loss(cls_scores, bbox_preds, batch["gt_bboxes"],
+                                     batch["gt_valid"], draws)
+        mark("RPN head, loss (assign, sample, targets)")
+        v = model.num_views
+        b = img.shape[0] // v
+        boxes, _, valid = model.rpn_head.get_proposals(
+            [s[:b] for s in cls_scores], [p[:b] for p in bbox_preds],
+            batch["img_shape"][:b], model.train_cfg["rpn_proposal"])
+        mark("proposals (top-k, decode, NMS)")
+        rp, rv = model._random_proposals(batch, draws)
+        losses.update(model.roi_head.loss(
+            feats, boxes.repeat(v, 1, 1), valid.repeat(v, 1), batch["gt_bboxes"],
+            batch["gt_valid"], batch["gt_labels"], draws, rp, rv))
+        mark("random proposals, RoI loss (sample, RoIAlign, head, losses)")
+        sum(x for k, x in losses.items() if "loss" in k).backward()
+        mark("backward")
+        opt.step()
+        mark("SGD step")
+        return [(n, (t - marks[i][1]) * 1e3) for i, (n, t) in enumerate(marks[1:])]
+
+    runs = [staged() for _ in range(3)]
+    for i, (name, _) in enumerate(runs[0]):
+        log("train-breakdown", f"{name}: {statistics.median(r[i][1] for r in runs):.3f} ms")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    log("train-breakdown", f"profiled step {wall:.3f} ms wall, device busy "
+                           f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    for e in top:
+        log("train-breakdown", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                               f"x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_train_reference():
+    """One step's losses and gradients, CPU vs card, on 256x512 views."""
+    import torch
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = torch.device("cuda", 0)
+    cfg = load_config(FLAGSHIP)
+    card, _ = build_trainer("cuda", cfg)
+    cpu, _ = build_trainer("cpu", cfg)
+    batch = train_batch(np.random.RandomState(4), 256, 512, cfg, "cpu")
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    card_batch["img"] = card_batch["img"].contiguous(memory_format=torch.channels_last)
+
+    # The card's proposals go to both: the sampler's draws are per candidate,
+    # so proposals in another order (near-tied objectness of random weights)
+    # would sample other rois. The CPU's own proposals are reported.
+    proposals = {}
+    card_props = card.rpn_head.get_proposals
+    cpu_props = cpu.rpn_head.get_proposals
+
+    def record(*args):
+        proposals["card"] = card_props(*args)
+        return proposals["card"]
+
+    def replay(*args):
+        proposals["cpu"] = cpu_props(*args)
+        return tuple(t.cpu() for t in proposals["card"])
+
+    card.rpn_head.get_proposals = record
+    cpu.rpn_head.get_proposals = replay
+    def one_step(model, b, draws):
+        losses = model.forward_train(b, draws)
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        return losses, dict(model.named_parameters())
+
+    draws = UniformDraws(torch.Generator().manual_seed(7))       # made on the CPU
+    lc, pc = one_step(card, card_batch, draws)
+    lh, ph = one_step(cpu, batch, UniformDraws(given=draws.drawn))
+    (bc, _, vc), (bh, _, vh) = proposals["card"], proposals["cpu"]
+    same = (vc.cpu() == vh) & ((bc.cpu() - bh).abs().max(-1).values < 1e-2)
+    log("train-reference", f"CPU proposals equal to the card's in place: "
+                           f"{int(same.sum())} of {int(vc.sum())} valid")
+    for k in sorted(lc):
+        if "loss" not in k:
+            continue
+        a, b = float(lc[k].detach()), float(lh[k].detach())
+        err = abs(a - b) / max(abs(b), 1e-6)
+        log("train-reference", f"{k}: card {a:.6f} CPU {b:.6f} rel err {err:.2e} "
+                               "(limit 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"{k} card vs CPU: {a} vs {b}")
+    names = [k for k in ph if k.startswith(("rpn_head.rpn_conv.",
+                                            "roi_head.bbox_head.fc_cls."))
+             or (k.startswith("backbone.layer4.") and ".conv3." in k)]
+    for k in names:
+        want = ph[k].grad
+        err = float((pc[k].grad.cpu() - want).abs().max())
+        lim = 1e-3 * float(want.abs().max())
+        log("train-reference", f"grad {k}: max_abs_err {err:.3e} (limit {lim:.3e})")
+        if not err <= lim:
+            raise AssertionError(f"grad {k} card vs CPU: {err} > {lim}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -281,6 +653,9 @@ def main():
     rows = phase_kernels()
     handle = phase_slice(rows)
     phase_reference(handle)
+    del handle
+    phase_train(rows)
+    phase_train_reference()
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

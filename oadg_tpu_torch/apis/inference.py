@@ -38,8 +38,9 @@ class DetectorHandle:
 
 def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
                   device: Union[str, torch.device] = "cuda",
-                  seed: int = 0) -> DetectorHandle:
-    """Build ``config`` (a path or a loaded config) on ``device``.
+                  seed: int = 0, num_views: int = 1) -> DetectorHandle:
+    """Build ``config`` (a path or a loaded config) on ``device``;
+    ``num_views`` > 1 builds it for OA-DG training on views-major batches.
 
     Weights come from ``checkpoint`` (a ``torch.save``d ``state_dict``, or a
     dict holding one under ``"state_dict"``, loaded strictly) or, without
@@ -52,7 +53,8 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
                            "available; pass device='cpu' to run on the CPU")
     if isinstance(config, (str, os.PathLike)):
         config = load_config(config)
-    model = build_detector(dict(config["model"]), device=device)
+    model = build_detector(dict(config["model"]), device=device,
+                           num_views=num_views)
     if checkpoint is not None:
         sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
         sd = sd.get("state_dict", sd)

@@ -3,7 +3,8 @@
 Base anchors per level from ratios x scales around a stride-sized cell
 (ratio-major), computed in numpy float32 exactly as the JAX package does;
 ``grid_priors`` (``:89``) lays them out location-major with the anchors
-innermost, the (H, W, A) order of the head's NHWC-flattened outputs.
+innermost, the (H, W, A) order of the head's NHWC-flattened outputs, and
+``grid_priors_cat`` (``:97``) concatenates the levels.
 """
 from __future__ import annotations
 
@@ -57,3 +58,8 @@ class AnchorGenerator:
                        + shifts[:, :, None, :])
             out.append(anchors.reshape(-1, 4))
         return out
+
+    def grid_priors_cat(self, featmap_sizes: Sequence[Tuple[int, int]],
+                        device=None) -> torch.Tensor:
+        """All levels' anchors concatenated, (sum H * W * A, 4)."""
+        return torch.cat(self.grid_priors(featmap_sizes, device))

@@ -1,0 +1,175 @@
+"""Assigner and sampler as static-shape masked tensor ops (port of
+``oadg_tpu/core/bbox/assign_sample.py``: ``MaxIoUAssigner`` ``:85-172``,
+``RandomSampler`` ``:219-305``, ``_random_rank`` ``:175``).
+
+Every function takes leading batch dimensions where the JAX package vmaps
+over images. Assignment codes match mmdet: -1 ignore, 0 negative, j + 1
+matched gt j. The samplers draw nothing themselves: they take uniform
+[0, 1) draws (``utils/draws.py``), so that a test can hand them the numbers
+``jax.random.uniform`` drew. ``topk_large`` (``:22``), a TPU decomposition
+of top-k, is ``torch.topk``; argsorts are stable, as ``jnp.argsort`` is.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ...utils.registry import BBOX_ASSIGNERS, BBOX_SAMPLERS
+from .geometry import bbox_overlaps
+
+
+class AssignResult(NamedTuple):
+    gt_inds: torch.Tensor       # (..., N) int64: -1 ignore / 0 neg / j + 1 pos
+    max_overlaps: torch.Tensor  # (..., N) float32
+    labels: torch.Tensor        # (..., N) int64 label of the match, -1 otherwise
+
+
+class SamplingResult(NamedTuple):
+    """``num`` sampled candidates per image: positives first, then
+    negatives, then arbitrary rows that ``valid`` masks."""
+    inds: torch.Tensor          # (..., num) indices into the candidates
+    is_pos: torch.Tensor        # (..., num) bool
+    valid: torch.Tensor         # (..., num) bool
+    gt_inds: torch.Tensor       # (..., num) assignment code of each row
+    labels: torch.Tensor        # (..., num) matched gt label of each row
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` along the last dim, batched."""
+    return torch.gather(x, -1, idx)
+
+
+@BBOX_ASSIGNERS.register_module()
+class MaxIoUAssigner:
+    """Static-shape MaxIoU assignment; arguments as the config names them."""
+
+    def __init__(self, pos_iou_thr: float, neg_iou_thr, min_pos_iou: float = .0,
+                 gt_max_assign_all: bool = True, ignore_iof_thr: float = -1,
+                 ignore_wrt_candidates: bool = True,
+                 match_low_quality: bool = True, gpu_assign_thr: int = -1,
+                 iou_calculator=None):
+        self.pos_iou_thr = pos_iou_thr
+        self.neg_iou_thr = neg_iou_thr
+        self.min_pos_iou = min_pos_iou
+        self.gt_max_assign_all = gt_max_assign_all
+        self.match_low_quality = match_low_quality
+
+    def assign(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
+               gt_valid: torch.Tensor, gt_labels: Optional[torch.Tensor] = None,
+               box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        """Assign (..., N, 4) candidates to (..., G, 4) padded gts.
+
+        ``gt_valid`` (..., G) marks real gts (a padded gt overlaps nothing,
+        so an image without gts is all negative); ``box_valid`` (..., N)
+        marks real candidates (the rest are ignored)."""
+        ious = bbox_overlaps(bboxes, gt_bboxes)                 # (..., N, G)
+        ious = torch.where(gt_valid[..., None, :], ious, torch.zeros_like(ious))
+        return self.assign_from_ious(ious, gt_valid, gt_labels, box_valid)
+
+    def assign_from_ious(self, ious: torch.Tensor, gt_valid: torch.Tensor,
+                         gt_labels: Optional[torch.Tensor] = None,
+                         box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        n, g = ious.shape[-2:]
+        max_overlaps = ious.max(dim=-1).values
+        argmax = ious.argmax(dim=-1)                            # first maximum
+        assigned = torch.full_like(argmax, -1)
+        if isinstance(self.neg_iou_thr, (tuple, list)):
+            lo, hi = self.neg_iou_thr
+            neg = (max_overlaps >= lo) & (max_overlaps < hi)
+        else:
+            neg = (max_overlaps >= 0) & (max_overlaps < self.neg_iou_thr)
+        assigned = torch.where(neg, torch.zeros_like(assigned), assigned)
+        assigned = torch.where(max_overlaps >= self.pos_iou_thr, argmax + 1, assigned)
+        if self.match_low_quality:
+            # every candidate at a gt's maximum IoU goes to that gt; the
+            # reference loops over gts in order, so the highest index wins
+            gt_max = ious.max(dim=-2, keepdim=True).values      # (..., 1, G)
+            cond = ((ious == gt_max) & gt_valid[..., None, :]
+                    & (gt_max >= self.min_pos_iou) & (gt_max > 0))
+            if not self.gt_max_assign_all:
+                rows = torch.arange(n, device=ious.device)[:, None]
+                cond = cond & (rows == ious.argmax(dim=-2, keepdim=True))
+            gt_ids = torch.arange(1, g + 1, device=ious.device)
+            override = torch.where(cond, gt_ids, torch.zeros_like(gt_ids)).max(dim=-1).values
+            assigned = torch.where(override > 0, override, assigned)
+        if box_valid is not None:
+            assigned = torch.where(box_valid, assigned, torch.full_like(assigned, -1))
+        if gt_labels is not None:
+            matched = (assigned - 1).clamp(0, g - 1)
+            labels = torch.where(assigned > 0, _gather(gt_labels.long(), matched),
+                                 torch.full_like(assigned, -1))
+        else:
+            labels = torch.full_like(assigned, -1)
+        return AssignResult(assigned, max_overlaps, labels)
+
+
+def _random_rank(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rank (0-based) of each True element in the random order the draws
+    ``u`` give; False elements rank after every True one."""
+    scores = u + torch.where(mask, 0.0, 2.0)
+    order = torch.argsort(scores, dim=-1, stable=True)
+    ar = torch.arange(u.shape[-1], device=u.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, ar)
+
+
+@BBOX_SAMPLERS.register_module()
+class RandomSampler:
+    """Up to ``num * pos_fraction`` random positives, the rest random
+    negatives. ``add_gt_as_proposals`` is the caller's (the RoI head puts
+    the gts in front of the candidates)."""
+
+    def __init__(self, num: int, pos_fraction: float, neg_pos_ub: int = -1,
+                 add_gt_as_proposals: bool = True, **kwargs):
+        self.num = num
+        self.pos_fraction = pos_fraction
+        self.neg_pos_ub = neg_pos_ub
+        self.add_gt_as_proposals = add_gt_as_proposals
+
+    @property
+    def max_pos(self) -> int:
+        return int(round(self.num * self.pos_fraction))
+
+    def sample(self, assign: AssignResult, u_pos: torch.Tensor,
+               u_neg: torch.Tensor) -> SamplingResult:
+        """Fixed-size sample; ``u_pos``, ``u_neg`` (..., N) uniform draws
+        order the positives and the negatives."""
+        is_pos_all = assign.gt_inds > 0
+        is_neg_all = assign.gt_inds == 0
+        pos_rank = _random_rank(u_pos, is_pos_all)
+        pos_sel = is_pos_all & (pos_rank < self.max_pos)
+        num_pos = pos_sel.sum(dim=-1, keepdim=True)
+        neg_needed = self.num - num_pos
+        if self.neg_pos_ub >= 0:
+            neg_needed = torch.minimum(neg_needed,
+                                       self.neg_pos_ub * num_pos.clamp(min=1))
+        neg_rank = _random_rank(u_neg, is_neg_all)
+        neg_sel = is_neg_all & (neg_rank < neg_needed)
+        n = assign.gt_inds.shape[-1]
+        rest = 1e8 + torch.arange(n, dtype=torch.float32, device=u_pos.device)
+        sort_key = torch.where(pos_sel, pos_rank.float(),
+                               torch.where(neg_sel, 1e4 + neg_rank.float(), rest))
+        inds = torch.argsort(sort_key, dim=-1, stable=True)[..., :self.num]
+        return SamplingResult(inds=inds, is_pos=_gather(pos_sel, inds),
+                              valid=_gather(pos_sel | neg_sel, inds),
+                              gt_inds=_gather(assign.gt_inds, inds),
+                              labels=_gather(assign.labels, inds))
+
+    def sample_masks(self, assign: AssignResult, u_pos: torch.Tensor,
+                     u_neg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mask-only sample for dense heads: (pos, neg) masks over all
+        candidates, each a top-k of the draws over its candidates."""
+        is_pos_all = assign.gt_inds > 0
+        is_neg_all = assign.gt_inds == 0
+        n = is_pos_all.shape[-1]
+
+        def pick(u, mask, k, cutoff):
+            k = min(k, n)
+            vals, idx = torch.topk(u + torch.where(mask, 0.0, -2.0), k, dim=-1)
+            keep = (vals > -1.0) & (torch.arange(k, device=u.device) < cutoff)
+            return torch.zeros_like(mask).scatter_(-1, idx, keep)
+
+        pos_sel = pick(u_pos, is_pos_all, self.max_pos, self.max_pos)
+        neg_needed = self.num - pos_sel.sum(dim=-1, keepdim=True)
+        neg_sel = pick(u_neg, is_neg_all, self.num, neg_needed)
+        return pos_sel, neg_sel

@@ -4,7 +4,11 @@
 (``norm_eval=True``), depths 18 and 34 (``BasicBlock``) and 50, 101, 152
 (``Bottleneck``). mmdet module names, so ``state_dict`` keys read
 ``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight`` and so on.
-``frozen_stages`` only matters to training and is accepted for the config.
+
+Training: ``frozen_stages`` (>= 0) sets ``requires_grad=False`` on the stem
+(``conv1``, ``bn1``) and ``layer1`` .. ``layer<frozen_stages>``, the direct
+children that ``oadg_tpu/engine/optim.py:frozen_mask`` (``:39-62``) masks;
+``norm_cfg.requires_grad=False`` freezes every BN affine as well.
 """
 from __future__ import annotations
 
@@ -20,21 +24,22 @@ def _conv(cin, cout, k, stride=1, padding=0, device=None):
     return Conv(cin, cout, k, stride, padding, bias=False, device=device)
 
 
-def _downsample(cin, cout, stride, device):
+def _downsample(cin, cout, stride, bn_grad, device):
     return nn.Sequential(_conv(cin, cout, 1, stride, device=device),
-                         FrozenBN(cout, device=device))
+                         FrozenBN(cout, requires_grad=bn_grad, device=device))
 
 
 class BasicBlock(nn.Module):
     """``oadg_tpu/models/backbones/resnet.py:52``."""
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None, device=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 bn_grad=True, device=None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, 1, device=device)
-        self.bn1 = FrozenBN(planes, device=device)
+        self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.conv2 = _conv(planes, planes, 3, 1, 1, device=device)
-        self.bn2 = FrozenBN(planes, device=device)
+        self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -49,14 +54,15 @@ class Bottleneck(nn.Module):
     """``oadg_tpu/models/backbones/resnet.py:76`` in ``pytorch`` style."""
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None, device=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 bn_grad=True, device=None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1, device=device)
-        self.bn1 = FrozenBN(planes, device=device)
+        self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.conv2 = _conv(planes, planes, 3, stride, 1, device=device)
-        self.bn2 = FrozenBN(planes, device=device)
+        self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.conv3 = _conv(planes, planes * 4, 1, device=device)
-        self.bn3 = FrozenBN(planes * 4, device=device)
+        self.bn3 = FrozenBN(planes * 4, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -96,9 +102,10 @@ class ResNet(nn.Module):
             raise NotImplementedError(f"norm {norm_cfg['type']}")
         block, blocks = ARCH[depth]
         blocks = blocks[:num_stages]
+        bn_grad = dict(norm_cfg or {}).get("requires_grad", True) is not False
         self.out_indices = tuple(out_indices)
         self.conv1 = _conv(3, stem_channels, 7, 2, 3, device=device)
-        self.bn1 = FrozenBN(stem_channels, device=device)
+        self.bn1 = FrozenBN(stem_channels, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         inplanes = stem_channels
         self.res_layers = []
@@ -110,12 +117,17 @@ class ResNet(nn.Module):
                 ds = None
                 if j == 0 and (stride != 1 or inplanes != planes * block.expansion):
                     ds = _downsample(inplanes, planes * block.expansion, stride,
-                                     device)
-                layers.append(block(inplanes, planes, stride, ds, device=device))
+                                     bn_grad, device)
+                layers.append(block(inplanes, planes, stride, ds, bn_grad,
+                                    device=device))
                 inplanes = planes * block.expansion
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*layers))
             self.res_layers.append(name)
+        frozen = ([self.conv1, self.bn1] if frozen_stages >= 0 else []) + [
+            getattr(self, f"layer{i}") for i in range(1, frozen_stages + 1)]
+        for module in frozen:
+            module.requires_grad_(False)
 
     def forward(self, x):
         x = max_pool_3x3_s2(self.relu(self.bn1(self.conv1(x))))

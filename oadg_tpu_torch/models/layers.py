@@ -8,7 +8,9 @@ Counterparts:
   ``FrozenBN``.
 - ``FrozenBN`` <- ``FrozenBN`` (``:202``) in its frozen mode
   (``norm_eval=True``): ``y = x * w + b`` with ``w = weight / sqrt(var + eps)``
-  and ``b = bias - mean * w``, as the JAX package folds it.
+  and ``b = bias - mean * w``, as the JAX package folds it. The statistics
+  never update; ``weight`` and ``bias`` are trainable unless the config's
+  ``norm_cfg.requires_grad`` is False (``oadg_tpu/engine/optim.py:35-62``).
 - ``ConvModule`` <- mmcv's ConvModule without norm or activation, the form
   FPN uses, so ``state_dict`` keys read ``....conv.weight``.
 - ``max_pool_3x3_s2`` <- ``max_pool_3x3_s2`` (``:426``).
@@ -47,16 +49,18 @@ class ConvModule(nn.Module):
 
 class FrozenBN(nn.Module):
     """BatchNorm with stored statistics that never update (mmdet
-    ``norm_eval=True``); the keys match ``nn.BatchNorm2d`` without
+    ``norm_eval=True``) and an affine ``weight`` / ``bias`` that trains when
+    ``requires_grad``; the keys match ``nn.BatchNorm2d`` without
     ``num_batches_tracked``."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 requires_grad: bool = True, device=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features, device=device),
-                                   requires_grad=False)
+                                   requires_grad=requires_grad)
         self.bias = nn.Parameter(torch.zeros(num_features, device=device),
-                                 requires_grad=False)
+                                 requires_grad=requires_grad)
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 

@@ -1,18 +1,20 @@
 """Box heads (port of ``oadg_tpu/models/roi_heads/bbox_heads.py:37,204``):
 flatten the (C, 7, 7) RoI features, two shared FCs with ReLU, then the
-classifier (C + 1) and the class-wise box regressor (4 C). The contrastive
-head adds ``fc_cont``, whose weights load but which the test path does not
-evaluate (the JAX package discards it at test). mmdet keys:
-``shared_fcs.0.weight`` (input flattened C, H, W), ``fc_cls``, ``fc_reg``,
-``fc_cont.i``."""
+classifier (C + 1), the class-wise box regressor (4 C) and, in the
+contrastive head, the embedding MLP ``fc_cont`` (ReLU between its layers,
+none after the last; the test path discards it). ``get_targets`` and
+``loss`` (``:117-174``) are the static-shape training targets and losses.
+mmdet keys: ``shared_fcs.0.weight`` (input flattened C, H, W), ``fc_cls``,
+``fc_reg``, ``fc_cont.i``."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ...core.bbox.coder import DeltaXYWHBBoxCoder
-from ...utils.registry import HEADS
+from ...utils.registry import HEADS, LOSSES, build_from_cfg
 from ..layers import lecun_normal_, normal_, xavier_uniform_
+from ..losses.common import accuracy
 
 
 @HEADS.register_module()
@@ -31,6 +33,9 @@ class Shared2FCBBoxHead(nn.Module):
         self.bbox_coder = DeltaXYWHBBoxCoder(**coder)
         self.num_classes = num_classes
         self.reg_class_agnostic = reg_class_agnostic
+        self.loss_cls_cfg = dict(loss_cls or dict(type="CrossEntropyLoss"))
+        self.loss_bbox_cfg = dict(loss_bbox or dict(type="SmoothL1Loss", beta=1.0))
+        self.loss_cont_cfg = dict(loss_cont) if loss_cont else None
         flat = in_channels * roi_feat_size * roi_feat_size
         self.shared_fcs = nn.ModuleList([
             nn.Linear(flat, fc_out_channels, device=device),
@@ -60,11 +65,58 @@ class Shared2FCBBoxHead(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def forward(self, roi_feats: torch.Tensor):
-        """(R, C, 7, 7) -> cls_score (R, C + 1), bbox_pred (R, 4 C)."""
+        """(R, C, 7, 7) -> cls_score (R, C + 1), bbox_pred (R, 4 C), and the
+        contrastive embedding (R, feat_channels) or None."""
         x = roi_feats.flatten(1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
-        return self.fc_cls(x), self.fc_reg(x)
+        cont = None
+        if hasattr(self, "fc_cont"):
+            cont = x
+            for i, fc in enumerate(self.fc_cont):
+                cont = fc(cont)
+                if i < len(self.fc_cont) - 1:
+                    cont = torch.relu(cont)
+        return self.fc_cls(x), self.fc_reg(x), cont
+
+    def get_targets(self, boxes, labels, is_pos, valid, matched_gt,
+                    pos_weight: float = -1.0):
+        """Targets of sampled rows, any leading dims (``:117-142``).
+
+        Args: boxes (..., 4) sampled proposals; labels (...) matched gt
+        labels; is_pos, valid (...) bool; matched_gt (..., 4).
+
+        Returns labels (background = num_classes), label weights, encoded
+        deltas and box weights (1 on positives).
+        """
+        tgt_labels = torch.where(is_pos, labels, self.num_classes)
+        pw = 1.0 if pos_weight <= 0 else pos_weight
+        label_w = torch.where(valid, torch.where(is_pos, pw, 1.0), 0.0)
+        deltas = self.bbox_coder.encode(boxes, matched_gt)
+        bbox_w = is_pos.float()[..., None].expand(deltas.shape)
+        return tgt_labels, label_w, deltas, bbox_w
+
+    def loss(self, cls_score, bbox_pred, labels, label_weights, bbox_targets,
+             bbox_weights):
+        """``loss_cls`` averaged over the rows with a label weight, ``acc``
+        (logged, never summed), ``loss_bbox`` over the positive rows of the
+        target class averaged over all rows (``:146-174``)."""
+        avg_factor = (label_weights > 0).sum().clamp(min=1).float()
+        loss_cls = build_from_cfg(self.loss_cls_cfg, LOSSES)
+        loss_bbox = build_from_cfg(self.loss_bbox_cfg, LOSSES)
+        r = bbox_pred.shape[0]
+        if self.reg_class_agnostic:
+            pos_pred = bbox_pred.reshape(r, 4)
+        else:
+            safe = labels.clamp(0, self.num_classes - 1)
+            pos_pred = torch.gather(bbox_pred.reshape(r, -1, 4), 1,
+                                    safe[:, None, None].expand(r, 1, 4))[:, 0]
+        return dict(
+            loss_cls=loss_cls(cls_score.float(), labels, label_weights,
+                              avg_factor=avg_factor),
+            acc=accuracy(cls_score.detach(), labels, (label_weights > 0).float()),
+            loss_bbox=loss_bbox(pos_pred.float(), bbox_targets, bbox_weights,
+                                avg_factor=float(r)))
 
     def get_bboxes(self, rois, cls_score, bbox_pred, img_shapes, scale_factors,
                    rescale: bool = False):

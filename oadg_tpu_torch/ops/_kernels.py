@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface. At first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``oadg_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``. The library's file name carries a hash of its source and flags, so
-an edited source is rebuilt and a fresh checkout builds from its own sources.
-A missing ``nvcc`` or a failed build raises; nothing falls back.
+``ctypes``. The library's file name carries a hash of its source, the
+``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and a
+fresh checkout builds from its own sources. ``build_all`` starts one ``nvcc``
+per library at once. A missing ``nvcc`` or a failed build raises; nothing
+falls back.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -53,25 +55,43 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.source.stem}_{digest[:16]}.so"
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
-    def build(self) -> Path:
-        """Compile the source unless the library for its hash exists."""
+    def start_build(self) -> Optional[Tuple[subprocess.Popen, Path, Path]]:
+        """Start nvcc unless the library for the hash exists; returns what
+        ``finish_build`` waits for, or None."""
         so = self.library_path()
         if so.is_file():
-            return so
+            return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {res.returncode} "
-                               f"for {self.source.name}:\n{res.stdout}{res.stderr}")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, so
+
+    def finish_build(self, started, out: Optional[str] = None) -> Path:
+        """Wait for the nvcc that ``start_build`` started (``out``: its
+        output, when the caller has already waited) and install the library."""
+        if started is None:
+            return self.library_path()
+        proc, tmp, so = started
+        if out is None:
+            out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode} "
+                               f"for {self.source.name}:\n{out}")
         os.replace(tmp, so)   # atomic: concurrent builders never see a partial file
-        self.build_log = res.stdout + res.stderr
+        self.build_log = out
         return so
+
+    def build(self) -> Path:
+        """Compile the source unless the library for its hash exists."""
+        return self.finish_build(self.start_build())
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -82,3 +102,13 @@ class CudaLibrary:
                 fn.argtypes = list(argtypes)
             self._lib = lib
         return self._lib
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, Path]:
+    """Build every library with one ``nvcc`` each, all started together;
+    returns source name -> library path. A failed build raises once every
+    nvcc has ended."""
+    started = [(lib, lib.start_build()) for lib in libraries]
+    ended = [(lib, st, st[0].communicate()[0] if st else None)
+             for lib, st in started]
+    return {lib.source.name: lib.finish_build(st, out) for lib, st, out in ended}

@@ -8,19 +8,8 @@
 // only DMA a fixed window per roi; here every roi reads its taps directly, so
 // one launch covers every roi and there are no window classes.
 //
-// Semantics (oadg_tpu/ops/roi_align.py:123-243):
-//   level  = clamp(floor(log2(sqrt(area) / finest_scale + 1e-6)), 0, L-1)
-//   x1     = roi_x1 * scale[level] - 0.5          (scale = f32(1/stride))
-//   bin_w  = (x2 - x1) / 7,  sample x = x1 + (ox + (s + 0.5) / 2) * bin_w
-//   a sample outside (-1, W) x (-1, H) contributes 0; otherwise it is clamped
-//   to [0, W-1] x [0, H-1] and the high tap saturates at the edge;
-//   each bin is the mean of its 2x2 samples.
-// The geometry is rounded exactly as XLA evaluates the JAX package's
-// formula: a division by a constant becomes a product with its f32
-// reciprocal, and a multiply-add is one fused fma. The plain version computes
-// the same
-// roundings, so tap indices and weights agree bit for bit; only the order of
-// the final sums differs.
+// Semantics and rounding: roi_align_geometry.cuh, shared with the backward
+// kernel roi_align_bwd.cu so that both use the same taps and weights.
 //
 // What bounds it on the H100: gathered bytes. Each output value reads
 // 4 samples x 4 taps of one channel; the FLOPs are negligible. The design
@@ -39,14 +28,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "roi_align_geometry.cuh"
+
 namespace {
 
-constexpr int kOut = 7;                 // bins per side
-constexpr int kSr = 2;                  // samples per bin side
-constexpr int kS = kOut * kSr;          // samples per axis
-constexpr int kBins = kOut * kOut;
-constexpr int kMaxLevels = 4;
-constexpr int kChanTile = 128;          // threads per block = channels per block
+using namespace oadg_roi;
 
 struct Levels {
   const void* ptr[kMaxLevels];
@@ -65,49 +51,18 @@ __global__ void __launch_bounds__(kChanTile)
 roi_align_fwd_kernel(Levels lv, int num_levels, int batch, int channels,
                      const float* __restrict__ rois, float finest_scale,
                      float* __restrict__ out) {
-  __shared__ int s_lo[2][kS];           // [0] = x samples, [1] = y samples
-  __shared__ int s_hi[2][kS];
-  __shared__ float s_frac[2][kS];
-  __shared__ bool s_ok[2][kS];
+  __shared__ Samples s;
   __shared__ float s_out[kChanTile * kBins];
 
   const int r = blockIdx.x;
   const int c0 = blockIdx.y * kChanTile;
   const int tid = threadIdx.x;
   const float* roi = rois + static_cast<size_t>(r) * 5;
-  const float rx1 = roi[1], ry1 = roi[2], rx2 = roi[3], ry2 = roi[4];
-
-  // Level of this roi; every thread derives the same value.
-  const float area = __fmul_rn(__fsub_rn(rx2, rx1), __fsub_rn(ry2, ry1));
-  const float lvl_f = floorf(log2f(
-      __fmaf_rn(sqrtf(area), __fdiv_rn(1.f, finest_scale), 1e-6f)));
-  int lvl = 0;                          // NaN maps to level 0
-  if (lvl_f >= 0.f) lvl = static_cast<int>(fminf(lvl_f, num_levels - 1.f));
-  int b = static_cast<int>(roi[0]);
-  b = min(max(b, 0), batch - 1);
+  const int lvl = roi_level(roi, num_levels, finest_scale);
+  const int b = roi_batch(roi, batch);
   const int H = lv.h[lvl];
   const int W = lv.w[lvl];
-
-  if (tid < 2 * kS) {
-    const int axis = tid / kS;          // 0: x, 1: y
-    const int s = tid % kS;
-    const float lo = axis ? ry1 : rx1;
-    const float hi = axis ? ry2 : rx2;
-    const int size = axis ? H : W;
-    const float sc = lv.scale[lvl];
-    const float a = __fsub_rn(__fmul_rn(lo, sc), 0.5f);
-    const float e = __fsub_rn(__fmul_rn(hi, sc), 0.5f);
-    const float pos = static_cast<float>(s / kSr) +
-                      (static_cast<float>(s % kSr) + 0.5f) / kSr;
-    const float bin = __fmul_rn(__fsub_rn(e, a), 1.f / kOut);
-    const float p = __fmaf_rn(pos, bin, a);
-    const float pc = fminf(fmaxf(p, 0.f), static_cast<float>(size - 1));
-    const int i0 = static_cast<int>(floorf(pc));
-    s_ok[axis][s] = (p > -1.f) && (p < static_cast<float>(size));
-    s_lo[axis][s] = i0;
-    s_hi[axis][s] = min(i0 + 1, size - 1);
-    s_frac[axis][s] = pc - static_cast<float>(i0);
-  }
+  roi_samples(roi, lv.scale[lvl], H, W, tid, &s);
   __syncthreads();
 
   const int c = c0 + tid;
@@ -121,17 +76,17 @@ roi_align_fwd_kernel(Levels lv, int num_levels, int batch, int channels,
 #pragma unroll
         for (int sy = 0; sy < kSr; ++sy) {
           const int iy = oy * kSr + sy;
-          if (!s_ok[1][iy]) continue;
-          const T* r0 = base + s_lo[1][iy] * row;
-          const T* r1 = base + s_hi[1][iy] * row;
-          const float fy = s_frac[1][iy];
+          if (!s.ok[1][iy]) continue;
+          const T* r0 = base + s.lo[1][iy] * row;
+          const T* r1 = base + s.hi[1][iy] * row;
+          const float fy = s.frac[1][iy];
 #pragma unroll
           for (int sx = 0; sx < kSr; ++sx) {
             const int ix = ox * kSr + sx;
-            if (!s_ok[0][ix]) continue;
-            const size_t x0 = static_cast<size_t>(s_lo[0][ix]) * channels;
-            const size_t x1 = static_cast<size_t>(s_hi[0][ix]) * channels;
-            const float fx = s_frac[0][ix];
+            if (!s.ok[0][ix]) continue;
+            const size_t x0 = static_cast<size_t>(s.lo[0][ix]) * channels;
+            const size_t x1 = static_cast<size_t>(s.hi[0][ix]) * channels;
+            const float fx = s.frac[0][ix];
             const float top = to_f32(r0[x0]) * (1.f - fx) + to_f32(r0[x1]) * fx;
             const float bot = to_f32(r1[x0]) * (1.f - fx) + to_f32(r1[x1]) * fx;
             acc += top * (1.f - fy) + bot * fy;

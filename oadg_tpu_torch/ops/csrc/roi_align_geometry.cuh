@@ -1,0 +1,81 @@
+// Per-roi sample geometry shared by the RoIAlign forward (roi_align_fwd.cu)
+// and backward (roi_align_bwd.cu) kernels, so that both read and write the
+// same taps with the same weights: 7x7 bins, sampling_ratio 2, aligned=True,
+// CUDA out-of-range rule, up to four FPN levels.
+//
+// Semantics (oadg_tpu/ops/roi_align.py:123-309):
+//   level  = clamp(floor(log2(sqrt(area) / finest_scale + 1e-6)), 0, L-1)
+//   x1     = roi_x1 * scale[level] - 0.5          (scale = f32(1/stride))
+//   bin_w  = (x2 - x1) / 7,  sample x = x1 + (ox + (s + 0.5) / 2) * bin_w
+//   a sample outside (-1, W) x (-1, H) contributes 0; otherwise it is clamped
+//   to [0, W-1] x [0, H-1] and the high tap saturates at the edge.
+// The geometry is rounded exactly as XLA evaluates the JAX package's
+// formula: a division by a constant becomes a product with its f32
+// reciprocal, and a multiply-add is one fused fma. The plain PyTorch
+// versions compute the same roundings, so tap indices and weights agree bit
+// for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace oadg_roi {
+
+constexpr int kOut = 7;                 // bins per side
+constexpr int kSr = 2;                  // samples per bin side
+constexpr int kS = kOut * kSr;          // samples per axis
+constexpr int kBins = kOut * kOut;
+constexpr int kMaxLevels = 4;
+constexpr int kChanTile = 128;          // threads per block = channels per block
+
+// The 14 x-samples ([0]) and 14 y-samples ([1]) of one roi: low and high
+// tap, the weight of the high tap, and whether the sample is in range.
+struct Samples {
+  int lo[2][kS];
+  int hi[2][kS];
+  float frac[2][kS];
+  bool ok[2][kS];
+};
+
+// FPN level of the roi at `roi` ([batch, x1, y1, x2, y2]); every thread of
+// a block derives the same.
+__device__ __forceinline__ int roi_level(const float* roi, int num_levels,
+                                         float finest_scale) {
+  const float area = __fmul_rn(__fsub_rn(roi[3], roi[1]),
+                               __fsub_rn(roi[4], roi[2]));
+  const float lvl_f = floorf(log2f(
+      __fmaf_rn(sqrtf(area), __fdiv_rn(1.f, finest_scale), 1e-6f)));
+  int lvl = 0;                          // NaN maps to level 0
+  if (lvl_f >= 0.f) lvl = static_cast<int>(fminf(lvl_f, num_levels - 1.f));
+  return lvl;
+}
+
+__device__ __forceinline__ int roi_batch(const float* roi, int batch) {
+  const int b = static_cast<int>(roi[0]);
+  return min(max(b, 0), batch - 1);
+}
+
+// Threads 0..27 of the block fill `s` for the roi; the caller synchronizes.
+__device__ __forceinline__ void roi_samples(const float* roi, float scale,
+                                            int H, int W, int tid,
+                                            Samples* s) {
+  if (tid >= 2 * kS) return;
+  const int axis = tid / kS;            // 0: x, 1: y
+  const int i = tid % kS;
+  const float lo = axis ? roi[2] : roi[1];
+  const float hi = axis ? roi[4] : roi[3];
+  const int size = axis ? H : W;
+  const float a = __fsub_rn(__fmul_rn(lo, scale), 0.5f);
+  const float e = __fsub_rn(__fmul_rn(hi, scale), 0.5f);
+  const float pos = static_cast<float>(i / kSr) +
+                    (static_cast<float>(i % kSr) + 0.5f) / kSr;
+  const float bin = __fmul_rn(__fsub_rn(e, a), 1.f / kOut);
+  const float p = __fmaf_rn(pos, bin, a);
+  const float pc = fminf(fmaxf(p, 0.f), static_cast<float>(size - 1));
+  const int i0 = static_cast<int>(floorf(pc));
+  s->ok[axis][i] = (p > -1.f) && (p < static_cast<float>(size));
+  s->lo[axis][i] = i0;
+  s->hi[axis][i] = min(i0 + 1, size - 1);
+  s->frac[axis][i] = pc - static_cast<float>(i0);
+}
+
+}  // namespace oadg_roi

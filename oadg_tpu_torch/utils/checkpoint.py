@@ -6,7 +6,9 @@ kernels become OIHW, ``(in, out)`` dense kernels become ``(out, in)``, and the
 first shared FC's input is reordered from the JAX package's HWC flattening of
 the RoI features back to mmdet's CHW (``:102-108``). Frozen-BN ``scale`` /
 ``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean``
-/ ``running_var``. A leaf with no mmdet name raises.
+/ ``running_var``. A leaf with no mmdet name raises. The same map carries
+JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
+grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Name -> class registries for the types the configs name
-(port of ``oadg_tpu/utils/registry.py``, reduced to what the serving slice
-builds: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
+(port of ``oadg_tpu/utils/registry.py``, reduced to what the serving and
+training slices build: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -34,8 +34,16 @@ def build_from_cfg(cfg: dict, registry: Registry,
     cls = registry.get(name)
     if cls is None:
         raise KeyError(f"{name} is not registered in {registry.name} "
-                       "(the port builds only the serving slice's types)")
+                       "(the port builds only the ported slices' types)")
     return cls(**args)
+
+
+def cfg_args(cfg: Optional[dict], default: dict) -> dict:
+    """The keyword arguments of ``cfg`` (``default`` when it is empty),
+    without its ``type``."""
+    args = dict(cfg or default)
+    args.pop("type", None)
+    return args
 
 
 BACKBONES = Registry("backbone")
@@ -45,3 +53,6 @@ ROI_EXTRACTORS = Registry("roi_extractor")
 DETECTORS = Registry("detector")
 PRIOR_GENERATORS = Registry("prior_generator")
 BBOX_CODERS = Registry("bbox_coder")
+BBOX_ASSIGNERS = Registry("bbox_assigner")
+BBOX_SAMPLERS = Registry("bbox_sampler")
+LOSSES = Registry("loss")

@@ -1,6 +1,7 @@
 """The port stands alone: no import of JAX, flax, optax or the JAX package
-anywhere in ``oadg_tpu_torch/`` or ``chip_smoke.py``, none at run time, and
-no silent CPU fallback for a CUDA device."""
+anywhere in ``oadg_tpu_torch/`` or ``chip_smoke.py``, none at run time (the
+config loader is the port's own copy, held here to the JAX package's on
+the OA-DG configs), and no silent CPU fallback for a CUDA device."""
 import ast
 import os
 import subprocess
@@ -36,7 +37,8 @@ def test_sources_import_no_jax():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, oadg_tpu_torch.apis, oadg_tpu_torch.utils.checkpoint, "
-            "oadg_tpu_torch.config as c; "
+            "oadg_tpu_torch.engine, oadg_tpu_torch.models.losses, "
+            "oadg_tpu_torch.utils.draws, oadg_tpu_torch.config as c; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -62,3 +64,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("path", [
+    "configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes_oadg.py",
+    "configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
+    "configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py"])
+def test_config_loader_matches_the_jax_package(path):
+    from oadg_tpu.config import Config
+    from oadg_tpu_torch.config import load_config
+    want = Config.fromfile(str(ROOT / path), import_custom_modules=False).to_dict()
+
+    def plain(o):
+        if isinstance(o, dict):
+            return {k: plain(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(plain(v) for v in o)
+        return o
+
+    assert plain(load_config(ROOT / path)) == want

@@ -12,6 +12,12 @@ Tolerances: rtol=1e-5, atol=1e-6 against the impl (tap indices and weights
 agree bit for bit, only the sum order differs); rtol=1e-4, atol=1e-5
 against the interpreted kernel, which reassociates the sum
 (tests/test_pallas_roi.py holds the same limits).
+
+The plain backward is held to ``jax.grad`` of the JAX op, both through its
+XLA tap scatter and through the TPU backward kernel ``roi_bwd_window_pallas``
+in interpret mode (``OADG_ROI_BWD=pallas``), on maps of at least 32x40 as
+``tests/test_pallas_roi.py:49`` runs it, at rtol=1e-5, atol=2e-6; and to
+torch autograd of the plain forward.
 """
 import numpy as np
 import jax
@@ -22,9 +28,11 @@ import torch
 from oadg_tpu.ops.roi_align import (_roi_align_forward,
                                     _roi_align_multilevel_impl,
                                     map_roi_levels as jax_map_roi_levels)
-from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_FWD, map_roi_levels,
-                                          roi_align_multilevel,
-                                          roi_align_multilevel_ref)
+from oadg_tpu.ops.roi_align import roi_align_multilevel as jax_roi_align_multilevel
+from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
+                                          map_roi_levels, roi_align_multilevel,
+                                          roi_align_multilevel_ref,
+                                          roi_align_multilevel_ref_backward)
 
 torch.set_num_threads(2)
 
@@ -123,3 +131,71 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ROI_ALIGN_FWD(tf, torch.from_numpy(rois), 7, strides, 2, 56)
 
+
+def _grad_inputs(name, seed):
+    feats, rois, strides = _inputs(name, 40, seed=seed)
+    dy = np.random.RandomState(seed + 10).randn(len(rois), 8, 7, 7).astype(np.float32)
+    return feats, rois, strides, dy
+
+
+# the TPU window kernel needs levels of at least 32x40: two_levels only
+@pytest.mark.parametrize("name,mode", [("two_levels", "xla"), ("two_levels", "pallas"),
+                                       ("four_levels", "xla")])
+def test_plain_backward_matches_jax_grad(name, mode, monkeypatch):
+    feats, rois, strides, dy = _grad_inputs(name, 3)
+    monkeypatch.setenv("OADG_ROI_BWD", mode)
+    monkeypatch.setenv("OADG_ROI_FWD", "impl")
+    g_nhwc = jnp.asarray(dy.transpose(0, 2, 3, 1))
+    # jitted, as the train step runs it: XLA then rounds the tap geometry
+    # with fused multiply-adds, as the port does
+    want = jax.jit(jax.grad(lambda fs: jnp.sum(jax_roi_align_multilevel(
+        fs, jnp.asarray(rois), 7, strides, 2, 56) * g_nhwc)))(
+        [jnp.asarray(f) for f in feats])
+    got = roi_align_multilevel_ref_backward(
+        torch.from_numpy(dy), [(f.shape[0], f.shape[3], f.shape[1], f.shape[2])
+                               for f in feats], torch.from_numpy(rois), 7, strides, 2, 56)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert g.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_allclose(g.numpy().transpose(0, 2, 3, 1), np.asarray(w),
+                                   rtol=1e-5, atol=2e-6)
+    assert sum(float(np.abs(np.asarray(w)).max() > 0) for w in want) >= 2
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    feats, rois, strides, dy = _grad_inputs("four_levels", 4)
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2).requires_grad_(True) for f in feats]
+    troi = torch.from_numpy(rois).requires_grad_(True)
+    (roi_align_multilevel_ref(tf, troi, 7, strides, 2, 56)
+     * torch.from_numpy(dy)).sum().backward()
+    got = roi_align_multilevel_ref_backward(torch.from_numpy(dy),
+                                            [f.shape for f in tf], troi.detach(),
+                                            7, strides, 2, 56)
+    for g, f in zip(got, tf):
+        torch.testing.assert_close(g, f.grad, rtol=1e-5, atol=2e-6)
+
+
+def test_op_gradient_reaches_maps_not_rois():
+    feats, rois, strides, dy = _grad_inputs("two_levels", 5)
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2).requires_grad_(True) for f in feats]
+    troi = torch.from_numpy(rois).requires_grad_(True)
+    before = ROI_ALIGN_BWD.launches
+    out = roi_align_multilevel(tf, troi, 7, strides, 2, 56)
+    (out * torch.from_numpy(dy)).sum().backward()
+    assert ROI_ALIGN_BWD.launches == before            # CPU: the plain version
+    assert troi.grad is None
+    want = roi_align_multilevel_ref_backward(torch.from_numpy(dy),
+                                             [f.shape for f in tf], troi.detach(),
+                                             7, strides, 2, 56)
+    for f, w in zip(tf, want):
+        torch.testing.assert_close(f.grad, w, rtol=0, atol=0)
+    bf = [f.detach().bfloat16().requires_grad_(True) for f in tf]
+    roi_align_multilevel(bf, troi, 7, strides, 2, 56).sum().backward()
+    assert all(f.grad.dtype == torch.bfloat16 for f in bf)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    feats, rois, strides, dy = _grad_inputs("two_levels", 6)
+    tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
+    with pytest.raises(ValueError, match="CUDA"):
+        ROI_ALIGN_BWD(tf, torch.from_numpy(rois), torch.from_numpy(dy), 7, strides, 2, 56)

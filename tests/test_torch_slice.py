@@ -96,7 +96,7 @@ def _port_pieces(det, batch):
                                                      batch["img_shape"])
         roi_feats = det.roi_head.bbox_roi_extractor(
             feats, det.roi_head.proposals_to_rois(boxes))
-        cls_score, bbox_pred = det.roi_head.bbox_head(roi_feats)
+        cls_score, bbox_pred, _ = det.roi_head.bbox_head(roi_feats)
         dets, labels, det_valid = det.roi_head.simple_test(
             feats, boxes, valid, batch["img_shape"], batch["scale_factor"])
     return dict(feats=feats, cls_scores=cls_scores, bbox_preds=bbox_preds,
