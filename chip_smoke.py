@@ -13,10 +13,10 @@ non-zero exit code:
    from ``oadg_tpu_torch/ops/csrc/``, one nvcc per source, all at once.
 3. kernels: each kernel against its plain PyTorch version, in float32 and
    with bfloat16 features, with CUDA-event medians of both and the least
-   time the card could take (bytes over 3.35 TB/s): B1 (RoIAlign forward)
-   at the serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64,
-   C=256, 1000 rois), B2 (RoIAlign backward) at the training shapes (4
-   images, 2048 sampled + 40 random rois).
+   time the card could take (the bytes the function must move over 3.35
+   TB/s): B1 (RoIAlign forward) at the serving shapes (one 1024x2048 image:
+   FPN levels 256x512 .. 32x64, C=256, 1000 rois), B2 (RoIAlign backward)
+   at the training shapes (4 images, 2048 sampled + 40 random rois).
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
    request, then 3 timed requests of 1024x2048 uint8 images through
@@ -32,10 +32,10 @@ non-zero exit code:
    seeded noise, as OA-Mix is not ported yet; 32 seeded gts each). B1 and B2
    must each launch twice per step; losses finite, ``loss_cont`` > 0, every
    trainable parameter moved, every frozen one (stem, ``layer1``) unchanged.
-   One more step checks B2's level gradients inside the path against the
-   plain backward on the same ``dy``. Then the step's time by stage (a
-   synchronize after each, medians of 3) and the device's busy share of one
-   step under ``torch.profiler``.
+   One more step checks B1's RoI features and B2's level gradients inside
+   the path against the plain versions on the same inputs. Then one step
+   under ``torch.profiler``: host and device time of each stage's
+   ``record_function`` span, and the device's busy share.
 7. train reference: one step of the same seeded model on the CPU and on the
    card, 2 x 2 views of 256x512, the draws made on the CPU and handed to
    both, the card's proposals used on both: losses, and the gradients of
@@ -124,15 +124,16 @@ def phase_device():
 
 
 def phase_build():
-    from oadg_tpu_torch.ops._kernels import build_all
+    from concurrent.futures import ThreadPoolExecutor
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library]
     t0 = time.perf_counter()
-    built = build_all(libs)
+    with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc each, all at once
+        built = list(pool.map(lambda lib: lib.build(), libs))
     log("build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s "
                  "(one nvcc each, in parallel)")
-    for lib in libs:
-        log("build", f"{lib.source.relative_to(ROOT)} -> {built[lib.source.name].name}")
+    for lib, so in zip(libs, built):
+        log("build", f"{lib.source.relative_to(ROOT)} -> {so.name}")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"ptxas: {line.strip()}")
@@ -174,6 +175,22 @@ def training_rois(rng):
     return np.concatenate(parts)
 
 
+def distinct_taps(feat_shapes, rois):
+    """How many distinct map cells (level, image, y, x) the in-range samples
+    of ``rois`` read: the data-dependent part of B1's least memory traffic,
+    and the cells B2's atomics read and write."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import _CHUNK, _Pyramid, _geometry
+    pyr = _Pyramid(feat_shapes, STRIDES, rois.device)
+    rows = []
+    for i in range(0, rois.shape[0], _CHUNK):
+        g = _geometry(pyr, rois[i:i + _CHUNK].float(), 7, 2, 56)
+        for yi in (g.y0, g.y1):
+            for xi in (g.x0, g.x1):
+                rows.append(g.rows(yi, xi)[g.ok])
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
 def bound_ms(nbytes):
     """Least time for ``nbytes`` of device-memory traffic on the card; both
     kernels' FLOPs are negligible beside it."""
@@ -184,7 +201,6 @@ def phase_kernels():
     """Each kernel vs its plain version; returns the kernels' report rows."""
     import torch
     from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
-                                              distinct_taps,
                                               roi_align_multilevel_ref,
                                               roi_align_multilevel_ref_backward)
     rng = np.random.RandomState(0)
@@ -195,7 +211,7 @@ def phase_kernels():
              for s in STRIDES]
     rois = torch.from_numpy(flagship_rois(rng)).to(dev)
     shapes = [f.shape for f in feats]
-    taps = distinct_taps(shapes, rois, 7, STRIDES, 2, 56)
+    taps = distinct_taps(shapes, rois)
     rows = []
     for name, fs, tol in (("f32", feats, TOL_F32),
                           ("bf16", [f.bfloat16() for f in feats], TOL_BF16)):
@@ -235,7 +251,7 @@ def phase_kernels():
     r = rois.shape[0]
     dy = torch.randn(r, CHANNELS, 7, 7, device=dev, generator=gen)
     shapes = [f.shape for f in feats]
-    taps = distinct_taps(shapes, rois, 7, STRIDES, 2, 56)
+    taps = distinct_taps(shapes, rois)
     table = sum(math.prod(sh) for sh in shapes)
     want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, STRIDES, 2, 56)
     scale = max(float(w.abs().max()) for w in want)
@@ -262,17 +278,20 @@ def phase_kernels():
         ms = cuda_ms(lambda: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), 20)
         plain_ms = cuda_ms(lambda: roi_align_multilevel_ref_backward(
             dy, shapes, rois, 7, STRIDES, 2, 56), 5)
-        # dy read once, the f32 table zeroed once, each distinct tap cell's
-        # channels read and written once; bf16 adds the cast (f32 read, bf16
-        # write)
-        nbytes = dy.numel() * 4 + table * 4 + 2 * taps * CHANNELS * 4
-        if name == "bf16":
-            nbytes += table * (4 + 2)
+        # The function's least traffic: dy read once, each level gradient
+        # written once in the maps' dtype. The atomic design moves more: it
+        # zeroes an f32 table, reads and writes each distinct tap cell, and
+        # for bf16 reads the f32 table again to cast it.
+        nbytes = dy.numel() * 4 + table * fs[0].element_size()
+        design = (dy.numel() * 4 + table * 4 + 2 * taps * CHANNELS * 4
+                  + (table * (4 + 2) if name == "bf16" else 0))
         log("kernels", f"roi_align_bwd {name}: kernel {ms:.4f} ms, plain "
                        f"{plain_ms:.4f} ms (CUDA-event medians, zeroed table "
                        f"included); bound {bound_ms(nbytes):.4f} ms "
                        f"({nbytes / 1e6:.1f} MB: dy {dy.numel() * 4 / 1e6:.1f}, "
-                       f"table {table * 4 / 1e6:.1f}, {taps} distinct tap cells)")
+                       f"gradient maps {table * fs[0].element_size() / 1e6:.1f}); "
+                       f"the atomic design moves {design / 1e6:.1f} MB "
+                       f"({bound_ms(design):.4f} ms; {taps} distinct tap cells)")
         if name == "f32":
             rows.append({"name": "roi_align_bwd", "route": "cuda",
                          "source": "oadg_tpu_torch/ops/csrc/roi_align_bwd.cu",
@@ -421,28 +440,44 @@ def build_trainer(device, cfg):
     return handle.model, step
 
 
-class _RecordingBackward:
-    """Stands in for ``ROI_ALIGN_BWD`` for one step: calls it and keeps its
-    inputs and outputs, so that the gradient the kernel gave inside the
-    path can be held to the plain backward on the same ``dy``."""
+class _Checked:
+    """Stands in for a kernel wrapper for one step: launches the kernel,
+    then holds its result against the plain version on the same inputs, so
+    that each kernel is checked inside the path at the path's own shapes.
+    ``plain(feats, rois, *rest)`` returns the plain results and the scale of
+    the limit."""
 
-    def __init__(self, kernel):
-        self.kernel = kernel
-        self.calls = []
+    def __init__(self, name, kernel, plain):
+        self.name, self.kernel, self.plain = name, kernel, plain
+        self.calls = []                  # (R, max abs error, limit)
 
-    def __call__(self, feats, rois, grad_out, *cfg):
-        out = self.kernel(feats, rois, grad_out, *cfg)
-        self.calls.append(([f.shape for f in feats], rois.clone(), grad_out.clone(),
-                           cfg, [o.detach().clone() for o in out]))
+    def __call__(self, feats, rois, *rest):
+        out = self.kernel(feats, rois, *rest)
+        want, scale = self.plain(feats, rois, *rest)
+        got = out if isinstance(out, list) else [out]
+        want = want if isinstance(want, list) else [want]
+        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+        self.calls.append((rois.shape[0], err, TOL_F32 * scale))
         return out
+
+
+def _plain_fwd(feats, rois, *cfg):
+    from oadg_tpu_torch.ops.roi_align import roi_align_multilevel_ref
+    return (roi_align_multilevel_ref(feats, rois, *cfg),
+            max(float(f.float().abs().max()) for f in feats))
+
+
+def _plain_bwd(feats, rois, dy, *cfg):
+    from oadg_tpu_torch.ops.roi_align import roi_align_multilevel_ref_backward
+    want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois, *cfg)
+    return want, max(float(w.abs().max()) for w in want)
 
 
 def phase_train(rows):
     import torch
     from oadg_tpu_torch.config import load_config
     from oadg_tpu_torch.ops import roi_align
-    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
-                                              roi_align_multilevel_ref_backward)
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     dev = torch.device("cuda", 0)
     cfg = load_config(FLAGSHIP)
     t0 = time.perf_counter()
@@ -493,88 +528,71 @@ def phase_train(rows):
     if still or moved or not frozen:
         raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}")
 
-    # One more step with B2's calls recorded: the level gradients the kernel
-    # gave inside the path against the plain backward on the same dy.
-    recorder = _RecordingBackward(ROI_ALIGN_BWD)
-    roi_align.ROI_ALIGN_BWD = recorder
+    # One more step with both kernels checked in place: B1's RoI features
+    # and B2's level gradients against the plain versions on the same inputs
+    # (the step's FPN maps, rois and dy).
+    checks = (_Checked("roi_align_fwd", ROI_ALIGN_FWD, _plain_fwd),
+              _Checked("roi_align_bwd", ROI_ALIGN_BWD, _plain_bwd))
+    roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
     step(batch, gen)
-    roi_align.ROI_ALIGN_BWD = ROI_ALIGN_BWD
+    roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
     torch.cuda.synchronize()
-    for i, (shapes, rois, dy, rcfg, got) in enumerate(recorder.calls):
-        want = roi_align_multilevel_ref_backward(dy, shapes, rois, *rcfg)
-        scale = max(float(w.abs().max()) for w in want)
-        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-        log("train", f"roi_align_bwd call {i} in the step (R={rois.shape[0]}): "
-                     f"FPN-map gradients vs plain backward max_abs_err {err:.3e} "
-                     f"(limit {TOL_F32 * scale:.3e})")
-        if not err <= TOL_F32 * scale:
-            raise AssertionError(f"roi_align_bwd in the step disagrees: {err}")
-    if len(recorder.calls) != 2:
-        raise AssertionError(f"{len(recorder.calls)} backward calls in a step")
-    train_breakdown(model, step, batch, gen)
+    for check in checks:
+        for i, (r, err, lim) in enumerate(check.calls):
+            log("train", f"{check.name} call {i} in the step (R={r}, 4 images): "
+                         f"vs plain version max_abs_err {err:.3e} (limit {lim:.3e})")
+            if not err <= lim:
+                raise AssertionError(f"{check.name} in the step disagrees: {err} > {lim}")
+        if len(check.calls) != 2:
+            raise AssertionError(f"{len(check.calls)} {check.name} calls in a step")
+    train_profile(step, batch, gen)
     del model, step, batch
     torch.cuda.empty_cache()
 
 
-def train_breakdown(model, step, batch, gen):
-    """The training step by stage, each ended by a synchronize (so the
-    stages add up to more than an unstaged step), medians of 3; then one
-    unstaged step under torch.profiler for the device's busy time."""
+STAGES = ("forward_train: backbone+neck", "forward_train: rpn head+loss",
+          "forward_train: proposals", "forward_train: roi head+loss",
+          "train_step: backward", "train_step: sgd")
+
+
+def train_profile(step, batch, gen):
+    """One step under torch.profiler, read through the ``record_function``
+    spans of ``forward_train`` and ``make_train_step``: per stage the host
+    time of its span and the device time of the kernels launched in it, and
+    the device's busy share of the step. Autograd launches the backward's
+    kernels from its own thread, outside the backward span, so the
+    backward's device time is the sum over autograd's ``evaluate_function``
+    events."""
     import torch
-    from oadg_tpu_torch.utils.draws import UniformDraws
-
-    def staged():
-        marks = [("start", time.perf_counter())]
-
-        def mark(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        draws = UniformDraws(gen)
-        opt = step.optimizer
-        opt.zero_grad(set_to_none=True)
-        img = batch["img"]
-        feats = model.extract_feat(img)
-        mark("backbone + FPN forward")
-        cls_scores, bbox_preds = model.rpn_head(feats)
-        losses = model.rpn_head.loss(cls_scores, bbox_preds, batch["gt_bboxes"],
-                                     batch["gt_valid"], draws)
-        mark("RPN head, loss (assign, sample, targets)")
-        v = model.num_views
-        b = img.shape[0] // v
-        boxes, _, valid = model.rpn_head.get_proposals(
-            [s[:b] for s in cls_scores], [p[:b] for p in bbox_preds],
-            batch["img_shape"][:b], model.train_cfg["rpn_proposal"])
-        mark("proposals (top-k, decode, NMS)")
-        rp, rv = model._random_proposals(batch, draws)
-        losses.update(model.roi_head.loss(
-            feats, boxes.repeat(v, 1, 1), valid.repeat(v, 1), batch["gt_bboxes"],
-            batch["gt_valid"], batch["gt_labels"], draws, rp, rv))
-        mark("random proposals, RoI loss (sample, RoIAlign, head, losses)")
-        sum(x for k, x in losses.items() if "loss" in k).backward()
-        mark("backward")
-        opt.step()
-        mark("SGD step")
-        return [(n, (t - marks[i][1]) * 1e3) for i, (n, t) in enumerate(marks[1:])]
-
-    runs = [staged() for _ in range(3)]
-    for i, (name, _) in enumerate(runs[0]):
-        log("train-breakdown", f"{name}: {statistics.median(r[i][1] for r in runs):.3f} ms")
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(batch, gen)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    host = {e.key: e for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    log("train-breakdown", f"profiled step {wall:.3f} ms wall, device busy "
-                           f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
-    for e in top:
-        log("train-breakdown", f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                               f"x{e.count:<5d} {e.key[:90]}")
+    autograd = sum(e.device_time_total for k, e in host.items()
+                   if k.startswith("autograd::engine::evaluate_function")) / 1e3
+    spanned = 0.0
+    for name in STAGES:
+        if name not in host:
+            raise AssertionError(f"the profiled step has no span {name!r}")
+        dev_ms = autograd if name == "train_step: backward" else \
+            host[name].device_time_total / 1e3
+        spanned += dev_ms
+        log("train-profile", f"{name}: host {host[name].cpu_time_total / 1e3:.3f} ms, "
+                             f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
+    log("train-profile", f"profiled step {wall:.3f} ms wall, device busy "
+                         f"{busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
+                         f"{busy - spanned:.3f} ms outside the stages")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        log("train-profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                             f"x{e.count:<5d} {e.key[:90]}")
 
 
 def phase_train_reference():

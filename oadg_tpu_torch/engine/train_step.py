@@ -3,12 +3,17 @@
 counterpart of the JAX package's ``make_train_step(detector, tx,
 preprocess=None)`` (``:33``), which takes a views-major batch as it is
 (OA-Mix is not ported yet).
+
+Backward and the SGD step run inside ``torch.profiler.record_function``
+spans (``train_step: backward``, ``train_step: sgd``), beside those of
+``TwoStageDetector.forward_train``; they cost nothing without a profiler.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.draws import UniformDraws
 
@@ -24,25 +29,25 @@ def parse_losses(losses: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float]) -> Callable:
-    """-> ``step(batch, draws) -> log_vars``, detached tensors.
+    """-> ``step(batch, generator) -> log_vars``, detached tensors.
 
-    ``draws`` is a ``torch.Generator`` (every random number of the step is
-    drawn from it) or a ``utils.draws.UniformDraws`` (which may hold given
-    draws). The step at iteration ``t`` (``step.t``, counting from 0) runs
-    with ``lr_schedule(t)``; ``step.optimizer`` is ``optimizer``.
+    Every random number of the step is drawn from ``generator``. The step at
+    iteration ``t`` (``step.t``, counting from 0) runs with
+    ``lr_schedule(t)``; ``step.optimizer`` is ``optimizer``.
     """
 
     def step(batch: Dict[str, torch.Tensor],
-             draws: Union[torch.Generator, UniformDraws]) -> Dict[str, torch.Tensor]:
-        if isinstance(draws, torch.Generator):
-            draws = UniformDraws(draws)
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step.t)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
-        total, log_vars = parse_losses(model.forward_train(batch, draws))
-        total.backward()
-        optimizer.step()
+        total, log_vars = parse_losses(model.forward_train(batch,
+                                                           UniformDraws(generator)))
+        with record_function("train_step: backward"):
+            total.backward()
+        with record_function("train_step: sgd"):
+            optimizer.step()
         step.t += 1
         return {k: v.detach() for k, v in log_vars.items()}
 

@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.bbox.geometry import bbox_overlaps
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg
@@ -134,29 +135,34 @@ class TwoStageDetector(nn.Module):
     def forward_train(self, batch, draws):
         """Loss dict of one views-major batch. ``draws``
         (``utils.draws.UniformDraws``) gives every random number: the RPN
-        and RoI samplers' and the random proposals'."""
+        and RoI samplers' and the random proposals'. Each stage runs in a
+        ``record_function`` span named ``forward_train: <stage>``."""
         img = batch["img"]
-        feats = self.extract_feat(img)
-        cls_scores, bbox_preds = self.rpn_head(feats)
-        losses = self.rpn_head.loss(cls_scores, bbox_preds, batch["gt_bboxes"],
-                                    batch["gt_valid"], draws,
-                                    img_shapes=batch.get("img_shape"))
+        with record_function("forward_train: backbone+neck"):
+            feats = self.extract_feat(img)
+        with record_function("forward_train: rpn head+loss"):
+            cls_scores, bbox_preds = self.rpn_head(feats)
+            losses = self.rpn_head.loss(cls_scores, bbox_preds, batch["gt_bboxes"],
+                                        batch["gt_valid"], draws,
+                                        img_shapes=batch.get("img_shape"))
         # proposals of the clean chunk only; the RoI head samples once and
         # tiles the sample over the views (contrastive_roi_head.py:84-97)
         b = img.shape[0] // self.num_views
-        boxes, _, valid = self.rpn_head.get_proposals(
-            [s[:b] for s in cls_scores], [p[:b] for p in bbox_preds],
-            batch["img_shape"][:b],
-            self.train_cfg.get("rpn_proposal", self.test_cfg.get("rpn", {})))
-        boxes = boxes.repeat(self.num_views, 1, 1)
-        valid = valid.repeat(self.num_views, 1)
-        random_proposals = random_valid = None
-        if self.random_proposal_cfg is not None:
-            random_proposals, random_valid = self._random_proposals(batch, draws)
-        losses.update(self.roi_head.loss(
-            feats, boxes, valid, batch["gt_bboxes"], batch["gt_valid"],
-            batch["gt_labels"], draws, random_proposals=random_proposals,
-            random_valid=random_valid))
+        with record_function("forward_train: proposals"):
+            boxes, _, valid = self.rpn_head.get_proposals(
+                [s[:b] for s in cls_scores], [p[:b] for p in bbox_preds],
+                batch["img_shape"][:b],
+                self.train_cfg.get("rpn_proposal", self.test_cfg.get("rpn", {})))
+            boxes = boxes.repeat(self.num_views, 1, 1)
+            valid = valid.repeat(self.num_views, 1)
+        with record_function("forward_train: roi head+loss"):
+            random_proposals = random_valid = None
+            if self.random_proposal_cfg is not None:
+                random_proposals, random_valid = self._random_proposals(batch, draws)
+            losses.update(self.roi_head.loss(
+                feats, boxes, valid, batch["gt_bboxes"], batch["gt_valid"],
+                batch["gt_labels"], draws, random_proposals=random_proposals,
+                random_valid=random_valid))
         return losses
 
     # ---------------- inference ----------------

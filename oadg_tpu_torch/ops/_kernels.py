@@ -5,9 +5,8 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``oadg_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``. The library's file name carries a hash of its source, the
 ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and a
-fresh checkout builds from its own sources. ``build_all`` starts one ``nvcc``
-per library at once. A missing ``nvcc`` or a failed build raises; nothing
-falls back.
+fresh checkout builds from its own sources. A missing ``nvcc`` or a failed
+build raises; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -61,37 +60,21 @@ class CudaLibrary:
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
-    def start_build(self) -> Optional[Tuple[subprocess.Popen, Path, Path]]:
-        """Start nvcc unless the library for the hash exists; returns what
-        ``finish_build`` waits for, or None."""
+    def build(self) -> Path:
+        """Compile the source unless the library for its hash exists."""
         so = self.library_path()
         if so.is_file():
-            return None
+            return so
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        return proc, tmp, so
-
-    def finish_build(self, started, out: Optional[str] = None) -> Path:
-        """Wait for the nvcc that ``start_build`` started (``out``: its
-        output, when the caller has already waited) and install the library."""
-        if started is None:
-            return self.library_path()
-        proc, tmp, so = started
-        if out is None:
-            out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode} "
-                               f"for {self.source.name}:\n{out}")
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {res.returncode} "
+                               f"for {self.source.name}:\n{res.stdout}{res.stderr}")
         os.replace(tmp, so)   # atomic: concurrent builders never see a partial file
-        self.build_log = out
+        self.build_log = res.stdout + res.stderr
         return so
-
-    def build(self) -> Path:
-        """Compile the source unless the library for its hash exists."""
-        return self.finish_build(self.start_build())
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -102,13 +85,3 @@ class CudaLibrary:
                 fn.argtypes = list(argtypes)
             self._lib = lib
         return self._lib
-
-
-def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, Path]:
-    """Build every library with one ``nvcc`` each, all started together;
-    returns source name -> library path. A failed build raises once every
-    nvcc has ended."""
-    started = [(lib, lib.start_build()) for lib in libraries]
-    ended = [(lib, st, st[0].communicate()[0] if st else None)
-             for lib, st in started]
-    return {lib.source.name: lib.finish_build(st, out) for lib, st, out in ended}

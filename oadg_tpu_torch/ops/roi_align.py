@@ -38,7 +38,7 @@ import torch
 from ._kernels import CudaLibrary
 
 __all__ = ["map_roi_levels", "roi_align_multilevel", "roi_align_multilevel_ref",
-           "roi_align_multilevel_ref_backward", "distinct_taps", "RoIAlignFunction",
+           "roi_align_multilevel_ref_backward", "RoIAlignFunction",
            "RoIAlignForward", "RoIAlignBackward", "ROI_ALIGN_FWD", "ROI_ALIGN_BWD"]
 
 
@@ -239,24 +239,6 @@ def roi_align_multilevel_ref_backward(
         upds = torch.cat([(gs * w[..., None]).reshape(-1, c) for _, w in taps])
         table.index_add_(0, rows, upds)
     return pyr.split(table)
-
-
-def distinct_taps(feat_shapes: Sequence[Sequence[int]], rois: torch.Tensor,
-                  output_size: int = 7,
-                  featmap_strides: Sequence[int] = (4, 8, 16, 32),
-                  sampling_ratio: int = 2, finest_scale: int = 56) -> int:
-    """How many distinct map cells (level, image, y, x) the in-range samples
-    of ``rois`` read in the forward and write in the backward: the data-
-    dependent part of both kernels' least memory traffic."""
-    pyr = _Pyramid(feat_shapes, featmap_strides, rois.device)
-    out, sr = output_size, max(int(sampling_ratio), 1)
-    rows = []
-    for i in range(0, rois.shape[0], _CHUNK):
-        g = _geometry(pyr, rois[i:i + _CHUNK].float(), out, sr, finest_scale)
-        for yi in (g.y0, g.y1):
-            for xi in (g.x0, g.x1):
-                rows.append(g.rows(yi, xi)[g.ok])
-    return int(torch.unique(torch.cat(rows)).numel()) if rows else 0
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -85,12 +85,17 @@ def test_roi_align_backward_kernel_matches_plain_version(dtype):
     assert ROI_ALIGN_BWD.launches == before + 1
     want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois,
                                              7, STRIDES, 2, 56)
+    # The kernel sums with f32 atomics in an order that changes from run to
+    # run, so a cell where large contributions cancel can be off by a few
+    # ulps of the largest gradient: the absolute limit scales with it.
+    scale = max(float(w.abs().max()) for w in want)
     for f, w in zip(feats, want):
         assert f.grad.dtype == dtype and f.grad.shape == f.shape
         if dtype == torch.float32:
-            torch.testing.assert_close(f.grad, w, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(f.grad, w, rtol=1e-5, atol=1e-5 * scale)
         else:
-            torch.testing.assert_close(f.grad.float(), w, rtol=2 ** -8, atol=1e-6)
+            torch.testing.assert_close(f.grad.float(), w, rtol=2 ** -8,
+                                       atol=1e-4 * scale)
 
 
 @pytest.mark.cuda
