@@ -10,13 +10,20 @@ non-zero exit code:
    power limit, the torch and CUDA versions; turns TF32 off for matmuls and
    convolutions so float32 means float32.
 2. build: compiles every CUDA kernel of the serving and training paths
-   from ``oadg_tpu_torch/ops/csrc/``, one nvcc per source, all at once.
-3. kernels: each kernel against its plain PyTorch version, in float32 and
-   with bfloat16 features, with CUDA-event medians of both and the least
-   time the card could take (the bytes the function must move over 3.35
-   TB/s): B1 (RoIAlign forward) at the serving shapes (one 1024x2048 image:
-   FPN levels 256x512 .. 32x64, C=256, 1000 rois), B2 (RoIAlign backward)
-   at the training shapes (4 images, 2048 sampled + 40 random rois).
+   from ``oadg_tpu_torch/ops/csrc/`` (B1-B6, five sources), one nvcc per
+   source, all at once.
+3. kernels: each kernel against its plain PyTorch version, with CUDA-event
+   medians of both, the least time the card could take (the bytes the
+   function must move over 3.35 TB/s) and, where one PyTorch call computes
+   the same function, that call's time: B1 (RoIAlign forward) at the
+   serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64, C=256,
+   1000 rois), B2 (RoIAlign backward) at the training shapes (4 images,
+   2048 sampled + 40 random rois); B3 (OA-Mix foreground maps, G=16 seeded
+   boxes on 1024x2048), B4 (row shift: x and column passes at the rotate
+   shifts of severity 10 and the translate shifts, on uint8 3-channel and
+   float32 4-channel images; library call ``F.grid_sample``), B5 (per-box
+   row shift on B3's own ``best_id``; ``F.grid_sample``) and B6 (256-bin
+   histograms of a 1024x2048x3 uint8 image; ``torch.bincount``).
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
    request, then 3 timed requests of 1024x2048 uint8 images through
@@ -26,22 +33,31 @@ non-zero exit code:
    the path the CPU tests hold to the JAX package) against the card on a
    small 256x512 request: FPN outputs, and the RoI head on the card's
    proposals.
-6. train: the flagship built for training (``num_views=2``), SGD with the
-   config's LR schedule through ``make_train_step``, one warm-up step and 3
-   timed steps on 2 images x 2 views of 1024x2048 (view 2: the image with
-   seeded noise, as OA-Mix is not ported yet; 32 seeded gts each). B1 and B2
-   must each launch twice per step; losses finite, ``loss_cont`` > 0, every
-   trainable parameter moved, every frozen one (stem, ``layer1``) unchanged.
-   One more step checks B1's RoI features and B2's level gradients inside
-   the path against the plain versions on the same inputs. Then one step
-   under ``torch.profiler``: host and device time of each stage's
-   ``record_function`` span, and the device's busy share.
-7. train reference: one step of the same seeded model on the CPU and on the
-   card, 2 x 2 views of 256x512, the draws made on the CPU and handed to
-   both, the card's proposals used on both: losses, and the gradients of
-   ``rpn_head.rpn_conv``, ``roi_head.bbox_head.fc_cls`` and
+6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
+   1024x2048 uint8 images with 32 seeded gts each, inside
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync): B3-B6
+   launch exactly as often as the drawn table implies; outputs uint8 of
+   the expected shape, boxes inside the image. Then one table per op index
+   (every slot drawing op k) with B3-B6 checked in place against their
+   plain versions; then the card against the CPU on one table at 256x512.
+7. train: the flagship built for training (``num_views=2``), SGD with the
+   config's LR schedule through ``make_train_step(...,
+   preprocess=make_oadg_preprocess(oamix_config, img_norm_cfg))``, one
+   warm-up step and 3 timed steps on uint8 batches of 2 images of
+   1024x2048 (OA-Mix makes view 2; 32 seeded gts each). B1 and B2 must each
+   launch twice per step and B3-B6 as often as each step's table implies;
+   losses finite, ``loss_cont`` > 0, every trainable parameter moved, every
+   frozen one (stem, ``layer1``) unchanged. One more step checks B1's RoI
+   features and B2's level gradients inside the path against the plain
+   versions on the same inputs. Then one step under ``torch.profiler``:
+   host and device time of each stage's ``record_function`` span (OA-Mix
+   included), and the device's busy share.
+8. train reference: one step of the same seeded model on the CPU and on the
+   card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws made on the
+   CPU and handed to both, the card's proposals used on both: losses, and
+   the gradients of ``rpn_head.rpn_conv``, ``roi_head.bbox_head.fc_cls`` and
    ``backbone.layer4.*.conv3``.
-8. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
+9. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX and nothing of the JAX package.
@@ -81,6 +97,11 @@ TOL_BF16 = 1e-4
 # relative to the largest output magnitude (cuDNN, cuBLAS and the CPU sum
 # convolutions and FC layers over up to 12544 inputs in other orders).
 TOL_HEAD = 1e-4
+# B4 and B5 vs their plain versions, absolute on values up to 255: the
+# kernels fuse the lerp's multiply-add (one rounding), the plain versions
+# emulate it in float64 and round a float32 tie a second time, at most one
+# float32 ulp (1.5e-5 at 255).
+TOL_WARP = 1e-4
 
 
 def log(phase, msg):
@@ -125,8 +146,10 @@ def phase_device():
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
+    from oadg_tpu_torch.ops import fg_maps, hist, warp
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
-    libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library]
+    libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library, fg_maps.FG_MAPS.library,
+            warp.SHEAR_ROWS.library, hist.HIST256.library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc each, all at once
         built = list(pool.map(lambda lib: lib.build(), libs))
@@ -305,6 +328,392 @@ def phase_kernels():
     return rows
 
 
+def flagship_oamix_cfg():
+    from oadg_tpu_torch.config import load_config
+    cfg = dict(load_config(FLAGSHIP)["oamix_config"])
+    cfg.pop("type", None)
+    return cfg
+
+
+def seeded_gts(rng, n_images, h, w):
+    """``NUM_GTS`` seeded gts per image of log-uniform size over the 8
+    classes: boxes (n, NUM_GTS, 4) float32 and labels (n, NUM_GTS)."""
+    bw = np.exp(rng.uniform(np.log(16), np.log(w / 2), (n_images, NUM_GTS)))
+    bh = np.exp(rng.uniform(np.log(16), np.log(h / 2), (n_images, NUM_GTS)))
+    x1 = rng.uniform(0, w - bw)
+    y1 = rng.uniform(0, h - bh)
+    gt = np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32)
+    return gt, rng.randint(0, 8, (n_images, NUM_GTS))
+
+
+def fg_inputs(gt, h, w):
+    """The gated blurred-mask profiles of the first 16 gts, as OA-Mix makes
+    them for B3: fx (16, W), fy (16, H)."""
+    import torch
+    from oadg_tpu_torch.ops.oamix_device import MAX_FG, _blurred_profiles
+    fx, fy = _blurred_profiles(gt[:MAX_FG], h, w, 0.3)
+    small = ((gt[:MAX_FG, 2] - gt[:MAX_FG, 0]) < 1) | ((gt[:MAX_FG, 3] - gt[:MAX_FG, 1]) < 1)
+    return fx.contiguous(), (fy * (~small).float()[:, None]).contiguous()
+
+
+def check_fg_maps(got, want, fx, fy):
+    """B3 against its plain version: ``best_id`` equal except where two
+    masks tie exactly; cover and union within one bf16 step. -> (pixels
+    whose id differs, max abs error of cover and union)."""
+    import torch
+    g = fx.shape[0]
+    diff = got[0] != want[0]
+    n = int(diff.sum())
+    if n:
+        ys, xs = diff.nonzero(as_tuple=True)
+        ids = [t[ys, xs].long() for t in (got[0], want[0])]
+        if not all(bool((i < g).all()) for i in ids):
+            raise AssertionError(f"fg_maps: {n} ids differ, some at the sentinel")
+        m = [fy[i, ys] * fx[i, xs] for i in ids]
+        if not torch.equal(m[0], m[1]):
+            raise AssertionError(f"fg_maps: {n} ids differ where the masks do not tie")
+    err = 0.0
+    for a, b in zip(got[1:], want[1:]):
+        d = (a.float() - b.float()).abs()
+        err = max(err, float(d.max()))
+        if not bool((d <= 2 ** -7 * b.float().abs()).all()):
+            raise AssertionError("fg_maps: cover or union off by more than one bf16 step")
+    return n, err
+
+
+def row(name, source, replaces, err, ms, plain_ms, nbytes, library_ms):
+    return {"name": name, "route": "cuda", "source": f"oadg_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def shift_grid(off, axis, h, w):
+    """The ``F.grid_sample`` grid (1, H, W, 2) that reads each pixel ``off``
+    (H, W) pixels along ``axis`` (align_corners=True, zeros outside)."""
+    import torch
+    ys = torch.arange(h, dtype=torch.float32, device=off.device)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=off.device)[None, :].expand(h, w)
+    if axis == 1:
+        xs = xs + off
+    else:
+        ys = ys + off
+    return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)[None]
+
+
+def phase_oamix_kernels():
+    """B3-B6 vs their plain versions at the flagship's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from oadg_tpu_torch.ops import fg_maps as fgm
+    from oadg_tpu_torch.ops import hist, warp
+    dev = torch.device("cuda", 0)
+    h, w = IMG_H, IMG_W
+    rng = np.random.RandomState(6)
+    img3 = torch.from_numpy(request_image(rng)).to(dev)
+    gt = torch.from_numpy(seeded_gts(rng, 1, h, w)[0][0]).to(dev)
+    rows = []
+
+    # B3: G=16 seeded boxes on 1024x2048
+    fx, fy = fg_inputs(gt, h, w)
+    got = fgm.FG_MAPS(fx, fy, h, w)
+    want = fgm.fg_maps_ref(fx, fy, h, w)
+    torch.cuda.synchronize()
+    n_ties, err = check_fg_maps(got, want, fx, fy)
+    ms = cuda_ms(lambda: fgm.FG_MAPS(fx, fy, h, w), 50)
+    plain_ms = cuda_ms(lambda: fgm.fg_maps_ref(fx, fy, h, w), 5)
+    nbytes = (fx.numel() + fy.numel()) * 4 + h * w * (1 + 2 + 2)
+    log("kernels", f"fg_maps G=16 {h}x{w}: best_id differs at {n_ties} exact ties; "
+                   f"cover/union max_abs_err {err:.3e} (limit one bf16 step); kernel "
+                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms "
+                   f"({nbytes / 1e6:.1f} MB)")
+    rows.append(row("fg_maps", "fg_maps.cu", "oadg_tpu/ops/pallas_fg.py:54", err, ms,
+                    plain_ms, nbytes, None))
+    best_id = got[0]
+
+    # B4: x and column passes at the severity-10 rotate and translate shifts
+    img4 = torch.cat([img3.float(), (fy.amax(0)[:, None] * fx.amax(0)[None, :] * 255)
+                      .bfloat16().float()[..., None]], -1).contiguous()
+    a, b = -math.tan(math.radians(15)), math.sin(math.radians(30))
+    cases = (("x rotate", 1, a, -a * h / 2, int(0.27 * h / 2) + 4),
+             ("column rotate", 0, b, -b * w / 2, int(0.50 * w / 2) + 4),
+             ("x translate", 1, 0.0, -float(np.floor(9.9 * (w / 3) / 10)), w // 3 + 4),
+             ("column translate", 0, 0.0, float(np.floor(9.9 * (h / 3) / 10)), h // 3 + 4))
+    for label, axis, k1, k2, ms_max in cases:
+        n = h if axis == 1 else w
+        shifts, fracs = warp._row_shift_params(k1, k2, n, ms_max, dev)
+        off = (shifts.float() + fracs)
+        off = off[:, None].expand(h, w) if axis == 1 else off[None, :].expand(h, w)
+        grid = shift_grid(off, axis, h, w)
+        for im in (img3, img4):
+            got = warp.SHEAR_ROWS(im, shifts, fracs, ms_max, axis)
+            want = warp.shear_rows_ref(im, shifts, fracs, ms_max, axis)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            c = im.shape[-1]
+            if not err <= TOL_WARP:
+                raise AssertionError(f"shear_rows {label} C={c}: {err} > {TOL_WARP}")
+            inp = im.float().permute(2, 0, 1)[None].contiguous()
+            ms = cuda_ms(lambda: warp.SHEAR_ROWS(im, shifts, fracs, ms_max, axis), 50)
+            plain_ms = cuda_ms(lambda: warp.shear_rows_ref(im, shifts, fracs, ms_max,
+                                                           axis), 5)
+            lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                                   padding_mode="zeros",
+                                                   align_corners=True), 50)
+            nbytes = im.numel() * im.element_size() + im.numel() * 4 + n * 8
+            log("kernels", f"shear_rows {label} C={c} {im.dtype}: max_abs_err "
+                           f"{err:.3e} (limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain "
+                           f"{plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms; bound "
+                           f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+            if label == "x rotate" and c == 4:        # the bg rotate's pass
+                rows.append(row("shear_rows", "shift_rows.cu",
+                                "oadg_tpu/ops/pallas_warp.py:131", err, ms, plain_ms,
+                                nbytes, lib_ms))
+
+    # B5: per-box passes on B3's own best_id, rotate shifts of 16 boxes
+    lvl = torch.from_numpy(rng.uniform(0.1, 10.0, 16).astype(np.float32)).to(dev)
+    sign = torch.from_numpy(np.where(rng.rand(16) > 0.5, -1.0, 1.0).astype(np.float32)).to(dev)
+    rad = torch.deg2rad(torch.floor(lvl * 3.0) * sign)
+    cx, cy = (gt[:16, 0] + gt[:16, 2]) / 2, (gt[:16, 1] + gt[:16, 3]) / 2
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[:, None]
+    for label, axis, table, ms_max in (
+            ("x", 1, -torch.tan(rad / 2)[None, :] * (ys - cy[None, :]), 512),
+            ("column", 0, torch.sin(rad)[None, :] * (xs - cx[None, :]), 768)):
+        got = warp.PIECEWISE_SHIFT_ROWS(img3, best_id, table, ms_max, axis)
+        want = warp.piecewise_shift_rows_ref(img3, best_id, table, ms_max, axis)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= TOL_WARP:
+            raise AssertionError(f"piecewise_shift_rows {label}: {err} > {TOL_WARP}")
+        p = torch.clamp(table, -ms_max, ms_max)
+        bid = best_id.long().clamp(max=15)
+        per_px = torch.gather(p, 1, bid) if axis == 1 else torch.gather(p.T, 0, bid)
+        per_px = torch.where(best_id.long() < 16, per_px, torch.zeros_like(per_px))
+        grid = shift_grid(per_px, axis, h, w)
+        inp = img3.float().permute(2, 0, 1)[None].contiguous()
+        ms = cuda_ms(lambda: warp.PIECEWISE_SHIFT_ROWS(img3, best_id, table, ms_max, axis), 50)
+        plain_ms = cuda_ms(lambda: warp.piecewise_shift_rows_ref(img3, best_id, table,
+                                                                 ms_max, axis), 5)
+        lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True), 50)
+        nbytes = img3.numel() + best_id.numel() + table.numel() * 4 + img3.numel() * 4
+        log("kernels", f"piecewise_shift_rows {label} pass, 16 boxes, "
+                       f"{int((best_id < 16).sum())} pixels in boxes: max_abs_err {err:.3e} "
+                       f"(limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                       f"ms, F.grid_sample {lib_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms "
+                       f"({nbytes / 1e6:.1f} MB)")
+        if axis == 1:
+            rows.append(row("piecewise_shift_rows", "shift_rows.cu",
+                            "oadg_tpu/ops/pallas_warp.py:647", err, ms, plain_ms, nbytes,
+                            lib_ms))
+
+    # B6: the three channels' histograms of one 1024x2048 image
+    got = hist.HIST256(img3, 3)
+    want = hist.hist256_ref(img3, 3)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("hist256 counts differ from the plain version")
+    flat = (img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1)
+    ms = cuda_ms(lambda: hist.HIST256(img3, 3), 50)
+    plain_ms = cuda_ms(lambda: hist.hist256_ref(img3, 3), 10)
+    lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=768), 50)
+    nbytes = img3.numel() + 3 * 256 * 4
+    log("kernels", f"hist256 {h}x{w}x3 uint8: counts equal; kernel {ms:.4f} ms, plain "
+                   f"{plain_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms; bound "
+                   f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+    rows.append(row("hist256", "hist256.cu", "oadg_tpu/ops/pallas_hist.py:73", 0.0, ms,
+                    plain_ms, nbytes, lib_ms))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def oamix_wrappers():
+    from oadg_tpu_torch.ops import fg_maps, hist, warp
+    return {"fg_maps": fg_maps.FG_MAPS, "shear_rows": warp.SHEAR_ROWS,
+            "piecewise_shift_rows": warp.PIECEWISE_SHIFT_ROWS, "hist256": hist.HIST256}
+
+
+def expected_launches(draws, version):
+    """The launches of B3-B6 that an OA-Mix draw table implies: one B3 per
+    view; per active slot of every chain step, B6 for equalize, B5 three
+    times for a per-box rotate and once for a per-box shear or translate,
+    B4 likewise for the background ops."""
+    from oadg_tpu_torch.ops.oamix_device import MAX_ML, N_SLOTS, num_photometric
+    n_photo = num_photometric(version)
+    counts = dict.fromkeys(oamix_wrappers(), 0)
+    b, v, width = draws["op_idx"].shape[:3]
+    for i in range(b):
+        for j in range(v):
+            counts["fg_maps"] += 1
+            for c in range(width):
+                for d in range(int(draws["depth"][i, j, c])):
+                    for s in range(N_SLOTS):
+                        if s < MAX_ML and not draws["ml_valid"][i, j, s]:
+                            continue
+                        op = int(draws["op_idx"][i, j, c, d, s])
+                        if op == 1:
+                            counts["hist256"] += 1
+                        elif n_photo <= op < n_photo + 3:
+                            counts["piecewise_shift_rows"] += 3 if op == n_photo else 1
+                        elif op >= n_photo + 3:
+                            counts["shear_rows"] += 3 if op == n_photo + 3 else 1
+    return counts
+
+
+class _CheckedKernel:
+    """Stands in for a B3-B6 wrapper: launches the kernel, then holds its
+    result against the plain version on the same inputs."""
+
+    def __init__(self, name, kernel, check):
+        self.name, self.kernel, self.check = name, kernel, check
+        self.errors = []
+
+    def __call__(self, *args):
+        out = self.kernel(*args)
+        self.errors.append(self.check(out, *args))
+        return out
+
+
+def _check_shear(out, img, shifts, fracs, max_shift, axis):
+    from oadg_tpu_torch.ops.warp import shear_rows_ref
+    err = float((out - shear_rows_ref(img, shifts, fracs, max_shift, axis)).abs().max())
+    if not err <= TOL_WARP:
+        raise AssertionError(f"shear_rows in the path: {err} > {TOL_WARP}")
+    return err
+
+
+def _check_piecewise(out, img, bid, shifts, max_shift, axis):
+    from oadg_tpu_torch.ops.warp import piecewise_shift_rows_ref
+    err = float((out - piecewise_shift_rows_ref(img, bid, shifts, max_shift,
+                                                axis)).abs().max())
+    if not err <= TOL_WARP:
+        raise AssertionError(f"piecewise_shift_rows in the path: {err} > {TOL_WARP}")
+    return err
+
+
+def _check_hist(out, x, c):
+    import torch
+    from oadg_tpu_torch.ops.hist import hist256_ref
+    if not torch.equal(out, hist256_ref(x, c)):
+        raise AssertionError("hist256 in the path differs from the plain version")
+    return 0.0
+
+
+def _check_fg(out, fx, fy, h, w):
+    from oadg_tpu_torch.ops.fg_maps import fg_maps_ref
+    return check_fg_maps(out, fg_maps_ref(fx, fy, h, w), fx, fy)[1]
+
+
+def phase_oamix():
+    """OA-Mix alone at the flagship's shapes: launch counts against the
+    drawn table with no host sync, every op in place against the plain
+    kernels, and the card against the CPU."""
+    import copy
+    import torch
+    from oadg_tpu_torch.ops import fg_maps, hist, warp
+    from oadg_tpu_torch.ops.oamix_device import num_photometric, oamix_batch
+    dev = torch.device("cuda", 0)
+    cfg = flagship_oamix_cfg()
+    rng = np.random.RandomState(5)
+    imgs = torch.from_numpy(np.stack([request_image(rng) for _ in range(2)])).to(dev)
+    gt = torch.from_numpy(seeded_gts(rng, 2, IMG_H, IMG_W)[0]).to(dev)
+    gv = torch.ones((2, NUM_GTS), dtype=torch.bool, device=dev)
+    shapes = np.array([[IMG_H, IMG_W]] * 2, np.float32)
+    gen = torch.Generator().manual_seed(0)
+    oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen)            # warm-up
+    torch.cuda.synchronize()
+    wrappers = oamix_wrappers()
+    for wr in wrappers.values():
+        wr.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen)
+        enqueued = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = {k: wr.launches for k, wr in wrappers.items()}
+    expected = expected_launches(out["draws"], cfg["version"])
+    log("oamix", f"oamix_batch ({cfg['version']}, 2 images of {IMG_H}x{IMG_W}, 1 view "
+                 f"each) under sync debug mode 'error': {wall:.3f} ms wall, {enqueued:.3f} "
+                 f"ms to enqueue; launches {launched}, the table implies {expected}")
+    if launched != expected:
+        raise AssertionError(f"OA-Mix launched {launched}, the table implies {expected}")
+    aug = out["aug"]
+    if aug.shape != (2, 1, IMG_H, IMG_W, 3) or aug.dtype != torch.uint8:
+        raise AssertionError(f"aug {tuple(aug.shape)} {aug.dtype}")
+    for key, n in (("multilevel", 2), ("oamix", 5)):
+        boxes, valid = out[f"{key}_boxes"], out[f"{key}_valid"]
+        if boxes.shape != (2, n, 4) or valid.dtype != torch.bool or not valid.any():
+            raise AssertionError(f"{key} boxes {tuple(boxes.shape)} {valid.dtype}")
+        b = boxes[valid]
+        if not bool(((b[:, 0] >= 0) & (b[:, 1] >= 0) & (b[:, 2] <= IMG_W)
+                     & (b[:, 3] <= IMG_H) & (b[:, 2] > b[:, 0])
+                     & (b[:, 3] > b[:, 1])).all()):
+            raise AssertionError(f"{key} boxes outside the image")
+    changed = float((aug[:, 0] != imgs).float().mean())
+    log("oamix", f"aug (2, 1, {IMG_H}, {IMG_W}, 3) uint8, {100 * changed:.1f}% of values "
+                 f"changed; multilevel valid {out['multilevel_valid'].sum().item()}, "
+                 f"oamix valid {out['oamix_valid'].sum().item()}; boxes inside the image")
+
+    # every op index in turn, B3-B6 checked in place
+    checks = {"fg_maps": _CheckedKernel("fg_maps", fg_maps.FG_MAPS, _check_fg),
+              "shear_rows": _CheckedKernel("shear_rows", warp.SHEAR_ROWS, _check_shear),
+              "piecewise_shift_rows": _CheckedKernel(
+                  "piecewise_shift_rows", warp.PIECEWISE_SHIFT_ROWS, _check_piecewise),
+              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist)}
+    modules = {"fg_maps": (fg_maps, "FG_MAPS"), "shear_rows": (warp, "SHEAR_ROWS"),
+               "piecewise_shift_rows": (warp, "PIECEWISE_SHIFT_ROWS"),
+               "hist256": (hist, "HIST256")}
+    n_photo = num_photometric(cfg["version"])
+    for name, (mod, attr) in modules.items():
+        setattr(mod, attr, checks[name])
+    try:
+        for k in range(n_photo + 6):
+            table = copy.deepcopy(out["draws"])
+            table["op_idx"][:] = k
+            before = {n: len(c.errors) for n, c in checks.items()}
+            oamix_batch(imgs, gt, gv, shapes, cfg, draws=table)
+            torch.cuda.synchronize()
+            calls = {n: len(c.errors) - before[n] for n, c in checks.items()}
+            need = ("hist256" if k == 1 else "piecewise_shift_rows"
+                    if n_photo <= k < n_photo + 3 else "shear_rows" if k >= n_photo + 3
+                    else None)
+            if need and not calls[need]:
+                raise AssertionError(f"op {k} did not run {need}")
+            log("oamix", f"op {k} in every slot: checked in place {calls}")
+    finally:
+        for name, (mod, attr) in modules.items():
+            setattr(mod, attr, checks[name].kernel)
+    for n, c in checks.items():
+        log("oamix", f"{n} in the path: {len(c.errors)} calls, vs plain max_abs_err "
+                     f"{max(c.errors):.3e}")
+
+    # the card against the CPU on one table, 256x512
+    h, w = 256, 512
+    small = imgs[:1, :h, :w].contiguous()
+    gt_s = torch.from_numpy(seeded_gts(rng, 1, h, w)[0])
+    gv_s = torch.ones((1, NUM_GTS), dtype=torch.bool)
+    card = oamix_batch(small, gt_s.to(dev), gv_s.to(dev), np.array([[h, w]], np.float32),
+                       cfg, generator=torch.Generator().manual_seed(1))
+    cpu = oamix_batch(small.cpu(), gt_s, gv_s, np.array([[h, w]], np.float32), cfg,
+                      draws=card["draws"])
+    diff = (card["aug"].cpu().int() - cpu["aug"].int()).abs()
+    same = float((diff == 0).float().mean())
+    log("oamix", f"card vs CPU, one table on {h}x{w}: {100 * same:.4f}% of values equal "
+                 f"(limit 99.5%), largest difference {int(diff.max())}; ops "
+                 f"{sorted(set(card['draws']['op_idx'].ravel().tolist()))}")
+    if same < 0.995:
+        raise AssertionError(f"OA-Mix card vs CPU: {same} of values equal")
+    for key in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):
+        if not torch.equal(card[key].cpu(), cpu[key]):
+            raise AssertionError(f"OA-Mix card vs CPU: {key} differs")
+    torch.cuda.empty_cache()
+
+
 def request_image(rng):
     return rng.randint(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8)
 
@@ -399,23 +808,31 @@ def phase_reference(handle):
         check_close("reference", f"RoI head {name} card vs CPU", a, b)
 
 
-def train_batch(rng, h, w, cfg, device):
+def raw_train_batch(rng, h, w, device):
+    """The training step's input: 2 seeded uint8 BGR images of h x w on the
+    device with ``NUM_GTS`` seeded gts each, ``img_shape`` on the host (OA-Mix
+    draws its boxes from it)."""
+    import torch
+    images = np.stack([rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)])
+    gt, labels = seeded_gts(rng, 2, h, w)
+    return {"img_raw": torch.from_numpy(images).to(device),
+            "gt_bboxes": torch.from_numpy(gt).to(device),
+            "gt_labels": torch.from_numpy(labels).to(device),
+            "gt_valid": torch.ones((2, NUM_GTS), dtype=torch.bool, device=device),
+            "img_shape": torch.tensor([[h, w]] * 2, dtype=torch.float32)}
+
+
+def fixed_view_batch(rng, h, w, cfg, device):
     """2 images x 2 views, views-major, through ``prepare_image``: seeded
-    uint8 images, view 2 each image with seeded noise (OA-Mix is not ported
-    yet), and 32 seeded gts of log-uniform size over the 8 classes, the same
-    in both views."""
+    uint8 images, view 2 each image with seeded noise (fixed views, for the
+    card-vs-CPU step), and 32 seeded gts, the same in both views."""
     import torch
     from oadg_tpu_torch.apis import prepare_image
     images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
     views = [np.clip(im.astype(np.int16) + rng.randint(-24, 25, im.shape), 0, 255)
              .astype(np.uint8) for im in images]
     parts = [prepare_image(im, cfg, device) for im in images + views]
-    bw = np.exp(rng.uniform(np.log(16), np.log(w / 2), (2, NUM_GTS)))
-    bh = np.exp(rng.uniform(np.log(16), np.log(h / 2), (2, NUM_GTS)))
-    x1 = rng.uniform(0, w - bw)
-    y1 = rng.uniform(0, h - bh)
-    gt = np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32)
-    labels = rng.randint(0, 8, (2, NUM_GTS))
+    gt, labels = seeded_gts(rng, 2, h, w)
     img = torch.cat([b["img"] for b in parts])
     if img.is_cuda:
         img = img.contiguous(memory_format=torch.channels_last)
@@ -426,7 +843,7 @@ def train_batch(rng, h, w, cfg, device):
             "gt_valid": torch.ones((4, NUM_GTS), dtype=torch.bool, device=device)}
 
 
-def build_trainer(device, cfg):
+def build_trainer(device, cfg, preprocess=None):
     """The flagship built for OA-DG training with seeded random weights,
     SGD and the config's LR schedule, through the port's entry points."""
     from oadg_tpu_torch.apis import init_detector
@@ -436,7 +853,8 @@ def build_trainer(device, cfg):
     steps_per_epoch = -(-CITYSCAPES_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])
     step = make_train_step(
         handle.model, build_optimizer(handle.model, cfg["optimizer"]),
-        build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"], steps_per_epoch))
+        build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"], steps_per_epoch),
+        preprocess=preprocess)
     return handle.model, step
 
 
@@ -476,16 +894,20 @@ def _plain_bwd(feats, rois, dy, *cfg):
 def phase_train(rows):
     import torch
     from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.engine import make_oadg_preprocess
     from oadg_tpu_torch.ops import roi_align
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     dev = torch.device("cuda", 0)
     cfg = load_config(FLAGSHIP)
+    oamix_cfg = flagship_oamix_cfg()
     t0 = time.perf_counter()
-    model, step = build_trainer("cuda", cfg)
-    batch = train_batch(np.random.RandomState(3), IMG_H, IMG_W, cfg, dev)
+    preprocess = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"])
+    model, step = build_trainer("cuda", cfg, preprocess)
+    batch = raw_train_batch(np.random.RandomState(3), IMG_H, IMG_W, dev)
     log("train", f"flagship for training (num_views {cfg['num_views']}, f32, "
-                 f"channels-last) and a batch of 2 images x 2 views of "
-                 f"{IMG_H}x{IMG_W} in {time.perf_counter() - t0:.2f} s")
+                 f"channels-last), OA-Mix preprocess ({oamix_cfg['version']}), and a "
+                 f"uint8 batch of 2 images of {IMG_H}x{IMG_W} in "
+                 f"{time.perf_counter() - t0:.2f} s")
     params = dict(model.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}
     frozen = [k for k, p in params.items() if not p.requires_grad]
@@ -494,26 +916,32 @@ def phase_train(rows):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ROI_ALIGN_FWD.launches = ROI_ALIGN_BWD.launches = 0
+    wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD,
+                    **oamix_wrappers())
+    for wr in wrappers.values():
+        wr.launches = 0
+    expected = dict(roi_align_fwd=6, roi_align_bwd=6, **dict.fromkeys(oamix_wrappers(), 0))
     times, logs = [], []
     for _ in range(3):
         t0 = time.perf_counter()
         logs.append(step(batch, gen))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    fwd, bwd = ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches
+        for k, n in expected_launches(preprocess.draws, oamix_cfg["version"]).items():
+            expected[k] += n
+    launched = {k: wr.launches for k, wr in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     for i, lv in enumerate(logs):
         log("train", f"step {i + 1}: " + ", ".join(
             f"{k} {float(v):.5f}" for k, v in lv.items()))
     log("train", f"3 steps: ms {[round(t, 3) for t in times]}, median "
                  f"{statistics.median(times):.3f}; max_memory_allocated "
-                 f"{peak / 2 ** 30:.2f} GiB; roi_align_fwd launches {fwd}, "
-                 f"roi_align_bwd launches {bwd}")
-    if (fwd, bwd) != (6, 6):
-        raise AssertionError(f"3 steps launched roi_align_fwd {fwd} and "
-                             f"roi_align_bwd {bwd} times, not 6 and 6")
-    rows[0]["launches"], rows[1]["launches"] = fwd, bwd
+                 f"{peak / 2 ** 30:.2f} GiB; launches {launched}; the tables imply "
+                 f"{expected}")
+    if launched != expected:
+        raise AssertionError(f"3 steps launched {launched}, not {expected}")
+    for r in rows:
+        r["launches"] = launched[r["name"]]
     for lv in logs:
         if not all(bool(torch.isfinite(v).all()) for v in lv.values()):
             raise AssertionError(f"a loss is not finite: {lv}")
@@ -550,7 +978,7 @@ def phase_train(rows):
     torch.cuda.empty_cache()
 
 
-STAGES = ("forward_train: backbone+neck", "forward_train: rpn head+loss",
+STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: rpn head+loss",
           "forward_train: proposals", "forward_train: roi head+loss",
           "train_step: backward", "train_step: sgd")
 
@@ -604,7 +1032,7 @@ def phase_train_reference():
     cfg = load_config(FLAGSHIP)
     card, _ = build_trainer("cuda", cfg)
     cpu, _ = build_trainer("cpu", cfg)
-    batch = train_batch(np.random.RandomState(4), 256, 512, cfg, "cpu")
+    batch = fixed_view_batch(np.random.RandomState(4), 256, 512, cfg, "cpu")
     card_batch = {k: v.to(dev) for k, v in batch.items()}
     card_batch["img"] = card_batch["img"].contiguous(memory_format=torch.channels_last)
 
@@ -668,10 +1096,11 @@ def main():
     import oadg_tpu_torch.apis  # noqa: F401  (fails here outside a checkout)
     phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels() + phase_oamix_kernels()
     handle = phase_slice(rows)
     phase_reference(handle)
     del handle
+    phase_oamix()
     phase_train(rows)
     phase_train_reference()
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,10 @@
 """The training step (port of ``oadg_tpu/engine/train_step.py``):
 ``forward_train`` -> backward -> SGD step -> LR schedule tick. The
 counterpart of the JAX package's ``make_train_step(detector, tx,
-preprocess=None)`` (``:33``), which takes a views-major batch as it is
-(OA-Mix is not ported yet).
+preprocess=None)`` (``:33``). With ``preprocess`` (``engine/preprocess.py``) the step first
+turns a uint8 batch into the views-major one through on-device OA-Mix,
+inside a ``train_step: oamix`` span, as the JAX step runs its preprocess
+inside the jitted step.
 
 Backward and the SGD step run inside ``torch.profiler.record_function``
 spans (``train_step: backward``, ``train_step: sgd``), beside those of
@@ -10,7 +12,7 @@ spans (``train_step: backward``, ``train_step: sgd``), beside those of
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -28,10 +30,12 @@ def parse_losses(losses: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    lr_schedule: Callable[[int], float]) -> Callable:
+                    lr_schedule: Callable[[int], float],
+                    preprocess: Optional[Callable] = None) -> Callable:
     """-> ``step(batch, generator) -> log_vars``, detached tensors.
 
-    Every random number of the step is drawn from ``generator``. The step at
+    Every random number of the step is drawn from ``generator``: OA-Mix's
+    (``preprocess(batch, generator)``, when given) and the samplers'. The step at
     iteration ``t`` (``step.t``, counting from 0) runs with
     ``lr_schedule(t)``; ``step.optimizer`` is ``optimizer``.
     """
@@ -42,6 +46,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
+        if preprocess is not None:
+            with record_function("train_step: oamix"):
+                batch = preprocess(batch, generator)
         total, log_vars = parse_losses(model.forward_train(batch,
                                                            UniformDraws(generator)))
         with record_function("train_step: backward"):

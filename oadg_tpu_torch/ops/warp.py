@@ -1,0 +1,257 @@
+"""Row-shift warps of OA-Mix (port of ``oadg_tpu/ops/pallas_warp.py``,
+kernels B4 and B5).
+
+- ``shear_rows(img, shifts, fracs, max_shift, axis)`` (B4): every line of
+  the pass shifts by one amount, ``out = img[q] * (1 - f) + img[q + 1] * f``
+  (one fused multiply-add over the rounded second product, as XLA compiles
+  the JAX package's lerp)
+  with ``q = pos + shift`` and reads outside the image giving 0; shifts are
+  clamped to +-``max_shift``. ``axis=1`` shifts along x, one amount per row;
+  ``axis=0`` along y, one amount per column (the JAX package transposes
+  around its y passes, ``:347-363, 380-383``; the values are the same). The
+  JAX counterparts are ``shear_rows_v4``, ``shear_rows_v3``, ``shear_rows``
+  and ``shear_rows_block`` (``:131, 169, 275, 239``), one contract in four
+  TPU layouts; the plain version is ``shear_rows_xla`` (``:315-328``).
+- ``piecewise_shift_rows(img, bid, shifts, max_shift, axis)`` (B5): each
+  pixel shifts by the amount of its box, ``shifts[key, bid[y, x]]``, split
+  into floor and fraction after clamping; ``bid == G`` keeps the source
+  pixel. The plain version is the CPU branch of ``:647`` (``:662-675``).
+
+Both take (H, W, C) uint8 or float32 images (C <= 4) and return float32, as
+the JAX package's CPU path does (on the TPU it rounds to bf16 lanes). CUDA
+tensors go to ``csrc/shift_rows.cu``, CPU tensors to the plain versions.
+
+The wrappers ``warp_shear_x/y``, ``warp_translate_x/y`` and ``warp_rotate``
+(the Paeth 3-shear) take host scalars and derive each line's shift with
+``_row_shift_params`` (``:333-385``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._kernels import CudaLibrary
+
+__all__ = ["shear_rows", "shear_rows_ref", "piecewise_shift_rows",
+           "piecewise_shift_rows_ref", "warp_shear_x", "warp_shear_y",
+           "warp_translate_x", "warp_translate_y", "warp_rotate",
+           "SHEAR_ROWS", "PIECEWISE_SHIFT_ROWS"]
+
+_DTYPE_CODES = {torch.uint8: 0, torch.float32: 1}
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA compiles the JAX
+    package's ``a * b + c``: the float64 product of float32 values is exact
+    and the sum is rounded to float64 and then to float32, which differs
+    from one rounding only where the float64 sum ties in float32."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def _lerp_ref(img: torch.Tensor, s: torch.Tensor, f: torch.Tensor,
+              axis: int) -> torch.Tensor:
+    """Plain lerp of every pixel with its own integer shift ``s`` and
+    fraction ``f`` (both (H, W)) along ``axis``; zero outside."""
+    x = img.float()
+    h, w, c = x.shape
+    n = w if axis == 1 else h
+    pos = torch.arange(n, device=x.device)
+    pos = pos[None, :] if axis == 1 else pos[:, None]
+
+    def tap(q):
+        ok = (q >= 0) & (q < n)
+        v = torch.gather(x, axis, q.clamp(0, n - 1)[..., None].expand(h, w, c).long())
+        return torch.where(ok[..., None], v, torch.zeros((), device=x.device))
+
+    q = pos + s
+    f = f[..., None]
+    return fma(tap(q), 1.0 - f, tap(q + 1) * f)
+
+
+def _line(v: torch.Tensor, axis: int, h: int, w: int) -> torch.Tensor:
+    """A per-line vector (H,) for axis 1 or (W,) for axis 0 as (H, W)."""
+    return (v[:, None] if axis == 1 else v[None, :]).expand(h, w)
+
+
+def shear_rows_ref(img, shifts, fracs, max_shift: int, axis: int = 1):
+    """Plain version of B4."""
+    h, w, _ = img.shape
+    s = torch.clamp(shifts.long(), -max_shift, max_shift)
+    return _lerp_ref(img, _line(s, axis, h, w), _line(fracs.float(), axis, h, w), axis)
+
+
+def piecewise_shift_rows_ref(img, bid, shifts, max_shift: float, axis: int = 1):
+    """Plain version of B5: the shift of each pixel's box, then one lerp."""
+    h, w, _ = img.shape
+    g = shifts.shape[1]
+    p = torch.clamp(shifts.float(), -max_shift, max_shift)
+    s_all = torch.floor(p)
+    f_all = p - s_all
+    b = bid.long().clamp(max=g - 1)
+    table = lambda t: (torch.gather(t, 1, b) if axis == 1 else
+                       torch.gather(t.T, 0, b))                  # (H, W)
+    out = _lerp_ref(img, table(s_all).long(), table(f_all), axis)
+    return torch.where((bid.long() < g)[..., None], out, img.float())
+
+
+def _check_image(img: torch.Tensor, axis: int, what: str):
+    if img.device.type != "cuda":
+        raise ValueError(f"the CUDA {what} kernel needs CUDA tensors, got {img.device}")
+    if (img.dim() != 3 or not 1 <= img.shape[2] <= 4 or img.dtype not in _DTYPE_CODES
+            or not img.is_contiguous()):
+        raise ValueError(f"{what} takes a contiguous uint8 or float32 (H, W, C<=4) "
+                         f"image, got {tuple(img.shape)} {img.dtype}")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+
+
+class ShearRows:
+    """Wrapper of ``oadg_shear_rows`` in ``csrc/shift_rows.cu`` (kernel
+    B4): checks its inputs, allocates the float32 output, launches on the
+    current stream and counts launches."""
+
+    def __init__(self, library: CudaLibrary):
+        self.launches = 0
+        self.library = library
+
+    def __call__(self, img, shifts, fracs, max_shift: int, axis: int = 1):
+        _check_image(img, axis, "shear_rows")
+        h, w, c = img.shape
+        n = h if axis == 1 else w
+        shifts = shifts.to(torch.int32).contiguous()
+        fracs = fracs.to(torch.float32).contiguous()
+        if shifts.shape != (n,) or fracs.shape != (n,) or shifts.device != img.device \
+                or fracs.device != img.device:
+            raise ValueError(f"shifts and fracs must be ({n},) on the image's device")
+        out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
+        lib = self.library.load()
+        with torch.cuda.device(img.device):
+            stream = torch.cuda.current_stream(img.device).cuda_stream
+            err = lib.oadg_shear_rows(img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c,
+                                      axis, shifts.data_ptr(), fracs.data_ptr(),
+                                      int(max_shift), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"shear_rows launch failed with cudaError_t {err}")
+        self.launches += 1
+        return out
+
+
+class PiecewiseShiftRows:
+    """Wrapper of ``oadg_piecewise_shift_rows`` in ``csrc/shift_rows.cu``
+    (kernel B5): int8 box ids (H, W) in [0, G], float32 shifts (keys, G)."""
+
+    def __init__(self, library: CudaLibrary):
+        self.launches = 0
+        self.library = library
+
+    def __call__(self, img, bid, shifts, max_shift: float, axis: int = 1):
+        _check_image(img, axis, "piecewise_shift_rows")
+        h, w, c = img.shape
+        n, g = shifts.shape
+        bid = bid.to(torch.int8).contiguous()
+        shifts = shifts.to(torch.float32).contiguous()
+        if (n != (h if axis == 1 else w) or not 1 <= g <= 127 or bid.shape != (h, w)
+                or bid.device != img.device or shifts.device != img.device):
+            raise ValueError(f"piecewise_shift_rows needs bid ({h}, {w}) and shifts "
+                             f"(keys, G<=127) on the image's device, got "
+                             f"{tuple(bid.shape)} and {tuple(shifts.shape)}")
+        out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
+        lib = self.library.load()
+        with torch.cuda.device(img.device):
+            stream = torch.cuda.current_stream(img.device).cuda_stream
+            err = lib.oadg_piecewise_shift_rows(
+                img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis, bid.data_ptr(),
+                shifts.data_ptr(), g, float(max_shift), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"piecewise_shift_rows launch failed with cudaError_t {err}")
+        self.launches += 1
+        return out
+
+
+_LIBRARY = CudaLibrary("shift_rows.cu", {
+    "oadg_shear_rows": (ctypes.c_int, (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p)),
+    "oadg_piecewise_shift_rows": (ctypes.c_int, (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)),
+})
+SHEAR_ROWS = ShearRows(_LIBRARY)
+PIECEWISE_SHIFT_ROWS = PiecewiseShiftRows(_LIBRARY)
+
+
+def _dispatch(img, what):
+    if img.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} has no path for device {img.device}")
+    return img.device.type == "cuda"
+
+
+def shear_rows(img, shifts, fracs, max_shift: int, axis: int = 1):
+    """B4 on a CUDA image, its plain version on a CPU image."""
+    if _dispatch(img, "shear_rows"):
+        return SHEAR_ROWS(img.contiguous(), shifts, fracs, max_shift, axis)
+    return shear_rows_ref(img, shifts, fracs, max_shift, axis)
+
+
+def piecewise_shift_rows(img, bid, shifts, max_shift: float, axis: int = 1):
+    """B5 on a CUDA image, its plain version on a CPU image."""
+    if _dispatch(img, "piecewise_shift_rows"):
+        return PIECEWISE_SHIFT_ROWS(img.contiguous(), bid, shifts, max_shift, axis)
+    return piecewise_shift_rows_ref(img, bid, shifts, max_shift, axis)
+
+
+def _f32(v) -> np.float32:
+    return np.float32(v)
+
+
+def _row_shift_params(k1, k2, n: int, max_shift: int, device):
+    """Offset ``o(y) = k1 * y + k2`` of each of ``n`` lines, clamped to
+    +-``max_shift`` and split into an int32 shift and a float32 fraction;
+    ``k1`` and ``k2`` are float32 host scalars."""
+    y = torch.arange(n, dtype=torch.float32, device=device)
+    off = torch.clamp(y * float(_f32(k1)) + float(_f32(k2)), -max_shift, max_shift)
+    s = torch.floor(off)
+    return s.to(torch.int32), off - s
+
+
+def warp_shear_x(img, s, cx, cy, max_shift: int):
+    """cv2-form shear_x: source x = x + s * (y - cy)."""
+    shifts, fracs = _row_shift_params(s, -_f32(s) * _f32(cy), img.shape[0], max_shift,
+                                      img.device)
+    return shear_rows(img, shifts, fracs, max_shift, axis=1)
+
+
+def warp_shear_y(img, s, cx, cy, max_shift: int):
+    """Source y = y + s * (x - cx): one column pass."""
+    shifts, fracs = _row_shift_params(s, -_f32(s) * _f32(cx), img.shape[1], max_shift,
+                                      img.device)
+    return shear_rows(img, shifts, fracs, max_shift, axis=0)
+
+
+def warp_translate_x(img, tx, max_shift: int):
+    shifts, fracs = _row_shift_params(0.0, tx, img.shape[0], max_shift, img.device)
+    return shear_rows(img, shifts, fracs, max_shift, axis=1)
+
+
+def warp_translate_y(img, ty, max_shift: int):
+    shifts, fracs = _row_shift_params(0.0, ty, img.shape[1], max_shift, img.device)
+    return shear_rows(img, shifts, fracs, max_shift, axis=0)
+
+
+def warp_rotate(img, rad, cx, cy, max_shift_x: int, max_shift_y: int):
+    """Rotation by ``rad`` about (cx, cy) as three shears (Paeth):
+    x by -tan(rad / 2), y by sin(rad), x again; three passes."""
+    rad = torch.tensor(_f32(rad))                  # float32 tan and sin on the host
+    a = _f32(-torch.tan(rad / 2.0))
+    b = _f32(torch.sin(rad))
+    h, w = img.shape[0], img.shape[1]
+    s1, f1 = _row_shift_params(a, -a * _f32(cy), h, max_shift_x, img.device)
+    out = shear_rows(img, s1, f1, max_shift_x, axis=1)
+    s2, f2 = _row_shift_params(b, -b * _f32(cx), w, max_shift_y, img.device)
+    out = shear_rows(out, s2, f2, max_shift_y, axis=0)
+    return shear_rows(out, s1, f1, max_shift_x, axis=1)

@@ -6,10 +6,12 @@ every random stage of the port takes its uniform [0, 1) float32 draws from a
 numbers that ``jax.random.uniform`` drew from the JAX package's key splits;
 one run hands another what it drew), else from ``generator``. Names used by
 the training step: ``rpn.pos`` / ``rpn.neg`` (N, anchors), ``rcnn.pos`` /
-``rcnn.neg`` (B, candidates), ``random_boxes`` (N, 4, boxes).
+``rcnn.neg`` (B, candidates), ``random_boxes`` (N, 4, boxes). OA-Mix draws
+its table on the host, from ``host_generator(generator)``.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -39,3 +41,16 @@ class UniformDraws:
             raise KeyError(f"no draws {name!r} were given and no generator")
         self.drawn[name] = u
         return u.to(device)
+
+
+def host_generator(generator: torch.Generator) -> torch.Generator:
+    """The CPU generator of a step's host-side draws. A CPU ``generator`` is
+    returned as it is. A CUDA generator keeps its seed and Philox offset on
+    the host, so a CPU generator seeded from them costs no device sync; it
+    changes from step to step as the step's device draws advance the
+    offset."""
+    if generator.device.type == "cpu":
+        return generator
+    state = bytes(generator.get_state().tolist())
+    seed = int.from_bytes(hashlib.sha256(state).digest()[:8], "little") >> 1
+    return torch.Generator().manual_seed(seed)

@@ -11,11 +11,19 @@ indices and weights and differ only in the order of the sums (the backward
 kernel sums with atomics, in an order that changes from run to run), so
 rtol=1e-5, atol=1e-6 for values of order 1; a bfloat16 gradient is the
 rounding of such an f32 sum, so it is held to one bfloat16 rounding step.
+The OA-Mix kernels: B3's maps equal (``best_id`` may differ only where two
+masks tie exactly), B4 and B5 within 1e-4 of values up to 255 (the kernels
+fuse the lerp's multiply-add, the plain versions emulate it in float64 and
+may round a tie once more: one float32 ulp, 1.5e-5 at 255), B6's counts
+equal, and OA-Mix on the card equal to the CPU on 99.5% of pixels.
 """
 import numpy as np
 import pytest
 import torch
 
+from oadg_tpu_torch.ops import fg_maps as fg_mod
+from oadg_tpu_torch.ops import hist as hist_mod
+from oadg_tpu_torch.ops import warp as warp_mod
 from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
                                           roi_align_multilevel,
                                           roi_align_multilevel_ref,
@@ -143,3 +151,97 @@ def test_one_training_step_on_the_card():
     assert ROI_ALIGN_FWD.launches == fwd + 2 and ROI_ALIGN_BWD.launches == bwd + 2
     assert all(torch.isfinite(v).all() for v in log.values())
     assert float(log["loss_cont"]) >= 0 and float(log["loss"]) > 0
+
+
+def _oamix_inputs(dev, h=256, w=512, seed=0):
+    rng = np.random.RandomState(seed)
+    img = torch.from_numpy(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).to(dev)
+    fx = torch.from_numpy(rng.rand(16, w).astype(np.float32)).to(dev)
+    fy = torch.from_numpy((rng.rand(16, h) * (rng.rand(16, 1) > 0.3))
+                          .astype(np.float32)).to(dev)
+    return rng, img, fx, fy
+
+
+@pytest.mark.cuda
+def test_fg_maps_kernel_matches_plain_version():
+    dev = _cuda()
+    _, _, fx, fy = _oamix_inputs(dev)
+    before = fg_mod.FG_MAPS.launches
+    got = fg_mod.fg_maps(fx, fy, 256, 512)
+    want = fg_mod.fg_maps_ref(fx, fy, 256, 512)
+    torch.cuda.synchronize()
+    assert fg_mod.FG_MAPS.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -8, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("kind", ["uint8", "f32x3", "f32x4"])
+def test_shear_rows_kernel_matches_plain_version(axis, kind):
+    dev = _cuda()
+    rng, img, _, _ = _oamix_inputs(dev)
+    if kind != "uint8":
+        img = img.float()
+    if kind == "f32x4":
+        img = torch.cat([img, img[..., :1] * 0.5], -1).contiguous()
+    n = img.shape[0] if axis == 1 else img.shape[1]
+    shifts = torch.from_numpy(rng.randint(-300, 301, n).astype(np.int32)).to(dev)
+    fracs = torch.rand(n, device=dev)
+    before = warp_mod.SHEAR_ROWS.launches
+    got = warp_mod.shear_rows(img, shifts, fracs, 200, axis)
+    want = warp_mod.shear_rows_ref(img, shifts, fracs, 200, axis)
+    torch.cuda.synchronize()
+    assert warp_mod.SHEAR_ROWS.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+def test_piecewise_shift_rows_kernel_matches_plain_version(axis):
+    dev = _cuda()
+    rng, img, fx, fy = _oamix_inputs(dev)
+    bid = fg_mod.fg_maps_ref(fx, fy, 256, 512)[0]
+    n = 256 if axis == 1 else 512
+    shifts = torch.randn(n, 16, device=dev) * 300
+    before = warp_mod.PIECEWISE_SHIFT_ROWS.launches
+    got = warp_mod.piecewise_shift_rows(img, bid, shifts, 512, axis)
+    want = warp_mod.piecewise_shift_rows_ref(img, bid, shifts, 512, axis)
+    torch.cuda.synchronize()
+    assert warp_mod.PIECEWISE_SHIFT_ROWS.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hist256_kernel_matches_plain_version():
+    dev = _cuda()
+    _, img, _, _ = _oamix_inputs(dev)
+    before = hist_mod.HIST256.launches
+    got = hist_mod.image_hist256(img)
+    torch.cuda.synchronize()
+    assert hist_mod.HIST256.launches == before + 1
+    assert torch.equal(got, hist_mod.hist256_ref(img, 3))
+    assert torch.equal(hist_mod.hist256(img[..., 1].float()), hist_mod.hist256_ref(
+        img[..., 1].contiguous())[0])
+
+
+@pytest.mark.cuda
+def test_oamix_on_the_card_matches_the_cpu():
+    from oadg_tpu_torch.ops.oamix_device import oamix_batch
+    dev = _cuda()
+    _, img, _, _ = _oamix_inputs(dev)
+    gt = torch.tensor([[40, 30, 200, 150], [60, 50, 230, 170], [300, 100, 480, 240]]
+                      + [[0, 0, 0, 0]] * 13, dtype=torch.float32)
+    gv = torch.zeros(16, dtype=torch.bool)
+    gv[:3] = True
+    shape = np.array([[256, 512]], np.float32)
+    cfg = dict(num_views=2, version="augmix.all")
+    card = oamix_batch(img[None], gt[None].to(dev), gv[None].to(dev), shape, cfg,
+                       generator=torch.Generator().manual_seed(0))
+    cpu = oamix_batch(img[None].cpu(), gt[None], gv[None], shape, cfg, draws=card["draws"])
+    same = (card["aug"].cpu() == cpu["aug"]).float().mean().item()
+    assert same >= 0.995, same
+    for k in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k

@@ -38,6 +38,7 @@ def test_sources_import_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, oadg_tpu_torch.apis, oadg_tpu_torch.utils.checkpoint, "
             "oadg_tpu_torch.engine, oadg_tpu_torch.models.losses, "
+            "oadg_tpu_torch.ops.oamix_device, oadg_tpu_torch.engine.preprocess, "
             "oadg_tpu_torch.utils.draws, oadg_tpu_torch.config as c; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
@@ -55,6 +56,20 @@ def test_init_detector_cuda_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_detector(ROOT / "configs/OA-DG/cityscapes/"
                       "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py", device="cuda")
+
+
+def test_build_detector_defaults_to_the_card(monkeypatch):
+    """``build_detector`` builds on ``cuda`` unless told otherwise, and
+    raises without a card; ``device="cpu"`` builds on the CPU."""
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.models import build_detector
+    model = load_config(ROOT / "configs/OA-DG/cityscapes/"
+                        "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py")["model"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_detector(dict(model))
+    det = build_detector(dict(model), device="cpu", num_views=2)
+    assert {p.device.type for p in det.parameters()} == {"cpu"}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
