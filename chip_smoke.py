@@ -10,7 +10,7 @@ non-zero exit code:
    power limit, the torch and CUDA versions; turns TF32 off for matmuls and
    convolutions so float32 means float32.
 2. build: compiles every CUDA kernel of the serving and training paths
-   from ``oadg_tpu_torch/ops/csrc/`` (B1-B6, five sources), one nvcc per
+   from ``oadg_tpu_torch/ops/csrc/`` (B1-B7, five sources), one nvcc per
    source, all at once.
 3. kernels: each kernel against its plain PyTorch version, with CUDA-event
    medians of both, the least time the card could take (the bytes the
@@ -22,8 +22,11 @@ non-zero exit code:
    boxes on 1024x2048), B4 (row shift: x and column passes at the rotate
    shifts of severity 10 and the translate shifts, on uint8 3-channel and
    float32 4-channel images; library call ``F.grid_sample``), B5 (per-box
-   row shift on B3's own ``best_id``; ``F.grid_sample``) and B6 (256-bin
-   histograms of a 1024x2048x3 uint8 image; ``torch.bincount``).
+   row shift on B3's own ``best_id``; ``F.grid_sample``), B6 (256-bin
+   histograms of a 1024x2048x3 uint8 image; ``torch.bincount``) and B7
+   (merged row shift on the float32 4-channel image with B3's ``best_id`` as
+   the composite id: per-box x and column passes, a background pass, the
+   identity, and three slots with mixed flags; ``F.grid_sample``).
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
    request, then 3 timed requests of 1024x2048 uint8 images through
@@ -35,23 +38,29 @@ non-zero exit code:
    proposals.
 6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
    1024x2048 uint8 images with 32 seeded gts each, inside
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync): B3-B6
-   launch exactly as often as the drawn table implies; outputs uint8 of
-   the expected shape, boxes inside the image. Then one table per op index
-   (every slot drawing op k) with B3-B6 checked in place against their
-   plain versions; then the card against the CPU on one table at 256x512.
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), once per
+   chain: on the slots chain B3-B6 launch exactly as often as the drawn
+   table implies and B7 never; on the merged chain B3, B6 and B7 do and B4
+   and B5 never; outputs uint8 of the expected shape, boxes inside the
+   image. Then, per chain, one table per op index (every slot drawing op k)
+   with B3-B7 checked in place against their plain versions; the merged
+   chain against the slots chain on one table (differ by at most 1 on at
+   most 1e-4 of values); then each chain on the card against the CPU on one
+   table at 256x512.
 7. train: the flagship built for training (``num_views=2``), SGD with the
    config's LR schedule through ``make_train_step(...,
    preprocess=make_oadg_preprocess(oamix_config, img_norm_cfg))``, one
    warm-up step and 3 timed steps on uint8 batches of 2 images of
-   1024x2048 (OA-Mix makes view 2; 32 seeded gts each). B1 and B2 must each
-   launch twice per step and B3-B6 as often as each step's table implies;
-   losses finite, ``loss_cont`` > 0, every trainable parameter moved, every
-   frozen one (stem, ``layer1``) unchanged. One more step checks B1's RoI
-   features and B2's level gradients inside the path against the plain
-   versions on the same inputs. Then one step under ``torch.profiler``:
-   host and device time of each stage's ``record_function`` span (OA-Mix
-   included), and the device's busy share.
+   1024x2048 (OA-Mix makes view 2; 32 seeded gts each), first with OA-Mix on
+   the slots chain, then the same again on the merged chain
+   (``make_oadg_preprocess(..., chain="merged")``). B1 and B2 must each
+   launch twice per step and B3-B7 as often as each step's table implies
+   for its chain; losses finite, ``loss_cont`` > 0, every trainable
+   parameter moved, every frozen one (stem, ``layer1``) unchanged. One more
+   step checks B1's RoI features and B2's level gradients inside the path
+   against the plain versions on the same inputs. Then one step per chain
+   under ``torch.profiler``: host and device time of each stage's
+   ``record_function`` span (OA-Mix included), and the device's busy share.
 8. train reference: one step of the same seeded model on the CPU and on the
    card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws made on the
    CPU and handed to both, the card's proposals used on both: losses, and
@@ -402,7 +411,7 @@ def shift_grid(off, axis, h, w):
 
 
 def phase_oamix_kernels():
-    """B3-B6 vs their plain versions at the flagship's shapes."""
+    """B3-B7 vs their plain versions at the flagship's shapes."""
     import torch
     import torch.nn.functional as F
     from oadg_tpu_torch.ops import fg_maps as fgm
@@ -508,6 +517,55 @@ def phase_oamix_kernels():
                             "oadg_tpu/ops/pallas_warp.py:647", err, ms, plain_ms, nbytes,
                             lib_ms))
 
+    # B7: merged passes on the 4-channel float32 image, B3's best_id as the
+    # composite id (S = 1, as the merged chain calls it), and three slots
+    bg = torch.clamp(a * (ys - h / 2.0), -(int(0.27 * h / 2) + 4), int(0.27 * h / 2) + 4)
+    slot = torch.full((h, w), 2, dtype=torch.long, device=dev)
+    slot[100:500, 200:900], slot[600:1000, 1100:1900] = 0, 1
+    cid3 = torch.where(best_id.long() < 16, slot * 16 + best_id.long(),
+                       torch.full_like(slot, 48)).to(torch.int8)
+    p_rot_x = torch.clamp(-torch.tan(rad / 2)[None, :] * (ys - cy[None, :]), -512, 512)
+    p_rot_y = torch.clamp(torch.sin(rad)[None, :] * (xs - cx[None, :]), -768, 768)
+    zero = lambda n, k: torch.zeros((n, k), device=dev)
+    merged_cases = (
+        ("per-box x pass", 1, best_id, p_rot_x, zero(h, 1), [True], [False]),
+        ("per-box column pass", 0, best_id, p_rot_y, zero(w, 1), [True], [False]),
+        ("background x pass", 1, best_id, zero(h, 16), bg, [False], [True]),
+        ("identity", 1, best_id, p_rot_x, bg, [False], [False]),
+        ("3 slots x pass", 1, cid3, p_rot_x.repeat(1, 3) * 0.5, bg.repeat(1, 3),
+         [True, False, False], [False, False, True]),
+        ("3 slots column pass", 0, cid3, p_rot_y.repeat(1, 3) * 0.5,
+         torch.clamp(b * (xs - w / 2.0), -516, 516).repeat(1, 3),
+         [False, True, False], [True, False, False]))
+    inp = img4.permute(2, 0, 1)[None].contiguous()
+    for label, axis, cid, p_bb, p_sl, is_bb, is_bg in merged_cases:
+        args = (img4, cid, p_bb, p_sl, is_bb, is_bg, axis)
+        got = warp.MERGED_SHIFT_ROWS(*args)
+        want = warp.merged_shift_rows_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= TOL_WARP:
+            raise AssertionError(f"merged_shift_rows {label}: {err} > {TOL_WARP}")
+        if label == "identity" and not torch.equal(got, img4):
+            raise AssertionError("merged_shift_rows with no flag set is not the identity")
+        table = warp._merged_table(p_bb, p_sl, np.asarray(is_bb), np.asarray(is_bg))
+        k = cid.long().clamp(0, p_bb.shape[1])
+        per_px = torch.gather(table, 1, k) if axis == 1 else torch.gather(table.T, 0, k)
+        grid = shift_grid(per_px, axis, h, w)
+        ms = cuda_ms(lambda: warp.MERGED_SHIFT_ROWS(*args), 50)
+        plain_ms = cuda_ms(lambda: warp.merged_shift_rows_ref(*args), 5)
+        lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True), 50)
+        nbytes = 2 * img4.numel() * 4 + cid.numel() + (p_bb.numel() + p_sl.numel()) * 4
+        log("kernels", f"merged_shift_rows {label}, S={len(is_bb)}, 16 boxes: max_abs_err "
+                       f"{err:.3e} (limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain "
+                       f"{plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms; bound "
+                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+        if label == "per-box x pass":
+            rows.append(row("merged_shift_rows", "shift_rows.cu",
+                            "oadg_tpu/ops/pallas_warp.py:564", err, ms, plain_ms, nbytes,
+                            lib_ms))
+
     # B6: the three channels' histograms of one 1024x2048 image
     got = hist.HIST256(img3, 3)
     want = hist.hist256_ref(img3, 3)
@@ -531,14 +589,18 @@ def phase_oamix_kernels():
 def oamix_wrappers():
     from oadg_tpu_torch.ops import fg_maps, hist, warp
     return {"fg_maps": fg_maps.FG_MAPS, "shear_rows": warp.SHEAR_ROWS,
-            "piecewise_shift_rows": warp.PIECEWISE_SHIFT_ROWS, "hist256": hist.HIST256}
+            "piecewise_shift_rows": warp.PIECEWISE_SHIFT_ROWS, "hist256": hist.HIST256,
+            "merged_shift_rows": warp.MERGED_SHIFT_ROWS}
 
 
-def expected_launches(draws, version):
-    """The launches of B3-B6 that an OA-Mix draw table implies: one B3 per
-    view; per active slot of every chain step, B6 for equalize, B5 three
-    times for a per-box rotate and once for a per-box shear or translate,
-    B4 likewise for the background ops."""
+def expected_launches(draws, version, chain="slots"):
+    """The launches of B3-B7 that an OA-Mix draw table implies: one B3 per
+    view. On the slots chain, per active slot of every chain step, B6 for
+    equalize, B5 three times for a per-box rotate and once for a per-box
+    shear or translate, B4 likewise for the background ops. On the merged
+    chain, B6 once per chain step in which any active slot drew equalize,
+    and B7 three times per active slot that drew a rotate (per-box or
+    background) and once per shear or translate."""
     from oadg_tpu_torch.ops.oamix_device import MAX_ML, N_SLOTS, num_photometric
     n_photo = num_photometric(version)
     counts = dict.fromkeys(oamix_wrappers(), 0)
@@ -548,10 +610,15 @@ def expected_launches(draws, version):
             counts["fg_maps"] += 1
             for c in range(width):
                 for d in range(int(draws["depth"][i, j, c])):
-                    for s in range(N_SLOTS):
-                        if s < MAX_ML and not draws["ml_valid"][i, j, s]:
-                            continue
-                        op = int(draws["op_idx"][i, j, c, d, s])
+                    ops = [int(draws["op_idx"][i, j, c, d, s]) for s in range(N_SLOTS)
+                           if s >= MAX_ML or draws["ml_valid"][i, j, s]]
+                    if chain == "merged":
+                        counts["hist256"] += 1 in ops
+                        counts["merged_shift_rows"] += sum(
+                            3 if op in (n_photo, n_photo + 3) else 1
+                            for op in ops if op >= n_photo)
+                        continue
+                    for op in ops:
                         if op == 1:
                             counts["hist256"] += 1
                         elif n_photo <= op < n_photo + 3:
@@ -562,7 +629,7 @@ def expected_launches(draws, version):
 
 
 class _CheckedKernel:
-    """Stands in for a B3-B6 wrapper: launches the kernel, then holds its
+    """Stands in for a B3-B7 wrapper: launches the kernel, then holds its
     result against the plain version on the same inputs."""
 
     def __init__(self, name, kernel, check):
@@ -592,6 +659,15 @@ def _check_piecewise(out, img, bid, shifts, max_shift, axis):
     return err
 
 
+def _check_merged(out, img, cid, p_bb, p_sl, is_bb, is_bg, axis):
+    from oadg_tpu_torch.ops.warp import merged_shift_rows_ref
+    err = float((out - merged_shift_rows_ref(img, cid, p_bb, p_sl, is_bb, is_bg,
+                                             axis)).abs().max())
+    if not err <= TOL_WARP:
+        raise AssertionError(f"merged_shift_rows in the path: {err} > {TOL_WARP}")
+    return err
+
+
 def _check_hist(out, x, c):
     import torch
     from oadg_tpu_torch.ops.hist import hist256_ref
@@ -606,9 +682,10 @@ def _check_fg(out, fx, fy, h, w):
 
 
 def phase_oamix():
-    """OA-Mix alone at the flagship's shapes: launch counts against the
-    drawn table with no host sync, every op in place against the plain
-    kernels, and the card against the CPU."""
+    """OA-Mix alone at the flagship's shapes, on each chain: launch counts
+    against the drawn table with no host sync, every op in place against
+    the plain kernels, the merged chain against the slots chain, and the
+    card against the CPU."""
     import copy
     import torch
     from oadg_tpu_torch.ops import fg_maps, hist, warp
@@ -621,70 +698,96 @@ def phase_oamix():
     gv = torch.ones((2, NUM_GTS), dtype=torch.bool, device=dev)
     shapes = np.array([[IMG_H, IMG_W]] * 2, np.float32)
     gen = torch.Generator().manual_seed(0)
-    oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen)            # warm-up
-    torch.cuda.synchronize()
     wrappers = oamix_wrappers()
-    for wr in wrappers.values():
-        wr.launches = 0
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen)
-        enqueued = (time.perf_counter() - t0) * 1e3
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    launched = {k: wr.launches for k, wr in wrappers.items()}
-    expected = expected_launches(out["draws"], cfg["version"])
-    log("oamix", f"oamix_batch ({cfg['version']}, 2 images of {IMG_H}x{IMG_W}, 1 view "
-                 f"each) under sync debug mode 'error': {wall:.3f} ms wall, {enqueued:.3f} "
-                 f"ms to enqueue; launches {launched}, the table implies {expected}")
-    if launched != expected:
-        raise AssertionError(f"OA-Mix launched {launched}, the table implies {expected}")
-    aug = out["aug"]
-    if aug.shape != (2, 1, IMG_H, IMG_W, 3) or aug.dtype != torch.uint8:
-        raise AssertionError(f"aug {tuple(aug.shape)} {aug.dtype}")
-    for key, n in (("multilevel", 2), ("oamix", 5)):
-        boxes, valid = out[f"{key}_boxes"], out[f"{key}_valid"]
-        if boxes.shape != (2, n, 4) or valid.dtype != torch.bool or not valid.any():
-            raise AssertionError(f"{key} boxes {tuple(boxes.shape)} {valid.dtype}")
-        b = boxes[valid]
-        if not bool(((b[:, 0] >= 0) & (b[:, 1] >= 0) & (b[:, 2] <= IMG_W)
-                     & (b[:, 3] <= IMG_H) & (b[:, 2] > b[:, 0])
-                     & (b[:, 3] > b[:, 1])).all()):
-            raise AssertionError(f"{key} boxes outside the image")
-    changed = float((aug[:, 0] != imgs).float().mean())
-    log("oamix", f"aug (2, 1, {IMG_H}, {IMG_W}, 3) uint8, {100 * changed:.1f}% of values "
-                 f"changed; multilevel valid {out['multilevel_valid'].sum().item()}, "
-                 f"oamix valid {out['oamix_valid'].sum().item()}; boxes inside the image")
+    outs = {}
+    for chain in ("slots", "merged"):
+        oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen, chain=chain)      # warm-up
+        torch.cuda.synchronize()
+        for wr in wrappers.values():
+            wr.launches = 0
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = oamix_batch(imgs, gt, gv, shapes, cfg, generator=gen, chain=chain)
+            enqueued = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: wr.launches for k, wr in wrappers.items()}
+        expected = expected_launches(out["draws"], cfg["version"], chain)
+        log("oamix", f"oamix_batch ({cfg['version']}, {chain} chain, 2 images of "
+                     f"{IMG_H}x{IMG_W}, 1 view each) under sync debug mode 'error': "
+                     f"{wall:.3f} ms wall, {enqueued:.3f} ms to enqueue; launches {launched}, "
+                     f"the table implies {expected}")
+        if launched != expected:
+            raise AssertionError(f"OA-Mix ({chain}) launched {launched}, the table implies "
+                                 f"{expected}")
+        aug = out["aug"]
+        if aug.shape != (2, 1, IMG_H, IMG_W, 3) or aug.dtype != torch.uint8:
+            raise AssertionError(f"aug {tuple(aug.shape)} {aug.dtype}")
+        for key, n in (("multilevel", 2), ("oamix", 5)):
+            boxes, valid = out[f"{key}_boxes"], out[f"{key}_valid"]
+            if boxes.shape != (2, n, 4) or valid.dtype != torch.bool or not valid.any():
+                raise AssertionError(f"{key} boxes {tuple(boxes.shape)} {valid.dtype}")
+            b = boxes[valid]
+            if not bool(((b[:, 0] >= 0) & (b[:, 1] >= 0) & (b[:, 2] <= IMG_W)
+                         & (b[:, 3] <= IMG_H) & (b[:, 2] > b[:, 0])
+                         & (b[:, 3] > b[:, 1])).all()):
+                raise AssertionError(f"{key} boxes outside the image")
+        changed = float((aug[:, 0] != imgs).float().mean())
+        log("oamix", f"{chain}: aug (2, 1, {IMG_H}, {IMG_W}, 3) uint8, {100 * changed:.1f}% "
+                     f"of values changed; multilevel valid "
+                     f"{out['multilevel_valid'].sum().item()}, oamix valid "
+                     f"{out['oamix_valid'].sum().item()}; boxes inside the image")
+        outs[chain] = out
 
-    # every op index in turn, B3-B6 checked in place
+    # the merged chain against the slots chain on the slots run's table
+    again = oamix_batch(imgs, gt, gv, shapes, cfg, draws=outs["slots"]["draws"],
+                        chain="merged")
+    diff = (again["aug"].int() - outs["slots"]["aug"].int()).abs()
+    share = float((diff > 0).float().mean())
+    log("oamix", f"merged vs slots chain on one table, 2 images of {IMG_H}x{IMG_W}: "
+                 f"{100 * share:.5f}% of values differ (limit 0.01%), largest difference "
+                 f"{int(diff.max())} (limit 1)")
+    if share > 1e-4 or int(diff.max()) > 1:
+        raise AssertionError(f"merged vs slots: {share} of values differ, max {diff.max()}")
+
+    # every op index in turn on each chain, B3-B7 checked in place
     checks = {"fg_maps": _CheckedKernel("fg_maps", fg_maps.FG_MAPS, _check_fg),
               "shear_rows": _CheckedKernel("shear_rows", warp.SHEAR_ROWS, _check_shear),
               "piecewise_shift_rows": _CheckedKernel(
                   "piecewise_shift_rows", warp.PIECEWISE_SHIFT_ROWS, _check_piecewise),
-              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist)}
+              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist),
+              "merged_shift_rows": _CheckedKernel(
+                  "merged_shift_rows", warp.MERGED_SHIFT_ROWS, _check_merged)}
     modules = {"fg_maps": (fg_maps, "FG_MAPS"), "shear_rows": (warp, "SHEAR_ROWS"),
                "piecewise_shift_rows": (warp, "PIECEWISE_SHIFT_ROWS"),
-               "hist256": (hist, "HIST256")}
+               "hist256": (hist, "HIST256"),
+               "merged_shift_rows": (warp, "MERGED_SHIFT_ROWS")}
     n_photo = num_photometric(cfg["version"])
     for name, (mod, attr) in modules.items():
         setattr(mod, attr, checks[name])
     try:
-        for k in range(n_photo + 6):
-            table = copy.deepcopy(out["draws"])
-            table["op_idx"][:] = k
-            before = {n: len(c.errors) for n, c in checks.items()}
-            oamix_batch(imgs, gt, gv, shapes, cfg, draws=table)
-            torch.cuda.synchronize()
-            calls = {n: len(c.errors) - before[n] for n, c in checks.items()}
-            need = ("hist256" if k == 1 else "piecewise_shift_rows"
-                    if n_photo <= k < n_photo + 3 else "shear_rows" if k >= n_photo + 3
-                    else None)
-            if need and not calls[need]:
-                raise AssertionError(f"op {k} did not run {need}")
-            log("oamix", f"op {k} in every slot: checked in place {calls}")
+        for chain in ("slots", "merged"):
+            for k in range(n_photo + 6):
+                table = copy.deepcopy(outs["slots"]["draws"])
+                table["op_idx"][:] = k
+                before = {n: len(c.errors) for n, c in checks.items()}
+                oamix_batch(imgs, gt, gv, shapes, cfg, draws=table, chain=chain)
+                torch.cuda.synchronize()
+                calls = {n: len(c.errors) - before[n] for n, c in checks.items()}
+                if k == 1:
+                    need = "hist256"
+                elif k < n_photo:
+                    need = None
+                elif chain == "merged":
+                    need = "merged_shift_rows"
+                else:
+                    need = "piecewise_shift_rows" if k < n_photo + 3 else "shear_rows"
+                if need and not calls[need]:
+                    raise AssertionError(f"op {k} on the {chain} chain did not run {need}")
+                log("oamix", f"op {k} in every slot, {chain} chain: checked in place {calls}")
     finally:
         for name, (mod, attr) in modules.items():
             setattr(mod, attr, checks[name].kernel)
@@ -692,25 +795,29 @@ def phase_oamix():
         log("oamix", f"{n} in the path: {len(c.errors)} calls, vs plain max_abs_err "
                      f"{max(c.errors):.3e}")
 
-    # the card against the CPU on one table, 256x512
+    # the card against the CPU on one table, 256x512, each chain
     h, w = 256, 512
     small = imgs[:1, :h, :w].contiguous()
     gt_s = torch.from_numpy(seeded_gts(rng, 1, h, w)[0])
     gv_s = torch.ones((1, NUM_GTS), dtype=torch.bool)
-    card = oamix_batch(small, gt_s.to(dev), gv_s.to(dev), np.array([[h, w]], np.float32),
-                       cfg, generator=torch.Generator().manual_seed(1))
-    cpu = oamix_batch(small.cpu(), gt_s, gv_s, np.array([[h, w]], np.float32), cfg,
-                      draws=card["draws"])
-    diff = (card["aug"].cpu().int() - cpu["aug"].int()).abs()
-    same = float((diff == 0).float().mean())
-    log("oamix", f"card vs CPU, one table on {h}x{w}: {100 * same:.4f}% of values equal "
-                 f"(limit 99.5%), largest difference {int(diff.max())}; ops "
-                 f"{sorted(set(card['draws']['op_idx'].ravel().tolist()))}")
-    if same < 0.995:
-        raise AssertionError(f"OA-Mix card vs CPU: {same} of values equal")
-    for key in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):
-        if not torch.equal(card[key].cpu(), cpu[key]):
-            raise AssertionError(f"OA-Mix card vs CPU: {key} differs")
+    draws = None
+    for chain in ("slots", "merged"):
+        card = oamix_batch(small, gt_s.to(dev), gv_s.to(dev), np.array([[h, w]], np.float32),
+                           cfg, draws=draws, chain=chain,
+                           generator=None if draws else torch.Generator().manual_seed(1))
+        draws = card["draws"]
+        cpu = oamix_batch(small.cpu(), gt_s, gv_s, np.array([[h, w]], np.float32), cfg,
+                          draws=draws, chain=chain)
+        diff = (card["aug"].cpu().int() - cpu["aug"].int()).abs()
+        same = float((diff == 0).float().mean())
+        log("oamix", f"{chain} chain, card vs CPU, one table on {h}x{w}: {100 * same:.4f}% "
+                     f"of values equal (limit 99.5%), largest difference {int(diff.max())}; "
+                     f"ops {sorted(set(draws['op_idx'].ravel().tolist()))}")
+        if same < 0.995:
+            raise AssertionError(f"OA-Mix ({chain}) card vs CPU: {same} of values equal")
+        for key in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):
+            if not torch.equal(card[key].cpu(), cpu[key]):
+                raise AssertionError(f"OA-Mix ({chain}) card vs CPU: {key} differs")
     torch.cuda.empty_cache()
 
 
@@ -901,60 +1008,79 @@ def phase_train(rows):
     cfg = load_config(FLAGSHIP)
     oamix_cfg = flagship_oamix_cfg()
     t0 = time.perf_counter()
-    preprocess = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"])
-    model, step = build_trainer("cuda", cfg, preprocess)
+    # one model and optimizer, OA-Mix on either chain: the same entry point
+    # with ``chain`` set, switched between the two runs
+    preprocess = {chain: make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], chain=chain)
+                  for chain in ("slots", "merged")}
+    current = ["slots"]
+    model, step = build_trainer("cuda", cfg, lambda b, g: preprocess[current[0]](b, g))
     batch = raw_train_batch(np.random.RandomState(3), IMG_H, IMG_W, dev)
     log("train", f"flagship for training (num_views {cfg['num_views']}, f32, "
                  f"channels-last), OA-Mix preprocess ({oamix_cfg['version']}), and a "
                  f"uint8 batch of 2 images of {IMG_H}x{IMG_W} in "
                  f"{time.perf_counter() - t0:.2f} s")
     params = dict(model.named_parameters())
-    before = {k: p.detach().clone() for k, p in params.items()}
     frozen = [k for k, p in params.items() if not p.requires_grad]
     gen = torch.Generator(device=dev).manual_seed(0)
-    step(batch, gen)                                           # warm-up step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD,
                     **oamix_wrappers())
-    for wr in wrappers.values():
-        wr.launches = 0
-    expected = dict(roi_align_fwd=6, roi_align_bwd=6, **dict.fromkeys(oamix_wrappers(), 0))
-    times, logs = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        logs.append(step(batch, gen))
+    medians = {}
+    for chain in ("slots", "merged"):
+        current[0] = chain
+        before = {k: p.detach().clone() for k, p in params.items()}
+        step(batch, gen)                                       # warm-up step
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        for k, n in expected_launches(preprocess.draws, oamix_cfg["version"]).items():
-            expected[k] += n
-    launched = {k: wr.launches for k, wr in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-    for i, lv in enumerate(logs):
-        log("train", f"step {i + 1}: " + ", ".join(
-            f"{k} {float(v):.5f}" for k, v in lv.items()))
-    log("train", f"3 steps: ms {[round(t, 3) for t in times]}, median "
-                 f"{statistics.median(times):.3f}; max_memory_allocated "
-                 f"{peak / 2 ** 30:.2f} GiB; launches {launched}; the tables imply "
-                 f"{expected}")
-    if launched != expected:
-        raise AssertionError(f"3 steps launched {launched}, not {expected}")
+        torch.cuda.reset_peak_memory_stats()
+        for wr in wrappers.values():
+            wr.launches = 0
+        expected = dict(roi_align_fwd=6, roi_align_bwd=6,
+                        **dict.fromkeys(oamix_wrappers(), 0))
+        times, logs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logs.append(step(batch, gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            implied = expected_launches(preprocess[chain].draws, oamix_cfg["version"], chain)
+            for k, n in implied.items():
+                expected[k] += n
+        launched = {k: wr.launches for k, wr in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for i, lv in enumerate(logs):
+            log("train", f"{chain} chain, step {i + 1}: " + ", ".join(
+                f"{k} {float(v):.5f}" for k, v in lv.items()))
+        medians[chain] = statistics.median(times)
+        log("train", f"{chain} chain, 3 steps: ms {[round(t, 3) for t in times]}, median "
+                     f"{medians[chain]:.3f}; max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+                     f"launches {launched}; the tables imply {expected}")
+        if launched != expected:
+            raise AssertionError(f"3 steps ({chain}) launched {launched}, not {expected}")
+        idle = {"slots": {"merged_shift_rows"},
+                "merged": {"shear_rows", "piecewise_shift_rows"}}[chain]
+        unlaunched = [k for k, n in launched.items() if not n and k not in idle]
+        if unlaunched:
+            raise AssertionError(f"3 steps ({chain}) never launched {unlaunched}")
+        for r in rows:
+            r[f"launches_{chain}"] = launched[r["name"]]
+        for lv in logs:
+            if not all(bool(torch.isfinite(v).all()) for v in lv.values()):
+                raise AssertionError(f"a loss is not finite: {lv}")
+            if not float(lv["loss_cont"]) > 0:
+                raise AssertionError("loss_cont is not positive")
+        still = [k for k, p in params.items() if p.requires_grad
+                 and torch.equal(p.detach(), before[k])]
+        moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+        log("train", f"{chain} chain: {len(params) - len(frozen)} trainable parameters, "
+                     f"{len(still)} unmoved; {len(frozen)} frozen (stem, layer1), "
+                     f"{len(moved)} moved")
+        if still or moved or not frozen:
+            raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}")
+    # each kernel's launches on the path that runs it: the slots run's, and
+    # the merged run's for the kernel that only the merged chain launches
     for r in rows:
-        r["launches"] = launched[r["name"]]
-    for lv in logs:
-        if not all(bool(torch.isfinite(v).all()) for v in lv.values()):
-            raise AssertionError(f"a loss is not finite: {lv}")
-        if not float(lv["loss_cont"]) > 0:
-            raise AssertionError("loss_cont is not positive")
-    still = [k for k, p in params.items() if p.requires_grad
-             and torch.equal(p.detach(), before[k])]
-    moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
-    log("train", f"{len(params) - len(frozen)} trainable parameters, "
-                 f"{len(still)} unmoved; {len(frozen)} frozen (stem, layer1), "
-                 f"{len(moved)} moved")
-    if still or moved or not frozen:
-        raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}")
+        r["launches"] = r["launches_slots"] or r["launches_merged"]
+    log("train", f"step medians in this call ({nvidia_smi_line()}): slots chain "
+                 f"{medians['slots']:.3f} ms, merged chain {medians['merged']:.3f} ms")
 
     # One more step with both kernels checked in place: B1's RoI features
     # and B2's level gradients against the plain versions on the same inputs
@@ -973,7 +1099,9 @@ def phase_train(rows):
                 raise AssertionError(f"{check.name} in the step disagrees: {err} > {lim}")
         if len(check.calls) != 2:
             raise AssertionError(f"{len(check.calls)} {check.name} calls in a step")
-    train_profile(step, batch, gen)
+    for chain in ("slots", "merged"):
+        current[0] = chain
+        train_profile(step, batch, gen, chain)
     del model, step, batch
     torch.cuda.empty_cache()
 
@@ -983,8 +1111,8 @@ STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: r
           "train_step: backward", "train_step: sgd")
 
 
-def train_profile(step, batch, gen):
-    """One step under torch.profiler, read through the ``record_function``
+def train_profile(step, batch, gen, chain):
+    """One step (OA-Mix on ``chain``) under torch.profiler, read through the ``record_function``
     spans of ``forward_train`` and ``make_train_step``: per stage the host
     time of its span and the device time of the kernels launched in it, and
     the device's busy share of the step. Autograd launches the backward's
@@ -1013,9 +1141,10 @@ def train_profile(step, batch, gen):
         dev_ms = autograd if name == "train_step: backward" else \
             host[name].device_time_total / 1e3
         spanned += dev_ms
-        log("train-profile", f"{name}: host {host[name].cpu_time_total / 1e3:.3f} ms, "
+        log("train-profile", f"{chain} chain, {name}: host "
+                             f"{host[name].cpu_time_total / 1e3:.3f} ms, "
                              f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
-    log("train-profile", f"profiled step {wall:.3f} ms wall, device busy "
+    log("train-profile", f"profiled step ({chain} chain) {wall:.3f} ms wall, device busy "
                          f"{busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
                          f"{busy - spanned:.3f} ms outside the stages")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:

@@ -1,8 +1,9 @@
 """On-device OA-Mix and multi-view integration of a training batch (port of
 ``oadg_tpu/engine/preprocess.py:23-96``).
 
-``make_oadg_preprocess(oamix_cfg, img_norm_cfg)`` returns ``preprocess(batch,
-generator, draws=None)``. The batch holds ``img_raw`` (B, H, W, 3) uint8 BGR
+``make_oadg_preprocess(oamix_cfg, img_norm_cfg, chain=None)`` returns
+``preprocess(batch, generator, draws=None)``; ``chain`` picks OA-Mix's chain
+(``"slots"`` or ``"merged"``; None reads ``OAMIX_CHAIN`` at each call). The batch holds ``img_raw`` (B, H, W, 3) uint8 BGR
 on the device, ``gt_bboxes``, ``gt_labels``, ``gt_valid`` and ``img_shape``
 (B, 2) on the host (OA-Mix draws its random boxes from it). The result is
 the views-major batch ``[B clean; B aug 1; ...]`` that ``forward_train``
@@ -24,10 +25,11 @@ from ..utils.draws import host_generator
 
 
 def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any],
-                         out_dtype: Optional[torch.dtype] = None) -> Callable:
+                         out_dtype: Optional[torch.dtype] = None,
+                         chain: Optional[str] = None) -> Callable:
     """-> ``preprocess(batch, generator, draws=None)``; ``out_dtype`` casts
     the integrated images after the float32 normalization (None keeps
-    float32)."""
+    float32); ``chain`` goes to ``oamix_batch``."""
     mean = np.asarray(img_norm_cfg.get("mean", [123.675, 116.28, 103.53]), np.float32)
     std = np.asarray(img_norm_cfg.get("std", [58.395, 57.12, 57.375]), np.float32)
     to_rgb = bool(img_norm_cfg.get("to_rgb", True))
@@ -54,7 +56,8 @@ def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any]
         shape_host = np.asarray(shape_host, np.float32)
         out = oamix_batch(raw, batch["gt_bboxes"], batch["gt_valid"], shape_host, cfg,
                           draws=draws,
-                          generator=None if draws is not None else host_generator(generator))
+                          generator=None if draws is not None else host_generator(generator),
+                          chain=chain)
         preprocess.draws = out["draws"]
         aug = normalize(out["aug"].float())                   # (B, V-1, H, W, 3)
         clean = normalize(raw.float())

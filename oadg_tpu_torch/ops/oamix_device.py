@@ -7,12 +7,22 @@ Per image and augmented view (``_oamix_single``, ``:1090-1379``):
    blurred gt masks, kernel B3 (``_precompute_fg_maps``, ``:421-454``);
 3. the AugMix chain: ``mixture_width`` chains of ``depth`` steps; each step
    applies one drawn op per active slot to the whole image and keeps it
-   inside the slot (``_aug_once``, ``:900-1085``, the op order of
-   ``get_aug_list``): PIL photometric ops (``ops.photometric``; equalize on
-   kernel B6), per-box geometric ops on the piecewise row shift B5
-   (``_pw_rotate/_pw_shear/_pw_translate``, ``:457-570``) and background
-   geometric ops on the row shift B4 blended through the fg union
-   (``_bg_blend``); the chain state is uint8 between ops;
+   inside the slot. Two chains compute it, chosen by ``chain``:
+
+   - ``"slots"`` (``_aug_once``, ``:900-1085``, the op order of
+     ``get_aug_list``): PIL photometric ops (``ops.photometric``; equalize on
+     kernel B6), per-box geometric ops on the piecewise row shift B5
+     (``_pw_rotate/_pw_shear/_pw_translate``, ``:457-570``; with
+     ``geo_pw=False`` on the per-pixel gather path, ``_apply_geo_bboxes_only``,
+     ``:573-613``) and background geometric ops on the row shift B4 blended
+     through the fg union (``_bg_blend``);
+   - ``"merged"`` (``_depth_step_merged``, ``:638-897``): one photometric
+     pass per depth step for all slots, with shared image statistics (one
+     pair of autocontrast extremes, one equalize histogram), then per slot
+     that drew a geometric op one X Y X trio of the merged row shift B7 on
+     the 4-channel image (rgb + fg-union alpha);
+
+   the chain state is uint8 between steps;
 4. Dirichlet mixing of the chains, then the sequential overlap-corrected
    object-aware mixing with the original image over low-saliency gts and
    random boxes, and ``floor(clip(.))`` to uint8.
@@ -36,27 +46,33 @@ and ``union`` in bf16, the background alpha ``bf16(union * 255)``, the warp
 clamps. Warp outputs are float32 as on the JAX package's CPU path (on the TPU
 it rounds them to bf16 lanes).
 
-Not ported: the CPU gather path (``_op_matrices``, ``_invert_2x3``,
-``_warp_by_pixel_matrices``, ``_lerp_axis``, ``_warp_affine_2pass``,
-``_apply_geo_bboxes_only``), the merged chain (``_merged_ctx``,
-``_depth_step_merged``, kernel B7) and the profiling and lane knobs
-(``OAMIX_FORCE_OP``, ``OAMIX_SKIP_*``, ``OAMIX_LANES``, ``OAMIX_GEO_PW``).
+Knobs, keyword arguments of ``oamix_batch`` whose defaults read the JAX
+package's environment variables: ``chain`` (``OAMIX_CHAIN``, ``slots`` or
+``merged``), ``geo_pw`` (``OAMIX_GEO_PW``; only ``0`` selects the gather path,
+on the card and on the CPU alike; the merged chain ignores it),
+``force_op`` (``OAMIX_FORCE_OP``, every op index of the table),
+``skip_chain`` and ``skip_mix`` (``OAMIX_SKIP_CHAIN``, ``OAMIX_SKIP_MIX``,
+for profiling). Not ported: ``OAMIX_LANES`` / ``OAMIX_F32_LANES``, which
+choose the type in which the state crosses TPU conditionals.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, NamedTuple, Optional
+import os
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .fg_maps import fg_maps
-from .photometric import (autocontrast, enhance_brightness, enhance_color,
-                          enhance_contrast, enhance_sharpness, equalize, invert,
-                          posterize, solarize)
+from .photometric import (autocontrast, blend, color_degenerate, contrast_degenerate,
+                          enhance_brightness, enhance_color, enhance_contrast,
+                          enhance_sharpness, equalize, invert, posterize,
+                          sharpness_degenerate, solarize)
 from .saliency import saliency_score
-from .warp import (fma, piecewise_shift_rows, warp_rotate, warp_shear_x, warp_shear_y,
-                   warp_translate_x, warp_translate_y)
+from .warp import (fma, merged_shift_rows, piecewise_shift_rows, warp_rotate,
+                   warp_shear_x, warp_shear_y, warp_translate_x, warp_translate_y)
 
 __all__ = ["MAX_ML", "MAX_OA", "MAX_FG", "ATTEMPTS", "MAX_DEPTH", "N_SLOTS",
            "num_photometric", "draw_table", "oamix_batch"]
@@ -67,7 +83,7 @@ MAX_FG = 16         # gts taking part in the per-box warps and the mixing
 ATTEMPTS = 8        # draws per random-box slot
 MAX_DEPTH = 3
 N_SLOTS = MAX_ML + 1
-BB_MAX_SHIFT_X, BB_MAX_SHIFT_Y = 512, 768     # per-box pass clamps
+_BB_MAX_SHIFT = {1: 512, 0: 768}     # per-box pass clamps: x passes (axis 1), y passes
 
 
 def num_photometric(version: str) -> int:
@@ -294,6 +310,8 @@ class _OpDraws(NamedTuple):
     sign_dev: torch.Tensor
     rot_a: torch.Tensor      # (G,) -tan(rad / 2)
     rot_b: torch.Tensor      # (G,) sin(rad)
+    rot_a_host: float        # rot_a[0] and rot_b[0] on the host, for the merged
+    rot_b_host: float        # chain's background rotate
 
 
 def _pw_finish(img, warped, fg: _FgInfo):
@@ -301,46 +319,209 @@ def _pw_finish(img, warped, fg: _FgInfo):
     return torch.clamp(torch.round(fma(img, 1.0 - cov, warped * cov)), 0, 255)
 
 
+def _bb_tables(family: int, fg: _FgInfo, dr: _OpDraws, h: int, w: int):
+    """The shift passes of a bboxes_only rotate (0), shear (1) or translate
+    (2), as (axis, table) pairs with tables (keys, G) before their clamp:
+    the Paeth trio X(a1) Y(b2) X(a1) for a rotate, one pass along the coin's
+    axis otherwise."""
+    g = fg.boxes.shape[0]
+    dev = fg.boxes.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[:, None]
+    use_x = dr.coin < 0.5
+    if family == 0:
+        p1 = dr.rot_a[None, :] * (ys - fg.cy[None, :])
+        return [(1, p1), (0, dr.rot_b[None, :] * (xs - fg.cx[None, :])), (1, p1)]
+    if family == 1:
+        sh = dr.level_dev * float(_k(0.3, _r(10.0))) * dr.sign_dev
+        return [(1, sh[None, :] * (ys - fg.cy[None, :]))] if use_x else \
+            [(0, sh[None, :] * (xs - fg.cx[None, :]))]
+    extent, n = (fg.bw, h) if use_x else (fg.bh, w)
+    t = torch.floor(dr.level_dev * (extent * float(_r(3.0))) * float(_r(10.0))) * dr.sign_dev
+    return [(1 if use_x else 0, t[None, :].expand(n, g))]
+
+
 def _bb_geo(img: torch.Tensor, family: int, fg: _FgInfo, dr: _OpDraws):
     """bboxes_only rotate (0), shear (1) and translate (2) on kernel B5: each
     pixel moves with its strongest box (``best_id``), blended by ``cover``."""
-    h, w = img.shape[0], img.shape[1]
-    g = fg.boxes.shape[0]
-    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
-    xs = torch.arange(w, dtype=torch.float32, device=img.device)[:, None]
-    pass_x = lambda im, p: piecewise_shift_rows(im, fg.best_id, p, BB_MAX_SHIFT_X, axis=1)
-    pass_y = lambda im, p: piecewise_shift_rows(im, fg.best_id, p, BB_MAX_SHIFT_Y, axis=0)
-    use_x = dr.coin < 0.5
-    if family == 0:                     # Paeth X(a1) Y(b2) X(a1)
-        p1 = dr.rot_a[None, :] * (ys - fg.cy[None, :])
-        out = pass_x(img, p1)
-        out = pass_y(out, dr.rot_b[None, :] * (xs - fg.cx[None, :]))
-        out = pass_x(out, p1)
-    elif family == 1:
-        sh = dr.level_dev * float(_k(0.3, _r(10.0))) * dr.sign_dev
-        out = (pass_x(img, sh[None, :] * (ys - fg.cy[None, :])) if use_x else
-               pass_y(img, sh[None, :] * (xs - fg.cx[None, :])))
-    else:
-        if use_x:
-            t = torch.floor(dr.level_dev * (fg.bw * float(_r(3.0))) * float(_r(10.0))) \
-                * dr.sign_dev
-            out = pass_x(img, t[None, :].expand(h, g))
-        else:
-            t = torch.floor(dr.level_dev * (fg.bh * float(_r(3.0))) * float(_r(10.0))) \
-                * dr.sign_dev
-            out = pass_y(img, t[None, :].expand(w, g))
+    out = img
+    for axis, p in _bb_tables(family, fg, dr, img.shape[0], img.shape[1]):
+        out = piecewise_shift_rows(out, fg.best_id, p, _BB_MAX_SHIFT[axis], axis=axis)
     return _pw_finish(img.float(), out, fg)
+
+
+# The gather path of the per-box warps (``geo_pw=False``): forward affines
+# per box, inverted, gathered per pixel by ``best_id`` and resampled in two
+# axis-aligned passes. Plain tensor code in the JAX package too.
+
+def _op_matrices(family: int, boxes: torch.Tensor, img_shape, level: torch.Tensor,
+                 sign: torch.Tensor, use_x: bool, is_bg: bool = False) -> torch.Tensor:
+    """Forward 2x3 affines (G, 2, 3) of one geometric family (0 rotate, 1
+    shear_xy, 2 translate_xy) from per-box levels and signs and the call's
+    axis coin (``:220-283``): about the box centres and scaled by the box
+    extents for bboxes_only, about the image centre and scaled by the image
+    for ``is_bg``."""
+    h, w = float(img_shape[0]), float(img_shape[1])
+    g = boxes.shape[0]
+    full = lambda v: torch.full((g,), v, dtype=torch.float32, device=boxes.device)
+    if is_bg:
+        cx, cy, bw, bh = full(w / 2.0), full(h / 2.0), full(w), full(h)
+    else:
+        cx = (boxes[:, 0] + boxes[:, 2]) / 2.0
+        cy = (boxes[:, 1] + boxes[:, 3]) / 2.0
+        bw = boxes[:, 2] - boxes[:, 0] + 1
+        bh = boxes[:, 3] - boxes[:, 1] + 1
+    zeros, ones = full(0.0), full(1.0)
+    rows = lambda a, b, c, d, e, f: torch.stack(
+        [torch.stack([a, b, c], -1), torch.stack([d, e, f], -1)], -2)
+    if family == 0:
+        deg = torch.floor(level * float(_k(30.0, _r(10.0)))) * sign
+        rad = deg * (math.pi / 180)
+        ca, sa = torch.cos(rad), torch.sin(rad)
+        return rows(ca, sa, (1 - ca) * cx - sa * cy, -sa, ca, sa * cx + (1 - ca) * cy)
+    if family == 1:
+        sh = level * float(_k(0.3, _r(10.0))) * sign
+        if use_x:
+            return rows(ones, -sh, zeros if is_bg else sh * cy, zeros, ones, zeros)
+        return rows(ones, zeros, zeros, -sh, ones, zeros if is_bg else sh * cx)
+    if use_x:
+        shift = torch.floor(level * (bw * float(_r(3.0))) * float(_r(10.0))) * sign
+        return rows(ones, zeros, -shift, zeros, ones, zeros)
+    shift = torch.floor(level * (bh * float(_r(3.0))) * float(_r(10.0))) * sign
+    return rows(ones, zeros, zeros, zeros, ones, -shift)
+
+
+def _invert_2x3(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of (..., 2, 3) affines (``:286-294``)."""
+    a, b, tx = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    c, d, ty = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    det = a * d - b * c
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    return torch.stack([torch.stack([ia, ib, -(ia * tx + ib * ty)], -1),
+                        torch.stack([ic, id_, -(ic * tx + id_ * ty)], -1)], -2)
+
+
+def _lerp_axis(img: torch.Tensor, idx: torch.Tensor, frac: torch.Tensor,
+               axis: int) -> torch.Tensor:
+    """Two-tap interpolation of ``img`` (H, W, C) along ``axis`` at the
+    per-pixel positions ``idx + frac``, zeros outside (``:344-358``). The JAX
+    package reads both taps from a channel-paired table at ``clip(idx)``, so
+    at ``idx == -1`` its second tap is pixel 1, not pixel 0; the port reads
+    the same pixels."""
+    h, w, c = img.shape
+    limit = img.shape[axis]
+    at = lambda i: torch.gather(img, axis, i[..., None].expand(h, w, c))
+    base = idx.clamp(0, limit - 1)
+    ok = (idx >= -1) & (idx <= limit - 1)
+    zero = torch.zeros((), device=img.device)
+    a = torch.where((ok & (idx >= 0))[..., None], at(base), zero)
+    b = torch.where((ok & (idx + 1 <= limit - 1))[..., None],
+                    at((base + 1).clamp(max=limit - 1)), zero)
+    f = frac[..., None]
+    return fma(a, 1 - f, b * f)
+
+
+def _resample_2pass(img: torch.Tensor, gx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """A row pass at the source columns ``gx`` (H, W), then a column pass at
+    the source rows ``sy``."""
+    x0 = torch.floor(gx)
+    tmp = _lerp_axis(img, x0.long(), gx - x0, 1)
+    y0 = torch.floor(sy)
+    return _lerp_axis(tmp, y0.long(), sy - y0, 0)
+
+
+def _grid(h: int, w: int, device):
+    return (torch.arange(w, dtype=torch.float32, device=device)[None, :],
+            torch.arange(h, dtype=torch.float32, device=device)[:, None])
+
+
+def _warp_affine_2pass(img: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """Affine warp of (H, W, C) by the 2x3 output-to-source map ``inv`` as a
+    horizontal then a vertical resampling (Catmull-Smith, ``:361-399``)."""
+    img = img.float()
+    h, w = img.shape[0], img.shape[1]
+    a, b, cc = inv[0, 0], inv[0, 1], inv[0, 2]
+    d, e, f = inv[1, 0], inv[1, 1], inv[1, 2]
+    e_safe = torch.where(e.abs() < 1e-3, torch.full_like(e, 1e-3), e)
+    xo, yo = _grid(h, w, img.device)
+    gx = (a - b * d / e_safe) * xo + (b / e_safe) * yo + (cc - b * f / e_safe)
+    return _resample_2pass(img, gx.expand(h, w), (d * xo + e * yo + f).expand(h, w))
+
+
+def _warp_by_pixel_matrices(img: torch.Tensor, inv_map: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling with per-pixel inverse affines ``inv_map`` (H, W, 6)
+    rows [ia, ib, itx, ic, id, ity]; zeros outside (``:297-339``). The second
+    x tap is read beside the clipped first one, as the JAX package's paired
+    table gives it."""
+    img = img.float()
+    h, w, c = img.shape
+    xs, ys = _grid(h, w, img.device)
+    sx = inv_map[..., 0] * xs + inv_map[..., 1] * ys + inv_map[..., 2]
+    sy = inv_map[..., 3] * xs + inv_map[..., 4] * ys + inv_map[..., 5]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0i, y0i = x0.long(), y0.long()
+    inx = (x0i >= 0) & (x0i < w)
+    inx1 = (x0i + 1 >= 0) & (x0i + 1 < w)
+    xa = x0i.clamp(0, w - 1)
+    xb = (xa + 1).clamp(max=w - 1)
+    zero = torch.zeros((), device=img.device)
+
+    def tap(yi):
+        iny = (yi >= 0) & (yi < h)
+        yc = yi.clamp(0, h - 1)
+        return (torch.where((iny & inx)[..., None], img[yc, xa], zero),
+                torch.where((iny & inx1)[..., None], img[yc, xb], zero))
+
+    v00, v01 = tap(y0i)
+    v10, v11 = tap(y0i + 1)
+    return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
+
+
+def _apply_geo_bboxes_only(img: torch.Tensor, fg: _FgInfo, inv_boxes: torch.Tensor):
+    """bboxes_only_* on the gather path (``:573-613``): each pixel takes the
+    inverse affine of its strongest box (the identity for the sentinel id)
+    into one two-pass resampling, blended by ``cover``."""
+    img = img.float()
+    h, w = img.shape[0], img.shape[1]
+    ident = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], device=img.device)
+    m = torch.cat([inv_boxes, ident])[fg.best_id.long()]          # (H, W, 6)
+    xo, u = _grid(h, w, img.device)
+    e = torch.where(m[..., 4].abs() < 1e-3, torch.full_like(m[..., 4], 1e-3), m[..., 4])
+    gx = ((m[..., 0] - m[..., 1] * m[..., 3] / e) * xo + (m[..., 1] / e) * u
+          + (m[..., 2] - m[..., 1] * m[..., 5] / e))
+    warped = _resample_2pass(img, gx, m[..., 3] * xo + m[..., 4] * u + m[..., 5])
+    return _pw_finish(img, warped, fg)
+
+
+def _bb_geo_gather(img: torch.Tensor, family: int, fg: _FgInfo, dr: _OpDraws):
+    """bboxes_only rotate (0), shear (1) and translate (2) on the gather path
+    (``_geo_gather``, ``:969-973``)."""
+    mats = _op_matrices(family, fg.boxes, img.shape[:2], dr.level_dev, dr.sign_dev,
+                        dr.coin < 0.5)
+    return _apply_geo_bboxes_only(img, fg, _invert_2x3(mats).reshape(-1, 6))
+
+
+def _with_alpha(x: torch.Tensor, fg: _FgInfo) -> torch.Tensor:
+    """The float32 image with the fg-union alpha ``bf16(union * 255)`` as a
+    fourth channel: what the background warps move."""
+    return torch.cat([x, (fg.union.float() * 255.0).to(torch.bfloat16).float()[..., None]], -1)
+
+
+def _bg_finish(x: torch.Tensor, w4: torch.Tensor, fg: _FgInfo) -> torch.Tensor:
+    """The warped background ``w4[..., :3]`` where neither the fg union nor
+    its warp ``w4[..., 3] / 255`` holds, the image ``x`` elsewhere."""
+    kept = torch.maximum(fg.union.float(), w4[..., 3] * float(_r(255.0)))[..., None]
+    return torch.clamp(torch.round(fma(kept, x, (1.0 - kept) * w4[..., :3])), 0, 255)
 
 
 def _bg_geo(img: torch.Tensor, family: int, fg: _FgInfo, dr: _OpDraws):
     """bg_only rotate (0), shear (1) and translate (2) on kernel B4 (``:990-1054``):
-    the image and the alpha ``bf16(union * 255)`` warp as one 4-channel
-    image; the warped background shows where neither the fg union nor its
-    warp holds."""
+    the image and its alpha warp as one 4-channel image."""
     h, w = img.shape[0], img.shape[1]
     imgw = img.float()
-    un = fg.union.float()
-    x4 = torch.cat([imgw, (un * 255.0).to(torch.bfloat16).float()[..., None]], -1)
+    x4 = _with_alpha(imgw, fg)
     lvl, sign = dr.level[0], dr.sign[0]
     use_x = dr.coin < 0.5
     if family == 0:
@@ -359,44 +540,195 @@ def _bg_geo(img: torch.Tensor, family: int, fg: _FgInfo, dr: _OpDraws):
         else:
             ty = np.floor(lvl * _k(h / 3.0, _r(10.0))) * sign
             w4 = warp_translate_y(x4, ty, h // 3 + 4)
-    kept = torch.maximum(un, w4[..., 3] * float(_r(255.0)))[..., None]
-    return torch.clamp(torch.round(fma(kept, imgw, (1.0 - kept) * w4[..., :3])), 0, 255)
+    return _bg_finish(imgw, w4, fg)
+
+
+def _enhance_factor(level) -> np.float32:
+    """``level * 1.8 / 10 + 0.1`` of the PIL enhance ops."""
+    return _f32(fma(float(level), float(_k(1.8, _r(10.0))), float(_f32(0.1))))
+
+
+def _posterize_bits(level) -> int:
+    return max(4 - int(np.floor(level * _k(4.0, _r(10.0)))), 1)
+
+
+def _solarize_threshold(level) -> float:
+    return float(256 - int(np.floor(level * _k(256.0, _r(10.0)))))
 
 
 def _aug_once(img: torch.Tensor, op: int, fg: _FgInfo, dr: _OpDraws,
-              version: str) -> torch.Tensor:
+              version: str, geo_pw: bool = True) -> torch.Tensor:
     """One reference ``aug()`` call on the uint8 chain state: the op of index
     ``op`` in ``get_aug_list`` order (photometric ops, then bboxes_only
     rotate / shear_xy / translate_xy, then bg_only rotate / shear_xy /
-    translate_xy), applied to the whole image -> uint8."""
+    translate_xy), applied to the whole image -> uint8. ``geo_pw=False``
+    sends the bboxes_only ops down the gather path."""
     n_photo = num_photometric(version)
     lvl = dr.level[0]
-    factor = _f32(fma(float(lvl), float(_k(1.8, _r(10.0))), float(_f32(0.1))))
     if op >= n_photo + 3:
         out = _bg_geo(img, op - n_photo - 3, fg, dr)
     elif op >= n_photo:
-        out = _bb_geo(img, op - n_photo, fg, dr)
+        out = (_bb_geo if geo_pw else _bb_geo_gather)(img, op - n_photo, fg, dr)
     elif op == 0:
         out = autocontrast(img)
     elif op == 1:
         out = equalize(img)
     elif op == 2:
-        out = posterize(img, max(4 - int(np.floor(lvl * _k(4.0, _r(10.0)))), 1))
+        out = posterize(img, _posterize_bits(lvl))
     elif op == 3:
-        out = solarize(img, float(256 - int(np.floor(lvl * _k(256.0, _r(10.0))))))
+        out = solarize(img, _solarize_threshold(lvl))
     elif op == 4:
         out = invert(img)
     else:
         out = (enhance_color, enhance_contrast, enhance_brightness,
-               enhance_sharpness)[op - 5](img, factor)
+               enhance_sharpness)[op - 5](img, _enhance_factor(lvl))
     return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
+# --------------------------------------------------------- merged chain ----
+
+class _MergedCtx(NamedTuple):
+    """Per-view constants of the merged depth step (``_merged_ctx``,
+    ``:618-635``)."""
+    in_slot: List[torch.Tensor]   # per slot the (H, W) bool map of its pixels
+    no_bb: Dict[int, torch.Tensor]   # zero (keys, G) tables by axis, for bg trios
+    no_sl: Dict[int, torch.Tensor]   # zero (keys, 1) tables by axis, for bb trios
+
+
+def _merged_ctx(fg: _FgInfo, rects: Sequence, h: int, w: int) -> _MergedCtx:
+    """The slot-id map from the hard multilevel boxes (the boxes partition
+    the image: slot 0 wins over slot 1, the complement is the last slot) and
+    what every warp trio of the view shares."""
+    dev = fg.boxes.device
+    g = fg.boxes.shape[0]
+    slot_id = torch.full((h, w), len(rects), dtype=torch.int8, device=dev)
+    for s in range(len(rects) - 1, -1, -1):
+        if rects[s] is not None:
+            r = rects[s]
+            slot_id[r[0]:r[1], r[2]:r[3]] = s
+    zeros = lambda n, k: torch.zeros((n, k), device=dev)
+    return _MergedCtx([slot_id == s for s in range(len(rects) + 1)],
+                      {1: zeros(h, g), 0: zeros(w, g)}, {1: zeros(h, 1), 0: zeros(w, 1)})
+
+
+def _bg_tables(family: int, dr: _OpDraws, h: int, w: int, device):
+    """The shift passes of a bg_only rotate (0), shear (1) or translate (2)
+    of the merged chain, as (axis, table (keys, 1)) pairs clipped to the
+    bounds of the slots chain's background warps (``:799-802, 857-868``)."""
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[:, None]
+    lvl, sign = dr.level[0], dr.sign[0]
+    use_x = dr.coin < 0.5
+    if family == 0:
+        msx, msy = int(0.27 * h / 2) + 4, int(0.50 * w / 2) + 4
+        q1 = torch.clamp(float(dr.rot_a_host) * (ys - h / 2.0), -msx, msx)
+        q2 = torch.clamp(float(dr.rot_b_host) * (xs - w / 2.0), -msy, msy)
+        return [(1, q1), (0, q2), (1, q1)]
+    if family == 1:
+        sh = float(lvl * _k(0.3, _r(10.0)) * sign)
+        if use_x:
+            ms = int(0.3 * h) + 4
+            return [(1, torch.clamp(sh * ys, -ms, ms))]
+        ms = int(0.3 * w) + 4
+        return [(0, torch.clamp(sh * xs, -ms, ms))]
+    if use_x:
+        t = float(np.clip(np.floor(lvl * _k(w / 3.0, _r(10.0))) * sign, -(w // 3 + 4),
+                          w // 3 + 4))
+        return [(1, torch.full((h, 1), t, device=device))]
+    t = float(np.clip(np.floor(lvl * _k(h / 3.0, _r(10.0))) * sign, -(h // 3 + 4), h // 3 + 4))
+    return [(0, torch.full((w, 1), t, device=device))]
+
+
+def _depth_step_merged(img: torch.Tensor, ops: Sequence[int], active: Sequence[bool],
+                       draws: Sequence[_OpDraws], fg: _FgInfo, ctx: _MergedCtx,
+                       version: str) -> torch.Tensor:
+    """One depth step of the merged chain on the uint8 state (``:638-897``):
+    every active slot's drawn op, selected per pixel by the slot map.
+
+    All slots read the same input, so the photometric family shares one set
+    of image statistics: one pair of autocontrast extremes and ONE equalize
+    histogram (kernel B6) however many slots drew them; posterize, solarize
+    and the enhance ops take their per-slot scalars per pixel through the
+    slot map. Each slot that drew a geometric op runs one X Y X trio of
+    kernel B7 on the 4-channel image (rgb + alpha) with S = 1 and ``best_id``
+    as the composite id: a bboxes_only op shifts per box and blends by
+    ``cover``, a bg_only op shifts the whole image and blends through the
+    warped fg union. Which ops were drawn is known on the host, so only the
+    drawn candidates are computed and the passes whose tables are zero (two
+    of three for shear and translate; a zero shift is an exact identity) are
+    not launched. -> uint8."""
+    h, w = img.shape[0], img.shape[1]
+    n_photo = num_photometric(version)
+    slots = [s for s in range(len(ops)) if active[s]]
+    x = img.float()                     # the state holds integers in [0, 255]
+    lvl0 = [dr.level[0] for dr in draws]
+
+    def px(vals, dtype=torch.float32):
+        """Per-slot scalars as an (H, W, 1) map."""
+        o = torch.full((h, w), vals[-1], dtype=dtype, device=img.device)
+        for s in range(len(vals) - 2, -1, -1):
+            o = torch.where(ctx.in_slot[s], vals[s], o)
+        return o[..., None]
+
+    factor = None
+    out = x
+    for op in sorted({ops[s] for s in slots if ops[s] < n_photo}):
+        if op == 0:
+            cand = autocontrast(x)
+        elif op == 1:
+            cand = equalize(img)
+        elif op == 2:
+            masks = [(255 << (8 - _posterize_bits(l))) & 255 for l in lvl0]
+            cand = (img.to(torch.int32) & px(masks, torch.int32)).float()
+        elif op == 3:
+            cand = torch.where(x < px([_solarize_threshold(l) for l in lvl0]), x, 255.0 - x)
+        elif op == 4:
+            cand = invert(x)
+        else:
+            if factor is None:
+                factor = px([float(_enhance_factor(l)) for l in lvl0])
+            degenerate = (color_degenerate, contrast_degenerate, torch.zeros_like,
+                          sharpness_degenerate)[op - 5](x)
+            cand = blend(degenerate, x, factor)
+        drew = [ctx.in_slot[s] for s in slots if ops[s] == op]
+        out = torch.where(functools.reduce(torch.logical_or, drew)[..., None], cand, out)
+
+    x4 = None
+    for s in slots:
+        family = ops[s] - n_photo
+        if family < 0:
+            continue
+        if x4 is None:
+            x4 = _with_alpha(x, fg)
+        is_bb = family < 3
+        if is_bb:
+            passes = [(axis, torch.clamp(p, -_BB_MAX_SHIFT[axis], _BB_MAX_SHIFT[axis]))
+                      for axis, p in _bb_tables(family, fg, draws[s], h, w)]
+        else:
+            passes = _bg_tables(family - 3, draws[s], h, w, img.device)
+        warped = x4
+        for axis, table in passes:
+            p_bb, p_sl = (table, ctx.no_sl[axis]) if is_bb else (ctx.no_bb[axis], table)
+            warped = merged_shift_rows(warped, fg.best_id, p_bb, p_sl, [is_bb], [not is_bb],
+                                       axis=axis)
+        geo = _pw_finish(x, warped[..., :3], fg) if is_bb else _bg_finish(x, warped, fg)
+        out = torch.where(ctx.in_slot[s][..., None], geo, out)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
 # ------------------------------------------------------------- one view ----
 
+class _Knobs(NamedTuple):
+    """How ``oamix_batch`` was asked to run (see the module docstring)."""
+    chain: str = "slots"
+    geo_pw: bool = True
+    skip_chain: bool = False
+    skip_mix: bool = False
+
+
 def _oamix_single(img: torch.Tensor, gt: torch.Tensor, gt_valid: torch.Tensor,
                   host: Dict[str, np.ndarray], dev: Dict[str, torch.Tensor],
-                  cfg: Dict):
+                  cfg: Dict, knobs: _Knobs = _Knobs()):
     """One augmented view of one (H, W, 3) uint8 image (BGR, as the
     reference). ``host`` and ``dev`` are this view's rows of the draw table.
     -> (aug uint8, ml_boxes, ml_valid, oa_boxes, oa_valid)."""
@@ -431,22 +763,39 @@ def _oamix_single(img: torch.Tensor, gt: torch.Tensor, gt_valid: torch.Tensor,
         return _OpDraws(host["op_level"][i, d, s, :g], host["op_sign"][i, d, s, :g],
                         float(host["op_coin"][i, d, s]), dev["op_level"][i, d, s, :g],
                         dev["op_sign"][i, d, s, :g], dev["rot_a"][i, d, s, :g],
-                        dev["rot_b"][i, d, s, :g])
+                        dev["rot_b"][i, d, s, :g], float(host["rot_a"][i, d, s, 0]),
+                        float(host["rot_b"][i, d, s, 0]))
 
-    mixed = torch.zeros((h, w, 3), device=img.device)
-    for i in range(width):
-        x = img
-        for d in range(int(host["depth"][i])):
-            outs = [None if rects[s] is None else
-                    _aug_once(x, int(host["op_idx"][i, d, s]), fg, draws(i, d, s), version)
-                    for s in range(MAX_ML)]
-            nxt = _aug_once(x, int(host["op_idx"][i, d, MAX_ML]), fg,
-                            draws(i, d, MAX_ML), version)
-            for s, r in enumerate(rects):           # the complement everywhere else
-                if r is not None:
-                    nxt[r[0]:r[1], r[2]:r[3]] = outs[s][r[0]:r[1], r[2]:r[3]]
-            x = nxt
-        mixed = fma(float(host["ws"][i]), x.float(), mixed)
+    def slots_step(x, i, d):
+        outs = [None if rects[s] is None else
+                _aug_once(x, int(host["op_idx"][i, d, s]), fg, draws(i, d, s), version,
+                          knobs.geo_pw)
+                for s in range(MAX_ML)]
+        nxt = _aug_once(x, int(host["op_idx"][i, d, MAX_ML]), fg, draws(i, d, MAX_ML),
+                        version, knobs.geo_pw)
+        for s, r in enumerate(rects):               # the complement everywhere else
+            if r is not None:
+                nxt[r[0]:r[1], r[2]:r[3]] = outs[s][r[0]:r[1], r[2]:r[3]]
+        return nxt
+
+    active = [r is not None for r in rects] + [True]
+    mctx = _merged_ctx(fg, rects, h, w) if knobs.chain == "merged" else None
+
+    def merged_step(x, i, d):
+        return _depth_step_merged(x, [int(o) for o in host["op_idx"][i, d]], active,
+                                  [draws(i, d, s) for s in range(N_SLOTS)], fg, mctx,
+                                  version)
+
+    if knobs.skip_chain:
+        mixed = imgf * float(_f32(1.0000001))
+    else:
+        step = merged_step if knobs.chain == "merged" else slots_step
+        mixed = torch.zeros((h, w, 3), device=img.device)
+        for i in range(width):
+            x = img
+            for d in range(int(host["depth"][i])):
+                x = step(x, i, d)
+            mixed = fma(float(host["ws"][i]), x.float(), mixed)
 
     # object-aware mixing (``:1267-1379``): low-saliency gts and random boxes
     low_sal = fg_valid & (scores <= score_thr)
@@ -477,7 +826,7 @@ def _oamix_single(img: torch.Tensor, gt: torch.Tensor, gt_valid: torch.Tensor,
     a_w = torch.zeros((h, w), device=img.device)
     b_w = torch.zeros((h, w), device=img.device)
     mask_sum = torch.zeros((h, w), device=img.device)
-    for r in range(g + MAX_OA):
+    for r in range(0 if knobs.skip_mix else g + MAX_OA):
         m = torch.where(region_valid[r], rfy[r][:, None] * rfx[r][None, :],
                         torch.zeros((), device=img.device))
         wgt = m - torch.minimum(mask_sum, m) * 0.5
@@ -493,9 +842,16 @@ def _oamix_single(img: torch.Tensor, gt: torch.Tensor, gt_valid: torch.Tensor,
     return aug, dev["ml_boxes"], dev["ml_valid"] > 0.5, oa_boxes, oa_valid
 
 
+def _env_flag(name: str) -> bool:
+    return bool(os.environ.get(name))
+
+
 def oamix_batch(img_raw: torch.Tensor, gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
                 img_shape, cfg: Dict, draws: Optional[Dict] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, *,
+                chain: Optional[str] = None, geo_pw: Optional[bool] = None,
+                force_op: Optional[int] = None, skip_chain: Optional[bool] = None,
+                skip_mix: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """Batched multi-view OA-Mix (``:1382-1443``).
 
     Args:
@@ -506,6 +862,15 @@ def oamix_batch(img_raw: torch.Tensor, gt_bboxes: torch.Tensor, gt_valid: torch.
         cfg: the OA-Mix config (``oamix_config`` of an OA-DG config).
         draws: a draw table with leading (B, V-1) dims, or None to draw one
             from ``generator`` (a CPU ``torch.Generator``).
+        chain: ``"slots"`` or ``"merged"``; None reads ``OAMIX_CHAIN``
+            (default ``slots``). One draw table drives either chain.
+        geo_pw: False sends the slots chain's bboxes_only ops down the
+            gather path; None reads ``OAMIX_GEO_PW`` (only ``0`` is False).
+        force_op: every op index of the table becomes this one; None reads
+            ``OAMIX_FORCE_OP``.
+        skip_chain / skip_mix: profiling knobs: the chain's result becomes
+            ``img * 1.0000001``, the object-aware regions are left out; None
+            reads ``OAMIX_SKIP_CHAIN`` / ``OAMIX_SKIP_MIX`` (set means True).
 
     Returns ``aug`` (B, V-1, H, W, 3) uint8, ``multilevel_boxes`` (B, MAX_ML,
     4) + ``multilevel_valid``, ``oamix_boxes`` (B, MAX_OA, 4) +
@@ -517,8 +882,22 @@ def oamix_batch(img_raw: torch.Tensor, gt_bboxes: torch.Tensor, gt_valid: torch.
     n_aug = max(int(cfg.get("num_views", 2)) - 1, 0)
     img_u8 = img_raw if img_raw.dtype == torch.uint8 else \
         torch.clamp(img_raw.float(), 0, 255).to(torch.uint8)
+    knobs = _Knobs(
+        os.environ.get("OAMIX_CHAIN", "slots") if chain is None else chain,
+        os.environ.get("OAMIX_GEO_PW", "1") != "0" if geo_pw is None else bool(geo_pw),
+        _env_flag("OAMIX_SKIP_CHAIN") if skip_chain is None else bool(skip_chain),
+        _env_flag("OAMIX_SKIP_MIX") if skip_mix is None else bool(skip_mix))
+    if knobs.chain not in ("slots", "merged"):
+        raise ValueError(f"chain must be 'slots' or 'merged', got {knobs.chain!r}")
+    if force_op is None and os.environ.get("OAMIX_FORCE_OP") is not None:
+        force_op = int(os.environ["OAMIX_FORCE_OP"])
     if draws is None:
         draws = draw_table(np.asarray(img_shape), cfg, generator)
+    if force_op is not None and "op_idx" in draws:
+        n_ops = num_photometric(cfg.get("version", "augmix")) + 6
+        if not 0 <= int(force_op) < n_ops:
+            raise ValueError(f"force_op must be in [0, {n_ops}), got {force_op}")
+        draws = dict(draws, op_idx=np.full_like(np.asarray(draws["op_idx"]), int(force_op)))
     host = {k: np.asarray(v) for k, v in draws.items()}
     dev = {}
     if n_aug:
@@ -530,7 +909,7 @@ def oamix_batch(img_raw: torch.Tensor, gt_bboxes: torch.Tensor, gt_valid: torch.
         for v in range(n_aug):
             out = _oamix_single(img_u8[i], gt_bboxes[i], gt_valid[i],
                                 {k: a[i, v] for k, a in host.items()},
-                                {k: a[i, v] for k, a in dev.items()}, cfg)
+                                {k: a[i, v] for k, a in dev.items()}, cfg, knobs)
             views.append(out[0])
             ml_i, oa_i = out[1:3], out[3:5]
         if not views:

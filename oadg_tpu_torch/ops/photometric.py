@@ -18,9 +18,11 @@ import numpy as np
 import torch
 
 from .hist import image_hist256
+from .warp import fma
 
 __all__ = ["autocontrast", "equalize_lut_from_hist", "equalize", "posterize",
-           "solarize", "invert", "grayscale_l", "enhance_color",
+           "solarize", "invert", "grayscale_l", "blend", "color_degenerate",
+           "contrast_degenerate", "sharpness_degenerate", "enhance_color",
            "enhance_contrast", "enhance_brightness", "enhance_sharpness"]
 
 
@@ -30,14 +32,18 @@ def _clip(img: torch.Tensor) -> torch.Tensor:
 
 def autocontrast(img: torch.Tensor) -> torch.Tensor:
     """LUT ``clip(trunc(i * scale - lo * scale))`` from each channel's
-    extremes (PIL, cutoff 0), identity where a channel is flat."""
+    extremes (PIL, cutoff 0), identity where a channel is flat. The
+    multiply-subtract is rounded once, as XLA compiles it in the JAX
+    package's jitted chain (run op by op, JAX rounds the product first and
+    lands one level lower on about a tenth of the values of a channel whose
+    range is not the full 255)."""
     xi = torch.trunc(_clip(img))
     lo = xi.amin(dim=(0, 1))
     hi = xi.amax(dim=(0, 1))
     span = hi - lo
     # a true division (``255.0 / tensor`` would multiply by a reciprocal)
     scale = torch.full_like(span, 255.0) / torch.where(span > 0, span, torch.ones_like(span))
-    out = torch.clamp(torch.trunc(xi * scale - lo * scale), 0, 255)
+    out = torch.clamp(torch.trunc(fma(xi, scale, -(lo * scale))), 0, 255)
     return torch.where(span > 0, out, xi)
 
 
@@ -92,43 +98,59 @@ def grayscale_l(img: torch.Tensor) -> torch.Tensor:
     return lum.float()
 
 
-def _blend(degenerate: torch.Tensor, img: torch.Tensor, factor) -> torch.Tensor:
-    f = float(np.float32(factor))
+def blend(degenerate: torch.Tensor, img: torch.Tensor, factor) -> torch.Tensor:
+    """PIL ``Image.blend``: ``trunc(degenerate + factor * (img - degenerate))``
+    clipped to [0, 255]; ``factor`` is a host number or a float32 tensor
+    that broadcasts against the image (one factor per pixel)."""
+    f = factor if isinstance(factor, torch.Tensor) else float(np.float32(factor))
     return torch.clamp(torch.trunc(degenerate + f * (img - degenerate)), 0, 255)
 
 
-def enhance_color(img: torch.Tensor, factor) -> torch.Tensor:
-    x = _clip(img)
-    return _blend(grayscale_l(x)[..., None].expand_as(x), x, factor)
+def color_degenerate(x: torch.Tensor) -> torch.Tensor:
+    """The gray image, on every channel."""
+    return grayscale_l(x)[..., None].expand_as(x)
 
 
-def enhance_contrast(img: torch.Tensor, factor) -> torch.Tensor:
-    """Blend with the mean gray level, ``floor(mean + 0.5)``; the sum of the
+def contrast_degenerate(x: torch.Tensor) -> torch.Tensor:
+    """The mean gray level, ``floor(mean + 0.5)``, everywhere; the sum of the
     integer gray levels and the mean are taken in float64 (exact sum, one
     division on the CPU and the card alike)."""
-    x = _clip(img)
     gray = grayscale_l(x)
     mean = torch.floor((gray.double().sum() / gray.numel()).float() + 0.5)
-    return _blend(mean.expand_as(x), x, factor)
-
-
-def enhance_brightness(img: torch.Tensor, factor) -> torch.Tensor:
-    x = _clip(img)
-    return _blend(torch.zeros_like(x), x, factor)
+    return mean.expand_as(x)
 
 
 _SMOOTH = np.array([[1, 1, 1], [1, 5, 1], [1, 1, 1]], np.float32) / 13.0
 
 
-def enhance_sharpness(img: torch.Tensor, factor) -> torch.Tensor:
-    """Blend with PIL's SMOOTH filter (3x3 taps 1/13 and 5/13, ``floor(v +
-    0.5)``), whose 1-pixel border is the source image. The taps are summed
+def sharpness_degenerate(x: torch.Tensor) -> torch.Tensor:
+    """PIL's SMOOTH filter (3x3 taps 1/13 and 5/13, ``floor(v + 0.5)``),
+    whose 1-pixel border is the source image. The taps are summed
     elementwise in float32: the sums sit at least 1/26 from a rounding
     boundary, so their order does not matter."""
-    x = _clip(img)
     h, w, _ = x.shape
     sm = sum(float(_SMOOTH[i, j]) * x[i:i + h - 2, j:j + w - 2]
              for i in range(3) for j in range(3))
     degenerate = x.clone()
     degenerate[1:-1, 1:-1] = torch.clamp(torch.floor(sm + 0.5), 0, 255)
-    return _blend(degenerate, x, factor)
+    return degenerate
+
+
+def enhance_color(img: torch.Tensor, factor) -> torch.Tensor:
+    x = _clip(img)
+    return blend(color_degenerate(x), x, factor)
+
+
+def enhance_contrast(img: torch.Tensor, factor) -> torch.Tensor:
+    x = _clip(img)
+    return blend(contrast_degenerate(x), x, factor)
+
+
+def enhance_brightness(img: torch.Tensor, factor) -> torch.Tensor:
+    x = _clip(img)
+    return blend(torch.zeros_like(x), x, factor)
+
+
+def enhance_sharpness(img: torch.Tensor, factor) -> torch.Tensor:
+    x = _clip(img)
+    return blend(sharpness_degenerate(x), x, factor)

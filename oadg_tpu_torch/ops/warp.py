@@ -1,5 +1,5 @@
 """Row-shift warps of OA-Mix (port of ``oadg_tpu/ops/pallas_warp.py``,
-kernels B4 and B5).
+kernels B4, B5 and B7).
 
 - ``shear_rows(img, shifts, fracs, max_shift, axis)`` (B4): every line of
   the pass shifts by one amount, ``out = img[q] * (1 - f) + img[q + 1] * f``
@@ -16,8 +16,14 @@ kernels B4 and B5).
   pixel shifts by the amount of its box, ``shifts[key, bid[y, x]]``, split
   into floor and fraction after clamping; ``bid == G`` keeps the source
   pixel. The plain version is the CPU branch of ``:647`` (``:662-675``).
+- ``merged_shift_rows(img, cid, p_bb, p_sl, is_bb, is_bg, axis)`` (B7): each
+  pixel shifts by the amount of its composite id ``cid = slot * G + box``:
+  ``p_bb[key, cid]`` where the pixel's slot drew a per-box op,
+  ``p_sl[key, slot]`` where it drew a background op, 0 otherwise; no clamp
+  (the caller clips its tables). The plain version is the CPU branch of
+  ``:564`` (``:580-601``).
 
-Both take (H, W, C) uint8 or float32 images (C <= 4) and return float32, as
+All take (H, W, C) uint8 or float32 images (C <= 4) and return float32, as
 the JAX package's CPU path does (on the TPU it rounds to bf16 lanes). CUDA
 tensors go to ``csrc/shift_rows.cu``, CPU tensors to the plain versions.
 
@@ -35,9 +41,9 @@ import torch
 from ._kernels import CudaLibrary
 
 __all__ = ["shear_rows", "shear_rows_ref", "piecewise_shift_rows",
-           "piecewise_shift_rows_ref", "warp_shear_x", "warp_shear_y",
-           "warp_translate_x", "warp_translate_y", "warp_rotate",
-           "SHEAR_ROWS", "PIECEWISE_SHIFT_ROWS"]
+           "piecewise_shift_rows_ref", "merged_shift_rows", "merged_shift_rows_ref",
+           "warp_shear_x", "warp_shear_y", "warp_translate_x", "warp_translate_y",
+           "warp_rotate", "SHEAR_ROWS", "PIECEWISE_SHIFT_ROWS", "MERGED_SHIFT_ROWS"]
 
 _DTYPE_CODES = {torch.uint8: 0, torch.float32: 1}
 
@@ -95,6 +101,56 @@ def piecewise_shift_rows_ref(img, bid, shifts, max_shift: float, axis: int = 1):
                        torch.gather(t.T, 0, b))                  # (H, W)
     out = _lerp_ref(img, table(s_all).long(), table(f_all), axis)
     return torch.where((bid.long() < g)[..., None], out, img.float())
+
+
+def _slot_flags(flags, n_slots: int, what: str) -> np.ndarray:
+    """The per-slot draw flags of B7 as (S,) host booleans. They steer which
+    table a pixel reads, and OA-Mix knows them from its host draw table, so
+    they are host values: a CUDA tensor would have to be read back."""
+    if isinstance(flags, torch.Tensor):
+        if flags.device.type != "cpu":
+            raise ValueError(f"{what} is a host value (a sequence, a numpy array or a "
+                             f"CPU tensor), got a tensor on {flags.device}")
+        flags = flags.numpy()
+    flags = np.asarray(flags).astype(bool).reshape(-1)
+    if flags.shape != (n_slots,):
+        raise ValueError(f"{what} must hold {n_slots} flags, got {flags.shape}")
+    return flags
+
+
+def _merged_table(p_bb: torch.Tensor, p_sl: torch.Tensor, is_bb: np.ndarray,
+                  is_bg: np.ndarray) -> torch.Tensor:
+    """The shift of every composite id, (keys, S * G + 1): column ``k`` is
+    ``p_bb[:, k]`` where slot ``k // G`` has ``is_bb``, else ``p_sl[:, k // G]``
+    where it has ``is_bg``, else 0; the last column serves the sentinel
+    ``S * G`` and ids beyond it, which take the last slot's background shift
+    (``min(cid // G, S - 1)`` in the JAX package's CPU branch)."""
+    s = p_sl.shape[1]
+    g = p_bb.shape[1] // s
+    zero = torch.zeros_like(p_sl[:, :1])
+    cols = []
+    for slot in range(s):
+        if is_bb[slot]:
+            cols.append(p_bb[:, slot * g:(slot + 1) * g])
+        else:
+            cols.append((p_sl[:, slot:slot + 1] if is_bg[slot] else zero).expand(-1, g))
+    cols.append(p_sl[:, s - 1:s] if is_bg[s - 1] else zero)
+    return torch.cat(cols, 1)
+
+
+def merged_shift_rows_ref(img, cid, p_bb, p_sl, is_bb, is_bg, axis: int = 1):
+    """Plain version of B7: the shift of each pixel's composite id, split
+    into floor and fraction, then one lerp."""
+    s = p_sl.shape[1]
+    sg = p_bb.shape[1]
+    table = _merged_table(p_bb.float(), p_sl.float(), _slot_flags(is_bb, s, "is_bb"),
+                          _slot_flags(is_bg, s, "is_bg"))
+    s_all = torch.floor(table)
+    f_all = table - s_all
+    k = cid.long().clamp(0, sg)
+    pick = lambda t: (torch.gather(t, 1, k) if axis == 1 else
+                      torch.gather(t.T, 0, k))                   # (H, W)
+    return _lerp_ref(img, pick(s_all).long(), pick(f_all), axis)
 
 
 def _check_image(img: torch.Tensor, axis: int, what: str):
@@ -171,6 +227,52 @@ class PiecewiseShiftRows:
         return out
 
 
+class MergedShiftRows:
+    """Wrapper of ``oadg_merged_shift_rows`` in ``csrc/shift_rows.cu``
+    (kernel B7): int8 composite ids (H, W) in [0, S * G], float32 shifts
+    ``p_bb`` (keys, S * G) and ``p_sl`` (keys, S), and the (S,) host flags as
+    two bit masks in the launch arguments."""
+
+    def __init__(self, library: CudaLibrary):
+        self.launches = 0
+        self.library = library
+
+    def __call__(self, img, cid, p_bb, p_sl, is_bb, is_bg, axis: int = 1):
+        _check_image(img, axis, "merged_shift_rows")
+        h, w, c = img.shape
+        n = h if axis == 1 else w
+        p_bb = p_bb.to(torch.float32).contiguous()
+        p_sl = p_sl.to(torch.float32).contiguous()
+        if p_bb.dim() != 2 or p_sl.dim() != 2:
+            raise ValueError("merged_shift_rows takes p_bb (keys, S * G) and p_sl (keys, S)")
+        sg, s = p_bb.shape[1], p_sl.shape[1]
+        if (p_bb.shape[0] != n or p_sl.shape[0] != n or not 1 <= s <= 32
+                or not 1 <= sg <= 127 or sg % s or cid.shape != (h, w)
+                or cid.device != img.device or p_bb.device != img.device
+                or p_sl.device != img.device):
+            raise ValueError(f"merged_shift_rows needs cid ({h}, {w}), p_bb ({n}, S * G <= "
+                             f"127) and p_sl ({n}, S <= 32) on the image's device, got "
+                             f"{tuple(cid.shape)}, {tuple(p_bb.shape)} and "
+                             f"{tuple(p_sl.shape)}")
+        bits = lambda flags: sum(1 << i for i, f in enumerate(flags) if f)
+        bb = bits(_slot_flags(is_bb, s, "is_bb"))
+        bg = bits(_slot_flags(is_bg, s, "is_bg"))
+        if cid.dtype != torch.int8:         # wider ids: past the sentinel is the sentinel
+            cid = cid.clamp(0, sg).to(torch.int8)
+        cid = cid.contiguous()
+        out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
+        lib = self.library.load()
+        with torch.cuda.device(img.device):
+            stream = torch.cuda.current_stream(img.device).cuda_stream
+            err = lib.oadg_merged_shift_rows(
+                img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis, cid.data_ptr(),
+                p_bb.data_ptr(), p_sl.data_ptr(), sg, s, bb, bg, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"merged_shift_rows launch failed with cudaError_t {err}")
+        self.launches += 1
+        return out
+
+
 _LIBRARY = CudaLibrary("shift_rows.cu", {
     "oadg_shear_rows": (ctypes.c_int, (
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -180,9 +282,14 @@ _LIBRARY = CudaLibrary("shift_rows.cu", {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)),
+    "oadg_merged_shift_rows": (ctypes.c_int, (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p)),
 })
 SHEAR_ROWS = ShearRows(_LIBRARY)
 PIECEWISE_SHIFT_ROWS = PiecewiseShiftRows(_LIBRARY)
+MERGED_SHIFT_ROWS = MergedShiftRows(_LIBRARY)
 
 
 def _dispatch(img, what):
@@ -203,6 +310,22 @@ def piecewise_shift_rows(img, bid, shifts, max_shift: float, axis: int = 1):
     if _dispatch(img, "piecewise_shift_rows"):
         return PIECEWISE_SHIFT_ROWS(img.contiguous(), bid, shifts, max_shift, axis)
     return piecewise_shift_rows_ref(img, bid, shifts, max_shift, axis)
+
+
+def merged_shift_rows(img, cid, p_bb, p_sl, is_bb, is_bg, axis: int = 1):
+    """B7 on a CUDA image, its plain version on a CPU image.
+
+    ``img`` (H, W, C <= 4) uint8 or float32; ``cid`` (H, W) integer composite
+    ids ``slot * G + box`` in [0, S * G], ``S * G`` being the identity
+    sentinel (S * G <= 127: the ids travel as int8, the type of OA-Mix's
+    ``best_id``); ``p_bb`` (keys, S * G) and ``p_sl`` (keys, S) float32 shifts,
+    already clipped by the caller; ``is_bb`` / ``is_bg`` (S,) host flags. The
+    keys are the rows for ``axis=1`` (a shift along x) and the columns for
+    ``axis=0`` (a shift along y; the JAX package transposes instead).
+    Returns float32."""
+    if _dispatch(img, "merged_shift_rows"):
+        return MERGED_SHIFT_ROWS(img.contiguous(), cid, p_bb, p_sl, is_bb, is_bg, axis)
+    return merged_shift_rows_ref(img, cid, p_bb, p_sl, is_bb, is_bg, axis)
 
 
 def _f32(v) -> np.float32:

@@ -12,10 +12,11 @@ kernel sums with atomics, in an order that changes from run to run), so
 rtol=1e-5, atol=1e-6 for values of order 1; a bfloat16 gradient is the
 rounding of such an f32 sum, so it is held to one bfloat16 rounding step.
 The OA-Mix kernels: B3's maps equal (``best_id`` may differ only where two
-masks tie exactly), B4 and B5 within 1e-4 of values up to 255 (the kernels
+masks tie exactly), B4, B5 and B7 within 1e-4 of values up to 255 (the kernels
 fuse the lerp's multiply-add, the plain versions emulate it in float64 and
 may round a tie once more: one float32 ulp, 1.5e-5 at 255), B6's counts
-equal, and OA-Mix on the card equal to the CPU on 99.5% of pixels.
+equal, and OA-Mix on the card (either chain) equal to the CPU on 99.5% of
+pixels.
 """
 import numpy as np
 import pytest
@@ -215,6 +216,39 @@ def test_piecewise_shift_rows_kernel_matches_plain_version(axis):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("flags", ["bb", "bg", "neither", "three_slots"])
+@pytest.mark.parametrize("kind", ["uint8", "f32x4"])
+def test_merged_shift_rows_kernel_matches_plain_version(kind, flags, axis):
+    dev = _cuda()
+    rng, img, fx, fy = _oamix_inputs(dev)
+    if kind == "f32x4":
+        img = torch.cat([img.float(), img[..., :1] * 0.5], -1).contiguous()
+    s = 3 if flags == "three_slots" else 1
+    cid = fg_mod.fg_maps_ref(fx, fy, 256, 512)[0].long()            # 16: the sentinel
+    if s == 3:
+        slot = torch.from_numpy(rng.randint(0, 3, (256, 512))).to(dev)
+        cid = torch.where(cid < 16, slot * 16 + cid, torch.full_like(cid, 48))
+    n = 256 if axis == 1 else 512
+    p_bb = torch.randn(n, s * 16, device=dev) * 200
+    p_sl = torch.randn(n, s, device=dev) * 200
+    is_bb, is_bg = {"bb": ([True], [False]), "bg": ([False], [True]),
+                    "neither": ([False], [False]),
+                    "three_slots": ([True, False, False], [False, False, True])}[flags]
+    before = warp_mod.MERGED_SHIFT_ROWS.launches
+    got = warp_mod.merged_shift_rows(img, cid, p_bb, p_sl, is_bb, is_bg, axis)
+    want = warp_mod.merged_shift_rows_ref(img, cid, p_bb, p_sl, is_bb, is_bg, axis)
+    torch.cuda.synchronize()
+    assert warp_mod.MERGED_SHIFT_ROWS.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    if flags == "neither":
+        assert torch.equal(got, img.float())
+    with pytest.raises(ValueError, match="host value"):
+        warp_mod.merged_shift_rows(img, cid, p_bb, p_sl, torch.tensor(is_bb, device=dev),
+                                   is_bg, axis)
+
+
+@pytest.mark.cuda
 def test_hist256_kernel_matches_plain_version():
     dev = _cuda()
     _, img, _, _ = _oamix_inputs(dev)
@@ -228,7 +262,8 @@ def test_hist256_kernel_matches_plain_version():
 
 
 @pytest.mark.cuda
-def test_oamix_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("chain", ["slots", "merged"])
+def test_oamix_on_the_card_matches_the_cpu(chain):
     from oadg_tpu_torch.ops.oamix_device import oamix_batch
     dev = _cuda()
     _, img, _, _ = _oamix_inputs(dev)
@@ -238,9 +273,12 @@ def test_oamix_on_the_card_matches_the_cpu():
     gv[:3] = True
     shape = np.array([[256, 512]], np.float32)
     cfg = dict(num_views=2, version="augmix.all")
+    b7 = warp_mod.MERGED_SHIFT_ROWS.launches
     card = oamix_batch(img[None], gt[None].to(dev), gv[None].to(dev), shape, cfg,
-                       generator=torch.Generator().manual_seed(0))
-    cpu = oamix_batch(img[None].cpu(), gt[None], gv[None], shape, cfg, draws=card["draws"])
+                       generator=torch.Generator().manual_seed(0), chain=chain)
+    cpu = oamix_batch(img[None].cpu(), gt[None], gv[None], shape, cfg, draws=card["draws"],
+                      chain=chain)
+    assert (warp_mod.MERGED_SHIFT_ROWS.launches > b7) == (chain == "merged")
     same = (card["aug"].cpu() == cpu["aug"]).float().mean().item()
     assert same >= 0.995, same
     for k in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):

@@ -380,11 +380,11 @@ def test_preprocess_matches_jax(preprocessed):
 
 # ---------------------------------------------------------- training step ----
 
-@pytest.fixture(scope="module")
-def train_run():
-    """One step of the tiny flagship with OA-Mix: JAX ``make_train_step(...,
-    preprocess=...)`` on a table, the port's ``make_train_step(...,
-    preprocess=...)`` on the same table and the JAX sampling draws."""
+def run_train_step(chain="slots"):
+    """One step of the tiny flagship with OA-Mix on ``chain``: JAX
+    ``make_train_step(..., preprocess=...)`` on a table (traced with
+    ``OAMIX_CHAIN=chain``), the port's ``make_train_step(..., preprocess=...)``
+    on the same table and the JAX sampling draws. -> (JAX log, port log)."""
     cfg = load_config(FLAGSHIP)
     oamix_cfg = dict(cfg["oamix_config"], score_thresh=10)
     oamix_cfg.pop("type")
@@ -411,6 +411,7 @@ def train_run():
         return KEYS[(len(calls) - 1) % 3]
 
     mp = pytest.MonkeyPatch()
+    mp.setenv("OAMIX_CHAIN", chain)
     mp.setattr(jax_preprocess_mod, "oamix_batch",
                lambda *a, **k: real(*a, **k, draws=jax.tree_util.tree_map(jnp.asarray, jt)))
     mp.setattr(JaxTwoStage, "make_rng", fixed_rng)
@@ -435,7 +436,7 @@ def train_run():
     num_anchors = sum(3 * f.shape[2] * f.shape[3] for f in feats)
     rp = model["train_cfg"]["rpn_proposal"]["max_per_img"]
     given = _jax_draws(num_anchors, MAX_FG + rp, 10)
-    pre = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"])
+    pre = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], chain=chain)
     step = make_train_step(det, build_optimizer(det, cfg.optimizer),
                            build_lr_schedule(cfg.lr_config, cfg.optimizer["lr"], 100),
                            preprocess=lambda b, g: pre(b, g, draws=_stack(tables)))
@@ -448,8 +449,15 @@ def train_run():
     return jlog, {k: float(v) for k, v in log.items()}
 
 
-@pytest.mark.parametrize("key", ["loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "acc",
-                                 "loss_bbox", "loss_cont"])
+@pytest.fixture(scope="module")
+def train_run():
+    return run_train_step()
+
+
+LOSS_KEYS = ["loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "acc", "loss_bbox", "loss_cont"]
+
+
+@pytest.mark.parametrize("key", LOSS_KEYS)
 def test_train_step_with_oamix_matches_jax(train_run, key):
     jlog, log = train_run
     np.testing.assert_allclose(log[key], jlog[key], rtol=1e-3)

@@ -8,6 +8,8 @@ branch of ``hist256``).
 Tolerances:
 - photometric ops, histograms and foreground maps: bit-equal (integer
   arithmetic, or the same float32 operations in the same order);
+  autocontrast is held to the jitted JAX op, whose multiply-subtract XLA
+  rounds once as in the jitted OA-Mix chain (op by op JAX rounds twice);
 - warps: float32 within 1e-4 intensity (values up to 255; the port rounds
   each lerp as XLA compiles it, one fused multiply-add, so they agree to
   the bit in practice);
@@ -76,12 +78,29 @@ def test_photometric_op_is_bit_equal(name, op, flat):
     img = _image(1)
     if flat:
         img[..., 2] = 77.0
-    want = np.asarray(op(jphoto, jnp.asarray(img)), np.float32)
+    jop = jax.jit(lambda x: op(jphoto, x)) if name == "autocontrast" else \
+        (lambda x: op(jphoto, x))
+    want = np.asarray(jop(jnp.asarray(img)), np.float32)
     got = op(photo, torch.from_numpy(img))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     got_u8 = op(photo, torch.from_numpy(img.astype(np.uint8)))
     np.testing.assert_array_equal(got_u8.numpy(), want)
+
+
+@pytest.mark.parametrize("lo,hi", [(7, 201), (0, 254), (30, 31)])
+def test_autocontrast_rounds_as_the_compiled_chain(lo, hi):
+    """A channel whose range is not the full 255 has a scale that is not 1:
+    there the jitted JAX op (one rounding of ``i * scale - lo * scale``, as
+    in the jitted chain) and the same op run primitive by primitive differ
+    by one level on about a tenth of the values; the port follows the jitted
+    one."""
+    img = _image(3)
+    img[..., 0] = np.clip(img[..., 0], lo, hi)
+    want = np.asarray(jax.jit(jphoto.autocontrast)(jnp.asarray(img)), np.float32)
+    got = photo.autocontrast(torch.from_numpy(img))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[..., 0].min() == 0 and got[..., 0].max() == 255
 
 
 def test_equalize_lut_matches_jax():
