@@ -12,21 +12,31 @@ non-zero exit code:
 2. build: compiles every CUDA kernel of the serving and training paths
    from ``oadg_tpu_torch/ops/csrc/`` (B1-B7, five sources), one nvcc per
    source, all at once.
-3. kernels: each kernel against its plain PyTorch version, with CUDA-event
-   medians of both, the least time the card could take (the bytes the
-   function must move over 3.35 TB/s) and, where one PyTorch call computes
-   the same function, that call's time: B1 (RoIAlign forward) at the
+3. kernels: each kernel against its plain PyTorch version, with its times,
+   the least time the card could take (the bytes the function must move
+   over 3.35 TB/s) and, where one PyTorch call computes the same function,
+   that call's times. ``device_ms`` is the time per launch of a run of
+   launches that the host enqueued while the device was kept busy, one
+   CUDA-event pair around the run (``device_time``); ``host_us`` is the host
+   clock per call of the wrapper; kernel and library call are timed in turns
+   (kernel, library, library, kernel) over three rounds, the median and the
+   rounds' least and largest printed; the time of one launch from an idle
+   device, wrapper included, stands beside them. B1 (RoIAlign forward) at the
    serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64, C=256,
    1000 rois), B2 (RoIAlign backward) at the training shapes (4 images,
    2048 sampled + 40 random rois); B3 (OA-Mix foreground maps, G=16 seeded
    boxes on 1024x2048), B4 (row shift: x and column passes at the rotate
    shifts of severity 10 and the translate shifts, on uint8 3-channel and
    float32 4-channel images; library call ``F.grid_sample``), B5 (per-box
-   row shift on B3's own ``best_id``; ``F.grid_sample``), B6 (256-bin
+   row shift on B3's own ``best_id``: the three passes of a per-box rotate,
+   uint8 then float32 3-channel, the column pass on uint8, and the x pass on
+   a chain-like image of flat blocks; ``F.grid_sample``), B6 (256-bin
    histograms of a 1024x2048x3 uint8 image; ``torch.bincount``) and B7
    (merged row shift on the float32 4-channel image with B3's ``best_id`` as
    the composite id: per-box x and column passes, a background pass, the
-   identity, and three slots with mixed flags; ``F.grid_sample``).
+   identity, three slots with mixed flags, and the per-box x pass on the
+   chain-like image; ``F.grid_sample``). B5 and B7 must take their fast
+   route (the kernel specialised for these shapes) in every case.
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
    request, then 3 timed requests of 1024x2048 uint8 images through
@@ -66,8 +76,16 @@ non-zero exit code:
    CPU and handed to both, the card's proposals used on both: losses, and
    the gradients of ``rpn_head.rpn_conv``, ``roi_head.bbox_head.fc_cls`` and
    ``backbone.layer4.*.conv3``.
-9. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
+9. profiled: the three times that need ``torch.profiler`` (the plain versions
+   of B1 and B2 and ``torch.bincount`` wait for the device inside a call, so
+   a run of them cannot be queued ahead: their device time is the sum of
+   their kernels' durations). Last, because the profiler's tracing stays
+   attached to the process and slows every later launch on the host.
+10. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3 and 9 and prints the
+kernels' JSON line and no result line: for work on one kernel.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -124,21 +142,204 @@ def nvidia_smi_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters):
-    """Median CUDA-event time of ``fn`` over ``iters`` runs, after a warm-up."""
+def idle_launch_ms(fn, iters=20):
+    """One launch from an idle device, wrapper included: the median
+    CUDA-event time of single calls of ``fn(i)``, each started after a
+    synchronise. The start event completes at once on the idle device, so
+    this is the wrapper's host time to reach the launch plus the kernel; it
+    is kept beside ``device_ms`` for comparison with earlier records."""
     import torch
-    fn()
+    fn(0)
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for i in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(i)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+class HostBound(RuntimeError):
+    """The host did not enqueue a run of launches before the device began
+    it, so the run's elapsed time would be the host's."""
+
+
+_SPIN = {}
+
+
+def _spin(ms):
+    """Keeps the device busy for about ``ms`` on the current stream."""
+    import torch
+    if "cycles_per_ms" not in _SPIN:
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["cycles_per_ms"] = 20_000_000 / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * _SPIN["cycles_per_ms"]))
+
+
+def _queued_run(fn, n, ring, head_ms):
+    """``n`` calls ``fn(i)`` enqueued while the device spins for
+    ``head_ms``, one event pair around them. -> (device ms per call, median
+    host us per call, whether every call was enqueued before the device
+    reached the first). The last ``ring`` results stay alive, so that the
+    allocator hands out ``ring`` output buffers in turn."""
+    import torch
+    kept = [None] * ring
+    host = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _spin(head_ms)
+    start.record()
+    for i in range(n):
+        t0 = time.perf_counter()
+        kept[i % ring] = fn(i)
+        host.append(time.perf_counter() - t0)
+    ahead = not start.query()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, statistics.median(host) * 1e6, ahead
+
+
+def _profiled_run(fn, n, ring):
+    """The device time per call as the sum of the durations of every kernel
+    and copy ``torch.profiler`` saw in ``n`` calls, for a call that
+    synchronises inside and so cannot be queued ahead. -> (device ms per
+    call, median host us per call, synchronises included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kept = [None] * ring
+    host = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            t0 = time.perf_counter()
+            kept[i % ring] = fn(i)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+    if not busy > 0:
+        raise RuntimeError("torch.profiler saw no device time")
+    return busy / 1e3 / n, statistics.median(host) * 1e6
+
+
+def device_time(fn, n, ring=3, method=None):
+    """``fn``'s time per call with the device never idle between calls. ->
+    {"device_ms", "host_us", "timer"}.
+
+    ``timer`` "events": ``n`` calls are enqueued behind a head start (the
+    device spins meanwhile) that is 1.5 times what the host took to enqueue
+    a first run of ``n``, and one CUDA-event pair around them is divided by
+    ``n``. The run counts only if the start event had not completed when the
+    last call was enqueued: then the device found every launch waiting and
+    the time is its own, whatever the host's speed. A run that fails this is
+    made again with the head doubled and half the calls (a plain version of
+    hundreds of small kernels fills CUDA's launch queue, and the host
+    then waits for the device), four times before it is refused
+    (``HostBound``). ``timer`` "profiler" (asked
+    for with ``method``, for a call that synchronises inside): the sum of
+    the kernels' own durations from ``torch.profiler``. ``host_us`` is the
+    median host-clock time of one call (enqueue only, no synchronise)."""
+    import torch
+    fn(0)
+    if method == "profiler":
+        ms, host_us = _profiled_run(fn, n, ring)
+        return {"device_ms": ms, "host_us": host_us, "timer": "profiler"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept = [None] * ring
+    for i in range(n):
+        kept[i % ring] = fn(i)
+    head_ms = 1.0 + 1.5e3 * (time.perf_counter() - t0)
+    del kept
+    for _ in range(5):
+        ms, host_us, ahead = _queued_run(fn, n, ring, head_ms)
+        if ahead:
+            return {"device_ms": ms, "host_us": host_us, "timer": "events"}
+        head_ms, n = head_ms * 2, max(1, n // 2)
+    raise HostBound(f"not even {n} calls were enqueued within a head start of "
+                    f"{head_ms / 2:.1f} ms: the call synchronises or the host stalls")
+
+
+TIMER_ROUNDS = 3
+
+
+def in_turns(fns, n, ring=3):
+    """Times the candidates ``fns`` (name -> ``fn(i)``) in turns: each of
+    ``TIMER_ROUNDS`` rounds runs them a, b, b, a (``device_time`` each) and
+    reads each candidate as the mean of its two runs. -> name ->
+    {"device_ms": median of the rounds, "spread": [min, max] of the rounds,
+    "host_us": median of the rounds, "timer"}."""
+    names = list(fns)
+    rounds = {k: [] for k in names}
+    for _ in range(TIMER_ROUNDS):
+        got = {k: [] for k in names}
+        for k in names + names[::-1]:
+            got[k].append(device_time(fns[k], n, ring))
+        for k in names:
+            rounds[k].append({key: statistics.mean(g[key] for g in got[k])
+                              for key in ("device_ms", "host_us")} | {"timer": got[k][0]["timer"]})
+    out = {}
+    for k in names:
+        ms = [r["device_ms"] for r in rounds[k]]
+        out[k] = {"device_ms": statistics.median(ms), "spread": [min(ms), max(ms)],
+                  "host_us": statistics.median(r["host_us"] for r in rounds[k]),
+                  "timer": rounds[k][0]["timer"]}
+    return out
+
+
+def time_kernel(kernel, plain, library=None, n=50, plain_n=5, ring=3):
+    """The numbers of one case: the kernel and, where there is one, the
+    library call in turns (``in_turns``), the plain version by the same
+    timer in a run of its own, and the single-launch time of kernel and
+    library call. All take the iteration index, to rotate their inputs.
+    ``plain`` and ``library`` are None where the call cannot be queued ahead
+    of the device: ``phase_profiled`` times those after the path. -> the
+    row's timing keys."""
+    fns = {"kernel": kernel}
+    if library is not None:
+        fns["library"] = library
+    got = in_turns(fns, n, ring)
+    k = got["kernel"]
+    out = {"ms": k["device_ms"], "device_ms": k["device_ms"], "host_us": k["host_us"],
+           "spread": k["spread"], "timer": k["timer"],
+           "idle_launch_ms": idle_launch_ms(kernel),
+           "plain_ms": device_time(plain, plain_n, ring)["device_ms"] if plain else None,
+           "library_ms": None, "library_host_us": None, "library_spread": None,
+           "library_timer": None, "library_idle_launch_ms": None}
+    if library is not None:
+        lib = got["library"]
+        out.update(library_ms=lib["device_ms"], library_host_us=lib["host_us"],
+                   library_spread=lib["spread"], library_timer=lib["timer"],
+                   library_idle_launch_ms=idle_launch_ms(library))
+    return out
+
+
+def timing_text(t, library_name=None):
+    """One case's timing keys as a log fragment."""
+    text = (f"kernel device {t['device_ms']:.4f} ms (rounds {t['spread'][0]:.4f}-"
+            f"{t['spread'][1]:.4f}, timer {t['timer']}), host {t['host_us']:.1f} us a call, "
+            f"one launch from an idle device, wrapper included, {t['idle_launch_ms']:.4f} ms")
+    if t["plain_ms"] is not None:
+        text += f"; plain {t['plain_ms']:.4f} ms"
+    if t["library_ms"] is not None:
+        text += (f"; {library_name} device {t['library_ms']:.4f} ms (rounds "
+                 f"{t['library_spread'][0]:.4f}-{t['library_spread'][1]:.4f}, timer "
+                 f"{t['library_timer']}), host {t['library_host_us']:.1f} us, one launch "
+                 f"from an idle device {t['library_idle_launch_ms']:.4f} ms")
+    return text
 
 
 def phase_device():
@@ -166,9 +367,17 @@ def phase_build():
                  "(one nvcc each, in parallel)")
     for lib, so in zip(libs, built):
         log("build", f"{lib.source.relative_to(ROOT)} -> {so.name}")
+        spills = 0
         for line in lib.build_log.splitlines():
+            if "Compiling entry function" in line:
+                log("build", f"ptxas: {line.strip().split('Compiling entry function ')[1]}")
             if "registers" in line or "spill" in line:
-                log("build", f"ptxas: {line.strip()}")
+                log("build", f"ptxas:   {line.strip()}")
+            if "spill" in line:
+                spills += sum(int(tok) for tok, nxt in zip(line.split(), line.split()[1:])
+                              if tok.isdigit() and nxt == "bytes")
+        log("build", f"{lib.source.name}: {spills} bytes of stack, spill stores and spill "
+                     "loads in all its kernels")
         lib.load()
 
 
@@ -229,19 +438,38 @@ def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernels():
-    """Each kernel vs its plain version; returns the kernels' report rows."""
+def roi_fwd_inputs(dev):
+    """B1's inputs at the serving shapes: one image's FPN maps and 1000 rois."""
     import torch
-    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
-                                              roi_align_multilevel_ref,
-                                              roi_align_multilevel_ref_backward)
-    rng = np.random.RandomState(0)
-    dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     feats = [torch.randn(1, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
                          generator=gen).contiguous(memory_format=torch.channels_last)
              for s in STRIDES]
-    rois = torch.from_numpy(flagship_rois(rng)).to(dev)
+    return feats, torch.from_numpy(flagship_rois(np.random.RandomState(0))).to(dev)
+
+
+def roi_bwd_inputs(dev):
+    """B2's inputs at the training shapes: 4 images' FPN maps, 2048 sampled
+    + 40 random rois and the gradient of their features."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    feats = [torch.randn(TRAIN_IMAGES, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
+                         generator=gen).contiguous(memory_format=torch.channels_last)
+             for s in STRIDES]
+    rois = torch.from_numpy(training_rois(np.random.RandomState(1))).to(dev)
+    dy = torch.randn(rois.shape[0], CHANNELS, 7, 7, device=dev, generator=gen)
+    return feats, rois, dy
+
+
+def phase_kernels():
+    """B1 and B2 vs their plain versions; returns the kernels' report rows.
+    The plain versions' times come from ``phase_profiled``."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
+                                              roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
+    dev = torch.device("cuda", 0)
+    feats, rois = roi_fwd_inputs(dev)
     shapes = [f.shape for f in feats]
     taps = distinct_taps(shapes, rois)
     rows = []
@@ -257,31 +485,19 @@ def phase_kernels():
         if not (torch.isfinite(got).all() and err <= tol * fmax):
             raise AssertionError(f"roi_align_fwd {name} disagrees with the "
                                  f"plain version: {err} > {tol * fmax}")
-        ms = cuda_ms(lambda: ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56), 50)
-        plain_ms = cuda_ms(lambda: roi_align_multilevel_ref(fs, rois, 7, STRIDES,
-                                                            2, 56), 10)
+        t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56), None, n=30)
         # output written once, each distinct tap cell's channels read once
         nbytes = got.numel() * 4 + taps * CHANNELS * fs[0].element_size()
-        log("kernels", f"roi_align_fwd {name}: kernel {ms:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms (CUDA-event medians, R={NUM_ROIS}); "
-                       f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, "
+        log("kernels", f"roi_align_fwd {name} (R={NUM_ROIS}): {timing_text(t)}; bound "
+                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, "
                        f"{taps} distinct tap cells)")
         if name == "f32":
-            rows.append({"name": "roi_align_fwd", "route": "cuda",
-                         "source": "oadg_tpu_torch/ops/csrc/roi_align_fwd.cu",
-                         "replaces": "oadg_tpu/ops/pallas_roi_bwd.py:248",
-                         "launches": None, "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-                         "library_ms": None})
+            rows.append(row("roi_align_fwd", "roi_align_fwd.cu",
+                            "oadg_tpu/ops/pallas_roi_bwd.py:248", err, t, nbytes))
 
     # B2 at the training shapes: 4 images, 2048 sampled + 40 random rois
-    feats = [torch.randn(TRAIN_IMAGES, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
-                         generator=gen).contiguous(memory_format=torch.channels_last)
-             for s in STRIDES]
-    rois = torch.from_numpy(training_rois(rng)).to(dev)
+    feats, rois, dy = roi_bwd_inputs(dev)
     r = rois.shape[0]
-    dy = torch.randn(r, CHANNELS, 7, 7, device=dev, generator=gen)
     shapes = [f.shape for f in feats]
     taps = distinct_taps(shapes, rois)
     table = sum(math.prod(sh) for sh in shapes)
@@ -307,9 +523,7 @@ def phase_kernels():
         if not ok:
             raise AssertionError(f"roi_align_bwd {name} disagrees with the plain "
                                  f"version: {err} > {limit}")
-        ms = cuda_ms(lambda: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), 20)
-        plain_ms = cuda_ms(lambda: roi_align_multilevel_ref_backward(
-            dy, shapes, rois, 7, STRIDES, 2, 56), 5)
+        t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), None, n=20)
         # The function's least traffic: dy read once, each level gradient
         # written once in the maps' dtype. The atomic design moves more: it
         # zeroes an f32 table, reads and writes each distinct tap cell, and
@@ -317,21 +531,15 @@ def phase_kernels():
         nbytes = dy.numel() * 4 + table * fs[0].element_size()
         design = (dy.numel() * 4 + table * 4 + 2 * taps * CHANNELS * 4
                   + (table * (4 + 2) if name == "bf16" else 0))
-        log("kernels", f"roi_align_bwd {name}: kernel {ms:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms (CUDA-event medians, zeroed table "
-                       f"included); bound {bound_ms(nbytes):.4f} ms "
+        log("kernels", f"roi_align_bwd {name} (zeroed table included): {timing_text(t)}; "
+                       f"bound {bound_ms(nbytes):.4f} ms "
                        f"({nbytes / 1e6:.1f} MB: dy {dy.numel() * 4 / 1e6:.1f}, "
                        f"gradient maps {table * fs[0].element_size() / 1e6:.1f}); "
                        f"the atomic design moves {design / 1e6:.1f} MB "
                        f"({bound_ms(design):.4f} ms; {taps} distinct tap cells)")
         if name == "f32":
-            rows.append({"name": "roi_align_bwd", "route": "cuda",
-                         "source": "oadg_tpu_torch/ops/csrc/roi_align_bwd.cu",
-                         "replaces": "oadg_tpu/ops/pallas_roi_bwd.py:316",
-                         "launches": None, "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-                         "library_ms": None})
+            rows.append(row("roi_align_bwd", "roi_align_bwd.cu",
+                            "oadg_tpu/ops/pallas_roi_bwd.py:316", err, t, nbytes))
     del feats, want, got
     torch.cuda.empty_cache()
     return rows
@@ -390,11 +598,23 @@ def check_fg_maps(got, want, fx, fy):
     return n, err
 
 
-def row(name, source, replaces, err, ms, plain_ms, nbytes, library_ms):
-    return {"name": name, "route": "cuda", "source": f"oadg_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": library_ms}
+def row(name, source, replaces, err, timing, nbytes, cases=None):
+    """One kernel's line of the report: ``timing`` from ``time_kernel`` (``ms``
+    is ``device_ms``), the bound from the bytes the function must move, and
+    for the row shifts the other cases timed in this run."""
+    out = {"name": name, "route": "cuda", "source": f"oadg_tpu_torch/ops/csrc/{source}",
+           "replaces": replaces, "launches": None, "max_abs_err": err, **timing,
+           "bound_ms": bound_ms(nbytes), "bound_by": "bytes"}
+    if cases is not None:
+        out["cases"] = cases
+    return out
+
+
+def case_row(label, err, timing, nbytes):
+    return {"label": label, "max_abs_err": err, "bound_ms": bound_ms(nbytes),
+            **{k: timing[k] for k in ("device_ms", "host_us", "spread", "idle_launch_ms",
+                                      "plain_ms", "library_ms", "library_host_us",
+                                      "library_spread")}}
 
 
 def shift_grid(off, axis, h, w):
@@ -410,50 +630,168 @@ def shift_grid(off, axis, h, w):
     return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)[None]
 
 
-def phase_oamix_kernels():
-    """B3-B7 vs their plain versions at the flagship's shapes."""
-    import torch
+ROTATE = 3       # copies of a row shift's inputs, taken in turn by the timed calls
+
+
+def chain_like_image(rng, h, w):
+    """A uint8 image as OA-Mix's chain leaves it in flat scenes: 64x64 blocks
+    of one colour each, 8 distinct colours."""
+    palette = rng.randint(0, 256, (8, 3)).astype(np.uint8)
+    blocks = rng.randint(0, 8, (h // 64, w // 64))
+    return np.ascontiguousarray(palette[np.kron(blocks, np.ones((64, 64), np.int64))])
+
+
+def grid_sampler(img, per_px, axis):
+    """The library call beside a row shift: ``F.grid_sample`` of the float32
+    NCHW image (``ROTATE`` copies, taken in turn) on the grid of the
+    per-pixel offsets ``per_px`` (H, W). -> ``fn(i)``."""
     import torch.nn.functional as F
+    h, w = per_px.shape
+    grid = shift_grid(per_px, axis, h, w)
+    inps = [img.float().permute(2, 0, 1)[None].contiguous() for _ in range(ROTATE)]
+    return lambda i: F.grid_sample(inps[i % ROTATE], grid, mode="bilinear",
+                                   padding_mode="zeros", align_corners=True)
+
+
+def warp_inputs(dev):
+    """The seeded inputs of B3-B7's cases at the flagship's shapes: a random
+    uint8 image and a chain-like one, each also as float32 with B3's alpha
+    as fourth channel, 16 gts with B3's profiles and maps (``best_id`` is
+    B5's box id and B7's composite id), and the shift tables of a per-box
+    rotate of 16 seeded angles."""
+    import types
+    import torch
+    from oadg_tpu_torch.ops import fg_maps as fgm
+    h, w = IMG_H, IMG_W
+    rng = np.random.RandomState(6)
+    inp = types.SimpleNamespace(h=h, w=w)
+    inp.img3 = torch.from_numpy(request_image(rng)).to(dev)
+    inp.gt = torch.from_numpy(seeded_gts(rng, 1, h, w)[0][0]).to(dev)
+    inp.fx, inp.fy = fg_inputs(inp.gt, h, w)
+    inp.fg = fgm.FG_MAPS(inp.fx, inp.fy, h, w)
+    inp.best_id = inp.fg[0]
+    alpha = (inp.fy.amax(0)[:, None] * inp.fx.amax(0)[None, :] * 255).bfloat16().float()[..., None]
+    inp.img4 = torch.cat([inp.img3.float(), alpha], -1).contiguous()
+    lvl = torch.from_numpy(rng.uniform(0.1, 10.0, 16).astype(np.float32)).to(dev)
+    sign = torch.from_numpy(np.where(rng.rand(16) > 0.5, -1.0, 1.0).astype(np.float32)).to(dev)
+    rad = torch.deg2rad(torch.floor(lvl * 3.0) * sign)
+    cx, cy = (inp.gt[:16, 0] + inp.gt[:16, 2]) / 2, (inp.gt[:16, 1] + inp.gt[:16, 3]) / 2
+    inp.ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    inp.xs = torch.arange(w, dtype=torch.float32, device=dev)[:, None]
+    inp.table_x = -torch.tan(rad / 2)[None, :] * (inp.ys - cy[None, :])
+    inp.table_y = torch.sin(rad)[None, :] * (inp.xs - cx[None, :])
+    inp.flat3 = torch.from_numpy(chain_like_image(rng, h, w)).to(dev)
+    inp.flat4 = torch.cat([inp.flat3.float(), alpha], -1).contiguous()
+    return inp
+
+
+def piecewise_cases(inp, piecewise):
+    """B5's cases (label, image, axis, table, max_shift): the three passes
+    of a per-box rotate as the slots chain runs them (x on the uint8 image,
+    then column and x on the float32 result of the pass before, made here
+    with ``piecewise``), the column pass on the uint8 image, and the x pass
+    on the chain-like image. The first is the report's main case."""
+    pass1 = piecewise(inp.img3, inp.best_id, inp.table_x, 512, 1)
+    pass2 = piecewise(pass1, inp.best_id, inp.table_y, 768, 0)
+    return (("x pass, uint8 3-channel", inp.img3, 1, inp.table_x, 512),
+            ("column pass, float32 3-channel (a rotate's second pass)", pass1, 0,
+             inp.table_y, 768),
+            ("x pass, float32 3-channel (a rotate's third pass)", pass2, 1, inp.table_x, 512),
+            ("column pass, uint8 3-channel", inp.img3, 0, inp.table_y, 768),
+            ("x pass, uint8 3-channel, chain-like image", inp.flat3, 1, inp.table_x, 512))
+
+
+def piecewise_offsets(best_id, table, ms_max, axis):
+    """The offset (H, W) that B5 gives each pixel, for ``grid_sampler``."""
+    import torch
+    p = torch.clamp(table, -ms_max, ms_max)
+    bid = best_id.long().clamp(max=15)
+    per_px = torch.gather(p, 1, bid) if axis == 1 else torch.gather(p.T, 0, bid)
+    return torch.where(best_id.long() < 16, per_px, torch.zeros_like(per_px))
+
+
+def merged_cases(inp):
+    """B7's cases (label, image, axis, cid, p_bb, p_sl, is_bb, is_bg) on the
+    4-channel float32 image with B3's ``best_id`` as the composite id (S =
+    1, as the merged chain calls it): per-box x and column passes, a
+    background pass, the identity, three slots with mixed flags, and the
+    per-box x pass on the chain-like image. The first is the report's main
+    case."""
+    import torch
+    h, w, dev = inp.h, inp.w, inp.img4.device
+    a, b = -math.tan(math.radians(15)), math.sin(math.radians(30))
+    bg = torch.clamp(a * (inp.ys - h / 2.0), -(int(0.27 * h / 2) + 4), int(0.27 * h / 2) + 4)
+    slot = torch.full((h, w), 2, dtype=torch.long, device=dev)
+    slot[100:500, 200:900], slot[600:1000, 1100:1900] = 0, 1
+    best_id = inp.best_id
+    cid3 = torch.where(best_id.long() < 16, slot * 16 + best_id.long(),
+                       torch.full_like(slot, 48)).to(torch.int8)
+    p_rot_x = torch.clamp(inp.table_x, -512, 512)
+    p_rot_y = torch.clamp(inp.table_y, -768, 768)
+    zero = lambda n, k: torch.zeros((n, k), device=dev)
+    return (
+        ("per-box x pass", inp.img4, 1, best_id, p_rot_x, zero(h, 1), [True], [False]),
+        ("per-box column pass", inp.img4, 0, best_id, p_rot_y, zero(w, 1), [True], [False]),
+        ("background x pass", inp.img4, 1, best_id, zero(h, 16), bg, [False], [True]),
+        ("identity", inp.img4, 1, best_id, p_rot_x, bg, [False], [False]),
+        ("3 slots x pass", inp.img4, 1, cid3, p_rot_x.repeat(1, 3) * 0.5, bg.repeat(1, 3),
+         [True, False, False], [False, False, True]),
+        ("3 slots column pass", inp.img4, 0, cid3, p_rot_y.repeat(1, 3) * 0.5,
+         torch.clamp(b * (inp.xs - w / 2.0), -516, 516).repeat(1, 3),
+         [False, True, False], [True, False, False]),
+        ("per-box x pass, chain-like image", inp.flat4, 1, best_id, p_rot_x, zero(h, 1),
+         [True], [False]))
+
+
+def merged_offsets(cid, p_bb, p_sl, is_bb, is_bg, axis):
+    """The offset (H, W) that B7 gives each pixel, for ``grid_sampler``."""
+    import torch
+    from oadg_tpu_torch.ops.warp import _merged_table
+    table = _merged_table(p_bb, p_sl, np.asarray(is_bb), np.asarray(is_bg))
+    k = cid.long().clamp(0, p_bb.shape[1])
+    return torch.gather(table, 1, k) if axis == 1 else torch.gather(table.T, 0, k)
+
+
+def phase_oamix_kernels():
+    """B3-B7 vs their plain versions at the flagship's shapes. The timed
+    calls of a kernel take ``ROTATE`` copies of its inputs in turn and keep
+    their last results alive, so that a call finds neither its input nor
+    the lines it writes in the 50 MB L2 cache."""
+    import torch
     from oadg_tpu_torch.ops import fg_maps as fgm
     from oadg_tpu_torch.ops import hist, warp
     dev = torch.device("cuda", 0)
     h, w = IMG_H, IMG_W
-    rng = np.random.RandomState(6)
-    img3 = torch.from_numpy(request_image(rng)).to(dev)
-    gt = torch.from_numpy(seeded_gts(rng, 1, h, w)[0][0]).to(dev)
+    inp = warp_inputs(dev)
+    img3, img4, best_id, fx, fy = inp.img3, inp.img4, inp.best_id, inp.fx, inp.fy
     rows = []
+    copies = lambda t: [t.clone() for _ in range(ROTATE)]
 
     # B3: G=16 seeded boxes on 1024x2048
-    fx, fy = fg_inputs(gt, h, w)
-    got = fgm.FG_MAPS(fx, fy, h, w)
     want = fgm.fg_maps_ref(fx, fy, h, w)
     torch.cuda.synchronize()
-    n_ties, err = check_fg_maps(got, want, fx, fy)
-    ms = cuda_ms(lambda: fgm.FG_MAPS(fx, fy, h, w), 50)
-    plain_ms = cuda_ms(lambda: fgm.fg_maps_ref(fx, fy, h, w), 5)
+    n_ties, err = check_fg_maps(inp.fg, want, fx, fy)
+    t = time_kernel(lambda i: fgm.FG_MAPS(fx, fy, h, w),
+                    lambda i: fgm.fg_maps_ref(fx, fy, h, w), ring=8)
     nbytes = (fx.numel() + fy.numel()) * 4 + h * w * (1 + 2 + 2)
     log("kernels", f"fg_maps G=16 {h}x{w}: best_id differs at {n_ties} exact ties; "
-                   f"cover/union max_abs_err {err:.3e} (limit one bf16 step); kernel "
-                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms "
-                   f"({nbytes / 1e6:.1f} MB)")
-    rows.append(row("fg_maps", "fg_maps.cu", "oadg_tpu/ops/pallas_fg.py:54", err, ms,
-                    plain_ms, nbytes, None))
-    best_id = got[0]
+                   f"cover/union max_abs_err {err:.3e} (limit one bf16 step); "
+                   f"{timing_text(t)}; bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+    rows.append(row("fg_maps", "fg_maps.cu", "oadg_tpu/ops/pallas_fg.py:54", err, t, nbytes))
+    in_boxes = int((best_id < 16).sum())
 
     # B4: x and column passes at the severity-10 rotate and translate shifts
-    img4 = torch.cat([img3.float(), (fy.amax(0)[:, None] * fx.amax(0)[None, :] * 255)
-                      .bfloat16().float()[..., None]], -1).contiguous()
     a, b = -math.tan(math.radians(15)), math.sin(math.radians(30))
     cases = (("x rotate", 1, a, -a * h / 2, int(0.27 * h / 2) + 4),
              ("column rotate", 0, b, -b * w / 2, int(0.50 * w / 2) + 4),
              ("x translate", 1, 0.0, -float(np.floor(9.9 * (w / 3) / 10)), w // 3 + 4),
              ("column translate", 0, 0.0, float(np.floor(9.9 * (h / 3) / 10)), h // 3 + 4))
+    main, others = None, []
     for label, axis, k1, k2, ms_max in cases:
         n = h if axis == 1 else w
         shifts, fracs = warp._row_shift_params(k1, k2, n, ms_max, dev)
         off = (shifts.float() + fracs)
         off = off[:, None].expand(h, w) if axis == 1 else off[None, :].expand(h, w)
-        grid = shift_grid(off, axis, h, w)
         for im in (img3, img4):
             got = warp.SHEAR_ROWS(im, shifts, fracs, ms_max, axis)
             want = warp.shear_rows_ref(im, shifts, fracs, ms_max, axis)
@@ -462,128 +800,146 @@ def phase_oamix_kernels():
             c = im.shape[-1]
             if not err <= TOL_WARP:
                 raise AssertionError(f"shear_rows {label} C={c}: {err} > {TOL_WARP}")
-            inp = im.float().permute(2, 0, 1)[None].contiguous()
-            ms = cuda_ms(lambda: warp.SHEAR_ROWS(im, shifts, fracs, ms_max, axis), 50)
-            plain_ms = cuda_ms(lambda: warp.shear_rows_ref(im, shifts, fracs, ms_max,
-                                                           axis), 5)
-            lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                                   padding_mode="zeros",
-                                                   align_corners=True), 50)
+            ims = copies(im)
+            t = time_kernel(
+                lambda i: warp.SHEAR_ROWS(ims[i % ROTATE], shifts, fracs, ms_max, axis),
+                lambda i: warp.shear_rows_ref(ims[i % ROTATE], shifts, fracs, ms_max, axis),
+                grid_sampler(im, off, axis))
             nbytes = im.numel() * im.element_size() + im.numel() * 4 + n * 8
             log("kernels", f"shear_rows {label} C={c} {im.dtype}: max_abs_err "
-                           f"{err:.3e} (limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain "
-                           f"{plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms; bound "
-                           f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+                           f"{err:.3e} (limit {TOL_WARP:.0e}); {timing_text(t, 'F.grid_sample')}; "
+                           f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
             if label == "x rotate" and c == 4:        # the bg rotate's pass
-                rows.append(row("shear_rows", "shift_rows.cu",
-                                "oadg_tpu/ops/pallas_warp.py:131", err, ms, plain_ms,
-                                nbytes, lib_ms))
+                main = (err, t, nbytes)
+            else:
+                others.append(case_row(f"{label} C={c} {im.dtype}", err, t, nbytes))
+    rows.append(row("shear_rows", "shift_rows.cu", "oadg_tpu/ops/pallas_warp.py:131",
+                    *main, cases=others))
 
-    # B5: per-box passes on B3's own best_id, rotate shifts of 16 boxes
-    lvl = torch.from_numpy(rng.uniform(0.1, 10.0, 16).astype(np.float32)).to(dev)
-    sign = torch.from_numpy(np.where(rng.rand(16) > 0.5, -1.0, 1.0).astype(np.float32)).to(dev)
-    rad = torch.deg2rad(torch.floor(lvl * 3.0) * sign)
-    cx, cy = (gt[:16, 0] + gt[:16, 2]) / 2, (gt[:16, 1] + gt[:16, 3]) / 2
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[:, None]
-    for label, axis, table, ms_max in (
-            ("x", 1, -torch.tan(rad / 2)[None, :] * (ys - cy[None, :]), 512),
-            ("column", 0, torch.sin(rad)[None, :] * (xs - cx[None, :]), 768)):
-        got = warp.PIECEWISE_SHIFT_ROWS(img3, best_id, table, ms_max, axis)
-        want = warp.piecewise_shift_rows_ref(img3, best_id, table, ms_max, axis)
+    # B5 on B3's own best_id, rotate shifts of 16 boxes
+    main, others = None, []
+    for label, im, axis, table, ms_max in piecewise_cases(inp, warp.PIECEWISE_SHIFT_ROWS):
+        fast = warp.PIECEWISE_SHIFT_ROWS.routes["fast"]
+        got = warp.PIECEWISE_SHIFT_ROWS(im, best_id, table, ms_max, axis)
+        want = warp.piecewise_shift_rows_ref(im, best_id, table, ms_max, axis)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not err <= TOL_WARP:
             raise AssertionError(f"piecewise_shift_rows {label}: {err} > {TOL_WARP}")
-        p = torch.clamp(table, -ms_max, ms_max)
-        bid = best_id.long().clamp(max=15)
-        per_px = torch.gather(p, 1, bid) if axis == 1 else torch.gather(p.T, 0, bid)
-        per_px = torch.where(best_id.long() < 16, per_px, torch.zeros_like(per_px))
-        grid = shift_grid(per_px, axis, h, w)
-        inp = img3.float().permute(2, 0, 1)[None].contiguous()
-        ms = cuda_ms(lambda: warp.PIECEWISE_SHIFT_ROWS(img3, best_id, table, ms_max, axis), 50)
-        plain_ms = cuda_ms(lambda: warp.piecewise_shift_rows_ref(img3, best_id, table,
-                                                                 ms_max, axis), 5)
-        lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True), 50)
-        nbytes = img3.numel() + best_id.numel() + table.numel() * 4 + img3.numel() * 4
-        log("kernels", f"piecewise_shift_rows {label} pass, 16 boxes, "
-                       f"{int((best_id < 16).sum())} pixels in boxes: max_abs_err {err:.3e} "
-                       f"(limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                       f"ms, F.grid_sample {lib_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms "
-                       f"({nbytes / 1e6:.1f} MB)")
-        if axis == 1:
-            rows.append(row("piecewise_shift_rows", "shift_rows.cu",
-                            "oadg_tpu/ops/pallas_warp.py:647", err, ms, plain_ms, nbytes,
-                            lib_ms))
+        if warp.PIECEWISE_SHIFT_ROWS.routes["fast"] != fast + 1:
+            raise AssertionError(f"piecewise_shift_rows {label} did not take the fast route")
+        ims, ids = copies(im), copies(best_id)
+        t = time_kernel(
+            lambda i: warp.PIECEWISE_SHIFT_ROWS(ims[i % ROTATE], ids[i % ROTATE], table,
+                                                ms_max, axis),
+            lambda i: warp.piecewise_shift_rows_ref(ims[i % ROTATE], ids[i % ROTATE], table,
+                                                    ms_max, axis),
+            grid_sampler(im, piecewise_offsets(best_id, table, ms_max, axis), axis))
+        nbytes = (im.numel() * im.element_size() + best_id.numel() + table.numel() * 4
+                  + im.numel() * 4)
+        log("kernels", f"piecewise_shift_rows {label}, 16 boxes, {in_boxes} pixels in "
+                       f"boxes: max_abs_err {err:.3e} (limit {TOL_WARP:.0e}); "
+                       f"{timing_text(t, 'F.grid_sample')}; bound {bound_ms(nbytes):.4f} ms "
+                       f"({nbytes / 1e6:.1f} MB, {nbytes / t['device_ms'] / 1e9:.3f} TB/s)")
+        if main is None:
+            main = (err, t, nbytes)
+        else:
+            others.append(case_row(label, err, t, nbytes))
+    rows.append(row("piecewise_shift_rows", "shift_rows.cu", "oadg_tpu/ops/pallas_warp.py:647",
+                    *main, cases=others))
 
-    # B7: merged passes on the 4-channel float32 image, B3's best_id as the
-    # composite id (S = 1, as the merged chain calls it), and three slots
-    bg = torch.clamp(a * (ys - h / 2.0), -(int(0.27 * h / 2) + 4), int(0.27 * h / 2) + 4)
-    slot = torch.full((h, w), 2, dtype=torch.long, device=dev)
-    slot[100:500, 200:900], slot[600:1000, 1100:1900] = 0, 1
-    cid3 = torch.where(best_id.long() < 16, slot * 16 + best_id.long(),
-                       torch.full_like(slot, 48)).to(torch.int8)
-    p_rot_x = torch.clamp(-torch.tan(rad / 2)[None, :] * (ys - cy[None, :]), -512, 512)
-    p_rot_y = torch.clamp(torch.sin(rad)[None, :] * (xs - cx[None, :]), -768, 768)
-    zero = lambda n, k: torch.zeros((n, k), device=dev)
-    merged_cases = (
-        ("per-box x pass", 1, best_id, p_rot_x, zero(h, 1), [True], [False]),
-        ("per-box column pass", 0, best_id, p_rot_y, zero(w, 1), [True], [False]),
-        ("background x pass", 1, best_id, zero(h, 16), bg, [False], [True]),
-        ("identity", 1, best_id, p_rot_x, bg, [False], [False]),
-        ("3 slots x pass", 1, cid3, p_rot_x.repeat(1, 3) * 0.5, bg.repeat(1, 3),
-         [True, False, False], [False, False, True]),
-        ("3 slots column pass", 0, cid3, p_rot_y.repeat(1, 3) * 0.5,
-         torch.clamp(b * (xs - w / 2.0), -516, 516).repeat(1, 3),
-         [False, True, False], [True, False, False]))
-    inp = img4.permute(2, 0, 1)[None].contiguous()
-    for label, axis, cid, p_bb, p_sl, is_bb, is_bg in merged_cases:
-        args = (img4, cid, p_bb, p_sl, is_bb, is_bg, axis)
-        got = warp.MERGED_SHIFT_ROWS(*args)
-        want = warp.merged_shift_rows_ref(*args)
+    # B7
+    main, others = None, []
+    for label, im, axis, cid, p_bb, p_sl, is_bb, is_bg in merged_cases(inp):
+        args = (cid, p_bb, p_sl, is_bb, is_bg, axis)
+        fast = warp.MERGED_SHIFT_ROWS.routes["fast"]
+        got = warp.MERGED_SHIFT_ROWS(im, *args)
+        want = warp.merged_shift_rows_ref(im, *args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not err <= TOL_WARP:
             raise AssertionError(f"merged_shift_rows {label}: {err} > {TOL_WARP}")
-        if label == "identity" and not torch.equal(got, img4):
+        if warp.MERGED_SHIFT_ROWS.routes["fast"] != fast + 1:
+            raise AssertionError(f"merged_shift_rows {label} did not take the fast route")
+        if label == "identity" and not torch.equal(got, im):
             raise AssertionError("merged_shift_rows with no flag set is not the identity")
-        table = warp._merged_table(p_bb, p_sl, np.asarray(is_bb), np.asarray(is_bg))
-        k = cid.long().clamp(0, p_bb.shape[1])
-        per_px = torch.gather(table, 1, k) if axis == 1 else torch.gather(table.T, 0, k)
-        grid = shift_grid(per_px, axis, h, w)
-        ms = cuda_ms(lambda: warp.MERGED_SHIFT_ROWS(*args), 50)
-        plain_ms = cuda_ms(lambda: warp.merged_shift_rows_ref(*args), 5)
-        lib_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True), 50)
-        nbytes = 2 * img4.numel() * 4 + cid.numel() + (p_bb.numel() + p_sl.numel()) * 4
+        ims, ids = copies(im), copies(cid)
+        t = time_kernel(
+            lambda i: warp.MERGED_SHIFT_ROWS(ims[i % ROTATE], ids[i % ROTATE], *args[1:]),
+            lambda i: warp.merged_shift_rows_ref(ims[i % ROTATE], ids[i % ROTATE], *args[1:]),
+            grid_sampler(im, merged_offsets(*args), axis))
+        nbytes = 2 * im.numel() * 4 + cid.numel() + (p_bb.numel() + p_sl.numel()) * 4
         log("kernels", f"merged_shift_rows {label}, S={len(is_bb)}, 16 boxes: max_abs_err "
-                       f"{err:.3e} (limit {TOL_WARP:.0e}); kernel {ms:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms; bound "
-                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
-        if label == "per-box x pass":
-            rows.append(row("merged_shift_rows", "shift_rows.cu",
-                            "oadg_tpu/ops/pallas_warp.py:564", err, ms, plain_ms, nbytes,
-                            lib_ms))
+                       f"{err:.3e} (limit {TOL_WARP:.0e}); {timing_text(t, 'F.grid_sample')}; "
+                       f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, "
+                       f"{nbytes / t['device_ms'] / 1e9:.3f} TB/s)")
+        if main is None:
+            main = (err, t, nbytes)
+        else:
+            others.append(case_row(label, err, t, nbytes))
+    rows.append(row("merged_shift_rows", "shift_rows.cu", "oadg_tpu/ops/pallas_warp.py:564",
+                    *main, cases=others))
 
-    # B6: the three channels' histograms of one 1024x2048 image
+    # B6: the three channels' histograms of one 1024x2048 image; 9 copies in
+    # turn (57 MB). torch.bincount's times come from phase_profiled.
     got = hist.HIST256(img3, 3)
     want = hist.hist256_ref(img3, 3)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("hist256 counts differ from the plain version")
-    flat = (img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1)
-    ms = cuda_ms(lambda: hist.HIST256(img3, 3), 50)
-    plain_ms = cuda_ms(lambda: hist.hist256_ref(img3, 3), 10)
-    lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=768), 50)
+    imgs = [img3.clone() for _ in range(9)]
+    t = time_kernel(lambda i: hist.HIST256(imgs[i % 9], 3),
+                    lambda i: hist.hist256_ref(imgs[i % 9], 3), plain_n=10)
     nbytes = img3.numel() + 3 * 256 * 4
-    log("kernels", f"hist256 {h}x{w}x3 uint8: counts equal; kernel {ms:.4f} ms, plain "
-                   f"{plain_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms; bound "
-                   f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
-    rows.append(row("hist256", "hist256.cu", "oadg_tpu/ops/pallas_hist.py:73", 0.0, ms,
-                    plain_ms, nbytes, lib_ms))
+    log("kernels", f"hist256 {h}x{w}x3 uint8: counts equal; {timing_text(t)}; "
+                   f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+    rows.append(row("hist256", "hist256.cu", "oadg_tpu/ops/pallas_hist.py:73", 0.0, t, nbytes))
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_profiled(rows):
+    """The three times that need ``torch.profiler``, made after the path:
+    the plain versions of B1 and B2 build small index tensors from host
+    lists on every call (such a copy from pageable memory waits for the
+    stream) and ``torch.bincount`` reads its input's largest value, so no
+    run of them can be queued ahead of the device, and their device time
+    is the profiler's sum of their kernels and copies. They come last
+    because the profiler's tracing stays attached to the process once it
+    has run, and every later launch then costs the host more: OA-Mix and
+    the training steps, which the host bounds, are timed before it."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
+    dev = torch.device("cuda", 0)
+    by_name = {r["name"]: r for r in rows}
+    feats, rois = roi_fwd_inputs(dev)
+    t = device_time(lambda i: roi_align_multilevel_ref(feats, rois, 7, STRIDES, 2, 56), 5,
+                    method="profiler")
+    by_name["roi_align_fwd"]["plain_ms"] = t["device_ms"]
+    log("profiled", f"roi_align_fwd f32 plain version: device {t['device_ms']:.4f} ms "
+                    f"(timer profiler), host {t['host_us']:.1f} us a call")
+    feats, rois, dy = roi_bwd_inputs(dev)
+    shapes = [f.shape for f in feats]
+    del feats
+    t = device_time(lambda i: roi_align_multilevel_ref_backward(
+        dy, shapes, rois, 7, STRIDES, 2, 56), 3, method="profiler")
+    by_name["roi_align_bwd"]["plain_ms"] = t["device_ms"]
+    log("profiled", f"roi_align_bwd f32 plain version: device {t['device_ms']:.4f} ms "
+                    f"(timer profiler), host {t['host_us']:.1f} us a call")
+    del dy
+    img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
+    flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
+             for _ in range(9)]
+    bincount = lambda i: torch.bincount(flats[i % 9], minlength=768)
+    runs = [device_time(bincount, 50, method="profiler") for _ in range(TIMER_ROUNDS)]
+    ms = [r["device_ms"] for r in runs]
+    by_name["hist256"].update(
+        library_ms=statistics.median(ms), library_spread=[min(ms), max(ms)],
+        library_host_us=statistics.median(r["host_us"] for r in runs),
+        library_timer="profiler", library_idle_launch_ms=idle_launch_ms(bincount))
+    log("profiled", f"hist256's library call: {timing_text(by_name['hist256'], 'torch.bincount')}")
+    torch.cuda.empty_cache()
 
 
 def oamix_wrappers():
@@ -1226,12 +1582,18 @@ def main():
     phase_device()
     phase_build()
     rows = phase_kernels() + phase_oamix_kernels()
+    if "--kernels-only" in sys.argv[1:]:        # the kernels' phases alone: no result line
+        phase_profiled(rows)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
+        return 0
     handle = phase_slice(rows)
     phase_reference(handle)
     del handle
     phase_oamix()
     phase_train(rows)
     phase_train_reference()
+    phase_profiled(rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,7 @@ class CudaLibrary:
         self.signatures = dict(signatures)
         self.build_log = ""                 # nvcc's output when this process built it
         self._lib: Optional[ctypes.CDLL] = None
+        self._functions: Dict[str, object] = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes())
@@ -85,3 +86,11 @@ class CudaLibrary:
                 fn.argtypes = list(argtypes)
             self._lib = lib
         return self._lib
+
+    def function(self, name: str):
+        """The exported function ``name``, bound once: a wrapper's launch
+        costs one dictionary lookup, not a ``load()`` and a ``getattr``."""
+        fn = self._functions.get(name)
+        if fn is None:
+            fn = self._functions[name] = getattr(self.load(), name)
+        return fn

@@ -26,6 +26,9 @@ kernels B4, B5 and B7).
 All take (H, W, C) uint8 or float32 images (C <= 4) and return float32, as
 the JAX package's CPU path does (on the TPU it rounds to bf16 lanes). CUDA
 tensors go to ``csrc/shift_rows.cu``, CPU tensors to the plain versions.
+B5 and B7 have two kernels there, one specialised for OA-Mix's shapes and a
+generic one (the source's note says which shapes go where); both give the
+plain versions' bits, and the wrappers count which was launched (``routes``).
 
 The wrappers ``warp_shear_x/y``, ``warp_translate_x/y`` and ``warp_rotate``
 (the Paeth 3-shear) take host scalars and derive each line's shift with
@@ -164,85 +167,120 @@ def _check_image(img: torch.Tensor, axis: int, what: str):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
 
 
-class ShearRows:
-    """Wrapper of ``oadg_shear_rows`` in ``csrc/shift_rows.cu`` (kernel
-    B4): checks its inputs, allocates the float32 output, launches on the
-    current stream and counts launches."""
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``; ``t`` itself where it is one."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def _flag_bits(flags, n_slots: int, what: str) -> int:
+    """B7's (S,) host flags as a bit mask, bit ``i`` for slot ``i``."""
+    if not (isinstance(flags, (list, tuple)) and len(flags) == n_slots
+            and all(type(f) is bool for f in flags)):
+        flags = _slot_flags(flags, n_slots, what).tolist()
+    return sum(1 << i for i, f in enumerate(flags) if f)
+
+
+class _Wrapper:
+    """What the three wrappers share: the entry point of ``csrc/shift_rows.cu``
+    bound once, the launch on the image's device and current stream, and the
+    count of launches. For B5 and B7 (``routed``) the entry point also
+    reports which kernel it launched, and ``routes`` counts the launches of
+    the kernel specialised for OA-Mix's shapes (``fast``) and of the
+    one-pixel-a-thread kernel that takes every other shape (``generic``)."""
+
+    symbol = ""
+    routed = False
 
     def __init__(self, library: CudaLibrary):
         self.launches = 0
+        self.routes = {"fast": 0, "generic": 0}
         self.library = library
+        self._route = ctypes.c_int(0)
+        self._route_ref = ctypes.byref(self._route)
+
+    def _launch(self, img: torch.Tensor, *args):
+        """The entry point on ``args``, then the stream, then the route's
+        address where the entry point reports one."""
+        fn = self.library.function(self.symbol)
+        args += (torch.cuda.current_stream(img.device).cuda_stream,)
+        if self.routed:
+            args += (self._route_ref,)
+        if img.device.index == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(img.device):
+                err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed with cudaError_t {err}")
+        self.launches += 1
+        if self.routed:
+            self.routes["fast" if self._route.value else "generic"] += 1
+
+
+class ShearRows(_Wrapper):
+    """Wrapper of ``oadg_shear_rows`` (kernel B4): checks its inputs,
+    allocates the float32 output, launches on the current stream and counts
+    launches."""
+
+    symbol = "oadg_shear_rows"
 
     def __call__(self, img, shifts, fracs, max_shift: int, axis: int = 1):
         _check_image(img, axis, "shear_rows")
         h, w, c = img.shape
         n = h if axis == 1 else w
-        shifts = shifts.to(torch.int32).contiguous()
-        fracs = fracs.to(torch.float32).contiguous()
+        shifts = _as(shifts, torch.int32)
+        fracs = _as(fracs, torch.float32)
         if shifts.shape != (n,) or fracs.shape != (n,) or shifts.device != img.device \
                 or fracs.device != img.device:
             raise ValueError(f"shifts and fracs must be ({n},) on the image's device")
         out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
-        lib = self.library.load()
-        with torch.cuda.device(img.device):
-            stream = torch.cuda.current_stream(img.device).cuda_stream
-            err = lib.oadg_shear_rows(img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c,
-                                      axis, shifts.data_ptr(), fracs.data_ptr(),
-                                      int(max_shift), out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"shear_rows launch failed with cudaError_t {err}")
-        self.launches += 1
+        self._launch(img, img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis,
+                     shifts.data_ptr(), fracs.data_ptr(), int(max_shift), out.data_ptr())
         return out
 
 
-class PiecewiseShiftRows:
-    """Wrapper of ``oadg_piecewise_shift_rows`` in ``csrc/shift_rows.cu``
-    (kernel B5): int8 box ids (H, W) in [0, G], float32 shifts (keys, G)."""
+class PiecewiseShiftRows(_Wrapper):
+    """Wrapper of ``oadg_piecewise_shift_rows`` (kernel B5): int8 box ids
+    (H, W) in [0, G], float32 shifts (keys, G)."""
 
-    def __init__(self, library: CudaLibrary):
-        self.launches = 0
-        self.library = library
+    symbol = "oadg_piecewise_shift_rows"
+    routed = True
 
     def __call__(self, img, bid, shifts, max_shift: float, axis: int = 1):
         _check_image(img, axis, "piecewise_shift_rows")
         h, w, c = img.shape
         n, g = shifts.shape
-        bid = bid.to(torch.int8).contiguous()
-        shifts = shifts.to(torch.float32).contiguous()
+        bid = _as(bid, torch.int8)
+        shifts = _as(shifts, torch.float32)
         if (n != (h if axis == 1 else w) or not 1 <= g <= 127 or bid.shape != (h, w)
                 or bid.device != img.device or shifts.device != img.device):
             raise ValueError(f"piecewise_shift_rows needs bid ({h}, {w}) and shifts "
                              f"(keys, G<=127) on the image's device, got "
                              f"{tuple(bid.shape)} and {tuple(shifts.shape)}")
         out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
-        lib = self.library.load()
-        with torch.cuda.device(img.device):
-            stream = torch.cuda.current_stream(img.device).cuda_stream
-            err = lib.oadg_piecewise_shift_rows(
-                img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis, bid.data_ptr(),
-                shifts.data_ptr(), g, float(max_shift), out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"piecewise_shift_rows launch failed with cudaError_t {err}")
-        self.launches += 1
+        self._launch(img, img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis,
+                     bid.data_ptr(), shifts.data_ptr(), g, float(max_shift),
+                     out.data_ptr())
         return out
 
 
-class MergedShiftRows:
-    """Wrapper of ``oadg_merged_shift_rows`` in ``csrc/shift_rows.cu``
-    (kernel B7): int8 composite ids (H, W) in [0, S * G], float32 shifts
-    ``p_bb`` (keys, S * G) and ``p_sl`` (keys, S), and the (S,) host flags as
-    two bit masks in the launch arguments."""
+class MergedShiftRows(_Wrapper):
+    """Wrapper of ``oadg_merged_shift_rows`` (kernel B7): int8 composite ids
+    (H, W) in [0, S * G], float32 shifts ``p_bb`` (keys, S * G) and ``p_sl``
+    (keys, S), and the (S,) host flags as two bit masks in the launch
+    arguments."""
 
-    def __init__(self, library: CudaLibrary):
-        self.launches = 0
-        self.library = library
+    symbol = "oadg_merged_shift_rows"
+    routed = True
 
     def __call__(self, img, cid, p_bb, p_sl, is_bb, is_bg, axis: int = 1):
         _check_image(img, axis, "merged_shift_rows")
         h, w, c = img.shape
         n = h if axis == 1 else w
-        p_bb = p_bb.to(torch.float32).contiguous()
-        p_sl = p_sl.to(torch.float32).contiguous()
+        p_bb = _as(p_bb, torch.float32)
+        p_sl = _as(p_sl, torch.float32)
         if p_bb.dim() != 2 or p_sl.dim() != 2:
             raise ValueError("merged_shift_rows takes p_bb (keys, S * G) and p_sl (keys, S)")
         sg, s = p_bb.shape[1], p_sl.shape[1]
@@ -254,22 +292,15 @@ class MergedShiftRows:
                              f"127) and p_sl ({n}, S <= 32) on the image's device, got "
                              f"{tuple(cid.shape)}, {tuple(p_bb.shape)} and "
                              f"{tuple(p_sl.shape)}")
-        bits = lambda flags: sum(1 << i for i, f in enumerate(flags) if f)
-        bb = bits(_slot_flags(is_bb, s, "is_bb"))
-        bg = bits(_slot_flags(is_bg, s, "is_bg"))
+        bb = _flag_bits(is_bb, s, "is_bb")
+        bg = _flag_bits(is_bg, s, "is_bg")
         if cid.dtype != torch.int8:         # wider ids: past the sentinel is the sentinel
             cid = cid.clamp(0, sg).to(torch.int8)
-        cid = cid.contiguous()
+        cid = _as(cid, torch.int8)
         out = torch.empty((h, w, c), dtype=torch.float32, device=img.device)
-        lib = self.library.load()
-        with torch.cuda.device(img.device):
-            stream = torch.cuda.current_stream(img.device).cuda_stream
-            err = lib.oadg_merged_shift_rows(
-                img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis, cid.data_ptr(),
-                p_bb.data_ptr(), p_sl.data_ptr(), sg, s, bb, bg, out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"merged_shift_rows launch failed with cudaError_t {err}")
-        self.launches += 1
+        self._launch(img, img.data_ptr(), _DTYPE_CODES[img.dtype], h, w, c, axis,
+                     cid.data_ptr(), p_bb.data_ptr(), p_sl.data_ptr(), sg, s, bb, bg,
+                     out.data_ptr())
         return out
 
 
@@ -281,11 +312,13 @@ _LIBRARY = CudaLibrary("shift_rows.cu", {
     "oadg_piecewise_shift_rows": (ctypes.c_int, (
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)),
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int))),
     "oadg_merged_shift_rows": (ctypes.c_int, (
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p)),
+        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int))),
 })
 SHEAR_ROWS = ShearRows(_LIBRARY)
 PIECEWISE_SHIFT_ROWS = PiecewiseShiftRows(_LIBRARY)

@@ -16,7 +16,12 @@ masks tie exactly), B4, B5 and B7 within 1e-4 of values up to 255 (the kernels
 fuse the lerp's multiply-add, the plain versions emulate it in float64 and
 may round a tie once more: one float32 ulp, 1.5e-5 at 255), B6's counts
 equal, and OA-Mix on the card (either chain) equal to the CPU on 99.5% of
-pixels.
+pixels. B4, B5 and B7 are also held to their plain versions over the shape
+grid of ``torch_warp_cases.py`` (the grid on which the CPU tests hold the plain
+versions to the JAX package), with the route each launch of B5 and B7 took:
+the specialised (``fast``) kernel for uint8 or float32 3-channel (B5) and float32
+4-channel (B7) images whose width is a multiple of 4 and whose pointers are
+aligned, the ``generic`` one-pixel-a-thread kernel for everything else.
 """
 import numpy as np
 import pytest
@@ -29,6 +34,8 @@ from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
                                           roi_align_multilevel,
                                           roi_align_multilevel_ref,
                                           roi_align_multilevel_ref_backward)
+
+import torch_warp_cases as cases
 
 STRIDES = (4, 8, 16, 32)
 
@@ -246,6 +253,141 @@ def test_merged_shift_rows_kernel_matches_plain_version(kind, flags, axis):
     with pytest.raises(ValueError, match="host value"):
         warp_mod.merged_shift_rows(img, cid, p_bb, p_sl, torch.tensor(is_bb, device=dev),
                                    is_bg, axis)
+
+
+def _routes_taken(wrapper, before):
+    return {k: wrapper.routes[k] - before[k] for k in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cases.GRID, ids=cases.grid_id)
+def test_shear_rows_kernel_grid(case):
+    """B4 over the grid, one launch per kind of shift (whole, zero, beyond
+    the image, past the clamp, a shear's slope, a few pixels)."""
+    dev = _cuda()
+    kind, c, axis, w = case
+    img = torch.from_numpy(cases.image(0, w, c, kind)).to(dev)
+    n, extent = (cases.H, w) if axis == 1 else (w, cases.H)
+    table = torch.from_numpy(cases.shift_table(2, n, cases.G, extent)).to(dev)
+    for k in range(cases.G):
+        shifts = torch.floor(table[:, k])
+        fracs = table[:, k] - shifts
+        got = warp_mod.shear_rows(img, shifts.to(torch.int32), fracs, 100, axis)
+        want = warp_mod.shear_rows_ref(img, shifts.to(torch.int32), fracs, 100, axis)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cases.GRID, ids=cases.grid_id)
+def test_piecewise_shift_rows_kernel_grid(case):
+    dev = _cuda()
+    kind, c, axis, w = case
+    img, ids, shifts = (torch.from_numpy(a).to(dev) for a in cases.piecewise_case(case))
+    before = dict(warp_mod.PIECEWISE_SHIFT_ROWS.routes)
+    got = warp_mod.piecewise_shift_rows(img, ids, shifts, cases.MAX_SHIFT, axis)
+    want = warp_mod.piecewise_shift_rows_ref(img, ids, shifts, cases.MAX_SHIFT, axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    fast = c == 3 and w % 4 == 0
+    assert _routes_taken(warp_mod.PIECEWISE_SHIFT_ROWS, before) == \
+        {"fast": int(fast), "generic": int(not fast)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["bb", "bg", "mixed3"])
+@pytest.mark.parametrize("case", cases.GRID, ids=cases.grid_id)
+def test_merged_shift_rows_kernel_grid(case, flags):
+    dev = _cuda()
+    kind, c, axis, w = case
+    is_bb, is_bg = {"bb": ([True], [False]), "bg": ([False], [True]),
+                    "mixed3": ([True, False, False], [False, True, True])}[flags]
+    img, ids, p_bb, p_sl = (torch.from_numpy(a).to(dev)
+                            for a in cases.merged_case(case, len(is_bb)))
+    before = dict(warp_mod.MERGED_SHIFT_ROWS.routes)
+    got = warp_mod.merged_shift_rows(img, ids, p_bb, p_sl, is_bb, is_bg, axis)
+    want = warp_mod.merged_shift_rows_ref(img, ids, p_bb, p_sl, is_bb, is_bg, axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    fast = kind == "f32" and c == 4 and w % 4 == 0
+    assert _routes_taken(warp_mod.MERGED_SHIFT_ROWS, before) == \
+        {"fast": int(fast), "generic": int(not fast)}
+
+
+def _misaligned(t):
+    """A contiguous view of ``t``'s values that starts one element into its
+    storage: 1 byte off for uint8, 4 bytes off for float32."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("kind", ["u8", "f32"])
+def test_piecewise_shift_rows_kernel_takes_views(kind, axis):
+    """A strided image is copied by the public function and a misaligned one
+    (the uint8 image, the ids or the output's 16 bytes) goes to the generic
+    route; the values do not change."""
+    dev = _cuda()
+    case = (kind, 3, axis, 64)
+    img, ids, shifts = (torch.from_numpy(a).to(dev) for a in cases.piecewise_case(case))
+    want = warp_mod.piecewise_shift_rows_ref(img, ids, shifts, cases.MAX_SHIFT, axis)
+    wide = torch.stack([img, img], 2).reshape(cases.H, 128, 3)[:, ::2]     # strided along x
+    assert not wide.is_contiguous() and torch.equal(wide, img)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_mod.PIECEWISE_SHIFT_ROWS(wide, ids, shifts, cases.MAX_SHIFT, axis)
+    for im, bid, route in ((wide, ids, "fast"), (img, _misaligned(ids), "generic"),
+                           (_misaligned(img), ids, "generic" if kind == "u8" else "fast")):
+        before = dict(warp_mod.PIECEWISE_SHIFT_ROWS.routes)
+        got = warp_mod.piecewise_shift_rows(im, bid, shifts, cases.MAX_SHIFT, axis)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        assert _routes_taken(warp_mod.PIECEWISE_SHIFT_ROWS, before)[route] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+def test_merged_shift_rows_kernel_takes_views(axis):
+    dev = _cuda()
+    case = ("f32", 4, axis, 64)
+    img, ids, p_bb, p_sl = (torch.from_numpy(a).to(dev) for a in cases.merged_case(case, 1))
+    want = warp_mod.merged_shift_rows_ref(img, ids, p_bb, p_sl, [True], [False], axis)
+    turned = img.permute(1, 0, 2).contiguous().permute(1, 0, 2)            # strided along y
+    assert not turned.is_contiguous()
+    for im, cid, route in ((turned, ids, "fast"), (_misaligned(img), ids, "generic"),
+                           (img, ids.long(), "fast")):
+        before = dict(warp_mod.MERGED_SHIFT_ROWS.routes)
+        got = warp_mod.merged_shift_rows(im, cid, p_bb, p_sl, [True], [False], axis)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        assert _routes_taken(warp_mod.MERGED_SHIFT_ROWS, before)[route] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+def test_flagship_shapes_take_the_fast_route(axis):
+    """1024x2048 as OA-Mix calls the kernels: B5 on the uint8 3-channel
+    image and on a float32 3-channel result, B7 on the float32 4-channel
+    image with one slot; each against its plain version."""
+    dev = _cuda()
+    rng, img, fx, fy = _oamix_inputs(dev, 1024, 2048)
+    ids = fg_mod.fg_maps_ref(fx, fy, 1024, 2048)[0]
+    n = 1024 if axis == 1 else 2048
+    shifts = torch.from_numpy((rng.randn(n, 16) * 60).astype(np.float32)).to(dev)
+    img4 = torch.cat([img.float(), img[..., :1] * 0.5], -1).contiguous()
+    b5, b7 = warp_mod.PIECEWISE_SHIFT_ROWS, warp_mod.MERGED_SHIFT_ROWS
+    before = b5.routes["fast"], b7.routes["fast"]
+    for im in (img, img.float() * 0.75):
+        got = warp_mod.piecewise_shift_rows(im, ids, shifts, 512, axis)
+        want = warp_mod.piecewise_shift_rows_ref(im, ids, shifts, 512, axis)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    got = warp_mod.merged_shift_rows(img4, ids, shifts, shifts[:, :1], [True], [False], axis)
+    want = warp_mod.merged_shift_rows_ref(img4, ids, shifts, shifts[:, :1], [True], [False],
+                                          axis)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert (b5.routes["fast"], b7.routes["fast"]) == (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
