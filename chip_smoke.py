@@ -23,8 +23,12 @@ non-zero exit code:
    rounds' least and largest printed; the time of one launch from an idle
    device, wrapper included, stands beside them. B1 (RoIAlign forward) at the
    serving shapes (one 1024x2048 image: FPN levels 256x512 .. 32x64, C=256,
-   1000 rois), B2 (RoIAlign backward) at the training shapes (4 images,
-   2048 sampled + 40 random rois); B3 (OA-Mix foreground maps, G=16 seeded
+   1000 rois, the report's case) and at the training step's two calls (4
+   images, 2048 sampled and 40 random rois); B2 (RoIAlign backward) at the
+   training shapes (4 images, both calls' 2088 rois, the report's case), at
+   each of the two calls and at 2048 rois whose positives cluster around 32
+   gts; each f32 and bf16, each beside its bound and the bytes its design
+   moves; B2 must give equal bits in two calls. B3 (OA-Mix foreground maps, G=16 seeded
    boxes on 1024x2048), B4 (row shift: x and column passes at the rotate
    shifts of severity 10 and the translate shifts, on uint8 3-channel and
    float32 4-channel images; library call ``F.grid_sample``), B5 (per-box
@@ -114,10 +118,11 @@ CITYSCAPES_TRAIN_IMAGES = 2975
 # Kernel vs plain version, measured in this run (max abs error over the
 # largest magnitude of the result: feature for B1, gradient for B2):
 # float32 taps and weights are bit-identical, so only the sum order differs
-# (B2 sums with atomics, in an order that changes from run to run);
-# bfloat16 features are widened to f32 before any arithmetic, and B2's
-# bfloat16 gradient is the rounding of its f32 sum, so it may sit one
-# bfloat16 step (2**-8 relative) from the rounding of the plain sum.
+# (the kernels contract separably, the plain versions tap by tap; B2 sums in
+# a fixed order, so its bits repeat from call to call); bfloat16 features
+# are widened to f32 before any arithmetic, and B2's bfloat16 gradient is
+# the rounding of its f32 sum, so it may sit one bfloat16 step (2**-8
+# relative) from the rounding of the plain sum.
 TOL_F32 = 1e-5
 TOL_BF16 = 1e-4
 # RoI head on kernel vs plain RoIAlign features, and the card vs the CPU,
@@ -416,20 +421,57 @@ def training_rois(rng):
     return np.concatenate(parts)
 
 
-def distinct_taps(feat_shapes, rois):
-    """How many distinct map cells (level, image, y, x) the in-range samples
-    of ``rois`` read: the data-dependent part of B1's least memory traffic,
-    and the cells B2's atomics read and write."""
+def clustered_rois(rng, image):
+    """The RoI sampler's rois of one image where positives cluster: 128 of
+    ``TRAIN_ROIS`` jittered around ``NUM_GTS`` seeded gts (4 each, every
+    side moved by at most a tenth of the gt's size, so IoU >= 0.5), the rest
+    as ``flagship_rois``."""
+    gt = seeded_gts(rng, 1, IMG_H, IMG_W)[0][0].astype(np.float64)
+    k = np.repeat(np.arange(NUM_GTS), 4)
+    size = np.stack([gt[k, 2] - gt[k, 0], gt[k, 3] - gt[k, 1]] * 2, 1)
+    pos = gt[k] + rng.uniform(-0.1, 0.1, (len(k), 4)) * size
+    pos = np.concatenate([np.full((len(k), 1), image), pos], 1).astype(np.float32)
+    return np.concatenate([pos, flagship_rois(rng, TRAIN_ROIS - len(k), image)])
+
+
+def roi_tap_counts(feat_shapes, rois, tile=8):
+    """What this run's rois read and write, for the bounds and the design
+    bytes: (distinct map cells (level, image, y, x) read by their in-range
+    taps; the sum over rois of each roi's distinct tap rows x distinct tap
+    columns, the cells B1 reads; the sum over the tiles of B2's lists of the
+    dy bins a tile stages per channel)."""
     import torch
     from oadg_tpu_torch.ops.roi_align import _CHUNK, _Pyramid, _geometry
     pyr = _Pyramid(feat_shapes, STRIDES, rois.device)
-    rows = []
+    rows, fwd_cells, staged = [], 0, 0
     for i in range(0, rois.shape[0], _CHUNK):
         g = _geometry(pyr, rois[i:i + _CHUNK].float(), 7, 2, 56)
         for yi in (g.y0, g.y1):
             for xi in (g.x0, g.x1):
                 rows.append(g.rows(yi, xi)[g.ok])
-    return int(torch.unique(torch.cat(rows)).numel())
+        oky, okx = g.ok.any(2).cpu().numpy(), g.ok.any(1).cpu().numpy()
+        per_axis = []
+        for ok, taps in ((oky, (g.y0, g.y1)), (okx, (g.x0, g.x1))):
+            lo, hi = (t.reshape(t.shape[0], -1).cpu().numpy() for t in taps)
+            both = np.where(np.concatenate([ok, ok], 1), np.concatenate([lo, hi], 1), -1)
+            both.sort(1)
+            distinct = ((both >= 0) & (np.diff(both, axis=1, prepend=-1) != 0)).sum(1)
+            # the bins of each tile row (column) that reach it: B2 stages
+            # the range first..last of them
+            n = len(lo)
+            touched = np.zeros((n, max(1, int(both.max()) // tile + 1), 7), bool)
+            for s in range(lo.shape[1]):
+                for t in (lo[:, s], hi[:, s]):
+                    sel = ok[:, s]
+                    touched[np.arange(n)[sel], t[sel] // tile, s // 2] = True
+            any_ = touched.any(2)
+            first = touched.argmax(2)
+            last = 6 - touched[:, :, ::-1].argmax(2)
+            per_axis.append((distinct, np.where(any_, last - first + 1, 0).sum(1)))
+        (dy_, sy), (dx_, sx) = per_axis
+        fwd_cells += int((dy_ * dx_).sum())
+        staged += int((sy * sx).sum())
+    return int(torch.unique(torch.cat(rows)).numel()), fwd_cells, staged
 
 
 def bound_ms(nbytes):
@@ -438,109 +480,164 @@ def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def flagship_maps(dev, images, seed):
+    """``images`` images' seeded FPN maps at the flagship's shapes, f32,
+    channels-last."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(images, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
+                        generator=gen).contiguous(memory_format=torch.channels_last)
+            for s in STRIDES]
+
+
 def roi_fwd_inputs(dev):
     """B1's inputs at the serving shapes: one image's FPN maps and 1000 rois."""
     import torch
-    gen = torch.Generator(device=dev).manual_seed(0)
-    feats = [torch.randn(1, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
-                         generator=gen).contiguous(memory_format=torch.channels_last)
-             for s in STRIDES]
-    return feats, torch.from_numpy(flagship_rois(np.random.RandomState(0))).to(dev)
+    return (flagship_maps(dev, 1, 0),
+            torch.from_numpy(flagship_rois(np.random.RandomState(0))).to(dev))
 
 
 def roi_bwd_inputs(dev):
     """B2's inputs at the training shapes: 4 images' FPN maps, 2048 sampled
     + 40 random rois and the gradient of their features."""
     import torch
-    gen = torch.Generator(device=dev).manual_seed(1)
-    feats = [torch.randn(TRAIN_IMAGES, CHANNELS, IMG_H // s, IMG_W // s, device=dev,
-                         generator=gen).contiguous(memory_format=torch.channels_last)
-             for s in STRIDES]
+    feats = flagship_maps(dev, TRAIN_IMAGES, 1)
     rois = torch.from_numpy(training_rois(np.random.RandomState(1))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
     dy = torch.randn(rois.shape[0], CHANNELS, 7, 7, device=dev, generator=gen)
     return feats, rois, dy
 
 
+def roi_cases(dev):
+    """The RoIAlign cases of phase 3 and of tools/torch_compare_roi_align.py,
+    each f32 and bf16 (the maps cast): B1 at serving (1 image, R=1000) and
+    at the step's two calls (4 images, R=2048 sampled and R=40 random); B2
+    at R=2088 (both calls' rois at once, the report's case), at the step's
+    two calls, and at R=2048 with clustered positives. The first of each is
+    its report row. -> (B1 cases, B2 cases), each a list of (label, feats,
+    rois[, dy])."""
+    import torch
+    serving, srois = roi_fwd_inputs(dev)
+    train, trois, dy = roi_bwd_inputs(dev)
+    n = TRAIN_IMAGES * TRAIN_ROIS
+    rng = np.random.RandomState(4)
+    crois = torch.from_numpy(np.concatenate([clustered_rois(rng, b)
+                                             for b in range(TRAIN_IMAGES)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cdy = torch.randn(crois.shape[0], CHANNELS, 7, 7, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name, cast in (("f32", lambda fs: fs), ("bf16", lambda fs: [f.bfloat16() for f in fs])):
+        sv, tr = cast(serving), cast(train)
+        fwd += [(f"{name}, serving, 1 image, R={srois.shape[0]}", sv, srois),
+                (f"{name}, training, 4 images, R={n} sampled", tr, trois[:n]),
+                (f"{name}, training, 4 images, R={trois.shape[0] - n} random", tr, trois[n:])]
+        bwd += [(f"{name}, 4 images, R={trois.shape[0]} (both calls' rois)", tr, trois, dy),
+                (f"{name}, 4 images, R={n} sampled", tr, trois[:n], dy[:n].contiguous()),
+                (f"{name}, 4 images, R={trois.shape[0] - n} random", tr, trois[n:],
+                 dy[n:].contiguous()),
+                (f"{name}, 4 images, R={crois.shape[0]} clustered", tr, crois, cdy)]
+    return fwd, bwd
+
+
+def roi_fwd_bytes(feats, rois):
+    """B1's bound and design bytes: the f32 output written once plus each
+    distinct tap cell's channels read once; the design reads each roi's
+    distinct tap rows x columns once."""
+    cells, per_roi, _ = roi_tap_counts([f.shape for f in feats], rois)
+    out = rois.shape[0] * CHANNELS * 49 * 4
+    e = feats[0].element_size()
+    return out + cells * CHANNELS * e, out + per_roi * CHANNELS * e, cells
+
+
+def roi_bwd_bytes(feats, rois):
+    """B2's bound and design bytes: dy read once plus the gradient maps
+    written once in the maps' dtype; the design writes the maps once and
+    reads the dy bins that its tiles stage (each at least once)."""
+    _, _, staged = roi_tap_counts([f.shape for f in feats], rois)
+    table = sum(math.prod(f.shape) for f in feats) * feats[0].element_size()
+    return (rois.shape[0] * CHANNELS * 49 * 4 + table, table + staged * CHANNELS * 4,
+            table)
+
+
 def phase_kernels():
-    """B1 and B2 vs their plain versions; returns the kernels' report rows.
-    The plain versions' times come from ``phase_profiled``."""
+    """B1 and B2 vs their plain versions at every case of ``roi_cases``,
+    B2's bits equal in two calls, each case timed beside its bound; returns
+    the kernels' report rows. The plain versions' times come from
+    ``phase_profiled``."""
     import torch
     from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
                                               roi_align_multilevel_ref,
                                               roi_align_multilevel_ref_backward)
     dev = torch.device("cuda", 0)
-    feats, rois = roi_fwd_inputs(dev)
-    shapes = [f.shape for f in feats]
-    taps = distinct_taps(shapes, rois)
+    fwd_cases, bwd_cases = roi_cases(dev)
     rows = []
-    for name, fs, tol in (("f32", feats, TOL_F32),
-                          ("bf16", [f.bfloat16() for f in feats], TOL_BF16)):
+    main, others = None, []
+    for label, fs, rois in fwd_cases:
+        tol = TOL_F32 if label.startswith("f32") else TOL_BF16
         got = ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56)
         want = roi_align_multilevel_ref(fs, rois, 7, STRIDES, 2, 56)
         torch.cuda.synchronize()
         fmax = max(float(f.float().abs().max()) for f in fs)
         err = float((got - want).abs().max())
-        log("kernels", f"roi_align_fwd {name}: shape {tuple(got.shape)} "
+        log("kernels", f"roi_align_fwd {label}: shape {tuple(got.shape)} "
                        f"max_abs_err {err:.3e} (limit {tol * fmax:.3e})")
         if not (torch.isfinite(got).all() and err <= tol * fmax):
-            raise AssertionError(f"roi_align_fwd {name} disagrees with the "
+            raise AssertionError(f"roi_align_fwd {label} disagrees with the "
                                  f"plain version: {err} > {tol * fmax}")
         t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56), None, n=30)
-        # output written once, each distinct tap cell's channels read once
-        nbytes = got.numel() * 4 + taps * CHANNELS * fs[0].element_size()
-        log("kernels", f"roi_align_fwd {name} (R={NUM_ROIS}): {timing_text(t)}; bound "
-                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, "
-                       f"{taps} distinct tap cells)")
-        if name == "f32":
-            rows.append(row("roi_align_fwd", "roi_align_fwd.cu",
-                            "oadg_tpu/ops/pallas_roi_bwd.py:248", err, t, nbytes))
+        nbytes, design, cells = roi_fwd_bytes(fs, rois)
+        log("kernels", f"roi_align_fwd {label}: {timing_text(t)}; bound "
+                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, {cells} distinct "
+                       f"tap cells; {bound_ms(nbytes) / t['device_ms']:.0%} of the bound); "
+                       f"the design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms)")
+        if main is None:
+            main = (err, t, nbytes)
+        else:
+            others.append(case_row(label, err, t, nbytes))
+    rows.append(row("roi_align_fwd", "roi_align_fwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:248",
+                    *main, cases=others))
 
-    # B2 at the training shapes: 4 images, 2048 sampled + 40 random rois
-    feats, rois, dy = roi_bwd_inputs(dev)
-    r = rois.shape[0]
-    shapes = [f.shape for f in feats]
-    taps = distinct_taps(shapes, rois)
-    table = sum(math.prod(sh) for sh in shapes)
-    want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, STRIDES, 2, 56)
-    scale = max(float(w.abs().max()) for w in want)
-    for name, fs in (("f32", feats), ("bf16", [f.bfloat16() for f in feats])):
+    main, others = None, []
+    for label, fs, rois, dy in bwd_cases:
+        shapes = [f.shape for f in fs]
+        want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, STRIDES, 2, 56)
+        scale = max(float(w.abs().max()) for w in want)
         got = ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56)
+        again = ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-        if name == "f32":
+        if label.startswith("f32"):
             limit = TOL_F32 * scale
             ok = err <= limit
         else:
             limit = TOL_BF16 * scale
             ok = all(bool(((g.float() - w).abs() <= 2 ** -8 * w.abs() + limit).all())
                      for g, w in zip(got, want))
-        ok = ok and all(g.dtype == fs[0].dtype and g.shape == f.shape
-                        and bool(torch.isfinite(g).all()) for g, f in zip(got, fs))
-        log("kernels", f"roi_align_bwd {name}: {len(got)} levels, R={r}, "
-                       f"max_abs_err {err:.3e} (limit {limit:.3e}"
-                       f"{' + 2^-8 |value|' if name == 'bf16' else ''}; largest "
-                       f"gradient {scale:.3e})")
+        ok = ok and same and all(g.dtype == fs[0].dtype and g.shape == f.shape
+                                 and bool(torch.isfinite(g).all()) for g, f in zip(got, fs))
+        log("kernels", f"roi_align_bwd {label}: {len(got)} levels, max_abs_err {err:.3e} "
+                       f"(limit {limit:.3e}{' + 2^-8 |value|' if 'bf16' in label else ''}; "
+                       f"largest gradient {scale:.3e}); two calls give equal bits: {same}")
         if not ok:
-            raise AssertionError(f"roi_align_bwd {name} disagrees with the plain "
-                                 f"version: {err} > {limit}")
+            raise AssertionError(f"roi_align_bwd {label} disagrees with the plain "
+                                 f"version ({err} > {limit}) or with itself ({same})")
+        del got, again, want
         t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), None, n=20)
-        # The function's least traffic: dy read once, each level gradient
-        # written once in the maps' dtype. The atomic design moves more: it
-        # zeroes an f32 table, reads and writes each distinct tap cell, and
-        # for bf16 reads the f32 table again to cast it.
-        nbytes = dy.numel() * 4 + table * fs[0].element_size()
-        design = (dy.numel() * 4 + table * 4 + 2 * taps * CHANNELS * 4
-                  + (table * (4 + 2) if name == "bf16" else 0))
-        log("kernels", f"roi_align_bwd {name} (zeroed table included): {timing_text(t)}; "
-                       f"bound {bound_ms(nbytes):.4f} ms "
-                       f"({nbytes / 1e6:.1f} MB: dy {dy.numel() * 4 / 1e6:.1f}, "
-                       f"gradient maps {table * fs[0].element_size() / 1e6:.1f}); "
-                       f"the atomic design moves {design / 1e6:.1f} MB "
-                       f"({bound_ms(design):.4f} ms; {taps} distinct tap cells)")
-        if name == "f32":
-            rows.append(row("roi_align_bwd", "roi_align_bwd.cu",
-                            "oadg_tpu/ops/pallas_roi_bwd.py:316", err, t, nbytes))
-    del feats, want, got
+        nbytes, design, table = roi_bwd_bytes(fs, rois)
+        log("kernels", f"roi_align_bwd {label}: {timing_text(t)}; bound "
+                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB: dy "
+                       f"{dy.numel() * 4 / 1e6:.1f}, gradient maps {table / 1e6:.1f}; "
+                       f"{bound_ms(nbytes) / t['device_ms']:.0%} of the bound); the tiled "
+                       f"design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms: the "
+                       f"maps once and {(design - table) / 1e6:.1f} MB of staged dy bins)")
+        if main is None:
+            main = (err, t, nbytes)
+        else:
+            others.append(case_row(label, err, t, nbytes))
+    rows.append(row("roi_align_bwd", "roi_align_bwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:316",
+                    *main, cases=others))
+    del fwd_cases, bwd_cases
     torch.cuda.empty_cache()
     return rows
 

@@ -46,6 +46,8 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
     dict holding one under ``"state_dict"``, loaded strictly) or, without
     one, from a ``torch.Generator`` seeded with ``seed``. On CUDA the model
     runs in ``torch.channels_last``. A CUDA device without a card raises.
+    A serving model (``num_views == 1``) is left in ``eval()`` mode, one
+    built for training in ``train()`` mode.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -62,7 +64,7 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
         model.load_state_dict(sd, strict=True)
     else:
         model.init_weights(torch.Generator().manual_seed(seed))
-    model.eval()
+    model.train(num_views > 1)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return DetectorHandle(model, config, device)

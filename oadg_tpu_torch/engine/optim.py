@@ -9,27 +9,62 @@ decay, as in mmdet. The JAX package masks their gradients to zero *before*
 ``add_decayed_weights`` (``:145-158``), so its frozen parameters still decay;
 the port does not copy that.
 
+``grad_clip=dict(max_norm=...)`` (mmdet's ``optimizer_config.grad_clip``,
+which the reference runner hands to its ``build_optimizer``,
+``oadg_tpu/engine/runner.py:117-120``) clips the trainable gradients by their
+global norm before the step, as ``optax.clip_by_global_norm`` does in the
+reference chain (mask, clip, decay, momentum; ``:145-158``): each gradient
+becomes ``g / norm * max_norm`` where ``norm >= max_norm``, with no epsilon.
+Weight decay is then added inside SGD. ``grad_clip=None`` gives plain
+``torch.optim.SGD``.
+
 ``build_lr_schedule`` is the ``step`` policy with ``linear`` warmup
 (``:67-134``), iteration-indexed; other policies wait for later slices.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
-def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict) -> torch.optim.SGD:
+class ClippedSGD(torch.optim.SGD):
+    """SGD whose ``step`` first clips every gradient of its parameters by
+    their global L2 norm: ``g / norm * max_norm`` where ``norm >= max_norm``
+    (``optax.clip_by_global_norm``). No host sync: the choice is a
+    ``torch.where`` on the device."""
+
+    def __init__(self, params, max_norm: float, **kwargs):
+        super().__init__(params, **kwargs)
+        self.max_norm = float(max_norm)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        grads = [p.grad for group in self.param_groups for p in group["params"]
+                 if p.grad is not None]
+        if grads:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = norm < self.max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        return super().step(closure)
+
+
+def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict,
+                    grad_clip: Optional[dict] = None) -> torch.optim.SGD:
     """``dict(type='SGD', lr, momentum, weight_decay[, nesterov])`` -> SGD
-    over ``model``'s parameters that require grad."""
+    over ``model``'s parameters that require grad; with ``grad_clip``
+    (``dict(max_norm=35)`` by default of its key) a :class:`ClippedSGD`."""
     cfg = dict(optimizer_cfg)
     if cfg.get("type", "SGD") != "SGD":
         raise NotImplementedError(f"optimizer {cfg['type']} (the port has SGD)")
-    return torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
-                           lr=float(cfg["lr"]),
-                           momentum=float(cfg.get("momentum", 0.0)),
-                           weight_decay=float(cfg.get("weight_decay", 0.0)),
-                           nesterov=bool(cfg.get("nesterov", False)))
+    kwargs = dict(lr=float(cfg["lr"]), momentum=float(cfg.get("momentum", 0.0)),
+                  weight_decay=float(cfg.get("weight_decay", 0.0)),
+                  nesterov=bool(cfg.get("nesterov", False)))
+    params = [p for p in model.parameters() if p.requires_grad]
+    if grad_clip:
+        return ClippedSGD(params, float(dict(grad_clip).get("max_norm", 35)), **kwargs)
+    return torch.optim.SGD(params, **kwargs)
 
 
 def build_lr_schedule(lr_config: dict, base_lr: float,

@@ -11,7 +11,11 @@ takes: ``img`` (N, 3, H, W) float32 (BGR -> RGB, ``(x - mean) / std``; the
 channels-last permutation of the NHWC result), gts, ``img_shape`` and
 ``scale_factor`` tiled over the views, and the OA-Mix boxes. ``draws`` hands
 OA-Mix a draw table instead of drawing one from ``generator``;
-``preprocess.draws`` keeps the table of the last call.
+``preprocess.draws`` keeps the table of the last call. ``img_raw`` may also
+be float32 (OA-Mix clamps it to uint8). Where the batch also holds ``img``,
+a host-normalized (B, H, W, 3) clean view, that is the clean view (cast to
+``out_dtype``) and ``img_raw`` feeds OA-Mix alone, as in the reference
+(``oadg_tpu/engine/preprocess.py:62-73``).
 """
 from __future__ import annotations
 
@@ -60,7 +64,11 @@ def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any]
                           chain=chain)
         preprocess.draws = out["draws"]
         aug = normalize(out["aug"].float())                   # (B, V-1, H, W, 3)
-        clean = normalize(raw.float())
+        if "img" in batch:                            # host-normalized clean view
+            clean = batch["img"]
+            clean = clean if out_dtype is None else clean.to(out_dtype)
+        else:
+            clean = normalize(raw.float())
         b = raw.shape[0]
         tile = lambda x: torch.cat([x] * num_views, 0)
         imgs = torch.cat([clean] + [aug[:, v] for v in range(aug.shape[1])], 0)

@@ -34,7 +34,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     preprocess: Optional[Callable] = None) -> Callable:
     """-> ``step(batch, generator) -> log_vars``, detached tensors.
 
-    Every random number of the step is drawn from ``generator``: OA-Mix's
+    The step puts ``model`` in train mode. Every random number of the step
+    is drawn from ``generator``: OA-Mix's
     (``preprocess(batch, generator)``, when given) and the samplers'. The step at
     iteration ``t`` (``step.t``, counting from 0) runs with
     ``lr_schedule(t)``; ``step.optimizer`` is ``optimizer``.
@@ -42,6 +43,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     def step(batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        model.train()
         lr = lr_schedule(step.t)
         for group in optimizer.param_groups:
             group["lr"] = lr

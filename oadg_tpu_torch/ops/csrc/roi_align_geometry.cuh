@@ -25,7 +25,6 @@ constexpr int kSr = 2;                  // samples per bin side
 constexpr int kS = kOut * kSr;          // samples per axis
 constexpr int kBins = kOut * kOut;
 constexpr int kMaxLevels = 4;
-constexpr int kChanTile = 128;          // threads per block = channels per block
 
 // The 14 x-samples ([0]) and 14 y-samples ([1]) of one roi: low and high
 // tap, the weight of the high tap, and whether the sample is in range.
@@ -54,16 +53,18 @@ __device__ __forceinline__ int roi_batch(const float* roi, int batch) {
   return min(max(b, 0), batch - 1);
 }
 
-// Threads 0..27 of the block fill `s` for the roi; the caller synchronizes.
-__device__ __forceinline__ void roi_samples(const float* roi, float scale,
-                                            int H, int W, int tid,
-                                            Samples* s) {
-  if (tid >= 2 * kS) return;
-  const int axis = tid / kS;            // 0: x, 1: y
-  const int i = tid % kS;
-  const float lo = axis ? roi[2] : roi[1];
-  const float hi = axis ? roi[4] : roi[3];
-  const int size = axis ? H : W;
+// Sample i (0..13) of one axis of a roi whose box spans [lo, hi] image
+// pixels on that axis, at a level of `size` cells and `scale` = 1/stride:
+// whether it is in range, its low and high tap and the high tap's weight.
+struct Tap {
+  int lo;
+  int hi;
+  float frac;
+  bool ok;
+};
+
+__device__ __forceinline__ Tap sample_tap(float lo, float hi, float scale,
+                                          int size, int i) {
   const float a = __fsub_rn(__fmul_rn(lo, scale), 0.5f);
   const float e = __fsub_rn(__fmul_rn(hi, scale), 0.5f);
   const float pos = static_cast<float>(i / kSr) +
@@ -72,10 +73,43 @@ __device__ __forceinline__ void roi_samples(const float* roi, float scale,
   const float p = __fmaf_rn(pos, bin, a);
   const float pc = fminf(fmaxf(p, 0.f), static_cast<float>(size - 1));
   const int i0 = static_cast<int>(floorf(pc));
-  s->ok[axis][i] = (p > -1.f) && (p < static_cast<float>(size));
-  s->lo[axis][i] = i0;
-  s->hi[axis][i] = min(i0 + 1, size - 1);
-  s->frac[axis][i] = pc - static_cast<float>(i0);
+  Tap t;
+  t.ok = (p > -1.f) && (p < static_cast<float>(size));
+  t.lo = i0;
+  t.hi = min(i0 + 1, size - 1);
+  t.frac = pc - static_cast<float>(i0);
+  return t;
+}
+
+// Threads 0..27 of the block fill `s` for the roi; the caller synchronizes.
+__device__ __forceinline__ void roi_samples(const float* roi, float scale,
+                                            int H, int W, int tid,
+                                            Samples* s) {
+  if (tid >= 2 * kS) return;
+  const int axis = tid / kS;            // 0: x, 1: y
+  const int i = tid % kS;
+  const Tap t = axis ? sample_tap(roi[2], roi[4], scale, H, i)
+                     : sample_tap(roi[1], roi[3], scale, W, i);
+  s->ok[axis][i] = t.ok;
+  s->lo[axis][i] = t.lo;
+  s->hi[axis][i] = t.hi;
+  s->frac[axis][i] = t.frac;
+}
+
+// The cells that the in-range taps of one axis read: [first, last], or
+// first > last when no sample of the axis is in range. The plain twin is
+// `_tap_extent` in oadg_tpu_torch/ops/roi_align.py.
+__device__ __forceinline__ void tap_extent(float lo, float hi, float scale,
+                                           int size, int* first, int* last) {
+  int f = size, l = -1;
+  for (int i = 0; i < kS; ++i) {
+    const Tap t = sample_tap(lo, hi, scale, size, i);
+    if (!t.ok) continue;
+    f = min(f, t.lo);
+    l = max(l, t.hi);
+  }
+  *first = f;
+  *last = l;
 }
 
 }  // namespace oadg_roi

@@ -23,9 +23,11 @@ read and write every tap directly.
 
 Layout: level maps are NCHW tensors (channels-last memory on the card); the
 output is ``(R, C, out, out)`` float32, the mmdet layout that the box head's
-first FC flattens. Level gradients are accumulated in float32 and cast to
-the maps' dtype at the end (the JAX package accumulates bf16 maps in a bf16
-table, ``:691-701``; the port is held to its f32 path).
+first FC flattens. Level gradients are accumulated in float32 and rounded
+once to the maps' dtype (the JAX package accumulates bf16 maps in a bf16
+table, ``:691-701``; the port is held to its f32 path). The backward kernel
+bins rois into 8x8-cell tiles by the extent of their taps, whose plain twin
+is ``_tap_extent``.
 """
 from __future__ import annotations
 
@@ -118,43 +120,62 @@ class _Geometry(NamedTuple):
         return self.base + (self.row_b + yi[:, :, None]) * self.fw + xi[:, None, :]
 
 
+def _sample_positions(out: int, sr: int, dev) -> torch.Tensor:
+    """(1, S) float64: sample s of bin o sits at lo + pos * bin,
+    pos = o + (s + 0.5) / sr."""
+    pos = (np.arange(out, dtype=np.float32)[:, None]
+           + (np.arange(sr, dtype=np.float32) + np.float32(0.5)) / np.float32(sr))
+    return torch.from_numpy(pos.reshape(1, -1)).to(dev).double()
+
+
+def _axis_taps(lo, hi, size, pos, inv_out):
+    """One axis of the samples of rois whose box spans [lo, hi] (Rc,) in
+    level cells (already ``x * scale - 0.5``) at a level of ``size`` (Rc,)
+    cells: in range (Rc, S), low and high tap, the high tap's weight."""
+    p = _fma(((hi - lo) * inv_out)[:, None], pos, lo[:, None].double())   # (Rc, S)
+    sz = size[:, None].float()
+    ok = (p > -1.0) & (p < sz)
+    pc = torch.minimum(p.clamp(min=0.0), sz - 1)
+    i0 = torch.floor(pc).long()
+    return ok, i0, torch.minimum(i0 + 1, size[:, None] - 1), pc - i0
+
+
 def _geometry(pyr: _Pyramid, rc: torch.Tensor, out: int, sr: int,
               finest_scale: int) -> _Geometry:
     """Tap geometry of the rois ``rc`` (Rc, 5), rounded as XLA evaluates the
     JAX package's formula (``_roi_align_multilevel_impl``,
     ``_ml_tap_geometry``)."""
-    dev = rc.device
     lvl = map_roi_levels(rc, len(pyr.shapes), finest_scale)
     sc = pyr.scales[lvl]
     fh, fw = pyr.hs[lvl], pyr.ws[lvl]
     bidx = rc[:, 0].long().clamp(0, pyr.b - 1)
-    x1 = rc[:, 1] * sc - 0.5
-    y1 = rc[:, 2] * sc - 0.5
-    x2 = rc[:, 3] * sc - 0.5
-    y2 = rc[:, 4] * sc - 0.5
-    inv_out = _recip(out)
-    bin_w = (x2 - x1) * inv_out
-    bin_h = (y2 - y1) * inv_out
-    # sample s of bin o sits at x1 + pos * bin_w, pos = o + (s + 0.5) / sr
-    pos = (np.arange(out, dtype=np.float32)[:, None]
-           + (np.arange(sr, dtype=np.float32) + np.float32(0.5)) / np.float32(sr))
-    pos = torch.from_numpy(pos.reshape(1, -1)).to(dev).double()   # (1, S)
-    xs = _fma(bin_w[:, None], pos, x1[:, None].double())         # (Rc, S)
-    ys = _fma(bin_h[:, None], pos, y1[:, None].double())
-    fwf, fhf = fw[:, None].float(), fh[:, None].float()
-    okx = (xs > -1.0) & (xs < fwf)
-    oky = (ys > -1.0) & (ys < fhf)
-    px = torch.minimum(xs.clamp(min=0.0), fwf - 1)
-    py = torch.minimum(ys.clamp(min=0.0), fhf - 1)
-    x0i = torch.floor(px).long()
-    y0i = torch.floor(py).long()
+    pos, inv_out = _sample_positions(out, sr, rc.device), _recip(out)
+    okx, x0, x1, wx = _axis_taps(rc[:, 1] * sc - 0.5, rc[:, 3] * sc - 0.5, fw, pos, inv_out)
+    oky, y0, y1, wy = _axis_taps(rc[:, 2] * sc - 0.5, rc[:, 4] * sc - 0.5, fh, pos, inv_out)
     return _Geometry(
         base=pyr.level_off[lvl][:, None, None],
         row_b=(bidx * fh)[:, None, None], fw=fw[:, None, None],
-        y0=y0i, y1=torch.minimum(y0i + 1, fh[:, None] - 1),
-        x0=x0i, x1=torch.minimum(x0i + 1, fw[:, None] - 1),
-        wx=(px - x0i)[:, None, :], wy=(py - y0i)[:, :, None],
+        y0=y0, y1=y1, x0=x0, x1=x1,
+        wx=wx[:, None, :], wy=wy[:, :, None],
         ok=oky[:, :, None] & okx[:, None, :])
+
+
+def _tap_extent(pyr: _Pyramid, rc: torch.Tensor, out: int, sr: int,
+                finest_scale: int) -> torch.Tensor:
+    """Plain twin of ``tap_extent`` in ``csrc/roi_align_geometry.cuh``, the
+    extent by which the backward kernel bins rois into tiles: per roi of
+    ``rc`` (Rc, 5), the first and last row and column read by the taps of
+    its in-range samples at its level, (Rc, 4) int64 ``[y_first, y_last,
+    x_first, x_last]``; first > last on an axis with no sample in range."""
+    lvl = map_roi_levels(rc, len(pyr.shapes), finest_scale)
+    sc = pyr.scales[lvl]
+    pos, inv_out = _sample_positions(out, sr, rc.device), _recip(out)
+    cols = []
+    for lo, hi, size in ((rc[:, 2], rc[:, 4], pyr.hs[lvl]), (rc[:, 1], rc[:, 3], pyr.ws[lvl])):
+        ok, i0, i1, _ = _axis_taps(lo * sc - 0.5, hi * sc - 0.5, size, pos, inv_out)
+        cols.append(torch.where(ok, i0, size[:, None]).amin(1))
+        cols.append(torch.where(ok, i1, -1).amax(1))
+    return torch.stack(cols, 1)
 
 
 def roi_align_multilevel_ref(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -290,8 +311,8 @@ def _level_args(shapes, featmap_strides):
 
 class RoIAlignForward:
     """Wrapper of ``csrc/roi_align_fwd.cu`` (kernel B1): checks its inputs,
-    allocates the output, launches on the current stream and counts
-    launches.
+    allocates the output and the kernel's per-roi geometry scratch, launches
+    on the current stream and counts launches.
 
     Takes channels-last float32 or bfloat16 level maps on one CUDA device, 7x7
     bins and ``sampling_ratio=2`` only; raises on anything else.
@@ -305,7 +326,9 @@ class RoIAlignForward:
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p, ctypes.c_void_p)),
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p)),
+            "oadg_roi_align_fwd_scratch_bytes": (ctypes.c_longlong, (ctypes.c_int,)),
         })
 
     def __call__(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -323,6 +346,8 @@ class RoIAlignForward:
             return out
         lib = self.library.load()
         n = len(feats)
+        nbytes = lib.oadg_roi_align_fwd_scratch_bytes(r)
+        scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
         ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
         heights, widths, scales = _level_args([f.shape for f in feats],
                                               featmap_strides)
@@ -331,7 +356,8 @@ class RoIAlignForward:
             err = lib.oadg_roi_align_fwd(
                 ptrs, heights, widths, scales, n, b, c,
                 _DTYPE_CODES[feats[0].dtype], rois.data_ptr(), r,
-                float(finest_scale), out.data_ptr(), stream)
+                float(finest_scale), out.data_ptr(), scratch.data_ptr(), nbytes,
+                stream)
         if err != 0:
             raise RuntimeError(f"roi_align_fwd launch failed with cudaError_t {err}")
         self.launches += 1
@@ -344,9 +370,10 @@ class RoIAlignBackward:
 
     Takes the forward's maps (for their shapes, dtype and device; they are
     not read), rois and bin layout, and a contiguous float32 (R, C, 7, 7)
-    ``grad_out``; allocates zeroed float32 channels-last gradient maps,
-    launches on the current stream, counts launches, and returns the maps in
-    the features' dtype (bfloat16 features get one cast at the end).
+    ``grad_out``; allocates the channels-last gradient maps in the features'
+    dtype (uninitialised: the kernel writes every cell, bfloat16 rounded once
+    from its float32 sum) and the kernel's int32 scratch, launches on the
+    current stream and counts launches. Reads nothing back to the host.
     """
 
     def __init__(self):
@@ -355,9 +382,13 @@ class RoIAlignBackward:
             "oadg_roi_align_bwd": (ctypes.c_int, (
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p, ctypes.c_void_p)),
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p)),
+            "oadg_roi_align_bwd_scratch_ints": (ctypes.c_longlong, (
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int, ctypes.c_int, ctypes.c_int)),
         })
 
     def __call__(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -375,24 +406,33 @@ class RoIAlignBackward:
             raise ValueError(f"grad_out must be a contiguous float32 ({r}, {c}, "
                              f"7, 7) tensor on the features' device, got "
                              f"{tuple(grad_out.shape)} {grad_out.dtype}")
-        grads = [torch.zeros((b, f.shape[2], f.shape[3], c), device=dev)
-                 .permute(0, 3, 1, 2) for f in feats]
-        if r > 0:
-            lib = self.library.load()
-            n = len(feats)
-            ptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads])
-            heights, widths, scales = _level_args([f.shape for f in feats],
-                                                  featmap_strides)
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.oadg_roi_align_bwd(
-                    ptrs, heights, widths, scales, n, b, c, rois.data_ptr(), r,
-                    float(finest_scale), grad_out.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"roi_align_bwd launch failed with "
-                                   f"cudaError_t {err}")
-            self.launches += 1
-        return [g.to(f.dtype) for g, f in zip(grads, feats)]
+        if r == 0:
+            return [torch.zeros((b, f.shape[2], f.shape[3], c), device=dev,
+                                dtype=f.dtype).permute(0, 3, 1, 2) for f in feats]
+        lib = self.library.load()
+        n = len(feats)
+        heights, widths, scales = _level_args([f.shape for f in feats],
+                                              featmap_strides)
+        ints = lib.oadg_roi_align_bwd_scratch_ints(heights, widths, n, b, r)
+        if ints < 0:
+            raise ValueError(f"roi_align_bwd refuses level maps of shapes "
+                             f"{[tuple(f.shape) for f in feats]}")
+        grads = [torch.empty((b, f.shape[2], f.shape[3], c), device=dev,
+                             dtype=f.dtype).permute(0, 3, 1, 2) for f in feats]
+        scratch = torch.empty(ints, device=dev, dtype=torch.int32)
+        ptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads])
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.oadg_roi_align_bwd(
+                ptrs, heights, widths, scales, n, b, c,
+                _DTYPE_CODES[feats[0].dtype], rois.data_ptr(), r,
+                float(finest_scale), grad_out.data_ptr(), scratch.data_ptr(),
+                ints, stream)
+        if err != 0:
+            raise RuntimeError(f"roi_align_bwd launch failed with "
+                               f"cudaError_t {err}")
+        self.launches += 1
+        return grads
 
 
 ROI_ALIGN_FWD = RoIAlignForward()

@@ -7,10 +7,12 @@ repository's conftest (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: the kernels and the plain versions compute bit-identical tap
-indices and weights and differ only in the order of the sums (the backward
-kernel sums with atomics, in an order that changes from run to run), so
-rtol=1e-5, atol=1e-6 for values of order 1; a bfloat16 gradient is the
-rounding of such an f32 sum, so it is held to one bfloat16 rounding step.
+indices and weights and differ only in the order of the sums (the kernels
+contract separably, the plain versions sum tap by tap), so rtol=1e-5,
+atol=1e-6 for values of order 1, or 1e-5 of the largest magnitude; a
+bfloat16 gradient is the rounding of such an f32 sum, so it is held to one
+bfloat16 rounding step. The backward kernel sums in a fixed order, so two
+calls give equal bits.
 The OA-Mix kernels: B3's maps equal (``best_id`` may differ only where two
 masks tie exactly), B4, B5 and B7 within 1e-4 of values up to 255 (the kernels
 fuse the lerp's multiply-add, the plain versions emulate it in float64 and
@@ -101,9 +103,9 @@ def test_roi_align_backward_kernel_matches_plain_version(dtype):
     assert ROI_ALIGN_BWD.launches == before + 1
     want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois,
                                              7, STRIDES, 2, 56)
-    # The kernel sums with f32 atomics in an order that changes from run to
-    # run, so a cell where large contributions cancel can be off by a few
-    # ulps of the largest gradient: the absolute limit scales with it.
+    # The kernel sums in another order than the plain version, so a cell
+    # where large contributions cancel can be off by a few ulps of the
+    # largest gradient: the absolute limit scales with it.
     scale = max(float(w.abs().max()) for w in want)
     for f, w in zip(feats, want):
         assert f.grad.dtype == dtype and f.grad.shape == f.shape
@@ -159,6 +161,150 @@ def test_one_training_step_on_the_card():
     assert ROI_ALIGN_FWD.launches == fwd + 2 and ROI_ALIGN_BWD.launches == bwd + 2
     assert all(torch.isfinite(v).all() for v in log.values())
     assert float(log["loss_cont"]) >= 0 and float(log["loss"]) > 0
+
+
+def _grid_rois(rng, images, img_h, img_w):
+    """Rois over ``images`` images of img_h x img_w: log-uniform boxes, a
+    clustered set (per image 64 boxes jittered around 8 boxes, IoU >= 0.5
+    for the most), and edge, out-of-range, zero, tiny, extreme-aspect and
+    whole-map boxes on every image."""
+    parts = []
+    for b in range(images):
+        n = 60
+        bw = np.exp(rng.uniform(np.log(2), np.log(img_w * 0.7), n))
+        bh = np.exp(rng.uniform(np.log(2), np.log(img_h * 0.7), n))
+        cx, cy = rng.uniform(-20, img_w + 20, n), rng.uniform(-20, img_h + 20, n)
+        parts.append(np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1))
+        gw = rng.uniform(24, img_w / 3, 8)
+        gh = rng.uniform(24, img_h / 3, 8)
+        gx, gy = rng.uniform(0, img_w - gw), rng.uniform(0, img_h - gh)
+        k = np.repeat(np.arange(8), 8)
+        jit = rng.uniform(-0.08, 0.08, (64, 4)) * np.stack([gw[k], gh[k], gw[k], gh[k]], 1)
+        parts.append(np.stack([gx[k], gy[k], gx[k] + gw[k], gy[k] + gh[k]], 1) + jit)
+        parts.append(np.array([
+            [0, 0, 40, 30], [img_w - 50, img_h - 40, img_w, img_h],       # edges
+            [-80, -60, 30, 20], [img_w - 10, -40, img_w + 90, 40],        # partly outside
+            [-300, -300, -200, -250], [img_w + 10, 5, img_w + 90, 60],    # wholly outside
+            [30, 40, 30, 40], [50.2, 60.1, 50.4, 60.3],                   # zero, tiny
+            [3, 100, img_w - 3, 103], [200, 0, 204, img_h],               # extreme aspect
+            [0, 0, img_w, img_h], [-40, -30, img_w + 40, img_h + 30]],    # whole map
+            np.float64))
+        parts[-3:] = [np.concatenate([np.full((len(x), 1), b), x], 1) for x in parts[-3:]]
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _grid_inputs(dev, dtype, levels, c, seed=0, images=3, img_h=512, img_w=1024):
+    """Maps of the first ``levels`` FPN levels of ``images`` images of
+    img_h x img_w (a whole-image roi is level 3), C = ``c``, and the rois of
+    ``_grid_rois``, with their dy."""
+    rng = np.random.RandomState(seed)
+    strides = STRIDES[:levels]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = [torch.randn(images, c, img_h // s, img_w // s, device=dev, generator=gen)
+             .to(dtype).contiguous(memory_format=torch.channels_last) for s in strides]
+    rois = torch.from_numpy(_grid_rois(rng, images, img_h, img_w)).to(dev)
+    dy = torch.randn(rois.shape[0], c, 7, 7, device=dev, generator=gen)
+    return feats, rois, dy, strides
+
+
+ROI_GRID = [(levels, c, dtype) for levels in (1, 2, 3, 4) for c in (96, 200, 256)
+            for dtype in (torch.float32, torch.bfloat16)] + [
+    (4, 6, torch.float32), (4, 6, torch.bfloat16)]       # one channel a load
+
+
+def _grid_id(case):
+    levels, c, dtype = case
+    return f"L{levels}-C{c}-{str(dtype).split('.')[-1]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROI_GRID, ids=_grid_id)
+def test_roi_align_kernels_on_the_grid(case):
+    """B1 and B2 against their plain versions over levels, channel counts
+    and dtypes, on edge, out-of-range, zero, tiny, extreme-aspect, whole-map
+    and clustered rois of three images; B2 gives equal bits in two calls."""
+    levels, c, dtype = case
+    dev = _cuda()
+    feats, rois, dy, strides = _grid_inputs(dev, dtype, levels, c)
+    got = ROI_ALIGN_FWD(feats, rois, 7, strides, 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 7, strides, 2, 56)
+    fmax = max(float(f.float().abs().max()) for f in feats)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * fmax)
+    grads = ROI_ALIGN_BWD(feats, rois, dy, 7, strides, 2, 56)
+    again = ROI_ALIGN_BWD(feats, rois, dy, 7, strides, 2, 56)
+    want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois,
+                                             7, strides, 2, 56)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, a, w, f in zip(grads, again, want, feats):
+        assert g.dtype == dtype and g.shape == f.shape
+        assert g.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2 ** -8, atol=1e-4 * scale)
+    assert sum(bool(w.abs().max() > 0) for w in want) == levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_takes_long_lists(dtype):
+    """1300 rois of one level of the second image: a bucket of 1300 rois
+    and tiles that list hundreds of them (many groups a block); the first
+    image gets zeros."""
+    dev = _cuda()
+    rng = np.random.RandomState(5)
+    n, c = 1300, 40
+    bw, bh = rng.uniform(1, 200, n), rng.uniform(1, 120, n)
+    cx, cy = rng.uniform(-10, 300, n), rng.uniform(-10, 170, n)
+    rois = torch.from_numpy(np.stack([np.ones(n), cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                                      cy + bh / 2], 1).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats = [torch.randn(2, c, 40, 72, device=dev, generator=gen).to(dtype)
+             .contiguous(memory_format=torch.channels_last)]
+    dy = torch.randn(n, c, 7, 7, device=dev, generator=gen)
+    got = ROI_ALIGN_BWD(feats, rois, dy, 7, (4,), 2, 56)
+    again = ROI_ALIGN_BWD(feats, rois, dy, 7, (4,), 2, 56)
+    want = roi_align_multilevel_ref_backward(dy, [feats[0].shape], rois, 7, (4,), 2, 56)
+    scale = float(want[0].abs().max())
+    assert torch.equal(got[0], again[0]) and not got[0][0].any()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5 * scale)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0], rtol=2 ** -8, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_roi_align_kernels_take_no_rois():
+    dev = _cuda()
+    feats, rois, dy, strides = _grid_inputs(dev, torch.float32, 4, 96)
+    fwd, bwd = ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches
+    out = ROI_ALIGN_FWD(feats, rois[:0], 7, strides, 2, 56)
+    grads = ROI_ALIGN_BWD(feats, rois[:0], dy[:0], 7, strides, 2, 56)
+    assert out.shape == (0, 96, 7, 7)
+    assert all(g.shape == f.shape and not g.any() for g, f in zip(grads, feats))
+    assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == (fwd, bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_wrappers_do_not_sync(dtype):
+    """Both wrappers only enqueue: no call waits for the device."""
+    dev = _cuda()
+    feats, rois, dy, strides = _grid_inputs(dev, dtype, 4, 256, seed=1)
+    ROI_ALIGN_FWD(feats, rois, 7, strides, 2, 56)                 # builds, loads
+    ROI_ALIGN_BWD(feats, rois, dy, 7, strides, 2, 56)
+    torch.cuda.synchronize()
+    fwd, bwd = ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ROI_ALIGN_FWD(feats, rois, 7, strides, 2, 56)
+        grads = ROI_ALIGN_BWD(feats, rois, dy, 7, strides, 2, 56)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == (fwd + 1, bwd + 1)
+    assert torch.isfinite(out).all() and all(torch.isfinite(g).all() for g in grads)
 
 
 def _oamix_inputs(dev, h=256, w=512, seed=0):

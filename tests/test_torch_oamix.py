@@ -335,6 +335,15 @@ def preprocessed():
     want = _jax_preprocess(images, gts, labels, tables, oamix_cfg, cfg["img_norm_cfg"])
     pre = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"])
     got = pre(_torch_raw_batch(images, gts, labels), torch.Generator(), draws=_stack(tables))
+    # the reference's other two inputs on the same table: a float32 img_raw,
+    # and a host-normalized clean view under "img" (here the JAX package's
+    # own clean view, with which JAX's "img" branch returns ``want``)
+    f32 = _torch_raw_batch(images, gts, labels)
+    f32["img_raw"] = f32["img_raw"].float()
+    got_f32 = pre(f32, torch.Generator(), draws=_stack(tables))
+    with_img = dict(_torch_raw_batch(images, gts, labels),
+                    img=torch.from_numpy(want["img"][:2].copy()))
+    got_img = pre(with_img, torch.Generator(), draws=_stack(tables))
     # the port's preprocess on the JAX package's augmented views: its own
     # arithmetic (normalization, views-major layout, tiling) alone
     aug = torch.from_numpy(_jax_oamix(tables, images, gts, oamix_cfg)["aug"].astype(np.uint8))
@@ -346,11 +355,11 @@ def preprocessed():
                            draws=_stack(tables))
     finally:
         mp.undo()
-    return want, got, on_jax_views
+    return want, got, on_jax_views, got_f32, got_img
 
 
 def test_preprocess_matches_jax_on_the_same_views(preprocessed):
-    want, _, got = preprocessed
+    want, _, got, _, _ = preprocessed
     assert set(got) == set(want)
     img = got["img"]
     assert img.shape == (4, 3, H, W) and img.dtype == torch.float32
@@ -364,7 +373,7 @@ def test_preprocess_matches_jax(preprocessed):
     """The whole preprocess, the port's own OA-Mix included: clean views
     within 1e-5, augmented views to the composed tolerance, tiled keys
     equal."""
-    want, got, _ = preprocessed
+    want, got, _, _, _ = preprocessed
     img = got["img"].permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(img[:2], want["img"][:2], rtol=0, atol=1e-5)
     std = np.asarray([58.395, 57.12, 57.375], np.float32)
@@ -376,6 +385,40 @@ def test_preprocess_matches_jax(preprocessed):
     for k in want:
         if k != "img":
             np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["float32 img_raw", "img in batch"])
+def test_preprocess_other_inputs_match_jax(preprocessed, kind):
+    """A float32 ``img_raw`` gives the uint8 batch's result bit for bit; a
+    host-normalized ``img`` is taken as the clean view as it is, and OA-Mix
+    still runs on ``img_raw``. Both agree with JAX's preprocess as the
+    uint8 batch does."""
+    want, got, _, got_f32, got_img = preprocessed
+    other = got_f32 if kind == "float32 img_raw" else got_img
+    assert set(other) == set(want)
+    for k in want:
+        torch.testing.assert_close(other[k], got[k], rtol=0, atol=0, msg=k)
+    if kind == "img in batch":
+        np.testing.assert_array_equal(other["img"][:2].permute(0, 2, 3, 1).numpy(),
+                                      want["img"][:2])
+
+
+def test_preprocess_takes_img_as_the_clean_view():
+    """The clean view under ``"img"`` is taken as given (cast to
+    ``out_dtype``), not made from ``img_raw``."""
+    cfg = load_config(FLAGSHIP)
+    oamix_cfg = dict(cfg["oamix_config"], score_thresh=10)
+    oamix_cfg.pop("type")
+    images, gts, labels = _raw_batch(31)
+    tables = _stack([_table(31 + i, oamix_cfg["version"]) for i in range(2)])
+    host = torch.from_numpy(np.random.RandomState(3).randn(2, H, W, 3).astype(np.float32))
+    for dtype in (None, torch.bfloat16):
+        pre = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], out_dtype=dtype)
+        out = pre(dict(_torch_raw_batch(images, gts, labels), img=host), torch.Generator(),
+                  draws=tables)
+        assert out["img"].dtype == (dtype or torch.float32)
+        torch.testing.assert_close(out["img"][:2].permute(0, 2, 3, 1),
+                                   host.to(dtype or torch.float32), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------- training step ----

@@ -29,7 +29,8 @@ from oadg_tpu.ops.roi_align import (_roi_align_forward,
                                     _roi_align_multilevel_impl,
                                     map_roi_levels as jax_map_roi_levels)
 from oadg_tpu.ops.roi_align import roi_align_multilevel as jax_roi_align_multilevel
-from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
+from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD, _CHUNK,
+                                          _Pyramid, _geometry, _tap_extent,
                                           map_roi_levels, roi_align_multilevel,
                                           roi_align_multilevel_ref,
                                           roi_align_multilevel_ref_backward)
@@ -199,3 +200,56 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
     tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
     with pytest.raises(ValueError, match="CUDA"):
         ROI_ALIGN_BWD(tf, torch.from_numpy(rois), torch.from_numpy(dy), 7, strides, 2, 56)
+
+
+def _flagship_special_rois():
+    """``chip_smoke.flagship_rois``'s rois on 4 images of 1024x2048: its
+    edge, out-of-range, extreme-aspect, tiny and zero boxes among ordinary
+    ones, plus boxes over the whole image (level 3) and one wholly outside."""
+    import chip_smoke
+    rng = np.random.RandomState(7)
+    rois = np.concatenate([chip_smoke.flagship_rois(rng, 500, b) for b in range(4)])
+    whole = np.array([[3, 0, 0, 2048, 1024], [1, -100, -60, 2200, 1100],
+                      [2, -300, -300, -200, -250]], np.float32)
+    return np.concatenate([rois, whole]), 4, (4, 8, 16, 32), [(4, 4, 1024 // s, 2048 // s)
+                                                             for s in (4, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_SETS) + ["flagship"])
+def test_tap_extent_holds_every_in_range_tap(name):
+    """Every in-range tap of ``_geometry`` lies inside ``_tap_extent`` (the
+    plain twin of the rectangle by which the backward kernel bins rois into
+    tiles): a tap outside it would lose its gradient. The extent is tight:
+    its corners are taps."""
+    if name == "flagship":
+        rois, _, strides, shapes = _flagship_special_rois()
+    else:
+        feats, rois, strides = _inputs(name, 400, seed=8)
+        shapes = [(f.shape[0], f.shape[3], f.shape[1], f.shape[2]) for f in feats]
+    rois = torch.from_numpy(rois)
+    pyr = _Pyramid(shapes, strides, "cpu")
+    empty = 0
+    for i in range(0, rois.shape[0], _CHUNK):
+        rc = rois[i:i + _CHUNK]
+        g = _geometry(pyr, rc, 7, 2, 56)
+        ext = _tap_extent(pyr, rc, 7, 2, 56)
+        lvl = map_roi_levels(rc, len(shapes), 56)
+        ok = g.ok
+        for yi in (g.y0, g.y1):
+            inside = (yi >= ext[:, :1]) & (yi <= ext[:, 1:2])         # (Rc, S)
+            assert bool((inside[:, :, None] | ~ok).all())
+        for xi in (g.x0, g.x1):
+            inside = (xi >= ext[:, 2:3]) & (xi <= ext[:, 3:4])
+            assert bool((inside[:, None, :] | ~ok).all())
+        has = ok.any(2).any(1)
+        assert bool(((ext[:, 0] <= ext[:, 1]) & (ext[:, 2] <= ext[:, 3]) == has).all())
+        empty += int((~has).sum())
+        taps_y = torch.cat([g.y0, g.y1], 1).masked_fill(~torch.cat([ok.any(2)] * 2, 1), -1)
+        taps_x = torch.cat([g.x0, g.x1], 1).masked_fill(~torch.cat([ok.any(1)] * 2, 1), -1)
+        assert torch.equal(taps_y.amax(1)[has], ext[has, 1])
+        assert torch.equal(taps_x.amax(1)[has], ext[has, 3])
+        big = taps_y.masked_fill(taps_y < 0, 1 << 30).amin(1)
+        assert torch.equal(big[has], ext[has, 0])
+        h = pyr.hs[lvl]
+        assert bool((ext[has, 1] < h[has]).all() and (ext[has, 0] >= 0).all())
+    assert empty > 0

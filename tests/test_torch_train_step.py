@@ -158,7 +158,8 @@ def run():
     want_grads = jax_variables_to_state_dict(
         {"params": jax.tree_util.tree_map(np.asarray, jgrads)}, roi_channels=16)
     return dict(model=model, variables=variables, jlosses=jlosses, jgrads=jgrads,
-                want_grads=want_grads, losses=losses, det=det, batch=tbatch)
+                want_grads=want_grads, losses=losses, det=det, batch=tbatch,
+                given=draws.given)
 
 
 @pytest.mark.parametrize("key", ["loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
@@ -196,13 +197,13 @@ def test_frozen_stages_get_no_gradient(run):
         assert not np.any(want[name].numpy()), name       # JAX stop_gradient
 
 
-def _sgd_on_jax_grads(run):
+def _sgd_on_jax_grads(run, grad_clip=None):
     """One SGD step of the port on the JAX gradients, and the JAX
-    optimizer's step on the same, both at lr 0.01."""
+    optimizer's step on the same, both at lr 0.01, with ``grad_clip``."""
     cfg = load_config(FLAGSHIP)
     det = run["det"]
     params = {k: p.detach().clone() for k, p in det.named_parameters()}
-    opt = build_optimizer(det, cfg.optimizer)
+    opt = build_optimizer(det, cfg.optimizer, grad_clip=grad_clip)
     for name, p in det.named_parameters():
         p.grad = run["want_grads"][name].clone() if p.requires_grad else None
     opt.step()
@@ -212,7 +213,7 @@ def _sgd_on_jax_grads(run):
             p.copy_(params[name])
     jparams = run["variables"]["params"]
     tx = jax_build_optimizer(jparams, cfg.optimizer, lambda t: cfg.optimizer["lr"],
-                             model_cfg=run["model"])
+                             model_cfg=run["model"], grad_clip=grad_clip)
     updates, _ = tx.update(run["jgrads"], tx.init(jparams), jparams)
     jafter = jax_variables_to_state_dict(
         {"params": jax.tree_util.tree_map(np.asarray,
@@ -230,6 +231,44 @@ def test_sgd_update_matches_jax_optimizer(run):
                                        rtol=0, atol=1e-6, err_msg=name)
             n += not torch.equal(after[name], before[name])
     assert n == 79
+
+
+def _trainable_grad_norm(run):
+    return float(np.sqrt(sum(np.sum(run["want_grads"][k].numpy().astype(np.float64) ** 2)
+                             for k, p in run["det"].named_parameters() if p.requires_grad)))
+
+
+@pytest.mark.parametrize("ratio", [0.5, 2.0])
+def test_clipped_sgd_update_matches_jax_optimizer(run, ratio):
+    """``grad_clip=dict(max_norm=...)`` with the gradients' global norm
+    above (ratio 0.5: clipped) and below it (ratio 2: left as they are),
+    against the JAX chain with ``optax.clip_by_global_norm``, on the
+    trainable parameters (the JAX side decays the frozen ones)."""
+    norm = _trainable_grad_norm(run)
+    det, before, after, jafter = _sgd_on_jax_grads(run, dict(max_norm=ratio * norm))
+    _, _, plain, _ = _sgd_on_jax_grads(run)
+    moved = {True: 0, False: 0}
+    for name, p in det.named_parameters():
+        if p.requires_grad:
+            np.testing.assert_allclose(after[name].numpy(), jafter[name].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=name)
+            moved[torch.equal(after[name], plain[name])] += 1
+    # clipped: every parameter with a gradient moves less than unclipped
+    assert moved[True] + moved[False] == 79
+    if ratio > 1:
+        assert moved[False] == 0
+    else:
+        assert moved[False] > 70
+
+
+def test_grad_clip_none_is_plain_sgd(run):
+    det = run["det"]
+    cfg = load_config(FLAGSHIP)
+    assert type(build_optimizer(det, cfg.optimizer)) is torch.optim.SGD
+    assert type(build_optimizer(det, cfg.optimizer, grad_clip=None)) is torch.optim.SGD
+    empty = build_optimizer(det, cfg.optimizer, grad_clip=dict())
+    assert type(empty) is torch.optim.SGD        # as the reference: {} clips nothing
+    assert build_optimizer(det, cfg.optimizer, grad_clip=dict(norm_type=2)).max_norm == 35
 
 
 def test_frozen_params_do_not_move_and_jax_decays_them(run):
@@ -280,6 +319,33 @@ def test_train_step_runs_the_plain_versions_on_the_cpu(run):
     assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == (fwd, bwd)
     for name, p in det.named_parameters():
         assert torch.equal(p.detach(), before[name]) != p.requires_grad, name
+
+
+def test_train_mode_in_the_step_and_eval_for_serving(run):
+    """``init_detector`` leaves a serving model (one view) in eval mode and
+    a training one in train mode; the step sets train mode. The flagship's
+    losses do not depend on the mode (frozen BN, no dropout)."""
+    cfg = load_config(FLAGSHIP)
+    assert not init_detector({"model": run["model"]}, device="cpu").model.training
+    det = init_detector({"model": run["model"]}, device="cpu", num_views=V, seed=3).model
+    assert det.training
+    det.eval()
+    modes = []
+    forward_train = det.forward_train
+    det.forward_train = lambda *a: (modes.append(det.training), forward_train(*a))[1]
+    step = make_train_step(det, build_optimizer(det, cfg.optimizer),
+                           build_lr_schedule(cfg.lr_config, cfg.optimizer["lr"], 100))
+    step(run["batch"], torch.Generator().manual_seed(0))
+    assert modes == [True] and det.training
+    trained = run["det"]
+    trained.eval()
+    try:
+        with torch.no_grad():
+            losses = trained.forward_train(run["batch"], UniformDraws(given=run["given"]))
+    finally:
+        trained.train()
+    for k, v in run["losses"].items():
+        torch.testing.assert_close(losses[k], v.detach(), rtol=0, atol=0, msg=k)
 
 
 def test_random_boxes_match_jax():
