@@ -28,14 +28,17 @@ non-zero exit code:
    training shapes (4 images, both calls' 2088 rois, the report's case), at
    each of the two calls and at 2048 rois whose positives cluster around 32
    gts; each f32 and bf16, each beside its bound and the bytes its design
-   moves; B2 must give equal bits in two calls. B3 (OA-Mix foreground maps, G=16 seeded
-   boxes on 1024x2048), B4 (row shift: x and column passes at the rotate
+   moves; B2 must give equal bits in two calls. B3 (OA-Mix foreground maps, G=16 on
+   1024x2048: the seeded gts' blurred profiles, then dense ones; with the
+   mean number of live boxes a 16x256 tile, a row and a lane's 8 pixels),
+   B4 (row shift: x and column passes at the rotate
    shifts of severity 10 and the translate shifts, on uint8 3-channel and
    float32 4-channel images; library call ``F.grid_sample``), B5 (per-box
    row shift on B3's own ``best_id``: the three passes of a per-box rotate,
    uint8 then float32 3-channel, the column pass on uint8, and the x pass on
    a chain-like image of flat blocks; ``F.grid_sample``), B6 (256-bin
-   histograms of a 1024x2048x3 uint8 image; ``torch.bincount``) and B7
+   histograms of a 1024x2048x3 uint8 image: random, then the chain-like
+   image and a constant one; ``torch.bincount`` on the random one) and B7
    (merged row shift on the float32 4-channel image with B3's ``best_id`` as
    the composite id: per-box x and column passes, a background pass, the
    identity, three slots with mixed flags, and the per-box x pass on the
@@ -670,6 +673,32 @@ def fg_inputs(gt, h, w):
     return fx.contiguous(), (fy * (~small).float()[:, None]).contiguous()
 
 
+FG_TILE = (16, 256)  # rows and columns of B3's tile (a block); a warp owns one row of it
+
+
+def fg_cases(inp):
+    """B3's cases (label, fx, fy) at the flagship's shapes: the gated blurred
+    profiles of ``warp_inputs``' 16 seeded gts (the report's main case; most
+    products are exact zeros), then 16 dense profiles, non-zero everywhere,
+    where every box is live on every pixel."""
+    import torch
+    rng = np.random.RandomState(7)
+    dense = [torch.from_numpy(rng.uniform(0.01, 1.0, (16, n)).astype(np.float32))
+             .to(inp.fx.device) for n in (inp.w, inp.h)]
+    return (("seeded gts' blurred profiles", inp.fx, inp.fy),
+            ("dense profiles", *dense))
+
+
+def hist_cases(inp):
+    """B6's cases (label, uint8 image (H, W, 3)): the random image (the
+    report's main case), the chain-like image of flat 64x64 blocks, and a
+    constant image (every value of a channel in one bin)."""
+    import torch
+    const = torch.tensor([17, 200, 93], dtype=torch.uint8, device=inp.img3.device)
+    return (("random", inp.img3), ("chain-like", inp.flat3),
+            ("constant", const.expand(inp.h, inp.w, 3).contiguous()))
+
+
 def check_fg_maps(got, want, fx, fy):
     """B3 against its plain version: ``best_id`` equal except where two
     masks tie exactly; cover and union within one bf16 step. -> (pixels
@@ -860,21 +889,34 @@ def phase_oamix_kernels():
     dev = torch.device("cuda", 0)
     h, w = IMG_H, IMG_W
     inp = warp_inputs(dev)
-    img3, img4, best_id, fx, fy = inp.img3, inp.img4, inp.best_id, inp.fx, inp.fy
+    img3, img4, best_id = inp.img3, inp.img4, inp.best_id
     rows = []
     copies = lambda t: [t.clone() for _ in range(ROTATE)]
 
-    # B3: G=16 seeded boxes on 1024x2048
-    want = fgm.fg_maps_ref(fx, fy, h, w)
-    torch.cuda.synchronize()
-    n_ties, err = check_fg_maps(inp.fg, want, fx, fy)
-    t = time_kernel(lambda i: fgm.FG_MAPS(fx, fy, h, w),
-                    lambda i: fgm.fg_maps_ref(fx, fy, h, w), ring=8)
-    nbytes = (fx.numel() + fy.numel()) * 4 + h * w * (1 + 2 + 2)
-    log("kernels", f"fg_maps G=16 {h}x{w}: best_id differs at {n_ties} exact ties; "
-                   f"cover/union max_abs_err {err:.3e} (limit one bf16 step); "
-                   f"{timing_text(t)}; bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
-    rows.append(row("fg_maps", "fg_maps.cu", "oadg_tpu/ops/pallas_fg.py:54", err, t, nbytes))
+    # B3: the 16 seeded gts' profiles on 1024x2048 (main), then 16 dense ones
+    main, others = None, []
+    for label, pfx, pfy in fg_cases(inp):
+        got = fgm.FG_MAPS(pfx, pfy, h, w)
+        want = fgm.fg_maps_ref(pfx, pfy, h, w)
+        torch.cuda.synchronize()
+        n_ties, err = check_fg_maps(got, want, pfx, pfy)
+        live = {key: float(fgm._live_boxes(pfx, pfy, *tile).sum(-1).float().mean())
+                for key, tile in (("tile", FG_TILE), ("row", (1, FG_TILE[1])), ("lane", (1, 8)))}
+        t = time_kernel(lambda i: fgm.FG_MAPS(pfx, pfy, h, w),
+                        lambda i: fgm.fg_maps_ref(pfx, pfy, h, w), ring=8)
+        nbytes = (pfx.numel() + pfy.numel()) * 4 + h * w * (1 + 2 + 2)
+        log("kernels", f"fg_maps {label}, G=16 {h}x{w}: live boxes (of 16) a "
+                       f"{FG_TILE[0]}x{FG_TILE[1]} tile {live['tile']:.2f}, a row of it "
+                       f"{live['row']:.2f}, a lane's 8 pixels {live['lane']:.2f}; best_id "
+                       f"differs at {n_ties} exact ties; cover/union max_abs_err {err:.3e} "
+                       f"(limit one bf16 step); {timing_text(t)}; bound "
+                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+        if main is None:
+            main, main_live = (err, t, nbytes), live
+        else:
+            others.append(case_row(label, err, t, nbytes) | {"live_boxes": live})
+    rows.append(row("fg_maps", "fg_maps.cu", "oadg_tpu/ops/pallas_fg.py:54", *main,
+                    cases=others) | {"live_boxes": main_live})
     in_boxes = int((best_id < 16).sum())
 
     # B4: x and column passes at the severity-10 rotate and translate shifts
@@ -977,20 +1019,29 @@ def phase_oamix_kernels():
     rows.append(row("merged_shift_rows", "shift_rows.cu", "oadg_tpu/ops/pallas_warp.py:564",
                     *main, cases=others))
 
-    # B6: the three channels' histograms of one 1024x2048 image; 9 copies in
-    # turn (57 MB). torch.bincount's times come from phase_profiled.
-    got = hist.HIST256(img3, 3)
-    want = hist.hist256_ref(img3, 3)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("hist256 counts differ from the plain version")
-    imgs = [img3.clone() for _ in range(9)]
-    t = time_kernel(lambda i: hist.HIST256(imgs[i % 9], 3),
-                    lambda i: hist.hist256_ref(imgs[i % 9], 3), plain_n=10)
-    nbytes = img3.numel() + 3 * 256 * 4
-    log("kernels", f"hist256 {h}x{w}x3 uint8: counts equal; {timing_text(t)}; "
-                   f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
-    rows.append(row("hist256", "hist256.cu", "oadg_tpu/ops/pallas_hist.py:73", 0.0, t, nbytes))
+    # B6: the three channels' histograms of one 1024x2048 image, random
+    # (main), chain-like and constant; 9 copies in turn (57 MB).
+    # torch.bincount's times come from phase_profiled.
+    main, others = None, []
+    for label, im in hist_cases(inp):
+        got = hist.HIST256(im, 3)
+        want = hist.hist256_ref(im, 3)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hist256 {label}: counts differ from the plain version")
+        imgs = [im.clone() for _ in range(9)]
+        t = time_kernel(lambda i: hist.HIST256(imgs[i % 9], 3),
+                        lambda i: hist.hist256_ref(imgs[i % 9], 3), plain_n=10)
+        nbytes = im.numel() + 3 * 256 * 4
+        log("kernels", f"hist256 {label} {h}x{w}x3 uint8: counts equal; {timing_text(t)}; "
+                       f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+        if main is None:
+            main = (0.0, t, nbytes)
+        else:
+            others.append(case_row(label, 0.0, t, nbytes))
+        del imgs
+    rows.append(row("hist256", "hist256.cu", "oadg_tpu/ops/pallas_hist.py:73", *main,
+                    cases=others))
     torch.cuda.empty_cache()
     return rows
 

@@ -21,10 +21,20 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, for a
+    launch: the same stream as ``torch.cuda.current_stream(device)``,
+    without building its Python object, the costliest step of a wrapper's
+    launch after the allocations."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def find_nvcc() -> str:

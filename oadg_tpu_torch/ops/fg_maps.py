@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from ._kernels import CudaLibrary
+from ._kernels import CudaLibrary, current_stream
 
 __all__ = ["BID_EPS", "fg_maps", "fg_maps_ref", "FG_MAPS"]
 
@@ -36,10 +36,27 @@ def fg_maps_ref(fx: torch.Tensor, fy: torch.Tensor, h: int, w: int):
     return best_id, cover.to(torch.bfloat16), best.to(torch.bfloat16)
 
 
+def _live_boxes(fx: torch.Tensor, fy: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """Plain twin of B3's culling: (ceil(H / tile_h), ceil(W / tile_w), G)
+    bool, True where box i is live in the tile, that is where fy[i] is
+    non-zero on one of the tile's rows and fx[i] on one of its columns (the
+    last tiles are ragged). Every other box gives m = 0 over the tile. The
+    kernel's block owns 16 rows x 256 columns: each row loops over the boxes
+    of ``_live_boxes(fx, fy, 1, 256)``, and a lane skips those whose fx is 0
+    on its 8 pixels, leaving ``_live_boxes(fx, fy, 1, 8)``."""
+    def any_per_tile(prof, size):
+        g, n = prof.shape
+        nz = torch.zeros((g, -(-n // size) * size), dtype=torch.bool, device=prof.device)
+        nz[:, :n] = prof != 0
+        return nz.reshape(g, -1, size).any(2)                 # (G, tiles)
+    live_y, live_x = any_per_tile(fy, tile_h), any_per_tile(fx, tile_w)
+    return live_y.T[:, None, :] & live_x.T[None, :, :]
+
+
 class FgMaps:
     """Wrapper of ``csrc/fg_maps.cu`` (kernel B3): checks the profiles,
-    allocates the three maps, launches on the current stream, counts
-    launches."""
+    allocates the three maps (cover and union in one allocation), launches
+    on the current stream, counts launches."""
 
     def __init__(self):
         self.launches = 0
@@ -62,14 +79,15 @@ class FgMaps:
                              f"{tuple(fx.shape)} and {tuple(fy.shape)}")
         dev = fx.device
         best_id = torch.empty((h, w), dtype=torch.int8, device=dev)
-        cover = torch.empty((h, w), dtype=torch.bfloat16, device=dev)
-        union = torch.empty((h, w), dtype=torch.bfloat16, device=dev)
-        lib = self.library.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.oadg_fg_maps(fx.data_ptr(), fy.data_ptr(), g, h, w,
-                                   best_id.data_ptr(), cover.data_ptr(),
-                                   union.data_ptr(), stream)
+        cover, union = torch.empty((2, h, w), dtype=torch.bfloat16, device=dev).unbind(0)
+        fn = self.library.function("oadg_fg_maps")
+        args = (fx.data_ptr(), fy.data_ptr(), g, h, w, best_id.data_ptr(),
+                cover.data_ptr(), union.data_ptr(), current_stream(dev))
+        if dev.index == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args)
         if err != 0:
             raise RuntimeError(f"fg_maps launch failed with cudaError_t {err}")
         self.launches += 1

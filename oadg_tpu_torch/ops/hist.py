@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from ._kernels import CudaLibrary
+from ._kernels import CudaLibrary, current_stream
 
 __all__ = ["as_bins", "hist256", "image_hist256", "hist256_ref", "HIST256"]
 
@@ -35,11 +35,34 @@ def hist256_ref(x: torch.Tensor, c: int = 1) -> torch.Tensor:
     return counts.to(torch.int32)
 
 
+def _hist_split(offset: int, n: int):
+    """Plain twin of the split in ``csrc/hist256.cu``'s launch, for ``n``
+    values whose first lies ``offset`` bytes past a 16-byte boundary. ->
+    (head, words, tail): ``head`` bytes up to the boundary, then ``words``
+    8-byte words, then ``tail`` (< 8) bytes."""
+    head = min(n, (16 - offset % 16) % 16)
+    words = (n - head) // 8
+    return head, words, n - head - 8 * words
+
+
+def _hist_channels(offset: int, n: int, c: int, threads: int) -> torch.Tensor:
+    """Plain twin of the kernel's channel map on a grid of ``threads``
+    threads: the channel it counts each of the ``n`` values in, (n,) int64.
+    Head byte i: i % c. Word k goes to thread t = k % threads, whose byte j
+    of every word it reads has channel (head + 8 (t % c) + j) % c. Tail byte
+    j: ((n - tail) + j) % c."""
+    head, words, tail = _hist_split(offset, n)
+    t = torch.arange(words)[:, None] % threads
+    body = (head + 8 * (t % c) + torch.arange(8)[None, :]) % c
+    return torch.cat([torch.arange(head) % c, body.reshape(-1),
+                      (n - tail + torch.arange(tail)) % c])
+
+
 class Hist256:
     """Wrapper of ``csrc/hist256.cu`` (kernel B6): takes a contiguous uint8
     CUDA tensor whose flattened values interleave ``c`` channels (1..4),
-    allocates the zeroed (c, 256) int32 table, launches on the current
-    stream and counts launches."""
+    allocates the (c, 256) int32 table (the kernel writes every bin, so no
+    zero fill), launches on the current stream and counts launches."""
 
     def __init__(self):
         self.launches = 0
@@ -56,11 +79,14 @@ class Hist256:
             raise ValueError("hist256 takes a contiguous uint8 tensor")
         if not 1 <= c <= 4 or x.numel() % c:
             raise ValueError(f"{x.numel()} values do not split into {c} channels (1..4)")
-        out = torch.zeros((c, 256), dtype=torch.int32, device=x.device)
-        lib = self.library.load()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.oadg_hist256(x.data_ptr(), x.numel(), c, out.data_ptr(), stream)
+        out = torch.empty((c, 256), dtype=torch.int32, device=x.device)
+        fn = self.library.function("oadg_hist256")
+        args = (x.data_ptr(), x.numel(), c, out.data_ptr(), current_stream(x.device))
+        if x.device.index == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(x.device):
+                err = fn(*args)
         if err != 0:
             raise RuntimeError(f"hist256 launch failed with cudaError_t {err}")
         self.launches += 1

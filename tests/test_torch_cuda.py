@@ -549,6 +549,111 @@ def test_hist256_kernel_matches_plain_version():
         img[..., 1].contiguous())[0])
 
 
+def _hist_buffer(kind, n, dev, seed=0):
+    """n + 16 uint8 values on the card: random, flat (runs of 64 equal
+    values) or constant."""
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        v = rng.randint(0, 256, n + 16)
+    elif kind == "flat":
+        v = np.repeat(rng.randint(0, 256, n // 64 + 2), 64)[:n + 16]
+    else:
+        v = np.full(n + 16, 77)
+    return torch.from_numpy(v.astype(np.uint8)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["random", "flat", "constant"])
+def test_hist256_kernel_offsets_and_sizes(kind, c):
+    """B6 against the plain version on views that start 0..15 bytes past a
+    16-byte boundary, of sizes below one 8-byte word, not a multiple of 48
+    and of a few megabytes (several words a thread)."""
+    dev = _cuda()
+    buf = _hist_buffer(kind, 1_500_000 * c, dev, seed=c)
+    for offset in range(16):
+        for n in (c, 7 * c, 49 * c, 4801 * c, 1_500_000 * c):
+            x = buf[offset:offset + n]
+            got = hist_mod.HIST256(x, c)
+            assert torch.equal(got, hist_mod.hist256_ref(x, c)), (offset, n)
+
+
+@pytest.mark.cuda
+def test_hist256_kernel_repeats_and_counts_launches():
+    dev = _cuda()
+    img = _hist_buffer("random", 1024 * 2048 * 3, dev)[:1024 * 2048 * 3].reshape(1024, 2048, 3)
+    before = hist_mod.HIST256.launches
+    a = hist_mod.image_hist256(img)
+    b = hist_mod.image_hist256(img)
+    torch.cuda.synchronize()
+    assert hist_mod.HIST256.launches == before + 2
+    assert torch.equal(a, b) and torch.equal(a, hist_mod.hist256_ref(img, 3))
+    assert int(a.sum()) == img.numel()
+
+
+def _blurred_fg_inputs(dev, h, w, g=16, seed=0):
+    """The gated blurred profiles of g seeded gts, as OA-Mix makes them for
+    B3 (most products exact zeros)."""
+    from oadg_tpu_torch.ops.oamix_device import _blurred_profiles
+    rng = np.random.RandomState(seed)
+    bw = np.exp(rng.uniform(np.log(16), np.log(w / 2), g))
+    bh = np.exp(rng.uniform(np.log(16), np.log(h / 2), g))
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    gt = torch.from_numpy(np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32)).to(dev)
+    fx, fy = _blurred_profiles(gt, h, w, 0.3)
+    fy[1::5] = 0.0                                    # gated gts
+    return fx.contiguous(), fy.contiguous()
+
+
+def _fg_case(name, dev):
+    rng = np.random.RandomState(11)
+    if name == "blurred":
+        return (*_blurred_fg_inputs(dev, 256, 512), 256, 512)
+    if name == "blurred ragged 1000x1333":
+        return (*_blurred_fg_inputs(dev, 1000, 1333, seed=1), 1000, 1333)
+    if name == "dense":
+        return (torch.from_numpy(rng.uniform(0.01, 1, (16, 512)).astype(np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0.01, 1, (16, 256)).astype(np.float32)).to(dev),
+                256, 512)
+    if name == "G=1":
+        fx, fy = _blurred_fg_inputs(dev, 1000, 1333, g=1, seed=2)
+        return fx, fy, 1000, 1333
+    if name == "G=127":
+        fx, fy = _blurred_fg_inputs(dev, 256, 512, g=127, seed=3)
+        return fx, fy, 256, 512
+    if name == "all zero":
+        return torch.zeros((16, 512), device=dev), torch.zeros((16, 256), device=dev), 256, 512
+    if name == "unaligned fx":                        # the scalar path
+        fx, fy = _blurred_fg_inputs(dev, 256, 512, seed=4)
+        buf = torch.zeros(fx.numel() + 1, device=dev)
+        buf[1:] = fx.reshape(-1)
+        return buf[1:].view(16, 512), fy, 256, 512
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["blurred", "blurred ragged 1000x1333", "dense", "G=1",
+                                  "G=127", "all zero", "unaligned fx"])
+def test_fg_maps_kernel_cases(name):
+    """B3 against the plain version on OA-Mix's sparse blurred profiles, on
+    dense ones, at a ragged size, at both ends of G and on zero profiles
+    (every id the sentinel); one launch per call."""
+    dev = _cuda()
+    fx, fy, h, w = _fg_case(name, dev)
+    g = fx.shape[0]
+    before = fg_mod.FG_MAPS.launches
+    got = fg_mod.FG_MAPS(fx, fy, h, w)
+    want = fg_mod.fg_maps_ref(fx, fy, h, w)
+    torch.cuda.synchronize()
+    assert fg_mod.FG_MAPS.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -8, atol=0)
+    if name == "all zero":
+        assert bool((got[0] == g).all()) and not bool(got[1].float().any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chain", ["slots", "merged"])
 def test_oamix_on_the_card_matches_the_cpu(chain):
