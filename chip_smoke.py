@@ -45,14 +45,18 @@ non-zero exit code:
    chain-like image; ``F.grid_sample``). B5 and B7 must take their fast
    route (the kernel specialised for these shapes) in every case.
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
-   R50-FPN, Cityscapes, 8 classes) with seeded random weights, one warm-up
-   request, then 3 timed requests of 1024x2048 uint8 images through
-   ``DetectorHandle.test``. B1 must have launched once per request. One
-   request's RoI head is run again with the plain RoIAlign and compared.
-5. reference: the same seeded model on the CPU (plain PyTorch throughout,
-   the path the CPU tests hold to the JAX package) against the card on a
-   small 256x512 request: FPN outputs, and the RoI head on the card's
-   proposals.
+   R50-FPN, Cityscapes, 8 classes) with seeded random weights, once in
+   float32 and once with ``dtype=torch.bfloat16`` (the JAX package's bench
+   precision: bfloat16 convolutions and FCs, frozen BN folded, float32
+   parameters), each with one warm-up request, then 3 timed requests of
+   1024x2048 uint8 images through ``DetectorHandle.test``. B1 must have
+   launched once per request, entered with maps of the model's dtype. One
+   request's RoI head is run again with the plain RoIAlign on the same maps
+   and compared.
+5. reference: each dtype's seeded model on the CPU (plain PyTorch
+   throughout, the path the CPU tests hold to the JAX package) against the
+   card on a small 256x512 request: FPN outputs, and the RoI head on the
+   card's proposals.
 6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
    1024x2048 uint8 images with 32 seeded gts each, inside
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), once per
@@ -66,25 +70,31 @@ non-zero exit code:
    table at 256x512.
 7. train: the flagship built for training (``num_views=2``), SGD with the
    config's LR schedule through ``make_train_step(...,
-   preprocess=make_oadg_preprocess(oamix_config, img_norm_cfg))``, one
-   warm-up step and 3 timed steps on uint8 batches of 2 images of
-   1024x2048 (OA-Mix makes view 2; 32 seeded gts each), first with OA-Mix on
-   the slots chain, then the same again on the merged chain
+   preprocess=make_oadg_preprocess(oamix_config, img_norm_cfg,
+   out_dtype=model.dtype))``, in float32 and then in bfloat16 (one model
+   each): one warm-up step and 3 timed steps on uint8 batches of 2 images
+   of 1024x2048 (OA-Mix makes view 2; 32 seeded gts each), first with
+   OA-Mix on the slots chain, then the same again on the merged chain
    (``make_oadg_preprocess(..., chain="merged")``). B1 and B2 must each
-   launch twice per step and B3-B7 as often as each step's table implies
-   for its chain; losses finite, ``loss_cont`` > 0, every trainable
-   parameter moved, every frozen one (stem, ``layer1``) unchanged. One more
-   step checks B1's RoI features and B2's level gradients inside the path
-   against the plain versions on the same inputs. Then one step per chain
-   under ``torch.profiler``: host and device time of each stage's
-   ``record_function`` span (OA-Mix included), and the device's busy share.
-8. train reference: one step of the same seeded model on the CPU and on the
-   card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws made on the
-   CPU and handed to both, the card's proposals used on both: losses, and
-   the gradients of ``rpn_head.rpn_conv``, ``roi_head.bbox_head.fc_cls`` and
-   ``backbone.layer4.*.conv3``.
-9. profiled: the three times that need ``torch.profiler`` (the plain versions
-   of B1 and B2 and ``torch.bincount`` wait for the device inside a call, so
+   launch twice per step, entered with maps of the model's dtype, and B3-B7
+   as often as each step's table implies for its chain; losses finite
+   float32, ``loss_cont`` > 0, parameters and gradients float32, every
+   trainable parameter moved, every frozen one (stem, ``layer1``)
+   unchanged. One more step checks B1's RoI features and B2's level
+   gradients inside the path against the plain versions on the same inputs.
+   After both dtypes' timed steps, one step per dtype and chain under
+   ``torch.profiler``: host and device time of each stage's
+   ``record_function`` span (OA-Mix included), and the device's busy share;
+   then one profiled request per dtype (the device's busy share of a
+   request), and a line of step medians, ``max_memory_allocated`` and busy
+   shares.
+8. train reference: per dtype, one step of the same seeded model on the
+   CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
+   made on the CPU and handed to both, the card's proposals used on both:
+   losses, and the gradients of ``rpn_head.rpn_conv``,
+   ``roi_head.bbox_head.fc_cls`` and ``backbone.layer4.*.conv3``.
+9. profiled: the times that need ``torch.profiler`` (the plain versions
+   of B1 and B2, on float32 and on bfloat16 maps, and ``torch.bincount`` wait for the device inside a call, so
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
@@ -132,6 +142,16 @@ TOL_BF16 = 1e-4
 # relative to the largest output magnitude (cuDNN, cuBLAS and the CPU sum
 # convolutions and FC layers over up to 12544 inputs in other orders).
 TOL_HEAD = 1e-4
+# The same with bfloat16 FCs: the kernel's and the plain version's float32
+# features differ in their last bits, which moves a bfloat16 input or output
+# by one step (2**-8 relative) where it lands on a rounding boundary.
+TOL_HEAD_BF16 = 2 ** -6
+# bfloat16 on the card against bfloat16 on the CPU, relative to the largest
+# magnitude: cuDNN / cuBLAS and the CPU sum in float32 in other orders and
+# round once; a value one step apart travels through the following layers.
+# Losses (same proposals and draws on both) 2**-6 relative.
+TOL_BF16_CARD = 2 ** -4
+TOL_BF16_LOSS = 2 ** -6
 # B4 and B5 vs their plain versions, absolute on values up to 255: the
 # kernels fuse the lerp's multiply-add (one rounding), the plain versions
 # emulate it in float64 and round a float32 tie a second time, at most one
@@ -1046,6 +1066,19 @@ def phase_oamix_kernels():
     return rows
 
 
+def _set_plain_ms(row, name, case, ms):
+    """The plain version's time: the row's own (its f32 report case), or
+    that of its bf16 case whose label holds ``case``."""
+    if name == "f32":
+        row["plain_ms"] = ms
+        return
+    for c in row["cases"]:
+        if c["label"].startswith("bf16") and case in c["label"]:
+            c["plain_ms"] = ms
+            return
+    raise KeyError(f"{row['name']} has no bf16 case {case!r}")
+
+
 def phase_profiled(rows):
     """The three times that need ``torch.profiler``, made after the path:
     the plain versions of B1 and B2 build small index tensors from host
@@ -1062,20 +1095,26 @@ def phase_profiled(rows):
     dev = torch.device("cuda", 0)
     by_name = {r["name"]: r for r in rows}
     feats, rois = roi_fwd_inputs(dev)
-    t = device_time(lambda i: roi_align_multilevel_ref(feats, rois, 7, STRIDES, 2, 56), 5,
-                    method="profiler")
-    by_name["roi_align_fwd"]["plain_ms"] = t["device_ms"]
-    log("profiled", f"roi_align_fwd f32 plain version: device {t['device_ms']:.4f} ms "
-                    f"(timer profiler), host {t['host_us']:.1f} us a call")
+    for name in DTYPES:
+        fs = [f.to(torch_dtype(name)) for f in feats]
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, 7, STRIDES, 2, 56), 5,
+                        method="profiler")
+        _set_plain_ms(by_name["roi_align_fwd"], name, "serving", t["device_ms"])
+        log("profiled", f"roi_align_fwd {name} plain version (serving): device "
+                        f"{t['device_ms']:.4f} ms (timer profiler), host {t['host_us']:.1f} "
+                        "us a call")
     feats, rois, dy = roi_bwd_inputs(dev)
-    shapes = [f.shape for f in feats]
-    del feats
-    t = device_time(lambda i: roi_align_multilevel_ref_backward(
-        dy, shapes, rois, 7, STRIDES, 2, 56), 3, method="profiler")
-    by_name["roi_align_bwd"]["plain_ms"] = t["device_ms"]
-    log("profiled", f"roi_align_bwd f32 plain version: device {t['device_ms']:.4f} ms "
-                    f"(timer profiler), host {t['host_us']:.1f} us a call")
-    del dy
+    for name in DTYPES:
+        shapes, dt = [f.shape for f in feats], torch_dtype(name)
+        # the plain backward reads only the maps' shapes and sums in float32;
+        # the autograd function rounds its result once to the maps' dtype
+        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
+            dy, shapes, rois, 7, STRIDES, 2, 56)], 3, method="profiler")
+        _set_plain_ms(by_name["roi_align_bwd"], name, f"R={rois.shape[0]}", t["device_ms"])
+        log("profiled", f"roi_align_bwd {name} plain version (R={rois.shape[0]}): device "
+                        f"{t['device_ms']:.4f} ms (timer profiler), host {t['host_us']:.1f} "
+                        "us a call")
+    del feats, dy
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -1329,94 +1368,167 @@ def request_image(rng):
     return rng.randint(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8)
 
 
+DTYPES = ("f32", "bf16")
+
+
+def torch_dtype(name):
+    import torch
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+class _EntryDtypes:
+    """Stands in for a RoIAlign kernel wrapper on the main path: records the
+    dtype of the level maps of each call, then launches the kernel (whose
+    wrapper counts the launch)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.dtypes = kernel, []
+
+    def __call__(self, feats, *rest):
+        self.dtypes.append(feats[0].dtype)
+        return self.kernel(feats, *rest)
+
+
 def phase_slice(rows):
+    """3 timed requests per dtype; -> the two handles (f32, bf16)."""
     import torch
     from oadg_tpu_torch.apis import init_detector, prepare_image
+    from oadg_tpu_torch.ops import roi_align
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD, roi_align_multilevel_ref
-    t0 = time.perf_counter()
-    handle = init_detector(str(FLAGSHIP), device="cuda", seed=0)
-    log("slice", f"init_detector (R50-FPN, 8 classes, f32, channels-last) in "
-                 f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.RandomState(1)
-    handle.test(prepare_image(request_image(rng), handle.cfg, handle.device))
-    torch.cuda.synchronize()                                  # warm-up request
-    images = [request_image(rng) for _ in range(3)]
-
-    ROI_ALIGN_FWD.launches = 0
-    latencies, results = [], []
-    for img in images:
+    handles = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
         t0 = time.perf_counter()
-        out = handle.test(prepare_image(img, handle.cfg, handle.device))
+        handle = handles[name] = init_detector(str(FLAGSHIP), device="cuda", seed=0,
+                                               dtype=dtype)
+        log("slice", f"init_detector (R50-FPN, 8 classes, {name}, channels-last) in "
+                     f"{time.perf_counter() - t0:.2f} s")
+        rng = np.random.RandomState(1)
+        handle.test(prepare_image(request_image(rng), handle.cfg, handle.device))
+        torch.cuda.synchronize()                              # warm-up request
+        images = [request_image(rng) for _ in range(3)]
+
+        entry = _EntryDtypes(ROI_ALIGN_FWD)
+        roi_align.ROI_ALIGN_FWD = entry
+        ROI_ALIGN_FWD.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        latencies, results = [], []
+        try:
+            for img in images:
+                t0 = time.perf_counter()
+                out = handle.test(prepare_image(img, handle.cfg, handle.device))
+                torch.cuda.synchronize()
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                results.append(out)
+        finally:
+            roi_align.ROI_ALIGN_FWD = ROI_ALIGN_FWD
+        launches = ROI_ALIGN_FWD.launches
+        log("slice", f"{name}: 3 requests of {IMG_H}x{IMG_W}: latency ms "
+                     f"{[round(x, 3) for x in latencies]}, median "
+                     f"{statistics.median(latencies):.3f} ({nvidia_smi_line()}); "
+                     f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                     f"GiB (weights included); roi_align_fwd launches {launches} on maps of "
+                     f"{sorted(set(map(str, entry.dtypes)))}")
+        if launches != 3 or entry.dtypes != [dtype] * 3:
+            raise AssertionError(f"{name}: roi_align_fwd launched {launches} times in 3 "
+                                 f"requests, on maps {entry.dtypes}")
+        rows[0]["launches_serving" if name == "f32" else "launches_serving_bf16"] = launches
+
+        for dets, labels, valid in results:
+            if tuple(dets.shape) != (1, 100, 5) or not torch.isfinite(dets).all():
+                raise AssertionError(f"bad dets: shape {tuple(dets.shape)}")
+            if int(valid.sum()) < 1:
+                raise AssertionError("no valid detection")
+            if not ((labels[valid] >= 0) & (labels[valid] < handle.num_classes)).all():
+                raise AssertionError("label out of range")
+        log("slice", f"{name}: dets (1, 100, 5) finite; valid rows per request "
+                     f"{[int(v.sum()) for _, _, v in results]}")
+
+        # The same request's RoI head on plain-RoIAlign features from the same
+        # maps: a check of the kernel inside the path, not a fallback.
+        with torch.inference_mode():
+            batch = prepare_image(images[0], handle.cfg, handle.device)
+            det = handle.model
+            feats = det.extract_feat(batch["img"])
+            cls_scores, bbox_preds = det.rpn_head(feats)
+            boxes, _, _ = det.rpn_head.get_proposals(cls_scores, bbox_preds,
+                                                     batch["img_shape"])
+            rois = det.roi_head.proposals_to_rois(boxes)
+            head = det.roi_head.bbox_head
+            cls_k, reg_k, _ = head(det.roi_head.bbox_roi_extractor(feats, rois))
+            ex = det.roi_head.bbox_roi_extractor
+            cls_p, reg_p, _ = head(roi_align_multilevel_ref(
+                feats[:len(ex.featmap_strides)], rois, 7, ex.featmap_strides,
+                ex.sampling_ratio, ex.finest_scale))
+        if feats[0].dtype != dtype:
+            raise AssertionError(f"{name}: FPN maps are {feats[0].dtype}")
+        for what, a, b in (("cls_score", cls_k, cls_p), ("bbox_pred", reg_k, reg_p)):
+            check_close("slice", f"{name}: RoI head {what} kernel vs plain RoIAlign", a, b,
+                        TOL_HEAD if name == "f32" else TOL_HEAD_BF16)
+    return handles
+
+
+def serving_profile(name):
+    """One request of the seeded flagship at ``name`` (after a warm-up)
+    under torch.profiler: its wall time, the device's busy share and the
+    kernels that take most of it. After every timed run (the profiler slows
+    the host's launches for the rest of the process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from oadg_tpu_torch.apis import init_detector, prepare_image
+    handle = init_detector(str(FLAGSHIP), device="cuda", seed=0, dtype=torch_dtype(name))
+    img = request_image(np.random.RandomState(1))
+    handle.test(prepare_image(img, handle.cfg, handle.device))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle.test(prepare_image(img, handle.cfg, handle.device))
         torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-        results.append(out)
-    launches = ROI_ALIGN_FWD.launches
-    log("slice", f"3 requests of {IMG_H}x{IMG_W}: latency ms "
-                 f"{[round(x, 3) for x in latencies]}, median "
-                 f"{statistics.median(latencies):.3f}; roi_align_fwd launches {launches}")
-    if launches != 3:
-        raise AssertionError(f"roi_align_fwd launched {launches} times in 3 requests")
-    rows[0]["launches_serving"] = launches
-
-    for dets, labels, valid in results:
-        if tuple(dets.shape) != (1, 100, 5) or not torch.isfinite(dets).all():
-            raise AssertionError(f"bad dets: shape {tuple(dets.shape)}")
-        if int(valid.sum()) < 1:
-            raise AssertionError("no valid detection")
-        if not ((labels[valid] >= 0) & (labels[valid] < handle.num_classes)).all():
-            raise AssertionError("label out of range")
-    log("slice", f"dets (1, 100, 5) finite; valid rows per request "
-                 f"{[int(v.sum()) for _, _, v in results]}")
-
-    # The same request's RoI head on plain-RoIAlign features: a check of the
-    # kernel inside the path, not a fallback.
-    with torch.inference_mode():
-        batch = prepare_image(images[0], handle.cfg, handle.device)
-        det = handle.model
-        feats = det.extract_feat(batch["img"])
-        cls_scores, bbox_preds = det.rpn_head(feats)
-        boxes, _, _ = det.rpn_head.get_proposals(cls_scores, bbox_preds,
-                                                 batch["img_shape"])
-        rois = det.roi_head.proposals_to_rois(boxes)
-        head = det.roi_head.bbox_head
-        cls_k, reg_k, _ = head(det.roi_head.bbox_roi_extractor(feats, rois))
-        ex = det.roi_head.bbox_roi_extractor
-        cls_p, reg_p, _ = head(roi_align_multilevel_ref(
-            feats[:len(ex.featmap_strides)], rois, 7, ex.featmap_strides,
-            ex.sampling_ratio, ex.finest_scale))
-    for name, a, b in (("cls_score", cls_k, cls_p), ("bbox_pred", reg_k, reg_p)):
-        check_close("slice", f"RoI head {name} kernel vs plain RoIAlign", a, b)
-    return handle
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log("slice-profile", f"{name}: profiled request {wall:.3f} ms wall, device busy "
+                         f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
+        log("slice-profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                             f"x{e.count:<5d} {e.key[:90]}")
+    return busy / wall
 
 
-def check_close(phase, name, got, want):
+def check_close(phase, name, got, want, tol):
     err = float((got.float().cpu() - want.float().cpu()).abs().max())
-    lim = TOL_HEAD * max(float(want.abs().max()), 1e-6)
-    log(phase, f"{name}: max_abs_err {err:.3e} (limit {lim:.3e})")
+    lim = tol * max(float(want.float().abs().max()), 1e-6)
+    log(phase, f"{name}: max_abs_err {err:.3e} (limit {lim:.3e}, "
+               f"{err / max(float(want.float().abs().max()), 1e-6):.2e} of the largest)")
     if not err <= lim:
         raise AssertionError(f"{phase} {name} disagrees: {err} > {lim}")
 
 
-def phase_reference(handle):
+def phase_reference(handles):
+    """Each dtype's card model against the same seeded model on the CPU."""
     import torch
     from oadg_tpu_torch.apis import init_detector, prepare_image
-    cpu = init_detector(str(FLAGSHIP), device="cpu", seed=0)
     img = request_image(np.random.RandomState(2))[:256, :512]
-    bc = prepare_image(img, cpu.cfg, "cpu")
-    bg = prepare_image(img, handle.cfg, handle.device)
-    with torch.inference_mode():
-        fc = cpu.model.extract_feat(bc["img"])
-        fg = handle.model.extract_feat(bg["img"])
-        for i, (a, b) in enumerate(zip(fg, fc)):
-            check_close("reference", f"FPN level {i} card vs CPU", a, b)
-        boxes, _, _ = handle.model.rpn_head.get_proposals(
-            *handle.model.rpn_head(fg), bg["img_shape"])
-        rois = handle.model.roi_head.proposals_to_rois(boxes)
-        outs = [m.roi_head.bbox_head(m.roi_head.bbox_roi_extractor(f, r))
-                for m, f, r in ((handle.model, fg, rois),
-                                (cpu.model, fc, rois.cpu()))]
-    for name, a, b in zip(("cls_score", "bbox_pred"), *outs):
-        check_close("reference", f"RoI head {name} card vs CPU", a, b)
+    for name, handle in handles.items():
+        tol = TOL_HEAD if name == "f32" else TOL_BF16_CARD
+        cpu = init_detector(str(FLAGSHIP), device="cpu", seed=0, dtype=torch_dtype(name))
+        bc = prepare_image(img, cpu.cfg, "cpu")
+        bg = prepare_image(img, handle.cfg, handle.device)
+        with torch.inference_mode():
+            fc = cpu.model.extract_feat(bc["img"])
+            fg = handle.model.extract_feat(bg["img"])
+            for i, (a, b) in enumerate(zip(fg, fc)):
+                check_close("reference", f"{name}: FPN level {i} card vs CPU", a, b, tol)
+            boxes, _, _ = handle.model.rpn_head.get_proposals(
+                *handle.model.rpn_head(fg), bg["img_shape"])
+            rois = handle.model.roi_head.proposals_to_rois(boxes)
+            outs = [m.roi_head.bbox_head(m.roi_head.bbox_roi_extractor(f, r))
+                    for m, f, r in ((handle.model, fg, rois),
+                                    (cpu.model, fc, rois.cpu()))]
+        for what, a, b in zip(("cls_score", "bbox_pred"), *outs):
+            check_close("reference", f"{name}: RoI head {what} card vs CPU", a, b, tol)
 
 
 def raw_train_batch(rng, h, w, device):
@@ -1454,13 +1566,15 @@ def fixed_view_batch(rng, h, w, cfg, device):
             "gt_valid": torch.ones((4, NUM_GTS), dtype=torch.bool, device=device)}
 
 
-def build_trainer(device, cfg, preprocess=None):
+def build_trainer(device, cfg, preprocess=None, dtype=None):
     """The flagship built for OA-DG training with seeded random weights,
-    SGD and the config's LR schedule, through the port's entry points."""
+    SGD and the config's LR schedule, through the port's entry points, in
+    the compute ``dtype`` (None: float32)."""
     from oadg_tpu_torch.apis import init_detector
     from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                        make_train_step)
-    handle = init_detector(cfg, device=device, seed=0, num_views=cfg["num_views"])
+    handle = init_detector(cfg, device=device, seed=0, num_views=cfg["num_views"],
+                           dtype=dtype)
     steps_per_epoch = -(-CITYSCAPES_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])
     step = make_train_step(
         handle.model, build_optimizer(handle.model, cfg["optimizer"]),
@@ -1474,19 +1588,27 @@ class _Checked:
     then holds its result against the plain version on the same inputs, so
     that each kernel is checked inside the path at the path's own shapes.
     ``plain(feats, rois, *rest)`` returns the plain results and the scale of
-    the limit."""
+    the limit. A float32 result within ``TOL_F32`` of the scale; with
+    bfloat16 maps within ``TOL_BF16`` of it, plus one bfloat16 step of each
+    value for B2's bfloat16 gradient (the rounding of its float32 sum)."""
 
     def __init__(self, name, kernel, plain):
         self.name, self.kernel, self.plain = name, kernel, plain
-        self.calls = []                  # (R, max abs error, limit)
+        self.calls = []                  # (R, maps' dtype, max abs error, limit, within)
 
     def __call__(self, feats, rois, *rest):
+        import torch
         out = self.kernel(feats, rois, *rest)
         want, scale = self.plain(feats, rois, *rest)
         got = out if isinstance(out, list) else [out]
         want = want if isinstance(want, list) else [want]
+        bf16 = feats[0].dtype == torch.bfloat16
+        lim = (TOL_BF16 if bf16 else TOL_F32) * scale
         err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-        self.calls.append((rois.shape[0], err, TOL_F32 * scale))
+        within = all(bool(((g.float() - w).abs()
+                           <= lim + (2 ** -8 * w.abs() if g.dtype == torch.bfloat16 else 0)).all())
+                     for g, w in zip(got, want))
+        self.calls.append((rois.shape[0], feats[0].dtype, err, lim, within))
         return out
 
 
@@ -1502,33 +1624,47 @@ def _plain_bwd(feats, rois, dy, *cfg):
     return want, max(float(w.abs().max()) for w in want)
 
 
-def phase_train(rows):
+def phase_train(rows, name):
+    """Training at ``name`` (f32 or bf16): one model, OA-Mix on either chain,
+    warm-up and 3 timed steps each, launches against the drawn tables, one
+    step with B1 and B2 checked in place. -> (per chain {"median_ms",
+    "peak_gib"}, and ``profile()``, which profiles one step per chain and
+    adds its "busy" share)."""
     import torch
     from oadg_tpu_torch.config import load_config
     from oadg_tpu_torch.engine import make_oadg_preprocess
     from oadg_tpu_torch.ops import roi_align
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     dev = torch.device("cuda", 0)
+    dtype = torch_dtype(name)
     cfg = load_config(FLAGSHIP)
     oamix_cfg = flagship_oamix_cfg()
     t0 = time.perf_counter()
     # one model and optimizer, OA-Mix on either chain: the same entry point
-    # with ``chain`` set, switched between the two runs
-    preprocess = {chain: make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], chain=chain)
-                  for chain in ("slots", "merged")}
+    # with ``chain`` set, switched between the two runs; the preprocess
+    # emits the model's dtype, as the JAX package's train API builds it
     current = ["slots"]
-    model, step = build_trainer("cuda", cfg, lambda b, g: preprocess[current[0]](b, g))
+    preprocess = {}
+    model, step = build_trainer("cuda", cfg, lambda b, g: preprocess[current[0]](b, g),
+                                dtype=dtype)
+    preprocess.update({chain: make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"],
+                                                   out_dtype=model.dtype, chain=chain)
+                       for chain in ("slots", "merged")})
     batch = raw_train_batch(np.random.RandomState(3), IMG_H, IMG_W, dev)
-    log("train", f"flagship for training (num_views {cfg['num_views']}, f32, "
-                 f"channels-last), OA-Mix preprocess ({oamix_cfg['version']}), and a "
-                 f"uint8 batch of 2 images of {IMG_H}x{IMG_W} in "
-                 f"{time.perf_counter() - t0:.2f} s")
+    log("train", f"{name}: flagship for training (num_views {cfg['num_views']}, "
+                 f"{name} compute, float32 parameters, channels-last), OA-Mix preprocess "
+                 f"({oamix_cfg['version']}, out_dtype {model.dtype}), and a uint8 batch of "
+                 f"2 images of {IMG_H}x{IMG_W} in {time.perf_counter() - t0:.2f} s")
     params = dict(model.named_parameters())
     frozen = [k for k, p in params.items() if not p.requires_grad]
+    if any(p.dtype != torch.float32 for p in params.values()):
+        raise AssertionError(f"{name}: a parameter is not float32")
     gen = torch.Generator(device=dev).manual_seed(0)
     wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD,
                     **oamix_wrappers())
-    medians = {}
+    entries = dict(roi_align_fwd=_EntryDtypes(ROI_ALIGN_FWD),
+                   roi_align_bwd=_EntryDtypes(ROI_ALIGN_BWD))
+    out = {}
     for chain in ("slots", "merged"):
         current[0] = chain
         before = {k: p.detach().clone() for k, p in params.items()}
@@ -1537,54 +1673,73 @@ def phase_train(rows):
         torch.cuda.reset_peak_memory_stats()
         for wr in wrappers.values():
             wr.launches = 0
+        for e in entries.values():
+            e.dtypes.clear()
         expected = dict(roi_align_fwd=6, roi_align_bwd=6,
                         **dict.fromkeys(oamix_wrappers(), 0))
         times, logs = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            logs.append(step(batch, gen))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            implied = expected_launches(preprocess[chain].draws, oamix_cfg["version"], chain)
-            for k, n in implied.items():
-                expected[k] += n
+        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = entries.values()
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                logs.append(step(batch, gen))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                implied = expected_launches(preprocess[chain].draws, oamix_cfg["version"],
+                                            chain)
+                for k, n in implied.items():
+                    expected[k] += n
+        finally:
+            roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
         launched = {k: wr.launches for k, wr in wrappers.items()}
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for i, lv in enumerate(logs):
-            log("train", f"{chain} chain, step {i + 1}: " + ", ".join(
+            log("train", f"{name}, {chain} chain, step {i + 1}: " + ", ".join(
                 f"{k} {float(v):.5f}" for k, v in lv.items()))
-        medians[chain] = statistics.median(times)
-        log("train", f"{chain} chain, 3 steps: ms {[round(t, 3) for t in times]}, median "
-                     f"{medians[chain]:.3f}; max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+        median = statistics.median(times)
+        log("train", f"{name}, {chain} chain, 3 steps: ms {[round(t, 3) for t in times]}, "
+                     f"median {median:.3f}; max_memory_allocated {peak:.2f} GiB; "
                      f"launches {launched}; the tables imply {expected}")
         if launched != expected:
-            raise AssertionError(f"3 steps ({chain}) launched {launched}, not {expected}")
+            raise AssertionError(f"3 steps ({name}, {chain}) launched {launched}, "
+                                 f"not {expected}")
+        for k, e in entries.items():
+            if e.dtypes != [dtype] * 6:
+                raise AssertionError(f"{name}: {k} entered with maps of {e.dtypes}")
+        log("train", f"{name}, {chain} chain: roi_align_fwd and roi_align_bwd each entered "
+                     f"6 times with {dtype} maps")
         idle = {"slots": {"merged_shift_rows"},
                 "merged": {"shear_rows", "piecewise_shift_rows"}}[chain]
         unlaunched = [k for k, n in launched.items() if not n and k not in idle]
         if unlaunched:
-            raise AssertionError(f"3 steps ({chain}) never launched {unlaunched}")
+            raise AssertionError(f"3 steps ({name}, {chain}) never launched {unlaunched}")
         for r in rows:
-            r[f"launches_{chain}"] = launched[r["name"]]
+            r[f"launches_{chain}" + ("" if name == "f32" else "_bf16")] = launched[r["name"]]
         for lv in logs:
-            if not all(bool(torch.isfinite(v).all()) for v in lv.values()):
-                raise AssertionError(f"a loss is not finite: {lv}")
+            if not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                       for v in lv.values()):
+                raise AssertionError(f"a loss is not a finite float32: {lv}")
             if not float(lv["loss_cont"]) > 0:
                 raise AssertionError("loss_cont is not positive")
         still = [k for k, p in params.items() if p.requires_grad
                  and torch.equal(p.detach(), before[k])]
         moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
-        log("train", f"{chain} chain: {len(params) - len(frozen)} trainable parameters, "
-                     f"{len(still)} unmoved; {len(frozen)} frozen (stem, layer1), "
-                     f"{len(moved)} moved")
-        if still or moved or not frozen:
-            raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}")
+        grads = {p.grad.dtype for p in params.values() if p.grad is not None}
+        log("train", f"{name}, {chain} chain: {len(params) - len(frozen)} trainable "
+                     f"parameters, {len(still)} unmoved; {len(frozen)} frozen (stem, layer1), "
+                     f"{len(moved)} moved; parameters float32, gradients {sorted(map(str, grads))}")
+        if still or moved or not frozen or grads != {torch.float32}:
+            raise AssertionError(f"unmoved trainable {still[:5]}, moved frozen {moved[:5]}, "
+                                 f"gradient dtypes {grads}")
+        out[chain] = {"median_ms": median, "peak_gib": peak}
     # each kernel's launches on the path that runs it: the slots run's, and
     # the merged run's for the kernel that only the merged chain launches
-    for r in rows:
-        r["launches"] = r["launches_slots"] or r["launches_merged"]
-    log("train", f"step medians in this call ({nvidia_smi_line()}): slots chain "
-                 f"{medians['slots']:.3f} ms, merged chain {medians['merged']:.3f} ms")
+    if name == "f32":
+        for r in rows:
+            r["launches"] = r["launches_slots"] or r["launches_merged"]
+    log("train", f"{name}: step medians in this call ({nvidia_smi_line()}): slots chain "
+                 f"{out['slots']['median_ms']:.3f} ms, merged chain "
+                 f"{out['merged']['median_ms']:.3f} ms")
 
     # One more step with both kernels checked in place: B1's RoI features
     # and B2's level gradients against the plain versions on the same inputs
@@ -1592,22 +1747,29 @@ def phase_train(rows):
     checks = (_Checked("roi_align_fwd", ROI_ALIGN_FWD, _plain_fwd),
               _Checked("roi_align_bwd", ROI_ALIGN_BWD, _plain_bwd))
     roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
-    step(batch, gen)
-    roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
+    try:
+        step(batch, gen)
+    finally:
+        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
     torch.cuda.synchronize()
     for check in checks:
-        for i, (r, err, lim) in enumerate(check.calls):
-            log("train", f"{check.name} call {i} in the step (R={r}, 4 images): "
-                         f"vs plain version max_abs_err {err:.3e} (limit {lim:.3e})")
-            if not err <= lim:
+        for i, (r, maps, err, lim, within) in enumerate(check.calls):
+            log("train", f"{name}: {check.name} call {i} in the step (R={r}, 4 images, "
+                         f"{maps} maps): vs plain version max_abs_err {err:.3e} (limit "
+                         f"{lim:.3e}{' + 2^-8 |value|' if check.name.endswith('bwd') and maps == torch.bfloat16 else ''})")
+            if not within or maps != dtype:
                 raise AssertionError(f"{check.name} in the step disagrees: {err} > {lim}")
         if len(check.calls) != 2:
             raise AssertionError(f"{len(check.calls)} {check.name} calls in a step")
-    for chain in ("slots", "merged"):
-        current[0] = chain
-        train_profile(step, batch, gen, chain)
-    del model, step, batch
-    torch.cuda.empty_cache()
+
+    def profile():
+        """One profiled step per chain (after every timed step of the run:
+        the profiler slows the host's launches for the rest of the process)."""
+        for chain in ("slots", "merged"):
+            current[0] = chain
+            out[chain]["busy"] = train_profile(step, batch, gen, chain, name)
+
+    return out, profile
 
 
 STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: rpn head+loss",
@@ -1615,14 +1777,14 @@ STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: r
           "train_step: backward", "train_step: sgd")
 
 
-def train_profile(step, batch, gen, chain):
+def train_profile(step, batch, gen, chain, dtype_name="f32"):
     """One step (OA-Mix on ``chain``) under torch.profiler, read through the ``record_function``
     spans of ``forward_train`` and ``make_train_step``: per stage the host
     time of its span and the device time of the kernels launched in it, and
     the device's busy share of the step. Autograd launches the backward's
     kernels from its own thread, outside the backward span, so the
     backward's device time is the sum over autograd's ``evaluate_function``
-    events."""
+    events. -> the device's busy share of the step's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1645,27 +1807,32 @@ def train_profile(step, batch, gen, chain):
         dev_ms = autograd if name == "train_step: backward" else \
             host[name].device_time_total / 1e3
         spanned += dev_ms
-        log("train-profile", f"{chain} chain, {name}: host "
+        log("train-profile", f"{dtype_name}, {chain} chain, {name}: host "
                              f"{host[name].cpu_time_total / 1e3:.3f} ms, "
                              f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
-    log("train-profile", f"profiled step ({chain} chain) {wall:.3f} ms wall, device busy "
-                         f"{busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
+    log("train-profile", f"profiled step ({dtype_name}, {chain} chain) {wall:.3f} ms wall, "
+                         f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
                          f"{busy - spanned:.3f} ms outside the stages")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         log("train-profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
                              f"x{e.count:<5d} {e.key[:90]}")
+    return busy / wall
 
 
-def phase_train_reference():
-    """One step's losses and gradients, CPU vs card, on 256x512 views."""
+def phase_train_reference(name):
+    """One step's losses and gradients at ``name`` (f32 or bf16), CPU vs
+    card, on 256x512 views."""
     import torch
     from oadg_tpu_torch.config import load_config
     from oadg_tpu_torch.utils.draws import UniformDraws
     dev = torch.device("cuda", 0)
+    dtype = torch_dtype(name)
+    loss_tol, grad_tol = (1e-3, 1e-3) if name == "f32" else (TOL_BF16_LOSS, TOL_BF16_CARD)
     cfg = load_config(FLAGSHIP)
-    card, _ = build_trainer("cuda", cfg)
-    cpu, _ = build_trainer("cpu", cfg)
+    card, _ = build_trainer("cuda", cfg, dtype=dtype)
+    cpu, _ = build_trainer("cpu", cfg, dtype=dtype)
     batch = fixed_view_batch(np.random.RandomState(4), 256, 512, cfg, "cpu")
+    batch["img"] = batch["img"].to(dtype)
     card_batch = {k: v.to(dev) for k, v in batch.items()}
     card_batch["img"] = card_batch["img"].contiguous(memory_format=torch.channels_last)
 
@@ -1696,16 +1863,16 @@ def phase_train_reference():
     lh, ph = one_step(cpu, batch, UniformDraws(given=draws.drawn))
     (bc, _, vc), (bh, _, vh) = proposals["card"], proposals["cpu"]
     same = (vc.cpu() == vh) & ((bc.cpu() - bh).abs().max(-1).values < 1e-2)
-    log("train-reference", f"CPU proposals equal to the card's in place: "
+    log("train-reference", f"{name}: CPU proposals equal to the card's in place: "
                            f"{int(same.sum())} of {int(vc.sum())} valid")
     for k in sorted(lc):
         if "loss" not in k:
             continue
         a, b = float(lc[k].detach()), float(lh[k].detach())
         err = abs(a - b) / max(abs(b), 1e-6)
-        log("train-reference", f"{k}: card {a:.6f} CPU {b:.6f} rel err {err:.2e} "
-                               "(limit 1e-3)")
-        if not err <= 1e-3:
+        log("train-reference", f"{name}: {k}: card {a:.6f} CPU {b:.6f} rel err {err:.2e} "
+                               f"(limit {loss_tol:.1e})")
+        if not (err <= loss_tol and lc[k].dtype == torch.float32):
             raise AssertionError(f"{k} card vs CPU: {a} vs {b}")
     names = [k for k in ph if k.startswith(("rpn_head.rpn_conv.",
                                             "roi_head.bbox_head.fc_cls."))
@@ -1713,9 +1880,10 @@ def phase_train_reference():
     for k in names:
         want = ph[k].grad
         err = float((pc[k].grad.cpu() - want).abs().max())
-        lim = 1e-3 * float(want.abs().max())
-        log("train-reference", f"grad {k}: max_abs_err {err:.3e} (limit {lim:.3e})")
-        if not err <= lim:
+        lim = grad_tol * float(want.abs().max())
+        log("train-reference", f"{name}: grad {k} ({pc[k].grad.dtype}): max_abs_err "
+                               f"{err:.3e} (limit {lim:.3e})")
+        if not (err <= lim and pc[k].grad.dtype == torch.float32):
             raise AssertionError(f"grad {k} card vs CPU: {err} > {lim}")
 
 
@@ -1735,12 +1903,21 @@ def main():
         print(json.dumps({"kernels": rows}), flush=True)
         print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
         return 0
-    handle = phase_slice(rows)
-    phase_reference(handle)
-    del handle
+    handles = phase_slice(rows)
+    phase_reference(handles)
+    del handles
     phase_oamix()
-    phase_train(rows)
-    phase_train_reference()
+    trains = {name: phase_train(rows, name) for name in DTYPES}
+    for _, profile in trains.values():
+        profile()
+    summary = {name: out for name, (out, _) in trains.items()}
+    for name in DTYPES:
+        summary[name]["serving_busy"] = serving_profile(name)
+    del trains
+    torch.cuda.empty_cache()
+    log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")
+    for name in DTYPES:
+        phase_train_reference(name)
     phase_profiled(rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)

@@ -38,9 +38,11 @@ class DetectorHandle:
 
 def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
                   device: Union[str, torch.device] = "cuda",
-                  seed: int = 0, num_views: int = 1) -> DetectorHandle:
+                  seed: int = 0, num_views: int = 1, dtype=None) -> DetectorHandle:
     """Build ``config`` (a path or a loaded config) on ``device``;
-    ``num_views`` > 1 builds it for OA-DG training on views-major batches.
+    ``num_views`` > 1 builds it for OA-DG training on views-major batches;
+    ``dtype`` is the compute dtype (``torch.bfloat16``; None is float32,
+    see ``build_detector``), the model's ``dtype``.
 
     Weights come from ``checkpoint`` (a ``torch.save``d ``state_dict``, or a
     dict holding one under ``"state_dict"``, loaded strictly) or, without
@@ -56,7 +58,7 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
     if isinstance(config, (str, os.PathLike)):
         config = load_config(config)
     model = build_detector(dict(config["model"]), device=device,
-                           num_views=num_views)
+                           num_views=num_views, dtype=dtype)
     if checkpoint is not None:
         sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
         sd = sd.get("state_dict", sd)

@@ -1,5 +1,10 @@
 """Delta box coder (port of ``oadg_tpu/core/bbox/coder.py:20``, mmdet 2.x
-``DeltaXYWHBBoxCoder``: widths are ``x2 - x1``)."""
+``DeltaXYWHBBoxCoder``: widths are ``x2 - x1``).
+
+``decode`` of bfloat16 deltas runs in float32, as in the JAX package: there
+``deltas * self.stds`` promotes bfloat16 against a numpy float32 array (not
+weakly typed) to float32 (``:58``); here the float32 ``stds`` tensor promotes
+the bfloat16 deltas the same way, and the float32 boxes carry the rest."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple

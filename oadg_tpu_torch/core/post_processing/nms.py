@@ -8,7 +8,10 @@ edge from a certain survivor reaches is certainly suppressed, so its outgoing
 edges are removed; repeat until nothing changes. What remains is the greedy
 keep set. The JAX package runs this per 256-box tile; here the whole set is
 one tile, batched over any leading dimensions. Every function keeps the JAX
-package's tie order: a stable descending sort, lower index first.
+package's tie order: a stable descending sort, lower index first. Scores
+keep their dtype: the proposals of a bfloat16 model sort and suppress on
+bfloat16 scores, where ties are common, as ``jax.lax.top_k`` and the JAX
+package's stable ``argsort`` do.
 """
 from __future__ import annotations
 

@@ -33,7 +33,10 @@ def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any]
                          chain: Optional[str] = None) -> Callable:
     """-> ``preprocess(batch, generator, draws=None)``; ``out_dtype`` casts
     the integrated images after the float32 normalization (None keeps
-    float32); ``chain`` goes to ``oamix_batch``."""
+    float32): pass the model's ``dtype``, as ``oadg_tpu/apis/train.py:86-91``
+    does (a bfloat16 model casts its input at the first conv anyway, so this
+    halves the bytes of the image stack and changes no result); ``chain``
+    goes to ``oamix_batch``."""
     mean = np.asarray(img_norm_cfg.get("mean", [123.675, 116.28, 103.53]), np.float32)
     std = np.asarray(img_norm_cfg.get("std", [58.395, 57.12, 57.375]), np.float32)
     to_rgb = bool(img_norm_cfg.get("to_rgb", True))

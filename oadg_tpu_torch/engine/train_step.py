@@ -6,6 +6,11 @@ turns a uint8 batch into the views-major one through on-device OA-Mix,
 inside a ``train_step: oamix`` span, as the JAX step runs its preprocess
 inside the jitted step.
 
+The model's parameters, their gradients and SGD are float32 whatever the
+model's compute ``dtype``: a bfloat16 layer casts its float32 parameters on
+use, and autograd returns float32 gradients through the cast. Build the
+preprocess with ``out_dtype=model.dtype``.
+
 Backward and the SGD step run inside ``torch.profiler.record_function``
 spans (``train_step: backward``, ``train_step: sgd``), beside those of
 ``TwoStageDetector.forward_train``; they cost nothing without a profiler.

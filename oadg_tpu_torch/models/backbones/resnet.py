@@ -9,6 +9,10 @@ Training: ``frozen_stages`` (>= 0) sets ``requires_grad=False`` on the stem
 (``conv1``, ``bn1``) and ``layer1`` .. ``layer<frozen_stages>``, the direct
 children that ``oadg_tpu/engine/optim.py:frozen_mask`` (``:39-62``) masks;
 ``norm_cfg.requires_grad=False`` freezes every BN affine as well.
+
+Every conv and its frozen BN run as one folded conv (``layers.conv_frozen_bn``,
+the JAX package's ``conv_norm``, ``:30-50``), in the compute dtype ``dtype``;
+the module pairs and their ``state_dict`` keys stay those of mmdet.
 """
 from __future__ import annotations
 
@@ -17,16 +21,23 @@ from typing import Sequence
 from torch import nn
 
 from ...utils.registry import BACKBONES
-from ..layers import Conv, FrozenBN, max_pool_3x3_s2
+from ..layers import Conv, FrozenBN, conv_frozen_bn, max_pool_3x3_s2
 
 
-def _conv(cin, cout, k, stride=1, padding=0, device=None):
-    return Conv(cin, cout, k, stride, padding, bias=False, device=device)
+def _conv(cin, cout, k, stride=1, padding=0, device=None, dtype=None):
+    return Conv(cin, cout, k, stride, padding, bias=False, device=device,
+                dtype=dtype)
 
 
-def _downsample(cin, cout, stride, bn_grad, device):
-    return nn.Sequential(_conv(cin, cout, 1, stride, device=device),
+def _downsample(cin, cout, stride, bn_grad, device, dtype):
+    """``downsample.0`` (1x1 conv) and ``downsample.1`` (its frozen BN)."""
+    return nn.Sequential(_conv(cin, cout, 1, stride, device=device, dtype=dtype),
                          FrozenBN(cout, requires_grad=bn_grad, device=device))
+
+
+def _identity(block, x):
+    ds = block.downsample
+    return x if ds is None else conv_frozen_bn(ds[0], ds[1], x)
 
 
 class BasicBlock(nn.Module):
@@ -34,19 +45,19 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 bn_grad=True, device=None):
+                 bn_grad=True, device=None, dtype=None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, 1, device=device)
+        self.conv1 = _conv(inplanes, planes, 3, stride, 1, device=device, dtype=dtype)
         self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv2 = _conv(planes, planes, 3, 1, 1, device=device)
+        self.conv2 = _conv(planes, planes, 3, 1, 1, device=device, dtype=dtype)
         self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        identity = _identity(self, x)
+        out = self.relu(conv_frozen_bn(self.conv1, self.bn1, x))
+        out = conv_frozen_bn(self.conv2, self.bn2, out)
         return self.relu(out + identity)
 
 
@@ -55,22 +66,22 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 bn_grad=True, device=None):
+                 bn_grad=True, device=None, dtype=None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, device=device)
+        self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
         self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv2 = _conv(planes, planes, 3, stride, 1, device=device)
+        self.conv2 = _conv(planes, planes, 3, stride, 1, device=device, dtype=dtype)
         self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv3 = _conv(planes, planes * 4, 1, device=device)
+        self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
         self.bn3 = FrozenBN(planes * 4, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        identity = _identity(self, x)
+        out = self.relu(conv_frozen_bn(self.conv1, self.bn1, x))
+        out = self.relu(conv_frozen_bn(self.conv2, self.bn2, out))
+        out = conv_frozen_bn(self.conv3, self.bn3, out)
         return self.relu(out + identity)
 
 
@@ -93,7 +104,7 @@ class ResNet(nn.Module):
                  style: str = "pytorch", frozen_stages: int = -1,
                  norm_cfg=None, norm_eval: bool = True, init_cfg=None,
                  base_channels: int = 64, stem_channels: int = 64,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         if style != "pytorch" or not norm_eval:
             raise NotImplementedError("the port's ResNet is pytorch style with "
@@ -104,7 +115,7 @@ class ResNet(nn.Module):
         blocks = blocks[:num_stages]
         bn_grad = dict(norm_cfg or {}).get("requires_grad", True) is not False
         self.out_indices = tuple(out_indices)
-        self.conv1 = _conv(3, stem_channels, 7, 2, 3, device=device)
+        self.conv1 = _conv(3, stem_channels, 7, 2, 3, device=device, dtype=dtype)
         self.bn1 = FrozenBN(stem_channels, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         inplanes = stem_channels
@@ -117,9 +128,9 @@ class ResNet(nn.Module):
                 ds = None
                 if j == 0 and (stride != 1 or inplanes != planes * block.expansion):
                     ds = _downsample(inplanes, planes * block.expansion, stride,
-                                     bn_grad, device)
+                                     bn_grad, device, dtype)
                 layers.append(block(inplanes, planes, stride, ds, bn_grad,
-                                    device=device))
+                                    device=device, dtype=dtype))
                 inplanes = planes * block.expansion
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*layers))
@@ -130,7 +141,7 @@ class ResNet(nn.Module):
             module.requires_grad_(False)
 
     def forward(self, x):
-        x = max_pool_3x3_s2(self.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(self.relu(conv_frozen_bn(self.conv1, self.bn1, x)))
         outs = []
         for i, name in enumerate(self.res_layers):
             x = getattr(self, name)(x)

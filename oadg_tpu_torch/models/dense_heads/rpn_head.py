@@ -8,6 +8,13 @@ over all levels, padded, with a validity mask.
 
 Outputs stay NCHW as mmdet's; proposals permute them to NHWC before
 flattening, so anchors (H, W, A) and deltas (A * 4, 4 fastest) line up.
+
+Dtypes, as the JAX package's: the convs compute in ``dtype`` and return it;
+the loss takes the outputs cast to float32 (``:161,165``); proposals select
+and sort the objectness in its own dtype (bfloat16 logits tie often; ties go
+to the lower index, as ``jax.lax.top_k``), take its sigmoid in that dtype
+(``:206,213``; ``sigmoid``) and run NMS and the final selection on those
+scores; the deltas are decoded in float32 (``core/bbox/coder.py``).
 """
 from __future__ import annotations
 
@@ -22,12 +29,23 @@ from ...utils.registry import (BBOX_CODERS, HEADS, LOSSES, PRIOR_GENERATORS,
 from ..layers import Conv, normal_
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of the proposals' scores. Float32: ``torch.sigmoid``.
+    A narrower dtype: ``1 / (1 + exp(-x))`` with each operation rounded to
+    it, the form XLA expands ``logistic`` into (``torch.sigmoid`` rounds
+    once, and a bfloat16 step apart reorders near-tied proposals)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
 @HEADS.register_module()
 class RPNHead(nn.Module):
 
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
                  anchor_generator=None, bbox_coder=None, loss_cls=None,
-                 loss_bbox=None, train_cfg=None, test_cfg=None, device=None):
+                 loss_bbox=None, train_cfg=None, test_cfg=None, device=None,
+                 dtype=None):
         super().__init__()
         self.prior_generator = build_from_cfg(dict(anchor_generator),
                                               PRIOR_GENERATORS)
@@ -43,9 +61,10 @@ class RPNHead(nn.Module):
         self.sampler = RandomSampler(**cfg_args(
             self.train_cfg.get("sampler"), dict(num=256, pos_fraction=0.5)))
         na = self.prior_generator.num_base_anchors[0]
-        self.rpn_conv = Conv(in_channels, feat_channels, 3, padding=1, device=device)
-        self.rpn_cls = Conv(feat_channels, na, 1, device=device)
-        self.rpn_reg = Conv(feat_channels, na * 4, 1, device=device)
+        conv = dict(device=device, dtype=dtype)
+        self.rpn_conv = Conv(in_channels, feat_channels, 3, padding=1, **conv)
+        self.rpn_cls = Conv(feat_channels, na, 1, **conv)
+        self.rpn_reg = Conv(feat_channels, na * 4, 1, **conv)
 
     def init_weights(self, gen: torch.Generator):
         """Normal(std=0.01) convs, zero biases (mmdet RPNHead init_cfg)."""
@@ -145,7 +164,7 @@ class RPNHead(nn.Module):
                 max_shape=max_shape)
             pad = nms_pre - top
             boxes_l.append(F.pad(boxes, (0, 0, 0, pad)))
-            scores_l.append(F.pad(torch.sigmoid(ts), (0, pad)))
+            scores_l.append(F.pad(sigmoid(ts), (0, pad)))
             valid_l.append((torch.arange(nms_pre, device=dev) < top).expand(n, nms_pre))
         boxes = torch.stack(boxes_l, 1)                            # (N, L, P, 4)
         scores = torch.stack(scores_l, 1)

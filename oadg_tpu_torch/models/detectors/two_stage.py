@@ -9,6 +9,10 @@ training adds ``gt_bboxes`` (N, G, 4), ``gt_labels`` (N, G) and ``gt_valid``
 (N, G) bool, the images views-major ``[B clean; B view 2; ...]`` with each
 view's gts equal to the clean ones. Every shape is static: padding is
 masked, never indexed away.
+
+``dtype`` is the compute dtype of the backbone, neck and heads
+(``:65-101``; None is float32), recorded as ``self.dtype``; parameters stay
+float32, and the random proposals are float32 in either dtype.
 """
 from __future__ import annotations
 
@@ -68,9 +72,10 @@ class TwoStageDetector(nn.Module):
 
     def __init__(self, backbone, neck=None, rpn_head=None, roi_head=None,
                  train_cfg=None, test_cfg=None, init_cfg=None, pretrained=None,
-                 num_views: int = 1, device=None):
+                 num_views: int = 1, device=None, dtype=None):
         super().__init__()
-        dev = dict(device=device)
+        dev = dict(device=device, dtype=dtype)
+        self.dtype = torch.float32 if dtype is None else dtype
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self.num_views = num_views

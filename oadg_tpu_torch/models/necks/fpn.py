@@ -1,7 +1,9 @@
 """FPN (port of ``oadg_tpu/models/necks/fpn.py:24``): 1x1 laterals, nearest
 2x top-down upsampling, 3x3 outputs, extra levels by stride-2 subsampling
 (``num_outs`` above the inputs, ``add_extra_convs=False``, ``:52-58``).
-mmdet keys: ``lateral_convs.i.conv.weight``, ``fpn_convs.i.conv.weight``."""
+mmdet keys: ``lateral_convs.i.conv.weight``, ``fpn_convs.i.conv.weight``.
+The convs compute in ``dtype`` (float32 parameters); the top-down sums and
+the extra levels stay in the maps' dtype, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -24,13 +26,15 @@ def upsample_nearest_2x(x, out_hw):
 class FPN(nn.Module):
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 out_channels: int = 256, num_outs: int = 5, device=None):
+                 out_channels: int = 256, num_outs: int = 5, device=None,
+                 dtype=None):
         super().__init__()
         self.num_outs = num_outs
         self.lateral_convs = nn.ModuleList(
-            ConvModule(c, out_channels, 1, device=device) for c in in_channels)
+            ConvModule(c, out_channels, 1, device=device, dtype=dtype) for c in in_channels)
         self.fpn_convs = nn.ModuleList(
-            ConvModule(out_channels, out_channels, 3, 1, 1, device=device)
+            ConvModule(out_channels, out_channels, 3, 1, 1, device=device,
+                       dtype=dtype)
             for _ in in_channels)
 
     def forward(self, inputs):

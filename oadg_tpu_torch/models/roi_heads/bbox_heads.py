@@ -5,7 +5,12 @@ contrastive head, the embedding MLP ``fc_cont`` (ReLU between its layers,
 none after the last; the test path discards it). ``get_targets`` and
 ``loss`` (``:117-174``) are the static-shape training targets and losses.
 mmdet keys: ``shared_fcs.0.weight`` (input flattened C, H, W), ``fc_cls``,
-``fc_reg``, ``fc_cont.i``."""
+``fc_reg``, ``fc_cont.i``.
+
+Every FC computes in ``dtype`` (float32 parameters; the float32 RoI features
+are cast on entry, as ``nn.Dense(dtype=...)`` does) and returns it; the
+losses and the test path's softmax take ``cls_score`` and ``bbox_pred`` cast
+to float32 (``:154,169,172,182``), and the deltas are decoded in float32."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +18,7 @@ from torch import nn
 
 from ...core.bbox.coder import DeltaXYWHBBoxCoder
 from ...utils.registry import HEADS, LOSSES, build_from_cfg
-from ..layers import lecun_normal_, normal_, xavier_uniform_
+from ..layers import Linear, lecun_normal_, normal_, xavier_uniform_
 from ..losses.common import accuracy
 
 
@@ -25,7 +30,7 @@ class Shared2FCBBoxHead(nn.Module):
                  bbox_coder=None, reg_class_agnostic: bool = False,
                  with_cont: bool = False, cont_predictor_cfg=None,
                  out_dim_cont=None, loss_cls=None, loss_bbox=None,
-                 loss_cont=None, device=None):
+                 loss_cont=None, device=None, dtype=None):
         super().__init__()
         coder = dict(bbox_coder or dict(target_means=(0., 0., 0., 0.),
                                         target_stds=(0.1, 0.1, 0.2, 0.2)))
@@ -37,18 +42,18 @@ class Shared2FCBBoxHead(nn.Module):
         self.loss_bbox_cfg = dict(loss_bbox or dict(type="SmoothL1Loss", beta=1.0))
         self.loss_cont_cfg = dict(loss_cont) if loss_cont else None
         flat = in_channels * roi_feat_size * roi_feat_size
+        fc = dict(device=device, dtype=dtype)
         self.shared_fcs = nn.ModuleList([
-            nn.Linear(flat, fc_out_channels, device=device),
-            nn.Linear(fc_out_channels, fc_out_channels, device=device)])
-        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1, device=device)
-        self.fc_reg = nn.Linear(fc_out_channels,
-                                4 if reg_class_agnostic else 4 * num_classes,
-                                device=device)
+            Linear(flat, fc_out_channels, **fc),
+            Linear(fc_out_channels, fc_out_channels, **fc)])
+        self.fc_cls = Linear(fc_out_channels, num_classes + 1, **fc)
+        self.fc_reg = Linear(fc_out_channels,
+                             4 if reg_class_agnostic else 4 * num_classes, **fc)
         if with_cont:
             cfg = dict(cont_predictor_cfg or dict(num_linear=2, feat_channels=256))
             width = cfg.get("feat_channels", 256)
             dims = [fc_out_channels] + [width] * cfg.get("num_linear", 2)
-            self.fc_cont = nn.ModuleList(nn.Linear(a, b, device=device)
+            self.fc_cont = nn.ModuleList(Linear(a, b, **fc)
                                          for a, b in zip(dims[:-1], dims[1:]))
 
     def init_weights(self, gen: torch.Generator):

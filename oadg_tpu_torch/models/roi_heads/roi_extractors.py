@@ -1,7 +1,9 @@
 """Single-level-per-roi extractor (port of
 ``oadg_tpu/models/roi_heads/roi_extractors.py:24``): each roi reads the FPN
 level its area maps to, through ``ops/roi_align.roi_align_multilevel`` (the
-CUDA kernel on the card)."""
+CUDA kernel on the card). The maps come in the model's dtype (a bfloat16
+model's are read as bfloat16 by B1 and its gradient B2); the features are
+float32 either way."""
 from __future__ import annotations
 
 from typing import Sequence

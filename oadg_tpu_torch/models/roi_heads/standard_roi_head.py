@@ -12,6 +12,10 @@ in front (``add_gt_as_proposals``), are assigned and sampled once
 targets and losses follow. ``ContrastiveRoIHead.loss`` (``:271-337``) adds
 the supervised-contrastive loss over the sampled rows' embeddings and those
 of the random proposals, which go through a second extraction.
+
+The box head computes in ``dtype``; RoIAlign returns float32 features from
+maps of either dtype, and the contrastive loss takes the embeddings cast to
+float32 (``:336``).
 """
 from __future__ import annotations
 
@@ -27,11 +31,12 @@ from ...utils.registry import HEADS, LOSSES, ROI_EXTRACTORS, build_from_cfg, cfg
 class StandardRoIHead(nn.Module):
 
     def __init__(self, bbox_roi_extractor=None, bbox_head=None, train_cfg=None,
-                 test_cfg=None, num_views: int = 1, device=None):
+                 test_cfg=None, num_views: int = 1, device=None, dtype=None):
         super().__init__()
         self.bbox_roi_extractor = build_from_cfg(
             dict(bbox_roi_extractor), ROI_EXTRACTORS, dict(device=device))
-        self.bbox_head = build_from_cfg(dict(bbox_head), HEADS, dict(device=device))
+        self.bbox_head = build_from_cfg(dict(bbox_head), HEADS,
+                                        dict(device=device, dtype=dtype))
         self.test_cfg = dict(test_cfg or {})
         nms = dict(self.test_cfg.get("nms", {}))
         if nms.get("type", "nms") != "nms":

@@ -13,6 +13,8 @@ atol=1e-6 for values of order 1, or 1e-5 of the largest magnitude; a
 bfloat16 gradient is the rounding of such an f32 sum, so it is held to one
 bfloat16 rounding step. The backward kernel sums in a fixed order, so two
 calls give equal bits.
+The bfloat16 model on the card against the same on the CPU: see
+``TOL_BF16_MAPS`` and ``TOL_BF16_LOSS``.
 The OA-Mix kernels: B3's maps equal (``best_id`` may differ only where two
 masks tie exactly), B4, B5 and B7 within 1e-4 of values up to 255 (the kernels
 fuse the lerp's multiply-add, the plain versions emulate it in float64 and
@@ -161,6 +163,148 @@ def test_one_training_step_on_the_card():
     assert ROI_ALIGN_FWD.launches == fwd + 2 and ROI_ALIGN_BWD.launches == bwd + 2
     assert all(torch.isfinite(v).all() for v in log.values())
     assert float(log["loss_cont"]) >= 0 and float(log["loss"]) > 0
+
+
+# bfloat16 on the card against bfloat16 on the CPU, relative to the largest
+# magnitude: cuDNN / cuBLAS and the CPU sum in float32 in other orders and
+# round once, so a value that lands across a rounding boundary differs by one
+# bfloat16 step (2**-8 relative) and the difference travels through the
+# following layers: feature maps and head outputs 2**-4, losses (the same
+# proposals and draws on both) 2**-6 relative, the heads' and layer4's
+# gradients 2**-4 of their largest. A gradient summed over few positions of
+# both signs cancels (the FPN's coarse levels, 8x16 cells at 256x512): one
+# step in its terms is a larger share of the sum, so every gradient is held
+# to 2**-3 of its largest (measured up to 1.04e-1, neck.fpn_convs.3).
+TOL_BF16_MAPS = 2 ** -4
+TOL_BF16_LOSS = 2 ** -6
+TOL_BF16_GRAD_SUMS = 2 ** -3
+
+
+def _r18_model():
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config("configs/OA-DG/cityscapes/"
+                      "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py")
+    model = cfg.model
+    model["backbone"].update(depth=18)
+    model["neck"].update(in_channels=[64, 128, 256, 512])
+    return cfg, model
+
+
+def _assert_close_to_largest(got, want, tol, what):
+    err = float((got.detach().float().cpu() - want.detach().float()).abs().max())
+    assert err <= tol * float(want.detach().float().abs().max()), (what, err)
+
+
+class _EntryDtypes:
+    """Stands in for a RoIAlign kernel wrapper: records the dtype of the maps
+    each call gets, then launches the kernel."""
+
+    def __init__(self, kernel):
+        self.kernel, self.dtypes = kernel, []
+
+    def __call__(self, feats, *rest):
+        self.dtypes.append(feats[0].dtype)
+        return self.kernel(feats, *rest)
+
+
+@pytest.mark.cuda
+def test_bfloat16_request_matches_the_cpu(monkeypatch):
+    """A bfloat16 request of 256x512 through ``DetectorHandle.test``: B1
+    launches once, on bfloat16 maps; FPN maps and the RoI head (on the card's
+    proposals) against the same seeded bfloat16 model on the CPU."""
+    from oadg_tpu_torch.apis import init_detector, prepare_image
+    from oadg_tpu_torch.ops import roi_align
+    dev = _cuda()
+    cfg, model = _r18_model()
+    card = init_detector({"model": model}, device="cuda", dtype=torch.bfloat16)
+    cpu = init_detector({"model": model}, device="cpu", dtype=torch.bfloat16)
+    img = np.random.RandomState(2).randint(0, 256, (256, 512, 3), dtype=np.uint8)
+    bg, bc = prepare_image(img, cfg, dev), prepare_image(img, cfg, "cpu")
+    fwd = _EntryDtypes(ROI_ALIGN_FWD)
+    monkeypatch.setattr(roi_align, "ROI_ALIGN_FWD", fwd)
+    dets, labels, valid = card.test(bg)
+    torch.cuda.synchronize()
+    assert fwd.dtypes == [torch.bfloat16]
+    assert dets.dtype == torch.float32 and torch.isfinite(dets).all() and int(valid.sum()) > 0
+    with torch.inference_mode():
+        fg, fc = card.model.extract_feat(bg["img"]), cpu.model.extract_feat(bc["img"])
+        for i, (a, b) in enumerate(zip(fg, fc)):
+            assert a.dtype == b.dtype == torch.bfloat16
+            _assert_close_to_largest(a, b, TOL_BF16_MAPS, f"FPN level {i}")
+        boxes, _, _ = card.model.rpn_head.get_proposals(*card.model.rpn_head(fg),
+                                                        bg["img_shape"])
+        rois = card.model.roi_head.proposals_to_rois(boxes)
+        outs = [m.roi_head.bbox_head(m.roi_head.bbox_roi_extractor(f, r))
+                for m, f, r in ((card.model, fg, rois), (cpu.model, fc, rois.cpu()))]
+    for name, a, b in zip(("cls_score", "bbox_pred"), *outs[:2]):
+        assert a.dtype == torch.bfloat16
+        _assert_close_to_largest(a, b, TOL_BF16_MAPS, name)
+
+
+@pytest.mark.cuda
+def test_bfloat16_step_matches_the_cpu(monkeypatch):
+    """One bfloat16 training step of 2 x 2 views of 256x512 on the card and
+    on the CPU (the card's proposals and the CPU's draws on both): B1 and B2
+    each launch twice, on bfloat16 maps; losses float32 and close;
+    parameters and their gradients float32, the gradients close
+    (``TOL_BF16_GRAD_SUMS``)."""
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    _, model = _r18_model()
+    card = init_detector({"model": model}, device="cuda", num_views=2,
+                         dtype=torch.bfloat16).model
+    cpu = init_detector({"model": model}, device="cpu", num_views=2,
+                        dtype=torch.bfloat16).model
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randn(2, 3, 256, 512).astype(np.float32))
+    x1, y1 = rng.uniform(0, 300, (2, 8)), rng.uniform(0, 150, (2, 8))
+    gt = np.stack([x1, y1, x1 + rng.uniform(16, 200, (2, 8)),
+                   y1 + rng.uniform(16, 100, (2, 8))], -1).astype(np.float32)
+    batch = {"img": torch.cat([img, img.flip(1)]).to(torch.bfloat16),
+             "gt_bboxes": torch.from_numpy(gt).repeat(2, 1, 1),
+             "gt_labels": torch.from_numpy(rng.randint(0, 8, (2, 8))).repeat(2, 1),
+             "gt_valid": torch.ones((4, 8), dtype=torch.bool),
+             "img_shape": torch.tensor([[256.0, 512.0]] * 4)}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    card_batch["img"] = card_batch["img"].contiguous(memory_format=torch.channels_last)
+    props = {}
+    card_props = card.rpn_head.get_proposals
+    card.rpn_head.get_proposals = lambda *a: props.setdefault("card", card_props(*a))
+    cpu.rpn_head.get_proposals = lambda *a: tuple(t.cpu() for t in props["card"])
+    fwd, bwd = _EntryDtypes(ROI_ALIGN_FWD), _EntryDtypes(ROI_ALIGN_BWD)
+    monkeypatch.setattr(roi_align, "ROI_ALIGN_FWD", fwd)
+    monkeypatch.setattr(roi_align, "ROI_ALIGN_BWD", bwd)
+    draws = UniformDraws(torch.Generator().manual_seed(7))      # made on the CPU
+    grads = []
+    for m, b in ((card, card_batch), (cpu, batch)):
+        losses = m.forward_train(b, draws)
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        grads.append((losses, dict(m.named_parameters())))
+        draws = UniformDraws(given=draws.drawn)                 # the same for the CPU
+    torch.cuda.synchronize()
+    assert fwd.dtypes == [torch.bfloat16] * 2 and bwd.dtypes == [torch.bfloat16] * 2
+    (lc, pc), (lh, ph) = grads
+    for k in lh:
+        assert lc[k].dtype == torch.float32 and torch.isfinite(lc[k])
+        if "loss" in k:
+            np.testing.assert_allclose(float(lc[k]), float(lh[k]), rtol=TOL_BF16_LOSS,
+                                       atol=1e-6, err_msg=k)
+    assert float(lc["loss_cont"]) > 0
+    errs = []
+    for k, p in pc.items():
+        assert p.dtype == torch.float32
+        if p.requires_grad:
+            assert p.grad.dtype == torch.float32, k
+            want = ph[k].grad
+            errs.append((float((p.grad.cpu() - want).abs().max() / want.abs().max()), k))
+        else:
+            assert p.grad is None, k
+    print("largest gradient errors, card vs CPU:", sorted(errs)[-8:])
+    heads = [e for e in errs if e[1].startswith(("rpn_head.", "roi_head.", "backbone.layer4."))]
+    assert max(heads)[0] <= TOL_BF16_MAPS, sorted(heads)[-5:]
+    assert max(errs)[0] <= TOL_BF16_GRAD_SUMS, sorted(errs)[-5:]
 
 
 def _grid_rois(rng, images, img_h, img_w):
