@@ -11,7 +11,8 @@ non-zero exit code:
    convolutions so float32 means float32.
 2. build: compiles every CUDA kernel of the serving and training paths
    from ``oadg_tpu_torch/ops/csrc/`` (B1-B7, five sources), one nvcc per
-   source, all at once.
+   source, and the port's host library (PNG unfilter, evaluation matchers;
+   ``core/evaluation/csrc/host_kernels.cpp``) with g++, all at once.
 3. kernels: each kernel against its plain PyTorch version, with its times,
    the least time the card could take (the bytes the function must move
    over 3.35 TB/s) and, where one PyTorch call computes the same function,
@@ -57,6 +58,30 @@ non-zero exit code:
    throughout, the path the CPU tests hold to the JAX package) against the
    card on a small 256x512 request: FPN outputs, and the RoI head on the
    card's proposals.
+5b. evaluate: the test path (``tools/torch_test.py``'s). 16 synthetic
+   Cityscapes-like 1024x2048 RGB PNGs (a smooth texture plus noise, ~3.7 MB
+   each) written by the port's own PNG encoder with a COCO json of the 8
+   classes; ``CityscapesDataset`` with the flagship's test pipeline through
+   ``build_test_loader`` (the config's ``workers_per_gpu`` threads, batches
+   in pinned memory); ``single_gpu_test`` with one seeded model per dtype
+   (float32, bfloat16), then ``dataset.evaluate(metric="bbox")``. B1 must
+   launch once per image on maps of the model's dtype; each image's results
+   must equal ``DetectorHandle.test`` on the same image through
+   ``prepare_image`` (the same counts, boxes within 1e-3 px, scores within
+   1e-4 relative); the ground truth as detections must score AP 1.0; the
+   native matcher must give the numpy matcher's 12 numbers on the model's
+   results and on jittered ground truth with seeded scores (0 < AP < 1); and
+   ``tools/torch_test.py CONFIG none --eval bbox`` on the same dataset, run
+   as a subprocess, must exit 0 and print the summary. A timed loop then
+   reads the 16 files ``STEADY_REPEATS`` times over (one loader over a
+   ``RepeatDataset``, one fill of its threads) and prints images/s from the
+   first batch to the last result, the fill (the first batch's request to
+   its arrival) apart, each pass's images/s (the spread), and the loader's
+   host ms per image split into decode (``LoadImageFromFile``), pipeline
+   (``MultiScaleFlipAug``: resize, normalize, pad) and collate, in the loop
+   and for one image alone; then the evaluation's ms and the COCO summary.
+   After every timed run, one profiled loop per dtype gives the device's
+   busy share.
 6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
    1024x2048 uint8 images with 32 seeded gts each, inside
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), once per
@@ -98,8 +123,10 @@ non-zero exit code:
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
-10. a JSON line of the kernels, the card's ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+10. a JSON line of the kernels (B1's ``launches`` are the training step's
+   and the test loop's, each path's count beside it), the card's
+   ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1-3 and 9 and prints the
 kernels' JSON line and no result line: for work on one kernel.
@@ -388,11 +415,17 @@ def phase_build():
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library, fg_maps.FG_MAPS.library,
             warp.SHEAR_ROWS.library, hist.HIST256.library]
+    from oadg_tpu_torch.core.evaluation import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc each, all at once
+    with ThreadPoolExecutor(len(libs) + 1) as pool:     # one nvcc each, g++, all at once
+        host = pool.submit(native.build)
         built = list(pool.map(lambda lib: lib.build(), libs))
+        host_so = host.result()
     log("build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s "
                  "(one nvcc each, in parallel)")
+    native.load()
+    log("build", f"{native.SOURCE.relative_to(ROOT)} -> {host_so.name} "
+                 f"(g++ {' '.join(native.CXX_FLAGS)})")
     for lib, so in zip(libs, built):
         log("build", f"{lib.source.relative_to(ROOT)} -> {so.name}")
         spills = 0
@@ -1531,6 +1564,333 @@ def phase_reference(handles):
             check_close("reference", f"{name}: RoI head {what} card vs CPU", a, b, tol)
 
 
+EVAL_IMAGES = 16
+STEADY_REPEATS = 4      # passes over the 16 files in the timed loop
+CITYSCAPES_CATS = (24, 25, 26, 27, 28, 31, 32, 33)    # person .. bicycle
+
+
+def write_cityscapes(root, n=EVAL_IMAGES, seed=0):
+    """``n`` synthetic Cityscapes-like 1024x2048 RGB PNGs, written by the
+    port's own encoder under ``root/leftImg8bit/``, and a COCO json of the 8
+    Cityscapes classes with 6-10 boxes an image -> (ann_file, img_prefix).
+    The pixels are a smooth colour texture (sinusoids, shifted per image) plus
+    Gaussian noise of sigma 3, so that inflating them costs what a photograph
+    costs (~3.7 MB a file)."""
+    import json
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from oadg_tpu_torch.data.pipelines.image_io import imwrite
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "leftImg8bit")
+    os.makedirs(img_dir)
+    yy, xx = np.mgrid[0:IMG_H, 0:IMG_W]
+    base = (np.sin(xx / 37.0) + np.cos(yy / 23.0)) * 60 + 128
+    base = np.stack([base, np.roll(base, 17, 0), np.roll(base, 31, 1)], -1)
+    images, annotations = [], []
+
+    def write(i):
+        r = np.random.RandomState(seed * 1000 + i)
+        img = np.roll(base, (37 * i, 101 * i), (0, 1)) + r.normal(0, 3, base.shape)
+        imwrite(os.path.join(img_dir, f"city_{i:03d}_leftImg8bit.png"),
+                np.clip(img, 0, 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(8) as pool:              # zlib releases the GIL
+        list(pool.map(write, range(n)))
+    for i in range(n):
+        images.append(dict(id=i, file_name=f"city_{i:03d}_leftImg8bit.png",
+                           width=IMG_W, height=IMG_H))
+        for _ in range(rng.randint(6, 11)):
+            bw, bh = rng.uniform(16, 400), rng.uniform(16, 300)
+            x, y = rng.uniform(0, IMG_W - bw), rng.uniform(0, IMG_H - bh)
+            annotations.append(dict(id=len(annotations) + 1, image_id=i,
+                                    category_id=int(rng.choice(CITYSCAPES_CATS)),
+                                    bbox=[x, y, bw, bh], area=bw * bh, iscrowd=0))
+    names = ("person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle")
+    ann_file = os.path.join(root, "instances_val.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=[dict(id=c, name=nm) for c, nm in
+                                   zip(CITYSCAPES_CATS, names)]), f)
+    return ann_file, img_dir + os.sep
+
+
+class _HostTimer:
+    """Stands in for a pipeline stage or the loader's collate: calls it and
+    adds its host seconds (worker threads included) to ``seconds``."""
+
+    def __init__(self, fn):
+        import threading
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+        self.lock = threading.Lock()
+
+    def __call__(self, x):
+        t0 = time.perf_counter()
+        out = self.fn(x)
+        dt = time.perf_counter() - t0
+        with self.lock:
+            self.seconds += dt
+            self.calls += 1
+        return out
+
+
+def jittered_detections(dataset, seed=0):
+    """The dataset's non-crowd annotations as detections that miss a fifth
+    of them, move the rest by 8% of their size, add seeded false positives
+    and carry seeded scores with ties: a result that scores 0 < AP < 1."""
+    rng = np.random.RandomState(seed)
+    results = []
+    for info in dataset.data_infos:
+        per_cls = [np.zeros((0, 5), np.float32) for _ in dataset.CLASSES]
+
+        def add(c, x, y, w, h):
+            per_cls[c] = np.concatenate(
+                [per_cls[c], np.asarray([[x, y, x + w, y + h, 0.0]], np.float32)])
+
+        for a in dataset.coco.img_anns.get(info["id"], []):
+            if (a["category_id"] in dataset.cat2label and not a.get("iscrowd", 0)
+                    and rng.rand() >= 0.2):
+                size = np.tile(a["bbox"][2:], 2)
+                add(dataset.cat2label[a["category_id"]],
+                    *(np.asarray(a["bbox"]) + rng.normal(0, 0.08, 4) * size))
+        for _ in range(rng.randint(2, 8)):
+            add(rng.randint(len(dataset.CLASSES)), rng.uniform(0, info["width"] - 40),
+                rng.uniform(0, info["height"] - 40),
+                *np.exp(rng.uniform(np.log(8), np.log(400), 2)))
+        for d in per_cls:
+            d[:, 4] = np.round(rng.uniform(0.05, 1, len(d)), 2)
+        results.append(per_cls)
+    return results
+
+
+def gt_as_detections(dataset):
+    """Every non-crowd annotation of the dataset as a detection of score 1."""
+    results = []
+    for info in dataset.data_infos:
+        per_cls = [np.zeros((0, 5), np.float32) for _ in dataset.CLASSES]
+        for a in dataset.coco.img_anns.get(info["id"], []):
+            if a["category_id"] in dataset.cat2label and not a.get("iscrowd", 0):
+                x, y, w, h = a["bbox"]
+                c = dataset.cat2label[a["category_id"]]
+                per_cls[c] = np.concatenate(
+                    [per_cls[c], np.asarray([[x, y, x + w, y + h, 1.0]], np.float32)])
+        results.append(per_cls)
+    return results
+
+
+def results_close(got, want):
+    """Two images' per-class detection lists: per class the same number of
+    detections, boxes within 1e-3 px and scores within 1e-4 relative ->
+    (ok, largest box error, largest score error)."""
+    box_err = score_err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return False, float("inf"), float("inf")
+        if len(g):
+            box_err = max(box_err, float(np.abs(g[:, :4] - w[:, :4]).max()))
+            score_err = max(score_err, float((np.abs(g[:, 4] - w[:, 4]) / w[:, 4]).max()))
+    return box_err <= 1e-3 and score_err <= 1e-4, box_err, score_err
+
+
+def phase_evaluate(rows):
+    """The test path: ``EVAL_IMAGES`` synthetic 1024x2048 Cityscapes PNGs
+    through ``build_test_loader`` (the flagship's test pipeline, its
+    ``workers_per_gpu`` threads, pinned batches) and ``single_gpu_test``, in
+    float32 and in bfloat16, then ``dataset.evaluate(metric="bbox")``. B1
+    must launch once per image on maps of the model's dtype; every image's
+    results must equal ``DetectorHandle.test`` on the same image through
+    ``prepare_image``; the ground truth as detections must score AP 1.0;
+    the native matcher must give the numpy matcher's 12 numbers, on the
+    model's results and on ``jittered_detections``;
+    ``tools/torch_test.py`` must exit 0 on the same dataset. A loop over
+    ``STEADY_REPEATS`` passes of the files is then timed. -> a function
+    that profiles one loop per dtype (after every timed run)."""
+    import os
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import (build_test_loader, load_model_state, prepare_image,
+                                     single_gpu_test)
+    from oadg_tpu_torch.apis.test import dets_to_results, fetch_dets
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.data import build_dataloader
+    from oadg_tpu_torch.data.datasets import RepeatDataset
+    from oadg_tpu_torch.data.pipelines.image_io import imread
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    ann_file, img_prefix = write_cityscapes(tmp.name, EVAL_IMAGES)
+    size = sum(os.path.getsize(os.path.join(img_prefix, f)) for f in os.listdir(img_prefix))
+    log("evaluate", f"wrote {EVAL_IMAGES} PNGs of {IMG_H}x{IMG_W} ({size / EVAL_IMAGES / 1e6:.2f} "
+                    f"MB each) and their COCO json in {time.perf_counter() - t0:.2f} s")
+    cfg = load_config(str(FLAGSHIP))
+    options = {"data.test.ann_file": ann_file, "data.test.img_prefix": img_prefix}
+    cfg.merge_from_dict(options)
+    loops = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        dataset, loader = build_test_loader(cfg, pin_memory=True)
+        state = load_model_state(cfg, "none", device="cuda", dtype=dtype)
+        handle = state["handle"]
+        decode, pipeline = (_HostTimer(t) for t in dataset.pipeline.transforms)
+        dataset.pipeline.transforms = [decode, pipeline]
+        collate = loader.batcher = _HostTimer(loader.batcher)
+        # a warm-up step on the first image's batch; then the second image
+        # alone in one thread: the loader's stages without contention
+        batch = collate([dataset[0]])
+        state["test_fn"](batch)
+        torch.cuda.synchronize()
+        pinned = torch.from_numpy(batch["img"]).is_pinned()
+        for t in (decode, pipeline, collate):
+            t.seconds, t.calls = 0.0, 0
+        collate([dataset[1]])
+        alone = {k: t.seconds * 1e3 for k, t in
+                 (("decode", decode), ("pipeline", pipeline), ("collate", collate))}
+        for t in (decode, pipeline, collate):
+            t.seconds, t.calls = 0.0, 0
+
+        entry = _EntryDtypes(ROI_ALIGN_FWD)
+        roi_align.ROI_ALIGN_FWD = entry
+        ROI_ALIGN_FWD.launches = 0
+        try:
+            results = single_gpu_test(state, loader)
+        finally:
+            roi_align.ROI_ALIGN_FWD = ROI_ALIGN_FWD
+        launches = ROI_ALIGN_FWD.launches
+        log("evaluate", f"{name}: roi_align_fwd launches {launches} on maps of "
+                        f"{sorted(set(map(str, entry.dtypes)))}")
+        if (len(dataset) != EVAL_IMAGES or launches != EVAL_IMAGES
+                or entry.dtypes != [dtype] * EVAL_IMAGES or not pinned):
+            raise AssertionError(f"{name}: roi_align_fwd launched {launches} times for "
+                                 f"{EVAL_IMAGES} images on maps {entry.dtypes}; pinned {pinned}")
+        rows[0]["launches_evaluate" + ("" if name == "f32" else "_bf16")] = launches
+        if len(results) != EVAL_IMAGES or not all(
+                len(r) == 8 and all(np.isfinite(c).all() for c in r) for r in results):
+            raise AssertionError(f"{name}: bad results")
+
+        # each image's results against DetectorHandle.test on the same image
+        worst = (0.0, 0.0)
+        for i, info in enumerate(dataset.data_infos):
+            img = imread(os.path.join(img_prefix, info["filename"]))
+            out = handle.test(prepare_image(img, handle.cfg, handle.device))
+            want = dets_to_results(*fetch_dets(*out), handle.num_classes)[0]
+            ok, box_err, score_err = results_close(results[i], want)
+            worst = (max(worst[0], box_err), max(worst[1], score_err))
+            if not ok:
+                raise AssertionError(
+                    f"{name}: image {i}: the loop's detections {[len(g) for g in results[i]]} "
+                    f"differ from DetectorHandle.test's {[len(w) for w in want]} (box error "
+                    f"{box_err}, score error {score_err})")
+        log("evaluate", f"{name}: every image's results equal DetectorHandle.test through "
+                        f"prepare_image ({sum(len(c) for r in results for c in r)} detections; "
+                        f"largest box error {worst[0]:.3e} px, score error {worst[1]:.3e} "
+                        "relative)")
+
+        # the timed loop: the files STEADY_REPEATS times over, one fill
+        steady = build_dataloader(RepeatDataset(dataset, STEADY_REPEATS), samples_per_gpu=1,
+                                  workers_per_gpu=loader.num_workers, shuffle=False,
+                                  static_hw=collate.fn.static_hw, pin_memory=True)
+        steady.batcher = collate
+        for t in (decode, pipeline, collate):
+            t.seconds, t.calls = 0.0, 0
+        arrivals = []
+
+        def timed(it):
+            for b in it:
+                arrivals.append(time.perf_counter())
+                yield b
+
+        n = len(steady.dataset)
+        t0 = time.perf_counter()
+        single_gpu_test(state, timed(steady))
+        end = time.perf_counter()
+        fill_ms = (arrivals[0] - t0) * 1e3
+        images_per_s = n / (end - arrivals[0])
+        marks = arrivals[::EVAL_IMAGES] + [end]
+        passes = [EVAL_IMAGES / (b - a) for a, b in zip(marks, marks[1:])]
+        per_image = {k: t.seconds * 1e3 / n for k, t in
+                     (("decode", decode), ("pipeline", pipeline), ("collate", collate))}
+        log("evaluate", f"{name}: {n} images ({STEADY_REPEATS} passes over the {EVAL_IMAGES} "
+                        f"files), {loader.num_workers} loader threads, batches pinned: "
+                        f"{pinned}; {images_per_s:.3f} images/s from the first batch to the "
+                        f"last result; fill {fill_ms:.3f} ms (the first batch's request to "
+                        f"its arrival); {n / (end - t0):.3f} images/s with the fill; per "
+                        f"pass {', '.join(f'{r:.3f}' for r in passes)} images/s "
+                        f"({nvidia_smi_line()})")
+        log("evaluate", f"{name}: loader host ms per image in the loop (wall per call, "
+                        f"{loader.num_workers} threads): decode {per_image['decode']:.3f}, "
+                        f"pipeline {per_image['pipeline']:.3f}, collate "
+                        f"{per_image['collate']:.3f}; one image alone in one thread: decode "
+                        f"{alone['decode']:.3f}, pipeline {alone['pipeline']:.3f}, collate "
+                        f"{alone['collate']:.3f} ({nvidia_smi_line()})")
+
+        t0 = time.perf_counter()
+        summary = dataset.evaluate(results, metric="bbox")
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = dataset.evaluate(results, metric="bbox", native=False)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        log("evaluate", f"{name}: COCO bbox summary {json.dumps(summary)} ({nvidia_smi_line()})")
+        log("evaluate", f"{name}: evaluation of {EVAL_IMAGES} images {eval_ms:.3f} ms with the "
+                        f"native matcher, {plain_ms:.3f} ms with the numpy one; the 12 numbers "
+                        f"equal: {plain == summary} (host; {nvidia_smi_line()})")
+        if plain != summary or len(summary) != 12:
+            raise AssertionError(f"native {summary} != numpy {plain}")
+        loops[name] = dict(state=state, loader=loader, images_per_s=images_per_s,
+                           fill_ms=fill_ms, passes=passes, host_ms=per_image,
+                           alone_ms=alone, eval_ms=eval_ms)
+
+    gt = dataset.evaluate(gt_as_detections(dataset), metric="bbox")
+    log("evaluate", f"ground truth as detections: bbox_mAP {gt['bbox_mAP']}, "
+                    f"bbox_mAP_50 {gt['bbox_mAP_50']}")
+    if gt["bbox_mAP"] != 1.0 or gt["bbox_mAP_50"] != 1.0:
+        raise AssertionError(f"ground truth as detections scored {gt}")
+    jittered = jittered_detections(dataset)
+    native, plain = (dataset.evaluate(jittered, metric="bbox", native=m) for m in (True, False))
+    log("evaluate", f"jittered ground truth with seeded scores: native {json.dumps(native)}; "
+                    f"the numpy matcher's 12 numbers equal: {plain == native}")
+    if plain != native or not 0 < native["bbox_mAP"] < 1:
+        raise AssertionError(f"jittered ground truth: native {native} != numpy {plain}, "
+                             "or AP not strictly between 0 and 1")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_test.py"), str(FLAGSHIP),
+                          "none", "--eval", "bbox", "--cfg-options",
+                          *(f"{k}={v}" for k, v in options.items())],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    log("evaluate", f"tools/torch_test.py (f32, seeded weights) exit {res.returncode} in "
+                    f"{time.perf_counter() - t0:.2f} s: {last}")
+    if res.returncode != 0 or "bbox_mAP" not in last:
+        raise AssertionError(f"tools/torch_test.py failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+
+    def profile():
+        """One profiled loop per dtype: the device's busy share (after every
+        timed run: the profiler slows the host's launches for the rest of
+        the process)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        out = {}
+        for name, loop in loops.items():
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                single_gpu_test(loop["state"], loop["loader"])
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)) / 1e3
+            log("evaluate-profile", f"{name}: profiled loop of {EVAL_IMAGES} images "
+                                    f"{wall:.3f} ms wall, device busy {busy:.3f} ms "
+                                    f"({100 * busy / wall:.1f}%; {nvidia_smi_line()})")
+            out[name] = {k: loop[k] for k in ("images_per_s", "fill_ms", "passes", "host_ms",
+                                              "alone_ms", "eval_ms")}
+            out[name]["busy"] = busy / wall
+        log("evaluate", f"per dtype ({nvidia_smi_line()}): {json.dumps(out)}")
+        tmp.cleanup()
+
+    return profile
+
+
 def raw_train_batch(rng, h, w, device):
     """The training step's input: 2 seeded uint8 BGR images of h x w on the
     device with ``NUM_GTS`` seeded gts each, ``img_shape`` on the host (OA-Mix
@@ -1906,13 +2266,16 @@ def main():
     handles = phase_slice(rows)
     phase_reference(handles)
     del handles
+    evaluate_profile = phase_evaluate(rows)
     phase_oamix()
     trains = {name: phase_train(rows, name) for name in DTYPES}
+    rows[0]["launches"] += rows[0]["launches_evaluate"]     # B1 on the test loop's path too
     for _, profile in trains.values():
         profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
+    evaluate_profile()
     del trains
     torch.cuda.empty_cache()
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")

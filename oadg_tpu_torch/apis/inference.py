@@ -1,13 +1,14 @@
-"""Serving entry points (port of ``oadg_tpu/apis/inference.py:20,38``).
+"""Serving entry points (port of ``oadg_tpu/apis/inference.py``).
 
 ``init_detector`` builds the detector of a config on a device, with seeded
 random weights or a ``state_dict`` file; ``DetectorHandle.test`` runs
 ``simple_test`` on a batch with the contract of
 ``oadg_tpu/engine/train_step.py:102`` (``img``, ``img_shape``,
 ``scale_factor``; ``img`` is NCHW here). ``prepare_image`` turns one uint8
-BGR image into such a batch: normalize with the config's ``img_norm_cfg``,
-pad to a multiple of 32. Resizing from a file belongs to the data layer and
-is not ported yet.
+BGR image into such a batch on the card: normalize with the config's
+``img_norm_cfg``, pad to a multiple of 32. ``prepare_batch`` and
+``inference_detector`` take an image file or array through the config's
+test pipeline instead (resize included), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -22,13 +23,16 @@ from ..models import build_detector
 
 
 class DetectorHandle:
-    """The detector module, its config and device."""
+    """The detector module, its config and device; ``CLASSES`` are the
+    class names of the config's test dataset type (None without one)."""
 
     def __init__(self, model, cfg, device: torch.device):
         self.model = model
         self.cfg = cfg
         self.device = device
         self.num_classes = model.roi_head.bbox_head.num_classes
+        self.CLASSES = _classes_from_cfg(cfg)
+        self._pipeline = None       # the test pipeline, built on first use
 
     def test(self, batch):
         """-> dets (N, max_per_img, 5), labels (N, max_per_img), valid."""
@@ -93,3 +97,67 @@ def prepare_image(img: np.ndarray, cfg, device) -> dict:
     return {"img": canvas,
             "img_shape": torch.tensor([[h, w]], dtype=torch.float32, device=device),
             "scale_factor": torch.ones((1, 4), device=device)}
+
+
+def _num_classes(cfg) -> int:
+    """The number of classes of the config's box head."""
+    m = dict(cfg["model"])
+    rh = dict(m.get("roi_head") or {})
+    if rh.get("bbox_head"):
+        return int(dict(rh["bbox_head"]).get("num_classes", 80))
+    return int(dict(m.get("bbox_head") or {}).get("num_classes", 80))
+
+
+def _classes_from_cfg(cfg):
+    test = (cfg.get("data") or {}).get("test")
+    if not test:
+        return None
+    from ..utils.registry import DATASETS
+    from .. import data  # noqa: F401  (registers the dataset types)
+    return getattr(DATASETS.get(dict(test).get("type")), "CLASSES", None)
+
+
+def _test_pipeline(cfg):
+    """The config's test pipeline, reading the caller's array in place of
+    the image file."""
+    from ..data.pipelines import Compose
+    pipeline = list(cfg["data"]["test"]["pipeline"])
+    if pipeline and pipeline[0].get("type") == "LoadImageFromFile":
+        pipeline[0] = dict(type="LoadImageFromWebcam")
+    return Compose(pipeline)
+
+
+def prepare_batch(model: DetectorHandle, img, pipeline=None) -> dict:
+    """An image file or an (H, W, 3) uint8 BGR array -> a 1-image batch on
+    the model's device through the config's test pipeline (built once and
+    cached on the handle), padded to a multiple of 32; ``img_shape`` is the
+    padded shape, as in the JAX package's ``prepare_batch``."""
+    from ..data.pipelines.image_io import imread
+    from ..engine.train_step import upload_test_batch
+    if pipeline is None:
+        if model._pipeline is None:
+            model._pipeline = _test_pipeline(model.cfg)
+        pipeline = model._pipeline
+    arr = imread(img) if isinstance(img, (str, os.PathLike)) else np.asarray(img)
+    data = pipeline(dict(img=arr.copy(), img_info=dict(filename=None), img_prefix=None))
+    im = data["img"]
+    h, w = im.shape[:2]
+    hp, wp = -(-h // 32) * 32, -(-w // 32) * 32
+    canvas = np.zeros((1, hp, wp, 3), np.float32)
+    canvas[0, :h, :w] = im
+    return upload_test_batch({
+        "img": canvas,
+        "img_shape": np.asarray([[h, w]], np.float32),
+        "scale_factor": np.asarray(data["img_metas"].get("scale_factor", [1, 1, 1, 1]),
+                                   np.float32).reshape(1, -1)[:, :4]}, model.device)
+
+
+def inference_detector(model: DetectorHandle, imgs) -> list:
+    """Detect on image file(s) or array(s) -> per-class (n, 5) arrays per
+    image (one image in, one result out)."""
+    from .test import dets_to_results, fetch_dets
+    single = not isinstance(imgs, (list, tuple))
+    results = [dets_to_results(*fetch_dets(*model.test(prepare_batch(model, img))),
+                               model.num_classes)[0]
+               for img in ([imgs] if single else imgs)]
+    return results[0] if single else results

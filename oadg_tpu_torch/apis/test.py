@@ -1,0 +1,114 @@
+"""Test APIs (port of ``oadg_tpu/apis/test.py:15,27,66`` and of the model
+and loader builders of ``tools/test.py``): the test step over a loader,
+its padded outputs turned into the reference's per-image per-class numpy
+detection lists.
+
+Multi-process testing (``multi_gpu_test``, ``collect_results_allgather``)
+waits for data parallel (ROADMAP A.7), test-time augmentation for ROADMAP
+A.9.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.bbox.transforms import bbox2result
+from ..data import build_dataloader, build_dataset
+from ..engine.train_step import make_test_step
+from .inference import _num_classes, init_detector
+
+
+def fetch_dets(dets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
+    """The test step's (N, K, 5), (N, K), (N, K) device tensors -> numpy
+    float32 dets, int64 labels and bool valid, in one device-to-host copy
+    (labels are small integers, exact in float32)."""
+    packed = torch.cat([dets.float(), labels[..., None].float(),
+                        valid[..., None].float()], -1).cpu().numpy()
+    return packed[..., :5], packed[..., 5].astype(np.int64), packed[..., 6] > 0
+
+
+def dets_to_results(dets, labels, valid, num_classes: int) -> List[List[np.ndarray]]:
+    """(N, K, 5), (N, K), (N, K) numpy -> per image, per class (n, 5) arrays."""
+    return [bbox2result(dets[i][valid[i]], labels[i][valid[i]], num_classes)
+            for i in range(dets.shape[0])]
+
+
+def run_test(test_fn: Callable, loader, num_classes: int,
+             progress: bool = False) -> List[List[np.ndarray]]:
+    """Run ``test_fn`` (``make_test_step``) over ``loader``'s batches ->
+    the reference's results: per image, per class (n, 5) float32
+    [x1, y1, x2, y2, score] arrays, in the loader's order."""
+    results: List[List[np.ndarray]] = []
+    for bi, batch in enumerate(loader):
+        if "__tta_views__" in batch:
+            raise NotImplementedError("a test-time augmentation batch: the port "
+                                      "has no aug_test yet (ROADMAP A.9)")
+        # ``batch`` stays referenced until the copy back has waited for the
+        # step, so its pinned pages outlive the asynchronous upload.
+        results.extend(dets_to_results(*fetch_dets(*test_fn(batch)), num_classes))
+        if progress:
+            print(f"\rtest batch {bi + 1}", end="", flush=True)
+    if progress:
+        print()
+    return results
+
+
+def single_gpu_test(model_state: Dict, data_loader, show: bool = False,
+                    out_dir: Optional[str] = None, progress: bool = False,
+                    **kwargs) -> List[List[np.ndarray]]:
+    """The reference's signature: ``model_state`` is ``load_model_state``'s
+    dict (``test_fn``, ``num_classes``)."""
+    if show or out_dir:
+        raise NotImplementedError("drawing detections needs core/visualization, "
+                                  "which is not ported yet (ROADMAP A.10)")
+    return run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
+                    progress=progress)
+
+
+def load_model_state(cfg, checkpoint, device="cuda", dtype=None) -> Dict:
+    """The config's detector for testing on ``device`` (``cuda`` unless
+    told otherwise), in compute ``dtype`` (None: float32), with the weights
+    of ``checkpoint`` (a ``torch.save``d ``state_dict``) or, for None or
+    ``"none"``, seeded ones as ``init_detector`` makes them -> ``{handle,
+    test_fn, num_classes}``."""
+    if checkpoint in (None, "none"):
+        checkpoint = None
+    handle = init_detector(cfg, checkpoint=checkpoint, device=device, dtype=dtype)
+    return dict(handle=handle, test_fn=make_test_step(handle.model),
+                num_classes=_num_classes(handle.cfg))
+
+
+def _static_hw_from_pipeline(pipeline, divisor: int = 32):
+    """The static batch canvas (h, w): the largest resize scale rounded up
+    to ``divisor`` (``oadg_tpu/apis/train.py:41``); None without a
+    ``Resize`` scale."""
+    r = next((p for p in pipeline or [] if isinstance(p, dict)
+              and p.get("type") == "Resize"), None)
+    if r is None or r.get("img_scale") is None:
+        return None
+    scales = r["img_scale"] if isinstance(r["img_scale"], list) else [r["img_scale"]]
+    long_edge = max(max(s) for s in scales)
+    short_edge = max(min(s) for s in scales)
+    rnd = lambda v: -(-v // divisor) * divisor          # noqa: E731
+    return (rnd(short_edge), rnd(long_edge))
+
+
+def build_test_loader(cfg, pin_memory: bool = False):
+    """``cfg.data.test`` in test mode -> (dataset, loader):
+    one image a batch, the config's ``workers_per_gpu`` threads, dataset
+    order, the canvas of the test pipeline's ``MultiScaleFlipAug`` scale,
+    the images in pinned memory with ``pin_memory``."""
+    tc = dict(cfg["data"]["test"])
+    tc["test_mode"] = True
+    dataset = build_dataset(tc)
+    static = None
+    for p in tc.get("pipeline") or []:
+        if p.get("type") == "MultiScaleFlipAug":
+            static = _static_hw_from_pipeline(
+                [dict(type="Resize", img_scale=p.get("img_scale"))])
+    loader = build_dataloader(dataset, samples_per_gpu=1,
+                              workers_per_gpu=cfg["data"].get("workers_per_gpu", 2),
+                              shuffle=False, static_hw=static, pin_memory=pin_memory)
+    return dataset, loader

@@ -8,6 +8,7 @@ tree. ``custom_imports`` are not executed: they name JAX-side modules.
 """
 from __future__ import annotations
 
+import argparse
 import ast
 import copy
 import os.path as osp
@@ -41,6 +42,23 @@ class ConfigDict(dict):
         for k, v in self.items():
             dict.__setitem__(other, copy.deepcopy(k, memo), copy.deepcopy(v, memo))
         return other
+
+    def merge_from_dict(self, options: Dict[str, Any]):
+        """Merge dotted-key overrides in place, e.g. ``{'model.backbone.depth':
+        101}`` or ``{'data.test.pipeline.1.img_scale': (1024, 512)}`` (a
+        digit key indexes a list): what ``--cfg-options`` passes
+        (``oadg_tpu/config/config.py:287``)."""
+        option_cfg: Dict[str, Any] = {}
+        for full_key, v in options.items():
+            d = option_cfg
+            keys = full_key.split(".")
+            for k in keys[:-1]:
+                d = d.setdefault(k, {})
+            d[keys[-1]] = v
+        merged = _merge(_plain(self), option_cfg, allow_list_keys=True)
+        dict.clear(self)
+        for k, v in merged.items():
+            self[k] = v
 
 
 def _to_config_dict(obj):
@@ -78,15 +96,34 @@ def _load_py(filename: str) -> Dict[str, Any]:
             and not isinstance(v, (types.ModuleType, types.FunctionType, type))}
 
 
-def _merge(base: dict, override: dict) -> dict:
+def _plain(obj):
+    """``obj`` with every nested ``ConfigDict`` turned into a plain dict."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if type(obj) in (list, tuple):
+        return type(obj)(_plain(v) for v in obj)
+    return obj
+
+
+def _merge(base, override: dict, allow_list_keys: bool = False):
     """Deep-merge ``override`` into ``base``; ``dict(_delete_=True, ...)``
-    replaces instead of merging."""
+    replaces instead of merging. With ``allow_list_keys`` a digit key of
+    ``override`` indexes a list of ``base``, as in mmcv's
+    ``Config._merge_a_into_b``."""
     base = copy.deepcopy(base)
     for k, v in override.items():
+        if allow_list_keys and k.isdigit() and isinstance(base, list):
+            k = int(k)
+            if len(base) <= k:
+                raise KeyError(f"index {k} exceeds list length {len(base)}")
+            base[k] = (_merge(base[k], v, allow_list_keys) if isinstance(v, dict)
+                       else v)
+            continue
         if isinstance(v, dict):
             v = dict(v)
-            if k in base and isinstance(base[k], dict) and not v.pop(_DELETE_KEY, False):
-                base[k] = _merge(base[k], v)
+            mergeable = (dict, list) if allow_list_keys else dict
+            if k in base and isinstance(base[k], mergeable) and not v.pop(_DELETE_KEY, False):
+                base[k] = _merge(base[k], v, allow_list_keys)
             else:
                 v.pop(_DELETE_KEY, None)
                 base[k] = copy.deepcopy(v)
@@ -109,3 +146,29 @@ def load_config(path) -> ConfigDict:
     """mmdet-style python config file -> nested ``ConfigDict`` with its
     ``_base_`` files merged in."""
     return _to_config_dict(_file2dict(str(path)))
+
+
+class DictAction(argparse.Action):
+    """argparse action for ``KEY=VALUE`` pairs whose values are Python
+    literals (``oadg_tpu/config/config.py:320``): ``true`` / ``false`` are
+    booleans, an unparsable value with commas a tuple of its parts, anything
+    else the string."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        options = getattr(namespace, self.dest, None) or {}
+        for kv in values:
+            key, val = kv.split("=", maxsplit=1)
+            options[key] = self.parse_value(val)
+        setattr(namespace, self.dest, options)
+
+    @staticmethod
+    def parse_value(val: str):
+        try:
+            return ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            pass
+        if val.lower() in ("true", "false"):
+            return val.lower() == "true"
+        if "," in val:
+            return tuple(DictAction.parse_value(v) for v in val.split(","))
+        return val

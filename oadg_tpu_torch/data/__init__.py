@@ -1,0 +1,6 @@
+"""Data layer of the port (``oadg_tpu/data``): the test-time datasets,
+pipelines and loader. numpy on the host, as in the JAX package."""
+from . import datasets, pipelines  # noqa: F401  (registers their types)
+from .builder import PrefetchLoader, StaticBatcher, build_dataloader, build_dataset
+
+__all__ = ["PrefetchLoader", "StaticBatcher", "build_dataloader", "build_dataset"]

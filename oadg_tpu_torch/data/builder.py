@@ -1,0 +1,218 @@
+"""Dataset and loader builders (port of ``oadg_tpu/data/builder.py:21-256``).
+
+``StaticBatcher`` collates pipeline outputs into one numpy batch: images
+zero-padded onto one canvas (``static_hw``, or the batch's largest image
+rounded up to ``divisor``), ground truth padded to ``max_gt`` with a
+validity mask, each sample's metadata under ``metas``. ``PrefetchLoader``
+builds batches in worker threads (the decoder's and numpy's inner loops
+release the interpreter lock) and yields them in batch order; batches are
+grouped by the dataset's aspect-ratio ``flag``. The batches equal the JAX
+package's key by key. With ``pin_memory`` the image stack is allocated in
+page-locked memory, so that the test step's upload to the card is an
+asynchronous copy.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+
+from ..utils.registry import DATASETS, build_from_cfg
+
+_TTA_REFUSED = ("a multi-view MultiScaleFlipAug sample (several scales or flip=True) "
+                "needs test-time augmentation, which the port has not yet "
+                "(ROADMAP A.9)")
+
+
+def build_dataset(cfg, default_args=None):
+    """``cfg`` (``type`` and its arguments) -> the registered dataset."""
+    return build_from_cfg(dict(cfg), DATASETS, default_args)
+
+
+class StaticBatcher:
+    """Collate pipeline outputs into a static-shape batch dict: ``img``
+    (B, H, W, C) float32, ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
+    with boxes ``gt_bboxes`` (B, max_gt, 4), ``gt_labels``, ``gt_valid``,
+    and ``metas``."""
+
+    def __init__(self, static_hw, max_gt: int = 128, divisor: int = 32,
+                 pin_memory: bool = False):
+        self.static_hw = static_hw
+        self.max_gt = max_gt
+        self.divisor = divisor
+        self.pin_memory = pin_memory
+
+    def _canvas(self, shape) -> np.ndarray:
+        if not self.pin_memory:
+            return np.empty(shape, np.float32)
+        import torch
+        return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+
+    def __call__(self, samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+        if samples and samples[0].get("__tta__"):
+            raise NotImplementedError(_TTA_REFUSED)
+        b = len(samples)
+        if self.static_hw is not None:
+            h, w = self.static_hw
+        else:
+            d = self.divisor
+            h = -(-max(s["img"].shape[0] for s in samples) // d) * d
+            w = -(-max(s["img"].shape[1] for s in samples) // d) * d
+        img = self._canvas((b, h, w) + samples[0]["img"].shape[2:])
+        for i, s in enumerate(samples):
+            hi, wi = s["img"].shape[:2]
+            img[i, :hi, :wi] = s["img"]
+            img[i, hi:] = 0
+            img[i, :hi, wi:] = 0
+        batch = {
+            "img_shape": np.asarray(
+                [s["img_metas"]["img_shape"][:2] for s in samples], np.float32),
+            "scale_factor": np.stack([
+                np.asarray(s["img_metas"].get("scale_factor", [1, 1, 1, 1]),
+                           np.float32).reshape(-1)[:4] for s in samples]),
+            "img": img,
+        }
+        if "gt_bboxes" in samples[0]:
+            g = self.max_gt
+            gt = np.zeros((b, g, 4), np.float32)
+            lbl = np.zeros((b, g), np.int32)
+            valid = np.zeros((b, g), bool)
+            for i, s in enumerate(samples):
+                n = min(len(s["gt_bboxes"]), g)
+                gt[i, :n] = s["gt_bboxes"][:n]
+                lbl[i, :n] = s["gt_labels"][:n]
+                valid[i, :n] = True
+            batch.update(gt_bboxes=gt, gt_labels=lbl, gt_valid=valid)
+        batch["metas"] = [s["img_metas"] for s in samples]
+        return batch
+
+
+class PrefetchLoader:
+    """Iterator over grouped static batches, built by ``num_workers``
+    threads and yielded strictly in batch order. ``shuffle`` draws the
+    order from ``seed``; without it batches follow the dataset's order
+    within each ``flag`` group. ``rank`` / ``world_size`` take a
+    rank-strided slice of the batch list (padded so that every rank steps
+    the same number of times)."""
+
+    def __init__(self, dataset, samples_per_gpu: int, num_workers: int = 2,
+                 shuffle: bool = True, seed: Optional[int] = None,
+                 static_hw=None, max_gt: int = 128, drop_last: bool = True,
+                 prefetch: int = 4, rank: int = 0, world_size: int = 1,
+                 pin_memory: bool = False):
+        self.dataset = dataset
+        self.bs = samples_per_gpu
+        self.num_workers = max(1, num_workers)
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.batcher = StaticBatcher(static_hw, max_gt=max_gt, pin_memory=pin_memory)
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.rank = rank
+        self.world_size = max(1, world_size)
+
+    def __len__(self):
+        n = len(self.dataset)
+        per = n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
+        if self.world_size > 1:
+            per = (per + self.world_size - 1) // self.world_size
+        return per
+
+    def _batch_indices(self) -> List[np.ndarray]:
+        n = len(self.dataset)
+        flag = getattr(self.dataset, "flag", np.zeros(n, np.uint8))
+        batches = []
+        for group in np.unique(flag):
+            idxs = np.where(flag == group)[0]
+            if self.shuffle:
+                self.rng.shuffle(idxs)
+            pad = (-len(idxs)) % self.bs           # fill the group's last batch
+            if pad and not self.drop_last:
+                idxs = np.concatenate([idxs, idxs[:pad]])
+            full = len(idxs) // self.bs * self.bs
+            batches.extend(np.split(idxs[:full], max(full // self.bs, 1))
+                           if full else [])
+        if self.shuffle:
+            order = self.rng.permutation(len(batches))
+            batches = [batches[i] for i in order]
+        if self.world_size > 1:
+            pad = (-len(batches)) % self.world_size
+            batches = batches + batches[:pad]
+            batches = batches[self.rank::self.world_size]
+        return batches
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        batches = self._batch_indices()
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        it_lock = threading.Lock()
+        it = iter(enumerate(batches))
+
+        def worker():
+            while not stop.is_set():
+                with it_lock:
+                    try:
+                        bi, idxs = next(it)
+                    except StopIteration:
+                        break
+                try:
+                    q.put((bi, self.batcher([self.dataset[int(i)] for i in idxs])))
+                except Exception as exc:           # handed to the consumer, raised there
+                    q.put((bi, exc))
+                    break
+            q.put(None)
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_workers)]
+        for t in threads:
+            t.start()
+        # Workers finish out of order: early arrivals wait in ``buf`` so that
+        # batches come out in batch order (results align with the dataset).
+        done = 0
+        buf: Dict[int, Any] = {}
+        next_bi = 0
+        try:
+            while next_bi < len(batches):
+                if next_bi in buf:
+                    b = buf.pop(next_bi)
+                    if isinstance(b, Exception):
+                        raise b
+                    yield b
+                    next_bi += 1
+                    continue
+                if done >= len(threads):
+                    raise RuntimeError(f"the loader's workers stopped before batch {next_bi}")
+                item = q.get()
+                if item is None:
+                    done += 1
+                    continue
+                buf[item[0]] = item[1]
+        finally:
+            stop.set()
+            for t in threads:
+                while t.is_alive():
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
+                t.join(timeout=0.1)
+
+
+def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 2,
+                     num_gpus: int = 1, dist: bool = False, shuffle: bool = True,
+                     seed: Optional[int] = None, static_hw=None, max_gt: int = 128,
+                     rank: int = 0, world_size: int = 1, pin_memory: bool = False,
+                     **kwargs) -> PrefetchLoader:
+    """The reference's builder signature -> a ``PrefetchLoader`` that drops
+    the last partial batch only when it shuffles. ``rank`` and
+    ``world_size`` default to one process (``torch.distributed`` is ROADMAP
+    A.7)."""
+    if dist:
+        raise NotImplementedError("build_dataloader(dist=True): data parallel is "
+                                  "not ported yet (ROADMAP A.7)")
+    return PrefetchLoader(dataset, samples_per_gpu, num_workers=workers_per_gpu,
+                          shuffle=shuffle, seed=seed, static_hw=static_hw,
+                          max_gt=max_gt, drop_last=shuffle, rank=rank,
+                          world_size=world_size, pin_memory=pin_memory)

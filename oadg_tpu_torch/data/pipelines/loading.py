@@ -1,0 +1,88 @@
+"""Loading pipeline ops (port of ``oadg_tpu/data/pipelines/loading.py:22,53,68``):
+the image from its file (``image_io.imread``, the counterpart of
+``cv2.imread``) or from the caller's array, and the annotation's boxes and
+labels. numpy on the host."""
+from __future__ import annotations
+
+import os.path as osp
+from typing import Any, Dict
+
+import numpy as np
+
+from ...utils.registry import PIPELINES
+from .image_io import imread
+
+
+@PIPELINES.register_module()
+class LoadImageFromFile:
+    """``img`` (H, W, 3) uint8 BGR (RGB with ``channel_order='rgb'``) from
+    ``img_prefix / img_info['filename']``; ``float32`` with ``to_float32``."""
+
+    def __init__(self, to_float32: bool = False, color_type: str = "color",
+                 channel_order: str = "bgr", file_client_args=None):
+        self.to_float32 = to_float32
+        self.color_type = color_type
+        self.channel_order = channel_order
+
+    def __call__(self, results: Dict[str, Any]):
+        if results.get("img_prefix") is not None:
+            filename = osp.join(results["img_prefix"],
+                                results["img_info"]["filename"])
+        else:
+            filename = results["img_info"]["filename"]
+        img = imread(filename, self.color_type)
+        if self.channel_order == "rgb":
+            img = np.ascontiguousarray(img[..., ::-1])
+        if self.to_float32:
+            img = img.astype(np.float32)
+        results["filename"] = filename
+        results["ori_filename"] = results["img_info"]["filename"]
+        results["img"] = img
+        results["img_shape"] = img.shape
+        results["ori_shape"] = img.shape
+        results["img_fields"] = ["img"]
+        return results
+
+
+@PIPELINES.register_module()
+class LoadImageFromWebcam(LoadImageFromFile):
+    """The caller's array in ``results['img']`` instead of a file."""
+
+    def __call__(self, results):
+        img = results["img"]
+        if self.to_float32:
+            img = img.astype(np.float32)
+        results["filename"] = None
+        results["ori_filename"] = None
+        results["img"] = img
+        results["img_shape"] = img.shape
+        results["ori_shape"] = img.shape
+        results["img_fields"] = ["img"]
+        return results
+
+
+@PIPELINES.register_module()
+class LoadAnnotations:
+    """``gt_bboxes`` (and ``gt_bboxes_ignore``) and ``gt_labels`` from
+    ``results['ann_info']``. Masks and segmentation maps are not ported."""
+
+    def __init__(self, with_bbox: bool = True, with_label: bool = True,
+                 with_mask: bool = False, with_seg: bool = False,
+                 poly2mask: bool = True, file_client_args=None):
+        if with_mask or with_seg:
+            raise NotImplementedError("LoadAnnotations(with_mask / with_seg): "
+                                      "masks are not ported (ROADMAP A.10)")
+        self.with_bbox = with_bbox
+        self.with_label = with_label
+
+    def __call__(self, results: Dict[str, Any]):
+        ann = results["ann_info"]
+        if self.with_bbox:
+            results["gt_bboxes"] = ann["bboxes"].copy()
+            results["bbox_fields"] = ["gt_bboxes"]
+            if ann.get("bboxes_ignore") is not None:
+                results["gt_bboxes_ignore"] = ann["bboxes_ignore"].copy()
+                results["bbox_fields"].append("gt_bboxes_ignore")
+        if self.with_label:
+            results["gt_labels"] = ann["labels"].copy()
+        return results

@@ -1,0 +1,243 @@
+"""Geometric and normalization pipeline ops of the test path (port of
+``oadg_tpu/data/pipelines/transforms.py:26-192``): ``Resize``, ``RandomFlip``,
+``Normalize``, ``Pad``. numpy on the host; every op loops over
+``results['img_fields']``.
+
+The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``;
+``resize_bilinear`` computes the same uint8 image without OpenCV, by cv2's
+fixed-point arithmetic (see there).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ...utils.registry import PIPELINES
+
+_COEF_SCALE = 2048          # cv2's INTER_RESIZE_COEF_SCALE: 11-bit coefficients
+
+
+def _taps(dst: int, scale: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per output index: the first source index and the two 11-bit weights,
+    as cv2 computes them (``fx = (float)((dx + 0.5) * scale - 0.5)``, the
+    floor, ``saturate_cast<short>((1 - fx) * 2048)``, round half to even)."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return s, w0, w1
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` of an (H, W)
+    or (H, W, C) uint8 image, ``size`` = (width, height), in numpy. As from
+    cv2, a one-channel image comes back (h, w).
+
+    cv2's path for uint8: the same size is a copy; exactly half the size in
+    both axes averages 2x2 blocks, ``(a + b + c + d + 2) >> 2``; any other
+    size takes 11-bit coefficients, a horizontal pass in int32
+    (``S[sx] * a0 + S[sx + 1] * a1``; a tap left of the image or at its last
+    column takes weight 2048 on the edge pixel) and a vertical pass on rows
+    clamped to the image, rounded as cv2's vectorised loop rounds:
+    ``(((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2) >> 2``.
+    """
+    dw, dh = int(size[0]), int(size[1])
+    sh, sw = img.shape[:2]
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_bilinear takes uint8 images, not {img.dtype}")
+    x = img.reshape(sh, sw, -1)
+    shape = (dh, dw) if x.shape[2] == 1 else (dh, dw, x.shape[2])
+    if (dw, dh) == (sw, sh):
+        return x.reshape(shape).copy()
+    x = x.astype(np.int32)
+    scale_x, scale_y = 1.0 / (dw / sw), 1.0 / (dh / sh)
+    if scale_x == 2.0 and scale_y == 2.0:
+        rows, cols = slice(0, 2 * dh, 2), slice(0, 2 * dw, 2)
+        rows1, cols1 = slice(1, 2 * dh, 2), slice(1, 2 * dw, 2)
+        out = (x[rows, cols] + x[rows, cols1] + x[rows1, cols] + x[rows1, cols1] + 2) >> 2
+        return out.astype(np.uint8).reshape(shape)
+    sx, a0, a1 = _taps(dw, scale_x)
+    edge = (sx < 0) | (sx >= sw - 1)
+    sx = np.clip(sx, 0, sw - 1)
+    a0[edge], a1[edge] = _COEF_SCALE, 0
+    horiz = (x[:, sx] * a0[None, :, None]
+             + x[:, np.minimum(sx + 1, sw - 1)] * a1[None, :, None])
+    sy, b0, b1 = _taps(dh, scale_y)
+    s0 = horiz[np.clip(sy, 0, sh - 1)] >> 4
+    s1 = horiz[np.clip(sy + 1, 0, sh - 1)] >> 4
+    out = (((s0 * b0[:, None, None]) >> 16) + ((s1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(shape)
+
+
+def imrescale(img: np.ndarray, scale: Tuple[int, int]):
+    """mmcv's ``imrescale``: resize keeping the aspect ratio so that the
+    image fits (max(scale), min(scale)) -> (image, scale factor)."""
+    h, w = img.shape[:2]
+    max_long, max_short = max(scale), min(scale)
+    scale_factor = min(max_long / max(h, w), max_short / min(h, w))
+    new_w = int(w * scale_factor + 0.5)
+    new_h = int(h * scale_factor + 0.5)
+    return resize_bilinear(img, (new_w, new_h)), scale_factor
+
+
+@PIPELINES.register_module()
+class Resize:
+    """Resize to ``results['scale']`` (drawn from ``img_scale`` when absent:
+    one scale, a ``ratio_range``, or 'range' / 'value' multiscale), keeping
+    the aspect ratio with ``keep_ratio``; boxes are scaled and clipped."""
+
+    def __init__(self, img_scale=None, multiscale_mode: str = "range",
+                 ratio_range=None, keep_ratio: bool = True,
+                 bbox_clip_border: bool = True, override: bool = False,
+                 interpolation="bilinear"):
+        if interpolation != "bilinear":
+            raise NotImplementedError(f"Resize(interpolation={interpolation!r}): "
+                                      "the port resizes bilinearly only")
+        if img_scale is None:
+            self.img_scale = None
+        elif isinstance(img_scale, list):
+            self.img_scale = [tuple(s) for s in img_scale]
+        else:
+            self.img_scale = [tuple(img_scale)]
+        self.multiscale_mode = multiscale_mode
+        self.ratio_range = ratio_range
+        self.keep_ratio = keep_ratio
+        self.bbox_clip_border = bbox_clip_border
+
+    def _random_scale(self, results):
+        if self.ratio_range is not None:
+            scale = self.img_scale[0]
+            ratio = np.random.uniform(*self.ratio_range)
+            results["scale"] = (int(scale[0] * ratio), int(scale[1] * ratio))
+        elif len(self.img_scale) == 1:
+            results["scale"] = self.img_scale[0]
+        elif self.multiscale_mode == "range":
+            longs = [max(s) for s in self.img_scale]
+            shorts = [min(s) for s in self.img_scale]
+            long_edge = np.random.randint(min(longs), max(longs) + 1)
+            short_edge = np.random.randint(min(shorts), max(shorts) + 1)
+            results["scale"] = (long_edge, short_edge)
+        else:                                          # 'value'
+            idx = np.random.randint(len(self.img_scale))
+            results["scale"] = self.img_scale[idx]
+
+    def __call__(self, results: Dict[str, Any]):
+        if "scale" not in results:
+            self._random_scale(results)
+        for key in results.get("img_fields", ["img"]):
+            img = results[key]
+            if self.keep_ratio:
+                img, sf = imrescale(img, results["scale"])
+                scale_factor = np.array([sf, sf, sf, sf], np.float32)
+            else:
+                h, w = img.shape[:2]
+                tw, th = max(results["scale"]), min(results["scale"])
+                img = resize_bilinear(img, (tw, th))
+                scale_factor = np.array([tw / w, th / h, tw / w, th / h],
+                                        np.float32)
+            results[key] = img
+        results["img_shape"] = img.shape
+        results["pad_shape"] = img.shape
+        results["scale_factor"] = scale_factor
+        results["keep_ratio"] = self.keep_ratio
+        h, w = img.shape[:2]
+        for key in results.get("bbox_fields", []):
+            bboxes = results[key] * scale_factor
+            if self.bbox_clip_border:
+                bboxes[:, 0::2] = np.clip(bboxes[:, 0::2], 0, w)
+                bboxes[:, 1::2] = np.clip(bboxes[:, 1::2], 0, h)
+            results[key] = bboxes
+        return results
+
+
+@PIPELINES.register_module()
+class RandomFlip:
+    """Flip images and boxes with probability ``flip_ratio``, or as
+    ``results['flip']`` says (test-time augmentation sets it)."""
+
+    def __init__(self, flip_ratio: Optional[float] = None,
+                 direction: str = "horizontal"):
+        self.flip_ratio = flip_ratio
+        self.direction = direction
+
+    def __call__(self, results: Dict[str, Any]):
+        if "flip" not in results:
+            flip = (self.flip_ratio is not None
+                    and np.random.rand() < self.flip_ratio)
+            results["flip"] = flip
+            results["flip_direction"] = self.direction
+        if results["flip"]:
+            for key in results.get("img_fields", ["img"]):
+                results[key] = np.ascontiguousarray(
+                    results[key][:, ::-1] if results["flip_direction"] ==
+                    "horizontal" else results[key][::-1])
+            h, w = results["img_shape"][:2]
+            for key in results.get("bbox_fields", []):
+                b = results[key].copy()
+                if results["flip_direction"] == "horizontal":
+                    b[..., 0], b[..., 2] = w - results[key][..., 2], \
+                        w - results[key][..., 0]
+                else:
+                    b[..., 1], b[..., 3] = h - results[key][..., 3], \
+                        h - results[key][..., 1]
+                results[key] = b
+        return results
+
+
+@PIPELINES.register_module()
+class Normalize:
+    """``(img[..., ::-1] if to_rgb - mean) * (1 / std)`` in float32, in the
+    JAX package's order: ``astype``, channel flip, ``-=``, ``*=``."""
+
+    def __init__(self, mean, std, to_rgb: bool = True):
+        self.mean = np.array(mean, np.float32)
+        self.std = np.array(std, np.float32)
+        self.to_rgb = to_rgb
+
+    def __call__(self, results: Dict[str, Any]):
+        results["img_norm_cfg"] = dict(mean=self.mean, std=self.std,
+                                       to_rgb=self.to_rgb)
+        inv_std = (1.0 / self.std).astype(np.float32)
+        for key in results.get("img_fields", ["img"]):
+            img = results[key].astype(np.float32)
+            if self.to_rgb:
+                img = img[..., ::-1]
+            img -= self.mean
+            img *= inv_std
+            results[key] = img
+        return results
+
+
+@PIPELINES.register_module()
+class Pad:
+    """Pad to ``size`` (h, w) or to multiples of ``size_divisor`` with
+    ``pad_val``."""
+
+    def __init__(self, size=None, size_divisor: Optional[int] = None,
+                 pad_to_square: bool = False, pad_val=0):
+        if pad_to_square:
+            raise NotImplementedError("Pad(pad_to_square=True) is not ported")
+        self.size = size
+        self.size_divisor = size_divisor
+        self.pad_val = pad_val if not isinstance(pad_val, dict) else \
+            pad_val.get("img", 0)
+
+    def __call__(self, results: Dict[str, Any]):
+        for key in results.get("img_fields", ["img"]):
+            img = results[key]
+            h, w = img.shape[:2]
+            if self.size is not None:
+                th, tw = self.size
+            else:
+                d = self.size_divisor
+                th, tw = ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
+            padded = np.full((th, tw) + img.shape[2:], self.pad_val,
+                             img.dtype)
+            padded[:h, :w] = img
+            results[key] = padded
+        results["pad_shape"] = results[key].shape
+        results["pad_fixed_size"] = self.size
+        results["pad_size_divisor"] = self.size_divisor
+        return results

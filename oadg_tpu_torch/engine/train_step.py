@@ -1,6 +1,7 @@
-"""The training step (port of ``oadg_tpu/engine/train_step.py``):
-``forward_train`` -> backward -> SGD step -> LR schedule tick. The
-counterpart of the JAX package's ``make_train_step(detector, tx,
+"""The training and test steps (port of ``oadg_tpu/engine/train_step.py``).
+
+``make_train_step``: ``forward_train`` -> backward -> SGD step -> LR
+schedule tick. The counterpart of the JAX package's ``make_train_step(detector, tx,
 preprocess=None)`` (``:33``). With ``preprocess`` (``engine/preprocess.py``) the step first
 turns a uint8 batch into the views-major one through on-device OA-Mix,
 inside a ``train_step: oamix`` span, as the JAX step runs its preprocess
@@ -14,11 +15,15 @@ preprocess with ``out_dtype=model.dtype``.
 Backward and the SGD step run inside ``torch.profiler.record_function``
 spans (``train_step: backward``, ``train_step: sgd``), beside those of
 ``TwoStageDetector.forward_train``; they cost nothing without a profiler.
+
+``make_test_step``: ``simple_test`` on a loader batch (``:102``), the batch
+uploaded to the model's device.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -68,3 +73,36 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     step.t = 0
     step.optimizer = optimizer
     return step
+
+
+def make_test_step(model: torch.nn.Module) -> Callable:
+    """-> ``step(batch) -> (dets (N, K, 5), labels (N, K), valid (N, K))``
+    on the model's device, for a loader batch of numpy arrays: ``img``
+    (N, H, W, C) float32, ``img_shape`` (N, 2), ``scale_factor`` (N, 4).
+
+    The arrays go up with ``non_blocking=True``: from the loader's pinned
+    memory the copy is asynchronous, so the caller keeps ``batch`` alive
+    until it has read the results. ``img`` is viewed as NCHW with
+    ``permute(0, 3, 1, 2)``, which on the card is the model's
+    channels-last layout, without a copy. The model runs in eval mode
+    under ``torch.inference_mode()``."""
+    device = next(model.parameters()).device
+
+    def step(batch: Dict[str, np.ndarray]):
+        model.eval()
+        with torch.inference_mode():
+            return model.simple_test(upload_test_batch(batch, device))
+
+    return step
+
+
+def upload_test_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy test batch -> ``simple_test``'s tensors on ``device``:
+    ``img`` NHWC viewed as NCHW, ``img_shape`` and ``scale_factor``, each
+    copied with ``non_blocking=True``."""
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    return {"img": upload(batch["img"]).permute(0, 3, 1, 2),
+            "img_shape": upload(batch["img_shape"]),
+            "scale_factor": upload(batch["scale_factor"])}

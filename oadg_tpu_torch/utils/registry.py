@@ -1,6 +1,6 @@
 """Name -> class registries for the types the configs name
-(port of ``oadg_tpu/utils/registry.py``, reduced to what the serving and
-training slices build: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
+(port of ``oadg_tpu/utils/registry.py``, reduced to what the serving,
+training and test slices build: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -56,3 +56,5 @@ BBOX_CODERS = Registry("bbox_coder")
 BBOX_ASSIGNERS = Registry("bbox_assigner")
 BBOX_SAMPLERS = Registry("bbox_sampler")
 LOSSES = Registry("loss")
+DATASETS = Registry("dataset")
+PIPELINES = Registry("pipeline")

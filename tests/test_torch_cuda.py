@@ -14,7 +14,12 @@ bfloat16 gradient is the rounding of such an f32 sum, so it is held to one
 bfloat16 rounding step. The backward kernel sums in a fixed order, so two
 calls give equal bits.
 The bfloat16 model on the card against the same on the CPU: see
-``TOL_BF16_MAPS`` and ``TOL_BF16_LOSS``.
+``TOL_BF16_MAPS`` and ``TOL_BF16_LOSS``. The test loop on the card against
+the CPU: per image and class the same number of detections, boxes within
+``TOL_HEAD`` of the largest box coordinate and scores within ``TOL_HEAD``
+of the largest score (the convolutions and FCs sum in other orders). The
+host library's matcher, as the card machine's g++ builds it, equals the
+numpy matcher exactly.
 The OA-Mix kernels: B3's maps equal (``best_id`` may differ only where two
 masks tie exactly), B4, B5 and B7 within 1e-4 of values up to 255 (the kernels
 fuse the lerp's multiply-add, the plain versions emulate it in float64 and
@@ -820,3 +825,131 @@ def test_oamix_on_the_card_matches_the_cpu(chain):
     assert same >= 0.995, same
     for k in ("multilevel_boxes", "multilevel_valid", "oamix_boxes", "oamix_valid"):
         assert torch.equal(card[k].cpu(), cpu[k]), k
+
+
+TOL_HEAD = 1e-4
+
+
+def _tiny_test_cfg(tmp_path):
+    """The tiny flagship (R18-FPN at 16 channels) with its test set on the
+    4-image dataset of ``torch_data_cases.py``, written with the port's
+    own PNG encoder (the card machine has no OpenCV)."""
+    import torch_data_cases as data_cases
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.data.pipelines.image_io import imwrite
+    cfg = load_config(data_cases.FLAGSHIP)
+    cfg.merge_from_dict(data_cases.cfg_options(
+        *data_cases.write_dataset(str(tmp_path), imwrite=imwrite)))
+    m = cfg.model
+    m["backbone"].update(depth=18, base_channels=16, stem_channels=16)
+    m["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
+    m["rpn_head"].update(in_channels=16, feat_channels=16)
+    m["roi_head"]["bbox_roi_extractor"].update(out_channels=16)
+    m["roi_head"]["bbox_head"].update(in_channels=16, fc_out_channels=32)
+    m["roi_head"]["bbox_head"]["cont_predictor_cfg"] = dict(
+        num_linear=2, feat_channels=16, return_relu=True)
+    m["test_cfg"]["rpn"].update(nms_pre=60, max_per_img=30)
+    m["test_cfg"]["rcnn"].update(max_per_img=10)
+    return cfg
+
+
+def _separated_checkpoint(cfg, path):
+    """Seeded weights with random frozen-BN statistics and larger RPN and
+    box-head weights, so that scores are far apart (as the CPU tests'
+    ``_randomize``), saved as a ``state_dict``."""
+    from oadg_tpu_torch.apis import init_detector
+    sd = init_detector(cfg, device="cpu").model.state_dict()
+    gen = torch.Generator().manual_seed(1)
+    for suffix, std in (("rpn_cls.weight", 1.0), ("rpn_reg.weight", 0.1),
+                        ("fc_cls.weight", 1.0), ("fc_reg.weight", 0.3)):
+        (key,) = [k for k in sd if k.endswith(suffix)]
+        sd[key] = torch.randn(sd[key].shape, generator=gen) * std
+    for key in [k for k in sd if k.endswith("running_var")]:
+        sd[key] = torch.rand(sd[key].shape, generator=gen) * 0.4 + 0.8
+        mean = key.replace("running_var", "running_mean")
+        sd[mean] = torch.randn(sd[mean].shape, generator=gen) * 0.1
+    torch.save(sd, path)
+    return str(path)
+
+
+@pytest.mark.cuda
+def test_tiny_test_loop_on_the_card_matches_the_cpu(tmp_path):
+    """``single_gpu_test`` over ``build_test_loader`` on the card (pinned
+    batches) and on the CPU, one checkpoint: B1 launches once per image, and
+    the results agree (boxes within ``TOL_HEAD`` of the largest box
+    coordinate, scores within ``TOL_HEAD`` of the largest score); the
+    evaluation of the card's results is the CPU's."""
+    from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+    _cuda()
+    cfg = _tiny_test_cfg(tmp_path)
+    ckpt = _separated_checkpoint(cfg, tmp_path / "tiny.pth")
+    dataset, card_loader = build_test_loader(cfg, pin_memory=True)
+    batch = next(iter(card_loader))
+    assert torch.from_numpy(batch["img"]).is_pinned()
+    _, cpu_loader = build_test_loader(cfg)
+    card = load_model_state(cfg, ckpt, device="cuda")
+    cpu = load_model_state(cfg, ckpt, device="cpu")
+    before = ROI_ALIGN_FWD.launches
+    got = single_gpu_test(card, card_loader)
+    assert ROI_ALIGN_FWD.launches - before == len(dataset) == 4
+    want = single_gpu_test(cpu, cpu_loader)
+    dets = [r for img in want for r in img if len(r)]
+    largest_box = max(float(np.abs(r[:, :4]).max()) for r in dets)
+    largest_score = max(float(r[:, 4].max()) for r in dets)
+    for g_img, w_img in zip(got, want):
+        for g, w in zip(g_img, w_img):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=0,
+                                       atol=TOL_HEAD * largest_box)
+            np.testing.assert_allclose(g[:, 4], w[:, 4], rtol=0,
+                                       atol=TOL_HEAD * largest_score)
+    assert sum(len(r) for img in got for r in img) > 10
+    assert dataset.evaluate(got, metric="bbox") == dataset.evaluate(want, metric="bbox")
+
+
+@pytest.mark.cuda
+def test_native_host_library_builds_and_loads_on_the_card_machine():
+    """The host library builds with the machine's g++ into ``_build/`` and
+    its unfilter equals the numpy twin on a 1024x2048 image."""
+    from oadg_tpu_torch.core.evaluation import native
+    from oadg_tpu_torch.data.pipelines import image_io
+    _cuda()
+    so = native.build()
+    assert so.parent == native.BUILD_DIR and so.is_file()
+    img = np.random.RandomState(0).randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
+    for filter_type in (0, 1):
+        data = image_io.encode_png(img, filter_type=filter_type)
+        np.testing.assert_array_equal(image_io.decode_png(data), img)
+    lines = np.random.RandomState(1).randint(0, 256, (64, 1 + 96 * 3)).astype(np.uint8)
+    lines[:, 0] = np.arange(64) % 5
+    np.testing.assert_array_equal(native.png_unfilter(lines, 3),
+                                  image_io.png_unfilter_numpy(lines, 3))
+
+
+@pytest.mark.cuda
+def test_native_matcher_equals_numpy_matcher_on_the_card_machine():
+    """The host library as the card machine's g++ builds it: its matcher
+    equals the numpy loop per (image, class, area range, maxDets), and the
+    12 numbers agree on seeded fixtures that score strictly between 0 and 1."""
+    import torch_data_cases as data_cases
+    from oadg_tpu_torch.core.evaluation import coco_eval
+    _cuda()
+    gts, results = data_cases.coco_fixture(7, n_images=4)
+    n = 0
+    for g, r in zip(gts, results):
+        for c, (boxes, crowd) in g.items():
+            d = r[c]
+            for rng in coco_eval.AREA_RANGES.values():
+                for mdet in (1, 10, 100):
+                    args = (d[:, :4], d[:, 4], boxes, crowd, boxes[:, 2] * boxes[:, 3],
+                            rng, mdet)
+                    for a, b in zip(coco_eval._evaluate_img(*args, native=True),
+                                    coco_eval._evaluate_img(*args, native=False)):
+                        np.testing.assert_array_equal(a, b)
+                    n += 1
+    assert n > 100
+    for seed in (0, 1, 2):
+        gts, results = data_cases.coco_fixture(seed)
+        got = coco_eval.COCOEvalBbox(gts, results, [1, 2, 3]).accumulate()
+        assert got == coco_eval.COCOEvalBbox(gts, results, [1, 2, 3], native=False).accumulate()
+        assert 0 < got["bbox_mAP"] < 1

@@ -1,7 +1,8 @@
 """The port stands alone: no import of JAX, flax, optax or the JAX package
-anywhere in ``oadg_tpu_torch/`` or ``chip_smoke.py``, none at run time (the
-config loader is the port's own copy, held here to the JAX package's on
-the OA-DG configs), and no silent CPU fallback for a CUDA device."""
+anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py`` or ``tools/torch_test.py``,
+none at run time (the config loader is the port's own copy, held here to
+the JAX package's on the OA-DG configs), no OpenCV or PIL on the PNG path,
+and no silent CPU fallback for a CUDA device."""
 import ast
 import os
 import subprocess
@@ -24,7 +25,8 @@ def _imports(path):
 
 
 def _port_sources():
-    return sorted((ROOT / "oadg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "oadg_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_test.py"]
 
 
 def test_sources_import_no_jax():
@@ -39,11 +41,31 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, oadg_tpu_torch.apis, oadg_tpu_torch.utils.checkpoint, "
             "oadg_tpu_torch.engine, oadg_tpu_torch.models.losses, "
             "oadg_tpu_torch.ops.oamix_device, oadg_tpu_torch.engine.preprocess, "
-            "oadg_tpu_torch.utils.draws, oadg_tpu_torch.config as c; "
+            "oadg_tpu_torch.utils.draws, oadg_tpu_torch.data, "
+            "oadg_tpu_torch.core.evaluation, oadg_tpu_torch.apis.test, "
+            "oadg_tpu_torch.config as c; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_png_path_loads_no_opencv_or_pil(tmp_path):
+    """Importing the port, writing a PNG with its encoder and reading it
+    back through ``LoadImageFromFile`` loads neither ``cv2`` nor PIL."""
+    code = ("import sys, numpy as np, oadg_tpu_torch.apis, oadg_tpu_torch.data; "
+            "from oadg_tpu_torch.data.pipelines import image_io, LoadImageFromFile; "
+            "img = np.arange(6 * 7 * 3, dtype=np.uint8).reshape(6, 7, 3); "
+            f"image_io.imwrite({str(tmp_path / 'a.png')!r}, img); "
+            "out = LoadImageFromFile()(dict(img_prefix=None, img_info=dict("
+            f"filename={str(tmp_path / 'a.png')!r})))['img']; "
+            "assert (out == img).all(); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'PIL', 'jax', 'oadg_tpu')); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -56,6 +78,25 @@ def test_init_detector_cuda_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_detector(ROOT / "configs/OA-DG/cityscapes/"
                       "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py", device="cuda")
+
+
+def test_test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``load_model_state`` and ``tools/torch_test.py`` run on ``cuda``
+    unless told otherwise, and raise without a card."""
+    import importlib.util
+
+    from oadg_tpu_torch.apis import load_model_state
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(ROOT / "configs/OA-DG/cityscapes/"
+                      "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model_state(cfg, "none")
+    spec = importlib.util.spec_from_file_location("torch_test_tool",
+                                                  ROOT / "tools" / "torch_test.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.parse_args(["c.py", "none"]).device == "cuda"
 
 
 def test_build_detector_defaults_to_the_card(monkeypatch):
