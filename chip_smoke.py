@@ -12,7 +12,7 @@ non-zero exit code:
 2. build: compiles every CUDA kernel of the serving and training paths
    from ``oadg_tpu_torch/ops/csrc/`` (B1-B7, five sources), one nvcc per
    source, and the port's host library (PNG unfilter, evaluation matchers;
-   ``core/evaluation/csrc/host_kernels.cpp``) with g++, all at once.
+   ``utils/csrc/host_kernels.cpp``) with g++, all at once.
 3. kernels: each kernel against its plain PyTorch version, with its times,
    the least time the card could take (the bytes the function must move
    over 3.35 TB/s) and, where one PyTorch call computes the same function,
@@ -113,6 +113,23 @@ non-zero exit code:
    then one profiled request per dtype (the device's busy share of a
    request), and a line of step medians, ``max_memory_allocated`` and busy
    shares.
+7b. train-loop: the training entry point. 8 synthetic 1024x2048 Cityscapes
+   PNGs (``write_cityscapes``) as the train set, phase 5b's 16 as the val
+   set. ``tools/torch_train.py`` on the flagship config as a subprocess, in
+   float32: 2 epochs of 4 iterations (``RepeatDataset`` times 1), an
+   evaluation after each; a prelude (``TOOL_PRELUDE``) sets the kernel
+   wrappers' counts to 0 and records each step's OA-Mix table, and B1-B6
+   must launch as the tables and the val set imply (B7 never); ``log.json``
+   must hold 8 iterations and 2 evaluations, ``epoch_1.pth`` and
+   ``epoch_2.pth`` their epoch and iteration; then ``--resume-from
+   epoch_1.pth`` must continue at iteration 5. Then ``train_detector`` in
+   this process in bfloat16 for 12 iterations (``RepeatDataset`` times 3),
+   the same launch check. Printed beside the card's name and power limit:
+   images/s over the steps (the fill apart), the medians of ``time`` and
+   ``data_time``, each iteration's, the loader's host ms per image for each
+   pipeline stage and the collate (in the loop and for one image alone),
+   the checkpoint's save ms, and (after every timed run) the device's busy
+   share of one profiled bf16 iteration.
 8. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -123,8 +140,9 @@ non-zero exit code:
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
-10. a JSON line of the kernels (B1's ``launches`` are the training step's
-   and the test loop's, each path's count beside it), the card's
+10. a JSON line of the kernels (``launches``: the training step's, B1's
+   test loop's and the f32 training loop's; each path's count beside it,
+   ``launches_train_loop`` and ``launches_train_loop_bf16`` included), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -404,9 +422,6 @@ def phase_device():
     log("device", f"nvidia-smi: {nvidia_smi_line()}")
     log("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
                   f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("device", "TF32 off for matmul and cuDNN convolutions")
 
 
 def phase_build():
@@ -415,7 +430,7 @@ def phase_build():
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     libs = [ROI_ALIGN_FWD.library, ROI_ALIGN_BWD.library, fg_maps.FG_MAPS.library,
             warp.SHEAR_ROWS.library, hist.HIST256.library]
-    from oadg_tpu_torch.core.evaluation import native
+    from oadg_tpu_torch.utils import host_kernels as native
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:     # one nvcc each, g++, all at once
         host = pool.submit(native.build)
@@ -1436,6 +1451,9 @@ def phase_slice(rows):
                                                dtype=dtype)
         log("slice", f"init_detector (R50-FPN, 8 classes, {name}, channels-last) in "
                      f"{time.perf_counter() - t0:.2f} s")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("init_detector on the card left TF32 on")
+        log("slice", "TF32 off for cuDNN convolutions and matmuls (build_detector)")
         rng = np.random.RandomState(1)
         handle.test(prepare_image(request_image(rng), handle.cfg, handle.device))
         torch.cuda.synchronize()                              # warm-up request
@@ -1888,6 +1906,7 @@ def phase_evaluate(rows):
         log("evaluate", f"per dtype ({nvidia_smi_line()}): {json.dumps(out)}")
         tmp.cleanup()
 
+    profile.val = (ann_file, img_prefix)        # the training loop's val set
     return profile
 
 
@@ -2132,6 +2151,296 @@ def phase_train(rows, name):
     return out, profile
 
 
+TRAIN_LOOP_IMAGES = 8       # one epoch of the f32 tool run: 4 iterations of 2 images
+TRAIN_LOOP_BF16_TIMES = 3   # RepeatDataset times of the bf16 run: 12 iterations
+LOOP_KERNELS = ("roi_align_fwd", "roi_align_bwd", "fg_maps", "shear_rows",
+                "piecewise_shift_rows", "hist256")        # B1-B6: the slots chain's path
+
+# The f32 run of tools/torch_train.py as a subprocess: this prelude sets the
+# kernel wrappers' launch counts to 0, records each step's OA-Mix table (op
+# indices, depths, slot validity) and runs the tool as ``__main__`` with the
+# arguments that follow; at its end it writes the counts and the tables to
+# the JSON file named by LOOP_RECORD.
+TOOL_PRELUDE = """
+import json, os, runpy, sys
+from oadg_tpu_torch.engine import preprocess
+from oadg_tpu_torch.ops import fg_maps, hist, roi_align, warp
+wrappers = dict(roi_align_fwd=roi_align.ROI_ALIGN_FWD, roi_align_bwd=roi_align.ROI_ALIGN_BWD,
+                fg_maps=fg_maps.FG_MAPS, shear_rows=warp.SHEAR_ROWS,
+                piecewise_shift_rows=warp.PIECEWISE_SHIFT_ROWS, hist256=hist.HIST256,
+                merged_shift_rows=warp.MERGED_SHIFT_ROWS)
+for w in wrappers.values():
+    w.launches = 0
+tables, real = [], preprocess.oamix_batch
+def recording(*a, **k):
+    out = real(*a, **k)
+    tables.append({key: out["draws"][key].tolist() for key in ("op_idx", "depth", "ml_valid")})
+    return out
+preprocess.oamix_batch = recording
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    with open(os.environ["LOOP_RECORD"], "w") as f:
+        json.dump(dict(launches={k: w.launches for k, w in wrappers.items()}, tables=tables), f)
+"""
+
+
+def loop_launches(tables, version, steps, val_images):
+    """What a training loop of ``steps`` steps on the slots chain must launch,
+    by its OA-Mix tables, plus B1 once per val image."""
+    want = dict(roi_align_fwd=2 * steps + val_images, roi_align_bwd=2 * steps,
+                **dict.fromkeys(oamix_wrappers(), 0))
+    for t in tables:
+        for k, n in expected_launches({k: np.asarray(v) for k, v in t.items()},
+                                      version).items():
+            want[k] += n
+    return want
+
+
+def read_log(work_dir):
+    with open(Path(work_dir) / "log.json") as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_rate(train_lines, images_per_step=2):
+    """Images/s over a run's steps from its per-iteration log lines: the
+    steps' ``time`` and every ``data_time`` but the first (the loader's fill)."""
+    wall = sum(ln["time"] for ln in train_lines) + sum(ln["data_time"] for ln in train_lines[1:])
+    return images_per_step * len(train_lines) / wall
+
+
+class _TimedLoader:
+    """Stands in for the runner's loader: yields its batches and notes the
+    host clock at each arrival."""
+
+    def __init__(self, loader):
+        self.loader, self.arrivals = loader, []
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for b in self.loader:
+            self.arrivals.append(time.perf_counter())
+            yield b
+
+
+def phase_train_loop(rows, val):
+    """The training entry point on ``TRAIN_LOOP_IMAGES`` synthetic 1024x2048
+    Cityscapes PNGs (``val``: phase 5b's 16 as the val set): the f32 run of
+    ``tools/torch_train.py`` as a subprocess (2 epochs of 4 iterations, an
+    evaluation after each, then ``--resume-from epoch_1.pth``), and a bf16
+    ``train_detector`` run in this process (12 iterations). Launches against
+    the drawn tables, the logs, the checkpoints, the rates and the loader's
+    host ms per image. -> a function that profiles one bf16 iteration."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import init_detector, set_random_seed
+    from oadg_tpu_torch.apis.train import build_runner
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.core.hook import Hook
+    from oadg_tpu_torch.data import build_dataset
+    from oadg_tpu_torch.engine import preprocess as preprocess_mod
+    from oadg_tpu_torch.engine.runner import Checkpointer
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    tmp = tempfile.TemporaryDirectory()
+    t0 = t_phase = time.perf_counter()
+    ann_file, img_prefix = write_cityscapes(os.path.join(tmp.name, "train"), TRAIN_LOOP_IMAGES,
+                                            seed=1)
+    log("train-loop", f"wrote {TRAIN_LOOP_IMAGES} training PNGs of {IMG_H}x{IMG_W} in "
+                      f"{time.perf_counter() - t0:.2f} s; val set: phase 5b's {EVAL_IMAGES}")
+    options = {"data.train.times": 1, "data.train.dataset.ann_file": ann_file,
+               "data.train.dataset.img_prefix": img_prefix, "data.val.ann_file": val[0],
+               "data.val.img_prefix": val[1], "runner.max_epochs": 2, "log_config.interval": 1}
+    version = flagship_oamix_cfg()["version"]
+    steps = TRAIN_LOOP_IMAGES // 2
+
+    # f32: tools/torch_train.py, 2 epochs with evaluation, launches counted
+    work = os.path.join(tmp.name, "work")
+    record = os.path.join(tmp.name, "record.json")
+    argv = [str(ROOT / "tools" / "torch_train.py"), str(FLAGSHIP), "--work-dir", work,
+            "--seed", "0", "--cfg-options", *(f"{k}={v}" for k, v in options.items())]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TOOL_PRELUDE, *argv], cwd=ROOT,
+                         env=dict(os.environ, LOOP_RECORD=record), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_train.py failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    lines = read_log(work)
+    train = [ln for ln in lines if ln["mode"] == "train"]
+    vals = [ln for ln in lines if ln["mode"] == "val"]
+    saves = [float(ln.rsplit(" in ", 1)[1].split()[0]) for ln in res.stderr.splitlines()
+             if " saved " in ln]
+    ckpts = {n: Checkpointer.load(os.path.join(work, f"epoch_{n}.pth"))["meta"] for n in (1, 2)}
+    launched = rec["launches"]
+    want = loop_launches(rec["tables"], version, 2 * steps, 2 * EVAL_IMAGES)
+    log("train-loop", f"f32: tools/torch_train.py exit 0 in {wall:.2f} s; {len(train)} "
+                      f"iterations logged, {len(vals)} evaluations; checkpoints "
+                      f"{json.dumps(ckpts)}; launches {launched}; the tables and the val set "
+                      f"imply {want}")
+    if (len(train) != 2 * steps or [ln["iter"] for ln in train] != list(range(1, 2 * steps + 1))
+            or len(vals) != 2 or any(len(v) != 14 for v in vals)
+            or ckpts != {1: dict(epoch=1, iter=steps, seed=0),
+                         2: dict(epoch=2, iter=2 * steps, seed=0)}
+            or not all(math.isfinite(ln["loss"]) and ln["loss_cont"] > 0 for ln in train)):
+        raise AssertionError(f"the f32 run's log or checkpoints are wrong: {lines} {ckpts}")
+    if launched != want or not all(launched[k] for k in LOOP_KERNELS):
+        raise AssertionError(f"the f32 training loop launched {launched}, not {want}")
+    for r in rows:
+        if r["name"] in launched:
+            r["launches_train_loop"] = launched[r["name"]]
+            r["launches"] += launched[r["name"]]
+    f32 = dict(images_per_s=loop_rate(train), epoch2_images_per_s=loop_rate(train[steps:]),
+               time=statistics.median(ln["time"] for ln in train),
+               data_time=statistics.median(ln["data_time"] for ln in train[1:]),
+               save_ms=statistics.median(saves), val=vals[-1])
+    log("train-loop", f"f32: {f32['images_per_s']:.3f} images/s over the steps (time and "
+                      f"data_time of the log, the fill apart), epoch 2 alone "
+                      f"{f32['epoch2_images_per_s']:.3f}; median time {f32['time'] * 1e3:.3f} ms, "
+                      f"data_time {f32['data_time'] * 1e3:.3f} ms; checkpoint save "
+                      f"{f32['save_ms']:.3f} ms; evaluation {json.dumps(vals[-1])} "
+                      f"({nvidia_smi_line()})")
+    log("train-loop", "f32: per iteration, time / data_time ms " + ", ".join(
+        f"{ln['time'] * 1e3:.1f} / {ln['data_time'] * 1e3:.1f}" for ln in train))
+
+    # --resume-from epoch_1.pth: continues at iteration steps + 1
+    resumed = os.path.join(tmp.name, "resumed")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv[:2], "--work-dir", resumed, "--seed", "0",
+                          "--no-validate", "--resume-from", os.path.join(work, "epoch_1.pth"),
+                          "--cfg-options", *(f"{k}={v}" for k, v in options.items())],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the resumed run failed:\n{res.stderr[-4000:]}")
+    again = read_log(resumed)
+    meta = Checkpointer.load(os.path.join(resumed, "epoch_2.pth"))["meta"]
+    log("train-loop", f"f32: --resume-from epoch_1.pth exit 0 in {time.perf_counter() - t0:.2f} "
+                      f"s: iterations {[ln['iter'] for ln in again]} of epochs "
+                      f"{sorted({ln['epoch'] for ln in again})}; epoch_2.pth meta {meta}")
+    if ([ln["iter"] for ln in again] != list(range(steps + 1, 2 * steps + 1))
+            or {ln["epoch"] for ln in again} != {2} or meta != dict(epoch=2, iter=2 * steps,
+                                                                    seed=0)):
+        raise AssertionError(f"the resumed run did not continue at iteration {steps}: {again}")
+    shutil.rmtree(work)
+    shutil.rmtree(resumed)
+
+    # bf16: train_detector in this process, 12 iterations, timed
+    cfg = load_config(FLAGSHIP)
+    cfg.merge_from_dict(dict(options, **{"data.train.times": TRAIN_LOOP_BF16_TIMES,
+                                         "runner.max_epochs": 1, "seed": 0}))
+    set_random_seed(0)
+    model = init_detector(cfg, device="cuda", seed=0, num_views=2, dtype=torch.bfloat16).model
+    dataset = build_dataset(dict(cfg["data"]["train"]))
+    stages = dataset.dataset.pipeline.transforms
+    names = [type(t).__name__ for t in stages]
+    timers = [_HostTimer(t) for t in stages]
+    dataset.dataset.pipeline.transforms = timers
+    runner = build_runner(model, dataset, cfg, work_dir=os.path.join(tmp.name, "bf16"))
+    collate = runner.loader.batcher = _HostTimer(runner.loader.batcher)
+    collate([dataset[0]])                          # one image alone, in one thread
+    alone = {nm: t.seconds * 1e3 for nm, t in zip(names, timers)}
+    alone["collate"] = collate.seconds * 1e3
+    for t in timers + [collate]:
+        t.seconds, t.calls = 0.0, 0
+    timed = runner.loader = _TimedLoader(runner.loader)
+    class Marks(Hook):                  # the host clock after each iteration
+        def __init__(self):
+            self.times = []
+
+        def after_train_iter(self, runner, log_vars):
+            self.times.append(time.perf_counter())
+
+    marks = Marks()
+    runner.hooks.append(marks)
+    tables, real = [], preprocess_mod.oamix_batch
+
+    def recording(*a, **k):
+        out = real(*a, **k)
+        tables.append(out["draws"])
+        return out
+
+    wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD, **oamix_wrappers())
+    preprocess_mod.oamix_batch = recording
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        runner.run()
+    finally:
+        preprocess_mod.oamix_batch = real
+    launched = {k: w.launches for k, w in wrappers.items()}
+    n_steps = TRAIN_LOOP_BF16_TIMES * steps
+    want = loop_launches([{k: t[k] for k in ("op_idx", "depth", "ml_valid")} for t in tables],
+                         version, n_steps, 0)
+    train = [ln for ln in read_log(runner.work_dir) if ln["mode"] == "train"]
+    log("train-loop", f"bf16: train_detector, {n_steps} iterations: launches {launched}; the "
+                      f"tables imply {want}")
+    if launched != want or not all(launched[k] for k in LOOP_KERNELS):
+        raise AssertionError(f"the bf16 training loop launched {launched}, not {want}")
+    if len(train) != n_steps or not all(math.isfinite(ln["loss"]) for ln in train) or \
+            runner.iter != n_steps or model.dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 run's log is wrong: {train}")
+    for r in rows:
+        if r["name"] in launched:
+            r["launches_train_loop_bf16"] = launched[r["name"]]
+    n_images = 2 * n_steps
+    bf16 = dict(images_per_s=n_images / (marks.times[-1] - timed.arrivals[0]),
+                log_images_per_s=loop_rate(train),
+                fill_ms=train[0]["data_time"] * 1e3,
+                time=statistics.median(ln["time"] for ln in train),
+                data_time=statistics.median(ln["data_time"] for ln in train[1:]),
+                save_ms=runner.last_save_ms,
+                host_ms={nm: t.seconds * 1e3 / max(t.calls, 1) for nm, t in zip(names, timers)})
+    bf16["host_ms"]["collate"] = collate.seconds * 1e3 / max(2 * collate.calls, 1)
+    bf16["alone_ms"] = alone
+    log("train-loop", f"bf16: {bf16['images_per_s']:.3f} images/s from the first batch to the "
+                      f"last step (fill {bf16['fill_ms']:.3f} ms apart), "
+                      f"{bf16['log_images_per_s']:.3f} by the log's times; median time "
+                      f"{bf16['time'] * 1e3:.3f} ms, data_time {bf16['data_time'] * 1e3:.3f} ms; "
+                      f"checkpoint save {bf16['save_ms']:.3f} ms ({nvidia_smi_line()})")
+    log("train-loop", "bf16: per iteration, time / data_time ms " + ", ".join(
+        f"{ln['time'] * 1e3:.1f} / {ln['data_time'] * 1e3:.1f}" for ln in train))
+    for what, ms in (("in the loop (4 threads, wall per call)", bf16["host_ms"]),
+                     ("for one image alone in one thread", alone)):
+        log("train-loop", f"bf16: loader host ms per training image {what}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()) + f" ({nvidia_smi_line()})")
+    log("train-loop", f"phase {time.perf_counter() - t_phase:.2f} s")
+    batch = next(iter(timed.loader))
+
+    def profile():
+        """One profiled bf16 iteration (upload, step, the log's copy): the
+        device's busy share."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        from oadg_tpu_torch.engine.runner import fetch_log_vars, step_generator
+        from oadg_tpu_torch.engine.train_step import upload_train_batch
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fetch_log_vars(runner.step(upload_train_batch(batch, runner.device),
+                                       step_generator(0, runner.iter, runner.device)))
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        bf16["busy"] = busy / wall
+        log("train-loop-profile", f"bf16: profiled iteration {wall:.3f} ms wall, device busy "
+                                  f"{busy:.3f} ms ({100 * busy / wall:.1f}%; {nvidia_smi_line()})")
+        log("train-loop", f"per dtype ({nvidia_smi_line()}): "
+                          f"{json.dumps(dict(f32=f32, bf16=bf16))}")
+        tmp.cleanup()
+
+    return profile
+
+
 STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: rpn head+loss",
           "forward_train: proposals", "forward_train: roi head+loss",
           "train_step: backward", "train_step: sgd")
@@ -2270,12 +2579,14 @@ def main():
     phase_oamix()
     trains = {name: phase_train(rows, name) for name in DTYPES}
     rows[0]["launches"] += rows[0]["launches_evaluate"]     # B1 on the test loop's path too
+    loop_profile = phase_train_loop(rows, evaluate_profile.val)
     for _, profile in trains.values():
         profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
     evaluate_profile()
+    loop_profile()
     del trains
     torch.cuda.empty_cache()
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")

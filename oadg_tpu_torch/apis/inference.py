@@ -64,10 +64,9 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
     model = build_detector(dict(config["model"]), device=device,
                            num_views=num_views, dtype=dtype)
     if checkpoint is not None:
-        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        sd = sd.get("state_dict", sd)
-        sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
-        model.load_state_dict(sd, strict=True)
+        from ..engine.runner import model_state_dict
+        model.load_state_dict(model_state_dict(
+            torch.load(checkpoint, map_location="cpu", weights_only=True)), strict=True)
     else:
         model.init_weights(torch.Generator().manual_seed(seed))
     model.train(num_views > 1)

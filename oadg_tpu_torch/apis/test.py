@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..core.bbox.transforms import bbox2result
-from ..data import build_dataloader, build_dataset
+from ..data import build_dataloader, build_dataset, static_hw_from_pipeline
 from ..engine.train_step import make_test_step
 from .inference import _num_classes, init_detector
 
@@ -80,33 +80,19 @@ def load_model_state(cfg, checkpoint, device="cuda", dtype=None) -> Dict:
                 num_classes=_num_classes(handle.cfg))
 
 
-def _static_hw_from_pipeline(pipeline, divisor: int = 32):
-    """The static batch canvas (h, w): the largest resize scale rounded up
-    to ``divisor`` (``oadg_tpu/apis/train.py:41``); None without a
-    ``Resize`` scale."""
-    r = next((p for p in pipeline or [] if isinstance(p, dict)
-              and p.get("type") == "Resize"), None)
-    if r is None or r.get("img_scale") is None:
-        return None
-    scales = r["img_scale"] if isinstance(r["img_scale"], list) else [r["img_scale"]]
-    long_edge = max(max(s) for s in scales)
-    short_edge = max(min(s) for s in scales)
-    rnd = lambda v: -(-v // divisor) * divisor          # noqa: E731
-    return (rnd(short_edge), rnd(long_edge))
-
-
-def build_test_loader(cfg, pin_memory: bool = False):
-    """``cfg.data.test`` in test mode -> (dataset, loader):
-    one image a batch, the config's ``workers_per_gpu`` threads, dataset
-    order, the canvas of the test pipeline's ``MultiScaleFlipAug`` scale,
-    the images in pinned memory with ``pin_memory``."""
-    tc = dict(cfg["data"]["test"])
+def build_test_loader(cfg, pin_memory: bool = False, split: str = "test"):
+    """``cfg.data[split]`` (``test``, or ``val`` for the evaluation after
+    each training epoch) in test mode -> (dataset, loader): one image a
+    batch, the config's ``workers_per_gpu`` threads, dataset order, the
+    canvas of the pipeline's ``MultiScaleFlipAug`` scale, the images in
+    pinned memory with ``pin_memory``."""
+    tc = dict(cfg["data"][split])
     tc["test_mode"] = True
     dataset = build_dataset(tc)
     static = None
     for p in tc.get("pipeline") or []:
         if p.get("type") == "MultiScaleFlipAug":
-            static = _static_hw_from_pipeline(
+            static = static_hw_from_pipeline(
                 [dict(type="Resize", img_scale=p.get("img_scale"))])
     loader = build_dataloader(dataset, samples_per_gpu=1,
                               workers_per_gpu=cfg["data"].get("workers_per_gpu", 2),

@@ -60,6 +60,14 @@ class ConfigDict(dict):
         for k, v in merged.items():
             self[k] = v
 
+    def dump(self, file: str):
+        """Write the config as a python file that ``load_config`` reads
+        back as it is: one ``key = value`` line a top-level key."""
+        import pprint
+        with open(file, "w", encoding="utf-8") as f:
+            for k, v in self.items():
+                f.write(f"{k} = {pprint.pformat(_plain(v), width=100, sort_dicts=False)}\n")
+
 
 def _to_config_dict(obj):
     if isinstance(obj, ConfigDict):

@@ -4,7 +4,7 @@ The COCOeval bbox protocol: greedy score-ordered matching per (class, IoU
 threshold, area range, maxDets), crowd and ignore handling, 101-point
 interpolated precision, AP averaged over the ten IoU thresholds .5:.05:.95,
 and the 12-number summary. numpy on the host; the matcher runs in the port's
-host library (``native.coco_match``) unless ``native=False`` selects its
+host library (``utils.host_kernels.coco_match``) unless ``native=False`` selects its
 plain numpy version.
 """
 from __future__ import annotations
@@ -62,7 +62,7 @@ def _evaluate_img(dets, det_scores, gts, gt_crowd, gt_area, area_rng,
     ious = _iou_xywh(dets, gts, crowd)
 
     if d and g and native:
-        from .native import coco_match
+        from ...utils.host_kernels import coco_match
         m, ig = coco_match(ious, gt_ig.astype(np.uint8),
                            crowd.astype(np.uint8),
                            np.asarray(iou_thrs, np.float32))

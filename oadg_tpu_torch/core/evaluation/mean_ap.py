@@ -35,8 +35,8 @@ def tpfp_default(det_bboxes, gt_bboxes, gt_ignore, iou_thr: float,
                  use_legacy_coordinate: bool = False, native: bool = True):
     """Greedy matching for one (img, class): returns (tp, fp) of shape (D,).
 
-    IoUs and matching run in the host library (``native.iou_xyxy``,
-    ``native.tpfp_greedy``); ``native=False`` runs the numpy version below.
+    IoUs and matching run in the host library (``host_kernels.iou_xyxy``,
+    ``host_kernels.tpfp_greedy``); ``native=False`` runs the numpy version below.
     """
     extra = 1.0 if use_legacy_coordinate else 0.0
     d = det_bboxes.shape[0]
@@ -47,7 +47,7 @@ def tpfp_default(det_bboxes, gt_bboxes, gt_ignore, iou_thr: float,
         fp[:] = 1
         return tp, fp
     if d and native:
-        from .native import iou_xyxy, tpfp_greedy
+        from ...utils.host_kernels import iou_xyxy, tpfp_greedy
         ious_n = iou_xyxy(det_bboxes[:, :4], gt_bboxes,
                           use_legacy_coordinate)
         gi = (gt_ignore.astype(np.uint8) if gt_ignore is not None else None)

@@ -3,13 +3,16 @@
 ``StaticBatcher`` collates pipeline outputs into one numpy batch: images
 zero-padded onto one canvas (``static_hw``, or the batch's largest image
 rounded up to ``divisor``), ground truth padded to ``max_gt`` with a
-validity mask, each sample's metadata under ``metas``. ``PrefetchLoader``
-builds batches in worker threads (the decoder's and numpy's inner loops
-release the interpreter lock) and yields them in batch order; batches are
-grouped by the dataset's aspect-ratio ``flag``. The batches equal the JAX
-package's key by key. With ``pin_memory`` the image stack is allocated in
-page-locked memory, so that the test step's upload to the card is an
-asynchronous copy.
+validity mask, each sample's metadata under ``metas``. Samples marked
+``norm_on_device`` (the ``OAMix`` op's training samples) ship only the uint8
+``img_raw`` canvas, no float32 ``img``: the train step normalizes on the
+card. ``PrefetchLoader`` builds batches in worker threads (the decoder's and
+numpy's inner loops release the interpreter lock) and yields them in batch
+order; batches are grouped by the dataset's aspect-ratio ``flag``; a
+shuffled order is a function of the seed and the epoch (``set_epoch``). The
+batches equal the JAX package's key by key. With ``pin_memory`` the image
+stack is allocated in page-locked memory, so that the step's upload to the
+card is an asynchronous copy.
 """
 from __future__ import annotations
 
@@ -31,9 +34,25 @@ def build_dataset(cfg, default_args=None):
     return build_from_cfg(dict(cfg), DATASETS, default_args)
 
 
+def static_hw_from_pipeline(pipeline, divisor: int = 32):
+    """The static batch canvas (h, w): the largest scale of the pipeline's
+    ``Resize`` rounded up to ``divisor`` (``oadg_tpu/apis/train.py:41``);
+    None without a ``Resize`` scale."""
+    r = next((p for p in pipeline or [] if isinstance(p, dict)
+              and p.get("type") == "Resize"), None)
+    if r is None or r.get("img_scale") is None:
+        return None
+    scales = r["img_scale"] if isinstance(r["img_scale"], list) else [r["img_scale"]]
+    long_edge = max(max(s) for s in scales)
+    short_edge = max(min(s) for s in scales)
+    rnd = lambda v: -(-v // divisor) * divisor          # noqa: E731
+    return (rnd(short_edge), rnd(long_edge))
+
+
 class StaticBatcher:
     """Collate pipeline outputs into a static-shape batch dict: ``img``
-    (B, H, W, C) float32, ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
+    (B, H, W, C) float32 or, for ``norm_on_device`` samples, ``img_raw``
+    (B, H, W, C) uint8 alone; ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
     with boxes ``gt_bboxes`` (B, max_gt, 4), ``gt_labels``, ``gt_valid``,
     and ``metas``."""
 
@@ -44,11 +63,22 @@ class StaticBatcher:
         self.divisor = divisor
         self.pin_memory = pin_memory
 
-    def _canvas(self, shape) -> np.ndarray:
+    def _canvas(self, shape, dtype=np.float32) -> np.ndarray:
         if not self.pin_memory:
-            return np.empty(shape, np.float32)
+            return np.empty(shape, dtype)
         import torch
-        return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        return torch.empty(shape, dtype=tdtype, pin_memory=True).numpy()
+
+    def _stack(self, images, h, w, dtype) -> np.ndarray:
+        """The images zero-padded onto one (B, h, w, ...) canvas of ``dtype``."""
+        out = self._canvas((len(images), h, w) + images[0].shape[2:], dtype)
+        for i, im in enumerate(images):
+            hi, wi = im.shape[:2]
+            out[i, :hi, :wi] = im
+            out[i, hi:] = 0
+            out[i, :hi, wi:] = 0
+        return out
 
     def __call__(self, samples: List[Dict[str, Any]]) -> Dict[str, Any]:
         if samples and samples[0].get("__tta__"):
@@ -60,20 +90,21 @@ class StaticBatcher:
             d = self.divisor
             h = -(-max(s["img"].shape[0] for s in samples) // d) * d
             w = -(-max(s["img"].shape[1] for s in samples) // d) * d
-        img = self._canvas((b, h, w) + samples[0]["img"].shape[2:])
-        for i, s in enumerate(samples):
-            hi, wi = s["img"].shape[:2]
-            img[i, :hi, :wi] = s["img"]
-            img[i, hi:] = 0
-            img[i, :hi, wi:] = 0
+        norm_on_device = bool(samples[0].get("norm_on_device"))
+        if "img_raw" in samples[0] and not norm_on_device:
+            raise NotImplementedError("img_raw without norm_on_device comes from the host "
+                                      "OA-Mix, which the port has not yet (ROADMAP A.4)")
         batch = {
             "img_shape": np.asarray(
                 [s["img_metas"]["img_shape"][:2] for s in samples], np.float32),
             "scale_factor": np.stack([
                 np.asarray(s["img_metas"].get("scale_factor", [1, 1, 1, 1]),
                            np.float32).reshape(-1)[:4] for s in samples]),
-            "img": img,
         }
+        if norm_on_device:
+            batch["img_raw"] = self._stack([s["img_raw"] for s in samples], h, w, np.uint8)
+        else:
+            batch["img"] = self._stack([s["img"] for s in samples], h, w, np.float32)
         if "gt_bboxes" in samples[0]:
             g = self.max_gt
             gt = np.zeros((b, g, 4), np.float32)
@@ -95,7 +126,14 @@ class PrefetchLoader:
     order from ``seed``; without it batches follow the dataset's order
     within each ``flag`` group. ``rank`` / ``world_size`` take a
     rank-strided slice of the batch list (padded so that every rank steps
-    the same number of times)."""
+    the same number of times).
+
+    The shuffled orders are one stream of ``RandomState(seed)``, one draw an
+    iteration, as in the JAX package; iteration ``e`` (counting from 0)
+    yields draw ``e``, replayed from the seed. ``set_epoch(e)`` makes the
+    next iteration yield draw ``e`` whatever came before, so that a run
+    resumed at epoch ``e`` sees the order the uninterrupted run saw. (The JAX loader restarts its stream in a new
+    process, so a JAX run resumed at epoch ``e`` replays draw 0.)"""
 
     def __init__(self, dataset, samples_per_gpu: int, num_workers: int = 2,
                  shuffle: bool = True, seed: Optional[int] = None,
@@ -106,7 +144,9 @@ class PrefetchLoader:
         self.bs = samples_per_gpu
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
+        self.epoch = 0            # the draw the next iteration yields
         self.batcher = StaticBatcher(static_hw, max_gt=max_gt, pin_memory=pin_memory)
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -119,6 +159,18 @@ class PrefetchLoader:
         if self.world_size > 1:
             per = (per + self.world_size - 1) // self.world_size
         return per
+
+    def set_epoch(self, epoch: int):
+        """The next iteration yields the order of epoch ``epoch``."""
+        self.epoch = int(epoch)
+
+    def _epoch_batches(self) -> List[np.ndarray]:
+        if self.shuffle:                    # draw ``epoch`` of the seed's stream
+            self.rng = np.random.RandomState(self.seed)
+            for _ in range(self.epoch):
+                self._batch_indices()
+        self.epoch += 1
+        return self._batch_indices()
 
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
@@ -144,7 +196,7 @@ class PrefetchLoader:
         return batches
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        batches = self._batch_indices()
+        batches = self._epoch_batches()
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         it_lock = threading.Lock()

@@ -1,9 +1,11 @@
-"""Host pipelines of the port's test path; importing this registers them."""
+"""Host pipelines of the port's test and train paths; importing this
+registers them."""
 from .formatting import (Collect, Compose, DefaultFormatBundle, ImageToTensor,
                          MultiScaleFlipAug)
 from .loading import LoadAnnotations, LoadImageFromFile, LoadImageFromWebcam
+from .oa_mix import OAMix
 from .transforms import Normalize, Pad, RandomFlip, Resize
 
 __all__ = ["Collect", "Compose", "DefaultFormatBundle", "ImageToTensor",
            "MultiScaleFlipAug", "LoadAnnotations", "LoadImageFromFile",
-           "LoadImageFromWebcam", "Normalize", "Pad", "RandomFlip", "Resize"]
+           "LoadImageFromWebcam", "OAMix", "Normalize", "Pad", "RandomFlip", "Resize"]

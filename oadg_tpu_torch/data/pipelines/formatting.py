@@ -33,7 +33,8 @@ class Compose:
 
 @PIPELINES.register_module()
 class DefaultFormatBundle:
-    """Images to contiguous float32 HWC (a 2-D image gets a channel axis),
+    """Images to contiguous float32 HWC (a 2-D image gets a channel axis;
+    under ``norm_on_device`` they stay uint8 for the card's preprocess),
     boxes to float32 (n, 4), labels to int64."""
 
     def __init__(self, img_to_float: bool = True, pad_val=None):
@@ -42,7 +43,8 @@ class DefaultFormatBundle:
     def __call__(self, results: Dict[str, Any]):
         for key in results.get("img_fields", ["img"]):
             img = results[key]
-            if self.img_to_float and img.dtype != np.float32:
+            if (self.img_to_float and img.dtype != np.float32
+                    and not results.get("norm_on_device")):
                 img = img.astype(np.float32)
             if img.ndim == 2:
                 img = img[..., None]
@@ -74,7 +76,9 @@ class ImageToTensor:
 
 @PIPELINES.register_module()
 class Collect:
-    """``{'img_metas': {meta_keys present}, key: results[key] for keys}``."""
+    """``{'img_metas': {meta_keys present}, key: results[key] for keys}``,
+    every key of ``results['custom_field']`` and ``oamix_cfg`` (``OAMix``'s
+    fields)."""
 
     META_KEYS = ("filename", "ori_filename", "ori_shape", "img_shape",
                  "pad_shape", "scale_factor", "flip", "flip_direction",
@@ -92,6 +96,8 @@ class Collect:
         for key in results.get("custom_field", []):
             if key not in data and key in results:
                 data[key] = results[key]
+        if "oamix_cfg" in results:
+            data["oamix_cfg"] = results["oamix_cfg"]
         return data
 
 

@@ -6,7 +6,7 @@
 channels and an alpha channel is dropped. The decoder takes 8-bit gray, RGB
 and RGBA PNGs without interlacing and raises on anything else. It inflates
 with ``zlib`` and undoes the row filters in the port's host library
-(``core/evaluation/native.py``), whose call releases the interpreter lock;
+(``utils/host_kernels.py``), whose call releases the interpreter lock;
 ``png_unfilter_numpy`` is its plain twin. Any other format goes to ``cv2``
 if it is importable, and otherwise raises an ``ImportError`` that names the
 file: there is no silent substitute.
@@ -100,7 +100,7 @@ def decode_png(data: bytes, native: bool = True) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 BGR, as ``cv2.IMREAD_COLOR`` decodes."""
     filtered, h, w, c = png_scanlines(data)
     if native:
-        from ...core.evaluation.native import png_unfilter
+        from ...utils.host_kernels import png_unfilter
         pixels = png_unfilter(filtered, c)
     else:
         pixels = png_unfilter_numpy(filtered, c)

@@ -1,4 +1,4 @@
-"""Geometric and normalization pipeline ops of the test path (port of
+"""Geometric and normalization pipeline ops of the test and train paths (port of
 ``oadg_tpu/data/pipelines/transforms.py:26-192``): ``Resize``, ``RandomFlip``,
 ``Normalize``, ``Pad``. numpy on the host; every op loops over
 ``results['img_fields']``.
@@ -189,7 +189,9 @@ class RandomFlip:
 @PIPELINES.register_module()
 class Normalize:
     """``(img[..., ::-1] if to_rgb - mean) * (1 / std)`` in float32, in the
-    JAX package's order: ``astype``, channel flip, ``-=``, ``*=``."""
+    JAX package's order: ``astype``, channel flip, ``-=``, ``*=``. Under
+    ``norm_on_device`` (set by ``OAMix``) only ``img_norm_cfg`` is recorded:
+    the train step normalizes on the card."""
 
     def __init__(self, mean, std, to_rgb: bool = True):
         self.mean = np.array(mean, np.float32)
@@ -199,6 +201,8 @@ class Normalize:
     def __call__(self, results: Dict[str, Any]):
         results["img_norm_cfg"] = dict(mean=self.mean, std=self.std,
                                        to_rgb=self.to_rgb)
+        if results.get("norm_on_device"):
+            return results
         inv_std = (1.0 / self.std).astype(np.float32)
         for key in results.get("img_fields", ["img"]):
             img = results[key].astype(np.float32)

@@ -16,6 +16,9 @@ Backward and the SGD step run inside ``torch.profiler.record_function``
 spans (``train_step: backward``, ``train_step: sgd``), beside those of
 ``TwoStageDetector.forward_train``; they cost nothing without a profiler.
 
+``upload_train_batch``: a loader's training batch to the step's tensors on
+the card (asynchronous copies from the loader's pinned memory).
+
 ``make_test_step``: ``simple_test`` on a loader batch (``:102``), the batch
 uploaded to the model's device.
 """
@@ -106,3 +109,23 @@ def upload_test_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.T
     return {"img": upload(batch["img"]).permute(0, 3, 1, 2),
             "img_shape": upload(batch["img_shape"]),
             "scale_factor": upload(batch["scale_factor"])}
+
+
+def upload_train_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy training batch (``StaticBatcher``'s) -> the step's tensors on
+    ``device``. ``img_raw`` (uint8, for the OA-Mix preprocess) or ``img``
+    (host-normalized float32 NHWC, viewed as NCHW), ``gt_bboxes``,
+    ``gt_labels``, ``gt_valid`` and ``scale_factor`` go up with
+    ``non_blocking=True``; ``img_shape`` stays a CPU tensor, because the
+    preprocess draws OA-Mix's boxes from it on the host. The copies from
+    the loader's pinned memory are asynchronous: keep ``batch`` alive until
+    the step's results have been read."""
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    out = {k: upload(batch[k]) for k in ("img_raw", "gt_bboxes", "gt_labels", "gt_valid",
+                                         "scale_factor") if k in batch}
+    if "img" in batch:
+        out["img"] = upload(batch["img"]).permute(0, 3, 1, 2)
+    out["img_shape"] = torch.from_numpy(batch["img_shape"])
+    return out

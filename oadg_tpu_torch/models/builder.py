@@ -15,7 +15,9 @@ def build_detector(cfg: dict, device="cuda", num_views: int = 1, dtype=None):
     dtype=jnp.bfloat16)``: parameters stay float32, convolutions and FCs
     compute in ``dtype``. Builds on the card unless ``device="cpu"``; a CUDA
     device without a card raises. A bfloat16 model on the CPU computes in
-    bfloat16 there."""
+    bfloat16 there. Building on the card turns TF32 off for cuDNN
+    convolutions and matmuls (process-wide flags; PyTorch's default lets cuDNN
+    use TF32), so that what computes in float32 does so in float32."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_detector(device='cuda'): no CUDA device is "
@@ -24,5 +26,8 @@ def build_detector(cfg: dict, device="cuda", num_views: int = 1, dtype=None):
     cfg.pop("pretrained", None)
     if dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"dtype {dtype}: the port computes in float32 or bfloat16")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return build_from_cfg(cfg, DETECTORS, dict(device=device, num_views=num_views,
                                                dtype=dtype))

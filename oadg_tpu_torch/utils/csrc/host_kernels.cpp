@@ -12,7 +12,7 @@
 //     handling (coco_eval.py _evaluate_img)
 //   - the five PNG row filters undone (PNG specification, section 9)
 //
-// Built with g++ at first use by oadg_tpu_torch/core/evaluation/native.py
+// Built with g++ at first use by oadg_tpu_torch/utils/host_kernels.py
 // into oadg_tpu_torch/_build/ and loaded with ctypes, which releases the
 // interpreter lock around each call.
 #include <algorithm>

@@ -1,6 +1,8 @@
 """ctypes bindings of the port's host kernels (``csrc/host_kernels.cpp``):
-the evaluation matchers of ``oadg_tpu/core/evaluation/native.py`` and the
-PNG row unfilter of ``data/pipelines/image_io.py``.
+the evaluation matchers of ``oadg_tpu/core/evaluation/native.py`` (called by
+``core/evaluation/``) and the PNG row unfilter of
+``data/pipelines/image_io.py``. It lives under ``utils`` because both the
+data layer and the evaluation call it.
 
 The library is compiled with ``g++ -O3 -shared -fPIC`` at first use into
 ``oadg_tpu_torch/_build/`` (git-ignored); its file name carries a hash of
@@ -30,7 +32,7 @@ from typing import Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_kernels.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17") + (
     ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
 

@@ -1,6 +1,6 @@
 """Name -> class registries for the types the configs name
 (port of ``oadg_tpu/utils/registry.py``, reduced to what the serving,
-training and test slices build: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
+training, test and runner slices build: ``dict(type='Name', **kwargs)`` -> ``Name(**kwargs)``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -16,13 +16,16 @@ class Registry:
     def get(self, key: str):
         return self.module_dict.get(key)
 
-    def register_module(self):
+    def register_module(self, name: Optional[str] = None, module=None):
+        """Decorator registering a class under its name (or ``name``);
+        ``register_module(name=..., module=cls)`` registers ``cls`` at once."""
         def _decorator(cls):
-            if cls.__name__ in self.module_dict:
-                raise KeyError(f"{cls.__name__} is already registered in {self.name}")
-            self.module_dict[cls.__name__] = cls
+            key = name or cls.__name__
+            if key in self.module_dict:
+                raise KeyError(f"{key} is already registered in {self.name}")
+            self.module_dict[key] = cls
             return cls
-        return _decorator
+        return _decorator if module is None else _decorator(module)
 
 
 def build_from_cfg(cfg: dict, registry: Registry,
@@ -58,3 +61,4 @@ BBOX_SAMPLERS = Registry("bbox_sampler")
 LOSSES = Registry("loss")
 DATASETS = Registry("dataset")
 PIPELINES = Registry("pipeline")
+HOOKS = Registry("hook")

@@ -32,6 +32,8 @@ the specialised (``fast``) kernel for uint8 or float32 3-channel (B5) and float3
 4-channel (B7) images whose width is a multiple of 4 and whose pointers are
 aligned, the ``generic`` one-pixel-a-thread kernel for everything else.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -53,8 +55,6 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: python -m pytest --noconftest -m cuda "
                     "tests/test_torch_cuda.py on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -911,7 +911,7 @@ def test_tiny_test_loop_on_the_card_matches_the_cpu(tmp_path):
 def test_native_host_library_builds_and_loads_on_the_card_machine():
     """The host library builds with the machine's g++ into ``_build/`` and
     its unfilter equals the numpy twin on a 1024x2048 image."""
-    from oadg_tpu_torch.core.evaluation import native
+    from oadg_tpu_torch.utils import host_kernels as native
     from oadg_tpu_torch.data.pipelines import image_io
     _cuda()
     so = native.build()
@@ -953,3 +953,226 @@ def test_native_matcher_equals_numpy_matcher_on_the_card_machine():
         got = coco_eval.COCOEvalBbox(gts, results, [1, 2, 3]).accumulate()
         assert got == coco_eval.COCOEvalBbox(gts, results, [1, 2, 3], native=False).accumulate()
         assert 0 < got["bbox_mAP"] < 1
+
+
+def _tiny_train_cfg(tmp_path):
+    """The tiny OA-DG training config of ``torch_data_cases.tiny_train_cfg``,
+    its PNGs written by the port's encoder."""
+    import torch_data_cases as data_cases
+    from oadg_tpu_torch.data.pipelines.image_io import imwrite
+    return data_cases.tiny_train_cfg(tmp_path / "data", imwrite=imwrite)
+
+
+def _tiny_train_runner(cfg, work_dir, device, ckpt=None):
+    """``cfg``'s runner on ``device`` (``build_runner``: loader, OA-Mix
+    preprocess, SGD), with the weights of ``ckpt`` where given."""
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.apis.train import build_runner
+    from oadg_tpu_torch.data import build_dataset
+    model = init_detector(cfg, checkpoint=ckpt, device=device, num_views=2).model
+    return build_runner(model, build_dataset(dict(cfg.data.train)), cfg, work_dir=str(work_dir))
+
+
+@pytest.mark.cuda
+def test_runner_iteration_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
+    """One runner iteration (the loader's first batch, uploaded from pinned
+    memory, through OA-Mix and the step) on the card and on the CPU: the
+    same OA-Mix table, sampling draws and proposals (the card's, handed to
+    the CPU); losses within 1e-3 relative, gradients of the RPN conv, the
+    class FC and ``layer4``'s last convs within 1e-3 of the largest, the
+    updated parameters within 1e-4 of the largest (phase 8 of
+    ``chip_smoke.py``)."""
+    from oadg_tpu_torch.engine import preprocess as preprocess_mod
+    from oadg_tpu_torch.engine import train_step as train_step_mod
+    from oadg_tpu_torch.engine.runner import fetch_log_vars, step_generator
+    from oadg_tpu_torch.engine.train_step import upload_train_batch
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    cfg = _tiny_train_cfg(tmp_path)
+    ckpt = _separated_checkpoint(cfg, tmp_path / "tiny.pth")
+    card = _tiny_train_runner(cfg, tmp_path / "card", dev, ckpt)
+    cpu = _tiny_train_runner(cfg, tmp_path / "cpu", "cpu", ckpt)
+    np.random.seed(5)
+    card_batch = next(iter(card.loader))
+    np.random.seed(5)
+    cpu_batch = next(iter(cpu.loader))
+    assert card_batch["img_raw"].dtype == np.uint8
+    assert torch.from_numpy(card_batch["img_raw"]).is_pinned()
+    np.testing.assert_array_equal(card_batch["img_raw"], cpu_batch["img_raw"])
+
+    seen = {}
+    real_oamix = preprocess_mod.oamix_batch
+
+    def oamix(*a, **k):
+        if "draws" in seen:
+            k = dict(k, draws=seen["draws"])
+        out = real_oamix(*a, **k)
+        seen["draws"] = out["draws"]
+        return out
+
+    def draws(generator):
+        if "uniform" not in seen:
+            seen["uniform"] = UniformDraws(generator)
+            return seen["uniform"]
+        return UniformDraws(given={k: v.cpu() for k, v in seen["uniform"].drawn.items()})
+
+    props = {}
+    card_props, cpu_props = card.model.rpn_head.get_proposals, cpu.model.rpn_head.get_proposals
+
+    def record(*args, **kw):
+        props["card"] = card_props(*args, **kw)
+        return props["card"]
+
+    def replay(*args, **kw):
+        cpu_props(*args, **kw)
+        return tuple(t.cpu() for t in props["card"])
+
+    monkeypatch.setattr(preprocess_mod, "oamix_batch", oamix)
+    monkeypatch.setattr(train_step_mod, "UniformDraws", draws)
+    monkeypatch.setattr(card.model.rpn_head, "get_proposals", record)
+    monkeypatch.setattr(cpu.model.rpn_head, "get_proposals", replay)
+    got = fetch_log_vars(card.step(upload_train_batch(card_batch, dev),
+                                   step_generator(0, 0, dev)))
+    want = fetch_log_vars(cpu.step(upload_train_batch(cpu_batch, torch.device("cpu")),
+                                   step_generator(0, 0, "cpu")))
+    for k in want:
+        assert math.isfinite(got[k])
+        assert abs(got[k] - want[k]) <= 1e-3 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    pc, ph = dict(card.model.named_parameters()), dict(cpu.model.named_parameters())
+    names = [k for k in ph if k.startswith(("rpn_head.rpn_conv.", "roi_head.bbox_head.fc_cls."))
+             or (k.startswith("backbone.layer4.") and ".conv2." in k)]
+    assert len(names) >= 4
+    for k in names:
+        want_g = ph[k].grad
+        assert float((pc[k].grad.cpu() - want_g).abs().max()) <= 1e-3 * float(
+            want_g.abs().max()), k
+    for k, p in ph.items():
+        assert float((pc[k].detach().cpu() - p.detach()).abs().max()) <= 1e-4 * max(
+            float(p.detach().abs().max()), 1e-6), k
+
+
+@pytest.mark.cuda
+def test_runner_epoch_on_the_card_launches_what_the_tables_imply(tmp_path, monkeypatch):
+    """A runner epoch on the card (2 iterations of the tiny OA-DG config):
+    B1 and B2 twice a step, B3-B6 as each step's OA-Mix table implies on the
+    slots chain (``chip_smoke.expected_launches``), B7 never; the train
+    batches' ``img_raw`` pinned uint8; losses finite."""
+    from chip_smoke import expected_launches, oamix_wrappers
+    from oadg_tpu_torch.engine import preprocess as preprocess_mod
+    from oadg_tpu_torch.engine import runner as runner_mod
+    dev = _cuda()
+    cfg = _tiny_train_cfg(tmp_path)
+    runner = _tiny_train_runner(cfg, tmp_path / "work", dev)
+    tables, pinned = [], []
+    real_oamix = preprocess_mod.oamix_batch
+    real_upload = runner_mod.upload_train_batch
+
+    def oamix(*a, **k):
+        out = real_oamix(*a, **k)
+        tables.append(out["draws"])
+        return out
+
+    def upload(batch, device):
+        pinned.append(batch["img_raw"].dtype == np.uint8
+                      and torch.from_numpy(batch["img_raw"]).is_pinned())
+        return real_upload(batch, device)
+
+    monkeypatch.setattr(preprocess_mod, "oamix_batch", oamix)
+    monkeypatch.setattr(runner_mod, "upload_train_batch", upload)
+    wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD, **oamix_wrappers())
+    before = {k: w.launches for k, w in wrappers.items()}
+    runner.train_epoch()
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    want = dict(roi_align_fwd=4, roi_align_bwd=4, **dict.fromkeys(oamix_wrappers(), 0))
+    for t in tables:
+        for k, n in expected_launches(t, cfg.oamix_config["version"]).items():
+            want[k] += n
+    assert len(tables) == 2 and pinned == [True, True]
+    assert launched == want and launched["fg_maps"] == 4 and launched["merged_shift_rows"] == 0
+    assert runner.iter == 2
+
+
+@pytest.mark.cuda
+def test_train_detector_in_float32_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
+    """``train_detector`` through the API (no tool) for one epoch of the tiny
+    OA-DG config, in float32, with cuDNN's TF32 switched on beforehand (as
+    PyTorch leaves it): building the model on the card turns TF32 off, and
+    the run equals the CPU's on the same OA-Mix tables, sampling draws and
+    proposals (the card's, handed to the CPU), iteration by iteration:
+    losses within 1e-3 relative, the final parameters within 1e-4 of the
+    largest."""
+    import json
+    from oadg_tpu_torch.apis import init_detector, train_detector
+    from oadg_tpu_torch.engine import preprocess as preprocess_mod
+    from oadg_tpu_torch.engine import train_step as train_step_mod
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    _cuda()
+    cfg = _tiny_train_cfg(tmp_path)
+    cfg.merge_from_dict({"runner.max_epochs": 1})
+    ckpt = _separated_checkpoint(cfg, tmp_path / "tiny.pth")
+    torch.backends.cudnn.allow_tf32 = True
+    card = init_detector(cfg, checkpoint=ckpt, device="cuda", num_views=2).model
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    cpu = init_detector(cfg, checkpoint=ckpt, device="cpu", num_views=2).model
+
+    record = {"oamix": [], "uniform": [], "props": []}
+    at = dict.fromkeys(record, 0)
+    replaying = []
+    real_oamix = preprocess_mod.oamix_batch
+
+    def replayed(kind):
+        i = at[kind]
+        at[kind] += 1
+        return record[kind][i]
+
+    def oamix(*a, **k):
+        if replaying:
+            k = dict(k, draws=replayed("oamix"))
+        out = real_oamix(*a, **k)
+        if not replaying:
+            record["oamix"].append(out["draws"])
+        return out
+
+    def draws(generator):
+        if replaying:
+            return UniformDraws(given=replayed("uniform"))
+        d = UniformDraws(generator)
+        record["uniform"].append(d.drawn)
+        return d
+
+    card_props, cpu_props = card.rpn_head.get_proposals, cpu.rpn_head.get_proposals
+
+    def props_record(*args, **kw):
+        out = card_props(*args, **kw)
+        record["props"].append(out)
+        return out
+
+    def props_replay(*args, **kw):
+        cpu_props(*args, **kw)
+        return tuple(t.cpu() for t in replayed("props"))
+
+    monkeypatch.setattr(preprocess_mod, "oamix_batch", oamix)
+    monkeypatch.setattr(train_step_mod, "UniformDraws", draws)
+    monkeypatch.setattr(card.rpn_head, "get_proposals", props_record)
+    monkeypatch.setattr(cpu.rpn_head, "get_proposals", props_replay)
+    logs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        if name == "cpu":
+            record["uniform"] = [{k: v.cpu() for k, v in d.items()} for d in record["uniform"]]
+            replaying.append(True)
+        np.random.seed(5)
+        work = tmp_path / name
+        runner = train_detector(model, dict(cfg.data.train), cfg, work_dir=str(work))
+        assert runner.iter == 2
+        with open(work / "log.json") as f:
+            logs[name] = [json.loads(line) for line in f]
+    assert at == {"oamix": 2, "uniform": 2, "props": 2}
+    for got, want in zip(logs["card"], logs["cpu"], strict=True):
+        for k, v in want.items():
+            if k.startswith("loss"):
+                assert math.isfinite(got[k])
+                assert abs(got[k] - v) <= 1e-3 * max(abs(v), 1e-6), (k, got[k], v)
+    pc = dict(card.named_parameters())
+    for k, p in cpu.named_parameters():
+        assert float((pc[k].detach().cpu() - p.detach()).abs().max()) <= 1e-4 * max(
+            float(p.detach().abs().max()), 1e-6), k

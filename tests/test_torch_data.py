@@ -24,7 +24,7 @@ from PIL import Image
 
 import torch_data_cases as cases
 from oadg_tpu_torch.config import DictAction, load_config
-from oadg_tpu_torch.core.evaluation import native
+from oadg_tpu_torch.utils import host_kernels as native
 from oadg_tpu_torch.data.pipelines import image_io
 from oadg_tpu_torch.data.pipelines.transforms import resize_bilinear
 

@@ -24,7 +24,8 @@ import test_coco_eval_golden as golden
 import torch_data_cases as cases
 from oadg_tpu.core.evaluation import coco_eval as jax_coco_eval
 from oadg_tpu.core.evaluation import mean_ap as jax_mean_ap
-from oadg_tpu_torch.core.evaluation import coco_eval, mean_ap, native
+from oadg_tpu_torch.core.evaluation import coco_eval, mean_ap
+from oadg_tpu_torch.utils import host_kernels as native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = sorted(name for name, fn in inspect.getmembers(golden, inspect.isfunction)

@@ -1,5 +1,6 @@
 """The port stands alone: no import of JAX, flax, optax or the JAX package
-anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py`` or ``tools/torch_test.py``,
+anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py``, ``tools/torch_test.py`` or
+``tools/torch_train.py``,
 none at run time (the config loader is the port's own copy, held here to
 the JAX package's on the OA-DG configs), no OpenCV or PIL on the PNG path,
 and no silent CPU fallback for a CUDA device."""
@@ -26,7 +27,8 @@ def _imports(path):
 
 def _port_sources():
     return sorted((ROOT / "oadg_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_test.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_test.py",
+        ROOT / "tools" / "torch_train.py"]
 
 
 def test_sources_import_no_jax():
@@ -43,6 +45,9 @@ def test_importing_the_port_loads_no_jax():
             "oadg_tpu_torch.ops.oamix_device, oadg_tpu_torch.engine.preprocess, "
             "oadg_tpu_torch.utils.draws, oadg_tpu_torch.data, "
             "oadg_tpu_torch.core.evaluation, oadg_tpu_torch.apis.test, "
+            "oadg_tpu_torch.apis.train, oadg_tpu_torch.engine.runner, "
+            "oadg_tpu_torch.core.hook, oadg_tpu_torch.data.pipelines.oa_mix, "
+            "oadg_tpu_torch.utils.host_kernels, "
             "oadg_tpu_torch.config as c; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
@@ -70,6 +75,35 @@ def test_png_path_loads_no_opencv_or_pil(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_image_decoder_does_not_load_the_evaluation():
+    """The PNG decoder reaches the host library through ``utils``, not
+    through ``core/evaluation``."""
+    code = ("import sys, numpy as np; from oadg_tpu_torch.data.pipelines import image_io; "
+            "img = np.arange(6 * 7 * 3, dtype=np.uint8).reshape(6, 7, 3); "
+            "assert (image_io.decode_png(image_io.encode_png(img)) == img).all(); "
+            "bad = sorted(m for m in sys.modules if m.startswith('oadg_tpu_torch.core')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_train_tool_runs_on_the_card_unless_told(monkeypatch, tmp_path):
+    """``tools/torch_train.py`` builds the model on ``cuda`` unless
+    ``--device cpu``, and raises without a card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_train_tool",
+                                                  ROOT / "tools" / "torch_train.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main([str(ROOT / "configs/OA-DG/cityscapes/"
+                           "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py"),
+                   "--work-dir", str(tmp_path), "--seed", "0"])
 
 
 def test_init_detector_cuda_without_card_raises(monkeypatch):

@@ -1,5 +1,6 @@
-"""A tiny COCO-json Cityscapes dataset on disk for the test path's CPU tests
-(``test_torch_data.py``, ``test_torch_eval.py``, ``test_torch_test_loop.py``).
+"""A tiny COCO-json Cityscapes dataset on disk for the test and train paths'
+CPU tests (``test_torch_data.py``, ``test_torch_eval.py``,
+``test_torch_test_loop.py``, ``test_torch_train_loop.py``).
 
 Four seeded BGR images written as PNG by ``cv2.imwrite`` with adaptive
 filters, in two aspect ratios: with the test scale ``TEST_SCALE`` = (160, 96)
@@ -16,6 +17,8 @@ import os
 import numpy as np
 
 SIZES = ((120, 200), (80, 160), (96, 160), (100, 150))
+TRAIN_SIZES = ((64, 96), (60, 96), (64, 90), (56, 96))
+TRAIN_SCALES = [(96, 48), (96, 64)]      # Resize range mode: long edge 96, short 48-64
 TEST_SCALE = (160, 96)
 CLASSES = ("person", "rider", "car", "truck", "bus", "train", "motorcycle",
            "bicycle")
@@ -76,6 +79,55 @@ def cfg_options(ann_file, img_prefix):
     and shrink the test scale to ``TEST_SCALE``."""
     return {"data.test.ann_file": ann_file, "data.test.img_prefix": img_prefix,
             "data.test.pipeline.1.img_scale": TEST_SCALE}
+
+
+def tiny_model(cfg):
+    """``cfg.model`` made tiny in place, as the JAX package's
+    ``__graft_entry__._flagship_model_cfg(tiny=True)`` makes it (R18-FPN at
+    16 channels, 32 sampled anchors and 16 rois an image), with a small
+    test-time proposal budget."""
+    m = cfg["model"]
+    m["backbone"].update(depth=18, base_channels=16, stem_channels=16)
+    m["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
+    m["rpn_head"].update(in_channels=16, feat_channels=16)
+    m["roi_head"]["bbox_roi_extractor"].update(out_channels=16)
+    m["roi_head"]["bbox_head"].update(in_channels=16, fc_out_channels=32)
+    m["roi_head"]["bbox_head"]["cont_predictor_cfg"] = dict(
+        num_linear=2, feat_channels=16, return_relu=True)
+    m["train_cfg"]["rpn_proposal"] = dict(nms_pre=64, max_per_img=32,
+                                          nms=dict(iou_threshold=0.7), min_bbox_size=0)
+    m["train_cfg"]["rpn"]["sampler"]["num"] = 32
+    m["train_cfg"]["rcnn"]["sampler"]["num"] = 16
+    m["test_cfg"]["rpn"].update(nms_pre=60, max_per_img=30)
+    m["test_cfg"]["rcnn"].update(max_per_img=10)
+    return cfg
+
+
+def tiny_train_cfg(root, imwrite=_cv2_imwrite, flip_ratio=0.5, scales=None, **options):
+    """The flagship OA-DG config at a tiny size for training: the tiny model,
+    the 4 images of ``TRAIN_SIZES`` written under ``root`` as its train, val
+    and test sets (``RepeatDataset`` times 1), the flagship's train pipeline
+    with ``Resize`` over ``scales`` (``TRAIN_SCALES``: range mode, canvas
+    64x96) and ``RandomFlip(flip_ratio)``, the test scale (96, 64), batches
+    of 2 from one loader thread, 16 gts a batch row, 2 epochs logged every
+    iteration, a 3-iteration warmup; ``options`` are merged last
+    (``--cfg-options`` keys)."""
+    from oadg_tpu_torch.config import load_config
+    ann_file, img_prefix = write_dataset(str(root), sizes=TRAIN_SIZES, imwrite=imwrite)
+    cfg = tiny_model(load_config(FLAGSHIP))
+    opts = {"data.samples_per_gpu": 2, "data.workers_per_gpu": 1, "data.train.times": 1,
+            "data.train.dataset.ann_file": ann_file,
+            "data.train.dataset.img_prefix": img_prefix,
+            "data.train.dataset.pipeline.2.img_scale": list(scales or TRAIN_SCALES),
+            "data.train.dataset.pipeline.3.flip_ratio": flip_ratio,
+            "max_gt": 16, "runner.max_epochs": 2, "log_config.interval": 1,
+            "lr_config.warmup_iters": 3}
+    for split in ("val", "test"):
+        opts.update({f"data.{split}.ann_file": ann_file, f"data.{split}.img_prefix": img_prefix,
+                     f"data.{split}.pipeline.1.img_scale": (96, 64)})
+    opts.update(options)
+    cfg.merge_from_dict(opts)
+    return cfg
 
 
 def coco_fixture(seed, n_images=5, cats=(1, 2, 3), crowd=True):
