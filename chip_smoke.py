@@ -82,6 +82,20 @@ non-zero exit code:
    and for one image alone; then the evaluation's ms and the COCO summary.
    After every timed run, one profiled loop per dtype gives the device's
    busy share.
+5c. robustness: the robustness path on 4 of phase 5b's PNGs. The host ms
+   of each of the 19 corruptions (``ops/corruptions.py``, numpy) at severity
+   3 on one 1024x2048 image, alone in one thread; then
+   ``tools/torch_test_robustness.py CONFIG none --corruptions benchmark
+   --severities 0 3`` as a subprocess in float32, counted by
+   ``TOOL_PRELUDE``: exit 0, P / mPC / rPC printed, the pickle's 15
+   corruptions each at severities 0 and 3, B1 launched 4 x 16 times (the
+   clean cell once, 15 corrupted cells) and no other kernel; its sweep's
+   images/s. ``tools/torch_get_corrupted_dataset.py`` writes fog and
+   glass_blur at severity 1; through ``--load-dataset corrupted`` each cell
+   must load the on-the-fly cell's images byte for byte and give its
+   detections. One cell run twice must load byte-identical images and give
+   equal detections; the second run's loader host ms per image, split into
+   decode, corrupt and pipeline.
 6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
    1024x2048 uint8 images with 32 seeded gts each, inside
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), once per
@@ -113,6 +127,14 @@ non-zero exit code:
    then one profiled request per dtype (the device's busy share of a
    request), and a line of step medians, ``max_memory_allocated`` and busy
    shares.
+7a. baseline: the plain Faster R-CNN
+   (``faster_rcnn_r50_fpn_1x_cityscapes.py``, the flagship's ``_base_``: one
+   view, no OA-Mix, the stock losses) through ``make_train_step`` in float32
+   and in bfloat16: one warm-up and 3 timed steps on 2 seeded uint8 images of
+   1024x2048 (``prepare_image``). B1 and B2 must launch once per step, the
+   losses be finite float32, the frozen parameters unchanged and every
+   trainable one but the top FPN output's (no anchor reads it) move; step
+   medians and ``max_memory_allocated``.
 7b. train-loop: the training entry point. 8 synthetic 1024x2048 Cityscapes
    PNGs (``write_cityscapes``) as the train set, phase 5b's 16 as the val
    set. ``tools/torch_train.py`` on the flagship config as a subprocess, in
@@ -134,15 +156,18 @@ non-zero exit code:
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
    losses, and the gradients of ``rpn_head.rpn_conv``,
-   ``roi_head.bbox_head.fc_cls`` and ``backbone.layer4.*.conv3``.
+   ``roi_head.bbox_head.fc_cls`` and ``backbone.layer4.*.conv3``; then the
+   same for the plain Faster R-CNN on 2 images of one view.
 9. profiled: the times that need ``torch.profiler`` (the plain versions
    of B1 and B2, on float32 and on bfloat16 maps, and ``torch.bincount`` wait for the device inside a call, so
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
 10. a JSON line of the kernels (``launches``: the training step's, B1's
-   test loop's and the f32 training loop's; each path's count beside it,
-   ``launches_train_loop`` and ``launches_train_loop_bf16`` included), the card's
+   test loop's and robustness sweep's, the baseline step's and the f32
+   training loop's; each path's count beside it, ``launches_robustness``,
+   ``launches_baseline_step``, ``launches_train_loop`` and
+   ``launches_train_loop_bf16`` included), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -1924,35 +1949,36 @@ def raw_train_batch(rng, h, w, device):
             "img_shape": torch.tensor([[h, w]] * 2, dtype=torch.float32)}
 
 
-def fixed_view_batch(rng, h, w, cfg, device):
-    """2 images x 2 views, views-major, through ``prepare_image``: seeded
-    uint8 images, view 2 each image with seeded noise (fixed views, for the
-    card-vs-CPU step), and 32 seeded gts, the same in both views."""
+def fixed_view_batch(rng, h, w, cfg, device, views=2):
+    """2 images x ``views`` views, views-major, through ``prepare_image``:
+    seeded uint8 images, each further view the image with seeded noise
+    (fixed views, for the card-vs-CPU step), and 32 seeded gts, the same in
+    every view."""
     import torch
     from oadg_tpu_torch.apis import prepare_image
     images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
-    views = [np.clip(im.astype(np.int16) + rng.randint(-24, 25, im.shape), 0, 255)
+    noisy = [np.clip(im.astype(np.int16) + rng.randint(-24, 25, im.shape), 0, 255)
              .astype(np.uint8) for im in images]
-    parts = [prepare_image(im, cfg, device) for im in images + views]
+    parts = [prepare_image(im, cfg, device) for im in images + noisy[:2 * (views - 1)]]
     gt, labels = seeded_gts(rng, 2, h, w)
     img = torch.cat([b["img"] for b in parts])
     if img.is_cuda:
         img = img.contiguous(memory_format=torch.channels_last)
     return {"img": img,
             "img_shape": torch.cat([b["img_shape"] for b in parts]),
-            "gt_bboxes": torch.from_numpy(np.concatenate([gt, gt])).to(device),
-            "gt_labels": torch.from_numpy(np.concatenate([labels, labels])).to(device),
-            "gt_valid": torch.ones((4, NUM_GTS), dtype=torch.bool, device=device)}
+            "gt_bboxes": torch.from_numpy(np.concatenate([gt] * views)).to(device),
+            "gt_labels": torch.from_numpy(np.concatenate([labels] * views)).to(device),
+            "gt_valid": torch.ones((2 * views, NUM_GTS), dtype=torch.bool, device=device)}
 
 
 def build_trainer(device, cfg, preprocess=None, dtype=None):
-    """The flagship built for OA-DG training with seeded random weights,
+    """The config's detector (the flagship: built for OA-DG training) with seeded random weights,
     SGD and the config's LR schedule, through the port's entry points, in
     the compute ``dtype`` (None: float32)."""
     from oadg_tpu_torch.apis import init_detector
     from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                        make_train_step)
-    handle = init_detector(cfg, device=device, seed=0, num_views=cfg["num_views"],
+    handle = init_detector(cfg, device=device, seed=0, num_views=cfg.get("num_views", 1),
                            dtype=dtype)
     steps_per_epoch = -(-CITYSCAPES_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])
     step = make_train_step(
@@ -2488,19 +2514,20 @@ def train_profile(step, batch, gen, chain, dtype_name="f32"):
     return busy / wall
 
 
-def phase_train_reference(name):
+def phase_train_reference(name, config=FLAGSHIP, tag="train-reference"):
     """One step's losses and gradients at ``name`` (f32 or bf16), CPU vs
-    card, on 256x512 views."""
+    card, on 256x512 views of ``config``'s model (its ``num_views``)."""
     import torch
     from oadg_tpu_torch.config import load_config
     from oadg_tpu_torch.utils.draws import UniformDraws
     dev = torch.device("cuda", 0)
     dtype = torch_dtype(name)
     loss_tol, grad_tol = (1e-3, 1e-3) if name == "f32" else (TOL_BF16_LOSS, TOL_BF16_CARD)
-    cfg = load_config(FLAGSHIP)
+    cfg = load_config(config)
     card, _ = build_trainer("cuda", cfg, dtype=dtype)
     cpu, _ = build_trainer("cpu", cfg, dtype=dtype)
-    batch = fixed_view_batch(np.random.RandomState(4), 256, 512, cfg, "cpu")
+    batch = fixed_view_batch(np.random.RandomState(4), 256, 512, cfg, "cpu",
+                             views=cfg.get("num_views", 1))
     batch["img"] = batch["img"].to(dtype)
     card_batch = {k: v.to(dev) for k, v in batch.items()}
     card_batch["img"] = card_batch["img"].contiguous(memory_format=torch.channels_last)
@@ -2532,14 +2559,14 @@ def phase_train_reference(name):
     lh, ph = one_step(cpu, batch, UniformDraws(given=draws.drawn))
     (bc, _, vc), (bh, _, vh) = proposals["card"], proposals["cpu"]
     same = (vc.cpu() == vh) & ((bc.cpu() - bh).abs().max(-1).values < 1e-2)
-    log("train-reference", f"{name}: CPU proposals equal to the card's in place: "
+    log(tag, f"{name}: CPU proposals equal to the card's in place: "
                            f"{int(same.sum())} of {int(vc.sum())} valid")
     for k in sorted(lc):
         if "loss" not in k:
             continue
         a, b = float(lc[k].detach()), float(lh[k].detach())
         err = abs(a - b) / max(abs(b), 1e-6)
-        log("train-reference", f"{name}: {k}: card {a:.6f} CPU {b:.6f} rel err {err:.2e} "
+        log(tag, f"{name}: {k}: card {a:.6f} CPU {b:.6f} rel err {err:.2e} "
                                f"(limit {loss_tol:.1e})")
         if not (err <= loss_tol and lc[k].dtype == torch.float32):
             raise AssertionError(f"{k} card vs CPU: {a} vs {b}")
@@ -2550,10 +2577,257 @@ def phase_train_reference(name):
         want = ph[k].grad
         err = float((pc[k].grad.cpu() - want).abs().max())
         lim = grad_tol * float(want.abs().max())
-        log("train-reference", f"{name}: grad {k} ({pc[k].grad.dtype}): max_abs_err "
+        log(tag, f"{name}: grad {k} ({pc[k].grad.dtype}): max_abs_err "
                                f"{err:.3e} (limit {lim:.3e})")
         if not (err <= lim and pc[k].grad.dtype == torch.float32):
             raise AssertionError(f"grad {k} card vs CPU: {err} > {lim}")
+
+
+BASELINE = ROOT / "configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py"
+ROBUST_IMAGES = 4           # images of phase 5b's set in the robustness sweep
+ROBUST_SEVERITY = 3
+
+
+def _subset_json(ann_file, n, out):
+    """The first ``n`` images of a COCO json and their annotations -> ``out``."""
+    with open(ann_file) as f:
+        ann = json.load(f)
+    keep = {im["id"] for im in ann["images"][:n]}
+    ann["images"] = ann["images"][:n]
+    ann["annotations"] = [a for a in ann["annotations"] if a["image_id"] in keep]
+    with open(out, "w") as f:
+        json.dump(ann, f)
+    return out
+
+
+def _same_results(a, b):
+    """Per image and class: equal bits, or within ``results_close``'s limits
+    -> (within, bit-equal)."""
+    bits = all(np.array_equal(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    return bits or all(results_close(ra, rb)[0] for ra, rb in zip(a, b)), bits
+
+
+def phase_robustness(rows, val):
+    """The robustness path on ``ROBUST_IMAGES`` of phase 5b's PNGs (``val``):
+    the host ms of each of the 19 corruptions at severity 3 on one
+    1024x2048 image; ``tools/torch_test_robustness.py`` over the 15
+    benchmark corruptions at severities 0 and 3 as a subprocess, in float32,
+    B1 counted by ``TOOL_PRELUDE``; ``tools/torch_get_corrupted_dataset.py``
+    for 2 corruptions at severity 1, read back through ``--load-dataset
+    corrupted`` against the on-the-fly cells; one cell twice; the loader's
+    host ms per image split into decode, corrupt and pipeline."""
+    import os
+    import pickle
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_test_robustness import cell_test_cfg
+    from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.data.pipelines.image_io import imread
+    from oadg_tpu_torch.ops.corruptions import (BENCHMARK_CORRUPTIONS, CORRUPTIONS,
+                                                corrupt_numpy, sample_seed)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    ann_file = _subset_json(val[0], ROBUST_IMAGES, os.path.join(tmp.name, "robust.json"))
+    img_prefix = val[1]
+    options = {"data.test.ann_file": ann_file, "data.test.img_prefix": img_prefix}
+
+    # each corruption alone on one image, in this process's one thread
+    first = sorted(f for f in os.listdir(img_prefix) if f.endswith(".png"))[0]
+    img = imread(os.path.join(img_prefix, first))
+    host_ms = {}
+    for name in CORRUPTIONS:
+        t0 = time.perf_counter()
+        out = corrupt_numpy(img, name, ROBUST_SEVERITY,
+                            rng=np.random.RandomState(sample_seed(0, name, ROBUST_SEVERITY)))
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        if out.shape != img.shape or out.dtype != np.uint8 or np.array_equal(out, img):
+            raise AssertionError(f"{name}: corrupted image {out.shape} {out.dtype} unchanged "
+                                 "or malformed")
+    slowest = sorted(host_ms, key=host_ms.get, reverse=True)[:4]
+    log("robustness", f"host ms per {IMG_H}x{IMG_W} image at severity {ROBUST_SEVERITY}, one "
+                      f"thread: {json.dumps({k: round(v, 3) for k, v in host_ms.items()})}; "
+                      f"sum {sum(host_ms.values()):.3f} ms, benchmark 15 "
+                      f"{sum(host_ms[k] for k in BENCHMARK_CORRUPTIONS):.3f} ms; slowest "
+                      f"{slowest} ({nvidia_smi_line()})")
+
+    # the tool: 15 corruptions at severities 0 and 3, launches counted
+    out_pkl = os.path.join(tmp.name, "robustness.pkl")
+    record = os.path.join(tmp.name, "record.json")
+    argv = [str(ROOT / "tools" / "torch_test_robustness.py"), str(FLAGSHIP), "none",
+            "--corruptions", "benchmark", "--severities", "0", str(ROBUST_SEVERITY),
+            "--out", out_pkl, "--cfg-options", *(f"{k}={v}" for k, v in options.items())]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TOOL_PRELUDE, *argv], cwd=ROOT,
+                         env=dict(os.environ, LOOP_RECORD=record), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_test_robustness.py failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    with open(record) as f:
+        launched = json.load(f)["launches"]
+    with open(out_pkl, "rb") as f:
+        agg = pickle.load(f)
+    lines = res.stdout.strip().splitlines()
+    printed = [ln for ln in lines if ln.startswith(("P (clean", "mPC (", "rPC:"))]
+    sweep = next((ln for ln in lines if ln.startswith("sweep:")), "")
+    cells = 1 + len(BENCHMARK_CORRUPTIONS)
+    want = dict(dict.fromkeys(launched, 0), roi_align_fwd=ROBUST_IMAGES * cells)
+    log("robustness", f"tools/torch_test_robustness.py (f32, seeded weights, "
+                      f"{ROBUST_IMAGES} images, 15 corruptions x severities 0 {ROBUST_SEVERITY}) "
+                      f"exit 0 in {wall:.2f} s; {sweep}; launches {launched}; {printed}")
+    if (launched != want or len(printed) != 3 or sorted(agg) != sorted(BENCHMARK_CORRUPTIONS)
+            or any(sorted(agg[c]) != [0, ROBUST_SEVERITY] for c in agg)
+            or not all(math.isfinite(v) for c in agg for cell in agg[c].values()
+                       for v in cell.values())):
+        raise AssertionError(f"the robustness tool launched {launched} (want {want}), printed "
+                             f"{printed}, pickled {agg}")
+    sweep_rate = float(sweep.rsplit(", ", 1)[1].split()[0])
+    for r in rows:
+        r["launches_robustness"] = launched.get(r["name"], 0)
+
+    # a corrupted copy, read back: the same images and detections
+    copy_root = os.path.join(tmp.name, "city-c")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_get_corrupted_dataset.py"),
+                          str(FLAGSHIP), "--out", copy_root, "--corruptions", "fog",
+                          "glass_blur", "--severities", "1", "--cfg-options",
+                          *(f"{k}={v}" for k, v in options.items())],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_get_corrupted_dataset.py failed:\n"
+                             f"{res.stderr[-4000:]}")
+    log("robustness", f"tools/torch_get_corrupted_dataset.py (fog, glass_blur at severity 1, "
+                      f"{ROBUST_IMAGES} images) exit 0 in {time.perf_counter() - t0:.2f} s")
+    cfg = load_config(str(FLAGSHIP))
+    cfg.merge_from_dict(options)
+    state = load_model_state(cfg, "none", device="cuda")
+
+    def cell(corr, sev, mode=None, timers=False):
+        c = load_config(str(FLAGSHIP))
+        c.merge_from_dict(options)
+        c["data"]["test"] = cell_test_cfg(c["data"]["test"], corr, sev, mode, copy_root)
+        dataset, loader = build_test_loader(c, pin_memory=True)
+        stages = None
+        if timers:
+            stages = [_HostTimer(t) for t in dataset.pipeline.transforms]
+            dataset.pipeline.transforms = stages
+        batches = list(loader)
+        return batches, single_gpu_test(state, iter(batches)), stages
+
+    for corr in ("fog", "glass_blur"):
+        (b_copy, r_copy, _), (b_fly, r_fly, _) = cell(corr, 1, "corrupted"), cell(corr, 1)
+        same_img = all(np.array_equal(a["img"], b["img"]) for a, b in zip(b_copy, b_fly))
+        within, bits = _same_results(r_copy, r_fly)
+        log("robustness", f"{corr} severity 1: the corrupted copy's batches equal the "
+                          f"on-the-fly cell's: {same_img}; detections within limits: "
+                          f"{within}, bit-equal: {bits}")
+        if not (same_img and within):
+            raise AssertionError(f"{corr}: the corrupted copy and the on-the-fly cell differ")
+
+    # one cell twice: byte-identical Corrupt outputs, equal detections; the
+    # second run's stages timed in the loop
+    (b1, r1, _), (b2, r2, stages) = (cell("glass_blur", ROBUST_SEVERITY),
+                                     cell("glass_blur", ROBUST_SEVERITY, timers=True))
+    same_img = all(np.array_equal(a["img"], b["img"]) for a, b in zip(b1, b2))
+    within, bits = _same_results(r1, r2)
+    per_image = {k: t.seconds * 1e3 / ROBUST_IMAGES
+                 for k, t in zip(("decode", "corrupt", "pipeline"), stages)}
+    log("robustness", f"glass_blur severity {ROBUST_SEVERITY} twice: batches byte-identical "
+                      f"{same_img}; detections within limits {within}, bit-equal {bits}; loader "
+                      f"host ms per image in the loop ({cfg['data']['workers_per_gpu']} threads): "
+                      f"{json.dumps({k: round(v, 3) for k, v in per_image.items()})} "
+                      f"({nvidia_smi_line()})")
+    if not (same_img and within) or [t.calls for t in stages] != [ROBUST_IMAGES] * 3:
+        raise AssertionError("two runs of one cell differ")
+    del state
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    out = dict(host_ms=host_ms, sweep_images_per_s=sweep_rate, loader_ms=per_image,
+               printed=printed)
+    log("robustness", f"phase {time.perf_counter() - t_phase:.2f} s; {json.dumps(out)}")
+    return out
+
+
+def baseline_batch(rng, h, w, cfg, device, dtype):
+    """2 seeded uint8 images through ``prepare_image`` (normalized on the
+    device), one view, ``NUM_GTS`` seeded gts each, cast to ``dtype``."""
+    import torch
+    from oadg_tpu_torch.apis import prepare_image
+    parts = [prepare_image(rng.randint(0, 256, (h, w, 3), dtype=np.uint8), cfg, device)
+             for _ in range(2)]
+    gt, labels = seeded_gts(rng, 2, h, w)
+    img = torch.cat([b["img"] for b in parts]).to(dtype)
+    if img.is_cuda:
+        img = img.contiguous(memory_format=torch.channels_last)
+    return {"img": img, "img_shape": torch.cat([b["img_shape"] for b in parts]),
+            "gt_bboxes": torch.from_numpy(gt).to(device),
+            "gt_labels": torch.from_numpy(labels).to(device),
+            "gt_valid": torch.ones((2, NUM_GTS), dtype=torch.bool, device=device)}
+
+
+def phase_baseline(rows):
+    """The plain Faster R-CNN (the flagship's ``_base_``: one view, no OA-Mix,
+    the stock losses) trained on the card in float32 and bfloat16: one
+    warm-up and 3 timed steps on 2 uint8 images of 1024x2048. B1 and B2 once
+    per step; losses finite float32; frozen parameters unchanged; every
+    trainable one but the top FPN output's moves."""
+    import torch
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    cfg = load_config(BASELINE)
+    out = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        model, step = build_trainer("cuda", cfg, dtype=dtype)
+        batch = baseline_batch(np.random.RandomState(5), IMG_H, IMG_W, cfg, "cuda", model.dtype)
+        params = dict(model.named_parameters())
+        frozen = [k for k, p in params.items() if not p.requires_grad]
+        before = {k: p.detach().clone() for k, p in params.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(batch, gen)                                       # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ROI_ALIGN_FWD.launches = ROI_ALIGN_BWD.launches = 0
+        times, logs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logs.append(step(batch, gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launched = (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(times)
+        log("baseline", f"{name}: plain Faster R-CNN R50-FPN, 3 steps on 2 images of "
+                        f"{IMG_H}x{IMG_W}: ms {[round(t, 3) for t in times]}, median "
+                        f"{median:.3f}; max_memory_allocated {peak:.2f} GiB; roi_align_fwd / "
+                        f"roi_align_bwd launches {launched} ({nvidia_smi_line()})")
+        log("baseline", f"{name}: last step " + ", ".join(
+            f"{k} {float(v):.5f}" for k, v in logs[-1].items()))
+        if launched != (3, 3):
+            raise AssertionError(f"{name}: 3 baseline steps launched B1 / B2 {launched} times")
+        if not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                   for lv in logs for v in lv.values()):
+            raise AssertionError(f"{name}: a baseline loss is not a finite float32: {logs}")
+        moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+        still = [k for k, p in params.items() if p.requires_grad
+                 and torch.equal(p.detach(), before[k])]
+        log("baseline", f"{name}: {len(frozen)} frozen parameters, {len(moved)} moved; "
+                        f"{len(params) - len(frozen)} trainable, unmoved {still}")
+        if moved or not frozen or any(not k.startswith("neck.fpn_convs.3.") for k in still):
+            raise AssertionError(f"{name}: frozen moved {moved}, trainable unmoved {still}")
+        for r in rows:
+            r["launches_baseline_step" + ("" if name == "f32" else "_bf16")] = \
+                dict(roi_align_fwd=launched[0], roi_align_bwd=launched[1]).get(r["name"], 0)
+        if name == "f32":
+            rows[0]["launches"] += launched[0]
+            rows[1]["launches"] += launched[1]
+        out[name] = dict(median_ms=median, peak_gib=peak)
+        del model, step, batch, params, before
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -2576,9 +2850,12 @@ def main():
     phase_reference(handles)
     del handles
     evaluate_profile = phase_evaluate(rows)
+    robustness = phase_robustness(rows, evaluate_profile.val)
     phase_oamix()
     trains = {name: phase_train(rows, name) for name in DTYPES}
-    rows[0]["launches"] += rows[0]["launches_evaluate"]     # B1 on the test loop's path too
+    for r in rows:          # B1 on the test loop's and the robustness sweep's paths too
+        r["launches"] += r.get("launches_evaluate", 0) + r["launches_robustness"]
+    baseline = phase_baseline(rows)
     loop_profile = phase_train_loop(rows, evaluate_profile.val)
     for _, profile in trains.values():
         profile()
@@ -2590,8 +2867,11 @@ def main():
     del trains
     torch.cuda.empty_cache()
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")
+    log("baseline", f"per dtype ({nvidia_smi_line()}): {json.dumps(baseline)}")
+    log("robustness", f"summary ({nvidia_smi_line()}): {json.dumps(robustness)}")
     for name in DTYPES:
         phase_train_reference(name)
+        phase_train_reference(name, BASELINE, "baseline-reference")
     phase_profiled(rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)

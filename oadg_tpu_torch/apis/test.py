@@ -4,8 +4,8 @@ its padded outputs turned into the reference's per-image per-class numpy
 detection lists.
 
 Multi-process testing (``multi_gpu_test``, ``collect_results_allgather``)
-waits for data parallel (ROADMAP A.7), test-time augmentation for ROADMAP
-A.9.
+waits for data parallel (ROADMAP A, 'Data parallel'), test-time augmentation for
+ROADMAP A, 'Test-time paths of the flagship'.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ def run_test(test_fn: Callable, loader, num_classes: int,
     for bi, batch in enumerate(loader):
         if "__tta_views__" in batch:
             raise NotImplementedError("a test-time augmentation batch: the port "
-                                      "has no aug_test yet (ROADMAP A.9)")
+                                      "has no aug_test yet (ROADMAP A, "
+                                      "'Test-time paths of the flagship')")
         # ``batch`` stays referenced until the copy back has waited for the
         # step, so its pinned pages outlive the asynchronous upload.
         results.extend(dets_to_results(*fetch_dets(*test_fn(batch)), num_classes))
@@ -62,7 +63,7 @@ def single_gpu_test(model_state: Dict, data_loader, show: bool = False,
     dict (``test_fn``, ``num_classes``)."""
     if show or out_dir:
         raise NotImplementedError("drawing detections needs core/visualization, "
-                                  "which is not ported yet (ROADMAP A.10)")
+                                  "which is not ported yet (ROADMAP A, 'Long tail')")
     return run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
                     progress=progress)
 

@@ -49,7 +49,7 @@ def _checkpoint_file(path: str, what: str) -> str:
     if str(path).startswith(_REMOTE):
         raise NotImplementedError(f"{what} {path!r}: the port reads checkpoint files on "
                                   "disk; model-zoo names and URLs wait for "
-                                  "utils/model_zoo.py (ROADMAP A.10)")
+                                  "utils/model_zoo.py (ROADMAP A, 'Long tail')")
     return str(path)
 
 
@@ -79,7 +79,7 @@ def train_detector(model: torch.nn.Module, dataset, cfg, distributed: bool = Fal
     ``validate``. -> the runner, after its run."""
     if distributed:
         raise NotImplementedError("train_detector(distributed=True): data parallel is "
-                                  "not ported yet (ROADMAP A.7)")
+                                  "not ported yet (ROADMAP A, 'Data parallel')")
     runner = build_runner(model, dataset, cfg, validate=validate, work_dir=work_dir)
     runner.run()
     return runner

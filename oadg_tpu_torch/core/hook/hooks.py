@@ -173,9 +173,11 @@ class LinearMomentumEMAHook(EMAHook):
 
 def _not_ported(name: str):
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"the {name} hook is not ported yet (ROADMAP A.5)")
+        raise NotImplementedError(f"the {name} hook is not ported yet "
+                                  "(ROADMAP A, 'Engine leftovers')")
     return type(name, (Hook,), {"__init__": __init__,
-                                "__doc__": f"The JAX package's {name}; raises (ROADMAP A.5)."})
+                                "__doc__": f"The JAX package's {name}; raises "
+                                           "(ROADMAP A, 'Engine leftovers')."})
 
 
 for _name in ("YOLOXModeSwitchHook", "SyncRandomSizeHook", "SetEpochInfoHook",

@@ -4,9 +4,10 @@
 zero-padded onto one canvas (``static_hw``, or the batch's largest image
 rounded up to ``divisor``), ground truth padded to ``max_gt`` with a
 validity mask, each sample's metadata under ``metas``. Samples marked
-``norm_on_device`` (the ``OAMix`` op's training samples) ship only the uint8
-``img_raw`` canvas, no float32 ``img``: the train step normalizes on the
-card. ``PrefetchLoader`` builds batches in worker threads (the decoder's and
+``norm_on_device`` (the ``OAMix`` op's training samples) ship only the
+``img_raw`` canvas, in the samples' own dtype (uint8, or float32 after a
+float op such as ``PhotoMetricDistortion``), no float32 ``img``: the train
+step normalizes on the card. ``PrefetchLoader`` builds batches in worker threads (the decoder's and
 numpy's inner loops release the interpreter lock) and yields them in batch
 order; batches are grouped by the dataset's aspect-ratio ``flag``; a
 shuffled order is a function of the seed and the epoch (``set_epoch``). The
@@ -26,7 +27,7 @@ from ..utils.registry import DATASETS, build_from_cfg
 
 _TTA_REFUSED = ("a multi-view MultiScaleFlipAug sample (several scales or flip=True) "
                 "needs test-time augmentation, which the port has not yet "
-                "(ROADMAP A.9)")
+                "(ROADMAP A, 'Test-time paths of the flagship')")
 
 
 def build_dataset(cfg, default_args=None):
@@ -52,7 +53,7 @@ def static_hw_from_pipeline(pipeline, divisor: int = 32):
 class StaticBatcher:
     """Collate pipeline outputs into a static-shape batch dict: ``img``
     (B, H, W, C) float32 or, for ``norm_on_device`` samples, ``img_raw``
-    (B, H, W, C) uint8 alone; ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
+    (B, H, W, C) in the samples' dtype alone; ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
     with boxes ``gt_bboxes`` (B, max_gt, 4), ``gt_labels``, ``gt_valid``,
     and ``metas``."""
 
@@ -93,7 +94,8 @@ class StaticBatcher:
         norm_on_device = bool(samples[0].get("norm_on_device"))
         if "img_raw" in samples[0] and not norm_on_device:
             raise NotImplementedError("img_raw without norm_on_device comes from the host "
-                                      "OA-Mix, which the port has not yet (ROADMAP A.4)")
+                                      "OA-Mix, which the port has not yet "
+                                      "(ROADMAP A, 'Data layer leftovers')")
         batch = {
             "img_shape": np.asarray(
                 [s["img_metas"]["img_shape"][:2] for s in samples], np.float32),
@@ -101,8 +103,9 @@ class StaticBatcher:
                 np.asarray(s["img_metas"].get("scale_factor", [1, 1, 1, 1]),
                            np.float32).reshape(-1)[:4] for s in samples]),
         }
-        if norm_on_device:
-            batch["img_raw"] = self._stack([s["img_raw"] for s in samples], h, w, np.uint8)
+        if norm_on_device:                # in the samples' own dtype, as the JAX collate
+            raws = [s["img_raw"] for s in samples]
+            batch["img_raw"] = self._stack(raws, h, w, np.result_type(*raws))
         else:
             batch["img"] = self._stack([s["img"] for s in samples], h, w, np.float32)
         if "gt_bboxes" in samples[0]:
@@ -259,11 +262,11 @@ def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 2,
                      **kwargs) -> PrefetchLoader:
     """The reference's builder signature -> a ``PrefetchLoader`` that drops
     the last partial batch only when it shuffles. ``rank`` and
-    ``world_size`` default to one process (``torch.distributed`` is ROADMAP
-    A.7)."""
+    ``world_size`` default to one process (``torch.distributed`` is
+    ROADMAP A, 'Data parallel')."""
     if dist:
         raise NotImplementedError("build_dataloader(dist=True): data parallel is "
-                                  "not ported yet (ROADMAP A.7)")
+                                  "not ported yet (ROADMAP A, 'Data parallel')")
     return PrefetchLoader(dataset, samples_per_gpu, num_workers=workers_per_gpu,
                           shuffle=shuffle, seed=seed, static_hw=static_hw,
                           max_gt=max_gt, drop_last=shuffle, rank=rank,

@@ -3,7 +3,9 @@
 
 Host-side dataset: annotation loading, pipeline invocation, aspect-ratio
 group flags, empty-gt filtering and the VOC-style ``evaluate``. Subclasses
-implement ``load_annotations`` / ``get_ann_info``.
+implement ``load_annotations`` / ``get_ann_info``. A sample's pipeline input
+carries its index as ``sample_idx``, from which the ``Corrupt`` op seeds
+the image's draws (``Collect`` drops it).
 """
 from __future__ import annotations
 
@@ -91,12 +93,12 @@ class CustomDataset:
 
     def prepare_train_img(self, idx):
         results = dict(img_info=self.data_infos[idx],
-                       ann_info=self.get_ann_info(idx))
+                       ann_info=self.get_ann_info(idx), sample_idx=int(idx))
         self.pre_pipeline(results)
         return self.pipeline(results)
 
     def prepare_test_img(self, idx):
-        results = dict(img_info=self.data_infos[idx])
+        results = dict(img_info=self.data_infos[idx], sample_idx=int(idx))
         self.pre_pipeline(results)
         return self.pipeline(results)
 

@@ -4,8 +4,9 @@ from .formatting import (Collect, Compose, DefaultFormatBundle, ImageToTensor,
                          MultiScaleFlipAug)
 from .loading import LoadAnnotations, LoadImageFromFile, LoadImageFromWebcam
 from .oa_mix import OAMix
-from .transforms import Normalize, Pad, RandomFlip, Resize
+from .transforms import Corrupt, Normalize, Pad, RandomFlip, Resize
 
 __all__ = ["Collect", "Compose", "DefaultFormatBundle", "ImageToTensor",
            "MultiScaleFlipAug", "LoadAnnotations", "LoadImageFromFile",
-           "LoadImageFromWebcam", "OAMix", "Normalize", "Pad", "RandomFlip", "Resize"]
+           "LoadImageFromWebcam", "OAMix", "Corrupt", "Normalize", "Pad", "RandomFlip",
+           "Resize"]

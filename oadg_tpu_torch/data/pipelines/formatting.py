@@ -106,7 +106,8 @@ class MultiScaleFlipAug:
     """Test-time wrapper (``test_time_aug.py:11`` of mmdet): one pipeline
     output per (scale, flip) combination. One combination is returned as
     it is; several are merged into one dict of lists marked ``__tta__``,
-    which the port's loader refuses (test-time augmentation is ROADMAP A.9)."""
+    which the port's loader refuses (test-time augmentation is ROADMAP A,
+    'Test-time paths of the flagship')."""
 
     def __init__(self, transforms, img_scale=None, scale_factor=None,
                  flip: bool = False, flip_direction="horizontal"):

@@ -71,7 +71,7 @@ class LoadAnnotations:
                  poly2mask: bool = True, file_client_args=None):
         if with_mask or with_seg:
             raise NotImplementedError("LoadAnnotations(with_mask / with_seg): "
-                                      "masks are not ported (ROADMAP A.10)")
+                                      "masks are not ported (ROADMAP A, 'Data layer leftovers')")
         self.with_bbox = with_bbox
         self.with_label = with_label
 

@@ -11,8 +11,10 @@ ships only the uint8 ``img_raw``. The placeholder views ``img{i}`` /
 ``gt_bboxes{i}`` and the empty ``multilevel_boxes`` / ``oamix_boxes``
 shells ride ``custom_field``, which ``Collect`` keeps.
 
-``on_device=False`` (the reference's per-sample host algorithm) needs the
-host OA-Mix oracle, which the port does not have (ROADMAP A.4).
+``keep_orig=False`` (the first view augmented too, as the YOLOv3 OA-DG
+config sets it) raises. So does ``on_device=False``, the reference's
+per-sample host algorithm: it needs the host OA-Mix oracle, which the port
+does not have (ROADMAP A, 'Data layer leftovers').
 """
 from __future__ import annotations
 
@@ -33,9 +35,15 @@ class OAMix:
                  oa_random_box_ratio=(3, 1 / 3), num_bboxes=(3, 5),
                  spatial_ratio: int = 4, sigma_ratio: float = 0.3,
                  on_device: bool = True, **kwargs):
+        if not keep_orig:
+            raise NotImplementedError(
+                "OAMix(keep_orig=False) augments the first view too, which the port "
+                "has not yet (the YOLOv3 config of ROADMAP A, 'The other two OA-DG "
+                "configs')")
         if not on_device:
             raise NotImplementedError("OAMix(on_device=False) runs the host OA-Mix "
-                                      "oracle, which the port has not (ROADMAP A.4)")
+                                      "oracle, which the port has not (ROADMAP A, "
+                                      "'Data layer leftovers')")
         self.cfg = dict(
             version=version, num_views=num_views, keep_orig=keep_orig,
             severity=severity, mixture_width=mixture_width,

@@ -1,7 +1,7 @@
 """Geometric and normalization pipeline ops of the test and train paths (port of
-``oadg_tpu/data/pipelines/transforms.py:26-192``): ``Resize``, ``RandomFlip``,
-``Normalize``, ``Pad``. numpy on the host; every op loops over
-``results['img_fields']``.
+``oadg_tpu/data/pipelines/transforms.py:26-208``): ``Resize``, ``RandomFlip``,
+``Normalize``, ``Pad``, and the robustness benchmark's ``Corrupt``. numpy on
+the host; every op but ``Corrupt`` loops over ``results['img_fields']``.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``;
 ``resize_bilinear`` computes the same uint8 image without OpenCV, by cv2's
@@ -244,4 +244,36 @@ class Pad:
         results["pad_shape"] = results[key].shape
         results["pad_fixed_size"] = self.size
         results["pad_size_divisor"] = self.size_divisor
+        return results
+
+
+@PIPELINES.register_module()
+class Corrupt:
+    """On-the-fly corruption of ``results['img']`` (port of
+    ``oadg_tpu/data/pipelines/transforms.py:194``) by the port's suite
+    (``ops/corruptions.py``). Each image draws from its own
+    ``np.random.RandomState(sample_seed(sample_idx, corruption, severity))``,
+    where the JAX op draws from numpy's global generator: a
+    (corruption, severity) cell then corrupts the same pixels in every run
+    and from any loader thread, and ``tools/torch_get_corrupted_dataset.py``
+    writes the same images."""
+
+    def __init__(self, corruption: str, severity: int = 1):
+        from ...ops.corruptions import CORRUPTIONS
+        if corruption not in CORRUPTIONS:
+            raise ValueError(f"unknown corruption {corruption!r}")
+        self.corruption = corruption
+        self.severity = int(severity)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        if self.severity == 0:
+            return results
+        from ...ops.corruptions import corrupt_numpy, sample_seed
+        if "sample_idx" not in results:
+            raise KeyError("Corrupt seeds each image from its dataset index: the "
+                           "results need 'sample_idx' (datasets set it)")
+        rng = np.random.RandomState(sample_seed(results["sample_idx"], self.corruption,
+                                                self.severity))
+        results["img"] = corrupt_numpy(results["img"], self.corruption, self.severity,
+                                       rng=rng)
         return results

@@ -1,4 +1,7 @@
-"""Loss primitives (port of ``oadg_tpu/models/losses/common.py:22-80``).
+"""Loss primitives and the stock losses (port of
+``oadg_tpu/models/losses/common.py:22-136``): ``CrossEntropyLoss``,
+``SmoothL1Loss`` and ``L1Loss``, registered in ``LOSSES``, are the plain
+Faster R-CNN's.
 
 Static-shape and mask-weighted like the JAX package: ragged indexing
 (``pred[pos_inds]``) is a weight of 0. ``maximum`` and ``minimum`` are taken
@@ -10,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ...utils.registry import LOSSES
 
 
 def weight_reduce_loss(loss: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -63,3 +68,71 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return 100.0 * (correct * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return 100.0 * correct.mean()
+
+
+@LOSSES.register_module()
+class CrossEntropyLoss:
+    """Stock CE / BCE (port of ``oadg_tpu/models/losses/common.py:81``):
+    softmax CE with ``ignore_index``; with ``use_sigmoid``, BCE on one-hot
+    targets when ``cls_score`` has one more dimension than ``label`` (a
+    label outside [0, C) gives an all-zero row, a negative or ignored one a
+    weight of 0), elementwise BCE otherwise. ``class_weight`` is accepted
+    and unused, as in the JAX package."""
+
+    def __init__(self, use_sigmoid: bool = False, use_mask: bool = False,
+                 reduction: str = "mean", class_weight=None, ignore_index=None,
+                 loss_weight: float = 1.0, **kw):
+        self.use_sigmoid = use_sigmoid
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+        self.ignore_index = -100 if ignore_index is None else ignore_index
+
+    def __call__(self, cls_score, label, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        red = reduction_override or self.reduction
+        if not self.use_sigmoid:
+            loss = softmax_cross_entropy(cls_score, label, self.ignore_index)
+        elif cls_score.dim() != label.dim():
+            nc = cls_score.shape[-1]
+            onehot = torch.zeros_like(cls_score).scatter_(
+                -1, label.clamp(0, nc - 1)[..., None].long(), 1.0)
+            onehot = onehot * ((label >= 0) & (label < nc))[..., None]
+            w = ((label >= 0) & (label != self.ignore_index))[..., None].float()
+            if weight is not None:
+                w = w * weight[..., None]
+            return self.loss_weight * weight_reduce_loss(
+                binary_cross_entropy_with_logits(cls_score, onehot), w, red, avg_factor)
+        else:
+            loss = binary_cross_entropy_with_logits(cls_score, label.float())
+        return self.loss_weight * weight_reduce_loss(loss, weight, red, avg_factor)
+
+
+@LOSSES.register_module()
+class SmoothL1Loss:
+    """Port of ``oadg_tpu/models/losses/common.py:111``."""
+
+    def __init__(self, beta: float = 1.0, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        return self.loss_weight * weight_reduce_loss(
+            smooth_l1(pred, target, self.beta), weight,
+            reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class L1Loss:
+    """Port of ``oadg_tpu/models/losses/common.py:125``."""
+
+    def __init__(self, reduction: str = "mean", loss_weight: float = 1.0, **kw):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        return self.loss_weight * weight_reduce_loss(
+            l1(pred, target), weight, reduction_override or self.reduction, avg_factor)

@@ -381,7 +381,7 @@ def test_multi_view_test_time_augmentation_is_refused(datasets):
     test["pipeline"][1]["flip"] = True
     tta = build_dataset(test)
     assert tta[0]["__tta__"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(NotImplementedError, match="Test-time paths of the flagship"):
         list(build_dataloader(tta, 1, shuffle=False))
 
 

@@ -113,3 +113,87 @@ def test_contrastive_loss_plus_weight():
     jl, tl = jax_oadg.ContrastiveLossPlus(**cfg), port_oadg.ContrastiveLossPlus(**cfg)
     _compare(lambda f, l, v: jl(f, l, v, (20, 2, 5)),
              lambda f, l, v: tl(f, l, v, (20, 2, 5)), feats, labels, valid)
+
+
+# The plain Faster R-CNN's losses (oadg_tpu_torch/models/losses/common.py).
+
+def _plain(name, **cfg):
+    from oadg_tpu.models.losses import common as jax_common
+    from oadg_tpu_torch.models.losses import common as port_common
+    return getattr(jax_common, name)(**cfg), getattr(port_common, name)(**cfg)
+
+
+_REDUCTIONS = [dict(), dict(reduction_override="sum"), dict(avg_factor=37.0),
+               dict(reduction_override="none")]
+_RED_IDS = ["mean", "sum", "avg_factor", "none"]
+
+
+def _compare_any(jax_fn, port_fn, x, *args):
+    """``_compare`` for losses that may return an unreduced tensor (summed
+    for the gradient, compared elementwise)."""
+    jx = jnp.asarray(x)
+    jout = jax_fn(jx, *[jnp.asarray(a) for a in args])
+    jgrad = jax.grad(lambda v: jnp.sum(jax_fn(v, *[jnp.asarray(a) for a in args])))(jx)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tout = port_fn(tx, *[torch.from_numpy(np.asarray(a)) for a in args])
+    tout.sum().backward()
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), rtol=RTOL,
+                               atol=RTOL * max(np.abs(np.asarray(jout)).max(), 1e-30))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), rtol=RTOL,
+                               atol=RTOL * np.abs(np.asarray(jgrad)).max())
+
+
+@pytest.mark.parametrize("red", _REDUCTIONS, ids=_RED_IDS)
+@pytest.mark.parametrize("mode", ["softmax", "softmax_ignore", "sigmoid_onehot",
+                                  "sigmoid_onehot_ignore", "sigmoid_elementwise"])
+def test_cross_entropy_loss_equals_jax(mode, red):
+    """Softmax CE with and without ``ignore_index``; sigmoid BCE on one-hot
+    targets (labels one past the classes give an all-zero row, ignored and
+    negative labels a weight of 0) and elementwise; weights, ``avg_factor``
+    and ``reduction_override``."""
+    rng = np.random.RandomState(5)
+    rows, nc = 60, 8
+    weights = ((rng.rand(rows) > 0.2) * rng.uniform(0.5, 2, rows)).astype(np.float32)
+    cfg = dict(loss_weight=1.7)
+    if mode.startswith("softmax"):
+        logits = rng.normal(0, 2, (rows, nc + 1)).astype(np.float32)
+        labels = rng.randint(0, nc + 1, rows).astype(np.int32)
+    elif mode.startswith("sigmoid_onehot"):
+        cfg["use_sigmoid"] = True
+        logits = rng.normal(0, 2, (rows, nc)).astype(np.float32)
+        labels = rng.randint(-1, nc + 1, rows).astype(np.int32)
+    else:
+        cfg["use_sigmoid"] = True
+        logits = rng.normal(0, 2, (rows, nc)).astype(np.float32)
+        labels = (rng.rand(rows, nc) > 0.7).astype(np.float32)
+        weights = np.repeat(weights[:, None], nc, 1)
+    if mode.endswith("ignore"):
+        cfg["ignore_index"] = 3
+        labels[::7] = 3
+    jl, tl = _plain("CrossEntropyLoss", **cfg)
+    _compare_any(lambda x, l, w: jl(x, l, w, **red),
+                 lambda x, l, w: tl(x, l if mode == "sigmoid_elementwise" else l.long(), w, **red),
+                 logits, labels, weights)
+
+
+@pytest.mark.parametrize("red", _REDUCTIONS, ids=_RED_IDS)
+@pytest.mark.parametrize("name", ["SmoothL1Loss", "L1Loss"])
+def test_regression_losses_equal_jax(name, red):
+    rng = np.random.RandomState(6)
+    pred = rng.normal(0, 1.5, (50, 4)).astype(np.float32)
+    target = rng.normal(0, 1.5, (50, 4)).astype(np.float32)
+    weight = np.repeat((rng.rand(50, 1) > 0.5), 4, 1).astype(np.float32)
+    cfg = dict(loss_weight=2.0, **(dict(beta=0.7) if name == "SmoothL1Loss" else {}))
+    jl, tl = _plain(name, **cfg)
+    _compare_any(lambda p, t, w: jl(p, t, w, **red), lambda p, t, w: tl(p, t, w, **red),
+                 pred, target, weight)
+
+
+def test_rpn_shaped_cross_entropy_unweighted_mean():
+    """The RPN's call: one sigmoid logit a row, foreground label 0 and
+    background 1; without a weight the mean runs over every element."""
+    rng = np.random.RandomState(7)
+    logits = rng.normal(0, 2, (40, 1)).astype(np.float32)
+    labels = rng.randint(0, 2, 40).astype(np.int32)
+    jl, tl = _plain("CrossEntropyLoss", use_sigmoid=True)
+    _compare(lambda x, l: jl(x, l), lambda x, l: tl(x, l.long()), logits, labels)

@@ -1,9 +1,10 @@
 """The port stands alone: no import of JAX, flax, optax or the JAX package
-anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py``, ``tools/torch_test.py`` or
-``tools/torch_train.py``,
+anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py`` or the ``tools/torch_*.py``
+entry points,
 none at run time (the config loader is the port's own copy, held here to
 the JAX package's on the OA-DG configs), no OpenCV or PIL on the PNG path,
-and no silent CPU fallback for a CUDA device."""
+no OpenCV or PIL in the corruption suite and the robustness tools, and no
+silent CPU fallback for a CUDA device."""
 import ast
 import os
 import subprocess
@@ -28,7 +29,9 @@ def _imports(path):
 def _port_sources():
     return sorted((ROOT / "oadg_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_test.py",
-        ROOT / "tools" / "torch_train.py"]
+        ROOT / "tools" / "torch_train.py", ROOT / "tools" / "torch_test_robustness.py",
+        ROOT / "tools" / "torch_robustness_eval.py",
+        ROOT / "tools" / "torch_get_corrupted_dataset.py"]
 
 
 def test_sources_import_no_jax():
@@ -71,6 +74,27 @@ def test_png_path_loads_no_opencv_or_pil(tmp_path):
             "assert (out == img).all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('cv2', 'PIL', 'jax', 'oadg_tpu')); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_corruptions_and_robustness_tools_load_no_opencv_pil_or_jax():
+    """Importing the suite, its OpenCV stand-ins and the three robustness
+    tools, and running the corruptions that call OpenCV in the JAX package,
+    loads none of ``cv2``, PIL, JAX or the JAX package."""
+    code = ("import sys, numpy as np; sys.path.insert(0, 'tools'); "
+            "import oadg_tpu_torch.ops.corruptions as c, oadg_tpu_torch.ops.cv_host, "
+            "torch_test_robustness, torch_robustness_eval, torch_get_corrupted_dataset; "
+            "img = np.random.RandomState(0).randint(0, 256, (40, 56, 3)).astype(np.uint8); "
+            "[c.corrupt_numpy(img, n, 3, rng=np.random.RandomState(1)) for n in ("
+            "'defocus_blur', 'motion_blur', 'zoom_blur', 'snow', 'frost', 'brightness', "
+            "'saturate', 'elastic_transform', 'pixelate', 'jpeg_compression', 'spatter')]; "
+            "c.corrupt_numpy(img, 'spatter', 1, rng=np.random.RandomState(1)); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'PIL', 'jax', 'jaxlib', 'oadg_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

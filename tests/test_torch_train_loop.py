@@ -362,7 +362,7 @@ def test_model_zoo_names_raise(runs, tmp_path, key):
     name = "open-mmlab://detectron2/resnet50_caffe"
     cfg.merge_from_dict({key: dict(type="Pretrained", checkpoint=name)
                          if key.endswith("init_cfg") else name})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+    with pytest.raises(NotImplementedError, match="Long tail"):
         build_runner(_model(cfg), build_dataset(_plain(cfg.data.train)), cfg,
                      work_dir=str(tmp_path))
 
@@ -559,7 +559,7 @@ def test_a_hook_the_port_lacks_raises(name):
     from oadg_tpu_torch.core.hook import Hook  # noqa: F401
     from oadg_tpu_torch.utils.registry import HOOKS, build_from_cfg
     assert JAX_HOOKS.get(name) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(NotImplementedError, match="Engine leftovers"):
         build_from_cfg(dict(type=name), HOOKS)
 
 
@@ -567,7 +567,7 @@ def test_collate_refuses_img_raw_without_norm_on_device():
     from oadg_tpu_torch.data.builder import StaticBatcher
     img = np.zeros((4, 6, 3), np.uint8)
     sample = dict(img=img, img_raw=img, img_metas=dict(img_shape=(4, 6, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    with pytest.raises(NotImplementedError, match="Data layer leftovers"):
         StaticBatcher((32, 32))([sample])
     batch = StaticBatcher((32, 32))([dict(sample, norm_on_device=True)])
     assert "img" not in batch and batch["img_raw"].dtype == np.uint8
@@ -575,8 +575,53 @@ def test_collate_refuses_img_raw_without_norm_on_device():
 
 def test_oamix_op_on_host_raises():
     from oadg_tpu_torch.data.pipelines import OAMix
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    with pytest.raises(NotImplementedError, match="Data layer leftovers"):
         OAMix(on_device=False)
+
+
+def test_oamix_op_refuses_keep_orig_false():
+    """``keep_orig=False`` augments the first view too; the port raises
+    rather than keep it clean."""
+    from oadg_tpu_torch.data.pipelines import OAMix
+    with pytest.raises(NotImplementedError, match="keep_orig=False.*YOLOv3"):
+        OAMix(keep_orig=False)
+    assert OAMix(keep_orig=True).keep_orig
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_collate_keeps_the_img_raw_dtype_as_jax(dtype):
+    """``norm_on_device`` samples: the ``img_raw`` canvas in the samples'
+    dtype equals the JAX ``StaticBatcher``'s (float32 values in [-20, 280],
+    as ``PhotoMetricDistortion`` leaves them, are not wrapped), and the
+    preprocess takes either: its clean view is ``(raw[..., ::-1] - mean) /
+    std`` of the unclamped raw image, as the JAX preprocess computes it."""
+    from oadg_tpu.data.builder import StaticBatcher as JaxBatcher
+    from oadg_tpu_torch.data.builder import StaticBatcher
+    from oadg_tpu_torch.engine.preprocess import make_oadg_preprocess
+    rng = np.random.RandomState(4)
+    samples = []
+    for h, w in ((30, 40), (28, 36)):
+        raw = (rng.uniform(-20, 280, (h, w, 3)).astype(np.float32) if dtype == "float32"
+               else rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        samples.append(dict(img=raw, img_raw=raw, norm_on_device=True,
+                            img_metas=dict(img_shape=(h, w, 3)),
+                            gt_bboxes=np.array([[2, 3, 20, 25]], np.float32),
+                            gt_labels=np.array([1], np.int64)))
+    got, want = StaticBatcher((32, 64))(samples), JaxBatcher((32, 64))(samples)
+    assert got["img_raw"].dtype == want["img_raw"].dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got["img_raw"], want["img_raw"])
+    if dtype == "float32":
+        assert got["img_raw"].min() < 0 and got["img_raw"].max() > 255
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375], to_rgb=True)
+    pre = make_oadg_preprocess(dict(num_views=2), norm)
+    batch = {k: torch.from_numpy(got[k]) for k in ("img_raw", "gt_bboxes", "gt_labels",
+                                                   "gt_valid")}
+    batch["img_shape"] = got["img_shape"]
+    out = pre(batch, torch.Generator().manual_seed(0))
+    raw = got["img_raw"].astype(np.float32)
+    clean = (raw[..., ::-1] - np.float32(norm["mean"])) / np.float32(norm["std"])
+    np.testing.assert_array_equal(out["img"][:2].permute(0, 2, 3, 1).numpy(), clean)
+    assert out["img"].shape == (4, 3, 32, 64) and torch.isfinite(out["img"]).all()
 
 
 # ------------------------------------------------------------------ the tool ----
@@ -618,5 +663,5 @@ def test_train_tool_defaults_to_the_card_and_refuses_launchers(tmp_path):
     spec.loader.exec_module(tool)
     args = tool.parse_args(["c.py"])
     assert args.device == "cuda" and args.launcher == "none" and not args.auto_resume
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    with pytest.raises(NotImplementedError, match="Data parallel"):
         tool.main(["c.py", "--launcher", "pytorch"])

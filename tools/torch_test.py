@@ -36,7 +36,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.show_dir:
         sys.exit("--show-dir: drawing detections needs core/visualization, which "
-                 "the port has not yet (ROADMAP A.10)")
+                 "the port has not yet (ROADMAP A, 'Long tail')")
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)

@@ -51,7 +51,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.launcher != "none":
         raise NotImplementedError(f"--launcher {args.launcher}: distributed training is "
-                                  "not ported yet (ROADMAP A.7)")
+                                  "not ported yet (ROADMAP A, 'Data parallel')")
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
