@@ -45,6 +45,12 @@ non-zero exit code:
    identity, three slots with mixed flags, and the per-box x pass on the
    chain-like image; ``F.grid_sample``). B5 and B7 must take their fast
    route (the kernel specialised for these shapes) in every case.
+3b. dwd-kernels: B1 and B2 at the DWD config's one level (stride 16) and
+   C = 2048, f32 and bf16, each against its plain version, timed and beside
+   its bound (``check_fwd_case``, ``check_bwd_case``): B1 at one 64x128x2048
+   map (a 1024x2048 test canvas) with R=1000, B2 at 4 maps of 46x80x2048
+   (the 736x1280 train canvas) with the step's R = 4 x 512 + 4 x 10; added
+   to B1's and B2's rows as cases.
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, once in
    float32 and once with ``dtype=torch.bfloat16`` (the JAX package's bench
@@ -152,6 +158,27 @@ non-zero exit code:
    pipeline stage and the collate (in the loop and for one image alone),
    the checkpoint's save ms, and (after every timed run) the device's busy
    share of one profiled bf16 iteration.
+7c. dwd: the DWD OA-DG config (``configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py``:
+   R101-DC5, caffe style, no neck, one 2048-channel level at stride 16, 7
+   classes) at full width with seeded weights. dwd-serve: per dtype 3 timed
+   requests of a 720x1280 image through the test pipeline (``prepare_batch``,
+   1024x1824), the model's share apart, B1 once a request on maps of the
+   model's dtype, the RoI head on kernel vs plain RoIAlign features, the
+   card against the CPU on a 256x448 request. dwd-train: per dtype the
+   OA-DG step (OA-Mix ``augmix.all`` of width 1 on the card, 2 uint8 images
+   x 2 views on the 736x1280 canvas): warm-up and 3 timed steps, B1-B6
+   launched as the tables imply (B7 never), losses finite, trainable
+   parameters moved and frozen ones (stem, ``layer1``, every BN) not, one
+   step with B1 and B2 checked in place, the proposals' NMS at
+   ``nms_pre=12000`` timed with its peak memory; then OA-Mix alone on the
+   DWD canvas with every op forced on each chain, B3-B7 checked in place.
+   dwd-eval: 2 synthetic VOC-XML domains of 8 JPEGs of 720x1280 written by
+   ``encode_jpeg``; ``decode_jpeg`` of each file equals its numpy twin; the
+   f32 model over each domain through ``build_test_loader(cfg, domain)``
+   (images/s, the loader's decode and pipeline host ms an image, per-domain
+   mAP, B1 once an image, ground truth scoring mAP 1.0); then
+   ``tools/torch_test_dwd.py CONFIG none`` as a subprocess counted by
+   ``TOOL_PRELUDE`` (B1 once an image, no other kernel, ``dwd_results.json``).
 8. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -164,14 +191,15 @@ non-zero exit code:
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
 10. a JSON line of the kernels (``launches``: the training step's, B1's
-   test loop's and robustness sweep's, the baseline step's and the f32
-   training loop's; each path's count beside it, ``launches_robustness``,
+   test loop's and robustness sweep's, the baseline step's, the f32
+   training loop's and the DWD f32 step's, requests' and test loop's; each
+   path's count beside it, ``launches_robustness``, ``launches_dwd_step``,
    ``launches_baseline_step``, ``launches_train_loop`` and
    ``launches_train_loop_bf16`` included), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3 and 9 and prints the
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3b and 9 and prints the
 kernels' JSON line and no result line: for work on one kernel.
 
 The script imports nothing of JAX and nothing of the JAX package.
@@ -482,26 +510,27 @@ def phase_build():
         lib.load()
 
 
-def flagship_rois(rng, num=NUM_ROIS, image=0):
-    """``num`` seeded rois on one 1024x2048 image: ordinary boxes of
-    log-uniform size plus edge, out-of-range, extreme-aspect, tiny and zero
-    (padded) boxes (a tenth), covering every level."""
+def flagship_rois(rng, num=NUM_ROIS, image=0, img_h=IMG_H, img_w=IMG_W):
+    """``num`` seeded rois on one image of img_h x img_w (1024x2048 unless
+    told): ordinary boxes of log-uniform size plus edge, out-of-range,
+    extreme-aspect, tiny and zero (padded) boxes (a tenth), covering every
+    level."""
     n_special = num // 10 // 5 * 5
     n = num - n_special
-    w = np.exp(rng.uniform(np.log(4), np.log(1500), n))
-    h = np.exp(rng.uniform(np.log(4), np.log(900), n))
-    cx = rng.uniform(0, IMG_W, n)
-    cy = rng.uniform(0, IMG_H, n)
+    w = np.exp(rng.uniform(np.log(4), np.log(1500 * img_w / IMG_W), n))
+    h = np.exp(rng.uniform(np.log(4), np.log(900 * img_h / IMG_H), n))
+    cx = rng.uniform(0, img_w, n)
+    cy = rng.uniform(0, img_h, n)
     boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
-    boxes = np.clip(boxes, 0, [IMG_W, IMG_H, IMG_W, IMG_H])
+    boxes = np.clip(boxes, 0, [img_w, img_h, img_w, img_h])
     special = []
     for i in range(n_special // 5):
         s = rng.uniform(20, 400)
         special += [
             [0, 0, s, s * 0.7],                            # top-left edge
-            [IMG_W - s, IMG_H - s, IMG_W, IMG_H],           # bottom-right edge
+            [img_w - s, img_h - s, img_w, img_h],           # bottom-right edge
             [-s, -0.5 * s, s, 0.5 * s],                     # out of range
-            [10 + i, 100, 2000, 100 + 3 + i % 7],           # extreme aspect
+            [10 + i, 100, img_w - 48, 100 + 3 + i % 7],     # extreme aspect
             [500 + i, 300 + i, 500 + i + 0.5 * (i % 3), 300 + i],  # tiny / zero
         ]
     boxes = np.concatenate([boxes, np.asarray(special).reshape(-1, 4)],
@@ -530,7 +559,7 @@ def clustered_rois(rng, image):
     return np.concatenate([pos, flagship_rois(rng, TRAIN_ROIS - len(k), image)])
 
 
-def roi_tap_counts(feat_shapes, rois, tile=8):
+def roi_tap_counts(feat_shapes, rois, tile=8, strides=STRIDES):
     """What this run's rois read and write, for the bounds and the design
     bytes: (distinct map cells (level, image, y, x) read by their in-range
     taps; the sum over rois of each roi's distinct tap rows x distinct tap
@@ -538,7 +567,7 @@ def roi_tap_counts(feat_shapes, rois, tile=8):
     dy bins a tile stages per channel)."""
     import torch
     from oadg_tpu_torch.ops.roi_align import _CHUNK, _Pyramid, _geometry
-    pyr = _Pyramid(feat_shapes, STRIDES, rois.device)
+    pyr = _Pyramid(feat_shapes, strides, rois.device)
     rows, fwd_cells, staged = [], 0, 0
     for i in range(0, rois.shape[0], _CHUNK):
         g = _geometry(pyr, rois[i:i + _CHUNK].float(), 7, 2, 56)
@@ -635,24 +664,94 @@ def roi_cases(dev):
     return fwd, bwd
 
 
-def roi_fwd_bytes(feats, rois):
+def roi_fwd_bytes(feats, rois, strides=STRIDES):
     """B1's bound and design bytes: the f32 output written once plus each
     distinct tap cell's channels read once; the design reads each roi's
     distinct tap rows x columns once."""
-    cells, per_roi, _ = roi_tap_counts([f.shape for f in feats], rois)
-    out = rois.shape[0] * CHANNELS * 49 * 4
+    cells, per_roi, _ = roi_tap_counts([f.shape for f in feats], rois, strides=strides)
+    c = feats[0].shape[1]
+    out = rois.shape[0] * c * 49 * 4
     e = feats[0].element_size()
-    return out + cells * CHANNELS * e, out + per_roi * CHANNELS * e, cells
+    return out + cells * c * e, out + per_roi * c * e, cells
 
 
-def roi_bwd_bytes(feats, rois):
+def roi_bwd_bytes(feats, rois, strides=STRIDES):
     """B2's bound and design bytes: dy read once plus the gradient maps
     written once in the maps' dtype; the design writes the maps once and
     reads the dy bins that its tiles stage (each at least once)."""
-    _, _, staged = roi_tap_counts([f.shape for f in feats], rois)
+    _, _, staged = roi_tap_counts([f.shape for f in feats], rois, strides=strides)
+    c = feats[0].shape[1]
     table = sum(math.prod(f.shape) for f in feats) * feats[0].element_size()
-    return (rois.shape[0] * CHANNELS * 49 * 4 + table, table + staged * CHANNELS * 4,
-            table)
+    return rois.shape[0] * c * 49 * 4 + table, table + staged * c * 4, table
+
+
+def check_fwd_case(label, fs, rois, strides=STRIDES, phase="kernels"):
+    """B1 at one case against its plain version, then timed beside its
+    bound. -> (max abs error, timing, bound bytes)."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD, roi_align_multilevel_ref
+    tol = TOL_F32 if "f32" in label else TOL_BF16
+    got = ROI_ALIGN_FWD(fs, rois, 7, strides, 2, 56)
+    want = roi_align_multilevel_ref(fs, rois, 7, strides, 2, 56)
+    torch.cuda.synchronize()
+    fmax = max(float(f.float().abs().max()) for f in fs)
+    err = float((got - want).abs().max())
+    log(phase, f"roi_align_fwd {label}: shape {tuple(got.shape)} "
+               f"max_abs_err {err:.3e} (limit {tol * fmax:.3e})")
+    if not (torch.isfinite(got).all() and err <= tol * fmax):
+        raise AssertionError(f"roi_align_fwd {label} disagrees with the "
+                             f"plain version: {err} > {tol * fmax}")
+    del got, want
+    t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, 7, strides, 2, 56), None, n=30)
+    nbytes, design, cells = roi_fwd_bytes(fs, rois, strides)
+    log(phase, f"roi_align_fwd {label}: {timing_text(t)}; bound "
+               f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, {cells} distinct "
+               f"tap cells; {bound_ms(nbytes) / t['device_ms']:.0%} of the bound); "
+               f"the design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms)"
+               + (f" ({nvidia_smi_line()})" if phase != "kernels" else ""))
+    return err, t, nbytes
+
+
+def check_bwd_case(label, fs, rois, dy, strides=STRIDES, phase="kernels"):
+    """B2 at one case against its plain version and against itself (equal
+    bits in two calls), then timed beside its bound. -> (max abs error,
+    timing, bound bytes)."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, roi_align_multilevel_ref_backward
+    shapes = [f.shape for f in fs]
+    want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, strides, 2, 56)
+    scale = max(float(w.abs().max()) for w in want)
+    got = ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56)
+    again = ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    if "f32" in label:
+        limit = TOL_F32 * scale
+        ok = err <= limit
+    else:
+        limit = TOL_BF16 * scale
+        ok = all(bool(((g.float() - w).abs() <= 2 ** -8 * w.abs() + limit).all())
+                 for g, w in zip(got, want))
+    ok = ok and same and all(g.dtype == fs[0].dtype and g.shape == f.shape
+                             and bool(torch.isfinite(g).all()) for g, f in zip(got, fs))
+    log(phase, f"roi_align_bwd {label}: {len(got)} levels, max_abs_err {err:.3e} "
+               f"(limit {limit:.3e}{' + 2^-8 |value|' if 'bf16' in label else ''}; "
+               f"largest gradient {scale:.3e}); two calls give equal bits: {same}")
+    if not ok:
+        raise AssertionError(f"roi_align_bwd {label} disagrees with the plain "
+                             f"version ({err} > {limit}) or with itself ({same})")
+    del got, again, want
+    t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56), None, n=20)
+    nbytes, design, table = roi_bwd_bytes(fs, rois, strides)
+    log(phase, f"roi_align_bwd {label}: {timing_text(t)}; bound "
+               f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB: dy "
+               f"{dy.numel() * 4 / 1e6:.1f}, gradient maps {table / 1e6:.1f}; "
+               f"{bound_ms(nbytes) / t['device_ms']:.0%} of the bound); the tiled "
+               f"design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms: the "
+               f"maps once and {(design - table) / 1e6:.1f} MB of staged dy bins)"
+               + (f" ({nvidia_smi_line()})" if phase != "kernels" else ""))
+    return err, t, nbytes
 
 
 def phase_kernels():
@@ -661,72 +760,21 @@ def phase_kernels():
     the kernels' report rows. The plain versions' times come from
     ``phase_profiled``."""
     import torch
-    from oadg_tpu_torch.ops.roi_align import (ROI_ALIGN_BWD, ROI_ALIGN_FWD,
-                                              roi_align_multilevel_ref,
-                                              roi_align_multilevel_ref_backward)
     dev = torch.device("cuda", 0)
     fwd_cases, bwd_cases = roi_cases(dev)
     rows = []
     main, others = None, []
     for label, fs, rois in fwd_cases:
-        tol = TOL_F32 if label.startswith("f32") else TOL_BF16
-        got = ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56)
-        want = roi_align_multilevel_ref(fs, rois, 7, STRIDES, 2, 56)
-        torch.cuda.synchronize()
-        fmax = max(float(f.float().abs().max()) for f in fs)
-        err = float((got - want).abs().max())
-        log("kernels", f"roi_align_fwd {label}: shape {tuple(got.shape)} "
-                       f"max_abs_err {err:.3e} (limit {tol * fmax:.3e})")
-        if not (torch.isfinite(got).all() and err <= tol * fmax):
-            raise AssertionError(f"roi_align_fwd {label} disagrees with the "
-                                 f"plain version: {err} > {tol * fmax}")
-        t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, 7, STRIDES, 2, 56), None, n=30)
-        nbytes, design, cells = roi_fwd_bytes(fs, rois)
-        log("kernels", f"roi_align_fwd {label}: {timing_text(t)}; bound "
-                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, {cells} distinct "
-                       f"tap cells; {bound_ms(nbytes) / t['device_ms']:.0%} of the bound); "
-                       f"the design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms)")
+        err, t, nbytes = check_fwd_case(label, fs, rois)
         if main is None:
             main = (err, t, nbytes)
         else:
             others.append(case_row(label, err, t, nbytes))
     rows.append(row("roi_align_fwd", "roi_align_fwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:248",
                     *main, cases=others))
-
     main, others = None, []
     for label, fs, rois, dy in bwd_cases:
-        shapes = [f.shape for f in fs]
-        want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, STRIDES, 2, 56)
-        scale = max(float(w.abs().max()) for w in want)
-        got = ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56)
-        again = ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-        if label.startswith("f32"):
-            limit = TOL_F32 * scale
-            ok = err <= limit
-        else:
-            limit = TOL_BF16 * scale
-            ok = all(bool(((g.float() - w).abs() <= 2 ** -8 * w.abs() + limit).all())
-                     for g, w in zip(got, want))
-        ok = ok and same and all(g.dtype == fs[0].dtype and g.shape == f.shape
-                                 and bool(torch.isfinite(g).all()) for g, f in zip(got, fs))
-        log("kernels", f"roi_align_bwd {label}: {len(got)} levels, max_abs_err {err:.3e} "
-                       f"(limit {limit:.3e}{' + 2^-8 |value|' if 'bf16' in label else ''}; "
-                       f"largest gradient {scale:.3e}); two calls give equal bits: {same}")
-        if not ok:
-            raise AssertionError(f"roi_align_bwd {label} disagrees with the plain "
-                                 f"version ({err} > {limit}) or with itself ({same})")
-        del got, again, want
-        t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, 7, STRIDES, 2, 56), None, n=20)
-        nbytes, design, table = roi_bwd_bytes(fs, rois)
-        log("kernels", f"roi_align_bwd {label}: {timing_text(t)}; bound "
-                       f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB: dy "
-                       f"{dy.numel() * 4 / 1e6:.1f}, gradient maps {table / 1e6:.1f}; "
-                       f"{bound_ms(nbytes) / t['device_ms']:.0%} of the bound); the tiled "
-                       f"design moves {design / 1e6:.1f} MB ({bound_ms(design):.4f} ms: the "
-                       f"maps once and {(design - table) / 1e6:.1f} MB of staged dy bins)")
+        err, t, nbytes = check_bwd_case(label, fs, rois, dy)
         if main is None:
             main = (err, t, nbytes)
         else:
@@ -1152,6 +1200,15 @@ def _set_plain_ms(row, name, case, ms):
     raise KeyError(f"{row['name']} has no bf16 case {case!r}")
 
 
+def _set_case_plain_ms(row, label, ms):
+    """The plain version's time of the row's case ``label``."""
+    for c in row["cases"]:
+        if c["label"] == label:
+            c["plain_ms"] = ms
+            return
+    raise KeyError(f"{row['name']} has no case {label!r}")
+
+
 def phase_profiled(rows):
     """The three times that need ``torch.profiler``, made after the path:
     the plain versions of B1 and B2 build small index tensors from host
@@ -1188,6 +1245,21 @@ def phase_profiled(rows):
                         f"{t['device_ms']:.4f} ms (timer profiler), host {t['host_us']:.1f} "
                         "us a call")
     del feats, dy
+    fwd, bwd = dwd_roi_cases(dev)
+    for (label, fs, rois), (blabel, bfs, brois, bdy) in zip(fwd, bwd):
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, 7, DWD_STRIDES, 2, 56), 3,
+                        method="profiler")
+        _set_case_plain_ms(by_name["roi_align_fwd"], label, t["device_ms"])
+        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+        dt, shapes = bfs[0].dtype, [f.shape for f in bfs]
+        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
+            bdy, shapes, brois, 7, DWD_STRIDES, 2, 56)], 2, method="profiler")
+        _set_case_plain_ms(by_name["roi_align_bwd"], blabel, t["device_ms"])
+        log("profiled", f"roi_align_bwd plain version ({blabel}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    del fwd, bwd
+    torch.cuda.empty_cache()
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -1297,15 +1369,63 @@ def _check_fg(out, fx, fy, h, w):
     return check_fg_maps(out, fg_maps_ref(fx, fy, h, w), fx, fy)[1]
 
 
+def check_ops_in_place(phase, imgs, gt, gv, shapes, cfg, table0):
+    """Every op index of ``cfg``'s version in every slot of ``table0``, on
+    each chain, with B3-B7 checked in place against their plain versions
+    at these images' shapes."""
+    import copy
+    import torch
+    from oadg_tpu_torch.ops import fg_maps, hist, warp
+    from oadg_tpu_torch.ops.oamix_device import num_photometric, oamix_batch
+    checks = {"fg_maps": _CheckedKernel("fg_maps", fg_maps.FG_MAPS, _check_fg),
+              "shear_rows": _CheckedKernel("shear_rows", warp.SHEAR_ROWS, _check_shear),
+              "piecewise_shift_rows": _CheckedKernel(
+                  "piecewise_shift_rows", warp.PIECEWISE_SHIFT_ROWS, _check_piecewise),
+              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist),
+              "merged_shift_rows": _CheckedKernel(
+                  "merged_shift_rows", warp.MERGED_SHIFT_ROWS, _check_merged)}
+    modules = {"fg_maps": (fg_maps, "FG_MAPS"), "shear_rows": (warp, "SHEAR_ROWS"),
+               "piecewise_shift_rows": (warp, "PIECEWISE_SHIFT_ROWS"),
+               "hist256": (hist, "HIST256"),
+               "merged_shift_rows": (warp, "MERGED_SHIFT_ROWS")}
+    n_photo = num_photometric(cfg["version"])
+    for name, (mod, attr) in modules.items():
+        setattr(mod, attr, checks[name])
+    try:
+        for chain in ("slots", "merged"):
+            for k in range(n_photo + 6):
+                table = copy.deepcopy(table0)
+                table["op_idx"][:] = k
+                before = {n: len(c.errors) for n, c in checks.items()}
+                oamix_batch(imgs, gt, gv, shapes, cfg, draws=table, chain=chain)
+                torch.cuda.synchronize()
+                calls = {n: len(c.errors) - before[n] for n, c in checks.items()}
+                if k == 1:
+                    need = "hist256"
+                elif k < n_photo:
+                    need = None
+                elif chain == "merged":
+                    need = "merged_shift_rows"
+                else:
+                    need = "piecewise_shift_rows" if k < n_photo + 3 else "shear_rows"
+                if need and not calls[need]:
+                    raise AssertionError(f"op {k} on the {chain} chain did not run {need}")
+                log(phase, f"op {k} in every slot, {chain} chain: checked in place {calls}")
+    finally:
+        for name, (mod, attr) in modules.items():
+            setattr(mod, attr, checks[name].kernel)
+    for n, c in checks.items():
+        log(phase, f"{n} in the path: {len(c.errors)} calls, vs plain max_abs_err "
+                   f"{max(c.errors):.3e}")
+
+
 def phase_oamix():
     """OA-Mix alone at the flagship's shapes, on each chain: launch counts
     against the drawn table with no host sync, every op in place against
     the plain kernels, the merged chain against the slots chain, and the
     card against the CPU."""
-    import copy
     import torch
-    from oadg_tpu_torch.ops import fg_maps, hist, warp
-    from oadg_tpu_torch.ops.oamix_device import num_photometric, oamix_batch
+    from oadg_tpu_torch.ops.oamix_device import oamix_batch
     dev = torch.device("cuda", 0)
     cfg = flagship_oamix_cfg()
     rng = np.random.RandomState(5)
@@ -1369,47 +1489,7 @@ def phase_oamix():
     if share > 1e-4 or int(diff.max()) > 1:
         raise AssertionError(f"merged vs slots: {share} of values differ, max {diff.max()}")
 
-    # every op index in turn on each chain, B3-B7 checked in place
-    checks = {"fg_maps": _CheckedKernel("fg_maps", fg_maps.FG_MAPS, _check_fg),
-              "shear_rows": _CheckedKernel("shear_rows", warp.SHEAR_ROWS, _check_shear),
-              "piecewise_shift_rows": _CheckedKernel(
-                  "piecewise_shift_rows", warp.PIECEWISE_SHIFT_ROWS, _check_piecewise),
-              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist),
-              "merged_shift_rows": _CheckedKernel(
-                  "merged_shift_rows", warp.MERGED_SHIFT_ROWS, _check_merged)}
-    modules = {"fg_maps": (fg_maps, "FG_MAPS"), "shear_rows": (warp, "SHEAR_ROWS"),
-               "piecewise_shift_rows": (warp, "PIECEWISE_SHIFT_ROWS"),
-               "hist256": (hist, "HIST256"),
-               "merged_shift_rows": (warp, "MERGED_SHIFT_ROWS")}
-    n_photo = num_photometric(cfg["version"])
-    for name, (mod, attr) in modules.items():
-        setattr(mod, attr, checks[name])
-    try:
-        for chain in ("slots", "merged"):
-            for k in range(n_photo + 6):
-                table = copy.deepcopy(outs["slots"]["draws"])
-                table["op_idx"][:] = k
-                before = {n: len(c.errors) for n, c in checks.items()}
-                oamix_batch(imgs, gt, gv, shapes, cfg, draws=table, chain=chain)
-                torch.cuda.synchronize()
-                calls = {n: len(c.errors) - before[n] for n, c in checks.items()}
-                if k == 1:
-                    need = "hist256"
-                elif k < n_photo:
-                    need = None
-                elif chain == "merged":
-                    need = "merged_shift_rows"
-                else:
-                    need = "piecewise_shift_rows" if k < n_photo + 3 else "shear_rows"
-                if need and not calls[need]:
-                    raise AssertionError(f"op {k} on the {chain} chain did not run {need}")
-                log("oamix", f"op {k} in every slot, {chain} chain: checked in place {calls}")
-    finally:
-        for name, (mod, attr) in modules.items():
-            setattr(mod, attr, checks[name].kernel)
-    for n, c in checks.items():
-        log("oamix", f"{n} in the path: {len(c.errors)} calls, vs plain max_abs_err "
-                     f"{max(c.errors):.3e}")
+    check_ops_in_place("oamix", imgs, gt, gv, shapes, cfg, outs["slots"]["draws"])
 
     # the card against the CPU on one table, 256x512, each chain
     h, w = 256, 512
@@ -2830,6 +2910,532 @@ def phase_baseline(rows):
     return out
 
 
+# ---------------------------------------------------------------- DWD ----
+#
+# The DWD OA-DG config: R101-DC5 Faster R-CNN (caffe style, layer4 at stride
+# 16 dilated by 2, no neck), one RoIAlign level at stride 16 with C = 2048
+# (B1 and B2 at 8 times the flagship's width), 7 classes, OA-Mix augmix.all
+# of width 1 on a 736x1280 canvas, VOC-XML data of JPEG images.
+
+DWD = ROOT / "configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py"
+DWD_STRIDES = (16,)
+DWD_CHANNELS = 2048
+DWD_IMG_H, DWD_IMG_W = 720, 1280        # a DWD image
+DWD_CANVAS = (736, 1280)                # the train pipeline's static canvas
+DWD_TRAIN_IMAGES = 19395                # Daytime-Sunny train split, for the LR schedule
+DWD_EVAL_DOMAINS = ("daytime_clear", "night_sunny")
+DWD_EVAL_IMAGES = 8                     # per domain
+DWD_CLASSES = ("bus", "bike", "car", "motor", "person", "rider", "truck")
+
+
+def dwd_cfg():
+    """The DWD OA-DG config, its backbone seeded (the model-zoo
+    ``init_cfg`` names weights this machine cannot reach)."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(str(DWD))
+    cfg["model"]["backbone"]["init_cfg"] = None
+    return cfg
+
+
+def dwd_image(rng, h=DWD_IMG_H, w=DWD_IMG_W):
+    """A smooth colour texture plus noise, shifted per image: compresses
+    like a photograph."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (np.sin(xx / rng.uniform(20, 40)) + np.cos(yy / rng.uniform(15, 30))) * 60 + 128
+    base = np.stack([base, np.roll(base, 17, 0), np.roll(base, 31, 1)], -1)
+    return np.clip(base + rng.normal(0, 4, base.shape), 0, 255).astype(np.uint8)
+
+
+def dwd_roi_cases(dev):
+    """B1 and B2 at the DWD shapes, f32 and bf16 (the maps cast): B1 at
+    one 64x128x2048 map (a 1024x2048 test canvas at stride 16) with R=1000;
+    B2 at 4 maps of 46x80x2048 (the 736x1280 train canvas) with the step's
+    R = 4 x 512 sampled + 4 x 10 random rois. -> (B1 cases, B2 cases)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(20)
+    serve = torch.randn(1, DWD_CHANNELS, IMG_H // 16, IMG_W // 16, device=dev,
+                        generator=gen).contiguous(memory_format=torch.channels_last)
+    srois = torch.from_numpy(flagship_rois(np.random.RandomState(20))).to(dev)
+    h, w = DWD_CANVAS
+    train = torch.randn(TRAIN_IMAGES, DWD_CHANNELS, h // 16, w // 16, device=dev,
+                        generator=gen).contiguous(memory_format=torch.channels_last)
+    rng = np.random.RandomState(21)
+    parts = [flagship_rois(rng, TRAIN_ROIS, b, h, w) for b in range(TRAIN_IMAGES)]
+    parts += [flagship_rois(rng, RANDOM_ROIS, b, h, w) for b in range(TRAIN_IMAGES)]
+    trois = torch.from_numpy(np.concatenate(parts)).to(dev)
+    dy = torch.randn(trois.shape[0], DWD_CHANNELS, 7, 7, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name in DTYPES:
+        dt = torch_dtype(name)
+        fwd.append((f"dwd {name}, serving, 1 map 64x128x2048, R={srois.shape[0]}",
+                    [serve.to(dt)], srois))
+        bwd.append((f"dwd {name}, training, 4 maps 46x80x2048, R={trois.shape[0]}",
+                    [train.to(dt)], trois, dy))
+    return fwd, bwd
+
+
+def phase_dwd_kernels(rows):
+    """dwd-kernels: B1 and B2 at one level and C = 2048 against their plain
+    versions, in f32 and bf16, each timed beside its bound; added to the
+    rows as cases (their plain times from ``phase_profiled``)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    fwd, bwd = dwd_roi_cases(dev)
+    by_name = {r["name"]: r for r in rows}
+    for label, fs, rois in fwd:
+        err, t, nbytes = check_fwd_case(label, fs, rois, DWD_STRIDES, "dwd-kernels")
+        by_name["roi_align_fwd"]["cases"].append(case_row(label, err, t, nbytes))
+    for label, fs, rois, dy in bwd:
+        err, t, nbytes = check_bwd_case(label, fs, rois, dy, DWD_STRIDES, "dwd-kernels")
+        by_name["roi_align_bwd"]["cases"].append(case_row(label, err, t, nbytes))
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+
+def phase_dwd_serve(rows):
+    """dwd-serve: ``init_detector`` on the DWD OA-DG config at full width
+    (R101-DC5, C = 2048, FC 1024), seeded weights, per dtype: a warm-up and
+    3 timed requests of a 720x1280 image through the test pipeline
+    (``prepare_batch``: rescaled to 1024x1820 on the host, padded to
+    1024x1824: one 64x114x2048 map), the model's share timed apart, B1 once a
+    request on maps of the model's dtype, the RoI head on kernel vs plain
+    RoIAlign features, and the card against the CPU on a 256x448 request
+    (feature map and the RoI head on the card's first 200 proposals) with
+    the flagship's reference tolerances. -> per dtype {median_ms, model_ms,
+    peak_gib}."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector, prepare_batch, prepare_image
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD, roi_align_multilevel_ref
+    out = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        t0 = time.perf_counter()
+        handle = init_detector(dwd_cfg(), device="cuda", seed=0, dtype=dtype)
+        log("dwd-serve", f"init_detector (R101-DC5, C=2048, 7 classes, {name}) in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        rng = np.random.RandomState(30)
+        images = [dwd_image(rng) for _ in range(4)]
+        handle.test(prepare_batch(handle, images[0]))
+        torch.cuda.synchronize()                                  # warm-up request
+        entry = _EntryDtypes(ROI_ALIGN_FWD)
+        roi_align.ROI_ALIGN_FWD = entry
+        ROI_ALIGN_FWD.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        latencies, model_ms, results = [], [], []
+        try:
+            for img in images[1:]:
+                t0 = time.perf_counter()
+                batch = prepare_batch(handle, img)
+                t1 = time.perf_counter()
+                results.append(handle.test(batch))
+                torch.cuda.synchronize()
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                model_ms.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            roi_align.ROI_ALIGN_FWD = ROI_ALIGN_FWD
+        launches, peak = ROI_ALIGN_FWD.launches, torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(latencies)
+        log("dwd-serve", f"{name}: 3 requests of {DWD_IMG_H}x{DWD_IMG_W}: latency ms "
+                         f"{[round(x, 3) for x in latencies]}, median {median:.3f}, of which "
+                         f"the test pipeline on the host (resize to 1024x1820, normalize, "
+                         f"pad) {statistics.median(latencies) - statistics.median(model_ms):.3f} "
+                         f"and the model (upload, simple_test, synchronize) "
+                         f"{[round(x, 3) for x in model_ms]}, median "
+                         f"{statistics.median(model_ms):.3f}; max_memory_allocated "
+                         f"{peak:.2f} GiB (weights included); roi_align_fwd launches "
+                         f"{launches} on maps of {sorted(set(map(str, entry.dtypes)))} "
+                         f"({nvidia_smi_line()})")
+        if launches != 3 or entry.dtypes != [dtype] * 3:
+            raise AssertionError(f"dwd {name}: roi_align_fwd launched {launches} times in "
+                                 f"3 requests, on maps {entry.dtypes}")
+        rows[0]["launches_dwd_serve" + ("" if name == "f32" else "_bf16")] = launches
+        for dets, labels, valid in results:
+            if tuple(dets.shape) != (1, 100, 5) or not torch.isfinite(dets).all():
+                raise AssertionError(f"dwd: bad dets {tuple(dets.shape)}")
+            if not ((labels[valid] >= 0) & (labels[valid] < 7)).all():
+                raise AssertionError("dwd: label out of range")
+        with torch.inference_mode():
+            batch = prepare_batch(handle, images[1])
+            det = handle.model
+            feats = det.extract_feat(batch["img"])
+            boxes, _, _ = det.rpn_head.get_proposals(*det.rpn_head(feats), batch["img_shape"])
+            rois = det.roi_head.proposals_to_rois(boxes)
+            head = det.roi_head.bbox_head
+            cls_k, reg_k, _ = head(det.roi_head.bbox_roi_extractor(feats, rois))
+            cls_p, reg_p, _ = head(roi_align_multilevel_ref(feats, rois, 7, DWD_STRIDES, 2, 56))
+        log("dwd-serve", f"{name}: feature maps {[tuple(f.shape) for f in feats]} "
+                         f"{feats[0].dtype}; valid detections a request "
+                         f"{[int(v.sum()) for _, _, v in results]}")
+        if len(feats) != 1 or tuple(feats[0].shape[1:]) != (DWD_CHANNELS, 64, 114) \
+                or feats[0].dtype != dtype:
+            raise AssertionError(f"dwd {name}: maps {[tuple(f.shape) for f in feats]}")
+        for what, a, b in (("cls_score", cls_k, cls_p), ("bbox_pred", reg_k, reg_p)):
+            check_close("dwd-serve", f"{name}: RoI head {what} kernel vs plain RoIAlign",
+                        a, b, TOL_HEAD if name == "f32" else TOL_HEAD_BF16)
+        del feats, rois, cls_k, reg_k, cls_p, reg_p
+
+        # the card against the CPU at full width on a 256x448 request
+        # (normalized and padded, not resized)
+        tol = TOL_HEAD if name == "f32" else TOL_BF16_CARD
+        cpu = init_detector(dwd_cfg(), device="cpu", seed=0, dtype=dtype)
+        img = images[2][:256, :448]
+        bc, bg = prepare_image(img, cpu.cfg, "cpu"), prepare_image(img, handle.cfg, handle.device)
+        with torch.inference_mode():
+            fc, fg = cpu.model.extract_feat(bc["img"]), handle.model.extract_feat(bg["img"])
+            check_close("dwd-serve", f"{name}: layer4 map {tuple(fg[0].shape)} card vs CPU",
+                        fg[0], fc[0], tol)
+            boxes, _, _ = handle.model.rpn_head.get_proposals(
+                *handle.model.rpn_head(fg), bg["img_shape"])
+            rois = handle.model.roi_head.proposals_to_rois(boxes)[:200]
+            outs = [m.roi_head.bbox_head(m.roi_head.bbox_roi_extractor(f, r))
+                    for m, f, r in ((handle.model, fg, rois), (cpu.model, fc, rois.cpu()))]
+        for what, a, b in zip(("cls_score", "bbox_pred"), *outs):
+            check_close("dwd-serve", f"{name}: RoI head {what} card vs CPU (200 rois)",
+                        a, b, tol)
+        out[name] = dict(median_ms=median, model_ms=statistics.median(model_ms),
+                         peak_gib=peak)
+        del handle, cpu, det, head, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def dwd_train_batch(rng, device):
+    """2 uint8 images of 720x1280 on the 736x1280 canvas, ``NUM_GTS``
+    seeded gts each over the 7 classes."""
+    import torch
+    h, w = DWD_CANVAS
+    images = np.zeros((2, h, w, 3), np.uint8)
+    for i in range(2):
+        images[i, :DWD_IMG_H, :DWD_IMG_W] = dwd_image(rng)
+    gt, labels = seeded_gts(rng, 2, DWD_IMG_H, DWD_IMG_W)
+    return {"img_raw": torch.from_numpy(images).to(device),
+            "gt_bboxes": torch.from_numpy(gt).to(device),
+            "gt_labels": torch.from_numpy(labels % 7).to(device),
+            "gt_valid": torch.ones((2, NUM_GTS), dtype=torch.bool, device=device),
+            "img_shape": torch.tensor([[DWD_IMG_H, DWD_IMG_W]] * 2, dtype=torch.float32)}
+
+
+def phase_dwd_train(rows):
+    """dwd-train: the OA-DG training step on the DWD config at full width,
+    per dtype: OA-Mix ``augmix.all`` of width 1 on the card (slots chain),
+    a warm-up and 3 timed steps of 2 uint8 images x 2 views on the 736x1280
+    canvas; B1 and B2 twice a step on maps of the model's dtype, B3-B6 as the
+    drawn tables imply, B7 never; losses finite float32, every trainable
+    parameter moved, every frozen one (stem, ``layer1``, every BN) not; one
+    step with B1 and B2 checked in place; the proposals' NMS at
+    ``nms_pre=12000`` timed with its memory. Then OA-Mix alone on the DWD
+    canvas with every op forced on each chain, B3-B7 checked in place.
+    -> per dtype {median_ms, peak_gib, nms_ms, nms_peak_gib}."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
+                                       make_oadg_preprocess, make_train_step)
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    dev = torch.device("cuda", 0)
+    cfg = dwd_cfg()
+    oamix_cfg = dict(cfg["oamix_config"])
+    oamix_cfg.pop("type")
+    wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD,
+                    **oamix_wrappers())
+    out = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        handle = init_detector(cfg, device="cuda", seed=0, num_views=cfg["num_views"],
+                               dtype=dtype)
+        model = handle.model
+        pre = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], out_dtype=model.dtype)
+        step = make_train_step(
+            model, build_optimizer(model, cfg["optimizer"],
+                                   grad_clip=cfg["optimizer_config"]["grad_clip"]),
+            build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"],
+                              -(-DWD_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])),
+            preprocess=pre)
+        batch = dwd_train_batch(np.random.RandomState(31), dev)
+        params = dict(model.named_parameters())
+        frozen = [k for k, p in params.items() if not p.requires_grad]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        before = {k: p.detach().clone() for k, p in params.items()}
+        step(batch, gen)                                           # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for wr in wrappers.values():
+            wr.launches = 0
+        entries = dict(roi_align_fwd=_EntryDtypes(ROI_ALIGN_FWD),
+                       roi_align_bwd=_EntryDtypes(ROI_ALIGN_BWD))
+        expected = dict(roi_align_fwd=6, roi_align_bwd=6, **dict.fromkeys(oamix_wrappers(), 0))
+        times, logs = [], []
+        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = entries.values()
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                logs.append(step(batch, gen))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                for k, n in expected_launches(pre.draws, oamix_cfg["version"]).items():
+                    expected[k] += n
+        finally:
+            roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
+        launched = {k: wr.launches for k, wr in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(times)
+        for i, lv in enumerate(logs):
+            log("dwd-train", f"{name}, step {i + 1}: " + ", ".join(
+                f"{k} {float(v):.5f}" for k, v in lv.items()))
+        log("dwd-train", f"{name}: 3 steps of 2 images x 2 views on {DWD_CANVAS[0]}x"
+                         f"{DWD_CANVAS[1]}: ms {[round(t, 3) for t in times]}, median "
+                         f"{median:.3f}; max_memory_allocated {peak:.2f} GiB; launches "
+                         f"{launched}; the tables imply {expected} ({nvidia_smi_line()})")
+        if launched != expected or any(e.dtypes != [dtype] * 6 for e in entries.values()):
+            raise AssertionError(f"dwd {name}: launched {launched}, not {expected}, or maps "
+                                 f"of {[e.dtypes for e in entries.values()]}")
+        unlaunched = [k for k, n in launched.items() if not n and k != "merged_shift_rows"]
+        if unlaunched:
+            raise AssertionError(f"dwd {name}: 3 steps never launched {unlaunched}")
+        for r in rows:
+            r["launches_dwd_step" + ("" if name == "f32" else "_bf16")] = launched[r["name"]]
+        for lv in logs:
+            if not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                       for v in lv.values()) or not float(lv["loss_cont"]) > 0:
+                raise AssertionError(f"dwd {name}: a loss is not a finite float32: {lv}")
+        still = [k for k, p in params.items() if p.requires_grad
+                 and torch.equal(p.detach(), before[k])]
+        moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+        bns = [k for k in params if ".bn" in k or "downsample.1" in k or k.startswith(
+            "backbone.bn1")]
+        log("dwd-train", f"{name}: {len(params) - len(frozen)} trainable parameters, "
+                         f"{len(still)} unmoved; {len(frozen)} frozen (stem, layer1, "
+                         f"{len(bns)} BN affines), {len(moved)} moved")
+        if still or moved or not set(bns) <= set(frozen) or any(
+                not k.startswith(("backbone.conv1", "backbone.layer1.")) and k not in bns
+                for k in frozen):
+            raise AssertionError(f"dwd {name}: unmoved trainable {still[:5]}, moved frozen "
+                                 f"{moved[:5]}")
+
+        checks = (_Checked("roi_align_fwd", ROI_ALIGN_FWD, _plain_fwd),
+                  _Checked("roi_align_bwd", ROI_ALIGN_BWD, _plain_bwd))
+        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
+        try:
+            step(batch, gen)
+        finally:
+            roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
+        torch.cuda.synchronize()
+        for check in checks:
+            for i, (r, maps, err, lim, within) in enumerate(check.calls):
+                log("dwd-train", f"{name}: {check.name} call {i} in the step (R={r}, 4 maps "
+                                 f"of 46x80x2048, {maps}): vs plain version max_abs_err "
+                                 f"{err:.3e} (limit {lim:.3e})")
+                if not within or maps != dtype:
+                    raise AssertionError(f"dwd: {check.name} in the step disagrees: "
+                                         f"{err} > {lim}")
+            if len(check.calls) != 2:
+                raise AssertionError(f"dwd: {len(check.calls)} {check.name} calls in a step")
+
+        # the proposals' NMS at nms_pre=12000 on the clean images' maps
+        with torch.no_grad():
+            views = pre(batch, gen)
+            feats = model.extract_feat(views["img"][:2])
+            heads = model.rpn_head(feats)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, _, valid = model.rpn_head.get_proposals(*heads, views["img_shape"][:2],
+                                                       cfg["model"]["train_cfg"]["rpn_proposal"])
+            torch.cuda.synchronize()
+            nms_ms = (time.perf_counter() - t0) * 1e3
+            nms_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log("dwd-train", f"{name}: proposals of 2 images ({heads[0][0].shape[-2]}x"
+                         f"{heads[0][0].shape[-1]}x15 anchors, nms_pre 12000, max_per_img "
+                         f"2000): {nms_ms:.3f} ms, peak above the step's live tensors "
+                         f"{nms_peak:.2f} GiB, {int(valid.sum())} proposals kept "
+                         f"({nvidia_smi_line()})")
+        out[name] = dict(median_ms=median, peak_gib=peak, nms_ms=nms_ms, nms_peak_gib=nms_peak)
+        del model, step, handle, params, before, views, feats, heads
+        torch.cuda.empty_cache()
+
+    # OA-Mix alone on the DWD canvas: every op forced on each chain, B3-B7 in place
+    from oadg_tpu_torch.ops.oamix_device import oamix_batch
+    batch = dwd_train_batch(np.random.RandomState(32), dev)
+    shapes = batch["img_shape"].numpy()
+    first = oamix_batch(batch["img_raw"], batch["gt_bboxes"], batch["gt_valid"], shapes,
+                        oamix_cfg, generator=torch.Generator().manual_seed(2))
+    check_ops_in_place("dwd-train", batch["img_raw"], batch["gt_bboxes"], batch["gt_valid"],
+                       shapes, oamix_cfg, first["draws"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_dwd_domains(root, seed=0):
+    """``DWD_EVAL_IMAGES`` 720x1280 JPEGs a domain, written by the port's
+    encoder (quality 95), with VOC XMLs of 4-8 objects over the 7 classes
+    (every fourth difficult) -> per domain (name, img_prefix, ann_file)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from oadg_tpu_torch.data.pipelines.image_io import imwrite
+    out = []
+    for d, name in enumerate(DWD_EVAL_DOMAINS):
+        dom = os.path.join(root, name, "VOC2007")
+        for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+            os.makedirs(os.path.join(dom, sub))
+        ids = [f"{name}_{i:03d}" for i in range(DWD_EVAL_IMAGES)]
+
+        def write(i, ids=ids, dom=dom, d=d):
+            rng = np.random.RandomState(seed * 1000 + d * 100 + i)
+            imwrite(os.path.join(dom, "JPEGImages", f"{ids[i]}.jpg"), dwd_image(rng))
+            objects = []
+            for k in range(rng.randint(4, 9)):
+                bw, bh = rng.uniform(16, 400), rng.uniform(16, 300)
+                x, y = rng.uniform(0, DWD_IMG_W - bw), rng.uniform(0, DWD_IMG_H - bh)
+                objects.append(
+                    f"<object><name>{DWD_CLASSES[rng.randint(7)]}</name><difficult>"
+                    f"{int(k % 4 == 3)}</difficult><bndbox><xmin>{x:.0f}</xmin><ymin>{y:.0f}"
+                    f"</ymin><xmax>{x + bw:.0f}</xmax><ymax>{y + bh:.0f}</ymax></bndbox>"
+                    "</object>")
+            with open(os.path.join(dom, "Annotations", f"{ids[i]}.xml"), "w") as f:
+                f.write(f"<annotation><filename>{ids[i]}.jpg</filename><size><width>"
+                        f"{DWD_IMG_W}</width><height>{DWD_IMG_H}</height><depth>3</depth>"
+                        f"</size>{''.join(objects)}</annotation>")
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write, range(DWD_EVAL_IMAGES)))
+        ann = os.path.join(dom, "ImageSets", "Main", "test.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(ids) + "\n")
+        out.append((name, dom + os.sep, ann))
+    return out
+
+
+def phase_dwd_eval(rows):
+    """dwd-eval: a synthetic 2-domain VOC-XML set (``write_dwd_domains``).
+    Each file's ``decode_jpeg`` equals the numpy twin's; in this process
+    the f32 model over each domain through ``build_test_loader(cfg,
+    domain)`` and ``single_gpu_test``, B1 once an image, the loader's
+    decode and pipeline host ms per image, images/s, per-domain mAP; the
+    ground truth as detections scores mAP 1.0 in each domain; then
+    ``tools/torch_test_dwd.py CONFIG none`` as a subprocess, counted by
+    ``TOOL_PRELUDE``: exit 0, B1 once an image and no other kernel, the
+    domains' metrics and ``mean_mAP`` in ``dwd_results.json``."""
+    import os
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD
+    from oadg_tpu_torch.utils.jpeg import decode_jpeg
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    domains = write_dwd_domains(tmp.name)
+    files = [os.path.join(p, "JPEGImages", f) for _, p, _ in domains
+             for f in sorted(os.listdir(os.path.join(p, "JPEGImages")))]
+    size = sum(os.path.getsize(f) for f in files) / len(files)
+    log("dwd-eval", f"wrote {len(domains)} domains of {DWD_EVAL_IMAGES} JPEGs of "
+                    f"{DWD_IMG_H}x{DWD_IMG_W} ({size / 1e6:.2f} MB each, encode_jpeg quality "
+                    f"95) in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for f in files:
+        with open(f, "rb") as fh:
+            data = fh.read()
+        if not np.array_equal(decode_jpeg(data), decode_jpeg(data, native=False)):
+            raise AssertionError(f"{f}: decode_jpeg differs from its numpy twin")
+    log("dwd-eval", f"decode_jpeg of each of the {len(files)} files equals the numpy twin's "
+                    f"({time.perf_counter() - t0:.2f} s for both)")
+    cfg = dwd_cfg()
+    cfg["data"]["test"] = [dict(cfg["data"]["val"], domain=name, img_prefix=prefix,
+                                ann_file=ann) for name, prefix, ann in domains]
+    cfg_path = os.path.join(tmp.name, "dwd_eval.py")
+    cfg.dump(cfg_path)
+    state = load_model_state(cfg, "none", device="cuda")
+    summary, per_image, launches = {}, {}, 0
+    for name, prefix, ann in domains:
+        dataset, loader = build_test_loader(cfg, cfg["data"]["test"][len(summary)],
+                                            pin_memory=True)
+        decode, pipeline = (_HostTimer(t) for t in dataset.pipeline.transforms)
+        dataset.pipeline.transforms = [decode, pipeline]
+        if not summary:                                 # warm-up request
+            state["test_fn"](loader.batcher([dataset[0]]))
+            torch.cuda.synchronize()
+            decode.seconds = pipeline.seconds = 0.0
+        ROI_ALIGN_FWD.launches = 0
+        t0 = time.perf_counter()
+        results = single_gpu_test(state, loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += ROI_ALIGN_FWD.launches
+        if ROI_ALIGN_FWD.launches != len(dataset) or len(results) != DWD_EVAL_IMAGES:
+            raise AssertionError(f"dwd {name}: B1 launched {ROI_ALIGN_FWD.launches} times "
+                                 f"for {len(dataset)} images")
+        metrics = dataset.evaluate(results)
+        gt = []
+        for i in range(len(dataset)):
+            a = dataset.get_ann_info(i)
+            per = [np.zeros((0, 5), np.float32) for _ in DWD_CLASSES]
+            for box, lab in zip(a["bboxes"], a["labels"]):
+                per[int(lab)] = np.concatenate([per[int(lab)], np.r_[box, 1.0][None]]
+                                               ).astype(np.float32)
+            gt.append(per)
+        gt_map = dataset.evaluate(gt)["mAP"]
+        per_image[name] = dict(images_per_s=len(dataset) / wall,
+                               decode_ms=decode.seconds * 1e3 / len(dataset),
+                               pipeline_ms=pipeline.seconds * 1e3 / len(dataset))
+        summary[name] = metrics
+        log("dwd-eval", f"{name}: {len(dataset)} images at {per_image[name]['images_per_s']:.3f} "
+                        f"images/s ({loader.num_workers} loader threads); loader host ms per "
+                        f"image: decode {per_image[name]['decode_ms']:.3f}, pipeline "
+                        f"{per_image[name]['pipeline_ms']:.3f}; mAP {metrics['mAP']} (seeded "
+                        f"weights); ground truth as detections mAP {gt_map} "
+                        f"({nvidia_smi_line()})")
+        if gt_map != 1.0 or set(metrics) != {"mAP"} | {f"AP_{c}" for c in DWD_CLASSES}:
+            raise AssertionError(f"dwd {name}: ground truth scored {gt_map}, keys {set(metrics)}")
+    rows[0]["launches_dwd_eval"] = launches
+    del state
+    torch.cuda.empty_cache()
+
+    record = os.path.join(tmp.name, "record.json")
+    out_dir = os.path.join(tmp.name, "out")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TOOL_PRELUDE,
+                          str(ROOT / "tools" / "torch_test_dwd.py"), cfg_path, "none",
+                          "--out-dir", out_dir], cwd=ROOT,
+                         env=dict(os.environ, LOOP_RECORD=record), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_test_dwd.py failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    with open(record) as f:
+        launched = json.load(f)["launches"]
+    with open(os.path.join(out_dir, "dwd_results.json")) as f:
+        dumped = json.load(f)
+    want = dict(dict.fromkeys(launched, 0), roi_align_fwd=len(files))
+    log("dwd-eval", f"tools/torch_test_dwd.py (f32, seeded weights) exit 0 in {wall:.2f} s: "
+                    f"launches {launched}; dwd_results.json {json.dumps(dumped)}")
+    # the tool's own process picks its own cuDNN algorithms: its metrics
+    # are held to this process's keys, and to its mAPs within 1e-3
+    if launched != want or list(dumped) != [*DWD_EVAL_DOMAINS, "mean_mAP"] or any(
+            set(dumped[d]) != set(summary[d]) or abs(dumped[d]["mAP"] - summary[d]["mAP"]) > 1e-3
+            for d in DWD_EVAL_DOMAINS):
+        raise AssertionError(f"tools/torch_test_dwd.py launched {launched}, not {want}, or "
+                             f"wrote {dumped}, not {summary}")
+    tmp.cleanup()
+    return per_image
+
+
+def phase_dwd(rows):
+    """The DWD slice's paths: serving, the training step and the test tool,
+    each driven with the kernels' counts set to 0 just before it; the
+    main-path launches (f32 step, f32 requests, the in-process test loop)
+    are added to each row's ``launches``. -> their numbers."""
+    out = {"serve": phase_dwd_serve(rows), "train": phase_dwd_train(rows),
+           "eval": phase_dwd_eval(rows)}
+    for r in rows:
+        r["launches"] += r["launches_dwd_step"] + r.get(
+            "launches_dwd_serve", 0) + r.get("launches_dwd_eval", 0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2841,6 +3447,7 @@ def main():
     phase_device()
     phase_build()
     rows = phase_kernels() + phase_oamix_kernels()
+    phase_dwd_kernels(rows)
     if "--kernels-only" in sys.argv[1:]:        # the kernels' phases alone: no result line
         phase_profiled(rows)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -2857,6 +3464,7 @@ def main():
         r["launches"] += r.get("launches_evaluate", 0) + r["launches_robustness"]
     baseline = phase_baseline(rows)
     loop_profile = phase_train_loop(rows, evaluate_profile.val)
+    dwd = phase_dwd(rows)
     for _, profile in trains.values():
         profile()
     summary = {name: out for name, (out, _) in trains.items()}
@@ -2869,6 +3477,7 @@ def main():
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")
     log("baseline", f"per dtype ({nvidia_smi_line()}): {json.dumps(baseline)}")
     log("robustness", f"summary ({nvidia_smi_line()}): {json.dumps(robustness)}")
+    log("dwd", f"summary ({nvidia_smi_line()}): {json.dumps(dwd)}")
     for name in DTYPES:
         phase_train_reference(name)
         phase_train_reference(name, BASELINE, "baseline-reference")

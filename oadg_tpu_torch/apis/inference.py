@@ -107,8 +107,15 @@ def _num_classes(cfg) -> int:
     return int(dict(m.get("bbox_head") or {}).get("num_classes", 80))
 
 
-def _classes_from_cfg(cfg):
+def _test_set(cfg):
+    """The config's test set; of a list of them (the DWD config's five
+    weather domains, one class list and one pipeline) the first."""
     test = (cfg.get("data") or {}).get("test")
+    return test[0] if isinstance(test, (list, tuple)) and test else test
+
+
+def _classes_from_cfg(cfg):
+    test = _test_set(cfg)
     if not test:
         return None
     from ..utils.registry import DATASETS
@@ -120,7 +127,7 @@ def _test_pipeline(cfg):
     """The config's test pipeline, reading the caller's array in place of
     the image file."""
     from ..data.pipelines import Compose
-    pipeline = list(cfg["data"]["test"]["pipeline"])
+    pipeline = list(_test_set(cfg)["pipeline"])
     if pipeline and pipeline[0].get("type") == "LoadImageFromFile":
         pipeline[0] = dict(type="LoadImageFromWebcam")
     return Compose(pipeline)

@@ -81,13 +81,21 @@ def load_model_state(cfg, checkpoint, device="cuda", dtype=None) -> Dict:
                 num_classes=_num_classes(handle.cfg))
 
 
-def build_test_loader(cfg, pin_memory: bool = False, split: str = "test"):
-    """``cfg.data[split]`` (``test``, or ``val`` for the evaluation after
-    each training epoch) in test mode -> (dataset, loader): one image a
+def build_test_loader(cfg, test_cfg=None, pin_memory: bool = False, split: str = "test"):
+    """One test set in test mode -> (dataset, loader): ``test_cfg`` (one
+    dataset config, as ``tools/test.py:55`` takes it: a domain of the DWD
+    config's ``data.test`` list) or else ``cfg.data[split]`` (``test``, or
+    ``val`` for the evaluation after each training epoch); one image a
     batch, the config's ``workers_per_gpu`` threads, dataset order, the
     canvas of the pipeline's ``MultiScaleFlipAug`` scale, the images in
     pinned memory with ``pin_memory``."""
-    tc = dict(cfg["data"][split])
+    if test_cfg is None:
+        test_cfg = cfg["data"][split]
+        if isinstance(test_cfg, (list, tuple)):
+            raise ValueError(f"data.{split} is a list of {len(test_cfg)} dataset configs: "
+                             "pass one of them as test_cfg (tools/torch_test_dwd.py "
+                             "tests each)")
+    tc = dict(test_cfg)
     tc["test_mode"] = True
     dataset = build_dataset(tc)
     static = None

@@ -1,6 +1,7 @@
-"""Datasets of the port's test path; importing this registers them."""
+"""Datasets of the port's test and train paths; importing this registers them."""
 from .coco import CityscapesDataset, CocoDataset
 from .custom import ConcatDataset, CustomDataset, RepeatDataset
+from .xml_style import SdgodDataset, VOCDataset, XMLDataset
 
 __all__ = ["CityscapesDataset", "CocoDataset", "ConcatDataset", "CustomDataset",
-           "RepeatDataset"]
+           "RepeatDataset", "SdgodDataset", "VOCDataset", "XMLDataset"]

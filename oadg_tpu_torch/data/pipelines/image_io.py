@@ -1,17 +1,22 @@
 """Image files without OpenCV: the port's counterpart of ``cv2.imread`` and
-``cv2.imwrite`` for PNG, the format of Cityscapes' ``leftImg8bit`` images.
+``cv2.imwrite`` for PNG, the format of Cityscapes' ``leftImg8bit`` images,
+and for baseline JPEG, the format of VOC-style datasets (the Diverse
+Weather Dataset).
 
 ``imread`` returns what ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns: an
 (H, W, 3) uint8 BGR array; a gray image is replicated into the three
-channels and an alpha channel is dropped. The decoder takes 8-bit gray, RGB
-and RGBA PNGs without interlacing and raises on anything else. It inflates
-with ``zlib`` and undoes the row filters in the port's host library
+channels and an alpha channel is dropped. The PNG decoder takes 8-bit gray,
+RGB and RGBA PNGs without interlacing and raises on anything else. It
+inflates with ``zlib`` and undoes the row filters in the port's host library
 (``utils/host_kernels.py``), whose call releases the interpreter lock;
-``png_unfilter_numpy`` is its plain twin. Any other format goes to ``cv2``
-if it is importable, and otherwise raises an ``ImportError`` that names the
-file: there is no silent substitute.
+``png_unfilter_numpy`` is its plain twin. JPEG goes to ``utils/jpeg.py``
+(``decode_jpeg``: baseline Huffman, 4:2:0, 4:2:2 or 4:4:4, bit-equal to
+``cv2.imdecode``; the entropy stage in the host library), which raises a
+``ValueError`` naming the file on a progressive, arithmetic-coded, lossless
+or 12-bit one. Any other format raises too: there is no other decoder.
 
-``encode_png`` / ``imwrite`` write 8-bit PNGs (filter None or Sub, ``zlib``),
+``encode_png`` / ``imwrite`` write 8-bit PNGs (filter None or Sub, ``zlib``)
+and ``encode_jpeg`` baseline 4:2:0 JPEGs (``imwrite`` to a ``.jpg`` path),
 so that tests and the card's smoke run can make datasets without OpenCV.
 """
 from __future__ import annotations
@@ -21,6 +26,11 @@ import zlib
 from typing import Tuple
 
 import numpy as np
+
+from ...utils.jpeg import JPEG_SOI, decode_jpeg, encode_jpeg
+
+__all__ = ["imread", "imwrite", "image_size", "decode_png", "encode_png", "decode_jpeg",
+           "encode_jpeg", "png_scanlines", "png_unfilter_numpy"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG colour type -> samples a pixel
@@ -111,25 +121,41 @@ def decode_png(data: bytes, native: bool = True) -> np.ndarray:
 
 
 def imread(path, flag: str = "color") -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)``: (H, W, 3) uint8 BGR. A PNG is
-    decoded here; another format needs ``cv2``. A missing file raises
-    ``FileNotFoundError``."""
+    """``cv2.imread(path, cv2.IMREAD_COLOR)``: (H, W, 3) uint8 BGR of a PNG
+    or a baseline JPEG. Any other file raises ``ValueError`` naming it; a
+    missing file raises ``FileNotFoundError``."""
     if flag != "color":
         raise ValueError(f"imread flag {flag!r}: the port reads 'color' images only")
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
-    try:
-        import cv2
-    except ImportError:
-        raise ImportError(f"{path} is not a PNG: the port decodes PNG itself and "
-                          "every other format (JPEG included) with cv2, which is "
-                          "not installed") from None
-    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError(f"cv2 cannot decode {path}")
-    return img
+    if data[:2] == JPEG_SOI:
+        return decode_jpeg(data, name=str(path))
+    raise ValueError(f"{path} is neither a PNG nor a JPEG: the port decodes "
+                     "those two formats only")
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) of a PNG or JPEG file from its header (IHDR, or the
+    JPEG frame header), without decoding it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == PNG_SIGNATURE:
+        w, h = struct.unpack(">II", data[16:24])
+        return int(w), int(h)
+    pos = 2
+    while data[:2] == JPEG_SOI and pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        length = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+            return int(w), int(h)
+        pos += 2 + length
+    raise ValueError(f"{path}: no PNG or JPEG header with the image size")
 
 
 def encode_png(img: np.ndarray, filter_type: int = 1) -> bytes:
@@ -167,6 +193,9 @@ def encode_png(img: np.ndarray, filter_type: int = 1) -> bytes:
 
 
 def imwrite(path, img: np.ndarray, **kwargs) -> None:
-    """Write ``img`` as a PNG file (``encode_png``'s arguments)."""
+    """Write ``img`` as a JPEG file for a ``.jpg`` / ``.jpeg`` path
+    (``encode_jpeg``'s arguments), else as a PNG file (``encode_png``'s)."""
+    jpeg = str(path).lower().endswith((".jpg", ".jpeg"))
+    data = encode_jpeg(img, **kwargs) if jpeg else encode_png(img, **kwargs)
     with open(path, "wb") as f:
-        f.write(encode_png(img, **kwargs))
+        f.write(data)

@@ -1,8 +1,13 @@
 """ResNet backbone (port of ``oadg_tpu/models/backbones/resnet.py:125``).
 
-``pytorch`` style (stride on the 3x3 of a bottleneck), frozen BN
-(``norm_eval=True``), depths 18 and 34 (``BasicBlock``) and 50, 101, 152
-(``Bottleneck``). mmdet module names, so ``state_dict`` keys read
+``pytorch`` style (stride on the 3x3 of a bottleneck) and ``caffe`` style
+(stride on its first 1x1, ``:88-90``), per-stage ``strides`` and
+``dilations`` (a dilated 3x3 pads by its dilation, ``:98-104``; the DC5
+variant of the DWD config is ``strides=(1, 2, 2, 1)``, ``dilations=(1, 1,
+1, 2)``: stride 16 at ``layer4``), frozen BN (``norm_eval=True``), depths 18
+and 34 (``BasicBlock``) and 50, 101, 152 (``Bottleneck``). A stage's first
+block gets a downsample 1x1 where its stride is not 1 or the channel count
+changes. mmdet module names, so ``state_dict`` keys read
 ``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight`` and so on.
 
 Training: ``frozen_stages`` (>= 0) sets ``requires_grad=False`` on the stem
@@ -44,10 +49,11 @@ class BasicBlock(nn.Module):
     """``oadg_tpu/models/backbones/resnet.py:52``."""
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 bn_grad=True, device=None, dtype=None):
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None,
+                 style="pytorch", bn_grad=True, device=None, dtype=None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, 1, device=device, dtype=dtype)
+        self.conv1 = Conv(inplanes, planes, 3, stride, dilation, dilation,
+                          bias=False, device=device, dtype=dtype)
         self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.conv2 = _conv(planes, planes, 3, 1, 1, device=device, dtype=dtype)
         self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
@@ -62,15 +68,19 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """``oadg_tpu/models/backbones/resnet.py:76`` in ``pytorch`` style."""
+    """``oadg_tpu/models/backbones/resnet.py:76``: the stride on the 3x3
+    (``pytorch``) or on the first 1x1 (``caffe``); the 3x3 dilated by
+    ``dilation``, padded by it."""
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 bn_grad=True, device=None, dtype=None):
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None,
+                 style="pytorch", bn_grad=True, device=None, dtype=None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = _conv(inplanes, planes, 1, s1, device=device, dtype=dtype)
         self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv2 = _conv(planes, planes, 3, stride, 1, device=device, dtype=dtype)
+        self.conv2 = Conv(planes, planes, 3, s2, dilation, dilation, bias=False,
+                          device=device, dtype=dtype)
         self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
         self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
         self.bn3 = FrozenBN(planes * 4, requires_grad=bn_grad, device=device)
@@ -101,14 +111,16 @@ class ResNet(nn.Module):
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 dilations: Sequence[int] = (1, 1, 1, 1),
                  style: str = "pytorch", frozen_stages: int = -1,
                  norm_cfg=None, norm_eval: bool = True, init_cfg=None,
                  base_channels: int = 64, stem_channels: int = 64,
                  device=None, dtype=None):
         super().__init__()
-        if style != "pytorch" or not norm_eval:
-            raise NotImplementedError("the port's ResNet is pytorch style with "
-                                      "frozen BN (norm_eval=True)")
+        if style not in ("pytorch", "caffe") or not norm_eval:
+            raise NotImplementedError("the port's ResNet is pytorch or caffe style "
+                                      "with frozen BN (norm_eval=True)")
         if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
             raise NotImplementedError(f"norm {norm_cfg['type']}")
         block, blocks = ARCH[depth]
@@ -124,13 +136,13 @@ class ResNet(nn.Module):
             planes = base_channels * 2 ** i
             layers = []
             for j in range(n):
-                stride = 2 if i > 0 and j == 0 else 1
+                stride = strides[i] if j == 0 else 1
                 ds = None
                 if j == 0 and (stride != 1 or inplanes != planes * block.expansion):
                     ds = _downsample(inplanes, planes * block.expansion, stride,
                                      bn_grad, device, dtype)
-                layers.append(block(inplanes, planes, stride, ds, bn_grad,
-                                    device=device, dtype=dtype))
+                layers.append(block(inplanes, planes, stride, dilations[i], ds, style,
+                                    bn_grad, device=device, dtype=dtype))
                 inplanes = planes * block.expansion
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*layers))

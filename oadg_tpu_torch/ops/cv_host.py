@@ -27,7 +27,8 @@ algorithm for the dtypes the suite uses:
 - ``jpeg_roundtrip``: libjpeg-turbo's lossy steps at a quality (integer
   YCbCr tables, 4:2:0 with the 1/2 rounding bias, the islow DCT and IDCT,
   quantization by the encoder's reciprocals, fancy upsampling), the
-  entropy coding left out because it is lossless;
+  entropy coding left out because it is lossless; it lives with the port's
+  JPEG codec, ``utils/jpeg.py``, whose decoder shares its arithmetic;
 - ``gaussian_blur``, ``filter2d``: correlation with the ``REFLECT_101``
   border computed in float64 (separably; by FFT for ``filter2d``, whose
   kernels here are 17x17 to 41x41) and rounded once to the image's dtype.
@@ -43,6 +44,7 @@ import numpy as np
 import scipy.ndimage as ndi
 import scipy.signal
 
+from ..utils.jpeg import jpeg_roundtrip  # noqa: F401  (the JPEG corruption's, with the codec)
 from .image_ops import gaussian_kernel1d
 
 __all__ = ["INTER_NEAREST", "INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "resize",
@@ -518,198 +520,3 @@ def distance_transform(img: np.ndarray) -> np.ndarray:
                 t[r + 1, 1:w + 1] + b, t[r + 1, 0:w] + c5])
             t[r, 2:w + 2] = scan(c.astype(_F32), True)
     return t[2:h + 2, 2:w + 2].copy()
-
-
-# ---------------------------------------------------------------- JPEG ----
-
-_STD_LUMA = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
-    np.int64).reshape(8, 8)
-_STD_CHROMA = np.array([
-    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99],
-    np.int64).reshape(8, 8)
-_FIX = dict(c0_298=2446, c0_390=3196, c0_541=4433, c0_765=6270, c0_899=7373,
-            c1_175=9633, c1_501=12299, c1_847=15137, c1_961=16069, c2_053=16819,
-            c2_562=20995, c3_072=25172)
-
-
-def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
-    """``jpeg_set_quality``: the standard table scaled, clamped to 1..255."""
-    q = min(max(int(quality), 1), 100)
-    scale = 5000 // q if q < 50 else 200 - 2 * q
-    return np.clip((base * scale + 50) // 100, 1, 255)
-
-
-def _descale(x, n):
-    return (x + (1 << (n - 1))) >> n
-
-
-def _fdct_1d(d, pass1: bool):
-    """One pass of libjpeg's islow forward DCT along the last axis."""
-    c, pb = 13, 2
-    t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
-    t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
-    t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
-    t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
-    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
-    out = [None] * 8
-    if pass1:
-        out[0], out[4] = (t10 + t11) << pb, (t10 - t11) << pb
-        sh = c - pb
-    else:
-        out[0], out[4] = _descale(t10 + t11, pb), _descale(t10 - t11, pb)
-        sh = c + pb
-    z1 = (t12 + t13) * _FIX["c0_541"]
-    out[2] = _descale(z1 + t13 * _FIX["c0_765"], sh)
-    out[6] = _descale(z1 - t12 * _FIX["c1_847"], sh)
-    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
-    z5 = (z3 + z4) * _FIX["c1_175"]
-    t4, t5 = t4 * _FIX["c0_298"], t5 * _FIX["c2_053"]
-    t6, t7 = t6 * _FIX["c3_072"], t7 * _FIX["c1_501"]
-    z1, z2 = z1 * -_FIX["c0_899"], z2 * -_FIX["c2_562"]
-    z3, z4 = z3 * -_FIX["c1_961"] + z5, z4 * -_FIX["c0_390"] + z5
-    out[7] = _descale(t4 + z1 + z3, sh)
-    out[5] = _descale(t5 + z2 + z4, sh)
-    out[3] = _descale(t6 + z2 + z3, sh)
-    out[1] = _descale(t7 + z1 + z4, sh)
-    return np.stack(out, -1)
-
-
-def _idct_1d(d, final: bool):
-    """One pass of libjpeg's islow inverse DCT along the last axis."""
-    c, pb = 13, 2
-    z2, z3 = d[..., 2], d[..., 6]
-    z1 = (z2 + z3) * _FIX["c0_541"]
-    t2 = z1 - z3 * _FIX["c1_847"]
-    t3 = z1 + z2 * _FIX["c0_765"]
-    t0 = (d[..., 0] + d[..., 4]) << c
-    t1 = (d[..., 0] - d[..., 4]) << c
-    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
-    t0, t1, t2, t3 = d[..., 7], d[..., 5], d[..., 3], d[..., 1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * _FIX["c1_175"]
-    t0, t1 = t0 * _FIX["c0_298"], t1 * _FIX["c2_053"]
-    t2, t3 = t2 * _FIX["c3_072"], t3 * _FIX["c1_501"]
-    z1, z2 = z1 * -_FIX["c0_899"], z2 * -_FIX["c2_562"]
-    z3, z4 = z3 * -_FIX["c1_961"] + z5, z4 * -_FIX["c0_390"] + z5
-    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
-    sh = c + pb + 3 if final else c - pb
-    return np.stack([_descale(t10 + t3, sh), _descale(t11 + t2, sh),
-                     _descale(t12 + t1, sh), _descale(t13 + t0, sh),
-                     _descale(t13 - t0, sh), _descale(t12 - t1, sh),
-                     _descale(t11 - t2, sh), _descale(t10 - t3, sh)], -1)
-
-
-def _quantize(coef: np.ndarray, qtab: np.ndarray) -> np.ndarray:
-    """libjpeg-turbo's quantization by reciprocal (``compute_reciprocal``
-    with 16-bit ``DCTELEM``): ``((|x| + corr) * recip) >> shift``, signed."""
-    div = (qtab << 3).astype(np.int64)
-    recip = np.zeros_like(div)
-    corr = np.zeros_like(div)
-    shift = np.zeros_like(div)
-    for idx, dv in np.ndenumerate(div):
-        dv = int(dv)
-        b = dv.bit_length() - 1
-        r = 16 + b
-        fq, fr = divmod(1 << r, dv)
-        cc = dv // 2
-        if fr == 0:
-            fq >>= 1
-            r -= 1
-        elif fr <= dv // 2:
-            cc += 1
-        else:
-            fq += 1
-        recip[idx], corr[idx], shift[idx] = fq, cc, r
-    a = np.abs(coef)
-    q = ((a + corr) * recip) >> shift
-    return np.where(coef < 0, -q, q)
-
-
-def _blocks(plane: np.ndarray) -> np.ndarray:
-    h, w = plane.shape
-    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
-
-
-def _unblocks(b: np.ndarray) -> np.ndarray:
-    n, m = b.shape[:2]
-    return b.transpose(0, 2, 1, 3).reshape(n * 8, m * 8)
-
-
-def _code_plane(plane: np.ndarray, qtab: np.ndarray) -> np.ndarray:
-    """Encode and decode one padded sample plane (multiple of 8 in both
-    axes): level shift, islow DCT, quantize, dequantize, islow IDCT, the
-    saturating range limit -> uint8."""
-    b = _blocks(plane.astype(np.int64) - 128)
-    f = _fdct_1d(b, True)
-    f = _fdct_1d(f.swapaxes(-1, -2), False).swapaxes(-1, -2)
-    deq = _quantize(f, qtab) * qtab
-    s = _idct_1d(deq.swapaxes(-1, -2), False).swapaxes(-1, -2)
-    s = _idct_1d(s, True)
-    v = np.clip(s + 128, 0, 255)            # the SIMD IDCT's saturating range limit
-    return _unblocks(v).astype(np.uint8)
-
-
-def _pad_edge(x: np.ndarray, h: int, w: int) -> np.ndarray:
-    return np.pad(x, ((0, h - x.shape[0]), (0, w - x.shape[1])), mode="edge")
-
-
-def _fancy_up(c: np.ndarray, h: int, w: int) -> np.ndarray:
-    """libjpeg's h2v2 fancy upsampling of a (ceil(h/2), ceil(w/2)) plane:
-    3/4 nearer + 1/4 further row, then columns, with the 8 / 7 biases."""
-    c = c.astype(np.int32)
-    up = np.concatenate([c[:1], c[:-1]], 0)
-    down = np.concatenate([c[1:], c[-1:]], 0)
-    rows = np.empty((2 * c.shape[0], c.shape[1]), np.int32)
-    rows[0::2] = 3 * c + up
-    rows[1::2] = 3 * c + down
-    left = np.concatenate([rows[:, :1], rows[:, :-1]], 1)
-    right = np.concatenate([rows[:, 1:], rows[:, -1:]], 1)
-    out = np.empty((rows.shape[0], 2 * rows.shape[1]), np.int32)
-    out[:, 0::2] = (3 * rows + left + 8) >> 4
-    out[:, 1::2] = (3 * rows + right + 7) >> 4
-    return out[:h, :w]
-
-
-def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
-    """``cv2.imdecode(cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY,
-    quality]))`` of an (H, W, 3) uint8 BGR image: baseline 4:2:0 JPEG as
-    libjpeg-turbo codes it, less the lossless entropy stage."""
-    h, w = img.shape[:2]
-    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
-    one_half = 1 << 15
-    fix = lambda v: int(v * 65536 + 0.5)                  # noqa: E731
-    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + one_half) >> 16
-    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b
-          + (128 << 16) + one_half - 1) >> 16
-    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b
-          + (128 << 16) + one_half - 1) >> 16
-    hy, wy = -(-h // 8) * 8, -(-w // 8) * 8
-    ch, cw = -(-h // 2), -(-w // 2)
-    hc, wc = -(-h // 16) * 8, -(-w // 16) * 8
-    qy, qc = _quant_table(_STD_LUMA, quality), _quant_table(_STD_CHROMA, quality)
-    y_dec = _code_plane(_pad_edge(y, hy, wy), qy)[:h, :w].astype(np.int64)
-    bias = np.tile(np.array([1, 2]), wc // 2 + 1)[:wc]
-    planes = []
-    for comp in (cb, cr):
-        full = _pad_edge(comp, 2 * ch, 2 * wc)
-        s = (full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
-             + bias[None, :]) >> 2
-        dec = _code_plane(_pad_edge(s, hc, wc), qc)[:ch, :cw]
-        planes.append(_fancy_up(dec, h, w).astype(np.int64))
-    cb_d, cr_d = planes
-    x = np.arange(256) - 128
-    cr_r = (fix(1.402) * x + one_half) >> 16
-    cb_b = (fix(1.772) * x + one_half) >> 16
-    cr_g = -fix(0.71414) * x
-    cb_g = -fix(0.34414) * x + one_half
-    rr = y_dec + cr_r[cr_d]
-    gg = y_dec + ((cb_g[cb_d] + cr_g[cr_d]) >> 16)
-    bb = y_dec + cb_b[cb_d]
-    return np.clip(np.stack([bb, gg, rr], -1), 0, 255).astype(np.uint8)

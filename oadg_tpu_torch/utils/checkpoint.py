@@ -4,7 +4,10 @@
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
 kernels become OIHW, ``(in, out)`` dense kernels become ``(out, in)``, and the
 first shared FC's input is reordered from the JAX package's HWC flattening of
-the RoI features back to mmdet's CHW (``:102-108``). Frozen-BN ``scale`` /
+the RoI features back to mmdet's CHW (``:102-108``), with the RoI channel
+count of the model: the FC's input width over ``roi_feat_size ** 2`` (256 on
+the flagship, 2048 on the DWD R101-DC5), checked against ``roi_channels``
+where the caller gives it. Frozen-BN ``scale`` /
 ``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean``
 / ``running_var``. A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
@@ -13,7 +16,7 @@ grads})`` gives each trainable parameter's gradient under its mmdet key.
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,10 +79,25 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     raise KeyError("/".join(path))
 
 
+def _roi_channels(width: int, roi_feat_size: int, given: Optional[int]) -> int:
+    """The RoI channel count behind a first shared FC of input ``width``."""
+    s2 = roi_feat_size * roi_feat_size
+    if width % s2 or (given is not None and width != given * s2):
+        raise ValueError(f"shared_fcs.0 takes {width} inputs, not {roi_feat_size}x"
+                         f"{roi_feat_size} RoI features of "
+                         f"{given if given is not None else 'any whole number of'} "
+                         "channels")
+    return width // s2
+
+
 def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
-                                roi_channels: int = 256) -> Dict[str, torch.Tensor]:
+                                roi_channels: Optional[int] = None
+                                ) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of the JAX two-stage detector
-    (numpy or jax arrays) -> the port's ``state_dict`` (CPU float tensors)."""
+    (numpy or jax arrays) -> the port's ``state_dict`` (CPU float tensors).
+    ``roi_channels`` (the RoI extractor's ``out_channels``), when given,
+    must equal the first shared FC's input width over ``roi_feat_size ** 2``;
+    a width that ``roi_feat_size ** 2`` does not divide raises."""
     sd: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
@@ -95,8 +113,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                     v = v.T
                     if key == "roi_head.bbox_head.shared_fcs.0.weight":
                         o, i = v.shape
-                        s2 = roi_feat_size * roi_feat_size
-                        ch = i // s2 if i % s2 == 0 else roi_channels
+                        ch = _roi_channels(i, roi_feat_size, roi_channels)
                         v = (v.reshape(o, roi_feat_size, roi_feat_size, ch)
                              .transpose(0, 3, 1, 2).reshape(o, i))
             sd[key] = torch.tensor(np.asarray(v, dtype=np.float32))

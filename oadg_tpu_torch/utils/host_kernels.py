@@ -1,7 +1,7 @@
 """ctypes bindings of the port's host kernels (``csrc/host_kernels.cpp``):
 the evaluation matchers of ``oadg_tpu/core/evaluation/native.py`` (called by
-``core/evaluation/``) and the PNG row unfilter of
-``data/pipelines/image_io.py``. It lives under ``utils`` because both the
+``core/evaluation/``), the PNG row unfilter of ``data/pipelines/image_io.py``
+and the JPEG scan decoder of ``utils/jpeg.py``. It lives under ``utils`` because both the
 data layer and the evaluation call it.
 
 The library is compiled with ``g++ -O3 -shared -fPIC`` at first use into
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "coco_match": (None, [_F32P, _I64, _I64, _U8P, _U8P, _F32P, _I64, _I32P,
                           _U8P]),
     "png_unfilter": (_I64, [_U8P, _I64, _I64, _I64, _U8P]),
+    "jpeg_decode_scan": (_I64, [_U8P, _I64, _I32P, _I64, _U8P, _I64, _I64, _I64,
+                                ctypes.POINTER(ctypes.c_void_p)]),
 }
 
 _LIB = None
@@ -158,3 +160,22 @@ def png_unfilter(filtered: np.ndarray, bpp: int) -> np.ndarray:
         raise ValueError(f"PNG row {bad - 1} has filter type "
                          f"{filtered[bad - 1, 0]}, not one of 0-4")
     return out
+
+
+def jpeg_decode_scan(data: bytes, comps: np.ndarray, tables: np.ndarray,
+                     mcus_x: int, mcus_y: int, restart_interval: int,
+                     coefs) -> int:
+    """Decode one baseline Huffman scan into the int16 coefficient arrays
+    ``coefs`` (in place); the arguments and the returned code are those of
+    ``utils.jpeg.decode_scan_numpy``, its plain twin."""
+    lib = load()
+    buf = np.frombuffer(data, np.uint8)
+    comps = np.ascontiguousarray(comps, np.int32)
+    tables = np.ascontiguousarray(tables, np.uint8)
+    if tables.shape != (8, 272) or comps.ndim != 2 or comps.shape[1] != 5 \
+            or len(comps) != len(coefs):
+        raise ValueError("jpeg_decode_scan: malformed component or table arrays")
+    ptrs = (ctypes.c_void_p * len(coefs))(*[a.ctypes.data for a in coefs])
+    return int(lib.jpeg_decode_scan(_ptr(buf, _U8P), len(buf), _ptr(comps, _I32P),
+                                    len(comps), _ptr(tables, _U8P), mcus_x, mcus_y,
+                                    restart_interval, ptrs))

@@ -395,6 +395,48 @@ def test_roi_align_kernels_on_the_grid(case):
     assert sum(bool(w.abs().max() > 0) for w in want) == levels
 
 
+DWD_ROI_CASES = {"serving": (1, 64, 128, 1000), "training": (4, 46, 80, 4 * 512 + 4 * 10)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DWD_ROI_CASES))
+def test_roi_align_kernels_at_the_dwd_shapes(case, dtype):
+    """B1 and B2 at the DWD config's one level (stride 16) and C = 2048:
+    serving (one 64x128 map, R=1000) and training (4 maps of 46x80, the
+    step's R=2088), against their plain versions; B2 gives equal bits in
+    two calls."""
+    dev = _cuda()
+    images, h, w, r = DWD_ROI_CASES[case]
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    feats = [torch.randn(images, 2048, h, w, device=dev, generator=gen).to(dtype)
+             .contiguous(memory_format=torch.channels_last)]
+    rois = _grid_rois(rng, images, h * 16, w * 16)
+    extra = r - len(rois)
+    bw = np.exp(rng.uniform(np.log(4), np.log(w * 12), extra))
+    bh = np.exp(rng.uniform(np.log(4), np.log(h * 12), extra))
+    x1, y1 = rng.uniform(-20, w * 16, extra), rng.uniform(-20, h * 16, extra)
+    more = np.stack([rng.randint(0, images, extra), x1, y1, x1 + bw, y1 + bh], 1)
+    rois = torch.from_numpy(np.concatenate([rois, more]).astype(np.float32)).to(dev)
+    assert rois.shape[0] == r
+    got = ROI_ALIGN_FWD(feats, rois, 7, (16,), 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 7, (16,), 2, 56)
+    fmax = float(feats[0].float().abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * fmax)
+    del got, want
+    dy = torch.randn(r, 2048, 7, 7, device=dev, generator=gen)
+    (grad,) = ROI_ALIGN_BWD(feats, rois, dy, 7, (16,), 2, 56)
+    (again,) = ROI_ALIGN_BWD(feats, rois, dy, 7, (16,), 2, 56)
+    (want,) = roi_align_multilevel_ref_backward(dy, [feats[0].shape], rois, 7, (16,), 2, 56)
+    scale = float(want.abs().max())
+    assert grad.dtype == dtype and torch.equal(grad, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad, want, rtol=0, atol=1e-5 * scale)
+    else:
+        torch.testing.assert_close(grad.float(), want, rtol=2 ** -8, atol=1e-4 * scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roi_align_backward_kernel_takes_long_lists(dtype):

@@ -126,13 +126,20 @@ def test_png_decoder_refuses_what_it_does_not_decode(tmp_path):
 
 
 def test_jpeg_goes_to_cv2_and_raises_without_it(tmp_path, monkeypatch):
+    """A JPEG no longer goes to cv2: the port decodes it itself, equal to
+    ``cv2.imread`` with or without cv2 importable; a file that is neither
+    PNG nor JPEG raises, naming it."""
     img = _image(3)
     path = str(tmp_path / "frame.jpg")
     cv2.imwrite(path, img)
-    np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))
+    want = cv2.imread(path)
+    np.testing.assert_array_equal(image_io.imread(path), want)
     monkeypatch.setitem(sys.modules, "cv2", None)       # import cv2 raises ImportError
-    with pytest.raises(ImportError, match="frame.jpg"):
-        image_io.imread(path)
+    np.testing.assert_array_equal(image_io.imread(path), want)
+    other = tmp_path / "frame.bmp"
+    other.write_bytes(b"BM" + bytes(60))
+    with pytest.raises(ValueError, match="frame.bmp"):
+        image_io.imread(str(other))
 
 
 RESIZE_GRID = [

@@ -2,9 +2,10 @@
 anywhere in ``oadg_tpu_torch/``, ``chip_smoke.py`` or the ``tools/torch_*.py``
 entry points,
 none at run time (the config loader is the port's own copy, held here to
-the JAX package's on the OA-DG configs), no OpenCV or PIL on the PNG path,
-no OpenCV or PIL in the corruption suite and the robustness tools, and no
-silent CPU fallback for a CUDA device."""
+the JAX package's on the OA-DG configs), no OpenCV or PIL on the PNG and
+JPEG paths (``image_io`` does not import ``cv2`` at all), no OpenCV or PIL
+in the corruption suite and the robustness tools, and no silent CPU
+fallback for a CUDA device."""
 import ast
 import os
 import subprocess
@@ -31,7 +32,8 @@ def _port_sources():
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_test.py",
         ROOT / "tools" / "torch_train.py", ROOT / "tools" / "torch_test_robustness.py",
         ROOT / "tools" / "torch_robustness_eval.py",
-        ROOT / "tools" / "torch_get_corrupted_dataset.py"]
+        ROOT / "tools" / "torch_get_corrupted_dataset.py",
+        ROOT / "tools" / "torch_test_dwd.py"]
 
 
 def test_sources_import_no_jax():
@@ -50,10 +52,14 @@ def test_importing_the_port_loads_no_jax():
             "oadg_tpu_torch.core.evaluation, oadg_tpu_torch.apis.test, "
             "oadg_tpu_torch.apis.train, oadg_tpu_torch.engine.runner, "
             "oadg_tpu_torch.core.hook, oadg_tpu_torch.data.pipelines.oa_mix, "
-            "oadg_tpu_torch.utils.host_kernels, "
+            "oadg_tpu_torch.utils.host_kernels, oadg_tpu_torch.utils.jpeg, "
+            "oadg_tpu_torch.data.datasets.xml_style, "
+            "oadg_tpu_torch.models.backbones.resnet, "
             "oadg_tpu_torch.config as c; "
+            "sys.path.insert(0, 'tools'); import torch_test_dwd; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
+            "c.load_config('configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -78,6 +84,30 @@ def test_png_path_loads_no_opencv_or_pil(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_jpeg_path_loads_no_opencv_or_pil(tmp_path):
+    """Writing a JPEG with the port's encoder and reading it back through
+    ``LoadImageFromFile`` and ``SdgodDataset``'s pipeline loads neither
+    ``cv2`` nor PIL, and ``image_io`` names no ``cv2`` in its source."""
+    path = tmp_path / "a.jpg"
+    code = ("import sys, numpy as np, oadg_tpu_torch.apis, oadg_tpu_torch.data; "
+            "from oadg_tpu_torch.data.pipelines import image_io, LoadImageFromFile; "
+            "img = np.random.RandomState(0).randint(0, 256, (37, 53, 3)).astype(np.uint8); "
+            f"image_io.imwrite({str(path)!r}, img); "
+            "out = LoadImageFromFile()(dict(img_prefix=None, img_info=dict("
+            f"filename={str(path)!r})))['img']; "
+            "from oadg_tpu_torch.utils.jpeg import jpeg_roundtrip; "
+            "assert (out == jpeg_roundtrip(img, 95)).all(); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'PIL', 'jax', 'oadg_tpu')); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    source = (ROOT / "oadg_tpu_torch/data/pipelines/image_io.py").read_text()
+    mods = list(_imports(ROOT / "oadg_tpu_torch/data/pipelines/image_io.py"))
+    assert "cv2" not in mods and "import cv2" not in source
 
 
 def test_corruptions_and_robustness_tools_load_no_opencv_pil_or_jax():
@@ -150,11 +180,15 @@ def test_test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model_state(cfg, "none")
-    spec = importlib.util.spec_from_file_location("torch_test_tool",
-                                                  ROOT / "tools" / "torch_test.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    assert tool.parse_args(["c.py", "none"]).device == "cuda"
+    for name in ("torch_test", "torch_test_dwd"):
+        spec = importlib.util.spec_from_file_location(f"{name}_tool",
+                                                      ROOT / "tools" / f"{name}.py")
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        assert tool.parse_args(["c.py", "none"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main([str(ROOT / "configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py"),
+                   "none", "--out-dir", str(tmp_path)])
 
 
 def test_build_detector_defaults_to_the_card(monkeypatch):

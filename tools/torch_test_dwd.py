@@ -1,0 +1,81 @@
+"""Test a detector on the Diverse Weather Dataset's domains with the PyTorch
+port (the counterpart of ``tools/test_dwd.py``): each dataset config of the
+config's ``data.test`` list (an ``SdgodDataset`` per weather domain) runs
+through the detector on the card and is scored with VOC mAP.
+
+    python tools/torch_test_dwd.py CONFIG CHECKPOINT [--out-dir DIR]
+        [--cfg-options key=value ...] [--device cuda|cpu]
+
+``CHECKPOINT`` is a ``torch.save``d ``state_dict`` of the port's model, or
+``none`` for seeded random weights. A domain is named by its config's
+``domain`` key or the basename of its ``img_prefix``. ``DIR/dwd_results.json``
+(default ``.``) receives each domain's metrics (``mAP`` and ``AP_<class>``)
+and ``mean_mAP``, their mean. The model runs on the card unless ``--device
+cpu``.
+"""
+import argparse
+import json
+import os.path as osp
+import sys
+
+sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
+
+from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+from oadg_tpu_torch.config import DictAction, load_config
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Test on the Diverse Weather domains "
+                                            "with the PyTorch port")
+    p.add_argument("config")
+    p.add_argument("checkpoint", help="a torch.save'd state_dict, or 'none'")
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--eval", nargs="+", default=["mAP"],
+                   help="tools/test_dwd.py's option; VOC mAP is the only metric")
+    p.add_argument("--cfg-options", nargs="+", action=DictAction)
+    p.add_argument("--launcher", default="none", choices=["none", "pytorch", "slurm", "mpi"])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def domain_name(dom_cfg) -> str:
+    """The ``domain`` key, else the basename of ``img_prefix``."""
+    dom_cfg = dict(dom_cfg)
+    return dom_cfg.get("domain", osp.basename(str(dom_cfg.get("img_prefix",
+                                                              "domain")).rstrip("/")))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.launcher != "none":
+        raise NotImplementedError(f"--launcher {args.launcher}: distributed testing is "
+                                  "not ported yet (ROADMAP A, 'Data parallel')")
+    cfg = load_config(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+    test_cfgs = cfg["data"]["test"]
+    if isinstance(test_cfgs, dict):
+        test_cfgs = [test_cfgs]
+    model_state = load_model_state(cfg, args.checkpoint, device=args.device)
+    pin = args.device.startswith("cuda")
+
+    summary = {}
+    for dom_cfg in test_cfgs:
+        name = domain_name(dom_cfg)
+        dataset, loader = build_test_loader(cfg, dom_cfg, pin_memory=pin)
+        results = single_gpu_test(model_state, loader)
+        metrics = dataset.evaluate(results, metric="mAP")
+        summary[name] = metrics
+        print(f"\n[{name}] {metrics}")
+
+    maps = [m["mAP"] for m in summary.values()]
+    if maps:
+        summary["mean_mAP"] = sum(maps) / len(maps)
+        print(f"\nmean mAP over {len(maps)} domains: {summary['mean_mAP']:.4f}")
+    with open(osp.join(args.out_dir or ".", "dwd_results.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    return summary
+
+
+if __name__ == "__main__":
+    main()
