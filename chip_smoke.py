@@ -179,6 +179,33 @@ non-zero exit code:
    mAP, B1 once an image, ground truth scoring mAP 1.0); then
    ``tools/torch_test_dwd.py CONFIG none`` as a subprocess counted by
    ``TOOL_PRELUDE`` (B1 once an image, no other kernel, ``dwd_results.json``).
+7d. yolo: the OA-DG YOLOv3 config (``configs/OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py``:
+   Darknet-53 with its BNs in eval mode, ``YOLOV3Neck`` and
+   ``YOLOV3HeadCont`` with live BNs, 8 classes) at full width with seeded
+   weights. yolo-serve: per dtype a warm-up and 3 timed requests of a
+   1024x2048 uint8 image through the test pipeline (``prepare_batch``:
+   512x1024) and ``DetectorHandle.test``, the model's share apart, memory;
+   the card against the CPU on a 256x512 request: the neck's outputs, the
+   head's maps, the detections (f32: 95% of the card's held by the CPU's).
+   yolo-train: per dtype the config's batch (8 float32 images x 2 OA-Mix
+   views, ``keep_orig=False``, on the 1024x1024 canvas, 32 gts each): a
+   warm-up and 3 timed steps on the slots chain, B3-B6 as the drawn tables
+   imply, then one step on the merged chain (B3, B6, B7 as implied); the 7
+   losses finite float32; the backbone's BN buffers unchanged, the neck's
+   and head's all moved, every parameter moved; B3-B7 checked in place on
+   the step's table on each chain (f32); one step card vs CPU on 2 images
+   x 2 fixed views of 128x128 (f32 losses 1e-3, the head's gradients 1e-3
+   of the largest, the neck's and backbone's 1e-2 (the CPU's own f32 step is
+   3e-3 from float64 there), the whole gradient's cosine 0.9999; bf16 no
+   farther from the f32 CPU step than the bf16 CPU step is). yolo-tools: ``tools/torch_train.py`` on 16 synthetic 1024x2048
+   PNGs (2 steps of the config's batch, an evaluation on phase 5b's val
+   set) counted by ``TOOL_PRELUDE``, ``--resume-from epoch_1.pth`` for a
+   second epoch, ``tools/torch_test.py`` on the val set; the loader alone
+   over the train set: images/s and host ms per stage (``Expand``,
+   ``MinIoURandomCrop``, the float ``Resize``, ``PhotoMetricDistortion``)
+   and the collate. After every timed run a profiled request and a
+   profiled step per dtype: busy shares and the ``train_step: oamix``
+   span's host and device ms.
 8. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -192,10 +219,11 @@ non-zero exit code:
    attached to the process and slows every later launch on the host.
 10. a JSON line of the kernels (``launches``: the training step's, B1's
    test loop's and robustness sweep's, the baseline step's, the f32
-   training loop's and the DWD f32 step's, requests' and test loop's; each
-   path's count beside it, ``launches_robustness``, ``launches_dwd_step``,
-   ``launches_baseline_step``, ``launches_train_loop`` and
-   ``launches_train_loop_bf16`` included), the card's
+   training loop's, the DWD f32 step's, requests' and test loop's, and the
+   YOLOv3 f32 step's; each path's count beside it, ``launches_robustness``,
+   ``launches_dwd_step``, ``launches_baseline_step``,
+   ``launches_train_loop``, ``launches_train_loop_bf16``, ``launches_yolo``
+   and ``launches_yolo_bf16`` included), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -1369,29 +1397,42 @@ def _check_fg(out, fx, fy, h, w):
     return check_fg_maps(out, fg_maps_ref(fx, fy, h, w), fx, fy)[1]
 
 
+class checked_kernels:
+    """Within the block B3-B7's wrappers are ``_CheckedKernel``s: each call
+    launches the kernel and holds its result against the plain version on
+    the same inputs. ``as`` gives the checks by wrapper name."""
+
+    MODULES = {"fg_maps": ("fg_maps", "FG_MAPS", "_check_fg"),
+               "shear_rows": ("warp", "SHEAR_ROWS", "_check_shear"),
+               "piecewise_shift_rows": ("warp", "PIECEWISE_SHIFT_ROWS", "_check_piecewise"),
+               "hist256": ("hist", "HIST256", "_check_hist"),
+               "merged_shift_rows": ("warp", "MERGED_SHIFT_ROWS", "_check_merged")}
+
+    def __enter__(self):
+        import importlib
+        self.slots = {}
+        for name, (mod, attr, check) in self.MODULES.items():
+            module = importlib.import_module(f"oadg_tpu_torch.ops.{mod}")
+            self.slots[name] = (module, attr, getattr(module, attr))
+            setattr(module, attr, _CheckedKernel(name, getattr(module, attr),
+                                                 globals()[check]))
+        return {name: getattr(m, a) for name, (m, a, _) in self.slots.items()}
+
+    def __exit__(self, *exc):
+        for module, attr, kernel in self.slots.values():
+            setattr(module, attr, kernel)
+        return False
+
+
 def check_ops_in_place(phase, imgs, gt, gv, shapes, cfg, table0):
     """Every op index of ``cfg``'s version in every slot of ``table0``, on
     each chain, with B3-B7 checked in place against their plain versions
     at these images' shapes."""
     import copy
     import torch
-    from oadg_tpu_torch.ops import fg_maps, hist, warp
     from oadg_tpu_torch.ops.oamix_device import num_photometric, oamix_batch
-    checks = {"fg_maps": _CheckedKernel("fg_maps", fg_maps.FG_MAPS, _check_fg),
-              "shear_rows": _CheckedKernel("shear_rows", warp.SHEAR_ROWS, _check_shear),
-              "piecewise_shift_rows": _CheckedKernel(
-                  "piecewise_shift_rows", warp.PIECEWISE_SHIFT_ROWS, _check_piecewise),
-              "hist256": _CheckedKernel("hist256", hist.HIST256, _check_hist),
-              "merged_shift_rows": _CheckedKernel(
-                  "merged_shift_rows", warp.MERGED_SHIFT_ROWS, _check_merged)}
-    modules = {"fg_maps": (fg_maps, "FG_MAPS"), "shear_rows": (warp, "SHEAR_ROWS"),
-               "piecewise_shift_rows": (warp, "PIECEWISE_SHIFT_ROWS"),
-               "hist256": (hist, "HIST256"),
-               "merged_shift_rows": (warp, "MERGED_SHIFT_ROWS")}
     n_photo = num_photometric(cfg["version"])
-    for name, (mod, attr) in modules.items():
-        setattr(mod, attr, checks[name])
-    try:
+    with checked_kernels() as checks:
         for chain in ("slots", "merged"):
             for k in range(n_photo + 6):
                 table = copy.deepcopy(table0)
@@ -1411,9 +1452,6 @@ def check_ops_in_place(phase, imgs, gt, gv, shapes, cfg, table0):
                 if need and not calls[need]:
                     raise AssertionError(f"op {k} on the {chain} chain did not run {need}")
                 log(phase, f"op {k} in every slot, {chain} chain: checked in place {calls}")
-    finally:
-        for name, (mod, attr) in modules.items():
-            setattr(mod, attr, checks[name].kernel)
     for n, c in checks.items():
         log(phase, f"{n} in the path: {len(c.errors)} calls, vs plain max_abs_err "
                    f"{max(c.errors):.3e}")
@@ -1624,32 +1662,40 @@ def phase_slice(rows):
     return handles
 
 
-def serving_profile(name):
-    """One request of the seeded flagship at ``name`` (after a warm-up)
+def serving_profile(name, cfg=FLAGSHIP, tag="slice-profile", pipeline=False):
+    """One request of the seeded ``cfg`` at ``name`` (after a warm-up)
     under torch.profiler: its wall time, the device's busy share and the
-    kernels that take most of it. After every timed run (the profiler slows
-    the host's launches for the rest of the process)."""
+    kernels that take most of it. The request goes through the config's test
+    pipeline (``prepare_batch``) with ``pipeline``, else ``prepare_image``.
+    After every timed run (the profiler slows the host's launches for the
+    rest of the process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from oadg_tpu_torch.apis import init_detector, prepare_image
-    handle = init_detector(str(FLAGSHIP), device="cuda", seed=0, dtype=torch_dtype(name))
+    from oadg_tpu_torch.apis import init_detector, prepare_batch, prepare_image
+    handle = init_detector(cfg if isinstance(cfg, dict) else str(cfg), device="cuda", seed=0,
+                           dtype=torch_dtype(name))
     img = request_image(np.random.RandomState(1))
-    handle.test(prepare_image(img, handle.cfg, handle.device))
-    torch.cuda.synchronize()
+
+    def request():
+        handle.test(prepare_batch(handle, img) if pipeline
+                    else prepare_image(img, handle.cfg, handle.device))
+        torch.cuda.synchronize()
+
+    request()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handle.test(prepare_image(img, handle.cfg, handle.device))
-        torch.cuda.synchronize()
+        request()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log("slice-profile", f"{name}: profiled request {wall:.3f} ms wall, device busy "
-                         f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    log(tag, f"{name}: profiled request {wall:.3f} ms wall, device busy {busy:.3f} ms "
+             f"({100 * busy / wall:.1f}%; {nvidia_smi_line()})")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
-        log("slice-profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                             f"x{e.count:<5d} {e.key[:90]}")
+        log(tag, f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    del handle
+    torch.cuda.empty_cache()
     return busy / wall
 
 
@@ -2053,16 +2099,17 @@ def fixed_view_batch(rng, h, w, cfg, device, views=2):
 
 def build_trainer(device, cfg, preprocess=None, dtype=None):
     """The config's detector (the flagship: built for OA-DG training) with seeded random weights,
-    SGD and the config's LR schedule, through the port's entry points, in
-    the compute ``dtype`` (None: float32)."""
+    SGD with the config's ``grad_clip`` and its LR schedule, through the
+    port's entry points, in the compute ``dtype`` (None: float32)."""
     from oadg_tpu_torch.apis import init_detector
     from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                        make_train_step)
     handle = init_detector(cfg, device=device, seed=0, num_views=cfg.get("num_views", 1),
                            dtype=dtype)
     steps_per_epoch = -(-CITYSCAPES_TRAIN_IMAGES // cfg["data"]["samples_per_gpu"])
+    grad_clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
     step = make_train_step(
-        handle.model, build_optimizer(handle.model, cfg["optimizer"]),
+        handle.model, build_optimizer(handle.model, cfg["optimizer"], grad_clip=grad_clip),
         build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"], steps_per_epoch),
         preprocess=preprocess)
     return handle.model, step
@@ -2252,7 +2299,7 @@ def phase_train(rows, name):
         the profiler slows the host's launches for the rest of the process)."""
         for chain in ("slots", "merged"):
             current[0] = chain
-            out[chain]["busy"] = train_profile(step, batch, gen, chain, name)
+            out[chain]["busy"] = train_profile(step, batch, gen, chain, name)[0]
 
     return out, profile
 
@@ -2552,14 +2599,16 @@ STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: r
           "train_step: backward", "train_step: sgd")
 
 
-def train_profile(step, batch, gen, chain, dtype_name="f32"):
+def train_profile(step, batch, gen, chain, dtype_name="f32", stages=STAGES,
+                  tag="train-profile"):
     """One step (OA-Mix on ``chain``) under torch.profiler, read through the ``record_function``
     spans of ``forward_train`` and ``make_train_step``: per stage the host
     time of its span and the device time of the kernels launched in it, and
     the device's busy share of the step. Autograd launches the backward's
     kernels from its own thread, outside the backward span, so the
     backward's device time is the sum over autograd's ``evaluate_function``
-    events. -> the device's busy share of the step's wall time."""
+    events. -> the device's busy share of the step's wall time, and per stage
+    its (host ms, device ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2576,22 +2625,24 @@ def train_profile(step, batch, gen, chain, dtype_name="f32"):
     autograd = sum(e.device_time_total for k, e in host.items()
                    if k.startswith("autograd::engine::evaluate_function")) / 1e3
     spanned = 0.0
-    for name in STAGES:
+    spans = {}
+    for name in stages:
         if name not in host:
             raise AssertionError(f"the profiled step has no span {name!r}")
         dev_ms = autograd if name == "train_step: backward" else \
             host[name].device_time_total / 1e3
         spanned += dev_ms
-        log("train-profile", f"{dtype_name}, {chain} chain, {name}: host "
-                             f"{host[name].cpu_time_total / 1e3:.3f} ms, "
-                             f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
-    log("train-profile", f"profiled step ({dtype_name}, {chain} chain) {wall:.3f} ms wall, "
-                         f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
-                         f"{busy - spanned:.3f} ms outside the stages")
+        spans[name] = (host[name].cpu_time_total / 1e3, dev_ms)
+        log(tag, f"{dtype_name}, {chain} chain, {name}: host "
+                 f"{host[name].cpu_time_total / 1e3:.3f} ms, "
+                 f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
+    log(tag, f"profiled step ({dtype_name}, {chain} chain) {wall:.3f} ms wall, "
+             f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
+             f"{busy - spanned:.3f} ms outside the stages")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        log("train-profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                             f"x{e.count:<5d} {e.key[:90]}")
-    return busy / wall
+        log(tag, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                 f"x{e.count:<5d} {e.key[:90]}")
+    return busy / wall, spans
 
 
 def phase_train_reference(name, config=FLAGSHIP, tag="train-reference"):
@@ -3436,6 +3487,583 @@ def phase_dwd(rows):
     return out
 
 
+# --------------------------------------------------------------- YOLO ----
+#
+# The OA-DG YOLOv3 config (configs/OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py):
+# Darknet-53 with its BNs in eval mode (norm_eval), YOLOV3Neck and
+# YOLOV3HeadCont with live BNs, 8 classes; OA-Mix on every view
+# (keep_orig=False) over the SSD-style float32 train pipeline; the config's 8
+# images a card x 2 views on a 1024x1024 canvas; the test pipeline resizes a
+# 1024x2048 image to 512x1024.
+
+YOLO = ROOT / "configs/OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py"
+YOLO_CANVAS = 1024                      # the train pipeline's static canvas
+YOLO_BATCH = 8                          # the config's samples_per_gpu
+YOLO_BF16_DET_FLOOR = 0.6               # the bf16 card's detections the bf16 CPU holds
+# float32 gradients from the float64 step, each as its distance's norm over
+# the float64 gradient's norm: every one within YOLO_F32_LEAF, their median
+# within YOLO_F32_MEDIAN. The x86 CPU's float32 step at 128x128 reads a
+# median of 2.6e-3, at worst 4.6e-3, the H100's 5.6e-3 and 2.1e-2
+# (bbox_head.convs_bridge.0.conv: 2 of its BN's 65,536 outputs change sign
+# from the float64 step's); planted faults read, median / worst:
+# the live BNs' statistics detached 2.8 / 19.7, normalized by the unbiased
+# variance 0.22 / 0.31, LeakyReLU slope 0.11 0.91 / 1.4, live BNs on the
+# stored statistics 1.0 / 73.7. (The largest entry's distance over the
+# largest magnitude is no fit: where a LeakyReLU input near 0 changes sign,
+# a few entries of one gradient move by a large share of it.)
+YOLO_F32_LEAF = 0.1
+YOLO_F32_MEDIAN = 2e-2
+# bf16 gradients from the f32 step, as ``leaf_distances``: the card's median
+# within YOLO_BF16_MEDIAN_RATIO times the bf16 CPU step's. At 128x128 the
+# bf16 step is rounding-dominated (the x86 CPU's: median 0.77, cosine 0.80
+# to f32); LeakyReLU slope 0.01 in bf16 reads 1.58 everywhere, 1.54 in the
+# neck. Faults of precision alone read as clean here: they are held on the
+# CPU against JAX's bf16 step (tests/test_torch_yolo_slice.py).
+YOLO_BF16_MEDIAN_RATIO = 1.5
+YOLO_TOOL_IMAGES = 16                   # the tool run: 2 steps of the config's batch
+YOLO_STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: head",
+               "forward_train: loss", "train_step: backward", "train_step: sgd")
+YOLO_LOSSES = ("loss_cls", "loss_conf", "loss_xy", "loss_wh", "loss_csconf", "loss_cscls",
+               "loss_cont")
+
+
+def yolo_cfg():
+    """The OA-DG YOLOv3 config, its backbone seeded (``init_cfg`` names
+    model-zoo weights this machine cannot reach)."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(str(YOLO))
+    cfg["model"]["backbone"]["init_cfg"] = None
+    return cfg
+
+
+def yolo_oamix_cfg(cfg):
+    oamix_cfg = dict(cfg["oamix_config"])
+    oamix_cfg.pop("type")
+    return oamix_cfg
+
+
+def yolo_train_batch(rng, n, device):
+    """``n`` images as the SSD-style pipeline hands them to the collate:
+    float32 BGR values in [0, 255] (``PhotoMetricDistortion``'s output), each
+    ``keep_ratio``-resized into the 1024x1024 canvas (a long side of 1024 or
+    800-1024, the short side 55-100% of it) and zero-padded, with
+    ``NUM_GTS`` seeded gts inside its own extent; ``img_shape`` on the host."""
+    import torch
+    c = YOLO_CANVAS
+    img = np.zeros((n, c, c, 3), np.float32)
+    shapes, gts, labels = [], [], []
+    for i in range(n):
+        long = c if i % 2 == 0 else int(rng.randint(800, c + 1))
+        short = int(long * rng.uniform(0.55, 1.0))
+        h, w = (short, long) if i % 3 else (long, short)
+        img[i, :h, :w] = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+        gt, lab = seeded_gts(rng, 1, h, w)
+        shapes.append((h, w))
+        gts.append(gt[0])
+        labels.append(lab[0])
+    return {"img_raw": torch.from_numpy(img).to(device),
+            "gt_bboxes": torch.from_numpy(np.stack(gts)).to(device),
+            "gt_labels": torch.from_numpy(np.stack(labels)).to(device),
+            "gt_valid": torch.ones((n, NUM_GTS), dtype=torch.bool, device=device),
+            "img_shape": torch.tensor(shapes, dtype=torch.float32)}
+
+
+def _match_dets(a, b, box_tol, score_tol):
+    """The share of ``a``'s valid detections (dets, labels, valid of one
+    image) that ``b`` holds: the same label, the box within ``box_tol`` px
+    and the score within ``score_tol``."""
+    (da, la, va), (db, lb, vb) = [tuple(t[0].float().cpu() for t in x) for x in (a, b)]
+    da, la = da[va.bool()], la[va.bool()]
+    db, lb = db[vb.bool()], lb[vb.bool()]
+    if not len(da):
+        return 1.0
+    close = ((da[:, None, :4] - db[None, :, :4]).abs().max(-1).values <= box_tol) & \
+        ((da[:, None, 4] - db[None, :, 4]).abs() <= score_tol) & (la[:, None] == lb[None, :])
+    return float(close.any(1).float().mean())
+
+
+def phase_yolo_serve(rows):
+    """yolo-serve, per dtype: ``init_detector`` on the OA-DG YOLOv3 config
+    (seeded weights), a warm-up and 3 timed requests of a 1024x2048 uint8
+    image through the config's test pipeline (``prepare_batch``: 512x1024)
+    and ``DetectorHandle.test``; then the card against the same seeded model
+    on the CPU on a 256x512 request: the neck's outputs, the head's maps
+    and the detections. -> {dtype: numbers} (``phase_yolo`` profiles a
+    request per dtype through ``serving_profile``)."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector, prepare_batch, prepare_image
+    cfg = yolo_cfg()
+    out = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        t0 = time.perf_counter()
+        handle = init_detector(cfg, device="cuda", seed=0, dtype=dtype)
+        log("yolo-serve", f"init_detector (Darknet-53, YOLOV3Neck, YOLOV3HeadCont, 8 classes, "
+                          f"{name}, channels-last) in {time.perf_counter() - t0:.2f} s")
+        rng = np.random.RandomState(41)
+        handle.test(prepare_batch(handle, request_image(rng)))
+        torch.cuda.synchronize()                                  # warm-up request
+        images = [request_image(rng) for _ in range(3)]
+        torch.cuda.reset_peak_memory_stats()
+        walls, models, results = [], [], []
+        for img in images:
+            t0 = time.perf_counter()
+            batch = prepare_batch(handle, img)
+            t1 = time.perf_counter()
+            res = handle.test(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            walls.append((t2 - t0) * 1e3)
+            models.append((t2 - t1) * 1e3)
+            results.append(res)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shape = tuple(batch["img"].shape)
+        out[name] = dict(median_ms=statistics.median(walls),
+                         model_ms=statistics.median(models), peak_gib=peak)
+        log("yolo-serve", f"{name}: 3 requests of {IMG_H}x{IMG_W} (input {shape}): latency ms "
+                          f"{[round(x, 3) for x in walls]}, median {out[name]['median_ms']:.3f}; "
+                          f"the model's share (test alone) median {out[name]['model_ms']:.3f}; "
+                          f"max_memory_allocated {peak:.2f} GiB (weights included) "
+                          f"({nvidia_smi_line()})")
+        for dets, labels, valid in results:
+            if tuple(dets.shape) != (1, 100, 5) or not torch.isfinite(dets).all() or \
+                    int(valid.sum()) < 1 or not ((labels[valid] >= 0) & (labels[valid] < 8)).all():
+                raise AssertionError(f"yolo {name}: bad detections {tuple(dets.shape)}")
+        if shape[2:] != (512, 1024) or handle.num_classes != 8:
+            raise AssertionError(f"yolo {name}: the test pipeline gave {shape}")
+
+        # the card against the same seeded model on the CPU, 256x512
+        cpu = init_detector(cfg, device="cpu", seed=0, dtype=dtype)
+        img = request_image(np.random.RandomState(42))[:256, :512]
+        bc, bg = prepare_image(img, cfg, "cpu"), prepare_image(img, cfg, handle.device)
+        tol = TOL_HEAD if name == "f32" else TOL_BF16_CARD
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fc = cpu.model.extract_feat(bc["img"].to(dtype))
+            fg = handle.model.extract_feat(bg["img"].to(dtype))
+            for i, (a, b) in enumerate(zip(fg, fc)):
+                check_close("yolo-serve", f"{name}: neck level {i} card vs CPU", a, b, tol)
+            mg, mc = handle.model.bbox_head(fg), cpu.model.bbox_head(fc)
+            for i, (a, b) in enumerate(zip(mg[0] + mg[1], mc[0] + mc[1])):
+                check_close("yolo-serve", f"{name}: head map {i} card vs CPU", a, b, tol)
+            dg = handle.model.bbox_head.get_bboxes(mg, bg["img_shape"], bg["scale_factor"])
+            dc = cpu.model.bbox_head.get_bboxes(mc, bc["img_shape"], bc["scale_factor"])
+        matched = _match_dets(dg, dc, 1e-2 if name == "f32" else 2.0,
+                              1e-4 if name == "f32" else 2 ** -6)
+        log("yolo-serve", f"{name}: detections card vs CPU: {int(dg[2].sum())} and "
+                          f"{int(dc[2].sum())} valid, {100 * matched:.1f}% of the card's held by "
+                          f"the CPU's (label, box and score); CPU side "
+                          f"{time.perf_counter() - t0:.2f} s")
+        # bf16: the card's and the CPU's maps are ~1e-2 of the largest apart
+        # (bf16 rounding through 75 convolutions), which moves scores near
+        # the cut-offs; a seeded detector's detections are decided by small
+        # margins, so a model that went wrong in bf16 holds few of them
+        floor, spread = (0.95, 2) if name == "f32" else (YOLO_BF16_DET_FLOOR, 5)
+        if matched < floor or abs(int(dg[2].sum()) - int(dc[2].sum())) > spread:
+            raise AssertionError(f"yolo {name} detections card vs CPU: {matched} matched "
+                                 f"(floor {floor})")
+        del handle, cpu
+        torch.cuda.empty_cache()
+
+    return out
+
+
+def phase_yolo_train(rows):
+    """yolo-train, per dtype: the OA-DG step on the config's batch (8 images
+    x 2 OA-Mix views, ``keep_orig=False``, on the 1024x1024 canvas, 32 gts
+    each): a warm-up and 3 timed steps on the slots chain, then one step on
+    the merged chain; B3-B6 (B7 on the merged chain) launched as the drawn
+    tables imply; the 7 losses finite float32; the backbone's BN buffers
+    unchanged, every neck and head BN buffer moved, every parameter moved;
+    then B3-B7 checked in place on the batch's own table on each chain; and
+    ``check_yolo_step_on_card``. -> ({dtype: numbers}, a function that
+    profiles one step per dtype)."""
+    import torch
+    from oadg_tpu_torch.engine import make_oadg_preprocess
+    from oadg_tpu_torch.ops.oamix_device import oamix_batch
+    dev = torch.device("cuda", 0)
+    cfg = yolo_cfg()
+    oamix_cfg = yolo_oamix_cfg(cfg)
+    version = oamix_cfg["version"]
+    wrappers = oamix_wrappers()
+    out, steps = {}, {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        current = ["slots"]
+        pre = {}
+        model, step = build_trainer("cuda", cfg,
+                                    lambda b, g, pre=pre, current=current: pre[current[0]](b, g),
+                                    dtype)
+        pre.update({chain: make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"],
+                                                out_dtype=model.dtype, chain=chain)
+                    for chain in ("slots", "merged")})
+        batch = yolo_train_batch(np.random.RandomState(43), YOLO_BATCH, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = dict(model.named_parameters())
+        buffers = {k: v for k, v in model.state_dict().items() if "running_" in k}
+        before = {k: v.detach().clone() for k, v in {**params, **buffers}.items()}
+        step(batch, gen)                                        # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        expected = dict.fromkeys(wrappers, 0)
+        times, logs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logs.append(step(batch, gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for k, n in expected_launches(pre["slots"].draws, version).items():
+                expected[k] += n
+        launched = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(times)
+        table = pre["slots"].draws
+        for i, lv in enumerate(logs):
+            log("yolo-train", f"{name}, step {i + 1}: " + ", ".join(
+                f"{k} {float(v):.5f}" for k, v in lv.items()))
+        log("yolo-train", f"{name}: 3 steps of {YOLO_BATCH} images x 2 OA-Mix views on "
+                          f"{YOLO_CANVAS}x{YOLO_CANVAS} (slots chain): ms "
+                          f"{[round(t, 3) for t in times]}, median {median:.3f}; "
+                          f"max_memory_allocated {peak:.2f} GiB; launches {launched}; the "
+                          f"tables imply {expected} (table {tuple(table['op_idx'].shape)}) "
+                          f"({nvidia_smi_line()})")
+        if launched != expected or any(not launched[k] for k in wrappers
+                                       if k != "merged_shift_rows"):
+            raise AssertionError(f"yolo {name}: launched {launched}, not {expected}")
+        for lv in logs:
+            if set(YOLO_LOSSES) - set(lv) or not all(
+                    bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                    for v in lv.values()) or not float(lv["loss_cont"]) > 0:
+                raise AssertionError(f"yolo {name}: a loss is missing or not finite: {lv}")
+        sd = model.state_dict()
+        unmoved = [k for k in buffers if not k.startswith("backbone.")
+                   and torch.equal(sd[k], before[k])]
+        moved_bb = [k for k in buffers if k.startswith("backbone.")
+                    and not torch.equal(sd[k], before[k])]
+        still = [k for k, p in params.items() if torch.equal(p.detach(), before[k])]
+        n_bb = sum(k.startswith("backbone.") for k in buffers)
+        log("yolo-train", f"{name}: BN buffers: backbone {n_bb} (norm_eval), {len(moved_bb)} "
+                          f"moved; neck and head {len(buffers) - n_bb}, {len(unmoved)} unmoved; "
+                          f"{len(params)} parameters, {len(still)} unmoved")
+        if unmoved or moved_bb or still:
+            raise AssertionError(f"yolo {name}: BN buffers {unmoved[:3]} {moved_bb[:3]}, "
+                                 f"parameters {still[:3]}")
+
+        # one step on the merged chain: B3, B6 and B7 as its table implies
+        current[0] = "merged"
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        merged_ms = (time.perf_counter() - t0) * 1e3
+        merged = {k: w.launches for k, w in wrappers.items()}
+        want = expected_launches(pre["merged"].draws, version, "merged")
+        log("yolo-train", f"{name}: one step on the merged chain {merged_ms:.3f} ms: launches "
+                          f"{merged}; its table implies {want}")
+        if merged != want or not merged["merged_shift_rows"]:
+            raise AssertionError(f"yolo {name}: the merged step launched {merged}, not {want}")
+        current[0] = "slots"
+        suffix = "" if name == "f32" else "_bf16"
+        for r in rows:
+            r["launches_yolo" + suffix] = launched.get(r["name"], 0) + (
+                merged["merged_shift_rows"] if r["name"] == "merged_shift_rows" else 0)
+        out[name] = dict(median_ms=median, peak_gib=peak, merged_ms=merged_ms)
+        steps[name] = (step, batch, gen)
+
+        if name == "f32":          # B3-B7 in place on the batch's own table, each chain
+            with checked_kernels() as checks:
+                for chain in ("slots", "merged"):
+                    oamix_batch(batch["img_raw"], batch["gt_bboxes"], batch["gt_valid"],
+                                batch["img_shape"].numpy(), oamix_cfg, draws=table,
+                                chain=chain)
+                torch.cuda.synchronize()
+            for n, c in checks.items():
+                log("yolo-train", f"{n} in place on the step's table: {len(c.errors)} calls, "
+                                  f"vs plain max_abs_err {max(c.errors, default=0):.3e}")
+                if not c.errors:
+                    raise AssertionError(f"yolo: {n} did not run on the step's table")
+        del model
+        torch.cuda.empty_cache()
+
+    check_yolo_step_on_card(cfg)
+
+    def profile():
+        for name, (step, batch, gen) in steps.items():
+            out[name]["busy"], spans = train_profile(step, batch, gen, "slots", name,
+                                                     YOLO_STAGES, "yolo-profile")
+            out[name]["oamix_host_ms"], out[name]["oamix_device_ms"] = \
+                spans["train_step: oamix"]
+        steps.clear()
+        torch.cuda.empty_cache()
+
+    return out, profile
+
+
+def yolo_step_grads(where, cfg, dtype, batch, draws):
+    """One training forward and backward of the seeded OA-DG YOLOv3 (built
+    by ``build_trainer``) on ``where`` in ``dtype`` on ``batch`` with
+    ``draws``; ``torch.float64`` is the float32 model widened by
+    ``model.double()`` (statistics and losses follow it: ``layers.widen``),
+    the reference. -> ({loss: value}, {parameter: float64 gradient on the
+    CPU})."""
+    import torch
+    wide = dtype == torch.float64
+    model, _ = build_trainer(where, cfg, dtype=None if wide else dtype)
+    if wide:
+        model.double()
+        model.dtype = torch.float64
+    b = {k: v.to(where) for k, v in batch.items()}
+    b["img"] = b["img"].to(model.dtype)
+    if b["img"].is_cuda:
+        b["img"] = b["img"].contiguous(memory_format=torch.channels_last)
+    losses = model.forward_train(b, draws)
+    sum(v for k, v in losses.items() if "loss" in k).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()})
+
+
+def leaf_distances(got, want):
+    """Each gradient's distance from ``want``'s: the norm of the difference
+    over the norm of ``want``'s."""
+    return {k: float((got[k] - w).norm()) / max(float(w.norm()), 1e-30)
+            for k, w in want.items()}
+
+
+def check_yolo_step_on_card(cfg):
+    """One step of the seeded OA-DG YOLOv3 on the card and on the CPU on 2
+    images x 2 fixed views of 128x128 (``fixed_view_batch``), with the same
+    cont draws, in float32 and bfloat16, and a float64 copy of the float32
+    model on the CPU as the reference:
+    - float32: each loss of the card within 1e-3 of the CPU's; every
+      gradient of the card and of the CPU within ``YOLO_F32_LEAF`` of the
+      float64 step's (``leaf_distances``), their median within
+      ``YOLO_F32_MEDIAN``; the whole gradient's cosine, card to CPU, at least
+      0.9999;
+    - bfloat16: each loss of the card within twice the bf16 CPU step's
+      distance from the f32 CPU step plus 2**-6 of it; the gradients' median
+      distance from the f32 CPU step's within ``YOLO_BF16_MEDIAN_RATIO``
+      times the bf16 CPU's, the whole gradient's cosine to it at least the
+      bf16 CPU's minus 0.05."""
+    import torch
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    fixed = fixed_view_batch(np.random.RandomState(44), 128, 128, cfg, "cpu", views=2)
+    runs = {}
+    for name in DTYPES:
+        draws = UniformDraws(torch.Generator().manual_seed(7))
+        runs[name, "cuda"] = yolo_step_grads("cuda", cfg, torch_dtype(name), fixed, draws)
+        runs[name, "cpu"] = yolo_step_grads("cpu", cfg, torch_dtype(name), fixed,
+                                            UniformDraws(given=draws.drawn))
+        torch.cuda.empty_cache()
+    runs["f64", "cpu"] = yolo_step_grads("cpu", cfg, torch.float64, fixed,
+                                         UniformDraws(given=draws.drawn))
+    (l32, g32), (lc32, gc32) = runs["f32", "cuda"], runs["f32", "cpu"]
+    l64, g64 = runs["f64", "cpu"]
+    for k in YOLO_LOSSES:
+        err = abs(l32[k] - lc32[k]) / max(abs(lc32[k]), 1e-6)
+        log("yolo-train", f"f32 card vs CPU step: {k} card {l32[k]:.6f} CPU {lc32[k]:.6f} "
+                          f"(float64 {l64[k]:.6f}) rel err {err:.2e} (limit 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"yolo f32 {k} card vs CPU: {l32[k]} vs {lc32[k]}")
+    card, cpu = leaf_distances(g32, g64), leaf_distances(gc32, g64)
+    worst = sorted(card, key=lambda k: max(card[k], cpu[k]), reverse=True)
+    for k in worst[:6]:
+        log("yolo-train", f"f32 step from float64: grad {k}: card {card[k]:.3e}, CPU "
+                          f"{cpu[k]:.3e} of its norm (limit {YOLO_F32_LEAF:g})")
+    log("yolo-train", f"f32 step from float64 over {len(card)} gradients: card median "
+                      f"{statistics.median(card.values()):.3e} max {max(card.values()):.3e}, "
+                      f"CPU median {statistics.median(cpu.values()):.3e} max "
+                      f"{max(cpu.values()):.3e} (limits {YOLO_F32_MEDIAN:g}, {YOLO_F32_LEAF:g})")
+    if not max(max(card.values()), max(cpu.values())) <= YOLO_F32_LEAF:
+        raise AssertionError(f"yolo f32 grad {worst[0]} from float64: card {card[worst[0]]}, "
+                             f"CPU {cpu[worst[0]]} > {YOLO_F32_LEAF}")
+    if not max(statistics.median(d.values()) for d in (card, cpu)) <= YOLO_F32_MEDIAN:
+        raise AssertionError(f"yolo f32 grads from float64: medians above {YOLO_F32_MEDIAN}")
+
+    def flat(g):
+        return torch.cat([v.reshape(-1) for v in g.values()])
+
+    def cos(a, c):
+        return float(a @ c / (a.norm() * c.norm()))
+
+    c32 = cos(flat(g32), flat(gc32))
+    log("yolo-train", f"f32 gradient cosine, card to CPU: {c32:.8f} (limit 0.9999); card to "
+                      f"float64 {cos(flat(g32), flat(g64)):.8f}, CPU {cos(flat(gc32), flat(g64)):.8f}")
+    if not c32 >= 0.9999:
+        raise AssertionError(f"yolo f32 gradients card vs CPU: cosine {c32}")
+
+    (lb, gb), (lcb, gcb) = runs["bf16", "cuda"], runs["bf16", "cpu"]
+    for k in YOLO_LOSSES:
+        lim = 2 * abs(lcb[k] - lc32[k]) + 2 ** -6 * abs(lc32[k])
+        log("yolo-train", f"bf16 card vs f32 CPU step: {k} {lb[k]:.6f} vs {lc32[k]:.6f} "
+                          f"(bf16 CPU {lcb[k]:.6f}; limit {lim:.3e})")
+        if not abs(lb[k] - lc32[k]) <= lim:
+            raise AssertionError(f"yolo bf16 {k}: {lb[k]} vs {lc32[k]}")
+    card_b, cpu_b = leaf_distances(gb, gc32), leaf_distances(gcb, gc32)
+    mc, mp = statistics.median(card_b.values()), statistics.median(cpu_b.values())
+    c_card, c_cpu = cos(flat(gb), flat(gc32)), cos(flat(gcb), flat(gc32))
+    log("yolo-train", f"bf16 gradients from the f32 CPU step's: median over {len(card_b)} "
+                      f"{mc:.3e} card, {mp:.3e} bf16 CPU (limit {YOLO_BF16_MEDIAN_RATIO:g}x the "
+                      f"CPU's); worst {max(card_b.values()):.3e} / {max(cpu_b.values()):.3e}; "
+                      f"cosine {c_card:.4f} / {c_cpu:.4f} (limit: the CPU's minus 0.05)")
+    if not (mc <= YOLO_BF16_MEDIAN_RATIO * mp and c_card >= c_cpu - 0.05):
+        raise AssertionError(f"yolo bf16 gradients: median {mc} vs {mp}, cosine {c_card} vs "
+                             f"{c_cpu}")
+
+
+def phase_yolo_tools(rows, val):
+    """yolo-tools: ``tools/torch_train.py`` on the OA-DG YOLOv3 config over
+    ``YOLO_TOOL_IMAGES`` synthetic 1024x2048 PNGs (``write_cityscapes``) as a
+    subprocess counted by ``TOOL_PRELUDE``: 2 steps of the config's batch, an
+    evaluation on phase 5b's val set (``val``), B3-B6 as the tables imply and
+    B7 never; then ``--resume-from epoch_1.pth`` for a second epoch; then
+    ``tools/torch_test.py`` on the val set. In this process the loader alone
+    over the train set: images/s and its host ms per image for each stage
+    and the collate. -> its numbers."""
+    import os
+    import tempfile
+    from oadg_tpu_torch.data import build_dataloader, build_dataset, static_hw_from_pipeline
+    from oadg_tpu_torch.engine.runner import Checkpointer
+    tmp = tempfile.TemporaryDirectory()
+    t0 = t_phase = time.perf_counter()
+    ann_file, img_prefix = write_cityscapes(os.path.join(tmp.name, "train"), YOLO_TOOL_IMAGES,
+                                            seed=3)
+    log("yolo-tools", f"wrote {YOLO_TOOL_IMAGES} training PNGs of {IMG_H}x{IMG_W} in "
+                      f"{time.perf_counter() - t0:.2f} s; val set: phase 5b's {EVAL_IMAGES}")
+    options = {"data.train.ann_file": ann_file, "data.train.img_prefix": img_prefix,
+               "data.val.ann_file": val[0], "data.val.img_prefix": val[1],
+               "runner.max_epochs": 1, "log_config.interval": 1,
+               "model.backbone.init_cfg": None}
+    cfg_opts = [f"{k}={v}" for k, v in options.items()]
+    work = os.path.join(tmp.name, "work")
+    record = os.path.join(tmp.name, "record.json")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TOOL_PRELUDE, str(ROOT / "tools" / "torch_train.py"),
+                          str(YOLO), "--work-dir", work, "--seed", "0", "--cfg-options",
+                          *cfg_opts], cwd=ROOT, env=dict(os.environ, LOOP_RECORD=record),
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_train.py (YOLOv3) failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    version = yolo_oamix_cfg(yolo_cfg())["version"]
+    want = dict.fromkeys(rec["launches"], 0)
+    for t in rec["tables"]:
+        for k, n in expected_launches({k: np.asarray(v) for k, v in t.items()}, version).items():
+            want[k] += n
+    lines = read_log(work)
+    train = [ln for ln in lines if ln["mode"] == "train"]
+    vals = [ln for ln in lines if ln["mode"] == "val"]
+    meta = Checkpointer.load(os.path.join(work, "epoch_1.pth"))["meta"]
+    steps = YOLO_TOOL_IMAGES // YOLO_BATCH
+    log("yolo-tools", f"f32: tools/torch_train.py exit 0 in {wall:.2f} s: {len(train)} iterations "
+                      f"of {YOLO_BATCH} images x 2 views, {len(vals)} evaluation "
+                      f"{json.dumps(vals)}; epoch_1.pth meta {meta}; launches {rec['launches']}; "
+                      f"the tables imply {want}")
+    if (len(train) != steps or len(vals) != 1 or meta != dict(epoch=1, iter=steps, seed=0)
+            or not all(math.isfinite(ln["loss"]) and ln["loss_cont"] > 0 for ln in train)
+            or rec["launches"] != want or len(rec["tables"]) != steps
+            or any(rec["launches"][k] for k in ("roi_align_fwd", "roi_align_bwd",
+                                                "merged_shift_rows"))
+            or not all(rec["launches"][k] for k in ("fg_maps", "shear_rows",
+                                                    "piecewise_shift_rows", "hist256"))):
+        raise AssertionError(f"the YOLOv3 tool run is wrong: {lines} {meta} {rec['launches']}")
+    tool = dict(images_per_s=loop_rate(train, YOLO_BATCH),
+                time=statistics.median(ln["time"] for ln in train),
+                data_time=[ln["data_time"] for ln in train], val=vals[0])
+    log("yolo-tools", f"f32: {tool['images_per_s']:.3f} images/s over the steps (time and "
+                      f"data_time of the log, the fill apart); per iteration time / data_time ms "
+                      + ", ".join(f"{ln['time'] * 1e3:.1f} / {ln['data_time'] * 1e3:.1f}"
+                                  for ln in train) + f" ({nvidia_smi_line()})")
+
+    resumed = os.path.join(tmp.name, "resumed")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_train.py"), str(YOLO),
+                          "--work-dir", resumed, "--seed", "0", "--no-validate",
+                          "--resume-from", os.path.join(work, "epoch_1.pth"), "--cfg-options",
+                          *cfg_opts, "runner.max_epochs=2"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"the resumed YOLOv3 run failed:\n{res.stderr[-4000:]}")
+    again = read_log(resumed)
+    meta2 = Checkpointer.load(os.path.join(resumed, "epoch_2.pth"))["meta"]
+    log("yolo-tools", f"f32: --resume-from epoch_1.pth exit 0 in {time.perf_counter() - t0:.2f} "
+                      f"s: iterations {[ln['iter'] for ln in again]}; epoch_2.pth meta {meta2}")
+    if [ln["iter"] for ln in again] != list(range(steps + 1, 2 * steps + 1)) or \
+            meta2 != dict(epoch=2, iter=2 * steps, seed=0):
+        raise AssertionError(f"the resumed YOLOv3 run did not continue: {again} {meta2}")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_test.py"), str(YOLO),
+                          os.path.join(resumed, "epoch_2.pth"), "--eval", "bbox",
+                          "--cfg-options", f"data.test.ann_file={val[0]}",
+                          f"data.test.img_prefix={val[1]}"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    test_wall = time.perf_counter() - t0
+    if res.returncode != 0 or "bbox_mAP" not in res.stdout + res.stderr:
+        raise AssertionError(f"tools/torch_test.py (YOLOv3) failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    tool["test_s"] = test_wall
+    summary = [ln for ln in res.stdout.splitlines() if "bbox_mAP" in ln][-1:]
+    log("yolo-tools", f"tools/torch_test.py on epoch_2.pth over the {EVAL_IMAGES} val images: "
+                      f"exit 0 in {test_wall:.2f} s (process start, model build and loading "
+                      f"included); {summary}")
+
+    # the loader alone over the train set: the host cost of each stage
+    cfg = yolo_cfg()
+    cfg.merge_from_dict({k: v for k, v in options.items() if k.startswith("data.train")})
+    dataset = build_dataset(dict(cfg["data"]["train"]))
+    stages = dataset.pipeline.transforms
+    names = [type(t).__name__ for t in stages]
+    timers = [_HostTimer(t) for t in stages]
+    dataset.pipeline.transforms = timers
+    loader = build_dataloader(dataset, YOLO_BATCH, workers_per_gpu=cfg["data"]["workers_per_gpu"],
+                              seed=0, static_hw=static_hw_from_pipeline(cfg["data"]["train"]
+                                                                        ["pipeline"]),
+                              pin_memory=True)
+    collate = loader.batcher = _HostTimer(loader.batcher)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_wall = time.perf_counter() - t0
+    host = {nm: t.seconds * 1e3 / max(t.calls, 1) for nm, t in zip(names, timers)}
+    host["collate"] = collate.seconds * 1e3 / max(YOLO_BATCH * collate.calls, 1)
+    raw = batches[0]["img_raw"]
+    tool.update(loader_images_per_s=YOLO_TOOL_IMAGES / loader_wall, host_ms=host)
+    log("yolo-tools", f"the loader alone ({loader.num_workers} threads, pinned): "
+                      f"{tool['loader_images_per_s']:.3f} images/s; img_raw {raw.dtype} "
+                      f"{raw.shape}; host ms per training image (wall per call, in the loop): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+                      + f" ({nvidia_smi_line()})")
+    if raw.dtype != np.float32 or raw.shape != (YOLO_BATCH, YOLO_CANVAS, YOLO_CANVAS, 3):
+        raise AssertionError(f"the YOLOv3 loader gave img_raw {raw.dtype} {raw.shape}")
+    log("yolo-tools", f"phase {time.perf_counter() - t_phase:.2f} s")
+    tmp.cleanup()
+    return tool
+
+
+def phase_yolo(rows, val):
+    """The YOLOv3 slice's paths: serving, the training step and the tools,
+    each driven with the kernels' counts set to 0 just before it; the f32
+    step's launches (slots chain, and the merged step's B7) are added to each
+    row's ``launches``. -> (numbers, a function that profiles)."""
+    serve = phase_yolo_serve(rows)
+    train, train_profile_fn = phase_yolo_train(rows)
+    tools = phase_yolo_tools(rows, val)
+    for r in rows:
+        r["launches"] += r["launches_yolo"]
+
+    def profile():
+        for name in DTYPES:
+            serve[name]["busy"] = serving_profile(name, yolo_cfg(), "yolo-profile", pipeline=True)
+        train_profile_fn()
+
+    return dict(serve=serve, train=train, tools=tools), profile
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3465,8 +4093,10 @@ def main():
     baseline = phase_baseline(rows)
     loop_profile = phase_train_loop(rows, evaluate_profile.val)
     dwd = phase_dwd(rows)
+    yolo, yolo_profile = phase_yolo(rows, evaluate_profile.val)
     for _, profile in trains.values():
         profile()
+    yolo_profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
@@ -3478,6 +4108,7 @@ def main():
     log("baseline", f"per dtype ({nvidia_smi_line()}): {json.dumps(baseline)}")
     log("robustness", f"summary ({nvidia_smi_line()}): {json.dumps(robustness)}")
     log("dwd", f"summary ({nvidia_smi_line()}): {json.dumps(dwd)}")
+    log("yolo", f"summary ({nvidia_smi_line()}): {json.dumps(yolo)}")
     for name in DTYPES:
         phase_train_reference(name)
         phase_train_reference(name, BASELINE, "baseline-reference")

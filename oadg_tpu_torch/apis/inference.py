@@ -23,14 +23,17 @@ from ..models import build_detector
 
 
 class DetectorHandle:
-    """The detector module, its config and device; ``CLASSES`` are the
-    class names of the config's test dataset type (None without one)."""
+    """The detector module, its config and device; ``num_classes`` is its box
+    head's (a single-stage model's ``bbox_head``, a two-stage one's
+    ``roi_head.bbox_head``), ``CLASSES`` the class names of the config's test
+    dataset type (None without one)."""
 
     def __init__(self, model, cfg, device: torch.device):
         self.model = model
         self.cfg = cfg
         self.device = device
-        self.num_classes = model.roi_head.bbox_head.num_classes
+        head = model.bbox_head if hasattr(model, "bbox_head") else model.roi_head.bbox_head
+        self.num_classes = head.num_classes
         self.CLASSES = _classes_from_cfg(cfg)
         self._pipeline = None       # the test pipeline, built on first use
 

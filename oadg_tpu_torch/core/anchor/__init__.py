@@ -1,3 +1,3 @@
-from .anchor_generator import AnchorGenerator
+from .anchor_generator import AnchorGenerator, YOLOAnchorGenerator
 
-__all__ = ["AnchorGenerator"]
+__all__ = ["AnchorGenerator", "YOLOAnchorGenerator"]

@@ -5,6 +5,10 @@ Base anchors per level from ratios x scales around a stride-sized cell
 ``grid_priors`` (``:89``) lays them out location-major with the anchors
 innermost, the (H, W, A) order of the head's NHWC-flattened outputs, and
 ``grid_priors_cat`` (``:97``) concatenates the levels.
+
+``YOLOAnchorGenerator`` (port of ``oadg_tpu/models/dense_heads/yolo_head.py:29-65``):
+per level a list of (w, h) base sizes centred on each cell's centre
+``(i + 0.5) * stride``, location-major with the anchors innermost.
 """
 from __future__ import annotations
 
@@ -63,3 +67,34 @@ class AnchorGenerator:
                         device=None) -> torch.Tensor:
         """All levels' anchors concatenated, (sum H * W * A, 4)."""
         return torch.cat(self.grid_priors(featmap_sizes, device))
+
+
+@PRIOR_GENERATORS.register_module()
+class YOLOAnchorGenerator:
+    """``base_sizes``: per level a list of (w, h); ``strides``: per level a
+    number or (w, h)."""
+
+    def __init__(self, base_sizes, strides):
+        self.base_sizes = [[tuple(s) for s in level] for level in base_sizes]
+        self.strides = [tuple(s) if isinstance(s, (tuple, list)) else (s, s)
+                        for s in strides]
+
+    @property
+    def num_base_priors(self) -> List[int]:
+        return [len(b) for b in self.base_sizes]
+
+    def grid_priors(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    device=None) -> List[torch.Tensor]:
+        """Per level, priors (H * W * A, 4) float32 on ``device``: the cell
+        centres ``(arange + 0.5) * stride`` in float32, minus and plus half
+        of each base size."""
+        out = []
+        for (h, w), sizes, (sw, sh) in zip(featmap_sizes, self.base_sizes, self.strides):
+            cx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * sw
+            cy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * sh
+            cxx = cx[None, :].expand(h, w).reshape(-1)
+            cyy = cy[:, None].expand(h, w).reshape(-1)
+            anchors = [torch.stack([cxx - bw / 2, cyy - bh / 2, cxx + bw / 2, cyy + bh / 2], -1)
+                       for bw, bh in sizes]
+            out.append(torch.stack(anchors, dim=1).reshape(-1, 4))
+        return out

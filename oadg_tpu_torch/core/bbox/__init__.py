@@ -1,7 +1,7 @@
-from .assign_sample import (AssignResult, MaxIoUAssigner, RandomSampler,
+from .assign_sample import (AssignResult, GridAssigner, MaxIoUAssigner, RandomSampler,
                             SamplingResult)
-from .coder import DeltaXYWHBBoxCoder
+from .coder import DeltaXYWHBBoxCoder, YOLOBBoxCoder
 from .geometry import bbox_overlaps
 
-__all__ = ["AssignResult", "MaxIoUAssigner", "RandomSampler", "SamplingResult",
-           "DeltaXYWHBBoxCoder", "bbox_overlaps"]
+__all__ = ["AssignResult", "GridAssigner", "MaxIoUAssigner", "RandomSampler",
+           "SamplingResult", "DeltaXYWHBBoxCoder", "YOLOBBoxCoder", "bbox_overlaps"]

@@ -8,6 +8,10 @@ matched gt j. The samplers draw nothing themselves: they take uniform
 [0, 1) draws (``utils/draws.py``), so that a test can hand them the numbers
 ``jax.random.uniform`` drew. ``topk_large`` (``:22``), a TPU decomposition
 of top-k, is ``torch.topk``; argsorts are stable, as ``jnp.argsort`` is.
+
+``GridAssigner`` (``:444-454``, the config's entry) carries YOLOv3's grid
+assignment, which the JAX package computes in its head
+(``oadg_tpu/models/dense_heads/yolo_head.py:140-183``), as ``assign``.
 """
 from __future__ import annotations
 
@@ -173,3 +177,55 @@ class RandomSampler:
         neg_needed = self.num - pos_sel.sum(dim=-1, keepdim=True)
         neg_sel = pick(u_neg, is_neg_all, self.num, neg_needed)
         return pos_sel, neg_sel
+
+
+@BBOX_ASSIGNERS.register_module()
+class GridAssigner:
+    """YOLOv3's grid assignment, as the JAX head's ``_targets_single``:
+
+    - the responsible priors of a gt are those whose cell (at their own
+      level's stride) holds the gt's centre;
+    - each valid gt goes to its responsible prior of largest IoU (the first
+      of equals) when that IoU exceeds ``min_pos_iou``; a prior that several
+      gts pick keeps the largest gt index;
+    - a prior is negative where its largest IoU with a valid gt is below
+      ``neg_iou_thr`` and it is not positive.
+
+    ``pos_iou_thr`` is read and unused, as in the JAX package (mmdet's
+    ``GridAssigner`` also makes positive every responsible prior above it).
+    """
+
+    def __init__(self, pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.0,
+                 gt_max_assign_all=True, **kwargs):
+        self.pos_iou_thr = float(pos_iou_thr)
+        self.neg_iou_thr = float(neg_iou_thr)
+        self.min_pos_iou = float(min_pos_iou)
+
+    def assign(self, priors: torch.Tensor, strides: torch.Tensor, gt: torch.Tensor,
+               gt_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(K, 4) priors of all levels, (K,) their strides, (N, G, 4) gts and
+        (N, G) validity -> positive (N, K) bool, the gt index of each prior
+        (N, K) int64 (0 where not positive), negative (N, K) bool."""
+        n, g = gt.shape[:2]
+        k = priors.shape[0]
+        ious = bbox_overlaps(priors.expand(n, k, 4), gt)              # (N, K, G)
+        ious = torch.where(gt_valid[:, None, :], ious, torch.full_like(ious, -1.0))
+        max_iou = ious.max(dim=2).values
+        neg = (max_iou < self.neg_iou_thr) & (max_iou >= 0)
+        cx = (gt[..., 0] + gt[..., 2]) / 2
+        cy = (gt[..., 1] + gt[..., 3]) / 2
+        s = strides[None, :, None]
+        gx = torch.floor(cx[:, None, :] / s)
+        gy = torch.floor(cy[:, None, :] / s)
+        px = torch.floor(((priors[:, 0] + priors[:, 2]) / 2)[None, :, None] / s)
+        py = torch.floor(((priors[:, 1] + priors[:, 3]) / 2)[None, :, None] / s)
+        responsible = (gx == px) & (gy == py) & gt_valid[:, None, :]
+        r_ious = torch.where(responsible, ious, torch.full_like(ious, -1.0))
+        best_iou = r_ious.max(dim=1).values                           # (N, G)
+        best = r_ious.argmax(dim=1)                                   # the first of equals
+        sel = gt_valid & (best_iou > self.min_pos_iou)
+        zeros = torch.zeros((n, k), dtype=torch.int64, device=gt.device)
+        pos = zeros.scatter_reduce(1, best, sel.long(), "amax") > 0
+        gt_idx = torch.arange(g, device=gt.device).expand(n, g)
+        of = zeros.scatter_reduce(1, best, torch.where(sel, gt_idx, 0), "amax")
+        return pos, of, neg & ~pos

@@ -4,7 +4,10 @@
 ``decode`` of bfloat16 deltas runs in float32, as in the JAX package: there
 ``deltas * self.stds`` promotes bfloat16 against a numpy float32 array (not
 weakly typed) to float32 (``:58``); here the float32 ``stds`` tensor promotes
-the bfloat16 deltas the same way, and the float32 boxes carry the rest."""
+the bfloat16 deltas the same way, and the float32 boxes carry the rest.
+
+``YOLOBBoxCoder`` (port of ``:104-127``): centre offsets within a cell of
+``stride`` and log size ratios, with the ``eps`` clamps of the JAX package."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -64,3 +67,40 @@ class DeltaXYWHBBoxCoder:
             y1 = torch.minimum(y1.clamp(min=0), torch.as_tensor(h, device=dev))
             y2 = torch.minimum(y2.clamp(min=0), torch.as_tensor(h, device=dev))
         return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+@BBOX_CODERS.register_module()
+class YOLOBBoxCoder:
+
+    def __init__(self, eps: float = 1e-6):
+        self.eps = eps
+
+    def encode(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
+               stride: torch.Tensor) -> torch.Tensor:
+        """(..., 4) priors, gt boxes and (...) strides -> (..., 4) targets:
+        ``x, y`` the gt centre's place in the prior's cell, clamped to
+        ``[eps, 1 - eps]``; ``w, h`` the log of the size ratio, floored at
+        ``eps`` on both sides of the division."""
+        eps = self.eps
+        x_gt = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        y_gt = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        w_gt = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+        h_gt = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+        x = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        y = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = bboxes[..., 2] - bboxes[..., 0]
+        h = bboxes[..., 3] - bboxes[..., 1]
+        w_t = torch.log((w_gt / w.clamp(min=eps)).clamp(min=eps))
+        h_t = torch.log((h_gt / h.clamp(min=eps)).clamp(min=eps))
+        x_t = ((x_gt - x) / stride + 0.5).clamp(eps, 1 - eps)
+        y_t = ((y_gt - y) / stride + 0.5).clamp(eps, 1 - eps)
+        return torch.stack([x_t, y_t, w_t, h_t], dim=-1)
+
+    def decode(self, bboxes: torch.Tensor, pred_bboxes: torch.Tensor,
+               stride: torch.Tensor) -> torch.Tensor:
+        """(..., 4) priors, (..., 4) predictions (sigmoid x, y and raw w, h)
+        and (...) strides -> (..., 4) boxes."""
+        xy = (bboxes[..., :2] + bboxes[..., 2:4]) * 0.5 + (
+            pred_bboxes[..., :2] - 0.5) * stride[..., None]
+        wh = (bboxes[..., 2:4] - bboxes[..., :2]) * 0.5 * torch.exp(pred_bboxes[..., 2:4])
+        return torch.cat([xy - wh, xy + wh], dim=-1)

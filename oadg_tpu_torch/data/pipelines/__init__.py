@@ -4,9 +4,10 @@ from .formatting import (Collect, Compose, DefaultFormatBundle, ImageToTensor,
                          MultiScaleFlipAug)
 from .loading import LoadAnnotations, LoadImageFromFile, LoadImageFromWebcam
 from .oa_mix import OAMix
-from .transforms import Corrupt, Normalize, Pad, RandomFlip, Resize
+from .transforms import (Corrupt, Expand, MinIoURandomCrop, Normalize, Pad,
+                         PhotoMetricDistortion, RandomFlip, Resize)
 
 __all__ = ["Collect", "Compose", "DefaultFormatBundle", "ImageToTensor",
            "MultiScaleFlipAug", "LoadAnnotations", "LoadImageFromFile",
-           "LoadImageFromWebcam", "OAMix", "Corrupt", "Normalize", "Pad", "RandomFlip",
-           "Resize"]
+           "LoadImageFromWebcam", "OAMix", "Corrupt", "Expand", "MinIoURandomCrop",
+           "Normalize", "Pad", "PhotoMetricDistortion", "RandomFlip", "Resize"]

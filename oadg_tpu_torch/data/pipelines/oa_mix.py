@@ -11,10 +11,12 @@ ships only the uint8 ``img_raw``. The placeholder views ``img{i}`` /
 ``gt_bboxes{i}`` and the empty ``multilevel_boxes`` / ``oamix_boxes``
 shells ride ``custom_field``, which ``Collect`` keeps.
 
-``keep_orig=False`` (the first view augmented too, as the YOLOv3 OA-DG
-config sets it) raises. So does ``on_device=False``, the reference's
-per-sample host algorithm: it needs the host OA-Mix oracle, which the port
-does not have (ROADMAP A, 'Data layer leftovers').
+``keep_orig=False`` (the YOLOv3 OA-DG config's) records that every view is
+augmented, the first too: the preprocess then makes all ``num_views`` views
+with OA-Mix and keeps no clean one, as the JAX package's host oracle does
+(``oadg_tpu/data/pipelines/oa_mix.py:52-58``). ``on_device=False``, the
+reference's per-sample host algorithm, raises: it needs the host OA-Mix
+oracle, which the port does not have (ROADMAP A, 'Data layer leftovers').
 """
 from __future__ import annotations
 
@@ -35,11 +37,6 @@ class OAMix:
                  oa_random_box_ratio=(3, 1 / 3), num_bboxes=(3, 5),
                  spatial_ratio: int = 4, sigma_ratio: float = 0.3,
                  on_device: bool = True, **kwargs):
-        if not keep_orig:
-            raise NotImplementedError(
-                "OAMix(keep_orig=False) augments the first view too, which the port "
-                "has not yet (the YOLOv3 config of ROADMAP A, 'The other two OA-DG "
-                "configs')")
         if not on_device:
             raise NotImplementedError("OAMix(on_device=False) runs the host OA-Mix "
                                       "oracle, which the port has not (ROADMAP A, "
@@ -71,4 +68,5 @@ class OAMix:
         return results
 
     def __repr__(self):
-        return f"OAMix(num_views={self.num_views}, on_device=True)"
+        return (f"OAMix(num_views={self.num_views}, keep_orig={self.keep_orig}, "
+                "on_device=True)")

@@ -1,11 +1,22 @@
 """Geometric and normalization pipeline ops of the test and train paths (port of
 ``oadg_tpu/data/pipelines/transforms.py:26-208``): ``Resize``, ``RandomFlip``,
-``Normalize``, ``Pad``, and the robustness benchmark's ``Corrupt``. numpy on
-the host; every op but ``Corrupt`` loops over ``results['img_fields']``.
+``Normalize``, ``Pad``, the robustness benchmark's ``Corrupt``, and the
+SSD-style ops of the YOLOv3 config (``:214-364``): ``PhotoMetricDistortion``,
+``Expand`` and ``MinIoURandomCrop``. numpy on the host; ``Resize``,
+``RandomFlip``, ``Normalize`` and ``Pad`` loop over
+``results['img_fields']``, the others take ``results['img']`` as the JAX
+package's do.
 
-The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``;
-``resize_bilinear`` computes the same uint8 image without OpenCV, by cv2's
-fixed-point arithmetic (see there).
+Every random op draws from numpy's global generator in the JAX package's
+order, so that ``np.random.seed(s)`` before the JAX op and before the
+port's gives equal results.
+
+The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``: for uint8
+``resize_bilinear`` computes the same image without OpenCV, by cv2's
+fixed-point arithmetic (see there); for float32 (the YOLOv3 pipeline loads
+``to_float32``) ``ops.cv_host.resize``, OpenCV 5's fused float lerps. The
+HSV round trip of ``PhotoMetricDistortion`` is ``ops.cv_host``'s
+``bgr2hsv`` / ``hsv2bgr``.
 """
 from __future__ import annotations
 
@@ -79,7 +90,17 @@ def imrescale(img: np.ndarray, scale: Tuple[int, int]):
     scale_factor = min(max_long / max(h, w), max_short / min(h, w))
     new_w = int(w * scale_factor + 0.5)
     new_h = int(h * scale_factor + 0.5)
-    return resize_bilinear(img, (new_w, new_h)), scale_factor
+    return resize_image(img, (new_w, new_h)), scale_factor
+
+
+def resize_image(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)``, ``size`` =
+    (width, height): uint8 by ``resize_bilinear``, float32 / float64 by
+    ``ops.cv_host.resize``."""
+    if img.dtype == np.uint8:
+        return resize_bilinear(img, size)
+    from ...ops.cv_host import INTER_LINEAR, resize
+    return resize(img, size, INTER_LINEAR)
 
 
 @PIPELINES.register_module()
@@ -134,7 +155,7 @@ class Resize:
             else:
                 h, w = img.shape[:2]
                 tw, th = max(results["scale"]), min(results["scale"])
-                img = resize_bilinear(img, (tw, th))
+                img = resize_image(img, (tw, th))
                 scale_factor = np.array([tw / w, th / h, tw / w, th / h],
                                         np.float32)
             results[key] = img
@@ -277,3 +298,127 @@ class Corrupt:
         results["img"] = corrupt_numpy(results["img"], self.corruption, self.severity,
                                        rng=rng)
         return results
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """SSD-style photometric distortion (``transforms.py:214``): a random
+    brightness shift, a random contrast scale before or after (one coin),
+    and in HSV a random saturation scale and hue shift, each op taken with
+    probability 1/2. float32 out, clipped to [0, 255]."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results: Dict[str, Any]):
+        from ...ops.cv_host import bgr2hsv, hsv2bgr
+        img = results["img"].astype(np.float32)
+        if np.random.randint(2):
+            img += np.random.uniform(-self.brightness_delta, self.brightness_delta)
+        mode = np.random.randint(2)
+        if mode == 1 and np.random.randint(2):
+            img *= np.random.uniform(self.contrast_lower, self.contrast_upper)
+        hsv = bgr2hsv(np.clip(img, 0, 255).astype(np.uint8)).astype(np.float32)
+        if np.random.randint(2):
+            hsv[..., 1] *= np.random.uniform(self.saturation_lower, self.saturation_upper)
+        if np.random.randint(2):
+            hsv[..., 0] = (hsv[..., 0] + np.random.uniform(-self.hue_delta,
+                                                           self.hue_delta)) % 180
+        img = hsv2bgr(np.clip(hsv, 0, 255).astype(np.uint8)).astype(np.float32)
+        if mode == 0 and np.random.randint(2):
+            img *= np.random.uniform(self.contrast_lower, self.contrast_upper)
+        results["img"] = np.clip(img, 0, 255)
+        return results
+
+
+@PIPELINES.register_module()
+class Expand:
+    """Random canvas expansion (``transforms.py:292``): with probability
+    ``prob`` the image goes at a random place on a canvas ``ratio`` times
+    its size filled with ``mean`` (channel-reversed with ``to_rgb``), the
+    boxes shifted with it."""
+
+    def __init__(self, mean=(0, 0, 0), to_rgb=True, ratio_range=(1, 4), prob=0.5):
+        self.mean = mean
+        self.to_rgb = to_rgb
+        self.min_ratio, self.max_ratio = ratio_range
+        self.prob = prob
+
+    def __call__(self, results: Dict[str, Any]):
+        if np.random.uniform(0, 1) > self.prob:
+            return results
+        img = results["img"]
+        h, w, c = img.shape
+        ratio = np.random.uniform(self.min_ratio, self.max_ratio)
+        eh, ew = int(h * ratio), int(w * ratio)
+        top = int(np.random.uniform(0, eh - h))
+        left = int(np.random.uniform(0, ew - w))
+        mean = self.mean[::-1] if self.to_rgb else self.mean
+        canvas = np.full((eh, ew, c), mean, dtype=img.dtype)
+        canvas[top:top + h, left:left + w] = img
+        results["img"] = canvas
+        results["img_shape"] = canvas.shape
+        for key in results.get("bbox_fields", []):
+            results[key] = results[key] + np.array([left, top, left, top], np.float32)
+        return results
+
+
+@PIPELINES.register_module()
+class MinIoURandomCrop:
+    """IoU-constrained random crop (``transforms.py:320``): a mode from
+    ``(1, *min_ious, 0)`` (1 keeps the image), then up to 50 crops of at
+    least ``min_crop_size`` of each side and an aspect in [0.5, 2] until one
+    has IoU >= the mode with every gt and holds a gt centre; the gts whose
+    centres it holds are kept, shifted and clipped. A mode with no such
+    crop in 50 tries draws another mode."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size=0.3,
+                 bbox_clip_border=True):
+        self.min_ious = (1, *min_ious, 0)
+        self.min_crop_size = min_crop_size
+        self.bbox_clip_border = bbox_clip_border
+
+    def __call__(self, results: Dict[str, Any]):
+        from ...core.bbox.geometry import bbox_overlaps_np
+        img = results["img"]
+        h, w = img.shape[:2]
+        boxes = results.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        while True:
+            mode = self.min_ious[np.random.randint(len(self.min_ious))]
+            if mode == 1:
+                return results
+            for _ in range(50):
+                new_w = np.random.uniform(self.min_crop_size * w, w)
+                new_h = np.random.uniform(self.min_crop_size * h, h)
+                if new_h / new_w < 0.5 or new_h / new_w > 2:
+                    continue
+                left = np.random.uniform(w - new_w)
+                top = np.random.uniform(h - new_h)
+                patch = np.array([int(left), int(top), int(left + new_w), int(top + new_h)])
+                if len(boxes):
+                    ious = bbox_overlaps_np(boxes, patch[None].astype(np.float32)).reshape(-1)
+                    if len(ious) and ious.min() < mode:
+                        continue
+                    centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+                    mask = ((centers[:, 0] > patch[0]) & (centers[:, 1] > patch[1])
+                            & (centers[:, 0] < patch[2]) & (centers[:, 1] < patch[3]))
+                    if not mask.any():
+                        continue
+                else:
+                    mask = np.zeros(0, bool)
+                for key in results.get("img_fields", ["img"]):
+                    results[key] = results[key][patch[1]:patch[3], patch[0]:patch[2]]
+                results["img_shape"] = results["img"].shape
+                if len(boxes):
+                    kept = boxes[mask] - np.tile(patch[:2], 2)
+                    if self.bbox_clip_border:
+                        kept[:, 0::2] = kept[:, 0::2].clip(0, patch[2] - patch[0])
+                        kept[:, 1::2] = kept[:, 1::2].clip(0, patch[3] - patch[1])
+                    results["gt_bboxes"] = kept.astype(np.float32)
+                    if "gt_labels" in results:
+                        results["gt_labels"] = results["gt_labels"][mask]
+                return results

@@ -16,6 +16,13 @@ be float32 (OA-Mix clamps it to uint8). Where the batch also holds ``img``,
 a host-normalized (B, H, W, 3) clean view, that is the clean view (cast to
 ``out_dtype``) and ``img_raw`` feeds OA-Mix alone, as in the reference
 (``oadg_tpu/engine/preprocess.py:62-73``).
+
+``keep_orig=False`` in ``oamix_cfg`` (the YOLOv3 OA-DG config) augments
+every view: one ``oamix_batch`` call with ``num_views + 1`` (``num_views``
+augmented views an image, on one draw table with leading (B, num_views)
+dims) and no clean view, so the batch is ``[B aug 1; ...; B aug V]``. The
+JAX package's device path ignores ``keep_orig`` and keeps the first view
+clean (ROADMAP C); its host oracle augments it, as the port does.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any]
     std = np.asarray(img_norm_cfg.get("std", [58.395, 57.12, 57.375]), np.float32)
     to_rgb = bool(img_norm_cfg.get("to_rgb", True))
     num_views = int(oamix_cfg.get("num_views", 2))
-    cfg = dict(oamix_cfg)
+    keep_orig = bool(oamix_cfg.get("keep_orig", True))
+    cfg = dict(oamix_cfg, num_views=num_views + (0 if keep_orig else 1))
     consts = {}                                   # device -> (mean, std)
 
     def normalize(x):
@@ -66,15 +74,16 @@ def make_oadg_preprocess(oamix_cfg: Dict[str, Any], img_norm_cfg: Dict[str, Any]
                           generator=None if draws is not None else host_generator(generator),
                           chain=chain)
         preprocess.draws = out["draws"]
-        aug = normalize(out["aug"].float())                   # (B, V-1, H, W, 3)
-        if "img" in batch:                            # host-normalized clean view
+        aug = normalize(out["aug"].float())        # (B, V - 1, H, W, 3), or V views
+        views = [aug[:, v] for v in range(aug.shape[1])]
+        if keep_orig and "img" in batch:              # host-normalized clean view
             clean = batch["img"]
-            clean = clean if out_dtype is None else clean.to(out_dtype)
-        else:
-            clean = normalize(raw.float())
+            views.insert(0, clean if out_dtype is None else clean.to(out_dtype))
+        elif keep_orig:
+            views.insert(0, normalize(raw.float()))
         b = raw.shape[0]
         tile = lambda x: torch.cat([x] * num_views, 0)
-        imgs = torch.cat([clean] + [aug[:, v] for v in range(aug.shape[1])], 0)
+        imgs = torch.cat(views, 0)
         scale_factor = batch.get("scale_factor", torch.ones((b, 4), device=dev))
         return {
             "img": imgs.permute(0, 3, 1, 2),

@@ -1,4 +1,5 @@
 """Backbones of the port."""
+from .darknet import Darknet
 from .resnet import ResNet
 
-__all__ = ["ResNet"]
+__all__ = ["Darknet", "ResNet"]

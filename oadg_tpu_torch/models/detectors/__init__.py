@@ -1,4 +1,5 @@
 """Detectors of the port."""
+from .single_stage import YOLOV3, SingleStageDetector
 from .two_stage import FasterRCNN, TwoStageDetector
 
-__all__ = ["TwoStageDetector", "FasterRCNN"]
+__all__ = ["TwoStageDetector", "FasterRCNN", "SingleStageDetector", "YOLOV3"]

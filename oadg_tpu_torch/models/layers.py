@@ -15,8 +15,17 @@ Counterparts:
   never update; ``weight`` and ``bias`` are trainable unless the config's
   ``norm_cfg.requires_grad`` is False (``oadg_tpu/engine/optim.py:35-62``).
 - ``Linear`` <- ``flax.linen.Dense``.
-- ``ConvModule`` <- mmcv's ConvModule without norm or activation, the form
-  FPN uses, so ``state_dict`` keys read ``....conv.weight``.
+- ``ConvModule`` <- ``ConvModule`` (``:335-360``): mmcv's conv -> norm ->
+  activation. Without ``norm_cfg`` and ``act`` it is the plain conv FPN
+  uses (keys ``....conv.weight``, ``....conv.bias``); with a BN ``norm_cfg``
+  the conv has no bias and the norm is ``self.bn`` (keys
+  ``....bn.{weight,bias,running_mean,running_var}``), the activation
+  ``leaky_relu`` (slope 0.1).
+- ``BatchNorm`` <- ``FrozenBN`` (``:202-281``) applied unfolded, as
+  ``build_norm`` (``:298-324``) builds it for a ``ConvModule``: in train
+  mode the live statistics of ``FrozenBN(frozen=False)``, in eval mode (or
+  under a backbone's ``norm_eval``, which puts its BNs in eval mode) the
+  stored ones.
 - ``max_pool_3x3_s2`` <- ``max_pool_3x3_s2`` (``:426``).
 
 Compute dtype (flax's ``dtype=``): parameters stay float32 and only the
@@ -79,17 +88,94 @@ class Linear(nn.Linear):
         return y if self.bias is None else y + self.bias.to(dt)
 
 
-class ConvModule(nn.Module):
-    """mmcv ConvModule with neither norm nor activation: ``self.conv``."""
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is if it is wider (a float64 copy of a
+    model, ``model.double()``, then computes its statistics and losses in
+    float64: the reference the card's float32 step is held to)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, device=None, dtype=None):
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    """``flax.linen.leaky_relu``: ``where(x >= 0, x, slope * x)`` with the
+    slope in ``x``'s dtype (bfloat16's 0.1 is 0.10009765625), the product
+    rounded to it; in float32 ``F.leaky_relu``."""
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype, device=x.device))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channels of an NCHW tensor, the JAX package's
+    ``FrozenBN`` unfolded (``layers.py:258-281``), keys as
+    ``nn.BatchNorm2d``'s without ``num_batches_tracked``.
+
+    In train mode (live BN) the batch statistics are formed in float32 (in
+    float64 for a float64 input) as
+    ``E[x] and max(E[x^2] - E[x]^2, 0)``, and the stored ones move by the
+    torch ``momentum``: ``mom * stored + (1 - mom) * batch`` with ``mom = 1 -
+    momentum``, the variance's batch term ``(1 - mom) * var * n / (n - 1)``
+    (torch stores the unbiased estimate). In eval mode the stored statistics
+    are used. Either way ``w = weight * rsqrt(var + eps)`` and ``b = bias -
+    mean * weight * rsqrt(var + eps)`` are formed in float32, cast to the
+    input's dtype, and ``y = x * w + b`` computes in it. (``nn.BatchNorm2d``
+    forms its variance otherwise.)"""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 device=None):
         super().__init__()
-        self.conv = Conv(in_channels, out_channels, kernel_size, stride,
-                         padding, device=device, dtype=dtype)
+        self.eps = float(eps)
+        self.momentum = float(momentum)
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
 
     def forward(self, x):
-        return self.conv(x)
+        if self.training:
+            xf = widen(x)
+            m = xf.mean(dim=(0, 2, 3))
+            v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
+            v = torch.maximum(v, torch.zeros_like(v))
+            n = x.numel() // x.shape[1]
+            corr = n / max(n - 1, 1)
+            mom = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(mom * self.running_mean + (1.0 - mom) * m)
+                self.running_var.copy_(mom * self.running_var + (1.0 - mom) * v * corr)
+        else:
+            m, v = self.running_mean, self.running_var
+        inv = torch.rsqrt(v + self.eps)
+        w = (self.weight * inv).to(x.dtype)
+        b = (self.bias - m * self.weight * inv).to(x.dtype)
+        return x * w[:, None, None] + b[:, None, None]
+
+
+class ConvModule(nn.Module):
+    """mmcv ConvModule: ``self.conv``, then ``self.bn`` with a BN
+    ``norm_cfg`` (its ``eps`` and torch ``momentum`` honoured; the conv then
+    has no bias), then ``act`` (``"leaky_relu"``, slope 0.1). With neither
+    it is the plain conv FPN uses."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, norm_cfg=None, act=None,
+                 device=None, dtype=None):
+        super().__init__()
+        if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
+            raise NotImplementedError(f"ConvModule norm {norm_cfg['type']}")
+        if act not in (None, "leaky_relu"):
+            raise NotImplementedError(f"ConvModule activation {act}")
+        self.conv = Conv(in_channels, out_channels, kernel_size, stride, padding,
+                         bias=norm_cfg is None, device=device, dtype=dtype)
+        self.bn = None if norm_cfg is None else BatchNorm(
+            out_channels, eps=norm_cfg.get("eps", 1e-5),
+            momentum=norm_cfg.get("momentum", 0.1), device=device)
+        self.act = act
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return leaky_relu(x) if self.act == "leaky_relu" else x
 
 
 class FrozenBN(nn.Module):

@@ -1,7 +1,8 @@
 """Loss primitives and the stock losses (port of
 ``oadg_tpu/models/losses/common.py:22-136``): ``CrossEntropyLoss``,
 ``SmoothL1Loss`` and ``L1Loss``, registered in ``LOSSES``, are the plain
-Faster R-CNN's.
+Faster R-CNN's; ``MSELoss`` (``:248-258``) is YOLOv3's, beside the sigmoid
+elementwise ``CrossEntropyLoss`` on soft targets.
 
 Static-shape and mask-weighted like the JAX package: ragged indexing
 (``pred[pos_inds]``) is a weight of 0. ``maximum`` and ``minimum`` are taken
@@ -136,3 +137,17 @@ class L1Loss:
                  reduction_override=None, **kw):
         return self.loss_weight * weight_reduce_loss(
             l1(pred, target), weight, reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class MSELoss:
+    """Port of ``oadg_tpu/models/losses/common.py:248``: ``(pred - target)^2``."""
+
+    def __init__(self, reduction: str = "mean", loss_weight: float = 1.0, **kw):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        return self.loss_weight * weight_reduce_loss(
+            (pred - target) ** 2, weight, reduction_override or self.reduction, avg_factor)

@@ -1,4 +1,5 @@
 """Necks of the port."""
 from .fpn import FPN
+from .yolo_neck import YOLOV3Neck
 
-__all__ = ["FPN"]
+__all__ = ["FPN", "YOLOV3Neck"]

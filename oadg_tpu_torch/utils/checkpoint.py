@@ -9,7 +9,15 @@ count of the model: the FC's input width over ``roi_feat_size ** 2`` (256 on
 the flagship, 2048 on the DWD R101-DC5), checked against ``roi_channels``
 where the caller gives it. Frozen-BN ``scale`` /
 ``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean``
-/ ``running_var``. A leaf with no mmdet name raises. The same map carries
+/ ``running_var``; so do those of the live and frozen BNs of the YOLOv3
+config's ``ConvModule``s (``<scope>/conv/Conv_0/kernel`` and
+``<scope>/FrozenBN_0/*`` become ``<module>.conv.weight`` and
+``<module>.bn.*``): the Darknet's ``conv1``, ``down{i}`` and
+``stage{i}_{j}/conv{k}`` (``conv_res_block{i}.conv``,
+``conv_res_block{i}.res{j}.conv{k}``), the YOLO neck's ``detect{i}/conv{k}``
+and ``conv{i}``, the YOLO head's ``conv_bridge{i}``, ``conv_cont{i}`` and
+``conv_pred{i}`` (``bbox_head.convs_bridge.{i}``, ``.convs_cont.{i}``,
+``.convs_pred.{i}``). A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
@@ -43,9 +51,46 @@ def _bn_name(scope: str) -> str:
     return f"bn{int(m.group(1)) + 1}"
 
 
+def _conv_module(rest: Tuple[str, ...]) -> str:
+    """The leaf of an mmcv ``ConvModule`` (``conv/Conv_0/kernel`` or
+    ``FrozenBN_0/<leaf>``) -> its key under the module."""
+    if rest[0] == "conv" and rest[-1] in ("kernel", "bias"):
+        return "conv.weight" if rest[-1] == "kernel" else "conv.bias"
+    if rest[0] == "FrozenBN_0":
+        return f"bn.{_BN_LEAF[rest[-1]]}"
+    raise KeyError("/".join(rest))
+
+
+def _darknet_key(rest: Tuple[str, ...]) -> str:
+    if rest[0] == "conv1":
+        return f"backbone.conv1.{_conv_module(rest[1:])}"
+    m = re.fullmatch(r"down(\d+)", rest[0])
+    if m:
+        return f"backbone.conv_res_block{m.group(1)}.conv.{_conv_module(rest[1:])}"
+    stage, block = re.fullmatch(r"stage(\d+)_(\d+)", rest[0]).groups()
+    return (f"backbone.conv_res_block{stage}.res{block}.{rest[1]}."
+            f"{_conv_module(rest[2:])}")
+
+
+def _yolo_head_key(rest: Tuple[str, ...]) -> str:
+    kind, idx = re.fullmatch(r"conv_(bridge|cont|pred)(\d+)", rest[0]).groups()
+    if kind == "pred":
+        return f"bbox_head.convs_pred.{idx}.{'weight' if rest[-1] == 'kernel' else 'bias'}"
+    return f"bbox_head.convs_{kind}.{idx}.{_conv_module(rest[1:])}"
+
+
 def _torch_key(path: Tuple[str, ...]) -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key."""
     head, rest = path[0], path[1:]
+    if head == "backbone_m" and (re.fullmatch(r"down\d+|stage\d+_\d+", rest[0]) or (
+            rest[0] == "conv1" and rest[1] in ("conv", "FrozenBN_0"))):
+        return _darknet_key(rest)
+    if head == "neck_m" and re.fullmatch(r"detect\d+", rest[0]):
+        return f"neck.{rest[0]}.{rest[1]}.{_conv_module(rest[2:])}"
+    if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
+        return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
+    if head == "head":
+        return _yolo_head_key(rest)
     if head == "backbone_m":
         if rest[0] == "conv1":                       # stem conv
             return "backbone.conv1.weight"
@@ -93,8 +138,8 @@ def _roi_channels(width: int, roi_feat_size: int, given: Optional[int]) -> int:
 def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                                 roi_channels: Optional[int] = None
                                 ) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` of the JAX two-stage detector
-    (numpy or jax arrays) -> the port's ``state_dict`` (CPU float tensors).
+    """``{"params": ..., "batch_stats": ...}`` of the JAX two-stage or
+    YOLOv3 detector (numpy or jax arrays) -> the port's ``state_dict`` (CPU float tensors).
     ``roi_channels`` (the RoI extractor's ``out_channels``), when given,
     must equal the first shared FC's input width over ``roi_feat_size ** 2``;
     a width that ``roi_feat_size ** 2`` does not divide raises."""

@@ -1218,3 +1218,91 @@ def test_train_detector_in_float32_on_the_card_matches_the_cpu(tmp_path, monkeyp
     for k, p in cpu.named_parameters():
         assert float((pc[k].detach().cpu() - p.detach()).abs().max()) <= 1e-4 * max(
             float(p.detach().abs().max()), 1e-6), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_yolo_runner_iteration_on_the_card_matches_the_cpu(tmp_path, monkeypatch, dtype):
+    """One runner iteration of the tiny OA-DG YOLOv3 config
+    (``torch_yolo_cases.tiny_train_cfg``: full Darknet-53, the neck and head
+    narrowed; the SSD-style float32 pipeline, OA-Mix on every view) on the
+    card and on the CPU, the same seeded weights, OA-Mix table and cont
+    draws: float32 losses within 1e-3 relative, the gradients of the
+    prediction convs within 1e-3 of the largest, those of a neck conv and
+    BN and of the first and last backbone convs within 1e-2 (below the head
+    the gradient passes the live BNs' backward, which cancels over the few
+    values a channel holds at this size: the CPU's own float32 step is
+    ~3e-3 of the largest from a float64 one at 128x128), the neck's and
+    head's BN buffers within 1e-4 of the largest and the backbone's
+    unchanged. bfloat16: each loss within 2**-4
+    relative of the CPU's bfloat16 step (a 52-layer bfloat16 network rounds
+    differently on the card and on the CPU; see
+    ``tests/test_torch_yolo_slice.py``)."""
+    import torch_yolo_cases
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.apis.train import build_runner
+    from oadg_tpu_torch.data import build_dataset
+    from oadg_tpu_torch.engine import preprocess as preprocess_mod
+    from oadg_tpu_torch.engine import train_step as train_step_mod
+    from oadg_tpu_torch.engine.runner import fetch_log_vars, step_generator
+    from oadg_tpu_torch.engine.train_step import upload_train_batch
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    cfg = torch_yolo_cases.tiny_train_cfg(tmp_path / "data")
+    tdt = torch.bfloat16 if dtype == "bfloat16" else None
+    runners = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        model = init_detector(cfg, device=where, seed=0, num_views=2, dtype=tdt).model
+        runners[name] = build_runner(model, build_dataset(dict(cfg.data.train)), cfg,
+                                     work_dir=str(tmp_path / name))
+    batches = {}
+    for name, r in runners.items():
+        np.random.seed(5)
+        batches[name] = next(iter(r.loader))
+    assert batches["card"]["img_raw"].dtype == np.float32
+    np.testing.assert_array_equal(batches["card"]["img_raw"], batches["cpu"]["img_raw"])
+    seen = {}
+    real_oamix = preprocess_mod.oamix_batch
+
+    def oamix(*a, **k):
+        if "draws" in seen:
+            k = dict(k, draws=seen["draws"])
+        out = real_oamix(*a, **k)
+        seen["draws"] = out["draws"]
+        return out
+
+    def draws(generator):
+        if "uniform" not in seen:
+            seen["uniform"] = UniformDraws(generator)
+            return seen["uniform"]
+        return UniformDraws(given={k: v.cpu() for k, v in seen["uniform"].drawn.items()})
+
+    monkeypatch.setattr(preprocess_mod, "oamix_batch", oamix)
+    monkeypatch.setattr(train_step_mod, "UniformDraws", draws)
+    before = {k: v.clone() for k, v in runners["cpu"].model.state_dict().items()}
+    got, want = (fetch_log_vars(runners[n].step(upload_train_batch(batches[n], d),
+                                                step_generator(0, 0, d)))
+                 for n, d in (("card", dev), ("cpu", torch.device("cpu"))))
+    assert set(torch_yolo_cases.LOSS_KEYS) <= set(want)
+    tol = 1e-3 if dtype == "float32" else 2 ** -4
+    for k in want:
+        assert math.isfinite(got[k])
+        assert abs(got[k] - want[k]) <= tol * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    if dtype == "bfloat16":
+        return
+    pc = dict(runners["card"].model.named_parameters())
+    ph = dict(runners["cpu"].model.named_parameters())
+    for k, tol in (("bbox_head.convs_pred.0.weight", 1e-3),
+                   ("bbox_head.convs_pred.2.weight", 1e-3),
+                   ("neck.detect1.conv1.conv.weight", 1e-2),
+                   ("neck.detect1.conv1.bn.weight", 1e-2),
+                   ("backbone.conv1.conv.weight", 1e-2),
+                   ("backbone.conv_res_block5.res3.conv2.conv.weight", 1e-2)):
+        want_g = ph[k].grad
+        assert float((pc[k].grad.cpu() - want_g).abs().max()) <= tol * float(
+            want_g.abs().max()), k
+    sc, sh = runners["card"].model.state_dict(), runners["cpu"].model.state_dict()
+    for k in (k for k in sh if "running_" in k):
+        assert torch.equal(sh[k], before[k]) == k.startswith("backbone."), k
+        assert float((sc[k].cpu() - sh[k]).abs().max()) <= 1e-4 * max(
+            float(sh[k].abs().max()), 1e-6), k

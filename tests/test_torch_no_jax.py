@@ -231,3 +231,31 @@ def test_config_loader_matches_the_jax_package(path):
         return o
 
     assert plain(load_config(ROOT / path)) == want
+
+
+def test_yolo_path_loads_no_jax_opencv_or_pil():
+    """The YOLOv3 path: both YOLOv3 configs load, the OA-DG one builds on the
+    CPU (Darknet-53, the YOLO neck and head), and its SSD-style train
+    pipeline ops (``Expand``, ``MinIoURandomCrop``, the float32 ``Resize``,
+    ``PhotoMetricDistortion`` with its HSV round trip) run, loading none of
+    ``cv2``, PIL, JAX or the JAX package."""
+    code = ("import sys, numpy as np, oadg_tpu_torch.config as c; "
+            "from oadg_tpu_torch.models import build_detector; "
+            "from oadg_tpu_torch.data.pipelines import Compose; "
+            "cfg = c.load_config('configs/OA-DG/cityscapes/"
+            "yolov3_d53_mstrain-1024_20e_oadg.py'); "
+            "c.load_config('configs/OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e.py'); "
+            "m = build_detector(dict(cfg.model), device='cpu', num_views=2); "
+            "ops = Compose([p for p in cfg.data.train.pipeline[2:8]]); np.random.seed(0); "
+            "img = np.random.uniform(0, 255, (60, 90, 3)).astype(np.float32); "
+            "out = ops(dict(img=img, img_shape=img.shape, img_fields=['img'], "
+            "bbox_fields=['gt_bboxes'], gt_bboxes=np.array([[5, 5, 40, 30]], np.float32), "
+            "gt_labels=np.array([1]))); "
+            "assert out['img_raw'].dtype == np.float32 and max(out['img'].shape) <= 1024; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'PIL', 'jax', 'jaxlib', 'oadg_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -580,12 +580,16 @@ def test_oamix_op_on_host_raises():
 
 
 def test_oamix_op_refuses_keep_orig_false():
-    """``keep_orig=False`` augments the first view too; the port raises
-    rather than keep it clean."""
+    """``keep_orig=False`` (the YOLOv3 OA-DG config's) augments the first
+    view too: the op no longer refuses it, and records it in the sample's
+    ``oamix_cfg`` for the preprocess, beside the ``keep_orig=True`` default."""
     from oadg_tpu_torch.data.pipelines import OAMix
-    with pytest.raises(NotImplementedError, match="keep_orig=False.*YOLOv3"):
-        OAMix(keep_orig=False)
-    assert OAMix(keep_orig=True).keep_orig
+    img = np.zeros((4, 6, 3), np.uint8)
+    for keep in (False, True):
+        op = OAMix(keep_orig=keep)
+        out = op(dict(img=img, gt_bboxes=np.zeros((1, 4), np.float32)))
+        assert op.keep_orig is keep and out["oamix_cfg"]["keep_orig"] is keep
+        assert out["norm_on_device"] and out["img_raw"].dtype == np.uint8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
