@@ -206,6 +206,37 @@ non-zero exit code:
    and the collate. After every timed run a profiled request and a
    profiled step per dtype: busy shares and the ``train_step: oamix``
    span's host and device ms.
+7e. tta: test-time augmentation on 4 of phase 5b's PNGs, per dtype: the
+   flagship's test pipeline as ``MultiScaleFlipAug(img_scale=[(2048, 1024),
+   (1536, 768)], flip=True)`` (4 views) through ``build_test_loader`` and
+   ``single_gpu_test``: B1 once per view (16 launches, counted from 0) on
+   maps of the model's dtype; the 4 requests timed alone (upload, 4 views,
+   the merge, the NMS, results on the host); a one-view, no-flip TTA equal
+   to ``simple_test``; in f32 a 4-view request at 512x256 and 384x192 on the
+   card against the same seeded model on the CPU (the same counts, boxes
+   within 1e-3 px, scores within 1e-4 relative). Soft-NMS, linear and
+   gaussian (``iou_threshold=0.5, min_score=0.05``), on a 1024x2048
+   request's 1000 proposals x 8 classes: timed (CUDA events, and the
+   host's enqueue of the call) with its memory peak inside
+   ``set_sync_debug_mode("error")``, against the CPU
+   (the same kept set, within 1e-4), and the config's route through
+   ``DetectorHandle.test``; ``async_inference_detector`` against
+   ``inference_detector`` on the 4 images; one flip TTA request of the
+   YOLOv3 config. After every timed run each soft-NMS call profiled: its
+   device kernels, the device's busy ms and the call's wall ms.
+7f. engine: a seeded flagship written as a published mmdet ``.pth``
+   (``num_batches_tracked`` per BN, ``meta``, ``optimizer``);
+   ``init_detector`` of it takes every model tensor, skips the counters and
+   serves the source model's detections bit for bit. ``tools/torch_train.py``
+   from it (``load_from``) as a subprocess counted by ``TOOL_PRELUDE``:
+   AdamW (lr 1e-4, weight decay 0.05), ``CosineAnnealing`` with exp warmup,
+   ``ProfilerHook`` (the third step), ``FeatureHook``, ``SyncNormHook`` and
+   ``SetEpochInfoHook``; 3 epochs of one step on 2 of phase 5b's PNGs: exit
+   0, the logged LR equal at each iteration to the schedule in closed form
+   (the cosine by epoch from 1e-4 to 1e-6 times the exp warmup 0.1 ** (1 -
+   t / 2) for t < 2), B1-B6 as the tables imply,
+   the Chrome trace naming B1's and B2's kernels, every trainable parameter
+   moved and every frozen one not; the AdamW step's ms.
 8. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -220,10 +251,12 @@ non-zero exit code:
 10. a JSON line of the kernels (``launches``: the training step's, B1's
    test loop's and robustness sweep's, the baseline step's, the f32
    training loop's, the DWD f32 step's, requests' and test loop's, and the
-   YOLOv3 f32 step's; each path's count beside it, ``launches_robustness``,
-   ``launches_dwd_step``, ``launches_baseline_step``,
-   ``launches_train_loop``, ``launches_train_loop_bf16``, ``launches_yolo``
-   and ``launches_yolo_bf16`` included), the card's
+   YOLOv3 f32 step's, B1's f32 TTA loop's and the AdamW run's; each path's
+   count beside it, ``launches_robustness``, ``launches_dwd_step``,
+   ``launches_baseline_step``, ``launches_train_loop``,
+   ``launches_train_loop_bf16``, ``launches_yolo``, ``launches_yolo_bf16``,
+   ``launches_tta``, ``launches_tta_bf16`` and ``launches_engine``
+   included), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -4064,6 +4097,445 @@ def phase_yolo(rows, val):
     return dict(serve=serve, train=train, tools=tools), profile
 
 
+TTA_IMAGES = 4              # images of phase 5b's set in the TTA phase
+TTA_SCALES = [(2048, 1024), (1536, 768)]
+SMALL_TTA_SCALES = [(512, 256), (384, 192)]
+
+
+def tta_cfg(config, scales, flip=True, options=None):
+    """``config`` with its test ``MultiScaleFlipAug`` at ``scales`` (None:
+    the config's) and ``flip``, and ``options`` merged."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(str(config))
+    if config == YOLO:
+        cfg["model"]["backbone"]["init_cfg"] = None
+    options = dict(options or {}, **{"data.test.pipeline.1.flip": flip})
+    if scales is not None:
+        options["data.test.pipeline.1.img_scale"] = scales
+    cfg.merge_from_dict(options)
+    return cfg
+
+
+def fetched_results(fetched):
+    """One image's fetched (dets, labels, valid) -> its per-class lists."""
+    from oadg_tpu_torch.apis.test import dets_to_results
+    return dets_to_results(*fetched, 8)[0]
+
+
+def first_tta_batch(cfg):
+    from oadg_tpu_torch.apis import build_test_loader
+    _, loader = build_test_loader(cfg)
+    return next(iter(loader))
+
+
+def _timed_soft_nms(boxes, scores, nms):
+    """``multiclass_nms`` with the flagship's rcnn cut-offs and ``nms`` on the
+    card inside ``set_sync_debug_mode("error")`` (no host sync in the
+    picks): a warm-up and 3 timed calls -> (outputs, its keyword arguments,
+    ms between CUDA events around the call, host ms to enqueue it (the
+    call's return on the host clock), peak GiB above the inputs), medians
+    of the 3."""
+    import torch
+    from oadg_tpu_torch.core.post_processing.nms import multiclass_nms
+    kw = dict(score_thr=0.05, iou_threshold=float(nms.get("iou_threshold", 0.5)),
+              max_per_img=100, num_classes=8, nms_type=(
+                  "soft_nms_gaussian" if nms.get("method") == "gaussian" else "soft_nms"),
+              sigma=float(nms.get("sigma", 0.5)), min_score=float(nms["min_score"]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, hosts = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = multiclass_nms(boxes, scores, **kw)
+            host = (time.perf_counter() - t0) * 1e3
+            end.record()
+            if i:
+                times.append((start, end))
+                hosts.append(host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return (out, kw, statistics.median(s.elapsed_time(e) for s, e in times),
+            statistics.median(hosts), peak)
+
+
+def soft_nms_profile(boxes, scores, kw):
+    """One soft-NMS call (after a warm-up) under torch.profiler -> its
+    device kernels launched, the device's busy ms (their summed time) and
+    the call's wall ms to a synchronize. After every timed run (the
+    profiler slows the host's launches for the rest of the process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from oadg_tpu_torch.core.post_processing.nms import multiclass_nms
+    with torch.inference_mode():
+        multiclass_nms(boxes, scores, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            multiclass_nms(boxes, scores, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dict(kernels=sum(e.count for e in kernels), busy_ms=busy, profiled_wall_ms=wall,
+                top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+                     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                                     reverse=True)[:4]])
+
+
+def phase_tta(rows, val):
+    """tta: test-time augmentation on ``TTA_IMAGES`` of phase 5b's PNGs
+    (``val``), per dtype: the flagship's test pipeline as
+    ``MultiScaleFlipAug(img_scale=TTA_SCALES, flip=True)`` (4 views)
+    through ``build_test_loader`` and ``single_gpu_test`` (B1 once per view
+    on maps of the model's dtype, its count set to 0 just before), then the
+    4 requests timed alone; a one-view, no-flip TTA equal to
+    ``simple_test``; in f32 a 4-view request on the card against the same
+    seeded model on the CPU at 512x256 and 384x192. Then soft-NMS (linear
+    and gaussian) on a 1024x2048 request's 1000 x 8 candidates, card vs
+    CPU, timed with its memory; one flip TTA request of the YOLOv3 config;
+    ``async_inference_detector`` against ``inference_detector`` on the 4
+    images. -> numbers."""
+    import asyncio
+    import os
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import (async_inference_detector, build_test_loader,
+                                     inference_detector, init_detector, load_model_state,
+                                     prepare_image, single_gpu_test)
+    from oadg_tpu_torch.apis.test import fetch_dets
+    from oadg_tpu_torch.core.post_processing.nms import multiclass_nms
+    from oadg_tpu_torch.data.pipelines.image_io import imread
+    from oadg_tpu_torch.engine.train_step import make_aug_test_step, make_test_step
+    from oadg_tpu_torch.ops import roi_align
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    options = {"data.test.ann_file": _subset_json(val[0], TTA_IMAGES,
+                                                  os.path.join(tmp.name, "tta.json")),
+               "data.test.img_prefix": val[1]}
+    cfg = tta_cfg(FLAGSHIP, TTA_SCALES, options=options)
+    out = {}
+    for name in DTYPES:
+        dtype = torch_dtype(name)
+        state = load_model_state(cfg, "none", device="cuda", dtype=dtype)
+        model = state["handle"].model
+        dataset, loader = build_test_loader(cfg, pin_memory=True)
+        entry = _EntryDtypes(ROI_ALIGN_FWD)
+        roi_align.ROI_ALIGN_FWD = entry
+        ROI_ALIGN_FWD.launches = 0
+        try:
+            results = single_gpu_test(state, loader)
+        finally:
+            roi_align.ROI_ALIGN_FWD = ROI_ALIGN_FWD
+        launches = ROI_ALIGN_FWD.launches
+        if launches != 4 * TTA_IMAGES or entry.dtypes != [dtype] * launches:
+            raise AssertionError(f"tta {name}: roi_align_fwd launched {launches} times for "
+                                 f"{TTA_IMAGES} images of 4 views, on maps {entry.dtypes}")
+        rows[0]["launches_tta" if name == "f32" else "launches_tta_bf16"] = launches
+        if name == "f32":
+            rows[0]["launches"] += launches
+        if len(results) != TTA_IMAGES or not all(
+                len(r) == 8 and all(np.isfinite(c).all() for c in r) for r in results) or \
+                sum(len(c) for r in results for c in r) < TTA_IMAGES:
+            raise AssertionError(f"tta {name}: bad results")
+
+        batches = list(build_test_loader(cfg, pin_memory=True)[1])
+        metas = batches[0]["__tta_metas__"]
+        shapes = [tuple(v["img"].shape[1:3]) for v in batches[0]["__tta_views__"]]
+        step = make_aug_test_step(model, metas)
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            t0 = time.perf_counter()
+            fetch_dets(*step(b["__tta_views__"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = dict(request_ms=statistics.median(walls), peak_gib=peak, launches=launches)
+        log("tta", f"{name}: {TTA_IMAGES} images x {len(metas)} views {shapes} "
+                   f"(flips {[f for f, _ in metas]}) through single_gpu_test: roi_align_fwd "
+                   f"launches {launches} on maps of {sorted(set(map(str, entry.dtypes)))}; "
+                   f"TTA request (upload, 4 views, merge, NMS, results on the host) ms "
+                   f"{[round(x, 3) for x in walls]}, median {out[name]['request_ms']:.3f}; "
+                   f"max_memory_allocated {peak:.2f} GiB ({nvidia_smi_line()})")
+
+        # one view, no flip: aug_test equals simple_test
+        plain = first_tta_batch(tta_cfg(FLAGSHIP, TTA_SCALES[0], flip=False, options=options))
+        got = fetch_dets(*make_aug_test_step(model, ((False, "horizontal"),))([plain]))
+        want = fetch_dets(*make_test_step(model)(plain))
+        ok, box_err, score_err = results_close(fetched_results(got), fetched_results(want))
+        log("tta", f"{name}: one-view no-flip TTA vs simple_test: {int(got[2].sum())} and "
+                   f"{int(want[2].sum())} detections, box err {box_err:.3e} px, score err "
+                   f"{score_err:.3e}")
+        if not ok:
+            raise AssertionError(f"tta {name}: one-view TTA differs from simple_test")
+
+        if name == "f32":   # the card against the CPU, 4 views at 512x256 and 384x192
+            small = first_tta_batch(tta_cfg(FLAGSHIP, SMALL_TTA_SCALES, options=options))
+            cpu = init_detector(cfg, device="cpu", seed=0).model
+            t0 = time.perf_counter()
+            want = fetch_dets(*make_aug_test_step(cpu, metas)(small["__tta_views__"]))
+            cpu_s = time.perf_counter() - t0
+            got = fetch_dets(*make_aug_test_step(model, metas)(small["__tta_views__"]))
+            ok, box_err, score_err = results_close(fetched_results(got), fetched_results(want))
+            views = [tuple(v["img"].shape[1:3]) for v in small["__tta_views__"]]
+            log("tta", f"f32: 4-view request at {views} card vs CPU: {int(got[2].sum())} "
+                       f"and {int(want[2].sum())} detections, box err {box_err:.3e} px (limit "
+                       f"1e-3), score err {score_err:.3e} relative (limit 1e-4); CPU side "
+                       f"{cpu_s:.2f} s")
+            if not ok or int(got[2].sum()) < 1:
+                raise AssertionError("tta f32: the card's 4-view request differs from the CPU's")
+            del cpu
+        del state, model
+        torch.cuda.empty_cache()
+
+    # soft-NMS on a 1024x2048 request's candidates (1000 proposals x 8 classes)
+    handle = init_detector(str(FLAGSHIP), device="cuda", seed=0)
+    img = request_image(np.random.RandomState(7))
+    with torch.inference_mode():
+        batch = prepare_image(img, handle.cfg, handle.device)
+        det = handle.model
+        feats = det.extract_feat(batch["img"])
+        props, _, pvalid = det.rpn_head.get_proposals(*det.rpn_head(feats), batch["img_shape"])
+        n, p = props.shape[:2]
+        boxes, scores = det.roi_head.view_scores(
+            feats, det.roi_head.proposals_to_rois(props).view(n, p, 5), batch["img_shape"],
+            batch["scale_factor"], rescale=True)
+        scores = torch.where(pvalid[..., None], scores, torch.zeros_like(scores))
+        del feats
+        soft, soft_inputs = {}, {}
+        for method in ("linear", "gaussian"):
+            nms = dict(type="soft_nms", iou_threshold=0.5, min_score=0.05)
+            if method == "gaussian":
+                nms.update(method="gaussian", sigma=0.5)
+            (d, lb, v), kw, ms, host_ms, peak = _timed_soft_nms(boxes, scores, nms)
+            t0 = time.perf_counter()
+            wd, wl, wv = multiclass_nms(boxes.cpu(), scores.cpu(), **kw)
+            cpu_s = time.perf_counter() - t0
+            err = float((d.cpu() - wd).abs().max())
+            same = torch.equal(v.cpu(), wv) and torch.equal(lb.cpu(), wl)
+            soft[method] = dict(ms=ms, host_ms=host_ms, peak_gib=peak,
+                                candidates=int(boxes.shape[1] * 8))
+            soft_inputs[method] = kw
+            log("tta", f"soft-NMS {method} over {n} x {p} x 8 = {p * 8} candidates "
+                       f"({int((scores[..., :8] > 0.05).sum())} above score_thr, "
+                       f"{min(400, p * 8)} picks): {ms:.3f} ms (CUDA events, median of 3, "
+                       f"inside set_sync_debug_mode('error')), of it {host_ms:.3f} ms on the "
+                       f"host to enqueue the call, peak above the inputs "
+                       f"{peak:.3f} GiB; {int(v.sum())} kept; card vs CPU: same kept set "
+                       f"and labels {same}, max abs err {err:.3e}; CPU side {cpu_s:.2f} s "
+                       f"({nvidia_smi_line()})")
+            if not same or err > 1e-4 or int(v.sum()) < 1:
+                raise AssertionError(f"soft-NMS {method}: the card differs from the CPU")
+        # the config's route: rcnn soft_nms through DetectorHandle.test
+        det.roi_head.test_cfg["nms"] = dict(type="soft_nms", iou_threshold=0.5,
+                                            min_score=0.05)
+        dets, labels, valid = handle.test(batch)
+        if not torch.isfinite(dets).all() or int(valid.sum()) < 1:
+            raise AssertionError("soft-NMS request: bad detections")
+    out["soft_nms"] = soft
+    soft_boxes, soft_scores = boxes.clone(), scores.clone()
+
+    def profile():
+        """Each soft-NMS call profiled, into ``out``: its kernels, busy ms."""
+        for method, kw in soft_inputs.items():
+            prof = soft_nms_profile(soft_boxes, soft_scores, kw)
+            soft[method].update(prof)
+            log("tta-profile", f"soft-NMS {method}: profiled call {prof['profiled_wall_ms']:.3f} "
+                               f"ms wall, {prof['kernels']} device kernels, device busy "
+                               f"{prof['busy_ms']:.3f} ms "
+                               f"({100 * prof['busy_ms'] / prof['profiled_wall_ms']:.1f}%); "
+                               f"the most time: {prof['top']} ({nvidia_smi_line()})")
+
+    # async_inference_detector equals inference_detector on the 4 images
+    images = [imread(os.path.join(val[1], f)) for f in sorted(os.listdir(val[1]))
+              if f.endswith(".png")][:TTA_IMAGES]
+    handle = init_detector(str(FLAGSHIP), device="cuda", seed=0)
+    want = inference_detector(handle, images)
+    t0 = time.perf_counter()
+    got = asyncio.run(async_inference_detector(handle, images))
+    async_s = time.perf_counter() - t0
+    checks = [results_close(g, w) for g, w in zip(got, want)]
+    log("tta", f"async_inference_detector on {len(images)} images in {async_s:.3f} s: equal to "
+               f"inference_detector {all(c[0] for c in checks)} (largest box err "
+               f"{max(c[1] for c in checks):.3e} px)")
+    if len(got) != len(images) or not all(c[0] for c in checks):
+        raise AssertionError("async_inference_detector differs from inference_detector")
+    del handle
+    torch.cuda.empty_cache()
+
+    # one flip TTA request of the YOLOv3 config
+    ycfg = tta_cfg(YOLO, None, options=options)
+    yolo = init_detector(ycfg, device="cuda", seed=0).model
+    batch = first_tta_batch(ycfg)
+    metas = batch["__tta_metas__"]
+    step = make_aug_test_step(yolo, metas)
+    fetch_dets(*step(batch["__tta_views__"]))                    # warm-up
+    t0 = time.perf_counter()
+    d, lb, v = fetch_dets(*step(batch["__tta_views__"]))
+    yolo_ms = (time.perf_counter() - t0) * 1e3
+    out["yolo_flip_ms"] = yolo_ms
+    views = [tuple(x["img"].shape[1:3]) for x in batch["__tta_views__"]]
+    log("tta", f"YOLOv3 flip TTA ({len(metas)} views {views}): {yolo_ms:.3f} ms, "
+               f"{int(v.sum())} detections ({nvidia_smi_line()})")
+    if metas != ((False, "horizontal"), (True, "horizontal")) or not np.isfinite(d).all() \
+            or int(v.sum()) < 1 or not ((lb[v] >= 0) & (lb[v] < 8)).all():
+        raise AssertionError("YOLOv3 flip TTA: bad detections")
+    del yolo
+    torch.cuda.empty_cache()
+    log("tta", f"phase {time.perf_counter() - t_phase:.2f} s")
+    return out, profile
+
+
+ENGINE_TRAIN_IMAGES = 2     # one step of 2 images of phase 5b's set an epoch
+ENGINE_EPOCHS = 3
+
+
+def engine_lr(t, epoch):
+    """The LR that ``ENGINE_CONFIG``'s schedule gives iteration ``t`` of
+    ``epoch``, in closed form: mmcv's cosine by epoch from 1e-4 to 1e-6
+    over ``ENGINE_EPOCHS``, times the exp warmup 0.1 ** (1 - t / 2) while
+    t < 2."""
+    lr = 1e-6 + (1e-4 - 1e-6) * (1 + math.cos(math.pi * epoch / ENGINE_EPOCHS)) / 2
+    return lr * 0.1 ** (1 - t / 2) if t < 2 else lr
+
+
+def mmdet_checkpoint(path, model):
+    """``model``'s weights as a published mmdet ``.pth``: ``state_dict``
+    with a ``num_batches_tracked`` per BN, ``meta`` and ``optimizer``."""
+    import torch
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    extra = {k[:-len("running_mean")] + "num_batches_tracked": torch.tensor(0)
+             for k in sd if k.endswith("running_mean")}
+    torch.save({"meta": {"mmdet_version": "2.28.2", "epoch": 12, "iter": 35700,
+                         "CLASSES": ("person", "rider", "car", "truck", "bus", "train",
+                                     "motorcycle", "bicycle")},
+                "state_dict": dict(sd, **extra),
+                "optimizer": {"state": {}, "param_groups": [dict(lr=0.01, momentum=0.9,
+                                                                 params=[])]}}, path)
+    return sd, sorted(extra)
+
+
+ENGINE_CONFIG = """_base_ = [{flagship!r}]
+load_from = {load_from!r}
+optimizer = dict(_delete_=True, type='AdamW', lr=1e-4, weight_decay=0.05)
+lr_config = dict(_delete_=True, policy='CosineAnnealing', min_lr_ratio=0.01, warmup='exp',
+                 warmup_iters=2, warmup_ratio=0.1)
+custom_hooks = [dict(type='ProfilerHook', start_iter=2, num_iters=1),
+                dict(type='FeatureHook', layer_list=['neck']),
+                dict(type='SyncNormHook'), dict(type='SetEpochInfoHook')]
+"""
+
+
+def phase_engine(rows, val):
+    """engine: a seeded flagship written as an mmdet ``.pth``; ``init_detector``
+    of it serves the source model's detections; then ``tools/torch_train.py``
+    as a subprocess from it (``load_from``) with AdamW, the cosine schedule
+    with exp warmup, ``ProfilerHook``, ``FeatureHook``, ``SyncNormHook`` and
+    ``SetEpochInfoHook``, 3 epochs of one step on 2 of phase 5b's PNGs
+    (``val``), launches counted by ``TOOL_PRELUDE``: exit 0, the logged LR
+    equal to the closed form ``engine_lr`` at each iteration, the trace
+    naming B1's and B2's kernels, every trainable parameter moved and every
+    frozen one not. -> numbers."""
+    import os
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import init_detector, prepare_image
+    from oadg_tpu_torch.engine.runner import Checkpointer
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    pth = os.path.join(tmp.name, "faster_rcnn_r50_fpn_1x_cityscapes_oadg.pth")
+    src = init_detector(str(FLAGSHIP), device="cuda", seed=0)
+    sd, counters = mmdet_checkpoint(pth, src.model)
+    loaded = init_detector(str(FLAGSHIP), pth, device="cuda", seed=11)
+    report = loaded.checkpoint_report
+    img = request_image(np.random.RandomState(12))
+    a = src.test(prepare_image(img, src.cfg, src.device))
+    b = loaded.test(prepare_image(img, loaded.cfg, loaded.device))
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    log("engine", f"mmdet .pth ({os.path.getsize(pth) / 2 ** 20:.1f} MiB, {len(sd)} tensors + "
+                  f"{len(counters)} num_batches_tracked, meta, optimizer): init_detector loaded "
+                  f"{len(report['loaded'])}, skipped {len(report['skipped'])}, missing "
+                  f"{len(report['missing'])}; detections equal to the source model's {equal} "
+                  f"({int(a[2].sum())} valid)")
+    if (set(report["loaded"]) != set(sd) or report["missing"]
+            or sorted(s.split(" ")[0] for s in report["skipped"]) != counters or not equal):
+        raise AssertionError(f"the mmdet .pth did not load as its source: {report}")
+    del src, loaded
+    torch.cuda.empty_cache()
+
+    config = os.path.join(tmp.name, "engine.py")
+    with open(config, "w") as f:
+        f.write(ENGINE_CONFIG.format(flagship=str(FLAGSHIP), load_from=pth))
+    ann_file = _subset_json(val[0], ENGINE_TRAIN_IMAGES, os.path.join(tmp.name, "train.json"))
+    options = {"data.train.times": 1, "data.train.dataset.ann_file": ann_file,
+               "data.train.dataset.img_prefix": val[1], "runner.max_epochs": ENGINE_EPOCHS,
+               "log_config.interval": 1, "checkpoint_config.interval": ENGINE_EPOCHS}
+    work = os.path.join(tmp.name, "work")
+    record = os.path.join(tmp.name, "record.json")
+    argv = [str(ROOT / "tools" / "torch_train.py"), config, "--work-dir", work, "--seed", "0",
+            "--no-validate", "--cfg-options", *(f"{k}={v}" for k, v in options.items())]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TOOL_PRELUDE, *argv], cwd=ROOT,
+                         env=dict(os.environ, LOOP_RECORD=record), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"tools/torch_train.py (AdamW, cosine) failed:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    steps = ENGINE_EPOCHS * ENGINE_TRAIN_IMAGES // 2
+    train = [ln for ln in read_log(work) if ln["mode"] == "train"]
+    lrs = [ln["lr"] for ln in train]
+    want_lrs = [engine_lr(t, t * ENGINE_EPOCHS // steps) for t in range(steps)]
+    traces = [os.path.join(work, "profiler", f) for f in os.listdir(os.path.join(work, "profiler"))]
+    with open(traces[0]) as f:
+        trace = f.read()
+    named = {k: k in trace for k in ("roi_align_fwd_kernel", "roi_grad_tile_kernel")}
+    want = loop_launches(rec["tables"], flagship_oamix_cfg()["version"], steps, 0)
+    log("engine", f"tools/torch_train.py from the .pth, AdamW + CosineAnnealing (exp warmup), 4 "
+                  f"custom hooks: exit 0 in {wall:.2f} s; {len(train)} iterations in "
+                  f"{ENGINE_EPOCHS} epochs; lr {lrs} (closed form {want_lrs}); step ms "
+                  f"{[round(ln['time'] * 1e3, 3) for ln in train]} (the last under the "
+                  f"profiler); trace {os.path.basename(traces[0])} "
+                  f"({os.path.getsize(traces[0]) / 2 ** 20:.1f} MiB) names {named}; launches "
+                  f"{rec['launches']} (the tables imply {want}) ({nvidia_smi_line()})")
+    if (len(train) != steps or len(traces) != 1 or not all(named.values())
+            or not np.allclose(lrs, want_lrs, rtol=1e-12, atol=0)
+            or not all(math.isfinite(ln["loss"]) for ln in train) or rec["launches"] != want):
+        raise AssertionError(f"the AdamW run went wrong: {train} {named} {rec['launches']}")
+    trained = Checkpointer.load(os.path.join(work, f"epoch_{ENGINE_EPOCHS}.pth"))["state_dict"]
+    model = init_detector(str(FLAGSHIP), device="cpu", num_views=2).model
+    moved = frozen_moved = trainable = frozen = 0
+    for k, p in model.named_parameters():
+        changed = not torch.equal(trained[k], sd[k])
+        if p.requires_grad:
+            trainable += 1
+            moved += changed
+        else:
+            frozen += 1
+            frozen_moved += changed
+    log("engine", f"parameters: {moved} of {trainable} trainable moved, {frozen_moved} of "
+                  f"{frozen} frozen moved; phase {time.perf_counter() - t_phase:.2f} s")
+    if moved != trainable or frozen_moved or not frozen:
+        raise AssertionError("AdamW: a trainable parameter stayed or a frozen one moved")
+    for r in rows:
+        if r["name"] in rec["launches"]:
+            r["launches_engine"] = rec["launches"][r["name"]]
+            r["launches"] += rec["launches"][r["name"]]
+    return dict(step_ms=train[1]["time"] * 1e3, first_step_ms=train[0]["time"] * 1e3,
+                profiled_step_ms=train[2]["time"] * 1e3, wall_s=wall)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4094,9 +4566,12 @@ def main():
     loop_profile = phase_train_loop(rows, evaluate_profile.val)
     dwd = phase_dwd(rows)
     yolo, yolo_profile = phase_yolo(rows, evaluate_profile.val)
+    tta, tta_profile = phase_tta(rows, evaluate_profile.val)
+    engine = phase_engine(rows, evaluate_profile.val)
     for _, profile in trains.values():
         profile()
     yolo_profile()
+    tta_profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
@@ -4109,6 +4584,8 @@ def main():
     log("robustness", f"summary ({nvidia_smi_line()}): {json.dumps(robustness)}")
     log("dwd", f"summary ({nvidia_smi_line()}): {json.dumps(dwd)}")
     log("yolo", f"summary ({nvidia_smi_line()}): {json.dumps(yolo)}")
+    log("tta", f"summary ({nvidia_smi_line()}): {json.dumps(tta)}")
+    log("engine", f"summary ({nvidia_smi_line()}): {json.dumps(engine)}")
     for name in DTYPES:
         phase_train_reference(name)
         phase_train_reference(name, BASELINE, "baseline-reference")

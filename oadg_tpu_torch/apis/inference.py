@@ -8,7 +8,9 @@ random weights or a ``state_dict`` file; ``DetectorHandle.test`` runs
 BGR image into such a batch on the card: normalize with the config's
 ``img_norm_cfg``, pad to a multiple of 32. ``prepare_batch`` and
 ``inference_detector`` take an image file or array through the config's
-test pipeline instead (resize included), as the JAX package's do.
+test pipeline instead (resize included), as the JAX package's do;
+``async_inference_detector`` enqueues every image on the card before it
+awaits any result.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class DetectorHandle:
         head = model.bbox_head if hasattr(model, "bbox_head") else model.roi_head.bbox_head
         self.num_classes = head.num_classes
         self.CLASSES = _classes_from_cfg(cfg)
+        self.checkpoint_report = None   # load_mmdet_checkpoint's, set by init_detector
         self._pipeline = None       # the test pipeline, built on first use
 
     def test(self, batch):
@@ -51,9 +54,13 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
     ``dtype`` is the compute dtype (``torch.bfloat16``; None is float32,
     see ``build_detector``), the model's ``dtype``.
 
-    Weights come from ``checkpoint`` (a ``torch.save``d ``state_dict``, or a
-    dict holding one under ``"state_dict"``, loaded strictly) or, without
-    one, from a ``torch.Generator`` seeded with ``seed``. On CUDA the model
+    The weights are seeded (a ``torch.Generator`` seeded with ``seed``),
+    then ``checkpoint``'s (a file: a published mmdet ``.pth``, one of the
+    port's ``epoch_{n}.pth``, or a bare ``state_dict``) are grafted on by
+    ``load_mmdet_checkpoint``, which logs what it skipped and raises where
+    a detector checkpoint lacks one of the model's tensors (a
+    classification checkpoint fills the backbone alone); its report is the
+    handle's ``checkpoint_report``. On CUDA the model
     runs in ``torch.channels_last``. A CUDA device without a card raises.
     A serving model (``num_views == 1``) is left in ``eval()`` mode, one
     built for training in ``train()`` mode.
@@ -66,16 +73,18 @@ def init_detector(config, checkpoint: Optional[Union[str, os.PathLike]] = None,
         config = load_config(config)
     model = build_detector(dict(config["model"]), device=device,
                            num_views=num_views, dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    report = None
     if checkpoint is not None:
-        from ..engine.runner import model_state_dict
-        model.load_state_dict(model_state_dict(
-            torch.load(checkpoint, map_location="cpu", weights_only=True)), strict=True)
-    else:
-        model.init_weights(torch.Generator().manual_seed(seed))
+        from ..engine.runner import get_root_logger
+        from ..utils.checkpoint import load_mmdet_checkpoint
+        report = load_mmdet_checkpoint(model, checkpoint, get_root_logger())
     model.train(num_views > 1)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    return DetectorHandle(model, config, device)
+    handle = DetectorHandle(model, config, device)
+    handle.checkpoint_report = report
+    return handle
 
 
 def prepare_image(img: np.ndarray, cfg, device) -> dict:
@@ -169,4 +178,23 @@ def inference_detector(model: DetectorHandle, imgs) -> list:
     results = [dets_to_results(*fetch_dets(*model.test(prepare_batch(model, img))),
                                model.num_classes)[0]
                for img in ([imgs] if single else imgs)]
+    return results[0] if single else results
+
+
+async def async_inference_detector(model: DetectorHandle, imgs) -> list:
+    """``inference_detector`` for an event loop (``oadg_tpu/apis/inference.py:158-182``):
+    every image goes through the test pipeline and is enqueued on the
+    model's device before any result is awaited; each result's
+    device-to-host copy, which waits for its request, runs in the loop's
+    default executor, so that the loop stays free meanwhile."""
+    import asyncio
+
+    from .test import dets_to_results, fetch_dets
+    single = not isinstance(imgs, (list, tuple))
+    outs = [model.test(prepare_batch(model, img)) for img in ([imgs] if single else imgs)]
+    loop = asyncio.get_running_loop()
+    results = []
+    for out in outs:
+        host = await loop.run_in_executor(None, fetch_dets, *out)
+        results.append(dets_to_results(*host, model.num_classes)[0])
     return results[0] if single else results

@@ -3,9 +3,12 @@ and loader builders of ``tools/test.py``): the test step over a loader,
 its padded outputs turned into the reference's per-image per-class numpy
 detection lists.
 
+A test-time augmentation batch (a ``MultiScaleFlipAug`` pipeline with
+several scales or ``flip=True``) goes to the model's ``aug_test`` through
+the test step (``make_test_step``).
+
 Multi-process testing (``multi_gpu_test``, ``collect_results_allgather``)
-waits for data parallel (ROADMAP A, 'Data parallel'), test-time augmentation for
-ROADMAP A, 'Test-time paths of the flagship'.
+waits for data parallel (ROADMAP A, 'Data parallel').
 """
 from __future__ import annotations
 
@@ -37,15 +40,12 @@ def dets_to_results(dets, labels, valid, num_classes: int) -> List[List[np.ndarr
 
 def run_test(test_fn: Callable, loader, num_classes: int,
              progress: bool = False) -> List[List[np.ndarray]]:
-    """Run ``test_fn`` (``make_test_step``) over ``loader``'s batches ->
-    the reference's results: per image, per class (n, 5) float32
-    [x1, y1, x2, y2, score] arrays, in the loader's order."""
+    """Run ``test_fn`` (``make_test_step``, which also takes a test-time
+    augmentation batch) over ``loader``'s batches -> the reference's
+    results: per image, per class (n, 5) float32 [x1, y1, x2, y2, score]
+    arrays, in the loader's order."""
     results: List[List[np.ndarray]] = []
     for bi, batch in enumerate(loader):
-        if "__tta_views__" in batch:
-            raise NotImplementedError("a test-time augmentation batch: the port "
-                                      "has no aug_test yet (ROADMAP A, "
-                                      "'Test-time paths of the flagship')")
         # ``batch`` stays referenced until the copy back has waited for the
         # step, so its pinned pages outlive the asynchronous upload.
         results.extend(dets_to_results(*fetch_dets(*test_fn(batch)), num_classes))

@@ -1,10 +1,13 @@
 """Box format helpers of the test path (port of
-``oadg_tpu/core/bbox/transforms.py:20-64``): numpy on the host."""
+``oadg_tpu/core/bbox/transforms.py:20-64``): numpy on the host, and
+``flip_boxes``, the batched ``bbox_flip`` of the test-time augmentation on
+the device."""
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+import torch
 
 
 def roi2bbox(rois: np.ndarray) -> List[np.ndarray]:
@@ -52,3 +55,17 @@ def bbox_mapping_back(bboxes: np.ndarray, img_shape, scale_factor, flip: bool,
     new_bboxes = bbox_flip(bboxes, img_shape, flip_direction) if flip else bboxes
     sf = np.asarray(scale_factor, dtype=np.float32).reshape(-1)[:4]
     return new_bboxes[..., :4] / sf
+
+
+def flip_boxes(boxes: torch.Tensor, img_shapes: torch.Tensor,
+               direction: str = "horizontal") -> torch.Tensor:
+    """``bbox_flip`` of (N, ..., 4) boxes, image by image, within
+    ``img_shapes`` (N, 2) (h, w)."""
+    view = (-1,) + (1,) * (boxes.dim() - 1)
+    h, w = img_shapes[:, 0].reshape(view), img_shapes[:, 1].reshape(view)
+    x1, y1, x2, y2 = boxes[..., 0:1], boxes[..., 1:2], boxes[..., 2:3], boxes[..., 3:4]
+    if direction == "horizontal":
+        return torch.cat([w - x2, y1, w - x1, y2], -1)
+    if direction == "vertical":
+        return torch.cat([x1, h - y2, x2, h - y1], -1)
+    raise ValueError(direction)

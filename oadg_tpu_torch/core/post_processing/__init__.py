@@ -1,3 +1,3 @@
-from .nms import batched_nms_padded, multiclass_nms, nms_padded
+from .nms import batched_nms_padded, multiclass_nms, nms_padded, soft_nms_padded
 
-__all__ = ["nms_padded", "batched_nms_padded", "multiclass_nms"]
+__all__ = ["nms_padded", "batched_nms_padded", "multiclass_nms", "soft_nms_padded"]

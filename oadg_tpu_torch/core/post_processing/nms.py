@@ -12,6 +12,12 @@ package's tie order: a stable descending sort, lower index first. Scores
 keep their dtype: the proposals of a bfloat16 model sort and suppress on
 bfloat16 scores, where ties are common, as ``jax.lax.top_k`` and the JAX
 package's stable ``argsort`` do.
+
+``soft_nms_padded`` (``:117-170``) decays the scores of the boxes that
+overlap each pick instead of dropping them (``linear``: ``1 - iou`` above the
+threshold; ``gaussian``: ``exp(-iou ** 2 / sigma)``) in a fixed number of
+picks, each a tensor op on the device with no host sync. ``multiclass_nms``
+takes it with ``nms_type="soft_nms"`` (``:177-215``).
 """
 from __future__ import annotations
 
@@ -71,11 +77,67 @@ def batched_nms_padded(boxes: torch.Tensor, scores: torch.Tensor,
     return nms_padded(boxes + offsets, scores, iou_threshold, valid)
 
 
+def soft_nms_padded(boxes: torch.Tensor, scores: torch.Tensor,
+                    iou_threshold: float = 0.3, sigma: float = 0.5,
+                    min_score: float = 1e-3, method: str = "linear",
+                    max_out: Optional[int] = None,
+                    valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft-NMS over (..., N, 4) boxes and (..., N) scores: ``max_out``
+    (default N) picks of the highest live score (ties to the lower index),
+    each decaying the live scores of the boxes that overlap it. A pick at or
+    below ``min_score`` keeps nothing and decays nothing. The (N, N) IoU
+    matrix is built once, in float32.
+
+    Returns new_scores (..., N) float32 (each kept box's score when it was
+    picked, 0 elsewhere) and keep (..., N) bool, in input order.
+
+    Once every score is spent (-inf), a pick changes nothing; the JAX
+    package's picks then land on index 0 and zero its score even where it
+    was kept (ROADMAP C).
+    """
+    if method not in ("linear", "gaussian"):
+        raise ValueError(f"soft-NMS method {method!r}: linear or gaussian")
+    n = scores.shape[-1]
+    rounds = n if max_out is None else min(int(max_out), n)
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    iou = bbox_overlaps(boxes.float(), boxes.float())
+    neg_inf = torch.full((), float("-inf"), device=scores.device)   # a fill, not a copy
+    cur = torch.where(valid, scores.float(), neg_inf)
+    out = torch.zeros_like(cur)
+    keep = torch.zeros_like(valid)
+    rows = (*iou.shape[:-2], 1, n)
+    for _ in range(rounds):
+        m = cur.argmax(-1, keepdim=True)                       # (..., 1)
+        ms = cur.gather(-1, m)
+        ok = ms > min_score
+        out.scatter_(-1, m, torch.where(ok, ms, out.gather(-1, m)))
+        keep.scatter_(-1, m, keep.gather(-1, m) | ok)
+        row = iou.gather(-2, m[..., None].expand(rows)).squeeze(-2)
+        if method == "gaussian":
+            decay = torch.exp(-(row * row) / sigma)
+        else:
+            decay = torch.where(row > iou_threshold, 1.0 - row, torch.ones_like(row))
+        # a spent (-inf) score stays spent: -inf * 0 at IoU 1 would be NaN
+        cur = torch.where(ok & (cur > neg_inf), cur * decay, cur)
+        cur.scatter_(-1, m, neg_inf.expand_as(m))
+    return out, keep
+
+
+NMS_TYPES = {"nms": "nms", "soft_nms": "linear", "soft_nms_linear": "linear",
+             "soft_nms_gaussian": "gaussian"}
+
+
 def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
                    score_thr: float, iou_threshold: float, max_per_img: int,
-                   num_classes: int
+                   num_classes: int, nms_type: str = "nms", sigma: float = 0.5,
+                   min_score: float = 1e-3
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-class hard NMS (``:170``), batched over images.
+    """Per-class NMS (``:170``), batched over images: hard (``nms``) or
+    soft (``soft_nms`` / ``soft_nms_linear``, ``soft_nms_gaussian``; classes
+    kept apart by the coordinate offset of ``batched_nms_padded``, at most
+    ``min(4 * max_per_img, N * C)`` picks, kept scores decayed).
 
     Args:
         multi_bboxes: (B, N, C*4) or (B, N, 4); multi_scores: (B, N, C+1),
@@ -96,7 +158,15 @@ def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
         bboxes = multi_bboxes[:, :, None, :].expand(b, n, c, 4).reshape(b, n * c, 4)
     labels = torch.arange(c, device=scores.device).repeat(n).expand(b, n * c)
     valid = scores > score_thr
-    keep = batched_nms_padded(bboxes, scores, labels, iou_threshold, valid)
+    if NMS_TYPES[nms_type] == "nms":
+        keep = batched_nms_padded(bboxes, scores, labels, iou_threshold, valid)
+    else:
+        coords = torch.where(valid[..., None], bboxes, torch.zeros_like(bboxes))
+        max_coord = coords.amax(dim=(-2, -1), keepdim=True)
+        scores, keep = soft_nms_padded(
+            bboxes + labels.to(bboxes.dtype)[..., None] * (max_coord + 1.0), scores,
+            iou_threshold=iou_threshold, sigma=sigma, min_score=min_score,
+            method=NMS_TYPES[nms_type], max_out=min(4 * max_per_img, n * c), valid=valid)
     final = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
     top_s, top_i = sort_desc(final, max_per_img)
     out_valid = top_s > float("-inf")

@@ -3,7 +3,9 @@
 ``StaticBatcher`` collates pipeline outputs into one numpy batch: images
 zero-padded onto one canvas (``static_hw``, or the batch's largest image
 rounded up to ``divisor``), ground truth padded to ``max_gt`` with a
-validity mask, each sample's metadata under ``metas``. Samples marked
+validity mask, each sample's metadata under ``metas``; a test-time
+augmentation sample (``MultiScaleFlipAug`` with several scales or
+``flip=True``) gives one such batch a view. Samples marked
 ``norm_on_device`` (the ``OAMix`` op's training samples) ship only the
 ``img_raw`` canvas, in the samples' own dtype (uint8, or float32 after a
 float op such as ``PhotoMetricDistortion``), no float32 ``img``: the train
@@ -24,11 +26,6 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from ..utils.registry import DATASETS, build_from_cfg
-
-_TTA_REFUSED = ("a multi-view MultiScaleFlipAug sample (several scales or flip=True) "
-                "needs test-time augmentation, which the port has not yet "
-                "(ROADMAP A, 'Test-time paths of the flagship')")
-
 
 def build_dataset(cfg, default_args=None):
     """``cfg`` (``type`` and its arguments) -> the registered dataset."""
@@ -83,7 +80,7 @@ class StaticBatcher:
 
     def __call__(self, samples: List[Dict[str, Any]]) -> Dict[str, Any]:
         if samples and samples[0].get("__tta__"):
-            raise NotImplementedError(_TTA_REFUSED)
+            return self._collate_views(samples)
         b = len(samples)
         if self.static_hw is not None:
             h, w = self.static_hw
@@ -121,6 +118,22 @@ class StaticBatcher:
             batch.update(gt_bboxes=gt, gt_labels=lbl, gt_valid=valid)
         batch["metas"] = [s["img_metas"] for s in samples]
         return batch
+
+    def _collate_views(self, samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """``MultiScaleFlipAug`` samples of several views (each key a list,
+        one entry a view; ``:40-56``) -> ``__tta_views__``, one batch a view
+        collated as any other (its own canvas), ``__tta_metas__``, the
+        views' ``(flip, flip_direction)``, and ``metas``, the first view's
+        metadata of each sample."""
+        views, metas = [], []
+        for vi in range(len(samples[0]["img"])):
+            views.append(self([{k: (s[k][vi] if isinstance(s[k], list) else s[k])
+                                for k in s if k != "__tta__"} for s in samples]))
+            m0 = samples[0]["img_metas"][vi]
+            metas.append((bool(m0.get("flip", False)),
+                          str(m0.get("flip_direction", "horizontal"))))
+        return {"__tta_views__": views, "__tta_metas__": tuple(metas),
+                "metas": [s["img_metas"][0] for s in samples]}
 
 
 class PrefetchLoader:

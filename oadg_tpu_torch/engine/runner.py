@@ -1,6 +1,6 @@
 """The epoch-based training runner (port of ``oadg_tpu/engine/runner.py:27-281``).
 
-``EpochBasedRunner`` owns the model, its SGD optimizer and LR schedule, the
+``EpochBasedRunner`` owns the model, its optimizer and LR schedule, the
 train step (``make_train_step``, with the OA-Mix preprocess when the
 pipeline has one) and the test step. Each epoch it sets the loader's epoch
 (so that the batch order is a function of the seed and the epoch), and per
@@ -17,10 +17,12 @@ val loader, evaluates (``run_test`` and ``dataset.evaluate``).
 
 Checkpoints take mmcv's layout (not the JAX package's Orbax one):
 ``work_dir/epoch_{n}.pth`` holds ``meta`` (``epoch``, ``iter``, ``seed``),
-``state_dict`` (the model's, on the CPU) and ``optimizer`` (SGD's state dict:
-its momentum buffers), and ``latest.pth`` links to the newest. ``resume``
-restores all three and the step's LR counter; ``load_weights`` (the
-config's ``load_from``) the weights alone. ``init_detector(checkpoint=...)``
+``state_dict`` (the model's, on the CPU) and ``optimizer`` (the optimizer's
+state dict: SGD's momentum buffers, Adam's moments), and ``latest.pth``
+links to the newest. ``resume``
+restores all three and the step's LR counter, strictly; ``load_weights``
+(the config's ``load_from``) grafts the weights alone, from such a file or
+a published mmdet one. ``init_detector(checkpoint=...)``
 and ``tools/torch_test.py`` read such a file as it is.
 """
 from __future__ import annotations
@@ -162,7 +164,7 @@ class EpochBasedRunner:
         self.val_loader = val_loader
         self.seed = int(seed)
         self.lr_fn = build_lr_schedule(cfg.get("lr_config"), float(cfg["optimizer"]["lr"]),
-                                       max(len(train_loader), 1))
+                                       max(len(train_loader), 1), max_epochs=self.max_epochs)
         self.optimizer = build_optimizer(
             model, cfg["optimizer"],
             grad_clip=dict(cfg.get("optimizer_config") or {}).get("grad_clip"))
@@ -181,6 +183,23 @@ class EpochBasedRunner:
     def call_hooks(self, stage: str, *args):
         for h in self.hooks:
             getattr(h, stage)(self, *args)
+
+    def enable_head_l1(self):
+        """``YOLOXModeSwitchHook``: the single-stage head's extra L1 loss on,
+        in place, its weights kept (``oadg_tpu/engine/runner.py:147-160``
+        rebuilds the detector with ``bbox_head.use_l1=True``). A two-stage
+        model has no ``bbox_head`` and is left as it is, as the rebuild
+        leaves it; a head without ``use_l1`` is left as it is with a
+        warning, as the JAX registry drops the key it does not take."""
+        head = getattr(self.model, "bbox_head", None)
+        if head is None:
+            return
+        if not hasattr(head, "use_l1"):
+            import warnings
+            warnings.warn(f"{type(head).__name__}: dropping config key 'use_l1' "
+                          "(not implemented by this module)")
+            return
+        head.use_l1 = True
 
     # ---------------- checkpoints ----------------
 
@@ -208,10 +227,14 @@ class EpochBasedRunner:
         self.iter = self.step.t = int(meta.get("iter", 0))
         self.logger.info(f"resumed from {path}: epoch {self.epoch}, iter {self.iter}")
 
-    def load_weights(self, ckpt: Dict[str, Any]):
-        """``load_from``: the weights of a checkpoint or state dict alone;
-        epoch, iter and the momentum stay fresh."""
-        self.model.load_state_dict(model_state_dict(ckpt), strict=True)
+    def load_weights(self, ckpt: Dict[str, Any]) -> Dict[str, List[str]]:
+        """``load_from``: the weights of a checkpoint (the port's, or a
+        published mmdet one) or state dict alone, grafted by
+        ``load_mmdet_checkpoint`` (its report is returned and logged; a
+        detector checkpoint lacking a tensor raises); epoch, iter and the
+        optimizer's state stay fresh."""
+        from ..utils.checkpoint import load_mmdet_checkpoint
+        return load_mmdet_checkpoint(self.model, ckpt, self.logger)
 
     # ---------------- loops ----------------
 

@@ -1,30 +1,33 @@
 """The training and test steps (port of ``oadg_tpu/engine/train_step.py``).
 
-``make_train_step``: ``forward_train`` -> backward -> SGD step -> LR
+``make_train_step``: ``forward_train`` -> backward -> optimizer step -> LR
 schedule tick. The counterpart of the JAX package's ``make_train_step(detector, tx,
 preprocess=None)`` (``:33``). With ``preprocess`` (``engine/preprocess.py``) the step first
 turns a uint8 batch into the views-major one through on-device OA-Mix,
 inside a ``train_step: oamix`` span, as the JAX step runs its preprocess
 inside the jitted step.
 
-The model's parameters, their gradients and SGD are float32 whatever the
-model's compute ``dtype``: a bfloat16 layer casts its float32 parameters on
-use, and autograd returns float32 gradients through the cast. Build the
-preprocess with ``out_dtype=model.dtype``.
+The model's parameters, their gradients and the optimizer are float32
+whatever the model's compute ``dtype``: a bfloat16 layer casts its float32
+parameters on use, and autograd returns float32 gradients through the cast.
+Build the preprocess with ``out_dtype=model.dtype``.
 
-Backward and the SGD step run inside ``torch.profiler.record_function``
-spans (``train_step: backward``, ``train_step: sgd``), beside those of
+Backward and the optimizer step run inside
+``torch.profiler.record_function`` spans (``train_step: backward``,
+``train_step: sgd`` whatever the optimizer), beside those of
 ``TwoStageDetector.forward_train``; they cost nothing without a profiler.
 
 ``upload_train_batch``: a loader's training batch to the step's tensors on
 the card (asynchronous copies from the loader's pinned memory).
 
 ``make_test_step``: ``simple_test`` on a loader batch (``:102``), the batch
-uploaded to the model's device.
+uploaded to the model's device. ``make_aug_test_step``: ``aug_test`` on the
+views of a test-time augmentation batch (``:85-100``), for one tuple of the
+views' ``(flip, flip_direction)``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,13 +91,40 @@ def make_test_step(model: torch.nn.Module) -> Callable:
     until it has read the results. ``img`` is viewed as NCHW with
     ``permute(0, 3, 1, 2)``, which on the card is the model's
     channels-last layout, without a copy. The model runs in eval mode
-    under ``torch.inference_mode()``."""
+    under ``torch.inference_mode()``.
+
+    A test-time augmentation batch (``__tta_views__``, ``__tta_metas__``)
+    goes to ``make_aug_test_step(model, metas)``, made once per tuple of
+    the views' ``(flip, flip_direction)``."""
     device = next(model.parameters()).device
+    aug_steps: Dict[Any, Callable] = {}
 
     def step(batch: Dict[str, np.ndarray]):
+        if "__tta_views__" in batch:
+            metas = tuple(batch["__tta_metas__"])
+            if metas not in aug_steps:
+                aug_steps[metas] = make_aug_test_step(model, metas)
+            return aug_steps[metas](batch["__tta_views__"])
         model.eval()
         with torch.inference_mode():
             return model.simple_test(upload_test_batch(batch, device))
+
+    return step
+
+
+def make_aug_test_step(model: torch.nn.Module, metas) -> Callable:
+    """-> ``step(views) -> (dets, labels, valid)``: ``model.aug_test`` on
+    the per-view loader batches ``views`` (each as ``make_test_step``
+    takes it), whose ``(flip, flip_direction)`` are ``metas``."""
+    metas = tuple((bool(f), str(d)) for f, d in metas)
+    device = next(model.parameters()).device
+
+    def step(views):
+        if len(views) != len(metas):
+            raise ValueError(f"{len(views)} views for {len(metas)} metas")
+        model.eval()
+        with torch.inference_mode():
+            return model.aug_test([upload_test_batch(v, device) for v in views], metas)
 
     return step
 

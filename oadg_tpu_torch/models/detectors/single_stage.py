@@ -11,7 +11,7 @@ forward runs in ``record_function`` spans ``forward_train: backbone+neck``,
 
 Train mode trains the live BNs of the neck and the head (their stored
 statistics move each step); a backbone with ``norm_eval`` keeps its own in
-eval mode. Test-time augmentation (``aug_test``) waits with the flagship's.
+eval mode. ``aug_test`` is the test-time augmentation (``:70-110``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ...core.bbox.transforms import flip_boxes
+from ...core.post_processing.nms import batched_nms_padded, sort_desc
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg
 from ..layers import init_default_
 
@@ -70,6 +72,43 @@ class SingleStageDetector(nn.Module):
         if sf is None:
             sf = torch.ones((img.shape[0], 4), device=img.device)
         return self.bbox_head.get_bboxes(outs, batch["img_shape"], sf, rescale=rescale)
+
+    def aug_test(self, views, metas):
+        """Test-time augmentation: each view's detections, rescaled to the
+        original image and flipped back within its extent (the view's shape
+        over its scale factor), pooled over the views and put through one
+        class-aware NMS, cut to ``max_per_img``. As in the JAX package, a
+        view gives its post-NMS detections (mmdet pools the pre-NMS
+        candidates: the same unless a view has more than ``max_per_img``
+        near-duplicates).
+
+        Args: per-view batches and per-view ``(flip, flip_direction)``.
+        Returns dets (N, K, 5), labels (N, K), valid (N, K).
+        """
+        iou_thr = float(dict(self.test_cfg.get("nms", {})).get("iou_threshold", 0.5))
+        dets_l, labels_l, valid_l = [], [], []
+        for vd, (flip, fdir) in zip(views, metas):
+            img = vd["img"]
+            sf = vd.get("scale_factor")
+            if sf is None:
+                sf = torch.ones((img.shape[0], 4), device=img.device)
+            dets, labels, valid = self.bbox_head.get_bboxes(
+                self.bbox_head(self.extract_feat(img)), vd["img_shape"], sf)
+            if flip:
+                ori_shape = vd["img_shape"] / sf[:, [1, 0]]
+                dets = torch.cat([flip_boxes(dets[..., :4], ori_shape, fdir),
+                                  dets[..., 4:]], -1)
+            dets_l.append(dets)
+            labels_l.append(labels)
+            valid_l.append(valid)
+        dets, labels = torch.cat(dets_l, 1), torch.cat(labels_l, 1)
+        keep = batched_nms_padded(dets[..., :4], dets[..., 4], labels, iou_thr,
+                                  torch.cat(valid_l, 1))
+        top_s, top_i = sort_desc(
+            torch.where(keep, dets[..., 4], torch.full_like(dets[..., 4], float("-inf"))),
+            min(int(self.test_cfg.get("max_per_img", 100)), dets.shape[1]))
+        return (torch.gather(dets, 1, top_i[..., None].expand(*top_i.shape, 5)),
+                torch.gather(labels, 1, top_i), torch.isfinite(top_s))
 
 
 @DETECTORS.register_module()

@@ -24,6 +24,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from ...core.bbox.geometry import bbox_overlaps
+from ...core.bbox.transforms import flip_boxes
+from ...core.post_processing.nms import nms_padded, sort_desc
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg
 from ..layers import init_default_
 
@@ -184,6 +186,65 @@ class TwoStageDetector(nn.Module):
             sf = torch.ones((img.shape[0], 4), device=img.device)
         return self.roi_head.simple_test(feats, boxes, valid, batch["img_shape"],
                                          sf, rescale=rescale)
+
+    def aug_test(self, views, metas):
+        """Test-time augmentation (mmdet ``two_stage.py:268``,
+        ``merge_augs.py:13, 84``): each view's RPN proposals are flipped
+        back and divided by its scale factor, merged by one NMS and cut to
+        the rpn ``max_per_img``; the RoI head runs on the merged proposals
+        mapped into each view (one RoIAlign a view), its decoded boxes are
+        mapped back; boxes and softmax scores are averaged over the views
+        and go through the rcnn NMS once.
+
+        Args:
+            views: per-view batches (``simple_test``'s keys), shapes may
+                differ between views.
+            metas: per-view ``(flip, flip_direction)``.
+
+        Returns dets (N, max_per_img, 5), labels, valid.
+        """
+        rpn_cfg = dict(self.test_cfg.get("rpn", {}))
+        feats_l, boxes_l, scores_l, valid_l = [], [], [], []
+        for vd, (flip, fdir) in zip(views, metas):
+            feats = self.extract_feat(vd["img"])
+            feats_l.append(feats)
+            boxes, scores, valid = self.rpn_head.get_proposals(
+                *self.rpn_head(feats), vd["img_shape"])
+            if flip:
+                boxes = flip_boxes(boxes, vd["img_shape"], fdir)
+            boxes_l.append(boxes / vd["scale_factor"][:, None, :4])
+            scores_l.append(scores)
+            valid_l.append(valid)
+        boxes, scores = torch.cat(boxes_l, 1), torch.cat(scores_l, 1)
+        keep = nms_padded(boxes, scores,
+                          float(dict(rpn_cfg.get("nms", {})).get("iou_threshold", 0.7)),
+                          torch.cat(valid_l, 1))
+        top_s, top_i = sort_desc(
+            torch.where(keep, scores, torch.full_like(scores, float("-inf"))),
+            min(int(rpn_cfg.get("max_per_img", 1000)), scores.shape[1]))
+        props = torch.gather(boxes, 1, top_i[..., None].expand(*top_i.shape, 4))
+        prop_valid = torch.isfinite(top_s)
+        n, p = props.shape[:2]
+        bidx = torch.arange(n, dtype=props.dtype, device=props.device)
+        bidx = bidx.view(n, 1, 1).expand(n, p, 1)
+
+        agg_boxes = agg_scores = None
+        for vd, feats, (flip, fdir) in zip(views, feats_l, metas):
+            vb = props * vd["scale_factor"][:, None, :4]
+            if flip:
+                vb = flip_boxes(vb, vd["img_shape"], fdir)
+            boxes, scores = self.roi_head.view_scores(
+                feats, torch.cat([bidx, vb], -1), vd["img_shape"], vd["scale_factor"],
+                rescale=False)
+            boxes = boxes.reshape(n, -1, 4)
+            if flip:
+                boxes = flip_boxes(boxes, vd["img_shape"], fdir)
+            boxes = boxes / vd["scale_factor"][:, None, :4]
+            agg_boxes = boxes if agg_boxes is None else agg_boxes + boxes
+            agg_scores = scores if agg_scores is None else agg_scores + scores
+        scores = agg_scores / len(views)
+        scores = torch.where(prop_valid[..., None], scores, torch.zeros_like(scores))
+        return self.roi_head.detect((agg_boxes / len(views)).reshape(n, p, -1), scores)
 
 
 @DETECTORS.register_module()

@@ -1,7 +1,9 @@
 """RoI heads (port of ``oadg_tpu/models/roi_heads/standard_roi_head.py:32,268``).
 
 Test path (``simple_test``, ``:229``): rois from the padded proposals,
-multilevel RoIAlign, the box head, decoding and per-class NMS. Padded
+multilevel RoIAlign, the box head, decoding and per-class NMS, hard or soft
+as the rcnn ``test_cfg.nms`` says (``detect``); ``view_scores`` is the part
+before the NMS, which the test-time augmentation runs once a view. Padded
 proposals go through RoIAlign and the head like real ones and are zeroed in
 the scores, as in the JAX package.
 
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from ...core.bbox.assign_sample import MaxIoUAssigner, RandomSampler
-from ...core.post_processing.nms import multiclass_nms
+from ...core.post_processing.nms import NMS_TYPES, multiclass_nms
 from ...utils.registry import HEADS, LOSSES, ROI_EXTRACTORS, build_from_cfg, cfg_args
 
 
@@ -39,9 +41,8 @@ class StandardRoIHead(nn.Module):
                                         dict(device=device, dtype=dtype))
         self.test_cfg = dict(test_cfg or {})
         nms = dict(self.test_cfg.get("nms", {}))
-        if nms.get("type", "nms") != "nms":
-            raise NotImplementedError(f"rcnn nms type {nms['type']} (the port "
-                                      "serves hard NMS)")
+        if nms.get("type", "nms") not in NMS_TYPES:
+            raise ValueError(f"rcnn nms type {nms['type']!r}: one of {sorted(NMS_TYPES)}")
         self.num_views = num_views
         train_cfg = dict(train_cfg or {})
         self.assigner = MaxIoUAssigner(**cfg_args(
@@ -123,22 +124,41 @@ class StandardRoIHead(nn.Module):
 
     # ---------------- inference ----------------
 
+    def detect(self, boxes: torch.Tensor, scores: torch.Tensor):
+        """``multiclass_nms`` with the rcnn ``test_cfg``: ``score_thr``,
+        ``max_per_img`` and ``nms`` (``type='nms'`` or ``'soft_nms'``, the
+        latter ``method='gaussian'`` with ``sigma``, and ``min_score``;
+        ``:230-242``)."""
+        tc = self.test_cfg
+        nms = dict(tc.get("nms", {}))
+        nms_type = str(nms.get("type", "nms"))
+        if nms_type == "soft_nms" and nms.get("method") == "gaussian":
+            nms_type = "soft_nms_gaussian"
+        return multiclass_nms(boxes, scores, float(tc.get("score_thr", 0.05)),
+                              float(nms.get("iou_threshold", 0.5)),
+                              int(tc.get("max_per_img", 100)), self.bbox_head.num_classes,
+                              nms_type=nms_type, sigma=float(nms.get("sigma", 0.5)),
+                              min_score=float(nms.get("min_score", 1e-3)))
+
+    def view_scores(self, feats, rois: torch.Tensor, img_shapes, scale_factors,
+                    rescale: bool):
+        """(N, P, 5) rois on one view's maps -> decoded boxes (N, P, 4 C) and
+        softmax scores (N, P, C + 1)."""
+        n, p = rois.shape[:2]
+        cls_score, bbox_pred, _ = self.bbox_head(
+            self.bbox_roi_extractor(feats, rois.reshape(n * p, 5)))
+        return self.bbox_head.get_bboxes(rois, cls_score.view(n, p, -1),
+                                         bbox_pred.view(n, p, -1), img_shapes,
+                                         scale_factors, rescale=rescale)
+
     def simple_test(self, feats, proposals, prop_valid, img_shapes,
                     scale_factors, rescale: bool = True):
         """Returns dets (N, max_per_img, 5), labels (N, max_per_img), valid."""
         n, p = proposals.shape[:2]
-        rois = self.proposals_to_rois(proposals)
-        cls_score, bbox_pred, _ = self.bbox_head(self.bbox_roi_extractor(feats, rois))
-        boxes, scores = self.bbox_head.get_bboxes(
-            rois.view(n, p, 5), cls_score.view(n, p, -1), bbox_pred.view(n, p, -1),
-            img_shapes, scale_factors, rescale=rescale)
+        rois = self.proposals_to_rois(proposals).view(n, p, 5)
+        boxes, scores = self.view_scores(feats, rois, img_shapes, scale_factors, rescale)
         scores = torch.where(prop_valid[..., None], scores, torch.zeros_like(scores))
-        nms = dict(self.test_cfg.get("nms", {}))
-        return multiclass_nms(boxes, scores,
-                              float(self.test_cfg.get("score_thr", 0.05)),
-                              float(nms.get("iou_threshold", 0.5)),
-                              int(self.test_cfg.get("max_per_img", 100)),
-                              self.bbox_head.num_classes)
+        return self.detect(boxes, scores)
 
 
 @HEADS.register_module()

@@ -1,4 +1,17 @@
-"""JAX variables -> the port's ``state_dict``.
+"""JAX variables -> the port's ``state_dict``, and mmdet checkpoints -> the
+port's model.
+
+``load_mmdet_checkpoint`` grafts the tensors of an mmdet-layout checkpoint
+(``state_dict``, ``meta``, ``optimizer``; a published OA-DG or mmdet
+``.pth``) onto a built model, as ``load_checkpoint_variables`` and
+``merge_variables`` of ``oadg_tpu/utils/checkpoint.py`` (``:296-326``,
+``:136``) do: ``num_batches_tracked`` and mmdet's EMA buffers (``ema_*``)
+are skipped, a classification checkpoint (no key under a detector section)
+is read as the backbone's (the rest of the model keeps its values), and
+keys the model lacks are skipped; each is reported. A detector checkpoint
+that lacks one of the model's tensors, or a tensor whose shape differs
+from the model's, raises (the JAX package keeps its own values in both
+cases; ROADMAP C).
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
@@ -23,8 +36,9 @@ grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,3 +177,65 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                              .transpose(0, 3, 1, 2).reshape(o, i))
             sd[key] = torch.tensor(np.asarray(v, dtype=np.float32))
     return sd
+
+
+_SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.")
+
+
+def mmdet_state_dict(ckpt) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A loaded checkpoint (its ``state_dict``, or a bare state dict) ->
+    (the state dict, whether it is a classification checkpoint's): such a
+    checkpoint's keys (none under a detector section) get ``backbone.``,
+    its ``fc.`` and ``head.`` dropped."""
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    if sd and not any(str(k).startswith(_SECTIONS) for k in sd):
+        return {f"backbone.{k}": v for k, v in sd.items()
+                if not str(k).startswith(("fc.", "head."))}, True
+    return dict(sd), False
+
+
+def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
+                          ) -> Dict[str, List[str]]:
+    """Graft ``checkpoint`` (a file, read with ``torch.load(...,
+    weights_only=True)``, or a loaded dict) onto ``model`` in place.
+
+    Returns ``{"loaded": keys, "skipped": ["key (why)", ...], "missing":
+    keys}``: ``skipped`` holds ``num_batches_tracked``, ``ema_*`` and keys
+    the model lacks, ``missing`` the model's keys that a classification
+    checkpoint lacks (they keep their values). A detector checkpoint with
+    a key ``missing`` raises ``KeyError``, a shape mismatch ``ValueError``;
+    either before the model is touched."""
+    if isinstance(checkpoint, (str, os.PathLike)):
+        checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    own = model.state_dict()
+    take, skipped = {}, []
+    sd, backbone_only = mmdet_state_dict(checkpoint)
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            skipped.append(f"{k} (num_batches_tracked)")
+        elif k.startswith("ema_"):
+            skipped.append(f"{k} (EMA buffer)")
+        elif k not in own:
+            skipped.append(f"{k} (not in the model)")
+        elif tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"checkpoint tensor {k} has shape {tuple(v.shape)}, the model's "
+                             f"{tuple(own[k].shape)}")
+        else:
+            take[k] = v
+    missing = sorted(set(own) - set(take))
+    if missing and not backbone_only:
+        raise KeyError(f"the detector checkpoint lacks {len(missing)} of the model's tensors: "
+                       f"{', '.join(missing[:8])}{', ...' if len(missing) > 8 else ''}")
+    model.load_state_dict(take, strict=False)
+    report = {"loaded": sorted(take), "skipped": skipped, "missing": missing}
+    if logger is not None:
+        reasons: Dict[str, int] = {}
+        for entry in skipped:
+            why = entry.rsplit(" (", 1)[1][:-1]
+            reasons[why] = reasons.get(why, 0) + 1
+        logger.info(f"checkpoint: {len(take)} of the model's {len(own)} tensors loaded; "
+                    f"skipped {reasons or 0}; missing {len(report['missing'])}"
+                    + (f" ({', '.join(report['missing'][:8])}"
+                       f"{', ...' if len(report['missing']) > 8 else ''})"
+                       if report["missing"] else ""))
+    return report

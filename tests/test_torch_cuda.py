@@ -1306,3 +1306,66 @@ def test_yolo_runner_iteration_on_the_card_matches_the_cpu(tmp_path, monkeypatch
         assert torch.equal(sh[k], before[k]) == k.startswith("backbone."), k
         assert float((sc[k].cpu() - sh[k]).abs().max()) <= 1e-4 * max(
             float(sh[k].abs().max()), 1e-6), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nms_type", ["soft_nms", "soft_nms_gaussian"])
+def test_soft_nms_on_the_card_matches_the_cpu(nms_type):
+    """``multiclass_nms(nms_type=...)`` over 1000 seeded candidates x 8
+    classes (the flagship's rcnn at 1000 proposals), on the card inside
+    ``set_sync_debug_mode("error")`` (its 400 picks sync with the host
+    nowhere) and on the CPU: the same kept set and labels, boxes equal and
+    scores within 1e-6."""
+    from oadg_tpu_torch.core.post_processing.nms import multiclass_nms
+    dev = _cuda()
+    rng = np.random.RandomState(4)
+    n, c = 1000, 8
+    xy = rng.uniform(0, 1800, (1, n, 1, 2))
+    wh = rng.uniform(8, 300, (1, n, c, 2))
+    boxes = torch.from_numpy(np.concatenate([np.broadcast_to(xy, wh.shape), xy + wh], -1)
+                             .reshape(1, n, 4 * c).astype(np.float32))
+    logits = rng.normal(0, 2, (1, n, c + 1)).astype(np.float32)
+    scores = torch.softmax(torch.from_numpy(logits), -1)
+    kw = dict(score_thr=0.05, iou_threshold=0.5, max_per_img=100, num_classes=c,
+              nms_type=nms_type, sigma=0.5, min_score=0.05)
+    want = multiclass_nms(boxes, scores, **kw)
+    boxes, scores = boxes.to(dev), scores.to(dev)      # the uploads sync: outside the mode
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = multiclass_nms(boxes, scores, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = [g.cpu() for g in got]
+    assert torch.equal(got[2], want[2]) and int(want[2].sum()) == 100
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0][..., :4], want[0][..., :4], rtol=0, atol=0)
+    torch.testing.assert_close(got[0][..., 4], want[0][..., 4], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_tta_test_loop_on_the_card_matches_the_cpu(tmp_path):
+    """``single_gpu_test`` of the tiny flagship over the 4-image set with
+    ``MultiScaleFlipAug(img_scale=[(160, 96), (128, 80)], flip=True)``, on
+    the card and on the CPU: B1 launches once per view (16 times), and the
+    results agree as in ``test_tiny_test_loop_on_the_card_matches_the_cpu``."""
+    from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+    _cuda()
+    cfg = _tiny_test_cfg(tmp_path)
+    cfg.merge_from_dict({"data.test.pipeline.1.img_scale": [(160, 96), (128, 80)],
+                         "data.test.pipeline.1.flip": True})
+    ckpt = _separated_checkpoint(cfg, tmp_path / "tiny.pth")
+    dataset, card_loader = build_test_loader(cfg, pin_memory=True)
+    _, cpu_loader = build_test_loader(cfg)
+    before = ROI_ALIGN_FWD.launches
+    got = single_gpu_test(load_model_state(cfg, ckpt, device="cuda"), card_loader)
+    assert ROI_ALIGN_FWD.launches - before == 4 * len(dataset) == 16
+    want = single_gpu_test(load_model_state(cfg, ckpt, device="cpu"), cpu_loader)
+    dets = [r for img in want for r in img if len(r)]
+    largest_box = max(float(np.abs(r[:, :4]).max()) for r in dets)
+    largest_score = max(float(r[:, 4].max()) for r in dets)
+    for g_img, w_img in zip(got, want):
+        for g, w in zip(g_img, w_img):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=0, atol=TOL_HEAD * largest_box)
+            np.testing.assert_allclose(g[:, 4], w[:, 4], rtol=0, atol=TOL_HEAD * largest_score)
+    assert sum(len(r) for img in got for r in img) > 10

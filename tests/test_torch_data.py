@@ -381,15 +381,39 @@ def test_loader_raises_a_worker_failure_and_stops_its_threads():
 
 
 def test_multi_view_test_time_augmentation_is_refused(datasets):
+    """A ``MultiScaleFlipAug`` with two scales and ``flip=True``: the
+    port's loader collates each sample's four views as the JAX package's
+    ``StaticBatcher`` does (``__tta_views__`` batch by batch bit for bit,
+    ``__tta_metas__``, the first view's ``metas``), on the test loader's
+    static canvas and without one."""
+    from oadg_tpu.config import Config
+    from oadg_tpu.data import build_dataloader as jax_build_dataloader
+    from oadg_tpu.data import build_dataset as jax_build_dataset
     from oadg_tpu_torch.data import build_dataloader, build_dataset
     ds, _, cfg, _ = datasets
     test = dict(cfg.data.test, test_mode=True)
     test["pipeline"] = [dict(p) for p in test["pipeline"]]
     test["pipeline"][1]["flip"] = True
+    test["pipeline"][1]["img_scale"] = [(160, 96), (128, 80)]
     tta = build_dataset(test)
     assert tta[0]["__tta__"]
-    with pytest.raises(NotImplementedError, match="Test-time paths of the flagship"):
-        list(build_dataloader(tta, 1, shuffle=False))
+    jcfg = Config.fromfile(os.path.join(ROOT, cases.FLAGSHIP), import_custom_modules=False)
+    jcfg.merge_from_dict({"data.test": test})
+    jtta = jax_build_dataset(dict(jcfg.data.test))
+    for static in ((96, 160), None):
+        got = list(build_dataloader(tta, 2, shuffle=False, static_hw=static))
+        want = list(jax_build_dataloader(jtta, 2, shuffle=False, static_hw=static))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g["__tta_metas__"] == w["__tta_metas__"] == (
+                (False, "horizontal"), (True, "horizontal")) * 2
+            assert len(g["metas"]) == 2 and not g["metas"][0]["flip"]
+            assert [m["filename"] for m in g["metas"]] == [m["filename"] for m in w["metas"]]
+            for gv, wv in zip(g["__tta_views__"], w["__tta_views__"]):
+                assert sorted(gv) == sorted(wv)
+                for k in ("img", "img_shape", "scale_factor"):
+                    assert gv[k].dtype == wv[k].dtype
+                    np.testing.assert_array_equal(gv[k], wv[k], err_msg=k)
 
 
 def test_pinned_canvas_holds_the_same_batch(datasets, monkeypatch):

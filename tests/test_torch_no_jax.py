@@ -55,6 +55,10 @@ def test_importing_the_port_loads_no_jax():
             "oadg_tpu_torch.utils.host_kernels, oadg_tpu_torch.utils.jpeg, "
             "oadg_tpu_torch.data.datasets.xml_style, "
             "oadg_tpu_torch.models.backbones.resnet, "
+            "oadg_tpu_torch.core.post_processing.nms, oadg_tpu_torch.engine.optim, "
+            "oadg_tpu_torch.core.bbox.transforms, oadg_tpu_torch.core.hook.hooks, "
+            "oadg_tpu_torch.models.detectors.two_stage, "
+            "oadg_tpu_torch.models.detectors.single_stage, "
             "oadg_tpu_torch.config as c; "
             "sys.path.insert(0, 'tools'); import torch_test_dwd; "
             "c.load_config('configs/OA-DG/cityscapes/"
@@ -255,6 +259,51 @@ def test_yolo_path_loads_no_jax_opencv_or_pil():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('cv2', 'PIL', 'jax', 'jaxlib', 'oadg_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_test_time_and_engine_paths_load_no_jax(tmp_path):
+    """On the CPU: the tiny flagship's test-time augmentation (two views,
+    one flipped) and gaussian soft-NMS, AdamW with the cosine schedule and
+    exp warmup, every hook built from a config, and an mmdet-layout
+    checkpoint grafted by ``init_detector``: none of them loads JAX, the
+    JAX package or OpenCV."""
+    code = f"""
+import sys, copy, numpy as np, torch
+sys.path.insert(0, 'tests')
+import torch_data_cases as cases
+from oadg_tpu_torch.apis import init_detector
+from oadg_tpu_torch.config import load_config
+from oadg_tpu_torch.engine.optim import build_lr_schedule, build_optimizer
+from oadg_tpu_torch.utils.registry import HOOKS, build_from_cfg
+import oadg_tpu_torch.core.hook
+cfg = cases.tiny_model(load_config(cases.FLAGSHIP))
+cfg.model.test_cfg.rcnn.nms = dict(type='soft_nms', method='gaussian', min_score=0.05)
+h = init_detector(cfg, device='cpu')
+img = torch.randn(1, 3, 64, 96)
+view = dict(img=img, img_shape=torch.tensor([[64., 96.]]), scale_factor=torch.ones(1, 4))
+with torch.inference_mode():
+    d, l, v = h.model.aug_test([view, dict(view, img=img.flip(-1))],
+                               ((False, 'horizontal'), (True, 'horizontal')))
+assert d.shape == (1, 10, 5)
+opt = build_optimizer(h.model, dict(type='AdamW', lr=1e-4, weight_decay=0.05))
+sched = build_lr_schedule(dict(policy='CosineAnnealing', min_lr_ratio=0.01, warmup='exp',
+                               warmup_iters=2, warmup_ratio=0.1), 1e-4, 3, max_epochs=1)
+assert type(opt).__name__ == 'AdamW' and sched(0) < sched(2)
+for name in ('YOLOXModeSwitchHook', 'SyncRandomSizeHook', 'SetEpochInfoHook', 'SyncNormHook',
+             'FeatureHook', 'WandbLogger', 'WandbLoggerMulti', 'ProfilerHook'):
+    build_from_cfg(dict(type=name), HOOKS)
+sd = dict(h.model.state_dict(), **{{'backbone.bn1.num_batches_tracked': torch.tensor(1)}})
+torch.save(dict(meta=dict(epoch=1), state_dict=sd, optimizer=dict()), {str(tmp_path / "m.pth")!r})
+r = init_detector(cfg, {str(tmp_path / "m.pth")!r}, device='cpu', seed=3).checkpoint_report
+assert not r['missing'] and len(r['skipped']) == 1
+bad = sorted(m for m in sys.modules if m.split('.')[0] in
+             ('cv2', 'jax', 'jaxlib', 'flax', 'optax', 'oadg_tpu'))
+print(bad); sys.exit(1 if bad else 0)
+"""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -23,8 +23,8 @@ a 64x96 canvas, ``RandomFlip``, ``OAMix``, ``Normalize`` skipped, ``Pad``,
   model-zoo name (raises);
 - the hooks: the NaN guard and ``CheckLossHook`` raise, ``NumClassCheckHook``
   rejects a class mismatch, the EMA hooks give the numbers of
-  ``tests/test_hooks.py``'s cases (rtol 1e-6), a hook of the JAX package
-  the port lacks raises;
+  ``tests/test_hooks.py``'s cases (rtol 1e-6), and each of the eight
+  further hooks does on a runner stub what the JAX hook does;
 - ``tools/torch_train.py --device cpu`` as a subprocess for 1 epoch, whose
   ``epoch_1.pth`` scores through ``tools/torch_test.py`` with the runner's
   own numbers (equal).
@@ -550,17 +550,191 @@ def test_text_log_follows_the_work_dir(tmp_path):
     assert sum(isinstance(h, logging.FileHandler) for h in logger.handlers) == 1
 
 
+class _Recorder(types.SimpleNamespace):
+    """A runner stub that records the calls the hooks make on it."""
+
+    def __init__(self, **kw):
+        super().__init__(calls=[], **kw)
+        self.logger = types.SimpleNamespace(info=lambda *a: self.calls.append(("info",) + a),
+                                            warning=lambda *a: self.calls.append(("warn",) + a))
+
+    def enable_head_l1(self):
+        self.calls.append(("l1", self.epoch))
+
+
+def _yolox_mode_switch(hook, tmp, jax_result=None):
+    ds = types.SimpleNamespace(keys=[])
+    ds.update_skip_type_keys = lambda k: ds.keys.append((r.epoch, tuple(k)))
+    r = _Recorder(epoch=0, max_epochs=6, loader=types.SimpleNamespace(dataset=ds))
+    for r.epoch in range(6):
+        hook.before_train_epoch(r)
+    return ds.keys, r.calls
+
+
+def _sync_random_size(hook, tmp, jax_result=None):
+    batcher = types.SimpleNamespace(static_hw=(640, 960))
+    r = _Recorder(iter=0, loader=types.SimpleNamespace(batcher=batcher))
+    seen = []
+    for r.iter in range(1, 31):
+        hook.after_train_iter(r, {})
+        seen.append(batcher.static_hw)
+    return seen
+
+
+def _all_stages(hook, tmp, jax_result=None):
+    r = _Recorder(epoch=0, iter=0, max_epochs=2, model=None, loader=None)
+    hook.before_run(r)
+    for r.epoch in range(2):
+        hook.before_train_epoch(r)
+        for r.iter in range(r.epoch * 2 + 1, r.epoch * 2 + 3):
+            hook.after_train_iter(r, {"loss": 1.0})
+        hook.after_train_epoch(r)
+        hook.after_val_epoch(r, {"bbox_mAP": 0.5})
+    hook.after_run(r)
+    return sorted(vars(r)), r.calls
+
+
+class _ToyNeck(torch.nn.Module):
+    """``simple_test`` through a linear ``neck``: the port's side of a flax
+    module whose ``neck`` is a Dense layer."""
+
+    def __init__(self, kernel, bias):
+        super().__init__()
+        self.neck = torch.nn.Linear(*kernel.shape)
+        with torch.no_grad():
+            self.neck.weight.copy_(torch.from_numpy(np.array(kernel.T)))
+            self.neck.bias.copy_(torch.from_numpy(np.array(bias)))
+
+    def simple_test(self, batch):
+        return self.neck(batch["x"]).relu()
+
+
+def _feature_hook(hook, tmp, jax_result=None):
+    import flax.linen as fnn
+    x = np.random.RandomState(0).normal(0, 1, (2, 5)).astype(np.float32)
+    if jax_result is None:
+        class Toy(fnn.Module):
+            @fnn.compact
+            def __call__(self, batch, mode):
+                return jax.nn.relu(fnn.Dense(3, name="neck")(batch["x"]))
+
+        det = Toy()
+        variables = det.init(jax.random.PRNGKey(0), {"x": jnp.asarray(x)}, "test")
+        feats = hook.capture(types.SimpleNamespace(det=det, params=variables["params"],
+                                                   batch_stats=None), {"x": jnp.asarray(x)})
+        out = np.asarray(feats["neck"]["__call__"][0])
+        return hook.layer_list, out, {k: np.asarray(v) for k, v in
+                                      variables["params"]["neck"].items()}
+    _, _, w = jax_result
+    model = _ToyNeck(w["kernel"], w["bias"])
+    feats = hook.capture(types.SimpleNamespace(model=model), {"x": torch.from_numpy(x)})
+    return hook.layer_list, feats["neck"].numpy(), w
+
+
+def _wandb(hook, tmp, jax_result=None):
+    from test_wandb_logger import FakeCkpt, FakeDS, FakeLogger, make_fake_wandb
+    hook.wandb = make_fake_wandb()
+    feats = types.SimpleNamespace(features={"neck": np.arange(6.0)})
+    r = types.SimpleNamespace(
+        logger=FakeLogger(), iter=10, epoch=1, cfg=dict(a=1), lr_fn=lambda it: 0.02,
+        hooks=[feats], ckpt=FakeCkpt(str(tmp)), val_dataset=FakeDS(), val_domain="night",
+        last_val_results=[[np.array([[1, 2, 3, 4, 0.9]], np.float32), np.zeros((0, 5))],
+                          [np.zeros((0, 5)), np.array([[5, 6, 7, 8, 0.2]], np.float32)]])
+    hook.before_run(r)
+    hook.after_train_iter(r, dict(loss=1.5, acc=90.0))
+    hook.after_train_epoch(r)
+    hook.after_val_epoch(r, dict(bbox_mAP=0.5, bbox_mAP_50=0.7))
+    hook.after_run(r)
+
+    def plain(o):
+        if isinstance(o, dict):
+            return {k: plain(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return [plain(v) for v in o]
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        if hasattr(o, "__dict__"):
+            return (type(o).__name__, plain(vars(o)))
+        return o
+
+    return (plain(hook.wandb.inited), plain(hook.wandb.logged),
+            [plain(a) for a in hook.wandb.artifacts])
+
+
+def _profiler(hook, tmp, jax_result=None):
+    r = _Recorder(iter=0, work_dir=str(tmp))
+    window = []
+    if jax_result is None:
+        mp = pytest.MonkeyPatch()
+        mp.setattr(jax.profiler, "start_trace", lambda d: window.append(("start", r.iter)))
+        mp.setattr(jax.profiler, "stop_trace", lambda: window.append(("stop", r.iter)))
+        try:
+            for r.iter in range(1, 8):
+                hook.after_train_iter(r, {})
+        finally:
+            mp.undo()
+        return window
+    for r.iter in range(1, 8):
+        torch.ones(4).sum()
+        hook.after_train_iter(r, {})
+        if hook.prof is not None and not window:
+            window.append(("start", r.iter))
+        if hook.trace_path and len(window) == 1:
+            window.append(("stop", r.iter))
+    assert os.path.basename(hook.trace_path) == "trace_iter2-4.json"
+    with open(hook.trace_path) as f:
+        assert json.load(f)["traceEvents"]
+    return window
+
+
+HOOK_CASES = {
+    "YOLOXModeSwitchHook": (dict(num_last_epochs=2), _yolox_mode_switch),
+    "SyncRandomSizeHook": (dict(ratio_range=(10, 20), img_scale=(640, 960), interval=3),
+                           _sync_random_size),
+    "SetEpochInfoHook": ({}, _all_stages),
+    "SyncNormHook": (dict(num_last_epochs=15, interval=1), _all_stages),
+    "FeatureHook": (dict(layer_list=["neck"]), _feature_hook),
+    "WandbLogger": (dict(interval=1, log_checkpoint=True, num_eval_images=2,
+                         bbox_score_thr=0.5), _wandb),
+    "WandbLoggerMulti": (dict(interval=1, num_eval_images=2), _wandb),
+    "ProfilerHook": (dict(start_iter=2, num_iters=2), _profiler),
+}
+
+
 @pytest.mark.parametrize("name", ["YOLOXModeSwitchHook", "SyncRandomSizeHook",
                                   "SetEpochInfoHook", "SyncNormHook", "FeatureHook",
                                   "WandbLogger", "WandbLoggerMulti", "ProfilerHook"])
-def test_a_hook_the_port_lacks_raises(name):
-    from oadg_tpu.core.hook import hooks as jax_hooks  # noqa: F401  (the JAX package has it)
+def test_a_hook_the_port_lacks_raises(name, tmp_path):
+    """Each of the JAX package's eight further hooks builds in the port from
+    a config and does on one runner stub what the JAX hook does:
+    ``YOLOXModeSwitchHook`` switches once at ``max_epochs - num_last_epochs``;
+    ``SyncRandomSizeHook`` sets the same canvases; ``SetEpochInfoHook`` and
+    ``SyncNormHook`` do nothing at one process; ``FeatureHook`` captures
+    the same ``neck`` output (within 1e-6); ``WandbLogger`` and
+    ``WandbLoggerMulti`` (the fake wandb module of
+    ``tests/test_wandb_logger.py``) log the same entries; ``ProfilerHook``
+    traces the same window of iterations."""
     from oadg_tpu.utils.registry import HOOKS as JAX_HOOKS
-    from oadg_tpu_torch.core.hook import Hook  # noqa: F401
+    from oadg_tpu.utils.registry import build_from_cfg as jax_build_from_cfg
+    from oadg_tpu_torch.core.hook import Hook  # noqa: F401  (registers the hooks)
     from oadg_tpu_torch.utils.registry import HOOKS, build_from_cfg
-    assert JAX_HOOKS.get(name) is not None
-    with pytest.raises(NotImplementedError, match="Engine leftovers"):
-        build_from_cfg(dict(type=name), HOOKS)
+    kw, scenario = HOOK_CASES[name]
+    jax_hook = jax_build_from_cfg(dict(type=name, **kw), JAX_HOOKS)
+    hook = build_from_cfg(dict(type=name, **kw), HOOKS)
+    assert type(hook).__module__.startswith("oadg_tpu_torch.")
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    want = scenario(jax_hook, tmp_path / "jax")
+    got = scenario(hook, tmp_path / "port", want)
+    if scenario is _feature_hook:
+        assert got[0] == want[0]
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+        return
+    if scenario is _wandb:
+        got, want = (json.loads(json.dumps(x).replace(str(tmp_path / "port"), "D").replace(
+            str(tmp_path / "jax"), "D")) for x in (got, want))
+        assert got[1] and got[2 if name == "WandbLogger" else 1]
+    assert got == want
 
 
 def test_collate_refuses_img_raw_without_norm_on_device():
