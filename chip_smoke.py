@@ -51,6 +51,14 @@ non-zero exit code:
    map (a 1024x2048 test canvas) with R=1000, B2 at 4 maps of 46x80x2048
    (the 736x1280 train canvas) with the step's R = 4 x 512 + 4 x 10; added
    to B1's and B2's rows as cases.
+3c. mask-kernels: B1 and B2 at the mask head's 14x14 bins (their second
+   instantiation), f32 and bf16, each against its plain version with the
+   7x7 cases' ``TOL_*``, timed beside its bound (``roi_fwd_bytes`` /
+   ``roi_bwd_bytes`` at 14x14 bins): B1 at a request's R = 100 detections
+   on one image's FPN maps and at the mask branch's training call (2
+   images, R = 2 x 128 positive slots jittered around seeded gts), B2 at
+   that training call. Two report rows of their own, ``roi_align_fwd_14x14``
+   and ``roi_align_bwd_14x14``, joined to the others before phase 7g.
 4. slice: ``init_detector`` on the flagship config (OA-DG Faster R-CNN
    R50-FPN, Cityscapes, 8 classes) with seeded random weights, once in
    float32 and once with ``dtype=torch.bfloat16`` (the JAX package's bench
@@ -237,6 +245,29 @@ non-zero exit code:
    t / 2) for t < 2), B1-B6 as the tables imply,
    the Chrome trace naming B1's and B2's kernels, every trainable parameter
    moved and every frozen one not; the AdamW step's ms.
+7g. mask: the Cityscapes Mask R-CNN (``configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py``:
+   R50-FPN, 8 classes, ``FCNMaskHead`` with 4 convs of 256 channels) at full
+   width with seeded weights, its train pipeline loading and collecting
+   masks (``mask_cfg``). mask-serve: per dtype a warm-up and 3 timed
+   1024x2048 requests through ``DetectorHandle.test`` (dets, labels, valid
+   and (1, 100, 28, 28) mask probabilities), B1 once at 7x7 and once at
+   14x14 a request, one more request with both calls held to the plain
+   version in place, the host's ``paste_masks`` of the valid detections
+   timed. mask-train: per dtype a warm-up and 3 timed steps
+   (``make_train_step``, no OA-Mix) on 2 of phase 5b's PNGs with 6-10
+   polygon instances each through the train pipeline (the collate's
+   (2, 128, 56, 56) masks): B1 and B2 each once at 7x7 and once at 14x14 a
+   step, losses finite float32 with ``loss_mask`` > 0, frozen parameters
+   unchanged and the mask head's all moved, one more step with every B1
+   and B2 call held to the plain versions in place. mask-tools:
+   ``train_detector`` (f32) for 2 steps over 4 of the PNGs with polygons,
+   then its evaluation on them (COCO ``bbox``), ``loss_mask`` logged, the
+   checkpoint holding the mask head, B1 and B2 at both bin counts as the
+   steps and val images imply. Each run's counts are set to 0 just before
+   it (``zero_roi_counts``) and read just after; its 14x14 launches go to
+   the ``_14x14`` rows, its 7x7 ones to B1's and B2's. After every timed
+   run, one profiled request and one profiled step per dtype give the busy
+   shares, the step's stages and its ``forward_train: mask branch`` span.
 8. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -256,11 +287,14 @@ non-zero exit code:
    ``launches_baseline_step``, ``launches_train_loop``,
    ``launches_train_loop_bf16``, ``launches_yolo``, ``launches_yolo_bf16``,
    ``launches_tta``, ``launches_tta_bf16`` and ``launches_engine``
-   included), the card's
+   included; the ``_14x14`` rows' ``launches`` are phase 7g's, each run's
+   beside it, ``launches_mask_serve``, ``launches_mask_train`` (and their
+   ``_bf16``) and ``launches_mask_tools``, which B1's and B2's rows carry
+   too for their 7x7 launches on that path), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3b and 9 and prints the
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3c and 9 and prints the
 kernels' JSON line and no result line: for work on one kernel.
 
 The script imports nothing of JAX and nothing of the JAX package.
@@ -620,18 +654,18 @@ def clustered_rois(rng, image):
     return np.concatenate([pos, flagship_rois(rng, TRAIN_ROIS - len(k), image)])
 
 
-def roi_tap_counts(feat_shapes, rois, tile=8, strides=STRIDES):
-    """What this run's rois read and write, for the bounds and the design
-    bytes: (distinct map cells (level, image, y, x) read by their in-range
-    taps; the sum over rois of each roi's distinct tap rows x distinct tap
-    columns, the cells B1 reads; the sum over the tiles of B2's lists of the
-    dy bins a tile stages per channel)."""
+def roi_tap_counts(feat_shapes, rois, tile=8, strides=STRIDES, out=7):
+    """What this run's rois read and write at ``out`` x ``out`` bins, for the
+    bounds and the design bytes: (distinct map cells (level, image, y, x)
+    read by their in-range taps; the sum over rois of each roi's distinct tap
+    rows x distinct tap columns, the cells B1 reads; the sum over the tiles
+    of B2's lists of the dy bins a tile stages per channel)."""
     import torch
     from oadg_tpu_torch.ops.roi_align import _CHUNK, _Pyramid, _geometry
     pyr = _Pyramid(feat_shapes, strides, rois.device)
     rows, fwd_cells, staged = [], 0, 0
     for i in range(0, rois.shape[0], _CHUNK):
-        g = _geometry(pyr, rois[i:i + _CHUNK].float(), 7, 2, 56)
+        g = _geometry(pyr, rois[i:i + _CHUNK].float(), out, 2, 56)
         for yi in (g.y0, g.y1):
             for xi in (g.x0, g.x1):
                 rows.append(g.rows(yi, xi)[g.ok])
@@ -645,14 +679,14 @@ def roi_tap_counts(feat_shapes, rois, tile=8, strides=STRIDES):
             # the bins of each tile row (column) that reach it: B2 stages
             # the range first..last of them
             n = len(lo)
-            touched = np.zeros((n, max(1, int(both.max()) // tile + 1), 7), bool)
+            touched = np.zeros((n, max(1, int(both.max()) // tile + 1), out), bool)
             for s in range(lo.shape[1]):
                 for t in (lo[:, s], hi[:, s]):
                     sel = ok[:, s]
                     touched[np.arange(n)[sel], t[sel] // tile, s // 2] = True
             any_ = touched.any(2)
             first = touched.argmax(2)
-            last = 6 - touched[:, :, ::-1].argmax(2)
+            last = out - 1 - touched[:, :, ::-1].argmax(2)
             per_axis.append((distinct, np.where(any_, last - first + 1, 0).sum(1)))
         (dy_, sy), (dx_, sx) = per_axis
         fwd_cells += int((dy_ * dx_).sum())
@@ -725,35 +759,37 @@ def roi_cases(dev):
     return fwd, bwd
 
 
-def roi_fwd_bytes(feats, rois, strides=STRIDES):
-    """B1's bound and design bytes: the f32 output written once plus each
-    distinct tap cell's channels read once; the design reads each roi's
-    distinct tap rows x columns once."""
-    cells, per_roi, _ = roi_tap_counts([f.shape for f in feats], rois, strides=strides)
+def roi_fwd_bytes(feats, rois, strides=STRIDES, bins=7):
+    """B1's bound and design bytes at ``bins`` x ``bins``: the f32 output
+    written once plus each distinct tap cell's channels read once; the design
+    reads each roi's distinct tap rows x columns once."""
+    cells, per_roi, _ = roi_tap_counts([f.shape for f in feats], rois, strides=strides,
+                                       out=bins)
     c = feats[0].shape[1]
-    out = rois.shape[0] * c * 49 * 4
+    out = rois.shape[0] * c * bins * bins * 4
     e = feats[0].element_size()
     return out + cells * c * e, out + per_roi * c * e, cells
 
 
-def roi_bwd_bytes(feats, rois, strides=STRIDES):
-    """B2's bound and design bytes: dy read once plus the gradient maps
-    written once in the maps' dtype; the design writes the maps once and
-    reads the dy bins that its tiles stage (each at least once)."""
-    _, _, staged = roi_tap_counts([f.shape for f in feats], rois, strides=strides)
+def roi_bwd_bytes(feats, rois, strides=STRIDES, bins=7):
+    """B2's bound and design bytes at ``bins`` x ``bins``: dy read once plus
+    the gradient maps written once in the maps' dtype; the design writes the
+    maps once and reads the dy bins that its tiles stage (each at least
+    once)."""
+    _, _, staged = roi_tap_counts([f.shape for f in feats], rois, strides=strides, out=bins)
     c = feats[0].shape[1]
     table = sum(math.prod(f.shape) for f in feats) * feats[0].element_size()
-    return rois.shape[0] * c * 49 * 4 + table, table + staged * c * 4, table
+    return rois.shape[0] * c * bins * bins * 4 + table, table + staged * c * 4, table
 
 
-def check_fwd_case(label, fs, rois, strides=STRIDES, phase="kernels"):
-    """B1 at one case against its plain version, then timed beside its
-    bound. -> (max abs error, timing, bound bytes)."""
+def check_fwd_case(label, fs, rois, strides=STRIDES, phase="kernels", bins=7):
+    """B1 at one case (``bins`` x ``bins``) against its plain version, then
+    timed beside its bound. -> (max abs error, timing, bound bytes)."""
     import torch
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_FWD, roi_align_multilevel_ref
     tol = TOL_F32 if "f32" in label else TOL_BF16
-    got = ROI_ALIGN_FWD(fs, rois, 7, strides, 2, 56)
-    want = roi_align_multilevel_ref(fs, rois, 7, strides, 2, 56)
+    got = ROI_ALIGN_FWD(fs, rois, bins, strides, 2, 56)
+    want = roi_align_multilevel_ref(fs, rois, bins, strides, 2, 56)
     torch.cuda.synchronize()
     fmax = max(float(f.float().abs().max()) for f in fs)
     err = float((got - want).abs().max())
@@ -763,8 +799,8 @@ def check_fwd_case(label, fs, rois, strides=STRIDES, phase="kernels"):
         raise AssertionError(f"roi_align_fwd {label} disagrees with the "
                              f"plain version: {err} > {tol * fmax}")
     del got, want
-    t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, 7, strides, 2, 56), None, n=30)
-    nbytes, design, cells = roi_fwd_bytes(fs, rois, strides)
+    t = time_kernel(lambda i: ROI_ALIGN_FWD(fs, rois, bins, strides, 2, 56), None, n=30)
+    nbytes, design, cells = roi_fwd_bytes(fs, rois, strides, bins)
     log(phase, f"roi_align_fwd {label}: {timing_text(t)}; bound "
                f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB, {cells} distinct "
                f"tap cells; {bound_ms(nbytes) / t['device_ms']:.0%} of the bound); "
@@ -774,16 +810,17 @@ def check_fwd_case(label, fs, rois, strides=STRIDES, phase="kernels"):
 
 
 def check_bwd_case(label, fs, rois, dy, strides=STRIDES, phase="kernels"):
-    """B2 at one case against its plain version and against itself (equal
-    bits in two calls), then timed beside its bound. -> (max abs error,
-    timing, bound bytes)."""
+    """B2 at one case (dy's bins) against its plain version and against
+    itself (equal bits in two calls), then timed beside its bound. -> (max
+    abs error, timing, bound bytes)."""
     import torch
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, roi_align_multilevel_ref_backward
     shapes = [f.shape for f in fs]
-    want = roi_align_multilevel_ref_backward(dy, shapes, rois, 7, strides, 2, 56)
+    bins = dy.shape[-1]
+    want = roi_align_multilevel_ref_backward(dy, shapes, rois, bins, strides, 2, 56)
     scale = max(float(w.abs().max()) for w in want)
-    got = ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56)
-    again = ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56)
+    got = ROI_ALIGN_BWD(fs, rois, dy, bins, strides, 2, 56)
+    again = ROI_ALIGN_BWD(fs, rois, dy, bins, strides, 2, 56)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
@@ -803,8 +840,8 @@ def check_bwd_case(label, fs, rois, dy, strides=STRIDES, phase="kernels"):
         raise AssertionError(f"roi_align_bwd {label} disagrees with the plain "
                              f"version ({err} > {limit}) or with itself ({same})")
     del got, again, want
-    t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, 7, strides, 2, 56), None, n=20)
-    nbytes, design, table = roi_bwd_bytes(fs, rois, strides)
+    t = time_kernel(lambda i: ROI_ALIGN_BWD(fs, rois, dy, bins, strides, 2, 56), None, n=20)
+    nbytes, design, table = roi_bwd_bytes(fs, rois, strides, bins)
     log(phase, f"roi_align_bwd {label}: {timing_text(t)}; bound "
                f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB: dy "
                f"{dy.numel() * 4 / 1e6:.1f}, gradient maps {table / 1e6:.1f}; "
@@ -1270,6 +1307,39 @@ def _set_case_plain_ms(row, label, ms):
     raise KeyError(f"{row['name']} has no case {label!r}")
 
 
+def _set_row_or_case_plain_ms(row, label, ms):
+    """The plain version's time of ``label``: the row's own where it is the
+    row's report case, else that of its case."""
+    if row.get("label") == label:
+        row["plain_ms"] = ms
+    else:
+        _set_case_plain_ms(row, label, ms)
+
+
+def profile_mask_plain(by_name):
+    """The plain versions' times at the mask head's 14x14 cases
+    (``mask_roi_cases``), by the profiler, into the ``_14x14`` rows."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
+    fwd, bwd = mask_roi_cases(torch.device("cuda", 0))
+    for label, fs, rois in fwd:
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, MASK_BINS, STRIDES, 2, 56),
+                        3, method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_fwd_14x14"], label, t["device_ms"])
+        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    for label, fs, rois, dy in bwd:
+        dt, shapes = fs[0].dtype, [f.shape for f in fs]
+        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
+            dy, shapes, rois, MASK_BINS, STRIDES, 2, 56)], 2, method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_bwd_14x14"], label, t["device_ms"])
+        log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+
 def phase_profiled(rows):
     """The three times that need ``torch.profiler``, made after the path:
     the plain versions of B1 and B2 build small index tensors from host
@@ -1321,6 +1391,8 @@ def phase_profiled(rows):
                         f"ms (timer profiler), host {t['host_us']:.1f} us a call")
     del fwd, bwd
     torch.cuda.empty_cache()
+    if "roi_align_fwd_14x14" in by_name:
+        profile_mask_plain(by_name)
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -2189,6 +2261,22 @@ def _plain_bwd(feats, rois, dy, *cfg):
     return want, max(float(w.abs().max()) for w in want)
 
 
+def _checked_roi_align():
+    """Stand-ins for B1's and B2's wrappers that hold every call of a run to
+    the plain versions (``_Checked``), installed in ``ops.roi_align``; ->
+    (the checks, a function that puts the wrappers back)."""
+    from oadg_tpu_torch.ops import roi_align
+    real = (roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD)
+    checks = (_Checked("roi_align_fwd", real[0], _plain_fwd),
+              _Checked("roi_align_bwd", real[1], _plain_bwd))
+    roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
+
+    def restore():
+        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = real
+
+    return checks, restore
+
+
 def phase_train(rows, name):
     """Training at ``name`` (f32 or bf16): one model, OA-Mix on either chain,
     warm-up and 3 timed steps each, launches against the drawn tables, one
@@ -2309,13 +2397,11 @@ def phase_train(rows, name):
     # One more step with both kernels checked in place: B1's RoI features
     # and B2's level gradients against the plain versions on the same inputs
     # (the step's FPN maps, rois and dy).
-    checks = (_Checked("roi_align_fwd", ROI_ALIGN_FWD, _plain_fwd),
-              _Checked("roi_align_bwd", ROI_ALIGN_BWD, _plain_bwd))
-    roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
+    checks, restore = _checked_roi_align()
     try:
         step(batch, gen)
     finally:
-        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
+        restore()
     torch.cuda.synchronize()
     for check in checks:
         for i, (r, maps, err, lim, within) in enumerate(check.calls):
@@ -2633,11 +2719,12 @@ STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: r
 
 
 def train_profile(step, batch, gen, chain, dtype_name="f32", stages=STAGES,
-                  tag="train-profile"):
+                  tag="train-profile", nested=()):
     """One step (OA-Mix on ``chain``) under torch.profiler, read through the ``record_function``
     spans of ``forward_train`` and ``make_train_step``: per stage the host
     time of its span and the device time of the kernels launched in it, and
-    the device's busy share of the step. Autograd launches the backward's
+    the device's busy share of the step; ``nested`` spans (inside a stage,
+    forward only) are read too and not counted twice. Autograd launches the backward's
     kernels from its own thread, outside the backward span, so the
     backward's device time is the sum over autograd's ``evaluate_function``
     events. -> the device's busy share of the step's wall time, and per stage
@@ -2659,16 +2746,17 @@ def train_profile(step, batch, gen, chain, dtype_name="f32", stages=STAGES,
                    if k.startswith("autograd::engine::evaluate_function")) / 1e3
     spanned = 0.0
     spans = {}
-    for name in stages:
+    for name in stages + tuple(nested):
         if name not in host:
             raise AssertionError(f"the profiled step has no span {name!r}")
         dev_ms = autograd if name == "train_step: backward" else \
             host[name].device_time_total / 1e3
-        spanned += dev_ms
+        spanned += 0 if name in nested else dev_ms
         spans[name] = (host[name].cpu_time_total / 1e3, dev_ms)
         log(tag, f"{dtype_name}, {chain} chain, {name}: host "
                  f"{host[name].cpu_time_total / 1e3:.3f} ms, "
-                 f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)")
+                 f"device {dev_ms:.3f} ms ({100 * dev_ms / busy:.1f}% of busy)"
+                 + (" (inside a stage)" if name in nested else ""))
     log(tag, f"profiled step ({dtype_name}, {chain} chain) {wall:.3f} ms wall, "
              f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), of which "
              f"{busy - spanned:.3f} ms outside the stages")
@@ -3297,13 +3385,11 @@ def phase_dwd_train(rows):
             raise AssertionError(f"dwd {name}: unmoved trainable {still[:5]}, moved frozen "
                                  f"{moved[:5]}")
 
-        checks = (_Checked("roi_align_fwd", ROI_ALIGN_FWD, _plain_fwd),
-                  _Checked("roi_align_bwd", ROI_ALIGN_BWD, _plain_bwd))
-        roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = checks
+        checks, restore = _checked_roi_align()
         try:
             step(batch, gen)
         finally:
-            roi_align.ROI_ALIGN_FWD, roi_align.ROI_ALIGN_BWD = ROI_ALIGN_FWD, ROI_ALIGN_BWD
+            restore()
         torch.cuda.synchronize()
         for check in checks:
             for i, (r, maps, err, lim, within) in enumerate(check.calls):
@@ -4536,6 +4622,401 @@ def phase_engine(rows, val):
                 profiled_step_ms=train[2]["time"] * 1e3, wall_s=wall)
 
 
+# ----------------------------------------------------------- Mask R-CNN ----
+#
+# The Cityscapes Mask R-CNN (configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py):
+# R50-FPN, 8 classes, FCNMaskHead with 4 convs of 256 channels; its mask
+# branch runs B1 and B2 a second time a step, at 14x14 bins, beside the box
+# head's 7x7.
+
+MASK = ROOT / "configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py"
+MASK_ROIS = 100             # a request's detections (test_cfg.rcnn.max_per_img)
+MASK_SLOTS = 128            # the mask branch's slots an image: round(512 * 0.25)
+MASK_TOOL_IMAGES = 4        # images of phase 5b's set in the tools run: 2 steps of 2
+MASK_BINS = 14
+MASK_STAGES = STAGES[1:]    # no OA-Mix
+
+
+def mask_cfg():
+    """The config as published, with seeded weights (its backbone's
+    ``torchvision://`` init cut) and its train pipeline loading and
+    collecting masks (``LoadAnnotations(with_mask=True)``, ``Collect`` with
+    ``gt_masks``: the Cityscapes dataset base loads boxes only)."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(MASK)
+    cfg.model.backbone.init_cfg = None
+    pipeline = []
+    for op in cfg.data.train.dataset.pipeline:
+        op = dict(op)
+        if op["type"] == "LoadAnnotations":
+            op["with_mask"] = True
+        if op["type"] == "Collect":
+            op["keys"] = list(op["keys"]) + ["gt_masks"]
+        pipeline.append(op)
+    cfg.data.train.dataset.pipeline = pipeline
+    return cfg
+
+
+def add_polygons(ann_file, seed):
+    """Gives each annotation of a COCO json an instance polygon: an octagon
+    touching the four sides of its box, inner points jittered."""
+    rng = np.random.RandomState(seed)
+    with open(ann_file) as f:
+        ann = json.load(f)
+    for a in ann["annotations"]:
+        x, y, w, h = a["bbox"]
+        (p, q), (r, t) = rng.uniform(0.15, 0.45, 2), rng.uniform(0.55, 0.85, 2)
+        pts = [(p, 0), (r, 0), (1, q), (1, t), (r, 1), (p, 1), (0, t), (0, q)]
+        a["segmentation"] = [[float(v) for px, py in pts for v in (x + px * w, y + py * h)]]
+    with open(ann_file, "w") as f:
+        json.dump(ann, f)
+    return ann_file
+
+
+def mask_slot_rois(rng, image):
+    """The mask branch's rois of one training image: ``MASK_SLOTS`` positives
+    jittered around ``NUM_GTS`` seeded gts (each side by at most a tenth of
+    the gt's size, so IoU >= 0.5)."""
+    gt = seeded_gts(rng, 1, IMG_H, IMG_W)[0][0].astype(np.float64)
+    k = np.arange(MASK_SLOTS) % NUM_GTS
+    size = np.stack([gt[k, 2] - gt[k, 0], gt[k, 3] - gt[k, 1]] * 2, 1)
+    pos = gt[k] + rng.uniform(-0.1, 0.1, (MASK_SLOTS, 4)) * size
+    return np.concatenate([np.full((MASK_SLOTS, 1), image), pos], 1).astype(np.float32)
+
+
+def mask_roi_cases(dev):
+    """B1 and B2 at 14x14 bins, f32 and bf16 (the maps cast): B1 at a
+    request (one image's FPN maps, R = 100 detections of ``flagship_rois``)
+    and at the mask branch's training call (2 images, R = 2 x 128 positive
+    slots); B2 at that training call. -> (B1 cases, B2 cases); the first of
+    each is its report row."""
+    import torch
+    serving = flagship_maps(dev, 1, 30)
+    srois = torch.from_numpy(flagship_rois(np.random.RandomState(30), MASK_ROIS)).to(dev)
+    train = flagship_maps(dev, 2, 31)
+    rng = np.random.RandomState(31)
+    trois = torch.from_numpy(np.concatenate([mask_slot_rois(rng, b) for b in range(2)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    dy = torch.randn(trois.shape[0], CHANNELS, MASK_BINS, MASK_BINS, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name in DTYPES:
+        sv, tr = ([f.to(torch_dtype(name)) for f in fs] for fs in (serving, train))
+        fwd += [(f"{name}, 14x14, serving, 1 image, R={srois.shape[0]} detections", sv, srois),
+                (f"{name}, 14x14, training, 2 images, R={trois.shape[0]} mask slots", tr, trois)]
+        bwd.append((f"{name}, 14x14, training, 2 images, R={trois.shape[0]} mask slots",
+                    tr, trois, dy))
+    return fwd, bwd
+
+
+def phase_mask_kernels():
+    """mask-kernels: B1 and B2 at the mask head's 14x14 bins against their
+    plain versions (``TOL_F32`` / ``TOL_BF16``, as at 7x7), timed beside
+    their bounds. -> the two report rows ``roi_align_fwd_14x14`` and
+    ``roi_align_bwd_14x14`` (the f32 case first; their plain times from
+    ``phase_profiled``)."""
+    import torch
+    fwd, bwd = mask_roi_cases(torch.device("cuda", 0))
+    out = []
+    for name, source, replaces, cases, check in (
+            ("roi_align_fwd_14x14", "roi_align_fwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:248",
+             fwd, lambda c: check_fwd_case(*c, phase="mask-kernels", bins=MASK_BINS)),
+            ("roi_align_bwd_14x14", "roi_align_bwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:316",
+             bwd, lambda c: check_bwd_case(*c, phase="mask-kernels"))):
+        results = [(c[0], check(c)) for c in cases]
+        (label, main), others = results[0], results[1:]
+        out.append(row(name, source, replaces, *main,
+                       cases=[case_row(label, *r) for label, r in others]) | {"label": label})
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_roi_counts():
+    """B1's and B2's launch counts, in all and per bin count, set to 0."""
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    for w in (ROI_ALIGN_FWD, ROI_ALIGN_BWD):
+        w.launches = 0
+        w.launches_by_size = dict.fromkeys(w.launches_by_size, 0)
+
+
+def roi_counts():
+    """-> {"roi_align_fwd": {7: n, 14: n}, "roi_align_bwd": {...}}."""
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    return {"roi_align_fwd": dict(ROI_ALIGN_FWD.launches_by_size),
+            "roi_align_bwd": dict(ROI_ALIGN_BWD.launches_by_size)}
+
+
+def _count_launches(rows, counts, key):
+    """Adds a mask-path run's counts to the rows: the 14x14 ones to the
+    ``..._14x14`` rows, the 7x7 ones to B1's and B2's, each under ``key``
+    and in ``launches``."""
+    by_name = {r["name"]: r for r in rows}
+    for kernel, per_size in counts.items():
+        for bins, suffix in ((7, ""), (MASK_BINS, "_14x14")):
+            r = by_name[kernel + suffix]
+            r[key] = r.get(key, 0) + per_size[bins]
+            r["launches"] = (r["launches"] or 0) + per_size[bins]
+
+
+def _report_checks(phase, name, checks, want_calls):
+    """Logs each checked call (R, maps' dtype, error, limit) and fails if
+    one disagrees or the run made other calls than ``want_calls`` (kernel
+    name -> its calls' R, in any order: autograd orders the backward calls)."""
+    import torch
+    for check in checks:
+        rs = [c[0] for c in check.calls]
+        for r, maps, err, lim, within in check.calls:
+            log(phase, f"{name}: {check.name} in the path (R={r}, {maps} maps): vs plain "
+                       f"version max_abs_err {err:.3e} (limit {lim:.3e}"
+                       f"{' + 2^-8 |value|' if check.name.endswith('bwd') and maps == torch.bfloat16 else ''})")
+            if not within:
+                raise AssertionError(f"{phase} {name}: {check.name} disagrees: {err} > {lim}")
+        if sorted(rs) != sorted(want_calls[check.name]):
+            raise AssertionError(f"{phase} {name}: {check.name} called at R={rs}, not "
+                                 f"{want_calls[check.name]}")
+
+
+def phase_mask_serve(rows):
+    """mask-serve: per dtype a warm-up and 3 timed requests of a 1024x2048
+    uint8 image (``prepare_image``, ``DetectorHandle.test``): dets, labels,
+    valid and (1, 100, 28, 28) mask probabilities; B1 once at 7x7 (1000
+    proposals) and once at 14x14 (100 detections) a request, B2 never; one
+    more request with both calls held to the plain version in place; the
+    host's ``paste_masks`` of the request's valid detections into the image."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector, prepare_image
+    from oadg_tpu_torch.apis.test import fetch_dets
+    from oadg_tpu_torch.core.mask import paste_masks
+    out = {}
+    for name in DTYPES:
+        handle = init_detector(mask_cfg(), device="cuda", seed=0, dtype=torch_dtype(name))
+        img = request_image(np.random.RandomState(33))
+        handle.test(prepare_image(img, handle.cfg, handle.device))        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_roi_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = handle.test(prepare_image(img, handle.cfg, handle.device))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = roi_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dets, labels, valid = fetch_dets(*res[:3])
+        masks = res[3]
+        probs = masks[0][torch.from_numpy(valid[0]).to(masks.device)].cpu().numpy()
+        t0 = time.perf_counter()
+        pasted = paste_masks(probs, dets[0][valid[0]], IMG_H, IMG_W)
+        paste_ms = (time.perf_counter() - t0) * 1e3
+        median = statistics.median(times)
+        log("mask-serve", f"{name}: Mask R-CNN R50-FPN, 3 requests of {IMG_H}x{IMG_W}: ms "
+                          f"{[round(t, 3) for t in times]}, median {median:.3f}; "
+                          f"max_memory_allocated {peak:.2f} GiB; {int(valid.sum())} valid "
+                          f"detections, masks {tuple(masks.shape)} {masks.dtype}; launches by "
+                          f"bin count {counts}; paste_masks of the valid detections on the "
+                          f"host {paste_ms:.3f} ms ({nvidia_smi_line()})")
+        if (len(res) != 4 or tuple(masks.shape) != (1, MASK_ROIS, 28, 28)
+                or masks.dtype != torch.float32 or not bool(torch.isfinite(masks).all())
+                or not bool(((masks >= 0) & (masks <= 1)).all()) or not valid.any()):
+            raise AssertionError(f"mask-serve {name}: wrong outputs")
+        if counts != {"roi_align_fwd": {7: 3, MASK_BINS: 3},
+                      "roi_align_bwd": {7: 0, MASK_BINS: 0}}:
+            raise AssertionError(f"mask-serve {name}: launches {counts}")
+        if pasted.shape != (int(valid.sum()), IMG_H, IMG_W) or pasted.dtype != np.uint8:
+            raise AssertionError(f"mask-serve {name}: paste_masks gave {pasted.shape}")
+        checks, restore = _checked_roi_align()
+        try:
+            handle.test(prepare_image(img, handle.cfg, handle.device))
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        _report_checks("mask-serve", name, checks,
+                       {"roi_align_fwd": [1000, MASK_ROIS], "roi_align_bwd": []})
+        _count_launches(rows, counts, "launches_mask_serve" + ("" if name == "f32" else "_bf16"))
+        out[name] = dict(median_ms=median, peak_gib=peak, paste_ms=paste_ms,
+                         valid=int(valid.sum()))
+        del handle, res, masks
+        torch.cuda.empty_cache()
+    return out
+
+
+def mask_train_batch(cfg, val, tmp):
+    """2 of phase 5b's 1024x2048 PNGs with polygon instances (``add_polygons``)
+    through the config's train pipeline with masks at the 1024x2048 scale
+    (resize, flip, normalize, pad, the collate's (2, 128, 56, 56) masks) ->
+    the step's batch on the card, and the instances an image."""
+    import os
+    from oadg_tpu_torch.data import build_dataset
+    from oadg_tpu_torch.data.builder import StaticBatcher
+    from oadg_tpu_torch.engine.train_step import upload_train_batch
+    ann = add_polygons(_subset_json(val[0], 2, os.path.join(tmp, "step.json")), 34)
+    pipeline = [dict(op, img_scale=(IMG_W, IMG_H)) if op["type"] == "Resize" else op
+                for op in cfg.data.train.dataset.pipeline]
+    dataset = build_dataset(dict(cfg.data.train.dataset, ann_file=ann, img_prefix=val[1],
+                                 pipeline=pipeline))
+    np.random.seed(34)
+    samples = [dataset[i] for i in range(2)]
+    batch = StaticBatcher((IMG_H, IMG_W), max_gt=int(cfg.get("max_gt", 128)),
+                          pin_memory=True)(samples)
+    return upload_train_batch(batch, "cuda"), [len(s["gt_masks"]) for s in samples]
+
+
+def phase_mask_train(rows, val, tmp):
+    """mask-train: per dtype the Mask R-CNN training step (``make_train_step``,
+    SGD with the config's schedule, no OA-Mix) on 2 images of 1024x2048 with
+    6-10 polygon instances each: a warm-up and 3 timed steps; B1 and B2 each
+    once at 7x7 (1024 sampled rois) and once at 14x14 (256 mask slots) a
+    step; the losses finite float32, ``loss_mask`` > 0; the frozen
+    parameters (stem, ``layer1``) unchanged and the mask head's all moved;
+    one more step with every B1 and B2 call held to the plain versions in
+    place. -> (numbers, a function that profiles one step per dtype)."""
+    import torch
+    cfg = mask_cfg()
+    batch, instances = mask_train_batch(cfg, val, tmp)
+    out, steps = {}, {}
+    for name in DTYPES:
+        model, step = build_trainer("cuda", cfg, dtype=torch_dtype(name))
+        params = dict(model.named_parameters())
+        frozen = [k for k, p in params.items() if not p.requires_grad]
+        before = {k: p.detach().clone() for k, p in params.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(batch, gen)                                       # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_roi_counts()
+        times, logs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logs.append(step(batch, gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = roi_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(times)
+        log("mask-train", f"{name}: Mask R-CNN R50-FPN, 3 steps on 2 images of {IMG_H}x{IMG_W} "
+                          f"({instances} polygon instances): ms {[round(t, 3) for t in times]}, "
+                          f"median {median:.3f}; max_memory_allocated {peak:.2f} GiB; launches "
+                          f"by bin count {counts} ({nvidia_smi_line()})")
+        log("mask-train", f"{name}: last step " + ", ".join(
+            f"{k} {float(v):.5f}" for k, v in logs[-1].items()))
+        if counts != {"roi_align_fwd": {7: 3, MASK_BINS: 3},
+                      "roi_align_bwd": {7: 3, MASK_BINS: 3}}:
+            raise AssertionError(f"mask-train {name}: launches {counts}")
+        if not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                   for lv in logs for v in lv.values()) or \
+                not all(float(lv["loss_mask"]) > 0 for lv in logs):
+            raise AssertionError(f"mask-train {name}: a loss is wrong: {logs}")
+        moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+        mask_still = [k for k, p in params.items() if k.startswith("roi_head.mask_head.")
+                      and torch.equal(p.detach(), before[k])]
+        log("mask-train", f"{name}: {len(frozen)} frozen parameters, {len(moved)} moved; the "
+                          f"mask head's unmoved: {mask_still}")
+        if moved or not frozen or mask_still:
+            raise AssertionError(f"mask-train {name}: frozen moved {moved}, mask head "
+                                 f"unmoved {mask_still}")
+        checks, restore = _checked_roi_align()
+        try:
+            step(batch, gen)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        slots = 2 * MASK_SLOTS
+        _report_checks("mask-train", name, checks,
+                       {"roi_align_fwd": [2 * TRAIN_ROIS, slots],
+                        "roi_align_bwd": [slots, 2 * TRAIN_ROIS]})
+        _count_launches(rows, counts, "launches_mask_train" + ("" if name == "f32" else "_bf16"))
+        out[name] = dict(median_ms=median, peak_gib=peak,
+                         loss_mask=float(logs[-1]["loss_mask"]))
+        steps[name] = (step, gen)
+        del model, params, before
+        torch.cuda.empty_cache()
+
+    def profile():
+        """One profiled step per dtype, its stages and the mask branch's
+        span (after every timed run)."""
+        for name, (step, gen) in steps.items():
+            out[name]["busy"] = train_profile(step, batch, gen, "no OA-Mix", name, MASK_STAGES,
+                                              "mask-profile", ("forward_train: mask branch",))[0]
+        steps.clear()
+
+    return out, profile
+
+
+def phase_mask_tools(rows, val, tmp):
+    """mask-tools: ``train_detector`` (f32) on the config with masks, 1
+    epoch of 2 steps over 4 of phase 5b's PNGs with polygon instances, then
+    its evaluation on them (the test loop, COCO ``bbox``): ``loss_mask``
+    logged finite and > 0, the checkpoint holding the mask head, B1 at 7x7
+    and 14x14 once a step and once a val image, B2 at both once a step."""
+    import os
+    import torch
+    from oadg_tpu_torch.apis import init_detector, train_detector
+    from oadg_tpu_torch.engine.runner import Checkpointer
+    ann = add_polygons(_subset_json(val[0], MASK_TOOL_IMAGES, os.path.join(tmp, "tool.json")),
+                       35)
+    cfg = mask_cfg()
+    cfg.merge_from_dict({"data.samples_per_gpu": 2, "data.train.times": 1,
+                         "data.train.dataset.ann_file": ann,
+                         "data.train.dataset.img_prefix": val[1],
+                         "data.val.ann_file": ann, "data.val.img_prefix": val[1],
+                         "runner.max_epochs": 1, "log_config.interval": 1, "seed": 0})
+    model = init_detector(cfg, device="cuda", seed=0).model
+    work = os.path.join(tmp, "tools")
+    zero_roi_counts()
+    t0 = time.perf_counter()
+    train_detector(model, dict(cfg.data.train), cfg, validate=True, work_dir=work)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = roi_counts()
+    lines = read_log(work)
+    train = [ln for ln in lines if ln["mode"] == "train"]
+    evals = [ln for ln in lines if ln["mode"] == "val"]
+    steps = MASK_TOOL_IMAGES // 2
+    sd = Checkpointer.load(os.path.join(work, "epoch_1.pth"))["state_dict"]
+    log("mask-tools", f"train_detector: {len(train)} steps in {wall:.2f} s (build of the "
+                      f"loaders and the evaluation included); loss_mask "
+                      f"{[round(ln['loss_mask'], 5) for ln in train]}; step ms "
+                      f"{[round(ln['time'] * 1e3, 3) for ln in train]}; evaluation "
+                      f"{ {k: v for k, v in (evals[0] if evals else {}).items() if k.startswith('bbox_mAP')} }; "
+                      f"launches by bin count {counts} ({nvidia_smi_line()})")
+    want = {"roi_align_fwd": {7: steps + MASK_TOOL_IMAGES, MASK_BINS: steps + MASK_TOOL_IMAGES},
+            "roi_align_bwd": {7: steps, MASK_BINS: steps}}
+    if (len(train) != steps or len(evals) != 1 or "bbox_mAP" not in evals[0]
+            or not all(math.isfinite(ln["loss_mask"]) and ln["loss_mask"] > 0 for ln in train)
+            or "roi_head.mask_head.upsample.weight" not in sd or counts != want):
+        raise AssertionError(f"mask-tools: the run went wrong: {train} {evals} {counts} "
+                             f"(want {want})")
+    _count_launches(rows, counts, "launches_mask_tools")
+    del model
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, step_ms=[ln["time"] * 1e3 for ln in train],
+                bbox_mAP=evals[0]["bbox_mAP"])
+
+
+def phase_mask(rows, val):
+    """7g: the Cityscapes Mask R-CNN's paths (serving, the training step, the
+    tools), each driven with B1's and B2's counts set to 0 just before it and
+    read just after. -> (numbers, a function that profiles a request per
+    dtype)."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    serve = phase_mask_serve(rows)
+    train, train_profile_fn = phase_mask_train(rows, val, tmp.name)
+    tools = phase_mask_tools(rows, val, tmp.name)
+    tmp.cleanup()
+    log("mask", f"phase 7g: {time.perf_counter() - t0:.2f} s")
+
+    def profile():
+        cfg = mask_cfg()
+        for name in DTYPES:
+            serve[name]["busy"] = serving_profile(name, cfg, "mask-profile")
+        train_profile_fn()
+
+    return dict(serve=serve, train=train, tools=tools), profile
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4548,7 +5029,9 @@ def main():
     phase_build()
     rows = phase_kernels() + phase_oamix_kernels()
     phase_dwd_kernels(rows)
+    mask_rows = phase_mask_kernels()            # joined to the rows before phase 7g
     if "--kernels-only" in sys.argv[1:]:        # the kernels' phases alone: no result line
+        rows += mask_rows
         phase_profiled(rows)
         print(json.dumps({"kernels": rows}), flush=True)
         print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
@@ -4568,10 +5051,13 @@ def main():
     yolo, yolo_profile = phase_yolo(rows, evaluate_profile.val)
     tta, tta_profile = phase_tta(rows, evaluate_profile.val)
     engine = phase_engine(rows, evaluate_profile.val)
+    rows += mask_rows
+    mask, mask_profile = phase_mask(rows, evaluate_profile.val)
     for _, profile in trains.values():
         profile()
     yolo_profile()
     tta_profile()
+    mask_profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
@@ -4586,6 +5072,7 @@ def main():
     log("yolo", f"summary ({nvidia_smi_line()}): {json.dumps(yolo)}")
     log("tta", f"summary ({nvidia_smi_line()}): {json.dumps(tta)}")
     log("engine", f"summary ({nvidia_smi_line()}): {json.dumps(engine)}")
+    log("mask", f"summary ({nvidia_smi_line()}): {json.dumps(mask)}")
     for name in DTYPES:
         phase_train_reference(name)
         phase_train_reference(name, BASELINE, "baseline-reference")

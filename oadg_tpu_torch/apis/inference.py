@@ -41,7 +41,10 @@ class DetectorHandle:
         self._pipeline = None       # the test pipeline, built on first use
 
     def test(self, batch):
-        """-> dets (N, max_per_img, 5), labels (N, max_per_img), valid."""
+        """-> dets (N, max_per_img, 5), labels (N, max_per_img), valid; a
+        Mask R-CNN adds masks (N, max_per_img, 28, 28), each detection's mask
+        probabilities at its class in its box (``paste_masks`` draws them
+        into the image)."""
         with torch.inference_mode():
             return self.model.simple_test(batch)
 

@@ -23,10 +23,14 @@ from ..engine.train_step import make_test_step
 from .inference import _num_classes, init_detector
 
 
-def fetch_dets(dets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
+def fetch_dets(dets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+               masks: Optional[torch.Tensor] = None):
     """The test step's (N, K, 5), (N, K), (N, K) device tensors -> numpy
     float32 dets, int64 labels and bool valid, in one device-to-host copy
-    (labels are small integers, exact in float32)."""
+    (labels are small integers, exact in float32). A Mask R-CNN's fourth
+    output, its (N, K, 28, 28) mask probabilities, stays on the device: the
+    results are scored by their boxes (the JAX package has no ``segm``
+    metric)."""
     packed = torch.cat([dets.float(), labels[..., None].float(),
                         valid[..., None].float()], -1).cpu().numpy()
     return packed[..., :5], packed[..., 5].astype(np.int64), packed[..., 6] > 0

@@ -52,7 +52,8 @@ class StaticBatcher:
     (B, H, W, C) float32 or, for ``norm_on_device`` samples, ``img_raw``
     (B, H, W, C) in the samples' dtype alone; ``img_shape`` (B, 2), ``scale_factor`` (B, 4),
     with boxes ``gt_bboxes`` (B, max_gt, 4), ``gt_labels``, ``gt_valid``,
-    and ``metas``."""
+    with masks ``gt_masks`` (B, max_gt, M0, M0) float32, zero-filled (M0 of
+    the first sample, 56 when it has no instance), and ``metas``."""
 
     def __init__(self, static_hw, max_gt: int = 128, divisor: int = 32,
                  pin_memory: bool = False):
@@ -116,6 +117,14 @@ class StaticBatcher:
                 lbl[i, :n] = s["gt_labels"][:n]
                 valid[i, :n] = True
             batch.update(gt_bboxes=gt, gt_labels=lbl, gt_valid=valid)
+            if "gt_masks" in samples[0]:          # box-cropped (n, M0, M0) each
+                first = samples[0]["gt_masks"]
+                m0 = first.shape[-1] if first.size else 56
+                gm = np.zeros((b, g, m0, m0), np.float32)
+                for i, s in enumerate(samples):
+                    n = min(len(s["gt_masks"]), g)
+                    gm[i, :n] = s["gt_masks"][:n]
+                batch["gt_masks"] = gm
         batch["metas"] = [s["img_metas"] for s in samples]
         return batch
 

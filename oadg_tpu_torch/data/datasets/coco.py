@@ -69,9 +69,15 @@ class CocoDataset(CustomDataset):
         return data_infos
 
     def get_ann_info(self, idx) -> Dict[str, Any]:
+        """Boxes (x1, y1, x2, y2), labels, crowd boxes as ``bboxes_ignore``,
+        and each kept box's ``segmentation`` (polygons or uncompressed RLE)
+        as ``masks``, in box order, as mmdet's ``_parse_ann_info`` keeps them
+        for ``LoadAnnotations(with_mask=True)``. (The JAX package's
+        ``get_ann_info`` drops ``segmentation``, so a JAX Mask R-CNN trained
+        from a COCO json sees all-zero gt masks; ROADMAP C.)"""
         img_id = self.data_infos[idx]["id"]
         anns = self.coco.img_anns.get(img_id, [])
-        bboxes, labels, bboxes_ignore = [], [], []
+        bboxes, labels, bboxes_ignore, masks = [], [], [], []
         for a in anns:
             if a.get("ignore", False):
                 continue
@@ -86,10 +92,12 @@ class CocoDataset(CustomDataset):
             else:
                 bboxes.append(box)
                 labels.append(self.cat2label[a["category_id"]])
+                masks.append(a.get("segmentation"))
         return dict(
             bboxes=np.asarray(bboxes, np.float32).reshape(-1, 4),
             labels=np.asarray(labels, np.int64),
-            bboxes_ignore=np.asarray(bboxes_ignore, np.float32).reshape(-1, 4))
+            bboxes_ignore=np.asarray(bboxes_ignore, np.float32).reshape(-1, 4),
+            masks=masks)
 
     def _filter_imgs(self, min_size=32):
         valid = []

@@ -35,7 +35,8 @@ class Compose:
 class DefaultFormatBundle:
     """Images to contiguous float32 HWC (a 2-D image gets a channel axis;
     under ``norm_on_device`` they stay uint8 for the card's preprocess),
-    boxes to float32 (n, 4), labels to int64."""
+    boxes to float32 (n, 4), labels to int64; box-cropped ``gt_masks`` pass
+    as they are, as in the JAX package."""
 
     def __init__(self, img_to_float: bool = True, pad_val=None):
         self.img_to_float = img_to_float

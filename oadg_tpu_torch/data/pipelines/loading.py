@@ -1,7 +1,7 @@
 """Loading pipeline ops (port of ``oadg_tpu/data/pipelines/loading.py:22,53,68``):
 the image from its file (``image_io.imread``, the counterpart of
-``cv2.imread``) or from the caller's array, and the annotation's boxes and
-labels. numpy on the host."""
+``cv2.imread``) or from the caller's array, and the annotation's boxes,
+labels and instance masks. numpy on the host."""
 from __future__ import annotations
 
 import os.path as osp
@@ -64,16 +64,21 @@ class LoadImageFromWebcam(LoadImageFromFile):
 @PIPELINES.register_module()
 class LoadAnnotations:
     """``gt_bboxes`` (and ``gt_bboxes_ignore``) and ``gt_labels`` from
-    ``results['ann_info']``. Masks and segmentation maps are not ported."""
+    ``results['ann_info']``; with ``with_mask``, ``gt_masks``: each
+    instance's polygons or uncompressed RLE (``ann_info['masks']``) drawn
+    full-image and cropped to its box at 56 x 56, (N, 56, 56) float32
+    (``loading.py:87-121``), with ``mask_fields``. Segmentation maps
+    (``with_seg``, the panoptic path) are not ported."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False,
                  poly2mask: bool = True, file_client_args=None):
-        if with_mask or with_seg:
-            raise NotImplementedError("LoadAnnotations(with_mask / with_seg): "
-                                      "masks are not ported (ROADMAP A, 'Data layer leftovers')")
+        if with_seg:
+            raise NotImplementedError("LoadAnnotations(with_seg): segmentation maps are "
+                                      "not ported (ROADMAP A, 'Long tail': panoptic heads)")
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
 
     def __call__(self, results: Dict[str, Any]):
         ann = results["ann_info"]
@@ -85,4 +90,35 @@ class LoadAnnotations:
                 results["bbox_fields"].append("gt_bboxes_ignore")
         if self.with_label:
             results["gt_labels"] = ann["labels"].copy()
+        if self.with_mask:
+            results["gt_masks"] = self._load_masks(results, ann)
+            results["mask_fields"] = ["gt_masks"]
         return results
+
+    @staticmethod
+    def _load_masks(results, ann) -> np.ndarray:
+        """Each instance of ``ann['masks']`` (a list of polygons, flat
+        ``[x0, y0, x1, y1, ...]``, or an uncompressed RLE dict, column-major
+        with ``size``) as a full-image bitmap, cropped to its box of
+        ``ann['bboxes']`` at 56 x 56 (``BitmapMasks.to_box_cropped``)."""
+        from ...core.mask.structures import BitmapMasks, PolygonMasks   # not on the image path
+        h = results["img_info"].get("height") or results["img"].shape[0]
+        w = results["img_info"].get("width") or results["img"].shape[1]
+        insts = []
+        for m in ann.get("masks") or []:
+            if m is None or (isinstance(m, dict) and isinstance(m.get("counts"), str)):
+                raise ValueError("LoadAnnotations(with_mask=True) takes polygons or "
+                                 "uncompressed RLE; got an annotation without "
+                                 "segmentation or a compressed RLE")
+            if isinstance(m, dict):            # uncompressed RLE
+                flat = np.zeros(h * w, np.uint8)
+                pos, val = 0, 0
+                for c in m.get("counts", []):
+                    flat[pos:pos + c] = val
+                    pos += c
+                    val = 1 - val
+                insts.append(flat.reshape(w, h).T if m.get("size") else flat.reshape(h, w))
+            else:                              # polygons
+                insts.append(PolygonMasks([m], h, w).to_bitmap().masks[0])
+        boxes = ann["bboxes"] if insts else np.zeros((0, 4), np.float32)
+        return BitmapMasks(insts, h, w).to_box_cropped(boxes, m0=56)

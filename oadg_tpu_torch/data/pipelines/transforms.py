@@ -176,7 +176,9 @@ class Resize:
 @PIPELINES.register_module()
 class RandomFlip:
     """Flip images and boxes with probability ``flip_ratio``, or as
-    ``results['flip']`` says (test-time augmentation sets it)."""
+    ``results['flip']`` says (test-time augmentation sets it); the
+    box-cropped (N, M0, M0) masks of ``mask_fields`` flip within their crop,
+    since their boxes flip with the image (``transforms.py:129-133``)."""
 
     def __init__(self, flip_ratio: Optional[float] = None,
                  direction: str = "horizontal"):
@@ -204,6 +206,9 @@ class RandomFlip:
                     b[..., 1], b[..., 3] = h - results[key][..., 3], \
                         h - results[key][..., 1]
                 results[key] = b
+            axis = 2 if results["flip_direction"] == "horizontal" else 1
+            for key in results.get("mask_fields", []):
+                results[key] = np.ascontiguousarray(np.flip(results[key], axis=axis))
         return results
 
 

@@ -145,7 +145,8 @@ def upload_train_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.
     """A numpy training batch (``StaticBatcher``'s) -> the step's tensors on
     ``device``. ``img_raw`` (uint8, for the OA-Mix preprocess) or ``img``
     (host-normalized float32 NHWC, viewed as NCHW), ``gt_bboxes``,
-    ``gt_labels``, ``gt_valid`` and ``scale_factor`` go up with
+    ``gt_labels``, ``gt_valid``, ``gt_masks`` (Mask R-CNN's box-cropped
+    masks, where the batch has them) and ``scale_factor`` go up with
     ``non_blocking=True``; ``img_shape`` stays a CPU tensor, because the
     preprocess draws OA-Mix's boxes from it on the host. The copies from
     the loader's pinned memory are asynchronous: keep ``batch`` alive until
@@ -154,7 +155,7 @@ def upload_train_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.
         return torch.from_numpy(a).to(device, non_blocking=True)
 
     out = {k: upload(batch[k]) for k in ("img_raw", "gt_bboxes", "gt_labels", "gt_valid",
-                                         "scale_factor") if k in batch}
+                                         "gt_masks", "scale_factor") if k in batch}
     if "img" in batch:
         out["img"] = upload(batch["img"]).permute(0, 3, 1, 2)
     out["img_shape"] = torch.from_numpy(batch["img_shape"])

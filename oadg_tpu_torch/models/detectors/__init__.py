@@ -1,5 +1,5 @@
 """Detectors of the port."""
 from .single_stage import YOLOV3, SingleStageDetector
-from .two_stage import FasterRCNN, TwoStageDetector
+from .two_stage import FasterRCNN, MaskRCNN, TwoStageDetector
 
-__all__ = ["TwoStageDetector", "FasterRCNN", "SingleStageDetector", "YOLOV3"]
+__all__ = ["TwoStageDetector", "FasterRCNN", "MaskRCNN", "SingleStageDetector", "YOLOV3"]

@@ -1,12 +1,14 @@
 """Two-stage detector (port of ``oadg_tpu/models/detectors/two_stage.py:55``):
 backbone and neck (``extract_feat``), the OA-DG training forward
-(``forward_train``, ``:161-196``) and the test path (``simple_test``, ``:198``).
+(``forward_train``, ``:161-196``) and the test path (``simple_test``, ``:198``);
+``MaskRCNN`` (``:319-342``) adds the mask branch's outputs to the test path.
 
 Batches follow ``oadg_tpu/engine/train_step.py``: ``img`` (N, 3, H, W)
 float32 normalized and padded (NCHW here, channels-last memory on the card),
 ``img_shape`` (N, 2) valid (h, w), ``scale_factor`` (N, 4) for testing;
 training adds ``gt_bboxes`` (N, G, 4), ``gt_labels`` (N, G) and ``gt_valid``
-(N, G) bool, the images views-major ``[B clean; B view 2; ...]`` with each
+(N, G) bool (and for Mask R-CNN ``gt_masks`` (N, G, M0, M0), each gt's mask
+cropped to its box), the images views-major ``[B clean; B view 2; ...]`` with each
 view's gts equal to the clean ones. Every shape is static: padding is
 masked, never indexed away.
 
@@ -98,6 +100,8 @@ class TwoStageDetector(nn.Module):
         init_default_(self, gen)
         self.rpn_head.init_weights(gen)
         self.roi_head.bbox_head.init_weights(gen)
+        if self.roi_head.mask_head is not None:
+            self.roi_head.mask_head.init_weights(gen)
 
     def extract_feat(self, img):
         x = self.backbone(img)
@@ -169,13 +173,14 @@ class TwoStageDetector(nn.Module):
             losses.update(self.roi_head.loss(
                 feats, boxes, valid, batch["gt_bboxes"], batch["gt_valid"],
                 batch["gt_labels"], draws, random_proposals=random_proposals,
-                random_valid=random_valid))
+                random_valid=random_valid, gt_masks=batch.get("gt_masks")))
         return losses
 
     # ---------------- inference ----------------
 
-    def simple_test(self, batch, rescale: bool = True):
-        """Returns dets (N, max_per_img, 5), labels, valid."""
+    def _simple_test(self, batch, rescale: bool):
+        """-> the FPN maps, the scale factors (N, 4) and ``simple_test``'s
+        dets, labels and valid."""
         img = batch["img"]
         feats = self.extract_feat(img)
         cls_scores, bbox_preds = self.rpn_head(feats)
@@ -184,8 +189,12 @@ class TwoStageDetector(nn.Module):
         sf = batch.get("scale_factor")
         if sf is None:
             sf = torch.ones((img.shape[0], 4), device=img.device)
-        return self.roi_head.simple_test(feats, boxes, valid, batch["img_shape"],
-                                         sf, rescale=rescale)
+        return feats, sf, self.roi_head.simple_test(feats, boxes, valid, batch["img_shape"],
+                                                    sf, rescale=rescale)
+
+    def simple_test(self, batch, rescale: bool = True):
+        """Returns dets (N, max_per_img, 5), labels, valid."""
+        return self._simple_test(batch, rescale)[2]
 
     def aug_test(self, views, metas):
         """Test-time augmentation (mmdet ``two_stage.py:268``,
@@ -250,3 +259,21 @@ class TwoStageDetector(nn.Module):
 @DETECTORS.register_module()
 class FasterRCNN(TwoStageDetector):
     """``two_stage.py:313``."""
+
+
+@DETECTORS.register_module()
+class MaskRCNN(TwoStageDetector):
+    """``two_stage.py:319-342``: the RoI head's mask branch
+    (``roi_head.mask_head``) trains on the batch's ``gt_masks``; the test
+    path adds each detection's mask probabilities at its class."""
+
+    def simple_test(self, batch, rescale: bool = True):
+        """Returns dets (N, max_per_img, 5), labels, valid and (with a mask
+        head) masks (N, max_per_img, M, M) float32 probabilities, M = 2 x the
+        mask RoI size (28). The mask RoIs are the detections in the maps'
+        frame: a rescale to the original image is undone first (``:339``)."""
+        feats, sf, (dets, labels, valid) = self._simple_test(batch, rescale)
+        if self.roi_head.mask_head is None:
+            return dets, labels, valid
+        boxes = dets[..., :4] * sf[:, None, :] if rescale else dets[..., :4]
+        return dets, labels, valid, self.roi_head.simple_test_mask(feats, boxes, labels)

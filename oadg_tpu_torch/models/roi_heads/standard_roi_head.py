@@ -18,27 +18,52 @@ of the random proposals, which go through a second extraction.
 The box head computes in ``dtype``; RoIAlign returns float32 features from
 maps of either dtype, and the contrastive loss takes the embeddings cast to
 float32 (``:336``).
+
+The mask branch (Mask R-CNN; ``mask_head`` set, ``:87-99``): a second
+RoIAlign at the mask RoI layer's ``output_size`` (14: kernel B1 and its
+gradient B2 at 14x14 on the card) over the bbox RoI layer's strides,
+``finest_scale`` and ``sampling_ratio`` (the JAX package takes only the
+output size from ``mask_roi_extractor``, ``:93-96, :103-108``), then
+``FCNMaskHead``. Training (``_mask_loss``, ``:133-157``) runs it on the first
+``round(num * pos_fraction)`` sampled slots of each image, where the sampler
+puts the positives, and holds them to targets resampled from the matched
+gts' box-cropped masks; ``simple_test_mask`` (``:159-170``) runs it on the
+detections.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.bbox.assign_sample import MaxIoUAssigner, RandomSampler
 from ...core.post_processing.nms import NMS_TYPES, multiclass_nms
 from ...utils.registry import HEADS, LOSSES, ROI_EXTRACTORS, build_from_cfg, cfg_args
+from .mask_heads import mask_targets
 
 
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
 
     def __init__(self, bbox_roi_extractor=None, bbox_head=None, train_cfg=None,
-                 test_cfg=None, num_views: int = 1, device=None, dtype=None):
+                 test_cfg=None, num_views: int = 1, mask_roi_extractor=None,
+                 mask_head=None, device=None, dtype=None):
         super().__init__()
         self.bbox_roi_extractor = build_from_cfg(
             dict(bbox_roi_extractor), ROI_EXTRACTORS, dict(device=device))
         self.bbox_head = build_from_cfg(dict(bbox_head), HEADS,
                                         dict(device=device, dtype=dtype))
+        self.mask_head = None
+        if mask_head:
+            layer = dict((mask_roi_extractor or bbox_roi_extractor or {})
+                         .get("roi_layer", dict(output_size=14)))
+            bbox_ext = dict(bbox_roi_extractor)
+            self.mask_roi_extractor = build_from_cfg(
+                dict(bbox_ext, roi_layer=dict(bbox_ext.get("roi_layer", {}),
+                                              output_size=int(layer.get("output_size", 14)))),
+                ROI_EXTRACTORS, dict(device=device))
+            self.mask_head = build_from_cfg(dict(mask_head), HEADS,
+                                            dict(device=device, dtype=dtype))
         self.test_cfg = dict(test_cfg or {})
         nms = dict(self.test_cfg.get("nms", {}))
         if nms.get("type", "nms") not in NMS_TYPES:
@@ -53,6 +78,7 @@ class StandardRoIHead(nn.Module):
         self.add_gt_as_proposals = smp.pop("add_gt_as_proposals", True)
         self.sampler = RandomSampler(**smp)
         self.pos_weight = float(train_cfg.get("pos_weight", -1))
+        self.mask_size = int(train_cfg.get("mask_size", 28))
 
     @staticmethod
     def proposals_to_rois(proposals: torch.Tensor) -> torch.Tensor:
@@ -67,8 +93,8 @@ class StandardRoIHead(nn.Module):
     def _sample(self, proposals, prop_valid, gt, gt_valid, gt_labels, draws):
         """Assign and sample the B clean images at once; ``draws`` gives
         ``rcnn.pos`` and ``rcnn.neg``, (B, candidates) each. Returns
-        per-sample boxes, labels, is_pos, valid and matched gt boxes,
-        (B, num, ...)."""
+        per-sample boxes, labels, is_pos, valid, matched gt boxes and the
+        matched gts' indices, (B, num, ...)."""
         if self.add_gt_as_proposals:
             cand = torch.cat([gt, proposals], 1)
             cand_valid = torch.cat([gt_valid, prop_valid], 1)
@@ -84,19 +110,20 @@ class StandardRoIHead(nn.Module):
         boxes = torch.gather(cand, 1, res.inds[..., None].expand(b, s, 4))
         matched = (res.gt_inds - 1).clamp(0, gt.shape[1] - 1)
         matched_gt = torch.gather(gt, 1, matched[..., None].expand(b, s, 4))
-        return boxes, res.labels, res.is_pos, res.valid, matched_gt
+        return boxes, res.labels, res.is_pos, res.valid, matched_gt, matched
 
     def _loss(self, feats, proposals, prop_valid, gt_bboxes, gt_valid,
-              gt_labels, draws):
-        """Shared by both heads: the losses, the sampled rows' embeddings
-        (or None), their targets' labels and validity, and (B, S)."""
+              gt_labels, draws, gt_masks=None):
+        """Shared by both heads: the losses (``loss_mask`` too where the head
+        has a mask branch and ``gt_masks`` are given), the sampled rows'
+        embeddings (or None), their targets' labels and validity, and (B, S)."""
         v = self.num_views
         n = feats[0].shape[0]
         b = n // v
         with torch.no_grad():
             sampled = self._sample(proposals[:b], prop_valid[:b], gt_bboxes[:b],
                                    gt_valid[:b], gt_labels[:b], draws)
-            boxes, labels, is_pos, valid, matched_gt = (
+            boxes, labels, is_pos, valid, matched_gt, matched = (
                 t.repeat(v, *[1] * (t.dim() - 1)) for t in sampled)
             tgt_labels, tgt_lw, tgt_deltas, tgt_bw = self.bbox_head.get_targets(
                 boxes, labels, is_pos, valid, matched_gt, self.pos_weight)
@@ -105,10 +132,33 @@ class StandardRoIHead(nn.Module):
         losses = self.bbox_head.loss(cls_score, bbox_pred, tgt_labels.reshape(-1),
                                      tgt_lw.reshape(-1), tgt_deltas.reshape(-1, 4),
                                      tgt_bw.reshape(-1, 4))
+        if self.mask_head is not None and gt_masks is not None:
+            with record_function("forward_train: mask branch"):
+                losses["loss_mask"] = self._mask_loss(feats, boxes, tgt_labels, is_pos & valid,
+                                                      matched_gt, matched, gt_masks)
         return losses, cont, tgt_labels.reshape(-1), valid.reshape(-1), boxes.shape[:2]
 
+    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks):
+        """``loss_mask`` over the first ``max_pos = round(num * pos_fraction)``
+        sampled slots of each image (N, S): the sampler puts the positives
+        first, so these hold every positive (``:133-157``); the targets come
+        from the matched gts' box-cropped masks (N, G, M0, M0)."""
+        n = boxes.shape[0]
+        p = max(int(round(boxes.shape[1] * self.sampler.pos_fraction)), 1)
+        pboxes = boxes[:, :p]
+        with torch.no_grad():
+            gm = gt_masks.float()
+            idx = matched[:, :p]
+            pmasks = torch.gather(gm, 1, idx[:, :, None, None].expand(-1, -1, *gm.shape[2:]))
+            tgts = mask_targets(pboxes.reshape(-1, 4), matched_gt[:, :p].reshape(-1, 4),
+                                pmasks.reshape(-1, *gm.shape[2:]), self.mask_size)
+        mask_pred = self.mask_head(self.mask_roi_extractor(
+            feats, self.proposals_to_rois(pboxes)))
+        return self.mask_head.loss(mask_pred, tgts, labels[:, :p].reshape(-1),
+                                   pos[:, :p].reshape(-1))
+
     def loss(self, feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
-             draws, random_proposals=None, random_valid=None):
+             draws, random_proposals=None, random_valid=None, gt_masks=None):
         """RoI losses over views-major FPN maps (N = num_views * B images).
 
         Args:
@@ -118,9 +168,11 @@ class StandardRoIHead(nn.Module):
             draws: ``utils.draws.UniformDraws`` for the sampler.
             random_proposals, random_valid: OA-Loss random proposals, used
                 by ``ContrastiveRoIHead`` only.
+            gt_masks: (N, G, M0, M0) box-cropped gt masks, for the mask
+                branch.
         """
         return self._loss(feats, proposals, prop_valid, gt_bboxes, gt_valid,
-                          gt_labels, draws)[0]
+                          gt_labels, draws, gt_masks)[0]
 
     # ---------------- inference ----------------
 
@@ -160,6 +212,17 @@ class StandardRoIHead(nn.Module):
         scores = torch.where(prop_valid[..., None], scores, torch.zeros_like(scores))
         return self.detect(boxes, scores)
 
+    def simple_test_mask(self, feats, boxes: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+        """(N, D, 4) detections' boxes in the maps' frame and their (N, D)
+        labels -> (N, D, M, M) float32 mask probabilities at each one's class
+        (``:159-170``)."""
+        n, d = boxes.shape[:2]
+        probs = self.mask_head.get_masks(
+            self.mask_head(self.mask_roi_extractor(feats, self.proposals_to_rois(boxes))),
+            labels.reshape(-1))
+        return probs.view(n, d, *probs.shape[1:])
+
 
 @HEADS.register_module()
 class ContrastiveRoIHead(StandardRoIHead):
@@ -167,7 +230,7 @@ class ContrastiveRoIHead(StandardRoIHead):
     ``loss_cont``, the test path is the standard one."""
 
     def loss(self, feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
-             draws, random_proposals=None, random_valid=None):
+             draws, random_proposals=None, random_valid=None, gt_masks=None):
         losses, cont, labels, valid, (n, s) = self._loss(
             feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels, draws)
         if cont is None:

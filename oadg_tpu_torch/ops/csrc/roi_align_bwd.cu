@@ -1,6 +1,7 @@
 // Multilevel RoIAlign backward for Hopper (sm_90a): the gradient of the
-// forward kernel roi_align_fwd.cu with respect to the FPN maps (7x7 bins,
-// sampling_ratio 2, aligned=True, up to four levels). Rois get no gradient.
+// forward kernel roi_align_fwd.cu with respect to the FPN maps (7x7 or 14x14
+// bins, sampling_ratio 2, aligned=True, up to four levels). Rois get no
+// gradient.
 //
 // Replaces oadg_tpu/ops/pallas_roi_bwd.py:roi_bwd_window_pallas (the TPU
 // kernel _kernel, which read-modify-writes G = A . dy . B^T into each roi's
@@ -60,6 +61,13 @@
 // 3. Each tile is written once, in the maps' dtype: f32, or bf16 rounded
 //    once from the f32 sum.
 //
+// At 14x14 (the mask branch) the same kernels are instantiated with Out = 14:
+// a roi has 28 samples an axis (two a lane in build_tables) and up to 196
+// bins reach a tile (a roi of at most 8 cells a side), so a group stages up
+// to 196 bins, and a block takes 32 channels (two warps, two rois a group)
+// to keep the staged bins in 26 KB of shared memory. The 7x7 instantiation
+// is the design above, unchanged.
+//
 // Sums run in roi order and, for a cell, in bin order, so two calls on the
 // same inputs give the same bits. They reassociate the plain version's
 // tap-by-tap sum, so the result agrees with it to f32 rounding.
@@ -78,14 +86,30 @@ namespace {
 using namespace oadg_roi;
 
 constexpr int kTile = 8;                // cells per tile side
-constexpr int kSlice = 128;             // channels per block
-constexpr int kThreads = 2 * kSlice;    // two threads a channel: columns 0..3, 4..7
 constexpr int kHalf = kTile / 2;        // tile columns a thread owns; rows of a half
-constexpr int kGroup = 4;               // rois per group, one warp each
-constexpr int kStageBins = 64;          // dy bins a group stages (a roi needs <= 49)
 constexpr int kListWarps = 8;           // tiles per block of the list kernel
 constexpr int kBucketThreads = 1024;    // rois a pass of the bucket kernel
 constexpr unsigned kFull = 0xffffffffu;
+
+// Per bin count: channels a block (two threads a channel: columns 0..3,
+// 4..7), rois a group (one warp each), the dy bins a group stages (at least
+// one roi's Out^2), and blocks an SM the registers are sized for.
+template <int Out>
+struct Cfg;
+template <>
+struct Cfg<7> {
+  static constexpr int kSlice = 128;
+  static constexpr int kGroup = 4;
+  static constexpr int kStageBins = 64;
+  static constexpr int kMinBlocks = 3;
+};
+template <>
+struct Cfg<14> {
+  static constexpr int kSlice = 32;
+  static constexpr int kGroup = 2;
+  static constexpr int kStageBins = 196;
+  static constexpr int kMinBlocks = 8;
+};
 
 struct Pyramid {
   void* ptr[kMaxLevels];
@@ -122,6 +146,7 @@ __device__ __forceinline__ TileCoord tile_coord(const Pyramid& p, int t) {
 
 // ext[r] = {bucket (level * batch + image), or -1 if no tap is in range;
 // first | last tile row << 16; first | last tile column << 16; r}.
+template <int Out>
 __global__ void roi_extent_kernel(Pyramid p, const float* __restrict__ rois,
                                   int num_rois, float finest_scale,
                                   int4* __restrict__ ext) {
@@ -131,8 +156,8 @@ __global__ void roi_extent_kernel(Pyramid p, const float* __restrict__ rois,
   const int l = roi_level(roi, p.levels, finest_scale);
   const int b = roi_batch(roi, p.batch);
   int y0, y1, x0, x1;
-  tap_extent(roi[2], roi[4], p.scale[l], p.h[l], &y0, &y1);
-  tap_extent(roi[1], roi[3], p.scale[l], p.w[l], &x0, &x1);
+  tap_extent<Out>(roi[2], roi[4], p.scale[l], p.h[l], &y0, &y1);
+  tap_extent<Out>(roi[1], roi[3], p.scale[l], p.w[l], &x0, &x1);
   int4 e = make_int4(-1, 0, 0, r);
   if (y0 <= y1 && x0 <= x1) {
     e.x = l * p.batch + b;
@@ -221,32 +246,36 @@ tile_lists_kernel(Pyramid p, const int4* __restrict__ blist,
 // One roi of a group: its samples, its weights on the tile's columns (Bx)
 // and rows (Ay, times 1/4), which bins touch each, and the dy bins it
 // stages: rows oy0.., columns ox0.., nx wide, count of them, each one's
-// offset in the roi's (7, 7) slab, and its first slot in the buffer.
+// offset in the roi's (Out, Out) slab, and its first slot in the buffer.
+template <int Out>
 struct RoiTables {
-  Samples s;
-  alignas(16) float bx_t[kOut][kTile];  // Bx transposed: bin ox's weight on column x
-  alignas(16) float ay_t[kOut][kTile];  // Ay transposed: bin oy's weight on row y
+  Samples<Out> s;
+  alignas(16) float bx_t[Out][kTile];   // Bx transposed: bin ox's weight on column x
+  alignas(16) float ay_t[Out][kTile];   // Ay transposed: bin oy's weight on row y
   unsigned xunion;                      // bins that reach any column, any row
   unsigned yunion;
   unsigned xhalf[2];                    // bins that reach columns 0..3, 4..7
   unsigned yhalf[2];                    // bins that reach rows 0..3, 4..7
-  unsigned char bin_of[kBins];
+  unsigned char bin_of[Out * Out];
   int roi, oy0, ox0, nx, ny, count, first_slot;
 };
 
-// One warp: lanes 0..27 the roi's samples, then lanes 0..7 the tile's
-// columns and lanes 8..15 its rows, then the bins that reach the tile.
+// One warp: the roi's samples (lanes 0..27 at 7x7, two a lane at 14x14),
+// then lanes 0..7 the tile's columns and lanes 8..15 its rows, then the bins
+// that reach the tile.
+template <int Out>
 __device__ __forceinline__ void build_tables(const float* roi, float scale, int H,
                                              int W, int y_base, int x_base,
-                                             int lane, RoiTables* t) {
-  roi_samples(roi, scale, H, W, lane, &t->s);
+                                             int lane, RoiTables<Out>* t) {
+  constexpr int kS = Grid<Out>::kS;
+  roi_samples<Out>(roi, scale, H, W, lane, 32, &t->s);
   __syncwarp();
   const int axis = lane / kTile;        // 0: columns, 1: rows
   unsigned m = 0;
   if (lane < 2 * kTile) {
-    float w[kOut];
+    float w[Out];
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) w[o] = 0.f;
+    for (int o = 0; o < Out; ++o) w[o] = 0.f;
     const int cell = (axis ? y_base : x_base) + lane % kTile;
 #pragma unroll
     for (int i = 0; i < kS; ++i) {
@@ -262,7 +291,7 @@ __device__ __forceinline__ void build_tables(const float* roi, float scale, int 
     }
     const float gain = axis ? 1.f / (kSr * kSr) : 1.f;
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) (axis ? t->ay_t : t->bx_t)[o][lane % kTile] = w[o] * gain;
+    for (int o = 0; o < Out; ++o) (axis ? t->ay_t : t->bx_t)[o][lane % kTile] = w[o] * gain;
   }
   unsigned half[4];                     // columns 0..3, 4..7, rows 0..3, 4..7
 #pragma unroll
@@ -277,7 +306,7 @@ __device__ __forceinline__ void build_tables(const float* roi, float scale, int 
     nx = 32 - __clz(ux) - ox0;
   }
   for (int b = lane; b < nx * ny; b += 32) {
-    t->bin_of[b] = static_cast<unsigned char>((oy0 + b / nx) * kOut + ox0 + b % nx);
+    t->bin_of[b] = static_cast<unsigned char>((oy0 + b / nx) * Out + ox0 + b % nx);
   }
   if (lane == 0) {
     t->xunion = ux;
@@ -301,10 +330,11 @@ __device__ __forceinline__ void build_tables(const float* roi, float scale, int 
 // each half of the rows that oy reaches. N rows at once give independent
 // sums. The tables are read as float4; a weight is 0 where a bin misses a
 // row or column, and the branches are uniform in a warp.
-template <int N>
-__device__ __forceinline__ void accumulate_bin_rows(const RoiTables& t, const float* d,
+template <int N, int Out>
+__device__ __forceinline__ void accumulate_bin_rows(const RoiTables<Out>& t, const float* d,
                                                     int i, unsigned xm, int x_off,
                                                     float (&acc)[kTile][kHalf]) {
+  constexpr int kSlice = Cfg<Out>::kSlice;
   float ex[N][kHalf];
   int row[N];
 #pragma unroll
@@ -350,17 +380,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One block per (tile, 128 channels); thread t owns channel c0 + t % 128 of
-// the tile's columns 4 * (t / 128) .. + 3, 32 cells in registers. Rois of
-// the tile's list go in groups of up to kGroup (warp g builds roi g's
-// tables) whose dy bins fit the staging buffer together: one round of
-// global loads and three barriers a group.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
+// One block per (tile, kSlice channels: 128 at 7x7, 32 at 14x14); thread t
+// owns channel c0 + t % kSlice of the tile's columns 4 * (t / kSlice) .. + 3,
+// 32 cells in registers. Rois of the tile's list go in groups of up to
+// kGroup (warp g builds roi g's tables) whose dy bins fit the staging buffer
+// together: one round of global loads and three barriers a group.
+template <typename T, int Out>
+__global__ void __launch_bounds__(2 * Cfg<Out>::kSlice, Cfg<Out>::kMinBlocks)
 roi_grad_tile_kernel(Pyramid p, int channels, const float* __restrict__ rois,
                      const float* __restrict__ dy, const int* __restrict__ starts,
                      const int* __restrict__ counts, const int* __restrict__ lists) {
-  __shared__ RoiTables tb[kGroup];
+  constexpr int kSlice = Cfg<Out>::kSlice;
+  constexpr int kThreads = 2 * kSlice;
+  constexpr int kGroup = Cfg<Out>::kGroup;
+  constexpr int kStageBins = Cfg<Out>::kStageBins;
+  constexpr int kBins = Out * Out;
+  static_assert(kGroup <= kThreads / 32, "a warp a roi of the group");
+  static_assert(kStageBins >= kBins, "a group takes at least one roi");
+  __shared__ RoiTables<Out> tb[kGroup];
   __shared__ float s_dy[kStageBins][kSlice + 1];
 
   const int warp = threadIdx.x / 32;
@@ -388,8 +425,8 @@ roi_grad_tile_kernel(Pyramid p, int channels, const float* __restrict__ rois,
   for (int k = begin; k < end;) {
     if (warp < kGroup && k + warp < end) {
       const int r = lists[k + warp];
-      build_tables(rois + static_cast<size_t>(r) * 5, scale, H, W, y_base, x_base,
-                   lane, &tb[warp]);
+      build_tables<Out>(rois + static_cast<size_t>(r) * 5, scale, H, W, y_base, x_base,
+                        lane, &tb[warp]);
       if (lane == 0) tb[warp].roi = r;
     }
     __syncthreads();
@@ -410,7 +447,7 @@ roi_grad_tile_kernel(Pyramid p, int channels, const float* __restrict__ rois,
     // in flight a thread.
     int first = 0;
     for (int g = 0; g < taken; ++g) {
-      const RoiTables& t = tb[g];
+      const RoiTables<Out>& t = tb[g];
       if (t.count) {
         const int sh = 32 - __clz(t.count - 1);
         const int total = nc << sh;
@@ -441,12 +478,12 @@ roi_grad_tile_kernel(Pyramid p, int channels, const float* __restrict__ rois,
     // that oy reaches. The tables are read as float4; a weight is 0 where a
     // bin misses a row or column, and the branches are uniform in a warp.
     for (int g = 0; g < taken; ++g) {
-      const RoiTables& t = tb[g];
+      const RoiTables<Out>& t = tb[g];
       const unsigned xm = t.xhalf[x_off / kHalf];
       if (!t.count || !xm) continue;
       int i = 0;
-      for (; i + 1 < t.ny; i += 2) accumulate_bin_rows<2>(t, s_dy[0] + c, i, xm, x_off, acc);
-      if (i < t.ny) accumulate_bin_rows<1>(t, s_dy[0] + c, i, xm, x_off, acc);
+      for (; i + 1 < t.ny; i += 2) accumulate_bin_rows<2, Out>(t, s_dy[0] + c, i, xm, x_off, acc);
+      if (i < t.ny) accumulate_bin_rows<1, Out>(t, s_dy[0] + c, i, xm, x_off, acc);
     }
     __syncthreads();
     k += taken;
@@ -499,6 +536,33 @@ bool make_pyramid(void* const* grads, const int* heights, const int* widths,
 
 int buckets(const Pyramid& p) { return p.levels * p.batch; }
 
+template <int Out>
+void launch(const Pyramid& p, int dtype, int channels, const float* rois, int num_rois,
+            float finest_scale, const float* dy, int* scratch, cudaStream_t s) {
+  const int tiles = p.tile_base[p.levels];
+  const int nb = buckets(p);
+  int4* ext = reinterpret_cast<int4*>(scratch);
+  int4* blist = ext + num_rois;
+  int* bcount = reinterpret_cast<int*>(blist + static_cast<size_t>(nb) * num_rois);
+  int* starts = bcount + nb;
+  int* counts = starts + tiles;
+  int* lists = counts + tiles;
+  roi_extent_kernel<Out><<<(num_rois + 255) / 256, 256, 0, s>>>(p, rois, num_rois,
+                                                                finest_scale, ext);
+  bucket_kernel<<<nb, kBucketThreads, 0, s>>>(ext, num_rois, blist, bcount);
+  tile_lists_kernel<<<(tiles + kListWarps - 1) / kListWarps, 32 * kListWarps, 0, s>>>(
+      p, blist, bcount, num_rois, starts, counts, lists);
+  constexpr int kSlice = Cfg<Out>::kSlice;
+  const dim3 grid(tiles, (channels + kSlice - 1) / kSlice);
+  if (dtype == 0) {
+    roi_grad_tile_kernel<float, Out><<<grid, 2 * kSlice, 0, s>>>(p, channels, rois, dy,
+                                                                 starts, counts, lists);
+  } else {
+    roi_grad_tile_kernel<__nv_bfloat16, Out><<<grid, 2 * kSlice, 0, s>>>(
+        p, channels, rois, dy, starts, counts, lists);
+  }
+}
+
 // int32 scratch: roi extents (4 a roi), the buckets' lists of extents (4 a
 // roi each), bucket counts, tile starts and counts, and the tile lists: at
 // most every roi of a bucket in every tile of the bucket, so at most every
@@ -530,46 +594,32 @@ extern "C" long long oadg_roi_align_bwd_scratch_ints(const int* heights,
 
 // grads: num_levels device pointers to channels-last (B, H_l, W_l, C) maps
 // of the features' dtype (0 = float32, 1 = bfloat16), written whole;
-// heights/widths/scales: host arrays of num_levels entries; rois: device
-// (num_rois, 5) float32 [batch, x1, y1, x2, y2]; dy: device (num_rois, C, 7,
-// 7) float32, contiguous; scratch: device int32, 16-byte aligned, of
-// scratch_len >= oadg_roi_align_bwd_scratch_ints(...) entries. Returns the
-// cudaError_t of the launches (0 on success).
+// heights/widths/scales: host arrays of num_levels entries; out_size: bins
+// a side, 7 or 14; rois: device (num_rois, 5) float32 [batch, x1, y1, x2,
+// y2]; dy: device (num_rois, C, out_size, out_size) float32, contiguous;
+// scratch: device int32, 16-byte aligned, of scratch_len >=
+// oadg_roi_align_bwd_scratch_ints(...) entries. Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" int oadg_roi_align_bwd(void* const* grads, const int* heights,
                                   const int* widths, const float* scales,
                                   int num_levels, int batch, int channels,
-                                  int dtype, const float* rois, int num_rois,
-                                  float finest_scale, const float* dy,
+                                  int dtype, int out_size, const float* rois,
+                                  int num_rois, float finest_scale, const float* dy,
                                   int* scratch, long long scratch_len,
                                   void* stream) {
   Pyramid p;
   long long most = 0;
   if (channels < 1 || num_rois < 1 || (dtype != 0 && dtype != 1) ||
+      (out_size != 7 && out_size != 14) ||
       !make_pyramid(grads, heights, widths, scales, num_levels, batch, &p, &most) ||
       scratch_ints(p, most, num_rois) < 0 || scratch_len < scratch_ints(p, most, num_rois)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tiles = p.tile_base[num_levels];
-  const int nb = buckets(p);
-  int4* ext = reinterpret_cast<int4*>(scratch);
-  int4* blist = ext + num_rois;
-  int* bcount = reinterpret_cast<int*>(blist + static_cast<size_t>(nb) * num_rois);
-  int* starts = bcount + nb;
-  int* counts = starts + tiles;
-  int* lists = counts + tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  roi_extent_kernel<<<(num_rois + 255) / 256, 256, 0, s>>>(p, rois, num_rois,
-                                                           finest_scale, ext);
-  bucket_kernel<<<nb, kBucketThreads, 0, s>>>(ext, num_rois, blist, bcount);
-  tile_lists_kernel<<<(tiles + kListWarps - 1) / kListWarps, 32 * kListWarps, 0, s>>>(
-      p, blist, bcount, num_rois, starts, counts, lists);
-  const dim3 grid(tiles, (channels + kSlice - 1) / kSlice);
-  if (dtype == 0) {
-    roi_grad_tile_kernel<float><<<grid, kThreads, 0, s>>>(p, channels, rois, dy,
-                                                          starts, counts, lists);
+  if (out_size == 7) {
+    launch<7>(p, dtype, channels, rois, num_rois, finest_scale, dy, scratch, s);
   } else {
-    roi_grad_tile_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        p, channels, rois, dy, starts, counts, lists);
+    launch<14>(p, dtype, channels, rois, num_rois, finest_scale, dy, scratch, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

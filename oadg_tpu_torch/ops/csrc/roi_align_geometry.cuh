@@ -1,17 +1,20 @@
 // Per-roi sample geometry shared by the RoIAlign forward (roi_align_fwd.cu)
 // and backward (roi_align_bwd.cu) kernels, so that both read and write the
-// same taps with the same weights: 7x7 bins, sampling_ratio 2, aligned=True,
-// CUDA out-of-range rule, up to four FPN levels.
+// same taps with the same weights: 7x7 or 14x14 bins (the template parameter
+// `Out` of each function; the box head takes 7, the mask head 14),
+// sampling_ratio 2, aligned=True, CUDA out-of-range rule, up to four FPN
+// levels.
 //
 // Semantics (oadg_tpu/ops/roi_align.py:123-309):
 //   level  = clamp(floor(log2(sqrt(area) / finest_scale + 1e-6)), 0, L-1)
 //   x1     = roi_x1 * scale[level] - 0.5          (scale = f32(1/stride))
-//   bin_w  = (x2 - x1) / 7,  sample x = x1 + (ox + (s + 0.5) / 2) * bin_w
+//   bin_w  = (x2 - x1) / Out,  sample x = x1 + (ox + (s + 0.5) / 2) * bin_w
 //   a sample outside (-1, W) x (-1, H) contributes 0; otherwise it is clamped
 //   to [0, W-1] x [0, H-1] and the high tap saturates at the edge.
 // The geometry is rounded exactly as XLA evaluates the JAX package's
 // formula: a division by a constant becomes a product with its f32
-// reciprocal, and a multiply-add is one fused fma. The plain PyTorch
+// reciprocal (f32(1/7), f32(1/14): neither is exact, and both sides multiply
+// by the same rounded value), and a multiply-add is one fused fma. The plain PyTorch
 // versions compute the same roundings, so tap indices and weights agree bit
 // for bit.
 #pragma once
@@ -20,15 +23,23 @@
 
 namespace oadg_roi {
 
-constexpr int kOut = 7;                 // bins per side
 constexpr int kSr = 2;                  // samples per bin side
-constexpr int kS = kOut * kSr;          // samples per axis
-constexpr int kBins = kOut * kOut;
 constexpr int kMaxLevels = 4;
 
-// The 14 x-samples ([0]) and 14 y-samples ([1]) of one roi: low and high
-// tap, the weight of the high tap, and whether the sample is in range.
+// Samples and candidate taps (each sample's low and high tap) per axis of a
+// roi with Out bins a side. Constants, not constexpr functions: device code
+// may read a static constexpr member but not call a host function.
+template <int Out>
+struct Grid {
+  static constexpr int kS = Out * kSr;
+  static constexpr int kTaps = 2 * kS;
+};
+
+// The 2 Out x-samples ([0]) and 2 Out y-samples ([1]) of one roi: low and
+// high tap, the weight of the high tap, and whether the sample is in range.
+template <int Out>
 struct Samples {
+  static constexpr int kS = Grid<Out>::kS;
   int lo[2][kS];
   int hi[2][kS];
   float frac[2][kS];
@@ -53,7 +64,7 @@ __device__ __forceinline__ int roi_batch(const float* roi, int batch) {
   return min(max(b, 0), batch - 1);
 }
 
-// Sample i (0..13) of one axis of a roi whose box spans [lo, hi] image
+// Sample i (0..2 Out - 1) of one axis of a roi whose box spans [lo, hi] image
 // pixels on that axis, at a level of `size` cells and `scale` = 1/stride:
 // whether it is in range, its low and high tap and the high tap's weight.
 struct Tap {
@@ -63,13 +74,14 @@ struct Tap {
   bool ok;
 };
 
+template <int Out>
 __device__ __forceinline__ Tap sample_tap(float lo, float hi, float scale,
                                           int size, int i) {
   const float a = __fsub_rn(__fmul_rn(lo, scale), 0.5f);
   const float e = __fsub_rn(__fmul_rn(hi, scale), 0.5f);
   const float pos = static_cast<float>(i / kSr) +
                     (static_cast<float>(i % kSr) + 0.5f) / kSr;
-  const float bin = __fmul_rn(__fsub_rn(e, a), 1.f / kOut);
+  const float bin = __fmul_rn(__fsub_rn(e, a), 1.f / Out);
   const float p = __fmaf_rn(pos, bin, a);
   const float pc = fminf(fmaxf(p, 0.f), static_cast<float>(size - 1));
   const int i0 = static_cast<int>(floorf(pc));
@@ -81,29 +93,34 @@ __device__ __forceinline__ Tap sample_tap(float lo, float hi, float scale,
   return t;
 }
 
-// Threads 0..27 of the block fill `s` for the roi; the caller synchronizes.
+// Threads tid = 0, stride, 2 stride, .. of the caller fill `s` for the roi
+// (4 Out entries: 28 at 7x7, 56 at 14x14); the caller synchronizes.
+template <int Out>
 __device__ __forceinline__ void roi_samples(const float* roi, float scale,
-                                            int H, int W, int tid,
-                                            Samples* s) {
-  if (tid >= 2 * kS) return;
-  const int axis = tid / kS;            // 0: x, 1: y
-  const int i = tid % kS;
-  const Tap t = axis ? sample_tap(roi[2], roi[4], scale, H, i)
-                     : sample_tap(roi[1], roi[3], scale, W, i);
-  s->ok[axis][i] = t.ok;
-  s->lo[axis][i] = t.lo;
-  s->hi[axis][i] = t.hi;
-  s->frac[axis][i] = t.frac;
+                                            int H, int W, int tid, int stride,
+                                            Samples<Out>* s) {
+  constexpr int kS = Grid<Out>::kS;
+  for (int k = tid; k < 2 * kS; k += stride) {
+    const int axis = k / kS;            // 0: x, 1: y
+    const int i = k % kS;
+    const Tap t = axis ? sample_tap<Out>(roi[2], roi[4], scale, H, i)
+                       : sample_tap<Out>(roi[1], roi[3], scale, W, i);
+    s->ok[axis][i] = t.ok;
+    s->lo[axis][i] = t.lo;
+    s->hi[axis][i] = t.hi;
+    s->frac[axis][i] = t.frac;
+  }
 }
 
 // The cells that the in-range taps of one axis read: [first, last], or
 // first > last when no sample of the axis is in range. The plain twin is
 // `_tap_extent` in oadg_tpu_torch/ops/roi_align.py.
+template <int Out>
 __device__ __forceinline__ void tap_extent(float lo, float hi, float scale,
                                            int size, int* first, int* last) {
   int f = size, l = -1;
-  for (int i = 0; i < kS; ++i) {
-    const Tap t = sample_tap(lo, hi, scale, size, i);
+  for (int i = 0; i < Grid<Out>::kS; ++i) {
+    const Tap t = sample_tap<Out>(lo, hi, scale, size, i);
     if (!t.ok) continue;
     f = min(f, t.lo);
     l = max(l, t.hi);

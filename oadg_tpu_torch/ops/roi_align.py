@@ -23,7 +23,8 @@ read and write every tap directly.
 
 Layout: level maps are NCHW tensors (channels-last memory on the card); the
 output is ``(R, C, out, out)`` float32, the mmdet layout that the box head's
-first FC flattens. Level gradients are accumulated in float32 and rounded
+first FC flattens. The kernels take ``out`` 7 (the box head) and 14 (the mask
+head), as the TPU kernels take any ``out``; the plain versions take any. Level gradients are accumulated in float32 and rounded
 once to the maps' dtype (the JAX package accumulates bf16 maps in a bf16
 table, ``:691-701``; the port is held to its f32 path). The backward kernel
 bins rois into 8x8-cell tiles by the extent of their taps, whose plain twin
@@ -264,17 +265,18 @@ def roi_align_multilevel_ref_backward(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 4
+KERNEL_OUTPUT_SIZES = (7, 14)   # the box head's bins and the mask head's
 
 
 def _check_kernel_args(feats, rois, output_size, featmap_strides,
                        sampling_ratio, what):
-    """What both kernels take: 7x7 bins, sampling_ratio 2, 1..4 channels-last
-    float32 or bfloat16 maps of one batch, channel count, dtype and CUDA
-    device, and contiguous float32 (R, 5) rois there."""
+    """What both kernels take: 7x7 or 14x14 bins, sampling_ratio 2, 1..4
+    channels-last float32 or bfloat16 maps of one batch, channel count, dtype
+    and CUDA device, and contiguous float32 (R, 5) rois there."""
     n = len(feats)
-    if output_size != 7 or sampling_ratio != 2:
-        raise ValueError(f"the CUDA RoIAlign {what} kernel is built for 7x7 "
-                         f"bins and sampling_ratio=2, got {output_size}, "
+    if output_size not in KERNEL_OUTPUT_SIZES or sampling_ratio != 2:
+        raise ValueError(f"the CUDA RoIAlign {what} kernel is built for 7x7 and "
+                         f"14x14 bins and sampling_ratio=2, got {output_size}, "
                          f"{sampling_ratio}")
     if not 1 <= n <= _MAX_LEVELS or len(featmap_strides) != n:
         raise ValueError(f"need 1..{_MAX_LEVELS} levels with one stride "
@@ -312,23 +314,26 @@ def _level_args(shapes, featmap_strides):
 class RoIAlignForward:
     """Wrapper of ``csrc/roi_align_fwd.cu`` (kernel B1): checks its inputs,
     allocates the output and the kernel's per-roi geometry scratch, launches
-    on the current stream and counts launches.
+    on the current stream and counts launches: ``launches`` in all, and
+    ``launches_by_size`` per bin count.
 
     Takes channels-last float32 or bfloat16 level maps on one CUDA device, 7x7
-    bins and ``sampling_ratio=2`` only; raises on anything else.
+    or 14x14 bins and ``sampling_ratio=2`` only; raises on anything else.
     """
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_size = dict.fromkeys(KERNEL_OUTPUT_SIZES, 0)
         self.library = CudaLibrary("roi_align_fwd.cu", {
             "oadg_roi_align_fwd": (ctypes.c_int, (
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_void_p)),
-            "oadg_roi_align_fwd_scratch_bytes": (ctypes.c_longlong, (ctypes.c_int,)),
+            "oadg_roi_align_fwd_scratch_bytes": (ctypes.c_longlong, (ctypes.c_int,
+                                                                     ctypes.c_int)),
         })
 
     def __call__(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -341,12 +346,13 @@ class RoIAlignForward:
                                   sampling_ratio, "forward")
         dev = feats[0].device
         r = rois.shape[0]
-        out = torch.empty((r, c, 7, 7), device=dev, dtype=torch.float32)
+        out = torch.empty((r, c, output_size, output_size), device=dev,
+                          dtype=torch.float32)
         if r == 0:
             return out
         lib = self.library.load()
         n = len(feats)
-        nbytes = lib.oadg_roi_align_fwd_scratch_bytes(r)
+        nbytes = lib.oadg_roi_align_fwd_scratch_bytes(r, output_size)
         scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
         ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
         heights, widths, scales = _level_args([f.shape for f in feats],
@@ -355,12 +361,13 @@ class RoIAlignForward:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.oadg_roi_align_fwd(
                 ptrs, heights, widths, scales, n, b, c,
-                _DTYPE_CODES[feats[0].dtype], rois.data_ptr(), r,
+                _DTYPE_CODES[feats[0].dtype], output_size, rois.data_ptr(), r,
                 float(finest_scale), out.data_ptr(), scratch.data_ptr(), nbytes,
                 stream)
         if err != 0:
             raise RuntimeError(f"roi_align_fwd launch failed with cudaError_t {err}")
         self.launches += 1
+        self.launches_by_size[output_size] += 1
         return out
 
 
@@ -369,20 +376,22 @@ class RoIAlignBackward:
     :class:`RoIAlignForward` with respect to the maps.
 
     Takes the forward's maps (for their shapes, dtype and device; they are
-    not read), rois and bin layout, and a contiguous float32 (R, C, 7, 7)
+    not read), rois and bin layout, and a contiguous float32 (R, C, out, out)
     ``grad_out``; allocates the channels-last gradient maps in the features'
     dtype (uninitialised: the kernel writes every cell, bfloat16 rounded once
     from its float32 sum) and the kernel's int32 scratch, launches on the
-    current stream and counts launches. Reads nothing back to the host.
+    current stream and counts launches (``launches``, and
+    ``launches_by_size`` per bin count). Reads nothing back to the host.
     """
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_size = dict.fromkeys(KERNEL_OUTPUT_SIZES, 0)
         self.library = CudaLibrary("roi_align_bwd.cu", {
             "oadg_roi_align_bwd": (ctypes.c_int, (
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_void_p)),
@@ -401,10 +410,11 @@ class RoIAlignBackward:
                                   sampling_ratio, "backward")
         dev = feats[0].device
         r = rois.shape[0]
-        if (grad_out.shape != (r, c, 7, 7) or grad_out.dtype != torch.float32
+        o = output_size
+        if (grad_out.shape != (r, c, o, o) or grad_out.dtype != torch.float32
                 or grad_out.device != dev or not grad_out.is_contiguous()):
             raise ValueError(f"grad_out must be a contiguous float32 ({r}, {c}, "
-                             f"7, 7) tensor on the features' device, got "
+                             f"{o}, {o}) tensor on the features' device, got "
                              f"{tuple(grad_out.shape)} {grad_out.dtype}")
         if r == 0:
             return [torch.zeros((b, f.shape[2], f.shape[3], c), device=dev,
@@ -425,13 +435,14 @@ class RoIAlignBackward:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.oadg_roi_align_bwd(
                 ptrs, heights, widths, scales, n, b, c,
-                _DTYPE_CODES[feats[0].dtype], rois.data_ptr(), r,
+                _DTYPE_CODES[feats[0].dtype], output_size, rois.data_ptr(), r,
                 float(finest_scale), grad_out.data_ptr(), scratch.data_ptr(),
                 ints, stream)
         if err != 0:
             raise RuntimeError(f"roi_align_bwd launch failed with "
                                f"cudaError_t {err}")
         self.launches += 1
+        self.launches_by_size[output_size] += 1
         return grads
 
 

@@ -30,7 +30,15 @@ config's ``ConvModule``s (``<scope>/conv/Conv_0/kernel`` and
 ``conv_res_block{i}.res{j}.conv{k}``), the YOLO neck's ``detect{i}/conv{k}``
 and ``conv{i}``, the YOLO head's ``conv_bridge{i}``, ``conv_cont{i}`` and
 ``conv_pred{i}`` (``bbox_head.convs_bridge.{i}``, ``.convs_cont.{i}``,
-``.convs_pred.{i}``). A leaf with no mmdet name raises. The same map carries
+``.convs_pred.{i}``). Mask R-CNN's mask head ``roi/mask_head_m``:
+``conv_{i}``, ``upsample`` and ``conv_logits`` become
+``roi_head.mask_head.convs.{i}.conv``, ``.upsample`` and ``.conv_logits``;
+the transposed conv's flax kernel ``(kh, kw, in, out)`` becomes torch's
+``(in, out, kh, kw)`` flipped in both spatial axes (flax's
+``ConvTranspose`` is a stride-2 convolution of the dilated input with the
+kernel as given; torch's ``conv_transpose2d`` scatters each input through
+the kernel, which is the same convolution with the kernel flipped). A leaf
+with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
@@ -126,6 +134,13 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     if head == "rpn":
         leaf = "weight" if rest[-1] == "kernel" else "bias"
         return f"rpn_head.{rest[0]}.{leaf}"
+    if head == "roi" and rest[0] == "mask_head_m":
+        leaf = "weight" if rest[-1] == "kernel" else "bias"
+        m = re.fullmatch(r"conv_(\d+)", rest[1])
+        if m:
+            return f"roi_head.mask_head.convs.{m.group(1)}.conv.{leaf}"
+        if rest[1] in ("upsample", "conv_logits"):
+            return f"roi_head.mask_head.{rest[1]}.{leaf}"
     if head == "roi" and rest[0] == "head":
         name = rest[1]
         leaf = "weight" if rest[-1] == "kernel" else "bias"
@@ -166,7 +181,9 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
             if path[-1] == "kernel":
-                if v.ndim == 4:                          # HWIO -> OIHW
+                if key == "roi_head.mask_head.upsample.weight":   # flipped, (in, out, kh, kw)
+                    v = np.ascontiguousarray(v[::-1, ::-1].transpose(2, 3, 0, 1))
+                elif v.ndim == 4:                        # HWIO -> OIHW
                     v = v.transpose(3, 2, 0, 1)
                 else:                                    # (in, out) -> (out, in)
                     v = v.T

@@ -342,17 +342,17 @@ def _grid_rois(rng, images, img_h, img_w):
     return np.concatenate(parts).astype(np.float32)
 
 
-def _grid_inputs(dev, dtype, levels, c, seed=0, images=3, img_h=512, img_w=1024):
+def _grid_inputs(dev, dtype, levels, c, seed=0, images=3, img_h=512, img_w=1024, out=7):
     """Maps of the first ``levels`` FPN levels of ``images`` images of
     img_h x img_w (a whole-image roi is level 3), C = ``c``, and the rois of
-    ``_grid_rois``, with their dy."""
+    ``_grid_rois``, with their dy at ``out`` x ``out`` bins."""
     rng = np.random.RandomState(seed)
     strides = STRIDES[:levels]
     gen = torch.Generator(device=dev).manual_seed(seed)
     feats = [torch.randn(images, c, img_h // s, img_w // s, device=dev, generator=gen)
              .to(dtype).contiguous(memory_format=torch.channels_last) for s in strides]
     rois = torch.from_numpy(_grid_rois(rng, images, img_h, img_w)).to(dev)
-    dy = torch.randn(rois.shape[0], c, 7, 7, device=dev, generator=gen)
+    dy = torch.randn(rois.shape[0], c, out, out, device=dev, generator=gen)
     return feats, rois, dy, strides
 
 
@@ -393,6 +393,89 @@ def test_roi_align_kernels_on_the_grid(case):
         else:
             torch.testing.assert_close(g.float(), w, rtol=2 ** -8, atol=1e-4 * scale)
     assert sum(bool(w.abs().max() > 0) for w in want) == levels
+
+
+ROI_GRID_14 = [(levels, c, dtype) for levels in (1, 4) for c in (96, 256)
+               for dtype in (torch.float32, torch.bfloat16)] + [
+    (4, 6, torch.float32), (4, 6, torch.bfloat16)]       # one channel a load
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROI_GRID_14, ids=_grid_id)
+def test_roi_align_kernels_at_14x14(case):
+    """B1 and B2 at the mask head's 14x14 bins against their plain versions,
+    over levels, channel counts and dtypes, on the grid's rois (tiny and zero
+    boxes put all 196 bins of a roi on one 8x8 tile of B2); B2 gives equal
+    bits in two calls; each wrapper counts its 14x14 launches."""
+    levels, c, dtype = case
+    dev = _cuda()
+    feats, rois, dy, strides = _grid_inputs(dev, dtype, levels, c, seed=3, out=14)
+    fwd14, bwd14 = ROI_ALIGN_FWD.launches_by_size[14], ROI_ALIGN_BWD.launches_by_size[14]
+    got = ROI_ALIGN_FWD(feats, rois, 14, strides, 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 14, strides, 2, 56)
+    assert got.shape == (rois.shape[0], c, 14, 14) and got.dtype == torch.float32
+    fmax = max(float(f.float().abs().max()) for f in feats)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * fmax)
+    grads = ROI_ALIGN_BWD(feats, rois, dy, 14, strides, 2, 56)
+    again = ROI_ALIGN_BWD(feats, rois, dy, 14, strides, 2, 56)
+    want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois,
+                                             14, strides, 2, 56)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, a, w, f in zip(grads, again, want, feats):
+        assert g.dtype == dtype and g.shape == f.shape
+        assert g.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2 ** -8, atol=1e-4 * scale)
+    assert sum(bool(w.abs().max() > 0) for w in want) == levels
+    assert (ROI_ALIGN_FWD.launches_by_size[14], ROI_ALIGN_BWD.launches_by_size[14]) == (
+        fwd14 + 1, bwd14 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_14x14_through_autograd(dtype):
+    """``roi_align_multilevel`` at ``output_size=14`` on CUDA tensors runs B1
+    and B2 (no plain version), forward and backward."""
+    dev = _cuda()
+    feats, rois = _inputs(dev, dtype, seed=4)
+    feats = [f.requires_grad_(True) for f in feats]
+    dy = torch.from_numpy(np.random.RandomState(5).randn(300, 24, 14, 14)
+                          .astype(np.float32)).to(dev)
+    fwd, bwd = ROI_ALIGN_FWD.launches_by_size[14], ROI_ALIGN_BWD.launches_by_size[14]
+    out = roi_align_multilevel(feats, rois, 14, STRIDES, 2, 56)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (ROI_ALIGN_FWD.launches_by_size[14], ROI_ALIGN_BWD.launches_by_size[14]) == (
+        fwd + 1, bwd + 1)
+    torch.testing.assert_close(out, roi_align_multilevel_ref(feats, rois, 14, STRIDES, 2, 56),
+                               rtol=1e-5, atol=1e-6)
+    want = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois,
+                                             14, STRIDES, 2, 56)
+    scale = max(float(w.abs().max()) for w in want)
+    for f, w in zip(feats, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(f.grad, w, rtol=1e-5, atol=1e-5 * scale)
+        else:
+            torch.testing.assert_close(f.grad.float(), w, rtol=2 ** -8, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_roi_align_kernels_refuse_other_output_sizes():
+    """The kernels take 7x7 and 14x14 bins; 10x10 raises in both wrappers
+    (and through the op), naming what they take, and launches nothing."""
+    dev = _cuda()
+    feats, rois, dy, strides = _grid_inputs(dev, torch.float32, 4, 96, out=10)
+    fwd, bwd = ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches
+    with pytest.raises(ValueError, match="7x7 and 14x14"):
+        ROI_ALIGN_FWD(feats, rois, 10, strides, 2, 56)
+    with pytest.raises(ValueError, match="7x7 and 14x14"):
+        ROI_ALIGN_BWD(feats, rois, dy, 10, strides, 2, 56)
+    with pytest.raises(ValueError, match="7x7 and 14x14"):
+        roi_align_multilevel(feats, rois, 10, strides, 2, 56)
+    assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == (fwd, bwd)
 
 
 DWD_ROI_CASES = {"serving": (1, 64, 128, 1000), "training": (4, 46, 80, 4 * 512 + 4 * 10)}

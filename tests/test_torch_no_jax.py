@@ -59,11 +59,13 @@ def test_importing_the_port_loads_no_jax():
             "oadg_tpu_torch.core.bbox.transforms, oadg_tpu_torch.core.hook.hooks, "
             "oadg_tpu_torch.models.detectors.two_stage, "
             "oadg_tpu_torch.models.detectors.single_stage, "
+            "oadg_tpu_torch.core.mask, oadg_tpu_torch.models.roi_heads.mask_heads, "
             "oadg_tpu_torch.config as c; "
             "sys.path.insert(0, 'tools'); import torch_test_dwd; "
             "c.load_config('configs/OA-DG/cityscapes/"
             "faster_rcnn_r50_fpn_1x_cityscapes_oadg.py'); "
             "c.load_config('configs/OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py'); "
+            "c.load_config('configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

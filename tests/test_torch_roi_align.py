@@ -18,6 +18,13 @@ XLA tap scatter and through the TPU backward kernel ``roi_bwd_window_pallas``
 in interpret mode (``OADG_ROI_BWD=pallas``), on maps of at least 32x40 as
 ``tests/test_pallas_roi.py:49`` runs it, at rtol=1e-5, atol=2e-6; and to
 torch autograd of the plain forward.
+
+Each comparison runs at the box head's 7x7 bins and at the mask head's
+14x14 (the TPU kernels take any ``out``; the CUDA kernels take these two);
+a case's id is its old one at 7x7 and ends in ``-out14`` at 14x14. The tap
+geometry (rows and weights of every sample's four taps) equals the jitted
+JAX package's bit for bit at both: f32(1/7) and f32(1/14) are rounded
+reciprocals, and both sides multiply by the same one.
 """
 import numpy as np
 import jax
@@ -70,32 +77,65 @@ def _inputs(name, n_random, seed=0):
     return feats, rois, strides
 
 
-def _port(feats, rois, strides):
+def _port(feats, rois, strides, out=7):
     tf = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]
-    out = roi_align_multilevel(tf, torch.from_numpy(rois), 7, strides, 2, 56)
-    return out.numpy().transpose(0, 2, 3, 1)            # -> (R, 7, 7, C)
+    res = roi_align_multilevel(tf, torch.from_numpy(rois), out, strides, 2, 56)
+    return res.numpy().transpose(0, 2, 3, 1)            # -> (R, out, out, C)
 
 
-@pytest.mark.parametrize("name", sorted(LEVEL_SETS))
-def test_roi_align_matches_jax_impl(name):
+def _with_out(cases):
+    """Each case at 7x7 bins (its old id) and at 14x14 (id ``...-out14``)."""
+    return [pytest.param(*c, 7, id=cid) for c, cid in cases] + [
+        pytest.param(*c, 14, id=f"{cid}-out14") for c, cid in cases]
+
+
+LEVEL_CASES = _with_out([((name,), name) for name in sorted(LEVEL_SETS)])
+
+
+@pytest.mark.parametrize("name,out", LEVEL_CASES)
+def test_roi_align_matches_jax_impl(name, out):
     feats, rois, strides = _inputs(name, 120)
     want = _roi_align_multilevel_impl(
-        [jnp.asarray(f) for f in feats], jnp.asarray(rois), output_size=7,
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois), output_size=out,
         featmap_strides=strides, sampling_ratio=2, finest_scale=56, chunk=256)
-    got = _port(feats, rois, strides)
-    assert got.shape == want.shape
+    got = _port(feats, rois, strides, out)
+    assert got.shape == want.shape == (len(rois), out, out, 8)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", sorted(LEVEL_SETS))
-def test_roi_align_matches_interpreted_tpu_kernel(name, monkeypatch):
+@pytest.mark.parametrize("name,out", LEVEL_CASES)
+def test_roi_align_matches_interpreted_tpu_kernel(name, out, monkeypatch):
     feats, rois, strides = _inputs(name, 8, seed=1)
     monkeypatch.setenv("OADG_ROI_FWD", "pallas")
     want = jax.jit(lambda fs: _roi_align_forward(
-        fs, jnp.asarray(rois), 7, strides, 2, 56, 256))(
+        fs, jnp.asarray(rois), out, strides, 2, 56, 256))(
         [jnp.asarray(f) for f in feats])
-    got = _port(feats, rois, strides)
+    got = _port(feats, rois, strides, out)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("out", [7, 14])
+def test_tap_geometry_equals_jitted_jax(out):
+    """Every sample's four tap rows and weights at ``out`` x ``out`` bins
+    equal the jitted JAX ``_ml_tap_geometry`` bit for bit, on the flagship's
+    rois (edges, out of range, extreme aspect, tiny, zero, whole image)."""
+    from oadg_tpu.ops.roi_align import _ml_tap_geometry
+    rois, b, strides, shapes = _flagship_special_rois()
+    pyr = _Pyramid(shapes, strides, "cpu")
+    hs, ws, off = (t.numpy() for t in (pyr.hs, pyr.ws, pyr.level_off))
+    want = jax.jit(lambda r: _ml_tap_geometry(r, out, strides, 56, 2, hs, ws, off, b))(
+        jnp.asarray(rois))
+    g = _geometry(pyr, torch.from_numpy(rois), out, 2, 56)
+    okf = g.ok.float()
+    got = ((g.rows(g.y0, g.x0), okf * (1 - g.wy) * (1 - g.wx)),
+           (g.rows(g.y0, g.x1), okf * (1 - g.wy) * g.wx),
+           (g.rows(g.y1, g.x0), okf * g.wy * (1 - g.wx)),
+           (g.rows(g.y1, g.x1), okf * g.wy * g.wx))
+    for (gr, gw), (wr, ww) in zip(got, want):
+        assert gr.shape == (len(rois), 2 * out, 2 * out)
+        ok = g.ok.numpy()
+        np.testing.assert_array_equal(gr.numpy()[ok], np.asarray(wr)[ok])
+        np.testing.assert_array_equal(gw.numpy(), np.asarray(ww))
 
 
 def test_map_roi_levels_equal():
@@ -133,28 +173,29 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ROI_ALIGN_FWD(tf, torch.from_numpy(rois), 7, strides, 2, 56)
 
 
-def _grad_inputs(name, seed):
+def _grad_inputs(name, seed, out=7):
     feats, rois, strides = _inputs(name, 40, seed=seed)
-    dy = np.random.RandomState(seed + 10).randn(len(rois), 8, 7, 7).astype(np.float32)
+    dy = np.random.RandomState(seed + 10).randn(len(rois), 8, out, out).astype(np.float32)
     return feats, rois, strides, dy
 
 
 # the TPU window kernel needs levels of at least 32x40: two_levels only
-@pytest.mark.parametrize("name,mode", [("two_levels", "xla"), ("two_levels", "pallas"),
-                                       ("four_levels", "xla")])
-def test_plain_backward_matches_jax_grad(name, mode, monkeypatch):
-    feats, rois, strides, dy = _grad_inputs(name, 3)
+@pytest.mark.parametrize("name,mode,out", _with_out([
+    (("two_levels", "xla"), "two_levels-xla"), (("two_levels", "pallas"), "two_levels-pallas"),
+    (("four_levels", "xla"), "four_levels-xla")]))
+def test_plain_backward_matches_jax_grad(name, mode, out, monkeypatch):
+    feats, rois, strides, dy = _grad_inputs(name, 3, out)
     monkeypatch.setenv("OADG_ROI_BWD", mode)
     monkeypatch.setenv("OADG_ROI_FWD", "impl")
     g_nhwc = jnp.asarray(dy.transpose(0, 2, 3, 1))
     # jitted, as the train step runs it: XLA then rounds the tap geometry
     # with fused multiply-adds, as the port does
     want = jax.jit(jax.grad(lambda fs: jnp.sum(jax_roi_align_multilevel(
-        fs, jnp.asarray(rois), 7, strides, 2, 56) * g_nhwc)))(
+        fs, jnp.asarray(rois), out, strides, 2, 56) * g_nhwc)))(
         [jnp.asarray(f) for f in feats])
     got = roi_align_multilevel_ref_backward(
         torch.from_numpy(dy), [(f.shape[0], f.shape[3], f.shape[1], f.shape[2])
-                               for f in feats], torch.from_numpy(rois), 7, strides, 2, 56)
+                               for f in feats], torch.from_numpy(rois), out, strides, 2, 56)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         assert g.is_contiguous(memory_format=torch.channels_last)
@@ -215,8 +256,9 @@ def _flagship_special_rois():
                                                              for s in (4, 8, 16, 32)]
 
 
-@pytest.mark.parametrize("name", sorted(LEVEL_SETS) + ["flagship"])
-def test_tap_extent_holds_every_in_range_tap(name):
+@pytest.mark.parametrize("name,out", _with_out([((n,), n) for n in sorted(LEVEL_SETS)
+                                                + ["flagship"]]))
+def test_tap_extent_holds_every_in_range_tap(name, out):
     """Every in-range tap of ``_geometry`` lies inside ``_tap_extent`` (the
     plain twin of the rectangle by which the backward kernel bins rois into
     tiles): a tap outside it would lose its gradient. The extent is tight:
@@ -231,8 +273,8 @@ def test_tap_extent_holds_every_in_range_tap(name):
     empty = 0
     for i in range(0, rois.shape[0], _CHUNK):
         rc = rois[i:i + _CHUNK]
-        g = _geometry(pyr, rc, 7, 2, 56)
-        ext = _tap_extent(pyr, rc, 7, 2, 56)
+        g = _geometry(pyr, rc, out, 2, 56)
+        ext = _tap_extent(pyr, rc, out, 2, 56)
         lvl = map_roi_levels(rc, len(shapes), 56)
         ok = g.ok
         for yi in (g.y0, g.y1):
