@@ -268,25 +268,47 @@ non-zero exit code:
    the ``_14x14`` rows, its 7x7 ones to B1's and B2's. After every timed
    run, one profiled request and one profiled step per dtype give the busy
    shares, the step's stages and its ``forward_train: mask branch`` span.
-8. train reference: per dtype, one step of the same seeded model on the
+8. dist: data parallel on the card, one card: world 1 over NCCL, the
+   group joined in this process through ``parallel.init_distributed`` from
+   torchrun's environment (``MASTER_ADDR=127.0.0.1``, a free port). (a) Per
+   dtype the flagship's OA-DG step (OA-Mix on the slots chain) from phase
+   7's start (seeded weights, generator seed 0, ``raw_train_batch`` of
+   ``RandomState(3)``): a warm-up and 3 timed steps without a group, then
+   the same through the distributed step (gathered contrastive rows,
+   all-reduced normalizers and logged values, the gradient summed in the
+   ``train_step: allreduce`` span); every logged value and every parameter
+   and buffer bit-equal; B1-B6 counted over the distributed run against the
+   tables (``launches_dist``, ``launches_dist_bf16``, added to
+   ``launches``); both step medians; after every timed run, one profiled
+   distributed step per dtype: the all-reduce span's host and device ms.
+   (b) The OA-DG YOLOv3 step (2 x 2 fixed views of 256x256) without and
+   with the group (SyncBN's arithmetic) within phase 7d's card limits. (c)
+   ``tools/torch_dist_train.sh FLAGSHIP 1`` (``--launcher pytorch``) for
+   one epoch of 2 steps on 4 of phase 7b's PNGs with an evaluation on 5b's
+   16, then ``tools/torch_dist_test.sh`` of its checkpoint over the 16,
+   whose pickle must equal ``single_gpu_test``'s in this process; a script
+   that exits non-zero fails the phase.
+9. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
    losses, and the gradients of ``rpn_head.rpn_conv``,
    ``roi_head.bbox_head.fc_cls`` and ``backbone.layer4.*.conv3``; then the
    same for the plain Faster R-CNN on 2 images of one view.
-9. profiled: the times that need ``torch.profiler`` (the plain versions
+10. profiled: the times that need ``torch.profiler`` (the plain versions
    of B1 and B2, on float32 and on bfloat16 maps, and ``torch.bincount`` wait for the device inside a call, so
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
    attached to the process and slows every later launch on the host.
-10. a JSON line of the kernels (``launches``: the training step's, B1's
+11. a JSON line of the kernels (``launches``: the training step's, B1's
    test loop's and robustness sweep's, the baseline step's, the f32
    training loop's, the DWD f32 step's, requests' and test loop's, and the
-   YOLOv3 f32 step's, B1's f32 TTA loop's and the AdamW run's; each path's
+   YOLOv3 f32 step's, B1's f32 TTA loop's, the AdamW run's and the f32
+   distributed steps'; each path's
    count beside it, ``launches_robustness``, ``launches_dwd_step``,
    ``launches_baseline_step``, ``launches_train_loop``,
    ``launches_train_loop_bf16``, ``launches_yolo``, ``launches_yolo_bf16``,
-   ``launches_tta``, ``launches_tta_bf16`` and ``launches_engine``
+   ``launches_tta``, ``launches_tta_bf16``, ``launches_engine``,
+   ``launches_dist`` and ``launches_dist_bf16``
    included; the ``_14x14`` rows' ``launches`` are phase 7g's, each run's
    beside it, ``launches_mask_serve``, ``launches_mask_train`` (and their
    ``_bf16``) and ``launches_mask_tools``, which B1's and B2's rows carry
@@ -294,7 +316,7 @@ non-zero exit code:
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3c and 9 and prints the
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3c and 10 and prints the
 kernels' JSON line and no result line: for work on one kernel.
 
 The script imports nothing of JAX and nothing of the JAX package.
@@ -2710,6 +2732,7 @@ def phase_train_loop(rows, val):
                           f"{json.dumps(dict(f32=f32, bf16=bf16))}")
         tmp.cleanup()
 
+    profile.train = (ann_file, img_prefix)      # the data-parallel phase's train set
     return profile
 
 
@@ -5017,6 +5040,324 @@ def phase_mask(rows, val):
     return dict(serve=serve, train=train, tools=tools), profile
 
 
+DIST_STEPS = 3                  # timed steps a side, after one warm-up step
+DIST_STAGES = STAGES[:5] + ("train_step: backward", "train_step: allreduce",
+                            "train_step: sgd")
+DIST_TRAIN_IMAGES = 4           # the launch script's run: 2 steps of 2 images, one epoch
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_one():
+    """This process as rank 0 of a world of 1 over NCCL, through
+    ``parallel.init_distributed`` from torchrun's environment
+    (``MASTER_ADDR=127.0.0.1``, a free port). -> a function that destroys
+    the group and puts the environment back."""
+    import os
+    import torch
+    from oadg_tpu_torch.parallel import init_distributed
+    saved = {k: os.environ.get(k) for k in DIST_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    info = init_distributed("pytorch", device="cuda")
+    backend = torch.distributed.get_backend()
+    if info != (0, 1) or backend != "nccl":
+        raise AssertionError(f"init_distributed gave {info} over {backend}, not (0, 1) over nccl")
+
+    def close():
+        torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    return close
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (``warn_only``: an op without a deterministic version warns, and its
+    warnings are kept in ``warned``) for the duration; the settings are put
+    back on exit. The flagship's step without them is not reproducible bit
+    for bit on the card (cuDNN's weight gradients)."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self.catch = warnings.catch_warnings(record=True)
+        self.records = self.catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.catch.__exit__(*exc)
+        self.warned = sorted({str(w.message).split(".")[0][:160] for w in self.records
+                              if "deterministic" in str(w.message)})
+        torch.backends.cudnn.deterministic = self.saved[0]
+        torch.use_deterministic_algorithms(self.saved[1], warn_only=self.saved[2])
+
+
+def dist_flagship(name, rows):
+    """8a at ``name``: the flagship's OA-DG step (OA-Mix on the slots chain)
+    from phase 7's start (seeded weights, generator seed 0, the uint8 batch
+    of ``raw_train_batch(RandomState(3))``), a warm-up and ``DIST_STEPS``
+    timed steps without a process group, then the same with the NCCL group
+    of world 1 (the distributed step: gathered contrastive rows, all-reduced
+    normalizers, the summed gradient in ``train_step: allreduce``), both
+    under ``deterministic()``. Every logged value of every step, every
+    parameter and buffer after them bit-equal; B1-B6 counted over the
+    distributed run against the tables.
+    -> (numbers, the distributed step and its inputs, for the profile)."""
+    import torch
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.engine import make_oadg_preprocess
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    dev = torch.device("cuda", 0)
+    cfg = load_config(FLAGSHIP)
+    oamix_cfg = flagship_oamix_cfg()
+    wrappers = dict(roi_align_fwd=ROI_ALIGN_FWD, roi_align_bwd=ROI_ALIGN_BWD, **oamix_wrappers())
+
+    def run(group):
+        pre = {}
+        model, step = build_trainer("cuda", cfg, lambda b, g: pre["p"](b, g),
+                                    dtype=torch_dtype(name))
+        pre["p"] = make_oadg_preprocess(oamix_cfg, cfg["img_norm_cfg"], out_dtype=model.dtype)
+        batch = raw_train_batch(np.random.RandomState(3), IMG_H, IMG_W, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        close = nccl_world_one() if group else None
+        for w in wrappers.values():
+            w.launches = 0
+        want = dict(roi_align_fwd=0, roi_align_bwd=0, **dict.fromkeys(oamix_wrappers(), 0))
+        logs, times = [], []
+        try:
+            for i in range(1 + DIST_STEPS):
+                t0 = time.perf_counter()
+                logs.append(step(batch, gen))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                want["roi_align_fwd"] += 2
+                want["roi_align_bwd"] += 2
+                for k, n in expected_launches(pre["p"].draws, oamix_cfg["version"]).items():
+                    want[k] += n
+        except BaseException:
+            if close:
+                close()
+            raise
+        launched = {k: w.launches for k, w in wrappers.items()}
+        return dict(model=model, step=step, batch=batch, gen=gen, logs=logs, close=close,
+                    ms=statistics.median(times[1:]), launched=launched, want=want)
+
+    with deterministic() as mode:
+        one = run(False)
+        state_one = {k: v.detach().clone() for k, v in one["model"].state_dict().items()}
+        del one["model"], one["step"]
+        torch.cuda.empty_cache()
+        two = run(True)
+    log("dist", f"{name}: both runs with cuDNN's deterministic algorithms and PyTorch's "
+                f"deterministic mode; ops without a deterministic version: {mode.warned}")
+    try:
+        bad_logs = [(i, k) for i, (a, b) in enumerate(zip(two["logs"], one["logs"]))
+                    for k in b if not torch.equal(a[k].float(), b[k].float())]
+        state = two["model"].state_dict()
+        bad_state = [k for k, v in state_one.items() if not torch.equal(state[k], v)]
+        log("dist", f"{name}: {1 + DIST_STEPS} steps with and without the NCCL group: "
+                    f"logged values of every step {'bit-equal' if not bad_logs else bad_logs}; "
+                    f"{len(state_one)} parameters and buffers after them, "
+                    f"{len(bad_state)} differ {bad_state[:4]}")
+        for i, lv in enumerate(two["logs"]):
+            log("dist", f"{name}, distributed step {i}: " + ", ".join(
+                f"{k} {float(v):.6f}" for k, v in lv.items()))
+        if bad_logs or bad_state:
+            raise AssertionError(f"{name}: the world-1 NCCL step is not bit-equal to the "
+                                 f"non-distributed one: logs {bad_logs[:4]}, state "
+                                 f"{bad_state[:4]}")
+        log("dist", f"{name}: step median of {DIST_STEPS}: without a group {one['ms']:.3f} ms, "
+                    f"NCCL world 1 {two['ms']:.3f} ms ({nvidia_smi_line()})")
+        log("dist", f"{name}: launches in the distributed run {two['launched']}; the tables "
+                    f"imply {two['want']}")
+        if two["launched"] != two["want"] or not all(two["launched"][k] for k in LOOP_KERNELS):
+            raise AssertionError(f"{name}: the distributed steps launched {two['launched']}, "
+                                 f"not {two['want']}")
+        for r in rows:
+            if r["name"] in two["launched"]:
+                r["launches_dist" + ("" if name == "f32" else "_bf16")] = \
+                    two["launched"][r["name"]]
+    except BaseException:
+        two["close"]()
+        raise
+    return dict(step_ms=one["ms"], dist_step_ms=two["ms"]), two
+
+
+def dist_yolo():
+    """8b: one step of the seeded OA-DG YOLOv3 (2 images x 2 fixed views of
+    256x256, the same generator) without a group and with the NCCL group of
+    world 1 (its live BNs then sum their statistics through the group:
+    SyncBN's arithmetic), held to each other within phase 7d's card limits:
+    each loss within 1e-3, every gradient within ``YOLO_F32_LEAF`` of its
+    norm and their median within ``YOLO_F32_MEDIAN``, the whole gradient's
+    cosine at least 0.9999; the live BNs' stored statistics within 1e-3 of
+    their norm."""
+    import torch
+    cfg = yolo_cfg()
+    dev = torch.device("cuda", 0)
+    fixed = fixed_view_batch(np.random.RandomState(44), 256, 256, cfg, dev, views=2)
+
+    def run(group):
+        model, step = build_trainer("cuda", cfg)
+        close = nccl_world_one() if group else None
+        try:
+            lv = step(fixed, torch.Generator(device=dev).manual_seed(5))
+            torch.cuda.synchronize()
+        finally:
+            if close:
+                close()
+        return ({k: float(v) for k, v in lv.items()},
+                {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                {k: v.double().cpu() for k, v in model.state_dict().items() if "running_" in k})
+
+    (l1, g1, s1), (l2, g2, s2) = run(False), run(True)
+    for k in YOLO_LOSSES:
+        err = abs(l2[k] - l1[k]) / max(abs(l1[k]), 1e-6)
+        log("dist", f"yolo f32: {k} with the group {l2[k]:.6f}, without {l1[k]:.6f}, rel err "
+                    f"{err:.2e} (limit 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"yolo {k} with vs without the group: {l2[k]} vs {l1[k]}")
+    d = leaf_distances(g2, g1)
+    flat = [torch.cat([g[k].reshape(-1) for k in sorted(g1)]) for g in (g2, g1)]
+    cos = float(flat[0] @ flat[1] / (flat[0].norm() * flat[1].norm()))
+    ds = leaf_distances(s2, s1)
+    log("dist", f"yolo f32: gradients with the group from without, over {len(d)}: median "
+                f"{statistics.median(d.values()):.3e}, worst {max(d.values()):.3e} (limits "
+                f"{YOLO_F32_MEDIAN:g}, {YOLO_F32_LEAF:g}); cosine {cos:.8f} (limit 0.9999); "
+                f"{len(ds)} stored BN statistics, worst {max(ds.values()):.3e} (limit 1e-3)")
+    if not (max(d.values()) <= YOLO_F32_LEAF and statistics.median(d.values()) <= YOLO_F32_MEDIAN
+            and cos >= 0.9999 and max(ds.values()) <= 1e-3):
+        raise AssertionError("yolo: the world-1 SyncBN step is not within phase 7d's limits of "
+                             "the non-distributed one")
+
+
+def dist_tools(val, train):
+    """8c: ``tools/torch_dist_train.sh FLAGSHIP 1 --launcher pytorch`` (f32)
+    on ``DIST_TRAIN_IMAGES`` of phase 7b's PNGs: one epoch of 2 steps and an
+    evaluation on phase 5b's val set; then ``tools/torch_dist_test.sh`` of
+    its checkpoint over the 16 val PNGs with ``--out``, whose pickle must
+    equal this process's ``single_gpu_test`` of the same checkpoint."""
+    import os
+    import pickle
+    import tempfile
+    import torch
+    from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+    from oadg_tpu_torch.config import load_config
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        ann = _subset_json(train[0], DIST_TRAIN_IMAGES, os.path.join(tmp.name, "train.json"))
+        work = os.path.join(tmp.name, "work")
+        env = dict(os.environ, PYTHON=sys.executable, PORT=str(free_port()))
+        for k in DIST_ENV:
+            env.pop(k, None)
+        options = {"data.train.times": 1, "data.train.dataset.ann_file": ann,
+                   "data.train.dataset.img_prefix": train[1], "data.val.ann_file": val[0],
+                   "data.val.img_prefix": val[1], "runner.max_epochs": 1,
+                   "log_config.interval": 1}
+        t0 = time.perf_counter()
+        res = subprocess.run(["bash", str(ROOT / "tools" / "torch_dist_train.sh"), str(FLAGSHIP),
+                              "1", "--work-dir", work, "--seed", "0", "--cfg-options",
+                              *(f"{k}={v}" for k, v in options.items())],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        train_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"tools/torch_dist_train.sh exited {res.returncode}:\n"
+                                 f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+        lines = read_log(work)
+        modes = [ln["mode"] for ln in lines]
+        ckpt = os.path.join(work, "epoch_1.pth")
+        log("dist", f"tools/torch_dist_train.sh (1 process, NCCL) exit 0 in {train_s:.2f} s: "
+                    f"log.json modes {modes}, losses "
+                    f"{[round(ln['loss'], 5) for ln in lines if ln['mode'] == 'train']}")
+        if modes != ["train", "train", "val"] or not os.path.exists(ckpt) or \
+                not all(math.isfinite(ln["loss"]) for ln in lines if ln["mode"] == "train"):
+            raise AssertionError(f"the launch script's run logged {modes}")
+        out = os.path.join(tmp.name, "dist.pkl")
+        test_opts = [f"data.test.ann_file={val[0]}", f"data.test.img_prefix={val[1]}"]
+        env["PORT"] = str(free_port())
+        t0 = time.perf_counter()
+        res = subprocess.run(["bash", str(ROOT / "tools" / "torch_dist_test.sh"), str(FLAGSHIP),
+                              ckpt, "1", "--out", out, "--eval", "bbox", "--cfg-options",
+                              *test_opts], cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        test_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"tools/torch_dist_test.sh exited {res.returncode}:\n"
+                                 f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+        with open(out, "rb") as f:
+            got = pickle.load(f)
+        cfg = load_config(FLAGSHIP)
+        cfg.merge_from_dict(dict(a.split("=", 1) for a in test_opts))
+        _, loader = build_test_loader(cfg, pin_memory=True)
+        want = single_gpu_test(load_model_state(cfg, ckpt, device="cuda"), loader)
+        within, bits = _same_results(got, want)
+        n_dets = sum(len(a) for r in want for a in r)
+        log("dist", f"tools/torch_dist_test.sh exit 0 in {test_s:.2f} s: {len(got)} images' "
+                    f"results, {n_dets} detections; against single_gpu_test in this process: "
+                    f"{'bit-equal' if bits else 'not bit-equal'}; "
+                    + (res.stdout.strip().splitlines() or ["(no output)"])[-1][:200])
+        if len(got) != EVAL_IMAGES or not bits:
+            raise AssertionError("the launch script's test pickle differs from single_gpu_test")
+        torch.cuda.empty_cache()
+        return dict(train_s=train_s, test_s=test_s)
+    finally:
+        tmp.cleanup()
+
+
+def phase_dist(rows, val, train):
+    """8: data parallel on the card (one card: world 1 over NCCL).
+    -> (numbers, a function that profiles one distributed step per dtype and
+    then destroys the group)."""
+    import torch
+    t0 = time.perf_counter()
+    out, kept = {}, {}
+    for name in DTYPES:
+        out[name], kept[name] = dist_flagship(name, rows)
+        kept[name]["close"]()               # the group lives again only for the profile
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["launches"] += r.get("launches_dist", 0)
+    dist_yolo()
+    out["tools"] = dist_tools(val, train)
+    log("dist", f"phase 8: {time.perf_counter() - t0:.2f} s")
+
+    def profile():
+        """One profiled distributed step per dtype (after every timed run):
+        the ``train_step: allreduce`` span's host and device ms beside the
+        step's, and the device's busy share."""
+        for name in DTYPES:
+            k = kept[name]
+            close = nccl_world_one()
+            try:
+                busy, spans = train_profile(k["step"], k["batch"], k["gen"], "slots", name,
+                                            stages=DIST_STAGES, tag="dist-profile")
+            finally:
+                close()
+            out[name].update(busy=busy, allreduce_host_ms=spans["train_step: allreduce"][0],
+                             allreduce_device_ms=spans["train_step: allreduce"][1])
+        kept.clear()
+
+    return out, profile
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5053,11 +5394,13 @@ def main():
     engine = phase_engine(rows, evaluate_profile.val)
     rows += mask_rows
     mask, mask_profile = phase_mask(rows, evaluate_profile.val)
+    dist, dist_profile = phase_dist(rows, evaluate_profile.val, loop_profile.train)
     for _, profile in trains.values():
         profile()
     yolo_profile()
     tta_profile()
     mask_profile()
+    dist_profile()
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
         summary[name]["serving_busy"] = serving_profile(name)
@@ -5073,6 +5416,7 @@ def main():
     log("tta", f"summary ({nvidia_smi_line()}): {json.dumps(tta)}")
     log("engine", f"summary ({nvidia_smi_line()}): {json.dumps(engine)}")
     log("mask", f"summary ({nvidia_smi_line()}): {json.dumps(mask)}")
+    log("dist", f"summary ({nvidia_smi_line()}): {json.dumps(dist)}")
     for name in DTYPES:
         phase_train_reference(name)
         phase_train_reference(name, BASELINE, "baseline-reference")

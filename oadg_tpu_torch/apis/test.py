@@ -7,19 +7,24 @@ A test-time augmentation batch (a ``MultiScaleFlipAug`` pipeline with
 several scales or ``flip=True``) goes to the model's ``aug_test`` through
 the test step (``make_test_step``).
 
-Multi-process testing (``multi_gpu_test``, ``collect_results_allgather``)
-waits for data parallel (ROADMAP A, 'Data parallel').
+Multi-process testing (``multi_gpu_test``, ``:154``): each rank runs its
+slice of the loader (``build_dataloader`` takes the rank from
+``torch.distributed``), then ``collect_results_allgather`` (``:76-150``)
+all-gathers the ranks' results and restores the dataset's order on every
+rank.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.bbox.transforms import bbox2result
 from ..data import build_dataloader, build_dataset, static_hw_from_pipeline
 from ..engine.train_step import make_test_step
+from ..parallel import get_dist_info, is_distributed
 from .inference import _num_classes, init_detector
 
 
@@ -70,6 +75,91 @@ def single_gpu_test(model_state: Dict, data_loader, show: bool = False,
                                   "which is not ported yet (ROADMAP A, 'Long tail')")
     return run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
                     progress=progress)
+
+
+def _allgather_tables(table: np.ndarray) -> List[np.ndarray]:
+    """Every rank's (n_r, 7) float32 table, in rank order: padded with -2
+    rows to the largest n_r and all-gathered (CUDA tensors on NCCL, CPU
+    tensors on gloo)."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    world = get_dist_info()[1]
+    count = torch.tensor([table.shape[0]], dtype=torch.int64, device=dev)
+    counts = [torch.empty_like(count) for _ in range(world)]
+    dist.all_gather(counts, count)
+    m = int(max(int(c) for c in counts))
+    padded = np.concatenate([table, np.full((m - table.shape[0], 7), -2.0, np.float32)])
+    mine = torch.from_numpy(padded).to(dev)
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    return [p.cpu().numpy() for p in parts]
+
+
+def collect_results_allgather(results: Sequence, indices: Sequence[int], dataset_len: int,
+                              num_classes: int) -> List[List[np.ndarray]]:
+    """The ranks' results -> the whole dataset's, in its order, on every
+    rank (``oadg_tpu/apis/test.py:76-150``; the reference's tmpdir pickle
+    exchange, ``collect_results_cpu``, without a shared file system):
+
+    1. this rank's detections (``results[k]`` is dataset image
+       ``indices[k]``'s) become a float32 table of ``[ds_index, cls, score,
+       x1, y1, x2, y2]`` rows, each image led by a presence row (cls -1);
+    2. the tables are padded to the largest and all-gathered
+       (``_allgather_tables``; without a process group the one table);
+    3. decoded rank-major: an image's first copy (the lowest rank's, then
+       the first within it) wins over the loader's wraparound duplicates.
+
+    An image no rank processed gets empty arrays."""
+    rows = [np.zeros((0, 7), np.float32)]
+    for res, ds_i in zip(results, indices):
+        rows.append(np.asarray([[float(ds_i), -1, 0, 0, 0, 0, 0]], np.float32))
+        for c, arr in enumerate(res):
+            if len(arr):
+                a = np.asarray(arr, np.float32)              # (k, 5) x1 y1 x2 y2 score
+                rows.append(np.concatenate(
+                    [np.full((len(a), 1), float(ds_i), np.float32),
+                     np.full((len(a), 1), float(c), np.float32), a[:, 4:5], a[:, :4]], 1))
+    table = np.concatenate(rows, 0)
+    blocks = _allgather_tables(table) if is_distributed() else [table]
+
+    claimed = set()
+    per_img: Dict[int, List[List[List[float]]]] = {}
+    for blk in blocks:
+        accepting: Dict[int, bool] = {}          # a presence row precedes its detections
+        for row in blk:
+            ds_i = int(row[0])
+            if row[1] == -2.0 or ds_i < 0 or ds_i >= dataset_len:
+                continue                         # padding
+            if row[1] == -1.0:
+                accepting[ds_i] = ds_i not in claimed
+                if accepting[ds_i]:
+                    claimed.add(ds_i)
+                    per_img[ds_i] = [[] for _ in range(num_classes)]
+                continue
+            if accepting.get(ds_i):
+                per_img[ds_i][int(row[1])].append([row[3], row[4], row[5], row[6], row[2]])
+    return [[np.asarray(per_img[i][c] if i in per_img else [], np.float32).reshape(-1, 5)
+             for c in range(num_classes)] for i in range(dataset_len)]
+
+
+def multi_gpu_test(model_state: Dict, data_loader,
+                   progress: bool = False) -> List[List[np.ndarray]]:
+    """Distributed testing (``oadg_tpu/apis/test.py:154``; reference
+    ``mmdet/apis/test.py:541``): this rank's slice of ``data_loader``
+    through ``model_state``'s ``test_fn``, then every rank's results
+    collected in the dataset's order (``collect_results_allgather``, keyed
+    by the loader's ``result_indices``). One process whose loader keeps
+    the dataset's order gets ``run_test``'s list as it is."""
+    results = run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
+                       progress=progress and get_dist_info()[0] == 0)
+    if hasattr(data_loader, "result_indices"):
+        indices = [int(i) for i in np.asarray(data_loader.result_indices())[:len(results)]]
+    else:
+        indices = list(range(len(results)))
+    n = len(data_loader.dataset) if hasattr(data_loader, "dataset") else len(results)
+    if not is_distributed() and indices == list(range(len(results))):
+        return results
+    return collect_results_allgather(results, indices, n, model_state["num_classes"])
 
 
 def load_model_state(cfg, checkpoint, device="cuda", dtype=None) -> Dict:

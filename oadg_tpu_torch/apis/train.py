@@ -2,7 +2,8 @@
 ``init_random_seed``, ``set_random_seed`` and ``train_detector``, which
 builds the train loader, the OA-Mix preprocess, the val loader, the runner
 and its starting point (backbone init, ``resume_from``, ``auto_resume``,
-``load_from``; ``build_runner``), then runs it.
+``load_from``; ``build_runner``), then runs it, in one process or data
+parallel over a ``torch.distributed`` group (``:95-106``).
 """
 from __future__ import annotations
 
@@ -16,16 +17,23 @@ import torch
 from ..data import build_dataloader, build_dataset, static_hw_from_pipeline
 from ..engine.preprocess import make_oadg_preprocess
 from ..engine.runner import Checkpointer, EpochBasedRunner, get_root_logger, model_state_dict
+from ..parallel import broadcast_state, is_distributed
 from .test import build_test_loader
 
 _REMOTE = ("http://", "https://", "open-mmlab://", "torchvision://", "modelzoo://", "mmcls://")
 
 
 def init_random_seed(seed: Optional[int] = None) -> int:
-    """``seed``, or a random one below 2**31 when None."""
+    """``seed``, or a random one below 2**31 when None; under data parallel
+    rank 0's, broadcast (the ranks must shuffle alike)."""
     if seed is not None:
         return seed
-    return int(np.random.randint(2 ** 31))
+    seed = int(np.random.randint(2 ** 31))
+    if is_distributed():
+        box = [seed]
+        torch.distributed.broadcast_object_list(box, src=0)
+        seed = int(box[0])
+    return seed
 
 
 def set_random_seed(seed: int, deterministic: bool = False):
@@ -76,10 +84,18 @@ def train_detector(model: torch.nn.Module, dataset, cfg, distributed: bool = Fal
     """Train ``model`` (``init_detector(cfg, num_views=..., dtype=...).model``,
     on the device it is to train on) on ``dataset`` (built, or its config)
     as ``cfg`` says, evaluating on ``cfg.data.val`` after each epoch with
-    ``validate``. -> the runner, after its run."""
-    if distributed:
-        raise NotImplementedError("train_detector(distributed=True): data parallel is "
-                                  "not ported yet (ROADMAP A, 'Data parallel')")
+    ``validate``. -> the runner, after its run.
+
+    ``distributed=True`` trains data parallel over the process group that
+    ``parallel.init_distributed`` joined (every rank calls this): each rank
+    loads its slice of the batches (``samples_per_gpu`` images a rank),
+    the step computes the JAX package's global-batch step, rank 0 writes
+    the work dir. It must agree with whether a group is initialized."""
+    if bool(distributed) != is_distributed():
+        raise ValueError(f"train_detector(distributed={distributed}) with "
+                         f"{'a' if is_distributed() else 'no'} process group: call "
+                         "parallel.init_distributed first, or pass distributed="
+                         f"{is_distributed()}")
     runner = build_runner(model, dataset, cfg, validate=validate, work_dir=work_dir)
     runner.run()
     return runner
@@ -91,7 +107,7 @@ def build_runner(model: torch.nn.Module, dataset, cfg, validate: bool = False,
     batches on the card), the OA-Mix preprocess when the pipeline has an
     ``OAMix`` op, the val loader with ``validate``, and the starting point
     (the backbone's ``init_cfg``, then ``resume_from``, ``auto_resume`` or
-    ``load_from``)."""
+    ``load_from``), broadcast from rank 0 under data parallel."""
     work_dir = work_dir or cfg.get("work_dir") or "./work_dirs/default"
     os.makedirs(work_dir, exist_ok=True)
     logger = get_root_logger(work_dir)
@@ -136,4 +152,5 @@ def build_runner(model: torch.nn.Module, dataset, cfg, validate: bool = False,
         runner.resume(auto=True)
     elif cfg.get("load_from"):
         runner.load_weights(Checkpointer.load(_checkpoint_file(cfg["load_from"], "load_from")))
+    broadcast_state(model)
     return runner

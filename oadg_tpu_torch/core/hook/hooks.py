@@ -25,6 +25,9 @@ from ...utils.registry import HOOKS
 
 
 class Hook:
+    # under data parallel, called on rank 0 alone (the loggers, the profiler)
+    rank0_only = False
+
     def before_run(self, runner):
         pass
 
@@ -231,24 +234,28 @@ class SetEpochInfoHook(Hook):
     so this is a no-op (as in the JAX package)."""
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
 @HOOKS.register_module()
 class SyncNormHook(Hook):
-    """mmdet averages the BN statistics over the ranks before evaluating;
-    with one process there is nothing to average, so this is a no-op (as in
-    the JAX package). Several processes wait for data parallel."""
+    """After each training epoch, before the evaluation, the stored
+    statistics of every live BN (``models.layers.BatchNorm``) averaged over
+    the ranks, as mmdet does. The port's live BNs are SyncBN under data
+    parallel, so the ranks' statistics agree already and the average keeps
+    them: in effect the JAX package's no-op. Nothing with one process."""
 
     def __init__(self, **kw):
         pass
 
-    def before_run(self, runner):
-        if _world_size() > 1:
-            raise NotImplementedError("SyncNormHook over several processes waits for "
-                                      "data parallel (ROADMAP A, 'Data parallel')")
+    def after_train_epoch(self, runner):
+        from ...models.layers import BatchNorm
+        from ...parallel import all_reduce_sum, get_dist_info, is_distributed
+        if not is_distributed():
+            return
+        world = get_dist_info()[1]
+        with torch.no_grad():
+            for m in runner.model.modules():
+                if isinstance(m, BatchNorm):
+                    for buf in (m.running_mean, m.running_var):
+                        buf.copy_(all_reduce_sum(buf) / world)
 
 
 def _qualified(model: torch.nn.Module, layer_list) -> List[Tuple[str, torch.nn.Module]]:
@@ -319,7 +326,10 @@ class WandbLogger(Hook):
     evaluation the metrics under ``val/`` and a table of the first
     ``num_eval_images`` images with their detections above
     ``bbox_score_thr`` as box overlays. Without the ``wandb`` module it
-    logs a warning and does nothing."""
+    logs a warning and does nothing. Under data parallel rank 0 alone
+    logs."""
+
+    rank0_only = True
 
     def __init__(self, init_kwargs=None, interval: int = 50, log_checkpoint: bool = False,
                  log_checkpoint_metadata: bool = False, num_eval_images: int = 100,
@@ -425,7 +435,10 @@ class ProfilerHook(Hook):
     ``num_iters`` training iterations: it starts once ``start_iter``
     iterations are done and stops ``num_iters`` later (or at the end of the
     run), writing a Chrome trace ``trace_iter{a}-{b}.json`` into
-    ``out_dir`` (default ``work_dir/profiler``; ``:392-424``)."""
+    ``out_dir`` (default ``work_dir/profiler``; ``:392-424``). Under data
+    parallel rank 0 alone traces."""
+
+    rank0_only = True
 
     def __init__(self, start_iter: int = 10, num_iters: int = 3,
                  out_dir: Optional[str] = None, **kw):

@@ -172,6 +172,7 @@ class PrefetchLoader:
         self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.epoch = 0            # the draw the next iteration yields
+        self.last_epoch = None    # the draw the last iteration yielded
         self.batcher = StaticBatcher(static_hw, max_gt=max_gt, pin_memory=pin_memory)
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -190,12 +191,28 @@ class PrefetchLoader:
         self.epoch = int(epoch)
 
     def _epoch_batches(self) -> List[np.ndarray]:
-        if self.shuffle:                    # draw ``epoch`` of the seed's stream
-            self.rng = np.random.RandomState(self.seed)
-            for _ in range(self.epoch):
-                self._batch_indices()
+        batches = self._draw(self.epoch)
+        self.last_epoch = self.epoch
         self.epoch += 1
+        return batches
+
+    def _draw(self, epoch: int) -> List[np.ndarray]:
+        """The batches of draw ``epoch`` of the seed's stream."""
+        if self.shuffle:
+            self.rng = np.random.RandomState(self.seed)
+            for _ in range(epoch):
+                self._batch_indices()
         return self._batch_indices()
+
+    def result_indices(self) -> np.ndarray:
+        """The dataset indices of this rank's batches, in the order the last
+        iteration yielded them (before any iteration: the next one's), the
+        wraparound padding included: the key ``multi_gpu_test`` restores the
+        dataset's order by (``oadg_tpu/data/builder.py:168-177``)."""
+        batches = self._draw(self.epoch if self.last_epoch is None else self.last_epoch)
+        if not batches:
+            return np.zeros(0, np.int64)
+        return np.concatenate([np.asarray(b, np.int64) for b in batches])
 
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
@@ -280,15 +297,20 @@ class PrefetchLoader:
 def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 2,
                      num_gpus: int = 1, dist: bool = False, shuffle: bool = True,
                      seed: Optional[int] = None, static_hw=None, max_gt: int = 128,
-                     rank: int = 0, world_size: int = 1, pin_memory: bool = False,
-                     **kwargs) -> PrefetchLoader:
+                     rank: Optional[int] = None, world_size: Optional[int] = None,
+                     pin_memory: bool = False, **kwargs) -> PrefetchLoader:
     """The reference's builder signature -> a ``PrefetchLoader`` that drops
     the last partial batch only when it shuffles. ``rank`` and
-    ``world_size`` default to one process (``torch.distributed`` is
-    ROADMAP A, 'Data parallel')."""
-    if dist:
-        raise NotImplementedError("build_dataloader(dist=True): data parallel is "
-                                  "not ported yet (ROADMAP A, 'Data parallel')")
+    ``world_size`` default to ``torch.distributed``'s (one process without a
+    group), as the JAX package takes them from ``jax.process_*``
+    (``:244-251``): each rank loads its slice of the batches, and
+    ``samples_per_gpu`` is per rank. ``dist`` and ``num_gpus`` are
+    accepted for the signature and read from the group instead."""
+    if rank is None or world_size is None:
+        from ..parallel import get_dist_info
+        g_rank, g_world = get_dist_info()
+        rank = g_rank if rank is None else rank
+        world_size = g_world if world_size is None else world_size
     return PrefetchLoader(dataset, samples_per_gpu, num_workers=workers_per_gpu,
                           shuffle=shuffle, seed=seed, static_hw=static_hw,
                           max_gt=max_gt, drop_last=shuffle, rank=rank,

@@ -28,6 +28,7 @@ and ``tools/torch_test.py`` read such a file as it is.
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import logging
 import math
@@ -39,6 +40,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import get_dist_info
 from .optim import build_lr_schedule, build_optimizer
 from .train_step import make_test_step, make_train_step, upload_train_batch
 
@@ -50,14 +52,19 @@ def get_root_logger(work_dir: Optional[str] = None, log_level=logging.INFO) -> l
     """The port's logger: stderr and, when ``work_dir`` is named, its text log
     ``work_dir/train.log``. Each call that names a work dir moves the file
     to that work dir's log, so that a second run in one process writes into
-    its own work dir."""
+    its own work dir. Under data parallel only rank 0 writes the file, and
+    the other ranks log errors alone (mmcv's rule)."""
     logger = logging.getLogger("oadg_tpu_torch")
     fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    rank = get_dist_info()[0]
     if not logger.handlers:
         logger.setLevel(log_level)
         sh = logging.StreamHandler()
         sh.setFormatter(fmt)
         logger.addHandler(sh)
+    if rank != 0:
+        logger.setLevel(logging.ERROR)
+        return logger
     if work_dir is None:
         return logger
     path = os.path.abspath(os.path.join(work_dir, TEXT_LOG))
@@ -72,11 +79,17 @@ def get_root_logger(work_dir: Optional[str] = None, log_level=logging.INFO) -> l
     return logger
 
 
-def step_generator(seed: int, it: int, device) -> torch.Generator:
-    """The generator of iteration ``it``: on ``device``, seeded with
-    ``seed * 2**32 + it``, so that its draws depend on (seed, it) alone."""
+def step_generator(seed: int, it: int, device, rank: int = 0) -> torch.Generator:
+    """The generator of iteration ``it`` on rank ``rank``: on ``device``,
+    seeded with ``seed * 2**32 + it`` on rank 0, so that its draws depend
+    on (seed, it) alone (one process is rank 0); on another rank with a
+    hash of (seed, it, rank), a stream of its own."""
+    base = (int(seed) % 2 ** 31) * 2 ** 32 + int(it)
+    if rank:
+        digest = hashlib.sha256(f"{base}:{int(rank)}".encode()).digest()
+        base = int.from_bytes(digest[:8], "little") >> 1
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) % 2 ** 31) * 2 ** 32 + int(it))
+    g.manual_seed(base)
     return g
 
 
@@ -144,7 +157,17 @@ class EpochBasedRunner:
     ``runner.max_epochs``, ``log_config.interval``,
     ``checkpoint_config.interval``, ``custom_hooks`` and ``evaluation``,
     over ``train_loader``'s batches; ``preprocess`` (the OA-Mix one) runs
-    inside the step."""
+    inside the step.
+
+    Under data parallel (a process group; ``apis.train_detector(...,
+    distributed=True)``) each rank runs this runner on its slice of the
+    batches, with its own step generators (``step_generator(...,
+    rank)``: OA-Mix's table is drawn for the rank's images); the logged
+    values are the global batch's, so every rank sees the same loss (the
+    NaN check stops them together); only rank 0 (``self.rank``) writes
+    checkpoints, ``log.json`` and ``train.log`` and runs the hooks marked
+    ``rank0_only``; every rank runs the evaluation's forward on its slice
+    of the val set and gets the whole set's results (``multi_gpu_test``)."""
 
     def __init__(self, model: torch.nn.Module, cfg, train_loader, work_dir: str,
                  val_dataset=None, val_loader=None, preprocess=None, logger=None,
@@ -163,6 +186,7 @@ class EpochBasedRunner:
         self.val_dataset = val_dataset
         self.val_loader = val_loader
         self.seed = int(seed)
+        self.rank, self.world = get_dist_info()
         self.lr_fn = build_lr_schedule(cfg.get("lr_config"), float(cfg["optimizer"]["lr"]),
                                        max(len(train_loader), 1), max_epochs=self.max_epochs)
         self.optimizer = build_optimizer(
@@ -182,7 +206,8 @@ class EpochBasedRunner:
 
     def call_hooks(self, stage: str, *args):
         for h in self.hooks:
-            getattr(h, stage)(self, *args)
+            if self.rank == 0 or not getattr(h, "rank0_only", False):
+                getattr(h, stage)(self, *args)
 
     def enable_head_l1(self):
         """``YOLOXModeSwitchHook``: the single-stage head's extra L1 loss on,
@@ -203,7 +228,10 @@ class EpochBasedRunner:
 
     # ---------------- checkpoints ----------------
 
-    def save(self) -> str:
+    def save(self) -> Optional[str]:
+        """The checkpoint of this epoch (rank 0 writes it; other ranks None)."""
+        if self.rank != 0:
+            return None
         t0 = time.perf_counter()
         path = self.ckpt.save(self.model, self.optimizer,
                               dict(epoch=self.epoch, iter=self.iter, seed=self.seed))
@@ -250,7 +278,7 @@ class EpochBasedRunner:
             t0 = time.perf_counter()
             lr = self.lr_fn(self.step.t)
             scal = fetch_log_vars(self.step(arrs, step_generator(self.seed, self.iter,
-                                                                 self.device)))
+                                                                 self.device, self.rank)))
             step_time = time.perf_counter() - t0
             self.iter += 1
             if not math.isfinite(scal["loss"]):
@@ -269,6 +297,8 @@ class EpochBasedRunner:
             t_data = time.perf_counter()
 
     def _write_json(self, entry: Dict[str, Any]):
+        if self.rank != 0:
+            return
         with open(self.json_log, "a") as f:
             f.write(json.dumps(entry) + "\n")
 
@@ -291,11 +321,14 @@ class EpochBasedRunner:
         self.call_hooks("after_run")
 
     def evaluate(self, metric=None) -> Dict[str, Any]:
-        """The val set through the test step (``run_test``), scored by the
-        val dataset's ``evaluate`` with ``metric`` or ``evaluation.metric``."""
+        """The val set through the test step (``multi_gpu_test``: under data
+        parallel each rank runs its slice and every rank gets the whole set's
+        results), scored by the val dataset's ``evaluate`` with ``metric`` or
+        ``evaluation.metric``."""
         from ..apis.inference import _num_classes
-        from ..apis.test import run_test
-        results = run_test(self.test_fn, self.val_loader, _num_classes(self.cfg))
+        from ..apis.test import multi_gpu_test
+        results = multi_gpu_test(dict(test_fn=self.test_fn, num_classes=_num_classes(self.cfg)),
+                                 self.val_loader)
         self.last_val_results = results
         kwargs = {}
         ev = dict(self.cfg.get("evaluation") or {})

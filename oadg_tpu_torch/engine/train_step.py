@@ -14,7 +14,8 @@ Build the preprocess with ``out_dtype=model.dtype``.
 
 Backward and the optimizer step run inside
 ``torch.profiler.record_function`` spans (``train_step: backward``,
-``train_step: sgd`` whatever the optimizer), beside those of
+``train_step: sgd`` whatever the optimizer; under data parallel the
+gradients' sum in ``train_step: allreduce``), beside those of
 ``TwoStageDetector.forward_train``; they cost nothing without a profiler.
 
 ``upload_train_batch``: a loader's training batch to the step's tensors on
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..parallel import all_reduce_sum, is_distributed, sharded_batch, sum_gradients
 from ..utils.draws import UniformDraws
 
 
@@ -55,6 +57,15 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     (``preprocess(batch, generator)``, when given) and the samplers'. The step at
     iteration ``t`` (``step.t``, counting from 0) runs with
     ``lr_schedule(t)``; ``step.optimizer`` is ``optimizer``.
+
+    Data parallel (``parallel/dist.py``): under a process group ``batch``
+    is this rank's part of the global batch (its images, every view) and
+    ``generator`` this rank's. ``forward_train`` runs inside
+    ``sharded_batch()``, so the losses are the rank's shares of the global
+    batch's; the gradients are summed over the ranks (``sum_gradients``,
+    in a ``train_step: allreduce`` span) before the optimizer (and its
+    ``grad_clip``, which then clips by the global norm), and ``log_vars``
+    are the global values (one all-reduce of their stack).
     """
 
     def step(batch: Dict[str, torch.Tensor],
@@ -67,10 +78,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if preprocess is not None:
             with record_function("train_step: oamix"):
                 batch = preprocess(batch, generator)
-        total, log_vars = parse_losses(model.forward_train(batch,
-                                                           UniformDraws(generator)))
+        with sharded_batch():
+            total, log_vars = parse_losses(model.forward_train(batch,
+                                                               UniformDraws(generator)))
         with record_function("train_step: backward"):
             total.backward()
+        if is_distributed():
+            with record_function("train_step: allreduce"):
+                sum_gradients(model.parameters())
+                keys = list(log_vars)
+                summed = all_reduce_sum(torch.stack(
+                    [log_vars[k].detach().float().reshape(()) for k in keys]))
+                log_vars = dict(zip(keys, summed.unbind(0)))
         with record_function("train_step: sgd"):
             optimizer.step()
         step.t += 1

@@ -24,6 +24,7 @@ from torch import nn
 
 from ...core.bbox.assign_sample import MaxIoUAssigner, RandomSampler
 from ...core.post_processing.nms import nms_padded, sort_desc
+from ...parallel import shard_sum
 from ...utils.registry import (BBOX_CODERS, HEADS, LOSSES, PRIOR_GENERATORS,
                                build_from_cfg, cfg_args)
 from ..layers import Conv, normal_
@@ -57,9 +58,9 @@ class RPNHead(nn.Module):
         self.loss_bbox_cfg = dict(loss_bbox or dict(type="L1Loss"))
         self.assigner = MaxIoUAssigner(**cfg_args(
             self.train_cfg.get("assigner"),
-            dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3)))
+            dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3), "MaxIoUAssigner"))
         self.sampler = RandomSampler(**cfg_args(
-            self.train_cfg.get("sampler"), dict(num=256, pos_fraction=0.5)))
+            self.train_cfg.get("sampler"), dict(num=256, pos_fraction=0.5), "RandomSampler"))
         na = self.prior_generator.num_base_anchors[0]
         conv = dict(device=device, dtype=dtype)
         self.rpn_conv = Conv(in_channels, feat_channels, 3, padding=1, **conv)
@@ -94,7 +95,9 @@ class RPNHead(nn.Module):
                 ``train_cfg.allowed_border >= 0`` (anchors crossing the
                 border are then ignored).
 
-        Returns ``loss_rpn_cls`` and ``loss_rpn_bbox``.
+        Returns ``loss_rpn_cls`` and ``loss_rpn_bbox``; under data parallel
+        this rank's share of them (its anchors' terms over the sampled
+        anchors of every rank).
         """
         n = cls_scores[0].shape[0]
         dev = cls_scores[0].device
@@ -122,7 +125,8 @@ class RPNHead(nn.Module):
             matched_gt = torch.gather(gt_bboxes, 1, matched[..., None].expand(n, k, 4))
             deltas = self.bbox_coder.encode(anchors.expand(n, k, 4), matched_gt)
             bbox_w = pos.float()[..., None].expand(n, k, 4)
-            num_total = (pos.sum() + neg.sum()).clamp(min=1).float()
+            # over the global batch under data parallel (this rank's share)
+            num_total = shard_sum(pos.sum() + neg.sum()).clamp(min=1).float()
         loss_cls = build_from_cfg(self.loss_cls_cfg, LOSSES)
         loss_bbox = build_from_cfg(self.loss_bbox_cfg, LOSSES)
         return dict(

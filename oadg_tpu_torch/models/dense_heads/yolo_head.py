@@ -36,6 +36,12 @@ view 1 only (``:316-321``), and adds
   that row i of one view pairs with row i of another (layout
   ``(max_cont_anchors * b, V, 0)``). ``u`` comes from the step's
   ``UniformDraws`` as ``"cont"``, shape (b, priors).
+
+Under data parallel (``parallel/dist.py``) each rank returns its share of
+the global batch's losses: the JSD terms divide by every rank's images,
+a ``mean`` reduction by every rank's weights (``_share``; the configs' are
+sums), the cont rows are gathered from every rank (``supcontrast``), and
+the live BNs compute the global batch's statistics (``layers.BatchNorm``).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from torch import nn
 
 from ...core.bbox.assign_sample import GridAssigner
 from ...core.post_processing.nms import multiclass_nms, sort_desc
+from ...parallel import batch_is_sharded, shard_sum
 from ...utils.registry import (BBOX_CODERS, HEADS, LOSSES, PRIOR_GENERATORS,
                                build_from_cfg, cfg_args)
 from ..layers import Conv, ConvModule, normal_, widen
@@ -59,6 +66,17 @@ def _flatten(maps: Sequence[torch.Tensor], attrib: int) -> torch.Tensor:
     """Per level (N, A * attrib, H, W) -> all levels (N, sum H W A, attrib)."""
     n = maps[0].shape[0]
     return torch.cat([m.permute(0, 2, 3, 1).reshape(n, -1, attrib) for m in maps], dim=1)
+
+
+def _share(loss_fn, pred, target, weight):
+    """``loss_fn(pred, target, weight=weight)``. On a rank's shard of the
+    global batch a ``mean`` reduction divides by the weight summed over
+    every rank (a ``sum`` needs nothing: the ranks' sums add up to the
+    global one)."""
+    if getattr(loss_fn, "reduction", "mean") == "mean" and batch_is_sharded():
+        return loss_fn(pred, target, weight=weight,
+                       avg_factor=torch.clamp_min(shard_sum(weight.sum()), 1e-12))
+    return loss_fn(pred, target, weight=weight)
 
 
 @HEADS.register_module()
@@ -92,7 +110,7 @@ class YOLOV3Head(nn.Module):
                                                            reduction="sum")), LOSSES)
         self.assigner = GridAssigner(**cfg_args(
             dict(train_cfg or {}).get("assigner"),
-            dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.0)))
+            dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.0), "GridAssigner"))
         self.norm_cfg = dict(norm_cfg or dict(type="BN"))
         na = self.prior_generator.num_base_priors[0]
         kw = dict(device=device, dtype=dtype)
@@ -147,7 +165,8 @@ class YOLOV3Head(nn.Module):
 
     def loss(self, outs, gt_bboxes, gt_valid, gt_labels, draws=None):
         """The four supervised terms of ``outs`` (``(maps,)``) against the
-        batch's gts, in float32 (float64 for a float64 model)."""
+        batch's gts, in float32 (float64 for a float64 model); under data
+        parallel this rank's share of the global batch's (``_share``)."""
         maps = outs[0]
         target, neg = self.get_targets(maps, gt_bboxes, gt_valid, gt_labels)
         pred = widen(_flatten(maps, self.num_attrib))
@@ -155,10 +174,10 @@ class YOLOV3Head(nn.Module):
         pos_and_neg = (pos + neg.float()).clamp(0, 1)
         w = pos[..., None]
         return dict(
-            loss_cls=self.loss_cls(pred[..., 5:], target[..., 5:], weight=w),
-            loss_conf=self.loss_conf(pred[..., 4], target[..., 4], weight=pos_and_neg),
-            loss_xy=self.loss_xy(pred[..., :2], target[..., :2], weight=w),
-            loss_wh=self.loss_wh(pred[..., 2:4], target[..., 2:4], weight=w))
+            loss_cls=_share(self.loss_cls, pred[..., 5:], target[..., 5:], w),
+            loss_conf=_share(self.loss_conf, pred[..., 4], target[..., 4], pos_and_neg),
+            loss_xy=_share(self.loss_xy, pred[..., :2], target[..., :2], w),
+            loss_wh=_share(self.loss_wh, pred[..., 2:4], target[..., 2:4], w))
 
     # ---------------- inference ----------------
 
@@ -232,14 +251,17 @@ class YOLOV3HeadCont(YOLOV3Head):
             return super().loss((maps,), gt_bboxes, gt_valid, gt_labels)
         losses = super().loss(([m[:b] for m in maps],), gt_bboxes[:b], gt_valid[:b],
                               gt_labels[:b])
+        images = float(b)
+        if batch_is_sharded():                      # a view's images, every rank's
+            images = shard_sum(torch.full((), images, device=maps[0].device))
         pred = widen(_flatten(maps, self.num_attrib))
         target, _ = self.get_targets(maps, gt_bboxes, gt_valid, gt_labels)
         if self.jsd_conf_weight:
             losses["loss_csconf"] = self.jsd_conf_weight * jsd_consistency(
-                pred[..., 4:5], v, float(b))
+                pred[..., 4:5], v, images)
         if self.jsd_cls_weight:
             cls = pred[..., 5:] if self.wo_pos else pred[..., 5:] * target[..., 4:5]
-            losses["loss_cscls"] = self.jsd_cls_weight * jsd_consistency(cls, v, float(b))
+            losses["loss_cscls"] = self.jsd_cls_weight * jsd_consistency(cls, v, images)
         if self.cont_w and draws is not None:
             reps = self.prior_generator.num_base_priors
             cont = torch.cat([c.permute(0, 2, 3, 1).reshape(n, -1, self.cont_dim)

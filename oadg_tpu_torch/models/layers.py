@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import all_reduce_sum_grad, batch_is_sharded
+
 
 def _reduced(dtype) -> bool:
     return dtype is not None and dtype != torch.float32
@@ -115,10 +117,16 @@ class BatchNorm(nn.Module):
     torch ``momentum``: ``mom * stored + (1 - mom) * batch`` with ``mom = 1 -
     momentum``, the variance's batch term ``(1 - mom) * var * n / (n - 1)``
     (torch stores the unbiased estimate). In eval mode the stored statistics
-    are used. Either way ``w = weight * rsqrt(var + eps)`` and ``b = bias -
-    mean * weight * rsqrt(var + eps)`` are formed in float32, cast to the
-    input's dtype, and ``y = x * w + b`` computes in it. (``nn.BatchNorm2d``
-    forms its variance otherwise.)"""
+    are used. On a rank's shard of the global batch
+    (``parallel.batch_is_sharded``, which the data-parallel train step
+    sets) the train-mode statistics are the global batch's: the
+    per-channel sums, sums of squares and pixel counts are all-reduced,
+    with their gradient (SyncBN, as the JAX mesh computes them and mmcv's
+    ``SyncBatchNorm`` in the reference), so the stored ones agree on every
+    rank. Either way ``w = weight * rsqrt(var +
+    eps)`` and ``b = bias - mean * weight * rsqrt(var + eps)`` are formed in
+    float32, cast to the input's dtype, and ``y = x * w + b`` computes in
+    it. (``nn.BatchNorm2d`` forms its variance otherwise.)"""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  device=None):
@@ -133,11 +141,21 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             xf = widen(x)
-            m = xf.mean(dim=(0, 2, 3))
-            v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
-            v = torch.maximum(v, torch.zeros_like(v))
             n = x.numel() // x.shape[1]
-            corr = n / max(n - 1, 1)
+            if batch_is_sharded():        # SyncBN: the global batch's statistics
+                c = x.shape[1]
+                sums = all_reduce_sum_grad(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                      (xf * xf).sum(dim=(0, 2, 3)),
+                                                      xf.new_full((1,), n)]))
+                n = sums[2 * c]           # every rank's pixels
+                m = sums[:c] / n
+                v = sums[c:2 * c] / n - m * m
+                corr = n / torch.clamp_min(n - 1, 1)
+            else:
+                m = xf.mean(dim=(0, 2, 3))
+                v = (xf * xf).mean(dim=(0, 2, 3)) - m * m
+                corr = n / max(n - 1, 1)
+            v = torch.maximum(v, torch.zeros_like(v))
             mom = 1.0 - self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(mom * self.running_mean + (1.0 - mom) * m)

@@ -63,11 +63,14 @@ def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Top-1 accuracy in percent over the rows where ``mask`` is set."""
+             mask: Optional[torch.Tensor] = None, avg_factor=None) -> torch.Tensor:
+    """Top-1 accuracy in percent over the rows where ``mask`` is set, or
+    their correct count over ``avg_factor`` (data parallel: the rows of
+    every rank, so that the ranks' values sum to the global accuracy)."""
     correct = (logits.argmax(dim=-1) == labels).float()
     if mask is not None:
-        return 100.0 * (correct * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        denom = torch.clamp_min(mask.sum(), 1.0) if avg_factor is None else avg_factor
+        return 100.0 * (correct * mask).sum() / denom
     return 100.0 * correct.mean()
 
 

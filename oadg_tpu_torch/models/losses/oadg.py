@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...parallel import batch_is_sharded, gather_rows, get_dist_info
 from ...utils.registry import LOSSES
 from .common import (binary_cross_entropy_with_logits, l1, smooth_l1,
                      softmax_cross_entropy, weight_reduce_loss)
@@ -142,6 +143,22 @@ class L1LossPlus(_RegPlusBase):
         return l1(pred, target)
 
 
+def _global_rows(layouts: Sequence[Sequence[int]], rank: int, device) -> torch.Tensor:
+    """The positions of rank ``rank``'s rows (layout ``layouts[rank] = (R,
+    V, P)``) in the global layout ``(sum R, V, sum P)`` of every rank's
+    ``layouts``: each block views-major, the ranks in order inside each
+    view."""
+    big_r = sum(lay[0] for lay in layouts)
+    big_p = sum(lay[2] for lay in layouts)
+    r, v, p = layouts[rank]
+    r0 = sum(lay[0] for lay in layouts[:rank])
+    p0 = sum(lay[2] for lay in layouts[:rank])
+    views = torch.arange(v, device=device)[:, None]
+    roi = views * big_r + r0 + torch.arange(r, device=device)[None, :]
+    rnd = v * big_r + views * big_p + p0 + torch.arange(p, device=device)[None, :]
+    return torch.cat([roi.reshape(-1), rnd.reshape(-1)])
+
+
 def supcontrast(feats: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
                 layout: Sequence[int], temper: float = 0.07,
                 min_samples: int = 10) -> torch.Tensor:
@@ -152,12 +169,44 @@ def supcontrast(feats: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
             with ``layout = (R, V, P)``.
         labels: (N,) int; background is the largest valid label.
         valid: (N,) bool; padding rows are in no pair.
+
+    On a rank's shard of the global batch (``parallel.batch_is_sharded``)
+    each rank passes its own rows: they are gathered from every rank
+    (``parallel.gather_rows``) into the global batch's layout ``(sum R, V,
+    sum P)`` of the ranks' layouts (one ``all_gather`` of the layouts; the
+    ranks' ``V`` must agree), the background label, the ``min_samples``
+    gate and the valid-row divisor are the global batch's, and the rank
+    returns its share of the global loss (its own rows' terms, each against
+    every gathered row).
     """
     r, v, p = layout
     n = feats.shape[0]
     if n != r * v + p * v:
         raise ValueError(f"{n} rows do not match the layout {tuple(layout)}")
     dev = feats.device
+    rows = torch.arange(n, device=dev)           # this rank's rows in the layout
+    if batch_is_sharded():
+        rank, world = get_dist_info()
+        layouts = [(r, v, p)]
+        if world > 1:
+            layouts = [tuple(lay) for lay in gather_rows(
+                torch.tensor([[r, v, p]], device=dev), [1] * world).tolist()]
+            if any(lay[1] != v for lay in layouts):
+                raise ValueError(f"supcontrast: the ranks' layouts {layouts} differ in views")
+        sizes = [(lay[0] + lay[2]) * v for lay in layouts]
+        feats = gather_rows(feats, sizes)
+        tags = gather_rows(torch.stack([labels.long(), valid.long()], 1), sizes)
+        labels, valid = tags[:, 0], tags[:, 1] > 0
+        if world > 1:
+            # the gathered rows are rank-major: put them in the global layout
+            src = torch.cat([_global_rows(layouts, k, dev) for k in range(world)])
+            lo = sum(sizes[:rank])
+            rows = src[lo:lo + n]
+            n = feats.shape[0]
+            order = torch.empty_like(src)
+            order[src] = torch.arange(n, device=dev)
+            feats, labels, valid = feats[order], labels[order], valid[order]
+            r, p = sum(lay[0] for lay in layouts), sum(lay[2] for lay in layouts)
     norm = feats.norm(dim=1, keepdim=True)
     x = feats / torch.maximum(norm, norm.new_tensor(1e-12))
 
@@ -166,23 +215,28 @@ def supcontrast(feats: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
     bgm = (labels == bg_label) & valid
 
     idx = torch.arange(n, device=dev)
-    block = (idx >= r * v).long()                       # 0 roi rows, 1 random rows
-    within = torch.where(block == 0, idx, idx - r * v)
-    size = torch.where(block == 0, torch.full_like(idx, max(r, 1)),
-                       torch.full_like(idx, max(p, 1)))
-    inst = within % size
-    view = within // size
-    same_inst = ((block[:, None] == block[None, :]) & (inst[:, None] == inst[None, :])
-                 & (view[:, None] != view[None, :]))
-    mask_anchor_bg = same_inst & bgm[:, None] & bgm[None, :]
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    pair_valid = valid[:, None] & valid[None, :]
-    same_label = (labels[:, None] == labels[None, :]) & pair_valid
-    mask_anchor_fg = same_label & ~eye & fg[:, None] & fg[None, :]
+
+    def geometry(i):
+        block = (i >= r * v).long()                     # 0 roi rows, 1 random rows
+        within = torch.where(block == 0, i, i - r * v)
+        size = torch.where(block == 0, torch.full_like(i, max(r, 1)),
+                           torch.full_like(i, max(p, 1)))
+        return block, within % size, within // size
+
+    block, inst, view = geometry(idx)
+    rblock, rinst, rview = geometry(rows)
+    same_inst = ((rblock[:, None] == block[None, :]) & (rinst[:, None] == inst[None, :])
+                 & (rview[:, None] != view[None, :]))
+    rvalid, rlabels, rfg, rbgm = valid[rows], labels[rows], fg[rows], bgm[rows]
+    mask_anchor_bg = same_inst & rbgm[:, None] & bgm[None, :]
+    eye = rows[:, None] == idx[None, :]
+    pair_valid = rvalid[:, None] & valid[None, :]
+    same_label = (rlabels[:, None] == labels[None, :]) & pair_valid
+    mask_anchor_fg = same_label & ~eye & rfg[:, None] & fg[None, :]
     mask_anchor = (mask_anchor_fg | mask_anchor_bg).float()
     mask_contrast = ~eye & pair_valid
 
-    logits = (x @ x.t()) / temper
+    logits = (x[rows] @ x.t()) / temper
     logits = logits.masked_fill(~mask_contrast, float("-inf"))
     row_max = logits.max(dim=1, keepdim=True).values
     row_max = torch.where(torch.isfinite(row_max), row_max, torch.zeros_like(row_max))
@@ -192,7 +246,7 @@ def supcontrast(feats: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
     log_prob = z - torch.log(torch.maximum(denom, denom.new_tensor(1e-12)))
     log_prob = torch.where(mask_contrast, log_prob, torch.zeros_like(log_prob))
     per_row = -(mask_anchor * log_prob).sum(1) / (mask_anchor.sum(1) + 1e-8)
-    loss = (torch.where(valid, per_row, torch.zeros_like(per_row)).sum()
+    loss = (torch.where(rvalid, per_row, torch.zeros_like(per_row)).sum()
             / torch.clamp_min(valid.sum(), 1))
     return torch.where(fg.sum() > min_samples, loss, torch.zeros_like(loss))
 

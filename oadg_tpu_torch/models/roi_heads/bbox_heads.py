@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ...core.bbox.coder import DeltaXYWHBBoxCoder
+from ...parallel import shard_sum
 from ...utils.registry import HEADS, LOSSES, build_from_cfg
 from ..layers import Linear, lecun_normal_, normal_, xavier_uniform_
 from ..losses.common import accuracy
@@ -105,11 +106,16 @@ class Shared2FCBBoxHead(nn.Module):
              bbox_weights):
         """``loss_cls`` averaged over the rows with a label weight, ``acc``
         (logged, never summed), ``loss_bbox`` over the positive rows of the
-        target class averaged over all rows (``:146-174``)."""
-        avg_factor = (label_weights > 0).sum().clamp(min=1).float()
+        target class averaged over all rows (``:146-174``). Under data
+        parallel the rows and weighted rows are counted over every rank
+        (each rank returns its share)."""
+        r = bbox_pred.shape[0]
+        weighted = (label_weights > 0).sum()
+        counts = shard_sum(torch.stack([weighted, torch.full_like(weighted, r)]))
+        avg_factor = counts[0].clamp(min=1).float()
+        rows = counts[1].float()                # every rank's rows
         loss_cls = build_from_cfg(self.loss_cls_cfg, LOSSES)
         loss_bbox = build_from_cfg(self.loss_bbox_cfg, LOSSES)
-        r = bbox_pred.shape[0]
         if self.reg_class_agnostic:
             pos_pred = bbox_pred.reshape(r, 4)
         else:
@@ -119,9 +125,10 @@ class Shared2FCBBoxHead(nn.Module):
         return dict(
             loss_cls=loss_cls(cls_score.float(), labels, label_weights,
                               avg_factor=avg_factor),
-            acc=accuracy(cls_score.detach(), labels, (label_weights > 0).float()),
+            acc=accuracy(cls_score.detach(), labels, (label_weights > 0).float(),
+                         avg_factor=avg_factor),
             loss_bbox=loss_bbox(pos_pred.float(), bbox_targets, bbox_weights,
-                                avg_factor=float(r)))
+                                avg_factor=rows))
 
     def get_bboxes(self, rois, cls_score, bbox_pred, img_shapes, scale_factors,
                    rescale: bool = False):

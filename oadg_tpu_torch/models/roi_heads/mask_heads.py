@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import shard_sum
 from ...utils.registry import HEADS
 from ..layers import Conv, ConvModule, _reduced, lecun_normal_, normal_
 
@@ -160,12 +161,13 @@ class FCNMaskHead(nn.Module):
              labels: torch.Tensor, pos_valid: torch.Tensor) -> torch.Tensor:
         """Binary cross-entropy of the matched class's logits against the
         targets, the mean over pixels, then over the valid positives
-        (``:85-100``), in float32."""
+        (``:85-100``), in float32; under data parallel over the valid
+        positives of every rank (this rank's share)."""
         sel = self._selected(mask_pred, labels)
         per = (torch.clamp(sel, min=0) - sel * targets
                + torch.log1p(torch.exp(-sel.abs()))).mean(dim=(1, 2))
         w = pos_valid.float()
-        return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return (per * w).sum() / torch.clamp(shard_sum(w.sum()), min=1.0)
 
     def get_masks(self, mask_pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Each detection's mask probabilities at its class: (R, M, M)."""

@@ -15,6 +15,11 @@ targets and losses follow. ``ContrastiveRoIHead.loss`` (``:271-337``) adds
 the supervised-contrastive loss over the sampled rows' embeddings and those
 of the random proposals, which go through a second extraction.
 
+Under data parallel the losses are each rank's share of the global
+batch's (``parallel/dist.py``): the box head's and the mask head's
+normalizers count every rank's rows, and ``supcontrast`` gathers every
+rank's contrastive rows.
+
 The box head computes in ``dtype``; RoIAlign returns float32 features from
 maps of either dtype, and the contrastive loss takes the embeddings cast to
 float32 (``:336``).
@@ -73,8 +78,9 @@ class StandardRoIHead(nn.Module):
         self.assigner = MaxIoUAssigner(**cfg_args(
             train_cfg.get("assigner"), dict(pos_iou_thr=0.5, neg_iou_thr=0.5,
                                             min_pos_iou=0.5,
-                                            match_low_quality=False)))
-        smp = cfg_args(train_cfg.get("sampler"), dict(num=512, pos_fraction=0.25))
+                                            match_low_quality=False), "MaxIoUAssigner"))
+        smp = cfg_args(train_cfg.get("sampler"), dict(num=512, pos_fraction=0.25),
+                       "RandomSampler")
         self.add_gt_as_proposals = smp.pop("add_gt_as_proposals", True)
         self.sampler = RandomSampler(**smp)
         self.pos_weight = float(train_cfg.get("pos_weight", -1))

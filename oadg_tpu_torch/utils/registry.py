@@ -41,11 +41,16 @@ def build_from_cfg(cfg: dict, registry: Registry,
     return cls(**args)
 
 
-def cfg_args(cfg: Optional[dict], default: dict) -> dict:
+def cfg_args(cfg: Optional[dict], default: dict, type_name: str) -> dict:
     """The keyword arguments of ``cfg`` (``default`` when it is empty),
-    without its ``type``."""
+    without its ``type``, for the class ``type_name``; a ``type`` that
+    names another class raises ``ValueError`` (a missing one is
+    ``type_name``)."""
     args = dict(cfg or default)
-    args.pop("type", None)
+    name = args.pop("type", type_name)
+    if name != type_name:
+        raise ValueError(f"{name} is not ported: this takes {type_name} (the port builds "
+                         "only the ported slices' types)")
     return args
 
 

@@ -111,3 +111,51 @@ def test_sample_masks_matches_jax(num, pos_fraction):
     np.testing.assert_array_equal(got_neg.numpy(), np.asarray(want_neg))
     assert (got_pos.sum(1) <= int(round(num * pos_fraction))).all()
     assert ((got_pos | got_neg).sum(1) <= num).all() and got_pos.any()
+
+
+def test_ohem_config_is_refused():
+    """The OHEM Faster R-CNN config names ``OHEMSampler``, which the port has
+    not ported: building it raises instead of training with a
+    ``RandomSampler`` under that name. (The JAX package builds it and then
+    samples at random: ``OHEMSampler.sample`` gets no ``hard_scores``.)"""
+    from oadg_tpu_torch.config import load_config
+    from oadg_tpu_torch.models import build_detector
+    cfg = load_config("configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py")
+    assert cfg.model.train_cfg.rcnn.sampler.type == "OHEMSampler"
+    with pytest.raises(ValueError, match="OHEMSampler is not ported.*ported slices' types"):
+        build_detector(dict(cfg.model), device="cpu")
+
+
+@pytest.mark.parametrize("site", ["rpn.assigner", "rpn.sampler", "rcnn.assigner",
+                                  "rcnn.sampler", "yolo.assigner"])
+def test_unported_assigner_or_sampler_type_raises(site):
+    """Each place that builds an assigner or a sampler from the config takes
+    its ported type, or none (the default), and refuses any other."""
+    from oadg_tpu_torch.models.dense_heads import RPNHead, YOLOV3Head
+    from oadg_tpu_torch.models.roi_heads import StandardRoIHead
+    head, key = site.split(".")
+    ported = {"assigner": "GridAssigner" if head == "yolo" else "MaxIoUAssigner",
+              "sampler": "RandomSampler"}[key]
+    base = dict(assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.3),
+                sampler=dict(num=8, pos_fraction=0.5))
+
+    def build(train_cfg):
+        if head == "rpn":
+            return RPNHead(in_channels=4, feat_channels=4, train_cfg=train_cfg, device="cpu",
+                           anchor_generator=dict(type="AnchorGenerator", scales=[8],
+                                                 ratios=[1.0], strides=[4]),
+                           bbox_coder=dict(type="DeltaXYWHBBoxCoder"))
+        if head == "rcnn":
+            return StandardRoIHead(
+                bbox_roi_extractor=dict(type="SingleRoIExtractor", out_channels=4,
+                                        featmap_strides=[4],
+                                        roi_layer=dict(type="RoIAlign", output_size=7)),
+                bbox_head=dict(type="Shared2FCBBoxHead", in_channels=4, fc_out_channels=8,
+                               num_classes=2), train_cfg=train_cfg, device="cpu")
+        return YOLOV3Head(num_classes=2, in_channels=[4, 4, 4], out_channels=[4, 4, 4],
+                          train_cfg=train_cfg, device="cpu")
+
+    build(base)                                              # no type: the default
+    build(dict(base, **{key: dict(base[key], type=ported)}))
+    with pytest.raises(ValueError, match="ATSSThing is not ported"):
+        build(dict(base, **{key: dict(base[key], type="ATSSThing")}))

@@ -1452,3 +1452,135 @@ def test_tta_test_loop_on_the_card_matches_the_cpu(tmp_path):
             np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=0, atol=TOL_HEAD * largest_box)
             np.testing.assert_allclose(g[:, 4], w[:, 4], rtol=0, atol=TOL_HEAD * largest_score)
     assert sum(len(r) for img in got for r in img) > 10
+
+
+class _NcclWorldOne:
+    """This process as rank 0 of a world of 1 over NCCL, joined through
+    ``parallel.init_distributed`` from torchrun's environment; the group is
+    destroyed and the environment put back on exit."""
+
+    KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+    def __enter__(self):
+        import os
+        import socket
+        from oadg_tpu_torch.parallel import init_distributed
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        assert init_distributed("pytorch", device="cuda") == (0, 1)
+        assert torch.distributed.get_backend() == "nccl"
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        torch.distributed.destroy_process_group()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@pytest.mark.cuda
+def test_parallel_helpers_are_identities_at_world_one():
+    """Over NCCL at world 1: ``gather_rows`` returns its rows and routes the
+    gradient back unchanged, ``all_reduce_sum`` and ``all_reduce_sum_grad``
+    return their input's values (``shard_sum`` inside ``sharded_batch()``
+    too), ``sum_gradients`` leaves every gradient's bits (and a missing one
+    missing), ``broadcast_state`` every tensor's."""
+    from oadg_tpu_torch.parallel import (all_reduce_sum, all_reduce_sum_grad,
+                                         batch_is_sharded, broadcast_state, gather_rows,
+                                         shard_sum, sharded_batch, sum_gradients)
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(6, 5, device=dev, generator=gen, requires_grad=True)
+    w = torch.randn(6, 5, device=dev, generator=gen)
+    model = torch.nn.Sequential(torch.nn.Linear(5, 4), torch.nn.Linear(4, 3)).to(dev)
+    model[1].bias.requires_grad_(False)
+    with _NcclWorldOne():
+        y = gather_rows(x)
+        assert torch.equal(y, x)
+        (y * w).sum().backward()
+        assert torch.equal(x.grad, w)
+        assert torch.equal(all_reduce_sum(w), w)
+        z = all_reduce_sum_grad(x)
+        assert torch.equal(z, x)
+        labels = torch.arange(6, device=dev)
+        assert torch.equal(gather_rows(labels), labels)
+        assert not batch_is_sharded()
+        with sharded_batch():
+            assert batch_is_sharded()
+            assert torch.equal(shard_sum(w), w)
+        model(x.detach()).sum().backward()
+        model[0].weight.grad = None                  # a parameter without a gradient
+        before = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        sum_gradients(model.parameters())
+        broadcast_state(model)
+        torch.cuda.synchronize()
+    assert model[0].weight.grad is None and model[1].bias.grad is None
+    assert before.keys() == {"0.bias", "1.weight"}
+    for k, p in model.named_parameters():
+        if k in before:
+            assert torch.equal(p.grad, before[k]), k
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, state[k]), k
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_step_is_bit_equal_to_the_plain_step():
+    """The R18 flagship's training step (2 images x 2 views of 256x512) twice
+    from the same weights, generator and batch: without a process group and
+    as rank 0 of a world of 1 over NCCL (gathered contrastive rows,
+    all-reduced normalizers and logged values, the summed gradient), both
+    with cuDNN's deterministic algorithms. Every logged value of both steps
+    and every parameter and buffer after them equal bit for bit."""
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.engine import build_lr_schedule, build_optimizer, make_train_step
+    dev = _cuda()
+    cfg, model = _r18_model()
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randn(2, 3, 256, 512).astype(np.float32))
+    x1 = rng.uniform(0, 300, (2, 8))
+    y1 = rng.uniform(0, 150, (2, 8))
+    gt = np.stack([x1, y1, x1 + rng.uniform(16, 200, (2, 8)),
+                   y1 + rng.uniform(16, 100, (2, 8))], -1).astype(np.float32)
+    batch = {"img": torch.cat([img, img.flip(1)]).to(dev)
+             .contiguous(memory_format=torch.channels_last),
+             "gt_bboxes": torch.from_numpy(gt).repeat(2, 1, 1).to(dev),
+             "gt_labels": torch.from_numpy(rng.randint(0, 8, (2, 8))).repeat(2, 1).to(dev),
+             "gt_valid": torch.ones((4, 8), dtype=torch.bool, device=dev),
+             "img_shape": torch.tensor([[256.0, 512.0]] * 4, device=dev)}
+
+    def run():
+        det = init_detector({"model": model}, device="cuda", num_views=2, seed=1).model
+        step = make_train_step(det, build_optimizer(det, cfg.optimizer, grad_clip=dict(
+            max_norm=35)), build_lr_schedule(cfg.lr_config, cfg.optimizer["lr"], 100))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        logs = [step(batch, gen) for _ in range(2)]
+        torch.cuda.synchronize()
+        return logs, {k: v.clone() for k, v in det.state_dict().items()}
+
+    # the step without a group is not reproducible bit for bit on the card
+    # by default (cuDNN's weight gradients): both runs in deterministic mode
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain_logs, plain_state = run()
+        with _NcclWorldOne():
+            logs, state = run()
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+    for a, b in zip(logs, plain_logs):
+        assert a.keys() == b.keys()
+        for k in b:
+            assert torch.equal(a[k].float(), b[k].float()), k
+    for k, v in plain_state.items():
+        assert torch.equal(state[k], v), k

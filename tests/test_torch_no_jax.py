@@ -74,6 +74,41 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_data_parallel_loads_no_jax():
+    """``parallel/``, ``data/samplers.py`` and the launcher paths of both
+    tools import and run (``init_distributed`` with no launcher environment,
+    each sampler once) without loading JAX or the JAX package."""
+    code = ("import sys, numpy as np; sys.path.insert(0, 'tools'); "
+            "import oadg_tpu_torch.parallel as p, oadg_tpu_torch.data.samplers as s, "
+            "torch_train, torch_test; "
+            "assert p.init_distributed('pytorch', device='cpu') == (0, 1); "
+            "ds = type('D', (), {'__len__': lambda self: 5})(); "
+            "[list(c(ds)) for c in (s.GroupSampler, s.DistributedGroupSampler, "
+            "s.DistributedSampler)]; "
+            "assert torch_train.parse_args(['c.py', '--launcher', 'slurm']).launcher == 'slurm'; "
+            "assert torch_test.parse_args(['c.py', 'x', '--launcher', 'mpi']).launcher == 'mpi'; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("script,target", [("torch_dist_train.sh", "torch_train.py"),
+                                           ("torch_dist_test.sh", "torch_test.py")])
+def test_dist_scripts_launch_the_port_tools(script, target):
+    """The two launch scripts start the port's own tools (which import no
+    JAX: ``test_sources_import_no_jax``) through ``torch.distributed.run``
+    with ``--launcher pytorch``, never the JAX package's ``tools/*.py``."""
+    text = (ROOT / "tools" / script).read_text()
+    assert "-m torch.distributed.run" in text and "--launcher pytorch" in text
+    assert f'"$(dirname "$0")/{target}"' in text
+    assert ROOT / "tools" / target in _port_sources()
+    assert all(f"/{name}.py" not in text for name in ("train", "test"))
+
+
 def test_png_path_loads_no_opencv_or_pil(tmp_path):
     """Importing the port, writing a PNG with its encoder and reading it
     back through ``LoadImageFromFile`` loads neither ``cv2`` nor PIL."""

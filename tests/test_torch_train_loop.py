@@ -834,12 +834,19 @@ def test_train_tool_checkpoint_scores_as_the_runner_evaluated(tmp_path):
     assert metrics == val
 
 
-def test_train_tool_defaults_to_the_card_and_refuses_launchers(tmp_path):
+def test_train_tool_defaults_to_the_card_and_refuses_launchers(tmp_path, monkeypatch):
+    """The tool trains on the card in one process by default; ``--launcher``
+    without its launcher's environment refuses to start (data parallel:
+    ``tests/test_torch_dist_data.py`` runs it under a launcher)."""
     spec = importlib.util.spec_from_file_location("torch_train_tool",
                                                   os.path.join(ROOT, "tools", "torch_train.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     args = tool.parse_args(["c.py"])
     assert args.device == "cuda" and args.launcher == "none" and not args.auto_resume
-    with pytest.raises(NotImplementedError, match="Data parallel"):
-        tool.main(["c.py", "--launcher", "pytorch"])
+    for k in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS", "OMPI_COMM_WORLD_RANK",
+              "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for launcher in ("pytorch", "slurm", "mpi"):
+        with pytest.raises(RuntimeError, match="no launcher environment"):
+            tool.main(["c.py", "--launcher", launcher, "--device", "cpu"])

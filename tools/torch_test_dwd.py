@@ -11,7 +11,9 @@ through the detector on the card and is scored with VOC mAP.
 ``domain`` key or the basename of its ``img_prefix``. ``DIR/dwd_results.json``
 (default ``.``) receives each domain's metrics (``mAP`` and ``AP_<class>``)
 and ``mean_mAP``, their mean. The model runs on the card unless ``--device
-cpu``.
+cpu``. With ``--launcher`` each process joins the launcher's group and tests
+its slice of each domain (``multi_gpu_test``); rank 0 alone prints and
+writes the results.
 """
 import argparse
 import json
@@ -20,8 +22,11 @@ import sys
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
-from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+import torch  # noqa: E402
+
+from oadg_tpu_torch.apis import build_test_loader, load_model_state, multi_gpu_test
 from oadg_tpu_torch.config import DictAction, load_config
+from oadg_tpu_torch.parallel import join_launcher
 
 
 def parse_args(argv=None):
@@ -34,6 +39,7 @@ def parse_args(argv=None):
                    help="tools/test_dwd.py's option; VOC mAP is the only metric")
     p.add_argument("--cfg-options", nargs="+", action=DictAction)
     p.add_argument("--launcher", default="none", choices=["none", "pytorch", "slurm", "mpi"])
+    p.add_argument("--local_rank", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -47,26 +53,30 @@ def domain_name(dom_cfg) -> str:
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, device = 0, args.device
     if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: distributed testing is "
-                                  "not ported yet (ROADMAP A, 'Data parallel')")
+        rank, device = join_launcher(args.launcher, args.device, args.local_rank)
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
     test_cfgs = cfg["data"]["test"]
     if isinstance(test_cfgs, dict):
         test_cfgs = [test_cfgs]
-    model_state = load_model_state(cfg, args.checkpoint, device=args.device)
+    model_state = load_model_state(cfg, args.checkpoint, device=device)
     pin = args.device.startswith("cuda")
 
     summary = {}
     for dom_cfg in test_cfgs:
         name = domain_name(dom_cfg)
         dataset, loader = build_test_loader(cfg, dom_cfg, pin_memory=pin)
-        results = single_gpu_test(model_state, loader)
+        results = multi_gpu_test(model_state, loader)    # single_gpu_test's in one process
+        if rank:
+            continue
         metrics = dataset.evaluate(results, metric="mAP")
         summary[name] = metrics
         print(f"\n[{name}] {metrics}")
+    if rank:
+        return None
 
     maps = [m["mAP"] for m in summary.values()]
     if maps:
@@ -78,4 +88,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

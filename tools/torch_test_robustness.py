@@ -9,6 +9,7 @@ then print P / mPC / rPC.
         [--severities 0 1 2 3 4 5] [--out robustness_results.pkl] [--eval bbox]
         [--load-dataset corrupted [--corrupted-root DIR]]
         [--cfg-options key=value ...] [--device cuda|cpu]
+        [--launcher none|pytorch|slurm|mpi]
 
 ``CHECKPOINT`` is a ``torch.save``d ``state_dict`` of the port's model, or
 ``none`` for seeded random weights. The model is built once; each cell
@@ -20,7 +21,10 @@ set's ``img_prefix`` unless ``--corrupted-root``). The pickle,
 ``{corruption: {severity: {metric: value}}}``, is rewritten after every
 cell. Each image of a cell is corrupted from its own seeded generator
 (``ops/corruptions.py`` ``sample_seed``), so a cell is the same in every
-run. The model runs on the card unless ``--device cpu``.
+run. The model runs on the card unless ``--device cpu``. With
+``--launcher`` each process joins the launcher's group and tests its slice
+of every cell (``multi_gpu_test``); rank 0 alone writes the pickle and
+prints.
 """
 import argparse
 import copy
@@ -33,8 +37,11 @@ import time
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
 
-from oadg_tpu_torch.apis import build_test_loader, load_model_state, single_gpu_test
+import torch  # noqa: E402
+
+from oadg_tpu_torch.apis import build_test_loader, load_model_state, multi_gpu_test
 from oadg_tpu_torch.config import DictAction, load_config
+from oadg_tpu_torch.parallel import join_launcher
 from oadg_tpu_torch.ops.corruptions import (BENCHMARK_CORRUPTIONS, CORRUPTIONS,
                                             HOLDOUT_CORRUPTIONS)
 from torch_robustness_eval import get_results
@@ -62,7 +69,8 @@ def parse_args(argv=None):
                    help="'corrupted': read <root>-c/<corruption>/<severity>/")
     p.add_argument("--corrupted-root", default=None)
     p.add_argument("--cfg-options", nargs="+", action=DictAction)
-    p.add_argument("--launcher", default="none")
+    p.add_argument("--launcher", default="none", choices=["none", "pytorch", "slurm", "mpi"])
+    p.add_argument("--local_rank", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -95,9 +103,9 @@ def cell_test_cfg(test_cfg, corruption, severity, load_dataset=None, corrupted_r
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, device = 0, args.device
     if args.launcher != "none":
-        sys.exit(f"--launcher {args.launcher}: data parallel is not ported yet "
-                 "(ROADMAP A, 'Data parallel')")
+        rank, device = join_launcher(args.launcher, args.device, args.local_rank)
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -105,7 +113,7 @@ def main(argv=None):
     unknown = [c for c in corruptions if c not in CORRUPTIONS]
     if unknown:
         sys.exit(f"unknown corruptions {unknown}; sets: {sorted(CORRUPTION_SETS)}")
-    model_state = load_model_state(cfg, args.checkpoint, device=args.device)
+    model_state = load_model_state(cfg, args.checkpoint, device=device)
     aggregated, clean_cell = {}, None
     images, seconds = 0, 0.0
     for corr in corruptions:
@@ -120,18 +128,22 @@ def main(argv=None):
             dataset, loader = build_test_loader(cell_cfg,
                                                 pin_memory=args.device.startswith("cuda"))
             t0 = time.perf_counter()
-            results = single_gpu_test(model_state, loader)
+            results = multi_gpu_test(model_state, loader)    # single_gpu_test's in one process
             dt = time.perf_counter() - t0
             images, seconds = images + len(results), seconds + dt
-            metrics = dataset.evaluate(results, metric=args.eval)
+            metrics = dataset.evaluate(results, metric=args.eval)    # every rank: same cells
             metrics = {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))}
             aggregated[corr][severity] = metrics
             if severity == 0:
                 clean_cell = metrics
+            if rank:
+                continue
             print(f"\n[{corr} sev {severity}] {metrics} ({len(results)} images in {dt:.3f} s)",
                   flush=True)
             with open(args.out, "wb") as f:
                 pickle.dump(aggregated, f)
+    if rank:
+        return None
     if seconds:
         print(f"sweep: {images} images in {seconds:.3f} s of test loops, "
               f"{images / seconds:.3f} images/s")
@@ -140,4 +152,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
