@@ -94,18 +94,19 @@ non-zero exit code:
    host ms per image split into decode (``LoadImageFromFile``), pipeline
    (``MultiScaleFlipAug``: resize, normalize, pad) and collate, in the loop
    and for one image alone; then the evaluation's ms and the COCO summary.
-   After every timed run, one profiled loop per dtype gives the device's
+   After every timed run, one profiled loop per dtype over the first 4 of
+   the 16 images (``PROFILE_IMAGES``) gives the device's
    busy share.
-5c. robustness: the robustness path on 4 of phase 5b's PNGs. The host ms
+5c. robustness: the robustness path on 2 of phase 5b's PNGs. The host ms
    of each of the 19 corruptions (``ops/corruptions.py``, numpy) at severity
    3 on one 1024x2048 image, alone in one thread; then
    ``tools/torch_test_robustness.py CONFIG none --corruptions benchmark
    --severities 0 3`` as a subprocess in float32, counted by
    ``TOOL_PRELUDE``: exit 0, P / mPC / rPC printed, the pickle's 15
-   corruptions each at severities 0 and 3, B1 launched 4 x 16 times (the
+   corruptions each at severities 0 and 3, B1 launched 2 x 16 times (the
    clean cell once, 15 corrupted cells) and no other kernel; its sweep's
-   images/s. ``tools/torch_get_corrupted_dataset.py`` writes fog and
-   glass_blur at severity 1; through ``--load-dataset corrupted`` each cell
+   images/s. ``tools/torch_get_corrupted_dataset.py`` (in this process,
+   ``run_tool``) writes fog and glass_blur at severity 1; through ``--load-dataset corrupted`` each cell
    must load the on-the-fly cell's images byte for byte and give its
    detections. One cell run twice must load byte-identical images and give
    equal detections; the second run's loader host ms per image, split into
@@ -149,17 +150,17 @@ non-zero exit code:
    losses be finite float32, the frozen parameters unchanged and every
    trainable one but the top FPN output's (no anchor reads it) move; step
    medians and ``max_memory_allocated``.
-7b. train-loop: the training entry point. 8 synthetic 1024x2048 Cityscapes
-   PNGs (``write_cityscapes``) as the train set, phase 5b's 16 as the val
-   set. ``tools/torch_train.py`` on the flagship config as a subprocess, in
-   float32: 2 epochs of 4 iterations (``RepeatDataset`` times 1), an
+7b. train-loop: the training entry point. 4 synthetic 1024x2048 Cityscapes
+   PNGs (``write_cityscapes``) as the train set, the first 4 of phase 5b's
+   16 as the val set (``TOOL_VAL_IMAGES``). ``tools/torch_train.py`` on the flagship config as a subprocess, in
+   float32: 2 epochs of 2 iterations (``RepeatDataset`` times 1), an
    evaluation after each; a prelude (``TOOL_PRELUDE``) sets the kernel
    wrappers' counts to 0 and records each step's OA-Mix table, and B1-B6
    must launch as the tables and the val set imply (B7 never); ``log.json``
    must hold 8 iterations and 2 evaluations, ``epoch_1.pth`` and
    ``epoch_2.pth`` their epoch and iteration; then ``--resume-from
    epoch_1.pth`` must continue at iteration 5. Then ``train_detector`` in
-   this process in bfloat16 for 12 iterations (``RepeatDataset`` times 3),
+   this process in bfloat16 for 12 iterations (``RepeatDataset`` times 6),
    the same launch check. Printed beside the card's name and power limit:
    images/s over the steps (the fill apart), the medians of ``time`` and
    ``data_time``, each iteration's, the loader's host ms per image for each
@@ -181,7 +182,7 @@ non-zero exit code:
    ``nms_pre=12000`` timed with its peak memory; then OA-Mix alone on the
    DWD canvas with every op forced on each chain, B3-B7 checked in place.
    dwd-eval: 2 synthetic VOC-XML domains of 8 JPEGs of 720x1280 written by
-   ``encode_jpeg``; ``decode_jpeg`` of each file equals its numpy twin; the
+   ``encode_jpeg``; ``decode_jpeg`` of 2 files a domain equals its numpy twin; the
    f32 model over each domain through ``build_test_loader(cfg, domain)``
    (images/s, the loader's decode and pipeline host ms an image, per-domain
    mAP, B1 once an image, ground truth scoring mAP 1.0); then
@@ -205,10 +206,11 @@ non-zero exit code:
    x 2 fixed views of 128x128 (f32 losses 1e-3, the head's gradients 1e-3
    of the largest, the neck's and backbone's 1e-2 (the CPU's own f32 step is
    3e-3 from float64 there), the whole gradient's cosine 0.9999; bf16 no
-   farther from the f32 CPU step than the bf16 CPU step is). yolo-tools: ``tools/torch_train.py`` on 16 synthetic 1024x2048
-   PNGs (2 steps of the config's batch, an evaluation on phase 5b's val
-   set) counted by ``TOOL_PRELUDE``, ``--resume-from epoch_1.pth`` for a
-   second epoch, ``tools/torch_test.py`` on the val set; the loader alone
+   farther from the f32 CPU step than the bf16 CPU step is). yolo-tools: ``tools/torch_train.py`` on 8 synthetic 1024x2048
+   PNGs (1 step of the config's batch, an evaluation on the tools' val
+   set, 4 of 5b's PNGs) counted by ``TOOL_PRELUDE``, then in this process
+   ``--resume-from epoch_1.pth`` for a second epoch and
+   ``tools/torch_test.py`` on the val set; the loader alone
    over the train set: images/s and host ms per stage (``Expand``,
    ``MinIoURandomCrop``, the float ``Resize``, ``PhotoMetricDistortion``)
    and the collate. After every timed run a profiled request and a
@@ -284,10 +286,30 @@ non-zero exit code:
    (b) The OA-DG YOLOv3 step (2 x 2 fixed views of 256x256) without and
    with the group (SyncBN's arithmetic) within phase 7d's card limits. (c)
    ``tools/torch_dist_train.sh FLAGSHIP 1`` (``--launcher pytorch``) for
-   one epoch of 2 steps on 4 of phase 7b's PNGs with an evaluation on 5b's
-   16, then ``tools/torch_dist_test.sh`` of its checkpoint over the 16,
+   one epoch of 2 steps on 4 of phase 7b's PNGs with an evaluation on the
+   tools' val set (the first ``TOOL_VAL_IMAGES`` = 4 of 5b's 16, as in 7b
+   and 7d), then ``tools/torch_dist_test.sh`` of its checkpoint over them,
    whose pickle must equal ``single_gpu_test``'s in this process; a script
    that exits non-zero fails the phase.
+8b. longtail: the long tail's first eight configs, each at its config's
+   full width with seeded weights (the classifier drawn wider so that
+   detections pass ``score_thr``), per dtype: GIoU Faster R-CNN
+   (``configs/faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py``, standing in
+   for the IoU family), RetinaNet, the caffe-C4 Faster R-CNN, X101-32x4d
+   and the DCNv2 R50 (``LONGTAIL``): one request through the config's test
+   pipeline (COCO 800x1333, Cityscapes 1024x2048; RetinaNet's
+   ``multiclass_nms`` recorded: candidates, those above ``score_thr``, the
+   tiles run, its peak), the f32 model against the CPU on a 256x384
+   request, and two training steps on ``samples_per_gpu`` images (B1 and B2
+   once a step; C4's at 14x14 on one level at C = 1024, held to the plain
+   versions in place on a third step; the IoU family held, on the GIoU
+   step's decoded boxes, to the CPU's values), each with the counts set to
+   0 just before it and read just after, peaks printed (DCN's backward
+   keeps its gathered taps). Then the NMS sizes: RetinaNet's
+   ``multiclass_nms`` over 5 x 1000 x 80 = 400,000 seeded candidates
+   (~20,000 above ``score_thr``) against the CPU's, and YOLOv3's 24,000
+   and DWD's 12,000 candidates resolved in one tile (the NMS before the
+   tiling) and in 256-box tiles: equal keep sets, times and peaks.
 9. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -308,16 +330,29 @@ non-zero exit code:
    ``launches_baseline_step``, ``launches_train_loop``,
    ``launches_train_loop_bf16``, ``launches_yolo``, ``launches_yolo_bf16``,
    ``launches_tta``, ``launches_tta_bf16``, ``launches_engine``,
-   ``launches_dist`` and ``launches_dist_bf16``
-   included; the ``_14x14`` rows' ``launches`` are phase 7g's, each run's
+   ``launches_dist``, ``launches_dist_bf16`` and the long tail's
+   ``launches_longtail_<family>`` (and ``_bf16``)
+   included; the ``_c4`` rows' ``launches`` are phase 8b's C4 runs, the
+   ``_14x14`` rows' ``launches`` are phase 7g's, each run's
    beside it, ``launches_mask_serve``, ``launches_mask_train`` (and their
    ``_bf16``) and ``launches_mask_tools``, which B1's and B2's rows carry
    too for their 7x7 launches on that path), the card's
    ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3c and 10 and prints the
+3d. c4-kernels: B1 and B2 at the C4 config's 14x14 bins on one level
+   (stride 16) at C = 1024, f32 and bf16, against their plain versions,
+   timed beside their bounds: B1 at a request (one 50x84 map, R = 1000
+   proposals), B2 at the step (2 maps, R = 2 x 512): the report rows
+   ``roi_align_fwd_c4`` and ``roi_align_bwd_c4``, joined before phase 8b.
+
+Each phase's wall seconds are logged as it ends (``[time]`` lines) and
+all of them with the script's total before the kernels' JSON line.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3d and 10 and prints the
 kernels' JSON line and no result line: for work on one kernel.
+``python3 chip_smoke.py --only longtail`` runs phases 1, 2, 3, 3d and 8b
+and prints the kernels' JSON line and no result line.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -1415,6 +1450,8 @@ def phase_profiled(rows):
     torch.cuda.empty_cache()
     if "roi_align_fwd_14x14" in by_name:
         profile_mask_plain(by_name)
+    if "roi_align_fwd_c4" in by_name:
+        profile_c4_plain(by_name)
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -1861,6 +1898,8 @@ def phase_reference(handles):
 
 
 EVAL_IMAGES = 16
+TOOL_VAL_IMAGES = 4     # the tools' val set (phases 7b, 7d, 8): the first 4 of the 16
+PROFILE_IMAGES = 4      # the profiled test loop's images: the first 4 of the 16
 STEADY_REPEATS = 4      # passes over the 16 files in the timed loop
 CITYSCAPES_CATS = (24, 25, 26, 27, 28, 31, 32, 33)    # person .. bicycle
 
@@ -2161,21 +2200,26 @@ def phase_evaluate(rows):
                              f"{res.stderr[-4000:]}")
 
     def profile():
-        """One profiled loop per dtype: the device's busy share (after every
-        timed run: the profiler slows the host's launches for the rest of
-        the process)."""
+        """One profiled loop over the first ``PROFILE_IMAGES`` images per
+        dtype: the device's busy share (after every timed run: the profiler
+        slows the host's launches for the rest of the process)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
         out = {}
+        sub = load_config(str(FLAGSHIP))
+        sub.merge_from_dict({"data.test.ann_file": _subset_json(
+            ann_file, PROFILE_IMAGES, os.path.join(tmp.name, "profile.json")),
+            "data.test.img_prefix": img_prefix})
         for name, loop in loops.items():
+            _, loader = build_test_loader(sub, pin_memory=True)
             with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                single_gpu_test(loop["state"], loop["loader"])
+                single_gpu_test(loop["state"], loader)
                 wall = (time.perf_counter() - t0) * 1e3
             busy = sum(e.self_device_time_total for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False)) / 1e3
-            log("evaluate-profile", f"{name}: profiled loop of {EVAL_IMAGES} images "
+            log("evaluate-profile", f"{name}: profiled loop of {PROFILE_IMAGES} images "
                                     f"{wall:.3f} ms wall, device busy {busy:.3f} ms "
                                     f"({100 * busy / wall:.1f}%; {nvidia_smi_line()})")
             out[name] = {k: loop[k] for k in ("images_per_s", "fill_ms", "passes", "host_ms",
@@ -2445,8 +2489,8 @@ def phase_train(rows, name):
     return out, profile
 
 
-TRAIN_LOOP_IMAGES = 8       # one epoch of the f32 tool run: 4 iterations of 2 images
-TRAIN_LOOP_BF16_TIMES = 3   # RepeatDataset times of the bf16 run: 12 iterations
+TRAIN_LOOP_IMAGES = 4       # one epoch of the f32 tool run: 2 iterations of 2 images
+TRAIN_LOOP_BF16_TIMES = 6   # RepeatDataset times of the bf16 run: 12 iterations
 LOOP_KERNELS = ("roi_align_fwd", "roi_align_bwd", "fg_maps", "shear_rows",
                 "piecewise_shift_rows", "hist256")        # B1-B6: the slots chain's path
 
@@ -2478,6 +2522,17 @@ finally:
     with open(os.environ["LOOP_RECORD"], "w") as f:
         json.dump(dict(launches={k: w.launches for k, w in wrappers.items()}, tables=tables), f)
 """
+
+
+def run_tool(name, argv):
+    """``tools/<name>.py``'s ``main(argv)`` in this process: the entry point
+    and argument parsing a user's command line takes, without a process
+    start (~10 s on the card machine). -> what ``main`` returns."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{name}_tool", ROOT / "tools" / f"{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.main(list(argv))
 
 
 def loop_launches(tables, version, steps, val_images):
@@ -2525,8 +2580,8 @@ class _TimedLoader:
 
 def phase_train_loop(rows, val):
     """The training entry point on ``TRAIN_LOOP_IMAGES`` synthetic 1024x2048
-    Cityscapes PNGs (``val``: phase 5b's 16 as the val set): the f32 run of
-    ``tools/torch_train.py`` as a subprocess (2 epochs of 4 iterations, an
+    Cityscapes PNGs (``val``: ``TOOL_VAL_IMAGES`` of phase 5b's as the val set): the f32 run of
+    ``tools/torch_train.py`` as a subprocess (2 epochs of 2 iterations, an
     evaluation after each, then ``--resume-from epoch_1.pth``), and a bf16
     ``train_detector`` run in this process (12 iterations). Launches against
     the drawn tables, the logs, the checkpoints, the rates and the loader's
@@ -2548,7 +2603,8 @@ def phase_train_loop(rows, val):
     ann_file, img_prefix = write_cityscapes(os.path.join(tmp.name, "train"), TRAIN_LOOP_IMAGES,
                                             seed=1)
     log("train-loop", f"wrote {TRAIN_LOOP_IMAGES} training PNGs of {IMG_H}x{IMG_W} in "
-                      f"{time.perf_counter() - t0:.2f} s; val set: phase 5b's {EVAL_IMAGES}")
+                      f"{time.perf_counter() - t0:.2f} s; val set: {TOOL_VAL_IMAGES} of phase "
+                      "5b's")
     options = {"data.train.times": 1, "data.train.dataset.ann_file": ann_file,
                "data.train.dataset.img_prefix": img_prefix, "data.val.ann_file": val[0],
                "data.val.img_prefix": val[1], "runner.max_epochs": 2, "log_config.interval": 1}
@@ -2577,7 +2633,7 @@ def phase_train_loop(rows, val):
              if " saved " in ln]
     ckpts = {n: Checkpointer.load(os.path.join(work, f"epoch_{n}.pth"))["meta"] for n in (1, 2)}
     launched = rec["launches"]
-    want = loop_launches(rec["tables"], version, 2 * steps, 2 * EVAL_IMAGES)
+    want = loop_launches(rec["tables"], version, 2 * steps, 2 * TOOL_VAL_IMAGES)
     log("train-loop", f"f32: tools/torch_train.py exit 0 in {wall:.2f} s; {len(train)} "
                       f"iterations logged, {len(vals)} evaluations; checkpoints "
                       f"{json.dumps(ckpts)}; launches {launched}; the tables and the val set "
@@ -2610,15 +2666,14 @@ def phase_train_loop(rows, val):
     # --resume-from epoch_1.pth: continues at iteration steps + 1
     resumed = os.path.join(tmp.name, "resumed")
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, *argv[:2], "--work-dir", resumed, "--seed", "0",
-                          "--no-validate", "--resume-from", os.path.join(work, "epoch_1.pth"),
-                          "--cfg-options", *(f"{k}={v}" for k, v in options.items())],
-                         cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"the resumed run failed:\n{res.stderr[-4000:]}")
+    run_tool("torch_train", [argv[1], "--work-dir", resumed, "--seed", "0", "--no-validate",
+                             "--resume-from", os.path.join(work, "epoch_1.pth"),
+                             "--cfg-options", *(f"{k}={v}" for k, v in options.items())])
+    torch.cuda.synchronize()
     again = read_log(resumed)
     meta = Checkpointer.load(os.path.join(resumed, "epoch_2.pth"))["meta"]
-    log("train-loop", f"f32: --resume-from epoch_1.pth exit 0 in {time.perf_counter() - t0:.2f} "
+    log("train-loop", f"f32: --resume-from epoch_1.pth (in this process) in "
+                      f"{time.perf_counter() - t0:.2f} "
                       f"s: iterations {[ln['iter'] for ln in again]} of epochs "
                       f"{sorted({ln['epoch'] for ln in again})}; epoch_2.pth meta {meta}")
     if ([ln["iter"] for ln in again] != list(range(steps + 1, 2 * steps + 1))
@@ -2859,7 +2914,7 @@ def phase_train_reference(name, config=FLAGSHIP, tag="train-reference"):
 
 
 BASELINE = ROOT / "configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py"
-ROBUST_IMAGES = 4           # images of phase 5b's set in the robustness sweep
+ROBUST_IMAGES = 2           # images of phase 5b's set in the robustness sweep
 ROBUST_SEVERITY = 3
 
 
@@ -2966,16 +3021,13 @@ def phase_robustness(rows, val):
     # a corrupted copy, read back: the same images and detections
     copy_root = os.path.join(tmp.name, "city-c")
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_get_corrupted_dataset.py"),
-                          str(FLAGSHIP), "--out", copy_root, "--corruptions", "fog",
-                          "glass_blur", "--severities", "1", "--cfg-options",
-                          *(f"{k}={v}" for k, v in options.items())],
-                         cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"tools/torch_get_corrupted_dataset.py failed:\n"
-                             f"{res.stderr[-4000:]}")
+    run_tool("torch_get_corrupted_dataset", [str(FLAGSHIP), "--out", copy_root, "--corruptions",
+                                             "fog", "glass_blur", "--severities", "1",
+                                             "--cfg-options",
+                                             *(f"{k}={v}" for k, v in options.items())])
     log("robustness", f"tools/torch_get_corrupted_dataset.py (fog, glass_blur at severity 1, "
-                      f"{ROBUST_IMAGES} images) exit 0 in {time.perf_counter() - t0:.2f} s")
+                      f"{ROBUST_IMAGES} images; in this process) in "
+                      f"{time.perf_counter() - t0:.2f} s")
     cfg = load_config(str(FLAGSHIP))
     cfg.merge_from_dict(options)
     state = load_model_state(cfg, "none", device="cuda")
@@ -3120,6 +3172,7 @@ DWD_CANVAS = (736, 1280)                # the train pipeline's static canvas
 DWD_TRAIN_IMAGES = 19395                # Daytime-Sunny train split, for the LR schedule
 DWD_EVAL_DOMAINS = ("daytime_clear", "night_sunny")
 DWD_EVAL_IMAGES = 8                     # per domain
+DWD_TWIN_FILES = 2                      # per domain, decoded by the numpy twin too
 DWD_CLASSES = ("bus", "bike", "car", "motor", "person", "rider", "truck")
 
 
@@ -3502,7 +3555,7 @@ def write_dwd_domains(root, seed=0):
 
 def phase_dwd_eval(rows):
     """dwd-eval: a synthetic 2-domain VOC-XML set (``write_dwd_domains``).
-    Each file's ``decode_jpeg`` equals the numpy twin's; in this process
+    ``DWD_TWIN_FILES`` files a domain: ``decode_jpeg`` equals the numpy twin's; in this process
     the f32 model over each domain through ``build_test_loader(cfg,
     domain)`` and ``single_gpu_test``, B1 once an image, the loader's
     decode and pipeline host ms per image, images/s, per-domain mAP; the
@@ -3527,13 +3580,14 @@ def phase_dwd_eval(rows):
                     f"{DWD_IMG_H}x{DWD_IMG_W} ({size / 1e6:.2f} MB each, encode_jpeg quality "
                     f"95) in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    for f in files:
+    twins = files[::DWD_EVAL_IMAGES // DWD_TWIN_FILES]      # the numpy twin is slow
+    for f in twins:
         with open(f, "rb") as fh:
             data = fh.read()
         if not np.array_equal(decode_jpeg(data), decode_jpeg(data, native=False)):
             raise AssertionError(f"{f}: decode_jpeg differs from its numpy twin")
-    log("dwd-eval", f"decode_jpeg of each of the {len(files)} files equals the numpy twin's "
-                    f"({time.perf_counter() - t0:.2f} s for both)")
+    log("dwd-eval", f"decode_jpeg of {len(twins)} of the {len(files)} files equals the numpy "
+                    f"twin's ({time.perf_counter() - t0:.2f} s for both)")
     cfg = dwd_cfg()
     cfg["data"]["test"] = [dict(cfg["data"]["val"], domain=name, img_prefix=prefix,
                                 ann_file=ann) for name, prefix, ann in domains]
@@ -3662,7 +3716,7 @@ YOLO_F32_MEDIAN = 2e-2
 # neck. Faults of precision alone read as clean here: they are held on the
 # CPU against JAX's bf16 step (tests/test_torch_yolo_slice.py).
 YOLO_BF16_MEDIAN_RATIO = 1.5
-YOLO_TOOL_IMAGES = 16                   # the tool run: 2 steps of the config's batch
+YOLO_TOOL_IMAGES = 8                    # the tool run: 1 step of the config's batch an epoch
 YOLO_STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: head",
                "forward_train: loss", "train_step: backward", "train_step: sgd")
 YOLO_LOSSES = ("loss_cls", "loss_conf", "loss_xy", "loss_wh", "loss_csconf", "loss_cscls",
@@ -4059,9 +4113,9 @@ def phase_yolo_tools(rows, val):
     """yolo-tools: ``tools/torch_train.py`` on the OA-DG YOLOv3 config over
     ``YOLO_TOOL_IMAGES`` synthetic 1024x2048 PNGs (``write_cityscapes``) as a
     subprocess counted by ``TOOL_PRELUDE``: 2 steps of the config's batch, an
-    evaluation on phase 5b's val set (``val``), B3-B6 as the tables imply and
-    B7 never; then ``--resume-from epoch_1.pth`` for a second epoch; then
-    ``tools/torch_test.py`` on the val set. In this process the loader alone
+    evaluation on the tools' val set (``val``), B3-B6 as the tables imply and
+    B7 never; then, in this process (``run_tool``), ``--resume-from
+    epoch_1.pth`` for a second epoch and ``tools/torch_test.py`` on the val set. In this process the loader alone
     over the train set: images/s and its host ms per image for each stage
     and the collate. -> its numbers."""
     import os
@@ -4073,7 +4127,8 @@ def phase_yolo_tools(rows, val):
     ann_file, img_prefix = write_cityscapes(os.path.join(tmp.name, "train"), YOLO_TOOL_IMAGES,
                                             seed=3)
     log("yolo-tools", f"wrote {YOLO_TOOL_IMAGES} training PNGs of {IMG_H}x{IMG_W} in "
-                      f"{time.perf_counter() - t0:.2f} s; val set: phase 5b's {EVAL_IMAGES}")
+                      f"{time.perf_counter() - t0:.2f} s; val set: {TOOL_VAL_IMAGES} of phase "
+                      "5b's")
     options = {"data.train.ann_file": ann_file, "data.train.img_prefix": img_prefix,
                "data.val.ann_file": val[0], "data.val.img_prefix": val[1],
                "runner.max_epochs": 1, "log_config.interval": 1,
@@ -4124,36 +4179,30 @@ def phase_yolo_tools(rows, val):
 
     resumed = os.path.join(tmp.name, "resumed")
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_train.py"), str(YOLO),
-                          "--work-dir", resumed, "--seed", "0", "--no-validate",
-                          "--resume-from", os.path.join(work, "epoch_1.pth"), "--cfg-options",
-                          *cfg_opts, "runner.max_epochs=2"], cwd=ROOT, capture_output=True,
-                         text=True, timeout=900)
-    if res.returncode != 0:
-        raise AssertionError(f"the resumed YOLOv3 run failed:\n{res.stderr[-4000:]}")
+    run_tool("torch_train", [str(YOLO), "--work-dir", resumed, "--seed", "0", "--no-validate",
+                             "--resume-from", os.path.join(work, "epoch_1.pth"),
+                             "--cfg-options", *cfg_opts, "runner.max_epochs=2"])
     again = read_log(resumed)
     meta2 = Checkpointer.load(os.path.join(resumed, "epoch_2.pth"))["meta"]
-    log("yolo-tools", f"f32: --resume-from epoch_1.pth exit 0 in {time.perf_counter() - t0:.2f} "
-                      f"s: iterations {[ln['iter'] for ln in again]}; epoch_2.pth meta {meta2}")
+    log("yolo-tools", f"f32: --resume-from epoch_1.pth (in this process) in "
+                      f"{time.perf_counter() - t0:.2f} s: iterations "
+                      f"{[ln['iter'] for ln in again]}; epoch_2.pth meta {meta2}")
     if [ln["iter"] for ln in again] != list(range(steps + 1, 2 * steps + 1)) or \
             meta2 != dict(epoch=2, iter=2 * steps, seed=0):
         raise AssertionError(f"the resumed YOLOv3 run did not continue: {again} {meta2}")
 
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_test.py"), str(YOLO),
-                          os.path.join(resumed, "epoch_2.pth"), "--eval", "bbox",
-                          "--cfg-options", f"data.test.ann_file={val[0]}",
-                          f"data.test.img_prefix={val[1]}"], cwd=ROOT, capture_output=True,
-                         text=True, timeout=900)
+    metrics = run_tool("torch_test", [str(YOLO), os.path.join(resumed, "epoch_2.pth"),
+                                      "--eval", "bbox", "--cfg-options",
+                                      f"data.test.ann_file={val[0]}",
+                                      f"data.test.img_prefix={val[1]}"])
     test_wall = time.perf_counter() - t0
-    if res.returncode != 0 or "bbox_mAP" not in res.stdout + res.stderr:
-        raise AssertionError(f"tools/torch_test.py (YOLOv3) failed:\n{res.stdout[-2000:]}"
-                             f"{res.stderr[-4000:]}")
+    if not metrics or "bbox_mAP" not in metrics:
+        raise AssertionError(f"tools/torch_test.py (YOLOv3) gave {metrics}")
     tool["test_s"] = test_wall
-    summary = [ln for ln in res.stdout.splitlines() if "bbox_mAP" in ln][-1:]
-    log("yolo-tools", f"tools/torch_test.py on epoch_2.pth over the {EVAL_IMAGES} val images: "
-                      f"exit 0 in {test_wall:.2f} s (process start, model build and loading "
-                      f"included); {summary}")
+    log("yolo-tools", f"tools/torch_test.py on epoch_2.pth over the {TOOL_VAL_IMAGES} val images "
+                      f"(in this process) in {test_wall:.2f} s (model build and loading "
+                      f"included); {metrics}")
 
     # the loader alone over the train set: the host cost of each stage
     cfg = yolo_cfg()
@@ -4769,13 +4818,13 @@ def roi_counts():
             "roi_align_bwd": dict(ROI_ALIGN_BWD.launches_by_size)}
 
 
-def _count_launches(rows, counts, key):
-    """Adds a mask-path run's counts to the rows: the 14x14 ones to the
-    ``..._14x14`` rows, the 7x7 ones to B1's and B2's, each under ``key``
-    and in ``launches``."""
+def _count_launches(rows, counts, key, suffix14="_14x14"):
+    """Adds a run's counts to the rows: the 14x14 ones to the ``...<suffix14>``
+    rows (the mask head's, or C4's ``_c4``), the 7x7 ones to B1's and B2's,
+    each under ``key`` and in ``launches``."""
     by_name = {r["name"]: r for r in rows}
     for kernel, per_size in counts.items():
-        for bins, suffix in ((7, ""), (MASK_BINS, "_14x14")):
+        for bins, suffix in ((7, ""), (MASK_BINS, suffix14)):
             r = by_name[kernel + suffix]
             r[key] = r.get(key, 0) + per_size[bins]
             r["launches"] = (r["launches"] or 0) + per_size[bins]
@@ -5040,6 +5089,460 @@ def phase_mask(rows, val):
     return dict(serve=serve, train=train, tools=tools), profile
 
 
+# ------------------------------------------------------------ long tail ----
+#
+# The long tail's first slice: the IoU-loss family (GIoU stands in for it),
+# RetinaNet, the caffe-C4 Faster R-CNN (B1 and B2 at 14x14 on one level at
+# C = 1024), ResNeXt-101 32x4d and the DCNv2 ResNet-50, each at its config's
+# full width; RetinaNet and DCN on Cityscapes 2048x1024, the rest on COCO
+# 1333x800, each training at its config's samples_per_gpu.
+
+COCO_HW = (800, 1333)
+LONGTAIL = (
+    ("giou", "configs/faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py", COCO_HW),
+    ("retinanet", "configs/retinanet/retinanet_r50_fpn_1x_coco.py", (IMG_H, IMG_W)),
+    ("c4", "configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py", COCO_HW),
+    ("x101", "configs/faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py", COCO_HW),
+    ("dcn", "configs/dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py", (IMG_H, IMG_W)),
+)
+C4_H, C4_W = 800 // 16, 1344 // 16      # the C4 level of an 800x1344 canvas
+C4_CHANNELS = 1024
+C4_PROPOSALS = 1000                     # test_cfg.rpn.max_per_img
+C4_SAMPLED = 2 * 512                    # 2 images x the rcnn sampler's 512
+RETINA_NMS = (5 * 1000, 80)             # 5 levels x nms_pre candidates, 80 classes
+NMS_EXPONENT = 58.4                     # u ** 58.4 > 0.05 for 5% of u: ~20,000 pass
+
+
+def longtail_cfg(path):
+    """The config as published, with seeded weights (its backbone's
+    model-zoo ``init_cfg`` cut)."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(str(ROOT / path))
+    cfg.model.backbone.init_cfg = None
+    cfg.model.pop("pretrained", None)
+    return cfg
+
+
+def widen_classifier(model, seed=50):
+    """Seeded wider class logits, so that a random detector's scores pass
+    ``score_thr`` (81-way softmax or sigmoid at the 0.01 prior would not):
+    ``fc_cls`` weights N(0, 0.1); RetinaNet's ``retina_cls`` bias moved by
+    N(0, 1.5) per output channel."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        if hasattr(model, "roi_head"):
+            w = model.roi_head.bbox_head.fc_cls.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
+        else:
+            b = model.bbox_head.retina_cls.bias
+            b.add_((torch.randn(b.shape, generator=gen) * 1.5).to(b.device))
+
+
+def c4_roi_cases(dev):
+    """B1 and B2 at the C4 shapes (14x14 bins, one level at stride 16, C =
+    1024), f32 and bf16: B1 at a request (one 50x84 map of an 800x1344
+    canvas, R = 1000 proposals), B2 at the training step (2 maps, R = 2 x
+    512 sampled rois). -> (B1 cases, B2 cases), the f32 case first."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(60)
+    serve = torch.randn(1, C4_CHANNELS, C4_H, C4_W, device=dev, generator=gen)
+    train = torch.randn(2, C4_CHANNELS, C4_H, C4_W, device=dev, generator=gen)
+    rng = np.random.RandomState(60)
+    srois = torch.from_numpy(flagship_rois(rng, C4_PROPOSALS, 0, 800, 1333)).to(dev)
+    trois = torch.from_numpy(np.concatenate(
+        [flagship_rois(rng, C4_SAMPLED // 2, b, 800, 1333) for b in range(2)])).to(dev)
+    dy = torch.randn(trois.shape[0], C4_CHANNELS, 14, 14, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name in DTYPES:
+        dt = torch_dtype(name)
+        s, t = (m.to(dt).contiguous(memory_format=torch.channels_last) for m in (serve, train))
+        fwd.append((f"{name}, c4 14x14, serving, 1 map {C4_H}x{C4_W}x{C4_CHANNELS}, "
+                    f"R={srois.shape[0]}", [s], srois))
+        bwd.append((f"{name}, c4 14x14, training, 2 maps {C4_H}x{C4_W}x{C4_CHANNELS}, "
+                    f"R={trois.shape[0]}", [t], trois, dy))
+    return fwd, bwd
+
+
+def phase_c4_kernels():
+    """c4-kernels: B1 and B2 at the C4 shapes against their plain versions
+    (``TOL_F32`` / ``TOL_BF16``), timed beside their bounds. -> the report
+    rows ``roi_align_fwd_c4`` and ``roi_align_bwd_c4`` (their plain times
+    from ``phase_profiled``, their launches from phase ``longtail``)."""
+    import torch
+    fwd, bwd = c4_roi_cases(torch.device("cuda", 0))
+    out = []
+    for name, source, replaces, cases, check in (
+            ("roi_align_fwd_c4", "roi_align_fwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:248",
+             fwd, lambda c: check_fwd_case(*c, strides=(16,), phase="c4-kernels", bins=14)),
+            ("roi_align_bwd_c4", "roi_align_bwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:316",
+             bwd, lambda c: check_bwd_case(*c, strides=(16,), phase="c4-kernels"))):
+        results = [(c[0], check(c)) for c in cases]
+        (label, main), others = results[0], results[1:]
+        out.append(row(name, source, replaces, *main,
+                       cases=[case_row(label, *r) for label, r in others]) | {"label": label})
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_c4_plain(by_name):
+    """The plain versions' times at the C4 cases, by the profiler."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
+    fwd, bwd = c4_roi_cases(torch.device("cuda", 0))
+    for label, fs, rois in fwd:
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, 14, (16,), 2, 56), 3,
+                        method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_fwd_c4"], label, t["device_ms"])
+        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    for label, fs, rois, dy in bwd:
+        dt, shapes = fs[0].dtype, [f.shape for f in fs]
+        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
+            dy, shapes, rois, 14, (16,), 2, 56)], 2, method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_bwd_c4"], label, t["device_ms"])
+        log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+
+class _NmsRecorder:
+    """Stands in for ``multiclass_nms`` in one module for one call: the
+    candidates, those above ``score_thr``, the tiles the tiled NMS runs, its
+    ms by the host clock between two synchronises, and the peak memory above
+    what was allocated when it was called."""
+
+    def __init__(self, module):
+        self.module, self.real, self.calls = module, module.multiclass_nms, []
+        module.multiclass_nms = self
+
+    def __call__(self, boxes, scores, score_thr, *args, **kwargs):
+        import torch
+        c = scores.shape[-1] - 1
+        above = (scores[..., :c] > score_thr).flatten(1).sum(1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.real(boxes, scores, score_thr, *args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append(dict(candidates=scores.shape[1] * c, above=above.tolist(),
+                               tiles=[-(-int(a) // 256) for a in above],
+                               ms=(time.perf_counter() - t0) * 1e3,
+                               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+        return out
+
+    def restore(self):
+        self.module.multiclass_nms = self.real
+
+
+def longtail_batch(cfg, hw, n, seed):
+    """``n`` seeded uint8 images of ``hw`` through the config's test
+    pipeline (resize, normalize, pad; no flip) with ``NUM_GTS`` seeded gts
+    each: the training step's batch on the card."""
+    import torch
+    from oadg_tpu_torch.apis import prepare_image
+    rng = np.random.RandomState(seed)
+    parts = [prepare_image(rng.randint(0, 256, (*hw, 3), dtype=np.uint8), cfg, "cuda")
+             for _ in range(n)]
+    h, w = (int(v) for v in parts[0]["img_shape"][0].tolist())
+    gt, labels = seeded_gts(rng, n, h, w)
+    return {"img": torch.cat([p["img"] for p in parts]).contiguous(
+                memory_format=torch.channels_last),
+            "img_shape": torch.cat([p["img_shape"] for p in parts]),
+            "gt_bboxes": torch.from_numpy(gt).cuda(),
+            "gt_labels": torch.from_numpy(labels).cuda(),
+            "gt_valid": torch.ones((n, NUM_GTS), dtype=torch.bool, device="cuda")}
+
+
+def _record_giou_inputs():
+    """Records the (pred, target, weight, avg_factor) of ``GIoULoss`` calls;
+    -> (the records, a function that puts the loss back)."""
+    from oadg_tpu_torch.models.losses import common
+    real, seen = common.GIoULoss.__call__, []
+
+    def recording(self, pred, target, weight=None, avg_factor=None, **kw):
+        seen.append((pred.detach(), target, weight, avg_factor))
+        return real(self, pred, target, weight=weight, avg_factor=avg_factor, **kw)
+
+    common.GIoULoss.__call__ = recording
+
+    def restore():
+        common.GIoULoss.__call__ = real
+
+    return seen, restore
+
+
+def check_iou_family(records):
+    """The IoU family on the GIoU step's decoded boxes: each loss on the card
+    against the same on the CPU (float32; rtol 1e-5: the same elementwise
+    arithmetic, the sums over the rows in another order)."""
+    import torch
+    from oadg_tpu_torch.utils.registry import LOSSES, build_from_cfg
+    pred, target, weight, avg = records[-1]
+    out = {}
+    for cfg in (dict(type="IoULoss", loss_weight=10.0), dict(type="GIoULoss", loss_weight=10.0),
+                dict(type="CIoULoss", loss_weight=12.0),
+                dict(type="BoundedIoULoss", loss_weight=10.0)):
+        loss = build_from_cfg(dict(cfg), LOSSES)
+        card = float(loss(pred.float(), target, weight, avg_factor=avg))
+        cpu = float(loss(pred.float().cpu(), target.cpu(), weight.cpu(),
+                         avg_factor=avg.cpu() if torch.is_tensor(avg) else avg))
+        out[cfg["type"]] = card
+        log("longtail", f"giou step's decoded boxes ({pred.shape[0]} rows, "
+                        f"{int((weight[:, 0] > 0).sum())} positive): {cfg['type']} card "
+                        f"{card:.6f} CPU {cpu:.6f}")
+        if not (math.isfinite(card) and abs(card - cpu) <= 1e-5 * abs(cpu) + 1e-7):
+            raise AssertionError(f"longtail {cfg['type']}: card {card} vs CPU {cpu}")
+    return out
+
+
+def longtail_serve(rows, family, path, hw, name):
+    """One request of a ``hw`` uint8 image through the config's test
+    pipeline and ``DetectorHandle.test`` after a warm-up (RetinaNet's
+    ``multiclass_nms`` recorded on the warm-up), and the card against the
+    same seeded model on the CPU on a 256x384 request (f32; detections
+    matched; the two-stage models on 100 proposals there)."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector, prepare_image
+    from oadg_tpu_torch.apis.test import fetch_dets
+    from oadg_tpu_torch.models.dense_heads import retina_head
+    cfg = longtail_cfg(path)
+    handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
+    widen_classifier(handle.model)
+    img = np.random.RandomState(51).randint(0, 256, (*hw, 3), dtype=np.uint8)
+    rec = _NmsRecorder(retina_head) if family == "retinanet" else None
+    try:
+        handle.test(prepare_image(img, handle.cfg, handle.device))          # warm-up
+    finally:
+        if rec is not None:
+            rec.restore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_roi_counts()
+    t0 = time.perf_counter()
+    res = handle.test(prepare_image(img, handle.cfg, handle.device))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = roi_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dets, labels, valid = fetch_dets(*res[:3])
+    nc = handle.num_classes
+    out = dict(request_ms=ms, peak_gib=peak, valid=int(valid.sum()))
+    if rec is not None:
+        out["nms"] = rec.calls[0]
+    log("longtail", f"{family} {name}: a request of {hw[0]}x{hw[1]}: {ms:.3f} ms, "
+                    f"max_memory_allocated {peak:.2f} GiB, {int(valid.sum())} valid "
+                    f"detections; launches by bin count {counts}"
+                    + (f"; multiclass_nms {rec.calls[0]}" if rec is not None else "")
+                    + f" ({nvidia_smi_line()})")
+    want = 0 if family == "retinanet" else 1
+    bins = 14 if family == "c4" else 7
+    if (dets.shape != (1, 100, 5) or not np.isfinite(dets).all() or not valid.any()
+            or not ((labels[valid] >= 0) & (labels[valid] < nc)).all()
+            or counts["roi_align_fwd"][bins] != want or counts["roi_align_bwd"][bins]):
+        raise AssertionError(f"longtail {family} {name}: bad request {dets.shape} {counts}")
+    _count_launches(rows, counts, f"launches_longtail_{family}"
+                    + ("" if name == "f32" else "_bf16"), "_c4")
+    if name == "f32":
+        cpu = init_detector(cfg, device="cpu", seed=0)
+        widen_classifier(cpu.model)
+        small = longtail_cfg(path)
+        small.merge_from_dict({"data.test.pipeline.1.img_scale": (384, 256)})
+        bc = prepare_image(img[:256, :384], small, "cpu")
+        gc = {k: v.cuda() if torch.is_tensor(v) else v for k, v in bc.items()}
+        rpn_cfgs = [m.rpn_head.test_cfg for m in (cpu.model, handle.model)
+                    if hasattr(m, "rpn_head")]
+        kept = [c["max_per_img"] for c in rpn_cfgs]
+        for c in rpn_cfgs:              # 100 proposals keep the CPU's RoI head short
+            c["max_per_img"] = 100
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                dc = cpu.model.simple_test(bc)
+                dg = handle.model.simple_test(gc)
+        finally:
+            for c, k in zip(rpn_cfgs, kept):
+                c["max_per_img"] = k
+        matched = _match_dets(dg[:3], dc[:3], 1e-2, 1e-4)
+        log("longtail", f"{family} f32: a {tuple(bc['img'].shape[2:])} request card vs CPU: "
+                        f"{int(dg[2].sum())} and {int(dc[2].sum())} valid, "
+                        f"{100 * matched:.1f}% of the card's held by the CPU's; CPU side "
+                        f"{time.perf_counter() - t0:.2f} s")
+        if matched < 0.95 or abs(int(dg[2].sum()) - int(dc[2].sum())) > 2 or not dc[2].any():
+            raise AssertionError(f"longtail {family}: card vs CPU {matched}")
+        del cpu
+    del handle
+    torch.cuda.empty_cache()
+    return out
+
+
+def longtail_train(rows, family, path, hw, name):
+    """Two training steps (``make_train_step``, SGD at the config's LR, no
+    OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
+    pipeline with seeded gts: losses finite float32, B1 and B2 once a step
+    at 7x7 (14x14 for C4, where a third step holds every call to the plain
+    versions in place); the GIoU step's decoded boxes kept for
+    ``check_iou_family``."""
+    import torch
+    cfg = longtail_cfg(path)
+    n = cfg.data.samples_per_gpu
+    model, step = build_trainer("cuda", cfg, dtype=torch_dtype(name))
+    batch = longtail_batch(cfg, hw, n, 52)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seen, restore = _record_giou_inputs() if family == "giou" else ([], lambda: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_roi_counts()
+    times, logs = [], []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logs.append(step(batch, gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        restore()
+    counts = roi_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("longtail", f"{family} {name}: 2 steps on {n} image(s) of "
+                    f"{tuple(batch['img'].shape[2:])}: ms {[round(t, 3) for t in times]}; "
+                    f"max_memory_allocated {peak:.2f} GiB; launches by bin count {counts}; "
+                    f"last step " + ", ".join(f"{k} {float(v):.5f}" for k, v in logs[-1].items())
+                    + f" ({nvidia_smi_line()})")
+    bins = 14 if family == "c4" else 7
+    want = {"roi_align_fwd": {7: 0, 14: 0}, "roi_align_bwd": {7: 0, 14: 0}}
+    if family != "retinanet":
+        want = {k: {b: 2 if b == bins else 0 for b in (7, 14)} for k in want}
+    if counts != want or not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                                 for lv in logs for v in lv.values()):
+        raise AssertionError(f"longtail {family} {name}: {counts} (want {want}), {logs[-1]}")
+    _count_launches(rows, counts, f"launches_longtail_{family}"
+                    + ("" if name == "f32" else "_bf16"), "_c4")
+    out = dict(step_ms=times, peak_gib=peak,
+               losses={k: float(v) for k, v in logs[-1].items()})
+    if family == "giou":
+        out["iou_family"] = check_iou_family(seen)
+    if family == "c4":
+        checks, restore = _checked_roi_align()
+        try:
+            step(batch, gen)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        _report_checks("longtail", f"c4 {name}", checks,
+                       {"roi_align_fwd": [C4_SAMPLED], "roi_align_bwd": [C4_SAMPLED]})
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _peak_above(fn):
+    """-> (fn's result, its ms by the host clock with a synchronise, the
+    peak memory it allocated above what was allocated when it started, GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+
+def longtail_nms():
+    """The tiled NMS at the sizes that made the one-tile NMS hold tens of
+    GiB: RetinaNet's ``multiclass_nms`` over 5 x 1000 x 80 = 400,000 seeded
+    candidates (about 20,000 above ``score_thr``; its detections equal the
+    CPU's), then YOLOv3's 3 x 1000 x 8 = 24,000 candidates (half above
+    ``score_thr``) and the DWD RPN level's 12,000 proposals, each resolved
+    in one tile (the NMS before this change) and in 256-box tiles: equal
+    keep sets, each's time and peak above its inputs."""
+    import torch
+    from oadg_tpu_torch.core.post_processing.nms import (batched_nms_padded, multiclass_nms,
+                                                         nms_padded)
+    rng = np.random.RandomState(53)
+    out = {}
+    n, c = RETINA_NMS
+    xy = rng.uniform(0, [IMG_W, IMG_H], (1, n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 400, (1, n, 2))], -1).astype(np.float32)
+    scores = np.zeros((1, n, c + 1), np.float32)
+    scores[..., :c] = rng.uniform(0, 1, (1, n, c)) ** NMS_EXPONENT
+    above = int((scores[..., :c] > 0.05).sum())
+    bc, sc = torch.from_numpy(boxes), torch.from_numpy(scores)
+    bg, sg = bc.cuda(), sc.cuda()
+    runs = [_peak_above(lambda: multiclass_nms(bg, sg, 0.05, 0.5, 100, c)) for _ in range(3)]
+    t0 = time.perf_counter()
+    want = multiclass_nms(bc, sc, 0.05, 0.5, 100, c)
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(runs[-1][0], want))
+    out["retinanet"] = dict(candidates=n * c, above=above, tiles=-(-above // 256),
+                            ms=statistics.median(r[1] for r in runs),
+                            peak_gib=max(r[2] for r in runs))
+    log("longtail-nms", f"RetinaNet's multiclass_nms over 1 x {n} x {c} = {n * c} candidates, "
+                        f"{above} above score_thr ({-(-above // 256)} tiles of 256): ms "
+                        f"{[round(r[1], 3) for r in runs]}, peak above the inputs "
+                        f"{out['retinanet']['peak_gib']:.3f} GiB; {int(want[2].sum())} "
+                        f"detections equal to the CPU's: {same} (CPU {cpu_s:.2f} s) "
+                        f"({nvidia_smi_line()})")
+    if not same or int(want[2].sum()) != 100:
+        raise AssertionError("longtail-nms: RetinaNet's multiclass_nms disagrees with the CPU")
+    del bg, sg, runs
+    # YOLOv3's request: 3 levels x 1000 priors x 8 classes, class-offset boxes
+    k = 3 * 1000 * 8
+    xy = rng.uniform(0, 1024, (1, k, 2))
+    yb = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 500, (1, k, 2))], -1)
+                          .astype(np.float32)).cuda()
+    ys = torch.from_numpy(rng.uniform(0, 1, (1, k)).astype(np.float32) ** 2).cuda()
+    yl = torch.arange(8, device="cuda").repeat(k // 8)[None]
+    # the DWD RPN level: 12,000 proposals, all valid
+    xy = rng.uniform(0, [1280, 736], (1, 1, 12000, 2))
+    db = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(16, 600, (1, 1, 12000, 2))], -1)
+                          .astype(np.float32)).cuda()
+    ds = torch.rand(1, 1, 12000, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(54))
+    for case, fn in (("yolov3", lambda t: batched_nms_padded(yb, ys, yl, 0.45, ys > 0.05,
+                                                             tile_size=t)),
+                     ("dwd_rpn", lambda t: nms_padded(db, ds, 0.7, tile_size=t))):
+        one, one_ms, one_gib = _peak_above(lambda: fn(None))
+        tiled, tiled_ms, tiled_gib = _peak_above(lambda: fn(256))
+        same = torch.equal(one, tiled)
+        out[case] = dict(one_tile_ms=one_ms, one_tile_gib=one_gib, tiled_ms=tiled_ms,
+                         tiled_gib=tiled_gib, kept=int(tiled.sum()))
+        log("longtail-nms", f"{case} NMS over {tiled.numel()} candidates: one tile {one_ms:.3f} "
+                            f"ms, peak above the inputs {one_gib:.3f} GiB; 256-box tiles "
+                            f"{tiled_ms:.3f} ms, {tiled_gib:.3f} GiB; keep sets equal: {same} "
+                            f"({int(tiled.sum())} kept) ({nvidia_smi_line()})")
+        if not same:
+            raise AssertionError(f"longtail-nms {case}: tiled and one-tile keep sets differ")
+        del one, tiled
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_longtail(rows):
+    """longtail: per family of ``LONGTAIL``, per dtype, a request and two
+    training steps at the config's full width (``longtail_serve``,
+    ``longtail_train``), each with B1's and B2's counts set to 0 just
+    before it and read just after, then the NMS sizes (``longtail_nms``).
+    -> numbers."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, path, hw in LONGTAIL:
+        for name in DTYPES:
+            out[f"{family}_{name}"] = dict(serve=longtail_serve(rows, family, path, hw, name),
+                                           train=longtail_train(rows, family, path, hw, name))
+            torch.cuda.empty_cache()
+    out["nms"] = longtail_nms()
+    log("longtail", f"phase longtail: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 DIST_STEPS = 3                  # timed steps a side, after one warm-up step
 DIST_STAGES = STAGES[:5] + ("train_step: backward", "train_step: allreduce",
                             "train_step: sgd")
@@ -5252,8 +5755,8 @@ def dist_yolo():
 def dist_tools(val, train):
     """8c: ``tools/torch_dist_train.sh FLAGSHIP 1 --launcher pytorch`` (f32)
     on ``DIST_TRAIN_IMAGES`` of phase 7b's PNGs: one epoch of 2 steps and an
-    evaluation on phase 5b's val set; then ``tools/torch_dist_test.sh`` of
-    its checkpoint over the 16 val PNGs with ``--out``, whose pickle must
+    evaluation on the tools' val set; then ``tools/torch_dist_test.sh`` of
+    its checkpoint over those ``TOOL_VAL_IMAGES`` PNGs with ``--out``, whose pickle must
     equal this process's ``single_gpu_test`` of the same checkpoint."""
     import os
     import pickle
@@ -5314,7 +5817,7 @@ def dist_tools(val, train):
                     f"results, {n_dets} detections; against single_gpu_test in this process: "
                     f"{'bit-equal' if bits else 'not bit-equal'}; "
                     + (res.stdout.strip().splitlines() or ["(no output)"])[-1][:200])
-        if len(got) != EVAL_IMAGES or not bits:
+        if len(got) != TOOL_VAL_IMAGES or not bits:
             raise AssertionError("the launch script's test pickle differs from single_gpu_test")
         torch.cuda.empty_cache()
         return dict(train_s=train_s, test_s=test_s)
@@ -5358,7 +5861,21 @@ def phase_dist(rows, val, train):
     return out, profile
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall seconds logged and kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    log("time", f"{name}: {PHASE_SECONDS[name]:.2f} s")
+    return out
+
+
 def main():
+    import os
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an "
@@ -5366,46 +5883,62 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     import oadg_tpu_torch.apis  # noqa: F401  (fails here outside a checkout)
-    phase_device()
-    phase_build()
-    rows = phase_kernels() + phase_oamix_kernels()
-    phase_dwd_kernels(rows)
-    mask_rows = phase_mask_kernels()            # joined to the rows before phase 7g
+    start = time.perf_counter()
+    timed("device", phase_device)
+    timed("build", phase_build)
+    if sys.argv[1:] == ["--only", "longtail"]:   # the long tail's phases alone: no result line
+        rows = timed("kernels", phase_kernels)
+        rows += timed("c4-kernels", phase_c4_kernels)
+        longtail = timed("longtail", phase_longtail, rows)
+        log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    rows = timed("kernels", phase_kernels) + timed("oamix-kernels", phase_oamix_kernels)
+    timed("dwd-kernels", phase_dwd_kernels, rows)
+    mask_rows = timed("mask-kernels", phase_mask_kernels)    # joined before phase 7g
+    c4_rows = timed("c4-kernels", phase_c4_kernels)          # joined before phase 9
     if "--kernels-only" in sys.argv[1:]:        # the kernels' phases alone: no result line
-        rows += mask_rows
-        phase_profiled(rows)
+        rows += mask_rows + c4_rows
+        timed("profiled", phase_profiled, rows)
         print(json.dumps({"kernels": rows}), flush=True)
         print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
         return 0
-    handles = phase_slice(rows)
-    phase_reference(handles)
+    handles = timed("slice", phase_slice, rows)
+    timed("reference", phase_reference, handles)
     del handles
-    evaluate_profile = phase_evaluate(rows)
-    robustness = phase_robustness(rows, evaluate_profile.val)
-    phase_oamix()
-    trains = {name: phase_train(rows, name) for name in DTYPES}
+    evaluate_profile = timed("evaluate", phase_evaluate, rows)
+    val = evaluate_profile.val
+    tool_dir = tempfile.TemporaryDirectory()     # the tools' val set: 4 of the 16
+    tool_val = (_subset_json(val[0], TOOL_VAL_IMAGES, os.path.join(tool_dir.name, "val.json")),
+                val[1])
+    robustness = timed("robustness", phase_robustness, rows, val)
+    timed("oamix", phase_oamix)
+    trains = {name: timed("train", phase_train, rows, name) for name in DTYPES}
     for r in rows:          # B1 on the test loop's and the robustness sweep's paths too
         r["launches"] += r.get("launches_evaluate", 0) + r["launches_robustness"]
-    baseline = phase_baseline(rows)
-    loop_profile = phase_train_loop(rows, evaluate_profile.val)
-    dwd = phase_dwd(rows)
-    yolo, yolo_profile = phase_yolo(rows, evaluate_profile.val)
-    tta, tta_profile = phase_tta(rows, evaluate_profile.val)
-    engine = phase_engine(rows, evaluate_profile.val)
+    baseline = timed("baseline", phase_baseline, rows)
+    loop_profile = timed("train-loop", phase_train_loop, rows, tool_val)
+    dwd = timed("dwd", phase_dwd, rows)
+    yolo, yolo_profile = timed("yolo", phase_yolo, rows, tool_val)
+    tta, tta_profile = timed("tta", phase_tta, rows, evaluate_profile.val)
+    engine = timed("engine", phase_engine, rows, evaluate_profile.val)
     rows += mask_rows
-    mask, mask_profile = phase_mask(rows, evaluate_profile.val)
-    dist, dist_profile = phase_dist(rows, evaluate_profile.val, loop_profile.train)
+    mask, mask_profile = timed("mask", phase_mask, rows, evaluate_profile.val)
+    dist, dist_profile = timed("dist", phase_dist, rows, tool_val, loop_profile.train)
+    rows += c4_rows
+    longtail = timed("longtail", phase_longtail, rows)
+
     for _, profile in trains.values():
-        profile()
-    yolo_profile()
-    tta_profile()
-    mask_profile()
-    dist_profile()
+        timed("profile-train", profile)
+    timed("profile-yolo", yolo_profile)
+    timed("profile-tta", tta_profile)
+    timed("profile-mask", mask_profile)
+    timed("profile-dist", dist_profile)
     summary = {name: out for name, (out, _) in trains.items()}
     for name in DTYPES:
-        summary[name]["serving_busy"] = serving_profile(name)
-    evaluate_profile()
-    loop_profile()
+        summary[name]["serving_busy"] = timed("profile-serving", serving_profile, name)
+    timed("profile-evaluate", evaluate_profile)
+    timed("profile-train-loop", loop_profile)
     del trains
     torch.cuda.empty_cache()
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")
@@ -5417,10 +5950,13 @@ def main():
     log("engine", f"summary ({nvidia_smi_line()}): {json.dumps(engine)}")
     log("mask", f"summary ({nvidia_smi_line()}): {json.dumps(mask)}")
     log("dist", f"summary ({nvidia_smi_line()}): {json.dumps(dist)}")
+    log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
     for name in DTYPES:
-        phase_train_reference(name)
-        phase_train_reference(name, BASELINE, "baseline-reference")
-    phase_profiled(rows)
+        timed("train-reference", phase_train_reference, name)
+        timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")
+    timed("profiled", phase_profiled, rows)
+    log("time", f"phases {json.dumps({k: round(v, 2) for k, v in PHASE_SECONDS.items()})}; "
+                f"the script {time.perf_counter() - start:.2f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Anchor generation (port of ``oadg_tpu/core/anchor/anchor_generator.py:26``).
 
-Base anchors per level from ratios x scales around a stride-sized cell
-(ratio-major), computed in numpy float32 exactly as the JAX package does;
+Base anchors per level from ratios x scales (or RetinaNet's
+``octave_base_scale x 2 ** (i / scales_per_octave)``) around a stride-sized
+cell (ratio-major), computed in numpy float32 exactly as the JAX package does;
 ``grid_priors`` (``:89``) lays them out location-major with the anchors
 innermost, the (H, W, A) order of the head's NHWC-flattened outputs, and
 ``grid_priors_cat`` (``:97``) concatenates the levels.
@@ -24,9 +25,19 @@ from ...utils.registry import PRIOR_GENERATORS
 class AnchorGenerator:
 
     def __init__(self, strides: Sequence[int], ratios: Sequence[float],
-                 scales: Sequence[float]):
+                 scales: Sequence[float] = None, octave_base_scale: int = None,
+                 scales_per_octave: int = None):
         self.strides = list(strides)
-        self.scales = np.asarray(scales, dtype=np.float32)
+        if octave_base_scale is not None and scales_per_octave is not None:
+            # RetinaNet's octave scales, in float64 as the JAX package forms
+            # them (``:37-43``; the base anchors round to float32 once)
+            self.scales = np.array([2 ** (i / scales_per_octave)
+                                    for i in range(scales_per_octave)]) * octave_base_scale
+        elif scales is None:
+            raise ValueError("AnchorGenerator needs scales or octave_base_scale and "
+                             "scales_per_octave")
+        else:
+            self.scales = np.asarray(scales, dtype=np.float32)
         self.ratios = np.asarray(ratios, dtype=np.float32)
         self.base_anchors = [self._base_anchors(s) for s in self.strides]
 

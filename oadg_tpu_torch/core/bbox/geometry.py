@@ -1,5 +1,5 @@
-"""Box overlaps (port of ``oadg_tpu/core/bbox/geometry.py``): IoU of
-torch boxes (``:17``, IoU mode) and the evaluators' numpy IoU / IoF
+"""Box overlaps (port of ``oadg_tpu/core/bbox/geometry.py``): IoU, IoF and
+GIoU of torch boxes, pairwise or aligned (``:17``), and the evaluators' numpy IoU / IoF
 (``bbox_overlaps_np``, ``:67``)."""
 from __future__ import annotations
 
@@ -8,17 +8,38 @@ import torch
 
 
 def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor,
+                  mode: str = "iou", is_aligned: bool = False,
                   eps: float = 1e-6) -> torch.Tensor:
-    """Pairwise IoU of (..., M, 4) and (..., N, 4) [x1, y1, x2, y2] boxes
-    -> (..., M, N); widths are ``x2 - x1``, the union is floored at ``eps``."""
+    """Overlaps of (..., M, 4) and (..., N, 4) [x1, y1, x2, y2] boxes ->
+    (..., M, N), or (..., M) elementwise with ``is_aligned`` (M == N).
+    ``mode`` is ``iou``, ``iof`` (over the first box's area) or ``giou``
+    (IoU minus the enclosing box's share not in the union, ``:17-64``);
+    widths are ``x2 - x1``, the union and the enclosing area are floored at
+    ``eps``. ``torch.maximum`` / ``torch.minimum`` split the gradient of a
+    tie evenly, as ``jnp.maximum`` does."""
+    if mode not in ("iou", "iof", "giou"):
+        raise ValueError(f"mode {mode!r}: iou, iof or giou")
     area1 = (bboxes1[..., 2] - bboxes1[..., 0]) * (bboxes1[..., 3] - bboxes1[..., 1])
     area2 = (bboxes2[..., 2] - bboxes2[..., 0]) * (bboxes2[..., 3] - bboxes2[..., 1])
-    lt = torch.maximum(bboxes1[..., :, None, :2], bboxes2[..., None, :, :2])
-    rb = torch.minimum(bboxes1[..., :, None, 2:4], bboxes2[..., None, :, 2:4])
-    wh = (rb - lt).clamp(min=0)
+    if is_aligned:
+        a, b = bboxes1, bboxes2
+    else:
+        a, b = bboxes1[..., :, None, :], bboxes2[..., None, :, :]
+        area1, area2 = area1[..., :, None], area2[..., None, :]
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:4], b[..., 2:4])
+    wh = torch.maximum(rb - lt, rb.new_zeros(()))
     overlap = wh[..., 0] * wh[..., 1]
-    union = area1[..., :, None] + area2[..., None, :] - overlap
-    return overlap / union.clamp(min=eps)
+    union = area1 if mode == "iof" else area1 + area2 - overlap
+    union = torch.maximum(union, union.new_full((), eps))
+    ious = overlap / union
+    if mode != "giou":
+        return ious
+    ewh = torch.maximum(a[..., 2:4], b[..., 2:4]) - torch.minimum(a[..., :2], b[..., :2])
+    ewh = torch.maximum(ewh, ewh.new_zeros(()))
+    enclose = ewh[..., 0] * ewh[..., 1]
+    enclose = torch.maximum(enclose, enclose.new_full((), eps))
+    return ious - (enclose - union) / enclose
 
 
 def bbox_overlaps_np(bboxes1: np.ndarray, bboxes2: np.ndarray, mode: str = "iou",

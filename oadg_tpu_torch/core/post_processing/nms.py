@@ -6,8 +6,12 @@ the JAX package's fixpoint: in the matrix of "earlier box suppresses later
 box" edges, a box with no incoming edge is a certain survivor, and a box an
 edge from a certain survivor reaches is certainly suppressed, so its outgoing
 edges are removed; repeat until nothing changes. What remains is the greedy
-keep set. The JAX package runs this per 256-box tile; here the whole set is
-one tile, batched over any leading dimensions. Every function keeps the JAX
+keep set. As in the JAX package it runs per 256-box tile of the sorted set,
+each tile first cut by the boxes kept before it, batched over any leading
+dimensions; the fixpoint reads back one flag an iteration (``torch.equal``),
+and the tiles past the last valid row are not run. Memory goes with 256 x
+the valid rows, not with the square of the candidates (RetinaNet's
+``multiclass_nms`` takes 400,000). Every function keeps the JAX
 package's tie order: a stable descending sort, lower index first. Scores
 keep their dtype: the proposals of a bfloat16 model sort and suppress on
 bfloat16 scores, where ties are common, as ``jax.lax.top_k`` and the JAX
@@ -35,10 +39,38 @@ def sort_desc(x: torch.Tensor, k: Optional[int] = None):
     return (vals, idx) if k is None else (vals[..., :k], idx[..., :k])
 
 
+def _resolve_tile(boxes: torch.Tensor, alive: torch.Tensor,
+                  iou_threshold: float) -> torch.Tensor:
+    """Greedy keep set of (..., t, 4) score-sorted boxes, of which only the
+    ``alive`` (..., t) ones take part: the suppression fixpoint."""
+    t = boxes.shape[-2]
+    iou = bbox_overlaps(boxes, boxes)
+    earlier = torch.ones(t, t, dtype=torch.bool, device=boxes.device).triu(1)
+    edges = (earlier & alive[..., :, None] & alive[..., None, :]
+             & (iou > iou_threshold))                   # row suppresses column
+    while True:
+        survivor = ~edges.any(dim=-2)
+        suppressed = (edges & survivor[..., :, None]).any(dim=-2)
+        pruned = edges & ~suppressed[..., :, None]
+        if torch.equal(pruned, edges):
+            break
+        edges = pruned
+    return alive & ~edges.any(dim=-2)
+
+
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
-               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+               valid: Optional[torch.Tensor] = None,
+               tile_size: Optional[int] = 256) -> torch.Tensor:
     """Greedy NMS over (..., N, 4) boxes and (..., N) scores; ``valid`` marks
     real rows (padding is never kept and never suppresses).
+
+    The sorted boxes are resolved in tiles of ``tile_size`` (``:33-100``):
+    a tile's boxes that a kept box of an earlier tile overlaps are dropped
+    (one (t, start) IoU block), then the tile's own fixpoint runs. Tiles
+    past the last valid row of every leading index are skipped (one host
+    read of that row), so the work follows the real candidates, not the
+    padded count. ``tile_size=None`` (or one >= N) resolves the whole set
+    as one tile; every tiling gives the same keep set, the exact greedy one.
 
     Returns keep (..., N) bool in input order.
     """
@@ -49,24 +81,29 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     _, order = sort_desc(scores_m)
     boxes_s = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     valid_s = torch.gather(valid, -1, order)
-    iou = bbox_overlaps(boxes_s, boxes_s)
-    earlier = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
-    edges = (earlier & valid_s[..., :, None] & valid_s[..., None, :]
-             & (iou > iou_threshold))                   # row suppresses column
-    while True:
-        survivor = ~edges.any(dim=-2)
-        suppressed = (edges & survivor[..., :, None]).any(dim=-2)
-        pruned = edges & ~suppressed[..., :, None]
-        if torch.equal(pruned, edges):
-            break
-        edges = pruned
-    keep_s = valid_s & ~edges.any(dim=-2)
+    if tile_size is None or tile_size >= n:
+        keep_s = _resolve_tile(boxes_s, valid_s, iou_threshold)
+    else:
+        lead = valid_s.shape[:-1]
+        bs, vs = boxes_s.reshape(-1, n, 4), valid_s.reshape(-1, n)
+        rows = torch.arange(1, n + 1, device=vs.device)
+        last = int(torch.where(vs, rows, torch.zeros_like(rows)).max()) if vs.numel() else 0
+        keep_s = torch.zeros_like(vs)
+        for start in range(0, last, tile_size):
+            stop = min(start + tile_size, n)
+            alive = vs[:, start:stop]
+            if start:
+                iou = bbox_overlaps(bs[:, start:stop], bs[:, :start])     # (B, t, start)
+                alive = alive & ~(keep_s[:, None, :start] & (iou > iou_threshold)).any(-1)
+            keep_s[:, start:stop] = _resolve_tile(bs[:, start:stop], alive, iou_threshold)
+        keep_s = keep_s.view(*lead, n)
     return torch.zeros_like(keep_s).scatter(-1, order, keep_s)
 
 
 def batched_nms_padded(boxes: torch.Tensor, scores: torch.Tensor,
                        idxs: torch.Tensor, iou_threshold: float,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       valid: Optional[torch.Tensor] = None,
+                       tile_size: Optional[int] = 256) -> torch.Tensor:
     """NMS within each ``idxs`` group (``:103``): boxes of different groups
     are moved apart by ``idx * (max_coord + 1)`` so they never overlap."""
     if valid is None:
@@ -74,7 +111,7 @@ def batched_nms_padded(boxes: torch.Tensor, scores: torch.Tensor,
     coords = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
     max_coord = coords.amax(dim=(-2, -1), keepdim=True)     # (..., 1, 1)
     offsets = idxs.to(boxes.dtype)[..., None] * (max_coord + 1.0)
-    return nms_padded(boxes + offsets, scores, iou_threshold, valid)
+    return nms_padded(boxes + offsets, scores, iou_threshold, valid, tile_size)
 
 
 def soft_nms_padded(boxes: torch.Tensor, scores: torch.Tensor,

@@ -1,5 +1,5 @@
 """Backbones of the port."""
 from .darknet import Darknet
-from .resnet import ResNet
+from .resnet import ResNet, ResNeXt
 
-__all__ = ["Darknet", "ResNet"]
+__all__ = ["Darknet", "ResNet", "ResNeXt"]

@@ -17,7 +17,14 @@ children that ``oadg_tpu/engine/optim.py:frozen_mask`` (``:39-62``) masks;
 
 Every conv and its frozen BN run as one folded conv (``layers.conv_frozen_bn``,
 the JAX package's ``conv_norm``, ``:30-50``), in the compute dtype ``dtype``;
-the module pairs and their ``state_dict`` keys stay those of mmdet.
+the module pairs and their ``state_dict`` keys stay those of mmdet. Two 3x3s
+are not folded, as in the JAX package, which applies their BN after them
+(``norm()``): the DCNv2 ``conv2`` of a stage in ``stage_with_dcn`` when
+``dcn=dict(type='DCNv2', deform_groups=...)`` (``:84-104``; offsets and
+modulation from its ``conv_offset``, ``layers.ModulatedDeformConv``), and
+ResNeXt's grouped ``conv2`` (``ResNeXt``, ``BottleneckX``, ``:200-275``:
+``groups`` x ``base_width`` channels a group, width
+``int(planes * base_width / 64) * groups``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from typing import Sequence
 from torch import nn
 
 from ...utils.registry import BACKBONES
-from ..layers import Conv, FrozenBN, conv_frozen_bn, max_pool_3x3_s2
+from ..layers import Conv, FrozenBN, ModulatedDeformConv, conv_frozen_bn, max_pool_3x3_s2
 
 
 def _conv(cin, cout, k, stride=1, padding=0, device=None, dtype=None):
@@ -70,19 +77,30 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """``oadg_tpu/models/backbones/resnet.py:76``: the stride on the 3x3
     (``pytorch``) or on the first 1x1 (``caffe``); the 3x3 dilated by
-    ``dilation``, padded by it."""
+    ``dilation``, padded by it; with ``dcn`` a DCNv2 3x3, its BN after it.
+    ``width`` and ``groups`` are ResNeXt's (``BottleneckX``): the 3x3 is then
+    grouped, its BN after it."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None,
-                 style="pytorch", bn_grad=True, device=None, dtype=None):
+                 style="pytorch", bn_grad=True, dcn=None, width=None, groups=1,
+                 device=None, dtype=None):
         super().__init__()
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
-        self.conv1 = _conv(inplanes, planes, 1, s1, device=device, dtype=dtype)
-        self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv2 = Conv(planes, planes, 3, s2, dilation, dilation, bias=False,
-                          device=device, dtype=dtype)
-        self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
-        self.conv3 = _conv(planes, planes * 4, 1, device=device, dtype=dtype)
+        width = width or planes
+        self.conv1 = _conv(inplanes, width, 1, s1, device=device, dtype=dtype)
+        self.bn1 = FrozenBN(width, requires_grad=bn_grad, device=device)
+        if dcn is not None:
+            self.conv2 = ModulatedDeformConv(
+                width, width, 3, s2, dilation, dilation,
+                deform_groups=int(dict(dcn).get("deform_groups", 1)),
+                device=device, dtype=dtype)
+        else:
+            self.conv2 = Conv(width, width, 3, s2, dilation, dilation, bias=False,
+                              groups=groups, device=device, dtype=dtype)
+        self.fold_conv2 = dcn is None and groups == 1
+        self.bn2 = FrozenBN(width, requires_grad=bn_grad, device=device)
+        self.conv3 = _conv(width, planes * 4, 1, device=device, dtype=dtype)
         self.bn3 = FrozenBN(planes * 4, requires_grad=bn_grad, device=device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
@@ -90,7 +108,11 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         identity = _identity(self, x)
         out = self.relu(conv_frozen_bn(self.conv1, self.bn1, x))
-        out = self.relu(conv_frozen_bn(self.conv2, self.bn2, out))
+        if self.fold_conv2:
+            out = conv_frozen_bn(self.conv2, self.bn2, out)
+        else:
+            out = self.bn2(self.conv2(out))
+        out = self.relu(out)
         out = conv_frozen_bn(self.conv3, self.bn3, out)
         return self.relu(out + identity)
 
@@ -108,6 +130,11 @@ ARCH = {
 class ResNet(nn.Module):
     """Stem (7x7/s2 conv, frozen BN, ReLU, 3x3/s2 max pool) and
     ``num_stages`` residual stages; returns the stages in ``out_indices``."""
+    groups = 1
+
+    def block_width(self, planes: int) -> int:
+        """The 3x3's width in a stage of ``planes``."""
+        return planes
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
@@ -116,6 +143,7 @@ class ResNet(nn.Module):
                  style: str = "pytorch", frozen_stages: int = -1,
                  norm_cfg=None, norm_eval: bool = True, init_cfg=None,
                  base_channels: int = 64, stem_channels: int = 64,
+                 dcn=None, stage_with_dcn: Sequence[bool] = (False, False, False, False),
                  device=None, dtype=None):
         super().__init__()
         if style not in ("pytorch", "caffe") or not norm_eval:
@@ -123,6 +151,8 @@ class ResNet(nn.Module):
                                       "with frozen BN (norm_eval=True)")
         if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
             raise NotImplementedError(f"norm {norm_cfg['type']}")
+        if dcn is not None and dict(dcn).get("type", "DCNv2") != "DCNv2":
+            raise NotImplementedError(f"dcn type {dict(dcn)['type']}: the port takes DCNv2")
         block, blocks = ARCH[depth]
         blocks = blocks[:num_stages]
         bn_grad = dict(norm_cfg or {}).get("requires_grad", True) is not False
@@ -141,8 +171,12 @@ class ResNet(nn.Module):
                 if j == 0 and (stride != 1 or inplanes != planes * block.expansion):
                     ds = _downsample(inplanes, planes * block.expansion, stride,
                                      bn_grad, device, dtype)
+                extra = {}
+                if block is Bottleneck:
+                    extra = dict(dcn=dcn if dcn is not None and stage_with_dcn[i] else None,
+                                 width=self.block_width(planes), groups=self.groups)
                 layers.append(block(inplanes, planes, stride, dilations[i], ds, style,
-                                    bn_grad, device=device, dtype=dtype))
+                                    bn_grad, device=device, dtype=dtype, **extra))
                 inplanes = planes * block.expansion
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*layers))
@@ -160,3 +194,20 @@ class ResNet(nn.Module):
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+@BACKBONES.register_module()
+class ResNeXt(ResNet):
+    """ResNeXt (``oadg_tpu/models/backbones/resnet.py:254``): ResNet with
+    grouped bottlenecks (``BottleneckX``, ``:200``) of ``groups`` groups of
+    ``base_width`` channels at the first stage's width; the config's
+    ``groups`` and ``base_width``."""
+
+    def __init__(self, groups: int = 32, base_width: int = 4, **kwargs):
+        if kwargs.get("dcn") is not None:
+            raise NotImplementedError("ResNeXt with dcn: the JAX package builds none")
+        self.groups, self.base_width = groups, base_width
+        super().__init__(**kwargs)
+
+    def block_width(self, planes: int) -> int:
+        return int(planes * (self.base_width / 64.0)) * self.groups

@@ -1,5 +1,6 @@
 """Single-stage detectors (port of ``oadg_tpu/models/detectors/single_stage.py:16-128``):
-backbone -> neck -> dense head. ``YOLOV3`` is the YOLOv3 config's type.
+backbone -> neck -> dense head. ``YOLOV3`` is the YOLOv3 config's type,
+``RetinaNet`` (``:131``) RetinaNet's (``dense_heads/retina_head.py``).
 
 The interface is ``TwoStageDetector``'s, which ``make_train_step``,
 ``make_test_step``, ``DetectorHandle`` and ``single_gpu_test`` use:
@@ -114,3 +115,8 @@ class SingleStageDetector(nn.Module):
 @DETECTORS.register_module()
 class YOLOV3(SingleStageDetector):
     """``oadg_tpu/models/detectors/single_stage.py:117``."""
+
+
+@DETECTORS.register_module()
+class RetinaNet(SingleStageDetector):
+    """``oadg_tpu/models/detectors/single_stage.py:131``."""

@@ -26,6 +26,8 @@ Counterparts:
   mode the live statistics of ``FrozenBN(frozen=False)``, in eval mode (or
   under a backbone's ``norm_eval``, which puts its BNs in eval mode) the
   stored ones.
+- ``ModulatedDeformConv`` <- ``ModulatedDeformConv`` (``:390-423``), the
+  DCNv2 layer of ``dcn=dict(type='DCNv2')`` backbones.
 - ``max_pool_3x3_s2`` <- ``max_pool_3x3_s2`` (``:426``).
 
 Compute dtype (flax's ``dtype=``): parameters stay float32 and only the
@@ -58,10 +60,10 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True, device=None, dtype=None):
+                 bias: bool = True, groups: int = 1, device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, bias=bias,
-                         device=device)
+                         groups=groups, device=device)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -69,7 +71,7 @@ class Conv(nn.Conv2d):
         if not _reduced(dt):
             return super().forward(x)
         y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                     self.padding, self.dilation)
+                     self.padding, self.dilation, self.groups)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
@@ -236,8 +238,54 @@ def conv_frozen_bn(conv: Conv, bn: FrozenBN, x):
     if conv.bias is not None:
         b = b + conv.bias * w
     y = F.conv2d(x.to(dt), (conv.weight * w[:, None, None, None]).to(dt), None,
-                 conv.stride, conv.padding, conv.dilation)
+                 conv.stride, conv.padding, conv.dilation, conv.groups)
     return y + b.to(dt)[:, None, None]
+
+
+class ModulatedDeformConv(nn.Module):
+    """DCNv2 that predicts its own offsets and modulation (mmcv
+    ``ModulatedDeformConv2dPack``, ``layers.py:390-423``): ``conv_offset``
+    (a biased conv of the layer's geometry, ``3 * deform_groups * K``
+    outputs) gives the offsets (its first ``2 dg K`` channels) and, through
+    a sigmoid, the modulation, both in float32; then
+    ``ops.deform_conv.modulated_deform_conv2d`` in the compute dtype. mmcv
+    keys: ``weight`` (C_out, C_in, kh, kw), ``bias``,
+    ``conv_offset.weight`` and ``conv_offset.bias``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dilation: int = 1,
+                 deform_groups: int = 1, bias: bool = False, device=None, dtype=None):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.deform_groups = deform_groups
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if bias else None)
+        self.conv_offset = Conv(in_channels, 3 * deform_groups * kernel_size ** 2,
+                                kernel_size, stride, padding, dilation, bias=True,
+                                device=device, dtype=dtype)
+
+    def init_weights(self, gen: torch.Generator):
+        """He-normal weight and zero bias; ``conv_offset`` zero, as mmcv
+        starts it (offsets 0, modulation 0.5). The JAX package draws
+        ``conv_offset`` LeCun-normal despite its comment (ROADMAP C)."""
+        normal_(self.weight, math.sqrt(2.0 / self.weight[0].numel()), gen)
+        with torch.no_grad():
+            self.conv_offset.weight.zero_()
+            self.conv_offset.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        from ..ops.deform_conv import modulated_deform_conv2d
+        dt = self.compute_dtype if _reduced(self.compute_dtype) else torch.float32
+        om = self.conv_offset(x).float()
+        nk = 2 * om.shape[1] // 3
+        return modulated_deform_conv2d(
+            x.to(dt), om[:, :nk], torch.sigmoid(om[:, nk:]), self.weight.to(dt),
+            self.stride, self.padding, self.dilation, self.deform_groups, self.bias)
 
 
 def max_pool_3x3_s2(x):
@@ -268,10 +316,14 @@ def xavier_uniform_(t: torch.Tensor, gen: torch.Generator):
 
 def init_default_(module: nn.Module, gen: torch.Generator):
     """LeCun-normal weights and zero biases for every Conv2d / Linear under
-    ``module``; frozen BN stays identity."""
+    ``module``, then each ``ModulatedDeformConv``'s own init; frozen BN
+    stays identity."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, gen)
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()
+    for m in module.modules():
+        if isinstance(m, ModulatedDeformConv):
+            m.init_weights(gen)

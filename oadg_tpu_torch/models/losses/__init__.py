@@ -1,12 +1,14 @@
 """Losses of the port; importing this registers the stock losses and the
 OA-Loss family."""
-from .common import (CrossEntropyLoss, L1Loss, MSELoss, SmoothL1Loss, accuracy,
+from .common import (BoundedIoULoss, CIoULoss, CrossEntropyLoss, DIoULoss, FocalLoss,
+                     GIoULoss, IoULoss, L1Loss, MSELoss, SmoothL1Loss, accuracy,
                      binary_cross_entropy_with_logits, l1, smooth_l1,
-                     softmax_cross_entropy, weight_reduce_loss)
+                     sigmoid_focal_loss, softmax_cross_entropy, weight_reduce_loss)
 from .oadg import (ContrastiveLossPlus, CrossEntropyLossPlus, L1LossPlus,
                    SmoothL1LossPlus, jsd_consistency, supcontrast)
 
-__all__ = ["CrossEntropyLoss", "L1Loss", "MSELoss", "SmoothL1Loss", "accuracy",
+__all__ = ["BoundedIoULoss", "CIoULoss", "DIoULoss", "FocalLoss", "GIoULoss",
+           "IoULoss", "sigmoid_focal_loss", "CrossEntropyLoss", "L1Loss", "MSELoss", "SmoothL1Loss", "accuracy",
            "binary_cross_entropy_with_logits", "l1", "smooth_l1", "softmax_cross_entropy", "weight_reduce_loss", "ContrastiveLossPlus",
            "CrossEntropyLossPlus", "L1LossPlus", "SmoothL1LossPlus",
            "jsd_consistency", "supcontrast"]

@@ -2,7 +2,11 @@
 ``oadg_tpu/models/losses/common.py:22-136``): ``CrossEntropyLoss``,
 ``SmoothL1Loss`` and ``L1Loss``, registered in ``LOSSES``, are the plain
 Faster R-CNN's; ``MSELoss`` (``:248-258``) is YOLOv3's, beside the sigmoid
-elementwise ``CrossEntropyLoss`` on soft targets.
+elementwise ``CrossEntropyLoss`` on soft targets; ``FocalLoss``
+(``:62-69``, ``:138-155``) is RetinaNet's; ``IoULoss``, ``BoundedIoULoss``,
+``GIoULoss``, ``DIoULoss`` and ``CIoULoss`` (``:158-245``, ``:466-523``)
+regress decoded boxes (``reg_decoded_bbox``): their ``(R, 4)`` box weights
+are cut to ``[..., 0]``, as in the JAX package.
 
 Static-shape and mask-weighted like the JAX package: ragged indexing
 (``pred[pos_inds]``) is a weight of 0. ``maximum`` and ``minimum`` are taken
@@ -13,8 +17,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
+from ...core.bbox.geometry import bbox_overlaps
 from ...utils.registry import LOSSES
 
 
@@ -60,6 +67,17 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
 
 def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred - target).abs()
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       gamma: float = 2.0, alpha: float = 0.25) -> torch.Tensor:
+    """Elementwise focal loss on one-hot ``targets`` (``:62-69``):
+    ``a_t * bce * (1 - p_t) ** gamma``."""
+    p = torch.sigmoid(logits)
+    ce = binary_cross_entropy_with_logits(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    a_t = alpha * targets + (1 - alpha) * (1 - targets)
+    return a_t * ce * (1 - p_t) ** gamma
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,
@@ -154,3 +172,180 @@ class MSELoss:
                  reduction_override=None, **kw):
         return self.loss_weight * weight_reduce_loss(
             (pred - target) ** 2, weight, reduction_override or self.reduction, avg_factor)
+
+
+def _box_weight(weight, loss):
+    """A 4-wide box weight cut to its first column (the JAX package's)."""
+    if weight is not None and weight.dim() > loss.dim():
+        return weight[..., 0]
+    return weight
+
+
+@LOSSES.register_module()
+class FocalLoss:
+    """Sigmoid focal loss (``:138-155``): the label ``num_classes``
+    (background) and any label outside [0, C) become an all-zero one-hot
+    row; a per-row weight is broadcast over the classes."""
+
+    def __init__(self, use_sigmoid: bool = True, gamma: float = 2.0,
+                 alpha: float = 0.25, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        if not use_sigmoid:
+            raise NotImplementedError("FocalLoss takes use_sigmoid=True only")
+        self.gamma, self.alpha = gamma, alpha
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        nc = pred.shape[-1]
+        inside = (target >= 0) & (target < nc)
+        onehot = torch.zeros_like(pred).scatter_(
+            -1, target.clamp(0, nc - 1)[..., None].long(), 1.0) * inside[..., None]
+        loss = sigmoid_focal_loss(pred, onehot, self.gamma, self.alpha)
+        if weight is not None and weight.dim() + 1 == loss.dim():
+            weight = weight[..., None]
+        return self.loss_weight * weight_reduce_loss(
+            loss, weight, reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class IoULoss:
+    """``:158-182``: ``-log(iou)`` (``mode='log'``), ``1 - iou``
+    (``linear``) or ``1 - iou ** 2`` (``square``), the IoU floored at
+    ``eps``."""
+
+    def __init__(self, mode: str = "log", eps: float = 1e-6, reduction: str = "mean",
+                 loss_weight: float = 1.0, linear: bool = False, **kw):
+        self.mode = "linear" if linear else mode
+        if self.mode not in ("log", "linear", "square"):
+            raise ValueError(f"IoULoss mode {self.mode!r}: log, linear or square")
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        ious = bbox_overlaps(pred, target, is_aligned=True)
+        ious = torch.maximum(ious, ious.new_full((), self.eps))
+        if self.mode == "linear":
+            loss = 1 - ious
+        elif self.mode == "square":
+            loss = 1 - ious ** 2
+        else:
+            loss = -torch.log(ious)
+        return self.loss_weight * weight_reduce_loss(
+            loss, _box_weight(weight, loss), reduction_override or self.reduction,
+            avg_factor)
+
+
+@LOSSES.register_module()
+class BoundedIoULoss:
+    """Bounded IoU (``:185-229``): per-side bounds on the centre offsets and
+    the size ratios against the detached target, each through a smooth-L1
+    step at ``beta``, summed."""
+
+    def __init__(self, beta: float = 0.2, eps: float = 1e-3, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        self.beta = beta
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        eps = self.eps
+        zero = pred.new_zeros(())
+        pcx = (pred[:, 0] + pred[:, 2]) * 0.5
+        pcy = (pred[:, 1] + pred[:, 3]) * 0.5
+        pw = pred[:, 2] - pred[:, 0]
+        ph = pred[:, 3] - pred[:, 1]
+        t = target.detach()
+        tcx = (t[:, 0] + t[:, 2]) * 0.5
+        tcy = (t[:, 1] + t[:, 3]) * 0.5
+        tw = t[:, 2] - t[:, 0]
+        th = t[:, 3] - t[:, 1]
+        dx = (tcx - pcx).abs()
+        dy = (tcy - pcy).abs()
+        loss_dx = 1 - torch.maximum((tw - 2 * dx) / (tw + 2 * dx + eps), zero)
+        loss_dy = 1 - torch.maximum((th - 2 * dy) / (th + 2 * dy + eps), zero)
+        loss_dw = 1 - torch.minimum(tw / (pw + eps), pw / (tw + eps))
+        loss_dh = 1 - torch.minimum(th / (ph + eps), ph / (th + eps))
+        comb = torch.stack([loss_dx, loss_dy, loss_dw, loss_dh], dim=-1)
+        loss = torch.where(comb < self.beta, 0.5 * comb * comb / self.beta,
+                           comb - 0.5 * self.beta).sum(dim=-1)
+        return self.loss_weight * weight_reduce_loss(
+            loss, _box_weight(weight, loss), reduction_override or self.reduction,
+            avg_factor)
+
+
+@LOSSES.register_module()
+class GIoULoss:
+    """``:232-245``: ``1 - giou``."""
+
+    def __init__(self, eps: float = 1e-6, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        loss = 1 - bbox_overlaps(pred, target, mode="giou", is_aligned=True)
+        return self.loss_weight * weight_reduce_loss(
+            loss, _box_weight(weight, loss), reduction_override or self.reduction,
+            avg_factor)
+
+
+def _center_dist2_and_enclose(pred, target):
+    """Squared centre distance and the enclosing box's squared diagonal
+    (floored at 1e-6), ``:466-478``."""
+    px = (pred[..., 0] + pred[..., 2]) * 0.5
+    py = (pred[..., 1] + pred[..., 3]) * 0.5
+    tx = (target[..., 0] + target[..., 2]) * 0.5
+    ty = (target[..., 1] + target[..., 3]) * 0.5
+    rho2 = (px - tx) ** 2 + (py - ty) ** 2
+    ex1 = torch.minimum(pred[..., 0], target[..., 0])
+    ey1 = torch.minimum(pred[..., 1], target[..., 1])
+    ex2 = torch.maximum(pred[..., 2], target[..., 2])
+    ey2 = torch.maximum(pred[..., 3], target[..., 3])
+    c2 = (ex2 - ex1) ** 2 + (ey2 - ey1) ** 2
+    return rho2, torch.maximum(c2, c2.new_full((), 1e-6))
+
+
+@LOSSES.register_module()
+class DIoULoss:
+    """Distance-IoU (``:481-500``): ``1 - iou + rho^2 / c^2``."""
+
+    def __init__(self, eps: float = 1e-6, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def _loss(self, pred, target, ious):
+        rho2, c2 = _center_dist2_and_enclose(pred, target)
+        return 1 - ious + rho2 / c2
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        loss = self._loss(pred, target, bbox_overlaps(pred, target, is_aligned=True))
+        return self.loss_weight * weight_reduce_loss(
+            loss, _box_weight(weight, loss), reduction_override or self.reduction,
+            avg_factor)
+
+
+@LOSSES.register_module()
+class CIoULoss(DIoULoss):
+    """Complete-IoU (``:503-523``): DIoU plus ``alpha * v``, the aspect
+    term ``v`` with its weight ``alpha`` detached."""
+
+    def _loss(self, pred, target, ious):
+        floor = pred.new_full((), 1e-6)
+        pw = torch.maximum(pred[..., 2] - pred[..., 0], floor)
+        ph = torch.maximum(pred[..., 3] - pred[..., 1], floor)
+        tw = torch.maximum(target[..., 2] - target[..., 0], floor)
+        th = torch.maximum(target[..., 3] - target[..., 1], floor)
+        v = (4 / math.pi ** 2) * (torch.atan(tw / th) - torch.atan(pw / ph)) ** 2
+        alpha = v / torch.maximum(1 - ious + v, floor)
+        return super()._loss(pred, target, ious) + alpha.detach() * v

@@ -1,11 +1,15 @@
-"""Box heads (port of ``oadg_tpu/models/roi_heads/bbox_heads.py:37,204``):
-flatten the (C, 7, 7) RoI features, two shared FCs with ReLU, then the
-classifier (C + 1), the class-wise box regressor (4 C) and, in the
-contrastive head, the embedding MLP ``fc_cont`` (ReLU between its layers,
-none after the last; the test path discards it). ``get_targets`` and
-``loss`` (``:117-174``) are the static-shape training targets and losses.
-mmdet keys: ``shared_fcs.0.weight`` (input flattened C, H, W), ``fc_cls``,
-``fc_reg``, ``fc_cont.i``.
+"""Box heads (port of ``oadg_tpu/models/roi_heads/bbox_heads.py:37,204,226``):
+flatten the (C, 7, 7) RoI features (or, ``with_avg_pool``, average them to
+(C,) first: the C4 head, ``:98``), ``num_shared_fcs`` shared FCs with ReLU
+(two; none in the plain ``BBoxHead``), then the classifier (C + 1), the
+class-wise box regressor (4 C) and, in the contrastive head, the embedding
+MLP ``fc_cont`` (ReLU between its layers, none after the last; the test
+path discards it). ``get_targets`` and ``loss`` (``:117-174``) are the
+static-shape training targets and losses; with ``reg_decoded_bbox`` (the
+IoU-loss family) the targets are the matched gt boxes themselves and the
+loss decodes the chosen deltas against the sampled rois first
+(``:135-175``). mmdet keys: ``shared_fcs.0.weight`` (input flattened C, H,
+W), ``fc_cls``, ``fc_reg``, ``fc_cont.i``.
 
 Every FC computes in ``dtype`` (float32 parameters; the float32 RoI features
 are cast on entry, as ``nn.Dense(dtype=...)`` does) and returns it; the
@@ -29,6 +33,8 @@ class Shared2FCBBoxHead(nn.Module):
     def __init__(self, in_channels: int = 256, fc_out_channels: int = 1024,
                  roi_feat_size: int = 7, num_classes: int = 80,
                  bbox_coder=None, reg_class_agnostic: bool = False,
+                 reg_decoded_bbox: bool = False, with_avg_pool: bool = False,
+                 num_shared_fcs: int = 2,
                  with_cont: bool = False, cont_predictor_cfg=None,
                  out_dim_cont=None, loss_cls=None, loss_bbox=None,
                  loss_cont=None, device=None, dtype=None):
@@ -39,21 +45,24 @@ class Shared2FCBBoxHead(nn.Module):
         self.bbox_coder = DeltaXYWHBBoxCoder(**coder)
         self.num_classes = num_classes
         self.reg_class_agnostic = reg_class_agnostic
+        self.reg_decoded_bbox = reg_decoded_bbox
+        self.with_avg_pool = with_avg_pool
+        self.in_channels = in_channels
         self.loss_cls_cfg = dict(loss_cls or dict(type="CrossEntropyLoss"))
         self.loss_bbox_cfg = dict(loss_bbox or dict(type="SmoothL1Loss", beta=1.0))
         self.loss_cont_cfg = dict(loss_cont) if loss_cont else None
-        flat = in_channels * roi_feat_size * roi_feat_size
+        flat = in_channels if with_avg_pool else in_channels * roi_feat_size ** 2
         fc = dict(device=device, dtype=dtype)
-        self.shared_fcs = nn.ModuleList([
-            Linear(flat, fc_out_channels, **fc),
-            Linear(fc_out_channels, fc_out_channels, **fc)])
-        self.fc_cls = Linear(fc_out_channels, num_classes + 1, **fc)
-        self.fc_reg = Linear(fc_out_channels,
+        widths = [flat] + [fc_out_channels] * num_shared_fcs
+        self.shared_fcs = nn.ModuleList(Linear(a, b, **fc)
+                                        for a, b in zip(widths[:-1], widths[1:]))
+        self.fc_cls = Linear(widths[-1], num_classes + 1, **fc)
+        self.fc_reg = Linear(widths[-1],
                              4 if reg_class_agnostic else 4 * num_classes, **fc)
         if with_cont:
             cfg = dict(cont_predictor_cfg or dict(num_linear=2, feat_channels=256))
             width = cfg.get("feat_channels", 256)
-            dims = [fc_out_channels] + [width] * cfg.get("num_linear", 2)
+            dims = [widths[-1]] + [width] * cfg.get("num_linear", 2)
             self.fc_cont = nn.ModuleList(Linear(a, b, **fc)
                                          for a, b in zip(dims[:-1], dims[1:]))
 
@@ -73,7 +82,7 @@ class Shared2FCBBoxHead(nn.Module):
     def forward(self, roi_feats: torch.Tensor):
         """(R, C, 7, 7) -> cls_score (R, C + 1), bbox_pred (R, 4 C), and the
         contrastive embedding (R, feat_channels) or None."""
-        x = roi_feats.flatten(1)
+        x = roi_feats.mean(dim=(2, 3)) if self.with_avg_pool else roi_feats.flatten(1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
         cont = None
@@ -93,20 +102,24 @@ class Shared2FCBBoxHead(nn.Module):
         labels; is_pos, valid (...) bool; matched_gt (..., 4).
 
         Returns labels (background = num_classes), label weights, encoded
-        deltas and box weights (1 on positives).
+        deltas (with ``reg_decoded_bbox``, the matched gt boxes) and box
+        weights (1 on positives).
         """
         tgt_labels = torch.where(is_pos, labels, self.num_classes)
         pw = 1.0 if pos_weight <= 0 else pos_weight
         label_w = torch.where(valid, torch.where(is_pos, pw, 1.0), 0.0)
-        deltas = self.bbox_coder.encode(boxes, matched_gt)
+        deltas = (matched_gt if self.reg_decoded_bbox
+                  else self.bbox_coder.encode(boxes, matched_gt))
         bbox_w = is_pos.float()[..., None].expand(deltas.shape)
         return tgt_labels, label_w, deltas, bbox_w
 
     def loss(self, cls_score, bbox_pred, labels, label_weights, bbox_targets,
-             bbox_weights):
+             bbox_weights, rois=None):
         """``loss_cls`` averaged over the rows with a label weight, ``acc``
         (logged, never summed), ``loss_bbox`` over the positive rows of the
-        target class averaged over all rows (``:146-174``). Under data
+        target class averaged over all rows (``:146-174``); with
+        ``reg_decoded_bbox`` the chosen deltas are decoded in float32
+        against ``rois`` (R, 4), the sampled boxes, first. Under data
         parallel the rows and weighted rows are counted over every rank
         (each rank returns its share)."""
         r = bbox_pred.shape[0]
@@ -122,6 +135,10 @@ class Shared2FCBBoxHead(nn.Module):
             safe = labels.clamp(0, self.num_classes - 1)
             pos_pred = torch.gather(bbox_pred.reshape(r, -1, 4), 1,
                                     safe[:, None, None].expand(r, 1, 4))[:, 0]
+        if self.reg_decoded_bbox:
+            if rois is None:
+                raise ValueError("reg_decoded_bbox needs the sampled rois")
+            pos_pred = self.bbox_coder.decode(rois.reshape(r, 4), pos_pred.float())
         return dict(
             loss_cls=loss_cls(cls_score.float(), labels, label_weights,
                               avg_factor=avg_factor),
@@ -157,3 +174,13 @@ class Shared2FCContrastiveHead(Shared2FCBBoxHead):
 
     def __init__(self, with_cont: bool = True, **kwargs):
         super().__init__(with_cont=with_cont, **kwargs)
+
+
+@HEADS.register_module()
+class BBoxHead(Shared2FCBBoxHead):
+    """``bbox_heads.py:226``: no shared FCs; the (averaged, with
+    ``with_avg_pool``) RoI features go straight to ``fc_cls`` and
+    ``fc_reg``."""
+
+    def __init__(self, num_shared_fcs: int = 0, **kwargs):
+        super().__init__(num_shared_fcs=num_shared_fcs, **kwargs)

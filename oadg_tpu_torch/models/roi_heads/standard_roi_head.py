@@ -20,6 +20,12 @@ batch's (``parallel/dist.py``): the box head's and the mask head's
 normalizers count every rank's rows, and ``supcontrast`` gathers every
 rank's contrastive rows.
 
+The C4 head (``shared_head``, ``:37-56``): ResNet's next stage
+(``shared_heads.ResLayer``) runs on the RoI features before the box head,
+in training, in the test path and in the test-time augmentation's views
+(``:207, 247, 293``); the IoU-loss family's box head gets the sampled rois
+to decode its deltas against.
+
 The box head computes in ``dtype``; RoIAlign returns float32 features from
 maps of either dtype, and the contrastive loss takes the embeddings cast to
 float32 (``:336``).
@@ -52,12 +58,22 @@ class StandardRoIHead(nn.Module):
 
     def __init__(self, bbox_roi_extractor=None, bbox_head=None, train_cfg=None,
                  test_cfg=None, num_views: int = 1, mask_roi_extractor=None,
-                 mask_head=None, device=None, dtype=None):
+                 mask_head=None, shared_head=None, device=None, dtype=None):
         super().__init__()
         self.bbox_roi_extractor = build_from_cfg(
             dict(bbox_roi_extractor), ROI_EXTRACTORS, dict(device=device))
+        self.shared_head = None
+        if shared_head:
+            self.shared_head = build_from_cfg(
+                dict(shared_head), HEADS,
+                dict(device=device, dtype=dtype,
+                     in_channels=int(dict(bbox_roi_extractor).get("out_channels", 256))))
         self.bbox_head = build_from_cfg(dict(bbox_head), HEADS,
                                         dict(device=device, dtype=dtype))
+        if (self.shared_head is not None
+                and self.bbox_head.in_channels != self.shared_head.out_channels):
+            raise ValueError(f"bbox_head.in_channels={self.bbox_head.in_channels}: the "
+                             f"shared head gives {self.shared_head.out_channels} channels")
         self.mask_head = None
         if mask_head:
             layer = dict((mask_roi_extractor or bbox_roi_extractor or {})
@@ -85,6 +101,14 @@ class StandardRoIHead(nn.Module):
         self.sampler = RandomSampler(**smp)
         self.pos_weight = float(train_cfg.get("pos_weight", -1))
         self.mask_size = int(train_cfg.get("mask_size", 28))
+
+    def bbox_forward(self, feats, rois: torch.Tensor):
+        """(R, 5) rois -> the box head's outputs on their RoIAlign features
+        (through the shared head where there is one)."""
+        x = self.bbox_roi_extractor(feats, rois)
+        if self.shared_head is not None:
+            x = self.shared_head(x)
+        return self.bbox_head(x)
 
     @staticmethod
     def proposals_to_rois(proposals: torch.Tensor) -> torch.Tensor:
@@ -133,11 +157,10 @@ class StandardRoIHead(nn.Module):
                 t.repeat(v, *[1] * (t.dim() - 1)) for t in sampled)
             tgt_labels, tgt_lw, tgt_deltas, tgt_bw = self.bbox_head.get_targets(
                 boxes, labels, is_pos, valid, matched_gt, self.pos_weight)
-        cls_score, bbox_pred, cont = self.bbox_head(
-            self.bbox_roi_extractor(feats, self.proposals_to_rois(boxes)))
+        cls_score, bbox_pred, cont = self.bbox_forward(feats, self.proposals_to_rois(boxes))
         losses = self.bbox_head.loss(cls_score, bbox_pred, tgt_labels.reshape(-1),
                                      tgt_lw.reshape(-1), tgt_deltas.reshape(-1, 4),
-                                     tgt_bw.reshape(-1, 4))
+                                     tgt_bw.reshape(-1, 4), rois=boxes.reshape(-1, 4))
         if self.mask_head is not None and gt_masks is not None:
             with record_function("forward_train: mask branch"):
                 losses["loss_mask"] = self._mask_loss(feats, boxes, tgt_labels, is_pos & valid,
@@ -203,8 +226,7 @@ class StandardRoIHead(nn.Module):
         """(N, P, 5) rois on one view's maps -> decoded boxes (N, P, 4 C) and
         softmax scores (N, P, C + 1)."""
         n, p = rois.shape[:2]
-        cls_score, bbox_pred, _ = self.bbox_head(
-            self.bbox_roi_extractor(feats, rois.reshape(n * p, 5)))
+        cls_score, bbox_pred, _ = self.bbox_forward(feats, rois.reshape(n * p, 5))
         return self.bbox_head.get_bboxes(rois, cls_score.view(n, p, -1),
                                          bbox_pred.view(n, p, -1), img_shapes,
                                          scale_factors, rescale=rescale)

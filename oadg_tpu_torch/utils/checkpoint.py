@@ -30,7 +30,15 @@ config's ``ConvModule``s (``<scope>/conv/Conv_0/kernel`` and
 ``conv_res_block{i}.res{j}.conv{k}``), the YOLO neck's ``detect{i}/conv{k}``
 and ``conv{i}``, the YOLO head's ``conv_bridge{i}``, ``conv_cont{i}`` and
 ``conv_pred{i}`` (``bbox_head.convs_bridge.{i}``, ``.convs_cont.{i}``,
-``.convs_pred.{i}``). Mask R-CNN's mask head ``roi/mask_head_m``:
+``.convs_pred.{i}``). RetinaNet's head ``cls_conv{i}`` / ``reg_conv{i}``
+(``<scope>/Conv_0/*``), ``retina_cls`` and ``retina_reg`` become
+``bbox_head.cls_convs.{i}.conv``, ``.reg_convs.{i}.conv``, ``.retina_cls``
+and ``.retina_reg``; the FPN's ``extra_conv_k`` becomes ``neck.fpn_convs.{L +
+k}`` after its L laterals; the C4 shared head ``roi/shared_head_m/layer4_j``
+becomes ``roi_head.shared_head.layer4.j`` (a backbone block's names); a
+ResNeXt block's grouped ``conv2/kernel`` and a DCNv2 block's ``conv2/kernel``
+and ``conv2/conv_offset/Conv_0/*`` become ``conv2.weight`` and
+``conv2.conv_offset.{weight,bias}``. Mask R-CNN's mask head ``roi/mask_head_m``:
 ``conv_{i}``, ``upsample`` and ``conv_logits`` become
 ``roi_head.mask_head.convs.{i}.conv``, ``.upsample`` and ``.conv_logits``;
 the transposed conv's flax kernel ``(kh, kw, in, out)`` becomes torch's
@@ -101,8 +109,37 @@ def _yolo_head_key(rest: Tuple[str, ...]) -> str:
     return f"bbox_head.convs_{kind}.{idx}.{_conv_module(rest[1:])}"
 
 
-def _torch_key(path: Tuple[str, ...]) -> str:
-    """Flax leaf path (collection dropped) -> mmdet state_dict key."""
+def _leaf(rest: Tuple[str, ...]) -> str:
+    return "weight" if rest[-1] == "kernel" else "bias"
+
+
+def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
+    """A ResNet block's leaf (``conv{k}``, ``FrozenBN_{k}``, the downsample
+    pair; the DCNv2 ``conv2`` and its ``conv_offset``) -> its key under
+    ``pre``."""
+    scope = rest[0]
+    if scope == "downsample_conv":
+        return f"{pre}.downsample.0.weight"
+    if scope == "conv2" and rest[1] == "conv_offset":
+        return f"{pre}.conv2.conv_offset.{_leaf(rest)}"
+    if scope.startswith("conv"):
+        return f"{pre}.{scope}.weight"
+    return f"{pre}.{_bn_name(scope)}.{_BN_LEAF[rest[-1]]}"
+
+
+def _retina_head_key(rest: Tuple[str, ...]) -> str:
+    m = re.fullmatch(r"(cls|reg)_conv(\d+)", rest[0])
+    if m:
+        return f"bbox_head.{m.group(1)}_convs.{m.group(2)}.conv.{_leaf(rest)}"
+    if rest[0] in ("retina_cls", "retina_reg"):
+        return f"bbox_head.{rest[0]}.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
+def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
+    """Flax leaf path (collection dropped) -> mmdet state_dict key;
+    ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
+    ``fpn_convs.{fpn_levels + k}``)."""
     head, rest = path[0], path[1:]
     if head == "backbone_m" and (re.fullmatch(r"down\d+|stage\d+_\d+", rest[0]) or (
             rest[0] == "conv1" and rest[1] in ("conv", "FrozenBN_0"))):
@@ -111,6 +148,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
         return f"neck.{rest[0]}.{rest[1]}.{_conv_module(rest[2:])}"
     if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
         return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
+    if head == "head" and re.fullmatch(r"(cls|reg)_conv\d+|retina_(cls|reg)", rest[0]):
+        return _retina_head_key(rest)
     if head == "head":
         return _yolo_head_key(rest)
     if head == "backbone_m":
@@ -119,21 +158,19 @@ def _torch_key(path: Tuple[str, ...]) -> str:
         if rest[0].startswith("FrozenBN_"):          # stem BN
             return f"backbone.bn1.{_BN_LEAF[rest[-1]]}"
         layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[0]).groups()
-        pre = f"backbone.layer{layer}.{block}"
-        scope = rest[1]
-        if scope == "downsample_conv":
-            return f"{pre}.downsample.0.weight"
-        if scope.startswith("conv"):
-            return f"{pre}.{scope}.weight"
-        return f"{pre}.{_bn_name(scope)}.{_BN_LEAF[rest[-1]]}"
+        return _block_key(f"backbone.layer{layer}.{block}", rest[1:])
     if head == "neck_m":
-        kind, idx = re.fullmatch(r"(lateral|fpn_conv)_(\d+)", rest[0]).groups()
+        kind, idx = re.fullmatch(r"(lateral|fpn_conv|extra_conv)_(\d+)", rest[0]).groups()
         group = "lateral_convs" if kind == "lateral" else "fpn_convs"
-        leaf = "weight" if rest[-1] == "kernel" else "bias"
-        return f"neck.{group}.{idx}.conv.{leaf}"
+        if kind == "extra_conv":
+            idx = fpn_levels + int(idx)
+        return f"neck.{group}.{idx}.conv.{_leaf(rest)}"
     if head == "rpn":
         leaf = "weight" if rest[-1] == "kernel" else "bias"
         return f"rpn_head.{rest[0]}.{leaf}"
+    if head == "roi" and rest[0] == "shared_head_m":
+        layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[1]).groups()
+        return _block_key(f"roi_head.shared_head.layer{layer}.{block}", rest[2:])
     if head == "roi" and rest[0] == "mask_head_m":
         leaf = "weight" if rest[-1] == "kernel" else "bias"
         m = re.fullmatch(r"conv_(\d+)", rest[1])
@@ -173,10 +210,12 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     must equal the first shared FC's input width over ``roi_feat_size ** 2``;
     a width that ``roi_feat_size ** 2`` does not divide raises."""
     sd: Dict[str, torch.Tensor] = {}
+    neck = dict(variables.get("params") or {}).get("neck_m") or {}
+    fpn_levels = sum(1 for k in neck if re.fullmatch(r"lateral_\d+", k))
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
             try:
-                key = _torch_key(path)
+                key = _torch_key(path, fpn_levels)
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e

@@ -1,0 +1,326 @@
+"""Every non-``_base_`` config under ``configs/`` through the port's
+``build_detector`` (on ``device='meta'``: shapes, no storage) and its
+pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
+them with the JAX package: the 26 configs the port has ported build, the
+other 54 raise the port's refusal (a type the port has not ported,
+"the port builds only the ported slices' types"), never another error.
+
+Also the two reference-side faults the port does not copy (ROADMAP C): the
+JAX package's ``RPN`` detector raises ``AttributeError`` (it is a bare
+``TwoStageDetector`` whose forward calls its absent RoI head) and its
+``FastRCNN`` runs its own RPN, never reading the batch's ``proposals``;
+the port refuses both types.
+
+Then RetinaNet's and the GIoU Faster R-CNN's configs, narrowed, through
+``tools/torch_train.py`` and ``tools/torch_test.py`` on the CPU, and four of
+the new models' weights through ``load_mmdet_checkpoint`` under mmdet's
+names.
+"""
+import copy
+import glob
+import importlib.util
+import json
+import os.path as osp
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+
+from oadg_tpu.models import build_detector as jax_build_detector
+import oadg_tpu_torch.data  # noqa: F401  (registers the pipelines)
+from oadg_tpu_torch.config import load_config
+from oadg_tpu_torch.models import build_detector
+from oadg_tpu_torch.utils.registry import PIPELINES, build_from_cfg
+from test_forward import BASE_MODEL, TEST_CFG, TRAIN_CFG, _batch
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+CFG_ROOT = osp.join(ROOT, "configs")
+ALL_CONFIGS = sorted(osp.relpath(p, CFG_ROOT)
+                     for p in glob.glob(osp.join(CFG_ROOT, "**", "*.py"), recursive=True)
+                     if "_base_" not in p)
+PORTED = {
+    "OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
+    "OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes_oadg.py",
+    "OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e.py",
+    "OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py",
+    "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd.py",
+    "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py",
+    "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
+    "cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py",
+    "dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r101_fpn_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_caffe_dc5_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_caffe_fpn_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_2x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_ciou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_soft_nms_1x_coco.py",
+    "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
+    "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+    "retinanet/retinanet_r50_fpn_1x_coco.py",
+    "yolo/yolov3_d53_320_273e_coco.py",
+    "yolo/yolov3_d53_mstrain-416_273e_coco.py",
+    "yolo/yolov3_d53_mstrain-608_273e_coco.py",
+}
+REFUSAL = "the port builds only the ported slices' types"
+
+
+def _build(rel):
+    cfg = load_config(osp.join(CFG_ROOT, rel))
+    det = build_detector(dict(cfg.model), device="meta",
+                         num_views=int(cfg.get("num_views", 1) or 1))
+
+    def check(pipeline):
+        for op in pipeline or []:
+            op = dict(op)
+            if op.get("type") == "MultiScaleFlipAug":
+                check(op.get("transforms"))
+                continue
+            assert build_from_cfg(op, PIPELINES) is not None, op.get("type")
+
+    for split in ("train", "val", "test"):
+        d = (cfg.get("data") or {}).get(split)
+        for item in ([] if d is None else d if isinstance(d, list) else [d]):
+            item = dict(item)
+            while item.get("type") in ("RepeatDataset", "ClassBalancedDataset"):
+                item = dict(item["dataset"])
+            check(item.get("pipeline"))
+    return det
+
+
+def test_the_sweep_counts_26_of_80():
+    assert len(ALL_CONFIGS) == 80
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 26
+
+
+@pytest.mark.parametrize("rel", ALL_CONFIGS)
+def test_config_builds_or_is_refused(rel):
+    if rel in PORTED:
+        det = _build(rel)
+        assert all(p.device.type == "meta" for p in det.parameters())
+    else:
+        with pytest.raises((KeyError, ValueError), match=REFUSAL):
+            _build(rel)
+
+
+def test_longtail_configs_build_their_modules():
+    """The eight configs of the long tail's first slice build the modules
+    they name."""
+    heads = {"faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py": "IoULoss",
+             "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py": "GIoULoss",
+             "faster_rcnn/faster_rcnn_r50_fpn_ciou_1x_coco.py": "CIoULoss",
+             "faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py": "BoundedIoULoss"}
+    for rel, loss in heads.items():
+        head = _build(rel).roi_head.bbox_head
+        assert head.reg_decoded_bbox and head.loss_bbox_cfg["type"] == loss
+    retina = _build("retinanet/retinanet_r50_fpn_1x_coco.py")
+    assert type(retina).__name__ == "RetinaNet"
+    assert retina.neck.fpn_convs[3].conv.weight.shape[1] == 2048     # on_input: C5
+    assert retina.bbox_head.prior_generator.num_base_anchors == [9] * 5
+    c4 = _build("faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py")
+    assert c4.roi_head.shared_head.layer4[0].conv1.weight.shape == (512, 1024, 1, 1)
+    assert c4.roi_head.bbox_head.fc_cls.weight.shape == (81, 2048)
+    assert c4.roi_head.bbox_roi_extractor.output_size == 14
+    assert c4.rpn_head.train_cfg["allowed_border"] == 0
+    x101 = _build("faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py")
+    assert x101.backbone.layer1[0].conv2.groups == 32
+    assert x101.backbone.layer1[0].conv2.weight.shape == (128, 4, 3, 3)
+    dcn = _build("dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py")
+    assert type(dcn.backbone.layer1[0].conv2).__name__ == "Conv"
+    assert [type(getattr(dcn.backbone, f"layer{i}")[0].conv2).__name__
+            for i in (2, 3, 4)] == ["ModulatedDeformConv"] * 3
+
+
+# ------------------------------------------------ reference-side faults ----
+
+def _rpn_only():
+    model = copy.deepcopy(BASE_MODEL)
+    model.update(type="RPN", roi_head=None)
+    return model
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_jax_rpn_detector_raises(mode):
+    det = jax_build_detector(_rpn_only(), TRAIN_CFG, TEST_CFG)
+    batch = {k: jnp.asarray(v) for k, v in _batch().items()}
+    with pytest.raises(AttributeError, match="roi"):
+        jax.eval_shape(lambda r, b: det.init(r, b, mode),
+                       {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)},
+                       batch)
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_jax_fast_rcnn_ignores_its_proposals(mode):
+    """Traced (not run): the batch's ``proposals`` and ``prop_valid`` are
+    inputs no operation of JAX's ``FastRCNN`` reads."""
+    model = copy.deepcopy(BASE_MODEL)
+    model["type"] = "FastRCNN"
+    det = jax_build_detector(model, TRAIN_CFG, TEST_CFG)
+    batch = {k: jnp.asarray(v) for k, v in _batch().items()}
+    rngs = {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)}
+    variables = jax.eval_shape(lambda r, b: det.init(r, b, "test"), rngs, batch)
+    n = batch["img"].shape[0]
+    props = jnp.tile(jnp.asarray([[4.0, 4.0, 40.0, 30.0]]), (n, 8, 1))
+    closed = jax.make_jaxpr(lambda v, p, pv: det.apply(
+        v, dict(batch, proposals=p, prop_valid=pv), mode, rngs={"sampling": rngs["sampling"]}))(
+        variables, props, jnp.ones((n, 8), bool))
+    jaxpr = closed.jaxpr
+    prop_vars = set(map(id, jaxpr.invars[-2:]))
+    read = {id(v) for eqn in jaxpr.eqns for v in eqn.invars}
+    assert not prop_vars & read
+    assert not prop_vars & {id(v) for v in jaxpr.outvars}
+    assert read & set(map(id, jaxpr.invars[:-2]))          # the weights are read
+
+
+@pytest.mark.parametrize("kind", ["RPN", "FastRCNN"])
+def test_port_refuses_rpn_and_fast_rcnn(kind):
+    model = _rpn_only() if kind == "RPN" else dict(copy.deepcopy(BASE_MODEL), type=kind)
+    with pytest.raises(KeyError, match=f"{kind} is not registered.*{REFUSAL}"):
+        build_detector(dict(model, train_cfg=TRAIN_CFG, test_cfg=TEST_CFG), device="meta")
+
+
+# ------------------------------------------------------------- the tools ----
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(f"{name}_tool",
+                                                  osp.join(ROOT, "tools", f"{name}.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _coco_json(ann_file, out):
+    """The 4-PNG set's annotations under the 80 COCO categories (its 8
+    classes as COCO's first 8 ids), for the COCO configs' ``CocoDataset``."""
+    from oadg_tpu_torch.data.datasets.coco import CocoDataset
+    with open(ann_file) as f:
+        ann = json.load(f)
+    ids = {c["id"]: i + 1 for i, c in enumerate(ann["categories"])}
+    ann["categories"] = [dict(id=i + 1, name=n) for i, n in enumerate(CocoDataset.CLASSES)]
+    for a in ann["annotations"]:
+        a["category_id"] = ids[a["category_id"]]
+    with open(out, "w") as f:
+        json.dump(ann, f)
+    return out
+
+
+@pytest.mark.parametrize("rel", ["retinanet/retinanet_r50_fpn_1x_coco.py",
+                                 "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py"])
+def test_longtail_config_trains_and_tests_through_the_tools(rel, tmp_path):
+    """``tools/torch_train.py`` (one epoch of 2 steps and its evaluation) then
+    ``tools/torch_test.py`` on the saved checkpoint, on the CPU, with the
+    config's model narrowed (R18-FPN at 16 channels) and the 4-PNG set of
+    ``torch_data_cases`` at 96x64. RetinaNet's config pairs 80 classes with
+    the Cityscapes dataset base, whose 8 the tools' class check requires."""
+    import torch_data_cases as cases
+    ann, prefix = cases.write_dataset(str(tmp_path / "ds"), sizes=cases.TRAIN_SIZES)
+    cfg = load_config(osp.join(CFG_ROOT, rel))
+    m = cfg.model
+    m.backbone.update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
+    m.neck.update(in_channels=[16, 32, 64, 128], out_channels=16)
+    if m.type == "RetinaNet":
+        m.bbox_head.update(in_channels=16, feat_channels=16, stacked_convs=1, num_classes=8)
+        m.test_cfg.update(nms_pre=100)
+        train = "data.train.dataset."
+        opts = {"data.train.times": 1}
+    else:
+        ann = _coco_json(ann, str(tmp_path / "coco.json"))
+        m.rpn_head.update(in_channels=16, feat_channels=16)
+        m.roi_head.bbox_roi_extractor.update(out_channels=16)
+        m.roi_head.bbox_head.update(in_channels=16, fc_out_channels=32)
+        m.train_cfg.rpn_proposal.update(nms_pre=64, max_per_img=32)
+        m.train_cfg.rpn.sampler.update(num=32)
+        m.train_cfg.rcnn.sampler.update(num=16)
+        m.test_cfg.rpn.update(nms_pre=60, max_per_img=30)
+        train = "data.train."
+        opts = {}
+    pipeline = cfg.data.train.dataset.pipeline if train.endswith("dataset.") \
+        else cfg.data.train.pipeline
+    resize = [i for i, op in enumerate(pipeline) if op["type"] == "Resize"][0]
+    opts.update({"data.samples_per_gpu": 2, "data.workers_per_gpu": 1,
+                 train + "ann_file": ann, train + "img_prefix": prefix,
+                 f"{train}pipeline.{resize}.img_scale": (96, 64),
+                 "runner.max_epochs": 1, "log_config.interval": 1})
+    for split in ("val", "test"):
+        opts.update({f"data.{split}.ann_file": ann, f"data.{split}.img_prefix": prefix,
+                     f"data.{split}.pipeline.1.img_scale": (96, 64)})
+    cfg.merge_from_dict(opts)
+    config = str(tmp_path / "tiny.py")
+    cfg.dump(config)
+    work = tmp_path / "work"
+    _tool("torch_train").main([config, "--device", "cpu", "--work-dir", str(work),
+                               "--seed", "0"])
+    with open(work / "log.json") as f:
+        lines = [json.loads(line) for line in f]
+    assert [ln["mode"] for ln in lines] == ["train", "train", "val"]
+    assert all(np.isfinite(ln["loss"]) for ln in lines[:2])
+    metrics = _tool("torch_test").main([config, str(work / "epoch_1.pth"), "--device", "cpu",
+                                        "--eval", "bbox"])
+    assert metrics == {k: v for k, v in lines[-1].items() if k not in ("mode", "epoch")}
+
+
+def _narrow(rel):
+    """The config's model at narrow widths (the structure kept: DCN's
+    stages, ResNeXt's groups, C4's ResLayer, RetinaNet's extra conv)."""
+    m = load_config(osp.join(CFG_ROOT, rel)).model
+    m.backbone.update(init_cfg=None)
+    if m.backbone.type == "ResNeXt":
+        m.backbone.update(groups=4, base_width=16, base_channels=16, stem_channels=16)
+    else:
+        m.backbone.update(base_channels=8, stem_channels=8)
+    widths = [32 * 2 ** i for i in range(4)] if m.backbone.type != "ResNeXt" else \
+        [64 * 2 ** i for i in range(4)]
+    if "neck" in m:
+        m.neck.update(in_channels=widths, out_channels=16)
+    if m.type == "RetinaNet":
+        m.bbox_head.update(in_channels=16, feat_channels=16, stacked_convs=1)
+    elif "neck" in m:
+        m.rpn_head.update(in_channels=16, feat_channels=16)
+        m.roi_head.bbox_roi_extractor.update(out_channels=16)
+        m.roi_head.bbox_head.update(in_channels=16, fc_out_channels=32)
+    else:                                                    # C4: one level of 128
+        m.rpn_head.update(in_channels=128, feat_channels=16)
+        m.roi_head.bbox_roi_extractor.update(out_channels=128)
+    return m
+
+
+@pytest.mark.parametrize("rel", ["retinanet/retinanet_r50_fpn_1x_coco.py",
+                                 "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py",
+                                 "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
+                                 "dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py"])
+def test_mmdet_checkpoint_carries_the_longtail_modules(rel, tmp_path):
+    """A model's ``state_dict`` under mmdet's names, saved as an mmdet
+    checkpoint (``state_dict`` and ``meta``), loads into the same config's
+    model built from another seed through ``load_mmdet_checkpoint``: every
+    tensor loaded, none missing or skipped, the two models equal (the
+    RetinaHead towers, the extra FPN convs, the C4 shared head, the grouped
+    and the deformable ``conv2`` with its ``conv_offset``)."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = _narrow(rel)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():                # conv_offset is zero at init
+            p.add_(0.01)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": src.state_dict(), "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    assert len(report["loaded"]) == len(src.state_dict())
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    keys = set(report["loaded"])
+    want = {"retinanet/retinanet_r50_fpn_1x_coco.py": "bbox_head.retina_cls.weight",
+            "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py":
+                "roi_head.shared_head.layer4.0.conv2.weight",
+            "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py": "backbone.layer1.0.conv2.weight",
+            "dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py":
+                "backbone.layer2.0.conv2.conv_offset.weight"}[rel]
+    assert want in keys

@@ -1584,3 +1584,159 @@ def test_world_one_nccl_step_is_bit_equal_to_the_plain_step():
             assert torch.equal(a[k].float(), b[k].float()), k
     for k, v in plain_state.items():
         assert torch.equal(state[k], v), k
+
+
+# ------------------------------------------------------------ long tail ----
+
+C4_ROI_CASES = {"serving": (1, 50, 84, 1000), "training": (2, 50, 84, 2 * 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(C4_ROI_CASES))
+def test_roi_align_kernels_at_the_c4_shapes(case, dtype):
+    """B1 and B2 at the caffe-C4 config's 14x14 bins on one level (stride
+    16) at C = 1024: serving (one 50x84 map of an 800x1344 canvas, R=1000
+    proposals) and training (2 maps, R = 2 x 512 sampled), against their
+    plain versions; B2 gives equal bits in two calls."""
+    dev = _cuda()
+    images, h, w, r = C4_ROI_CASES[case]
+    rng = np.random.RandomState(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    feats = [torch.randn(images, 1024, h, w, device=dev, generator=gen).to(dtype)
+             .contiguous(memory_format=torch.channels_last)]
+    bw = np.exp(rng.uniform(np.log(4), np.log(w * 12), r))
+    bh = np.exp(rng.uniform(np.log(4), np.log(h * 12), r))
+    x1, y1 = rng.uniform(-20, w * 16, r), rng.uniform(-20, h * 16, r)
+    rois = torch.from_numpy(np.stack([rng.randint(0, images, r), x1, y1, x1 + bw, y1 + bh],
+                                     1).astype(np.float32)).to(dev)
+    got = ROI_ALIGN_FWD(feats, rois, 14, (16,), 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 14, (16,), 2, 56)
+    fmax = float(feats[0].float().abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * fmax)
+    del got, want
+    dy = torch.randn(r, 1024, 14, 14, device=dev, generator=gen)
+    (grad,) = ROI_ALIGN_BWD(feats, rois, dy, 14, (16,), 2, 56)
+    (again,) = ROI_ALIGN_BWD(feats, rois, dy, 14, (16,), 2, 56)
+    (want,) = roi_align_multilevel_ref_backward(dy, [feats[0].shape], rois, 14, (16,), 2, 56)
+    scale = float(want.abs().max())
+    assert grad.dtype == dtype and torch.equal(grad, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad, want, rtol=0, atol=1e-5 * scale)
+    else:
+        torch.testing.assert_close(grad.float(), want, rtol=2 ** -8, atol=1e-4 * scale)
+
+
+def _nms_boxes(rng, shape, extent, size):
+    xy = rng.uniform(0, extent, shape + (2,))
+    wh = rng.uniform(size[0], size[1], shape + (2,))
+    return torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
+
+
+def _nms_case(name):
+    """(boxes, scores, valid, class ids or None, IoU threshold) of the paths
+    the tiled NMS serves: the flagship's training proposals (2 images x 5
+    levels x 2000), the DWD config's RPN level (nms_pre 12000), YOLOv3's
+    request (3 x 1000 priors x 8 classes = 24,000 candidates) and a
+    test-time augmentation's pooled detections (4 views x 100) with bf16
+    scores."""
+    rng = np.random.RandomState(len(name))
+    if name == "flagship_rpn":
+        boxes = _nms_boxes(rng, (2, 5, 2000), 2048.0, (8, 400))
+        valid = torch.ones(2, 5, 2000, dtype=torch.bool)
+        valid[:, 4, 512:] = False
+        return boxes, torch.rand(2, 5, 2000, generator=torch.Generator().manual_seed(1)), \
+            valid, None, 0.7
+    if name == "dwd_rpn":
+        boxes = _nms_boxes(rng, (1, 1, 12000), 1280.0, (16, 600))
+        return boxes, torch.rand(1, 1, 12000, generator=torch.Generator().manual_seed(2)), \
+            None, None, 0.7
+    if name == "yolo_multiclass":
+        boxes = _nms_boxes(rng, (1, 24000), 1024.0, (8, 500))
+        scores = torch.from_numpy(rng.uniform(0, 1, (1, 24000)).astype(np.float32) ** 2)
+        labels = torch.arange(8).repeat(3000)[None]
+        return boxes, scores, scores > 0.05, labels, 0.45
+    if name == "tta_pooled":
+        boxes = _nms_boxes(rng, (2, 400), 2048.0, (8, 300))
+        scores = torch.from_numpy(rng.uniform(0, 1, (2, 400)).astype(np.float32)).bfloat16()
+        return boxes, scores, scores > 0.05, torch.from_numpy(rng.randint(0, 8, (2, 400))), 0.5
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_rpn", "dwd_rpn", "yolo_multiclass", "tta_pooled"])
+def test_tiled_nms_on_the_card_equals_one_tile_and_the_cpu(name):
+    """The 256-box tiles give the one-tile keep set bit for bit on the card,
+    and the CPU's."""
+    from oadg_tpu_torch.core.post_processing.nms import batched_nms_padded, nms_padded
+    dev = _cuda()
+    boxes, scores, valid, labels, thr = _nms_case(name)
+
+    def run(tile, device):
+        b, s = boxes.to(device), scores.to(device)
+        v = None if valid is None else valid.to(device)
+        if labels is None:
+            return nms_padded(b, s, thr, v, tile_size=tile).cpu()
+        return batched_nms_padded(b, s, labels.to(device), thr, v, tile_size=tile).cpu()
+
+    tiled = run(256, dev)
+    assert torch.equal(tiled, run(None, dev))
+    assert torch.equal(tiled, run(256, "cpu"))
+    assert 0 < int(tiled.sum()) < tiled.numel()
+
+
+@pytest.mark.cuda
+def test_retina_multiclass_nms_of_400000_candidates_matches_the_cpu():
+    """RetinaNet's request shape: 5 levels x 1000 boxes x 80 classes, seeded
+    scores of which about 20,000 pass ``score_thr``: the card's detections
+    equal the CPU's (the same tiled greedy NMS), and the card holds it in
+    well under a GiB above its inputs."""
+    from oadg_tpu_torch.core.post_processing.nms import multiclass_nms
+    dev = _cuda()
+    rng = np.random.RandomState(3)
+    boxes = _nms_boxes(rng, (1, 5000), 2048.0, (8, 400))
+    scores = np.zeros((1, 5000, 81), np.float32)
+    scores[..., :80] = rng.uniform(0, 1, (1, 5000, 80)) ** 58.4
+    scores = torch.from_numpy(scores)
+    assert 15000 < int((scores[..., :80] > 0.05).sum()) < 25000
+    want = multiclass_nms(boxes, scores, 0.05, 0.5, 100, 80)
+    b, s = boxes.to(dev), scores.to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = [g.cpu() for g in multiclass_nms(b, s, 0.05, 0.5, 100, 80)]
+    peak = torch.cuda.max_memory_allocated() - base
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) == 100
+    assert peak < 2 ** 30, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_modulated_deform_conv_on_the_card_matches_the_cpu(dtype):
+    """DCNv2 at a stage-2 shape (C = 128, stride 2 in, 3x3) on 2 images of
+    64x96 with offsets of a few pixels: the card's output and the gradients
+    of the input, offsets, modulation and weight against the CPU's, float32
+    within 1e-5 of each largest magnitude (sums in other orders and
+    ``index_add`` in the gather's backward), bfloat16 within two bfloat16
+    steps."""
+    from oadg_tpu_torch.ops.deform_conv import modulated_deform_conv2d
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 128, 64, 96, generator=gen).to(dtype)
+    off = torch.randn(2, 18, 32, 48, generator=gen) * 2
+    mask = torch.rand(2, 9, 32, 48, generator=gen)
+    w = (torch.randn(128, 128, 3, 3, generator=gen) * 0.03).to(dtype)
+    dy = torch.randn(2, 128, 32, 48, generator=gen)
+    outs = {}
+    for where in ("cpu", dev):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in (x, off, mask, w)]
+        y = modulated_deform_conv2d(*leaves, stride=2, padding=1)
+        (y.float() * dy.to(where)).sum().backward()
+        outs[str(where)] = [y.detach().float().cpu()] + [t.grad.float().cpu() for t in leaves]
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2 ** -8
+    for name, g, c in zip(("y", "x", "offset", "mask", "weight"), outs[str(dev)], outs["cpu"]):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, c, rtol=0 if dtype == torch.float32 else 2 ** -7,
+                                   atol=tol * float(c.abs().max()), msg=name)

@@ -174,6 +174,20 @@ def _bbox_inputs():
                 bbox_w=f(np.repeat(pos[:, None], 4, 1)))
 
 
+def _retina_inputs():
+    """2 images of 64x64 for a 2-level RetinaNet head: the maps, and gts that
+    give the images different numbers of positive anchors (4 gts and 1)."""
+    rng = np.random.RandomState(9)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
+    gt = np.array([[[4, 4, 20, 20], [30, 8, 46, 24], [8, 36, 40, 60], [36, 36, 52, 52]],
+                   [[10, 10, 42, 42], [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]]])
+    valid = np.array([[True] * 4, [True, False, False, False]])
+    return dict(cls=[f(rng.normal(0, 1, (2, 3, s, s))) for s in (8, 4)],
+                reg=[f(rng.normal(0, 0.5, (2, 4, s, s))) for s in (8, 4)],
+                gt=f(gt), gt_valid=torch.from_numpy(valid),
+                gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
+
+
 def _bn_inputs():
     """Each rank's live-BN input, of other shapes (40 and 30 pixels a
     channel), and the coefficients of the summed output."""
@@ -218,10 +232,10 @@ def runs(tmp_path_factory):
                 optimizer=dc.plain(ycfg.optimizer),
                 grad_clip=dc.plain(ycfg.optimizer_config["grad_clip"]))
 
-    job = dict(tasks=["supcontrast", "mask_loss", "bbox_loss", "bn", "flagship", "yolo",
-                      "yolo_local_bn"], flagship=flagship, yolo=yolo,
+    job = dict(tasks=["supcontrast", "mask_loss", "bbox_loss", "retina_loss", "bn",
+                      "flagship", "yolo", "yolo_local_bn"], flagship=flagship, yolo=yolo,
                supcontrast=_sup_inputs(), mask_loss=_mask_inputs(), bbox_loss=_bbox_inputs(),
-               bn=_bn_inputs())
+               retina_loss=_retina_inputs(), bn=_bn_inputs())
     handle = dc.start(job, WORLD, tmp_path_factory.mktemp("dist_step"))
     try:
         out = dict(job=job, fvars=fvars, yvars=yvars)
@@ -483,6 +497,28 @@ def test_bbox_loss_counts_every_ranks_rows(runs):
                                rtol=1e-5, atol=1e-8)
     np.testing.assert_allclose(torch.cat([g["reg"] for g in got]).numpy(), reg.grad.numpy(),
                                rtol=1e-5, atol=1e-8)
+
+
+def test_retina_loss_counts_every_ranks_positives(runs):
+    """RetinaNet's loss over 2 ranks of one image each (the images hold
+    different numbers of positive anchors): the shares sum to the
+    one-process losses (``num_pos`` counted over every rank) and the maps'
+    gradients are the one-process ones."""
+    j = runs["job"]["retina_loss"]
+    cls = [c.clone().requires_grad_(True) for c in j["cls"]]
+    reg = [r.clone().requires_grad_(True) for r in j["reg"]]
+    want = dc.retina_head().loss((cls, reg), j["gt"], j["gt_valid"], j["gt_labels"])
+    sum(want.values()).backward()
+    got = [r["retina_loss"] for r in runs["ranks"]]
+    for k in ("loss_cls", "loss_bbox"):
+        np.testing.assert_allclose(sum(g["losses"][k] for g in got), float(want[k].detach()),
+                                   rtol=1e-5, err_msg=k)
+        assert got[0]["losses"][k] != got[1]["losses"][k]
+    for i in range(2):
+        np.testing.assert_allclose(torch.cat([g["cls"][i] for g in got]).numpy(),
+                                   cls[i].grad.numpy(), rtol=1e-5, atol=1e-8)
+        np.testing.assert_allclose(torch.cat([g["reg"][i] for g in got]).numpy(),
+                                   reg[i].grad.numpy(), rtol=1e-5, atol=1e-8)
 
 
 def test_per_rank_bn_misses_the_one_process_yolo_step(runs):

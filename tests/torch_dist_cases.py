@@ -243,6 +243,32 @@ def task_bbox_loss(job, rank, world):
     return dict(losses={k: float(v) for k, v in losses.items()}, cls=cls.grad, reg=reg.grad)
 
 
+def retina_head():
+    """A RetinaNet head of 3 classes on 2 levels (strides 8 and 16), one
+    anchor a cell: what ``task_retina_loss`` and its test build."""
+    from oadg_tpu_torch.models.dense_heads.retina_head import RetinaHead
+    return RetinaHead(num_classes=3, in_channels=4, feat_channels=4, stacked_convs=1,
+                      anchor_generator=dict(type="AnchorGenerator", octave_base_scale=4,
+                                            scales_per_octave=1, ratios=[1.0],
+                                            strides=[8, 16]), device="cpu")
+
+
+def task_retina_loss(job, rank, world):
+    """``RetinaHead.loss`` on this rank's image inside ``sharded_batch()``:
+    its shares and its maps' gradients."""
+    from oadg_tpu_torch.parallel import sharded_batch
+    j = job["retina_loss"]
+    sl = slice(rank, rank + 1)
+    cls = [c[sl].clone().requires_grad_(True) for c in j["cls"]]
+    reg = [r[sl].clone().requires_grad_(True) for r in j["reg"]]
+    with sharded_batch():
+        losses = retina_head().loss((cls, reg), j["gt"][sl], j["gt_valid"][sl],
+                                    j["gt_labels"][sl])
+    sum(losses.values()).backward()
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                cls=[c.grad for c in cls], reg=[r.grad for r in reg])
+
+
 def task_bn(job, rank, world):
     """Live ``BatchNorm`` on this rank's input (the ranks' shapes differ),
     inside ``sharded_batch()``: the output, the input's gradient of
@@ -340,7 +366,8 @@ def task_tools(job, rank, world):
 
 TASKS = dict(flagship=task_flagship, yolo=task_yolo, yolo_local_bn=task_yolo_local_bn,
              supcontrast=task_supcontrast, mask_loss=task_mask_loss,
-             bbox_loss=task_bbox_loss, bn=task_bn, collect=task_collect, tools=task_tools,
+             bbox_loss=task_bbox_loss, retina_loss=task_retina_loss, bn=task_bn,
+             collect=task_collect, tools=task_tools,
              syncnorm=task_syncnorm)
 
 
