@@ -310,6 +310,21 @@ non-zero exit code:
    (~20,000 above ``score_thr``) against the CPU's, and YOLOv3's 24,000
    and DWD's 12,000 candidates resolved in one tile (the NMS before the
    tiling) and in 256-box tiles: equal keep sets, times and peaks.
+8c. twostage: the two-stage family's seven configs (``TWOSTAGE``: Cascade
+   R-CNN, HTC, SCNet, Dynamic R-CNN, Double-Head, Mask Scoring R-CNN, PISA
+   Faster R-CNN), each at its config's full width with seeded weights (each
+   stage's classifier drawn wider), 80 classes as published; HTC, SCNet
+   and MS R-CNN with mmdet's 14x14 mask RoI layer, which their configs
+   lack, and the Double-Head config with ``schedule_1x``, which it lacks
+   (``twostage_cfg``); per dtype ``longtail_serve`` (a 1024x2048 request,
+   the f32 model against the CPU on a 256x384 request) and
+   ``longtail_train`` (two steps on one 1024x2048 image with seeded gts,
+   box-cropped gt masks from polygons for the three mask configs), each
+   with B1's and B2's counts set to 0 just before it and read just after,
+   by (bins, levels) as ``path_launches`` implies: a cascade's 7x7 once
+   a box stage, the mask stages' 14x14 on the pyramid, HTC's and SCNet's
+   14x14 on the semantic level; one more HTC step a dtype with every B1 and
+   B2 call held to the plain versions in place.
 9. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -333,7 +348,9 @@ non-zero exit code:
    ``launches_dist``, ``launches_dist_bf16`` and the long tail's
    ``launches_longtail_<family>`` (and ``_bf16``)
    included; the ``_c4`` rows' ``launches`` are phase 8b's C4 runs, the
-   ``_14x14`` rows' ``launches`` are phase 7g's, each run's
+   ``_sem`` rows' phase 8c's HTC and SCNet steps (``launches_twostage_<family>``
+   and ``_bf16`` on every row they reach), the ``_14x14`` rows'
+   ``launches`` are phase 7g's and 8c's, each run's
    beside it, ``launches_mask_serve``, ``launches_mask_train`` (and their
    ``_bf16``) and ``launches_mask_tools``, which B1's and B2's rows carry
    too for their 7x7 launches on that path), the card's
@@ -345,6 +362,11 @@ non-zero exit code:
    timed beside their bounds: B1 at a request (one 50x84 map, R = 1000
    proposals), B2 at the step (2 maps, R = 2 x 512): the report rows
    ``roi_align_fwd_c4`` and ``roi_align_bwd_c4``, joined before phase 8b.
+3e. sem-kernels: B1 and B2 at HTC's semantic RoIAlign (14x14 bins on the
+   one stride-8 embedding of a 1024x2048 image, a 128x256 map of 256
+   channels, R = 128 mask slots), f32 and bf16, against their plain
+   versions, timed beside their bounds: the report rows
+   ``roi_align_fwd_sem`` and ``roi_align_bwd_sem``, joined before phase 8c.
 
 Each phase's wall seconds are logged as it ends (``[time]`` lines) and
 all of them with the script's total before the kernels' JSON line.
@@ -352,7 +374,9 @@ all of them with the script's total before the kernels' JSON line.
 ``python3 chip_smoke.py --kernels-only`` runs phases 1-3d and 10 and prints the
 kernels' JSON line and no result line: for work on one kernel.
 ``python3 chip_smoke.py --only longtail`` runs phases 1, 2, 3, 3d and 8b
-and prints the kernels' JSON line and no result line.
+and prints the kernels' JSON line and no result line;
+``python3 chip_smoke.py --only twostage`` runs phases 1, 2, 3, 3c, 3e, 8c
+and the semantic rows' plain times, the same way.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -1452,6 +1476,8 @@ def phase_profiled(rows):
         profile_mask_plain(by_name)
     if "roi_align_fwd_c4" in by_name:
         profile_c4_plain(by_name)
+    if "roi_align_fwd_sem" in by_name:
+        profile_sem_plain(by_name)
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -4804,11 +4830,35 @@ def phase_mask_kernels():
 
 
 def zero_roi_counts():
-    """B1's and B2's launch counts, in all and per bin count, set to 0."""
+    """B1's and B2's launch counts, in all, per bin count and per (bin
+    count, level count), set to 0."""
     from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
     for w in (ROI_ALIGN_FWD, ROI_ALIGN_BWD):
         w.launches = 0
-        w.launches_by_size = dict.fromkeys(w.launches_by_size, 0)
+        w.launches_by_shape = {}
+
+
+def roi_shape_counts():
+    """-> {"roi_align_fwd": {(bins, levels): n}, "roi_align_bwd": {...}}."""
+    from oadg_tpu_torch.ops.roi_align import ROI_ALIGN_BWD, ROI_ALIGN_FWD
+    return {"roi_align_fwd": dict(ROI_ALIGN_FWD.launches_by_shape),
+            "roi_align_bwd": dict(ROI_ALIGN_BWD.launches_by_shape)}
+
+
+def _count_shape_launches(rows, counts, key):
+    """Adds a run's counts by shape to the rows: 7x7 on the pyramid to B1's
+    and B2's, 14x14 on the pyramid to the mask head's ``_14x14`` rows, 14x14
+    on one level to the ``_c4`` rows (phase ``longtail``'s C4) or the
+    ``_sem`` rows (HTC's stride-8 semantic embedding), each under ``key``
+    and in ``launches``."""
+    by_name = {r["name"]: r for r in rows}
+    one_level = "_c4" if key.startswith("launches_longtail") else "_sem"
+    suffix = {(7, 4): "", (MASK_BINS, 4): "_14x14", (MASK_BINS, 1): one_level}
+    for kernel, per_shape in counts.items():
+        for shape, n in per_shape.items():
+            r = by_name[kernel + suffix[shape]]
+            r[key] = r.get(key, 0) + n
+            r["launches"] = (r["launches"] or 0) + n
 
 
 def roi_counts():
@@ -5126,14 +5176,16 @@ def longtail_cfg(path):
 def widen_classifier(model, seed=50):
     """Seeded wider class logits, so that a random detector's scores pass
     ``score_thr`` (81-way softmax or sigmoid at the 0.01 prior would not):
-    ``fc_cls`` weights N(0, 0.1); RetinaNet's ``retina_cls`` bias moved by
+    ``fc_cls`` weights N(0, 0.1) (each stage's of a cascade); RetinaNet's ``retina_cls`` bias moved by
     N(0, 1.5) per output channel."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         if hasattr(model, "roi_head"):
-            w = model.roi_head.bbox_head.fc_cls.weight
-            w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
+            heads = model.roi_head.bbox_head         # a cascade's: one a stage
+            for head in heads if isinstance(heads, torch.nn.ModuleList) else [heads]:
+                w = head.fc_cls.weight
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
         else:
             b = model.bbox_head.retina_cls.bias
             b.add_((torch.randn(b.shape, generator=gen) * 1.5).to(b.device))
@@ -5300,17 +5352,20 @@ def check_iou_family(records):
     return out
 
 
-def longtail_serve(rows, family, path, hw, name):
+def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     """One request of a ``hw`` uint8 image through the config's test
     pipeline and ``DetectorHandle.test`` after a warm-up (RetinaNet's
     ``multiclass_nms`` recorded on the warm-up), and the card against the
     same seeded model on the CPU on a 256x384 request (f32; detections
-    matched; the two-stage models on 100 proposals there)."""
+    matched; the two-stage models on 100 proposals there). ``cfg`` is the
+    config to build (``longtail_cfg(path)`` when None); the request must
+    launch B1 and B2 as ``path_launches(family, False)`` says."""
+    import copy
     import torch
     from oadg_tpu_torch.apis import init_detector, prepare_image
     from oadg_tpu_torch.apis.test import fetch_dets
     from oadg_tpu_torch.models.dense_heads import retina_head
-    cfg = longtail_cfg(path)
+    cfg = longtail_cfg(path) if cfg is None else cfg
     handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
     widen_classifier(handle.model)
     img = np.random.RandomState(51).randint(0, 256, (*hw, 3), dtype=np.uint8)
@@ -5327,30 +5382,29 @@ def longtail_serve(rows, family, path, hw, name):
     res = handle.test(prepare_image(img, handle.cfg, handle.device))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = roi_counts()
+    shapes = roi_shape_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     dets, labels, valid = fetch_dets(*res[:3])
     nc = handle.num_classes
     out = dict(request_ms=ms, peak_gib=peak, valid=int(valid.sum()))
     if rec is not None:
         out["nms"] = rec.calls[0]
-    log("longtail", f"{family} {name}: a request of {hw[0]}x{hw[1]}: {ms:.3f} ms, "
-                    f"max_memory_allocated {peak:.2f} GiB, {int(valid.sum())} valid "
-                    f"detections; launches by bin count {counts}"
-                    + (f"; multiclass_nms {rec.calls[0]}" if rec is not None else "")
-                    + f" ({nvidia_smi_line()})")
-    want = 0 if family == "retinanet" else 1
-    bins = 14 if family == "c4" else 7
+    log(phase, f"{family} {name}: a request of {hw[0]}x{hw[1]}: {ms:.3f} ms, "
+               f"max_memory_allocated {peak:.2f} GiB, {int(valid.sum())} valid "
+               f"detections; launches by (bins, levels) {shapes}"
+               + (f"; multiclass_nms {rec.calls[0]}" if rec is not None else "")
+               + f" ({nvidia_smi_line()})")
+    want = path_launches(family, False)
     if (dets.shape != (1, 100, 5) or not np.isfinite(dets).all() or not valid.any()
-            or not ((labels[valid] >= 0) & (labels[valid] < nc)).all()
-            or counts["roi_align_fwd"][bins] != want or counts["roi_align_bwd"][bins]):
-        raise AssertionError(f"longtail {family} {name}: bad request {dets.shape} {counts}")
-    _count_launches(rows, counts, f"launches_longtail_{family}"
-                    + ("" if name == "f32" else "_bf16"), "_c4")
+            or not ((labels[valid] >= 0) & (labels[valid] < nc)).all() or shapes != want):
+        raise AssertionError(f"{phase} {family} {name}: bad request {dets.shape} {shapes} "
+                             f"(want {want})")
+    _count_shape_launches(rows, shapes, f"launches_{phase}_{family}"
+                          + ("" if name == "f32" else "_bf16"))
     if name == "f32":
         cpu = init_detector(cfg, device="cpu", seed=0)
         widen_classifier(cpu.model)
-        small = longtail_cfg(path)
+        small = copy.deepcopy(cfg)
         small.merge_from_dict({"data.test.pipeline.1.img_scale": (384, 256)})
         bc = prepare_image(img[:256, :384], small, "cpu")
         gc = {k: v.cuda() if torch.is_tensor(v) else v for k, v in bc.items()}
@@ -5368,30 +5422,36 @@ def longtail_serve(rows, family, path, hw, name):
             for c, k in zip(rpn_cfgs, kept):
                 c["max_per_img"] = k
         matched = _match_dets(dg[:3], dc[:3], 1e-2, 1e-4)
-        log("longtail", f"{family} f32: a {tuple(bc['img'].shape[2:])} request card vs CPU: "
-                        f"{int(dg[2].sum())} and {int(dc[2].sum())} valid, "
-                        f"{100 * matched:.1f}% of the card's held by the CPU's; CPU side "
-                        f"{time.perf_counter() - t0:.2f} s")
+        log(phase, f"{family} f32: a {tuple(bc['img'].shape[2:])} request card vs CPU: "
+                   f"{int(dg[2].sum())} and {int(dc[2].sum())} valid, "
+                   f"{100 * matched:.1f}% of the card's held by the CPU's; CPU side "
+                   f"{time.perf_counter() - t0:.2f} s")
         if matched < 0.95 or abs(int(dg[2].sum()) - int(dc[2].sum())) > 2 or not dc[2].any():
-            raise AssertionError(f"longtail {family}: card vs CPU {matched}")
+            raise AssertionError(f"{phase} {family}: card vs CPU {matched}")
         del cpu
     del handle
     torch.cuda.empty_cache()
     return out
 
 
-def longtail_train(rows, family, path, hw, name):
+def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False):
     """Two training steps (``make_train_step``, SGD at the config's LR, no
     OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
     pipeline with seeded gts: losses finite float32, B1 and B2 once a step
     at 7x7 (14x14 for C4, where a third step holds every call to the plain
     versions in place); the GIoU step's decoded boxes kept for
-    ``check_iou_family``."""
+    ``check_iou_family``. Phase ``twostage`` gives the config (``cfg``) and
+    ``masks`` (box-cropped gt masks from polygons, ``polygon_gt_masks``;
+    every ``loss_mask`` then > 0). The two steps must launch B1 and B2 as
+    ``path_launches(family, True)`` says; C4 and HTC run a third step with
+    every call held to the plain versions in place (``IN_PLACE_CALLS``)."""
     import torch
-    cfg = longtail_cfg(path)
+    cfg = longtail_cfg(path) if cfg is None else cfg
     n = cfg.data.samples_per_gpu
     model, step = build_trainer("cuda", cfg, dtype=torch_dtype(name))
     batch = longtail_batch(cfg, hw, n, 52)
+    if masks:
+        batch["gt_masks"] = polygon_gt_masks(batch["gt_bboxes"], batch["img_shape"], 53)
     gen = torch.Generator(device="cuda").manual_seed(0)
     seen, restore = _record_giou_inputs() if family == "giou" else ([], lambda: None)
     torch.cuda.synchronize()
@@ -5406,35 +5466,37 @@ def longtail_train(rows, family, path, hw, name):
             times.append((time.perf_counter() - t0) * 1e3)
     finally:
         restore()
-    counts = roi_counts()
+    shapes = roi_shape_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log("longtail", f"{family} {name}: 2 steps on {n} image(s) of "
-                    f"{tuple(batch['img'].shape[2:])}: ms {[round(t, 3) for t in times]}; "
-                    f"max_memory_allocated {peak:.2f} GiB; launches by bin count {counts}; "
-                    f"last step " + ", ".join(f"{k} {float(v):.5f}" for k, v in logs[-1].items())
-                    + f" ({nvidia_smi_line()})")
-    bins = 14 if family == "c4" else 7
-    want = {"roi_align_fwd": {7: 0, 14: 0}, "roi_align_bwd": {7: 0, 14: 0}}
-    if family != "retinanet":
-        want = {k: {b: 2 if b == bins else 0 for b in (7, 14)} for k in want}
-    if counts != want or not all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
-                                 for lv in logs for v in lv.values()):
-        raise AssertionError(f"longtail {family} {name}: {counts} (want {want}), {logs[-1]}")
-    _count_launches(rows, counts, f"launches_longtail_{family}"
-                    + ("" if name == "f32" else "_bf16"), "_c4")
+    log(phase, f"{family} {name}: 2 steps on {n} image(s) of "
+               f"{tuple(batch['img'].shape[2:])}: ms {[round(t, 3) for t in times]}; "
+               f"max_memory_allocated {peak:.2f} GiB; launches by (bins, levels) {shapes}; "
+               f"last step "
+               + ", ".join(f"{k} {float(v):.5f}" for k, v in logs[-1].items())
+               + f" ({nvidia_smi_line()})")
+    want = path_launches(family, True)
+    finite = all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+                 for lv in logs for v in lv.values())
+    mask_ok = not masks or all(float(v) > 0 for lv in logs for k, v in lv.items()
+                               if k.endswith("loss_mask"))
+    if not (shapes == want and finite and mask_ok):
+        raise AssertionError(f"{phase} {family} {name}: {shapes} (want {want}), {logs[-1]}")
+    _count_shape_launches(rows, shapes, f"launches_{phase}_{family}"
+                          + ("" if name == "f32" else "_bf16"))
     out = dict(step_ms=times, peak_gib=peak,
                losses={k: float(v) for k, v in logs[-1].items()})
     if family == "giou":
         out["iou_family"] = check_iou_family(seen)
-    if family == "c4":
+    if family in IN_PLACE_CALLS:
         checks, restore = _checked_roi_align()
         try:
             step(batch, gen)
         finally:
             restore()
         torch.cuda.synchronize()
-        _report_checks("longtail", f"c4 {name}", checks,
-                       {"roi_align_fwd": [C4_SAMPLED], "roi_align_bwd": [C4_SAMPLED]})
+        calls = IN_PLACE_CALLS[family]
+        _report_checks(phase, f"{family} {name}", checks,
+                       {"roi_align_fwd": calls, "roi_align_bwd": calls})
     del model, step, batch
     torch.cuda.empty_cache()
     return out
@@ -5540,6 +5602,192 @@ def phase_longtail(rows):
             torch.cuda.empty_cache()
     out["nms"] = longtail_nms()
     log("longtail", f"phase longtail: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------- twostage ----
+# The two-stage family's seven configs, each on the Cityscapes
+# dataset base: 1024x2048, one image a step, 80 classes as published.
+TWOSTAGE = (
+    ("cascade", "configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"),
+    ("htc", "configs/htc/htc_r50_fpn_1x_coco.py"),
+    ("scnet", "configs/scnet/scnet_r50_fpn_1x_coco.py"),
+    ("dynamic", "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py"),
+    ("double_head", "configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py"),
+    ("ms_rcnn", "configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py"),
+    ("pisa", "configs/pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py"),
+)
+CASCADES = ("cascade", "htc", "scnet")
+SEMANTIC = ("htc", "scnet")
+WITH_MASKS = ("htc", "scnet", "ms_rcnn")
+# mmdet's mask RoI layer, which the three mask configs lack: without it the
+# mask head's 14x14 logits meet MS R-CNN's 28x28 targets (JAX raises), and
+# HTC and SCNet run their masks at the box layer's 7x7
+MASK_ROI_EXTRACTOR = dict(type="SingleRoIExtractor",
+                          roi_layer=dict(type="RoIAlign", output_size=14, sampling_ratio=0),
+                          out_channels=CHANNELS, featmap_strides=list(STRIDES))
+SEM_STRIDE = 8                  # the semantic embedding's one level
+
+
+def twostage_cfg(family, path):
+    """``longtail_cfg`` with mmdet's 14x14 mask RoI layer for the three
+    mask configs, and ``schedule_1x`` for the Double-Head config, which
+    names no schedule (neither package can train it as published)."""
+    from oadg_tpu_torch.config import load_config
+    cfg = longtail_cfg(path)
+    if "optimizer" not in cfg:
+        sched = load_config(str(ROOT / "configs/_base_/schedules/schedule_1x.py"))
+        cfg.merge_from_dict({k: sched[k] for k in ("optimizer", "optimizer_config",
+                                                   "lr_config")})
+    if family in WITH_MASKS:
+        cfg.merge_from_dict({"model.roi_head.mask_roi_extractor": dict(MASK_ROI_EXTRACTOR)})
+    return cfg
+
+
+def path_launches(family, train):
+    """B1's and B2's launches by (bins, levels) that one request (``train``
+    False) or two steps (of ``samples_per_gpu`` images) of a long-tail or
+    two-stage family make: 7x7 on the pyramid once a box stage (three in a
+    cascade; none in RetinaNet; C4's 14x14 on one level instead); with
+    masks 14x14 on the pyramid once a mask stage, and for HTC and SCNet
+    14x14 on the semantic embedding's one level once a mask stage; B2 as
+    B1 in training, never in a request."""
+    if family == "retinanet":
+        per = {}
+    elif family == "c4":
+        per = {(MASK_BINS, 1): 1}
+    else:
+        per = {(7, 4): 3 if family in CASCADES else 1}
+    if not train:
+        return {"roi_align_fwd": per, "roi_align_bwd": {}}
+    if family in WITH_MASKS:
+        per[(MASK_BINS, 4)] = per[(7, 4)]
+    if family in SEMANTIC:
+        per[(MASK_BINS, 1)] = per[(7, 4)]
+    return {k: {shape: 2 * n for shape, n in per.items()}
+            for k in ("roi_align_fwd", "roi_align_bwd")}
+
+
+# Each kernel's calls' R on the third step held in place: C4's 2 x 512
+# sampled rois; one HTC image's 512 sampled rois a box stage and 128 mask
+# slots a mask stage, on the pyramid and on the semantic level.
+IN_PLACE_CALLS = {"c4": [C4_SAMPLED],
+                  "htc": [TRAIN_ROIS] * 3 + [MASK_SLOTS] * 6}
+
+
+def polygon_gt_masks(gt, img_shape, seed, m0=56):
+    """(N, G, m0, m0) box-cropped gt masks on the card: an octagon polygon
+    touching the four sides of each seeded gt box (inner points jittered),
+    rasterised by the port's ``PolygonMasks`` over the image and cropped to
+    its box, as the train pipeline and the collate make them."""
+    import torch
+    from oadg_tpu_torch.core.mask.structures import PolygonMasks
+    rng = np.random.RandomState(seed)
+    boxes = gt.cpu().numpy()
+    out = []
+    for b, (h, w) in zip(boxes, img_shape.cpu().numpy().astype(int)):
+        polys = []
+        for x1, y1, x2, y2 in b:
+            (p, q), (r, t) = rng.uniform(0.15, 0.45, 2), rng.uniform(0.55, 0.85, 2)
+            pts = [(p, 0), (r, 0), (1, q), (1, t), (r, 1), (p, 1), (0, t), (0, q)]
+            polys.append([np.array([v for px, py in pts
+                                    for v in (x1 + px * (x2 - x1), y1 + py * (y2 - y1))])])
+        out.append(PolygonMasks(polys, h, w).to_bitmap().to_box_cropped(b, m0))
+    return torch.from_numpy(np.stack(out)).cuda()
+
+
+def sem_roi_cases(dev):
+    """B1 and B2 at HTC's semantic RoIAlign: 14x14 bins on the one stride-8
+    embedding of a 1024x2048 image (1 map 128x256x256), R = 128 mask slots
+    jittered around the seeded gts; f32 and bf16. -> (B1 cases, B2 cases),
+    the f32 case first."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(70)
+    emb = torch.randn(1, CHANNELS, IMG_H // SEM_STRIDE, IMG_W // SEM_STRIDE, device=dev,
+                      generator=gen)
+    rois = torch.from_numpy(mask_slot_rois(np.random.RandomState(70), 0)).to(dev)
+    dy = torch.randn(rois.shape[0], CHANNELS, MASK_BINS, MASK_BINS, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name in DTYPES:
+        m = emb.to(torch_dtype(name)).contiguous(memory_format=torch.channels_last)
+        label = (f"{name}, semantic 14x14, 1 map {emb.shape[2]}x{emb.shape[3]}x{CHANNELS} "
+                 f"(stride {SEM_STRIDE}), R={rois.shape[0]}")
+        fwd.append((label, [m], rois))
+        bwd.append((label, [m], rois, dy))
+    return fwd, bwd
+
+
+def phase_sem_kernels():
+    """sem-kernels: B1 and B2 at HTC's semantic RoIAlign shape against their
+    plain versions (``TOL_F32`` / ``TOL_BF16``), timed beside their bounds.
+    -> the report rows ``roi_align_fwd_sem`` and ``roi_align_bwd_sem``
+    (their plain times from ``phase_profiled``, their launches from phase
+    ``twostage``)."""
+    import torch
+    fwd, bwd = sem_roi_cases(torch.device("cuda", 0))
+    out = []
+    strides = (SEM_STRIDE,)
+    for name, source, replaces, cases, check in (
+            ("roi_align_fwd_sem", "roi_align_fwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:248",
+             fwd, lambda c: check_fwd_case(*c, strides=strides, phase="sem-kernels",
+                                           bins=MASK_BINS)),
+            ("roi_align_bwd_sem", "roi_align_bwd.cu", "oadg_tpu/ops/pallas_roi_bwd.py:316",
+             bwd, lambda c: check_bwd_case(*c, strides=strides, phase="sem-kernels"))):
+        results = [(c[0], check(c)) for c in cases]
+        (label, main), others = results[0], results[1:]
+        out.append(row(name, source, replaces, *main,
+                       cases=[case_row(label, *r) for label, r in others]) | {"label": label})
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_sem_plain(by_name):
+    """The plain versions' times at the semantic cases, by the profiler."""
+    import torch
+    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
+                                              roi_align_multilevel_ref_backward)
+    fwd, bwd = sem_roi_cases(torch.device("cuda", 0))
+    strides = (SEM_STRIDE,)
+    for label, fs, rois in fwd:
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, MASK_BINS, strides, 2, 56),
+                        3, method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_fwd_sem"], label, t["device_ms"])
+        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    for label, fs, rois, dy in bwd:
+        dt, shapes = fs[0].dtype, [f.shape for f in fs]
+        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
+            dy, shapes, rois, MASK_BINS, strides, 2, 56)], 2, method="profiler")
+        _set_row_or_case_plain_ms(by_name["roi_align_bwd_sem"], label, t["device_ms"])
+        log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
+                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+
+def phase_twostage(rows):
+    """twostage: per config of ``TWOSTAGE``, per dtype, at the config's full
+    width with seeded weights (the classifiers drawn wider): a request of a
+    1024x2048 image (with the f32 model against the CPU on a 256x384
+    request) and two training steps on one image with seeded gts (and
+    box-cropped gt masks from polygons for HTC, SCNet and MS R-CNN), each
+    with B1's and B2's counts set to 0 just before it and read just after,
+    held to ``path_launches``; one more HTC step a dtype with every B1
+    and B2 call held to the plain versions in place. -> numbers."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, path in TWOSTAGE:
+        cfg = twostage_cfg(family, path)
+        for name in DTYPES:
+            out[f"{family}_{name}"] = dict(
+                serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                     phase="twostage"),
+                train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                     phase="twostage", masks=family in WITH_MASKS))
+            torch.cuda.empty_cache()
+    log("twostage", f"phase twostage: {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -5893,12 +6141,22 @@ def main():
         log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "twostage"]:   # the two-stage family alone: no result line
+        rows = timed("kernels", phase_kernels)
+        rows += timed("mask-kernels", phase_mask_kernels)
+        rows += timed("sem-kernels", phase_sem_kernels)
+        twostage = timed("twostage", phase_twostage, rows)
+        timed("profiled", profile_sem_plain, {r["name"]: r for r in rows})
+        log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     rows = timed("kernels", phase_kernels) + timed("oamix-kernels", phase_oamix_kernels)
     timed("dwd-kernels", phase_dwd_kernels, rows)
     mask_rows = timed("mask-kernels", phase_mask_kernels)    # joined before phase 7g
     c4_rows = timed("c4-kernels", phase_c4_kernels)          # joined before phase 9
+    sem_rows = timed("sem-kernels", phase_sem_kernels)       # joined before phase 8c
     if "--kernels-only" in sys.argv[1:]:        # the kernels' phases alone: no result line
-        rows += mask_rows + c4_rows
+        rows += mask_rows + c4_rows + sem_rows
         timed("profiled", phase_profiled, rows)
         print(json.dumps({"kernels": rows}), flush=True)
         print(f"nvidia-smi: {nvidia_smi_line()}", flush=True)
@@ -5927,6 +6185,8 @@ def main():
     dist, dist_profile = timed("dist", phase_dist, rows, tool_val, loop_profile.train)
     rows += c4_rows
     longtail = timed("longtail", phase_longtail, rows)
+    rows += sem_rows
+    twostage = timed("twostage", phase_twostage, rows)
 
     for _, profile in trains.values():
         timed("profile-train", profile)
@@ -5951,6 +6211,7 @@ def main():
     log("mask", f"summary ({nvidia_smi_line()}): {json.dumps(mask)}")
     log("dist", f"summary ({nvidia_smi_line()}): {json.dumps(dist)}")
     log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
+    log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
     for name in DTYPES:
         timed("train-reference", phase_train_reference, name)
         timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")

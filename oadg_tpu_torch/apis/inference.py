@@ -27,14 +27,14 @@ from ..models import build_detector
 class DetectorHandle:
     """The detector module, its config and device; ``num_classes`` is its box
     head's (a single-stage model's ``bbox_head``, a two-stage one's
-    ``roi_head.bbox_head``), ``CLASSES`` the class names of the config's test
+    ``roi_head``'s: the last stage's of a cascade), ``CLASSES`` the class names of the config's test
     dataset type (None without one)."""
 
     def __init__(self, model, cfg, device: torch.device):
         self.model = model
         self.cfg = cfg
         self.device = device
-        head = model.bbox_head if hasattr(model, "bbox_head") else model.roi_head.bbox_head
+        head = model.bbox_head if hasattr(model, "bbox_head") else model.roi_head
         self.num_classes = head.num_classes
         self.CLASSES = _classes_from_cfg(cfg)
         self.checkpoint_report = None   # load_mmdet_checkpoint's, set by init_detector
@@ -114,11 +114,17 @@ def prepare_image(img: np.ndarray, cfg, device) -> dict:
 
 
 def _num_classes(cfg) -> int:
-    """The number of classes of the config's box head."""
+    """The number of classes of the config's box head (of a cascade's box
+    heads, which must agree)."""
     m = dict(cfg["model"])
     rh = dict(m.get("roi_head") or {})
     if rh.get("bbox_head"):
-        return int(dict(rh["bbox_head"]).get("num_classes", 80))
+        heads = rh["bbox_head"]
+        counts = {int(dict(h).get("num_classes", 80))
+                  for h in (heads if isinstance(heads, (list, tuple)) else [heads])}
+        if len(counts) != 1:
+            raise ValueError(f"the cascade's box heads disagree on num_classes: {sorted(counts)}")
+        return counts.pop()
     return int(dict(m.get("bbox_head") or {}).get("num_classes", 80))
 
 

@@ -61,36 +61,43 @@ class MaxIoUAssigner:
 
     def assign(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
                gt_valid: torch.Tensor, gt_labels: Optional[torch.Tensor] = None,
-               box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+               box_valid: Optional[torch.Tensor] = None,
+               thr: Optional[torch.Tensor] = None) -> AssignResult:
         """Assign (..., N, 4) candidates to (..., G, 4) padded gts.
 
         ``gt_valid`` (..., G) marks real gts (a padded gt overlaps nothing,
         so an image without gts is all negative); ``box_valid`` (..., N)
-        marks real candidates (the rest are ignored)."""
+        marks real candidates (the rest are ignored). ``thr``, where given,
+        stands for all three thresholds (``pos_iou_thr``, ``neg_iou_thr``,
+        ``min_pos_iou``) in this call only: Dynamic R-CNN's threshold, a
+        tensor computed in the step."""
         ious = bbox_overlaps(bboxes, gt_bboxes)                 # (..., N, G)
         ious = torch.where(gt_valid[..., None, :], ious, torch.zeros_like(ious))
-        return self.assign_from_ious(ious, gt_valid, gt_labels, box_valid)
+        return self.assign_from_ious(ious, gt_valid, gt_labels, box_valid, thr)
 
     def assign_from_ious(self, ious: torch.Tensor, gt_valid: torch.Tensor,
                          gt_labels: Optional[torch.Tensor] = None,
-                         box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+                         box_valid: Optional[torch.Tensor] = None,
+                         thr: Optional[torch.Tensor] = None) -> AssignResult:
         n, g = ious.shape[-2:]
+        pos_thr, neg_thr, min_pos = ((self.pos_iou_thr, self.neg_iou_thr, self.min_pos_iou)
+                                     if thr is None else (thr, thr, thr))
         max_overlaps = ious.max(dim=-1).values
         argmax = ious.argmax(dim=-1)                            # first maximum
         assigned = torch.full_like(argmax, -1)
-        if isinstance(self.neg_iou_thr, (tuple, list)):
-            lo, hi = self.neg_iou_thr
+        if isinstance(neg_thr, (tuple, list)):
+            lo, hi = neg_thr
             neg = (max_overlaps >= lo) & (max_overlaps < hi)
         else:
-            neg = (max_overlaps >= 0) & (max_overlaps < self.neg_iou_thr)
+            neg = (max_overlaps >= 0) & (max_overlaps < neg_thr)
         assigned = torch.where(neg, torch.zeros_like(assigned), assigned)
-        assigned = torch.where(max_overlaps >= self.pos_iou_thr, argmax + 1, assigned)
+        assigned = torch.where(max_overlaps >= pos_thr, argmax + 1, assigned)
         if self.match_low_quality:
             # every candidate at a gt's maximum IoU goes to that gt; the
             # reference loops over gts in order, so the highest index wins
             gt_max = ious.max(dim=-2, keepdim=True).values      # (..., 1, G)
             cond = ((ious == gt_max) & gt_valid[..., None, :]
-                    & (gt_max >= self.min_pos_iou) & (gt_max > 0))
+                    & (gt_max >= min_pos) & (gt_max > 0))
             if not self.gt_max_assign_all:
                 rows = torch.arange(n, device=ious.device)[:, None]
                 cond = cond & (rows == ious.argmax(dim=-2, keepdim=True))

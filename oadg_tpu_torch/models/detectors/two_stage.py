@@ -2,6 +2,8 @@
 backbone and neck (``extract_feat``), the OA-DG training forward
 (``forward_train``, ``:161-196``) and the test path (``simple_test``, ``:198``);
 ``MaskRCNN`` (``:319-342``) adds the mask branch's outputs to the test path.
+A ``CascadeRoIHead`` config with a ``mask_head`` (Cascade Mask R-CNN) builds
+the HTC head without its semantic branch and mask info flow (``:86-95``).
 
 Batches follow ``oadg_tpu/engine/train_step.py``: ``img`` (N, 3, H, W)
 float32 normalized and padded (NCHW here, channels-last memory on the card),
@@ -88,6 +90,13 @@ class TwoStageDetector(nn.Module):
         self.rpn_head = build_from_cfg(
             dict(rpn_head, train_cfg=self.train_cfg.get("rpn"),
                  test_cfg=self.test_cfg.get("rpn")), HEADS, dev)
+        roi_head = dict(roi_head)
+        if roi_head.get("type") == "CascadeRoIHead" and roi_head.get("mask_head"):
+            # Cascade Mask R-CNN is HTC without the semantic branch and the
+            # mask info flow (:86-95)
+            roi_head["type"] = "HybridTaskCascadeRoIHead"
+            roi_head.setdefault("mask_info_flow", False)
+            roi_head.setdefault("semantic_fusion", ())
         self.roi_head = build_from_cfg(
             dict(roi_head, train_cfg=self.train_cfg.get("rcnn"),
                  test_cfg=self.test_cfg.get("rcnn"), num_views=num_views),
@@ -99,9 +108,7 @@ class TwoStageDetector(nn.Module):
         package's default), then each head's own init; frozen BN identity."""
         init_default_(self, gen)
         self.rpn_head.init_weights(gen)
-        self.roi_head.bbox_head.init_weights(gen)
-        if self.roi_head.mask_head is not None:
-            self.roi_head.mask_head.init_weights(gen)
+        self.roi_head.init_weights(gen)
 
     def extract_feat(self, img):
         x = self.backbone(img)
@@ -210,8 +217,15 @@ class TwoStageDetector(nn.Module):
                 differ between views.
             metas: per-view ``(flip, flip_direction)``.
 
-        Returns dets (N, max_per_img, 5), labels, valid.
+        Returns dets (N, max_per_img, 5), labels, valid. A cascade RoI head
+        raises ``ValueError``: the JAX ``aug_test`` reads ``roi.head``, which
+        the cascade lacks (``:275-278``).
         """
+        from ..roi_heads.standard_roi_head import StandardRoIHead
+        if not isinstance(self.roi_head, StandardRoIHead):
+            raise ValueError(f"test-time augmentation of a {type(self.roi_head).__name__}: "
+                             "the reference's aug_test serves one box head (roi.head), "
+                             "which the cascade family lacks")
         rpn_cfg = dict(self.test_cfg.get("rpn", {}))
         feats_l, boxes_l, scores_l, valid_l = [], [], [], []
         for vd, (flip, fdir) in zip(views, metas):

@@ -23,7 +23,7 @@ from torch import nn
 from ...core.bbox.coder import DeltaXYWHBBoxCoder
 from ...parallel import shard_sum
 from ...utils.registry import HEADS, LOSSES, build_from_cfg
-from ..layers import Linear, lecun_normal_, normal_, xavier_uniform_
+from ..layers import Conv, Linear, lecun_normal_, normal_, xavier_uniform_
 from ..losses.common import accuracy
 
 
@@ -184,3 +184,69 @@ class BBoxHead(Shared2FCBBoxHead):
 
     def __init__(self, num_shared_fcs: int = 0, **kwargs):
         super().__init__(num_shared_fcs=num_shared_fcs, **kwargs)
+
+
+class _Bottleneck(nn.Module):
+    """The double head's bias-free bottleneck without norms (mmdet names:
+    ``conv1`` 1x1, ``conv2`` 3x3, ``conv3`` 1x1); ``relu(x + conv3(relu(
+    conv2(relu(conv1(x))))))``."""
+
+    def __init__(self, channels: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.conv1 = Conv(channels, channels // 4, 1, **kw)
+        self.conv2 = Conv(channels // 4, channels // 4, 3, 1, 1, **kw)
+        self.conv3 = Conv(channels // 4, channels, 1, **kw)
+
+    def forward(self, x):
+        y = torch.relu(self.conv2(torch.relu(self.conv1(x))))
+        return torch.relu(x + self.conv3(y))
+
+
+@HEADS.register_module()
+class DoubleConvFCBBoxHead(Shared2FCBBoxHead):
+    """Double-Head R-CNN's box head (``bbox_heads.py:233``): regression from
+    a conv branch (a biased 1x1 ``conv_in`` to ``conv_out_channels``,
+    ``num_convs`` bottlenecks, the spatial mean, ``fc_reg``), classification
+    from an FC branch (the flattened RoI features through ``num_fcs`` FCs
+    with ReLU, ``fc_cls``). Targets, losses and decoding are the
+    ``Shared2FCBBoxHead``'s; every weight starts LeCun-normal, as flax's.
+    mmdet keys: ``conv_in`` (mmdet's ``res_block`` has norms, the JAX head
+    none), ``conv_branch.{i}.conv{1,2,3}``, ``fc_branch.{i}`` (the first
+    takes the features flattened C, H, W), ``fc_cls``, ``fc_reg``."""
+
+    def __init__(self, num_convs: int = 4, num_fcs: int = 2, conv_out_channels: int = 1024,
+                 fc_out_channels: int = 1024, in_channels: int = 256,
+                 roi_feat_size: int = 7, device=None, dtype=None, **kwargs):
+        super().__init__(in_channels=in_channels, fc_out_channels=fc_out_channels,
+                         roi_feat_size=roi_feat_size, num_shared_fcs=0, device=device,
+                         dtype=dtype, **kwargs)
+        kw = dict(device=device, dtype=dtype)
+        self.conv_in = Conv(in_channels, conv_out_channels, 1, **kw)
+        self.conv_branch = nn.ModuleList(_Bottleneck(conv_out_channels, **kw)
+                                         for _ in range(num_convs))
+        widths = [in_channels * roi_feat_size ** 2] + [fc_out_channels] * num_fcs
+        self.fc_branch = nn.ModuleList(Linear(a, b, **kw)
+                                       for a, b in zip(widths[:-1], widths[1:]))
+        self.fc_cls = Linear(widths[-1], self.num_classes + 1, **kw)
+        self.fc_reg = Linear(conv_out_channels,
+                             4 if self.reg_class_agnostic else 4 * self.num_classes, **kw)
+
+    def init_weights(self, gen: torch.Generator):
+        """LeCun-normal weights and zero biases (the JAX head's flax defaults)."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                lecun_normal_(m.weight, gen)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+
+    def forward(self, roi_feats: torch.Tensor):
+        """(R, C, 7, 7) -> cls_score (R, C + 1), bbox_pred, None."""
+        x = self.conv_in(roi_feats)
+        for block in self.conv_branch:
+            x = block(x)
+        bbox_pred = self.fc_reg(x.mean(dim=(2, 3)))
+        f = roi_feats.flatten(1)
+        for fc in self.fc_branch:
+            f = torch.relu(fc(f))
+        return self.fc_cls(f), bbox_pred, None

@@ -53,6 +53,32 @@ from ...utils.registry import HEADS, LOSSES, ROI_EXTRACTORS, build_from_cfg, cfg
 from .mask_heads import mask_targets
 
 
+def sample_rois(assigner, sampler, add_gt: bool, proposals, prop_valid, gt, gt_valid,
+                gt_labels, draws, name: str, iou_thr=None):
+    """Assign and sample (N, P) proposals of N images at once (``:116-131``),
+    the gts in front of them with ``add_gt``; ``draws`` gives ``{name}.pos``
+    and ``{name}.neg``, (N, candidates) each; ``iou_thr`` (a tensor)
+    overrides the assigner's thresholds. Returns per-sample boxes, labels,
+    is_pos, valid, matched gt boxes and the matched gts' indices, (N, num,
+    ...)."""
+    if add_gt:
+        cand = torch.cat([gt, proposals], 1)
+        cand_valid = torch.cat([gt_valid, prop_valid], 1)
+    else:
+        cand, cand_valid = proposals, prop_valid
+    b, m = cand.shape[:2]
+    dev = cand.device
+    assign = assigner.assign(cand, gt, gt_valid, gt_labels=gt_labels, box_valid=cand_valid,
+                             thr=iou_thr)
+    res = sampler.sample(assign, draws(f"{name}.pos", (b, m), dev),
+                         draws(f"{name}.neg", (b, m), dev))
+    s = res.inds.shape[1]
+    boxes = torch.gather(cand, 1, res.inds[..., None].expand(b, s, 4))
+    matched = (res.gt_inds - 1).clamp(0, gt.shape[1] - 1)
+    matched_gt = torch.gather(gt, 1, matched[..., None].expand(b, s, 4))
+    return boxes, res.labels, res.is_pos, res.valid, matched_gt, matched
+
+
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
 
@@ -102,6 +128,16 @@ class StandardRoIHead(nn.Module):
         self.pos_weight = float(train_cfg.get("pos_weight", -1))
         self.mask_size = int(train_cfg.get("mask_size", 28))
 
+    @property
+    def num_classes(self) -> int:
+        return self.bbox_head.num_classes
+
+    def init_weights(self, gen: torch.Generator):
+        """The box head's init, then the mask head's."""
+        self.bbox_head.init_weights(gen)
+        if self.mask_head is not None:
+            self.mask_head.init_weights(gen)
+
     def bbox_forward(self, feats, rois: torch.Tensor):
         """(R, 5) rois -> the box head's outputs on their RoIAlign features
         (through the shared head where there is one)."""
@@ -120,30 +156,14 @@ class StandardRoIHead(nn.Module):
 
     # ---------------- training ----------------
 
-    def _sample(self, proposals, prop_valid, gt, gt_valid, gt_labels, draws):
-        """Assign and sample the B clean images at once; ``draws`` gives
-        ``rcnn.pos`` and ``rcnn.neg``, (B, candidates) each. Returns
-        per-sample boxes, labels, is_pos, valid, matched gt boxes and the
-        matched gts' indices, (B, num, ...)."""
-        if self.add_gt_as_proposals:
-            cand = torch.cat([gt, proposals], 1)
-            cand_valid = torch.cat([gt_valid, prop_valid], 1)
-        else:
-            cand, cand_valid = proposals, prop_valid
-        b, m = cand.shape[:2]
-        dev = cand.device
-        assign = self.assigner.assign(cand, gt, gt_valid, gt_labels=gt_labels,
-                                      box_valid=cand_valid)
-        res = self.sampler.sample(assign, draws("rcnn.pos", (b, m), dev),
-                                  draws("rcnn.neg", (b, m), dev))
-        s = res.inds.shape[1]
-        boxes = torch.gather(cand, 1, res.inds[..., None].expand(b, s, 4))
-        matched = (res.gt_inds - 1).clamp(0, gt.shape[1] - 1)
-        matched_gt = torch.gather(gt, 1, matched[..., None].expand(b, s, 4))
-        return boxes, res.labels, res.is_pos, res.valid, matched_gt, matched
+    def _sample(self, proposals, prop_valid, gt, gt_valid, gt_labels, draws, iou_thr=None):
+        """``sample_rois`` of the B clean images with this head's assigner
+        and sampler, from the draws ``rcnn.pos`` and ``rcnn.neg``."""
+        return sample_rois(self.assigner, self.sampler, self.add_gt_as_proposals, proposals,
+                           prop_valid, gt, gt_valid, gt_labels, draws, "rcnn", iou_thr)
 
     def _loss(self, feats, proposals, prop_valid, gt_bboxes, gt_valid,
-              gt_labels, draws, gt_masks=None):
+              gt_labels, draws, gt_masks=None, iou_thr=None):
         """Shared by both heads: the losses (``loss_mask`` too where the head
         has a mask branch and ``gt_masks`` are given), the sampled rows'
         embeddings (or None), their targets' labels and validity, and (B, S)."""
@@ -152,7 +172,7 @@ class StandardRoIHead(nn.Module):
         b = n // v
         with torch.no_grad():
             sampled = self._sample(proposals[:b], prop_valid[:b], gt_bboxes[:b],
-                                   gt_valid[:b], gt_labels[:b], draws)
+                                   gt_valid[:b], gt_labels[:b], draws, iou_thr)
             boxes, labels, is_pos, valid, matched_gt, matched = (
                 t.repeat(v, *[1] * (t.dim() - 1)) for t in sampled)
             tgt_labels, tgt_lw, tgt_deltas, tgt_bw = self.bbox_head.get_targets(
@@ -167,12 +187,19 @@ class StandardRoIHead(nn.Module):
                                                       matched_gt, matched, gt_masks)
         return losses, cont, tgt_labels.reshape(-1), valid.reshape(-1), boxes.shape[:2]
 
-    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks):
-        """``loss_mask`` over the first ``max_pos = round(num * pos_fraction)``
+    def _mask_branch(self, feats, boxes, matched_gt, matched, gt_masks):
+        """The mask head on the first ``max_pos = round(num * pos_fraction)``
         sampled slots of each image (N, S): the sampler puts the positives
-        first, so these hold every positive (``:133-157``); the targets come
-        from the matched gts' box-cropped masks (N, G, M0, M0)."""
-        n = boxes.shape[0]
+        first, so these hold every positive (``:133-157``). -> (their RoI
+        features, the head's logits, the targets resampled from the matched
+        gts' box-cropped masks (N, G, M0, M0), max_pos)."""
+        out = self.mask_roi_extractor.output_size
+        if 2 * out != self.mask_size:
+            # the JAX package's mask head gives (2 out)^2 logits against
+            # mask_size^2 targets and raises on the product
+            raise ValueError(f"the mask head's {2 * out}x{2 * out} logits (mask RoI "
+                             f"output_size {out}) do not match train_cfg.rcnn.mask_size="
+                             f"{self.mask_size}: give the config a mask_roi_extractor")
         p = max(int(round(boxes.shape[1] * self.sampler.pos_fraction)), 1)
         pboxes = boxes[:, :p]
         with torch.no_grad():
@@ -181,8 +208,12 @@ class StandardRoIHead(nn.Module):
             pmasks = torch.gather(gm, 1, idx[:, :, None, None].expand(-1, -1, *gm.shape[2:]))
             tgts = mask_targets(pboxes.reshape(-1, 4), matched_gt[:, :p].reshape(-1, 4),
                                 pmasks.reshape(-1, *gm.shape[2:]), self.mask_size)
-        mask_pred = self.mask_head(self.mask_roi_extractor(
-            feats, self.proposals_to_rois(pboxes)))
+        mfeats = self.mask_roi_extractor(feats, self.proposals_to_rois(pboxes))
+        return mfeats, self.mask_head(mfeats), tgts, p
+
+    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks):
+        """``loss_mask`` of ``_mask_branch``'s slots against their targets."""
+        _, mask_pred, tgts, p = self._mask_branch(feats, boxes, matched_gt, matched, gt_masks)
         return self.mask_head.loss(mask_pred, tgts, labels[:, :p].reshape(-1),
                                    pos[:, :p].reshape(-1))
 

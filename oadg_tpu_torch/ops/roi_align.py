@@ -311,19 +311,41 @@ def _level_args(shapes, featmap_strides):
             (ctypes.c_float * n)(*_level_scales(featmap_strides)))
 
 
-class RoIAlignForward:
+class _LaunchCounts:
+    """A wrapper's launch counts: ``launches`` in all, ``launches_by_shape``
+    per (bin count, level count), and ``launches_by_size`` per bin count
+    (read from the former)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_shape = {}
+
+    def _count(self, output_size: int, levels: int):
+        self.launches += 1
+        shape = (output_size, levels)
+        self.launches_by_shape[shape] = self.launches_by_shape.get(shape, 0) + 1
+
+    @property
+    def launches_by_size(self):
+        out = dict.fromkeys(KERNEL_OUTPUT_SIZES, 0)
+        for (size, _), n in self.launches_by_shape.items():
+            out[size] += n
+        return out
+
+
+class RoIAlignForward(_LaunchCounts):
     """Wrapper of ``csrc/roi_align_fwd.cu`` (kernel B1): checks its inputs,
     allocates the output and the kernel's per-roi geometry scratch, launches
-    on the current stream and counts launches: ``launches`` in all, and
-    ``launches_by_size`` per bin count.
+    on the current stream and counts launches: ``launches`` in all,
+    ``launches_by_size`` per bin count, and ``launches_by_shape`` per (bin
+    count, level count).
 
     Takes channels-last float32 or bfloat16 level maps on one CUDA device, 7x7
     or 14x14 bins and ``sampling_ratio=2`` only; raises on anything else.
     """
 
     def __init__(self):
-        self.launches = 0
-        self.launches_by_size = dict.fromkeys(KERNEL_OUTPUT_SIZES, 0)
+        super().__init__()
         self.library = CudaLibrary("roi_align_fwd.cu", {
             "oadg_roi_align_fwd": (ctypes.c_int, (
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
@@ -366,12 +388,11 @@ class RoIAlignForward:
                 stream)
         if err != 0:
             raise RuntimeError(f"roi_align_fwd launch failed with cudaError_t {err}")
-        self.launches += 1
-        self.launches_by_size[output_size] += 1
+        self._count(output_size, n)
         return out
 
 
-class RoIAlignBackward:
+class RoIAlignBackward(_LaunchCounts):
     """Wrapper of ``csrc/roi_align_bwd.cu`` (kernel B2): the gradient of
     :class:`RoIAlignForward` with respect to the maps.
 
@@ -380,13 +401,13 @@ class RoIAlignBackward:
     ``grad_out``; allocates the channels-last gradient maps in the features'
     dtype (uninitialised: the kernel writes every cell, bfloat16 rounded once
     from its float32 sum) and the kernel's int32 scratch, launches on the
-    current stream and counts launches (``launches``, and
-    ``launches_by_size`` per bin count). Reads nothing back to the host.
+    current stream and counts launches (``launches``, ``launches_by_size``
+    per bin count, ``launches_by_shape`` per (bin count, level count)).
+    Reads nothing back to the host.
     """
 
     def __init__(self):
-        self.launches = 0
-        self.launches_by_size = dict.fromkeys(KERNEL_OUTPUT_SIZES, 0)
+        super().__init__()
         self.library = CudaLibrary("roi_align_bwd.cu", {
             "oadg_roi_align_bwd": (ctypes.c_int, (
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
@@ -441,8 +462,7 @@ class RoIAlignBackward:
         if err != 0:
             raise RuntimeError(f"roi_align_bwd launch failed with "
                                f"cudaError_t {err}")
-        self.launches += 1
-        self.launches_by_size[output_size] += 1
+        self._count(output_size, n)
         return grads
 
 

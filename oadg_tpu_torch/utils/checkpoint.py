@@ -45,8 +45,22 @@ the transposed conv's flax kernel ``(kh, kw, in, out)`` becomes torch's
 ``(in, out, kh, kw)`` flipped in both spatial axes (flax's
 ``ConvTranspose`` is a stride-2 convolution of the dilated input with the
 kernel as given; torch's ``conv_transpose2d`` scatters each input through
-the kernel, which is the same convolution with the kernel flipped). A leaf
-with no mmdet name raises. The same map carries
+the kernel, which is the same convolution with the kernel flipped). The
+two-stage family: a cascade's ``roi/heads_{k}`` becomes
+``roi_head.bbox_head.{k}`` (its first FC reordered too), HTC's
+``mask_heads_{k}`` ``roi_head.mask_head.{k}`` (flipped likewise),
+``info_conv{k}`` ``roi_head.info_convs.{k}``, ``semantic`` (``lateral{i}``,
+``conv{i}``, ``conv_embedding``, ``conv_seg``)
+``roi_head.semantic_head.{lateral_convs.{i}.conv, convs.{i}.conv,
+conv_embedding.conv, conv_logits}``, SCNet's ``glbctx`` (``conv{i}``,
+``fc``) ``roi_head.glbctx_head.{convs.{i}.conv, fc}``, MS R-CNN's
+``maskiou`` (``conv{i}``, ``fc{i}``, ``iou_pred``)
+``roi_head.mask_iou_head.{convs.{i}, fcs.{i}, fc_mask_iou}`` (``fcs.0``
+reordered from HWC to CHW at the last conv's width), and the Double-Head's
+``conv_in``, ``res{i}_conv{j}`` and ``fc{i}``
+``roi_head.bbox_head.{conv_in, conv_branch.{i}.conv{j}, fc_branch.{i}}``
+(``fc_branch.0`` reordered as ``shared_fcs.0``). A leaf with no mmdet name
+raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
@@ -171,23 +185,74 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
     if head == "roi" and rest[0] == "shared_head_m":
         layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[1]).groups()
         return _block_key(f"roi_head.shared_head.layer{layer}.{block}", rest[2:])
-    if head == "roi" and rest[0] == "mask_head_m":
-        leaf = "weight" if rest[-1] == "kernel" else "bias"
-        m = re.fullmatch(r"conv_(\d+)", rest[1])
-        if m:
-            return f"roi_head.mask_head.convs.{m.group(1)}.conv.{leaf}"
-        if rest[1] in ("upsample", "conv_logits"):
-            return f"roi_head.mask_head.{rest[1]}.{leaf}"
-    if head == "roi" and rest[0] == "head":
-        name = rest[1]
-        leaf = "weight" if rest[-1] == "kernel" else "bias"
-        m = re.fullmatch(r"(shared_fc|fc_cont)(\d+)", name)
-        if m:
-            group = "shared_fcs" if m.group(1) == "shared_fc" else "fc_cont"
-            return f"roi_head.bbox_head.{group}.{m.group(2)}.{leaf}"
-        if name in ("fc_cls", "fc_reg"):
-            return f"roi_head.bbox_head.{name}.{leaf}"
+    if head == "roi":
+        return _roi_key(rest)
     raise KeyError("/".join(path))
+
+
+def _mask_head_key(pre: str, rest: Tuple[str, ...]) -> str:
+    m = re.fullmatch(r"conv_(\d+)", rest[0])
+    if m:
+        return f"{pre}.convs.{m.group(1)}.conv.{_leaf(rest)}"
+    if rest[0] in ("upsample", "conv_logits"):
+        return f"{pre}.{rest[0]}.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
+def _box_head_key(pre: str, rest: Tuple[str, ...]) -> str:
+    name = rest[0]
+    m = re.fullmatch(r"(shared_fc|fc_cont|fc|res)(\d+)(_conv\d)?", name)
+    if m and m.group(1) == "res":                # the double head's bottlenecks
+        return f"{pre}.conv_branch.{m.group(2)}.{m.group(3)[1:]}.weight"
+    if m:
+        group = {"shared_fc": "shared_fcs", "fc_cont": "fc_cont", "fc": "fc_branch"}[m.group(1)]
+        return f"{pre}.{group}.{m.group(2)}.{_leaf(rest)}"
+    if name in ("fc_cls", "fc_reg", "conv_in"):
+        return f"{pre}.{name}.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
+def _roi_key(rest: Tuple[str, ...]) -> str:
+    """A leaf under the JAX RoI head ``roi`` -> its key under ``roi_head``."""
+    scope = rest[0]
+    if scope == "shared_head_m":
+        layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[1]).groups()
+        return _block_key(f"roi_head.shared_head.layer{layer}.{block}", rest[2:])
+    if scope == "mask_head_m":
+        return _mask_head_key("roi_head.mask_head", rest[1:])
+    if scope == "head":
+        return _box_head_key("roi_head.bbox_head", rest[1:])
+    m = re.fullmatch(r"(heads|mask_heads)_(\d+)", scope)
+    if m and m.group(1) == "heads":              # a cascade's stages
+        return _box_head_key(f"roi_head.bbox_head.{m.group(2)}", rest[1:])
+    if m:
+        return _mask_head_key(f"roi_head.mask_head.{m.group(2)}", rest[1:])
+    m = re.fullmatch(r"info_conv(\d+)", scope)
+    if m:
+        return f"roi_head.info_convs.{m.group(1)}.{_leaf(rest)}"
+    if scope == "semantic":
+        m = re.fullmatch(r"(lateral|conv)(\d+)", rest[1])
+        if m:
+            group = "lateral_convs" if m.group(1) == "lateral" else "convs"
+            return f"roi_head.semantic_head.{group}.{m.group(2)}.conv.{_leaf(rest)}"
+        if rest[1] == "conv_embedding":
+            return f"roi_head.semantic_head.conv_embedding.conv.{_leaf(rest)}"
+        if rest[1] == "conv_seg":
+            return f"roi_head.semantic_head.conv_logits.{_leaf(rest)}"
+    if scope == "glbctx":
+        m = re.fullmatch(r"conv(\d+)", rest[1])
+        if m:
+            return f"roi_head.glbctx_head.convs.{m.group(1)}.conv.{_leaf(rest)}"
+        if rest[1] == "fc":
+            return f"roi_head.glbctx_head.fc.{_leaf(rest)}"
+    if scope == "maskiou":
+        m = re.fullmatch(r"(conv|fc)(\d+)", rest[1])
+        if m:
+            group = "convs" if m.group(1) == "conv" else "fcs"
+            return f"roi_head.mask_iou_head.{group}.{m.group(2)}.{_leaf(rest)}"
+        if rest[1] == "iou_pred":
+            return f"roi_head.mask_iou_head.fc_mask_iou.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
 
 
 def _roi_channels(width: int, roi_feat_size: int, given: Optional[int]) -> int:
@@ -210,8 +275,13 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     must equal the first shared FC's input width over ``roi_feat_size ** 2``;
     a width that ``roi_feat_size ** 2`` does not divide raises."""
     sd: Dict[str, torch.Tensor] = {}
-    neck = dict(variables.get("params") or {}).get("neck_m") or {}
+    params = dict(variables.get("params") or {})
+    neck = params.get("neck_m") or {}
     fpn_levels = sum(1 for k in neck if re.fullmatch(r"lateral_\d+", k))
+    maskiou = dict(dict(params.get("roi") or {}).get("maskiou") or {})
+    convs = sorted((k for k in maskiou if re.fullmatch(r"conv\d+", k)), key=lambda k: int(k[4:]))
+    maskiou_ch = (np.asarray(maskiou[convs[-1]]["Conv_0"]["kernel"]).shape[-1]
+                  if convs else None)
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
             try:
@@ -220,19 +290,29 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
             if path[-1] == "kernel":
-                if key == "roi_head.mask_head.upsample.weight":   # flipped, (in, out, kh, kw)
+                if re.fullmatch(r"roi_head\.mask_head\.(\d+\.)?upsample\.weight", key):
+                    # flipped, (in, out, kh, kw)
                     v = np.ascontiguousarray(v[::-1, ::-1].transpose(2, 3, 0, 1))
                 elif v.ndim == 4:                        # HWIO -> OIHW
                     v = v.transpose(3, 2, 0, 1)
                 else:                                    # (in, out) -> (out, in)
                     v = v.T
-                    if key == "roi_head.bbox_head.shared_fcs.0.weight":
-                        o, i = v.shape
-                        ch = _roi_channels(i, roi_feat_size, roi_channels)
-                        v = (v.reshape(o, roi_feat_size, roi_feat_size, ch)
-                             .transpose(0, 3, 1, 2).reshape(o, i))
+                    if re.fullmatch(r"roi_head\.bbox_head\.(\d+\.)?(shared_fcs|fc_branch)"
+                                    r"\.0\.weight", key):
+                        v = _hwc_to_chw(v, roi_feat_size,
+                                        _roi_channels(v.shape[1], roi_feat_size, roi_channels))
+                    elif key == "roi_head.mask_iou_head.fcs.0.weight":
+                        side = int(round(np.sqrt(v.shape[1] // maskiou_ch)))
+                        v = _hwc_to_chw(v, side, maskiou_ch)
             sd[key] = torch.tensor(np.asarray(v, dtype=np.float32))
     return sd
+
+
+def _hwc_to_chw(w: np.ndarray, side: int, channels: int) -> np.ndarray:
+    """An (out, side * side * channels) FC weight whose inputs are flattened
+    H, W, C (the JAX package's NHWC features) -> inputs flattened C, H, W."""
+    o, i = w.shape
+    return (w.reshape(o, side, side, channels).transpose(0, 3, 1, 2).reshape(o, i))
 
 
 _SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.")

@@ -6,7 +6,9 @@ every random stage of the port takes its uniform [0, 1) float32 draws from a
 numbers that ``jax.random.uniform`` drew from the JAX package's key splits;
 one run hands another what it drew), else from ``generator``. Names used by
 the training step: ``rpn.pos`` / ``rpn.neg`` (N, anchors), ``rcnn.pos`` /
-``rcnn.neg`` (B, candidates), ``random_boxes`` (N, 4, boxes). OA-Mix draws
+``rcnn.neg`` (B, candidates), ``random_boxes`` (N, 4, boxes); a cascade's
+``rcnn.s{k}.pos`` / ``.neg`` (N, candidates) a stage and HTC's
+``rcnn.mask{k}.pos`` / ``.neg`` a mask stage. OA-Mix draws
 its table on the host, from ``host_generator(generator)``.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 26 configs the port has ported build, the
-other 54 raise the port's refusal (a type the port has not ported,
+them with the JAX package: the 33 configs the port has ported build, the
+other 47 raise the port's refusal (a type the port has not ported,
 "the port builds only the ported slices' types"), never another error.
 
 Also the two reference-side faults the port does not copy (ROADMAP C): the
@@ -46,9 +46,12 @@ PORTED = {
     "OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py",
     "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd.py",
     "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py",
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py",
     "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
     "cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py",
     "dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py",
+    "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py",
+    "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py",
     "faster_rcnn/faster_rcnn_r101_fpn_1x_coco.py",
     "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py",
     "faster_rcnn/faster_rcnn_r50_caffe_dc5_1x_coco.py",
@@ -61,8 +64,12 @@ PORTED = {
     "faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py",
     "faster_rcnn/faster_rcnn_r50_fpn_soft_nms_1x_coco.py",
     "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
+    "htc/htc_r50_fpn_1x_coco.py",
     "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+    "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py",
+    "pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
+    "scnet/scnet_r50_fpn_1x_coco.py",
     "yolo/yolov3_d53_320_273e_coco.py",
     "yolo/yolov3_d53_mstrain-416_273e_coco.py",
     "yolo/yolov3_d53_mstrain-608_273e_coco.py",
@@ -94,8 +101,10 @@ def _build(rel):
 
 
 def test_the_sweep_counts_26_of_80():
+    """33 of the 80 since the two-stage family's seven (the name kept from
+    the long tail's first slice, which ported 26)."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 26
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 33
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -134,6 +143,40 @@ def test_longtail_configs_build_their_modules():
     assert type(dcn.backbone.layer1[0].conv2).__name__ == "Conv"
     assert [type(getattr(dcn.backbone, f"layer{i}")[0].conv2).__name__
             for i in (2, 3, 4)] == ["ModulatedDeformConv"] * 3
+
+
+TWOSTAGE = {"cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": ("CascadeRCNN", "CascadeRoIHead"),
+            "htc/htc_r50_fpn_1x_coco.py": ("HybridTaskCascade", "HybridTaskCascadeRoIHead"),
+            "scnet/scnet_r50_fpn_1x_coco.py": ("SCNet", "SCNetRoIHead"),
+            "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py": ("DynamicRCNN", "DynamicRoIHead"),
+            "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py": ("FasterRCNN", "DoubleHeadRoIHead"),
+            "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py": ("MaskScoringRCNN", "MaskScoringRoIHead"),
+            "pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py": ("FasterRCNN", "PISARoIHead")}
+
+
+@pytest.mark.parametrize("rel", sorted(TWOSTAGE))
+def test_twostage_configs_build_their_heads(rel):
+    """The two-stage family's seven configs build their detector and RoI
+    head at full width: the cascade's three box heads with their own
+    coders, HTC's and SCNet's mask heads at the box layer's 7x7 (the
+    configs give no mask RoI layer), the double head's branches, the mask
+    IoU head."""
+    det = _build(rel)
+    assert (type(det).__name__, type(det.roi_head).__name__) == TWOSTAGE[rel]
+    rh = det.roi_head
+    if "Cascade" in TWOSTAGE[rel][1] or "SCNet" in TWOSTAGE[rel][1]:
+        assert len(rh.bbox_head) == 3 and [s.num for s in rh.samplers] == [512] * 3
+        assert [a.pos_iou_thr for a in rh.assigners] == [0.5, 0.6, 0.7]
+        assert rh.bbox_head[0].fc_reg.weight.shape == (4, 1024)     # class-agnostic
+    if TWOSTAGE[rel][1] in ("HybridTaskCascadeRoIHead", "SCNetRoIHead"):
+        assert rh.mask_out_size == 7 and rh.mask_size == 14 and len(rh.mask_head) == 3
+        assert rh.semantic_head.conv_logits.weight.shape == (183, 256, 1, 1)
+        assert rh.semantic_roi_extractor.featmap_strides == (8,)
+    if rel.startswith("double_heads"):
+        assert rh.bbox_head.fc_branch[0].weight.shape == (1024, 256 * 49)
+        assert rh.bbox_head.fc_reg.weight.shape == (320, 1024)
+    if rel.startswith("ms_rcnn"):
+        assert rh.mask_iou_head.fcs[0].weight.shape == (1024, 256 * 4 * 4)
 
 
 # ------------------------------------------------ reference-side faults ----

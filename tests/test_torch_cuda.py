@@ -1740,3 +1740,175 @@ def test_modulated_deform_conv_on_the_card_matches_the_cpu(dtype):
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, c, rtol=0 if dtype == torch.float32 else 2 ** -7,
                                    atol=tol * float(c.abs().max()), msg=name)
+
+
+# ------------------------------------------------------- two-stage family ----
+
+SEM_ROI_CASE = (1, 128, 256, 128)       # HTC's semantic level of a 1024x2048 image, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernels_at_the_semantic_shape(dtype):
+    """B1 and B2 at HTC's semantic RoIAlign: 14x14 bins on the one stride-8
+    embedding (one 128x256 map of 256 channels), R = 128 mask slots,
+    against their plain versions; both count the launch under (14, 1); B2
+    gives equal bits in two calls."""
+    dev = _cuda()
+    images, h, w, r = SEM_ROI_CASE
+    rng = np.random.RandomState(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    feats = [torch.randn(images, 256, h, w, device=dev, generator=gen).to(dtype)
+             .contiguous(memory_format=torch.channels_last)]
+    bw = np.exp(rng.uniform(np.log(16), np.log(1024), r))
+    bh = np.exp(rng.uniform(np.log(16), np.log(512), r))
+    x1, y1 = rng.uniform(-16, 2048 - 16, r), rng.uniform(-16, 1024 - 16, r)
+    rois = torch.from_numpy(np.stack([np.zeros(r), x1, y1, x1 + bw, y1 + bh],
+                                     1).astype(np.float32)).to(dev)
+    before = (ROI_ALIGN_FWD.launches_by_shape.get((14, 1), 0),
+              ROI_ALIGN_BWD.launches_by_shape.get((14, 1), 0))
+    got = ROI_ALIGN_FWD(feats, rois, 14, (8,), 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 14, (8,), 2, 56)
+    fmax = float(feats[0].float().abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=(1e-5 if dtype == torch.float32
+                                                        else 1e-4) * fmax)
+    dy = torch.randn(r, 256, 14, 14, device=dev, generator=gen)
+    (grad,) = ROI_ALIGN_BWD(feats, rois, dy, 14, (8,), 2, 56)
+    (again,) = ROI_ALIGN_BWD(feats, rois, dy, 14, (8,), 2, 56)
+    (want,) = roi_align_multilevel_ref_backward(dy, [feats[0].shape], rois, 14, (8,), 2, 56)
+    scale = float(want.abs().max())
+    assert grad.dtype == dtype and torch.equal(grad, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad, want, rtol=0, atol=1e-5 * scale)
+    else:
+        torch.testing.assert_close(grad.float(), want, rtol=2 ** -8, atol=1e-4 * scale)
+    assert (ROI_ALIGN_FWD.launches_by_shape[(14, 1)] - before[0],
+            ROI_ALIGN_BWD.launches_by_shape[(14, 1)] - before[1]) == (1, 2)
+
+
+def _tiny_twostage(rel, mask_roi=False):
+    """A two-stage config of the repo made tiny: R18-FPN of 16 channels, FCs
+    of 32, 8 classes, 2 mask convs, samplers of 32, 30 proposals."""
+    import os
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)), rel))
+    m = cfg["model"]
+    m["backbone"].update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
+    m["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
+    m["rpn_head"].update(in_channels=16, feat_channels=16)
+    rh = m["roi_head"]
+    rh["bbox_roi_extractor"]["out_channels"] = 16
+    heads = rh["bbox_head"]
+    for h in heads if isinstance(heads, list) else [heads]:
+        h.update(in_channels=16, fc_out_channels=32, num_classes=8)
+    if rh.get("mask_head"):
+        rh["mask_head"].update(num_convs=2, in_channels=16, conv_out_channels=16, num_classes=8)
+    if rh.get("semantic_head"):
+        rh["semantic_head"].update(num_convs=2, in_channels=16, conv_out_channels=16,
+                                   num_classes=5)
+    if mask_roi:
+        rh["mask_roi_extractor"] = dict(type="SingleRoIExtractor",
+                                        roi_layer=dict(type="RoIAlign", output_size=14),
+                                        out_channels=16, featmap_strides=[4, 8, 16, 32])
+    for tc in m["train_cfg"]["rcnn"]:
+        tc["sampler"]["num"] = 32
+    m["test_cfg"]["rpn"].update(nms_pre=60, max_per_img=30)
+    m["test_cfg"]["rcnn"]["max_per_img"] = 20
+    return cfg
+
+
+@pytest.mark.cuda
+def test_cascade_request_on_the_card_matches_the_cpu():
+    """The tiny Cascade R-CNN's request, 2 images of 64x96: B1 3 times (one
+    a stage), the detections of the card held by the CPU's (boxes within
+    1e-3 of the largest coordinate, scores within 1e-4, labels equal) for
+    at least 95% of them."""
+    from oadg_tpu_torch.apis import init_detector
+    dev = _cuda()
+    cfg = _tiny_twostage("configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py")
+    gen = torch.Generator().manual_seed(5)
+    batch = {"img": torch.randn(2, 3, 64, 96, generator=gen),
+             "img_shape": torch.tensor([[64., 96.], [60., 90.]]),
+             "scale_factor": torch.ones(2, 4)}
+    outs = {}
+    for where in ("cpu", dev):
+        handle = init_detector(cfg, device=where, seed=0)
+        b = {k: v.to(where) for k, v in batch.items()}
+        before = ROI_ALIGN_FWD.launches_by_shape.get((7, 4), 0)
+        outs[str(where)] = [t.cpu() for t in handle.test(b)]
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert ROI_ALIGN_FWD.launches_by_shape[(7, 4)] - before == 3
+    (cd, cl, cv), (gd, gl, gv) = outs["cpu"], outs[str(dev)]
+    assert cv.any() and abs(int(cv.sum()) - int(gv.sum())) <= 1
+    scale = float(cd[cv][:, :4].abs().max())
+    held = 0
+    for i in range(2):
+        for d, lab in zip(gd[i][gv[i]], gl[i][gv[i]]):
+            ok = ((cd[i][cv[i]][:, :4] - d[:4]).abs().max(1).values <= 1e-3 * scale) & \
+                 ((cd[i][cv[i]][:, 4] - d[4]).abs() <= 1e-4) & (cl[i][cv[i]] == lab)
+            held += bool(ok.any())
+    assert held >= 0.95 * int(gv.sum())
+
+
+@pytest.mark.cuda
+def test_htc_step_on_the_card_matches_the_cpu():
+    """The tiny HTC RoI head's losses (with 14x14 mask RoIs: B1 and B2 at
+    7x7 and 14x14 on the pyramid and at 14x14 on the semantic level, three
+    each) and every parameter's and FPN map's gradient on the card against
+    the CPU, on the same seeded maps, proposals, gts, masks and draws:
+    losses rtol 1e-4, gradients within 1e-4 of each largest magnitude."""
+    from oadg_tpu_torch.models.roi_heads import HybridTaskCascadeRoIHead
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    m = _tiny_twostage("configs/htc/htc_r50_fpn_1x_coco.py", mask_roi=True)["model"]
+    gen = torch.Generator().manual_seed(6)
+    feats = [torch.randn(2, 16, 16 >> i, 24 >> i, generator=gen) for i in range(5)]
+    gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 90., 60.], [50., 30., 80., 62.]],
+                       [[0., 0., 30., 40.], [20., 20., 70., 60.], [0., 0., 0., 0.]]])
+    gt_valid = torch.tensor([[True, True, True], [True, True, False]])
+    labels = torch.tensor([[1, 2, 3], [4, 5, 0]])
+    props = torch.cat([gt.repeat(1, 8, 1) + torch.randn(2, 24, 4, generator=gen) * 3,
+                       torch.rand(2, 16, 2, generator=gen).mul(48).repeat(1, 1, 2)
+                       + torch.tensor([0., 0., 20., 16.])], 1).clamp(0, 96)
+    prop_valid = torch.ones(2, 40, dtype=torch.bool)
+    masks = (torch.rand(2, 3, 28, 28, generator=gen) > 0.4).float()
+    seeded = None
+    outs = {}
+    for where in ("cpu", dev):
+        head = HybridTaskCascadeRoIHead(**{k: v for k, v in m["roi_head"].items() if k != "type"},
+                                        train_cfg=m["train_cfg"]["rcnn"],
+                                        test_cfg=m["test_cfg"]["rcnn"], device=where)
+        if seeded is None:
+            from oadg_tpu_torch.models.layers import init_default_
+            init_default_(head, torch.Generator().manual_seed(0))
+            head.init_weights(torch.Generator().manual_seed(1))
+            seeded = {k: v.clone() for k, v in head.state_dict().items()}
+        head.load_state_dict(seeded)
+        fs = [f.to(where).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+              for f in feats]
+        draws = UniformDraws(torch.Generator().manual_seed(7)) if where == "cpu" else \
+            UniformDraws(given=outs["cpu"][2])
+        before = dict(ROI_ALIGN_FWD.launches_by_shape)
+        losses = head.loss(fs, props.to(where), prop_valid.to(where), gt.to(where),
+                           gt_valid.to(where), labels.to(where), draws,
+                           gt_masks=masks.to(where))
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            after = ROI_ALIGN_FWD.launches_by_shape
+            assert {s: after.get(s, 0) - before.get(s, 0) for s in ((7, 4), (14, 4), (14, 1))} \
+                == {(7, 4): 3, (14, 4): 3, (14, 1): 3}
+        grads = {k: p.grad.detach().cpu() for k, p in head.named_parameters()
+                 if p.grad is not None}
+        grads.update({f"level{i}": f.grad.detach().cpu() for i, f in enumerate(fs[:4])})
+        outs[str(where)] = ({k: float(v) for k, v in losses.items()}, grads,
+                            {k: v.cpu() for k, v in draws.drawn.items()})
+    (cl, cg, _), (gl, gg, _) = outs["cpu"], outs[str(dev)]
+    assert cl.keys() == gl.keys() and all(math.isfinite(v) for v in gl.values())
+    for k in cl:
+        assert gl[k] == pytest.approx(cl[k], rel=1e-4, abs=1e-6), k
+    assert cg.keys() == gg.keys() and len(cg) > 30
+    for k, c in cg.items():
+        torch.testing.assert_close(gg[k], c, rtol=0, atol=1e-4 * float(c.abs().max()) + 1e-12,
+                                   msg=k)
