@@ -325,6 +325,22 @@ non-zero exit code:
    a box stage, the mask stages' 14x14 on the pyramid, HTC's and SCNet's
    14x14 on the semantic level; one more HTC step a dtype with every B1 and
    B2 call held to the plain versions in place.
+8d. twostage2: the two-stage family's last four configs (``TWOSTAGE2``:
+   Sparse R-CNN, QueryInst, Grid R-CNN, PointRend), each at its config's
+   full width with seeded weights (each stage's classifier drawn wider), 80
+   classes as published, PointRend with mmdet's 14x14 mask RoI layer, which
+   its config lacks (``twostage_cfg``); per dtype ``longtail_serve`` (a
+   1024x2048 request, the f32 model against the CPU on a 256x384 request)
+   and ``longtail_train`` (two steps on one 1024x2048 image with seeded
+   gts, polygon gt masks for PointRend), each with B1's and B2's counts set
+   to 0 just before it and read just after, by (bins, levels) as
+   ``path_launches`` implies: Sparse R-CNN's 7x7 six times (a stage), Grid
+   R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
+   branch's 14x14 (a request's masks too); one more Sparse and Grid step a
+   dtype with every B1 and B2 call held to the plain versions in place.
+   QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
+   (its detector is refused): one 1024x2048 forward per dtype in train mode
+   (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
 9. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -349,8 +365,9 @@ non-zero exit code:
    ``launches_longtail_<family>`` (and ``_bf16``)
    included; the ``_c4`` rows' ``launches`` are phase 8b's C4 runs, the
    ``_sem`` rows' phase 8c's HTC and SCNet steps (``launches_twostage_<family>``
-   and ``_bf16`` on every row they reach), the ``_14x14`` rows'
-   ``launches`` are phase 7g's and 8c's, each run's
+   and ``_bf16`` on every row they reach; phase 8d's
+   ``launches_twostage2_<family>`` likewise), the ``_14x14`` rows'
+   ``launches`` are phase 7g's, 8c's and 8d's, each run's
    beside it, ``launches_mask_serve``, ``launches_mask_train`` (and their
    ``_bf16``) and ``launches_mask_tools``, which B1's and B2's rows carry
    too for their 7x7 launches on that path), the card's
@@ -362,6 +379,11 @@ non-zero exit code:
    timed beside their bounds: B1 at a request (one 50x84 map, R = 1000
    proposals), B2 at the step (2 maps, R = 2 x 512): the report rows
    ``roi_align_fwd_c4`` and ``roi_align_bwd_c4``, joined before phase 8b.
+3f. sparse-kernels: B1 and B2 at Sparse R-CNN's stage (7x7 bins on one
+   1024x2048 image's four FPN maps, R = 100 learned proposals), f32 and
+   bf16, against their plain versions, timed beside their bounds; added to
+   B1's and B2's rows as cases (launched six times a request and 6 + 6 a
+   step, the most-launched RoIAlign shape of any config).
 3e. sem-kernels: B1 and B2 at HTC's semantic RoIAlign (14x14 bins on the
    one stride-8 embedding of a 1024x2048 image, a 128x256 map of 256
    channels, R = 128 mask slots), f32 and bf16, against their plain
@@ -371,12 +393,14 @@ non-zero exit code:
 Each phase's wall seconds are logged as it ends (``[time]`` lines) and
 all of them with the script's total before the kernels' JSON line.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3d and 10 and prints the
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3f and 10 and prints the
 kernels' JSON line and no result line: for work on one kernel.
 ``python3 chip_smoke.py --only longtail`` runs phases 1, 2, 3, 3d and 8b
 and prints the kernels' JSON line and no result line;
 ``python3 chip_smoke.py --only twostage`` runs phases 1, 2, 3, 3c, 3e, 8c
-and the semantic rows' plain times, the same way.
+and the semantic rows' plain times, the same way;
+``python3 chip_smoke.py --only twostage2`` runs phases 1, 2, 3, 3c, 3f, 8d
+and the Sparse cases' plain times, the same way.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -1397,24 +1421,27 @@ def _set_row_or_case_plain_ms(row, label, ms):
         _set_case_plain_ms(row, label, ms)
 
 
-def profile_mask_plain(by_name):
-    """The plain versions' times at the mask head's 14x14 cases
-    (``mask_roi_cases``), by the profiler, into the ``_14x14`` rows."""
+def profile_roi_plain(by_name, suffix, cases, bins, strides):
+    """The plain versions' times, by the profiler, at the B1 and B2 cases
+    that ``cases(device)`` gives ((B1 cases, B2 cases), as ``mask_roi_cases``
+    and its siblings make them), into the rows ``roi_align_fwd<suffix>`` and
+    ``roi_align_bwd<suffix>``: each case's own, or the row's where it is the
+    row's report case."""
     import torch
     from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
                                               roi_align_multilevel_ref_backward)
-    fwd, bwd = mask_roi_cases(torch.device("cuda", 0))
+    fwd, bwd = cases(torch.device("cuda", 0))
     for label, fs, rois in fwd:
-        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, MASK_BINS, STRIDES, 2, 56),
+        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, bins, strides, 2, 56),
                         3, method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_fwd_14x14"], label, t["device_ms"])
+        _set_row_or_case_plain_ms(by_name[f"roi_align_fwd{suffix}"], label, t["device_ms"])
         log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
                         f"ms (timer profiler), host {t['host_us']:.1f} us a call")
     for label, fs, rois, dy in bwd:
         dt, shapes = fs[0].dtype, [f.shape for f in fs]
         t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
-            dy, shapes, rois, MASK_BINS, STRIDES, 2, 56)], 2, method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_bwd_14x14"], label, t["device_ms"])
+            dy, shapes, rois, bins, strides, 2, 56)], 2, method="profiler")
+        _set_row_or_case_plain_ms(by_name[f"roi_align_bwd{suffix}"], label, t["device_ms"])
         log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
                         f"ms (timer profiler), host {t['host_us']:.1f} us a call")
     del fwd, bwd
@@ -1472,12 +1499,11 @@ def phase_profiled(rows):
                         f"ms (timer profiler), host {t['host_us']:.1f} us a call")
     del fwd, bwd
     torch.cuda.empty_cache()
-    if "roi_align_fwd_14x14" in by_name:
-        profile_mask_plain(by_name)
-    if "roi_align_fwd_c4" in by_name:
-        profile_c4_plain(by_name)
-    if "roi_align_fwd_sem" in by_name:
-        profile_sem_plain(by_name)
+    for suffix, cases, bins, strides in (
+            ("_14x14", mask_roi_cases, MASK_BINS, STRIDES), ("_c4", c4_roi_cases, 14, (16,)),
+            ("_sem", sem_roi_cases, MASK_BINS, (SEM_STRIDE,)), ("", sparse_roi_cases, 7, STRIDES)):
+        if f"roi_align_fwd{suffix}" in by_name:
+            profile_roi_plain(by_name, suffix, cases, bins, strides)
     img3 = torch.from_numpy(request_image(np.random.RandomState(6))).to(dev)
     flats = [(img3.long() + 256 * torch.arange(3, device=dev)).reshape(-1).clone()
              for _ in range(9)]
@@ -5238,29 +5264,6 @@ def phase_c4_kernels():
     return out
 
 
-def profile_c4_plain(by_name):
-    """The plain versions' times at the C4 cases, by the profiler."""
-    import torch
-    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
-                                              roi_align_multilevel_ref_backward)
-    fwd, bwd = c4_roi_cases(torch.device("cuda", 0))
-    for label, fs, rois in fwd:
-        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, 14, (16,), 2, 56), 3,
-                        method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_fwd_c4"], label, t["device_ms"])
-        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
-                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
-    for label, fs, rois, dy in bwd:
-        dt, shapes = fs[0].dtype, [f.shape for f in fs]
-        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
-            dy, shapes, rois, 14, (16,), 2, 56)], 2, method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_bwd_c4"], label, t["device_ms"])
-        log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
-                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
-    del fwd, bwd
-    torch.cuda.empty_cache()
-
-
 class _NmsRecorder:
     """Stands in for ``multiclass_nms`` in one module for one call: the
     candidates, those above ``score_thr``, the tiles the tiled NMS runs, its
@@ -5409,7 +5412,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         bc = prepare_image(img[:256, :384], small, "cpu")
         gc = {k: v.cuda() if torch.is_tensor(v) else v for k, v in bc.items()}
         rpn_cfgs = [m.rpn_head.test_cfg for m in (cpu.model, handle.model)
-                    if hasattr(m, "rpn_head")]
+                    if getattr(getattr(m, "rpn_head", None), "test_cfg", None) is not None]
         kept = [c["max_per_img"] for c in rpn_cfgs]
         for c in rpn_cfgs:              # 100 proposals keep the CPU's RoI head short
             c["max_per_img"] = 100
@@ -5421,11 +5424,16 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         finally:
             for c, k in zip(rpn_cfgs, kept):
                 c["max_per_img"] = k
-        matched = _match_dets(dg[:3], dc[:3], 1e-2, 1e-4)
+        # Sparse R-CNN's boxes are its proposals moved by six stages' deltas,
+        # never clipped to the image: held within 1e-4 of the largest coordinate
+        scale = float(dc[0][..., :4].abs().max())
+        box_tol = 1e-4 * scale if family in SPARSE else 1e-2
+        matched = _match_dets(dg[:3], dc[:3], box_tol, 1e-4)
         log(phase, f"{family} f32: a {tuple(bc['img'].shape[2:])} request card vs CPU: "
                    f"{int(dg[2].sum())} and {int(dc[2].sum())} valid, "
-                   f"{100 * matched:.1f}% of the card's held by the CPU's; CPU side "
-                   f"{time.perf_counter() - t0:.2f} s")
+                   f"{100 * matched:.1f}% of the card's held by the CPU's (boxes within "
+                   f"{box_tol:.3g} px, the largest coordinate {scale:.1f}; scores within 1e-4); "
+                   f"CPU side {time.perf_counter() - t0:.2f} s")
         if matched < 0.95 or abs(int(dg[2].sum()) - int(dc[2].sum())) > 2 or not dc[2].any():
             raise AssertionError(f"{phase} {family}: card vs CPU {matched}")
         del cpu
@@ -5619,10 +5627,10 @@ TWOSTAGE = (
 )
 CASCADES = ("cascade", "htc", "scnet")
 SEMANTIC = ("htc", "scnet")
-WITH_MASKS = ("htc", "scnet", "ms_rcnn")
-# mmdet's mask RoI layer, which the three mask configs lack: without it the
-# mask head's 14x14 logits meet MS R-CNN's 28x28 targets (JAX raises), and
-# HTC and SCNet run their masks at the box layer's 7x7
+WITH_MASKS = ("htc", "scnet", "ms_rcnn", "point_rend")
+# mmdet's mask RoI layer, which the four mask configs lack: without it the
+# mask head's 14x14 logits meet MS R-CNN's and PointRend's 28x28 targets
+# (JAX raises), and HTC and SCNet run their masks at the box layer's 7x7
 MASK_ROI_EXTRACTOR = dict(type="SingleRoIExtractor",
                           roi_layer=dict(type="RoIAlign", output_size=14, sampling_ratio=0),
                           out_channels=CHANNELS, featmap_strides=list(STRIDES))
@@ -5630,9 +5638,9 @@ SEM_STRIDE = 8                  # the semantic embedding's one level
 
 
 def twostage_cfg(family, path):
-    """``longtail_cfg`` with mmdet's 14x14 mask RoI layer for the three
-    mask configs, and ``schedule_1x`` for the Double-Head config, which
-    names no schedule (neither package can train it as published)."""
+    """``longtail_cfg`` with mmdet's 14x14 mask RoI layer for the mask
+    configs (``WITH_MASKS``), and ``schedule_1x`` for the Double-Head config,
+    which names no schedule (neither package can train it as published)."""
     from oadg_tpu_torch.config import load_config
     cfg = longtail_cfg(path)
     if "optimizer" not in cfg:
@@ -5644,23 +5652,161 @@ def twostage_cfg(family, path):
     return cfg
 
 
+# ------------------------------------------------------------ twostage2 ----
+# The two-stage family's last four configs on the Cityscapes dataset base
+# (1024x2048, one image a step, 80 classes as published), and TridentNet's
+# backbone alone (its detector is refused: the JAX one cannot run).
+TWOSTAGE2 = (
+    ("sparse", "configs/sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py"),
+    ("queryinst", "configs/queryinst/queryinst_r50_fpn_1x_coco.py"),
+    ("grid", "configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py"),
+    ("point_rend", "configs/point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py"),
+)
+SPARSE = ("sparse", "queryinst")
+SPARSE_STAGES = 6
+SPARSE_PROPOSALS = 100
+TRIDENT_SHAPE = (3, 2048, IMG_H // 32, IMG_W // 32)
+
+
+def sparse_roi_cases(dev):
+    """B1 and B2 at Sparse R-CNN's stage: 7x7 bins on one 1024x2048 image's
+    four FPN maps (256x512 .. 32x64, C = 256), R = 100 learned-proposal
+    boxes (log-uniform sizes up to the whole image), f32 and bf16. ->
+    (B1 cases, B2 cases)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(80)
+    maps = [torch.randn(1, CHANNELS, IMG_H // s, IMG_W // s, device=dev, generator=gen)
+            for s in STRIDES]
+    rng = np.random.RandomState(80)
+    bw = np.exp(rng.uniform(np.log(32), np.log(IMG_W), SPARSE_PROPOSALS))
+    bh = np.exp(rng.uniform(np.log(32), np.log(IMG_H), SPARSE_PROPOSALS))
+    x1, y1 = rng.uniform(0, IMG_W - bw), rng.uniform(0, IMG_H - bh)
+    rois = torch.from_numpy(np.stack([np.zeros(SPARSE_PROPOSALS), x1, y1, x1 + bw, y1 + bh],
+                                     1).astype(np.float32)).to(dev)
+    dy = torch.randn(SPARSE_PROPOSALS, CHANNELS, 7, 7, device=dev, generator=gen)
+    fwd, bwd = [], []
+    for name in DTYPES:
+        fs = [m.to(torch_dtype(name)).contiguous(memory_format=torch.channels_last)
+              for m in maps]
+        label = f"sparse {name}, 7x7, 1 image's 4 maps 256x512..32x64x256, R={SPARSE_PROPOSALS}"
+        fwd.append((label, fs, rois))
+        bwd.append((label, fs, rois, dy))
+    return fwd, bwd
+
+
+def phase_sparse_kernels(rows):
+    """sparse-kernels: B1 and B2 at Sparse R-CNN's stage shape against their
+    plain versions (``TOL_F32`` / ``TOL_BF16``), f32 and bf16, timed beside
+    their bounds; added to B1's and B2's rows as cases (their plain times
+    from ``profile_roi_plain``, their launches from phase ``twostage2``,
+    which counts them under the 7x7 rows)."""
+    import torch
+    fwd, bwd = sparse_roi_cases(torch.device("cuda", 0))
+    by_name = {r["name"]: r for r in rows}
+    for label, fs, rois in fwd:
+        err, t, nbytes = check_fwd_case(label, fs, rois, phase="sparse-kernels")
+        by_name["roi_align_fwd"]["cases"].append(case_row(label, err, t, nbytes))
+    for label, fs, rois, dy in bwd:
+        err, t, nbytes = check_bwd_case(label, fs, rois, dy, phase="sparse-kernels")
+        by_name["roi_align_bwd"]["cases"].append(case_row(label, err, t, nbytes))
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+
+def trident_forward(name):
+    """``TridentResNet`` as the config builds it (depth 50, three branches at
+    dilations 1, 2, 3) with seeded weights, one forward of a normalized
+    1024x2048 image in train mode (the branches on the batch) and one in
+    test mode: shapes, finite values, ms and peak memory."""
+    import torch
+    from oadg_tpu_torch.models.layers import init_default_
+    from oadg_tpu_torch.utils.registry import BACKBONES, build_from_cfg
+    cfg = longtail_cfg("configs/tridentnet/tridentnet_r50_caffe_1x_coco.py")
+    net = build_from_cfg(dict(cfg.model.backbone), BACKBONES,
+                         dict(device=torch.device("cuda"), dtype=torch_dtype(name)))
+    init_default_(net, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, IMG_H, IMG_W, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(81))
+    out = {}
+    with torch.inference_mode():
+        net(x)                                                       # warm-up
+        for mode, shape in (("train", TRIDENT_SHAPE), ("test", (1, *TRIDENT_SHAPE[1:]))):
+            net.mode = mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (y,) = net(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ok = tuple(y.shape) == shape and bool(torch.isfinite(y).all())
+            out[mode] = dict(shape=list(y.shape), ms=ms,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            log("twostage2", f"trident {name} {mode}: {tuple(y.shape)} {y.dtype}, finite "
+                             f"{bool(torch.isfinite(y).all())}, {ms:.3f} ms, "
+                             f"max_memory_allocated {out[mode]['peak_gib']:.2f} GiB "
+                             f"({nvidia_smi_line()})")
+            if not ok:
+                raise AssertionError(f"twostage2 trident {name} {mode}: {tuple(y.shape)}, "
+                                     f"want {shape} finite")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_twostage2(rows):
+    """twostage2: Sparse R-CNN, Grid R-CNN and PointRend (with mmdet's 14x14
+    mask RoI layer) per dtype at the config's full width with seeded weights
+    (the classifiers drawn wider): a request of a 1024x2048 image (the f32
+    model against the CPU on a 256x384 request) and two training steps on
+    one image with seeded gts (box-cropped gt masks from polygons for
+    PointRend), each with B1's and B2's counts set to 0 just before it and
+    read just after, held to ``path_launches``; one more Sparse step (six
+    stages) and Grid step (7x7 and the grid branch's 14x14) a dtype with
+    every B1 and B2 call held to the plain versions in place. QueryInst:
+    one f32 request. TridentResNet: one forward per dtype and mode. ->
+    numbers."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, path in TWOSTAGE2:
+        cfg = twostage_cfg(family, path)
+        for name in (("f32",) if family == "queryinst" else DTYPES):
+            res = dict(serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                            phase="twostage2"))
+            if family != "queryinst":
+                res["train"] = longtail_train(rows, family, path, (IMG_H, IMG_W), name,
+                                              cfg=cfg, phase="twostage2",
+                                              masks=family in WITH_MASKS)
+            out[f"{family}_{name}"] = res
+            torch.cuda.empty_cache()
+    for name in DTYPES:
+        out[f"trident_{name}"] = trident_forward(name)
+    log("twostage2", f"phase twostage2: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def path_launches(family, train):
     """B1's and B2's launches by (bins, levels) that one request (``train``
     False) or two steps (of ``samples_per_gpu`` images) of a long-tail or
     two-stage family make: 7x7 on the pyramid once a box stage (three in a
-    cascade; none in RetinaNet; C4's 14x14 on one level instead); with
-    masks 14x14 on the pyramid once a mask stage, and for HTC and SCNet
-    14x14 on the semantic embedding's one level once a mask stage; B2 as
-    B1 in training, never in a request."""
+    cascade, six in Sparse R-CNN; none in RetinaNet; C4's 14x14 on one level
+    instead); with masks 14x14 on the pyramid once a mask stage (PointRend's
+    request too: Mask R-CNN's test path), Grid R-CNN's grid branch the same
+    in training, and for HTC and SCNet 14x14 on the semantic embedding's one
+    level once a mask stage; B2 as B1 in training, never in a request."""
     if family == "retinanet":
         per = {}
     elif family == "c4":
         per = {(MASK_BINS, 1): 1}
+    elif family in SPARSE:
+        per = {(7, 4): SPARSE_STAGES}
     else:
         per = {(7, 4): 3 if family in CASCADES else 1}
+    if family == "point_rend":              # Mask R-CNN's request: masks on the detections
+        per[(MASK_BINS, 4)] = 1
     if not train:
         return {"roi_align_fwd": per, "roi_align_bwd": {}}
-    if family in WITH_MASKS:
+    if family in WITH_MASKS + ("grid",):              # the mask or the grid branch
         per[(MASK_BINS, 4)] = per[(7, 4)]
     if family in SEMANTIC:
         per[(MASK_BINS, 1)] = per[(7, 4)]
@@ -5670,9 +5816,13 @@ def path_launches(family, train):
 
 # Each kernel's calls' R on the third step held in place: C4's 2 x 512
 # sampled rois; one HTC image's 512 sampled rois a box stage and 128 mask
-# slots a mask stage, on the pyramid and on the semantic level.
+# slots a mask stage, on the pyramid and on the semantic level; Sparse
+# R-CNN's 100 proposals a stage; Grid R-CNN's 512 sampled rois and 128 grid
+# slots at 14x14.
 IN_PLACE_CALLS = {"c4": [C4_SAMPLED],
-                  "htc": [TRAIN_ROIS] * 3 + [MASK_SLOTS] * 6}
+                  "htc": [TRAIN_ROIS] * 3 + [MASK_SLOTS] * 6,
+                  "sparse": [100] * 6,
+                  "grid": [TRAIN_ROIS, MASK_SLOTS]}
 
 
 def polygon_gt_masks(gt, img_shape, seed, m0=56):
@@ -5740,30 +5890,6 @@ def phase_sem_kernels():
     del fwd, bwd
     torch.cuda.empty_cache()
     return out
-
-
-def profile_sem_plain(by_name):
-    """The plain versions' times at the semantic cases, by the profiler."""
-    import torch
-    from oadg_tpu_torch.ops.roi_align import (roi_align_multilevel_ref,
-                                              roi_align_multilevel_ref_backward)
-    fwd, bwd = sem_roi_cases(torch.device("cuda", 0))
-    strides = (SEM_STRIDE,)
-    for label, fs, rois in fwd:
-        t = device_time(lambda i: roi_align_multilevel_ref(fs, rois, MASK_BINS, strides, 2, 56),
-                        3, method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_fwd_sem"], label, t["device_ms"])
-        log("profiled", f"roi_align_fwd plain version ({label}): device {t['device_ms']:.4f} "
-                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
-    for label, fs, rois, dy in bwd:
-        dt, shapes = fs[0].dtype, [f.shape for f in fs]
-        t = device_time(lambda i: [g.to(dt) for g in roi_align_multilevel_ref_backward(
-            dy, shapes, rois, MASK_BINS, strides, 2, 56)], 2, method="profiler")
-        _set_row_or_case_plain_ms(by_name["roi_align_bwd_sem"], label, t["device_ms"])
-        log("profiled", f"roi_align_bwd plain version ({label}): device {t['device_ms']:.4f} "
-                        f"ms (timer profiler), host {t['host_us']:.1f} us a call")
-    del fwd, bwd
-    torch.cuda.empty_cache()
 
 
 def phase_twostage(rows):
@@ -6141,17 +6267,29 @@ def main():
         log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "twostage2"]:  # the family's last four alone: no result line
+        rows = timed("kernels", phase_kernels)
+        rows += timed("mask-kernels", phase_mask_kernels)
+        timed("sparse-kernels", phase_sparse_kernels, rows)
+        twostage2 = timed("twostage2", phase_twostage2, rows)
+        timed("profiled", profile_roi_plain, {r["name"]: r for r in rows}, "",
+              sparse_roi_cases, 7, STRIDES)
+        log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "twostage"]:   # the two-stage family alone: no result line
         rows = timed("kernels", phase_kernels)
         rows += timed("mask-kernels", phase_mask_kernels)
         rows += timed("sem-kernels", phase_sem_kernels)
         twostage = timed("twostage", phase_twostage, rows)
-        timed("profiled", profile_sem_plain, {r["name"]: r for r in rows})
+        timed("profiled", profile_roi_plain, {r["name"]: r for r in rows}, "_sem",
+              sem_roi_cases, MASK_BINS, (SEM_STRIDE,))
         log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
     rows = timed("kernels", phase_kernels) + timed("oamix-kernels", phase_oamix_kernels)
     timed("dwd-kernels", phase_dwd_kernels, rows)
+    timed("sparse-kernels", phase_sparse_kernels, rows)
     mask_rows = timed("mask-kernels", phase_mask_kernels)    # joined before phase 7g
     c4_rows = timed("c4-kernels", phase_c4_kernels)          # joined before phase 9
     sem_rows = timed("sem-kernels", phase_sem_kernels)       # joined before phase 8c
@@ -6187,6 +6325,7 @@ def main():
     longtail = timed("longtail", phase_longtail, rows)
     rows += sem_rows
     twostage = timed("twostage", phase_twostage, rows)
+    twostage2 = timed("twostage2", phase_twostage2, rows)
 
     for _, profile in trains.values():
         timed("profile-train", profile)
@@ -6212,6 +6351,7 @@ def main():
     log("dist", f"summary ({nvidia_smi_line()}): {json.dumps(dist)}")
     log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
     log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
+    log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
     for name in DTYPES:
         timed("train-reference", phase_train_reference, name)
         timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")

@@ -28,6 +28,13 @@ Counterparts:
   stored ones.
 - ``ModulatedDeformConv`` <- ``ModulatedDeformConv`` (``:390-423``), the
   DCNv2 layer of ``dcn=dict(type='DCNv2')`` backbones.
+- ``GroupNorm32`` <- ``GroupNorm32`` (``:285-293``): flax's ``GroupNorm``
+  with its epsilon 1e-6 (torch's default is 1e-5), the group count lowered
+  to the largest divisor of the channels not above the one asked for (36
+  for 576 channels); it normalizes in float32 and returns float32, as flax
+  promotes a bfloat16 input against its float32 scale and bias.
+- ``build_norm`` <- ``build_norm`` (``:298-324``): ``BN`` (the live
+  ``BatchNorm`` of a ``ConvModule``) or ``GN`` (``GroupNorm32``).
 - ``max_pool_3x3_s2`` <- ``max_pool_3x3_s2`` (``:426``).
 
 Compute dtype (flax's ``dtype=``): parameters stay float32 and only the
@@ -170,6 +177,40 @@ class BatchNorm(nn.Module):
         return x * w[:, None, None] + b[:, None, None]
 
 
+class GroupNorm32(nn.Module):
+    """flax ``GroupNorm`` over the channels of an NCHW tensor (keys
+    ``weight``, ``bias``): ``num_groups`` lowered to the largest divisor of
+    ``num_channels`` not above it, epsilon 1e-6; float32 out (float64 for
+    a float64 input)."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, device=None):
+        super().__init__()
+        ng = min(num_groups, num_channels)
+        while num_channels % ng:
+            ng -= 1
+        self.num_groups = ng
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+
+    def forward(self, x):
+        x = widen(x)
+        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            eps=1e-6)
+
+
+def build_norm(norm_cfg: dict, num_channels: int, device=None) -> nn.Module:
+    """An mmdet ``norm_cfg`` -> its module over ``num_channels``: ``BN`` the
+    live ``BatchNorm`` (its ``eps`` and torch ``momentum`` honoured), ``GN``
+    ``GroupNorm32`` of its ``num_groups`` (32 unless given)."""
+    kind = norm_cfg.get("type", "BN")
+    if kind == "BN":
+        return BatchNorm(num_channels, eps=norm_cfg.get("eps", 1e-5),
+                         momentum=norm_cfg.get("momentum", 0.1), device=device)
+    if kind == "GN":
+        return GroupNorm32(num_channels, int(norm_cfg.get("num_groups", 32)), device=device)
+    raise NotImplementedError(f"norm {kind}: the port builds BN and GN")
+
+
 class ConvModule(nn.Module):
     """mmcv ConvModule: ``self.conv``, then ``self.bn`` with a BN
     ``norm_cfg`` (its ``eps`` and torch ``momentum`` honoured; the conv then
@@ -186,9 +227,7 @@ class ConvModule(nn.Module):
             raise NotImplementedError(f"ConvModule activation {act}")
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, padding,
                          bias=norm_cfg is None, device=device, dtype=dtype)
-        self.bn = None if norm_cfg is None else BatchNorm(
-            out_channels, eps=norm_cfg.get("eps", 1e-5),
-            momentum=norm_cfg.get("momentum", 0.1), device=device)
+        self.bn = None if norm_cfg is None else build_norm(norm_cfg, out_channels, device)
         self.act = act
 
     def forward(self, x):

@@ -1,9 +1,10 @@
-"""HTC's and SCNet's RoI heads (port of
+"""HTC's, SCNet's and PointRend's RoI heads (port of
 ``oadg_tpu/models/roi_heads/htc_scnet_heads.py``): ``FusedSemanticHead``
 (``:31``), ``GlobalContextHead`` (``:66``), ``HybridTaskCascadeRoIHead``
-(``:95``), ``SCNetRoIHead`` (``:231``), their detectors (``:400, 406``), the
-aliases ``SCNetMaskHead``, ``SCNetSemanticHead`` (``:425, 431``) and
-``FeatureRelayHead`` (``:437``).
+(``:95``), ``SCNetRoIHead`` (``:231``), ``MaskPointHead`` (``:267``),
+``PointRendRoIHead`` (``:293``), their detectors (``:400, 406, 412``), the
+aliases ``CoarseMaskHead``, ``SCNetMaskHead``, ``SCNetSemanticHead``
+(``:418, 425, 431``) and ``FeatureRelayHead`` (``:437``).
 
 ``HybridTaskCascadeRoIHead`` is the cascade of ``cascade_roi_head.py`` with
 a mask head a stage (``FCNMaskHead`` whatever the config's type,
@@ -47,6 +48,27 @@ mmdet keys: ``roi_head.mask_head.{k}.*``, ``roi_head.semantic_head.*``
 the info flow's ``roi_head.info_convs.{k}``, which mmdet's HTC lacks (the JAX
 head builds ``info_conv0`` and never applies it, so it has no variables:
 the port keeps its slot with no weights).
+
+PointRend (``PointRendRoIHead``): Mask R-CNN's mask branch, its
+``loss_mask`` plus the point loss (``_point_loss``, ``:311-367``). Of
+``num_points * oversample_ratio`` uniform points in each positive's box
+(the draws ``rcnn.point.cand``), the ``num_points * importance_sample_ratio``
+where the coarse logit at the slot's class (sampled at ``p * 28 - 0.5``) is
+least certain are kept (``jax.lax.top_k``'s order), the rest drawn afresh
+(``rcnn.point.rand``). At each point the fine feature of FPN level 0 (at
+``x / stride - 0.5``) and the coarse logits of every class go through
+``MaskPointHead`` (three FCs, the coarse logits concatenated after each,
+then ``fc_logits``), held by binary cross-entropy to the 28x28 targets
+sampled there and thresholded at 0.5: the mean over the points, then over
+the valid positives. The JAX head draws its points from a fixed
+``PRNGKey(0)`` on every step; the port draws them from the step's draws, as
+mmdet does (ROADMAP C). The fine gather samples each roi's own image, zero
+outside it, as mmcv does; the JAX head folds the batch into y, so a point
+within half a pixel of an image's top or bottom edge reads a row of the
+image before or after it (ROADMAP C). The test path is Mask R-CNN's coarse
+mask, with no subdivision, as in the JAX package. mmdet keys
+``roi_head.point_head.fcs.{i}.conv`` and ``.fc_logits`` (1x1 ``Conv1d``
+weights, (out, in, 1)).
 """
 from __future__ import annotations
 
@@ -57,12 +79,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.bbox.geometry import bbox_overlaps
+from ...core.post_processing.nms import sort_desc
+from ...ops.misc_ops import bilinear_gather
 from ...parallel import shard_sum
 from ...utils.registry import DETECTORS, HEADS, ROI_EXTRACTORS, build_from_cfg
-from ..detectors.two_stage import TwoStageDetector
-from ..layers import Conv, ConvModule, Linear
+from ..detectors.two_stage import MaskRCNN, TwoStageDetector
+from ..layers import Conv, ConvModule, Linear, _reduced, lecun_normal_
 from .cascade_roi_head import CascadeRoIHead
 from .mask_heads import FCNMaskHead, mask_targets
+from .standard_roi_head import StandardRoIHead
 
 SEMANTIC_STRIDE = 8
 
@@ -310,3 +335,141 @@ class HybridTaskCascade(TwoStageDetector):
 @DETECTORS.register_module()
 class SCNet(TwoStageDetector):
     """``:406``."""
+
+
+class _PointConv(nn.Module):
+    """A 1x1 ``Conv1d`` over points, applied to (R, P, in) as a dense layer
+    in the compute dtype: ``weight`` (out, in, 1), ``bias`` (out,)."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None, dtype=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def init_weights(self, gen: torch.Generator):
+        lecun_normal_(self.weight, gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if not _reduced(dt):
+            return F.linear(x, self.weight[..., 0], self.bias)
+        return F.linear(x.to(dt), self.weight[..., 0].to(dt)) + self.bias.to(dt)
+
+
+class _PointFC(nn.Module):
+    """mmcv's ``ConvModule`` of one ``_PointConv`` (key ``conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None, dtype=None):
+        super().__init__()
+        self.conv = _PointConv(in_channels, out_channels, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+@HEADS.register_module()
+class MaskPointHead(nn.Module):
+    """``:267-290``: (R, P, C) fine features and (R, P, K) coarse logits ->
+    (R, P, K) float32 point logits (one a point when ``class_agnostic``)."""
+
+    def __init__(self, num_fcs: int = 3, in_channels: int = 256, fc_channels: int = 256,
+                 num_classes: int = 80, class_agnostic: bool = False,
+                 coarse_pred_each_layer: bool = True, device=None, dtype=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.class_agnostic = class_agnostic
+        self.coarse_pred_each_layer = coarse_pred_each_layer
+        extra = num_classes if coarse_pred_each_layer else 0
+        self.fcs = nn.ModuleList(
+            _PointFC(in_channels + num_classes if i == 0 else fc_channels + extra, fc_channels,
+                     device=device, dtype=dtype) for i in range(num_fcs))
+        width = (fc_channels + extra) if num_fcs else in_channels + num_classes
+        self.fc_logits = _PointConv(width, 1 if class_agnostic else num_classes,
+                                    device=device, dtype=dtype)
+
+    def init_weights(self, gen: torch.Generator):
+        for fc in self.fcs:
+            fc.conv.init_weights(gen)
+        self.fc_logits.init_weights(gen)
+
+    def forward(self, fine, coarse):
+        x = torch.cat([fine, coarse.to(fine.dtype)], -1)
+        for fc in self.fcs:
+            x = torch.relu(fc(x))
+            if self.coarse_pred_each_layer:
+                x = torch.cat([x, coarse.to(x.dtype)], -1)
+        return self.fc_logits(x).float()
+
+
+@HEADS.register_module()
+class PointRendRoIHead(StandardRoIHead):
+
+    def __init__(self, point_head=None, num_points: int = 196, oversample_ratio: float = 3.0,
+                 importance_sample_ratio: float = 0.75, device=None, dtype=None, **kwargs):
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        ph = {k: v for k, v in dict(point_head or {}).items() if k != "type"}
+        ph.setdefault("num_classes", dict(kwargs.get("mask_head") or {}).get("num_classes", 80))
+        self.point_head = MaskPointHead(**ph, device=device, dtype=dtype)
+        self.num_points = num_points
+        self.oversample_ratio = oversample_ratio
+        self.importance_sample_ratio = importance_sample_ratio
+
+    def init_weights(self, gen: torch.Generator):
+        super().init_weights(gen)
+        self.point_head.init_weights(gen)
+
+    def _point_loss(self, feats, rois, mask_pred, tgts, labels, pvalid, draws):
+        """The point loss of the (R, 5) positive slots' rois, their (R, K, M,
+        M) coarse logits and (R, M, M) targets (``:311-367``)."""
+        r, _, m, _ = mask_pred.shape
+        dev = mask_pred.device
+        npts = self.num_points
+        nover = int(npts * self.oversample_ratio)
+        k_imp = int(npts * self.importance_sample_ratio)
+        lab = labels.long().clamp(0, self.point_head.num_classes - 1)
+        coarse_map = mask_pred.permute(0, 2, 3, 1)                     # (R, M, M, K)
+        with torch.no_grad():
+            cand = draws("rcnn.point.cand", (r, nover, 2), dev)
+            sel = torch.gather(coarse_map, 3, lab[:, None, None, None].expand(-1, m, m, 1))
+            logit = bilinear_gather(sel, cand[..., 1] * m - 0.5, cand[..., 0] * m - 0.5)[..., 0]
+            _, ti = sort_desc(-logit.abs(), k_imp)
+            pts = torch.cat([torch.gather(cand, 1, ti[..., None].expand(-1, -1, 2)),
+                             draws("rcnn.point.rand", (r, npts - k_imp, 2), dev)], 1)
+            wh = (rois[:, 3:5] - rois[:, 1:3]).clamp(min=1.0)
+            img_pts = rois[:, None, 1:3] + pts * wh[:, None, :]
+            stride0 = float(self.bbox_roi_extractor.featmap_strides[0])
+            fx, fy = img_pts[..., 0] / stride0 - 0.5, img_pts[..., 1] / stride0 - 0.5
+            ts = tgts.shape[-1]
+            tgt = (bilinear_gather(tgts[..., None], pts[..., 1] * ts - 0.5,
+                                   pts[..., 0] * ts - 0.5)[..., 0] >= 0.5).float()
+        fine = bilinear_gather(feats[0].permute(0, 2, 3, 1), fy, fx, image=rois[:, 0].long())
+        coarse = bilinear_gather(coarse_map, pts[..., 1] * m - 0.5, pts[..., 0] * m - 0.5)
+        refined = self.point_head(fine, coarse)
+        if self.point_head.class_agnostic:
+            plog = refined[..., 0]
+        else:
+            plog = torch.gather(refined, 2, lab[:, None, None].expand(-1, npts, 1))[..., 0]
+        per = (torch.clamp(plog, min=0) - plog * tgt
+               + torch.log1p(torch.exp(-plog.abs()))).mean(-1)
+        w = pvalid.float()
+        return (per * w).sum() / shard_sum(w.sum()).clamp(min=1.0)
+
+    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks, draws=None):
+        """Mask R-CNN's ``loss_mask`` plus the point loss (``:369-393``)."""
+        _, mask_pred, tgts, p = self._mask_branch(feats, boxes, matched_gt, matched, gt_masks)
+        plabels, pvalid = labels[:, :p].reshape(-1), pos[:, :p].reshape(-1)
+        lm = self.mask_head.loss(mask_pred, tgts, plabels, pvalid)
+        return lm + self._point_loss(feats, self.proposals_to_rois(boxes[:, :p]), mask_pred,
+                                     tgts, plabels, pvalid, draws)
+
+
+@DETECTORS.register_module()
+class PointRend(MaskRCNN):
+    """``:412``: Mask R-CNN's test path (the coarse masks)."""
+
+
+@HEADS.register_module()
+class CoarseMaskHead(FCNMaskHead):
+    """``:418``: the FCN mask head."""

@@ -1,4 +1,4 @@
-"""Four ``StandardRoIHead`` variants (port of
+"""Six ``StandardRoIHead`` variants (port of
 ``oadg_tpu/models/roi_heads/more_roi_heads.py`` and
 ``standard_roi_head.py:341``) and their detectors.
 
@@ -27,20 +27,49 @@ positives' deltas at their class weighted by that class's probability
 ``DoubleHeadRoIHead`` is ``StandardRoIHead`` with the box head
 ``DoubleConvFCBBoxHead`` (``bbox_heads.py``).
 
+``GridRoIHead`` (``:179-244``) with ``GridHead`` (``:154-175``): the box
+head's losses without ``loss_bbox``, plus ``loss_grid``. The grid branch
+takes the box branch's own sample (the JAX head samples again with the same
+key, which gives the same rows; the port does not draw again): the first
+``round(num * pos_fraction)`` slots of each clean image, masked by ``is_pos
+& valid``, through RoIAlign at 14x14 (B1 and B2 on the card) on the box
+extractor's levels, into ``GridHead``: 8 x (3x3 conv, ``GroupNorm32`` of 36
+groups, ReLU), then two 2x2 stride-2 transposed convs (576 channels with a
+ReLU, then the 9 grid points) -> (R, 9, 56, 56) float32 heatmaps. Targets:
+each grid point of the matched gt (its corners and mid-points), projected
+into the sampled box, as a separable Gaussian of std ``56 / 14`` on the
+56x56 map, thresholded at 0.5 (``:216-236``); the loss is the heatmaps'
+binary cross-entropy, the mean over pixels and points, then over the valid
+positives, times 15. The test path is ``StandardRoIHead.simple_test``: the
+grid head never runs there and the boxes come from ``fc_reg``, which no
+loss trains (ROADMAP C), as in the JAX package. mmdet keys:
+``roi_head.grid_head.convs.{i}.conv`` (with a bias, which mmdet's
+``ConvModule`` lacks), ``.convs.{i}.gn``, ``.deconv1``, ``.deconv2``
+(mmdet's are 4x4 grouped deconvs with ``norm1``, ``forder_trans`` and
+``sorder_trans`` beside: such a checkpoint is refused).
+
+``TridentRoIHead`` (``:323``) is ``StandardRoIHead`` with ``num_branch``
+and ``test_branch_idx``, which it does not read; the TridentNet detector is
+refused (``models/builder.py``).
+
 mmdet keys of ``MaskIoUHead``: ``roi_head.mask_iou_head.convs.{i}``,
 ``.fcs.{i}`` (the first FC's input flattened C, H, W), ``.fc_mask_iou``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.bbox.geometry import bbox_overlaps
 from ...parallel import batch_is_sharded, shard_sum
-from ...utils.registry import DETECTORS, HEADS
+from ...utils.registry import DETECTORS, HEADS, ROI_EXTRACTORS, build_from_cfg
 from ..detectors.two_stage import TwoStageDetector
-from ..layers import Conv, Linear
+from ..layers import Conv, Linear, build_norm, normal_
+from .mask_heads import ConvTranspose
 from .standard_roi_head import StandardRoIHead
 
 
@@ -114,7 +143,8 @@ class MaskScoringRoIHead(StandardRoIHead):
             k: v for k, v in dict(mask_iou_head or {}).items() if k != "type"},
             roi_feat_size=self.mask_roi_extractor.output_size, device=device, dtype=dtype)
 
-    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks):
+    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks,
+                   draws=None):
         """``loss_mask`` plus the mask IoU loss (``:118-150``)."""
         mfeats, mask_pred, tgts, p = self._mask_branch(feats, boxes, matched_gt, matched,
                                                        gt_masks)
@@ -197,3 +227,124 @@ class DynamicRCNN(TwoStageDetector):
 @DETECTORS.register_module()
 class MaskScoringRCNN(TwoStageDetector):
     """``more_roi_heads.py:357``: serves boxes only, as the JAX detector."""
+
+
+class _ConvGN(nn.Module):
+    """A 3x3 conv (with a bias, as the JAX package's ``Conv``) and its
+    ``GroupNorm32``: keys ``conv.*`` and ``gn.*``."""
+
+    def __init__(self, in_channels, out_channels, num_groups, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv(in_channels, out_channels, 3, 1, 1, device=device, dtype=dtype)
+        self.gn = build_norm(dict(type="GN", num_groups=num_groups), out_channels, device)
+
+    def forward(self, x):
+        return torch.relu(self.gn(self.conv(x)))
+
+
+@HEADS.register_module()
+class GridHead(nn.Module):
+    """``more_roi_heads.py:154``: (R, C, r, r) RoI features -> (R, 9, 4 r,
+    4 r) float32 grid-point heatmaps. ``point_feat_channels`` is taken and
+    not read, as in the JAX head."""
+
+    def __init__(self, grid_points: int = 9, num_convs: int = 8, in_channels: int = 256,
+                 conv_out_channels: int = 576, point_feat_channels: int = 64,
+                 num_groups: int = 36, device=None, dtype=None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            _ConvGN(in_channels if i == 0 else conv_out_channels, conv_out_channels,
+                    num_groups, device=device, dtype=dtype) for i in range(num_convs))
+        self.deconv1 = ConvTranspose(conv_out_channels, conv_out_channels, 2, 2,
+                                     device=device, dtype=dtype)
+        self.deconv2 = ConvTranspose(conv_out_channels, grid_points, 2, 2, device=device,
+                                     dtype=dtype)
+
+    def init_weights(self, gen: torch.Generator):
+        """The transposed convs LeCun-normal at fan-in ``in x 2 x 2``, as
+        flax draws them (the convs come from ``init_default_``)."""
+        for m in (self.deconv1, self.deconv2):
+            normal_(m.weight, 1.0 / math.sqrt(m.in_channels * 4), gen)
+            nn.init.zeros_(m.bias)
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = conv(x)
+        return self.deconv2(torch.relu(self.deconv1(x))).float()
+
+
+def grid_targets(pboxes: torch.Tensor, gt_boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """(R, 4) sampled boxes and their (R, 4) matched gts -> (R, 9, size,
+    size) float32 targets (``:216-236``): point (gj, gi) of the gt's 3x3
+    grid, projected into the box's ``size`` x ``size`` map, as the product
+    of two Gaussians of std ``size / 14``; the loss thresholds them at 0.5."""
+    gx = torch.stack([gt_boxes[:, 0], (gt_boxes[:, 0] + gt_boxes[:, 2]) / 2, gt_boxes[:, 2]], -1)
+    gy = torch.stack([gt_boxes[:, 1], (gt_boxes[:, 1] + gt_boxes[:, 3]) / 2, gt_boxes[:, 3]], -1)
+    w = torch.clamp(pboxes[:, 2] - pboxes[:, 0], min=1.0)
+    h = torch.clamp(pboxes[:, 3] - pboxes[:, 1], min=1.0)
+    px = (gx - pboxes[:, 0:1]) / w[:, None] * size
+    py = (gy - pboxes[:, 1:2]) / h[:, None] * size
+    ys = torch.arange(size, dtype=torch.float32, device=pboxes.device)
+    sd = size / 14.0 + 1e-6
+    tgt = []
+    for gj in range(3):
+        ty = torch.exp(-0.5 * ((ys[None, :] - py[:, gj:gj + 1]) / sd) ** 2)
+        for gi in range(3):
+            tx = torch.exp(-0.5 * ((ys[None, :] - px[:, gi:gi + 1]) / sd) ** 2)
+            tgt.append(ty[:, :, None] * tx[:, None, :])
+    return torch.stack(tgt, 1)
+
+
+@HEADS.register_module()
+class GridRoIHead(StandardRoIHead):
+
+    def __init__(self, grid_roi_extractor=None, grid_head=None, device=None, dtype=None,
+                 **kwargs):
+        """``grid_roi_extractor`` is taken and not read: the grid branch
+        reads the box extractor's levels at 14x14, as the JAX head does."""
+        super().__init__(device=device, dtype=dtype, **kwargs)
+        self.grid_size = 14
+        ext = self.bbox_roi_extractor
+        self.grid_roi_extractor = build_from_cfg(
+            dict(type="SingleRoIExtractor",
+                 roi_layer=dict(output_size=self.grid_size, sampling_ratio=ext.sampling_ratio),
+                 featmap_strides=ext.featmap_strides, finest_scale=ext.finest_scale),
+            ROI_EXTRACTORS, dict(device=device))
+        self.grid_head = GridHead(**{k: v for k, v in dict(grid_head or {}).items()
+                                     if k != "type"}, device=device, dtype=dtype)
+
+    def init_weights(self, gen: torch.Generator):
+        super().init_weights(gen)
+        self.grid_head.init_weights(gen)
+
+    def _branch_losses(self, losses, feats, boxes, labels, is_pos, valid, matched_gt, matched,
+                       gt_masks, draws):
+        """``loss_grid`` on the first ``max_pos`` slots of the clean images
+        (``:198-244``); ``loss_bbox`` removed."""
+        b = boxes.shape[0] // self.num_views
+        p = max(int(round(boxes.shape[1] * self.sampler.pos_fraction)), 1)
+        pboxes = boxes[:b, :p]
+        with record_function("forward_train: grid branch"):
+            heat = self.grid_head(self.grid_roi_extractor(feats, self.proposals_to_rois(pboxes)))
+            with torch.no_grad():
+                tgt = (grid_targets(pboxes.reshape(-1, 4), matched_gt[:b, :p].reshape(-1, 4),
+                                    heat.shape[-1]) > 0.5).float()
+            per = (torch.clamp(heat, min=0) - heat * tgt
+                   + torch.log1p(torch.exp(-heat.abs()))).mean(dim=(1, 2, 3))
+            w = (is_pos & valid)[:b, :p].reshape(-1).float()
+            losses.pop("loss_bbox", None)
+            losses["loss_grid"] = (per * w).sum() / shard_sum(w.sum()).clamp(min=1.0) * 15.0
+
+
+@HEADS.register_module()
+class TridentRoIHead(StandardRoIHead):
+    """``more_roi_heads.py:323``."""
+
+    def __init__(self, num_branch: int = 3, test_branch_idx: int = 1, **kwargs):
+        super().__init__(**kwargs)
+        self.num_branch, self.test_branch_idx = num_branch, test_branch_idx
+
+
+@DETECTORS.register_module()
+class GridRCNN(TwoStageDetector):
+    """``more_roi_heads.py:362``."""

@@ -181,11 +181,19 @@ class StandardRoIHead(nn.Module):
         losses = self.bbox_head.loss(cls_score, bbox_pred, tgt_labels.reshape(-1),
                                      tgt_lw.reshape(-1), tgt_deltas.reshape(-1, 4),
                                      tgt_bw.reshape(-1, 4), rois=boxes.reshape(-1, 4))
+        self._branch_losses(losses, feats, boxes, tgt_labels, is_pos, valid, matched_gt,
+                            matched, gt_masks, draws)
+        return losses, cont, tgt_labels.reshape(-1), valid.reshape(-1), boxes.shape[:2]
+
+    def _branch_losses(self, losses, feats, boxes, labels, is_pos, valid, matched_gt, matched,
+                       gt_masks, draws):
+        """The branches beside the box head on the views-major sample (N,
+        S, ...), into ``losses``: ``loss_mask`` where the head has a mask
+        branch and ``gt_masks`` are given."""
         if self.mask_head is not None and gt_masks is not None:
             with record_function("forward_train: mask branch"):
-                losses["loss_mask"] = self._mask_loss(feats, boxes, tgt_labels, is_pos & valid,
-                                                      matched_gt, matched, gt_masks)
-        return losses, cont, tgt_labels.reshape(-1), valid.reshape(-1), boxes.shape[:2]
+                losses["loss_mask"] = self._mask_loss(feats, boxes, labels, is_pos & valid,
+                                                      matched_gt, matched, gt_masks, draws)
 
     def _mask_branch(self, feats, boxes, matched_gt, matched, gt_masks):
         """The mask head on the first ``max_pos = round(num * pos_fraction)``
@@ -211,8 +219,9 @@ class StandardRoIHead(nn.Module):
         mfeats = self.mask_roi_extractor(feats, self.proposals_to_rois(pboxes))
         return mfeats, self.mask_head(mfeats), tgts, p
 
-    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks):
-        """``loss_mask`` of ``_mask_branch``'s slots against their targets."""
+    def _mask_loss(self, feats, boxes, labels, pos, matched_gt, matched, gt_masks, draws=None):
+        """``loss_mask`` of ``_mask_branch``'s slots against their targets
+        (``draws`` is PointRend's)."""
         _, mask_pred, tgts, p = self._mask_branch(feats, boxes, matched_gt, matched, gt_masks)
         return self.mask_head.loss(mask_pred, tgts, labels[:, :p].reshape(-1),
                                    pos[:, :p].reshape(-1))

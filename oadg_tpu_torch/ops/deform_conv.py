@@ -31,14 +31,20 @@ def _pair(v) -> Tuple[int, int]:
 
 
 def _bilinear_taps(table: torch.Tensor, b: int, h: int, w: int, ys: torch.Tensor,
-                   xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                   xs: torch.Tensor, mask: torch.Tensor,
+                   image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample a (B * H * W, C) channels-last table at (B, P) float32
-    positions, each sample times its (B, P) modulation -> (B * P, C)."""
+    positions, each sample times its (B, P) modulation -> (B * P, C). Row
+    ``i`` of the positions reads image ``i`` of the table, or image
+    ``image[i]`` where ``image`` (B,) is given (then the table may hold
+    another number of images)."""
     dt = table.dtype
     y0, x0 = torch.floor(ys), torch.floor(xs)
     wy, wx = (ys - y0).to(dt), (xs - x0).to(dt)
     y0i, x0i = y0.long(), x0.long()
-    base = (torch.arange(b, device=table.device) * (h * w))[:, None]
+    if image is None:
+        image = torch.arange(b, device=table.device)
+    base = (image.long() * (h * w))[:, None]
     idx, wgt = [], []
     for dy, dx, cw in ((0, 0, (1 - wy) * (1 - wx)), (0, 1, (1 - wy) * wx),
                        (1, 0, wy * (1 - wx)), (1, 1, wy * wx)):

@@ -1,0 +1,48 @@
+"""Point sampling (port of ``oadg_tpu/ops/misc_ops.py:37``
+``point_sample`` and ``oadg_tpu/ops/deform_conv.py:30`` ``bilinear_gather``),
+on the port's ``deform_conv._bilinear_taps``. The JAX package computes these
+in XLA, not Pallas, so there is no kernel to write.
+
+Both take channels-last maps, as the JAX functions do: (B, H, W, C). A
+corner outside its image reads 0 (mmcv's zero padding), so a sample whose
+four corners are all outside gives exactly 0. The weights and the corners
+combine in the map's dtype; gradients reach the map through autograd.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .deform_conv import _bilinear_taps
+
+__all__ = ["bilinear_gather", "point_sample"]
+
+
+def bilinear_gather(feats: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    image: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample (B, H, W, C) ``feats`` at fractional pixel positions ``ys``,
+    ``xs`` (R, ...) -> (R, ..., C). Row ``r`` of the positions reads image
+    ``r`` (R = B), or image ``image[r]`` where ``image`` (R,) is given: each
+    row then samples its own image alone, zero outside it (mmcv's
+    ``point_sample`` on one image's map)."""
+    b, h, w, c = feats.shape
+    r, tail = ys.shape[0], ys.shape[1:]
+    ys, xs = ys.reshape(r, -1).float(), xs.reshape(r, -1).float()
+    table = feats.reshape(b * h * w, c)
+    out = _bilinear_taps(table, r, h, w, ys, xs, torch.ones_like(ys), image=image)
+    return out.view(r, *tail, c)
+
+
+def point_sample(feats: torch.Tensor, points: torch.Tensor,
+                 align_corners: bool = False) -> torch.Tensor:
+    """mmcv's ``point_sample`` on channels-last maps: (B, H, W, C) sampled at
+    (B, P, 2) normalized ``(x, y)`` points in [0, 1] -> (B, P, C); pixel
+    ``p * size - 0.5`` (``F.grid_sample``'s ``align_corners=False``), or
+    ``p * (size - 1)`` with ``align_corners``."""
+    _, h, w, _ = feats.shape
+    if align_corners:
+        xs, ys = points[..., 0] * (w - 1), points[..., 1] * (h - 1)
+    else:
+        xs, ys = points[..., 0] * w - 0.5, points[..., 1] * h - 0.5
+    return bilinear_gather(feats, ys, xs)

@@ -11,7 +11,10 @@ is read as the backbone's (the rest of the model keeps its values), and
 keys the model lacks are skipped; each is reported. A detector checkpoint
 that lacks one of the model's tensors, or a tensor whose shape differs
 from the model's, raises (the JAX package keeps its own values in both
-cases; ROADMAP C).
+cases; ROADMAP C); so does one that holds a tensor of a structure the JAX
+heads lack (``MMDET_ONLY``: mmdet's ``DynamicConv.fc_norm`` of Sparse R-CNN's
+stages, its ``GridHead`` fusion ``forder_trans`` / ``sorder_trans``), which
+skipping would silently change.
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
@@ -59,8 +62,27 @@ conv_embedding.conv, conv_logits}``, SCNet's ``glbctx`` (``conv{i}``,
 reordered from HWC to CHW at the last conv's width), and the Double-Head's
 ``conv_in``, ``res{i}_conv{j}`` and ``fc{i}``
 ``roi_head.bbox_head.{conv_in, conv_branch.{i}.conv{j}, fc_branch.{i}}``
-(``fc_branch.0`` reordered as ``shared_fcs.0``). A leaf with no mmdet name
-raises. The same map carries
+(``fc_branch.0`` reordered as ``shared_fcs.0``). The rest of the
+two-stage family: Sparse R-CNN's ``rpn/init_proposal_{bboxes,features}``
+become ``rpn_head.init_proposal_{bboxes,features}.weight`` and its stages
+``roi/dii{k}`` ``roi_head.bbox_head.{k}`` (``self_attn``'s ``query``,
+``key`` and ``value`` kernels (E, heads, head_dim) stacked into
+``attention.attn.in_proj_weight`` (3E, E), their biases into
+``in_proj_bias``, ``out`` into ``attention.attn.out_proj``; ``norm1``
+``attention_norm``, ``dynamic_gen`` / ``dn1`` / ``dn2`` / ``out_proj``
+``instance_interactive_conv.{dynamic_layer, norm_in, norm_out, fc_layer}``,
+``norm2`` ``instance_interactive_conv_norm``, ``ffn1`` / ``ffn2``
+``ffn.layers.0.0`` / ``ffn.layers.1``, ``norm3`` ``ffn_norm``,
+``cls_fc{i}`` / ``cls_ln{i}`` ``cls_fcs.{3i}`` / ``cls_fcs.{3i + 1}`` and
+the same for ``reg``; a LayerNorm's or GroupNorm's ``scale`` is its
+``weight``); Grid R-CNN's ``roi/grid`` (``conv{i}``, ``gn{i}``,
+``deconv1``, ``deconv2``) ``roi_head.grid_head.{convs.{i}.conv,
+convs.{i}.gn, deconv1, deconv2}`` (the deconvs flipped as ``upsample``);
+PointRend's ``roi/point`` (``fc{i}``, ``fc_logits``)
+``roi_head.point_head.{fcs.{i}.conv, fc_logits}`` as (out, in, 1)
+``Conv1d`` weights; a TridentResNet's shared ``layer4_{j}/conv2_kernel``
+``backbone.layer4.{j}.conv2.weight`` and its block's fourth BN
+(``FrozenBN_3``) ``downsample.1``. A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
@@ -86,8 +108,9 @@ def _leaves(tree, prefix=()):
 
 
 def _bn_name(scope: str) -> str:
-    """Frozen-BN module path inside a backbone block / the stem."""
-    if scope == "downsample_bn":
+    """Frozen-BN module path inside a backbone block / the stem (a trident
+    block's fourth, ``FrozenBN_3``, is its downsample's)."""
+    if scope in ("downsample_bn", "FrozenBN_3"):
         return "downsample.1"
     m = re.fullmatch(r"FrozenBN_(\d+)", scope)
     if m is None:
@@ -124,7 +147,8 @@ def _yolo_head_key(rest: Tuple[str, ...]) -> str:
 
 
 def _leaf(rest: Tuple[str, ...]) -> str:
-    return "weight" if rest[-1] == "kernel" else "bias"
+    """A dense or conv leaf, or a LayerNorm's or GroupNorm's -> torch's."""
+    return "weight" if rest[-1] in ("kernel", "scale") else "bias"
 
 
 def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
@@ -134,6 +158,8 @@ def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
     scope = rest[0]
     if scope == "downsample_conv":
         return f"{pre}.downsample.0.weight"
+    if scope == "conv2_kernel":                  # the trident block's shared 3x3
+        return f"{pre}.conv2.weight"
     if scope == "conv2" and rest[1] == "conv_offset":
         return f"{pre}.conv2.conv_offset.{_leaf(rest)}"
     if scope.startswith("conv"):
@@ -179,6 +205,8 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
         if kind == "extra_conv":
             idx = fpn_levels + int(idx)
         return f"neck.{group}.{idx}.conv.{_leaf(rest)}"
+    if head == "rpn" and rest[0] in ("init_proposal_bboxes", "init_proposal_features"):
+        return f"rpn_head.{rest[0]}.weight"
     if head == "rpn":
         leaf = "weight" if rest[-1] == "kernel" else "bias"
         return f"rpn_head.{rest[0]}.{leaf}"
@@ -212,9 +240,54 @@ def _box_head_key(pre: str, rest: Tuple[str, ...]) -> str:
     raise KeyError("/".join(rest))
 
 
+_DII = {"norm1": "attention_norm", "dynamic_gen": "instance_interactive_conv.dynamic_layer",
+        "dn1": "instance_interactive_conv.norm_in", "dn2": "instance_interactive_conv.norm_out",
+        "out_proj": "instance_interactive_conv.fc_layer",
+        "norm2": "instance_interactive_conv_norm", "ffn1": "ffn.layers.0.0",
+        "ffn2": "ffn.layers.1", "norm3": "ffn_norm", "fc_cls": "fc_cls", "fc_reg": "fc_reg"}
+_QKV = ("query", "key", "value")
+
+
+def _dii_key(pre: str, rest: Tuple[str, ...]) -> str:
+    """A leaf of a JAX ``DIIHead`` -> its key under ``pre``; the attention's
+    query, key and value leaves get ``#0``..``#2``, the parts of mmdet's
+    stacked ``in_proj_weight`` / ``in_proj_bias``."""
+    scope = rest[0]
+    if scope == "self_attn":
+        if rest[1] in _QKV:
+            part = "in_proj_weight" if rest[-1] == "kernel" else "in_proj_bias"
+            return f"{pre}.attention.attn.{part}#{_QKV.index(rest[1])}"
+        if rest[1] == "out":
+            return f"{pre}.attention.attn.out_proj.{_leaf(rest)}"
+    m = re.fullmatch(r"(cls|reg)_(fc|ln)(\d+)", scope)
+    if m:
+        idx = 3 * int(m.group(3)) + (m.group(2) == "ln")
+        return f"{pre}.{m.group(1)}_fcs.{idx}.{_leaf(rest)}"
+    if scope in _DII:
+        return f"{pre}.{_DII[scope]}.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
 def _roi_key(rest: Tuple[str, ...]) -> str:
     """A leaf under the JAX RoI head ``roi`` -> its key under ``roi_head``."""
     scope = rest[0]
+    m = re.fullmatch(r"dii(\d+)", scope)
+    if m:                                        # Sparse R-CNN's stages
+        return _dii_key(f"roi_head.bbox_head.{m.group(1)}", rest[1:])
+    if scope == "grid":
+        m = re.fullmatch(r"(conv|gn)(\d+)", rest[1])
+        if m and m.group(1) == "conv":
+            return f"roi_head.grid_head.convs.{m.group(2)}.conv.{_leaf(rest)}"
+        if m:
+            return f"roi_head.grid_head.convs.{m.group(2)}.gn.{_leaf(rest)}"
+        if rest[1] in ("deconv1", "deconv2"):
+            return f"roi_head.grid_head.{rest[1]}.{_leaf(rest)}"
+    if scope == "point":
+        m = re.fullmatch(r"fc(\d+)", rest[1])
+        if m:
+            return f"roi_head.point_head.fcs.{m.group(1)}.conv.{_leaf(rest)}"
+        if rest[1] == "fc_logits":
+            return f"roi_head.point_head.fc_logits.{_leaf(rest)}"
     if scope == "shared_head_m":
         layer, block = re.fullmatch(r"layer(\d+)_(\d+)", rest[1]).groups()
         return _block_key(f"roi_head.shared_head.layer{layer}.{block}", rest[2:])
@@ -282,6 +355,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     convs = sorted((k for k in maskiou if re.fullmatch(r"conv\d+", k)), key=lambda k: int(k[4:]))
     maskiou_ch = (np.asarray(maskiou[convs[-1]]["Conv_0"]["kernel"]).shape[-1]
                   if convs else None)
+    parts: Dict[str, Dict[int, np.ndarray]] = {}
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
             try:
@@ -289,8 +363,19 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
-            if path[-1] == "kernel":
-                if re.fullmatch(r"roi_head\.mask_head\.(\d+\.)?upsample\.weight", key):
+            if "#" in key:                              # a part of in_proj_*
+                parts.setdefault(key.split("#")[0], {})[int(key.split("#")[1])] = (
+                    v.reshape(v.shape[0], -1).T if path[-1] == "kernel" else v.reshape(-1))
+                continue
+            if key.endswith("attention.attn.out_proj.weight"):      # (heads, dim, E)
+                v = v.reshape(-1, v.shape[-1]).T
+            elif path[-1] == "conv2_kernel":              # HWIO -> OIHW
+                v = v.transpose(3, 2, 0, 1)
+            elif path[-1] == "kernel" and ".point_head." in key:   # (in, out) -> (out, in, 1)
+                v = v.T[..., None]
+            elif path[-1] == "kernel":
+                if re.fullmatch(r"roi_head\.(mask_head\.(\d+\.)?upsample|grid_head\.deconv\d)"
+                                r"\.weight", key):
                     # flipped, (in, out, kh, kw)
                     v = np.ascontiguousarray(v[::-1, ::-1].transpose(2, 3, 0, 1))
                 elif v.ndim == 4:                        # HWIO -> OIHW
@@ -305,6 +390,9 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                         side = int(round(np.sqrt(v.shape[1] // maskiou_ch)))
                         v = _hwc_to_chw(v, side, maskiou_ch)
             sd[key] = torch.tensor(np.asarray(v, dtype=np.float32))
+    for key, got in parts.items():
+        sd[key] = torch.tensor(np.concatenate([np.asarray(got[i], np.float32)
+                                               for i in range(len(_QKV))]))
     return sd
 
 
@@ -316,6 +404,16 @@ def _hwc_to_chw(w: np.ndarray, side: int, channels: int) -> np.ndarray:
 
 
 _SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.")
+
+# mmdet tensors of structures that the JAX heads (and so the port's) lack:
+# skipping them would load a checkpoint into another function.
+MMDET_ONLY = {
+    r"roi_head\.bbox_head\.\d+\.instance_interactive_conv\.fc_norm\.":
+        "Sparse R-CNN's DynamicConv.fc_norm (the JAX DIIHead has no LayerNorm and ReLU "
+        "after fc_layer)",
+    r"roi_head\.grid_head\.(forder_trans|sorder_trans)\.":
+        "Grid R-CNN's feature fusion (the JAX GridHead has none)",
+}
 
 
 def mmdet_state_dict(ckpt) -> Tuple[Dict[str, torch.Tensor], bool]:
@@ -339,13 +437,18 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
     keys}``: ``skipped`` holds ``num_batches_tracked``, ``ema_*`` and keys
     the model lacks, ``missing`` the model's keys that a classification
     checkpoint lacks (they keep their values). A detector checkpoint with
-    a key ``missing`` raises ``KeyError``, a shape mismatch ``ValueError``;
-    either before the model is touched."""
+    a key ``missing`` or a key of ``MMDET_ONLY`` raises ``KeyError``, a shape
+    mismatch ``ValueError``; each before the model is touched."""
     if isinstance(checkpoint, (str, os.PathLike)):
         checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
     own = model.state_dict()
     take, skipped = {}, []
     sd, backbone_only = mmdet_state_dict(checkpoint)
+    for pattern, what in MMDET_ONLY.items():
+        extra = sorted(k for k in sd if re.match(pattern, k))
+        if extra:
+            raise KeyError(f"the checkpoint holds {what}: {', '.join(extra[:4])}"
+                           f"{', ...' if len(extra) > 4 else ''}; the port's head lacks it")
     for k, v in sd.items():
         if k.endswith("num_batches_tracked"):
             skipped.append(f"{k} (num_batches_tracked)")

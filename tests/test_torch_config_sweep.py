@@ -1,9 +1,10 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 33 configs the port has ported build, the
-other 47 raise the port's refusal (a type the port has not ported,
-"the port builds only the ported slices' types"), never another error.
+them with the JAX package: the 37 configs the port has ported build, the
+other 43 raise the port's refusal (a type the port has not ported,
+"the port builds only the ported slices' types"), never another error;
+TridentNet's refusal names the JAX detector's fault.
 
 Also the two reference-side faults the port does not copy (ROADMAP C): the
 JAX package's ``RPN`` detector raises ``AttributeError`` (it is a bare
@@ -66,10 +67,14 @@ PORTED = {
     "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
     "htc/htc_r50_fpn_1x_coco.py",
     "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+    "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
     "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py",
     "pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py",
+    "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py",
+    "queryinst/queryinst_r50_fpn_1x_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
     "scnet/scnet_r50_fpn_1x_coco.py",
+    "sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py",
     "yolo/yolov3_d53_320_273e_coco.py",
     "yolo/yolov3_d53_mstrain-416_273e_coco.py",
     "yolo/yolov3_d53_mstrain-608_273e_coco.py",
@@ -101,10 +106,11 @@ def _build(rel):
 
 
 def test_the_sweep_counts_26_of_80():
-    """33 of the 80 since the two-stage family's seven (the name kept from
-    the long tail's first slice, which ported 26)."""
+    """37 of the 80 since the two-stage family's last four (the name kept
+    from the long tail's first slice, which ported 26); 43 refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 33
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 37
+    assert len(set(ALL_CONFIGS) - PORTED) == 43
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -177,6 +183,43 @@ def test_twostage_configs_build_their_heads(rel):
         assert rh.bbox_head.fc_reg.weight.shape == (320, 1024)
     if rel.startswith("ms_rcnn"):
         assert rh.mask_iou_head.fcs[0].weight.shape == (1024, 256 * 4 * 4)
+
+
+LAST_TWOSTAGE = {"sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py": ("SparseRCNN", "SparseRoIHead"),
+                 "queryinst/queryinst_r50_fpn_1x_coco.py": ("QueryInst", "SparseRoIHead"),
+                 "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py": ("GridRCNN", "GridRoIHead"),
+                 "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py":
+                     ("PointRend", "PointRendRoIHead")}
+
+
+@pytest.mark.parametrize("rel", sorted(LAST_TWOSTAGE))
+def test_last_twostage_configs_build_their_heads(rel):
+    """The two-stage family's last four configs at full width: Sparse R-CNN's
+    and QueryInst's 100 learned proposals and six DII stages, Grid R-CNN's
+    head of 8 GN(36) convs of 576 channels, PointRend's point head (its
+    mask RoIs at the box layer's 7x7: the config gives no mask RoI layer)."""
+    det = _build(rel)
+    assert (type(det).__name__, type(det.roi_head).__name__) == LAST_TWOSTAGE[rel]
+    rh = det.roi_head
+    if rh.__class__.__name__ == "SparseRoIHead":
+        assert det.rpn_head.init_proposal_features.weight.shape == (100, 256)
+        assert len(rh.bbox_head) == 6 and rh.bbox_roi_extractor.output_size == 7
+        assert rh.bbox_head[5].attention.attn.in_proj_weight.shape == (768, 256)
+        assert rh.bbox_head[0].instance_interactive_conv.fc_layer.weight.shape == (256, 49 * 256)
+        assert rh.bbox_head[0].fc_cls.weight.shape == (80, 256)
+    elif rel.startswith("grid"):
+        assert len(rh.grid_head.convs) == 8 and rh.grid_head.convs[7].gn.num_groups == 36
+        assert rh.grid_head.deconv2.weight.shape == (576, 9, 2, 2)
+        assert rh.grid_roi_extractor.output_size == 14
+    else:
+        assert rh.mask_roi_extractor.output_size == 7
+        assert rh.point_head.fcs[0].conv.weight.shape == (256, 256 + 80, 1)
+
+
+def test_trident_refusal_names_the_jax_fault():
+    with pytest.raises(ValueError, match=f"{REFUSAL}.*never tiles the gts.*test branch.*"
+                                         "stride 32"):
+        _build("tridentnet/tridentnet_r50_caffe_1x_coco.py")
 
 
 # ------------------------------------------------ reference-side faults ----

@@ -1810,7 +1810,8 @@ def _tiny_twostage(rel, mask_roi=False):
         rh["mask_roi_extractor"] = dict(type="SingleRoIExtractor",
                                         roi_layer=dict(type="RoIAlign", output_size=14),
                                         out_channels=16, featmap_strides=[4, 8, 16, 32])
-    for tc in m["train_cfg"]["rcnn"]:
+    rcnn = m["train_cfg"]["rcnn"]
+    for tc in rcnn if isinstance(rcnn, list) else [rcnn]:
         tc["sampler"]["num"] = 32
     m["test_cfg"]["rpn"].update(nms_pre=60, max_per_img=30)
     m["test_cfg"]["rcnn"]["max_per_img"] = 20
@@ -1912,3 +1913,192 @@ def test_htc_step_on_the_card_matches_the_cpu():
     for k, c in cg.items():
         torch.testing.assert_close(gg[k], c, rtol=0, atol=1e-4 * float(c.abs().max()) + 1e-12,
                                    msg=k)
+
+
+SPARSE_MAPS = [(1024 >> (2 + i), 2048 >> (2 + i)) for i in range(4)]   # one 1024x2048 image
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernels_at_the_sparse_shape(dtype):
+    """B1 and B2 at Sparse R-CNN's stage: 7x7 bins on one 1024x2048 image's
+    four FPN maps (256x512 .. 32x64, 256 channels), R = 100 learned
+    proposals (from the whole image down to small boxes), against their
+    plain versions; each counts the launch under (7, 4)."""
+    dev = _cuda()
+    rng = np.random.RandomState(29)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    feats = [torch.randn(1, 256, h, w, device=dev, generator=gen).to(dtype)
+             .contiguous(memory_format=torch.channels_last) for h, w in SPARSE_MAPS]
+    r = 100
+    bw = np.exp(rng.uniform(np.log(24), np.log(2048), r))
+    bh = np.exp(rng.uniform(np.log(24), np.log(1024), r))
+    x1, y1 = rng.uniform(0, 2048 - bw), rng.uniform(0, 1024 - bh)
+    rois = torch.from_numpy(np.stack([np.zeros(r), x1, y1, x1 + bw, y1 + bh],
+                                     1).astype(np.float32)).to(dev)
+    before = (ROI_ALIGN_FWD.launches_by_shape.get((7, 4), 0),
+              ROI_ALIGN_BWD.launches_by_shape.get((7, 4), 0))
+    got = ROI_ALIGN_FWD(feats, rois, 7, STRIDES, 2, 56)
+    want = roi_align_multilevel_ref(feats, rois, 7, STRIDES, 2, 56)
+    fmax = max(float(f.float().abs().max()) for f in feats)
+    torch.testing.assert_close(got, want, rtol=0, atol=(1e-5 if dtype == torch.float32
+                                                        else 1e-4) * fmax)
+    dy = torch.randn(r, 256, 7, 7, device=dev, generator=gen)
+    grads = ROI_ALIGN_BWD(feats, rois, dy, 7, STRIDES, 2, 56)
+    wants = roi_align_multilevel_ref_backward(dy, [f.shape for f in feats], rois, 7, STRIDES,
+                                              2, 56)
+    for g, w in zip(grads, wants):
+        scale = float(w.abs().max()) or 1.0
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2 ** -8, atol=1e-4 * scale)
+    assert (ROI_ALIGN_FWD.launches_by_shape[(7, 4)] - before[0],
+            ROI_ALIGN_BWD.launches_by_shape[(7, 4)] - before[1]) == (1, 1)
+
+
+def _tiny_sparse():
+    import os
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                                   "configs/sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py"))
+    m = cfg["model"]
+    m["backbone"].update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
+    m["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
+    m["rpn_head"].update(num_proposals=20, proposal_feature_channel=16)
+    m["roi_head"].update(num_stages=2, stage_loss_weights=[1.0, 1.0], proposal_feature_channel=16)
+    m["roi_head"]["bbox_head"].update(num_classes=8, feat_channels=16, dim_feedforward=32,
+                                      num_heads=4, dynamic_dim=8)
+    m["test_cfg"] = dict(max_per_img=10)
+    return cfg
+
+
+def _step_card_vs_cpu(make, run, want_launches, draws_from_cpu=True):
+    """``run(model, device, draws)`` -> losses of a model from ``make(device)``
+    on the CPU and on the card with the same seeded weights and draws: the
+    losses (rtol 1e-4) and every parameter's gradient (within 1e-4 of its
+    largest magnitude) equal; B1's and B2's launches by (bins, levels) on
+    the card as ``want_launches``."""
+    from oadg_tpu_torch.models.layers import init_default_
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    seeded, outs = None, {}
+    for where in ("cpu", dev):
+        model = make(where)
+        if seeded is None:
+            init_default_(model, torch.Generator().manual_seed(0))
+            model.init_weights(torch.Generator().manual_seed(1))
+            seeded = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict({k: v.to(where) for k, v in seeded.items()})
+        draws = (UniformDraws(torch.Generator().manual_seed(7)) if where == "cpu"
+                 else UniformDraws(given=outs["cpu"][2]))
+        before = {k: dict(v.launches_by_shape) for k, v in
+                  (("fwd", ROI_ALIGN_FWD), ("bwd", ROI_ALIGN_BWD))}
+        losses = run(model, where, draws)
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            for k, w in (("fwd", ROI_ALIGN_FWD), ("bwd", ROI_ALIGN_BWD)):
+                got = {s: n - before[k].get(s, 0) for s, n in w.launches_by_shape.items()
+                       if n != before[k].get(s, 0)}
+                assert got == want_launches, (k, got)
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        outs[str(where)] = ({k: v.item() for k, v in losses.items()}, grads,
+                            {k: v.cpu() for k, v in draws.drawn.items()})
+    (cl, cg, _), (gl, gg, _) = outs["cpu"], outs[str(dev)]
+    assert cl.keys() == gl.keys() and all(math.isfinite(v) for v in gl.values())
+    for k in cl:
+        assert gl[k] == pytest.approx(cl[k], rel=1e-4, abs=1e-6), k
+    assert cg.keys() == gg.keys() and len(cg) > 10
+    for k, c in cg.items():
+        torch.testing.assert_close(gg[k], c, rtol=0, atol=1e-4 * float(c.abs().max()) + 1e-12,
+                                   msg=k)
+
+
+def _seeded_batch(n=2):
+    gen = torch.Generator().manual_seed(8)
+    gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 90., 60.], [50., 30., 80., 62.]],
+                       [[8., 4., 30., 40.], [20., 20., 70., 60.], [0., 0., 0., 0.]]])[:n]
+    return {"img": torch.randn(n, 3, 64, 96, generator=gen),
+            "img_shape": torch.tensor([[64., 96.], [60., 90.]])[:n],
+            "scale_factor": torch.ones(n, 4), "gt_bboxes": gt,
+            "gt_valid": torch.tensor([[True, True, True], [True, True, False]])[:n],
+            "gt_labels": torch.tensor([[1, 2, 3], [4, 5, 0]])[:n],
+            "gt_masks": (torch.rand(n, 3, 28, 28, generator=gen) > 0.4).float()}
+
+
+@pytest.mark.cuda
+def test_sparse_rcnn_step_on_the_card_matches_the_cpu():
+    """The tiny Sparse R-CNN's ``forward_train`` (2 stages, P = 20, the
+    matcher on the host) on the card against the CPU: B1 and B2 once a
+    stage at 7x7 on the pyramid."""
+    from oadg_tpu_torch.models import build_detector
+    cfg = _tiny_sparse()
+    batch = _seeded_batch()
+
+    def run(model, where, draws):
+        return model.forward_train({k: v.to(where) for k, v in batch.items()}, draws)
+
+    _step_card_vs_cpu(lambda where: build_detector(cfg["model"], device=where), run,
+                      {(7, 4): 2})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rel", ["configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
+                                 "configs/point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py"])
+def test_grid_and_point_rend_steps_on_the_card_match_the_cpu(rel):
+    """The tiny Grid R-CNN and PointRend RoI heads' losses on the card
+    against the CPU, on the same seeded maps, proposals, gts, masks and
+    draws (the points' too): B1 and B2 once at 7x7 and once at 14x14 on the
+    pyramid (the grid branch's, the mask branch's)."""
+    from oadg_tpu_torch.utils.registry import HEADS, build_from_cfg
+    m = _tiny_twostage(rel, mask_roi="point_rend" in rel)["model"]
+    rh = m["roi_head"]
+    if "grid" in rel:
+        rh["grid_head"].update(in_channels=16, conv_out_channels=48, num_convs=2)
+    else:
+        rh["point_head"].update(in_channels=16, fc_channels=16, num_classes=8)
+    batch = _seeded_batch()
+    gen = torch.Generator().manual_seed(6)
+    feats = [torch.randn(2, 16, 16 >> i, 24 >> i, generator=gen) for i in range(5)]
+    gt = batch["gt_bboxes"]
+    props = torch.cat([gt.repeat(1, 8, 1) + torch.randn(2, 24, 4, generator=gen) * 3,
+                       torch.rand(2, 16, 2, generator=gen).mul(48).repeat(1, 1, 2)
+                       + torch.tensor([0., 0., 20., 16.])], 1).clamp(0, 96)
+
+    def make(where):
+        return build_from_cfg(dict(rh, train_cfg=m["train_cfg"]["rcnn"],
+                                   test_cfg=m["test_cfg"]["rcnn"]), HEADS, dict(device=where))
+
+    def run(head, where, draws):
+        fs = [f.to(where).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+              for f in feats]
+        return head.loss(fs, props.to(where), torch.ones(2, 40, dtype=torch.bool, device=where),
+                         gt.to(where), batch["gt_valid"].to(where), batch["gt_labels"].to(where),
+                         draws, gt_masks=batch["gt_masks"].to(where) if "point" in rel else None)
+
+    _step_card_vs_cpu(make, run, {(7, 4): 1, (14, 4): 1})
+
+
+@pytest.mark.cuda
+def test_trident_resnet_on_the_card_matches_the_cpu():
+    """``TridentResNet`` at its published widths (depth 18's blocks) on a
+    256x384 image, both modes, the card against the CPU within 1e-4 of the
+    largest magnitude: (3, 2048, 8, 12) in train mode, the middle branch in
+    test mode."""
+    from oadg_tpu_torch.models.backbones import TridentResNet
+    from oadg_tpu_torch.models.layers import init_default_
+    dev = _cuda()
+    net = TridentResNet(depth=18)
+    init_default_(net, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 256, 384, generator=torch.Generator().manual_seed(1))
+    for mode in ("train", "test"):
+        net.mode = mode
+        with torch.no_grad():
+            (want,) = net(x)
+            (got,) = net.to(dev)(x.to(dev))
+        net.cpu()
+        assert got.shape == want.shape == ((3 if mode == "train" else 1), 2048, 8, 12)
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
