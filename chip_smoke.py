@@ -338,6 +338,18 @@ non-zero exit code:
    R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
    branch's 14x14 (a request's masks too); one more Sparse and Grid step a
    dtype with every B1 and B2 call held to the plain versions in place.
+8e. onestage: the one-stage family's first seven configs (``ONESTAGE``:
+   FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign), each at its config's full
+   width with seeded weights, 80 classes as published, on the Cityscapes
+   base's 1024x2048 canvas; the classifier bias moved to the 0.01 prior
+   plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
+   0, where every one of the 5 x 1000 x 80 candidates would pass
+   ``score_thr``); per dtype ``longtail_serve`` (a request, its
+   ``multiclass_nms`` recorded, the f32 model against the CPU on a 256x384
+   request) and ``longtail_train`` (two steps on one image with seeded
+   gts from mmdet's classifier prior, every loss finite float32), each
+   with B1's and B2's counts set to 0
+   just before it and read just after: none of these paths launches them.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
@@ -400,7 +412,9 @@ and prints the kernels' JSON line and no result line;
 ``python3 chip_smoke.py --only twostage`` runs phases 1, 2, 3, 3c, 3e, 8c
 and the semantic rows' plain times, the same way;
 ``python3 chip_smoke.py --only twostage2`` runs phases 1, 2, 3, 3c, 3f, 8d
-and the Sparse cases' plain times, the same way.
+and the Sparse cases' plain times, the same way;
+``python3 chip_smoke.py --only onestage`` runs phases 1, 2, 3 and 8e the
+same way.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -2322,8 +2336,10 @@ def fixed_view_batch(rng, h, w, cfg, device, views=2):
 
 def build_trainer(device, cfg, preprocess=None, dtype=None):
     """The config's detector (the flagship: built for OA-DG training) with seeded random weights,
-    SGD with the config's ``grad_clip`` and its LR schedule, through the
-    port's entry points, in the compute ``dtype`` (None: float32)."""
+    SGD with the config's ``grad_clip`` and its LR schedule (a constant LR
+    where it names none, as ATSS's and GFL's configs do: the runners of both
+    packages read a missing ``lr_config`` so), through the port's entry
+    points, in the compute ``dtype`` (None: float32)."""
     from oadg_tpu_torch.apis import init_detector
     from oadg_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                        make_train_step)
@@ -2333,7 +2349,7 @@ def build_trainer(device, cfg, preprocess=None, dtype=None):
     grad_clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
     step = make_train_step(
         handle.model, build_optimizer(handle.model, cfg["optimizer"], grad_clip=grad_clip),
-        build_lr_schedule(cfg["lr_config"], cfg["optimizer"]["lr"], steps_per_epoch),
+        build_lr_schedule(cfg.get("lr_config"), cfg["optimizer"]["lr"], steps_per_epoch),
         preprocess=preprocess)
     return handle.model, step
 
@@ -5199,11 +5215,38 @@ def longtail_cfg(path):
     return cfg
 
 
+ONESTAGE_CLASSIFIERS = ("retina_cls", "conv_cls", "atss_cls", "gfl_cls", "vfnet_cls", "tood_cls")
+PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
+
+
+def classifier_prior(model):
+    """mmdet's start for a one-stage classifier: the bias at the 0.01 prior
+    (and TOOD's probability map's), where the JAX heads start at 0 (ROADMAP
+    C: a seeded JAX-init TOOD or VFNet step sums every negative's loss over
+    ~one positive and two SGD steps overflow). RetinaNet's and PAA's
+    ``retina_cls`` start there already. -> the classifier's bias."""
+    import torch
+    head = model.bbox_head
+    name = next(n for n in ONESTAGE_CLASSIFIERS if hasattr(head, n))
+    b = getattr(head, name).bias
+    with torch.no_grad():
+        if name != "retina_cls":
+            b.fill_(PRIOR_BIAS)
+        if hasattr(head, "cls_prob_module"):
+            head.cls_prob_module[2].bias.fill_(PRIOR_BIAS)
+    return b
+
+
 def widen_classifier(model, seed=50):
     """Seeded wider class logits, so that a random detector's scores pass
     ``score_thr`` (81-way softmax or sigmoid at the 0.01 prior would not):
-    ``fc_cls`` weights N(0, 0.1) (each stage's of a cascade); RetinaNet's ``retina_cls`` bias moved by
-    N(0, 1.5) per output channel."""
+    ``fc_cls`` weights N(0, 0.1) (each stage's of a cascade); a dense head's
+    classifier bias moved by N(0, 1.5) per output channel from the 0.01
+    prior (``classifier_prior``), and PAA's IoU branch's bias set to a 0.03
+    prior (its score is the root of the class sigmoid times the IoU
+    sigmoid: at 0 most of its 400,000 candidates would pass ``score_thr``,
+    at 0.01 none; at 0.03 the classes drawn 1.4 sigma above the prior, 4
+    of 80 with this seed)."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -5213,8 +5256,10 @@ def widen_classifier(model, seed=50):
                 w = head.fc_cls.weight
                 w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
         else:
-            b = model.bbox_head.retina_cls.bias
+            b = classifier_prior(model)
             b.add_((torch.randn(b.shape, generator=gen) * 1.5).to(b.device))
+            if hasattr(model.bbox_head, "retina_iou"):
+                model.bbox_head.retina_iou.bias.fill_(-math.log(0.97 / 0.03))
 
 
 def c4_roi_cases(dev):
@@ -5372,7 +5417,8 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
     widen_classifier(handle.model)
     img = np.random.RandomState(51).randint(0, 256, (*hw, 3), dtype=np.uint8)
-    rec = _NmsRecorder(retina_head) if family == "retinanet" else None
+    # every dense head's NMS goes through retina_head.nms_detections
+    rec = _NmsRecorder(retina_head) if family == "retinanet" or family in ONESTAGE_NAMES else None
     try:
         handle.test(prepare_image(img, handle.cfg, handle.device))          # warm-up
     finally:
@@ -5442,7 +5488,8 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     return out
 
 
-def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False):
+def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False,
+                   prepare=None):
     """Two training steps (``make_train_step``, SGD at the config's LR, no
     OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
     pipeline with seeded gts: losses finite float32, B1 and B2 once a step
@@ -5450,13 +5497,16 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
     versions in place); the GIoU step's decoded boxes kept for
     ``check_iou_family``. Phase ``twostage`` gives the config (``cfg``) and
     ``masks`` (box-cropped gt masks from polygons, ``polygon_gt_masks``;
-    every ``loss_mask`` then > 0). The two steps must launch B1 and B2 as
+    every ``loss_mask`` then > 0); phase ``onestage`` ``prepare``, applied
+    to the model before the steps (``classifier_prior``). The two steps must launch B1 and B2 as
     ``path_launches(family, True)`` says; C4 and HTC run a third step with
     every call held to the plain versions in place (``IN_PLACE_CALLS``)."""
     import torch
     cfg = longtail_cfg(path) if cfg is None else cfg
     n = cfg.data.samples_per_gpu
     model, step = build_trainer("cuda", cfg, dtype=torch_dtype(name))
+    if prepare is not None:
+        prepare(model)
     batch = longtail_batch(cfg, hw, n, 52)
     if masks:
         batch["gt_masks"] = polygon_gt_masks(batch["gt_bboxes"], batch["img_shape"], 53)
@@ -5789,12 +5839,13 @@ def path_launches(family, train):
     """B1's and B2's launches by (bins, levels) that one request (``train``
     False) or two steps (of ``samples_per_gpu`` images) of a long-tail or
     two-stage family make: 7x7 on the pyramid once a box stage (three in a
-    cascade, six in Sparse R-CNN; none in RetinaNet; C4's 14x14 on one level
+    cascade, six in Sparse R-CNN; none in RetinaNet and the one-stage
+    family; C4's 14x14 on one level
     instead); with masks 14x14 on the pyramid once a mask stage (PointRend's
     request too: Mask R-CNN's test path), Grid R-CNN's grid branch the same
     in training, and for HTC and SCNet 14x14 on the semantic embedding's one
     level once a mask stage; B2 as B1 in training, never in a request."""
-    if family == "retinanet":
+    if family == "retinanet" or family in ONESTAGE_NAMES:
         per = {}
     elif family == "c4":
         per = {(MASK_BINS, 1): 1}
@@ -6235,6 +6286,50 @@ def phase_dist(rows, val, train):
     return out, profile
 
 
+# ------------------------------------------------------------- onestage ----
+# The one-stage family's first seven configs on the Cityscapes dataset base
+# (1024x2048, one image a step, 80 classes as published).
+ONESTAGE = (
+    ("fcos", "configs/fcos/fcos_r50_fpn_1x_coco.py"),
+    ("atss", "configs/atss/atss_r50_fpn_1x_coco.py"),
+    ("gfl", "configs/gfl/gfl_r50_fpn_1x_coco.py"),
+    ("vfnet", "configs/vfnet/vfnet_r50_fpn_1x_coco.py"),
+    ("tood", "configs/tood/tood_r50_fpn_1x_coco.py"),
+    ("paa", "configs/paa/paa_r50_fpn_1x_coco.py"),
+    ("autoassign", "configs/autoassign/autoassign_r50_fpn_8x2_1x_coco.py"),
+)
+ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
+
+
+def phase_onestage(rows):
+    """onestage: each config of ``ONESTAGE`` per dtype at its full width with
+    seeded weights (the classifier drawn wider): a request of a 1024x2048
+    image (its ``multiclass_nms`` recorded; the f32 model against the CPU
+    on a 256x384 request) and two training steps on one image with seeded
+    gts from mmdet's classifier prior (``classifier_prior``), every loss
+    finite float32, each with B1's and B2's counts set to 0
+    just before it and read just after (none launched). -> numbers."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, path in ONESTAGE:
+        for name in DTYPES:
+            res = out[f"{family}_{name}"] = dict(
+                serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, phase="onestage"),
+                train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, phase="onestage",
+                                     prepare=classifier_prior))
+            log("onestage", f"{family} {name}: request {res['serve']['request_ms']:.3f} ms "
+                            f"(peak {res['serve']['peak_gib']:.2f} GiB, NMS "
+                            f"{res['serve']['nms']['above']} of {res['serve']['nms']['candidates']}"
+                            f" candidates above score_thr, {res['serve']['nms']['ms']:.3f} ms), "
+                            f"steps {[round(t, 3) for t in res['train']['step_ms']]} ms (peak "
+                            f"{res['train']['peak_gib']:.2f} GiB), B1 and B2 launches 0 "
+                            f"({nvidia_smi_line()})")
+            torch.cuda.empty_cache()
+    log("onestage", f"phase onestage: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 PHASE_SECONDS = {}
 
 
@@ -6275,6 +6370,12 @@ def main():
         timed("profiled", profile_roi_plain, {r["name"]: r for r in rows}, "",
               sparse_roi_cases, 7, STRIDES)
         log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "onestage"]:   # the one-stage family alone: no result line
+        rows = timed("kernels", phase_kernels)
+        onestage = timed("onestage", phase_onestage, rows)
+        log("onestage", f"summary ({nvidia_smi_line()}): {json.dumps(onestage)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if sys.argv[1:] == ["--only", "twostage"]:   # the two-stage family alone: no result line
@@ -6326,6 +6427,7 @@ def main():
     rows += sem_rows
     twostage = timed("twostage", phase_twostage, rows)
     twostage2 = timed("twostage2", phase_twostage2, rows)
+    onestage = timed("onestage", phase_onestage, rows)
 
     for _, profile in trains.values():
         timed("profile-train", profile)
@@ -6352,6 +6454,7 @@ def main():
     log("longtail", f"summary ({nvidia_smi_line()}): {json.dumps(longtail)}")
     log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
     log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
+    log("onestage", f"summary ({nvidia_smi_line()}): {json.dumps(onestage)}")
     for name in DTYPES:
         timed("train-reference", phase_train_reference, name)
         timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")

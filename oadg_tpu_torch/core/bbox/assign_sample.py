@@ -12,6 +12,14 @@ of top-k, is ``torch.topk``; argsorts are stable, as ``jnp.argsort`` is.
 ``GridAssigner`` (``:444-454``, the config's entry) carries YOLOv3's grid
 assignment, which the JAX package computes in its head
 (``oadg_tpu/models/dense_heads/yolo_head.py:140-183``), as ``assign``.
+
+``ATSSAssigner`` (``:371-441``) and ``TaskAlignedAssigner`` (``:477-520``,
+with ``_per_gt_topk_mask`` and ``_rank_matrix_desc``, ``:456-474``) are the
+one-stage family's. Their candidate sets are masks against a k-th value
+(ATSS's ``d <= kth distance``), never top-k indices: anchor centres on a
+regular grid tie exactly, and ``torch.topk`` promises no order among ties
+on the card. Ranks come from a stable sort (ties to the lower index, as
+``jnp.argsort``), a row's gt from ``argmax`` (the first maximum).
 """
 from __future__ import annotations
 
@@ -236,3 +244,135 @@ class GridAssigner:
         gt_idx = torch.arange(g, device=gt.device).expand(n, g)
         of = zeros.scatter_reduce(1, best, torch.where(sel, gt_idx, 0), "amax")
         return pos, of, neg & ~pos
+
+
+@BBOX_ASSIGNERS.register_module()
+class ATSSAssigner:
+    """Adaptive training sample selection, static-shape: per gt and level the
+    ``topk`` anchors nearest by centre distance (every anchor at the k-th
+    distance included), the candidates' IoU mean plus standard deviation as
+    the gt's threshold, positives the candidates at or above it whose centre
+    lies inside the gt (edges included); an anchor positive for several gts
+    takes the one of largest IoU (the first of equals)."""
+
+    def __init__(self, topk: int = 9, ignore_iof_thr: float = -1, **kwargs):
+        self.topk = topk
+
+    def assign(self, bboxes: torch.Tensor, num_level_bboxes, gt_bboxes: torch.Tensor,
+               gt_valid: torch.Tensor, gt_labels: Optional[torch.Tensor] = None,
+               box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        """(N, 4) anchors of every level (``num_level_bboxes``: a list of
+        per-level counts summing to N), (..., G, 4) gts with their (..., G)
+        validity -> the (..., N) assignment."""
+        lead = gt_bboxes.shape[:-2]
+        n, g = bboxes.shape[0], gt_bboxes.shape[-2]
+        ious = bbox_overlaps(bboxes.expand(*lead, n, 4), gt_bboxes)        # (..., N, G)
+        zero = ious.new_zeros(())
+        ious = torch.where(gt_valid[..., None, :], ious, zero)
+        if box_valid is not None:
+            ious = torch.where(box_valid[..., :, None], ious, zero)
+        acx = (bboxes[:, 0] + bboxes[:, 2]) * 0.5
+        acy = (bboxes[:, 1] + bboxes[:, 3]) * 0.5
+        gcx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        gcy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        dist = torch.sqrt((acx[:, None] - gcx[..., None, :]) ** 2
+                          + (acy[:, None] - gcy[..., None, :]) ** 2)          # (..., N, G)
+        if box_valid is not None:
+            dist = torch.where(box_valid[..., :, None], dist, dist.new_full((), float("inf")))
+        cand, start = [], 0
+        for nl in num_level_bboxes:
+            d = dist[..., start:start + nl, :]
+            k = min(self.topk, nl)
+            kth = torch.topk(d, k, dim=-2, largest=False).values.amax(dim=-2, keepdim=True)
+            cand.append(d <= kth)
+            start += nl
+        cand = torch.cat(cand, dim=-2)
+        cnt = cand.sum(dim=-2).clamp(min=1)                                 # (..., G)
+        mean = torch.where(cand, ious, zero).sum(dim=-2) / cnt
+        var = torch.where(cand, (ious - mean[..., None, :]) ** 2, zero).sum(dim=-2) / cnt
+        thr = mean + torch.sqrt(var)
+        inside = ((acx[:, None] >= gt_bboxes[..., None, :, 0])
+                  & (acx[:, None] <= gt_bboxes[..., None, :, 2])
+                  & (acy[:, None] >= gt_bboxes[..., None, :, 1])
+                  & (acy[:, None] <= gt_bboxes[..., None, :, 3]))
+        pos = cand & inside & (ious >= thr[..., None, :]) & gt_valid[..., None, :]
+        pos_ious = torch.where(pos, ious, ious.new_full((), -1.0))
+        best = pos_ious.argmax(dim=-1)                                      # the first maximum
+        has = pos_ious.amax(dim=-1) > -0.5
+        assigned = torch.where(has, best + 1, torch.zeros_like(best))
+        if box_valid is not None:
+            assigned = torch.where(box_valid, assigned, torch.full_like(assigned, -1))
+        max_overlaps = torch.where(gt_valid[..., None, :], ious,
+                                   ious.new_full((), -1.0)).amax(dim=-1)
+        if gt_labels is not None:
+            matched = (assigned - 1).clamp(0, g - 1)
+            labels = torch.where(assigned > 0, _gather(gt_labels.long(), matched),
+                                 torch.full_like(assigned, -1))
+        else:
+            labels = torch.full_like(assigned, -1)
+        return AssignResult(assigned, max_overlaps, labels)
+
+
+def _rank_matrix_desc(values: torch.Tensor) -> torch.Tensor:
+    """Per column (dim -2), the 0-based rank of each row in descending
+    order, ties to the lower row (a stable sort, as ``jnp.argsort``)."""
+    order = torch.argsort(-values, dim=-2, stable=True)
+    ar = torch.arange(values.shape[-2], device=values.device)[:, None].expand_as(order)
+    return torch.empty_like(order).scatter_(-2, order, ar)
+
+
+def _per_gt_topk_mask(values: torch.Tensor, k: int, valid_cols: torch.Tensor) -> torch.Tensor:
+    """(..., N, G) scores -> a bool mask of each column's k largest rows
+    (by ``_rank_matrix_desc``); an invalid column is all False."""
+    k = min(k, values.shape[-2])
+    return (_rank_matrix_desc(values) < k) & valid_cols[..., None, :]
+
+
+@BBOX_ASSIGNERS.register_module()
+class TaskAlignedAssigner:
+    """Task-aligned assignment, static-shape: the alignment
+    ``score[gt label] ** alpha * IoU(decoded, gt) ** beta`` (0 for an
+    invalid gt), per gt the ``topk`` anchors of largest alignment whose
+    centre lies more than 0.01 inside the gt and whose alignment is above
+    0; an anchor claimed by several gts takes the one of largest IoU.
+    ``assign`` returns (AssignResult, the assigned alignment). The TOOD head
+    computes its own targets (``dense_heads/tood_head.py``), as the JAX one
+    does."""
+
+    def __init__(self, topk: int = 13, alpha: float = 1.0, beta: float = 6.0, **kw):
+        self.topk = topk
+        self.alpha = alpha
+        self.beta = beta
+
+    def assign(self, pred_scores: torch.Tensor, decode_bboxes: torch.Tensor,
+               anchors: torch.Tensor, gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+               gt_labels: torch.Tensor, alpha=None, beta=None):
+        """(..., N, C) scores, (..., N, 4) decoded boxes, (N, 4) anchors,
+        (..., G, 4) gts, their validity and labels."""
+        alpha = self.alpha if alpha is None else alpha
+        beta = self.beta if beta is None else beta
+        g = gt_bboxes.shape[-2]
+        overlaps = bbox_overlaps(decode_bboxes, gt_bboxes)                  # (..., N, G)
+        cls = gt_labels.long().clamp(0, pred_scores.shape[-1] - 1)
+        scores = torch.gather(pred_scores, -1, cls[..., None, :].expand(
+            *pred_scores.shape[:-1], g))
+        metrics = scores ** alpha * overlaps ** beta
+        metrics = torch.where(gt_valid[..., None, :], metrics, metrics.new_zeros(()))
+        topk_mask = _per_gt_topk_mask(metrics, int(self.topk), gt_valid)
+        acx = ((anchors[:, 0] + anchors[:, 2]) * 0.5)[:, None]
+        acy = ((anchors[:, 1] + anchors[:, 3]) * 0.5)[:, None]
+        gx1, gy1, gx2, gy2 = (gt_bboxes[..., None, :, i] for i in range(4))
+        inside = ((acx - gx1 > 0.01) & (acy - gy1 > 0.01)
+                  & (gx2 - acx > 0.01) & (gy2 - acy > 0.01))
+        is_pos = topk_mask & inside & (metrics > 0)
+        pos_ious = torch.where(is_pos, overlaps, overlaps.new_full((), float("-inf")))
+        best = pos_ious.argmax(dim=-1)
+        has = torch.isfinite(pos_ious.amax(dim=-1))
+        assigned = torch.where(has, best + 1, torch.zeros_like(best))
+        zero = overlaps.new_zeros(())
+        max_overlaps = torch.where(has, _gather(overlaps, best[..., None])[..., 0], zero)
+        assign_metrics = torch.where(has, _gather(metrics, best[..., None])[..., 0], zero)
+        matched = (assigned - 1).clamp(0, g - 1)
+        labels = torch.where(assigned > 0, _gather(gt_labels.long(), matched),
+                             torch.full_like(assigned, -1))
+        return AssignResult(assigned, max_overlaps, labels), assign_metrics

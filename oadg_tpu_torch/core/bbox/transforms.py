@@ -1,7 +1,8 @@
 """Box format helpers of the test path (port of
 ``oadg_tpu/core/bbox/transforms.py:20-64``): numpy on the host, and
 ``flip_boxes``, the batched ``bbox_flip`` of the test-time augmentation on
-the device."""
+the device; ``distance2bbox`` (``:65``), the point-and-distances decoding of
+the anchor-free heads."""
 from __future__ import annotations
 
 from typing import List
@@ -69,3 +70,21 @@ def flip_boxes(boxes: torch.Tensor, img_shapes: torch.Tensor,
     if direction == "vertical":
         return torch.cat([x1, h - y2, x2, h - y1], -1)
     raise ValueError(direction)
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape=None) -> torch.Tensor:
+    """(..., 2) points and (..., 4) (left, top, right, bottom) distances ->
+    (..., 4) boxes; with ``max_shape`` (h, w), numbers or tensors that
+    broadcast against the boxes' leading dims, each coordinate clipped to
+    [0, w] or [0, h] (``jnp.clip``: ``minimum(maximum(x, 0), hi)``)."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        h, w = (torch.as_tensor(v, dtype=x1.dtype, device=x1.device) for v in max_shape[:2])
+        zero = x1.new_zeros(())
+        x1, x2 = (torch.minimum(torch.maximum(v, zero), w) for v in (x1, x2))
+        y1, y2 = (torch.minimum(torch.maximum(v, zero), h) for v in (y1, y2))
+    return torch.stack([x1, y1, x2, y2], -1)

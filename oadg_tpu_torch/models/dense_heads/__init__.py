@@ -1,6 +1,16 @@
-"""Dense heads of the port."""
+"""Dense heads of the port; the one-stage family's modules also register
+their detectors (``FCOS``, ``ATSS``, ``GFL``, ``VFNet``, ``TOOD``, ``PAA``,
+``AutoAssign``)."""
+from .atss_head import ATSSHead
+from .autoassign_ld_heads import AutoAssignHead
+from .fcos_head import FCOSHead
+from .gfl_head import GFLHead
+from .paa_head import PAAHead
 from .retina_head import RetinaHead
 from .rpn_head import RPNHead
+from .tood_head import TOODHead
+from .vfnet_head import VFNetHead
 from .yolo_head import YOLOV3Head, YOLOV3HeadCont
 
-__all__ = ["RetinaHead", "RPNHead", "YOLOV3Head", "YOLOV3HeadCont"]
+__all__ = ["ATSSHead", "AutoAssignHead", "FCOSHead", "GFLHead", "PAAHead", "RetinaHead",
+           "RPNHead", "TOODHead", "VFNetHead", "YOLOV3Head", "YOLOV3HeadCont"]

@@ -47,6 +47,48 @@ def _flatten(maps, attrib: int) -> torch.Tensor:
     return torch.cat([m.permute(0, 2, 3, 1).reshape(n, -1, attrib) for m in maps], dim=1)
 
 
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` (N, K, ...) rows picked by ``idx`` (N, k) -> (N, k, ...)."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand(
+        *idx.shape, *x.shape[2:]))
+
+
+def top_indices(x: torch.Tensor, nms_pre: int) -> torch.Tensor:
+    """Indices of the top ``min(nms_pre, K)`` of (N, K) ``x``, descending,
+    ties to the lower index (``jax.lax.top_k``)."""
+    return sort_desc(x, min(nms_pre, x.shape[-1]))[1]
+
+
+def top_candidates(levels, nms_pre: int, decode):
+    """Per level ``(scores, regs, rank)``: (N, K, C) class scores, (N, K,
+    R) box regressions and an (N, K) ranking (``None``: the largest class
+    score) -> the top ``nms_pre`` points of each level by rank
+    (``top_indices``), their boxes ``decode(level, indices, their regs)``
+    (N, k, 4) and their scores, concatenated over the levels: (N, M, 4),
+    (N, M, C)."""
+    boxes, scores = [], []
+    for li, (sc, reg, rank) in enumerate(levels):
+        ti = top_indices(sc.amax(-1) if rank is None else rank, nms_pre)
+        boxes.append(decode(li, ti, gather_rows(reg, ti)))
+        scores.append(gather_rows(sc, ti))
+    return torch.cat(boxes, 1), torch.cat(scores, 1)
+
+
+def nms_detections(boxes, scores, scale_factors, rescale, cfg, num_classes,
+                   default_iou: float = 0.5):
+    """A dense head's concatenated per-level candidates (N, M, 4) and (N, M,
+    C) -> boxes divided by the scale factors (``rescale``), a zero
+    background column, ``multiclass_nms`` with the test config's
+    ``score_thr`` (0.05), ``nms.iou_threshold`` (``default_iou``) and
+    ``max_per_img`` (100): dets, labels, valid."""
+    if rescale:
+        boxes = boxes / scale_factors.float()[:, None, :4]
+    scores = F.pad(scores, (0, 1))                                     # background column
+    return multiclass_nms(boxes, scores, float(cfg.get("score_thr", 0.05)),
+                          float(dict(cfg.get("nms", {})).get("iou_threshold", default_iou)),
+                          int(cfg.get("max_per_img", 100)), num_classes)
+
+
 @HEADS.register_module()
 class RetinaHead(nn.Module):
 
@@ -145,26 +187,11 @@ class RetinaHead(nn.Module):
         cls_scores, bbox_preds = outs
         cfg = dict(cfg or self.test_cfg)
         nms_pre = int(cfg.get("nms_pre", 1000))
-        n = cls_scores[0].shape[0]
-        dev = cls_scores[0].device
         anchors = self.prior_generator.grid_priors(
-            [tuple(s.shape[-2:]) for s in cls_scores], dev)
+            [tuple(s.shape[-2:]) for s in cls_scores], cls_scores[0].device)
         max_shape = (img_shapes[:, 0:1], img_shapes[:, 1:2])
-        boxes_l, scores_l = [], []
-        for sc, dl, anch in zip(cls_scores, bbox_preds, anchors):
-            sc = torch.sigmoid(sc.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes).float())
-            dl = dl.permute(0, 2, 3, 1).reshape(n, -1, 4)
-            top = min(nms_pre, sc.shape[1])
-            _, ti = sort_desc(sc.max(dim=-1).values, top)
-            boxes_l.append(self.bbox_coder.decode(
-                anch[ti], torch.gather(dl, 1, ti[..., None].expand(n, top, 4)),
-                max_shape=max_shape))
-            scores_l.append(torch.gather(sc, 1, ti[..., None].expand(n, top, self.num_classes)))
-        boxes = torch.cat(boxes_l, 1)
-        scores = torch.cat(scores_l, 1)
-        if rescale:
-            boxes = boxes / scale_factors.float()[:, None, :4]
-        scores = F.pad(scores, (0, 1))                                # background column
-        return multiclass_nms(boxes, scores, float(cfg.get("score_thr", 0.05)),
-                              float(dict(cfg.get("nms", {})).get("iou_threshold", 0.5)),
-                              int(cfg.get("max_per_img", 100)), self.num_classes)
+        levels = [(torch.sigmoid(_flatten([sc], self.num_classes).float()), _flatten([dl], 4),
+                   None) for sc, dl in zip(cls_scores, bbox_preds)]
+        boxes, scores = top_candidates(levels, nms_pre, lambda li, ti, d: self.bbox_coder.decode(
+            anchors[li][ti], d, max_shape=max_shape))
+        return nms_detections(boxes, scores, scale_factors, rescale, cfg, self.num_classes)

@@ -27,7 +27,12 @@ Counterparts:
   under a backbone's ``norm_eval``, which puts its BNs in eval mode) the
   stored ones.
 - ``ModulatedDeformConv`` <- ``ModulatedDeformConv`` (``:390-423``), the
-  DCNv2 layer of ``dcn=dict(type='DCNv2')`` backbones.
+  DCNv2 layer of ``dcn=dict(type='DCNv2')`` backbones; ``DeformConv`` <-
+  ``DeformConv`` (``:363-387``), the DCNv1 layer with offsets from outside
+  (VFNet's star convs).
+- ``Scale``: mmcv's per-level scalar, one entry of the JAX heads'
+  ``scales`` parameter; ``ConvGN``: a conv, its ``GroupNorm32`` and a ReLU
+  (the GN towers).
 - ``GroupNorm32`` <- ``GroupNorm32`` (``:285-293``): flax's ``GroupNorm``
   with its epsilon 1e-6 (torch's default is 1e-5), the group count lowered
   to the largest divisor of the channels not above the one asked for (36
@@ -181,7 +186,10 @@ class GroupNorm32(nn.Module):
     """flax ``GroupNorm`` over the channels of an NCHW tensor (keys
     ``weight``, ``bias``): ``num_groups`` lowered to the largest divisor of
     ``num_channels`` not above it, epsilon 1e-6; float32 out (float64 for
-    a float64 input)."""
+    a float64 input). A group of one value (one channel a group on a 1x1
+    map: a one-stage head's top level at narrow widths) normalizes to its
+    bias (up to float32 rounding), as flax's does; ``F.group_norm`` would
+    refuse it, so the ATen op is called directly."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, device=None):
         super().__init__()
@@ -194,8 +202,8 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x):
         x = widen(x)
-        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            eps=1e-6)
+        return torch.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), 1e-6, torch.backends.cudnn.enabled)
 
 
 def build_norm(norm_cfg: dict, num_channels: int, device=None) -> nn.Module:
@@ -209,6 +217,37 @@ def build_norm(norm_cfg: dict, num_channels: int, device=None) -> nn.Module:
     if kind == "GN":
         return GroupNorm32(num_channels, int(norm_cfg.get("num_groups", 32)), device=device)
     raise NotImplementedError(f"norm {kind}: the port builds BN and GN")
+
+
+class ConvGN(nn.Module):
+    """A conv (with a bias, as the JAX package's ``Conv``), its
+    ``GroupNorm32`` and a ReLU: keys ``conv.*`` and ``gn.*`` (mmcv's
+    ``ConvModule`` with a GN ``norm_cfg`` has no conv bias). The GN towers
+    of Grid R-CNN and the one-stage heads; float32 out."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 32,
+                 kernel_size: int = 3, padding: int = 1, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv(in_channels, out_channels, kernel_size, 1, padding, device=device,
+                         dtype=dtype)
+        self.gn = build_norm(dict(type="GN", num_groups=num_groups), out_channels, device)
+
+    def forward(self, x):
+        return torch.relu(self.gn(self.conv(x)))
+
+
+class Scale(nn.Module):
+    """mmcv ``Scale``: one learned float32 scalar (key ``scale``), a level's
+    entry of the JAX heads' per-level ``scales`` vector. ``forward`` scales
+    ``x`` cast to float32 (as the JAX heads cast a bfloat16 conv output
+    before the product)."""
+
+    def __init__(self, scale: float = 1.0, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=device))
+
+    def forward(self, x):
+        return self.scale * widen(x)
 
 
 class ConvModule(nn.Module):
@@ -327,6 +366,38 @@ class ModulatedDeformConv(nn.Module):
             self.stride, self.padding, self.dilation, self.deform_groups, self.bias)
 
 
+class DeformConv(nn.Module):
+    """DCNv1 with offsets from outside (mmcv ``DeformConv2d``,
+    ``layers.py:363-387``): ``ops.deform_conv.deform_conv2d`` in the
+    input's dtype, the weight cast to it, as the JAX layer computes (its
+    kernel follows ``x.dtype``, not the model's: VFNet feeds it GroupNorm's
+    float32 output in a bfloat16 model too). mmcv key ``weight`` (C_out,
+    C_in, k, k); no bias unless ``bias``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dilation: int = 1,
+                 deform_groups: int = 1, bias: bool = False, device=None):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.deform_groups = deform_groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if bias else None)
+
+    def init_weights(self, gen: torch.Generator):
+        """He-normal weight (flax's ``he_normal``), zero bias."""
+        normal_(self.weight, math.sqrt(2.0 / self.weight[0].numel()), gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x, offset):
+        from ..ops.deform_conv import deform_conv2d
+        return deform_conv2d(x, offset, self.weight.to(x.dtype), self.stride, self.padding,
+                             self.dilation, self.deform_groups, self.bias)
+
+
 def max_pool_3x3_s2(x):
     """``MaxPool2d(kernel_size=3, stride=2, padding=1)``."""
     return F.max_pool2d(x, 3, stride=2, padding=1)
@@ -355,8 +426,8 @@ def xavier_uniform_(t: torch.Tensor, gen: torch.Generator):
 
 def init_default_(module: nn.Module, gen: torch.Generator):
     """LeCun-normal weights and zero biases for every Conv2d / Linear under
-    ``module``, then each ``ModulatedDeformConv``'s own init; frozen BN
-    stays identity."""
+    ``module``, then each ``ModulatedDeformConv``'s and ``DeformConv``'s own
+    init; frozen BN stays identity."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, gen)
@@ -364,5 +435,5 @@ def init_default_(module: nn.Module, gen: torch.Generator):
                 with torch.no_grad():
                     m.bias.zero_()
     for m in module.modules():
-        if isinstance(m, ModulatedDeformConv):
+        if isinstance(m, (ModulatedDeformConv, DeformConv)):
             m.init_weights(gen)

@@ -6,7 +6,8 @@ elementwise ``CrossEntropyLoss`` on soft targets; ``FocalLoss``
 (``:62-69``, ``:138-155``) is RetinaNet's; ``IoULoss``, ``BoundedIoULoss``,
 ``GIoULoss``, ``DIoULoss`` and ``CIoULoss`` (``:158-245``, ``:466-523``)
 regress decoded boxes (``reg_decoded_bbox``): their ``(R, 4)`` box weights
-are cut to ``[..., 0]``, as in the JAX package.
+are cut to ``[..., 0]``, as in the JAX package. ``QualityFocalLoss`` and
+``DistributionFocalLoss`` (``:387-437``) are GFL's and TOOD's.
 
 Static-shape and mask-weighted like the JAX package: ragged indexing
 (``pred[pos_inds]``) is a weight of 0. ``maximum`` and ``minimum`` are taken
@@ -295,6 +296,65 @@ class GIoULoss:
         return self.loss_weight * weight_reduce_loss(
             loss, _box_weight(weight, loss), reduction_override or self.reduction,
             avg_factor)
+
+
+@LOSSES.register_module()
+class QualityFocalLoss:
+    """GFL's quality focal loss (``:387-417``): ``pred`` (..., C) logits,
+    ``target`` the pair (labels (...,), scores (...,)). Every class column
+    is a negative (target 0, modulated by ``sigmoid ** beta``) but the
+    positive's label column (label in [0, C)), whose target is its score,
+    modulated by ``|score - sigmoid| ** beta``; summed over the classes. The
+    scores keep their gradient (the JAX heads pass them undetached)."""
+
+    def __init__(self, use_sigmoid: bool = True, beta: float = 2.0,
+                 reduction: str = "mean", loss_weight: float = 1.0, **kw):
+        if not use_sigmoid:
+            raise NotImplementedError("QualityFocalLoss takes use_sigmoid=True only")
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        labels, scores = target
+        nc = pred.shape[-1]
+        sig = torch.sigmoid(pred)
+        loss = binary_cross_entropy_with_logits(pred, torch.zeros_like(pred)) * sig ** self.beta
+        pos = labels < nc
+        col = torch.where(pos, labels, torch.zeros_like(labels)).long()
+        onehot = torch.zeros_like(pred).scatter_(-1, col.clamp(0, nc - 1)[..., None], 1.0)
+        onehot = onehot * (col >= 0)[..., None]
+        soft = onehot * scores[..., None]
+        pos_loss = binary_cross_entropy_with_logits(pred, soft) * (soft - sig).abs() ** self.beta
+        loss = torch.where((onehot > 0) & pos[..., None], pos_loss, loss).sum(dim=-1)
+        return self.loss_weight * weight_reduce_loss(
+            loss, weight, reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class DistributionFocalLoss:
+    """GFL's distribution focal loss (``:420-437``): cross entropy of the
+    (..., n) bin logits against the two integer bins ``floor(t)`` and
+    ``floor(t) + 1`` bracketing the continuous target ``t``, weighted by
+    their distances to it, each bin index clipped to [0, n - 1]."""
+
+    def __init__(self, reduction: str = "mean", loss_weight: float = 1.0, **kw):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, label, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        nc = pred.shape[-1]
+        dl = torch.floor(label).long()
+        dr = dl + 1
+        wl = dr.to(pred.dtype) - label
+        wr = label - dl.to(pred.dtype)
+        logp = torch.log_softmax(pred, dim=-1)
+        ll = -torch.gather(logp, -1, dl.clamp(0, nc - 1)[..., None])[..., 0]
+        lr = -torch.gather(logp, -1, dr.clamp(0, nc - 1)[..., None])[..., 0]
+        return self.loss_weight * weight_reduce_loss(
+            ll * wl + lr * wr, weight, reduction_override or self.reduction, avg_factor)
 
 
 def _center_dist2_and_enclose(pred, target):

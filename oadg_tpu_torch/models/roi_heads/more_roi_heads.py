@@ -68,7 +68,7 @@ from ...core.bbox.geometry import bbox_overlaps
 from ...parallel import batch_is_sharded, shard_sum
 from ...utils.registry import DETECTORS, HEADS, ROI_EXTRACTORS, build_from_cfg
 from ..detectors.two_stage import TwoStageDetector
-from ..layers import Conv, Linear, build_norm, normal_
+from ..layers import Conv, ConvGN, Linear, normal_
 from .mask_heads import ConvTranspose
 from .standard_roi_head import StandardRoIHead
 
@@ -229,19 +229,6 @@ class MaskScoringRCNN(TwoStageDetector):
     """``more_roi_heads.py:357``: serves boxes only, as the JAX detector."""
 
 
-class _ConvGN(nn.Module):
-    """A 3x3 conv (with a bias, as the JAX package's ``Conv``) and its
-    ``GroupNorm32``: keys ``conv.*`` and ``gn.*``."""
-
-    def __init__(self, in_channels, out_channels, num_groups, device=None, dtype=None):
-        super().__init__()
-        self.conv = Conv(in_channels, out_channels, 3, 1, 1, device=device, dtype=dtype)
-        self.gn = build_norm(dict(type="GN", num_groups=num_groups), out_channels, device)
-
-    def forward(self, x):
-        return torch.relu(self.gn(self.conv(x)))
-
-
 @HEADS.register_module()
 class GridHead(nn.Module):
     """``more_roi_heads.py:154``: (R, C, r, r) RoI features -> (R, 9, 4 r,
@@ -253,7 +240,7 @@ class GridHead(nn.Module):
                  num_groups: int = 36, device=None, dtype=None):
         super().__init__()
         self.convs = nn.ModuleList(
-            _ConvGN(in_channels if i == 0 else conv_out_channels, conv_out_channels,
+            ConvGN(in_channels if i == 0 else conv_out_channels, conv_out_channels,
                     num_groups, device=device, dtype=dtype) for i in range(num_convs))
         self.deconv1 = ConvTranspose(conv_out_channels, conv_out_channels, 2, 2,
                                      device=device, dtype=dtype)

@@ -30,7 +30,7 @@ def bilinear_gather(feats: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     r, tail = ys.shape[0], ys.shape[1:]
     ys, xs = ys.reshape(r, -1).float(), xs.reshape(r, -1).float()
     table = feats.reshape(b * h * w, c)
-    out = _bilinear_taps(table, r, h, w, ys, xs, torch.ones_like(ys), image=image)
+    out = _bilinear_taps(table, r, h, w, ys, xs, None, image=image)
     return out.view(r, *tail, c)
 
 

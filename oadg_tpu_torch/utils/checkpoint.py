@@ -13,7 +13,8 @@ that lacks one of the model's tensors, or a tensor whose shape differs
 from the model's, raises (the JAX package keeps its own values in both
 cases; ROADMAP C); so does one that holds a tensor of a structure the JAX
 heads lack (``MMDET_ONLY``: mmdet's ``DynamicConv.fc_norm`` of Sparse R-CNN's
-stages, its ``GridHead`` fusion ``forder_trans`` / ``sorder_trans``), which
+stages, its ``GridHead`` fusion ``forder_trans`` / ``sorder_trans``,
+VFNet's ``vfnet_reg_conv``, the ATSS parts of mmdet's PAA head), which
 skipping would silently change.
 
 ``jax_variables_to_state_dict`` is the exact inverse of
@@ -82,7 +83,22 @@ PointRend's ``roi/point`` (``fc{i}``, ``fc_logits``)
 ``roi_head.point_head.{fcs.{i}.conv, fc_logits}`` as (out, in, 1)
 ``Conv1d`` weights; a TridentResNet's shared ``layer4_{j}/conv2_kernel``
 ``backbone.layer4.{j}.conv2.weight`` and its block's fourth BN
-(``FrozenBN_3``) ``downsample.1``. A leaf with no mmdet name raises. The same map carries
+(``FrozenBN_3``) ``downsample.1``. The one-stage family's heads (under
+``bbox_head``): ``cls_conv{i}`` / ``cls_gn{i}`` (and ``reg_``, TOOD's
+``inter_``) become ``cls_convs.{i}.conv`` / ``.gn``; a per-level
+``scales`` (ATSS's and GFL's ``reg_scales``, VFNet's ``scales_refine``)
+vector becomes one ``scales.{i}.scale`` scalar a level; ``conv_ctr``
+``conv_centerness``; VFNet's ``reg_refine_dconv`` / ``cls_dconv`` (DCN
+kernels) and their GNs ``reg_refine_gn`` / ``cls_gn``
+``vfnet_reg_refine_dconv`` / ``vfnet_cls_dconv`` / ``vfnet_reg_refine_gn``
+/ ``vfnet_cls_gn``; TOOD's ``{cls,reg}_decomp`` ``la_conv1`` / ``la_conv2``
+/ ``reduction_conv`` / ``gn`` ``layer_attention.0`` / ``.2`` /
+``reduction_conv.conv`` / ``reduction_conv.gn``, ``cls_prob_conv{1,2}``
+and ``reg_offset_conv{1,2}`` ``cls_prob_module.{0,2}`` and
+``reg_offset_module.{0,2}``; AutoAssign's ``center_prior_mean`` /
+``_sigma`` ``center_prior.mean`` / ``.sigma``; the other convs keep their
+names (``atss_cls``, ``gfl_reg``, ``tood_cls``, PAA's ``retina_iou``, ...).
+A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
 """
@@ -167,13 +183,39 @@ def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
     return f"{pre}.{_bn_name(scope)}.{_BN_LEAF[rest[-1]]}"
 
 
-def _retina_head_key(rest: Tuple[str, ...]) -> str:
-    m = re.fullmatch(r"(cls|reg)_conv(\d+)", rest[0])
+# JAX dense-head scopes -> mmdet's module names (the rest keep their name)
+_DENSE_NAMES = {"conv_ctr": "conv_centerness",
+                "reg_refine_dconv": "vfnet_reg_refine_dconv", "cls_dconv": "vfnet_cls_dconv",
+                "reg_refine_gn": "vfnet_reg_refine_gn", "cls_gn": "vfnet_cls_gn",
+                "cls_prob_conv1": "cls_prob_module.0", "cls_prob_conv2": "cls_prob_module.2",
+                "reg_offset_conv1": "reg_offset_module.0",
+                "reg_offset_conv2": "reg_offset_module.2"}
+_DENSE_CONVS = set(_DENSE_NAMES) | {
+    "retina_cls", "retina_reg", "retina_iou", "conv_cls", "conv_reg", "atss_cls", "atss_reg",
+    "atss_centerness", "gfl_cls", "gfl_reg", "vfnet_reg", "vfnet_reg_refine", "vfnet_cls",
+    "tood_cls", "tood_reg"}
+_DENSE_SCALES = {"scales": "scales", "reg_scales": "scales", "scales_refine": "scales_refine"}
+_DECOMP = {"la_conv1": "layer_attention.0", "la_conv2": "layer_attention.2",
+           "reduction_conv": "reduction_conv.conv", "gn": "reduction_conv.gn"}
+
+
+def _dense_head_key(rest: Tuple[str, ...]) -> Optional[str]:
+    """A leaf of RetinaNet's or a one-stage family head -> its mmdet key, or
+    None (another head's). A per-level ``scales`` vector maps to
+    ``...scales.{}.scale``, one key a level."""
+    scope = rest[0]
+    m = re.fullmatch(r"(cls|reg|inter)_(conv|gn)(\d+)", scope)
     if m:
-        return f"bbox_head.{m.group(1)}_convs.{m.group(2)}.conv.{_leaf(rest)}"
-    if rest[0] in ("retina_cls", "retina_reg"):
-        return f"bbox_head.{rest[0]}.{_leaf(rest)}"
-    raise KeyError("/".join(rest))
+        return f"bbox_head.{m.group(1)}_convs.{m.group(3)}.{m.group(2)}.{_leaf(rest)}"
+    if scope in _DENSE_SCALES:
+        return f"bbox_head.{_DENSE_SCALES[scope]}.{{}}.scale"
+    if scope in ("center_prior_mean", "center_prior_sigma"):
+        return f"bbox_head.center_prior.{scope.rsplit('_', 1)[1]}"
+    if scope in ("cls_decomp", "reg_decomp"):
+        return f"bbox_head.{scope}.{_DECOMP[rest[1]]}.{_leaf(rest)}"
+    if scope in _DENSE_CONVS:
+        return f"bbox_head.{_DENSE_NAMES.get(scope, scope)}.{_leaf(rest)}"
+    return None
 
 
 def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
@@ -188,10 +230,8 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
         return f"neck.{rest[0]}.{rest[1]}.{_conv_module(rest[2:])}"
     if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
         return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
-    if head == "head" and re.fullmatch(r"(cls|reg)_conv\d+|retina_(cls|reg)", rest[0]):
-        return _retina_head_key(rest)
     if head == "head":
-        return _yolo_head_key(rest)
+        return _dense_head_key(rest) or _yolo_head_key(rest)
     if head == "backbone_m":
         if rest[0] == "conv1":                       # stem conv
             return "backbone.conv1.weight"
@@ -363,6 +403,10 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
+            if "{}" in key:                             # a per-level scales vector
+                for i, x in enumerate(np.asarray(v, dtype=np.float32)):
+                    sd[key.format(i)] = torch.tensor(x)
+                continue
             if "#" in key:                              # a part of in_proj_*
                 parts.setdefault(key.split("#")[0], {})[int(key.split("#")[1])] = (
                     v.reshape(v.shape[0], -1).T if path[-1] == "kernel" else v.reshape(-1))
@@ -406,13 +450,21 @@ def _hwc_to_chw(w: np.ndarray, side: int, channels: int) -> np.ndarray:
 _SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.")
 
 # mmdet tensors of structures that the JAX heads (and so the port's) lack:
-# skipping them would load a checkpoint into another function.
+# skipping them would load a checkpoint into another function. A key raises
+# where the model lacks it (an ATSS model has the atss_* convs that a PAA
+# model lacks).
 MMDET_ONLY = {
     r"roi_head\.bbox_head\.\d+\.instance_interactive_conv\.fc_norm\.":
         "Sparse R-CNN's DynamicConv.fc_norm (the JAX DIIHead has no LayerNorm and ReLU "
         "after fc_layer)",
     r"roi_head\.grid_head\.(forder_trans|sorder_trans)\.":
         "Grid R-CNN's feature fusion (the JAX GridHead has none)",
+    r"bbox_head\.vfnet_reg_conv\.":
+        "VFNet's vfnet_reg_conv, a GN conv before vfnet_reg (the JAX VFNetHead has none)",
+    r"bbox_head\.((cls|reg)_convs\.\d+\.gn|scales\.\d+|atss_(cls|reg|centerness))\.":
+        "a part of an ATSS head: GN in the towers, scales, atss_* convs (mmdet's PAA head is "
+        "an ATSS head; the JAX one is a RetinaHead, with retina_cls, retina_reg and "
+        "retina_iou)",
 }
 
 
@@ -445,7 +497,7 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
     take, skipped = {}, []
     sd, backbone_only = mmdet_state_dict(checkpoint)
     for pattern, what in MMDET_ONLY.items():
-        extra = sorted(k for k in sd if re.match(pattern, k))
+        extra = sorted(k for k in sd if re.match(pattern, k) and k not in own)
         if extra:
             raise KeyError(f"the checkpoint holds {what}: {', '.join(extra[:4])}"
                            f"{', ...' if len(extra) > 4 else ''}; the port's head lacks it")

@@ -1,8 +1,8 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 37 configs the port has ported build, the
-other 43 raise the port's refusal (a type the port has not ported,
+them with the JAX package: the 44 configs the port has ported build, the
+other 36 raise the port's refusal (a type the port has not ported,
 "the port builds only the ported slices' types"), never another error;
 TridentNet's refusal names the JAX detector's fault.
 
@@ -12,10 +12,12 @@ JAX package's ``RPN`` detector raises ``AttributeError`` (it is a bare
 ``FastRCNN`` runs its own RPN, never reading the batch's ``proposals``;
 the port refuses both types.
 
-Then RetinaNet's and the GIoU Faster R-CNN's configs, narrowed, through
-``tools/torch_train.py`` and ``tools/torch_test.py`` on the CPU, and four of
-the new models' weights through ``load_mmdet_checkpoint`` under mmdet's
-names.
+Then RetinaNet's, the GIoU Faster R-CNN's, FCOS's and GFL's configs,
+narrowed, through ``tools/torch_train.py`` and ``tools/torch_test.py`` on
+the CPU, the weights of four long-tail models and of VFNet and TOOD through
+``load_mmdet_checkpoint`` under mmdet's names, and the one-stage family's
+seven configs at full width (their towers, GFL's bins, VFNet's DCNs, TOOD's
+task decomposition), with mmdet's tensors that the JAX heads lack refused.
 """
 import copy
 import glob
@@ -47,6 +49,8 @@ PORTED = {
     "OA-DG/cityscapes/yolov3_d53_mstrain-1024_20e_oadg.py",
     "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd.py",
     "OA-DG/dwd/faster_rcnn_r101_dc5_1x_dwd_oadg.py",
+    "atss/atss_r50_fpn_1x_coco.py",
+    "autoassign/autoassign_r50_fpn_8x2_1x_coco.py",
     "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py",
     "cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
     "cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py",
@@ -65,16 +69,21 @@ PORTED = {
     "faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py",
     "faster_rcnn/faster_rcnn_r50_fpn_soft_nms_1x_coco.py",
     "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
+    "fcos/fcos_r50_fpn_1x_coco.py",
+    "gfl/gfl_r50_fpn_1x_coco.py",
     "htc/htc_r50_fpn_1x_coco.py",
     "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
     "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
     "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py",
+    "paa/paa_r50_fpn_1x_coco.py",
     "pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py",
     "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py",
     "queryinst/queryinst_r50_fpn_1x_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
     "scnet/scnet_r50_fpn_1x_coco.py",
     "sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py",
+    "tood/tood_r50_fpn_1x_coco.py",
+    "vfnet/vfnet_r50_fpn_1x_coco.py",
     "yolo/yolov3_d53_320_273e_coco.py",
     "yolo/yolov3_d53_mstrain-416_273e_coco.py",
     "yolo/yolov3_d53_mstrain-608_273e_coco.py",
@@ -106,11 +115,12 @@ def _build(rel):
 
 
 def test_the_sweep_counts_26_of_80():
-    """37 of the 80 since the two-stage family's last four (the name kept
-    from the long tail's first slice, which ported 26); 43 refused."""
+    """44 of the 80 build since the one-stage family's first seven, 36 are
+    refused (the name kept from the long tail's first slice, which ported
+    26)."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 37
-    assert len(set(ALL_CONFIGS) - PORTED) == 43
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 44
+    assert len(set(ALL_CONFIGS) - PORTED) == 36
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -216,6 +226,56 @@ def test_last_twostage_configs_build_their_heads(rel):
         assert rh.point_head.fcs[0].conv.weight.shape == (256, 256 + 80, 1)
 
 
+ONESTAGE = {"atss/atss_r50_fpn_1x_coco.py": ("ATSS", "ATSSHead", 4),
+            "fcos/fcos_r50_fpn_1x_coco.py": ("FCOS", "FCOSHead", 4),
+            "gfl/gfl_r50_fpn_1x_coco.py": ("GFL", "GFLHead", 4),
+            "vfnet/vfnet_r50_fpn_1x_coco.py": ("VFNet", "VFNetHead", 3),
+            "tood/tood_r50_fpn_1x_coco.py": ("TOOD", "TOODHead", 6),
+            "paa/paa_r50_fpn_1x_coco.py": ("PAA", "PAAHead", 4),
+            "autoassign/autoassign_r50_fpn_8x2_1x_coco.py": ("AutoAssign", "AutoAssignHead", 4)}
+
+
+@pytest.mark.parametrize("rel", sorted(ONESTAGE))
+def test_onestage_configs_build_their_heads(rel):
+    """The one-stage family's seven configs at full width, 80 classes: the
+    towers' depths (TOOD's shared stack), five per-level scales, GFL's
+    4 x (16 + 1) bins, VFNet's two DCNs on 256 channels, TOOD's two task
+    decompositions over its 6 x 256 stacked channels, PAA's IoU branch,
+    AutoAssign's centre prior; FCOS on a caffe-style ResNet with ReLU before
+    the extra convs, PAA's extra convs on C5."""
+    det = _build(rel)
+    kind, head_kind, depth = ONESTAGE[rel]
+    head = det.bbox_head
+    assert (type(det).__name__, type(head).__name__) == (kind, head_kind)
+    tower = head.inter_convs if kind == "TOOD" else head.cls_convs
+    assert len(tower) == depth and tower[0].conv.weight.shape == (256, 256, 3, 3)
+    if kind != "PAA":
+        assert len(head.scales) == 5 and head.scales[0].scale.shape == ()
+        assert tower[0].gn.num_groups == 32
+    cls = {"ATSS": "atss_cls", "FCOS": "conv_cls", "GFL": "gfl_cls", "VFNet": "vfnet_cls",
+           "TOOD": "tood_cls", "PAA": "retina_cls", "AutoAssign": "conv_cls"}[kind]
+    assert getattr(head, cls).weight.shape == (80, 256, 3, 3)
+    if kind == "GFL":
+        assert head.gfl_reg.weight.shape == (68, 256, 3, 3) and head.reg_max == 16
+    if kind == "VFNet":
+        for dcn in (head.vfnet_reg_refine_dconv, head.vfnet_cls_dconv):
+            assert type(dcn).__name__ == "DeformConv" and dcn.weight.shape == (256, 256, 3, 3)
+        assert len(head.scales_refine) == 5
+    if kind == "TOOD":
+        for decomp in (head.cls_decomp, head.reg_decomp):
+            assert type(decomp).__name__ == "TaskDecomposition"
+            assert decomp.layer_attention[0].weight.shape == (64, 6 * 256, 1, 1)
+            assert decomp.reduction_conv.conv.weight.shape == (256, 6 * 256, 1, 1)
+        assert head.topk == 13
+    if kind == "PAA":
+        assert head.retina_iou.weight.shape == (1, 256, 3, 3) and head.topk == 9
+        assert det.neck.fpn_convs[3].conv.weight.shape[1] == 2048      # on_input: C5
+    if kind == "AutoAssign":
+        assert head.center_prior.mean.shape == head.center_prior.sigma.shape == (80, 2)
+    if kind == "FCOS":
+        assert det.neck.relu_before_extra_convs and det.neck.fpn_convs[4].conv.weight.shape[1] == 256
+
+
 def test_trident_refusal_names_the_jax_fault():
     with pytest.raises(ValueError, match=f"{REFUSAL}.*never tiles the gts.*test branch.*"
                                          "stride 32"):
@@ -303,13 +363,25 @@ def test_longtail_config_trains_and_tests_through_the_tools(rel, tmp_path):
     config's model narrowed (R18-FPN at 16 channels) and the 4-PNG set of
     ``torch_data_cases`` at 96x64. RetinaNet's config pairs 80 classes with
     the Cityscapes dataset base, whose 8 the tools' class check requires."""
+    _through_the_tools(rel, tmp_path)
+
+
+@pytest.mark.parametrize("rel", ["fcos/fcos_r50_fpn_1x_coco.py", "gfl/gfl_r50_fpn_1x_coco.py"])
+def test_onestage_config_trains_and_tests_through_the_tools(rel, tmp_path):
+    """FCOS (caffe-style ResNet, GN head, IoU and centerness losses) and GFL
+    (ATSS assignment, QFL, DFL) as RetinaNet above: both tools on the CPU,
+    the config narrowed, 8 classes for the Cityscapes dataset base."""
+    _through_the_tools(rel, tmp_path)
+
+
+def _through_the_tools(rel, tmp_path):
     import torch_data_cases as cases
     ann, prefix = cases.write_dataset(str(tmp_path / "ds"), sizes=cases.TRAIN_SIZES)
     cfg = load_config(osp.join(CFG_ROOT, rel))
     m = cfg.model
     m.backbone.update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
     m.neck.update(in_channels=[16, 32, 64, 128], out_channels=16)
-    if m.type == "RetinaNet":
+    if "bbox_head" in m:                                     # single-stage
         m.bbox_head.update(in_channels=16, feat_channels=16, stacked_convs=1, num_classes=8)
         m.test_cfg.update(nms_pre=100)
         train = "data.train.dataset."
@@ -363,7 +435,7 @@ def _narrow(rel):
         [64 * 2 ** i for i in range(4)]
     if "neck" in m:
         m.neck.update(in_channels=widths, out_channels=16)
-    if m.type == "RetinaNet":
+    if "bbox_head" in m:                                     # single-stage
         m.bbox_head.update(in_channels=16, feat_channels=16, stacked_convs=1)
     elif "neck" in m:
         m.rpn_head.update(in_channels=16, feat_channels=16)
@@ -410,3 +482,65 @@ def test_mmdet_checkpoint_carries_the_longtail_modules(rel, tmp_path):
             "dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py":
                 "backbone.layer2.0.conv2.conv_offset.weight"}[rel]
     assert want in keys
+
+
+@pytest.mark.parametrize("rel", ["vfnet/vfnet_r50_fpn_1x_coco.py", "tood/tood_r50_fpn_1x_coco.py"])
+def test_mmdet_checkpoint_carries_the_onestage_heads(rel, tmp_path):
+    """As above for VFNet (its two DCN weights, the per-level ``scales`` and
+    ``scales_refine`` scalars, the GN towers) and TOOD (``inter_convs``, the
+    task decompositions' ``layer_attention`` and ``reduction_conv``,
+    ``cls_prob_module``, ``reg_offset_module``): every tensor loaded under
+    mmdet's names, the models equal."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = _narrow(rel)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": src.state_dict(), "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"vfnet/vfnet_r50_fpn_1x_coco.py": ["bbox_head.vfnet_reg_refine_dconv.weight",
+                                               "bbox_head.vfnet_cls_dconv.weight",
+                                               "bbox_head.scales_refine.4.scale",
+                                               "bbox_head.cls_convs.0.gn.weight"],
+            "tood/tood_r50_fpn_1x_coco.py": ["bbox_head.inter_convs.0.conv.weight",
+                                             "bbox_head.cls_decomp.layer_attention.2.weight",
+                                             "bbox_head.reg_decomp.reduction_conv.gn.bias",
+                                             "bbox_head.cls_prob_module.2.weight",
+                                             "bbox_head.reg_offset_module.0.weight",
+                                             "bbox_head.scales.0.scale"]}[rel]
+    assert set(want) <= set(report["loaded"])
+
+
+@pytest.mark.parametrize("case", ["vfnet_reg_conv", "vfnet_missing_gn", "paa_atss_parts"])
+def test_mmdet_checkpoint_names_what_one_side_lacks(case, tmp_path):
+    """mmdet's VFNet has a GN conv ``vfnet_reg_conv`` before ``vfnet_reg`` and
+    no GN after its DCNs; mmdet's PAA head is an ATSS head (GN towers,
+    ``scales``, ``atss_*`` convs), the JAX one a RetinaHead: a checkpoint
+    with a tensor the port's head lacks raises naming it (``MMDET_ONLY``),
+    one without a tensor the port's head has raises naming it (missing)."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    rel = "paa/paa_r50_fpn_1x_coco.py" if case.startswith("paa") else "vfnet/vfnet_r50_fpn_1x_coco.py"
+    model = init_detector({"model": _narrow(rel)}, device="cpu", seed=1).model
+    sd = dict(model.state_dict())
+    if case == "vfnet_reg_conv":
+        sd["bbox_head.vfnet_reg_conv.conv.weight"] = torch.zeros(16, 16, 3, 3)
+        match = "vfnet_reg_conv"
+    elif case == "vfnet_missing_gn":
+        sd = {k: v for k, v in sd.items() if ".vfnet_cls_gn." not in k}
+        match = "lacks 2 of the model's tensors: bbox_head.vfnet_cls_gn.bias"
+    else:
+        sd["bbox_head.atss_centerness.weight"] = torch.zeros(1, 16, 3, 3)
+        sd["bbox_head.cls_convs.0.gn.weight"] = torch.zeros(16)
+        match = "ATSS head.*atss_centerness"
+    with pytest.raises(KeyError, match=match):
+        load_mmdet_checkpoint(model, {"state_dict": sd})

@@ -1,0 +1,99 @@
+"""Shared fixtures of the one-stage family's CPU parity tests
+(``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``).
+
+``tiny_model(name)``: the published config of each of the seven one-stage
+configs with its backbone cut to ResNet-18 and its neck and head to 16
+channels (the R18-FPN-16 of ``tests/test_p2_zoo.py``), 8 classes; its
+losses, assigners, anchors and test settings kept. ``randomize`` fills a
+JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
+(LeCun-normal kernels, small biases, GN and the per-level scales near 1,
+random frozen-BN statistics) that the port loads through
+``jax_variables_to_state_dict``.
+"""
+import os.path as osp
+
+import numpy as np
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+CONFIGS = {
+    "fcos": "configs/fcos/fcos_r50_fpn_1x_coco.py",
+    "atss": "configs/atss/atss_r50_fpn_1x_coco.py",
+    "gfl": "configs/gfl/gfl_r50_fpn_1x_coco.py",
+    "vfnet": "configs/vfnet/vfnet_r50_fpn_1x_coco.py",
+    "tood": "configs/tood/tood_r50_fpn_1x_coco.py",
+    "paa": "configs/paa/paa_r50_fpn_1x_coco.py",
+    "autoassign": "configs/autoassign/autoassign_r50_fpn_8x2_1x_coco.py",
+}
+HW = (64, 96)
+NUM_CLASSES = 8
+
+
+def tiny_model(name):
+    """The config's model (a plain dict) narrowed: R18, FPN and head at 16
+    channels, one conv a tower (TOOD two), 8 classes, 20 detections."""
+    from oadg_tpu_torch.config import load_config
+    cfg = load_config(osp.join(ROOT, CONFIGS[name]))
+    m = cfg.model
+    m.backbone.update(depth=18, init_cfg=None)
+    m.neck.update(in_channels=[64, 128, 256, 512], out_channels=16)
+    m.bbox_head.update(in_channels=16, feat_channels=16, num_classes=NUM_CLASSES,
+                       stacked_convs=2 if name == "tood" else 1)
+    m.test_cfg.update(max_per_img=20)
+    return _plain(m)
+
+
+def _plain(obj):
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_plain(v) for v in obj)
+    return obj
+
+
+def batch(seed=4, n=2, g=4):
+    """``n`` images of ``HW`` with ``g`` seeded gts each (the last of image
+    1 padding), numpy, NHWC."""
+    rng = np.random.RandomState(seed)
+    h, w = HW
+    x1 = rng.uniform(0, w - 30, (n, g))
+    y1 = rng.uniform(0, h - 30, (n, g))
+    gt = np.stack([x1, y1, np.minimum(x1 + rng.uniform(10, 50, (n, g)), w),
+                   np.minimum(y1 + rng.uniform(10, 40, (n, g)), h)], -1).astype(np.float32)
+    valid = np.ones((n, g), bool)
+    valid[1, -1] = False
+    gt[1, -1] = 0
+    labels = rng.randint(0, NUM_CLASSES, (n, g)).astype(np.int32)
+    labels[1, -1] = 0
+    return {"img": rng.normal(0, 1, (n, h, w, 3)).astype(np.float32),
+            "gt_bboxes": gt, "gt_labels": labels, "gt_valid": valid,
+            "img_shape": np.array([[h, w]] * n, np.float32),
+            "scale_factor": np.ones((n, 4), np.float32)}
+
+
+def randomize(variables, seed=2):
+    """Seeded numpy weights on the tree of ``variables`` (shapes only)."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        shape, name = tuple(leaf.shape), path[-1]
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            std = np.sqrt(2.0 / fan_in) if path[-2].endswith("dconv") else 1 / np.sqrt(fan_in)
+            return rng.normal(0, std, shape)
+        if name in ("scales", "reg_scales", "scales_refine"):
+            return rng.uniform(0.8, 1.2, shape)
+        if name == "center_prior_mean":
+            return rng.normal(0, 0.3, shape)
+        if name == "center_prior_sigma":
+            return rng.uniform(0.8, 1.5, shape)
+        if name in ("scale", "var"):
+            return rng.uniform(0.8, 1.2, shape)
+        if name in ("bias", "mean"):
+            return rng.normal(0, 0.05, shape)
+        raise KeyError("/".join(path))
+
+    def walk(tree, path=()):
+        return {k: walk(v, path + (k,)) if hasattr(v, "items")
+                else fill(path + (k,), v).astype(np.float32) for k, v in tree.items()}
+
+    return walk(variables)
