@@ -213,9 +213,9 @@ non-zero exit code:
    ``tools/torch_test.py`` on the val set; the loader alone
    over the train set: images/s and host ms per stage (``Expand``,
    ``MinIoURandomCrop``, the float ``Resize``, ``PhotoMetricDistortion``)
-   and the collate. After every timed run a profiled request and a
-   profiled step per dtype: busy shares and the ``train_step: oamix``
-   span's host and device ms.
+   and the collate. (Its profiled request and step per dtype, the phase
+   ``profile-yolo``, were cut to keep the run inside its limit; the
+   flagship's profiled steps read the same stage spans.)
 7e. tta: test-time augmentation on 4 of phase 5b's PNGs, per dtype: the
    flagship's test pipeline as ``MultiScaleFlipAug(img_scale=[(2048, 1024),
    (1536, 768)], flip=True)`` (4 views) through ``build_test_loader`` and
@@ -338,9 +338,10 @@ non-zero exit code:
    R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
    branch's 14x14 (a request's masks too); one more Sparse and Grid step a
    dtype with every B1 and B2 call held to the plain versions in place.
-8e. onestage: the one-stage family's first seven configs (``ONESTAGE``:
-   FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign), each at its config's full
-   width with seeded weights, 80 classes as published, on the Cityscapes
+8e. onestage: the one-stage family's twelve configs (``ONESTAGE``:
+   FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox, FSAF,
+   FreeAnchor, PISA-RetinaNet, LD with its R50-FPN GFL teacher), each at
+   its config's full width with seeded weights, 80 classes as published, on the Cityscapes
    base's 1024x2048 canvas; the classifier bias moved to the 0.01 prior
    plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
    0, where every one of the 5 x 1000 x 80 candidates would pass
@@ -350,6 +351,10 @@ non-zero exit code:
    gts from mmdet's classifier prior, every loss finite float32), each
    with B1's and B2's counts set to 0
    just before it and read just after: none of these paths launches them.
+   LD's teacher forward is timed after its steps and logged as a share of
+   the second step; FreeAnchor's step peak must stay within
+   ``BAG_PEAK_GIB`` of PISA-RetinaNet's (the same 392,832 anchors and no
+   bags), per dtype: a (G, N, C) ``box_prob`` would not.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
@@ -363,7 +368,12 @@ non-zero exit code:
    of B1 and B2, on float32 and on bfloat16 maps, and ``torch.bincount`` wait for the device inside a call, so
    a run of them cannot be queued ahead: their device time is the sum of
    their kernels' durations). Last, because the profiler's tracing stays
-   attached to the process and slows every later launch on the host.
+   attached to the process and slows every later launch on the host. The
+   profiler at times loses a session's device records (all of them in one
+   session of an earlier run, 131 of 400 in another): a session whose
+   kernel, copy and memset records fall short of the host's launch, copy
+   and memset calls (``profile_census``) by more than 5% is made again, up
+   to three times, and the most complete one is kept, any shortfall logged.
 11. a JSON line of the kernels (``launches``: the training step's, B1's
    test loop's and robustness sweep's, the baseline step's, the f32
    training loop's, the DWD f32 step's, requests' and test loop's, and the
@@ -550,29 +560,82 @@ def _queued_run(fn, n, ring, head_ms):
     return start.elapsed_time(end) / n, statistics.median(host) * 1e6, ahead
 
 
+PROFILE_ATTEMPTS = 3
+PROFILE_SHORTFALL = 0.05    # of a session's device calls: more lost records and it is made again
+
+
 def _profiled_run(fn, n, ring):
     """The device time per call as the sum of the durations of every kernel
     and copy ``torch.profiler`` saw in ``n`` calls, for a call that
-    synchronises inside and so cannot be queued ahead. -> (device ms per
-    call, median host us per call, synchronises included)."""
+    synchronises inside and so cannot be queued ahead. The profiler loses
+    device records at times (PERF.md 7): a session whose kernel, copy and
+    memset records fall short of the host calls that make one
+    (``profile_census``) by more than ``PROFILE_SHORTFALL`` of them is made
+    again, up to ``PROFILE_ATTEMPTS`` sessions; the most complete one is
+    kept and any shortfall logged. It raises if that one saw no device
+    time. -> (device ms per call, median host us per call, synchronises
+    included)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    kept = [None] * ring
-    host = []
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            t0 = time.perf_counter()
-            kept[i % ring] = fn(i)
-            host.append(time.perf_counter() - t0)
+    best = None
+    for attempt in range(PROFILE_ATTEMPTS):
+        kept = [None] * ring
+        host = []
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False))
-    if not busy > 0:
-        raise RuntimeError("torch.profiler saw no device time")
-    return busy / 1e3 / n, statistics.median(host) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                t0 = time.perf_counter()
+                kept[i % ring] = fn(i)
+                host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        census = profile_census(prof)
+        lost = census["device_calls"] - census["device_records"]
+        if best is None or lost < best[0]:
+            best = (lost, census, host)
+        if lost <= PROFILE_SHORTFALL * census["device_calls"] and census["device_us"] > 0:
+            break
+        log("profiled", f"session {attempt + 1} of {PROFILE_ATTEMPTS} lost {lost} device "
+                        f"records: {json.dumps(census)}")
+    lost, census, host = best
+    if not census["device_us"] > 0:
+        raise RuntimeError(f"torch.profiler saw no device time in {PROFILE_ATTEMPTS} sessions")
+    if lost > 0:
+        log("profiled", f"kept a session {lost} of {census['device_calls']} device records "
+                        "short (its time is low by theirs)")
+    return census["device_us"] / 1e3 / n, statistics.median(host) * 1e6
+
+
+# host calls that each put one record on the device's timeline (kernel,
+# copy, memset)
+DEVICE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync", "cudaMemset")
+
+
+def profile_census(prof):
+    """What a profiler session recorded: the device time of the CUDA-typed
+    entries (``device_us``) and what the CPU ops carry of it, the device
+    records (kernels, copies, memsets) against the host calls that make one
+    (``DEVICE_CALLS``), kineto's raw events by device type, and every
+    CUDA API call's count."""
+    import collections
+    from torch.autograd import DeviceType
+    events = prof.events()
+    records = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    api = collections.Counter(e.name for e in events if e.device_type == DeviceType.CPU
+                              and e.name.startswith("cu"))
+    averages = prof.key_averages()
+    return {
+        "device_us": sum(e.self_device_time_total for e in averages
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+        "cpu_ops_device_us": sum(e.self_device_time_total for e in averages
+                                 if e.device_type == DeviceType.CPU),
+        "device_records": len(records),
+        "device_calls": sum(api[k] for k in DEVICE_CALLS),
+        "kineto_events": dict(collections.Counter(
+            str(e.device_type()).split(".")[-1] for e in prof.profiler.kineto_results.events())),
+        "api_calls": dict(api)}
 
 
 def device_time(fn, n, ring=3, method=None):
@@ -1892,24 +1955,22 @@ def phase_slice(rows):
     return handles
 
 
-def serving_profile(name, cfg=FLAGSHIP, tag="slice-profile", pipeline=False):
+def serving_profile(name, cfg=FLAGSHIP, tag="slice-profile"):
     """One request of the seeded ``cfg`` at ``name`` (after a warm-up)
     under torch.profiler: its wall time, the device's busy share and the
-    kernels that take most of it. The request goes through the config's test
-    pipeline (``prepare_batch``) with ``pipeline``, else ``prepare_image``.
-    After every timed run (the profiler slows the host's launches for the
-    rest of the process)."""
+    kernels that take most of it. The request goes through
+    ``prepare_image``. After every timed run (the profiler slows the host's
+    launches for the rest of the process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from oadg_tpu_torch.apis import init_detector, prepare_batch, prepare_image
+    from oadg_tpu_torch.apis import init_detector, prepare_image
     handle = init_detector(cfg if isinstance(cfg, dict) else str(cfg), device="cuda", seed=0,
                            dtype=torch_dtype(name))
     img = request_image(np.random.RandomState(1))
 
     def request():
-        handle.test(prepare_batch(handle, img) if pipeline
-                    else prepare_image(img, handle.cfg, handle.device))
+        handle.test(prepare_image(img, handle.cfg, handle.device))
         torch.cuda.synchronize()
 
     request()
@@ -3785,8 +3846,6 @@ YOLO_F32_MEDIAN = 2e-2
 # CPU against JAX's bf16 step (tests/test_torch_yolo_slice.py).
 YOLO_BF16_MEDIAN_RATIO = 1.5
 YOLO_TOOL_IMAGES = 8                    # the tool run: 1 step of the config's batch an epoch
-YOLO_STAGES = ("train_step: oamix", "forward_train: backbone+neck", "forward_train: head",
-               "forward_train: loss", "train_step: backward", "train_step: sgd")
 YOLO_LOSSES = ("loss_cls", "loss_conf", "loss_xy", "loss_wh", "loss_csconf", "loss_cscls",
                "loss_cont")
 
@@ -3852,8 +3911,7 @@ def phase_yolo_serve(rows):
     image through the config's test pipeline (``prepare_batch``: 512x1024)
     and ``DetectorHandle.test``; then the card against the same seeded model
     on the CPU on a 256x512 request: the neck's outputs, the head's maps
-    and the detections. -> {dtype: numbers} (``phase_yolo`` profiles a
-    request per dtype through ``serving_profile``)."""
+    and the detections. -> {dtype: numbers}."""
     import torch
     from oadg_tpu_torch.apis import init_detector, prepare_batch, prepare_image
     cfg = yolo_cfg()
@@ -3940,8 +3998,7 @@ def phase_yolo_train(rows):
     tables imply; the 7 losses finite float32; the backbone's BN buffers
     unchanged, every neck and head BN buffer moved, every parameter moved;
     then B3-B7 checked in place on the batch's own table on each chain; and
-    ``check_yolo_step_on_card``. -> ({dtype: numbers}, a function that
-    profiles one step per dtype)."""
+    ``check_yolo_step_on_card``. -> {dtype: numbers}."""
     import torch
     from oadg_tpu_torch.engine import make_oadg_preprocess
     from oadg_tpu_torch.ops.oamix_device import oamix_batch
@@ -3950,7 +4007,7 @@ def phase_yolo_train(rows):
     oamix_cfg = yolo_oamix_cfg(cfg)
     version = oamix_cfg["version"]
     wrappers = oamix_wrappers()
-    out, steps = {}, {}
+    out = {}
     for name in DTYPES:
         dtype = torch_dtype(name)
         current = ["slots"]
@@ -4035,7 +4092,6 @@ def phase_yolo_train(rows):
             r["launches_yolo" + suffix] = launched.get(r["name"], 0) + (
                 merged["merged_shift_rows"] if r["name"] == "merged_shift_rows" else 0)
         out[name] = dict(median_ms=median, peak_gib=peak, merged_ms=merged_ms)
-        steps[name] = (step, batch, gen)
 
         if name == "f32":          # B3-B7 in place on the batch's own table, each chain
             with checked_kernels() as checks:
@@ -4049,21 +4105,11 @@ def phase_yolo_train(rows):
                                   f"vs plain max_abs_err {max(c.errors, default=0):.3e}")
                 if not c.errors:
                     raise AssertionError(f"yolo: {n} did not run on the step's table")
-        del model
+        del model, step
         torch.cuda.empty_cache()
 
     check_yolo_step_on_card(cfg)
-
-    def profile():
-        for name, (step, batch, gen) in steps.items():
-            out[name]["busy"], spans = train_profile(step, batch, gen, "slots", name,
-                                                     YOLO_STAGES, "yolo-profile")
-            out[name]["oamix_host_ms"], out[name]["oamix_device_ms"] = \
-                spans["train_step: oamix"]
-        steps.clear()
-        torch.cuda.empty_cache()
-
-    return out, profile
+    return out
 
 
 def yolo_step_grads(where, cfg, dtype, batch, draws):
@@ -4308,19 +4354,14 @@ def phase_yolo(rows, val):
     """The YOLOv3 slice's paths: serving, the training step and the tools,
     each driven with the kernels' counts set to 0 just before it; the f32
     step's launches (slots chain, and the merged step's B7) are added to each
-    row's ``launches``. -> (numbers, a function that profiles)."""
+    row's ``launches``. -> numbers. (Its profiled request and step, the
+    phase ``profile-yolo``, were cut to keep the run inside its limit.)"""
     serve = phase_yolo_serve(rows)
-    train, train_profile_fn = phase_yolo_train(rows)
+    train = phase_yolo_train(rows)
     tools = phase_yolo_tools(rows, val)
     for r in rows:
         r["launches"] += r["launches_yolo"]
-
-    def profile():
-        for name in DTYPES:
-            serve[name]["busy"] = serving_profile(name, yolo_cfg(), "yolo-profile", pipeline=True)
-        train_profile_fn()
-
-    return dict(serve=serve, train=train, tools=tools), profile
+    return dict(serve=serve, train=train, tools=tools)
 
 
 TTA_IMAGES = 4              # images of phase 5b's set in the TTA phase
@@ -5489,7 +5530,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
 
 
 def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False,
-                   prepare=None):
+                   prepare=None, probe=None):
     """Two training steps (``make_train_step``, SGD at the config's LR, no
     OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
     pipeline with seeded gts: losses finite float32, B1 and B2 once a step
@@ -5500,7 +5541,9 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
     every ``loss_mask`` then > 0); phase ``onestage`` ``prepare``, applied
     to the model before the steps (``classifier_prior``). The two steps must launch B1 and B2 as
     ``path_launches(family, True)`` says; C4 and HTC run a third step with
-    every call held to the plain versions in place (``IN_PLACE_CALLS``)."""
+    every call held to the plain versions in place (``IN_PLACE_CALLS``).
+    ``probe(model, batch)``, where given, runs after the steps and its dict
+    joins the result (LD's ``teacher_ms``)."""
     import torch
     cfg = longtail_cfg(path) if cfg is None else cfg
     n = cfg.data.samples_per_gpu
@@ -5545,6 +5588,8 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
                losses={k: float(v) for k, v in logs[-1].items()})
     if family == "giou":
         out["iou_family"] = check_iou_family(seen)
+    if probe is not None:
+        out.update(probe(model, batch))
     if family in IN_PLACE_CALLS:
         checks, restore = _checked_roi_align()
         try:
@@ -6297,8 +6342,30 @@ ONESTAGE = (
     ("tood", "configs/tood/tood_r50_fpn_1x_coco.py"),
     ("paa", "configs/paa/paa_r50_fpn_1x_coco.py"),
     ("autoassign", "configs/autoassign/autoassign_r50_fpn_8x2_1x_coco.py"),
+    ("fovea", "configs/foveabox/fovea_r50_fpn_4x4_1x_coco.py"),
+    ("fsaf", "configs/fsaf/fsaf_r50_fpn_1x_coco.py"),
+    ("free_anchor", "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py"),
+    ("pisa_retina", "configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py"),
+    ("ld", "configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py"),
 )
 ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
+BAG_PEAK_GIB = 2.0      # FreeAnchor's step peak over PISA-RetinaNet's: a (G, N, C) box_prob
+                        # (4.02 GB f32 at 392,832 anchors, 32 gts, 80 classes) would pass it
+
+
+def teacher_ms(model, batch):
+    """LD's teacher forward (its backbone, neck and head under ``no_grad``)
+    on the step's batch: the host-clock ms of the second of two runs, each
+    between two synchronises."""
+    import torch
+    teacher = model.teacher_model
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            teacher.bbox_head(teacher.extract_feat(batch["img"]))
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def phase_onestage(rows):
@@ -6312,12 +6379,19 @@ def phase_onestage(rows):
     import torch
     t0 = time.perf_counter()
     out = {}
+    probes = {"ld": lambda model, batch: {"teacher_ms": teacher_ms(model, batch)}}
     for family, path in ONESTAGE:
         for name in DTYPES:
             res = out[f"{family}_{name}"] = dict(
                 serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, phase="onestage"),
                 train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, phase="onestage",
-                                     prepare=classifier_prior))
+                                     prepare=classifier_prior, probe=probes.get(family)))
+            if family == "ld":
+                step = res["train"]["step_ms"][-1]
+                res["train"]["teacher_share"] = res["train"]["teacher_ms"] / step
+                log("onestage", f"ld {name}: the teacher's forward {res['train']['teacher_ms']:.3f}"
+                                f" ms, {100 * res['train']['teacher_share']:.1f}% of the second "
+                                f"step's {step:.3f} ms ({nvidia_smi_line()})")
             log("onestage", f"{family} {name}: request {res['serve']['request_ms']:.3f} ms "
                             f"(peak {res['serve']['peak_gib']:.2f} GiB, NMS "
                             f"{res['serve']['nms']['above']} of {res['serve']['nms']['candidates']}"
@@ -6326,6 +6400,13 @@ def phase_onestage(rows):
                             f"{res['train']['peak_gib']:.2f} GiB), B1 and B2 launches 0 "
                             f"({nvidia_smi_line()})")
             torch.cuda.empty_cache()
+    for name in DTYPES:
+        bag, plain = (out[f"{f}_{name}"]["train"]["peak_gib"] for f in ("free_anchor", "pisa_retina"))
+        log("onestage", f"{name}: FreeAnchor's step peak {bag:.2f} GiB, PISA-RetinaNet's (the same "
+                        f"392,832 anchors, no bags) {plain:.2f} GiB ({nvidia_smi_line()})")
+        if not bag - plain < BAG_PEAK_GIB:
+            raise AssertionError(f"onestage {name}: FreeAnchor's peak {bag:.2f} GiB is "
+                                 f"{bag - plain:.2f} GiB over PISA-RetinaNet's")
     log("onestage", f"phase onestage: {time.perf_counter() - t0:.2f} s")
     return out
 
@@ -6416,7 +6497,7 @@ def main():
     baseline = timed("baseline", phase_baseline, rows)
     loop_profile = timed("train-loop", phase_train_loop, rows, tool_val)
     dwd = timed("dwd", phase_dwd, rows)
-    yolo, yolo_profile = timed("yolo", phase_yolo, rows, tool_val)
+    yolo = timed("yolo", phase_yolo, rows, tool_val)
     tta, tta_profile = timed("tta", phase_tta, rows, evaluate_profile.val)
     engine = timed("engine", phase_engine, rows, evaluate_profile.val)
     rows += mask_rows
@@ -6431,7 +6512,6 @@ def main():
 
     for _, profile in trains.values():
         timed("profile-train", profile)
-    timed("profile-yolo", yolo_profile)
     timed("profile-tta", tta_profile)
     timed("profile-mask", mask_profile)
     timed("profile-dist", dist_profile)

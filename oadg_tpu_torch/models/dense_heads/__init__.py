@@ -1,9 +1,12 @@
 """Dense heads of the port; the one-stage family's modules also register
 their detectors (``FCOS``, ``ATSS``, ``GFL``, ``VFNet``, ``TOOD``, ``PAA``,
-``AutoAssign``)."""
+``AutoAssign``, ``FOVEA``, ``FSAF``,
+``KnowledgeDistillationSingleStageDetector``)."""
 from .atss_head import ATSSHead
-from .autoassign_ld_heads import AutoAssignHead
+from .autoassign_ld_heads import AutoAssignHead, LDHead, PISARetinaHead
 from .fcos_head import FCOSHead
+from .fovea_fsaf_heads import FoveaHead, FSAFHead
+from .free_anchor_heads import FreeAnchorRetinaHead
 from .gfl_head import GFLHead
 from .paa_head import PAAHead
 from .retina_head import RetinaHead
@@ -12,5 +15,6 @@ from .tood_head import TOODHead
 from .vfnet_head import VFNetHead
 from .yolo_head import YOLOV3Head, YOLOV3HeadCont
 
-__all__ = ["ATSSHead", "AutoAssignHead", "FCOSHead", "GFLHead", "PAAHead", "RetinaHead",
+__all__ = ["ATSSHead", "AutoAssignHead", "FCOSHead", "FoveaHead", "FreeAnchorRetinaHead",
+           "FSAFHead", "GFLHead", "LDHead", "PAAHead", "PISARetinaHead", "RetinaHead",
            "RPNHead", "TOODHead", "VFNetHead", "YOLOV3Head", "YOLOV3HeadCont"]

@@ -1,10 +1,12 @@
-"""AutoAssign head and detector (port of the AutoAssign part of
-``oadg_tpu/models/dense_heads/autoassign_ld_heads.py:32-114,217``; its LD,
-LAD, NAS-FCOS and PISA heads are not ported).
+"""AutoAssign, LD and PISA-RetinaNet heads and their detectors (port of
+``oadg_tpu/models/dense_heads/autoassign_ld_heads.py:32-286``; its NAS-FCOS,
+LAD and PISA-SSD heads are not ported: no config of the repo names LAD or
+PISA-SSD, and NAS-FCOS waits for its neck, ROADMAP A.2.7b).
 
-``FCOSHead``'s towers and outputs (the centerness conv is the objectness),
-plus ``center_prior``: a learned per-class Gaussian centre prior, ``mean``
-(C, 2) at 0 and ``sigma`` (C, 2) at 1 (mmdet's ``CenterPrior`` keys).
+``AutoAssignHead`` (``:32-114``): ``FCOSHead``'s towers and outputs (the
+centerness conv is the objectness), plus ``center_prior``: a learned
+per-class Gaussian centre prior, ``mean`` (C, 2) at 0 and ``sigma`` (C, 2)
+at 1 (mmdet's ``CenterPrior`` keys).
 
 - ``loss`` (``:51-114``), fully differentiable, per image: the prior
   ``g = exp(-((d / stride - mean) / sigma) ** 2 / 2)`` of each point inside
@@ -17,19 +19,48 @@ plus ``center_prior``: a learned per-class Gaussian centre prior, ``mean``
   1) / (max - 1)``), ``loss_center`` the ``-log`` of each gt's mean prior;
   each over the batch's gts, times 0.25, 0.75 and 0.75.
 - ``get_bboxes``: ``FCOSHead``'s, the objectness as the centerness.
+
+``LDHead`` (``:126-160``): a ``GFLHead`` whose ``loss`` takes the teacher's
+bin logits as ``soft_targets`` and adds ``loss_ld``, the distillation KL
+(``KnowledgeDistillationKLDivLoss``, T = 10, weight 0.25) of the student's
+``4 x (reg_max + 1)`` bin logits against the teacher's (detached), the mean
+over every point's four sides (mmdet's is over the positives alone,
+weighted by their scores; ROADMAP C).
+
+``KnowledgeDistillationSingleStageDetector`` (``:172-207``): the student
+and ``teacher_model``, a plain ``SingleStageDetector`` of the
+``teacher_config.model``'s backbone, neck and head. ``forward_train`` runs
+the teacher under ``no_grad`` (its ``forward_train: teacher`` span) and
+hands its bin logits to the student's loss; the test path is the
+student's. The teacher's parameters do not require grad, so the optimizer
+never sees them (mmdet's behaviour: SGD skips a parameter without a
+gradient), and the teacher stays in eval mode. JAX's teacher sits in the
+optimized tree and decays with SGD's weight decay every step (ROADMAP C).
+``init_weights`` seeds the teacher too.
+
+``PISARetinaHead`` (``:226-286``): ``RetinaHead``'s MaxIoU assignment;
+ISR-P label weights of the positives from a stable IoU rank over the
+global batch (``losses.pisa.isr_p_weights``, the one-process order under
+data parallel); focal loss with those weights and L1 over ``num_pos``;
+``loss_carl``, CARL's SmoothL1 (beta 1/9) of the positives' deltas
+weighted by the class sigmoid at their label, normalized to the positives'
+count (a global sum that carries its gradient), times 5 over ``num_pos``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.transforms import distance2bbox
-from ...parallel import shard_sum
-from ...utils.registry import DETECTORS, HEADS
+from ...parallel import shard_sum, shard_sum_grad
+from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..detectors.single_stage import SingleStageDetector
+from ..losses.pisa import isr_p_weights
 from .fcos_head import FCOSHead, level_points
-from .retina_head import _flatten
+from .gfl_head import GFLHead
+from .retina_head import RetinaHead, _flatten
 
 
 def _clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
@@ -111,3 +142,115 @@ class AutoAssignHead(FCOSHead):
 @DETECTORS.register_module()
 class AutoAssign(SingleStageDetector):
     """``autoassign_ld_heads.py:217``."""
+
+
+@HEADS.register_module()
+class LDHead(GFLHead):
+
+    def __init__(self, loss_ld=None, **kwargs):
+        super().__init__(**kwargs)
+        self.l_ld = build_from_cfg(dict(loss_ld or dict(
+            type="KnowledgeDistillationKLDivLoss", loss_weight=0.25, T=10)), LOSSES)
+
+    def loss(self, outs, gt_bboxes, gt_valid, gt_labels, draws=None, soft_targets=None):
+        """``GFLHead``'s losses of N images, and ``loss_ld`` against the
+        teacher's per-level bin logits ``soft_targets`` where given: the
+        mean over every row of ``reg_max + 1`` bins (of every rank's rows
+        under data parallel)."""
+        losses = super().loss(outs, gt_bboxes, gt_valid, gt_labels, draws)
+        if soft_targets is not None:
+            nb = self.reg_max + 1
+            pred = _flatten(outs[1], 4 * nb).float().reshape(-1, nb)
+            soft = _flatten(soft_targets, 4 * nb).float().detach().reshape(-1, nb)
+            rows = shard_sum(pred.new_tensor(float(pred.shape[0])))
+            losses["loss_ld"] = self.l_ld(pred, soft, avg_factor=rows)
+        return losses
+
+
+@DETECTORS.register_module()
+class KnowledgeDistillationSingleStageDetector(SingleStageDetector):
+
+    def __init__(self, backbone, neck=None, bbox_head=None, teacher_config=None,
+                 device=None, dtype=None, **kwargs):
+        super().__init__(backbone, neck, bbox_head, device=device, dtype=dtype, **kwargs)
+        if teacher_config is None:
+            raise ValueError("KnowledgeDistillationSingleStageDetector needs a teacher_config")
+        model = dict(dict(teacher_config).get("model", teacher_config))
+        self.teacher_model = SingleStageDetector(
+            **{k: model[k] for k in ("backbone", "neck", "bbox_head") if k in model},
+            device=device, dtype=dtype)
+        self.teacher_model.requires_grad_(False)
+
+    def init_weights(self, gen: torch.Generator):
+        """The student's and the teacher's seeded weights (the default init
+        covers both; then each head's own)."""
+        super().init_weights(gen)
+        self.teacher_model.bbox_head.init_weights(gen)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.teacher_model.train(False)
+        return self
+
+    def forward_train(self, batch, draws):
+        """The student's loss dict, ``loss_ld`` against the teacher's bin
+        logits."""
+        with record_function("forward_train: backbone+neck"):
+            feats = self.extract_feat(batch["img"])
+        with record_function("forward_train: head"):
+            outs = self.bbox_head(feats)
+        with record_function("forward_train: teacher"), torch.no_grad():
+            teacher = self.teacher_model
+            soft = teacher.bbox_head(teacher.extract_feat(batch["img"]))[1]
+        with record_function("forward_train: loss"):
+            return self.bbox_head.loss(outs, batch["gt_bboxes"], batch["gt_valid"],
+                                       batch["gt_labels"], draws, soft_targets=soft)
+
+
+@HEADS.register_module()
+class PISARetinaHead(RetinaHead):
+
+    def __init__(self, isr_k: float = 2.0, isr_bias: float = 0.0, carl_k: float = 1.0,
+                 carl_lambda: float = 5.0, num_views: int = 1, **kwargs):
+        super().__init__(num_views=num_views, **kwargs)
+        self.num_views = num_views
+        self.isr_k, self.isr_bias = float(isr_k), float(isr_bias)
+        self.carl_k, self.carl_lambda = float(carl_k), float(carl_lambda)
+
+    def loss(self, outs, gt_bboxes, gt_valid, gt_labels, draws=None):
+        """``loss_cls`` (focal, ISR-P label weights), ``loss_bbox`` (L1) and
+        ``loss_carl`` of N images; ``draws`` is unused."""
+        cls_scores, bbox_preds = outs
+        n = cls_scores[0].shape[0]
+        anchors = self.prior_generator.grid_priors_cat(
+            [tuple(s.shape[-2:]) for s in cls_scores], cls_scores[0].device)
+        k, nc = anchors.shape[0], self.num_classes
+        cls = _flatten(cls_scores, nc).float()
+        reg = _flatten(bbox_preds, 4).float()
+        with torch.no_grad():
+            assign = self.assigner.assign(anchors, gt_bboxes, gt_valid, gt_labels=gt_labels)
+            pos = assign.gt_inds > 0
+            neg = assign.gt_inds == 0
+            labels = torch.where(pos, assign.labels, torch.full_like(assign.labels, nc))
+            matched = (assign.gt_inds - 1).clamp(0, gt_bboxes.shape[1] - 1)
+            matched_gt = torch.gather(gt_bboxes, 1, matched[..., None].expand(n, k, 4))
+            deltas = self.bbox_coder.encode(anchors.expand(n, k, 4), matched_gt)
+            posm = pos.reshape(-1)
+            w_isr, num_pos = isr_p_weights(assign.max_overlaps.reshape(-1), posm, self.isr_k,
+                                           self.isr_bias, self.num_views)
+            lw = (pos | neg).float().reshape(-1) * torch.where(posm, w_isr,
+                                                               torch.ones_like(w_isr))
+            bw = pos.float()[..., None].expand(n, k, 4)
+        loss_cls = build_from_cfg(self.loss_cls_cfg, LOSSES)
+        loss_bbox = build_from_cfg(self.loss_bbox_cfg, LOSSES)
+        lab = labels.reshape(-1).clamp(0, nc - 1)
+        sg = torch.gather(torch.sigmoid(cls.reshape(-1, nc)), 1, lab[:, None])[:, 0]
+        cw = sg ** self.carl_k
+        pm = posm.float()
+        cw = cw * num_pos / shard_sum_grad((cw * pm).sum()).clamp(min=1e-6)
+        d = (reg.reshape(-1, 4) - deltas.reshape(-1, 4)).abs()
+        sl1 = torch.where(d < 1.0 / 9.0, 4.5 * d * d, d - 1.0 / 18.0).sum(-1)
+        return dict(
+            loss_cls=loss_cls(cls.reshape(-1, nc), labels.reshape(-1), lw, avg_factor=num_pos),
+            loss_bbox=loss_bbox(reg, deltas, bw, avg_factor=num_pos),
+            loss_carl=self.carl_lambda * (cw * sl1 * pm).sum() / num_pos)

@@ -1,5 +1,6 @@
-"""The varifocal loss (port of ``oadg_tpu/models/losses/extra.py:19-52``),
-VFNet's classification loss."""
+"""The varifocal loss and LD's knowledge-distillation KL (port of
+``oadg_tpu/models/losses/extra.py:19-70``): VFNet's classification loss and
+LD's ``loss_ld``."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +38,24 @@ class VarifocalLoss:
             weight = weight[..., None]
         return self.loss_weight * weight_reduce_loss(
             loss, weight, reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class KnowledgeDistillationKLDivLoss:
+    """LD's soft-label KL (``extra.py:53-70``): with ``q = softmax(soft_label
+    / T)``, ``T ** 2 * sum_bins q (log max(q, 1e-12) - log_softmax(pred /
+    T))`` per row, through ``weight_reduce_loss``."""
+
+    def __init__(self, reduction: str = "mean", loss_weight: float = 1.0, T: float = 10, **kw):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+        self.T = T
+
+    def __call__(self, pred, soft_label, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        t = self.T
+        q = torch.softmax(soft_label / t, dim=-1)
+        logp = torch.log_softmax(pred / t, dim=-1)
+        kd = (q * (torch.log(torch.clamp_min(q, 1e-12)) - logp)).sum(-1) * (t * t)
+        return self.loss_weight * weight_reduce_loss(
+            kd, weight, reduction_override or self.reduction, avg_factor)

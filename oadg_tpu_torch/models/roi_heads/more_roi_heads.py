@@ -22,7 +22,9 @@ by their rank in a global IoU order (``torch.argsort(..., stable=True)``,
 as ``jnp.argsort``: the padded rows tie at -1), normalised to keep the
 positives' weight mass; CARL adds ``loss_carl``, a SmoothL1 of the
 positives' deltas at their class weighted by that class's probability
-(``:284-318``).
+(``:284-318``). Under data parallel the rank runs over every rank's rows in
+the one-process order (``losses.pisa.isr_p_weights``), and CARL's weight
+mass and the positives' count are global.
 
 ``DoubleHeadRoIHead`` is ``StandardRoIHead`` with the box head
 ``DoubleConvFCBBoxHead`` (``bbox_heads.py``).
@@ -65,10 +67,11 @@ from torch import nn
 from torch.profiler import record_function
 
 from ...core.bbox.geometry import bbox_overlaps
-from ...parallel import batch_is_sharded, shard_sum
+from ...parallel import shard_sum, shard_sum_grad
 from ...utils.registry import DETECTORS, HEADS, ROI_EXTRACTORS, build_from_cfg
 from ..detectors.two_stage import TwoStageDetector
 from ..layers import Conv, ConvGN, Linear, normal_
+from ..losses.pisa import isr_p_weights
 from .mask_heads import ConvTranspose
 from .standard_roi_head import StandardRoIHead
 
@@ -174,11 +177,10 @@ class PISARoIHead(StandardRoIHead):
     def loss(self, feats, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
              draws, random_proposals=None, random_valid=None, gt_masks=None):
         """``loss_cls`` and ``loss_bbox`` with the ISR-P label weights, ``acc``
-        and ``loss_carl``. Its IoU rank spans the whole batch, so under data
-        parallel it would need every rank's rows: it raises there."""
-        if batch_is_sharded():
-            raise NotImplementedError("PISARoIHead ranks IoUs over the global batch; the "
-                                      "port does not gather them across ranks")
+        and ``loss_carl``. The IoU rank spans the global batch: under data
+        parallel every rank's rows are gathered in the one-process order
+        (``losses.pisa.isr_p_weights``), and CARL's weight mass and ``npos``
+        are global sums."""
         v = self.num_views
         b = feats[0].shape[0] // v
         with torch.no_grad():
@@ -192,14 +194,7 @@ class PISARoIHead(StandardRoIHead):
             posm = (is_pos & valid).reshape(-1)
             ious = bbox_overlaps(boxes.reshape(-1, 4), matched_gt.reshape(-1, 4),
                                  is_aligned=True)
-            ious = torch.where(posm, ious, torch.full_like(ious, -1.0))
-            order = torch.argsort(-ious, stable=True)
-            rank = torch.empty_like(order)
-            rank[order] = torch.arange(order.shape[0], device=order.device)
-            npos = posm.sum().float().clamp(min=1.0)
-            imp = (1.0 - rank.float() / npos).clamp(0.0, 1.0)
-            w_isr = ((1 - self.isr_bias) + self.isr_bias * imp) * imp ** self.isr_k
-            w_isr = w_isr * npos / (w_isr * posm).sum().clamp(min=1e-6)
+            w_isr, npos = isr_p_weights(ious, posm, self.isr_k, self.isr_bias, v)
             lw = tw.reshape(-1) * torch.where(posm, w_isr, torch.ones_like(w_isr))
         cls_score, bbox_pred, _ = self.bbox_forward(feats, self.proposals_to_rois(boxes))
         losses = self.bbox_head.loss(cls_score, bbox_pred, tl, lw, td, tb.reshape(-1, 4))
@@ -208,7 +203,7 @@ class PISARoIHead(StandardRoIHead):
         sg = torch.gather(torch.softmax(cls_score.float(), -1), 1, lab[:, None])[:, 0]
         cw = sg ** self.carl_k
         pm = posm.float()
-        cw = cw / ((cw * pm).mean() * posm.shape[0] / npos).clamp(min=1e-6)
+        cw = cw / (shard_sum_grad((cw * pm).mean() * posm.shape[0]) / npos).clamp(min=1e-6)
         r = bbox_pred.shape[0]
         bp = bbox_pred.reshape(r, -1, 4)
         reg = torch.gather(bp, 1, lab.clamp(0, bp.shape[1] - 1)[:, None, None]

@@ -241,6 +241,39 @@ def shard_sum(t: torch.Tensor) -> torch.Tensor:
     return all_reduce_sum(t) if batch_is_sharded() else t
 
 
+def shard_sum_grad(t: torch.Tensor) -> torch.Tensor:
+    """A global sum that carries a gradient (CARL's weight mass):
+    ``all_reduce_sum_grad(t)`` when the batch is sharded, else ``t``."""
+    return all_reduce_sum_grad(t) if batch_is_sharded() else t
+
+
+def gather_views_major(t: torch.Tensor, num_views: int = 1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's rows ``t`` (n, ...) of a views-major batch (``num_views``
+    equal chunks, each over this rank's images in order) -> the global
+    batch's rows in the one-process order (views-major over the
+    rank-ordered images: view 0 of every rank's images, then view 1, ...)
+    and the positions of this rank's rows in it (n,). A rank's chunks
+    gathered as they lie would interleave the views ([rank 0 view 0, rank 0
+    view 1, rank 1 view 0, ...]), and a stable rank over rows that tie
+    across views would then land on other rows. Without a sharded batch:
+    ``t`` and ``arange(n)``. No gradient flows back."""
+    n = t.shape[0]
+    if not batch_is_sharded():
+        return t, torch.arange(n, device=t.device)
+    rank = dist.get_rank()
+    sizes = row_counts(n, t.device)
+    if any(k % num_views for k in sizes):
+        raise ValueError(f"rows {sizes} do not split into {num_views} views on every rank")
+    parts = [torch.split(part, k // num_views)
+             for part, k in zip(torch.split(gather_rows(t.detach(), sizes), sizes), sizes)]
+    out = torch.cat([p[v] for v in range(num_views) for p in parts])
+    chunk, lo = sum(sizes) // num_views, sum(sizes[:rank]) // num_views
+    mine = torch.cat([torch.arange(v * chunk + lo, v * chunk + lo + n // num_views,
+                                   device=t.device) for v in range(num_views)])
+    return out, mine
+
+
 def sum_gradients(params: Iterable[torch.nn.Parameter]):
     """Sum the gradients of the trainable ``params`` over the ranks in
     place: one flat buffer a dtype, one ``all_reduce(SUM)`` each, which

@@ -98,6 +98,12 @@ and ``reg_offset_conv{1,2}`` ``cls_prob_module.{0,2}`` and
 ``reg_offset_module.{0,2}``; AutoAssign's ``center_prior_mean`` /
 ``_sigma`` ``center_prior.mean`` / ``.sigma``; the other convs keep their
 names (``atss_cls``, ``gfl_reg``, ``tood_cls``, PAA's ``retina_iou``, ...).
+Fovea's and FSAF's towers and outputs keep the same names (``cls_conv{i}``
+``cls_convs.{i}.conv``, ``conv_cls``, ``conv_reg``); mmdet's FSAF, a
+RetinaHead, names its outputs ``retina_cls`` and ``retina_reg``, which
+``load_mmdet_checkpoint`` reads into them (the head's ``mmdet_names``). A
+KD detector's ``teacher`` subtree goes under ``teacher_model.`` (mmdet's
+``KnowledgeDistillationSingleStageDetector`` attribute).
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -221,8 +227,12 @@ def _dense_head_key(rest: Tuple[str, ...]) -> Optional[str]:
 def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key;
     ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
-    ``fpn_convs.{fpn_levels + k}``)."""
+    ``fpn_convs.{fpn_levels + k}``). A KD detector's ``teacher`` subtree
+    (a detector's ``backbone_m``, ``neck_m`` and ``head``) goes under
+    mmdet's ``teacher_model.``."""
     head, rest = path[0], path[1:]
+    if head == "teacher":
+        return f"teacher_model.{_torch_key(rest, fpn_levels)}"
     if head == "backbone_m" and (re.fullmatch(r"down\d+|stage\d+_\d+", rest[0]) or (
             rest[0] == "conv1" and rest[1] in ("conv", "FrozenBN_0"))):
         return _darknet_key(rest)
@@ -389,8 +399,9 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     a width that ``roi_feat_size ** 2`` does not divide raises."""
     sd: Dict[str, torch.Tensor] = {}
     params = dict(variables.get("params") or {})
-    neck = params.get("neck_m") or {}
-    fpn_levels = sum(1 for k in neck if re.fullmatch(r"lateral_\d+", k))
+    fpn_levels = {scope: sum(1 for k in (tree.get("neck_m") or {})
+                             if re.fullmatch(r"lateral_\d+", k))
+                  for scope, tree in (("", params), ("teacher", params.get("teacher") or {}))}
     maskiou = dict(dict(params.get("roi") or {}).get("maskiou") or {})
     convs = sorted((k for k in maskiou if re.fullmatch(r"conv\d+", k)), key=lambda k: int(k[4:]))
     maskiou_ch = (np.asarray(maskiou[convs[-1]]["Conv_0"]["kernel"]).shape[-1]
@@ -399,7 +410,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
             try:
-                key = _torch_key(path, fpn_levels)
+                key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""])
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
@@ -496,6 +507,9 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
     own = model.state_dict()
     take, skipped = {}, []
     sd, backbone_only = mmdet_state_dict(checkpoint)
+    for ours, theirs in getattr(getattr(model, "bbox_head", None), "mmdet_names", {}).items():
+        mine, other = f"bbox_head.{ours}.", f"bbox_head.{theirs}."      # FSAF's retina_cls
+        sd = {mine + k[len(other):] if k.startswith(other) else k: v for k, v in sd.items()}
     for pattern, what in MMDET_ONLY.items():
         extra = sorted(k for k in sd if re.match(pattern, k) and k not in own)
         if extra:

@@ -1,8 +1,8 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 44 configs the port has ported build, the
-other 36 raise the port's refusal (a type the port has not ported,
+them with the JAX package: the 49 configs the port has ported build, the
+other 31 raise the port's refusal (a type the port has not ported,
 "the port builds only the ported slices' types"), never another error;
 TridentNet's refusal names the JAX detector's fault.
 
@@ -14,10 +14,12 @@ the port refuses both types.
 
 Then RetinaNet's, the GIoU Faster R-CNN's, FCOS's and GFL's configs,
 narrowed, through ``tools/torch_train.py`` and ``tools/torch_test.py`` on
-the CPU, the weights of four long-tail models and of VFNet and TOOD through
-``load_mmdet_checkpoint`` under mmdet's names, and the one-stage family's
-seven configs at full width (their towers, GFL's bins, VFNet's DCNs, TOOD's
-task decomposition), with mmdet's tensors that the JAX heads lack refused.
+the CPU, the weights of four long-tail models, of VFNet and TOOD, of FSAF
+(mmdet's ``retina_cls`` / ``retina_reg``) and of LD (its ``teacher_model.``)
+through ``load_mmdet_checkpoint`` under mmdet's names, and the one-stage
+family's twelve configs at full width (their towers, GFL's bins, VFNet's
+DCNs, TOOD's task decomposition, FreeAnchor's and PISA's RetinaHeads, LD's
+teacher), with mmdet's tensors that the JAX heads lack refused.
 """
 import copy
 import glob
@@ -70,13 +72,18 @@ PORTED = {
     "faster_rcnn/faster_rcnn_r50_fpn_soft_nms_1x_coco.py",
     "faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
     "fcos/fcos_r50_fpn_1x_coco.py",
+    "foveabox/fovea_r50_fpn_4x4_1x_coco.py",
+    "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
+    "fsaf/fsaf_r50_fpn_1x_coco.py",
     "gfl/gfl_r50_fpn_1x_coco.py",
     "htc/htc_r50_fpn_1x_coco.py",
+    "ld/ld_r18_gflv1_r101_fpn_coco_1x.py",
     "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
     "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
     "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py",
     "paa/paa_r50_fpn_1x_coco.py",
     "pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py",
+    "pisa/pisa_retinanet_r50_fpn_1x_coco.py",
     "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py",
     "queryinst/queryinst_r50_fpn_1x_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
@@ -114,13 +121,12 @@ def _build(rel):
     return det
 
 
-def test_the_sweep_counts_26_of_80():
-    """44 of the 80 build since the one-stage family's first seven, 36 are
-    refused (the name kept from the long tail's first slice, which ported
-    26)."""
+def test_the_sweep_counts_49_of_80():
+    """49 of the 80 build since FoveaBox, FSAF, FreeAnchor, PISA-RetinaNet
+    and LD, 31 are refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 44
-    assert len(set(ALL_CONFIGS) - PORTED) == 36
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 49
+    assert len(set(ALL_CONFIGS) - PORTED) == 31
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -232,29 +238,63 @@ ONESTAGE = {"atss/atss_r50_fpn_1x_coco.py": ("ATSS", "ATSSHead", 4),
             "vfnet/vfnet_r50_fpn_1x_coco.py": ("VFNet", "VFNetHead", 3),
             "tood/tood_r50_fpn_1x_coco.py": ("TOOD", "TOODHead", 6),
             "paa/paa_r50_fpn_1x_coco.py": ("PAA", "PAAHead", 4),
-            "autoassign/autoassign_r50_fpn_8x2_1x_coco.py": ("AutoAssign", "AutoAssignHead", 4)}
+            "autoassign/autoassign_r50_fpn_8x2_1x_coco.py": ("AutoAssign", "AutoAssignHead", 4),
+            "foveabox/fovea_r50_fpn_4x4_1x_coco.py": ("FOVEA", "FoveaHead", 4),
+            "fsaf/fsaf_r50_fpn_1x_coco.py": ("FSAF", "FSAFHead", 4),
+            "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py":
+                ("RetinaNet", "FreeAnchorRetinaHead", 4),
+            "pisa/pisa_retinanet_r50_fpn_1x_coco.py": ("RetinaNet", "PISARetinaHead", 4),
+            "ld/ld_r18_gflv1_r101_fpn_coco_1x.py":
+                ("KnowledgeDistillationSingleStageDetector", "LDHead", 4)}
+PLAIN_TOWERS = ("FoveaHead", "FSAFHead", "FreeAnchorRetinaHead", "PISARetinaHead")
 
 
 @pytest.mark.parametrize("rel", sorted(ONESTAGE))
 def test_onestage_configs_build_their_heads(rel):
-    """The one-stage family's seven configs at full width, 80 classes: the
+    """The one-stage family's twelve configs at full width, 80 classes: the
     towers' depths (TOOD's shared stack), five per-level scales, GFL's
     4 x (16 + 1) bins, VFNet's two DCNs on 256 channels, TOOD's two task
     decompositions over its 6 x 256 stacked channels, PAA's IoU branch,
     AutoAssign's centre prior; FCOS on a caffe-style ResNet with ReLU before
-    the extra convs, PAA's extra convs on C5."""
+    the extra convs, PAA's extra convs on C5. FoveaBox's and FSAF's plain
+    towers (no GN, no scales) with 80 class and 4 box outputs, FoveaBox's
+    edges and ranges; FreeAnchor's and PISA-RetinaNet's RetinaHead (9
+    anchors a cell); LD's R18 student with a GFL head and its frozen
+    R50-FPN GFL teacher."""
     det = _build(rel)
     kind, head_kind, depth = ONESTAGE[rel]
     head = det.bbox_head
     assert (type(det).__name__, type(head).__name__) == (kind, head_kind)
     tower = head.inter_convs if kind == "TOOD" else head.cls_convs
     assert len(tower) == depth and tower[0].conv.weight.shape == (256, 256, 3, 3)
-    if kind != "PAA":
+    if head_kind in PLAIN_TOWERS:
+        assert not hasattr(head, "scales") and not hasattr(tower[0], "gn")
+    elif kind != "PAA":
         assert len(head.scales) == 5 and head.scales[0].scale.shape == ()
         assert tower[0].gn.num_groups == 32
     cls = {"ATSS": "atss_cls", "FCOS": "conv_cls", "GFL": "gfl_cls", "VFNet": "vfnet_cls",
-           "TOOD": "tood_cls", "PAA": "retina_cls", "AutoAssign": "conv_cls"}[kind]
-    assert getattr(head, cls).weight.shape == (80, 256, 3, 3)
+           "TOOD": "tood_cls", "PAA": "retina_cls", "AutoAssign": "conv_cls",
+           "FOVEA": "conv_cls", "FSAF": "conv_cls", "RetinaNet": "retina_cls",
+           "KnowledgeDistillationSingleStageDetector": "gfl_cls"}[kind]
+    anchors = 9 if kind == "RetinaNet" else 1
+    assert getattr(head, cls).weight.shape == (80 * anchors, 256, 3, 3)
+    if kind in ("FOVEA", "FSAF"):
+        assert head.conv_reg.weight.shape == (4, 256, 3, 3)
+    if kind == "FOVEA":
+        assert head.base_edge_list == (16, 32, 64, 128, 256) and head.sigma == 0.4
+        assert head.scale_ranges[-1] == (256, 2048)
+    if head_kind == "FreeAnchorRetinaHead":
+        assert head.pre_anchor_topk == 50 and head.reg_loss.loss_weight == 0.75
+    if head_kind == "PISARetinaHead":
+        assert head.carl_lambda == 5.0 and head.isr_k == 2.0
+    if head_kind == "LDHead":
+        assert det.neck.lateral_convs[0].conv.weight.shape[1] == 128           # R18's C3
+        assert len(det.backbone.layer1) == 2
+        teacher = det.teacher_model
+        assert type(teacher.bbox_head).__name__ == "GFLHead" and len(teacher.backbone.layer3) == 6
+        assert teacher.neck.lateral_convs[0].conv.weight.shape[1] == 512       # R50's C3
+        assert not any(p.requires_grad for p in teacher.parameters())
+        assert head.l_ld.T == 10 and head.l_ld.loss_weight == 0.25
     if kind == "GFL":
         assert head.gfl_reg.weight.shape == (68, 256, 3, 3) and head.reg_max == 16
     if kind == "VFNet":
@@ -544,3 +584,41 @@ def test_mmdet_checkpoint_names_what_one_side_lacks(case, tmp_path):
         match = "ATSS head.*atss_centerness"
     with pytest.raises(KeyError, match=match):
         load_mmdet_checkpoint(model, {"state_dict": sd})
+
+
+@pytest.mark.parametrize("name", ["fsaf", "ld"])
+def test_mmdet_checkpoint_names_fsaf_outputs_and_ld_teacher(name, tmp_path):
+    """mmdet's FSAF head is a RetinaHead and names its outputs
+    ``retina_cls`` and ``retina_reg``: the port's ``conv_cls`` and
+    ``conv_reg`` load them (``FSAFHead.mmdet_names``). mmdet's LD detector
+    keeps its teacher under ``teacher_model.``: the port's teacher loads
+    from there. Both narrowed (``torch_onestage_cases.tiny_model``): every
+    tensor loaded, the models equal."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = oc.tiny_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+    rename = {"bbox_head.conv_cls.": "bbox_head.retina_cls.",
+              "bbox_head.conv_reg.": "bbox_head.retina_reg."} if name == "fsaf" else {}
+    sd = {}
+    for k, v in src.state_dict().items():
+        for ours, theirs in rename.items():
+            k = k.replace(ours, theirs)
+        sd[k] = v
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": sd, "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"fsaf": ["bbox_head.retina_cls.weight", "bbox_head.retina_reg.bias"],
+            "ld": ["teacher_model.backbone.conv1.weight", "teacher_model.neck.fpn_convs.4.conv.weight",
+                   "teacher_model.bbox_head.gfl_reg.weight", "bbox_head.gfl_reg.weight"]}[name]
+    assert set(want) <= set(sd)
+    assert set(k.replace("retina_", "conv_") for k in want) <= set(report["loaded"])

@@ -2145,15 +2145,16 @@ def _tiny_onestage(rel):
     before the GN has a gradient of 0 plus noise) with one conv a tower
     (TOOD two: with one, its layer attention scales the whole input of a
     bias-free conv and a GN, and its gradient is 0 plus noise), 8
-    classes."""
+    classes; LD's teacher the same."""
     import os
     from oadg_tpu_torch.config import load_config
     cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)), rel))
     m = cfg["model"]
-    m["backbone"].update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
-    m["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
-    m["bbox_head"].update(in_channels=16, feat_channels=64, num_classes=8,
-                          stacked_convs=2 if "tood" in rel else 1)
+    for part in [m] + ([m["teacher_config"]["model"]] if "teacher_config" in m else []):
+        part["backbone"].update(depth=18, base_channels=16, stem_channels=16, init_cfg=None)
+        part["neck"].update(in_channels=[16, 32, 64, 128], out_channels=16)
+        part["bbox_head"].update(in_channels=16, feat_channels=64, num_classes=8,
+                                 stacked_convs=2 if "tood" in rel else 1)
     return m
 
 
@@ -2167,7 +2168,9 @@ def _onestage_batch():
             "gt_labels": torch.tensor([[1, 2, 3], [4, 5, 0]])}
 
 
-ONESTAGE_CARD = ["configs/vfnet/vfnet_r50_fpn_1x_coco.py", "configs/tood/tood_r50_fpn_1x_coco.py"]
+ONESTAGE_CARD = ["configs/vfnet/vfnet_r50_fpn_1x_coco.py", "configs/tood/tood_r50_fpn_1x_coco.py",
+                 "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
+                 "configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py"]
 
 
 def _onestage_card_vs_cpu(rel, dtype):
@@ -2192,10 +2195,12 @@ def _onestage_card_vs_cpu(rel, dtype):
     init_default_(seed_model, torch.Generator().manual_seed(0))
     seed_model.init_weights(torch.Generator().manual_seed(1))
     head = seed_model.bbox_head
+    prior = {"vfnet_cls": ("vfnet_cls",), "tood_cls": ("tood_cls", "cls_prob_module"),
+             "gfl_cls": ("gfl_cls",)}          # FreeAnchor's retina_cls starts there
     with torch.no_grad():
-        for b in (head.vfnet_cls.bias,) if hasattr(head, "vfnet_cls") else (
-                head.tood_cls.bias, head.cls_prob_module[2].bias):
-            b.fill_(-math.log(99))
+        for name in next((v for k, v in prior.items() if hasattr(head, k)), ()):
+            m = getattr(head, name)
+            (m[2] if name == "cls_prob_module" else m).bias.fill_(-math.log(99))
         if hasattr(head, "tood_reg"):
             head.tood_reg.bias.fill_(2.0)
     before = (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches)
@@ -2214,11 +2219,17 @@ def _onestage_card_vs_cpu(rel, dtype):
     assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == before
     g64 = None
     if dtype == torch.float32:
+        extra = {}
         with torch.no_grad():
             feats = [f.double() for f in det.extract_feat(b["img"])]
+            if hasattr(det, "teacher_model"):       # LD: the teacher's bin logits
+                t = det.teacher_model
+                extra["soft_targets"] = [s.double() for s in
+                                         t.bbox_head(t.extract_feat(b["img"]))[1]]
         h64 = copy.deepcopy(det.bbox_head).double()
         h64.zero_grad()
-        l64 = h64.loss(h64(feats), b["gt_bboxes"].double(), b["gt_valid"], b["gt_labels"])
+        l64 = h64.loss(h64(feats), b["gt_bboxes"].double(), b["gt_valid"], b["gt_labels"],
+                       **extra)
         sum(l64.values()).backward()
         g64 = {k: p.grad for k, p in h64.named_parameters() if p.grad is not None}
     return outs, g64
@@ -2228,9 +2239,12 @@ def _onestage_card_vs_cpu(rel, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rel", ONESTAGE_CARD)
 def test_onestage_step_on_the_card_matches_the_cpu(rel, dtype):
-    """The tiny VFNet's (DCNv1, ATSS, the varifocal loss) and TOOD's (the
+    """The tiny VFNet's (DCNv1, ATSS, the varifocal loss), TOOD's (the
     task decomposition, the aligned boxes' bilinear gather, the
-    task-aligned targets) ``forward_train`` on the card against the CPU,
+    task-aligned targets), FreeAnchor's (the per-class ``box_prob``
+    scatter, the top-50 anchor bags) and LD's (the GFL student and its
+    teacher run under ``no_grad``, ``loss_ld``) ``forward_train`` on the
+    card against the CPU,
     two 256x384 images (``_onestage_card_vs_cpu``): losses float32, rtol
     1e-4 in float32 and ``TOL_BF16_LOSS`` in bfloat16 (TOOD's 2**-4: its
     alignment is IoU ** 6, which multiplies a box's bfloat16 rounding six
@@ -2251,7 +2265,7 @@ def test_onestage_step_on_the_card_matches_the_cpu(rel, dtype):
     of their largest apart on the H100), and only finiteness is held. No B1
     or B2 launch. Each gradient's distance is printed (``-s``)."""
     ((lg, gg), (lc, gc)), g64 = _onestage_card_vs_cpu(rel, dtype)
-    assert lg.keys() == lc.keys() and gg.keys() == gc.keys() and len(gc) > 10
+    assert lg.keys() == lc.keys() and gg.keys() == gc.keys() and len(gc) >= 8
     f32 = dtype == torch.float32
     for k in lc:
         assert lg[k].dtype == torch.float32 and torch.isfinite(lg[k]), k

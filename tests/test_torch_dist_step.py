@@ -15,6 +15,11 @@ port's ranks must compute exactly that (``oadg_tpu_torch/parallel/dist.py``).
   global norm's.
 - The tiny YOLOv3 (``torch_yolo_cases.model_cfg()``: full Darknet-53, live
   BNs in the neck and head) on 4 images x 2 views of 64x64: SyncBN.
+- PISA-RetinaNet's, FreeAnchor's and FSAF's losses and PISA Faster
+  R-CNN's RoI head on one image a rank, with IoUs that tie across views
+  and across the ranks' images: the shares sum to the one-process losses,
+  the gradients are the one-process ones (the global IoU rank gathered in
+  the one-process order; the heads' global normalizers).
 - ``supcontrast``, the mask loss, the box head's loss and live BN alone,
   on seeded rows, the ranks' shards of equal and of unequal sizes; and
   outside ``sharded_batch()``, under the same live group, the loss and the
@@ -55,6 +60,7 @@ from oadg_tpu_torch.models.losses import supcontrast
 from oadg_tpu_torch.models.roi_heads.mask_heads import FCNMaskHead
 from oadg_tpu_torch.utils.checkpoint import jax_variables_to_state_dict
 from oadg_tpu_torch.utils.draws import UniformDraws
+from oadg_tpu_torch.utils.registry import HEADS, build_from_cfg
 from test_torch_train_step import _randomize
 
 torch.set_num_threads(2)
@@ -188,6 +194,82 @@ def _retina_inputs():
                 gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
 
 
+DENSE_HEADS = {
+    # RetinaNet's anchors on 2 levels (strides 8, 16), 3 ratios: 240 anchors
+    # an image, more than FreeAnchor's bag of 50
+    "pisa_retina": dict(type="PISARetinaHead"),
+    "free_anchor": dict(type="FreeAnchorRetinaHead",
+                        bbox_coder=dict(type="DeltaXYWHBBoxCoder", target_means=[0.] * 4,
+                                        target_stds=[0.1, 0.1, 0.2, 0.2]),
+                        loss_bbox=dict(type="SmoothL1Loss", beta=0.11, loss_weight=0.75)),
+    "fsaf": dict(type="FSAFHead", strides=[8, 16]),
+}
+ANCHORS = dict(type="AnchorGenerator", octave_base_scale=4, scales_per_octave=1,
+               ratios=[0.5, 1.0, 2.0], strides=[8, 16])
+
+
+def _dense_inputs():
+    """2 images of 64x64 for each head of ``DENSE_HEADS`` (3 classes, 4
+    channels): seeded maps, gts giving the images different numbers of
+    positives and gts (4 and 2, two padded; the first gt in both images, so
+    that IoUs tie across the ranks' images), seeded weights. PISA-RetinaNet
+    takes 2 views of each image (views-major, the same gts on both), so its
+    IoUs tie across the views too; the others one."""
+    rng = np.random.RandomState(10)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
+    gt = np.array([[[4, 4, 30, 28], [30, 8, 60, 40], [8, 36, 40, 60], [36, 36, 52, 52]],
+                   [[4, 4, 30, 28], [20, 30, 60, 62], [0, 0, 0, 0], [0, 0, 0, 0]]])
+    valid = np.array([[True] * 4, [True, True, False, False]])
+    labels = rng.randint(0, 3, (2, 4))
+    out = {}
+    for name, cfg in DENSE_HEADS.items():
+        views = 2 if name == "pisa_retina" else 1
+        head_cfg = dict(cfg, num_classes=3, in_channels=4, feat_channels=4, stacked_convs=1)
+        if name != "fsaf":
+            head_cfg["anchor_generator"] = ANCHORS
+        a = 1 if name == "fsaf" else 3
+        n = 2 * views
+        shapes = build_from_cfg(dict(head_cfg, num_views=views), HEADS,
+                                dict(device="cpu")).state_dict()
+        reg = [rng.normal(0, 0.5, (n, 4 * a, s, s)) for s in (8, 4)]
+        if name == "fsaf":                          # positive distances, 4 strides a unit
+            reg = [np.abs(r) + 0.2 for r in reg]
+        out[name] = dict(
+            cfg=head_cfg, views=views, images=2,
+            state={k: f(rng.normal(0, 0.1, v.shape)) for k, v in shapes.items()},
+            cls=[f(rng.normal(0, 1, (n, 3 * a, s, s))) for s in (8, 4)], reg=[f(r) for r in reg],
+            gt=f(np.tile(gt, (views, 1, 1))), gt_valid=torch.from_numpy(np.tile(valid, (views, 1))),
+            gt_labels=torch.from_numpy(np.tile(labels, (views, 1))))
+    return out
+
+
+def _pisa_roi_inputs():
+    """The PISA Faster R-CNN's RoI head made tiny
+    (``torch_twostage_cases.tiny_roi``) with 2 views of 2 images of 64x64:
+    ``torch_twostage_cases.inputs(3)``'s maps, the second view's moved by
+    seeded noise, image 0's proposals and gts in both images and on both
+    views (so the sampled rows' IoUs tie across the views and across the
+    ranks' images), seeded sampler uniforms (other rows for each image) and
+    weights."""
+    import torch_twostage_cases as tc
+    case = tc.inputs(3)
+    rng = np.random.RandomState(12)
+    model = dc.plain(tc.tiny_roi(tc.load_model("pisa", "torch")))
+    shapes = tc.port_head(model).state_dict()
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
+    tile = lambda a: np.concatenate([a[:1]] * 4)                  # noqa: E731
+    feats = [f(np.concatenate([x, x + rng.normal(0, 0.5, x.shape)]).transpose(0, 3, 1, 2))
+             for x in case["feats"]]
+    size = tc.G + tc.P
+    return dict(model=model, views=2, images=tc.N, feats=feats,
+                state={k: f(rng.normal(0, 0.05, v.shape)) for k, v in shapes.items()},
+                props=f(tile(case["props"])), prop_valid=torch.from_numpy(tile(case["prop_valid"])),
+                gt=f(tile(case["gt"])), gt_valid=torch.from_numpy(tile(case["gt_valid"])),
+                labels=torch.from_numpy(tile(case["labels"])).long(),
+                draws={"rcnn.pos": f(rng.uniform(0, 1, (tc.N, size))),
+                       "rcnn.neg": f(rng.uniform(0, 1, (tc.N, size)))})
+
+
 def _bn_inputs():
     """Each rank's live-BN input, of other shapes (40 and 30 pixels a
     channel), and the coefficients of the summed output."""
@@ -232,10 +314,11 @@ def runs(tmp_path_factory):
                 optimizer=dc.plain(ycfg.optimizer),
                 grad_clip=dc.plain(ycfg.optimizer_config["grad_clip"]))
 
-    job = dict(tasks=["supcontrast", "mask_loss", "bbox_loss", "retina_loss", "bn",
-                      "flagship", "yolo", "yolo_local_bn"], flagship=flagship, yolo=yolo,
-               supcontrast=_sup_inputs(), mask_loss=_mask_inputs(), bbox_loss=_bbox_inputs(),
-               retina_loss=_retina_inputs(), bn=_bn_inputs())
+    job = dict(tasks=["supcontrast", "mask_loss", "bbox_loss", "retina_loss", "dense_loss",
+                      "pisa_roi", "bn", "flagship", "yolo", "yolo_local_bn"], flagship=flagship,
+               yolo=yolo, supcontrast=_sup_inputs(), mask_loss=_mask_inputs(),
+               bbox_loss=_bbox_inputs(), retina_loss=_retina_inputs(),
+               dense_loss=_dense_inputs(), pisa_roi=_pisa_roi_inputs(), bn=_bn_inputs())
     handle = dc.start(job, WORLD, tmp_path_factory.mktemp("dist_step"))
     try:
         out = dict(job=job, fvars=fvars, yvars=yvars)
@@ -539,3 +622,62 @@ def test_per_rank_bn_misses_the_one_process_yolo_step(runs):
     stats = max(worst(got["state"][k], w, rtol, floor) for k, w in want["state"].items()
                 if "running_" in k)
     assert grads > 1 and stats > 1, (grads, stats)
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_HEADS))
+def test_dense_head_loss_counts_every_ranks_rows(runs, name):
+    """PISA-RetinaNet's, FreeAnchor's and FSAF's losses over 2 ranks of one
+    image each (every view): the shares sum to the one-process losses and
+    the maps' gradients are the one-process ones. The normalizers are
+    global (``num_pos``; FreeAnchor's ``num_gts`` and ``num_gts * k``; FSAF's
+    ``num_pos``), and so are PISA-RetinaNet's IoU rank, gathered in the
+    one-process order (its views tie: a rank's rows gathered as they lie
+    would put the ISR-P weights of tied rows on other rows), and CARL's
+    weight mass, whose gradient reaches every rank."""
+    j = runs["job"]["dense_loss"][name]
+    cls = [c.clone().requires_grad_(True) for c in j["cls"]]
+    reg = [r.clone().requires_grad_(True) for r in j["reg"]]
+    want = dc.dense_head(j).loss((cls, reg), j["gt"], j["gt_valid"], j["gt_labels"])
+    sum(want.values()).backward()
+    got = [r["dense_loss"][name] for r in runs["ranks"]]
+    assert sorted(got[0]["losses"]) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(sum(g["losses"][k] for g in got), float(want[k].detach()),
+                                   rtol=1e-5, err_msg=k)
+        assert got[0]["losses"][k] != got[1]["losses"][k], k
+    for i in range(2):
+        for g in got:
+            np.testing.assert_allclose(g["cls"][i].numpy(), cls[i].grad[g["rows"]].numpy(),
+                                       rtol=1e-5, atol=1e-8)
+            np.testing.assert_allclose(g["reg"][i].numpy(), reg[i].grad[g["rows"]].numpy(),
+                                       rtol=1e-5, atol=1e-8)
+
+
+def test_pisa_roi_head_counts_every_ranks_rows(runs):
+    """PISA Faster R-CNN's RoI head over 2 ranks of one image each (both
+    views), which raised under a sharded batch before: the shares of
+    ``loss_cls``, ``loss_bbox``, ``acc`` and ``loss_carl`` sum to the
+    one-process values, the maps' gradients are the one-process rows' and
+    the parameters' gradients sum to the one-process ones. The sampled rows
+    repeat over the views, so their IoUs tie across the views and the
+    global rank must see them in the one-process order."""
+    j = runs["job"]["pisa_roi"]
+    want, feats, head = dc.pisa_roi_loss(j, list(range(4)), [0, 1])
+    sum(v for k, v in want.items() if "loss" in k).backward()
+    got = [r["pisa_roi"] for r in runs["ranks"]]
+    assert sorted(got[0]["losses"]) == sorted(want) == ["acc", "loss_bbox", "loss_carl",
+                                                         "loss_cls"]
+    for k in want:
+        np.testing.assert_allclose(sum(g["losses"][k] for g in got), float(want[k].detach()),
+                                   rtol=1e-5, err_msg=k)
+    for r, g in enumerate(got):
+        rows = dc.rank_rows(2, 2, r, WORLD)
+        for i, f in enumerate(feats):
+            if f.grad is None:                  # the fifth level: no RoI reads it
+                assert g["feats"][i] is None and i == 4
+                continue
+            np.testing.assert_allclose(g["feats"][i].numpy(), f.grad[rows].numpy(), rtol=1e-5,
+                                       atol=1e-6 * float(f.grad.abs().max()))
+    for k, p in head.named_parameters():
+        np.testing.assert_allclose(sum(g["params"][k] for g in got).numpy(), p.grad.numpy(),
+                                   rtol=1e-5, atol=1e-6 * float(p.grad.abs().max()), err_msg=k)

@@ -50,53 +50,21 @@ torch.set_num_threads(2)
 OUTPUTS = {"fcos": 3, "atss": 3, "gfl": 2, "vfnet": 3, "tood": 2, "paa": 3, "autoassign": 3}
 GRAD_TOL = 1e-4
 WIDER = {"atss": (("cls_convs.0.conv.weight",), 1.5e-3)}          # read: 7.2e-4
-_BACKBONES = {}
-
-
-def _jax_backbone(model, jb):
-    """The JAX R18-FPN's seeded variables and features, once a variant."""
-    key = repr((model["backbone"], model["neck"]))
-    if key not in _BACKBONES:
-        jdet = jax_build_detector(model)
-        extract = lambda m, x: m.extract_feat(x)                      # noqa: E731
-        shapes = jax.eval_shape(lambda r, x: jdet.init(r, x, method=extract),
-                                jax.random.PRNGKey(0), jb["img"])
-        variables = {"params": cases.randomize(shapes["params"]),
-                     "batch_stats": cases.randomize(shapes["batch_stats"], 3)}
-        feats = jax.jit(lambda v, x: jdet.apply(v, x, method=extract))(variables, jb["img"])
-        _BACKBONES[key] = variables, feats
-    return _BACKBONES[key]
 
 
 def _jax_side(model, jb):
     """The variables, JAX's head's losses, parameter gradients, outputs and
     ``get_bboxes`` on the variant's features."""
     jdet = jax_build_detector(model)
-    backbone, feats = _jax_backbone(model, jb)
-
+    backbone, feats = cases.jax_backbone(model, jb)
     shapes = jax.eval_shape(lambda r, f: jdet.init(r, f, method=lambda m, f: m.head(f)),
                             jax.random.PRNGKey(0), feats)
     variables = {"params": dict(backbone["params"], **cases.randomize(shapes["params"], 5)),
                  "batch_stats": backbone["batch_stats"]}
-
-    def head_run(hp, feats, b):
-        def loss_fn(hp):
-            v = {"params": dict(variables["params"], head=hp),
-                 "batch_stats": variables["batch_stats"]}
-            outs = jdet.apply(v, feats, method=lambda m, f: m.head(f))
-            losses = jdet.apply(v, outs, b["gt_bboxes"], b["gt_valid"], b["gt_labels"],
-                                method=lambda m, o, g, gv, gl: m.head.loss(o, g, gv, gl, None))
-            return sum(losses.values()), (losses, outs)
-
-        (_, (losses, outs)), grads = jax.value_and_grad(loss_fn, has_aux=True)(hp)
-        dets = jdet.apply(variables, outs, b["img_shape"], b["scale_factor"],
-                          method=lambda m, o, s, f: m.head.get_bboxes(o, s, f))
-        return losses, grads, outs, dets
-
-    return variables, jax.jit(head_run)(variables["params"]["head"], feats, jb)
+    return variables, cases.jax_head_run(jdet, variables, feats, jb)
 
 
-@pytest.fixture(scope="module", params=sorted(cases.CONFIGS))
+@pytest.fixture(scope="module", params=cases.FIRST)
 def head(request):
     name = request.param
     model = cases.tiny_model(name)

@@ -269,6 +269,74 @@ def task_retina_loss(job, rank, world):
                 cls=[c.grad for c in cls], reg=[r.grad for r in reg])
 
 
+def dense_head(spec):
+    """A dense head of ``spec`` (a ``dense_loss`` entry: its config, views
+    and seeded state) on the CPU."""
+    from oadg_tpu_torch.models import dense_heads  # noqa: F401  (registers the heads)
+    from oadg_tpu_torch.utils.registry import HEADS, build_from_cfg
+    head = build_from_cfg(dict(spec["cfg"], num_views=spec["views"]), HEADS, dict(device="cpu"))
+    head.load_state_dict(spec["state"], strict=True)
+    return head
+
+
+def task_dense_loss(job, rank, world):
+    """Each of ``job['dense_loss']``'s heads' ``loss`` on this rank's images
+    (every view) inside ``sharded_batch()``: its shares and its maps'
+    gradients."""
+    from oadg_tpu_torch.parallel import sharded_batch
+    out = {}
+    for name, j in job["dense_loss"].items():
+        rows = rank_rows(j["images"], j["views"], rank, world)
+        cls = [c[rows].clone().requires_grad_(True) for c in j["cls"]]
+        reg = [r[rows].clone().requires_grad_(True) for r in j["reg"]]
+        with sharded_batch():
+            losses = dense_head(j).loss((cls, reg), j["gt"][rows], j["gt_valid"][rows],
+                                        j["gt_labels"][rows])
+        sum(losses.values()).backward()
+        out[name] = dict(losses={k: float(v) for k, v in losses.items()}, rows=rows,
+                         cls=[c.grad for c in cls], reg=[r.grad for r in reg])
+    return out
+
+
+def pisa_roi_head(j):
+    """``job['pisa_roi']``'s PISA RoI head (its views, seeded state)."""
+    from oadg_tpu_torch.models import roi_heads  # noqa: F401  (registers the heads)
+    from oadg_tpu_torch.utils.registry import HEADS, build_from_cfg
+    m = j["model"]
+    head = build_from_cfg(dict(m["roi_head"], train_cfg=m["train_cfg"]["rcnn"],
+                               test_cfg=m["test_cfg"]["rcnn"], num_views=j["views"]), HEADS,
+                          dict(device="cpu"))
+    head.load_state_dict(j["state"], strict=True)
+    return head
+
+
+def pisa_roi_loss(j, rows, images):
+    """The PISA RoI head's losses on ``rows`` of the views-major inputs,
+    with the draws of ``images``; -> (losses, the maps that require grad,
+    the head)."""
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    head = pisa_roi_head(j)
+    feats = [f[rows].clone().requires_grad_(True) for f in j["feats"]]
+    losses = head.loss(feats, j["props"][rows], j["prop_valid"][rows], j["gt"][rows],
+                       j["gt_valid"][rows], j["labels"][rows],
+                       UniformDraws(given={k: u[images] for k, u in j["draws"].items()}))
+    return losses, feats, head
+
+
+def task_pisa_roi(job, rank, world):
+    """``PISARoIHead.loss`` on this rank's image (both views) inside
+    ``sharded_batch()``: its shares, its maps' and its parameters'
+    gradients."""
+    from oadg_tpu_torch.parallel import sharded_batch
+    j = job["pisa_roi"]
+    with sharded_batch():
+        losses, feats, head = pisa_roi_loss(j, rank_rows(j["images"], j["views"], rank, world),
+                                            image_rows(j["images"], rank, world))
+    sum(v for k, v in losses.items() if "loss" in k).backward()
+    return dict(losses={k: float(v) for k, v in losses.items()}, feats=[f.grad for f in feats],
+                params={k: p.grad for k, p in head.named_parameters() if p.grad is not None})
+
+
 def task_bn(job, rank, world):
     """Live ``BatchNorm`` on this rank's input (the ranks' shapes differ),
     inside ``sharded_batch()``: the output, the input's gradient of
@@ -366,7 +434,8 @@ def task_tools(job, rank, world):
 
 TASKS = dict(flagship=task_flagship, yolo=task_yolo, yolo_local_bn=task_yolo_local_bn,
              supcontrast=task_supcontrast, mask_loss=task_mask_loss,
-             bbox_loss=task_bbox_loss, retina_loss=task_retina_loss, bn=task_bn,
+             bbox_loss=task_bbox_loss, retina_loss=task_retina_loss,
+             dense_loss=task_dense_loss, pisa_roi=task_pisa_roi, bn=task_bn,
              collect=task_collect, tools=task_tools,
              syncnorm=task_syncnorm)
 

@@ -1,14 +1,20 @@
 """Shared fixtures of the one-stage family's CPU parity tests
-(``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``).
+(``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``,
+``tests/test_torch_onestage_heads2.py``, ``tests/test_torch_onestage_parts2.py``).
 
-``tiny_model(name)``: the published config of each of the seven one-stage
-configs with its backbone cut to ResNet-18 and its neck and head to 16
-channels (the R18-FPN-16 of ``tests/test_p2_zoo.py``), 8 classes; its
-losses, assigners, anchors and test settings kept. ``randomize`` fills a
-JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
+``tiny_model(name)``: the published config of each of the twelve one-stage
+configs (``FIRST``: the family's first seven; ``SECOND``: FoveaBox, FSAF,
+FreeAnchor, PISA-RetinaNet and LD) with its backbone cut to ResNet-18 and
+its neck and head to 16 channels (the R18-FPN-16 of
+``tests/test_p2_zoo.py``), 8 classes; its losses, assigners, anchors and
+test settings kept; LD's teacher narrowed the same way. ``randomize`` fills
+a JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
 (LeCun-normal kernels, small biases, GN and the per-level scales near 1,
 random frozen-BN statistics) that the port loads through
-``jax_variables_to_state_dict``.
+``jax_variables_to_state_dict``. ``jax_backbone`` and ``jax_head_run``
+are the JAX side of the heads' tests: the R18-FPN's features once per
+backbone and neck variant, and a head's forward, loss, gradients and
+``get_bboxes`` in one jit.
 """
 import os.path as osp
 
@@ -23,21 +29,31 @@ CONFIGS = {
     "tood": "configs/tood/tood_r50_fpn_1x_coco.py",
     "paa": "configs/paa/paa_r50_fpn_1x_coco.py",
     "autoassign": "configs/autoassign/autoassign_r50_fpn_8x2_1x_coco.py",
+    "fovea": "configs/foveabox/fovea_r50_fpn_4x4_1x_coco.py",
+    "fsaf": "configs/fsaf/fsaf_r50_fpn_1x_coco.py",
+    "free_anchor": "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
+    "pisa_retina": "configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py",
+    "ld": "configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py",
 }
+FIRST = ("atss", "autoassign", "fcos", "gfl", "paa", "tood", "vfnet")
+SECOND = ("fovea", "free_anchor", "fsaf", "ld", "pisa_retina")
 HW = (64, 96)
 NUM_CLASSES = 8
 
 
 def tiny_model(name):
     """The config's model (a plain dict) narrowed: R18, FPN and head at 16
-    channels, one conv a tower (TOOD two), 8 classes, 20 detections."""
+    channels, one conv a tower (TOOD two), 8 classes, 20 detections; LD's
+    teacher likewise."""
     from oadg_tpu_torch.config import load_config
     cfg = load_config(osp.join(ROOT, CONFIGS[name]))
     m = cfg.model
-    m.backbone.update(depth=18, init_cfg=None)
-    m.neck.update(in_channels=[64, 128, 256, 512], out_channels=16)
-    m.bbox_head.update(in_channels=16, feat_channels=16, num_classes=NUM_CLASSES,
-                       stacked_convs=2 if name == "tood" else 1)
+    parts = [m] + ([m.teacher_config.model] if name == "ld" else [])
+    for part in parts:
+        part.backbone.update(depth=18, init_cfg=None)
+        part.neck.update(in_channels=[64, 128, 256, 512], out_channels=16)
+        part.bbox_head.update(in_channels=16, feat_channels=16, num_classes=NUM_CLASSES,
+                              stacked_convs=2 if name == "tood" else 1)
     m.test_cfg.update(max_per_img=20)
     return _plain(m)
 
@@ -97,3 +113,49 @@ def randomize(variables, seed=2):
                 else fill(path + (k,), v).astype(np.float32) for k, v in tree.items()}
 
     return walk(variables)
+
+
+_BACKBONES = {}
+
+
+def jax_backbone(model, jb):
+    """The JAX R18-FPN's seeded variables and features, once a variant and
+    batch."""
+    import jax
+    from oadg_tpu.models import build_detector as jax_build_detector
+    key = (repr((model["backbone"], model["neck"])), np.asarray(jb["img"]).tobytes())
+    if key not in _BACKBONES:
+        jdet = jax_build_detector(model)
+        extract = lambda m, x: m.extract_feat(x)                      # noqa: E731
+        shapes = jax.eval_shape(lambda r, x: jdet.init(r, x, method=extract),
+                                jax.random.PRNGKey(0), jb["img"])
+        variables = {"params": randomize(shapes["params"]),
+                     "batch_stats": randomize(shapes["batch_stats"], 3)}
+        feats = jax.jit(lambda v, x: jdet.apply(v, x, method=extract))(variables, jb["img"])
+        _BACKBONES[key] = variables, feats
+    return _BACKBONES[key]
+
+
+def jax_head_run(jdet, variables, feats, jb, soft=None):
+    """JAX's head on ``feats``, in one jit: its losses (``soft``, the
+    teacher's bin logits, handed to LD's as ``soft_targets``), the gradients
+    w.r.t. the head's parameters, its outputs and ``get_bboxes``."""
+    import jax
+    extra = {} if soft is None else {"soft_targets": soft}
+
+    def head_run(hp, feats, b):
+        def loss_fn(hp):
+            v = {"params": dict(variables["params"], head=hp),
+                 "batch_stats": variables["batch_stats"]}
+            outs = jdet.apply(v, feats, method=lambda m, f: m.head(f))
+            losses = jdet.apply(v, outs, b["gt_bboxes"], b["gt_valid"], b["gt_labels"],
+                                method=lambda m, o, g, gv, gl: m.head.loss(o, g, gv, gl, None,
+                                                                           **extra))
+            return sum(losses.values()), (losses, outs)
+
+        (_, (losses, outs)), grads = jax.value_and_grad(loss_fn, has_aux=True)(hp)
+        dets = jdet.apply(variables, outs, b["img_shape"], b["scale_factor"],
+                          method=lambda m, o, s, f: m.head.get_bboxes(o, s, f))
+        return losses, grads, outs, dets
+
+    return jax.jit(head_run)(variables["params"]["head"], feats, jb)
