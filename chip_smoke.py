@@ -338,9 +338,12 @@ non-zero exit code:
    R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
    branch's 14x14 (a request's masks too); one more Sparse and Grid step a
    dtype with every B1 and B2 call held to the plain versions in place.
-8e. onestage: the one-stage family's twelve configs (``ONESTAGE``:
+8e. onestage: the one-stage family's sixteen configs (``ONESTAGE``:
    FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox, FSAF,
-   FreeAnchor, PISA-RetinaNet, LD with its R50-FPN GFL teacher), each at
+   FreeAnchor, PISA-RetinaNet, LD with its R50-FPN GFL teacher,
+   GA-RetinaNet, SABL-RetinaNet, NAS-FPN, NAS-FCOS with its neck's
+   ``start_level`` at 1, ``ONESTAGE_OPTIONS``: the config as given is
+   refused), each at
    its config's full width with seeded weights, 80 classes as published, on the Cityscapes
    base's 1024x2048 canvas; the classifier bias moved to the 0.01 prior
    plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
@@ -354,7 +357,8 @@ non-zero exit code:
    LD's teacher forward is timed after its steps and logged as a share of
    the second step; FreeAnchor's step peak must stay within
    ``BAG_PEAK_GIB`` of PISA-RetinaNet's (the same 392,832 anchors and no
-   bags), per dtype: a (G, N, C) ``box_prob`` would not.
+   bags), per dtype: a (G, N, C) ``box_prob`` would not. NAS-FPN's neck
+   forward (56 merging cells) is timed after its steps and logged.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
@@ -5264,15 +5268,15 @@ def classifier_prior(model):
     """mmdet's start for a one-stage classifier: the bias at the 0.01 prior
     (and TOOD's probability map's), where the JAX heads start at 0 (ROADMAP
     C: a seeded JAX-init TOOD or VFNet step sums every negative's loss over
-    ~one positive and two SGD steps overflow). RetinaNet's and PAA's
-    ``retina_cls`` start there already. -> the classifier's bias."""
+    ~one positive and two SGD steps overflow). RetinaNet's, PAA's and
+    NAS-FPN's ``retina_cls`` start there already, GA's and SABL's at 0.
+    -> the classifier's bias."""
     import torch
     head = model.bbox_head
     name = next(n for n in ONESTAGE_CLASSIFIERS if hasattr(head, n))
     b = getattr(head, name).bias
     with torch.no_grad():
-        if name != "retina_cls":
-            b.fill_(PRIOR_BIAS)
+        b.fill_(PRIOR_BIAS)
         if hasattr(head, "cls_prob_module"):
             head.cls_prob_module[2].bias.fill_(PRIOR_BIAS)
     return b
@@ -6347,8 +6351,15 @@ ONESTAGE = (
     ("free_anchor", "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py"),
     ("pisa_retina", "configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py"),
     ("ld", "configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py"),
+    ("ga_retina", "configs/guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"),
+    ("sabl_retina", "configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py"),
+    ("nas_fpn", "configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py"),
+    ("nas_fcos", "configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py"),
 )
 ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
+# the port refuses NAS-FCOS's config as given (its neck's outputs at strides 4
+# to 64, its head's points at 8 to 128; ROADMAP C): it runs with this fix
+ONESTAGE_OPTIONS = {"nas_fcos": {"model.neck.start_level": 1}}
 BAG_PEAK_GIB = 2.0      # FreeAnchor's step peak over PISA-RetinaNet's: a (G, N, C) box_prob
                         # (4.02 GB f32 at 392,832 anchors, 32 gts, 80 classes) would pass it
 
@@ -6368,6 +6379,28 @@ def teacher_ms(model, batch):
     return (time.perf_counter() - t0) * 1e3
 
 
+def neck_ms(model, batch):
+    """NAS-FPN's neck forward on the step's batch's backbone maps (under
+    ``no_grad``, in the model's mode): the host-clock ms of the second of two
+    runs, each between two synchronises."""
+    import torch
+    with torch.no_grad():
+        maps = model.backbone(batch["img"])
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.neck(maps)
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def onestage_cfg(family, path):
+    """``longtail_cfg(path)`` with the family's ``ONESTAGE_OPTIONS``."""
+    cfg = longtail_cfg(path)
+    cfg.merge_from_dict(ONESTAGE_OPTIONS.get(family, {}))
+    return cfg
+
+
 def phase_onestage(rows):
     """onestage: each config of ``ONESTAGE`` per dtype at its full width with
     seeded weights (the classifier drawn wider): a request of a 1024x2048
@@ -6379,13 +6412,21 @@ def phase_onestage(rows):
     import torch
     t0 = time.perf_counter()
     out = {}
-    probes = {"ld": lambda model, batch: {"teacher_ms": teacher_ms(model, batch)}}
+    probes = {"ld": lambda model, batch: {"teacher_ms": teacher_ms(model, batch)},
+              "nas_fpn": lambda model, batch: {"neck_ms": neck_ms(model, batch)}}
     for family, path in ONESTAGE:
         for name in DTYPES:
+            cfg = onestage_cfg(family, path)
             res = out[f"{family}_{name}"] = dict(
-                serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, phase="onestage"),
-                train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, phase="onestage",
-                                     prepare=classifier_prior, probe=probes.get(family)))
+                serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                     phase="onestage"),
+                train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                     phase="onestage", prepare=classifier_prior,
+                                     probe=probes.get(family)))
+            if family == "nas_fpn":
+                log("onestage", f"nas_fpn {name}: the neck's forward (7 stacks of 8 cells) "
+                                f"{res['train']['neck_ms']:.3f} ms on one image of "
+                                f"{IMG_H}x{IMG_W} ({nvidia_smi_line()})")
             if family == "ld":
                 step = res["train"]["step_ms"][-1]
                 res["train"]["teacher_share"] = res["train"]["teacher_ms"] / step

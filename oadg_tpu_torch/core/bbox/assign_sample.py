@@ -13,6 +13,9 @@ of top-k, is ``torch.topk``; argsorts are stable, as ``jnp.argsort`` is.
 assignment, which the JAX package computes in its head
 (``oadg_tpu/models/dense_heads/yolo_head.py:140-183``), as ``assign``.
 
+``ApproxMaxIoUAssigner`` (``:758-779``) is SABL's: the IoU of a location
+is the largest of its approx anchors'.
+
 ``ATSSAssigner`` (``:371-441``) and ``TaskAlignedAssigner`` (``:477-520``,
 with ``_per_gt_topk_mask`` and ``_rank_matrix_desc``, ``:456-474``) are the
 one-stage family's. Their candidate sets are masks against a k-th value
@@ -121,6 +124,31 @@ class MaxIoUAssigner:
         else:
             labels = torch.full_like(assigned, -1)
         return AssignResult(assigned, max_overlaps, labels)
+
+
+@BBOX_ASSIGNERS.register_module()
+class ApproxMaxIoUAssigner(MaxIoUAssigner):
+    """SABL's assignment (``:758-779``): each location owns
+    ``approxs_per_octave`` approx anchors; its IoU with a gt is the largest
+    over its group, and thresholds and the low-quality match then follow
+    ``MaxIoUAssigner.assign_from_ious`` on that (K, G) matrix."""
+
+    def assign(self, approxs: torch.Tensor, squares: torch.Tensor, approxs_per_octave: int,
+               gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+               gt_labels: Optional[torch.Tensor] = None,
+               box_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        """(K * A, 4) approxs, location-major with a location's A innermost,
+        and the (K, 4) squares (only their count is read), (..., G, 4)
+        padded gts -> the (..., K) assignment."""
+        k = squares.shape[0]
+        lead = gt_bboxes.shape[:-2]
+        ious = bbox_overlaps(approxs.expand(*lead, *approxs.shape), gt_bboxes)   # (..., K A, G)
+        ious = ious.reshape(*lead, k, int(approxs_per_octave), -1).amax(dim=-2)
+        zero = ious.new_zeros(())
+        ious = torch.where(gt_valid[..., None, :], ious, zero)
+        if box_valid is not None:
+            ious = torch.where(box_valid[..., :, None], ious, zero)
+        return self.assign_from_ious(ious, gt_valid, gt_labels, box_valid)
 
 
 def _random_rank(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Dense heads of the port; the one-stage family's modules also register
 their detectors (``FCOS``, ``ATSS``, ``GFL``, ``VFNet``, ``TOOD``, ``PAA``,
 ``AutoAssign``, ``FOVEA``, ``FSAF``,
-``KnowledgeDistillationSingleStageDetector``)."""
+``KnowledgeDistillationSingleStageDetector``, ``NASFCOS``)."""
 from .atss_head import ATSSHead
-from .autoassign_ld_heads import AutoAssignHead, LDHead, PISARetinaHead
+from .autoassign_ld_heads import AutoAssignHead, LDHead, NASFCOSHead, PISARetinaHead
 from .fcos_head import FCOSHead
 from .fovea_fsaf_heads import FoveaHead, FSAFHead
-from .free_anchor_heads import FreeAnchorRetinaHead
+from .free_anchor_heads import FreeAnchorRetinaHead, RetinaSepBNHead
 from .gfl_head import GFLHead
+from .guided_sabl_heads import GARetinaHead, SABLRetinaHead
 from .paa_head import PAAHead
 from .retina_head import RetinaHead
 from .rpn_head import RPNHead
@@ -16,5 +17,6 @@ from .vfnet_head import VFNetHead
 from .yolo_head import YOLOV3Head, YOLOV3HeadCont
 
 __all__ = ["ATSSHead", "AutoAssignHead", "FCOSHead", "FoveaHead", "FreeAnchorRetinaHead",
-           "FSAFHead", "GFLHead", "LDHead", "PAAHead", "PISARetinaHead", "RetinaHead",
-           "RPNHead", "TOODHead", "VFNetHead", "YOLOV3Head", "YOLOV3HeadCont"]
+           "FSAFHead", "GARetinaHead", "GFLHead", "LDHead", "NASFCOSHead", "PAAHead",
+           "PISARetinaHead", "RetinaHead", "RetinaSepBNHead", "RPNHead", "SABLRetinaHead",
+           "TOODHead", "VFNetHead", "YOLOV3Head", "YOLOV3HeadCont"]

@@ -1,7 +1,6 @@
 """AutoAssign, LD and PISA-RetinaNet heads and their detectors (port of
-``oadg_tpu/models/dense_heads/autoassign_ld_heads.py:32-286``; its NAS-FCOS,
-LAD and PISA-SSD heads are not ported: no config of the repo names LAD or
-PISA-SSD, and NAS-FCOS waits for its neck, ROADMAP A.2.7b).
+``oadg_tpu/models/dense_heads/autoassign_ld_heads.py:32-286``; its LAD and
+PISA-SSD heads are not ported: no config of the repo names them).
 
 ``AutoAssignHead`` (``:32-114``): ``FCOSHead``'s towers and outputs (the
 centerness conv is the objectness), plus ``center_prior``: a learned
@@ -37,6 +36,18 @@ never sees them (mmdet's behaviour: SGD skips a parameter without a
 gradient), and the teacher stays in eval mode. JAX's teacher sits in the
 optimized tree and decays with SGD's weight decay every step (ROADMAP C).
 ``init_weights`` seeds the teacher too.
+
+``NASFCOSHead`` (``:117-129``) is ``FCOSHead`` as the JAX head is: its
+towers' convs are renamed ``cls_sep{i}`` / ``reg_sep{i}`` and stay plain
+3x3 convs before their GN, although the docstring calls them separable
+(mmdet's searched tower, DCNv2 and 1x1 convs, is not what JAX runs;
+ROADMAP C); mmdet's keys ``cls_convs.{i}.conv`` / ``.gn``. The ``NASFCOS``
+detector (``:222-224``) refuses, at build, a neck whose output strides
+differ from the head's ``strides``: the repo's config gives
+``NASFCOS_FPN`` ``start_level=0``, which takes the backbone's four maps,
+strides 4 to 64, while the head lays its points and regress ranges at 8 to
+128; the JAX package runs it so, each level's points at twice its map's
+stride (ROADMAP C). ``model.neck.start_level=1`` makes them agree.
 
 ``PISARetinaHead`` (``:226-286``): ``RetinaHead``'s MaxIoU assignment;
 ISR-P label weights of the positives from a stable IoU rank over the
@@ -254,3 +265,33 @@ class PISARetinaHead(RetinaHead):
             loss_cls=loss_cls(cls.reshape(-1, nc), labels.reshape(-1), lw, avg_factor=num_pos),
             loss_bbox=loss_bbox(reg, deltas, bw, avg_factor=num_pos),
             loss_carl=self.carl_lambda * (cw * sl1 * pm).sum() / num_pos)
+
+
+@HEADS.register_module()
+class NASFCOSHead(FCOSHead):
+    """``autoassign_ld_heads.py:117-129``: ``FCOSHead``."""
+
+
+def backbone_strides(backbone: dict):
+    """The strides of a ResNet config's ``out_indices`` maps: 4 after the
+    stem, times each stage's ``strides`` entry."""
+    stage, s = [], 4
+    for step in backbone.get("strides", (1, 2, 2, 2)):
+        s *= step
+        stage.append(s)
+    return [stage[i] for i in backbone.get("out_indices", (0, 1, 2, 3))]
+
+
+@DETECTORS.register_module()
+class NASFCOS(SingleStageDetector):
+
+    def __init__(self, backbone, neck=None, bbox_head=None, **kwargs):
+        super().__init__(backbone, neck, bbox_head, **kwargs)
+        got = self.neck.out_strides(backbone_strides(dict(backbone)))
+        want = list(self.bbox_head.strides)
+        if got != want:
+            raise ValueError(
+                f"NASFCOS: the neck's outputs lie at strides {got} and the head's points at "
+                f"{want}; the JAX package runs each level's points at another stride than "
+                "its map's. Set model.neck.start_level=1 (the neck then takes C3..C5, "
+                "strides 8 to 128)")

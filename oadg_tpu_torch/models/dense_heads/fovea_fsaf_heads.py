@@ -58,10 +58,10 @@ from ...core.bbox.transforms import distance2bbox
 from ...parallel import shard_sum
 from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..detectors.single_stage import SingleStageDetector
-from ..layers import Conv, ConvModule
+from ..layers import Conv
 from .autoassign_ld_heads import _clip
 from .fcos_head import level_points
-from .retina_head import _flatten, nms_detections, top_candidates
+from .retina_head import _flatten, nms_detections, plain_tower, run_towers, top_candidates
 
 INF = 1e8
 
@@ -98,12 +98,8 @@ class _PlainTowerHead(nn.Module):
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         conv = dict(device=device, dtype=dtype)
-        self.cls_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels, feat_channels, 3, 1, 1, **conv)
-            for i in range(stacked_convs))
-        self.reg_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels, feat_channels, 3, 1, 1, **conv)
-            for i in range(stacked_convs))
+        self.cls_convs = plain_tower(in_channels, feat_channels, stacked_convs, **conv)
+        self.reg_convs = plain_tower(in_channels, feat_channels, stacked_convs, **conv)
         self.conv_cls = Conv(feat_channels, num_classes, 3, 1, 1, **conv)
         self.conv_reg = Conv(feat_channels, 4, 3, 1, 1, **conv)
 
@@ -112,11 +108,7 @@ class _PlainTowerHead(nn.Module):
 
     def _towers(self, feats):
         for x in feats:
-            c = r = x
-            for conv in self.cls_convs:
-                c = F.relu(conv(c))
-            for conv in self.reg_convs:
-                r = F.relu(conv(r))
+            c, r = run_towers(self, x)
             yield self.conv_cls(c), self.conv_reg(r)
 
     def _test_levels(self, outs, reg_fn):

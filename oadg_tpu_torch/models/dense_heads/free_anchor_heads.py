@@ -27,16 +27,24 @@ detection-customized likelihood over anchor bags instead of an assignment:
   (1 - alpha) * sum / (num_gts * k)`` (floored at 1), ``num_gts`` the valid
   gts of the batch (of every rank under data parallel).
 
-``RetinaSepBNHead`` of the same JAX file waits for NAS-FPN (ROADMAP A.2.7b).
+``RetinaSepBNHead`` (``:97-121``, NAS-FPN's head): ``RetinaHead``'s towers
+with each conv shared by the levels and followed by a live BN of each
+level's own (``layers.BatchNorm``: the batch's statistics in train mode,
+SyncBN under data parallel), then the ReLU; the convs keep their bias, as
+the JAX head's ``Conv``s do (mmdet's, a ``ConvModule`` with a norm, has
+none). mmdet's keys: ``cls_convs.{level}.{i}.conv`` (one shared tensor under
+every level) and ``cls_convs.{level}.{i}.bn``; the same for ``reg_convs``.
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.post_processing.nms import sort_desc
 from ...parallel import shard_sum
 from ...utils.registry import HEADS, LOSSES, build_from_cfg
+from ..layers import BatchNorm
 from .autoassign_ld_heads import _clip
 from .retina_head import RetinaHead, _flatten, gather_rows
 
@@ -101,3 +109,47 @@ class FreeAnchorRetinaHead(RetinaHead):
         pos = (-torch.log(_clip(bag_prob, 1e-12, 1.0)) * gt_valid.float()).sum()
         return dict(positive_bag_loss=self.alpha * pos / num_gts,
                     negative_bag_loss=(1 - self.alpha) * neg / _clip(num_gts * k, 1.0))
+
+
+class ConvBN(nn.Module):
+    """``relu(bn(conv(x)))`` with a given (shared) ``conv`` and a live BN of
+    its own."""
+
+    def __init__(self, conv: nn.Module, channels: int, device=None):
+        super().__init__()
+        self.conv = conv
+        self.bn = BatchNorm(channels, device=device)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.conv(x)))
+
+
+@HEADS.register_module()
+class RetinaSepBNHead(RetinaHead):
+
+    def __init__(self, num_levels: int = 5, **kwargs):
+        super().__init__(**kwargs)
+        self.num_levels = num_levels
+        feat, dev = kwargs.get("feat_channels", 256), kwargs.get("device")
+        cls_convs = [m.conv for m in self.cls_convs]
+        reg_convs = [m.conv for m in self.reg_convs]
+        self.cls_convs = nn.ModuleList(nn.ModuleList(ConvBN(c, feat, dev) for c in cls_convs)
+                                       for _ in range(num_levels))
+        self.reg_convs = nn.ModuleList(nn.ModuleList(ConvBN(c, feat, dev) for c in reg_convs)
+                                       for _ in range(num_levels))
+
+    def forward(self, feats):
+        """Per level: class logits (N, A * C, H, W), deltas (N, A * 4, H, W)."""
+        if len(feats) != self.num_levels:
+            raise ValueError(f"RetinaSepBNHead has {self.num_levels} levels' BNs, given "
+                             f"{len(feats)} maps")
+        cls_scores, bbox_preds = [], []
+        for x, cls_convs, reg_convs in zip(feats, self.cls_convs, self.reg_convs):
+            c = r = x
+            for m in cls_convs:
+                c = m(c)
+            for m in reg_convs:
+                r = m(r)
+            cls_scores.append(self.retina_cls(c))
+            bbox_preds.append(self.retina_reg(r))
+        return cls_scores, bbox_preds

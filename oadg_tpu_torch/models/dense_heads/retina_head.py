@@ -89,6 +89,24 @@ def nms_detections(boxes, scores, scale_factors, rescale, cfg, num_classes,
                           int(cfg.get("max_per_img", 100)), num_classes)
 
 
+def plain_tower(in_channels: int, feat_channels: int, stacked_convs: int, **conv):
+    """``stacked_convs`` plain 3x3 convs with a bias (``ConvModule`` without
+    a norm; a ReLU after each in ``run_towers``)."""
+    return nn.ModuleList(ConvModule(in_channels if i == 0 else feat_channels, feat_channels,
+                                    3, 1, 1, **conv) for i in range(stacked_convs))
+
+
+def run_towers(head: nn.Module, x: torch.Tensor):
+    """``head.cls_convs`` and ``head.reg_convs``, each conv followed by a
+    ReLU, on one level's ``x`` -> (class features, box features)."""
+    c = r = x
+    for conv in head.cls_convs:
+        c = F.relu(conv(c))
+    for conv in head.reg_convs:
+        r = F.relu(conv(r))
+    return c, r
+
+
 @HEADS.register_module()
 class RetinaHead(nn.Module):
 
@@ -118,12 +136,8 @@ class RetinaHead(nn.Module):
             cfg_args(sampler, {}, "PseudoSampler")
         na = self.prior_generator.num_base_anchors[0]
         conv = dict(device=device, dtype=dtype)
-        self.cls_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels, feat_channels, 3, 1, 1, **conv)
-            for i in range(stacked_convs))
-        self.reg_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels, feat_channels, 3, 1, 1, **conv)
-            for i in range(stacked_convs))
+        self.cls_convs = plain_tower(in_channels, feat_channels, stacked_convs, **conv)
+        self.reg_convs = plain_tower(in_channels, feat_channels, stacked_convs, **conv)
         self.retina_cls = Conv(feat_channels, na * num_classes, 3, 1, 1, **conv)
         self.retina_reg = Conv(feat_channels, na * 4, 3, 1, 1, **conv)
 
@@ -140,11 +154,7 @@ class RetinaHead(nn.Module):
         """Per level: class logits (N, A * C, H, W), deltas (N, A * 4, H, W)."""
         cls_scores, bbox_preds = [], []
         for x in feats:
-            c = r = x
-            for conv in self.cls_convs:
-                c = F.relu(conv(c))
-            for conv in self.reg_convs:
-                r = F.relu(conv(r))
+            c, r = run_towers(self, x)
             cls_scores.append(self.retina_cls(c))
             bbox_preds.append(self.retina_reg(r))
         return cls_scores, bbox_preds

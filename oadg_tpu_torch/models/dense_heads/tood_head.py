@@ -28,7 +28,9 @@ one to C / 4 (``utils/checkpoint.py`` raises on the shape).
   alignment; the target ``t / max_t(gt) * max_IoU(gt)``. QFL on the
   probabilities' logits against it over its sum, GIoU weighted by it
   (floored at 0.05 on the positives) over its sum. The targets keep their
-  gradient, as in the JAX head.
+  gradient, as in the JAX head, and so do both sums: under data parallel
+  they are all-reduced with their gradient (``shard_sum_grad``), as every
+  rank's loss share reads every rank's targets.
 - ``get_bboxes`` (``:221-254``): top ``nms_pre`` points a level by their
   largest class probability, boxes clipped to the image, ``multiclass_nms``
   (IoU 0.6 unless given).
@@ -43,7 +45,7 @@ from torch import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.transforms import distance2bbox
 from ...ops.misc_ops import bilinear_gather
-from ...parallel import shard_sum
+from ...parallel import shard_sum_grad
 from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..detectors.single_stage import SingleStageDetector
 from ..layers import Conv, ConvGN, Scale
@@ -189,7 +191,7 @@ class TOODHead(nn.Module):
         tsel = torch.gather(t, 2, gi[..., None])[..., 0]
         norm_t = (tsel / _max(torch.gather(tmax, 1, gi), 1e-12)
                   * torch.gather(umax, 1, gi)) * pos.float()
-        num_pos = _max(shard_sum(norm_t.sum()), 1.0)
+        num_pos = _max(shard_sum_grad(norm_t.sum()), 1.0)
         logits = torch.log(torch.minimum(_max(cls, 1e-12), cls.new_ones(()))
                            / torch.minimum(_max(1 - cls, 1e-12), cls.new_ones(())))
         loss_cls = self.l_cls(logits.reshape(-1, self.num_classes),
@@ -198,7 +200,8 @@ class TOODHead(nn.Module):
         # before any IoU exists (the JAX head's stand-in for ATSS warm-up epochs)
         wb = torch.maximum(norm_t, 0.05 * pos.float())
         loss_bbox = self.l_bbox(boxes.reshape(-1, 4), gather_rows(gt_bboxes, gi).reshape(-1, 4),
-                                weight=wb.reshape(-1), avg_factor=_max(shard_sum(wb.sum()), 1.0))
+                                weight=wb.reshape(-1),
+                                avg_factor=_max(shard_sum_grad(wb.sum()), 1.0))
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
     def get_bboxes(self, outs, img_shapes, scale_factors, rescale: bool = True, cfg=None):

@@ -14,8 +14,10 @@ from the model's, raises (the JAX package keeps its own values in both
 cases; ROADMAP C); so does one that holds a tensor of a structure the JAX
 heads lack (``MMDET_ONLY``: mmdet's ``DynamicConv.fc_norm`` of Sparse R-CNN's
 stages, its ``GridHead`` fusion ``forder_trans`` / ``sorder_trans``,
-VFNet's ``vfnet_reg_conv``, the ATSS parts of mmdet's PAA head), which
-skipping would silently change.
+VFNet's ``vfnet_reg_conv``, the ATSS parts of mmdet's PAA head, the NAS
+necks' extra-level convs and mmdet's NAS-FPN ``sum_77_7`` / ``gp_54_7``
+and cell conv biases, NAS-FCOS's concat cells and deformable tower convs),
+which skipping would silently change.
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
@@ -104,6 +106,19 @@ RetinaHead, names its outputs ``retina_cls`` and ``retina_reg``, which
 ``load_mmdet_checkpoint`` reads into them (the head's ``mmdet_names``). A
 KD detector's ``teacher`` subtree goes under ``teacher_model.`` (mmdet's
 ``KnowledgeDistillationSingleStageDetector`` attribute).
+The NAS necks and heads of A.2.7b: a live-BN ``ConvModule``'s
+``conv/Conv_0/kernel`` and ``FrozenBN_0/*`` (its ``batch_stats`` ``mean`` /
+``var`` too) become ``conv.weight`` and ``bn.*``; NAS-FPN's ``lateral{i}``
+``neck.lateral_convs.{i}`` and its cells ``s{s}_gp64_4`` ... ``neck.fpn_stages.{s}.gp_64_4``
+... (``_NAS_CELLS``) with their ``out_conv``; NAS-FCOS's ``lateral{i}``
+``neck.adapt_convs.{i}`` and ``merge{i}`` ``neck.merge_convs.{i - 1}``;
+NAS-FCOS's head's ``cls_sep{i}`` ``cls_convs.{i}.conv``; RetinaSepBNHead's
+``cls_bn{l}_{i}`` ``cls_convs.{l}.{i}.bn`` and its shared ``cls_conv{i}``
+``cls_convs.{l}.{i}.conv`` under every level ``l``; GA's ``adapt_cls`` /
+``adapt_reg`` (``conv_offset``, the DCN kernel ``conv_adaption``)
+``feature_adaption_cls`` / ``_reg``, ``conv_loc`` and ``conv_shape`` as
+they are; SABL's ``bucket_cls`` / ``bucket_reg`` ``retina_bbox_cls`` /
+``retina_bbox_reg``.
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -190,7 +205,8 @@ def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
 
 
 # JAX dense-head scopes -> mmdet's module names (the rest keep their name)
-_DENSE_NAMES = {"conv_ctr": "conv_centerness",
+_DENSE_NAMES = {"conv_ctr": "conv_centerness", "bucket_cls": "retina_bbox_cls",
+                "bucket_reg": "retina_bbox_reg",
                 "reg_refine_dconv": "vfnet_reg_refine_dconv", "cls_dconv": "vfnet_cls_dconv",
                 "reg_refine_gn": "vfnet_reg_refine_gn", "cls_gn": "vfnet_cls_gn",
                 "cls_prob_conv1": "cls_prob_module.0", "cls_prob_conv2": "cls_prob_module.2",
@@ -199,20 +215,37 @@ _DENSE_NAMES = {"conv_ctr": "conv_centerness",
 _DENSE_CONVS = set(_DENSE_NAMES) | {
     "retina_cls", "retina_reg", "retina_iou", "conv_cls", "conv_reg", "atss_cls", "atss_reg",
     "atss_centerness", "gfl_cls", "gfl_reg", "vfnet_reg", "vfnet_reg_refine", "vfnet_cls",
-    "tood_cls", "tood_reg"}
+    "tood_cls", "tood_reg", "conv_loc", "conv_shape"}
 _DENSE_SCALES = {"scales": "scales", "reg_scales": "scales", "scales_refine": "scales_refine"}
 _DECOMP = {"la_conv1": "layer_attention.0", "la_conv2": "layer_attention.2",
            "reduction_conv": "reduction_conv.conv", "gn": "reduction_conv.gn"}
+_ADAPT = {"adapt_cls": "feature_adaption_cls", "adapt_reg": "feature_adaption_reg"}
+# JAX NAS-FPN cells -> mmdet's names (``gp_55_7``: a cell mmdet lacks)
+_NAS_CELLS = {"gp64_4": "gp_64_4", "sum44": "sum_44_4", "sum43": "sum_43_3", "sum34": "sum_34_4",
+              "gp43_5": "gp_43_5", "sum55": "sum_55_5", "gp55_7": "gp_55_7", "gp75_6": "gp_75_6"}
 
 
-def _dense_head_key(rest: Tuple[str, ...]) -> Optional[str]:
+def _dense_head_key(rest: Tuple[str, ...], sepbn: bool = False) -> Optional[str]:
     """A leaf of RetinaNet's or a one-stage family head -> its mmdet key, or
     None (another head's). A per-level ``scales`` vector maps to
-    ``...scales.{}.scale``, one key a level."""
+    ``...scales.{}.scale``, one key a level; a tower conv of a head with
+    per-level BNs (``sepbn``) to ``..._convs.{level}.i.conv``, one key a
+    level (the levels share it)."""
     scope = rest[0]
-    m = re.fullmatch(r"(cls|reg|inter)_(conv|gn)(\d+)", scope)
-    if m:
-        return f"bbox_head.{m.group(1)}_convs.{m.group(3)}.{m.group(2)}.{_leaf(rest)}"
+    m = re.fullmatch(r"(cls|reg)_bn(\d+)_(\d+)", scope)
+    if m:                                        # RetinaSepBNHead's per-level BNs
+        return (f"bbox_head.{m.group(1)}_convs.{m.group(2)}.{m.group(3)}.bn."
+                f"{_BN_LEAF[rest[-1]]}")
+    m = re.fullmatch(r"(cls|reg|inter)_(conv|gn|sep)(\d+)", scope)
+    if m and sepbn:
+        return f"bbox_head.{m.group(1)}_convs.{{level}}.{m.group(3)}.conv.{_leaf(rest)}"
+    if m:                                        # NAS-FCOS's ``cls_sep{i}``: a tower conv
+        part = "gn" if m.group(2) == "gn" else "conv"
+        return f"bbox_head.{m.group(1)}_convs.{m.group(3)}.{part}.{_leaf(rest)}"
+    if scope in _ADAPT:
+        if rest[1] == "conv_offset":
+            return f"bbox_head.{_ADAPT[scope]}.conv_offset.{_leaf(rest)}"
+        return f"bbox_head.{_ADAPT[scope]}.conv_adaption.weight"
     if scope in _DENSE_SCALES:
         return f"bbox_head.{_DENSE_SCALES[scope]}.{{}}.scale"
     if scope in ("center_prior_mean", "center_prior_sigma"):
@@ -224,12 +257,31 @@ def _dense_head_key(rest: Tuple[str, ...]) -> Optional[str]:
     return None
 
 
-def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
+def _nas_neck_key(rest: Tuple[str, ...], laterals: str) -> Optional[str]:
+    """A leaf of a JAX NAS-FPN or NAS-FCOS neck -> its key under ``neck.``
+    (``laterals``: the laterals' module list, ``lateral_convs`` or
+    ``adapt_convs``), or None (an FPN's)."""
+    m = re.fullmatch(r"lateral(\d+)", rest[0])
+    if m:
+        return f"neck.{laterals}.{m.group(1)}.{_conv_module(rest[1:])}"
+    m = re.fullmatch(r"merge(\d+)", rest[0])
+    if m:
+        return f"neck.merge_convs.{int(m.group(1)) - 1}.{_conv_module(rest[1:])}"
+    m = re.fullmatch(r"s(\d+)_(\w+)", rest[0])
+    if m and m.group(2) in _NAS_CELLS and rest[1] == "out_conv":
+        return (f"neck.fpn_stages.{m.group(1)}.{_NAS_CELLS[m.group(2)]}.out_conv."
+                f"{_conv_module(rest[2:])}")
+    return None
+
+
+def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
+               laterals: str = "lateral_convs") -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key;
     ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
-    ``fpn_convs.{fpn_levels + k}``). A KD detector's ``teacher`` subtree
-    (a detector's ``backbone_m``, ``neck_m`` and ``head``) goes under
-    mmdet's ``teacher_model.``."""
+    ``fpn_convs.{fpn_levels + k}``), ``sepbn`` whether the dense head has
+    per-level BNs, ``laterals`` a NAS neck's lateral list. A KD detector's
+    ``teacher`` subtree (a detector's ``backbone_m``, ``neck_m`` and
+    ``head``) goes under mmdet's ``teacher_model.``."""
     head, rest = path[0], path[1:]
     if head == "teacher":
         return f"teacher_model.{_torch_key(rest, fpn_levels)}"
@@ -241,7 +293,9 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0) -> str:
     if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
         return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
     if head == "head":
-        return _dense_head_key(rest) or _yolo_head_key(rest)
+        return _dense_head_key(rest, sepbn) or _yolo_head_key(rest)
+    if head == "neck_m" and _nas_neck_key(rest, laterals):
+        return _nas_neck_key(rest, laterals)
     if head == "backbone_m":
         if rest[0] == "conv1":                       # stem conv
             return "backbone.conv1.weight"
@@ -402,6 +456,11 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     fpn_levels = {scope: sum(1 for k in (tree.get("neck_m") or {})
                              if re.fullmatch(r"lateral_\d+", k))
                   for scope, tree in (("", params), ("teacher", params.get("teacher") or {}))}
+    heads = dict(params.get("head") or {})
+    sepbn = sum(1 for k in heads if re.fullmatch(r"cls_bn\d+_0", k))
+    neck = dict(params.get("neck_m") or {})
+    laterals = ("adapt_convs" if any(re.fullmatch(r"merge\d+", k) for k in neck)
+                else "lateral_convs")
     maskiou = dict(dict(params.get("roi") or {}).get("maskiou") or {})
     convs = sorted((k for k in maskiou if re.fullmatch(r"conv\d+", k)), key=lambda k: int(k[4:]))
     maskiou_ch = (np.asarray(maskiou[convs[-1]]["Conv_0"]["kernel"]).shape[-1]
@@ -410,10 +469,17 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables.get(collection) or {}):
             try:
-                key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""])
+                key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""],
+                                 sepbn > 0, laterals)
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
+            if "{level}" in key:                        # a conv the levels share
+                for li in range(sepbn):
+                    sd[key.format(level=li)] = torch.tensor(
+                        np.asarray(v, np.float32).transpose(3, 2, 0, 1) if v.ndim == 4
+                        else np.asarray(v, np.float32))
+                continue
             if "{}" in key:                             # a per-level scales vector
                 for i, x in enumerate(np.asarray(v, dtype=np.float32)):
                     sd[key.format(i)] = torch.tensor(x)
@@ -476,6 +542,16 @@ MMDET_ONLY = {
         "a part of an ATSS head: GN in the towers, scales, atss_* convs (mmdet's PAA head is "
         "an ATSS head; the JAX one is a RetinaHead, with retina_cls, retina_reg and "
         "retina_iou)",
+    r"neck\.extra_downsamples\.":
+        "NAS-FPN's or NAS-FCOS's convs on the extra levels (the JAX necks max-pool them)",
+    r"neck\.fpn_stages\.\d+\.(sum_77_7\.|gp_54_7\.|\w+\.out_conv\.conv\.bias)":
+        "a part of mmdet's NAS-FPN stage the JAX one lacks: sum_77_7 and gp_54_7 (JAX merges "
+        "P5 and P7 in one cell, gp_55_7) or a cell conv's bias (the JAX cells' convs have "
+        "none before their BN)",
+    r"neck\.fpn\.":
+        "mmdet's NAS-FCOS concat cells (the JAX NASFCOS_FPN merges top-down with sum cells)",
+    r"bbox_head\.(cls|reg)_convs\.\d+\.conv\.conv_offset\.":
+        "NAS-FCOS's deformable tower convs (the JAX NASFCOSHead's towers are plain 3x3 convs)",
 }
 
 

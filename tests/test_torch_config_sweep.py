@@ -1,10 +1,13 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 49 configs the port has ported build, the
-other 31 raise the port's refusal (a type the port has not ported,
-"the port builds only the ported slices' types"), never another error;
-TridentNet's refusal names the JAX detector's fault.
+them with the JAX package: the 52 configs the port has ported build as
+given, NAS-FCOS raises its stride refusal (its neck's outputs at strides 4
+to 64 against its head's 8 to 128) and builds with
+``model.neck.start_level=1``, the other 27 raise the port's refusal (a type
+the port has not ported, "the port builds only the ported slices'
+types"), never another error; TridentNet's refusal names the JAX
+detector's fault.
 
 Also the two reference-side faults the port does not copy (ROADMAP C): the
 JAX package's ``RPN`` detector raises ``AttributeError`` (it is a bare
@@ -19,7 +22,11 @@ the CPU, the weights of four long-tail models, of VFNet and TOOD, of FSAF
 through ``load_mmdet_checkpoint`` under mmdet's names, and the one-stage
 family's twelve configs at full width (their towers, GFL's bins, VFNet's
 DCNs, TOOD's task decomposition, FreeAnchor's and PISA's RetinaHeads, LD's
-teacher), with mmdet's tensors that the JAX heads lack refused.
+teacher), with mmdet's tensors that the JAX heads lack refused; the same
+for GA-RetinaNet, SABL-RetinaNet, NAS-FPN and NAS-FCOS (guided anchors on
+DCNv1 with 4 deform groups, SABL's buckets, the searched necks' live BNs,
+RetinaSepBNHead's shared convs under every level, mmdet's NAS neck parts
+the JAX necks lack refused).
 """
 import copy
 import glob
@@ -75,10 +82,12 @@ PORTED = {
     "foveabox/fovea_r50_fpn_4x4_1x_coco.py",
     "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
     "fsaf/fsaf_r50_fpn_1x_coco.py",
+    "guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py",
     "gfl/gfl_r50_fpn_1x_coco.py",
     "htc/htc_r50_fpn_1x_coco.py",
     "ld/ld_r18_gflv1_r101_fpn_coco_1x.py",
     "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+    "nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py",
     "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
     "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py",
     "paa/paa_r50_fpn_1x_coco.py",
@@ -87,6 +96,7 @@ PORTED = {
     "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py",
     "queryinst/queryinst_r50_fpn_1x_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
+    "sabl/sabl_retinanet_r50_fpn_1x_coco.py",
     "scnet/scnet_r50_fpn_1x_coco.py",
     "sparse_rcnn/sparse_rcnn_r50_fpn_1x_coco.py",
     "tood/tood_r50_fpn_1x_coco.py",
@@ -96,10 +106,18 @@ PORTED = {
     "yolo/yolov3_d53_mstrain-608_273e_coco.py",
 }
 REFUSAL = "the port builds only the ported slices' types"
+# refused at build for a fault of its own, with the config option that
+# repairs it (ROADMAP C)
+STRIDE_REFUSED = {
+    "nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py":
+        (r"strides \[4, 8, 16, 32, 64\] and the head's points at \[8, 16, 32, 64, 128\].*"
+         r"model\.neck\.start_level=1", {"model.neck.start_level": 1}),
+}
 
 
-def _build(rel):
+def _build(rel, options=None):
     cfg = load_config(osp.join(CFG_ROOT, rel))
+    cfg.merge_from_dict(options or {})
     det = build_detector(dict(cfg.model), device="meta",
                          num_views=int(cfg.get("num_views", 1) or 1))
 
@@ -122,17 +140,25 @@ def _build(rel):
 
 
 def test_the_sweep_counts_49_of_80():
-    """49 of the 80 build since FoveaBox, FSAF, FreeAnchor, PISA-RetinaNet
-    and LD, 31 are refused."""
+    """52 of the 80 build as given since GA-RetinaNet, SABL-RetinaNet and
+    NAS-FPN (the name is the count's before them), NAS-FCOS with its neck's
+    ``start_level`` set to 1, 27 are refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 49
-    assert len(set(ALL_CONFIGS) - PORTED) == 31
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 52
+    assert set(STRIDE_REFUSED) <= set(ALL_CONFIGS) - PORTED
+    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 27
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
 def test_config_builds_or_is_refused(rel):
     if rel in PORTED:
         det = _build(rel)
+        assert all(p.device.type == "meta" for p in det.parameters())
+    elif rel in STRIDE_REFUSED:
+        match, fix = STRIDE_REFUSED[rel]
+        with pytest.raises(ValueError, match=match):
+            _build(rel)
+        det = _build(rel, fix)
         assert all(p.device.type == "meta" for p in det.parameters())
     else:
         with pytest.raises((KeyError, ValueError), match=REFUSAL):
@@ -622,3 +648,133 @@ def test_mmdet_checkpoint_names_fsaf_outputs_and_ld_teacher(name, tmp_path):
                    "teacher_model.bbox_head.gfl_reg.weight", "bbox_head.gfl_reg.weight"]}[name]
     assert set(want) <= set(sd)
     assert set(k.replace("retina_", "conv_") for k in want) <= set(report["loaded"])
+
+
+THIRD = {"guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py": "GARetinaHead",
+         "sabl/sabl_retinanet_r50_fpn_1x_coco.py": "SABLRetinaHead",
+         "nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py": "RetinaSepBNHead",
+         "nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py": "NASFCOSHead"}
+
+
+@pytest.mark.parametrize("rel", sorted(THIRD))
+def test_onestage3_configs_build_their_heads(rel):
+    """GA-RetinaNet, SABL-RetinaNet, NAS-FPN and NAS-FCOS at full width, 80
+    classes: GA's loc and shape convs and its two DCNv1 adaptions of 4
+    deform groups (72 offsets), SABL's 4 x 14 bucket outputs and 9 approx
+    anchors a location, NAS-FPN's 3 laterals and 7 stacks of 8 cells with
+    live BNs and RetinaSepBNHead's tower convs shared by its 5 levels'
+    BNs, NAS-FCOS (with ``start_level=1``) on C3..C5 with 2 merge cells and
+    FCOS's GN towers."""
+    det = _build(rel, STRIDE_REFUSED.get(rel, (None, None))[1])
+    head = det.bbox_head
+    assert type(head).__name__ == THIRD[rel]
+    assert type(det).__name__ == ("NASFCOS" if "nas_fcos" in rel else "RetinaNet")
+    if THIRD[rel] == "GARetinaHead":
+        assert len(head.cls_convs) == 4 and head.retina_cls.weight.shape == (80, 256, 3, 3)
+        assert head.conv_loc.weight.shape == (1, 256, 1, 1)
+        assert head.conv_shape.weight.shape == (2, 256, 1, 1)
+        for fa in (head.feature_adaption_cls, head.feature_adaption_reg):
+            assert fa.conv_offset.weight.shape == (72, 2, 1, 1)
+            assert fa.conv_adaption.weight.shape == (256, 256, 3, 3)
+            assert fa.conv_adaption.deform_groups == 4
+    if THIRD[rel] == "SABLRetinaHead":
+        assert head.retina_bbox_cls.weight.shape == head.retina_bbox_reg.weight.shape == \
+            (56, 256, 3, 3)
+        assert head.approxs_per_octave == 9 and head.square_gen.num_base_anchors == [1] * 5
+        assert head.retina_cls.weight.shape == (80, 256, 3, 3)
+    if THIRD[rel] == "RetinaSepBNHead":
+        neck = det.neck
+        assert [m.conv.weight.shape[1] for m in neck.lateral_convs] == [512, 1024, 2048]
+        assert len(neck.fpn_stages) == 7 and len(neck.fpn_stages[6]) == 8
+        cell = neck.fpn_stages[6]["gp_75_6"].out_conv
+        assert cell.conv.bias is None and type(cell.bn).__name__ == "BatchNorm"
+        assert len(head.cls_convs) == 5 and len(head.cls_convs[4]) == 4
+        assert head.cls_convs[4][3].conv is head.cls_convs[0][3].conv
+        assert head.cls_convs[4][3].bn is not head.cls_convs[0][3].bn
+        assert head.retina_cls.weight.shape == (720, 256, 3, 3)
+    if THIRD[rel] == "NASFCOSHead":
+        assert [m.conv.weight.shape[1] for m in det.neck.adapt_convs] == [512, 1024, 2048]
+        assert len(det.neck.merge_convs) == 2
+        assert len(head.cls_convs) == 4 and head.cls_convs[0].gn.num_groups == 32
+        assert head.strides == (8, 16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("name", ["ga_retina", "sabl_retina", "nas_fpn", "nas_fcos"])
+def test_mmdet_checkpoint_carries_the_onestage3_modules(name, tmp_path):
+    """The four narrowed (``torch_onestage_cases.tiny_model``) under mmdet's
+    names: GA's ``feature_adaption_cls`` / ``_reg``, ``conv_loc`` and
+    ``conv_shape``; SABL's ``retina_bbox_cls`` / ``retina_bbox_reg``; NAS-FPN's
+    ``fpn_stages`` cells and RetinaSepBNHead's ``cls_convs.{level}.{i}`` (the
+    shared conv under every level, each level's BN with its running
+    statistics); NAS-FCOS's ``adapt_convs`` and ``merge_convs``: every tensor
+    loaded, the models equal."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = oc.tiny_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+        for k, v in src.state_dict().items():
+            if ".running_" in k:
+                v.add_(0.5)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": src.state_dict(), "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"ga_retina": ["bbox_head.feature_adaption_cls.conv_offset.weight",
+                          "bbox_head.feature_adaption_reg.conv_adaption.weight",
+                          "bbox_head.conv_loc.bias", "bbox_head.conv_shape.weight"],
+            "sabl_retina": ["bbox_head.retina_bbox_cls.weight", "bbox_head.retina_bbox_reg.bias"],
+            "nas_fpn": ["neck.fpn_stages.1.gp_55_7.out_conv.bn.running_var",
+                        "neck.lateral_convs.2.bn.weight", "bbox_head.cls_convs.4.0.conv.weight",
+                        "bbox_head.reg_convs.3.0.bn.running_mean"],
+            "nas_fcos": ["neck.adapt_convs.0.conv.weight", "neck.merge_convs.1.bn.running_mean",
+                         "bbox_head.cls_convs.0.gn.weight"]}[name]
+    assert set(want) <= set(report["loaded"])
+
+
+# a tensor of mmdet's that the port lacks (its model, the key, what the
+# refusal names), or (key None) one of the port's that mmdet's lacks
+LACKS = {
+    "nas_fpn_extra_downsample": ("nas_fpn", "neck.extra_downsamples.0.0.conv.weight",
+                                 "extra levels"),
+    "nas_fpn_sum_77_7": ("nas_fpn", "neck.fpn_stages.0.sum_77_7.out_conv.conv.weight",
+                         "sum_77_7"),
+    "nas_fpn_cell_bias": ("nas_fpn", "neck.fpn_stages.1.gp_64_4.out_conv.conv.bias",
+                          "conv's bias"),
+    "nas_fcos_concat_cell": ("nas_fcos", "neck.fpn.c22_1.conv.weight", "concat cells"),
+    "nas_fcos_dcn_tower": ("nas_fcos", "bbox_head.cls_convs.0.conv.conv_offset.weight",
+                           "deformable tower"),
+    "ga_offset_bias_missing": ("ga_retina", None, "lacks 2 of the model's tensors: "
+                               "bbox_head.feature_adaption_cls.conv_offset.bias"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LACKS))
+def test_mmdet_checkpoint_names_the_nas_and_ga_parts_one_side_lacks(case):
+    """mmdet's NAS-FPN has convs on its extra levels, a ``sum_77_7`` cell
+    and biased cell convs; its NAS-FCOS neck is built of concat cells
+    (``neck.fpn``) and its head's towers of deformable convs; mmdet's GA
+    ``conv_offset`` has no bias, the JAX one's (and so the port's) has: a
+    checkpoint with a tensor of the first kind raises naming it
+    (``MMDET_ONLY``), one without a tensor the port has raises naming it
+    (missing)."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    name, extra, match = LACKS[case]
+    model = init_detector({"model": oc.tiny_model(name)}, device="cpu", seed=1).model
+    sd = dict(model.state_dict())
+    if extra is None:
+        sd = {k: v for k, v in sd.items() if not k.endswith("conv_offset.bias")}
+    else:
+        sd[extra] = torch.zeros(4)
+    with pytest.raises(KeyError, match=match):
+        load_mmdet_checkpoint(model, {"state_dict": sd})

@@ -2139,6 +2139,37 @@ def test_deform_conv_on_the_card_matches_the_cpu(dtype):
                                    atol=tol * float(c.abs().max()), msg=name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ga_deform_conv_of_4_groups_on_the_card_matches_the_cpu(dtype):
+    """DCNv1 at GA-RetinaNet's feature adaption (C = 256 in and out, 3x3, 4
+    deform groups: 72 offsets from its 1x1 ``conv_offset``) on 2 maps of
+    32x48 with offsets of a few cells: the card's output and the gradients
+    of the input, the offsets and the weight against the CPU's, with the
+    tolerances of ``test_deform_conv_on_the_card_matches_the_cpu``."""
+    from oadg_tpu_torch.ops.deform_conv import deform_conv2d
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn(2, 256, 32, 48, generator=gen).to(dtype)
+    off = torch.randn(2, 72, 32, 48, generator=gen) * 3
+    w = (torch.randn(256, 256, 3, 3, generator=gen) * 0.02).to(dtype)
+    dy = torch.randn(2, 256, 32, 48, generator=gen)
+    outs = {}
+    for where in ("cpu", dev):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in (x, off, w)]
+        y = deform_conv2d(*leaves, padding=1, deform_groups=4)
+        (y.float() * dy.to(where)).sum().backward()
+        outs[str(where)] = [y.detach().float().cpu()] + [t.grad.float().cpu() for t in leaves]
+    for name, g, c in zip(("y", "x", "offset", "weight"), outs[str(dev)], outs["cpu"]):
+        assert torch.isfinite(g).all(), name
+        print(f"DCNv1 4 groups {dtype} {name}: card vs CPU {float((g - c).abs().max()):.3e}, "
+              f"the largest {float(c.abs().max()):.3e}")
+        steps = 8 if name == "x" else 2
+        tol = 1e-5 if dtype == torch.float32 else steps * 2 ** -8
+        torch.testing.assert_close(g, c, rtol=0 if dtype == torch.float32 else 2 ** -7,
+                                   atol=tol * float(c.abs().max()), msg=name)
+
+
 def _tiny_onestage(rel):
     """A one-stage config of the repo made tiny: R18-FPN of 16 channels, a
     head of 64 channels (two a GroupNorm group: with one, a conv bias

@@ -20,6 +20,11 @@ port's ranks must compute exactly that (``oadg_tpu_torch/parallel/dist.py``).
   and across the ranks' images: the shares sum to the one-process losses,
   the gradients are the one-process ones (the global IoU rank gathered in
   the one-process order; the heads' global normalizers).
+- The one-stage family's other heads (``FEAT_HEADS``: FCOS, ATSS, GFL,
+  VFNet, TOOD, PAA, AutoAssign, FoveaBox, LD, GA, SABL and NAS-FPN's
+  RetinaSepBNHead, whose per-level BNs are SyncBN) run from seeded
+  features, one image a rank: the losses' shares and the features'
+  gradients (TOOD's normalizers carry their gradient across the ranks).
 - ``supcontrast``, the mask loss, the box head's loss and live BN alone,
   on seeded rows, the ranks' shards of equal and of unequal sizes; and
   outside ``sharded_batch()``, under the same live group, the loss and the
@@ -38,7 +43,9 @@ YOLOv3's live BNs amplify that reassociation layer by layer (their
 backward subtracts the batch means of the incoming gradient): gradients
 rtol 1e-4 with a floor of 1e-4 x the largest (measured 2.3e-5), the state
 after the step rtol 1e-5 with a floor of 3e-6 (measured 7.6e-7, a neck
-BN's stored variance). Against JAX, those of ``test_torch_train_step.py``
+BN's stored variance). The ``FEAT_HEADS`` features' gradients: rtol 1e-5
+with a floor of ``FEAT_GRAD_FLOOR`` x each tensor's largest. Against JAX,
+those of ``test_torch_train_step.py``
 (losses 1e-4, gradients 1e-3 with a floor of 1e-5 x the largest) and of
 ``test_torch_yolo_slice.py`` for YOLOv3 (gradients a floor of 3e-4 x the
 largest; BN statistics 1e-4 with a floor of 1e-5).
@@ -206,6 +213,23 @@ DENSE_HEADS = {
 }
 ANCHORS = dict(type="AnchorGenerator", octave_base_scale=4, scales_per_octave=1,
                ratios=[0.5, 1.0, 2.0], strides=[8, 16])
+# The one-stage family's heads that take ``shard_sum`` normalizers, each with
+# its published config's head (``torch_onestage_cases.tiny_model``) at 8
+# channels and 3 classes, run from seeded features of five levels of a 64x64
+# image (its forward and loss on each rank's image): NAS-FPN's is
+# RetinaSepBNHead, whose per-level BNs are SyncBN there.
+FEAT_HEADS = ("atss", "autoassign", "fcos", "fovea", "ga_retina", "gfl", "ld", "nas_fpn", "paa",
+              "sabl_retina", "tood", "vfnet")
+# gts centred on points of GA's levels 0 and 1 (its loc and shape
+# positives are a gt's level's points inside its central fifth)
+# the features' gradients pass the head's convs and GNs, summed over 2 x 1
+# images instead of 2 in one batch: rtol 1e-5 with a floor of this times
+# each tensor's largest (measured 1.1e-5 of the largest, TOOD's stride-16
+# level; the others 4e-6 and below)
+FEAT_GRAD_FLOOR = 5e-5
+FEAT_GT = np.array([[[26, 26, 46, 46], [20, 4, 60, 44], [8, 36, 40, 60], [36, 36, 52, 52]],
+                    [[50, 34, 70, 54], [10, 30, 40, 60], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                   np.float32)
 
 
 def _dense_inputs():
@@ -240,6 +264,32 @@ def _dense_inputs():
             cls=[f(rng.normal(0, 1, (n, 3 * a, s, s))) for s in (8, 4)], reg=[f(r) for r in reg],
             gt=f(np.tile(gt, (views, 1, 1))), gt_valid=torch.from_numpy(np.tile(valid, (views, 1))),
             gt_labels=torch.from_numpy(np.tile(labels, (views, 1))))
+    for name in FEAT_HEADS:
+        out[name] = _feat_head_inputs(name, rng)
+    return out
+
+
+def _feat_head_inputs(name, rng):
+    """A ``FEAT_HEADS`` entry: its head config, the head's own seeded init,
+    features of 2 images (8 channels; maps 8x8 to 1x1), ``FEAT_GT`` and
+    seeded labels, and LD's teacher bin logits (``soft``)."""
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.models.layers import init_default_
+    model = oc.tiny_model(name)
+    cfg = dict(model["bbox_head"], in_channels=8, feat_channels=64, num_classes=3,
+               train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"))
+    head = build_from_cfg(dict(cfg, num_views=1), HEADS, dict(device="cpu"))
+    gen = torch.Generator().manual_seed(13)
+    init_default_(head, gen)
+    head.init_weights(gen)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
+    feats = [f(rng.normal(0, 1, (2, 8, s, s))) for s in (32, 16, 8, 4, 2)]
+    out = dict(cfg=cfg, views=1, images=2, state=head.state_dict(), feats=feats, gt=f(FEAT_GT),
+               gt_valid=torch.from_numpy(FEAT_GT[..., 2] > 0),
+               gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
+    if name == "ld":
+        with torch.no_grad():
+            out["soft"] = [f(rng.normal(0, 2, r.shape)) for r in head(feats)[1]]
     return out
 
 
@@ -624,7 +674,7 @@ def test_per_rank_bn_misses_the_one_process_yolo_step(runs):
     assert grads > 1 and stats > 1, (grads, stats)
 
 
-@pytest.mark.parametrize("name", sorted(DENSE_HEADS))
+@pytest.mark.parametrize("name", sorted(DENSE_HEADS) + list(FEAT_HEADS))
 def test_dense_head_loss_counts_every_ranks_rows(runs, name):
     """PISA-RetinaNet's, FreeAnchor's and FSAF's losses over 2 ranks of one
     image each (every view): the shares sum to the one-process losses and
@@ -633,11 +683,20 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
     ``num_pos``), and so are PISA-RetinaNet's IoU rank, gathered in the
     one-process order (its views tie: a rank's rows gathered as they lie
     would put the ISR-P weights of tied rows on other rows), and CARL's
-    weight mass, whose gradient reaches every rank."""
+    weight mass, whose gradient reaches every rank. The same for
+    ``FEAT_HEADS`` (FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox,
+    LD, GA, SABL, RetinaSepBNHead) run from features: each rank's forward
+    and loss, the features' gradients."""
     j = runs["job"]["dense_loss"][name]
-    cls = [c.clone().requires_grad_(True) for c in j["cls"]]
-    reg = [r.clone().requires_grad_(True) for r in j["reg"]]
-    want = dc.dense_head(j).loss((cls, reg), j["gt"], j["gt_valid"], j["gt_labels"])
+    gts = (j["gt"], j["gt_valid"], j["gt_labels"])
+    if "feats" in j:
+        leaves = {"feats": [f.clone().requires_grad_(True) for f in j["feats"]]}
+        extra = {"soft_targets": j["soft"]} if "soft" in j else {}
+        head = dc.dense_head(j)
+        want = head.loss(head(leaves["feats"]), *gts, **extra)
+    else:
+        leaves = {k: [m.clone().requires_grad_(True) for m in j[k]] for k in ("cls", "reg")}
+        want = dc.dense_head(j).loss((leaves["cls"], leaves["reg"]), *gts)
     sum(want.values()).backward()
     got = [r["dense_loss"][name] for r in runs["ranks"]]
     assert sorted(got[0]["losses"]) == sorted(want)
@@ -645,12 +704,13 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
         np.testing.assert_allclose(sum(g["losses"][k] for g in got), float(want[k].detach()),
                                    rtol=1e-5, err_msg=k)
         assert got[0]["losses"][k] != got[1]["losses"][k], k
-    for i in range(2):
-        for g in got:
-            np.testing.assert_allclose(g["cls"][i].numpy(), cls[i].grad[g["rows"]].numpy(),
-                                       rtol=1e-5, atol=1e-8)
-            np.testing.assert_allclose(g["reg"][i].numpy(), reg[i].grad[g["rows"]].numpy(),
-                                       rtol=1e-5, atol=1e-8)
+    for kind, maps in leaves.items():
+        for i, m in enumerate(maps):
+            for g in got:
+                want_g = m.grad[g["rows"]].numpy()
+                floor = FEAT_GRAD_FLOOR * np.abs(want_g).max() if kind == "feats" else 1e-8
+                np.testing.assert_allclose(g[kind][i].numpy(), want_g, rtol=1e-5, atol=floor,
+                                           err_msg=f"{kind} {i}")
 
 
 def test_pisa_roi_head_counts_every_ranks_rows(runs):

@@ -281,17 +281,29 @@ def dense_head(spec):
 
 def task_dense_loss(job, rank, world):
     """Each of ``job['dense_loss']``'s heads' ``loss`` on this rank's images
-    (every view) inside ``sharded_batch()``: its shares and its maps'
-    gradients."""
+    (every view) inside ``sharded_batch()``: its shares and its inputs'
+    gradients: the maps' (``cls`` / ``reg`` given), or the features' (``feats``
+    given: the head's forward runs inside too, its live BNs' statistics
+    the global batch's; LD's ``soft`` teacher logits handed on)."""
     from oadg_tpu_torch.parallel import sharded_batch
     out = {}
     for name, j in job["dense_loss"].items():
         rows = rank_rows(j["images"], j["views"], rank, world)
+        gts = (j["gt"][rows], j["gt_valid"][rows], j["gt_labels"][rows])
+        if "feats" in j:
+            feats = [f[rows].clone().requires_grad_(True) for f in j["feats"]]
+            extra = {"soft_targets": [s[rows] for s in j["soft"]]} if "soft" in j else {}
+            with sharded_batch():
+                head = dense_head(j)
+                losses = head.loss(head(feats), *gts, **extra)
+            sum(losses.values()).backward()
+            out[name] = dict(losses={k: float(v) for k, v in losses.items()}, rows=rows,
+                             feats=[f.grad for f in feats])
+            continue
         cls = [c[rows].clone().requires_grad_(True) for c in j["cls"]]
         reg = [r[rows].clone().requires_grad_(True) for r in j["reg"]]
         with sharded_batch():
-            losses = dense_head(j).loss((cls, reg), j["gt"][rows], j["gt_valid"][rows],
-                                        j["gt_labels"][rows])
+            losses = dense_head(j).loss((cls, reg), *gts)
         sum(losses.values()).backward()
         out[name] = dict(losses={k: float(v) for k, v in losses.items()}, rows=rows,
                          cls=[c.grad for c in cls], reg=[r.grad for r in reg])

@@ -1,13 +1,18 @@
 """Shared fixtures of the one-stage family's CPU parity tests
 (``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``,
-``tests/test_torch_onestage_heads2.py``, ``tests/test_torch_onestage_parts2.py``).
+``tests/test_torch_onestage_heads2.py``, ``tests/test_torch_onestage_parts2.py``,
+``tests/test_torch_onestage_heads3.py``, ``tests/test_torch_onestage_parts3.py``).
 
-``tiny_model(name)``: the published config of each of the twelve one-stage
+``tiny_model(name)``: the published config of each of the sixteen one-stage
 configs (``FIRST``: the family's first seven; ``SECOND``: FoveaBox, FSAF,
-FreeAnchor, PISA-RetinaNet and LD) with its backbone cut to ResNet-18 and
+FreeAnchor, PISA-RetinaNet and LD; ``THIRD``: GA-RetinaNet, SABL-RetinaNet,
+NAS-FPN and NAS-FCOS) with its backbone cut to ResNet-18 and
 its neck and head to 16 channels (the R18-FPN-16 of
 ``tests/test_p2_zoo.py``), 8 classes; its losses, assigners, anchors and
-test settings kept; LD's teacher narrowed the same way. ``randomize`` fills
+test settings kept; LD's teacher narrowed the same way; NAS-FPN's neck at
+two stacks, NAS-FCOS's neck at ``start_level=1`` (the port refuses the
+config's 0, ROADMAP C). The NAS necks max-pool their top levels: their
+batches are ``NAS_HW`` (128x192), where P7 is 1x2. ``randomize`` fills
 a JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
 (LeCun-normal kernels, small biases, GN and the per-level scales near 1,
 random frozen-BN statistics) that the port loads through
@@ -34,10 +39,16 @@ CONFIGS = {
     "free_anchor": "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
     "pisa_retina": "configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py",
     "ld": "configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py",
+    "ga_retina": "configs/guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py",
+    "sabl_retina": "configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py",
+    "nas_fpn": "configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py",
+    "nas_fcos": "configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py",
 }
 FIRST = ("atss", "autoassign", "fcos", "gfl", "paa", "tood", "vfnet")
 SECOND = ("fovea", "free_anchor", "fsaf", "ld", "pisa_retina")
+THIRD = ("ga_retina", "nas_fcos", "nas_fpn", "sabl_retina")
 HW = (64, 96)
+NAS_HW = (128, 192)
 NUM_CLASSES = 8
 
 
@@ -52,6 +63,10 @@ def tiny_model(name):
     for part in parts:
         part.backbone.update(depth=18, init_cfg=None)
         part.neck.update(in_channels=[64, 128, 256, 512], out_channels=16)
+        if name.startswith("nas"):                     # the maps the neck takes: C3..C5
+            part.neck.update(in_channels=[128, 256, 512], start_level=1)
+        if name == "nas_fpn":
+            part.neck.update(stack_times=2)
         part.bbox_head.update(in_channels=16, feat_channels=16, num_classes=NUM_CLASSES,
                               stacked_convs=2 if name == "tood" else 1)
     m.test_cfg.update(max_per_img=20)
@@ -66,11 +81,11 @@ def _plain(obj):
     return obj
 
 
-def batch(seed=4, n=2, g=4):
-    """``n`` images of ``HW`` with ``g`` seeded gts each (the last of image
+def batch(seed=4, n=2, g=4, hw=HW):
+    """``n`` images of ``hw`` with ``g`` seeded gts each (the last of image
     1 padding), numpy, NHWC."""
     rng = np.random.RandomState(seed)
-    h, w = HW
+    h, w = hw
     x1 = rng.uniform(0, w - 30, (n, g))
     y1 = rng.uniform(0, h - 30, (n, g))
     gt = np.stack([x1, y1, np.minimum(x1 + rng.uniform(10, 50, (n, g)), w),
