@@ -338,12 +338,14 @@ non-zero exit code:
    R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
    branch's 14x14 (a request's masks too); one more Sparse and Grid step a
    dtype with every B1 and B2 call held to the plain versions in place.
-8e. onestage: the one-stage family's sixteen configs (``ONESTAGE``:
+8e. onestage: the one-stage family's twenty configs (``ONESTAGE``:
    FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox, FSAF,
    FreeAnchor, PISA-RetinaNet, LD with its R50-FPN GFL teacher,
    GA-RetinaNet, SABL-RetinaNet, NAS-FPN, NAS-FCOS with its neck's
    ``start_level`` at 1, ``ONESTAGE_OPTIONS``: the config as given is
-   refused), each at
+   refused, RepPoints, CenterNet on R18 with the Cityscapes base's data
+   and the Cityscapes config's warm-up, which its config lacks, CornerNet
+   and CentripetalNet on the two-stack Hourglass-104), each at
    its config's full width with seeded weights, 80 classes as published, on the Cityscapes
    base's 1024x2048 canvas; the classifier bias moved to the 0.01 prior
    plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
@@ -358,7 +360,11 @@ non-zero exit code:
    the second step; FreeAnchor's step peak must stay within
    ``BAG_PEAK_GIB`` of PISA-RetinaNet's (the same 392,832 anchors and no
    bags), per dtype: a (G, N, C) ``box_prob`` would not. NAS-FPN's neck
-   forward (56 merging cells) is timed after its steps and logged.
+   forward (56 merging cells) is timed after its steps and logged, and so
+   is the Hourglass's forward (CornerNet and CentripetalNet). CenterNet,
+   CornerNet and CentripetalNet decode without NMS (a top 100, none
+   recorded); their heatmaps start at mmdet's 0.1 prior, RepPoints' classes
+   at 0.01.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
@@ -5260,26 +5266,41 @@ def longtail_cfg(path):
     return cfg
 
 
-ONESTAGE_CLASSIFIERS = ("retina_cls", "conv_cls", "atss_cls", "gfl_cls", "vfnet_cls", "tood_cls")
+ONESTAGE_CLASSIFIERS = ("retina_cls", "conv_cls", "atss_cls", "gfl_cls", "vfnet_cls", "tood_cls",
+                        "reppoints_cls_out")
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
+HEAT_PRIOR_BIAS = -math.log((1 - 0.1) / 0.1)     # mmdet's CenterNet and corner heatmaps
+CORNER_SHIFT = math.log(5.0)                      # a served CentripetalNet's log shift, cells
+
+
+def classifier_biases(head):
+    """A one-stage head's classifier biases: the class conv's, or
+    CenterNet's heatmap conv's, or each stack's two corner heatmap convs'."""
+    if hasattr(head, "heatmap_head"):
+        return [head.heatmap_head[2].bias]
+    if hasattr(head, "tl_heat"):
+        return [branch[1].conv.bias for branch in (*head.tl_heat, *head.br_heat)]
+    return [getattr(head, next(n for n in ONESTAGE_CLASSIFIERS if hasattr(head, n))).bias]
 
 
 def classifier_prior(model):
     """mmdet's start for a one-stage classifier: the bias at the 0.01 prior
-    (and TOOD's probability map's), where the JAX heads start at 0 (ROADMAP
-    C: a seeded JAX-init TOOD or VFNet step sums every negative's loss over
-    ~one positive and two SGD steps overflow). RetinaNet's, PAA's and
-    NAS-FPN's ``retina_cls`` start there already, GA's and SABL's at 0.
-    -> the classifier's bias."""
+    (and TOOD's probability map's; CenterNet's and the corner heads'
+    heatmaps at 0.1), where the JAX heads start at 0 (ROADMAP C: a seeded
+    JAX-init TOOD or VFNet step sums every negative's loss over ~one
+    positive and two SGD steps overflow; a JAX-init CenterNet's heatmap
+    loss sums every cell's). RetinaNet's, PAA's and NAS-FPN's ``retina_cls``
+    start there already, GA's and SABL's at 0. -> the classifier biases."""
     import torch
     head = model.bbox_head
-    name = next(n for n in ONESTAGE_CLASSIFIERS if hasattr(head, n))
-    b = getattr(head, name).bias
+    biases = classifier_biases(head)
+    heat = hasattr(head, "heatmap_head") or hasattr(head, "tl_heat")
     with torch.no_grad():
-        b.fill_(PRIOR_BIAS)
+        for b in biases:
+            b.fill_(HEAT_PRIOR_BIAS if heat else PRIOR_BIAS)
         if hasattr(head, "cls_prob_module"):
             head.cls_prob_module[2].bias.fill_(PRIOR_BIAS)
-    return b
+    return biases
 
 
 def widen_classifier(model, seed=50):
@@ -5291,7 +5312,17 @@ def widen_classifier(model, seed=50):
     prior (its score is the root of the class sigmoid times the IoU
     sigmoid: at 0 most of its 400,000 candidates would pass ``score_thr``,
     at 0.01 none; at 0.03 the classes drawn 1.4 sigma above the prior, 4
-    of 80 with this seed)."""
+    of 80 with this seed). The corner heads pair their top corners only
+    where both are of one class and the embeddings are within 0.5 of each
+    other (CornerNet) or the shifted centres within 0.3 of the box
+    (CentripetalNet): so that seeded corners make boxes, their heatmaps
+    share one draw a class, and the last convs of their heatmap, offset,
+    embedding and shift branches are drawn N(0, 1e-4) (with the JAX init
+    the logits and the offsets spread ~10 over the cells), the heatmaps'
+    positive (so that the top corners sit where the pooled maps are
+    largest: top-left corners above and left of bottom-right ones), the
+    shifts' bias at ``CORNER_SHIFT`` (centres 5 cells in: boxes of 8 to 14
+    cells pass)."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -5301,8 +5332,23 @@ def widen_classifier(model, seed=50):
                 w = head.fc_cls.weight
                 w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
         else:
-            b = classifier_prior(model)
-            b.add_((torch.randn(b.shape, generator=gen) * 1.5).to(b.device))
+            biases = classifier_prior(model)
+            noise = torch.randn(biases[0].shape, generator=gen) * 1.5   # the corners' shared
+            for b in biases:
+                b.add_(noise.to(b.device))
+            head = model.bbox_head
+            shifts = [*getattr(head, "tl_centripetal_shift", ()),
+                      *getattr(head, "br_centripetal_shift", ())]
+            narrow = [*getattr(head, "tl_heat", ()), *getattr(head, "br_heat", ()),
+                      *getattr(head, "tl_off", ()), *getattr(head, "br_off", ()),
+                      *getattr(head, "tl_emb", ()), *getattr(head, "br_emb", ()), *shifts]
+            for branch in narrow:
+                conv = branch[1].conv
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 1e-4)
+            for branch in (*getattr(head, "tl_heat", ()), *getattr(head, "br_heat", ())):
+                branch[1].conv.weight.abs_()
+            for branch in shifts:
+                branch[1].conv.bias.fill_(CORNER_SHIFT)
             if hasattr(model.bbox_head, "retina_iou"):
                 model.bbox_head.retina_iou.bias.fill_(-math.log(0.97 / 0.03))
 
@@ -5463,7 +5509,8 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     widen_classifier(handle.model)
     img = np.random.RandomState(51).randint(0, 256, (*hw, 3), dtype=np.uint8)
     # every dense head's NMS goes through retina_head.nms_detections
-    rec = _NmsRecorder(retina_head) if family == "retinanet" or family in ONESTAGE_NAMES else None
+    rec = (_NmsRecorder(retina_head) if family == "retinanet" or (
+        family in ONESTAGE_NAMES and family not in WITHOUT_NMS) else None)
     try:
         handle.test(prepare_image(img, handle.cfg, handle.device))          # warm-up
     finally:
@@ -6355,8 +6402,23 @@ ONESTAGE = (
     ("sabl_retina", "configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py"),
     ("nas_fpn", "configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py"),
     ("nas_fcos", "configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py"),
+    ("reppoints", "configs/reppoints/reppoints_moment_r50_fpn_1x_coco.py"),
+    ("centernet", "configs/centernet/centernet_resnet18_140e_coco.py"),
+    ("cornernet", "configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py"),
+    ("centripetalnet",
+     "configs/centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py"),
 )
 ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
+# heads that decode by a top-k, with no NMS
+WITHOUT_NMS = ("centernet", "cornernet", "centripetalnet")
+HOURGLASS = ("cornernet", "centripetalnet")
+# CenterNet's config names no data (nor a schedule): its request and steps
+# take the Cityscapes base's data, as the other configs do, and the
+# Cityscapes config's linear warm-up (at its config's constant LR one step
+# on one image moves the heatmap bias by ~10 and the second step's losses
+# read up to 1.5e16)
+DATA_BASE = {"centernet": "configs/_base_/datasets/cityscapes_detection.py"}
+SCHEDULE_BASE = "configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py"
 # the port refuses NAS-FCOS's config as given (its neck's outputs at strides 4
 # to 64, its head's points at 8 to 128; ROADMAP C): it runs with this fix
 ONESTAGE_OPTIONS = {"nas_fcos": {"model.neck.start_level": 1}}
@@ -6394,18 +6456,41 @@ def neck_ms(model, batch):
     return (time.perf_counter() - t0) * 1e3
 
 
+def backbone_ms(model, batch):
+    """The backbone's forward on the step's batch (under ``no_grad``, in the
+    model's mode): the host-clock ms of the second of two runs, each between
+    two synchronises."""
+    import torch
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.backbone(batch["img"])
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def onestage_cfg(family, path):
-    """``longtail_cfg(path)`` with the family's ``ONESTAGE_OPTIONS``."""
+    """``longtail_cfg(path)`` with the family's ``ONESTAGE_OPTIONS``, and the
+    dataset base's ``data`` and ``img_norm_cfg`` and the Cityscapes config's
+    ``lr_config`` where the config has none (``DATA_BASE``,
+    ``SCHEDULE_BASE``)."""
+    from oadg_tpu_torch.config import load_config
     cfg = longtail_cfg(path)
     cfg.merge_from_dict(ONESTAGE_OPTIONS.get(family, {}))
+    if family in DATA_BASE and not cfg.get("data"):
+        base = load_config(str(ROOT / DATA_BASE[family]))
+        cfg.data = base.data
+        cfg.img_norm_cfg = base.img_norm_cfg
+        cfg.lr_config = load_config(str(ROOT / SCHEDULE_BASE)).lr_config
     return cfg
 
 
 def phase_onestage(rows):
     """onestage: each config of ``ONESTAGE`` per dtype at its full width with
     seeded weights (the classifier drawn wider): a request of a 1024x2048
-    image (its ``multiclass_nms`` recorded; the f32 model against the CPU
-    on a 256x384 request) and two training steps on one image with seeded
+    image (its ``multiclass_nms`` recorded, where the head has one; the f32
+    model against the CPU on a 256x384 request) and two training steps on one image with seeded
     gts from mmdet's classifier prior (``classifier_prior``), every loss
     finite float32, each with B1's and B2's counts set to 0
     just before it and read just after (none launched). -> numbers."""
@@ -6414,6 +6499,8 @@ def phase_onestage(rows):
     out = {}
     probes = {"ld": lambda model, batch: {"teacher_ms": teacher_ms(model, batch)},
               "nas_fpn": lambda model, batch: {"neck_ms": neck_ms(model, batch)}}
+    for family in HOURGLASS:
+        probes[family] = lambda model, batch: {"backbone_ms": backbone_ms(model, batch)}
     for family, path in ONESTAGE:
         for name in DTYPES:
             cfg = onestage_cfg(family, path)
@@ -6427,17 +6514,23 @@ def phase_onestage(rows):
                 log("onestage", f"nas_fpn {name}: the neck's forward (7 stacks of 8 cells) "
                                 f"{res['train']['neck_ms']:.3f} ms on one image of "
                                 f"{IMG_H}x{IMG_W} ({nvidia_smi_line()})")
+            if family in HOURGLASS:
+                log("onestage", f"{family} {name}: the Hourglass-104's forward (2 stacks) "
+                                f"{res['train']['backbone_ms']:.3f} ms on one image of "
+                                f"{IMG_H}x{IMG_W} in train mode, steps' peak "
+                                f"{res['train']['peak_gib']:.2f} GiB ({nvidia_smi_line()})")
             if family == "ld":
                 step = res["train"]["step_ms"][-1]
                 res["train"]["teacher_share"] = res["train"]["teacher_ms"] / step
                 log("onestage", f"ld {name}: the teacher's forward {res['train']['teacher_ms']:.3f}"
                                 f" ms, {100 * res['train']['teacher_share']:.1f}% of the second "
                                 f"step's {step:.3f} ms ({nvidia_smi_line()})")
+            nms = res["serve"].get("nms")
             log("onestage", f"{family} {name}: request {res['serve']['request_ms']:.3f} ms "
-                            f"(peak {res['serve']['peak_gib']:.2f} GiB, NMS "
-                            f"{res['serve']['nms']['above']} of {res['serve']['nms']['candidates']}"
-                            f" candidates above score_thr, {res['serve']['nms']['ms']:.3f} ms), "
-                            f"steps {[round(t, 3) for t in res['train']['step_ms']]} ms (peak "
+                            f"(peak {res['serve']['peak_gib']:.2f} GiB, "
+                            + (f"NMS {nms['above']} of {nms['candidates']} candidates above "
+                               f"score_thr, {nms['ms']:.3f} ms), " if nms else "no NMS), ")
+                            + f"steps {[round(t, 3) for t in res['train']['step_ms']]} ms (peak "
                             f"{res['train']['peak_gib']:.2f} GiB), B1 and B2 launches 0 "
                             f"({nvidia_smi_line()})")
             torch.cuda.empty_cache()

@@ -33,7 +33,8 @@ from typing import Sequence
 from torch import nn
 
 from ...utils.registry import BACKBONES
-from ..layers import Conv, FrozenBN, ModulatedDeformConv, conv_frozen_bn, max_pool_3x3_s2
+from ..layers import (Conv, FrozenBN, ModulatedDeformConv, build_norm, conv_frozen_bn,
+                      max_pool_3x3_s2)
 
 
 def _conv(cin, cout, k, stride=1, padding=0, device=None, dtype=None):
@@ -41,36 +42,51 @@ def _conv(cin, cout, k, stride=1, padding=0, device=None, dtype=None):
                 dtype=dtype)
 
 
-def _downsample(cin, cout, stride, bn_grad, device, dtype):
-    """``downsample.0`` (1x1 conv) and ``downsample.1`` (its frozen BN)."""
+def _norm(planes, bn_grad, norm_cfg, device):
+    """A block's BN: frozen, or live where ``norm_cfg`` is given."""
+    if norm_cfg is None:
+        return FrozenBN(planes, requires_grad=bn_grad, device=device)
+    return build_norm(norm_cfg, planes, device)
+
+
+def _downsample(cin, cout, stride, bn_grad, device, dtype, norm_cfg=None):
+    """``downsample.0`` (1x1 conv) and ``downsample.1`` (its BN: frozen, or
+    live with ``norm_cfg``)."""
     return nn.Sequential(_conv(cin, cout, 1, stride, device=device, dtype=dtype),
-                         FrozenBN(cout, requires_grad=bn_grad, device=device))
+                         _norm(cout, bn_grad, norm_cfg, device))
+
+
+def _conv_bn(conv, bn, x):
+    """``bn(conv(x))``: a frozen BN folded into the conv, a live one after it."""
+    return conv_frozen_bn(conv, bn, x) if isinstance(bn, FrozenBN) else bn(conv(x))
 
 
 def _identity(block, x):
     ds = block.downsample
-    return x if ds is None else conv_frozen_bn(ds[0], ds[1], x)
+    return x if ds is None else _conv_bn(ds[0], ds[1], x)
 
 
 class BasicBlock(nn.Module):
-    """``oadg_tpu/models/backbones/resnet.py:52``."""
+    """``oadg_tpu/models/backbones/resnet.py:52``: frozen BNs folded into
+    their convs, or with ``norm_cfg`` (a ``BN`` config) live BNs after them
+    (the JAX ``build_norm`` without ``_eval``: the Hourglass's blocks)."""
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None,
-                 style="pytorch", bn_grad=True, device=None, dtype=None):
+                 style="pytorch", bn_grad=True, norm_cfg=None, device=None, dtype=None):
         super().__init__()
         self.conv1 = Conv(inplanes, planes, 3, stride, dilation, dilation,
                           bias=False, device=device, dtype=dtype)
-        self.bn1 = FrozenBN(planes, requires_grad=bn_grad, device=device)
+        self.bn1 = _norm(planes, bn_grad, norm_cfg, device)
         self.conv2 = _conv(planes, planes, 3, 1, 1, device=device, dtype=dtype)
-        self.bn2 = FrozenBN(planes, requires_grad=bn_grad, device=device)
+        self.bn2 = _norm(planes, bn_grad, norm_cfg, device)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
         identity = _identity(self, x)
-        out = self.relu(conv_frozen_bn(self.conv1, self.bn1, x))
-        out = conv_frozen_bn(self.conv2, self.bn2, out)
+        out = self.relu(_conv_bn(self.conv1, self.bn1, x))
+        out = _conv_bn(self.conv2, self.bn2, out)
         return self.relu(out + identity)
 
 

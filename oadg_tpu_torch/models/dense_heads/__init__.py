@@ -1,22 +1,27 @@
 """Dense heads of the port; the one-stage family's modules also register
 their detectors (``FCOS``, ``ATSS``, ``GFL``, ``VFNet``, ``TOOD``, ``PAA``,
 ``AutoAssign``, ``FOVEA``, ``FSAF``,
-``KnowledgeDistillationSingleStageDetector``, ``NASFCOS``)."""
+``KnowledgeDistillationSingleStageDetector``, ``NASFCOS``, ``RepPointsDetector``,
+``CenterNet``, ``CornerNet``)."""
 from .atss_head import ATSSHead
 from .autoassign_ld_heads import AutoAssignHead, LDHead, NASFCOSHead, PISARetinaHead
+from .centernet_head import CenterNetHead
+from .corner_heads import CentripetalHead, CornerHead
 from .fcos_head import FCOSHead
 from .fovea_fsaf_heads import FoveaHead, FSAFHead
 from .free_anchor_heads import FreeAnchorRetinaHead, RetinaSepBNHead
 from .gfl_head import GFLHead
 from .guided_sabl_heads import GARetinaHead, SABLRetinaHead
 from .paa_head import PAAHead
+from .reppoints_head import RepPointsHead
 from .retina_head import RetinaHead
 from .rpn_head import RPNHead
 from .tood_head import TOODHead
 from .vfnet_head import VFNetHead
 from .yolo_head import YOLOV3Head, YOLOV3HeadCont
 
-__all__ = ["ATSSHead", "AutoAssignHead", "FCOSHead", "FoveaHead", "FreeAnchorRetinaHead",
+__all__ = ["ATSSHead", "AutoAssignHead", "CenterNetHead", "CentripetalHead", "CornerHead",
+           "FCOSHead", "FoveaHead", "FreeAnchorRetinaHead",
            "FSAFHead", "GARetinaHead", "GFLHead", "LDHead", "NASFCOSHead", "PAAHead",
-           "PISARetinaHead", "RetinaHead", "RetinaSepBNHead", "RPNHead", "SABLRetinaHead",
+           "PISARetinaHead", "RepPointsHead", "RetinaHead", "RetinaSepBNHead", "RPNHead", "SABLRetinaHead",
            "TOODHead", "VFNetHead", "YOLOV3Head", "YOLOV3HeadCont"]

@@ -253,8 +253,8 @@ class Scale(nn.Module):
 class ConvModule(nn.Module):
     """mmcv ConvModule: ``self.conv``, then ``self.bn`` with a BN
     ``norm_cfg`` (its ``eps`` and torch ``momentum`` honoured; the conv then
-    has no bias), then ``act`` (``"leaky_relu"``, slope 0.1). With neither
-    it is the plain conv FPN uses."""
+    has no bias), then ``act`` (``"leaky_relu"``, slope 0.1, or
+    ``"relu"``). With neither it is the plain conv FPN uses."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm_cfg=None, act=None,
@@ -262,7 +262,7 @@ class ConvModule(nn.Module):
         super().__init__()
         if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
             raise NotImplementedError(f"ConvModule norm {norm_cfg['type']}")
-        if act not in (None, "leaky_relu"):
+        if act not in (None, "leaky_relu", "relu"):
             raise NotImplementedError(f"ConvModule activation {act}")
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, padding,
                          bias=norm_cfg is None, device=device, dtype=dtype)
@@ -273,6 +273,8 @@ class ConvModule(nn.Module):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        if self.act == "relu":
+            return torch.relu(x)
         return leaky_relu(x) if self.act == "leaky_relu" else x
 
 

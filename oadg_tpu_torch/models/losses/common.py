@@ -7,7 +7,8 @@ elementwise ``CrossEntropyLoss`` on soft targets; ``FocalLoss``
 ``GIoULoss``, ``DIoULoss`` and ``CIoULoss`` (``:158-245``, ``:466-523``)
 regress decoded boxes (``reg_decoded_bbox``): their ``(R, 4)`` box weights
 are cut to ``[..., 0]``, as in the JAX package. ``QualityFocalLoss`` and
-``DistributionFocalLoss`` (``:387-437``) are GFL's and TOOD's.
+``DistributionFocalLoss`` (``:387-437``) are GFL's and TOOD's;
+``GaussianFocalLoss`` (``:444-464``) is CenterNet's and CornerNet's.
 
 Static-shape and mask-weighted like the JAX package: ragged indexing
 (``pred[pos_inds]``) is a weight of 0. ``maximum`` and ``minimum`` are taken
@@ -409,3 +410,27 @@ class CIoULoss(DIoULoss):
         v = (4 / math.pi ** 2) * (torch.atan(tw / th) - torch.atan(pw / ph)) ** 2
         alpha = v / torch.maximum(1 - ious + v, floor)
         return super()._loss(pred, target, ious) + alpha.detach() * v
+
+
+@LOSSES.register_module()
+class GaussianFocalLoss:
+    """The focal loss on gaussian heatmaps (``:444-464``): ``pred`` holds
+    probabilities; a cell is positive only where its target is exactly 1,
+    ``-log(p + eps) (1 - p)^alpha``; every other cell
+    ``-log(1 - p + eps) p^alpha (1 - t)^gamma``; eps 1e-12."""
+
+    def __init__(self, alpha: float = 2.0, gamma: float = 4.0, reduction: str = "mean",
+                 loss_weight: float = 1.0, **kw):
+        self.alpha, self.gamma = alpha, gamma
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, gaussian_target, weight=None, avg_factor=None,
+                 reduction_override=None, **kw):
+        eps = 1e-12
+        pos = (gaussian_target == 1).to(pred.dtype)
+        neg_w = (1 - gaussian_target) ** self.gamma
+        loss = (-torch.log(pred + eps) * (1 - pred) ** self.alpha * pos
+                - torch.log(1 - pred + eps) * pred ** self.alpha * neg_w * (1 - pos))
+        return self.loss_weight * weight_reduce_loss(
+            loss, weight, reduction_override or self.reduction, avg_factor)

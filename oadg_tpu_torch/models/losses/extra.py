@@ -1,6 +1,7 @@
-"""The varifocal loss and LD's knowledge-distillation KL (port of
-``oadg_tpu/models/losses/extra.py:19-70``): VFNet's classification loss and
-LD's ``loss_ld``."""
+"""The varifocal loss, LD's knowledge-distillation KL and CornerNet's
+associative embedding loss (port of ``oadg_tpu/models/losses/extra.py:19-70,
+123-148``): VFNet's classification loss, LD's ``loss_ld`` and CornerNet's
+``loss_pull`` / ``loss_push``."""
 from __future__ import annotations
 
 import torch
@@ -59,3 +60,32 @@ class KnowledgeDistillationKLDivLoss:
         kd = (q * (torch.log(torch.clamp_min(q, 1e-12)) - logp)).sum(-1) * (t * t)
         return self.loss_weight * weight_reduce_loss(
             kd, weight, reduction_override or self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class AssociativeEmbeddingLoss:
+    """CornerNet's pull and push losses (``:123-148``) on dense per-gt
+    corner embeddings with a validity mask (mmdet's are ragged per-image
+    lists): over the ``n`` valid gts, pull the mean of both corners'
+    squared distances to their mean, push ``max(1 - |m_i - m_j|, 0)`` over
+    the ordered pairs ``i != j`` divided by ``n (n - 1)``; each times its
+    weight (0.25)."""
+
+    def __init__(self, pull_weight: float = 0.25, push_weight: float = 0.25, **kw):
+        self.pull_weight = pull_weight
+        self.push_weight = push_weight
+
+    def __call__(self, tl_emb, br_emb, valid, **kw):
+        """``tl_emb``, ``br_emb``: (..., G) corner embeddings a gt;
+        ``valid`` (..., G) bool. -> (pull, push), each (...) (one value an
+        image)."""
+        v = valid.to(tl_emb.dtype)
+        n = torch.clamp_min(v.sum(-1), 1.0)
+        mean = (tl_emb + br_emb) * 0.5
+        pull = (((tl_emb - mean) ** 2 + (br_emb - mean) ** 2) * v).sum(-1) / n
+        d = (mean[..., :, None] - mean[..., None, :]).abs()
+        eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+        pair = v[..., :, None] * v[..., None, :] * (1 - eye)
+        push = ((torch.maximum(1 - d, torch.zeros_like(d)) * pair).sum((-2, -1))
+                / torch.clamp_min(n * (n - 1), 1.0))
+        return self.pull_weight * pull, self.push_weight * push

@@ -1,7 +1,16 @@
 """Point sampling (port of ``oadg_tpu/ops/misc_ops.py:37``
 ``point_sample`` and ``oadg_tpu/ops/deform_conv.py:30`` ``bilinear_gather``),
-on the port's ``deform_conv._bilinear_taps``. The JAX package computes these
+on the port's ``deform_conv._bilinear_taps``, and CornerNet's corner pooling
+(``corner_pool``, ``misc_ops.py:20-35``). The JAX package computes these
 in XLA, not Pallas, so there is no kernel to write.
+
+``corner_pool`` is a running max (``torch.cummax``) toward one border of an
+NCHW map. Its gradient at a tie differs from the JAX package's: torch sends
+all of it to the latest index of the running maximum, as mmcv's
+``CornerPool`` does (on ``[1, 3, 3, 2, 3]`` the gradient of
+``sum(cummax)`` is ``[1, 1, 2, 0, 1]``), where JAX differentiates an
+associative scan of ``max`` and splits it (``[1, 2.25, 1.25, 0, 0.5]``).
+The port keeps mmcv's rule (ROADMAP C); the values are equal.
 
 Both take channels-last maps, as the JAX functions do: (B, H, W, C). A
 corner outside its image reads 0 (mmcv's zero padding), so a sample whose
@@ -16,7 +25,18 @@ import torch
 
 from .deform_conv import _bilinear_taps
 
-__all__ = ["bilinear_gather", "point_sample"]
+__all__ = ["bilinear_gather", "corner_pool", "point_sample"]
+
+
+def corner_pool(x: torch.Tensor, direction: str) -> torch.Tensor:
+    """mmcv's ``CornerPool`` on an NCHW map: ``top`` ``out[i] = max(x[i:])``
+    over the rows, ``bottom`` ``max(x[:i + 1])``, ``left`` and ``right``
+    the same over the columns."""
+    dim, flip = {"top": (2, True), "bottom": (2, False), "left": (3, True),
+                 "right": (3, False)}[direction]
+    if flip:
+        return torch.cummax(x.flip(dim), dim).values.flip(dim)
+    return torch.cummax(x, dim).values
 
 
 def bilinear_gather(feats: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,

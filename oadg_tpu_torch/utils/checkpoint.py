@@ -16,8 +16,10 @@ heads lack (``MMDET_ONLY``: mmdet's ``DynamicConv.fc_norm`` of Sparse R-CNN's
 stages, its ``GridHead`` fusion ``forder_trans`` / ``sorder_trans``,
 VFNet's ``vfnet_reg_conv``, the ATSS parts of mmdet's PAA head, the NAS
 necks' extra-level convs and mmdet's NAS-FPN ``sum_77_7`` / ``gp_54_7``
-and cell conv biases, NAS-FCOS's concat cells and deformable tower convs),
-which skipping would silently change.
+and cell conv biases, NAS-FCOS's concat cells and deformable tower convs,
+the ``conv2`` after mmdet's ``BiCornerPool``, CentripetalNet's guiding
+shifts and feature adaption, and a downsample in a later block of an
+Hourglass ``low3``), which skipping would silently change.
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
@@ -119,6 +121,24 @@ NAS-FCOS's head's ``cls_sep{i}`` ``cls_convs.{i}.conv``; RetinaSepBNHead's
 ``feature_adaption_cls`` / ``_reg``, ``conv_loc`` and ``conv_shape`` as
 they are; SABL's ``bucket_cls`` / ``bucket_reg`` ``retina_bbox_cls`` /
 ``retina_bbox_reg``.
+The heads and backbone of A.2.7c: RepPoints' ``cls_dconv``, ``cls_out``,
+``pts_init_conv``, ``pts_init_out``, ``pts_refine_dconv`` and
+``pts_refine_out`` become ``reppoints_cls_conv``, ``reppoints_cls_out``,
+``reppoints_pts_init_conv``, ``reppoints_pts_init_out``,
+``reppoints_pts_refine_conv`` and ``reppoints_pts_refine_out`` (its GNs
+``cls_gn_out`` / ``pts_refine_gn``, which mmdet lacks, and
+``moment_transfer`` keep their names); CenterNet's ``heatmap_conv`` /
+``heatmap_out`` (and ``wh_``, ``offset_``) ``heatmap_head.0`` / ``.2``;
+the corner heads' ``tl_heat{i}_c1`` / ``_c2`` (and ``br_``, ``_emb``,
+``_off``; ``tl_ctr`` as ``tl_centripetal_shift``) ``tl_heat.{i}.0.conv`` /
+``.1.conv``, their pools ``tl_pool{i}`` (``conv1``, ``conv2``,
+``out_conv``, ``shortcut``) ``tl_pool.{i}.{direction1_conv,
+direction2_conv, aftpool_conv, conv1}``; the Hourglass's ``stem_conv``
+``backbone.stem.0``, ``stem_res0`` ``stem.1.0``, ``hg{s}`` (``up1_{j}``,
+``low1_{j}``, ``low2`` nested or ``low2_{j}``, ``low3_{j}``)
+``hourglass_modules.{s}.up1.{j}`` ..., ``out_conv{s}`` ``out_convs.{s}``,
+``remap_x{s}`` ``conv1x1s.{s}``, ``remap_f{s}`` ``remap_convs.{s}``,
+``inter_res{s}_0`` ``inters.{s}`` (every BN's ``batch_stats`` too).
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -225,6 +245,64 @@ _NAS_CELLS = {"gp64_4": "gp_64_4", "sum44": "sum_44_4", "sum43": "sum_43_3", "su
               "gp43_5": "gp_43_5", "sum55": "sum_55_5", "gp55_7": "gp_55_7", "gp75_6": "gp_75_6"}
 
 
+_REPPOINTS = {"cls_dconv": "reppoints_cls_conv", "cls_out": "reppoints_cls_out",
+              "pts_init_conv": "reppoints_pts_init_conv",
+              "pts_init_out": "reppoints_pts_init_out",
+              "pts_refine_dconv": "reppoints_pts_refine_conv",
+              "pts_refine_out": "reppoints_pts_refine_out", "cls_gn_out": "cls_gn_out",
+              "pts_refine_gn": "pts_refine_gn"}
+_CENTERNET = {f"{b}_{k}": f"{b}_head.{i}" for b in ("heatmap", "wh", "offset")
+              for k, i in (("conv", 0), ("out", 2))}
+_CORNER_POOL = {"conv1": "direction1_conv", "conv2": "direction2_conv",
+                "out_conv": "aftpool_conv", "shortcut": "conv1"}
+_CORNER_BRANCH = {"heat": "heat", "emb": "emb", "off": "off", "ctr": "centripetal_shift"}
+
+
+def _point_head_key(rest: Tuple[str, ...], reppoints: bool) -> Optional[str]:
+    """A leaf of RepPoints' (``reppoints``), CenterNet's or a corner head
+    -> its key, or None (another head's)."""
+    scope = rest[0]
+    if reppoints and scope == "moment_transfer":
+        return "bbox_head.moment_transfer"
+    if reppoints and scope in _REPPOINTS:
+        return f"bbox_head.{_REPPOINTS[scope]}.{_leaf(rest)}"
+    if scope in _CENTERNET:
+        return f"bbox_head.{_CENTERNET[scope]}.{_leaf(rest)}"
+    m = re.fullmatch(r"(tl|br)_(heat|emb|off|ctr)(\d+)_c([12])", scope)
+    if m:
+        side, kind, i, k = m.groups()
+        return (f"bbox_head.{side}_{_CORNER_BRANCH[kind]}.{i}.{int(k) - 1}.conv."
+                f"{_leaf(rest)}")
+    m = re.fullmatch(r"(tl|br)_pool(\d+)", scope)
+    if m:
+        return (f"bbox_head.{m.group(1)}_pool.{m.group(2)}.{_CORNER_POOL[rest[1]]}."
+                f"{_conv_module(rest[2:])}")
+    return None
+
+
+def _hourglass_key(rest: Tuple[str, ...]) -> str:
+    """A leaf of the JAX ``HourglassNet`` -> its key under ``backbone.``."""
+    scope = rest[0]
+    if scope == "stem_conv":
+        return f"backbone.stem.0.{_conv_module(rest[1:])}"
+    m = re.fullmatch(r"(stem_res|inter_res)(\d+)(_\d+)?", scope)
+    if m and m.group(1) == "stem_res":
+        return _block_key(f"backbone.stem.1.{m.group(2)}", rest[1:])
+    if m:
+        return _block_key(f"backbone.inters.{m.group(2)}", rest[1:])
+    m = re.fullmatch(r"(out_conv|remap_x|remap_f)(\d+)", scope)
+    if m:
+        group = {"out_conv": "out_convs", "remap_x": "conv1x1s",
+                 "remap_f": "remap_convs"}[m.group(1)]
+        return f"backbone.{group}.{m.group(2)}.{_conv_module(rest[1:])}"
+    stack = re.fullmatch(r"hg(\d+)", scope).group(1)
+    pre, rest = f"backbone.hourglass_modules.{stack}", rest[1:]
+    while rest[0] == "low2":                     # a nested level
+        pre, rest = f"{pre}.low2", rest[1:]
+    part, j = re.fullmatch(r"(up1|low1|low2|low3)_(\d+)", rest[0]).groups()
+    return _block_key(f"{pre}.{part}.{j}", rest[1:])
+
+
 def _dense_head_key(rest: Tuple[str, ...], sepbn: bool = False) -> Optional[str]:
     """A leaf of RetinaNet's or a one-stage family head -> its mmdet key, or
     None (another head's). A per-level ``scales`` vector maps to
@@ -275,7 +353,7 @@ def _nas_neck_key(rest: Tuple[str, ...], laterals: str) -> Optional[str]:
 
 
 def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
-               laterals: str = "lateral_convs") -> str:
+               laterals: str = "lateral_convs", reppoints: bool = False) -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key;
     ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
     ``fpn_convs.{fpn_levels + k}``), ``sepbn`` whether the dense head has
@@ -293,9 +371,13 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
     if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
         return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
     if head == "head":
-        return _dense_head_key(rest, sepbn) or _yolo_head_key(rest)
+        return (_point_head_key(rest, reppoints) or _dense_head_key(rest, sepbn)
+                or _yolo_head_key(rest))
     if head == "neck_m" and _nas_neck_key(rest, laterals):
         return _nas_neck_key(rest, laterals)
+    if head == "backbone_m" and re.fullmatch(
+            r"stem_conv|stem_res\d+|hg\d+|out_conv\d+|remap_[xf]\d+|inter_res\d+_\d+", rest[0]):
+        return _hourglass_key(rest)
     if head == "backbone_m":
         if rest[0] == "conv1":                       # stem conv
             return "backbone.conv1.weight"
@@ -458,6 +540,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                   for scope, tree in (("", params), ("teacher", params.get("teacher") or {}))}
     heads = dict(params.get("head") or {})
     sepbn = sum(1 for k in heads if re.fullmatch(r"cls_bn\d+_0", k))
+    reppoints = "pts_init_out" in heads
     neck = dict(params.get("neck_m") or {})
     laterals = ("adapt_convs" if any(re.fullmatch(r"merge\d+", k) for k in neck)
                 else "lateral_convs")
@@ -470,7 +553,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
         for path, v in _leaves(variables.get(collection) or {}):
             try:
                 key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""],
-                                 sepbn > 0, laterals)
+                                 sepbn > 0, laterals, reppoints)
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
@@ -552,6 +635,14 @@ MMDET_ONLY = {
         "mmdet's NAS-FCOS concat cells (the JAX NASFCOS_FPN merges top-down with sum cells)",
     r"bbox_head\.(cls|reg)_convs\.\d+\.conv\.conv_offset\.":
         "NAS-FCOS's deformable tower convs (the JAX NASFCOSHead's towers are plain 3x3 convs)",
+    r"bbox_head\.(tl|br)_pool\.\d+\.conv2\.":
+        "the 3x3 conv2 after mmdet's BiCornerPool (the JAX CascadeCornerPool ends at its ReLU)",
+    r"bbox_head\.(tl|br)_(guiding_shift|feat_adaption|dcn_offset)\.":
+        "CentripetalNet's guiding shifts and deformable feature adaption (the JAX "
+        "CentripetalHead has neither)",
+    r"backbone\.hourglass_modules\.\d+\.(low2\.)*low3\.[1-9]\d*\.downsample\.":
+        "a downsample in a later block of an Hourglass low3 (mmdet's low3 changes its channels "
+        "in its last block, the JAX one in its first)",
 }
 
 

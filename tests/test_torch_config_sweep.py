@@ -1,10 +1,10 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 52 configs the port has ported build as
+them with the JAX package: the 56 configs the port has ported build as
 given, NAS-FCOS raises its stride refusal (its neck's outputs at strides 4
 to 64 against its head's 8 to 128) and builds with
-``model.neck.start_level=1``, the other 27 raise the port's refusal (a type
+``model.neck.start_level=1``, the other 23 raise the port's refusal (a type
 the port has not ported, "the port builds only the ported slices'
 types"), never another error; TridentNet's refusal names the JAX
 detector's fault.
@@ -26,7 +26,12 @@ teacher), with mmdet's tensors that the JAX heads lack refused; the same
 for GA-RetinaNet, SABL-RetinaNet, NAS-FPN and NAS-FCOS (guided anchors on
 DCNv1 with 4 deform groups, SABL's buckets, the searched necks' live BNs,
 RetinaSepBNHead's shared convs under every level, mmdet's NAS neck parts
-the JAX necks lack refused).
+the JAX necks lack refused); and for RepPoints, CenterNet, CornerNet and
+CentripetalNet (the point-set head on two DCNv1s, CenterNet's R18 with no
+neck, the two-stack Hourglass-104 with live BNs, the corner pools and the
+corner and centripetal heads; mmdet's ``BiCornerPool`` ``conv2``,
+CentripetalNet's guiding shifts and the Hourglass ``low3`` downsample in
+its last block refused, RepPoints' GNs after its DCNs named as missing).
 """
 import copy
 import glob
@@ -95,6 +100,10 @@ PORTED = {
     "pisa/pisa_retinanet_r50_fpn_1x_coco.py",
     "point_rend/point_rend_r50_caffe_fpn_mstrain_1x_coco.py",
     "queryinst/queryinst_r50_fpn_1x_coco.py",
+    "reppoints/reppoints_moment_r50_fpn_1x_coco.py",
+    "centernet/centernet_resnet18_140e_coco.py",
+    "cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py",
+    "centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py",
     "retinanet/retinanet_r50_fpn_1x_coco.py",
     "sabl/sabl_retinanet_r50_fpn_1x_coco.py",
     "scnet/scnet_r50_fpn_1x_coco.py",
@@ -140,13 +149,14 @@ def _build(rel, options=None):
 
 
 def test_the_sweep_counts_49_of_80():
-    """52 of the 80 build as given since GA-RetinaNet, SABL-RetinaNet and
-    NAS-FPN (the name is the count's before them), NAS-FCOS with its neck's
-    ``start_level`` set to 1, 27 are refused."""
+    """56 of the 80 build as given since RepPoints, CenterNet, CornerNet and
+    CentripetalNet (the name is the count's before GA-RetinaNet,
+    SABL-RetinaNet and NAS-FPN), NAS-FCOS with its neck's ``start_level``
+    set to 1, 23 are refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 52
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 56
     assert set(STRIDE_REFUSED) <= set(ALL_CONFIGS) - PORTED
-    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 27
+    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 23
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -778,3 +788,165 @@ def test_mmdet_checkpoint_names_the_nas_and_ga_parts_one_side_lacks(case):
         sd[extra] = torch.zeros(4)
     with pytest.raises(KeyError, match=match):
         load_mmdet_checkpoint(model, {"state_dict": sd})
+
+
+FOURTH = {"reppoints/reppoints_moment_r50_fpn_1x_coco.py": ("RepPointsDetector", "RepPointsHead"),
+          "centernet/centernet_resnet18_140e_coco.py": ("CenterNet", "CenterNetHead"),
+          "cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py": ("CornerNet", "CornerHead"),
+          "centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py":
+              ("CornerNet", "CentripetalHead")}
+
+
+@pytest.mark.parametrize("rel", sorted(FOURTH))
+def test_onestage4_configs_build_their_heads(rel):
+    """RepPoints, CenterNet, CornerNet and CentripetalNet at full width, 80
+    classes: RepPoints' GN towers of 3, its two DCNv1s on 256 channels and
+    the 18 point coordinates of both stages; CenterNet's R18 stage 2 (128
+    channels at stride 8) and its three branches, no neck; the two-stack
+    Hourglass-104 (5 levels of 256 to 512 channels, live BNs) and, on each
+    stack, two corner pools and the heatmap, embedding (CornerNet) or
+    centripetal-shift (CentripetalNet, which builds no embeddings) and
+    offset branches."""
+    det = _build(rel)
+    kind, head_kind = FOURTH[rel]
+    head = det.bbox_head
+    assert type(det).__name__ == kind and type(head).__name__ == head_kind
+    if head_kind == "RepPointsHead":
+        assert len(head.cls_convs) == 3 and head.cls_convs[0].gn.num_groups == 32
+        assert head.reppoints_cls_conv.weight.shape == (256, 256, 3, 3)
+        assert head.reppoints_pts_refine_conv.weight.shape == (256, 256, 3, 3)
+        assert head.reppoints_pts_init_out.weight.shape == (18, 256, 1, 1)
+        assert head.reppoints_cls_out.weight.shape == (80, 256, 1, 1)
+        assert head.moment_transfer.shape == (2,)
+    if head_kind == "CenterNetHead":
+        assert det.neck is None and det.backbone.out_indices == (1,)
+        assert head.heatmap_head[0].weight.shape == (128, 128, 3, 3)
+        assert head.heatmap_head[2].weight.shape == (80, 128, 1, 1)
+        assert head.wh_head[2].weight.shape == head.offset_head[2].weight.shape == \
+            (2, 128, 1, 1)
+    if head_kind in ("CornerHead", "CentripetalHead"):
+        bb = det.backbone
+        assert det.neck is None and len(bb.hourglass_modules) == 2
+        assert bb.stem[0].conv.weight.shape == (128, 3, 7, 7)
+        level, depth = bb.hourglass_modules[0], 1
+        while hasattr(level.low2, "low2"):
+            level, depth = level.low2, depth + 1
+        assert depth == 5 and len(level.low2) == 4
+        assert level.low2[0].conv1.weight.shape == (512, 512, 3, 3)
+        assert type(bb.out_convs[1].bn).__name__ == "BatchNorm"
+        assert len(head.tl_pool) == 2 and len(head.br_heat) == 2
+        assert head.tl_heat[1][1].conv.weight.shape == (80, 256, 1, 1)
+        assert head.br_pool[0].direction1_conv.conv.weight.shape == (256, 256, 3, 3)
+        assert head.tl_off[0][1].conv.weight.shape == (2, 256, 1, 1)
+        if head_kind == "CornerHead":
+            assert head.tl_emb[0][1].conv.weight.shape == (1, 256, 1, 1)
+        else:
+            assert not hasattr(head, "tl_emb")
+            assert head.tl_centripetal_shift[0][1].conv.weight.shape == (2, 256, 1, 1)
+
+
+@pytest.mark.parametrize("name", ["reppoints", "centernet", "cornernet", "centripetalnet"])
+def test_mmdet_checkpoint_carries_the_onestage4_modules(name, tmp_path):
+    """The four narrowed (``torch_onestage_cases.tiny_model``) under mmdet's
+    names: RepPoints' ``reppoints_*`` convs and ``moment_transfer``,
+    CenterNet's ``heatmap_head`` / ``wh_head`` / ``offset_head``, the
+    Hourglass's ``stem``, ``hourglass_modules``, ``conv1x1s``,
+    ``remap_convs`` and ``inters`` with their running statistics, the corner
+    heads' ``tl_pool`` (``direction1_conv``, ``aftpool_conv``, ``conv1``),
+    ``tl_heat``, ``tl_emb`` and ``tl_centripetal_shift``: every tensor
+    loaded, the models equal."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = oc.tiny_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+        for k, v in src.state_dict().items():
+            if ".running_" in k:
+                v.add_(0.5)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": src.state_dict(), "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"reppoints": ["bbox_head.reppoints_cls_conv.weight", "bbox_head.moment_transfer",
+                          "bbox_head.reppoints_pts_refine_out.bias"],
+            "centernet": ["bbox_head.heatmap_head.0.weight", "bbox_head.offset_head.2.bias"],
+            "cornernet": ["backbone.stem.0.bn.running_var",
+                          "backbone.hourglass_modules.1.low2.low3.0.downsample.1.running_mean",
+                          "backbone.conv1x1s.0.bn.weight", "backbone.inters.0.conv2.weight",
+                          "bbox_head.tl_pool.1.aftpool_conv.bn.running_var",
+                          "bbox_head.br_emb.0.1.conv.bias"],
+            "centripetalnet": ["bbox_head.tl_centripetal_shift.1.0.conv.weight",
+                               "bbox_head.br_pool.0.conv1.conv.weight"]}[name]
+    assert set(want) <= set(report["loaded"])
+
+
+LACKS4 = {
+    "corner_pool_conv2": ("cornernet", "bbox_head.tl_pool.0.conv2.conv.weight",
+                          "conv2 after mmdet's BiCornerPool"),
+    "centripetal_guiding_shift": ("centripetalnet", "bbox_head.tl_guiding_shift.0.0.conv.weight",
+                                  "guiding shifts"),
+    "centripetal_feat_adaption": ("centripetalnet", "bbox_head.br_feat_adaption.0.weight",
+                                  "feature adaption"),
+    "hourglass_low3_last_block": (
+        "cornernet", "backbone.hourglass_modules.0.low2.low3.1.downsample.0.weight",
+        "low3 changes its channels in its last block"),
+    "reppoints_gn_missing": ("reppoints", None, "lacks 4 of the model's tensors: "
+                             "bbox_head.cls_gn_out.bias, bbox_head.cls_gn_out.weight"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LACKS4))
+def test_mmdet_checkpoint_names_the_onestage4_parts_one_side_lacks(case):
+    """mmdet's ``BiCornerPool`` ends in a 3x3 ``conv2``, its CentripetalHead
+    has guiding shifts and a deformable feature adaption, and its Hourglass
+    ``low3`` changes channels in its last block: a checkpoint with such a
+    tensor raises naming it (``MMDET_ONLY``); RepPoints' GNs after its DCNs
+    are the JAX head's, and a checkpoint without them raises naming them
+    (missing)."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    name, extra, match = LACKS4[case]
+    model = init_detector({"model": oc.tiny_model(name)}, device="cpu", seed=1).model
+    sd = dict(model.state_dict())
+    if extra is None:
+        sd = {k: v for k, v in sd.items() if not k.startswith(("bbox_head.cls_gn_out.",
+                                                                "bbox_head.pts_refine_gn."))}
+    else:
+        sd[extra] = torch.zeros(4)
+    with pytest.raises(KeyError, match=match):
+        load_mmdet_checkpoint(model, {"state_dict": sd})
+
+
+def test_centernet_config_names_no_data_or_schedule():
+    """The reference-side fact: the repo's CenterNet config has a model and
+    an optimizer but no ``data``, ``lr_config`` or ``runner`` (its
+    ``_base_`` is the runtime alone): a run must be given a dataset, and
+    trains at a constant LR where it is given no schedule (``chip_smoke.py``
+    gives it the Cityscapes base's data, ``DATA_BASE``, and the Cityscapes
+    config's warm-up, ``SCHEDULE_BASE``)."""
+    cfg = load_config(osp.join(CFG_ROOT, "centernet/centernet_resnet18_140e_coco.py"))
+    assert cfg.get("model") and cfg.get("optimizer")
+    assert not any(cfg.get(k) for k in ("data", "lr_config", "runner"))
+
+
+def test_chip_smoke_gives_centernet_data_and_a_warm_up():
+    """``chip_smoke.onestage_cfg`` gives CenterNet's config the Cityscapes
+    base's data and the Cityscapes config's linear warm-up: its two smoke
+    steps run at ~1e-3 of the config's LR (at the constant LR the second
+    step's losses reached 1.5e16)."""
+    import chip_smoke
+    from oadg_tpu_torch.engine import build_lr_schedule
+    cfg = chip_smoke.onestage_cfg("centernet", "configs/centernet/centernet_resnet18_140e_coco.py")
+    assert cfg.data.test.pipeline and cfg.img_norm_cfg
+    assert cfg.lr_config["warmup"] == "linear" and cfg.optimizer["lr"] == 0.00125
+    lr = build_lr_schedule(cfg.lr_config, cfg.optimizer["lr"], 100)
+    assert lr(0) < lr(1) < 5e-6

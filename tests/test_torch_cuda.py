@@ -33,6 +33,7 @@ the specialised (``fast``) kernel for uint8 or float32 3-channel (B5) and float3
 aligned, the ``generic`` one-pixel-a-thread kernel for everything else.
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -2314,3 +2315,122 @@ def test_onestage_step_on_the_card_matches_the_cpu(rel, dtype):
         for k, c in gc.items():
             r = g64[k]
             assert float((c.double() - r).abs().max()) <= 1e-4 * float(r.abs().max()), k
+
+
+ONESTAGE4_CARD = ["reppoints", "centernet", "cornernet", "centripetalnet"]
+
+
+def _onestage4_card_vs_cpu(name, dtype):
+    """The tiny model of ``torch_onestage_cases.tiny_model(name)``
+    (RepPoints on R18-FPN-16, CenterNet on R18 with a 16-channel head, the
+    corner heads on the narrowed Hourglass; 8 classes) in ``dtype`` on the
+    card and on the CPU from the same seeded float32 weights, the
+    classifier at mmdet's prior (RepPoints' at 0.01, the heatmaps at 0.1),
+    on ``_onestage_batch``'s two 256x384 images: one ``forward_train`` (the
+    Hourglass's and the corner pools' BNs live) and its backward each ->
+    [(losses, head gradients)], card first. B1's and B2's launch counts
+    must not move."""
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.models import build_detector
+    from oadg_tpu_torch.models.layers import init_default_
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    model = oc.tiny_model(name)
+    seed_model = build_detector(model, device="cpu")
+    init_default_(seed_model, torch.Generator().manual_seed(0))
+    seed_model.init_weights(torch.Generator().manual_seed(1))
+    head = seed_model.bbox_head
+    with torch.no_grad():
+        if hasattr(head, "reppoints_cls_out"):
+            head.reppoints_cls_out.bias.fill_(-math.log(99))
+        for b in ([head.heatmap_head[2].bias] if hasattr(head, "heatmap_head") else
+                  [m[1].conv.bias for m in (*getattr(head, "tl_heat", ()),
+                                             *getattr(head, "br_heat", ()))]):
+            b.fill_(-math.log(9))
+    batch = _onestage_batch()
+    before = (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches)
+    outs = []
+    for where in (dev, "cpu"):
+        det = build_detector(model, device=where, dtype=dtype)
+        det.load_state_dict({k: v.to(where) for k, v in seed_model.state_dict().items()})
+        det.train()
+        b = {k: v.to(where) for k, v in batch.items()}
+        b["img"] = b["img"].to(dtype)
+        losses = det.forward_train(b, UniformDraws())
+        sum(losses.values()).backward()
+        outs.append((losses, {k: p.grad.float().cpu() for k, p in det.bbox_head.named_parameters()
+                              if p.grad is not None}))
+    torch.cuda.synchronize()
+    assert (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches) == before
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ONESTAGE4_CARD)
+def test_onestage4_step_on_the_card_matches_the_cpu(name, dtype):
+    """RepPoints' (two DCNv1s on the points, the point assignment, MaxIoU on
+    the init boxes), CenterNet's (the gaussian targets, ``torch.exp`` on
+    each side), CornerNet's and CentripetalNet's (the
+    live-BN Hourglass, the corner pools' ``cummax``, the per-gt gaussians'
+    ``amax`` scatter) ``forward_train`` on the card against the CPU
+    (``_onestage4_card_vs_cpu``): losses float32 and finite, rtol 1e-4 in
+    float32 and ``TOL_BF16_LOSS`` in bfloat16 (CornerNet's pull and push
+    2**-4: hinges and squares over at most 3 gts' bfloat16 embeddings, each
+    read at one cell, 2.1e-2 apart on the H100); the head's gradients
+    float32 and finite, in float32 within 1e-4 of each largest of the CPU's
+    (in bfloat16 only finiteness, as
+    ``test_onestage_step_on_the_card_matches_the_cpu``), but for a conv bias
+    before a GroupNorm (RepPoints' towers): its true gradient is 0, and
+    both sides' are within 1e-4 of the head's largest gradient. Each
+    gradient's distance is printed (``-s``)."""
+    (lg, gg), (lc, gc) = _onestage4_card_vs_cpu(name, dtype)
+    assert lg.keys() == lc.keys() and gg.keys() == gc.keys() and len(gc) >= 6
+    f32 = dtype == torch.float32
+    for k in lc:
+        assert lg[k].dtype == torch.float32 and torch.isfinite(lg[k]), k
+        rtol = 1e-4 if f32 else 2 ** -4 if k.endswith(("pull", "push")) else TOL_BF16_LOSS
+        np.testing.assert_allclose(float(lg[k]), float(lc[k]), rtol=rtol, atol=1e-6, err_msg=k)
+    errs = {k: float((gg[k] - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+            for k, c in gc.items()}
+    print(f"{name} {dtype}: losses card {({k: float(v) for k, v in lg.items()})} CPU "
+          f"{({k: float(v) for k, v in lc.items()})}; head gradients' distance over their "
+          f"largest: {sorted(errs.items(), key=lambda kv: -kv[1])[:6]}")
+    top = max(float(c.abs().max()) for c in gc.values())
+    for k, e in errs.items():
+        assert gg[k].dtype == torch.float32 and torch.isfinite(gg[k]).all(), k
+        if f32 and re.fullmatch(r"(cls|reg)_convs\.\d+\.conv\.bias", k):
+            assert max(float(gg[k].abs().max()), float(gc[k].abs().max())) <= 1e-4 * top, k
+            continue
+        assert not f32 or e <= 1e-4, (k, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["top", "bottom", "left", "right"])
+def test_corner_pool_bfloat16_on_the_card_matches_the_cpu(direction):
+    """``corner_pool`` on a bfloat16 map of CornerNet's shape (2 x 256 x 64
+    x 128) with many ties (values on a grid of 1/8): the card's values equal
+    the CPU's, and so do the tie rule's indices (torch's ``cummax`` takes
+    the latest index of the running maximum on both), so the input's
+    gradient (bfloat16, each the sum of the upstream gradients of the
+    positions it is the maximum of) differs only by the order of those
+    bfloat16 sums: within ``n * 2**-8 * max|dy|``, ``n`` the pooled axis's
+    length (the most terms a sum can have)."""
+    from oadg_tpu_torch.ops.misc_ops import corner_pool
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(31)
+    x = (torch.randint(-16, 16, (2, 256, 64, 128), generator=gen) / 8).to(torch.bfloat16)
+    dy = torch.randn(2, 256, 64, 128, generator=gen).to(torch.bfloat16)
+    outs = {}
+    for where in ("cpu", dev):
+        leaf = x.detach().to(where).requires_grad_(True)
+        y = corner_pool(leaf, direction)
+        y.backward(dy.to(where))
+        outs[str(where)] = (y.detach().cpu(), leaf.grad.float().cpu())
+    (yg, gg), (yc, gc) = outs[str(dev)], outs["cpu"]
+    assert torch.equal(yg, yc)
+    n = x.shape[2] if direction in ("top", "bottom") else x.shape[3]
+    bound = n * 2 ** -8 * float(dy.float().abs().max())
+    err = float((gg - gc).abs().max())
+    print(f"corner_pool {direction} bf16: gradient card vs CPU {err:.3e} (bound {bound:.3e})")
+    assert torch.isfinite(gg).all() and err <= bound

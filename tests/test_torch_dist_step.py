@@ -21,8 +21,10 @@ port's ranks must compute exactly that (``oadg_tpu_torch/parallel/dist.py``).
   the gradients are the one-process ones (the global IoU rank gathered in
   the one-process order; the heads' global normalizers).
 - The one-stage family's other heads (``FEAT_HEADS``: FCOS, ATSS, GFL,
-  VFNet, TOOD, PAA, AutoAssign, FoveaBox, LD, GA, SABL and NAS-FPN's
-  RetinaSepBNHead, whose per-level BNs are SyncBN) run from seeded
+  VFNet, TOOD, PAA, AutoAssign, FoveaBox, LD, GA, SABL, NAS-FPN's
+  RetinaSepBNHead, whose per-level BNs are SyncBN, RepPoints, CenterNet,
+  and CornerNet's and CentripetalNet's heads, whose corner pools' BNs are
+  SyncBN and whose per-image means are the global batch's) run from seeded
   features, one image a rank: the losses' shares and the features'
   gradients (TOOD's normalizers carry their gradient across the ranks).
 - ``supcontrast``, the mask loss, the box head's loss and live BN alone,
@@ -217,9 +219,18 @@ ANCHORS = dict(type="AnchorGenerator", octave_base_scale=4, scales_per_octave=1,
 # its published config's head (``torch_onestage_cases.tiny_model``) at 8
 # channels and 3 classes, run from seeded features of five levels of a 64x64
 # image (its forward and loss on each rank's image): NAS-FPN's is
-# RetinaSepBNHead, whose per-level BNs are SyncBN there.
+# RetinaSepBNHead, whose per-level BNs are SyncBN there, as the corner
+# heads' pools' are.
 FEAT_HEADS = ("atss", "autoassign", "fcos", "fovea", "ga_retina", "gfl", "ld", "nas_fpn", "paa",
-              "sabl_retina", "tood", "vfnet")
+              "sabl_retina", "tood", "vfnet", "reppoints", "centernet", "cornernet",
+              "centripetalnet")
+# the maps a head takes where they are not five levels of 32x32 to 2x2:
+# CenterNet's one stride-8 map, the corner heads' two stacks at stride 4;
+# RepPoints' top level at 4x4 (on 2x2 its GNs after the DCNs hold 8 values
+# a group, and the DCN's gradient summed over 1 image instead of 2 moves
+# the features' gradient there by 8.5e-5 of its largest)
+FEAT_SIZES = {"centernet": (8,), "cornernet": (16, 16), "centripetalnet": (16, 16),
+              "reppoints": (32, 16, 8, 4, 4)}
 # gts centred on points of GA's levels 0 and 1 (its loc and shape
 # positives are a gt's level's points inside its central fifth)
 # the features' gradients pass the head's convs and GNs, summed over 2 x 1
@@ -278,12 +289,14 @@ def _feat_head_inputs(name, rng):
     model = oc.tiny_model(name)
     cfg = dict(model["bbox_head"], in_channels=8, feat_channels=64, num_classes=3,
                train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"))
+    if name in ("cornernet", "centripetalnet"):
+        del cfg["feat_channels"]
     head = build_from_cfg(dict(cfg, num_views=1), HEADS, dict(device="cpu"))
     gen = torch.Generator().manual_seed(13)
     init_default_(head, gen)
     head.init_weights(gen)
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
-    feats = [f(rng.normal(0, 1, (2, 8, s, s))) for s in (32, 16, 8, 4, 2)]
+    feats = [f(rng.normal(0, 1, (2, 8, s, s))) for s in FEAT_SIZES.get(name, (32, 16, 8, 4, 2))]
     out = dict(cfg=cfg, views=1, images=2, state=head.state_dict(), feats=feats, gt=f(FEAT_GT),
                gt_valid=torch.from_numpy(FEAT_GT[..., 2] > 0),
                gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
@@ -685,8 +698,9 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
     would put the ISR-P weights of tied rows on other rows), and CARL's
     weight mass, whose gradient reaches every rank. The same for
     ``FEAT_HEADS`` (FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox,
-    LD, GA, SABL, RetinaSepBNHead) run from features: each rank's forward
-    and loss, the features' gradients."""
+    LD, GA, SABL, RetinaSepBNHead, RepPoints, CenterNet, CornerNet's and
+    CentripetalNet's heads) run from features: each rank's forward and
+    loss, the features' gradients."""
     j = runs["job"]["dense_loss"][name]
     gts = (j["gt"], j["gt_valid"], j["gt_labels"])
     if "feats" in j:

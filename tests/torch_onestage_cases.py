@@ -1,17 +1,23 @@
 """Shared fixtures of the one-stage family's CPU parity tests
 (``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``,
 ``tests/test_torch_onestage_heads2.py``, ``tests/test_torch_onestage_parts2.py``,
-``tests/test_torch_onestage_heads3.py``, ``tests/test_torch_onestage_parts3.py``).
+``tests/test_torch_onestage_heads3.py``, ``tests/test_torch_onestage_parts3.py``,
+``tests/test_torch_onestage_heads4.py``, ``tests/test_torch_onestage_parts4.py``).
 
-``tiny_model(name)``: the published config of each of the sixteen one-stage
+``tiny_model(name)``: the published config of each of the twenty one-stage
 configs (``FIRST``: the family's first seven; ``SECOND``: FoveaBox, FSAF,
 FreeAnchor, PISA-RetinaNet and LD; ``THIRD``: GA-RetinaNet, SABL-RetinaNet,
-NAS-FPN and NAS-FCOS) with its backbone cut to ResNet-18 and
+NAS-FPN and NAS-FCOS; ``FOURTH``: RepPoints, CenterNet, CornerNet and
+CentripetalNet) with its backbone cut to ResNet-18 and
 its neck and head to 16 channels (the R18-FPN-16 of
 ``tests/test_p2_zoo.py``), 8 classes; its losses, assigners, anchors and
 test settings kept; LD's teacher narrowed the same way; NAS-FPN's neck at
 two stacks, NAS-FCOS's neck at ``start_level=1`` (the port refuses the
-config's 0, ROADMAP C). The NAS necks max-pool their top levels: their
+config's 0, ROADMAP C). CenterNet keeps its R18 (no neck; the head takes
+its 128 channels to 16); CornerNet and CentripetalNet take the narrowed
+Hourglass of ``tests/test_p2_backbones_necks.py:66-74`` (``HOURGLASS``: two
+levels of 8 and 16 channels, one block each, 8 output channels), which
+both share. The NAS necks max-pool their top levels: their
 batches are ``NAS_HW`` (128x192), where P7 is 1x2. ``randomize`` fills
 a JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
 (LeCun-normal kernels, small biases, GN and the per-level scales near 1,
@@ -43,10 +49,18 @@ CONFIGS = {
     "sabl_retina": "configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py",
     "nas_fpn": "configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py",
     "nas_fcos": "configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py",
+    "reppoints": "configs/reppoints/reppoints_moment_r50_fpn_1x_coco.py",
+    "centernet": "configs/centernet/centernet_resnet18_140e_coco.py",
+    "cornernet": "configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py",
+    "centripetalnet":
+        "configs/centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py",
 }
 FIRST = ("atss", "autoassign", "fcos", "gfl", "paa", "tood", "vfnet")
 SECOND = ("fovea", "free_anchor", "fsaf", "ld", "pisa_retina")
 THIRD = ("ga_retina", "nas_fcos", "nas_fpn", "sabl_retina")
+FOURTH = ("centernet", "centripetalnet", "cornernet", "reppoints")
+HOURGLASS = dict(downsample_times=2, stage_channels=(8, 8, 16), stage_blocks=(1, 1, 1),
+                 feat_channel=8)
 HW = (64, 96)
 NAS_HW = (128, 192)
 NUM_CLASSES = 8
@@ -59,6 +73,15 @@ def tiny_model(name):
     from oadg_tpu_torch.config import load_config
     cfg = load_config(osp.join(ROOT, CONFIGS[name]))
     m = cfg.model
+    if name in FOURTH and name != "reppoints":
+        if name == "centernet":
+            m.bbox_head.update(feat_channels=16)
+        else:
+            m.backbone.update(HOURGLASS)
+            m.bbox_head.update(in_channels=8)
+        m.bbox_head.update(num_classes=NUM_CLASSES)
+        m.test_cfg.update(max_per_img=20)
+        return _plain(m)
     parts = [m] + ([m.teacher_config.model] if name == "ld" else [])
     for part in parts:
         part.backbone.update(depth=18, init_cfg=None)
@@ -69,6 +92,8 @@ def tiny_model(name):
             part.neck.update(stack_times=2)
         part.bbox_head.update(in_channels=16, feat_channels=16, num_classes=NUM_CLASSES,
                               stacked_convs=2 if name == "tood" else 1)
+        if name == "reppoints":
+            part.bbox_head.update(point_feat_channels=16)
     m.test_cfg.update(max_per_img=20)
     return _plain(m)
 
@@ -119,6 +144,8 @@ def randomize(variables, seed=2):
             return rng.uniform(0.8, 1.5, shape)
         if name in ("scale", "var"):
             return rng.uniform(0.8, 1.2, shape)
+        if name == "moment_transfer":
+            return rng.normal(0, 0.1, shape)
         if name in ("bias", "mean"):
             return rng.normal(0, 0.05, shape)
         raise KeyError("/".join(path))
