@@ -338,14 +338,21 @@ non-zero exit code:
    R-CNN's 7x7 and its grid branch's 14x14, PointRend's 7x7 and its mask
    branch's 14x14 (a request's masks too); one more Sparse and Grid step a
    dtype with every B1 and B2 call held to the plain versions in place.
-8e. onestage: the one-stage family's twenty configs (``ONESTAGE``:
+8e. onestage: the one-stage family's twenty-five configs (``ONESTAGE``:
    FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox, FSAF,
    FreeAnchor, PISA-RetinaNet, LD with its R50-FPN GFL teacher,
    GA-RetinaNet, SABL-RetinaNet, NAS-FPN, NAS-FCOS with its neck's
    ``start_level`` at 1, ``ONESTAGE_OPTIONS``: the config as given is
    refused, RepPoints, CenterNet on R18 with the Cityscapes base's data
    and the Cityscapes config's warm-up, which its config lacks, CornerNet
-   and CentripetalNet on the two-stack Hourglass-104), each at
+   and CentripetalNet on the two-stack Hourglass-104, YOLOF, YOLOX-S,
+   SSD300, SOLO and YOLACT, ``FIFTH``: YOLOX's and SSD's configs take the
+   Cityscapes base's data and warm-up too, SSD's pipelines resized to its
+   fixed 300x300 with ``keep_ratio=False``, ``SSD_OPTIONS``, and its
+   requests and steps on the unpadded 300x300 image; SOLO's and YOLACT's
+   steps take polygon gt masks, and their requests give their own outputs,
+   SOLO's masks held to the CPU's but at pixels within 1e-5 of
+   ``mask_thr``), each at
    its config's full width with seeded weights, 80 classes as published, on the Cityscapes
    base's 1024x2048 canvas; the classifier bias moved to the 0.01 prior
    plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
@@ -3053,7 +3060,7 @@ def phase_train_reference(name, config=FLAGSHIP, tag="train-reference"):
 
 
 BASELINE = ROOT / "configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py"
-ROBUST_IMAGES = 2           # images of phase 5b's set in the robustness sweep
+ROBUST_IMAGES = 1           # images of phase 5b's set in the robustness sweep
 ROBUST_SEVERITY = 3
 
 
@@ -3310,7 +3317,7 @@ DWD_IMG_H, DWD_IMG_W = 720, 1280        # a DWD image
 DWD_CANVAS = (736, 1280)                # the train pipeline's static canvas
 DWD_TRAIN_IMAGES = 19395                # Daytime-Sunny train split, for the LR schedule
 DWD_EVAL_DOMAINS = ("daytime_clear", "night_sunny")
-DWD_EVAL_IMAGES = 8                     # per domain
+DWD_EVAL_IMAGES = 4                     # per domain
 DWD_TWIN_FILES = 2                      # per domain, decoded by the numpy twin too
 DWD_CLASSES = ("bus", "bike", "car", "motor", "person", "rider", "truck")
 
@@ -5267,9 +5274,10 @@ def longtail_cfg(path):
 
 
 ONESTAGE_CLASSIFIERS = ("retina_cls", "conv_cls", "atss_cls", "gfl_cls", "vfnet_cls", "tood_cls",
-                        "reppoints_cls_out")
+                        "reppoints_cls_out", "cls_score")
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 HEAT_PRIOR_BIAS = -math.log((1 - 0.1) / 0.1)     # mmdet's CenterNet and corner heatmaps
+SOFTMAX_HEADS = ("SSDHead", "YOLACTHead")         # their classifier: ``softmax_classifier``
 CORNER_SHIFT = math.log(5.0)                      # a served CentripetalNet's log shift, cells
 
 
@@ -5280,6 +5288,8 @@ def classifier_biases(head):
         return [head.heatmap_head[2].bias]
     if hasattr(head, "tl_heat"):
         return [branch[1].conv.bias for branch in (*head.tl_heat, *head.br_heat)]
+    if hasattr(head, "multi_level_conv_cls"):                 # YOLOX: class and objectness
+        return [c.bias for c in (*head.multi_level_conv_cls, *head.multi_level_conv_obj)]
     return [getattr(head, next(n for n in ONESTAGE_CLASSIFIERS if hasattr(head, n))).bias]
 
 
@@ -5293,6 +5303,8 @@ def classifier_prior(model):
     start there already, GA's and SABL's at 0. -> the classifier biases."""
     import torch
     head = model.bbox_head
+    if type(head).__name__ in SOFTMAX_HEADS:       # softmax: mmdet's bias is 0 too
+        return []
     biases = classifier_biases(head)
     heat = hasattr(head, "heatmap_head") or hasattr(head, "tl_heat")
     with torch.no_grad():
@@ -5331,8 +5343,14 @@ def widen_classifier(model, seed=50):
             for head in heads if isinstance(heads, torch.nn.ModuleList) else [heads]:
                 w = head.fc_cls.weight
                 w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
+        elif type(model.bbox_head).__name__ in SOFTMAX_HEADS:
+            softmax_classifier(model.bbox_head, gen)
         else:
             biases = classifier_prior(model)
+            if hasattr(model.bbox_head, "multi_level_conv_obj"):      # YOLOX
+                for conv in model.bbox_head.multi_level_conv_obj:
+                    conv.bias.add_(YOLOX_OBJ_SHIFT)
+                biases = biases[:len(model.bbox_head.multi_level_conv_cls)]
             noise = torch.randn(biases[0].shape, generator=gen) * 1.5   # the corners' shared
             for b in biases:
                 b.add_(noise.to(b.device))
@@ -5351,6 +5369,25 @@ def widen_classifier(model, seed=50):
                 branch[1].conv.bias.fill_(CORNER_SHIFT)
             if hasattr(model.bbox_head, "retina_iou"):
                 model.bbox_head.retina_iou.bias.fill_(-math.log(0.97 / 0.03))
+
+
+SOFTMAX_BG = 8.0         # a served softmax head's background logit bias
+YOLOX_OBJ_SHIFT = 2.5    # a served YOLOX's objectness bias above the 0.01 prior
+
+
+def softmax_classifier(head, gen):
+    """A softmax head's (SSD's, YOLACT's) class logits drawn so that a
+    realistic number of candidates passes ``score_thr``: each anchor's
+    background bias at ``SOFTMAX_BG`` and the class biases N(0, 1.5) (at the
+    JAX init's 0 every one of SSD's 8,732 x 80 candidates sits near 1/81,
+    under its 0.02, and YOLACT's under its 0.05)."""
+    import torch
+    convs = list(head.cls_convs) if hasattr(head, "cls_convs") else [head.conv_cls]
+    nc1 = head.num_classes + 1
+    for conv in convs:
+        b = conv.bias.view(-1, nc1)
+        b[:, -1] = SOFTMAX_BG
+        b[:, :-1] = (torch.randn(b[:, :-1].shape, generator=gen) * 1.5).to(b.device)
 
 
 def c4_roi_cases(dev):
@@ -5493,16 +5530,18 @@ def check_iou_family(records):
 
 def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     """One request of a ``hw`` uint8 image through the config's test
-    pipeline and ``DetectorHandle.test`` after a warm-up (RetinaNet's
-    ``multiclass_nms`` recorded on the warm-up), and the card against the
-    same seeded model on the CPU on a 256x384 request (f32; detections
-    matched; the two-stage models on 100 proposals there). ``cfg`` is the
-    config to build (``longtail_cfg(path)`` when None); the request must
-    launch B1 and B2 as ``path_launches(family, False)`` says."""
+    pipeline (``serve_batch``) and ``DetectorHandle.test`` after a warm-up
+    (every dense head's ``multiclass_nms`` recorded on the warm-up; the
+    fifth slice's (anchor, class) candidates above ``score_thr`` counted,
+    ``candidates_above``), and the card against the same seeded model on
+    the CPU on a 256x384 request (SSD's resized to 300x300 by its
+    pipeline; f32; detections matched, SOLO's masks by ``_match_masks``;
+    the two-stage models on 100 proposals there). ``cfg`` is the config to
+    build (``longtail_cfg(path)`` when None); the request must launch B1 and
+    B2 as ``path_launches(family, False)`` says."""
     import copy
     import torch
-    from oadg_tpu_torch.apis import init_detector, prepare_image
-    from oadg_tpu_torch.apis.test import fetch_dets
+    from oadg_tpu_torch.apis import init_detector
     from oadg_tpu_torch.models.dense_heads import retina_head
     cfg = longtail_cfg(path) if cfg is None else cfg
     handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
@@ -5512,7 +5551,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     rec = (_NmsRecorder(retina_head) if family == "retinanet" or (
         family in ONESTAGE_NAMES and family not in WITHOUT_NMS) else None)
     try:
-        handle.test(prepare_image(img, handle.cfg, handle.device))          # warm-up
+        handle.test(serve_batch(family, handle, img, handle.cfg))          # warm-up
     finally:
         if rec is not None:
             rec.restore()
@@ -5520,26 +5559,32 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     torch.cuda.reset_peak_memory_stats()
     zero_roi_counts()
     t0 = time.perf_counter()
-    res = handle.test(prepare_image(img, handle.cfg, handle.device))
+    res = handle.test(serve_batch(family, handle, img, handle.cfg))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     shapes = roi_shape_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    dets, labels, valid = fetch_dets(*res[:3])
+    head = getattr(handle.model, "bbox_head", None)
+    k = int(getattr(head, "test_cfg", {}).get("max_per_img", 100))
+    ok, valid, labels = served_outputs(family, head, res, k)
     nc = handle.num_classes
     out = dict(request_ms=ms, peak_gib=peak, valid=int(valid.sum()))
     if rec is not None:
         out["nms"] = rec.calls[0]
+    if family in FIFTH:
+        batch = serve_batch(family, handle, img, handle.cfg)
+        out["above_score_thr"], total, thr = candidates_above(family, handle.model, batch)
     log(phase, f"{family} {name}: a request of {hw[0]}x{hw[1]}: {ms:.3f} ms, "
                f"max_memory_allocated {peak:.2f} GiB, {int(valid.sum())} valid "
-               f"detections; launches by (bins, levels) {shapes}"
+               f"detections of {k}; launches by (bins, levels) {shapes}"
                + (f"; multiclass_nms {rec.calls[0]}" if rec is not None else "")
+               + (f"; {out['above_score_thr']} of {total} (anchor, class) candidates above "
+                  f"score_thr {thr}" if family in FIFTH else "")
                + f" ({nvidia_smi_line()})")
     want = path_launches(family, False)
-    if (dets.shape != (1, 100, 5) or not np.isfinite(dets).all() or not valid.any()
-            or not ((labels[valid] >= 0) & (labels[valid] < nc)).all() or shapes != want):
-        raise AssertionError(f"{phase} {family} {name}: bad request {dets.shape} {shapes} "
-                             f"(want {want})")
+    if (not ok or not valid.any() or not ((labels[valid] >= 0) & (labels[valid] < nc)).all()
+            or shapes != want):
+        raise AssertionError(f"{phase} {family} {name}: bad request {shapes} (want {want})")
     _count_shape_launches(rows, shapes, f"launches_{phase}_{family}"
                           + ("" if name == "f32" else "_bf16"))
     if name == "f32":
@@ -5547,33 +5592,40 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         widen_classifier(cpu.model)
         small = copy.deepcopy(cfg)
         small.merge_from_dict({"data.test.pipeline.1.img_scale": (384, 256)})
-        bc = prepare_image(img[:256, :384], small, "cpu")
+        bc = serve_batch(family, cpu, img[:256, :384], small)
         gc = {k: v.cuda() if torch.is_tensor(v) else v for k, v in bc.items()}
         rpn_cfgs = [m.rpn_head.test_cfg for m in (cpu.model, handle.model)
                     if getattr(getattr(m, "rpn_head", None), "test_cfg", None) is not None]
         kept = [c["max_per_img"] for c in rpn_cfgs]
         for c in rpn_cfgs:              # 100 proposals keep the CPU's RoI head short
             c["max_per_img"] = 100
+        test = solo_test if family == "solo" else lambda model, b: model.simple_test(b)
         t0 = time.perf_counter()
         try:
             with torch.inference_mode():
-                dc = cpu.model.simple_test(bc)
-                dg = handle.model.simple_test(gc)
+                dc = test(cpu.model, bc)
+                dg = test(handle.model, gc)
         finally:
             for c, k in zip(rpn_cfgs, kept):
                 c["max_per_img"] = k
-        # Sparse R-CNN's boxes are its proposals moved by six stages' deltas,
-        # never clipped to the image: held within 1e-4 of the largest coordinate
-        scale = float(dc[0][..., :4].abs().max())
-        box_tol = 1e-4 * scale if family in SPARSE else 1e-2
-        matched = _match_dets(dg[:3], dc[:3], box_tol, 1e-4)
+        if family == "solo":
+            matched, what = _match_masks(dg, dc, 1e-4, float(head.test_cfg.get("mask_thr", 0.5)))
+            counts = (int((dg[2] > 0).sum()), int((dc[2] > 0).sum()))
+        else:
+            # Sparse R-CNN's boxes are its proposals moved by six stages' deltas,
+            # never clipped to the image: held within 1e-4 of the largest coordinate
+            scale = float(dc[0][..., :4].abs().max())
+            box_tol = 1e-4 * scale if family in SPARSE else 1e-2
+            matched = _match_dets(dg[:3], dc[:3], box_tol, 1e-4)
+            counts = (int(dg[2].sum()), int(dc[2].sum()))
+            what = (f"boxes within {box_tol:.3g} px, the largest coordinate {scale:.1f}; "
+                    f"scores within 1e-4")
         log(phase, f"{family} f32: a {tuple(bc['img'].shape[2:])} request card vs CPU: "
-                   f"{int(dg[2].sum())} and {int(dc[2].sum())} valid, "
-                   f"{100 * matched:.1f}% of the card's held by the CPU's (boxes within "
-                   f"{box_tol:.3g} px, the largest coordinate {scale:.1f}; scores within 1e-4); "
-                   f"CPU side {time.perf_counter() - t0:.2f} s")
-        if matched < 0.95 or abs(int(dg[2].sum()) - int(dc[2].sum())) > 2 or not dc[2].any():
-            raise AssertionError(f"{phase} {family}: card vs CPU {matched}")
+                   f"{counts[0]} and {counts[1]} valid, {100 * matched:.1f}% of the card's "
+                   f"held by the CPU's ({what}); CPU side {time.perf_counter() - t0:.2f} s")
+        if matched < 0.95 or abs(counts[0] - counts[1]) > 2 or not counts[1]:
+            raise AssertionError(f"{phase} {family}: card vs CPU {matched} {counts}")
+        out["card_vs_cpu"] = matched
         del cpu
     del handle
     torch.cuda.empty_cache()
@@ -5581,7 +5633,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
 
 
 def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False,
-                   prepare=None, probe=None):
+                   prepare=None, probe=None, unpad=False):
     """Two training steps (``make_train_step``, SGD at the config's LR, no
     OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
     pipeline with seeded gts: losses finite float32, B1 and B2 once a step
@@ -5594,7 +5646,8 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
     ``path_launches(family, True)`` says; C4 and HTC run a third step with
     every call held to the plain versions in place (``IN_PLACE_CALLS``).
     ``probe(model, batch)``, where given, runs after the steps and its dict
-    joins the result (LD's ``teacher_ms``)."""
+    joins the result (LD's ``teacher_ms``). ``unpad`` cuts the batch's
+    images to SSD's 300x300 (``unpadded``)."""
     import torch
     cfg = longtail_cfg(path) if cfg is None else cfg
     n = cfg.data.samples_per_gpu
@@ -5602,6 +5655,8 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
     if prepare is not None:
         prepare(model)
     batch = longtail_batch(cfg, hw, n, 52)
+    if unpad:
+        batch = unpadded(batch)
     if masks:
         batch["gt_masks"] = polygon_gt_masks(batch["gt_bboxes"], batch["img_shape"], 53)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6064,7 +6119,7 @@ def phase_twostage(rows):
     return out
 
 
-DIST_STEPS = 3                  # timed steps a side, after one warm-up step
+DIST_STEPS = 2                  # timed steps a side, after one warm-up step
 DIST_STAGES = STAGES[:5] + ("train_step: backward", "train_step: allreduce",
                             "train_step: sgd")
 DIST_TRAIN_IMAGES = 4           # the launch script's run: 2 steps of 2 images, one epoch
@@ -6407,17 +6462,36 @@ ONESTAGE = (
     ("cornernet", "configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py"),
     ("centripetalnet",
      "configs/centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py"),
+    ("yolof", "configs/yolof/yolof_r50_c5_8x8_1x_coco.py"),
+    ("yolox", "configs/yolox/yolox_s_8x8_300e_coco.py"),
+    ("ssd", "configs/ssd/ssd300_coco.py"),
+    ("solo", "configs/solo/solo_r50_fpn_1x_coco.py"),
+    ("yolact", "configs/yolact/yolact_r50_1x8_coco.py"),
 )
 ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
-# heads that decode by a top-k, with no NMS
-WITHOUT_NMS = ("centernet", "cornernet", "centripetalnet")
+# the fifth slice's configs (their requests log the (anchor, class)
+# candidates above ``score_thr``) and the two instance heads among them
+# (their steps take polygon gt masks; their requests give their own outputs)
+FIFTH = ("yolof", "yolox", "ssd", "solo", "yolact")
+INSTANCE = ("solo", "yolact")
+# heads that decode with no ``multiclass_nms``: by a top-k, or by the
+# instance heads' matrix NMS and fast NMS
+WITHOUT_NMS = ("centernet", "cornernet", "centripetalnet") + INSTANCE
 HOURGLASS = ("cornernet", "centripetalnet")
 # CenterNet's config names no data (nor a schedule): its request and steps
 # take the Cityscapes base's data, as the other configs do, and the
 # Cityscapes config's linear warm-up (at its config's constant LR one step
 # on one image moves the heatmap bias by ~10 and the second step's losses
 # read up to 1.5e16)
-DATA_BASE = {"centernet": "configs/_base_/datasets/cityscapes_detection.py"}
+DATA_BASE = {f: "configs/_base_/datasets/cityscapes_detection.py"
+             for f in ("centernet", "yolox", "ssd")}
+# SSD's anchors are fixed to its 300x300 input: the Cityscapes base's
+# pipelines resize to it with keep_ratio=False, as mmdet's ssd300_coco.py's
+# do (a fix of this run; the repo's SSD config names no data)
+SSD_OPTIONS = {"data.test.pipeline.1.img_scale": (300, 300),
+               "data.test.pipeline.1.transforms.0.keep_ratio": False,
+               "data.train.dataset.pipeline.2.img_scale": (300, 300),
+               "data.train.dataset.pipeline.2.keep_ratio": False}
 SCHEDULE_BASE = "configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py"
 # the port refuses NAS-FCOS's config as given (its neck's outputs at strides 4
 # to 64, its head's points at 8 to 128; ROADMAP C): it runs with this fix
@@ -6483,7 +6557,130 @@ def onestage_cfg(family, path):
         cfg.data = base.data
         cfg.img_norm_cfg = base.img_norm_cfg
         cfg.lr_config = load_config(str(ROOT / SCHEDULE_BASE)).lr_config
+    if family == "ssd":
+        cfg.merge_from_dict(SSD_OPTIONS)
     return cfg
+
+
+def unpadded(batch, size=(300, 300)):
+    """SSD's batch cut to its fixed 300x300 input (``prepare_image`` and
+    ``prepare_batch`` pad every image to a multiple of 32, 320), its
+    ``img_shape`` with it."""
+    h, w = size
+    shape = batch["img_shape"]
+    return dict(batch, img=batch["img"][..., :h, :w].contiguous(),
+                img_shape=shape.new_tensor([[h, w]] * shape.shape[0]))
+
+
+def serve_batch(family, handle, img, cfg):
+    """A request's batch of the uint8 image ``img`` on the handle's device:
+    SSD's through its test pipeline's 300x300 resize (``prepare_batch``,
+    ``unpadded``), the others' through ``prepare_image`` with ``cfg``."""
+    from oadg_tpu_torch.apis import prepare_batch, prepare_image
+    if family == "ssd":
+        return unpadded(prepare_batch(handle, img))
+    return prepare_image(img, cfg, handle.device)
+
+
+def served_outputs(family, head, res, k):
+    """A test call's outputs -> (their shapes, dtypes and values as they
+    should be for ``k`` rows an image, the valid rows, the labels): SOLO's
+    (masks, labels, scores), YOLACT's (dets, labels, valid, coefficients),
+    the others' (dets, labels, valid)."""
+    import torch
+    from oadg_tpu_torch.apis.test import fetch_dets
+    if family == "solo":
+        masks, labels, scores = res
+        ok = (masks.shape[:2] == (1, k) and masks.dtype == torch.bool
+              and bool(torch.isfinite(scores).all()))
+        return ok, (scores > 0).cpu().numpy(), labels.cpu().numpy()
+    dets, labels, valid = fetch_dets(*res[:3])
+    ok = dets.shape == (1, k, 5) and np.isfinite(dets).all()
+    if family == "yolact":
+        ok = ok and res[3].shape == (1, k, head.num_protos) and bool(torch.isfinite(res[3]).all())
+    return ok, valid, labels
+
+
+def candidates_above(family, model, batch):
+    """The fifth slice's (anchor, class) candidates of ``batch`` above the
+    head's ``score_thr``, over every anchor, point or grid cell (before any
+    ``nms_pre``) -> (the count, all candidates, the threshold)."""
+    import torch
+    head = model.bbox_head
+    thr = float(head.test_cfg.get("score_thr", 0.05))
+    with torch.inference_mode():
+        outs = head(model.extract_feat(batch["img"]))
+        if family == "yolox":
+            _, _, cls, _, obj = head._flat(outs)
+            scores = torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
+        elif family == "yolof":
+            scores = torch.sigmoid(outs[0][0])
+        elif family == "solo":
+            scores = torch.cat([torch.sigmoid(c).flatten(1) for c in outs[0]], 1)
+        else:
+            scores = torch.softmax(head._flat(outs)[1], -1)[..., :-1]
+        return int((scores > thr).sum()), scores.numel(), thr
+
+
+def solo_test(model, batch):
+    """SOLO's test call with what its masks were thresholded from ->
+    (masks, labels, scores, each kept row's mask probabilities (N, K, H, W)
+    and its (cell, class) candidate (N, K, 2)), read from the head's
+    ``candidates`` and ``mask_matrix_nms``'s kept indices on the way."""
+    import torch
+    from oadg_tpu_torch.models.dense_heads import instance_seg_heads
+    head, seen = model.bbox_head, {"keep": []}
+    real_candidates, real_nms = head.candidates, instance_seg_heads.mask_matrix_nms
+
+    def candidates(*args, **kwargs):
+        seen["candidates"] = real_candidates(*args, **kwargs)
+        return seen["candidates"]
+
+    def nms(*args, **kwargs):
+        out = real_nms(*args, **kwargs)
+        seen["keep"].append(out[3])
+        return out
+
+    head.candidates, instance_seg_heads.mask_matrix_nms = candidates, nms
+    try:
+        masks, labels, scores = model.simple_test(batch)
+    finally:
+        del head.candidates
+        instance_seg_heads.mask_matrix_nms = real_nms
+    _, ci, ni, logits = seen["candidates"]
+    keep = torch.stack(seen["keep"])
+    probs = torch.sigmoid(torch.gather(logits, 1, keep[..., None, None].expand(
+        *keep.shape, *logits.shape[-2:])))
+    ids = torch.stack([torch.gather(ni, 1, keep), torch.gather(ci, 1, keep)], -1)
+    return masks, labels, scores, probs, ids
+
+
+def _match_masks(a, b, score_tol, mask_thr):
+    """The share of SOLO result ``a``'s valid rows (``solo_test``'s, one
+    image) that ``b`` holds: the same (cell, class) candidate, the score
+    within ``score_tol`` and the mask equal but at pixels whose probability
+    in ``b`` lies within 1e-5 of ``mask_thr`` -> (the share, what was
+    found). Raises where a candidate both hold has a pixel apart farther
+    from ``mask_thr``."""
+    (ma, _, sa, _, ia), (mb, _, sb, pb, ib) = [tuple(t[0].cpu() for t in x) for x in (a, b)]
+    va, vb = sa > 0, sb > 0
+    if not va.any():
+        return 1.0, "no valid rows"
+    held, flipped, far = 0, 0, 0
+    near = (pb - mask_thr).abs() <= 1e-5
+    for r in va.nonzero()[:, 0].tolist():
+        same = (vb & (ib == ia[r]).all(-1)).nonzero()[:, 0].tolist()
+        if not same:
+            continue
+        apart = ma[r] != mb[same[0]]
+        off = int((apart & ~near[same[0]]).sum())
+        flipped, far = flipped + int(apart.sum()), far + off
+        held += int(abs(float(sa[r]) - float(sb[same[0]])) <= score_tol and not off)
+    what = (f"the same candidates' masks {flipped} pixels apart, {far} of them farther than "
+            f"1e-5 from mask_thr {mask_thr} on the CPU; scores within {score_tol}")
+    if far:
+        raise AssertionError(f"solo: card vs CPU: {what}")
+    return held / int(va.sum()), what
 
 
 def phase_onestage(rows):
@@ -6507,9 +6704,11 @@ def phase_onestage(rows):
             res = out[f"{family}_{name}"] = dict(
                 serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
                                      phase="onestage"),
-                train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                train=longtail_train(rows, family, path,
+                                     (300, 300) if family == "ssd" else (IMG_H, IMG_W), name, cfg=cfg,
                                      phase="onestage", prepare=classifier_prior,
-                                     probe=probes.get(family)))
+                                     probe=probes.get(family), masks=family in INSTANCE,
+                                     unpad=family == "ssd"))
             if family == "nas_fpn":
                 log("onestage", f"nas_fpn {name}: the neck's forward (7 stacks of 8 cells) "
                                 f"{res['train']['neck_ms']:.3f} ms on one image of "

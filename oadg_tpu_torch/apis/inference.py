@@ -44,7 +44,10 @@ class DetectorHandle:
         """-> dets (N, max_per_img, 5), labels (N, max_per_img), valid; a
         Mask R-CNN adds masks (N, max_per_img, 28, 28), each detection's mask
         probabilities at its class in its box (``paste_masks`` draws them
-        into the image)."""
+        into the image). SOLO returns masks (N, max_per_img, H, W) bool at
+        its level-0 mask size, labels and scores, YOLACT dets, labels, valid
+        and each detection's prototype coefficients, as the JAX detectors
+        do."""
         with torch.inference_mode():
             return self.model.simple_test(batch)
 
@@ -181,8 +184,10 @@ def prepare_batch(model: DetectorHandle, img, pipeline=None) -> dict:
 
 def inference_detector(model: DetectorHandle, imgs) -> list:
     """Detect on image file(s) or array(s) -> per-class (n, 5) arrays per
-    image (one image in, one result out)."""
-    from .test import dets_to_results, fetch_dets
+    image (one image in, one result out); SOLO and YOLACT raise
+    (``refuse_instance_outputs``)."""
+    from .test import dets_to_results, fetch_dets, refuse_instance_outputs
+    refuse_instance_outputs(model.model)
     single = not isinstance(imgs, (list, tuple))
     results = [dets_to_results(*fetch_dets(*model.test(prepare_batch(model, img))),
                                model.num_classes)[0]
@@ -198,7 +203,8 @@ async def async_inference_detector(model: DetectorHandle, imgs) -> list:
     default executor, so that the loop stays free meanwhile."""
     import asyncio
 
-    from .test import dets_to_results, fetch_dets
+    from .test import dets_to_results, fetch_dets, refuse_instance_outputs
+    refuse_instance_outputs(model.model)
     single = not isinstance(imgs, (list, tuple))
     outs = [model.test(prepare_batch(model, img)) for img in ([imgs] if single else imgs)]
     loop = asyncio.get_running_loop()

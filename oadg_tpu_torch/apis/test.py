@@ -41,6 +41,19 @@ def fetch_dets(dets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
     return packed[..., :5], packed[..., 5].astype(np.int64), packed[..., 6] > 0
 
 
+def refuse_instance_outputs(model) -> None:
+    """Raise ``ValueError`` for SOLO and YOLACT: their test call returns
+    masks, labels and scores (SOLO) or four outputs (YOLACT), which the box
+    results of ``run_test`` cannot hold. The JAX package's ``run_test`` and
+    ``inference_detector`` unpack three outputs as boxes: they read SOLO's
+    masks as boxes and raise on YOLACT's four; it has no ``segm`` metric."""
+    what = getattr(model, "instance_outputs", "")
+    if what:
+        raise ValueError(f"{type(model).__name__}'s test call returns {what}, not boxes: "
+                         "the box test path cannot score it (the JAX package misreads or "
+                         "refuses it and has no segm metric); call DetectorHandle.test")
+
+
 def dets_to_results(dets, labels, valid, num_classes: int) -> List[List[np.ndarray]]:
     """(N, K, 5), (N, K), (N, K) numpy -> per image, per class (n, 5) arrays."""
     return [bbox2result(dets[i][valid[i]], labels[i][valid[i]], num_classes)
@@ -73,6 +86,7 @@ def single_gpu_test(model_state: Dict, data_loader, show: bool = False,
     if show or out_dir:
         raise NotImplementedError("drawing detections needs core/visualization, "
                                   "which is not ported yet (ROADMAP A, 'Long tail')")
+    refuse_instance_outputs(getattr(model_state.get("handle"), "model", None))
     return run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
                     progress=progress)
 
@@ -150,6 +164,7 @@ def multi_gpu_test(model_state: Dict, data_loader,
     collected in the dataset's order (``collect_results_allgather``, keyed
     by the loader's ``result_indices``). One process whose loader keeps
     the dataset's order gets ``run_test``'s list as it is."""
+    refuse_instance_outputs(getattr(model_state.get("handle"), "model", None))
     results = run_test(model_state["test_fn"], data_loader, model_state["num_classes"],
                        progress=progress and get_dist_info()[0] == 0)
     if hasattr(data_loader, "result_indices"):

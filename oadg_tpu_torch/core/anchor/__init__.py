@@ -1,3 +1,3 @@
-from .anchor_generator import AnchorGenerator, YOLOAnchorGenerator
+from .anchor_generator import AnchorGenerator, SSDAnchorGenerator, YOLOAnchorGenerator
 
-__all__ = ["AnchorGenerator", "YOLOAnchorGenerator"]
+__all__ = ["AnchorGenerator", "SSDAnchorGenerator", "YOLOAnchorGenerator"]

@@ -7,6 +7,13 @@ cell (ratio-major), computed in numpy float32 exactly as the JAX package does;
 innermost, the (H, W, A) order of the head's NHWC-flattened outputs, and
 ``grid_priors_cat`` (``:97``) concatenates the levels.
 
+``SSDAnchorGenerator`` (port of ``:137-190``): per level a base size
+``min_size`` and ``max_size`` from ``basesize_ratio_range`` over
+``input_size`` (COCO's 0.15 start puts a 7%-15% level first), the anchors
+``min`` and ``sqrt(min * max)`` at 1:1, then ``min`` at each ratio ``r`` and
+``1 / r``, centred on ``stride / 2``, formed in numpy float64 and rounded to
+float32 once, as the JAX package does; laid out by ``grid_priors``.
+
 ``YOLOAnchorGenerator`` (port of ``oadg_tpu/models/dense_heads/yolo_head.py:29-65``):
 per level a list of (w, h) base sizes centred on each cell's centre
 ``(i + 0.5) * stride``, location-major with the anchors innermost.
@@ -78,6 +85,39 @@ class AnchorGenerator:
                         device=None) -> torch.Tensor:
         """All levels' anchors concatenated, (sum H * W * A, 4)."""
         return torch.cat(self.grid_priors(featmap_sizes, device))
+
+
+@PRIOR_GENERATORS.register_module()
+class SSDAnchorGenerator(AnchorGenerator):
+
+    def __init__(self, strides: Sequence[int], ratios, input_size: int = 300,
+                 basesize_ratio_range=(0.15, 0.9), scale_major: bool = False):
+        self.strides = list(strides)
+        self.input_size = input_size
+        min_ratio, max_ratio = (int(r * 100) for r in basesize_ratio_range)
+        step = int(np.floor(max_ratio - min_ratio) / (len(strides) - 2))
+        min_sizes, max_sizes = [], []
+        for ratio in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(int(input_size * ratio / 100))
+            max_sizes.append(int(input_size * (ratio + step) / 100))
+        if basesize_ratio_range[0] == 0.15:      # SSD300 on COCO
+            min_sizes.insert(0, int(input_size * 7 / 100))
+            max_sizes.insert(0, int(input_size * 15 / 100))
+        elif basesize_ratio_range[0] == 0.2:     # SSD300 on VOC
+            min_sizes.insert(0, int(input_size * 10 / 100))
+            max_sizes.insert(0, int(input_size * 20 / 100))
+        self.min_sizes = min_sizes[:len(strides)]
+        self.max_sizes = max_sizes[:len(strides)]
+        self.base_anchors = []
+        for k, s in enumerate(self.strides):
+            mn, mx = float(self.min_sizes[k]), float(self.max_sizes[k])
+            c = s / 2.0
+            sizes = [(mn, mn), (np.sqrt(mn * mx), np.sqrt(mn * mx))]
+            for r in np.asarray(ratios[k], np.float32):
+                sr = np.sqrt(r)
+                sizes += [(mn * sr, mn / sr), (mn / sr, mn * sr)]
+            self.base_anchors.append(np.asarray(
+                [[c - w / 2, c - h / 2, c + w / 2, c + h / 2] for w, h in sizes], np.float32))
 
 
 @PRIOR_GENERATORS.register_module()

@@ -6,6 +6,10 @@
 weakly typed) to float32 (``:58``); here the float32 ``stds`` tensor promotes
 the bfloat16 deltas the same way, and the float32 boxes carry the rest.
 
+``add_ctr_clamp`` (YOLOF's, ``:67-71``): the centre shifts ``pw * dx`` and
+``ph * dy`` clamped to +-``ctr_clamp`` and ``dw`` / ``dh`` bounded from
+above only; without it the default path, ``dw`` / ``dh`` clamped both ways.
+
 ``YOLOBBoxCoder`` (port of ``:104-127``): centre offsets within a cell of
 ``stride`` and log size ratios, with the ``eps`` clamps of the JAX package."""
 from __future__ import annotations
@@ -22,9 +26,12 @@ from ...utils.registry import BBOX_CODERS
 class DeltaXYWHBBoxCoder:
 
     def __init__(self, target_means: Sequence[float] = (0., 0., 0., 0.),
-                 target_stds: Sequence[float] = (1., 1., 1., 1.)):
+                 target_stds: Sequence[float] = (1., 1., 1., 1.),
+                 add_ctr_clamp: bool = False, ctr_clamp: int = 32):
         self.means = torch.tensor(np.asarray(target_means, np.float32))
         self.stds = torch.tensor(np.asarray(target_stds, np.float32))
+        self.add_ctr_clamp = add_ctr_clamp
+        self.ctr_clamp = ctr_clamp
 
     def encode(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor) -> torch.Tensor:
         """(..., 4) proposals and ground truth -> normalized deltas (..., 4)."""
@@ -54,10 +61,17 @@ class DeltaXYWHBBoxCoder:
         py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
         pw = bboxes[..., 2] - bboxes[..., 0]
         ph = bboxes[..., 3] - bboxes[..., 1]
-        gw = pw * torch.exp(dw.clamp(-max_ratio, max_ratio))
-        gh = ph * torch.exp(dh.clamp(-max_ratio, max_ratio))
-        gx = px + pw * dx
-        gy = py + ph * dy
+        dx_width, dy_height = pw * dx, ph * dy
+        if self.add_ctr_clamp:
+            c = float(self.ctr_clamp)
+            dx_width, dy_height = dx_width.clamp(-c, c), dy_height.clamp(-c, c)
+            dw, dh = dw.clamp(max=max_ratio), dh.clamp(max=max_ratio)
+        else:
+            dw, dh = dw.clamp(-max_ratio, max_ratio), dh.clamp(-max_ratio, max_ratio)
+        gw = pw * torch.exp(dw)
+        gh = ph * torch.exp(dh)
+        gx = px + dx_width
+        gy = py + dy_height
         x1, y1 = gx - gw * 0.5, gy - gh * 0.5
         x2, y2 = gx + gw * 0.5, gy + gh * 0.5
         if max_shape is not None:

@@ -253,19 +253,21 @@ class Scale(nn.Module):
 class ConvModule(nn.Module):
     """mmcv ConvModule: ``self.conv``, then ``self.bn`` with a BN
     ``norm_cfg`` (its ``eps`` and torch ``momentum`` honoured; the conv then
-    has no bias), then ``act`` (``"leaky_relu"``, slope 0.1, or
+    has no bias unless ``bias`` says so, as the JAX ``Conv`` before a live
+    BN of YOLOF's head and neck has), then ``act`` (``"leaky_relu"``, slope 0.1, or
     ``"relu"``). With neither it is the plain conv FPN uses."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm_cfg=None, act=None,
-                 device=None, dtype=None):
+                 dilation: int = 1, bias=None, device=None, dtype=None):
         super().__init__()
         if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
             raise NotImplementedError(f"ConvModule norm {norm_cfg['type']}")
         if act not in (None, "leaky_relu", "relu"):
             raise NotImplementedError(f"ConvModule activation {act}")
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, padding,
-                         bias=norm_cfg is None, device=device, dtype=dtype)
+                         dilation=dilation, bias=norm_cfg is None if bias is None else bias,
+                         device=device, dtype=dtype)
         self.bn = None if norm_cfg is None else build_norm(norm_cfg, out_channels, device)
         self.act = act
 

@@ -18,8 +18,11 @@ VFNet's ``vfnet_reg_conv``, the ATSS parts of mmdet's PAA head, the NAS
 necks' extra-level convs and mmdet's NAS-FPN ``sum_77_7`` / ``gp_54_7``
 and cell conv biases, NAS-FCOS's concat cells and deformable tower convs,
 the ``conv2`` after mmdet's ``BiCornerPool``, CentripetalNet's guiding
-shifts and feature adaption, and a downsample in a later block of an
-Hourglass ``low3``), which skipping would silently change.
+shifts and feature adaption, a downsample in a later block of an
+Hourglass ``low3``, YOLACT's separate protonet and semantic head, and
+SSD's ``SSDNeck``), which skipping would silently change. A CSPDarknet's
+Focus stem conv has its input blocks reordered from mmdet's (dy, dx) order
+to the JAX package's (``csp_darknet.focus_mmdet_order``).
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``oadg_tpu/utils/checkpoint.py:convert_torch_state_dict`` (``:37``): HWIO conv
@@ -139,6 +142,34 @@ direction2_conv, aftpool_conv, conv1}``; the Hourglass's ``stem_conv``
 ``hourglass_modules.{s}.up1.{j}`` ..., ``out_conv{s}`` ``out_convs.{s}``,
 ``remap_x{s}`` ``conv1x1s.{s}``, ``remap_f{s}`` ``remap_convs.{s}``,
 ``inter_res{s}_0`` ``inters.{s}`` (every BN's ``batch_stats`` too).
+The modules of A.2.7d: SSDVGG's ``conv{s}_{c}``, ``conv6`` and ``conv7``
+become ``backbone.features.{i}`` (mmdet's VGG indices 0 ... 33),
+``extra{i}`` ``backbone.extra.{i}`` and ``l2_norm_scale_p``
+``backbone.l2_norm.weight``; SSD's head ``cls_conv{i}`` / ``reg_conv{i}``
+``bbox_head.cls_convs.{i}`` / ``reg_convs.{i}``; CSPDarknet's ``stem``
+``backbone.stem.conv``, ``stage{k}_conv`` / ``_spp`` / ``_csp``
+``backbone.stage{k}.0`` / ``.1`` / ``.1`` or ``.2`` (a ``CSPLayer``'s
+``block{i}`` ``blocks.{i}``; a ``ConvBNSiLU``'s ``conv`` / ``bn``
+``conv.weight`` / ``bn.*``); the PAFPN's ``reduce{i}``, ``td_csp{i}``,
+``down{i}``, ``bu_csp{i}`` and ``out{i}`` ``neck.reduce_layers.{i}``,
+``top_down_blocks``, ``downsamples``, ``bottom_up_blocks`` and
+``out_convs``; YOLOX's head ``stem{i}``, ``cls{i}_{j}`` / ``reg{i}_{j}``,
+``cls_pred{i}`` / ``reg_pred{i}`` / ``obj_pred{i}`` ``bbox_head.stems.{i}``,
+``multi_level_cls_convs.{i}.{j}`` / ``multi_level_reg_convs``,
+``multi_level_conv_cls.{i}`` / ``_reg`` / ``_obj``; the DilatedEncoder's
+``lateral`` / ``lateral_bn`` / ``fpn_conv`` / ``fpn_bn``
+``neck.lateral_conv`` / ``lateral_norm`` / ``fpn_conv`` / ``fpn_norm`` and
+``block{i}`` (``conv{j}``, ``bn{j}``)
+``neck.dilated_encoder_blocks.{i}.conv{j}.{conv,bn}``; YOLOF's head
+``cls_conv{i}`` / ``cls_bn{i}`` (``reg_``) ``bbox_head.cls_subnet.{i}.conv``
+/ ``.bn`` (``bbox_subnet``), ``cls_score``, ``bbox_pred`` and
+``object_pred`` as they are; SOLO's ``cate_conv{i}`` / ``cate_gn{i}``,
+``mask_conv{i}`` / ``mask_gn{i}``, ``conv_cate`` and ``conv_mask{i}``
+``bbox_head.cls_convs.{i}.conv`` / ``.gn``, ``mask_convs.{i}``,
+``conv_cls`` and ``conv_mask_list.{i}``; YOLACT's ``head_conv{i}`` and
+``proto_conv{i}`` ``bbox_head.head_convs.{i}.conv`` and ``proto_convs.{i}``,
+``conv_cls``, ``conv_reg``, ``conv_coeff``, ``proto_out`` and ``segm_conv``
+as they are (every live BN's ``batch_stats`` too).
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -352,8 +383,127 @@ def _nas_neck_key(rest: Tuple[str, ...], laterals: str) -> Optional[str]:
     return None
 
 
+# SSDVGG's convs -> their index in mmdet's ``features`` Sequential
+_VGG_STAGE = (0, 5, 10, 17, 24)
+_VGG_FC = {"conv6": 31, "conv7": 33}
+_YOLOF_TOWER = {"cls": "cls_subnet", "reg": "bbox_subnet"}
+_YOLOX_TOWER = {"cls": "multi_level_cls_convs", "reg": "multi_level_reg_convs"}
+_YOLOX_PRED = {"cls_pred": "multi_level_conv_cls", "reg_pred": "multi_level_conv_reg",
+               "obj_pred": "multi_level_conv_obj"}
+_PAFPN = {"reduce": "reduce_layers", "down": "downsamples", "out": "out_convs",
+          "td_csp": "top_down_blocks", "bu_csp": "bottom_up_blocks"}
+_SOLO = {"cate_conv": "cls_convs.{}.conv", "cate_gn": "cls_convs.{}.gn",
+         "mask_conv": "mask_convs.{}.conv", "mask_gn": "mask_convs.{}.gn",
+         "conv_mask": "conv_mask_list.{}", "head_conv": "head_convs.{}.conv",
+         "proto_conv": "proto_convs.{}"}
+
+
+def _cbs(rest: Tuple[str, ...]) -> str:
+    """A leaf of a JAX ``ConvBNSiLU`` (``conv/kernel``, ``bn/<leaf>``) ->
+    its key under the port's module."""
+    if rest[0] == "conv":
+        return "conv.weight"
+    if rest[0] == "bn":
+        return f"bn.{_BN_LEAF[rest[-1]]}"
+    raise KeyError("/".join(rest))
+
+
+def _csp_key(rest: Tuple[str, ...]) -> str:
+    """A leaf of a JAX ``CSPLayer`` -> its key under the port's."""
+    if rest[0] in ("main_conv", "short_conv", "final_conv"):
+        return f"{rest[0]}.{_cbs(rest[1:])}"
+    block = re.fullmatch(r"block(\d+)", rest[0]).group(1)
+    return f"blocks.{block}.{rest[1]}.{_cbs(rest[2:])}"
+
+
+def _fifth_key(head: str, rest: Tuple[str, ...], kind: str) -> Optional[str]:
+    """A leaf of SSDVGG, CSPDarknet, YOLOXPAFPN, DilatedEncoder or the YOLOF,
+    YOLOX, SSD, SOLO and YOLACT heads (``kind``: which head) -> its key, or
+    None (another module's)."""
+    scope = rest[0]
+    if head == "backbone_m":
+        m = re.fullmatch(r"conv(\d)_(\d)", scope)
+        if m:
+            idx = _VGG_STAGE[int(m.group(1)) - 1] + 2 * (int(m.group(2)) - 1)
+            return f"backbone.features.{idx}.{_leaf(rest)}"
+        if scope in _VGG_FC:
+            return f"backbone.features.{_VGG_FC[scope]}.{_leaf(rest)}"
+        m = re.fullmatch(r"extra(\d+)", scope)
+        if m:
+            return f"backbone.extra.{m.group(1)}.{_leaf(rest)}"
+        if scope == "l2_norm_scale_p":
+            return "backbone.l2_norm.weight"
+        if scope == "stem" and rest[1] in ("conv", "bn"):
+            return f"backbone.stem.conv.{_cbs(rest[1:])}"
+        m = re.fullmatch(r"stage(\d+)_(conv|spp|csp)", scope)
+        if m:                                    # P5: the SPP is stage 4's
+            k, part = m.groups()
+            if part == "conv":
+                return f"backbone.stage{k}.0.{_cbs(rest[1:])}"
+            if part == "spp":
+                return f"backbone.stage{k}.1.{rest[1]}.{_cbs(rest[2:])}"
+            return f"backbone.stage{k}.{2 if k == '4' else 1}.{_csp_key(rest[1:])}"
+        return None
+    if head == "neck_m":
+        m = re.fullmatch(r"(reduce|down|out|td_csp|bu_csp)(\d+)", scope)
+        if m:
+            sub = _csp_key(rest[1:]) if m.group(1).endswith("csp") else _cbs(rest[1:])
+            return f"neck.{_PAFPN[m.group(1)]}.{m.group(2)}.{sub}"
+        if scope in ("lateral", "fpn_conv"):
+            return f"neck.{'lateral_conv' if scope == 'lateral' else 'fpn_conv'}.{_leaf(rest)}"
+        if scope in ("lateral_bn", "fpn_bn"):
+            return f"neck.{scope[:-3]}_norm.{_BN_LEAF[rest[-1]]}"
+        m = re.fullmatch(r"block(\d+)", scope)
+        if m:
+            conv, part = re.fullmatch(r"(?:conv|bn)(\d)", rest[1]).group(1), rest[1][:-1]
+            leaf = _leaf(rest) if part == "conv" else _BN_LEAF[rest[-1]]
+            return f"neck.dilated_encoder_blocks.{m.group(1)}.conv{conv}.{part}.{leaf}"
+        return None
+    if head != "head":
+        return None
+    m = re.fullmatch(r"(cls|reg)_(conv|bn)(\d+)", scope)
+    if kind == "yolof" and m:
+        leaf = _leaf(rest) if m.group(2) == "conv" else _BN_LEAF[rest[-1]]
+        return f"bbox_head.{_YOLOF_TOWER[m.group(1)]}.{m.group(3)}.{m.group(2)}.{leaf}"
+    if kind == "ssd" and m and m.group(2) == "conv":
+        return f"bbox_head.{m.group(1)}_convs.{m.group(3)}.{_leaf(rest)}"
+    if kind == "yolox":
+        m = re.fullmatch(r"(stem|cls|reg)(\d+)(?:_(\d+))?", scope)
+        if m and m.group(1) == "stem":
+            return f"bbox_head.stems.{m.group(2)}.{_cbs(rest[1:])}"
+        if m:
+            return f"bbox_head.{_YOLOX_TOWER[m.group(1)]}.{m.group(2)}.{m.group(3)}.{_cbs(rest[1:])}"
+        m = re.fullmatch(r"(cls_pred|reg_pred|obj_pred)(\d+)", scope)
+        if m:
+            return f"bbox_head.{_YOLOX_PRED[m.group(1)]}.{m.group(2)}.{_leaf(rest)}"
+    if kind in ("solo", "yolact"):
+        m = re.fullmatch(r"(cate_conv|cate_gn|mask_conv|mask_gn|conv_mask|head_conv|proto_conv)"
+                         r"(\d+)", scope)
+        if m:
+            return f"bbox_head.{_SOLO[m.group(1)].format(m.group(2))}.{_leaf(rest)}"
+        if scope == "conv_cate":
+            return f"bbox_head.conv_cls.{_leaf(rest)}"
+        if scope in ("conv_coeff", "proto_out", "segm_conv"):
+            return f"bbox_head.{scope}.{_leaf(rest)}"
+    if kind == "yolof" and scope in ("cls_score", "bbox_pred", "object_pred"):
+        return f"bbox_head.{scope}.{_leaf(rest)}"
+    return None
+
+
+def _head_kind(heads: Dict) -> str:
+    """Which of the fifth slice's heads the JAX head tree is ("" none)."""
+    for kind, leaf in (("yolof", "object_pred"), ("yolof", "cls_bn0"), ("yolox", "stem0"),
+                       ("solo", "conv_cate"), ("yolact", "proto_out")):
+        if leaf in heads:
+            return kind
+    if heads and all(re.fullmatch(r"(cls|reg)_conv\d+", k) for k in heads):
+        return "ssd"
+    return ""
+
+
 def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
-               laterals: str = "lateral_convs", reppoints: bool = False) -> str:
+               laterals: str = "lateral_convs", reppoints: bool = False,
+               kind: str = "") -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key;
     ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
     ``fpn_convs.{fpn_levels + k}``), ``sepbn`` whether the dense head has
@@ -363,6 +513,9 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
     head, rest = path[0], path[1:]
     if head == "teacher":
         return f"teacher_model.{_torch_key(rest, fpn_levels)}"
+    fifth = _fifth_key(head, rest, kind)
+    if fifth is not None:
+        return fifth
     if head == "backbone_m" and (re.fullmatch(r"down\d+|stage\d+_\d+", rest[0]) or (
             rest[0] == "conv1" and rest[1] in ("conv", "FrozenBN_0"))):
         return _darknet_key(rest)
@@ -541,6 +694,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     heads = dict(params.get("head") or {})
     sepbn = sum(1 for k in heads if re.fullmatch(r"cls_bn\d+_0", k))
     reppoints = "pts_init_out" in heads
+    kind = _head_kind(heads or dict(dict(variables.get("batch_stats") or {}).get("head") or {}))
     neck = dict(params.get("neck_m") or {})
     laterals = ("adapt_convs" if any(re.fullmatch(r"merge\d+", k) for k in neck)
                 else "lateral_convs")
@@ -553,7 +707,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
         for path, v in _leaves(variables.get(collection) or {}):
             try:
                 key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""],
-                                 sepbn > 0, laterals, reppoints)
+                                 sepbn > 0, laterals, reppoints, kind)
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
@@ -643,6 +797,13 @@ MMDET_ONLY = {
     r"backbone\.hourglass_modules\.\d+\.(low2\.)*low3\.[1-9]\d*\.downsample\.":
         "a downsample in a later block of an Hourglass low3 (mmdet's low3 changes its channels "
         "in its last block, the JAX one in its first)",
+    r"(mask_head\.protonet|segm_head)\.":
+        "YOLACT's protonet and semantic head as mmdet's own mask_head and segm_head (the JAX "
+        "YOLACTHead holds a protonet without mmdet's 3x3 conv after the upsample and an "
+        "untrained segm_conv: bbox_head.proto_convs, proto_out and segm_conv)",
+    r"neck\.(extra_layers|l2_norm)\.":
+        "mmdet's SSDNeck (its L2Norm and extra convs under neck., mmdet 2.18 on; the JAX "
+        "SSDVGG holds them as backbone.l2_norm and backbone.extra, mmdet's older layout)",
 }
 
 
@@ -677,6 +838,10 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
     for ours, theirs in getattr(getattr(model, "bbox_head", None), "mmdet_names", {}).items():
         mine, other = f"bbox_head.{ours}.", f"bbox_head.{theirs}."      # FSAF's retina_cls
         sd = {mine + k[len(other):] if k.startswith(other) else k: v for k, v in sd.items()}
+    if type(getattr(model, "backbone", None)).__name__ == "CSPDarknet" and \
+            "backbone.stem.conv.conv.weight" in sd and not backbone_only:
+        from ..models.backbones.csp_darknet import focus_mmdet_order
+        sd["backbone.stem.conv.conv.weight"] = focus_mmdet_order(sd["backbone.stem.conv.conv.weight"])
     for pattern, what in MMDET_ONLY.items():
         extra = sorted(k for k in sd if re.match(pattern, k) and k not in own)
         if extra:

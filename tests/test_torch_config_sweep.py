@@ -1,10 +1,10 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 56 configs the port has ported build as
+them with the JAX package: the 61 configs the port has ported build as
 given, NAS-FCOS raises its stride refusal (its neck's outputs at strides 4
 to 64 against its head's 8 to 128) and builds with
-``model.neck.start_level=1``, the other 23 raise the port's refusal (a type
+``model.neck.start_level=1``, the other 18 raise the port's refusal (a type
 the port has not ported, "the port builds only the ported slices'
 types"), never another error; TridentNet's refusal names the JAX
 detector's fault.
@@ -31,12 +31,19 @@ CentripetalNet (the point-set head on two DCNv1s, CenterNet's R18 with no
 neck, the two-stack Hourglass-104 with live BNs, the corner pools and the
 corner and centripetal heads; mmdet's ``BiCornerPool`` ``conv2``,
 CentripetalNet's guiding shifts and the Hourglass ``low3`` downsample in
-its last block refused, RepPoints' GNs after its DCNs named as missing).
+its last block refused, RepPoints' GNs after its DCNs named as missing);
+and for YOLOF, YOLOX-S, SSD300, SOLO and YOLACT (the DilatedEncoder,
+CSPDarknet with its Focus stem in mmdet's channel order, the PAFPN, SSD's
+VGG-16, the instance heads; mmdet's YOLACT protonet and semantic head and
+its SSDNeck refused, YOLOF's conv biases named as missing), with SOLO and
+YOLACT refused by the box test path beside JAX's ``run_test``, which
+misreads or raises on them.
 """
 import copy
 import glob
 import importlib.util
 import json
+import re
 import os.path as osp
 
 import numpy as np
@@ -113,6 +120,11 @@ PORTED = {
     "yolo/yolov3_d53_320_273e_coco.py",
     "yolo/yolov3_d53_mstrain-416_273e_coco.py",
     "yolo/yolov3_d53_mstrain-608_273e_coco.py",
+    "yolof/yolof_r50_c5_8x8_1x_coco.py",
+    "yolox/yolox_s_8x8_300e_coco.py",
+    "ssd/ssd300_coco.py",
+    "solo/solo_r50_fpn_1x_coco.py",
+    "yolact/yolact_r50_1x8_coco.py",
 }
 REFUSAL = "the port builds only the ported slices' types"
 # refused at build for a fault of its own, with the config option that
@@ -149,14 +161,14 @@ def _build(rel, options=None):
 
 
 def test_the_sweep_counts_49_of_80():
-    """56 of the 80 build as given since RepPoints, CenterNet, CornerNet and
-    CentripetalNet (the name is the count's before GA-RetinaNet,
-    SABL-RetinaNet and NAS-FPN), NAS-FCOS with its neck's ``start_level``
-    set to 1, 23 are refused."""
+    """61 of the 80 build as given since YOLOF, YOLOX-S, SSD300, SOLO and
+    YOLACT (the name is the count's before GA-RetinaNet, SABL-RetinaNet and
+    NAS-FPN), NAS-FCOS with its neck's ``start_level`` set to 1, 18 are
+    refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 56
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 61
     assert set(STRIDE_REFUSED) <= set(ALL_CONFIGS) - PORTED
-    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 23
+    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 18
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -950,3 +962,186 @@ def test_chip_smoke_gives_centernet_data_and_a_warm_up():
     assert cfg.lr_config["warmup"] == "linear" and cfg.optimizer["lr"] == 0.00125
     lr = build_lr_schedule(cfg.lr_config, cfg.optimizer["lr"], 100)
     assert lr(0) < lr(1) < 5e-6
+
+
+FIFTH = {"yolof/yolof_r50_c5_8x8_1x_coco.py": ("YOLOF", "YOLOFHead"),
+         "yolox/yolox_s_8x8_300e_coco.py": ("YOLOX", "YOLOXHead"),
+         "ssd/ssd300_coco.py": ("SSD", "SSDHead"),
+         "solo/solo_r50_fpn_1x_coco.py": ("SOLO", "SOLOHead"),
+         "yolact/yolact_r50_1x8_coco.py": ("YOLACT", "YOLACTHead")}
+
+
+@pytest.mark.parametrize("rel", sorted(FIFTH))
+def test_fifth_configs_build_their_modules(rel):
+    """YOLOF, YOLOX-S, SSD300, SOLO and YOLACT at full width, 80 classes:
+    YOLOF's caffe R50 C5, its DilatedEncoder (4 blocks of 128 dilated by 2
+    to 8, live BNs) and its 5-anchor head with the implicit objectness;
+    YOLOX-S's CSPDarknet at 0.33 / 0.5 (the Focus stem's 12 inputs, 1 and 3
+    bottlenecks a stage, the SPP of stage 4), its PAFPN at 128 and the
+    decoupled head of 3 levels; SSD300's VGG-16 with its L2Norm, conv6
+    dilated by 6 and the 8 extra convs, 4 / 6 / 6 / 6 / 4 / 4 anchors of 81
+    softmax logits; SOLO's 7 GN convs a tower and 40^2 to 12^2 mask
+    channels; YOLACT's one shared head conv, 3 anchors of 32 coefficients
+    and its protonet."""
+    det = _build(rel)
+    kind, head_kind = FIFTH[rel]
+    head = det.bbox_head
+    assert type(det).__name__ == kind and type(head).__name__ == head_kind
+    if kind == "YOLOF":
+        assert det.backbone.out_indices == (3,)
+        blocks = det.neck.dilated_encoder_blocks
+        assert len(blocks) == 4 and [b.conv2.conv.dilation for b in blocks] == [(d, d) for d in
+                                                                             (2, 4, 6, 8)]
+        assert blocks[0].conv1.conv.weight.shape == (128, 512, 1, 1)
+        assert type(det.neck.lateral_norm).__name__ == "BatchNorm"
+        assert len(head.cls_subnet) == 2 and len(head.bbox_subnet) == 4
+        assert head.cls_score.weight.shape == (400, 512, 3, 3)
+        assert head.object_pred.weight.shape == (5, 512, 3, 3)
+        assert head.bbox_coder.add_ctr_clamp and head.bbox_coder.ctr_clamp == 32
+        assert (head.match_times, head.pos_ignore_thr, head.neg_ignore_thr) == (4, 0.15, 0.7)
+    if kind == "YOLOX":
+        bb = det.backbone
+        assert bb.stem.conv.conv.weight.shape == (32, 12, 3, 3)
+        assert [len(getattr(bb, f"stage{k}")[-1].blocks) for k in (1, 2, 3, 4)] == [1, 3, 3, 1]
+        assert type(bb.stage4[1]).__name__ == "SPPBottleneck"
+        assert bb.stage4[0].bn.eps == 1e-3 and bb.stage4[0].bn.momentum == 0.03
+        assert [m.conv.weight.shape[0] for m in det.neck.out_convs] == [128] * 3
+        assert len(head.multi_level_conv_cls) == 3
+        assert head.multi_level_conv_cls[0].weight.shape == (80, 128, 1, 1)
+        assert head.center_radius == 2.5
+    if kind == "SSD":
+        bb = det.backbone
+        assert bb.features[31].dilation == (6, 6) and bb.features[31].padding == (6, 6)
+        assert bb.l2_norm.weight.shape == (512,)
+        assert len(bb.extra) == 8 and bb.extra[7].padding == (0, 0)
+        assert [c.weight.shape[0] for c in head.cls_convs] == [a * 81 for a in (4, 6, 6, 6, 4, 4)]
+        assert head.assigner.gt_max_assign_all is False and head.neg_pos_ratio == 3
+    if kind == "SOLO":
+        assert len(head.cls_convs) == len(head.mask_convs) == 7
+        assert head.mask_convs[0].conv.weight.shape == (256, 258, 3, 3)
+        assert [c.weight.shape[0] for c in head.conv_mask_list] == [s * s for s in
+                                                                    (40, 36, 24, 16, 12)]
+        assert head.strides == (8, 8, 16, 32, 32)
+    if kind == "YOLACT":
+        assert len(head.head_convs) == 1 and head.conv_cls.weight.shape == (243, 256, 3, 3)
+        assert head.conv_coeff.weight.shape == (96, 256, 3, 3)
+        assert len(head.proto_convs) == 3 and head.proto_out.weight.shape == (32, 256, 1, 1)
+        assert head.segm_conv.weight.shape == (80, 256, 1, 1)
+
+
+@pytest.mark.parametrize("name", ["yolof", "yolox", "ssd", "solo", "yolact"])
+def test_mmdet_checkpoint_carries_the_fifth_modules(name, tmp_path):
+    """The five narrowed (``torch_onestage_cases.tiny_model``) under mmdet's
+    names (YOLOX's Focus stem weight in mmdet's channel order on file):
+    every tensor loaded, the models equal."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.models.backbones.csp_darknet import focus_mmdet_order
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = oc.tiny_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+        for k, v in src.state_dict().items():
+            if ".running_" in k:
+                v.add_(0.5)
+    sd = dict(src.state_dict())
+    if name == "yolox":
+        sd["backbone.stem.conv.conv.weight"] = focus_mmdet_order(sd["backbone.stem.conv.conv.weight"])
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": sd, "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"yolof": ["neck.dilated_encoder_blocks.3.conv2.bn.running_var",
+                      "neck.lateral_norm.weight", "bbox_head.bbox_subnet.3.conv.weight",
+                      "bbox_head.object_pred.bias"],
+            "yolox": ["backbone.stem.conv.conv.weight", "backbone.stage4.1.conv2.bn.running_mean",
+                      "neck.top_down_blocks.1.blocks.0.conv2.conv.weight",
+                      "bbox_head.multi_level_conv_obj.2.bias", "bbox_head.stems.0.bn.weight"],
+            "ssd": ["backbone.features.33.weight", "backbone.extra.7.bias",
+                    "backbone.l2_norm.weight", "bbox_head.cls_convs.5.weight"],
+            "solo": ["bbox_head.mask_convs.0.gn.weight", "bbox_head.conv_mask_list.4.bias",
+                     "bbox_head.conv_cls.weight"],
+            "yolact": ["bbox_head.head_convs.0.conv.weight", "bbox_head.conv_coeff.bias",
+                       "bbox_head.proto_convs.2.weight", "bbox_head.segm_conv.weight"]}[name]
+    assert set(want) <= set(report["loaded"])
+
+
+LACKS5 = {
+    "yolact_protonet": ("yolact", "mask_head.protonet.0.weight", "protonet"),
+    "yolact_segm_head": ("yolact", "segm_head.segm_conv.weight", "segm_head"),
+    "ssd_neck": ("ssd", "neck.l2_norm.weight", "SSDNeck"),
+    "yolof_conv_bias_missing": ("yolof", None, "lacks 6 of the model's tensors: "
+                                "bbox_head.bbox_subnet.0.conv.bias"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LACKS5))
+def test_mmdet_checkpoint_names_the_fifth_parts_one_side_lacks(case):
+    """mmdet's YOLACT keeps its protonet and semantic head as its own
+    ``mask_head`` and ``segm_head``, and its SSD (2.18 on) the L2Norm and the
+    extra convs in an ``SSDNeck``: a checkpoint with such a tensor raises
+    naming it (``MMDET_ONLY``); mmdet's YOLOF towers have no conv bias, the
+    JAX head's (and the port's) have, and a checkpoint without them raises
+    naming them (missing)."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    name, extra, match = LACKS5[case]
+    model = init_detector({"model": oc.tiny_model(name)}, device="cpu", seed=1).model
+    sd = dict(model.state_dict())
+    if extra is None:
+        sd = {k: v for k, v in sd.items() if not re.match(r"bbox_head\.\w+_subnet\.\d+\.conv\.bias", k)}
+    else:
+        sd[extra] = torch.zeros(4)
+    with pytest.raises(KeyError, match=match):
+        load_mmdet_checkpoint(model, {"state_dict": sd})
+
+
+@pytest.mark.parametrize("rel", ["yolox/yolox_s_8x8_300e_coco.py", "ssd/ssd300_coco.py"])
+def test_yolox_and_ssd_configs_name_no_data(rel):
+    """The reference-side fact: the repo's YOLOX-S and SSD300 configs have a
+    model and an optimizer but no ``data``, ``lr_config`` or ``runner``
+    (``chip_smoke.py`` gives them the Cityscapes base's data and warm-up,
+    ``DATA_BASE``; SSD's pipelines resized to its fixed 300x300)."""
+    cfg = load_config(osp.join(CFG_ROOT, rel))
+    assert cfg.get("model") and cfg.get("optimizer")
+    assert not any(cfg.get(k) for k in ("data", "lr_config", "runner"))
+
+
+@pytest.mark.parametrize("name", ["solo", "yolact"])
+def test_box_test_path_refuses_solo_and_yolact(name):
+    """JAX's ``run_test`` unpacks a test call as (dets, labels, valid): on
+    SOLO's (masks, labels, scores) it indexes with the float scores and
+    raises ``IndexError``, on YOLACT's four outputs the unpacking raises
+    ``ValueError``. The port's ``single_gpu_test`` and
+    ``inference_detector`` refuse both with a ``ValueError`` that says
+    why; ``DetectorHandle.test`` serves them."""
+    import torch
+    import torch_onestage_cases as oc
+    from oadg_tpu.apis.test import run_test as jax_run_test
+    from oadg_tpu_torch.apis import inference_detector, init_detector
+    from oadg_tpu_torch.apis.test import single_gpu_test
+    k, hw, c = 6, (16, 24), 8
+    outs = ((np.zeros((1, k, *hw), bool), np.zeros((1, k), np.int32), np.ones((1, k), np.float32))
+            if name == "solo" else
+            (np.zeros((1, k, 5), np.float32), np.zeros((1, k), np.int32), np.ones((1, k), bool),
+             np.zeros((1, k, 32), np.float32)))
+    batch = {"img": np.zeros((1, 64, 96, 3), np.float32)}
+    with pytest.raises(IndexError if name == "solo" else ValueError):
+        jax_run_test(lambda p, s, b: outs, None, None, [batch], c)
+    handle = init_detector({"model": oc.tiny_model(name)}, device="cpu", seed=0)
+    with pytest.raises(ValueError, match="cannot score it"):
+        single_gpu_test(dict(handle=handle, test_fn=lambda b: None, num_classes=c), [batch])
+    with pytest.raises(ValueError, match=f"{type(handle.model).__name__}'s test call returns"):
+        inference_detector(handle, np.zeros((64, 96, 3), np.uint8))
+    x = torch.zeros(1, 3, 64, 96)
+    res = handle.test({"img": x, "img_shape": torch.tensor([[64.0, 96.0]]),
+                       "scale_factor": torch.ones(1, 4)})
+    assert len(res) == (3 if name == "solo" else 4)

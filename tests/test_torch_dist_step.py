@@ -223,14 +223,22 @@ ANCHORS = dict(type="AnchorGenerator", octave_base_scale=4, scales_per_octave=1,
 # heads' pools' are.
 FEAT_HEADS = ("atss", "autoassign", "fcos", "fovea", "ga_retina", "gfl", "ld", "nas_fpn", "paa",
               "sabl_retina", "tood", "vfnet", "reppoints", "centernet", "cornernet",
-              "centripetalnet")
+              "centripetalnet", "yolof", "yolox", "ssd", "solo", "yolact")
+# YOLOF's head runs behind its DilatedEncoder (8 channels, 4 in its blocks),
+# both with live BNs (SyncBN here), on one stride-32 map; YOLOX's three
+# levels; SSD's six at SSD300's sizes; SOLO's and YOLACT's losses take the
+# images' seeded gt masks, YOLACT's mask loss is a mean over the global
+# batch's images
+NECKS = {"yolof": dict(type="DilatedEncoder", in_channels=8, out_channels=8,
+                       block_mid_channels=4)}
 # the maps a head takes where they are not five levels of 32x32 to 2x2:
 # CenterNet's one stride-8 map, the corner heads' two stacks at stride 4;
 # RepPoints' top level at 4x4 (on 2x2 its GNs after the DCNs hold 8 values
 # a group, and the DCN's gradient summed over 1 image instead of 2 moves
 # the features' gradient there by 8.5e-5 of its largest)
 FEAT_SIZES = {"centernet": (8,), "cornernet": (16, 16), "centripetalnet": (16, 16),
-              "reppoints": (32, 16, 8, 4, 4)}
+              "reppoints": (32, 16, 8, 4, 4), "yolof": (4,), "yolox": (8, 4, 2),
+              "ssd": (38, 19, 10, 5, 3, 1), "solo": (16, 8, 4, 2, 1), "yolact": (8, 4, 2, 1, 1)}
 # gts centred on points of GA's levels 0 and 1 (its loc and shape
 # positives are a gt's level's points inside its central fifth)
 # the features' gradients pass the head's convs and GNs, summed over 2 x 1
@@ -289,17 +297,22 @@ def _feat_head_inputs(name, rng):
     model = oc.tiny_model(name)
     cfg = dict(model["bbox_head"], in_channels=8, feat_channels=64, num_classes=3,
                train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"))
-    if name in ("cornernet", "centripetalnet"):
+    if name in ("cornernet", "centripetalnet", "yolof", "ssd"):
         del cfg["feat_channels"]
-    head = build_from_cfg(dict(cfg, num_views=1), HEADS, dict(device="cpu"))
+    if name == "ssd":
+        cfg["in_channels"] = (8,) * 6
+    spec = dict(cfg=cfg, views=1, neck=NECKS.get(name))
+    head = dc.dense_head(dict(spec, state=None))
     gen = torch.Generator().manual_seed(13)
     init_default_(head, gen)
     head.init_weights(gen)
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32))    # noqa: E731
     feats = [f(rng.normal(0, 1, (2, 8, s, s))) for s in FEAT_SIZES.get(name, (32, 16, 8, 4, 2))]
-    out = dict(cfg=cfg, views=1, images=2, state=head.state_dict(), feats=feats, gt=f(FEAT_GT),
+    out = dict(spec, images=2, state=head.state_dict(), feats=feats, gt=f(FEAT_GT),
                gt_valid=torch.from_numpy(FEAT_GT[..., 2] > 0),
                gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
+    if name in ("solo", "yolact"):
+        out["masks"] = f(oc.with_masks(dict(gt_labels=FEAT_GT[..., 0]), m0=16)["gt_masks"])
     if name == "ld":
         with torch.no_grad():
             out["soft"] = [f(rng.normal(0, 2, r.shape)) for r in head(feats)[1]]
@@ -699,13 +712,16 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
     weight mass, whose gradient reaches every rank. The same for
     ``FEAT_HEADS`` (FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox,
     LD, GA, SABL, RetinaSepBNHead, RepPoints, CenterNet, CornerNet's and
-    CentripetalNet's heads) run from features: each rank's forward and
+    CentripetalNet's heads; YOLOF's behind its DilatedEncoder, YOLOX's,
+    SSD's, SOLO's and YOLACT's) run from features: each rank's forward and
     loss, the features' gradients."""
     j = runs["job"]["dense_loss"][name]
     gts = (j["gt"], j["gt_valid"], j["gt_labels"])
     if "feats" in j:
         leaves = {"feats": [f.clone().requires_grad_(True) for f in j["feats"]]}
         extra = {"soft_targets": j["soft"]} if "soft" in j else {}
+        if "masks" in j:
+            extra["gt_masks"] = j["masks"]
         head = dc.dense_head(j)
         want = head.loss(head(leaves["feats"]), *gts, **extra)
     else:

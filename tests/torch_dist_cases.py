@@ -269,13 +269,35 @@ def task_retina_loss(job, rank, world):
                 cls=[c.grad for c in cls], reg=[r.grad for r in reg])
 
 
+class NeckHead(torch.nn.Module):
+    """A neck and a dense head as one head: ``forward`` is the head's on the
+    neck's maps, ``loss`` the head's."""
+
+    def __init__(self, neck, head):
+        super().__init__()
+        self.neck, self.head = neck, head
+
+    def init_weights(self, gen):
+        self.head.init_weights(gen)
+
+    def forward(self, feats):
+        return self.head(self.neck(feats))
+
+    def loss(self, *args, **kw):
+        return self.head.loss(*args, **kw)
+
+
 def dense_head(spec):
     """A dense head of ``spec`` (a ``dense_loss`` entry: its config, views
-    and seeded state) on the CPU."""
-    from oadg_tpu_torch.models import dense_heads  # noqa: F401  (registers the heads)
-    from oadg_tpu_torch.utils.registry import HEADS, build_from_cfg
+    and seeded state (None: as built); with a ``neck`` config, a
+    ``NeckHead``) on the CPU."""
+    from oadg_tpu_torch.models import dense_heads, necks  # noqa: F401  (registers them)
+    from oadg_tpu_torch.utils.registry import HEADS, NECKS, build_from_cfg
     head = build_from_cfg(dict(spec["cfg"], num_views=spec["views"]), HEADS, dict(device="cpu"))
-    head.load_state_dict(spec["state"], strict=True)
+    if spec.get("neck"):
+        head = NeckHead(build_from_cfg(dict(spec["neck"]), NECKS, dict(device="cpu")), head)
+    if spec["state"] is not None:
+        head.load_state_dict(spec["state"], strict=True)
     return head
 
 
@@ -293,6 +315,8 @@ def task_dense_loss(job, rank, world):
         if "feats" in j:
             feats = [f[rows].clone().requires_grad_(True) for f in j["feats"]]
             extra = {"soft_targets": [s[rows] for s in j["soft"]]} if "soft" in j else {}
+            if "masks" in j:
+                extra["gt_masks"] = j["masks"][rows]
             with sharded_batch():
                 head = dense_head(j)
                 losses = head.loss(head(feats), *gts, **extra)

@@ -2,13 +2,15 @@
 (``tests/test_torch_onestage_heads.py``, ``tests/test_torch_onestage_parts.py``,
 ``tests/test_torch_onestage_heads2.py``, ``tests/test_torch_onestage_parts2.py``,
 ``tests/test_torch_onestage_heads3.py``, ``tests/test_torch_onestage_parts3.py``,
-``tests/test_torch_onestage_heads4.py``, ``tests/test_torch_onestage_parts4.py``).
+``tests/test_torch_onestage_heads4.py``, ``tests/test_torch_onestage_parts4.py``,
+``tests/test_torch_onestage_heads5.py``, ``tests/test_torch_onestage_parts5.py``).
 
 ``tiny_model(name)``: the published config of each of the twenty one-stage
 configs (``FIRST``: the family's first seven; ``SECOND``: FoveaBox, FSAF,
 FreeAnchor, PISA-RetinaNet and LD; ``THIRD``: GA-RetinaNet, SABL-RetinaNet,
 NAS-FPN and NAS-FCOS; ``FOURTH``: RepPoints, CenterNet, CornerNet and
-CentripetalNet) with its backbone cut to ResNet-18 and
+CentripetalNet; ``FIFTH``: YOLOF, YOLOX-S, SSD300, SOLO and YOLACT) with its
+backbone cut to ResNet-18 and
 its neck and head to 16 channels (the R18-FPN-16 of
 ``tests/test_p2_zoo.py``), 8 classes; its losses, assigners, anchors and
 test settings kept; LD's teacher narrowed the same way; NAS-FPN's neck at
@@ -17,7 +19,14 @@ config's 0, ROADMAP C). CenterNet keeps its R18 (no neck; the head takes
 its 128 channels to 16); CornerNet and CentripetalNet take the narrowed
 Hourglass of ``tests/test_p2_backbones_necks.py:66-74`` (``HOURGLASS``: two
 levels of 8 and 16 channels, one block each, 8 output channels), which
-both share. The NAS necks max-pool their top levels: their
+both share. ``FIFTH``: YOLOF on R18's C5 (512 channels) with its
+DilatedEncoder at 16 channels (8 in its blocks) on ``YOLOF_HW`` (128x192,
+a 4x6 map); YOLOX-S's CSPDarknet at ``widen_factor`` 0.125 (8 to 128
+channels, the depths as published) and its PAFPN and head at 16; SSD300
+whole (no width knob) at 300x300, one image; SOLO with two GN convs a tower
+and the grids ``(12, 9, 8, 6, 4)`` of ``tests/test_p2_zoo.py:98-103``
+(each below P2's 16x24, so that the category resize shrinks every level);
+YOLACT with 8 prototypes. The NAS necks max-pool their top levels: their
 batches are ``NAS_HW`` (128x192), where P7 is 1x2. ``randomize`` fills
 a JAX variable tree (from ``jax.eval_shape``) with seeded numpy weights
 (LeCun-normal kernels, small biases, GN and the per-level scales near 1,
@@ -54,15 +63,24 @@ CONFIGS = {
     "cornernet": "configs/cornernet/cornernet_hourglass104_mstest_8x6_210e_coco.py",
     "centripetalnet":
         "configs/centripetalnet/centripetalnet_hourglass104_mstest_16x6_210e_coco.py",
+    "yolof": "configs/yolof/yolof_r50_c5_8x8_1x_coco.py",
+    "yolox": "configs/yolox/yolox_s_8x8_300e_coco.py",
+    "ssd": "configs/ssd/ssd300_coco.py",
+    "solo": "configs/solo/solo_r50_fpn_1x_coco.py",
+    "yolact": "configs/yolact/yolact_r50_1x8_coco.py",
 }
 FIRST = ("atss", "autoassign", "fcos", "gfl", "paa", "tood", "vfnet")
 SECOND = ("fovea", "free_anchor", "fsaf", "ld", "pisa_retina")
 THIRD = ("ga_retina", "nas_fcos", "nas_fpn", "sabl_retina")
 FOURTH = ("centernet", "centripetalnet", "cornernet", "reppoints")
+FIFTH = ("solo", "ssd", "yolact", "yolof", "yolox")
 HOURGLASS = dict(downsample_times=2, stage_channels=(8, 8, 16), stage_blocks=(1, 1, 1),
                  feat_channel=8)
 HW = (64, 96)
 NAS_HW = (128, 192)
+YOLOF_HW = (128, 192)
+SSD_HW = (300, 300)
+SOLO_GRIDS = (12, 9, 8, 6, 4)
 NUM_CLASSES = 8
 
 
@@ -73,6 +91,8 @@ def tiny_model(name):
     from oadg_tpu_torch.config import load_config
     cfg = load_config(osp.join(ROOT, CONFIGS[name]))
     m = cfg.model
+    if name in FIFTH:
+        return _plain(_fifth(name, m))
     if name in FOURTH and name != "reppoints":
         if name == "centernet":
             m.bbox_head.update(feat_channels=16)
@@ -98,6 +118,30 @@ def tiny_model(name):
     return _plain(m)
 
 
+def _fifth(name, m):
+    m.bbox_head.update(num_classes=NUM_CLASSES)
+    m.test_cfg.update(max_per_img=20)
+    if name == "ssd":
+        return m
+    if name == "yolox":
+        m.backbone.update(widen_factor=0.125)
+        m.neck.update(in_channels=[32, 64, 128], out_channels=16)
+        m.bbox_head.update(in_channels=16, feat_channels=16)
+        return m
+    m.backbone.update(depth=18, init_cfg=None)
+    if name == "yolof":
+        m.neck.update(in_channels=512, out_channels=16, block_mid_channels=8)
+        m.bbox_head.update(in_channels=16)
+        return m
+    m.neck.update(in_channels=[64, 128, 256, 512], out_channels=16)
+    m.bbox_head.update(in_channels=16, feat_channels=16)
+    if name == "solo":
+        m.bbox_head.update(stacked_convs=2, num_grids=list(SOLO_GRIDS))
+    else:
+        m.bbox_head.update(num_protos=8)
+    return m
+
+
 def _plain(obj):
     if isinstance(obj, dict):
         return {k: _plain(v) for k, v in obj.items()}
@@ -107,8 +151,8 @@ def _plain(obj):
 
 
 def batch(seed=4, n=2, g=4, hw=HW):
-    """``n`` images of ``hw`` with ``g`` seeded gts each (the last of image
-    1 padding), numpy, NHWC."""
+    """``n`` images of ``hw`` with ``g`` seeded gts each (the last of the
+    last image padding), numpy, NHWC."""
     rng = np.random.RandomState(seed)
     h, w = hw
     x1 = rng.uniform(0, w - 30, (n, g))
@@ -116,14 +160,26 @@ def batch(seed=4, n=2, g=4, hw=HW):
     gt = np.stack([x1, y1, np.minimum(x1 + rng.uniform(10, 50, (n, g)), w),
                    np.minimum(y1 + rng.uniform(10, 40, (n, g)), h)], -1).astype(np.float32)
     valid = np.ones((n, g), bool)
-    valid[1, -1] = False
-    gt[1, -1] = 0
+    valid[n - 1, -1] = False
+    gt[n - 1, -1] = 0
     labels = rng.randint(0, NUM_CLASSES, (n, g)).astype(np.int32)
-    labels[1, -1] = 0
+    labels[n - 1, -1] = 0
     return {"img": rng.normal(0, 1, (n, h, w, 3)).astype(np.float32),
             "gt_bboxes": gt, "gt_labels": labels, "gt_valid": valid,
             "img_shape": np.array([[h, w]] * n, np.float32),
             "scale_factor": np.ones((n, 4), np.float32)}
+
+
+def with_masks(b, seed=9, m0=28):
+    """``b`` with seeded box-cropped gt masks (N, G, m0, m0): a blob per gt
+    (values in [0, 1], most of them 0 or 1)."""
+    rng = np.random.RandomState(seed)
+    n, g = b["gt_labels"].shape
+    yy, xx = np.mgrid[0:m0, 0:m0] / (m0 - 1) - 0.5
+    r = rng.uniform(0.25, 0.5, (n, g, 1, 1))
+    cx, cy = (rng.uniform(-0.15, 0.15, (n, g, 1, 1)) for _ in range(2))
+    d = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+    return dict(b, gt_masks=np.clip((r - d) * 20, 0, 1).astype(np.float32))
 
 
 def randomize(variables, seed=2):
@@ -144,6 +200,8 @@ def randomize(variables, seed=2):
             return rng.uniform(0.8, 1.5, shape)
         if name in ("scale", "var"):
             return rng.uniform(0.8, 1.2, shape)
+        if name == "l2_norm_scale_p":
+            return rng.uniform(15, 25, shape)
         if name == "moment_transfer":
             return rng.normal(0, 0.1, shape)
         if name in ("bias", "mean"):
