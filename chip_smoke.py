@@ -286,9 +286,9 @@ non-zero exit code:
    (b) The OA-DG YOLOv3 step (2 x 2 fixed views of 256x256) without and
    with the group (SyncBN's arithmetic) within phase 7d's card limits. (c)
    ``tools/torch_dist_train.sh FLAGSHIP 1`` (``--launcher pytorch``) for
-   one epoch of 2 steps on 4 of phase 7b's PNGs with an evaluation on the
-   tools' val set (the first ``TOOL_VAL_IMAGES`` = 4 of 5b's 16, as in 7b
-   and 7d), then ``tools/torch_dist_test.sh`` of its checkpoint over them,
+   one epoch of 1 step on 2 of phase 7b's PNGs with an evaluation on the
+   first ``DIST_VAL_IMAGES`` = 2 of the tools' val set, then
+   ``tools/torch_dist_test.sh`` of its checkpoint over them,
    whose pickle must equal ``single_gpu_test``'s in this process; a script
    that exits non-zero fails the phase.
 8b. longtail: the long tail's first eight configs, each at its config's
@@ -372,6 +372,23 @@ non-zero exit code:
    CornerNet and CentripetalNet decode without NMS (a top 100, none
    recorded); their heatmaps start at mmdet's 0.1 prior, RepPoints' classes
    at 0.01.
+8f. transformer: DETR, Deformable DETR (ChannelMapper's 3 levels, the
+   multi-scale deformable attention on ``F.grid_sample``) and PanopticFPN
+   (``TRANSFORMER``) at their configs' full width with seeded weights on
+   the Cityscapes base's 1024x2048 canvas (DETR's config names no data:
+   the base's, ``DATA_BASE``), per dtype ``longtail_serve`` (the f32 model
+   against the CPU on a 256x384 request, PanopticFPN's stuff probabilities
+   within 1e-4) and ``longtail_train`` (a warm-up and two steps on one
+   image; DETR with its config's AdamW, Deformable DETR's classifiers at
+   the 0.01 prior; every loss finite float32; the backbone's frozen
+   tensors unchanged). PanopticFPN trains with mmdet's 14x14 mask RoI
+   layer (its config names none and cannot train as given) on the image,
+   box-cropped thing masks and label map that ``LoadPanopticAnnotations``
+   reads from a 2-image ``CocoPanopticDataset`` written here
+   (``write_panoptic``). B1's and B2's counts are set to 0 just before
+   each request and step pair and read just after: none in the DETRs',
+   PanopticFPN's as ``path_launches`` says; its third step and a second
+   request hold every B1 and B2 call to the plain versions in place.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
@@ -441,7 +458,8 @@ and the semantic rows' plain times, the same way;
 ``python3 chip_smoke.py --only twostage2`` runs phases 1, 2, 3, 3c, 3f, 8d
 and the Sparse cases' plain times, the same way;
 ``python3 chip_smoke.py --only onestage`` runs phases 1, 2, 3 and 8e the
-same way.
+same way; ``python3 chip_smoke.py --only transformer`` phases 1, 2, 3, 3c and
+``transformer`` (DETR, Deformable DETR and PanopticFPN).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -5278,6 +5296,7 @@ ONESTAGE_CLASSIFIERS = ("retina_cls", "conv_cls", "atss_cls", "gfl_cls", "vfnet_
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 HEAT_PRIOR_BIAS = -math.log((1 - 0.1) / 0.1)     # mmdet's CenterNet and corner heatmaps
 SOFTMAX_HEADS = ("SSDHead", "YOLACTHead")         # their classifier: ``softmax_classifier``
+DETR_HEADS = ("DETRHead", "DeformableDETRHead")
 CORNER_SHIFT = math.log(5.0)                      # a served CentripetalNet's log shift, cells
 
 
@@ -5286,6 +5305,8 @@ def classifier_biases(head):
     CenterNet's heatmap conv's, or each stack's two corner heatmap convs'."""
     if hasattr(head, "heatmap_head"):
         return [head.heatmap_head[2].bias]
+    if hasattr(head, "cls_branches"):                         # Deformable DETR: one a layer
+        return [c.bias for c in head.cls_branches]
     if hasattr(head, "tl_heat"):
         return [branch[1].conv.bias for branch in (*head.tl_heat, *head.br_heat)]
     if hasattr(head, "multi_level_conv_cls"):                 # YOLOX: class and objectness
@@ -5303,7 +5324,7 @@ def classifier_prior(model):
     start there already, GA's and SABL's at 0. -> the classifier biases."""
     import torch
     head = model.bbox_head
-    if type(head).__name__ in SOFTMAX_HEADS:       # softmax: mmdet's bias is 0 too
+    if type(head).__name__ in SOFTMAX_HEADS + ("DETRHead",):   # softmax: mmdet's bias is 0 too
         return []
     biases = classifier_biases(head)
     heat = hasattr(head, "heatmap_head") or hasattr(head, "tl_heat")
@@ -5345,6 +5366,8 @@ def widen_classifier(model, seed=50):
                 w.copy_(torch.randn(w.shape, generator=gen) * 0.1)
         elif type(model.bbox_head).__name__ in SOFTMAX_HEADS:
             softmax_classifier(model.bbox_head, gen)
+        elif type(model.bbox_head).__name__ in DETR_HEADS:
+            pass           # their test calls keep the top queries: no score threshold
         else:
             biases = classifier_prior(model)
             if hasattr(model.bbox_head, "multi_level_conv_obj"):      # YOLOX
@@ -5536,7 +5559,8 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     ``candidates_above``), and the card against the same seeded model on
     the CPU on a 256x384 request (SSD's resized to 300x300 by its
     pipeline; f32; detections matched, SOLO's masks by ``_match_masks``;
-    the two-stage models on 100 proposals there). ``cfg`` is the config to
+    the two-stage models on 100 proposals there; the CPU model takes the
+    card model's weights). ``cfg`` is the config to
     build (``longtail_cfg(path)`` when None); the request must launch B1 and
     B2 as ``path_launches(family, False)`` says."""
     import copy
@@ -5587,9 +5611,12 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         raise AssertionError(f"{phase} {family} {name}: bad request {shapes} (want {want})")
     _count_shape_launches(rows, shapes, f"launches_{phase}_{family}"
                           + ("" if name == "f32" else "_bf16"))
-    if name == "f32":
-        cpu = init_detector(cfg, device="cpu", seed=0)
-        widen_classifier(cpu.model)
+    if name == "f32":        # the card's weights on the CPU: drawing them again costs ~1 s
+        from oadg_tpu_torch.apis.inference import DetectorHandle
+        from oadg_tpu_torch.models import build_detector
+        cpu_model = build_detector(dict(cfg.model), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in handle.model.state_dict().items()})
+        cpu = DetectorHandle(cpu_model.eval(), cfg, torch.device("cpu"))
         small = copy.deepcopy(cfg)
         small.merge_from_dict({"data.test.pipeline.1.img_scale": (384, 256)})
         bc = serve_batch(family, cpu, img[:256, :384], small)
@@ -5608,6 +5635,13 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         finally:
             for c, k in zip(rpn_cfgs, kept):
                 c["max_per_img"] = k
+        if family == "panoptic_fpn":                 # the stuff probabilities, then the boxes
+            (dg, pg), (dc, pc) = dg, dc
+            stuff_err = float((pg.cpu() - pc).abs().max())
+            if stuff_err > 1e-4:
+                raise AssertionError(f"{phase} {family}: stuff probabilities card vs CPU "
+                                     f"{stuff_err}")
+            log(phase, f"{family} f32: stuff probabilities card vs CPU within {stuff_err:.3e}")
         if family == "solo":
             matched, what = _match_masks(dg, dc, 1e-4, float(head.test_cfg.get("mask_thr", 0.5)))
             counts = (int((dg[2] > 0).sum()), int((dc[2] > 0).sum()))
@@ -5633,7 +5667,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
 
 
 def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", masks=False,
-                   prepare=None, probe=None, unpad=False):
+                   prepare=None, probe=None, unpad=False, batch=None, warmup_batch=None):
     """Two training steps (``make_train_step``, SGD at the config's LR, no
     OA-Mix) on ``samples_per_gpu`` images of ``hw`` through the test
     pipeline with seeded gts: losses finite float32, B1 and B2 once a step
@@ -5647,19 +5681,24 @@ def longtail_train(rows, family, path, hw, name, cfg=None, phase="longtail", mas
     every call held to the plain versions in place (``IN_PLACE_CALLS``).
     ``probe(model, batch)``, where given, runs after the steps and its dict
     joins the result (LD's ``teacher_ms``). ``unpad`` cuts the batch's
-    images to SSD's 300x300 (``unpadded``)."""
+    images to SSD's 300x300 (``unpadded``). ``batch``, where given, is the
+    steps' batch (PanopticFPN's from its loader); a step on ``warmup_batch``,
+    where given, runs before the counted two."""
     import torch
     cfg = longtail_cfg(path) if cfg is None else cfg
     n = cfg.data.samples_per_gpu
     model, step = build_trainer("cuda", cfg, dtype=torch_dtype(name))
     if prepare is not None:
         prepare(model)
-    batch = longtail_batch(cfg, hw, n, 52)
+    if batch is None:
+        batch = longtail_batch(cfg, hw, n, 52)
     if unpad:
         batch = unpadded(batch)
     if masks:
         batch["gt_masks"] = polygon_gt_masks(batch["gt_bboxes"], batch["img_shape"], 53)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if warmup_batch is not None:
+        step(warmup_batch, gen)
     seen, restore = _record_giou_inputs() if family == "giou" else ([], lambda: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5991,12 +6030,12 @@ def path_launches(family, train):
     False) or two steps (of ``samples_per_gpu`` images) of a long-tail or
     two-stage family make: 7x7 on the pyramid once a box stage (three in a
     cascade, six in Sparse R-CNN; none in RetinaNet and the one-stage
-    family; C4's 14x14 on one level
+    family and the DETRs; C4's 14x14 on one level
     instead); with masks 14x14 on the pyramid once a mask stage (PointRend's
     request too: Mask R-CNN's test path), Grid R-CNN's grid branch the same
     in training, and for HTC and SCNet 14x14 on the semantic embedding's one
     level once a mask stage; B2 as B1 in training, never in a request."""
-    if family == "retinanet" or family in ONESTAGE_NAMES:
+    if family == "retinanet" or family in ONESTAGE_NAMES or family in DETRS:
         per = {}
     elif family == "c4":
         per = {(MASK_BINS, 1): 1}
@@ -6008,7 +6047,7 @@ def path_launches(family, train):
         per[(MASK_BINS, 4)] = 1
     if not train:
         return {"roi_align_fwd": per, "roi_align_bwd": {}}
-    if family in WITH_MASKS + ("grid",):              # the mask or the grid branch
+    if family in WITH_MASKS + ("grid", "panoptic_fpn"):    # the mask or the grid branch
         per[(MASK_BINS, 4)] = per[(7, 4)]
     if family in SEMANTIC:
         per[(MASK_BINS, 1)] = per[(7, 4)]
@@ -6020,11 +6059,12 @@ def path_launches(family, train):
 # sampled rois; one HTC image's 512 sampled rois a box stage and 128 mask
 # slots a mask stage, on the pyramid and on the semantic level; Sparse
 # R-CNN's 100 proposals a stage; Grid R-CNN's 512 sampled rois and 128 grid
-# slots at 14x14.
+# slots at 14x14; PanopticFPN's 512 sampled rois and 128 mask slots.
 IN_PLACE_CALLS = {"c4": [C4_SAMPLED],
                   "htc": [TRAIN_ROIS] * 3 + [MASK_SLOTS] * 6,
                   "sparse": [100] * 6,
-                  "grid": [TRAIN_ROIS, MASK_SLOTS]}
+                  "grid": [TRAIN_ROIS, MASK_SLOTS],
+                  "panoptic_fpn": [TRAIN_ROIS, MASK_SLOTS]}
 
 
 def polygon_gt_masks(gt, img_shape, seed, m0=56):
@@ -6122,7 +6162,8 @@ def phase_twostage(rows):
 DIST_STEPS = 2                  # timed steps a side, after one warm-up step
 DIST_STAGES = STAGES[:5] + ("train_step: backward", "train_step: allreduce",
                             "train_step: sgd")
-DIST_TRAIN_IMAGES = 4           # the launch script's run: 2 steps of 2 images, one epoch
+DIST_TRAIN_IMAGES = 2           # the launch script's run: 1 step of 2 images, one epoch
+DIST_VAL_IMAGES = 2             # its evaluation's and the test script's images
 DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -6330,10 +6371,11 @@ def dist_yolo():
 
 def dist_tools(val, train):
     """8c: ``tools/torch_dist_train.sh FLAGSHIP 1 --launcher pytorch`` (f32)
-    on ``DIST_TRAIN_IMAGES`` of phase 7b's PNGs: one epoch of 2 steps and an
-    evaluation on the tools' val set; then ``tools/torch_dist_test.sh`` of
-    its checkpoint over those ``TOOL_VAL_IMAGES`` PNGs with ``--out``, whose pickle must
-    equal this process's ``single_gpu_test`` of the same checkpoint."""
+    on ``DIST_TRAIN_IMAGES`` of phase 7b's PNGs: one epoch of 1 step and an
+    evaluation on the first ``DIST_VAL_IMAGES`` of the tools' val set; then
+    ``tools/torch_dist_test.sh`` of its checkpoint over those PNGs with
+    ``--out``, whose pickle must equal this process's ``single_gpu_test`` of
+    the same checkpoint."""
     import os
     import pickle
     import tempfile
@@ -6343,6 +6385,7 @@ def dist_tools(val, train):
     tmp = tempfile.TemporaryDirectory()
     try:
         ann = _subset_json(train[0], DIST_TRAIN_IMAGES, os.path.join(tmp.name, "train.json"))
+        val = (_subset_json(val[0], DIST_VAL_IMAGES, os.path.join(tmp.name, "val.json")), val[1])
         work = os.path.join(tmp.name, "work")
         env = dict(os.environ, PYTHON=sys.executable, PORT=str(free_port()))
         for k in DIST_ENV:
@@ -6366,7 +6409,7 @@ def dist_tools(val, train):
         log("dist", f"tools/torch_dist_train.sh (1 process, NCCL) exit 0 in {train_s:.2f} s: "
                     f"log.json modes {modes}, losses "
                     f"{[round(ln['loss'], 5) for ln in lines if ln['mode'] == 'train']}")
-        if modes != ["train", "train", "val"] or not os.path.exists(ckpt) or \
+        if modes != ["train", "val"] or not os.path.exists(ckpt) or \
                 not all(math.isfinite(ln["loss"]) for ln in lines if ln["mode"] == "train"):
             raise AssertionError(f"the launch script's run logged {modes}")
         out = os.path.join(tmp.name, "dist.pkl")
@@ -6393,7 +6436,7 @@ def dist_tools(val, train):
                     f"results, {n_dets} detections; against single_gpu_test in this process: "
                     f"{'bit-equal' if bits else 'not bit-equal'}; "
                     + (res.stdout.strip().splitlines() or ["(no output)"])[-1][:200])
-        if len(got) != TOOL_VAL_IMAGES or not bits:
+        if len(got) != DIST_VAL_IMAGES or not bits:
             raise AssertionError("the launch script's test pickle differs from single_gpu_test")
         torch.cuda.empty_cache()
         return dict(train_s=train_s, test_s=test_s)
@@ -6484,7 +6527,7 @@ HOURGLASS = ("cornernet", "centripetalnet")
 # on one image moves the heatmap bias by ~10 and the second step's losses
 # read up to 1.5e16)
 DATA_BASE = {f: "configs/_base_/datasets/cityscapes_detection.py"
-             for f in ("centernet", "yolox", "ssd")}
+             for f in ("centernet", "yolox", "ssd", "detr")}
 # SSD's anchors are fixed to its 300x300 input: the Cityscapes base's
 # pipelines resize to it with keep_ratio=False, as mmdet's ssd300_coco.py's
 # do (a fix of this run; the repo's SSD config names no data)
@@ -6586,9 +6629,17 @@ def served_outputs(family, head, res, k):
     """A test call's outputs -> (their shapes, dtypes and values as they
     should be for ``k`` rows an image, the valid rows, the labels): SOLO's
     (masks, labels, scores), YOLACT's (dets, labels, valid, coefficients),
-    the others' (dets, labels, valid)."""
+    PanopticFPN's ((dets, labels, valid), stuff probabilities at stride 8
+    summing to 1), the others' (dets, labels, valid)."""
     import torch
     from oadg_tpu_torch.apis.test import fetch_dets
+    if family == "panoptic_fpn":                  # ((dets, labels, valid), stuff probabilities)
+        res, probs = res
+        ok = (probs.dim() == 4 and probs.shape[:3] == (1, IMG_H // 8, IMG_W // 8)
+              and bool(torch.isfinite(probs).all())
+              and float((probs.float().sum(-1) - 1).abs().max()) < 1e-2)
+        dets, labels, valid = fetch_dets(*res)
+        return ok and dets.shape == (1, k, 5) and np.isfinite(dets).all(), valid, labels
     if family == "solo":
         masks, labels, scores = res
         ok = (masks.shape[:2] == (1, k) and masks.dtype == torch.bool
@@ -6744,6 +6795,227 @@ def phase_onestage(rows):
     return out
 
 
+# ---------------------------------------------------------- transformer ----
+# DETR, Deformable DETR and PanopticFPN on the Cityscapes dataset base
+# (1024x2048, one image a step, their classes as published). DETR's config
+# names no data: it takes the base's, as CenterNet's does (``DATA_BASE``).
+# PanopticFPN trains with mmdet's 14x14 mask RoI layer (its config names
+# none: the box layer's 7x7 gives 14x14 logits against 28x28 targets, and
+# both packages' steps raise; ROADMAP C) and with the gt masks and label map
+# that ``LoadPanopticAnnotations`` reads from a ``CocoPanopticDataset``
+# written here.
+TRANSFORMER = (
+    ("detr", "configs/detr/detr_r50_8x2_150e_coco.py"),
+    ("deformable_detr", "configs/deformable_detr/deformable_detr_r50_16x2_50e_coco.py"),
+    ("panoptic_fpn", "configs/panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py"),
+)
+DETRS = ("detr", "deformable_detr")
+PANOPTIC_IMAGES = 2
+PANOPTIC_THINGS = 12         # thing segments an image
+PANOPTIC_STUFF = (101, 102, 103, 104)     # stuff category ids: 4 bands an image
+
+
+def transformer_cfg(family, path):
+    """``onestage_cfg`` (the base's data where the config has none) with
+    mmdet's 14x14 mask RoI layer for PanopticFPN."""
+    cfg = onestage_cfg(family, path)
+    if family == "panoptic_fpn":
+        cfg.merge_from_dict({"model.roi_head.mask_roi_extractor": dict(MASK_ROI_EXTRACTOR)})
+    return cfg
+
+
+def write_panoptic(root, seed=0):
+    """``PANOPTIC_IMAGES`` 1024x2048 PNGs and their COCO-panoptic PNG id maps
+    (``PANOPTIC_THINGS`` rectangles of the 8 Cityscapes thing classes over 4
+    stuff bands, a void strip), written by the port's encoder, and the json
+    -> (ann_file, img_prefix, seg_prefix)."""
+    import json
+    import os
+    from oadg_tpu_torch.core.evaluation.panoptic_eval import id2rgb
+    from oadg_tpu_torch.data.pipelines.image_io import imwrite
+    rng = np.random.RandomState(seed)
+    img_dir, pan_dir = os.path.join(root, "images"), os.path.join(root, "panoptic")
+    os.makedirs(img_dir)
+    os.makedirs(pan_dir)
+    images, anns = [], []
+    for i in range(PANOPTIC_IMAGES):
+        imwrite(os.path.join(img_dir, f"pan_{i}.png"),
+                rng.randint(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8))
+        id_map = np.zeros((IMG_H, IMG_W), np.uint32)
+        segs = []
+        band = IMG_H // len(PANOPTIC_STUFF)
+        for k, cat in enumerate(PANOPTIC_STUFF):
+            sid = 1000 + k
+            id_map[k * band:(k + 1) * band] = sid
+            segs.append(dict(id=sid, category_id=cat, bbox=[0, k * band, IMG_W, band],
+                             iscrowd=0))
+        id_map[:, :64] = 0                                          # void
+        for j in range(PANOPTIC_THINGS):
+            bw, bh = rng.randint(48, IMG_W // 5), rng.randint(48, IMG_H // 3)
+            x, y = rng.randint(64, IMG_W - bw), rng.randint(0, IMG_H - bh)
+            sid = 2000 + j
+            id_map[y:y + bh, x:x + bw] = sid
+            segs.append(dict(id=sid, category_id=int(rng.choice(CITYSCAPES_CATS)),
+                             bbox=[x, y, bw, bh], iscrowd=0))
+        segs = [s for s in segs if (id_map == s["id"]).any()]
+        for s in segs:               # the boxes of what later things left visible
+            ys, xs = np.nonzero(id_map == s["id"])
+            s["bbox"] = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                         int(ys.max() - ys.min() + 1)]
+        imwrite(os.path.join(pan_dir, f"pan_{i}.png"), id2rgb(id_map)[..., ::-1])
+        images.append(dict(id=i, file_name=f"pan_{i}.png", width=IMG_W, height=IMG_H))
+        anns.append(dict(image_id=i, file_name=f"pan_{i}.png", segments_info=segs))
+    names = ("person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle")
+    cats = ([dict(id=c, name=n, isthing=1) for c, n in zip(CITYSCAPES_CATS, names)]
+            + [dict(id=c, name=f"stuff{c}", isthing=0) for c in PANOPTIC_STUFF])
+    ann_file = os.path.join(root, "panoptic.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=cats), f)
+    return ann_file, img_dir, pan_dir
+
+
+def panoptic_batches(cfg, root):
+    """The written dataset through ``CocoPanopticDataset`` with
+    ``LoadImageFromFile`` and ``LoadPanopticAnnotations`` -> one training
+    batch an image on the card: the image normalized and padded
+    (``prepare_image``), the thing boxes and labels, their full-image masks
+    cropped to their boxes at 56x56 (``BitmapMasks.to_box_cropped``, the
+    port's mask layout), the label map ``gt_semantic_seg``; each checked
+    against the written id map."""
+    import torch
+    from oadg_tpu_torch.apis import prepare_image
+    from oadg_tpu_torch.core.mask.structures import BitmapMasks
+    from oadg_tpu_torch.data import build_dataset
+    ann_file, img_dir, pan_dir = write_panoptic(root)
+    ds = build_dataset(dict(type="CocoPanopticDataset", ann_file=ann_file, img_prefix=img_dir,
+                            seg_prefix=pan_dir,
+                            pipeline=[dict(type="LoadImageFromFile"),
+                                      dict(type="LoadPanopticAnnotations")]))
+    batches = []
+    for i in range(len(ds)):
+        s = ds[i]
+        g = len(s["gt_bboxes"])
+        sem = s["gt_semantic_seg"]
+        if not (g and s["gt_masks"].shape == (g, IMG_H, IMG_W) and (sem[:, :64] == 255).all()
+                and set(np.unique(sem[:, 64:])) <= set(range(len(ds.CLASSES)))):
+            raise AssertionError(f"the panoptic loader's sample {i}: {g} things, "
+                                 f"masks {s['gt_masks'].shape}")
+        b = prepare_image(s["img"], cfg, "cuda")
+        masks = BitmapMasks(list(s["gt_masks"]), IMG_H, IMG_W).to_box_cropped(s["gt_bboxes"], m0=56)
+        b.update(gt_bboxes=torch.from_numpy(s["gt_bboxes"])[None].cuda(),
+                 gt_labels=torch.from_numpy(s["gt_labels"].astype(np.int32))[None].cuda(),
+                 gt_valid=torch.ones((1, g), dtype=torch.bool, device="cuda"),
+                 gt_masks=torch.from_numpy(np.asarray(masks, np.float32))[None].cuda(),
+                 gt_semantic_seg=torch.from_numpy(sem)[None].cuda())
+        b["img"] = b["img"].contiguous(memory_format=torch.channels_last)
+        batches.append(b)
+    log("transformer", f"panoptic_fpn: CocoPanopticDataset of {len(ds)} images through "
+                       f"LoadPanopticAnnotations: {[int(b['gt_valid'].sum()) for b in batches]} "
+                       f"things, label maps of {len(ds.CLASSES)} classes and void")
+    return batches
+
+
+def frozen_watch(prepare=None):
+    """-> (a ``prepare`` that keeps the backbone's frozen parameters and
+    statistics after ``prepare``'s own, a ``probe`` that fails if one moved
+    in the steps and returns their count)."""
+    import torch
+    kept = {}
+
+    def before(model):
+        if prepare is not None:
+            prepare(model)
+        grads = dict(model.backbone.named_parameters())
+        kept.update({k: v.detach().clone() for k, v in model.backbone.state_dict().items()
+                     if k not in grads or not grads[k].requires_grad})
+
+    def after(model, batch):
+        now = model.backbone.state_dict()
+        moved = [k for k, v in kept.items() if not torch.equal(now[k], v)]
+        if moved or not any(k.startswith("layer1.") for k in kept):
+            raise AssertionError(f"frozen backbone tensors moved: {moved[:4]}")
+        return {"frozen_still": len(kept)}
+
+    return before, after
+
+
+def checked_request(family, name, cfg):
+    """PanopticFPN's request once more with B1's every call held to its plain
+    version in place (its 1,000 proposals at 7x7)."""
+    import torch
+    from oadg_tpu_torch.apis import init_detector
+    handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
+    img = np.random.RandomState(51).randint(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8)
+    checks, restore = _checked_roi_align()
+    try:
+        handle.test(serve_batch(family, handle, img, handle.cfg))
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    _report_checks("transformer", f"{family} {name} request", checks,
+                   {"roi_align_fwd": [NUM_ROIS], "roi_align_bwd": []})
+    del handle
+    torch.cuda.empty_cache()
+
+
+def phase_transformer(rows):
+    """transformer: each config of ``TRANSFORMER`` per dtype at its full
+    width with seeded weights: a request of a 1024x2048 image (the f32 model
+    against the CPU on a 256x384 request, PanopticFPN's stuff probabilities
+    too), a warm-up step and two timed training steps on one image (DETR
+    with its config's AdamW; Deformable DETR's classifiers from the 0.01
+    prior, ``classifier_prior``; PanopticFPN's image, masks and label map from
+    ``panoptic_batches``), every loss finite float32, the backbone's frozen
+    stages still; B1's and B2's counts set to 0 just before each request and
+    step pair and read just after: none in the DETRs', PanopticFPN's as
+    ``path_launches`` says, and its third step and second request hold every
+    call to the plain versions in place. -> numbers."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for family, path in TRANSFORMER:
+            cfg = transformer_cfg(family, path)
+            batches = panoptic_batches(cfg, tmp.name) if family == "panoptic_fpn" else None
+            for name in DTYPES:
+                prepare, probe = frozen_watch(classifier_prior if family in DETRS else None)
+                steps = batches or [longtail_batch(cfg, (IMG_H, IMG_W),
+                                                   cfg.data.samples_per_gpu, 52)] * 2
+                res = out[f"{family}_{name}"] = dict(
+                    serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                         phase="transformer"),
+                    train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                         phase="transformer", prepare=prepare, probe=probe,
+                                         batch=steps[0], warmup_batch=steps[1]))
+                del steps
+                losses = res["train"]["losses"]
+                if family == "panoptic_fpn":
+                    checked_request(family, name, cfg)
+                    seg_mask = [k for k in losses if k == "loss_semantic_seg"
+                                or k.endswith("loss_mask")]
+                    if len(seg_mask) < 2 or not all(losses[k] > 0 for k in seg_mask):
+                        raise AssertionError(f"panoptic_fpn {name}: the step's semantic and "
+                                             f"mask losses {seg_mask} not all > 0: {losses}")
+                log("transformer", f"{family} {name}: request {res['serve']['request_ms']:.3f} ms "
+                                   f"(peak {res['serve']['peak_gib']:.2f} GiB), steps after a "
+                                   f"warm-up {[round(t, 3) for t in res['train']['step_ms']]} ms "
+                                   f"(peak {res['train']['peak_gib']:.2f} GiB), {len(losses)} "
+                                   f"losses finite"
+                                   f"{' (loss_semantic_seg and loss_mask > 0)' if family == 'panoptic_fpn' else ''}, "
+                                   f"{res['train']['frozen_still']} frozen "
+                                   f"backbone tensors still, B1 and B2 launches "
+                                   f"{'0' if family in DETRS else 'as path_launches'} "
+                                   f"({nvidia_smi_line()})")
+                torch.cuda.empty_cache()
+            del batches
+    finally:
+        tmp.cleanup()
+    log("transformer", f"phase transformer: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 PHASE_SECONDS = {}
 
 
@@ -6790,6 +7062,13 @@ def main():
         rows = timed("kernels", phase_kernels)
         onestage = timed("onestage", phase_onestage, rows)
         log("onestage", f"summary ({nvidia_smi_line()}): {json.dumps(onestage)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "transformer"]:   # DETR, Deformable DETR, PanopticFPN alone
+        rows = timed("kernels", phase_kernels)
+        rows += timed("mask-kernels", phase_mask_kernels)
+        transformer = timed("transformer", phase_transformer, rows)
+        log("transformer", f"summary ({nvidia_smi_line()}): {json.dumps(transformer)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if sys.argv[1:] == ["--only", "twostage"]:   # the two-stage family alone: no result line
@@ -6842,6 +7121,7 @@ def main():
     twostage = timed("twostage", phase_twostage, rows)
     twostage2 = timed("twostage2", phase_twostage2, rows)
     onestage = timed("onestage", phase_onestage, rows)
+    transformer = timed("transformer", phase_transformer, rows)
 
     for _, profile in trains.values():
         timed("profile-train", profile)
@@ -6868,6 +7148,7 @@ def main():
     log("twostage", f"summary ({nvidia_smi_line()}): {json.dumps(twostage)}")
     log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
     log("onestage", f"summary ({nvidia_smi_line()}): {json.dumps(onestage)}")
+    log("transformer", f"summary ({nvidia_smi_line()}): {json.dumps(transformer)}")
     for name in DTYPES:
         timed("train-reference", phase_train_reference, name)
         timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")

@@ -46,8 +46,9 @@ class DetectorHandle:
         probabilities at its class in its box (``paste_masks`` draws them
         into the image). SOLO returns masks (N, max_per_img, H, W) bool at
         its level-0 mask size, labels and scores, YOLACT dets, labels, valid
-        and each detection's prototype coefficients, as the JAX detectors
-        do."""
+        and each detection's prototype coefficients, PanopticFPN the pair
+        ``((dets, labels, valid), stuff probabilities (N, h, w, K))``, as
+        the JAX detectors do."""
         with torch.inference_mode():
             return self.model.simple_test(batch)
 
@@ -184,7 +185,7 @@ def prepare_batch(model: DetectorHandle, img, pipeline=None) -> dict:
 
 def inference_detector(model: DetectorHandle, imgs) -> list:
     """Detect on image file(s) or array(s) -> per-class (n, 5) arrays per
-    image (one image in, one result out); SOLO and YOLACT raise
+    image (one image in, one result out); SOLO, YOLACT and PanopticFPN raise
     (``refuse_instance_outputs``)."""
     from .test import dets_to_results, fetch_dets, refuse_instance_outputs
     refuse_instance_outputs(model.model)

@@ -42,11 +42,14 @@ def fetch_dets(dets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
 
 
 def refuse_instance_outputs(model) -> None:
-    """Raise ``ValueError`` for SOLO and YOLACT: their test call returns
-    masks, labels and scores (SOLO) or four outputs (YOLACT), which the box
-    results of ``run_test`` cannot hold. The JAX package's ``run_test`` and
-    ``inference_detector`` unpack three outputs as boxes: they read SOLO's
-    masks as boxes and raise on YOLACT's four; it has no ``segm`` metric."""
+    """Raise ``ValueError`` for SOLO, YOLACT and PanopticFPN: their test
+    call returns masks, labels and scores (SOLO), four outputs (YOLACT) or
+    a pair of the boxes and the stuff probabilities (PanopticFPN), which
+    the box results of ``run_test`` cannot hold. The JAX package's
+    ``run_test`` and ``inference_detector`` unpack three outputs as boxes:
+    they read SOLO's masks as boxes and raise on YOLACT's four and on
+    PanopticFPN's two (``oadg_tpu/apis/test.py:57``); it has no ``segm`` or
+    PQ test path."""
     what = getattr(model, "instance_outputs", "")
     if what:
         raise ValueError(f"{type(model).__name__}'s test call returns {what}, not boxes: "

@@ -2,12 +2,13 @@
 registers them."""
 from .formatting import (Collect, Compose, DefaultFormatBundle, ImageToTensor,
                          MultiScaleFlipAug)
-from .loading import LoadAnnotations, LoadImageFromFile, LoadImageFromWebcam
+from .loading import (LoadAnnotations, LoadImageFromFile, LoadImageFromWebcam,
+                      LoadPanopticAnnotations)
 from .oa_mix import OAMix
 from .transforms import (Corrupt, Expand, MinIoURandomCrop, Normalize, Pad,
                          PhotoMetricDistortion, RandomFlip, Resize)
 
 __all__ = ["Collect", "Compose", "DefaultFormatBundle", "ImageToTensor",
            "MultiScaleFlipAug", "LoadAnnotations", "LoadImageFromFile",
-           "LoadImageFromWebcam", "OAMix", "Corrupt", "Expand", "MinIoURandomCrop",
+           "LoadImageFromWebcam", "LoadPanopticAnnotations", "OAMix", "Corrupt", "Expand", "MinIoURandomCrop",
            "Normalize", "Pad", "PhotoMetricDistortion", "RandomFlip", "Resize"]

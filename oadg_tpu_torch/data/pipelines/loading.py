@@ -1,7 +1,8 @@
-"""Loading pipeline ops (port of ``oadg_tpu/data/pipelines/loading.py:22,53,68``):
+"""Loading pipeline ops (port of ``oadg_tpu/data/pipelines/loading.py:22,53,68,200``):
 the image from its file (``image_io.imread``, the counterpart of
-``cv2.imread``) or from the caller's array, and the annotation's boxes,
-labels and instance masks. numpy on the host."""
+``cv2.imread``) or from the caller's array, the annotation's boxes,
+labels and instance masks, and a COCO-panoptic PNG's masks and label map.
+numpy on the host."""
 from __future__ import annotations
 
 import os.path as osp
@@ -68,7 +69,8 @@ class LoadAnnotations:
     instance's polygons or uncompressed RLE (``ann_info['masks']``) drawn
     full-image and cropped to its box at 56 x 56, (N, 56, 56) float32
     (``loading.py:87-121``), with ``mask_fields``. Segmentation maps
-    (``with_seg``, the panoptic path) are not ported."""
+    (``with_seg``) are not ported: ``LoadPanopticAnnotations`` reads the
+    panoptic ones."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False,
@@ -122,3 +124,43 @@ class LoadAnnotations:
                 insts.append(PolygonMasks([m], h, w).to_bitmap().masks[0])
         boxes = ann["bboxes"] if insts else np.zeros((0, 4), np.float32)
         return BitmapMasks(insts, h, w).to_box_cropped(boxes, m0=56)
+
+
+@PIPELINES.register_module()
+class LoadPanopticAnnotations:
+    """``oadg_tpu/data/pipelines/loading.py:200``: the boxes and labels of
+    ``ann_info`` (the thing segments', ``CocoPanopticDataset.get_ann_info``),
+    the panoptic PNG of ``seg_prefix / ann_info['seg_map']`` decoded by the
+    port's reader (BGR, as ``cv2.imread``, reversed to RGB) into segment ids
+    ``R + 256 G + 65536 B``; ``gt_masks`` (n, H, W) uint8, one full-image
+    mask per thing segment in ``all_seg_ids`` order; ``gt_semantic_seg``
+    (H, W) uint8, every segment's (thing and stuff) label, 255 void. numpy
+    on the host, equal to the JAX op's outputs. It always loads all three:
+    a ``with_bbox``, ``with_mask`` or ``with_seg`` set False is refused."""
+
+    def __init__(self, **kwargs):
+        off = [k for k in ("with_bbox", "with_mask", "with_seg") if kwargs.get(k, True) is False]
+        if off:
+            raise ValueError(f"LoadPanopticAnnotations({', '.join(off)}=False) is not ported: "
+                             "it always loads the boxes, the thing masks and the label map")
+
+    def __call__(self, results: Dict[str, Any]):
+        from ...core.evaluation.panoptic_eval import rgb2id
+        ann = results["ann_info"]
+        results["gt_bboxes"] = ann["bboxes"]
+        results["gt_labels"] = ann["labels"]
+        results.setdefault("bbox_fields", []).append("gt_bboxes")
+        seg_map = ann.get("seg_map")
+        prefix = results.get("seg_prefix")
+        id_map = rgb2id(imread(osp.join(prefix, seg_map) if prefix else seg_map)[..., ::-1])
+        masks = [(id_map == sid).astype(np.uint8)
+                 for sid, thing in zip(ann["all_seg_ids"], ann["seg_isthing"]) if thing]
+        results["gt_masks"] = (np.stack(masks) if masks
+                               else np.zeros((0,) + id_map.shape, np.uint8))
+        results.setdefault("mask_fields", []).append("gt_masks")
+        sem = np.full(id_map.shape, 255, np.uint8)
+        for sid, lbl in zip(ann["all_seg_ids"], ann["seg_labels"]):
+            sem[id_map == sid] = lbl
+        results["gt_semantic_seg"] = sem
+        results.setdefault("seg_fields", []).append("gt_semantic_seg")
+        return results

@@ -3,11 +3,13 @@ their detectors (``FCOS``, ``ATSS``, ``GFL``, ``VFNet``, ``TOOD``, ``PAA``,
 ``AutoAssign``, ``FOVEA``, ``FSAF``,
 ``KnowledgeDistillationSingleStageDetector``, ``NASFCOS``, ``RepPointsDetector``,
 ``CenterNet``, ``CornerNet``, ``SSD``, ``YOLOF``, ``YOLOX``, ``SOLO``,
-``YOLACT``)."""
+``YOLACT``, ``DETR``, ``DeformableDETR``)."""
 from .atss_head import ATSSHead
 from .autoassign_ld_heads import AutoAssignHead, LDHead, NASFCOSHead, PISARetinaHead
 from .centernet_head import CenterNetHead
 from .corner_heads import CentripetalHead, CornerHead
+from .deformable_detr_head import DeformableDETRHead
+from .detr_head import DETRHead
 from .fcos_head import FCOSHead
 from .fovea_fsaf_heads import FoveaHead, FSAFHead
 from .free_anchor_heads import FreeAnchorRetinaHead, RetinaSepBNHead
@@ -26,6 +28,7 @@ from .yolof_head import YOLOFHead
 from .yolox_head import YOLOXHead
 
 __all__ = ["ATSSHead", "AutoAssignHead", "CenterNetHead", "CentripetalHead", "CornerHead",
+           "DeformableDETRHead", "DETRHead",
            "FCOSHead", "FoveaHead", "FreeAnchorRetinaHead",
            "FSAFHead", "GARetinaHead", "GFLHead", "LDHead", "NASFCOSHead", "PAAHead",
            "PISARetinaHead", "RepPointsHead", "RetinaHead", "RetinaSepBNHead", "RPNHead", "SABLRetinaHead",

@@ -150,14 +150,17 @@ class TwoStageDetector(nn.Module):
             return None, None
         return torch.cat(parts, 1), torch.cat(parts_valid, 1)
 
-    def forward_train(self, batch, draws):
+    def forward_train(self, batch, draws, feats=None):
         """Loss dict of one views-major batch. ``draws``
         (``utils.draws.UniformDraws``) gives every random number: the RPN
         and RoI samplers' and the random proposals'. Each stage runs in a
-        ``record_function`` span named ``forward_train: <stage>``."""
+        ``record_function`` span named ``forward_train: <stage>``. ``feats``,
+        where given, are the batch's maps (``extract_feat``'s), computed by
+        the caller."""
         img = batch["img"]
-        with record_function("forward_train: backbone+neck"):
-            feats = self.extract_feat(img)
+        if feats is None:
+            with record_function("forward_train: backbone+neck"):
+                feats = self.extract_feat(img)
         with record_function("forward_train: rpn head+loss"):
             cls_scores, bbox_preds = self.rpn_head(feats)
             losses = self.rpn_head.loss(cls_scores, bbox_preds, batch["gt_bboxes"],

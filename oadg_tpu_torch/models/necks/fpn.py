@@ -76,3 +76,24 @@ class FPN(nn.Module):
                 src = conv(src)
                 outs.append(src)
         return tuple(outs)
+
+
+@NECKS.register_module()
+class ChannelMapper(nn.Module):
+    """``oadg_tpu/models/necks/fpn.py:74``: one ``kernel_size`` conv per
+    input (a ``ConvModule`` with the config's ``norm_cfg`` and no
+    activation, as the JAX module; mmdet's default is a ReLU), as many
+    outputs as inputs: keys ``convs.{i}.conv.*``. mmdet's ``num_outs`` (an
+    extra stride-2 conv above the last input) is dropped, as the JAX
+    package's registry drops it: Deformable DETR's config asks for 4 levels
+    and both packages build 3 (ROADMAP C)."""
+
+    def __init__(self, in_channels: Sequence[int] = (512, 1024, 2048), out_channels: int = 256,
+                 kernel_size: int = 3, norm_cfg=None, num_outs=None, device=None, dtype=None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            ConvModule(c, out_channels, kernel_size, 1, kernel_size // 2, norm_cfg=norm_cfg,
+                       device=device, dtype=dtype) for c in in_channels)
+
+    def forward(self, inputs):
+        return tuple(conv(x) for conv, x in zip(self.convs, inputs))

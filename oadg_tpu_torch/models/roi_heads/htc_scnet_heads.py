@@ -130,16 +130,19 @@ class FusedSemanticHead(nn.Module):
         return self.conv_logits(x).float(), torch.relu(self.conv_embedding(x))
 
 
-def semantic_loss(seg: torch.Tensor, gt_semantic_seg: torch.Tensor) -> torch.Tensor:
+def semantic_loss(seg: torch.Tensor, gt_semantic_seg: torch.Tensor,
+                  weight: float = 0.2) -> torch.Tensor:
     """``loss_semantic_seg`` (``:156-169``): the (N, H, W) label map resized
-    by nearest to the logits' (N, K, h, w), the mean cross-entropy over the
-    pixels below 255, times 0.2."""
+    by nearest to the logits' (N, K, h, w) (``jax.image.resize``'s nearest
+    is torch's ``nearest-exact``), the mean cross-entropy over the pixels
+    below 255 (every rank's under data parallel), times ``weight`` (HTC's
+    0.2; PanopticFPN's 0.5, ``oadg_tpu/models/detectors/panoptic.py:41-49``)."""
     tgt = F.interpolate(gt_semantic_seg[:, None].float(), size=seg.shape[2:],
                         mode="nearest-exact")[:, 0].long()
     nll = -torch.gather(torch.log_softmax(seg.float(), 1), 1,
                         tgt.clamp(0, seg.shape[1] - 1)[:, None])[:, 0]
     valid = (tgt < 255).float()
-    return (nll * valid).sum() / shard_sum(valid.sum()).clamp(min=1.0) * 0.2
+    return (nll * valid).sum() / shard_sum(valid.sum()).clamp(min=1.0) * weight
 
 
 @HEADS.register_module()

@@ -50,8 +50,6 @@ norm_out, fc_layer}``, ``instance_interactive_conv_norm``,
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -63,8 +61,9 @@ from ...core.post_processing.nms import sort_desc
 from ...parallel import shard_sum
 from ...utils.registry import DETECTORS, HEADS, ROI_EXTRACTORS, build_from_cfg
 from ..detectors.two_stage import TwoStageDetector
-from ..layers import Linear, _reduced, lecun_normal_, normal_
+from ..layers import Linear, normal_
 from ..losses.common import sigmoid_focal_loss
+from ..utils.transformer import Attention as _Attention
 
 LN_EPS = 1e-6                   # flax's LayerNorm epsilon
 
@@ -96,56 +95,6 @@ class EmbeddingRPNHead(nn.Module):
         whwh = torch.stack([shp[:, 1], shp[:, 0], shp[:, 1], shp[:, 0]], -1)
         feats = self.init_proposal_features.weight
         return xyxy[None] * whwh[:, None, :], feats[None].expand(shp.shape[0], -1, -1)
-
-
-class _MultiheadAttention(nn.Module):
-    """Self-attention with ``nn.MultiheadAttention``'s parameters
-    (``in_proj_weight`` rows ``[q; k; v]``, head ``h`` on rows ``h * D ..``,
-    ``out_proj``), computed as flax's ``MultiHeadDotProductAttention``: q,
-    k, v and the output projection in ``dtype`` (bias added in it), q over
-    ``sqrt(D)`` cast to it, the logits and the softmax in it."""
-
-    def __init__(self, embed_dims: int, num_heads: int, device=None, dtype=None):
-        super().__init__()
-        self.num_heads = num_heads
-        self.compute_dtype = dtype
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims,
-                                                       device=device))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims, device=device))
-        self.out_proj = Linear(embed_dims, embed_dims, device=device, dtype=dtype)
-
-    def init_weights(self, gen: torch.Generator):
-        lecun_normal_(self.in_proj_weight, gen)
-        nn.init.zeros_(self.in_proj_bias)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, P, E) -> (B, P, E) in the compute dtype (float32 without one)."""
-        dt = self.compute_dtype if _reduced(self.compute_dtype) else torch.float32
-        b, p, e = x.shape
-        h = self.num_heads
-        d = e // h
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt)) + self.in_proj_bias.to(dt)
-        q, k, v = (t.reshape(b, p, h, d) for t in qkv.chunk(3, -1))
-        q = q / torch.tensor(math.sqrt(d), dtype=torch.float32).to(dt)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        if dt == torch.float32:
-            w = torch.softmax(logits, -1)
-        else:                              # jax.nn.softmax in the compute dtype
-            ex = torch.exp(logits - logits.amax(-1, keepdim=True))
-            w = ex / ex.sum(-1, keepdim=True)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, p, e)
-        return self.out_proj(out)
-
-
-class _Attention(nn.Module):
-    """mmcv's ``MultiheadAttention`` wrapper: the module under ``attn``."""
-
-    def __init__(self, embed_dims: int, num_heads: int, device=None, dtype=None):
-        super().__init__()
-        self.attn = _MultiheadAttention(embed_dims, num_heads, device=device, dtype=dtype)
-
-    def forward(self, x):
-        return self.attn(x)
 
 
 def _ln(channels, device):

@@ -207,7 +207,9 @@ class StandardRoIHead(nn.Module):
             # mask_size^2 targets and raises on the product
             raise ValueError(f"the mask head's {2 * out}x{2 * out} logits (mask RoI "
                              f"output_size {out}) do not match train_cfg.rcnn.mask_size="
-                             f"{self.mask_size}: give the config a mask_roi_extractor")
+                             f"{self.mask_size}: give the config a "
+                             f"model.roi_head.mask_roi_extractor of output_size "
+                             f"{self.mask_size // 2}")
         p = max(int(round(boxes.shape[1] * self.sampler.pos_fraction)), 1)
         pboxes = boxes[:, :p]
         with torch.no_grad():

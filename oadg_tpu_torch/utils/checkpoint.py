@@ -19,8 +19,10 @@ necks' extra-level convs and mmdet's NAS-FPN ``sum_77_7`` / ``gp_54_7``
 and cell conv biases, NAS-FCOS's concat cells and deformable tower convs,
 the ``conv2`` after mmdet's ``BiCornerPool``, CentripetalNet's guiding
 shifts and feature adaption, a downsample in a later block of an
-Hourglass ``low3``, YOLACT's separate protonet and semantic head, and
-SSD's ``SSDNeck``), which skipping would silently change. A CSPDarknet's
+Hourglass ``low3``, YOLACT's separate protonet and semantic head,
+SSD's ``SSDNeck``, DETR's decoder ``post_norm``, ChannelMapper's extra
+level and GNs, and mmdet's PanopticFPNHead), which skipping would silently
+change. A CSPDarknet's
 Focus stem conv has its input blocks reordered from mmdet's (dy, dx) order
 to the JAX package's (``csp_darknet.focus_mmdet_order``).
 
@@ -170,6 +172,31 @@ become ``backbone.features.{i}`` (mmdet's VGG indices 0 ... 33),
 ``proto_conv{i}`` ``bbox_head.head_convs.{i}.conv`` and ``proto_convs.{i}``,
 ``conv_cls``, ``conv_reg``, ``conv_coeff``, ``proto_out`` and ``segm_conv``
 as they are (every live BN's ``batch_stats`` too).
+The modules of A.2.8: DETR's ``head`` (``input_proj``, ``fc_cls``,
+``fc_reg``, ``reg_fc1`` / ``reg_fc2`` ``reg_ffn.layers.0.0`` /
+``reg_ffn.layers.1``, ``query_embed`` ``query_embedding.weight``) and its
+``transformer/enc{i}`` / ``dec{i}`` ``bbox_head.transformer.encoder.layers.{i}``
+/ ``decoder.layers.{i}``; in a layer ``self_attn`` / ``attn``
+``attentions.0``, ``cross_attn`` ``attentions.1`` (flax's ``query``,
+``key`` and ``value`` kernels stacked into ``attn.in_proj_weight``, ``out``
+``attn.out_proj``, as Sparse R-CNN's), ``ffn`` (``fc1``, ``fc2``)
+``ffns.0.layers.0.0`` / ``.1``, ``norm{k}`` (or ``norm{k}/LayerNorm_0``)
+``norms.{k - 1}``; Deformable DETR's ``enc{i}`` / ``dec{i}`` the same, its
+deformable attentions' ``sampling_offsets``, ``attention_weights``,
+``output_proj`` as they are and ``value_proj{l}`` ``value_proj.{l}``,
+``level_embed`` ``transformer.level_embeds``, ``ref_fc``
+``transformer.reference_points``, ``cls{i}`` ``cls_branches.{i}``,
+``reg{i}_{k}`` ``reg_branches.{i}.{2 (k - 1)}``; ChannelMapper's
+``conv_{i}`` ``neck.convs.{i}.conv``; PanopticFPN's ``semantic_head``
+(``lateral{i}``, ``conv{i}``, ``conv_embedding``, ``conv_seg``)
+``semantic_head.{lateral_convs.{i}.conv, convs.{i}.conv,
+conv_embedding.conv, conv_logits}``. ``load_mmdet_checkpoint`` reads
+mmdet's 1x1-conv DETR ``input_proj`` into the dense layer and each
+deformable attention's one shared ``value_proj`` into every level's
+(``_detr_layout``), refuses offsets and weights of another number of
+levels (mmdet's 4, the JAX ChannelMapper's 3) with ``ValueError``, and
+refuses DETR's decoder ``post_norm``, ChannelMapper's extra level and GNs
+and mmdet's PanopticFPNHead (``MMDET_ONLY``).
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -493,7 +520,7 @@ def _fifth_key(head: str, rest: Tuple[str, ...], kind: str) -> Optional[str]:
 def _head_kind(heads: Dict) -> str:
     """Which of the fifth slice's heads the JAX head tree is ("" none)."""
     for kind, leaf in (("yolof", "object_pred"), ("yolof", "cls_bn0"), ("yolox", "stem0"),
-                       ("solo", "conv_cate"), ("yolact", "proto_out")):
+                       ("solo", "conv_cate"), ("yolact", "proto_out"), ("detr", "query_embed")):
         if leaf in heads:
             return kind
     if heads and all(re.fullmatch(r"(cls|reg)_conv\d+", k) for k in heads):
@@ -523,9 +550,15 @@ def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
         return f"neck.{rest[0]}.{rest[1]}.{_conv_module(rest[2:])}"
     if head == "neck_m" and re.fullmatch(r"conv\d+", rest[0]):
         return f"neck.{rest[0]}.{_conv_module(rest[1:])}"
+    if head == "head" and kind == "detr":
+        return _detr_key(rest)
     if head == "head":
         return (_point_head_key(rest, reppoints) or _dense_head_key(rest, sepbn)
                 or _yolo_head_key(rest))
+    if head == "semantic_head":                      # PanopticFPN's
+        return _semantic_key("semantic_head", rest)
+    if head == "neck_m" and re.fullmatch(r"conv_\d+", rest[0]):     # ChannelMapper
+        return f"neck.convs.{rest[0][5:]}.{_conv_module(rest[1:])}"
     if head == "neck_m" and _nas_neck_key(rest, laterals):
         return _nas_neck_key(rest, laterals)
     if head == "backbone_m" and re.fullmatch(
@@ -607,6 +640,79 @@ def _dii_key(pre: str, rest: Tuple[str, ...]) -> str:
     raise KeyError("/".join(rest))
 
 
+def _semantic_key(pre: str, rest: Tuple[str, ...]) -> str:
+    """A leaf of a JAX ``FusedSemanticHead`` -> its key under ``pre``."""
+    m = re.fullmatch(r"(lateral|conv)(\d+)", rest[0])
+    if m:
+        group = "lateral_convs" if m.group(1) == "lateral" else "convs"
+        return f"{pre}.{group}.{m.group(2)}.conv.{_leaf(rest)}"
+    if rest[0] == "conv_embedding":
+        return f"{pre}.conv_embedding.conv.{_leaf(rest)}"
+    if rest[0] == "conv_seg":
+        return f"{pre}.conv_logits.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
+_DETR_NAMES = {"input_proj": "input_proj", "fc_cls": "fc_cls", "fc_reg": "fc_reg",
+               "reg_fc1": "reg_ffn.layers.0.0", "reg_fc2": "reg_ffn.layers.1",
+               "ref_fc": "transformer.reference_points"}
+_FFN = {"fc1": "ffns.0.layers.0.0", "fc2": "ffns.0.layers.1"}
+_ATTENTIONS = {"attn": 0, "self_attn": 0, "cross_attn": 1}
+
+
+def _transformer_layer_key(pre: str, rest: Tuple[str, ...]) -> str:
+    """A leaf of a JAX (deformable) encoder or decoder layer -> its key
+    under ``pre``: ``norm{k}`` ``norms.{k - 1}``, ``ffn`` ``ffns.0``,
+    ``attn`` / ``self_attn`` ``attentions.0`` and ``cross_attn``
+    ``attentions.1``; flax attention's ``query`` / ``key`` / ``value`` get
+    ``#0``..``#2`` (the parts of ``attn.in_proj_*``), its ``out``
+    ``attn.out_proj``; the deformable one's ``value_proj{l}``
+    ``value_proj.{l}``."""
+    scope = rest[0]
+    if scope == "ffn":
+        return f"{pre}.{_FFN[rest[1]]}.{_leaf(rest)}"
+    m = re.fullmatch(r"norm(\d)", scope)
+    if m:
+        return f"{pre}.norms.{int(m.group(1)) - 1}.{_leaf(rest)}"
+    att = f"{pre}.attentions.{_ATTENTIONS[scope]}"
+    if rest[1] in _QKV:
+        part = "in_proj_weight" if rest[-1] == "kernel" else "in_proj_bias"
+        return f"{att}.attn.{part}#{_QKV.index(rest[1])}"
+    if rest[1] == "out":
+        return f"{att}.attn.out_proj.{_leaf(rest)}"
+    m = re.fullmatch(r"value_proj(\d+)", rest[1])
+    if m:
+        return f"{att}.value_proj.{m.group(1)}.{_leaf(rest)}"
+    if rest[1] in ("sampling_offsets", "attention_weights", "output_proj"):
+        return f"{att}.{rest[1]}.{_leaf(rest)}"
+    raise KeyError("/".join(rest))
+
+
+def _detr_key(rest: Tuple[str, ...]) -> Optional[str]:
+    """A leaf of the JAX ``DETRHead`` or ``DeformableDETRHead`` -> its key,
+    or None (another head's)."""
+    if rest[0] == "transformer":                 # DETR's Transformer module
+        rest = rest[1:]
+    m = re.fullmatch(r"(enc|dec)(\d+)", rest[0])
+    if m:
+        stack = "encoder" if m.group(1) == "enc" else "decoder"
+        return _transformer_layer_key(f"bbox_head.transformer.{stack}.layers.{m.group(2)}",
+                                      rest[1:])
+    if rest[0] == "query_embed":
+        return "bbox_head.query_embedding.weight"
+    if rest[0] == "level_embed":
+        return "bbox_head.transformer.level_embeds"
+    if rest[0] in _DETR_NAMES:
+        return f"bbox_head.{_DETR_NAMES[rest[0]]}.{_leaf(rest)}"
+    m = re.fullmatch(r"cls(\d+)", rest[0])
+    if m:
+        return f"bbox_head.cls_branches.{m.group(1)}.{_leaf(rest)}"
+    m = re.fullmatch(r"reg(\d+)_(\d)", rest[0])
+    if m:
+        return f"bbox_head.reg_branches.{m.group(1)}.{2 * (int(m.group(2)) - 1)}.{_leaf(rest)}"
+    return None
+
+
 def _roi_key(rest: Tuple[str, ...]) -> str:
     """A leaf under the JAX RoI head ``roi`` -> its key under ``roi_head``."""
     scope = rest[0]
@@ -643,14 +749,7 @@ def _roi_key(rest: Tuple[str, ...]) -> str:
     if m:
         return f"roi_head.info_convs.{m.group(1)}.{_leaf(rest)}"
     if scope == "semantic":
-        m = re.fullmatch(r"(lateral|conv)(\d+)", rest[1])
-        if m:
-            group = "lateral_convs" if m.group(1) == "lateral" else "convs"
-            return f"roi_head.semantic_head.{group}.{m.group(2)}.conv.{_leaf(rest)}"
-        if rest[1] == "conv_embedding":
-            return f"roi_head.semantic_head.conv_embedding.conv.{_leaf(rest)}"
-        if rest[1] == "conv_seg":
-            return f"roi_head.semantic_head.conv_logits.{_leaf(rest)}"
+        return _semantic_key("roi_head.semantic_head", rest[1:])
     if scope == "glbctx":
         m = re.fullmatch(r"conv(\d+)", rest[1])
         if m:
@@ -725,7 +824,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
                 parts.setdefault(key.split("#")[0], {})[int(key.split("#")[1])] = (
                     v.reshape(v.shape[0], -1).T if path[-1] == "kernel" else v.reshape(-1))
                 continue
-            if key.endswith("attention.attn.out_proj.weight"):      # (heads, dim, E)
+            if key.endswith(".attn.out_proj.weight"):              # (heads, dim, E)
                 v = v.reshape(-1, v.shape[-1]).T
             elif path[-1] == "conv2_kernel":              # HWIO -> OIHW
                 v = v.transpose(3, 2, 0, 1)
@@ -761,7 +860,8 @@ def _hwc_to_chw(w: np.ndarray, side: int, channels: int) -> np.ndarray:
     return (w.reshape(o, side, side, channels).transpose(0, 3, 1, 2).reshape(o, i))
 
 
-_SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.")
+_SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask_head.",
+             "semantic_head.")
 
 # mmdet tensors of structures that the JAX heads (and so the port's) lack:
 # skipping them would load a checkpoint into another function. A key raises
@@ -801,6 +901,17 @@ MMDET_ONLY = {
         "YOLACT's protonet and semantic head as mmdet's own mask_head and segm_head (the JAX "
         "YOLACTHead holds a protonet without mmdet's 3x3 conv after the upsample and an "
         "untrained segm_conv: bbox_head.proto_convs, proto_out and segm_conv)",
+    r"bbox_head\.transformer\.decoder\.post_norm\.":
+        "DETR's decoder post_norm (the JAX Transformer returns its decoder layers' outputs "
+        "with no final norm)",
+    r"neck\.extra_convs\.":
+        "ChannelMapper's extra level for num_outs (the JAX ChannelMapper drops num_outs and "
+        "maps its inputs alone: Deformable DETR on 3 levels, not 4)",
+    r"neck\.convs\.\d+\.gn\.":
+        "a GN in ChannelMapper (the repo's Deformable DETR config names no norm_cfg)",
+    r"semantic_head\.conv_upsample_layers\.":
+        "mmdet's PanopticFPNHead (the JAX PanopticFPN's semantic head is HTC's "
+        "FusedSemanticHead: semantic_head.lateral_convs, convs, conv_embedding, conv_logits)",
     r"neck\.(extra_layers|l2_norm)\.":
         "mmdet's SSDNeck (its L2Norm and extra convs under neck., mmdet 2.18 on; the JAX "
         "SSDVGG holds them as backbone.l2_norm and backbone.extra, mmdet's older layout)",
@@ -817,6 +928,39 @@ def mmdet_state_dict(ckpt) -> Tuple[Dict[str, torch.Tensor], bool]:
         return {f"backbone.{k}": v for k, v in sd.items()
                 if not str(k).startswith(("fc.", "head."))}, True
     return dict(sd), False
+
+
+def _detr_layout(sd: Dict[str, torch.Tensor], own: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """mmdet's DETR and Deformable DETR tensors in the port's layout: the 1x1
+    conv ``input_proj`` as the dense layer it is here; a deformable
+    attention's one shared ``value_proj`` copied into each level's
+    ``value_proj.{l}`` (the JAX package's, ROADMAP C). A deformable
+    attention's sampling offsets or weights for another number of levels
+    raise ``ValueError`` naming both counts."""
+    sd = dict(sd)
+    key = "bbox_head.input_proj.weight"
+    if key in sd and key in own and sd[key].dim() == 4 and own[key].dim() == 2:
+        sd[key] = sd[key].reshape(sd[key].shape[:2])
+    for k in [k for k in sd if re.search(r"\.value_proj\.(weight|bias)$", k)]:
+        pre, leaf = k.rsplit(".", 1)
+        levels = [f"{pre}.{li}.{leaf}" for li in range(8) if f"{pre}.{li}.{leaf}" in own]
+        if levels:
+            v = sd.pop(k)
+            sd.update({lk: v for lk in levels})
+    for k, v in sd.items():
+        m = re.search(r"\.(sampling_offsets|attention_weights)\.weight$", k)
+        if m and k in own and v.shape != own[k].shape:
+            per = 2 if m.group(1) == "sampling_offsets" else 1
+            value_levels = sum(1 for o in own if o.startswith(k.rsplit(".", 2)[0] + ".value_proj.")
+                               and o.endswith(".weight"))
+            rows = own[k].shape[0] // value_levels
+            raise ValueError(f"checkpoint tensor {k} has {v.shape[0]} rows, "
+                             f"{v.shape[0] // rows} levels of {rows // per} heads x points; "
+                             f"the model's has {own[k].shape[0]}, {value_levels} levels (the JAX "
+                             "ChannelMapper drops num_outs: Deformable DETR runs on the neck's "
+                             "3 levels, mmdet's on 4)")
+    return sd
 
 
 def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
@@ -842,6 +986,7 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
             "backbone.stem.conv.conv.weight" in sd and not backbone_only:
         from ..models.backbones.csp_darknet import focus_mmdet_order
         sd["backbone.stem.conv.conv.weight"] = focus_mmdet_order(sd["backbone.stem.conv.conv.weight"])
+    sd = _detr_layout(sd, own)
     for pattern, what in MMDET_ONLY.items():
         extra = sorted(k for k in sd if re.match(pattern, k) and k not in own)
         if extra:

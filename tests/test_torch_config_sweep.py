@@ -1,10 +1,10 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 61 configs the port has ported build as
+them with the JAX package: the 64 configs the port has ported build as
 given, NAS-FCOS raises its stride refusal (its neck's outputs at strides 4
 to 64 against its head's 8 to 128) and builds with
-``model.neck.start_level=1``, the other 18 raise the port's refusal (a type
+``model.neck.start_level=1``, the other 15 raise the port's refusal (a type
 the port has not ported, "the port builds only the ported slices'
 types"), never another error; TridentNet's refusal names the JAX
 detector's fault.
@@ -37,7 +37,12 @@ CSPDarknet with its Focus stem in mmdet's channel order, the PAFPN, SSD's
 VGG-16, the instance heads; mmdet's YOLACT protonet and semantic head and
 its SSDNeck refused, YOLOF's conv biases named as missing), with SOLO and
 YOLACT refused by the box test path beside JAX's ``run_test``, which
-misreads or raises on them.
+misreads or raises on them; and for DETR, Deformable DETR and PanopticFPN
+(the transformers at full width, ChannelMapper's 3 levels, the semantic
+head; mmdet's ``input_proj`` as a 1x1 conv and its one shared deformable
+``value_proj`` read into the port's layout, its DETR ``post_norm``, its
+4-level ChannelMapper and offsets, its GN ChannelMapper and its
+PanopticFPNHead refused).
 """
 import copy
 import glob
@@ -125,6 +130,9 @@ PORTED = {
     "ssd/ssd300_coco.py",
     "solo/solo_r50_fpn_1x_coco.py",
     "yolact/yolact_r50_1x8_coco.py",
+    "detr/detr_r50_8x2_150e_coco.py",
+    "deformable_detr/deformable_detr_r50_16x2_50e_coco.py",
+    "panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py",
 }
 REFUSAL = "the port builds only the ported slices' types"
 # refused at build for a fault of its own, with the config option that
@@ -161,14 +169,14 @@ def _build(rel, options=None):
 
 
 def test_the_sweep_counts_49_of_80():
-    """61 of the 80 build as given since YOLOF, YOLOX-S, SSD300, SOLO and
-    YOLACT (the name is the count's before GA-RetinaNet, SABL-RetinaNet and
-    NAS-FPN), NAS-FCOS with its neck's ``start_level`` set to 1, 18 are
+    """64 of the 80 build as given since DETR, Deformable DETR and
+    PanopticFPN (the name is the count's before GA-RetinaNet, SABL-RetinaNet
+    and NAS-FPN), NAS-FCOS with its neck's ``start_level`` set to 1, 15 are
     refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 61
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 64
     assert set(STRIDE_REFUSED) <= set(ALL_CONFIGS) - PORTED
-    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 18
+    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 15
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -1145,3 +1153,178 @@ def test_box_test_path_refuses_solo_and_yolact(name):
     res = handle.test({"img": x, "img_shape": torch.tensor([[64.0, 96.0]]),
                        "scale_factor": torch.ones(1, 4)})
     assert len(res) == (3 if name == "solo" else 4)
+
+
+TRANSFORMER = {"detr/detr_r50_8x2_150e_coco.py": ("DETR", "DETRHead"),
+               "deformable_detr/deformable_detr_r50_16x2_50e_coco.py":
+                   ("DeformableDETR", "DeformableDETRHead"),
+               "panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py": ("PanopticFPN", None)}
+
+
+@pytest.mark.parametrize("rel", sorted(TRANSFORMER))
+def test_transformer_and_panoptic_configs_build_their_modules(rel):
+    """DETR, Deformable DETR and PanopticFPN at full width as given: DETR's
+    dense ``input_proj`` from C5's 2048 channels, 6 encoder and 6 decoder
+    layers of 256 channels, 8 heads and 2048 in the FFN, 100 queries, 81
+    softmax logits; Deformable DETR's ChannelMapper of three 3x3 convs
+    (``num_outs=4`` dropped), 6 + 6 layers with 1024 in the FFN, 3 levels'
+    offsets (192) and weights (96), one value projection a level, 300
+    queries of 512, 4 level embeddings, 6 classifiers and box branches;
+    PanopticFPN's semantic head on the 5 FPN levels with 54 stuff logits at
+    stride 8 and its mask head on the box layer's 7x7 (no mask RoI layer
+    given)."""
+    det = _build(rel)
+    kind, head_kind = TRANSFORMER[rel]
+    assert type(det).__name__ == kind
+    if kind == "DETR":
+        head = det.bbox_head
+        assert type(head).__name__ == head_kind and det.neck is None
+        assert head.input_proj.weight.shape == (256, 2048)
+        t = head.transformer
+        assert len(t.encoder.layers) == len(t.decoder.layers) == 6
+        assert t.decoder.layers[5].attentions[1].attn.in_proj_weight.shape == (768, 256)
+        assert t.encoder.layers[0].ffns[0].layers[0][0].weight.shape == (2048, 256)
+        assert head.query_embedding.weight.shape == (100, 256)
+        assert head.fc_cls.weight.shape == (81, 256)
+        assert head.reg_ffn.layers[1].weight.shape == (256, 256)
+    elif kind == "DeformableDETR":
+        head = det.bbox_head
+        assert [c.conv.weight.shape for c in det.neck.convs] == [
+            (256, c, 3, 3) for c in (512, 1024, 2048)]
+        t = head.transformer
+        assert len(t.encoder.layers) == len(t.decoder.layers) == 6 and head.num_levels == 3
+        att = t.decoder.layers[0].attentions[1]
+        assert att.sampling_offsets.weight.shape == (192, 256)
+        assert att.attention_weights.weight.shape == (96, 256) and len(att.value_proj) == 3
+        assert t.encoder.layers[0].ffns[0].layers[0][0].weight.shape == (1024, 256)
+        assert head.query_embedding.weight.shape == (300, 512)
+        assert t.level_embeds.shape == (4, 256) and t.reference_points.weight.shape == (2, 256)
+        assert len(head.cls_branches) == 6 and head.cls_branches[5].weight.shape == (80, 256)
+        assert head.reg_branches[0][4].weight.shape == (4, 256)
+        assert head.cls_branches[0] is not head.cls_branches[1]
+    else:
+        sem = det.semantic_head
+        assert len(sem.lateral_convs) == 5 and len(sem.convs) == 4
+        assert sem.conv_logits.weight.shape == (54, 256, 1, 1) and sem.fusion_level == 1
+        assert det.roi_head.mask_roi_extractor.output_size == 7
+        assert det.roi_head.mask_head.conv_logits.weight.shape == (80, 256, 1, 1)
+        assert det.instance_outputs
+
+
+def _mmdet_sd(name, src):
+    """The tiny model's ``state_dict`` under mmdet's names: DETR's
+    ``input_proj`` as a 1x1 conv, each deformable attention's one shared
+    ``value_proj`` (the source's levels made equal first)."""
+    import torch
+    with torch.no_grad():
+        for k, v in src.state_dict().items():
+            if re.search(r"\.value_proj\.[1-9]\d*\.", k):
+                v.copy_(src.state_dict()[re.sub(r"\.value_proj\.\d+\.", ".value_proj.0.", k)])
+    sd = {}
+    for k, v in src.state_dict().items():
+        if k == "bbox_head.input_proj.weight" and name == "detr":
+            v = v[..., None, None]
+        sd[re.sub(r"\.value_proj\.\d+\.", ".value_proj.", k)] = v
+    return sd
+
+
+@pytest.mark.parametrize("name", ["detr", "deformable_detr", "panoptic_fpn"])
+def test_mmdet_checkpoint_carries_the_transformer_and_panoptic_modules(name, tmp_path):
+    """The three narrowed (``torch_detr_cases.tiny_model``) under mmdet's
+    names: the transformers' ``attentions``, ``ffns`` and ``norms``,
+    ``query_embedding``, DETR's ``reg_ffn`` and its 1x1-conv
+    ``input_proj``, Deformable DETR's ``level_embeds``,
+    ``reference_points``, ``cls_branches`` and ``reg_branches``, mmdet's one
+    ``value_proj`` an attention copied into each level's, ChannelMapper's
+    ``convs``, PanopticFPN's ``semantic_head``: every tensor loaded, the
+    models equal."""
+    import torch
+    import torch_detr_cases as dcases
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = dcases.torch_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+    sd = _mmdet_sd(name, src)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": sd, "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"detr": ["bbox_head.input_proj.weight", "bbox_head.query_embedding.weight",
+                     "bbox_head.transformer.decoder.layers.1.attentions.1.attn.in_proj_weight",
+                     "bbox_head.transformer.encoder.layers.0.ffns.0.layers.0.0.bias",
+                     "bbox_head.reg_ffn.layers.1.weight"],
+            "deformable_detr": [
+                "neck.convs.2.conv.weight", "bbox_head.transformer.level_embeds",
+                "bbox_head.transformer.reference_points.weight",
+                "bbox_head.transformer.encoder.layers.0.attentions.0.value_proj.2.weight",
+                "bbox_head.transformer.decoder.layers.1.norms.2.bias",
+                "bbox_head.cls_branches.1.bias", "bbox_head.reg_branches.0.4.weight"],
+            "panoptic_fpn": ["semantic_head.lateral_convs.4.conv.weight",
+                             "semantic_head.conv_logits.bias",
+                             "roi_head.mask_head.conv_logits.weight"]}[name]
+    assert set(want) <= set(report["loaded"])
+    if name == "deformable_detr":
+        assert not any(re.search(r"\.value_proj\.\d", k) for k in sd)
+
+
+LACKS_TR = {
+    "detr_post_norm": ("detr", "bbox_head.transformer.decoder.post_norm.weight", KeyError,
+                       "DETR's decoder post_norm"),
+    "channel_mapper_extra_level": ("deformable_detr", "neck.extra_convs.0.conv.weight", KeyError,
+                                   "ChannelMapper's extra level for num_outs"),
+    "channel_mapper_gn": ("deformable_detr", "neck.convs.0.gn.weight", KeyError,
+                          "a GN in ChannelMapper"),
+    "four_level_offsets": ("deformable_detr", None, ValueError,
+                           "64 rows, 4 levels of 8 heads x points; the model's has 48, 3 levels"),
+    "panoptic_fpn_head": ("panoptic_fpn", "semantic_head.conv_upsample_layers.0.conv.0.conv.weight",
+                          KeyError, "PanopticFPNHead"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LACKS_TR))
+def test_mmdet_checkpoint_names_the_transformer_parts_one_side_lacks(case):
+    """mmdet's DETR has a decoder ``post_norm``, its Deformable DETR config a
+    ChannelMapper with GNs and a 4th level (``extra_convs``) and so
+    sampling offsets and weights for 4 levels, its PanopticFPN a
+    PanopticFPNHead: a checkpoint with such a tensor raises naming it
+    (``MMDET_ONLY``), one with 4 levels' offsets raises naming both level
+    counts."""
+    import torch
+    import torch_detr_cases as dcases
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    name, extra, error, match = LACKS_TR[case]
+    model = init_detector({"model": dcases.torch_model(name)}, device="cpu", seed=1).model
+    sd = dict(model.state_dict())
+    if extra is None:
+        key = "bbox_head.transformer.encoder.layers.0.attentions.0.sampling_offsets.weight"
+        sd[key] = torch.zeros(64, 16)
+    else:
+        sd[extra] = torch.zeros(4)
+    with pytest.raises(error, match=re.escape(match)):
+        load_mmdet_checkpoint(model, {"state_dict": sd})
+
+
+def test_detr_config_names_no_data_and_chip_smoke_gives_it_the_base():
+    """The reference-side fact: the repo's DETR config has a model and its
+    AdamW but no ``data``, ``lr_config`` or ``runner``; ``chip_smoke.py``'s
+    ``transformer_cfg`` gives it the Cityscapes base's data and the
+    Cityscapes config's warm-up, keeps the AdamW, and gives PanopticFPN
+    mmdet's 14x14 mask RoI layer (its config names none)."""
+    import chip_smoke
+    cfg = load_config(osp.join(CFG_ROOT, "detr/detr_r50_8x2_150e_coco.py"))
+    assert cfg.get("model") and cfg.optimizer["type"] == "AdamW"
+    assert not any(cfg.get(k) for k in ("data", "lr_config", "runner"))
+    cfg = chip_smoke.transformer_cfg("detr", "configs/detr/detr_r50_8x2_150e_coco.py")
+    assert cfg.data.test.pipeline and cfg.img_norm_cfg and cfg.data.samples_per_gpu == 1
+    assert cfg.optimizer == dict(type="AdamW", lr=1e-4, weight_decay=1e-4)
+    assert cfg.lr_config["warmup"] == "linear"
+    pan = chip_smoke.transformer_cfg("panoptic_fpn",
+                                     "configs/panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py")
+    assert pan.model.roi_head.mask_roi_extractor.roi_layer.output_size == 14

@@ -182,6 +182,7 @@ def test_one_training_step_on_the_card():
 # step in its terms is a larger share of the sum, so every gradient is held
 # to 2**-3 of its largest (measured up to 1.04e-1, neck.fpn_convs.3).
 TOL_BF16_MAPS = 2 ** -4
+TOL_BF16_CARD = 2 ** -5         # one bfloat16 module on the card against itself on the CPU
 TOL_BF16_LOSS = 2 ** -6
 TOL_BF16_GRAD_SUMS = 2 ** -3
 
@@ -2666,3 +2667,102 @@ def test_mask_matrix_nms_on_the_card_matches_the_cpu(kernel):
         assert torch.equal(got[i], want[i]), i
     torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
     assert int(want[4].sum()) > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msdeform_attention_on_the_card_matches_the_cpu(dtype):
+    """Deformable DETR's multi-scale deformable attention (8 heads, 3 levels
+    of 64x128, 32x64 and 16x32, 4 points, 1,000 queries) on the card against
+    the CPU in the same dtype, on value maps of seeded noise with the
+    offsets' bias drawn wide (~40% of the samples fall outside their level,
+    where each corner outside reads 0): the output and the gradients of the
+    query, the value tokens and the reference points. In float32 within
+    1e-4 of each largest (``F.grid_sample`` sums its corners and the
+    weights in another order on each device). In bfloat16 both devices
+    round the offsets' product to bfloat16, as the JAX package does, and
+    sample in float32; the two sum their products in other orders, so an
+    offset may round one step apart (a quarter pixel at 128 columns) and
+    every bfloat16 product one unit in the last place apart: within
+    ``TOL_BF16_CARD`` of each largest. A wrong border or a wrong gradient
+    moves ~40% of the samples, by the whole of a noise value."""
+    from oadg_tpu_torch.models.dense_heads.deformable_detr_head import MSDeformAttention
+    dev = _cuda()
+    shapes = ((64, 128), (32, 64), (16, 32))
+    gen = torch.Generator().manual_seed(21)
+    mod = MSDeformAttention(256, 8, 3, 4)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(max(p.shape[-1], 1)))
+        mod.sampling_offsets.bias.mul_(40.0)
+    n = sum(h * w for h, w in shapes)
+    inputs = [torch.randn(2, 1000, 256, generator=gen), torch.rand(2, 1000, 2, generator=gen),
+              torch.randn(2, n, 256, generator=gen)]
+    cot = torch.randn(2, 1000, 256, generator=gen)
+    results = []
+    for where in ("cpu", dev):
+        m = MSDeformAttention(256, 8, 3, 4, device=where, dtype=dtype)
+        m.load_state_dict(mod.state_dict())
+        q, r, v = (t.detach().to(where).requires_grad_(True) for t in inputs)
+        out = m(q.to(dtype), r, v.to(dtype), shapes)
+        (out.float() * cot.to(where)).sum().backward()
+        results.append([t.detach().float().cpu() for t in (out, q.grad, v.grad, r.grad)])
+    tol = 1e-4 if dtype == torch.float32 else TOL_BF16_CARD
+    for (want, got), what in zip(zip(*results), ("out", "query", "value", "ref")):
+        assert torch.isfinite(got).all(), what
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        print(f"msdeform {dtype} {what}: card vs CPU {err:.3e} of the largest")
+        assert err <= tol, (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["detr", "deformable_detr", "panoptic_fpn"])
+def test_detr_and_panoptic_steps_on_the_card_match_the_cpu(name):
+    """The tiny DETR, Deformable DETR and PanopticFPN of
+    ``torch_detr_cases`` (with mmdet's 14x14 mask RoI layer) on the card
+    against the CPU, float32, the same weights and the CPU's sampler
+    uniforms: every loss within rtol 1e-4, every trainable gradient within
+    1e-4 of each largest (``F.grid_sample``, the convolutions and the FCs
+    sum in other orders); B1 and B2 launch in PanopticFPN's step, never in
+    the DETRs'; ``simple_test``'s outputs within 1e-4 of each largest."""
+    import torch_detr_cases as dcases
+    from oadg_tpu_torch.models import build_detector
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    model = dcases.torch_model(name)
+    seed = build_detector(model, device="cpu")
+    seed.init_weights(torch.Generator().manual_seed(0))
+    batch = dcases.torch_batch(dcases.batch(semantic=name == "panoptic_fpn"))
+    draws, outs = None, []
+    for where in ("cpu", dev):
+        det = build_detector(model, device=where)
+        det.load_state_dict({k: v.to(where) for k, v in seed.state_dict().items()})
+        det.train()
+        b = {k: v.to(where) for k, v in batch.items()}
+        before = (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches)
+        d = UniformDraws(torch.Generator().manual_seed(1)) if draws is None else \
+            UniformDraws(given=draws)
+        losses = det.forward_train(b, d)
+        draws = {k: v.cpu() for k, v in d.drawn.items()}
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        if where == dev:
+            torch.cuda.synchronize()
+            launched = (ROI_ALIGN_FWD.launches - before[0], ROI_ALIGN_BWD.launches - before[1])
+            assert (min(launched) > 0) == (name == "panoptic_fpn"), launched
+        det.eval()
+        with torch.no_grad():
+            res = det.simple_test({k: b[k] for k in ("img", "img_shape", "scale_factor")})
+        outs.append((losses, {k: p.grad.cpu() for k, p in det.named_parameters()
+                              if p.grad is not None},
+                     [t.float().cpu() for t in torch.utils._pytree.tree_leaves(res)]))
+    (lc, gc, tc), (lg, gg, tg) = outs
+    assert lg.keys() == lc.keys() and gg.keys() == gc.keys()
+    for k in lc:
+        assert torch.isfinite(lg[k]), k
+        np.testing.assert_allclose(float(lg[k].detach()), float(lc[k].detach()), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    for k, c in gc.items():
+        err = float((gg[k] - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+        assert err <= 1e-4 or float(c.abs().max()) < 1e-6, (k, err)
+    for got, want in zip(tg, tc):
+        assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1.0)

@@ -24,9 +24,11 @@ port's ranks must compute exactly that (``oadg_tpu_torch/parallel/dist.py``).
   VFNet, TOOD, PAA, AutoAssign, FoveaBox, LD, GA, SABL, NAS-FPN's
   RetinaSepBNHead, whose per-level BNs are SyncBN, RepPoints, CenterNet,
   and CornerNet's and CentripetalNet's heads, whose corner pools' BNs are
-  SyncBN and whose per-image means are the global batch's) run from seeded
-  features, one image a rank: the losses' shares and the features'
-  gradients (TOOD's normalizers carry their gradient across the ranks).
+  SyncBN and whose per-image means are the global batch's; DETR's and
+  Deformable DETR's, one Hungarian assignment an image and per-image means)
+  run from seeded features, one image a rank: the losses' shares and the
+  features' gradients (TOOD's normalizers carry their gradient across the
+  ranks).
 - ``supcontrast``, the mask loss, the box head's loss and live BN alone,
   on seeded rows, the ranks' shards of equal and of unequal sizes; and
   outside ``sharded_batch()``, under the same live group, the loss and the
@@ -223,7 +225,12 @@ ANCHORS = dict(type="AnchorGenerator", octave_base_scale=4, scales_per_octave=1,
 # heads' pools' are.
 FEAT_HEADS = ("atss", "autoassign", "fcos", "fovea", "ga_retina", "gfl", "ld", "nas_fpn", "paa",
               "sabl_retina", "tood", "vfnet", "reppoints", "centernet", "cornernet",
-              "centripetalnet", "yolof", "yolox", "ssd", "solo", "yolact")
+              "centripetalnet", "yolof", "yolox", "ssd", "solo", "yolact", "detr",
+              "deformable_detr")
+# the DETR heads of ``torch_detr_cases`` at 8 channels (the deformable one on
+# the three levels of its ChannelMapper), 6 queries; their losses read the
+# images' shapes
+DETR_HEADS = {"detr": dict(in_channels=8), "deformable_detr": dict(num_levels=3)}
 # YOLOF's head runs behind its DilatedEncoder (8 channels, 4 in its blocks),
 # both with live BNs (SyncBN here), on one stride-32 map; YOLOX's three
 # levels; SSD's six at SSD300's sizes; SOLO's and YOLACT's losses take the
@@ -238,7 +245,8 @@ NECKS = {"yolof": dict(type="DilatedEncoder", in_channels=8, out_channels=8,
 # the features' gradient there by 8.5e-5 of its largest)
 FEAT_SIZES = {"centernet": (8,), "cornernet": (16, 16), "centripetalnet": (16, 16),
               "reppoints": (32, 16, 8, 4, 4), "yolof": (4,), "yolox": (8, 4, 2),
-              "ssd": (38, 19, 10, 5, 3, 1), "solo": (16, 8, 4, 2, 1), "yolact": (8, 4, 2, 1, 1)}
+              "ssd": (38, 19, 10, 5, 3, 1), "solo": (16, 8, 4, 2, 1), "yolact": (8, 4, 2, 1, 1),
+              "detr": (4,), "deformable_detr": (8, 4, 2)}
 # gts centred on points of GA's levels 0 and 1 (its loc and shape
 # positives are a gt's level's points inside its central fifth)
 # the features' gradients pass the head's convs and GNs, summed over 2 x 1
@@ -292,11 +300,18 @@ def _feat_head_inputs(name, rng):
     """A ``FEAT_HEADS`` entry: its head config, the head's own seeded init,
     features of 2 images (8 channels; maps 8x8 to 1x1), ``FEAT_GT`` and
     seeded labels, and LD's teacher bin logits (``soft``)."""
+    import torch_detr_cases as detr_cases
     import torch_onestage_cases as oc
     from oadg_tpu_torch.models.layers import init_default_
-    model = oc.tiny_model(name)
-    cfg = dict(model["bbox_head"], in_channels=8, feat_channels=64, num_classes=3,
-               train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"))
+    if name in DETR_HEADS:
+        model = detr_cases.torch_model(name)
+        cfg = dict(model["bbox_head"], embed_dims=8, num_query=6, num_classes=3,
+                   train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"),
+                   **DETR_HEADS[name])
+    else:
+        model = oc.tiny_model(name)
+        cfg = dict(model["bbox_head"], in_channels=8, feat_channels=64, num_classes=3,
+                   train_cfg=model.get("train_cfg"), test_cfg=model.get("test_cfg"))
     if name in ("cornernet", "centripetalnet", "yolof", "ssd"):
         del cfg["feat_channels"]
     if name == "ssd":
@@ -313,6 +328,8 @@ def _feat_head_inputs(name, rng):
                gt_labels=torch.from_numpy(rng.randint(0, 3, (2, 4))))
     if name in ("solo", "yolact"):
         out["masks"] = f(oc.with_masks(dict(gt_labels=FEAT_GT[..., 0]), m0=16)["gt_masks"])
+    if name in DETR_HEADS:
+        out["img_shapes"] = f([[64, 96]] * 2)
     if name == "ld":
         with torch.no_grad():
             out["soft"] = [f(rng.normal(0, 2, r.shape)) for r in head(feats)[1]]
@@ -713,8 +730,9 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
     ``FEAT_HEADS`` (FCOS, ATSS, GFL, VFNet, TOOD, PAA, AutoAssign, FoveaBox,
     LD, GA, SABL, RetinaSepBNHead, RepPoints, CenterNet, CornerNet's and
     CentripetalNet's heads; YOLOF's behind its DilatedEncoder, YOLOX's,
-    SSD's, SOLO's and YOLACT's) run from features: each rank's forward and
-    loss, the features' gradients."""
+    SSD's, SOLO's and YOLACT's; DETR's and Deformable DETR's, whose losses
+    are per-image means with one Hungarian assignment an image) run from
+    features: each rank's forward and loss, the features' gradients."""
     j = runs["job"]["dense_loss"][name]
     gts = (j["gt"], j["gt_valid"], j["gt_labels"])
     if "feats" in j:
@@ -722,6 +740,8 @@ def test_dense_head_loss_counts_every_ranks_rows(runs, name):
         extra = {"soft_targets": j["soft"]} if "soft" in j else {}
         if "masks" in j:
             extra["gt_masks"] = j["masks"]
+        if "img_shapes" in j:
+            extra["img_shapes"] = j["img_shapes"]
         head = dc.dense_head(j)
         want = head.loss(head(leaves["feats"]), *gts, **extra)
     else:

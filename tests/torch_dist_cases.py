@@ -306,7 +306,8 @@ def task_dense_loss(job, rank, world):
     (every view) inside ``sharded_batch()``: its shares and its inputs'
     gradients: the maps' (``cls`` / ``reg`` given), or the features' (``feats``
     given: the head's forward runs inside too, its live BNs' statistics
-    the global batch's; LD's ``soft`` teacher logits handed on)."""
+    the global batch's; LD's ``soft`` teacher logits handed on, and the
+    DETR heads' ``img_shapes``)."""
     from oadg_tpu_torch.parallel import sharded_batch
     out = {}
     for name, j in job["dense_loss"].items():
@@ -317,6 +318,8 @@ def task_dense_loss(job, rank, world):
             extra = {"soft_targets": [s[rows] for s in j["soft"]]} if "soft" in j else {}
             if "masks" in j:
                 extra["gt_masks"] = j["masks"][rows]
+            if "img_shapes" in j:
+                extra["img_shapes"] = j["img_shapes"][rows]
             with sharded_batch():
                 head = dense_head(j)
                 losses = head.loss(head(feats), *gts, **extra)
