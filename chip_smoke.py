@@ -106,11 +106,11 @@ non-zero exit code:
    corruptions each at severities 0 and 3, B1 launched 2 x 16 times (the
    clean cell once, 15 corrupted cells) and no other kernel; its sweep's
    images/s. ``tools/torch_get_corrupted_dataset.py`` (in this process,
-   ``run_tool``) writes fog and glass_blur at severity 1; through ``--load-dataset corrupted`` each cell
-   must load the on-the-fly cell's images byte for byte and give its
-   detections. One cell run twice must load byte-identical images and give
-   equal detections; the second run's loader host ms per image, split into
-   decode, corrupt and pipeline.
+   ``run_tool``) writes fog and glass_blur at severity 1; through
+   ``--load-dataset corrupted`` fog's cell must load the on-the-fly cell's
+   images byte for byte and give its detections. One cell run twice must
+   load byte-identical images and give equal detections; the second run's
+   loader host ms per image, split into decode, corrupt and pipeline.
 6. oamix: ``oamix_batch`` with the flagship's ``oamix_config`` on 2 seeded
    1024x2048 uint8 images with 32 seeded gts each, inside
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), once per
@@ -358,8 +358,9 @@ non-zero exit code:
    plus N(0, 1.5) a class (``widen_classifier``: the JAX heads start it at
    0, where every one of the 5 x 1000 x 80 candidates would pass
    ``score_thr``); per dtype ``longtail_serve`` (a request, its
-   ``multiclass_nms`` recorded, the f32 model against the CPU on a 256x384
-   request) and ``longtail_train`` (two steps on one image with seeded
+   ``multiclass_nms`` recorded, the f32 model of one or two configs a slice,
+   ``ONESTAGE_CPU_CHECKED``, against the CPU on a 256x384 request) and
+   ``longtail_train`` (two steps on one image with seeded
    gts from mmdet's classifier prior, every loss finite float32), each
    with B1's and B2's counts set to 0
    just before it and read just after: none of these paths launches them.
@@ -387,11 +388,37 @@ non-zero exit code:
    reads from a 2-image ``CocoPanopticDataset`` written here
    (``write_panoptic``). B1's and B2's counts are set to 0 just before
    each request and step pair and read just after: none in the DETRs',
-   PanopticFPN's as ``path_launches`` says; its third step and a second
+   PanopticFPN's as ``path_launches`` says; its third step and its warm-up
    request hold every B1 and B2 call to the plain versions in place.
    QueryInst (Sparse R-CNN's model): one f32 request. ``TridentResNet``
    (its detector is refused): one 1024x2048 forward per dtype in train mode
    (3 x 2048 x 32 x 64) and in test mode, shapes and finite values.
+8g. backbones: the convolutional backbones and necks of A.2.9a
+   (``BACKBONE_CONFIGS``): the Faster R-CNNs on RegNetX-3.2GF, Res2Net-101,
+   ResNeSt-50 (JAX's bottleneck widths), R50 with FPN-CARAFE and R50 with
+   FPG (9 stacks, 77 live BNs), and YOLOv3 on MobileNetV2 (live BNs), each
+   as published with seeded weights, per dtype: ``longtail_serve`` (a
+   1024x2048 request through the config's test pipeline, YOLOv3's resized
+   to 208x416; the f32 model against the CPU on a 256x384 request, the
+   Faster R-CNNs' neck and RPN maps within ``TOL_HEAD`` and their RoI heads
+   on the card's proposals, ``shared_proposal_test``: FPG's 77 BNs at their
+   seeded statistics leave its RPN scores so close together that the
+   ranking of the 100 proposals kept on the CPU moves with any rounding,
+   and 9 of the card's 100 detections were not the CPU's) and
+   ``longtail_train`` (a warm-up and two timed steps: one 1024x2048 image a
+   step for the Faster R-CNNs, 8 images on YOLOv3's largest train canvas,
+   416x416), every loss finite float32; the backbone's frozen tensors still
+   and the stems that JAX's ``frozen_mask`` leaves trainable moved
+   (RegNet's ``conv1`` and ``bn1``; ResNeSt's second and third stem BNs;
+   Res2Net's get no gradient through the JAX Res2Net's ``stop_gradient``
+   and must stay), every live BN's statistics moved (MobileNetV2's whole
+   model, FPG's neck). B1 and B2 counted around each request and step
+   pair: one B1 a request and one B1 and B2 a step in the Faster R-CNNs,
+   none in YOLOv3; their third step and their warm-up request hold every
+   call to the plain versions in place. Then CARAFE's P3-to-P2 reassembly at
+   1024x2048 alone, forward and backward, its peak above its inputs. After
+   every timed run, one f32 step a config under torch.profiler
+   (``profile-backbones``, ~36 s) gives the device's busy share.
 9. train reference: per dtype, one step of the same seeded model on the
    CPU and on the card, 2 x 2 fixed views of 256x512 (no OA-Mix), the draws
    made on the CPU and handed to both, the card's proposals used on both:
@@ -459,7 +486,9 @@ and the semantic rows' plain times, the same way;
 and the Sparse cases' plain times, the same way;
 ``python3 chip_smoke.py --only onestage`` runs phases 1, 2, 3 and 8e the
 same way; ``python3 chip_smoke.py --only transformer`` phases 1, 2, 3, 3c and
-``transformer`` (DETR, Deformable DETR and PanopticFPN).
+``transformer`` (DETR, Deformable DETR and PanopticFPN); ``python3
+chip_smoke.py --only backbones`` phases 1, 2, 3, ``backbones`` and
+``profile-backbones``.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -3107,8 +3136,8 @@ def phase_robustness(rows, val):
     1024x2048 image; ``tools/torch_test_robustness.py`` over the 15
     benchmark corruptions at severities 0 and 3 as a subprocess, in float32,
     B1 counted by ``TOOL_PRELUDE``; ``tools/torch_get_corrupted_dataset.py``
-    for 2 corruptions at severity 1, read back through ``--load-dataset
-    corrupted`` against the on-the-fly cells; one cell twice; the loader's
+    for 2 corruptions at severity 1, fog's read back through ``--load-dataset
+    corrupted`` against the on-the-fly cell; one cell twice; the loader's
     host ms per image split into decode, corrupt and pipeline."""
     import os
     import pickle
@@ -3208,7 +3237,7 @@ def phase_robustness(rows, val):
         batches = list(loader)
         return batches, single_gpu_test(state, iter(batches)), stages
 
-    for corr in ("fog", "glass_blur"):
+    for corr in ("fog",):       # the tool writes glass_blur too; its cell runs twice below
         (b_copy, r_copy, _), (b_fly, r_fly, _) = cell(corr, 1, "corrupted"), cell(corr, 1)
         same_img = all(np.array_equal(a["img"], b["img"]) for a, b in zip(b_copy, b_fly))
         within, bits = _same_results(r_copy, r_fly)
@@ -5341,7 +5370,9 @@ def widen_classifier(model, seed=50):
     ``score_thr`` (81-way softmax or sigmoid at the 0.01 prior would not):
     ``fc_cls`` weights N(0, 0.1) (each stage's of a cascade); a dense head's
     classifier bias moved by N(0, 1.5) per output channel from the 0.01
-    prior (``classifier_prior``), and PAA's IoU branch's bias set to a 0.03
+    prior (``classifier_prior``; YOLOv3's class logits the same a prior
+    of each level, its objectness as initialized), and PAA's IoU branch's
+    bias set to a 0.03
     prior (its score is the root of the class sigmoid times the IoU
     sigmoid: at 0 most of its 400,000 candidates would pass ``score_thr``,
     at 0.01 none; at 0.03 the classes drawn 1.4 sigma above the prior, 4
@@ -5368,6 +5399,15 @@ def widen_classifier(model, seed=50):
             softmax_classifier(model.bbox_head, gen)
         elif type(model.bbox_head).__name__ in DETR_HEADS:
             pass           # their test calls keep the top queries: no score threshold
+        elif type(model.bbox_head).__name__ == "YOLOV3Head":
+            # the class logits from the 0.01 prior plus N(0, 1.5) a class, as
+            # the dense heads' below: at the JAX init (0) each prior's 80
+            # sigmoid(0) * objectness 0.5 pass score_thr, and the NMS of a
+            # 208x416 request sorts 240,000 candidates (1.8 s on the card)
+            head = model.bbox_head
+            noise = torch.randn(head.num_classes, generator=gen) * 1.5
+            for conv in head.convs_pred:
+                conv.bias.view(-1, head.num_attrib)[:, 5:] = PRIOR_BIAS + noise.to(conv.bias.device)
         else:
             biases = classifier_prior(model)
             if hasattr(model.bbox_head, "multi_level_conv_obj"):      # YOLOX
@@ -5551,7 +5591,28 @@ def check_iou_family(records):
     return out
 
 
-def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
+def shared_proposal_test(phase, family, cpu, card, bc, gc):
+    """A two-stage f32 model's test call on the card and on the CPU with the
+    RoI head on the card's proposals on both (so that no RPN near-tie in the
+    proposals' ranking decides which boxes are compared): the neck's levels
+    and the RPN's maps held within ``TOL_HEAD`` of each one's largest. ->
+    (the card's (dets, labels, valid), the CPU's)."""
+    fc, fg = cpu.extract_feat(bc["img"]), card.extract_feat(gc["img"])
+    cc, rc = cpu.rpn_head(fc)
+    cg, rg = card.rpn_head(fg)
+    for what, got, want in (("neck level", fg, fc), ("rpn cls level", cg, cc),
+                            ("rpn reg level", rg, rc)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_close(phase, f"{family} f32: {what} {i} card vs CPU", a, b, TOL_HEAD)
+    boxes, _, valid = card.rpn_head.get_proposals(cg, rg, gc["img_shape"])
+    dg = card.roi_head.simple_test(fg, boxes, valid, gc["img_shape"], gc["scale_factor"])
+    dc = cpu.roi_head.simple_test(fc, boxes.cpu(), valid.cpu(), bc["img_shape"],
+                                  bc["scale_factor"])
+    return dg, dc
+
+
+def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail",
+                   shared_proposals=False, checked=False, cpu_check=True):
     """One request of a ``hw`` uint8 image through the config's test
     pipeline (``serve_batch``) and ``DetectorHandle.test`` after a warm-up
     (every dense head's ``multiclass_nms`` recorded on the warm-up; the
@@ -5562,7 +5623,11 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     the two-stage models on 100 proposals there; the CPU model takes the
     card model's weights). ``cfg`` is the config to
     build (``longtail_cfg(path)`` when None); the request must launch B1 and
-    B2 as ``path_launches(family, False)`` says."""
+    B2 as ``path_launches(family, False)`` says. ``shared_proposals`` runs the
+    CPU comparison through ``shared_proposal_test``; ``checked`` holds B1's
+    every call in the warm-up request to its plain version in place (its
+    1,000 proposals at 7x7); ``cpu_check`` False leaves the CPU comparison
+    out."""
     import copy
     import torch
     from oadg_tpu_torch.apis import init_detector
@@ -5574,12 +5639,17 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
     # every dense head's NMS goes through retina_head.nms_detections
     rec = (_NmsRecorder(retina_head) if family == "retinanet" or (
         family in ONESTAGE_NAMES and family not in WITHOUT_NMS) else None)
+    checks, restore = _checked_roi_align() if checked else ((), lambda: None)
     try:
         handle.test(serve_batch(family, handle, img, handle.cfg))          # warm-up
     finally:
+        restore()
         if rec is not None:
             rec.restore()
     torch.cuda.synchronize()
+    if checked:
+        _report_checks(phase, f"{family} {name} request", checks,
+                       {"roi_align_fwd": [NUM_ROIS], "roi_align_bwd": []})
     torch.cuda.reset_peak_memory_stats()
     zero_roi_counts()
     t0 = time.perf_counter()
@@ -5611,7 +5681,7 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         raise AssertionError(f"{phase} {family} {name}: bad request {shapes} (want {want})")
     _count_shape_launches(rows, shapes, f"launches_{phase}_{family}"
                           + ("" if name == "f32" else "_bf16"))
-    if name == "f32":        # the card's weights on the CPU: drawing them again costs ~1 s
+    if name == "f32" and cpu_check:   # the card's weights on the CPU: drawing them again costs ~1 s
         from oadg_tpu_torch.apis.inference import DetectorHandle
         from oadg_tpu_torch.models import build_detector
         cpu_model = build_detector(dict(cfg.model), device="cpu")
@@ -5630,8 +5700,11 @@ def longtail_serve(rows, family, path, hw, name, cfg=None, phase="longtail"):
         t0 = time.perf_counter()
         try:
             with torch.inference_mode():
-                dc = test(cpu.model, bc)
-                dg = test(handle.model, gc)
+                if shared_proposals:
+                    dg, dc = shared_proposal_test(phase, family, cpu.model, handle.model, bc, gc)
+                else:
+                    dc = test(cpu.model, bc)
+                    dg = test(handle.model, gc)
         finally:
             for c, k in zip(rpn_cfgs, kept):
                 c["max_per_img"] = k
@@ -6035,7 +6108,8 @@ def path_launches(family, train):
     request too: Mask R-CNN's test path), Grid R-CNN's grid branch the same
     in training, and for HTC and SCNet 14x14 on the semantic embedding's one
     level once a mask stage; B2 as B1 in training, never in a request."""
-    if family == "retinanet" or family in ONESTAGE_NAMES or family in DETRS:
+    if family == "retinanet" or family in ONESTAGE_NAMES or family in DETRS or \
+            family == YOLO_BACKBONE:
         per = {}
     elif family == "c4":
         per = {(MASK_BINS, 1): 1}
@@ -6064,7 +6138,8 @@ IN_PLACE_CALLS = {"c4": [C4_SAMPLED],
                   "htc": [TRAIN_ROIS] * 3 + [MASK_SLOTS] * 6,
                   "sparse": [100] * 6,
                   "grid": [TRAIN_ROIS, MASK_SLOTS],
-                  "panoptic_fpn": [TRAIN_ROIS, MASK_SLOTS]}
+                  "panoptic_fpn": [TRAIN_ROIS, MASK_SLOTS],
+                  **{f: [TRAIN_ROIS] for f in ("regnet", "res2net", "resnest", "carafe", "fpg")}}
 
 
 def polygon_gt_masks(gt, img_shape, seed, m0=56):
@@ -6512,6 +6587,11 @@ ONESTAGE = (
     ("yolact", "configs/yolact/yolact_r50_1x8_coco.py"),
 )
 ONESTAGE_NAMES = tuple(f for f, _ in ONESTAGE)
+# the f32 requests held to the CPU: one config of each group of the family
+# as ONESTAGE lists it (RepPoints and CornerNet both, for the DCNv1 head and
+# the corner pools), not all 25 (22 s of CPU there; the CPU tests hold every
+# one to the JAX package)
+ONESTAGE_CPU_CHECKED = ("fcos", "free_anchor", "nas_fpn", "reppoints", "cornernet", "solo")
 # the fifth slice's configs (their requests log the (anchor, class)
 # candidates above ``score_thr``) and the two instance heads among them
 # (their steps take polygon gt masks; their requests give their own outputs)
@@ -6738,7 +6818,8 @@ def phase_onestage(rows):
     """onestage: each config of ``ONESTAGE`` per dtype at its full width with
     seeded weights (the classifier drawn wider): a request of a 1024x2048
     image (its ``multiclass_nms`` recorded, where the head has one; the f32
-    model against the CPU on a 256x384 request) and two training steps on one image with seeded
+    model of ``ONESTAGE_CPU_CHECKED`` against the CPU on a 256x384 request)
+    and two training steps on one image with seeded
     gts from mmdet's classifier prior (``classifier_prior``), every loss
     finite float32, each with B1's and B2's counts set to 0
     just before it and read just after (none launched). -> numbers."""
@@ -6754,7 +6835,8 @@ def phase_onestage(rows):
             cfg = onestage_cfg(family, path)
             res = out[f"{family}_{name}"] = dict(
                 serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
-                                     phase="onestage"),
+                                     phase="onestage",
+                                     cpu_check=family in ONESTAGE_CPU_CHECKED),
                 train=longtail_train(rows, family, path,
                                      (300, 300) if family == "ssd" else (IMG_H, IMG_W), name, cfg=cfg,
                                      phase="onestage", prepare=classifier_prior,
@@ -6939,25 +7021,6 @@ def frozen_watch(prepare=None):
     return before, after
 
 
-def checked_request(family, name, cfg):
-    """PanopticFPN's request once more with B1's every call held to its plain
-    version in place (its 1,000 proposals at 7x7)."""
-    import torch
-    from oadg_tpu_torch.apis import init_detector
-    handle = init_detector(cfg, device="cuda", seed=0, dtype=torch_dtype(name))
-    img = np.random.RandomState(51).randint(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8)
-    checks, restore = _checked_roi_align()
-    try:
-        handle.test(serve_batch(family, handle, img, handle.cfg))
-    finally:
-        restore()
-    torch.cuda.synchronize()
-    _report_checks("transformer", f"{family} {name} request", checks,
-                   {"roi_align_fwd": [NUM_ROIS], "roi_align_bwd": []})
-    del handle
-    torch.cuda.empty_cache()
-
-
 def phase_transformer(rows):
     """transformer: each config of ``TRANSFORMER`` per dtype at its full
     width with seeded weights: a request of a 1024x2048 image (the f32 model
@@ -6968,8 +7031,8 @@ def phase_transformer(rows):
     ``panoptic_batches``), every loss finite float32, the backbone's frozen
     stages still; B1's and B2's counts set to 0 just before each request and
     step pair and read just after: none in the DETRs', PanopticFPN's as
-    ``path_launches`` says, and its third step and second request hold every
-    call to the plain versions in place. -> numbers."""
+    ``path_launches`` says, and its third step and its warm-up request hold
+    every call to the plain versions in place. -> numbers."""
     import tempfile
     import torch
     t0 = time.perf_counter()
@@ -6985,14 +7048,14 @@ def phase_transformer(rows):
                                                    cfg.data.samples_per_gpu, 52)] * 2
                 res = out[f"{family}_{name}"] = dict(
                     serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
-                                         phase="transformer"),
+                                         phase="transformer",
+                                         checked=family == "panoptic_fpn"),
                     train=longtail_train(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
                                          phase="transformer", prepare=prepare, probe=probe,
                                          batch=steps[0], warmup_batch=steps[1]))
                 del steps
                 losses = res["train"]["losses"]
                 if family == "panoptic_fpn":
-                    checked_request(family, name, cfg)
                     seg_mask = [k for k in losses if k == "loss_semantic_seg"
                                 or k.endswith("loss_mask")]
                     if len(seg_mask) < 2 or not all(losses[k] > 0 for k in seg_mask):
@@ -7014,6 +7077,190 @@ def phase_transformer(rows):
         tmp.cleanup()
     log("transformer", f"phase transformer: {time.perf_counter() - t0:.2f} s")
     return out
+
+
+# ---------------------------------------------------------------- backbones ----
+# The configs of A.2.9a, on the Cityscapes dataset base as published
+# (1024x2048, one image a step, 80 classes): four backbones under the
+# Faster R-CNN R50-FPN heads, the two necks on R50, and YOLOv3 on
+# MobileNetV2 (its own pipeline's 416 scale). RegNet's and Res2Net's configs
+# name no schedule: they take the Cityscapes config's (``SCHEDULE_BASE``).
+BACKBONE_CONFIGS = (
+    ("regnet", "configs/regnet/faster_rcnn_regnetx-3.2GF_fpn_1x_coco.py"),
+    ("res2net", "configs/res2net/faster_rcnn_r2_101_fpn_2x_coco.py"),
+    ("resnest",
+     "configs/resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco.py"),
+    ("carafe", "configs/carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py"),
+    ("fpg", "configs/fpg/faster_rcnn_r50_fpg_crop640_50e_coco.py"),
+    ("mobilenet_v2", "configs/yolo/yolov3_mobilenetv2_mstrain-416_300e_coco.py"),
+)
+YOLO_BACKBONE = "mobilenet_v2"
+YOLO_BACKBONE_CANVAS = (416, 416)       # the largest of its train pipeline's scales
+# the stem parameters JAX's frozen_mask leaves trainable: moved by the steps,
+# or (Res2Net, whose JAX backbone stops the gradient after the stem) kept
+TRAINABLE_STEM = {"regnet": (("conv1.weight", "bn1.weight", "bn1.bias"), True),
+                  "resnest": (("stem.4.weight", "stem.4.bias", "stem.7.weight", "stem.7.bias"),
+                              True),
+                  "res2net": (("stem.4.weight", "stem.4.bias", "stem.7.weight", "stem.7.bias"),
+                              False)}
+CARAFE_P3 = (1, 256, IMG_H // 8, IMG_W // 8)     # the P3 lateral CARAFE upsamples to P2
+
+
+def backbone_cfg(family, path):
+    """``longtail_cfg`` with the Cityscapes config's optimizer and
+    schedule where the config names none."""
+    from oadg_tpu_torch.config import load_config
+    cfg = longtail_cfg(path)
+    if not cfg.get("optimizer"):
+        base = load_config(str(ROOT / SCHEDULE_BASE))
+        for key in ("optimizer", "optimizer_config", "lr_config"):
+            cfg[key] = base[key]
+    return cfg
+
+
+def backbone_watch(family):
+    """-> (a ``prepare`` that keeps what the steps must leave and what they
+    must move, a ``probe`` that fails where the steps did otherwise): the
+    backbone's frozen tensors (``frozen_watch``) and its trainable stem
+    (``TRAINABLE_STEM``), every live BN's stored statistics (MobileNetV2's
+    model, FPG's neck)."""
+    import torch
+    from oadg_tpu_torch.models.layers import BatchNorm
+    frozen = (None, None) if family == YOLO_BACKBONE else frozen_watch()
+    kept = {}
+
+    def live_stats(model):
+        return {f"{n}.{k}": v for n, m in model.named_modules() if isinstance(m, BatchNorm)
+                for k, v in (("running_mean", m.running_mean), ("running_var", m.running_var))}
+
+    def before(model):
+        if frozen[0] is not None:
+            frozen[0](model)
+        names, _ = TRAINABLE_STEM.get(family, ((), True))
+        params = dict(model.backbone.named_parameters())
+        if not all(params[n].requires_grad for n in names):
+            raise AssertionError(f"backbones {family}: the stem's {names} are frozen")
+        kept.update({f"backbone.{n}": params[n].detach().clone() for n in names})
+        kept.update({k: v.clone() for k, v in live_stats(model).items()})
+
+    def after(model, batch):
+        out = frozen[1](model, batch) if frozen[1] is not None else {}
+        now = {**{f"backbone.{n}": p for n, p in model.backbone.named_parameters()},
+               **live_stats(model)}
+        moved = {k for k, v in kept.items() if not torch.equal(now[k].detach(), v)}
+        names, should_move = TRAINABLE_STEM.get(family, ((), True))
+        stem = {f"backbone.{n}" for n in names}
+        stats = set(live_stats(model))
+        bad = (stem - moved if should_move else stem & moved) | (stats - moved)
+        if bad or (family in (YOLO_BACKBONE, "fpg")) != bool(stats):
+            raise AssertionError(f"backbones {family}: {sorted(bad)[:4]} "
+                                 f"{'did not move' if should_move else 'moved'}")
+        out.update(stem_moved=len(stem & moved), stem_kept=len(stem - moved),
+                   live_bn_stats_moved=len(stats & moved))
+        return out
+
+    return before, after
+
+
+def carafe_memory():
+    """CARAFE's P3-to-P2 reassembly alone at 1024x2048 (a 256x512 output of
+    256 channels, 5x5 taps, one group), float32, forward and backward: its
+    ms and the peak it allocates above its inputs, beside the 2x-repeated
+    taps the JAX layout would form (``(1, 256, 512, 25, 256)`` float32)."""
+    import torch
+    from oadg_tpu_torch.ops.misc_ops import carafe
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    b, c, h, w = CARAFE_P3
+    x = torch.randn(CARAFE_P3, device="cuda", generator=gen, requires_grad=True)
+    masks = torch.softmax(torch.randn(b, 25, 2 * h, 2 * w, device="cuda", generator=gen), 1)
+    cot = torch.randn(b, c, 2 * h, 2 * w, device="cuda", generator=gen)
+
+    def run():
+        (carafe(x, masks, 5, 1, 2) * cot).sum().backward()
+        x.grad = None
+
+    run()
+    _, ms, gib = _peak_above(run)
+    jax_taps = b * 2 * h * 2 * w * 25 * c * 4 / 2 ** 30
+    log("backbones", f"carafe P3 {h}x{w} -> P2 {2 * h}x{2 * w}, {c} channels, float32: forward "
+                     f"and backward {ms:.3f} ms, peak {gib:.3f} GiB above the inputs (the JAX "
+                     f"layout's repeated taps alone {jax_taps:.3f} GiB) ({nvidia_smi_line()})")
+    return dict(ms=ms, peak_gib=gib, jax_taps_gib=jax_taps)
+
+
+def backbones_profile(out):
+    """Per config of ``BACKBONE_CONFIGS``, one f32 step after a warm-up
+    under torch.profiler: its wall ms and the device's busy share, into
+    ``out`` (after every timed run: the profiler slows the host's launches
+    for the rest of the process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for family, path in BACKBONE_CONFIGS:
+        cfg = backbone_cfg(family, path)
+        hw = YOLO_BACKBONE_CANVAS if family == YOLO_BACKBONE else (IMG_H, IMG_W)
+        model, step = build_trainer("cuda", cfg)
+        batch = longtail_batch(cfg, hw, cfg.data.samples_per_gpu, 52)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(batch, gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        out[f"{family}_f32"]["train"].update(profiled_ms=wall, busy=busy / wall)
+        log("backbones-profile", f"{family} f32: profiled step {wall:.3f} ms wall, device busy "
+                                 f"{busy:.3f} ms ({100 * busy / wall:.1f}%; {nvidia_smi_line()})")
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+
+def phase_backbones(rows):
+    """backbones: each config of ``BACKBONE_CONFIGS`` per dtype at its full
+    width with seeded weights: ``longtail_serve`` and ``longtail_train``
+    with ``backbone_watch``'s probe (a warm-up step first), B1's and B2's
+    counts set to 0 just before each request and step pair and read just
+    after (``path_launches``); the Faster R-CNNs' third step and warm-up
+    request hold every call to the plain versions in place; then
+    ``carafe_memory``. -> (numbers, a function that profiles an f32 step a
+    config, ``backbones_profile``)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, path in BACKBONE_CONFIGS:
+        cfg = backbone_cfg(family, path)
+        hw = YOLO_BACKBONE_CANVAS if family == YOLO_BACKBONE else (IMG_H, IMG_W)
+        for name in DTYPES:
+            prepare, probe = backbone_watch(family)
+            steps = [longtail_batch(cfg, hw, cfg.data.samples_per_gpu, seed) for seed in (52, 53)]
+            res = out[f"{family}_{name}"] = dict(
+                serve=longtail_serve(rows, family, path, (IMG_H, IMG_W), name, cfg=cfg,
+                                     phase="backbones",
+                                     shared_proposals=family != YOLO_BACKBONE,
+                                     checked=family != YOLO_BACKBONE),
+                train=longtail_train(rows, family, path, hw, name, cfg=cfg, phase="backbones",
+                                     prepare=prepare, probe=probe, batch=steps[0],
+                                     warmup_batch=steps[1]))
+            del steps
+            tr = res["train"]
+            log("backbones", f"{family} {name}: request {res['serve']['request_ms']:.3f} ms "
+                             f"(peak {res['serve']['peak_gib']:.2f} GiB), steps after a warm-up "
+                             f"{[round(t, 3) for t in tr['step_ms']]} ms (peak "
+                             f"{tr['peak_gib']:.2f} GiB), {len(tr['losses'])} losses finite, "
+                             f"{tr.get('frozen_still', 0)} frozen backbone tensors still, "
+                             f"stem: {tr['stem_moved']} trainable tensors moved, "
+                             f"{tr['stem_kept']} kept; {tr['live_bn_stats_moved']} live BN "
+                             f"statistics moved; B1 and B2 launches "
+                             f"{'0' if family == YOLO_BACKBONE else 'as path_launches'} "
+                             f"({nvidia_smi_line()})")
+            torch.cuda.empty_cache()
+    out["carafe_p3"] = carafe_memory()
+    log("backbones", f"phase backbones: {time.perf_counter() - t0:.2f} s")
+    return out, lambda: backbones_profile(out)
 
 
 PHASE_SECONDS = {}
@@ -7071,6 +7318,13 @@ def main():
         log("transformer", f"summary ({nvidia_smi_line()}): {json.dumps(transformer)}")
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "backbones"]:   # the A.2.9a configs alone: no result line
+        rows = timed("kernels", phase_kernels)
+        backbones, backbones_prof = timed("backbones", phase_backbones, rows)
+        timed("profile-backbones", backbones_prof)
+        log("backbones", f"summary ({nvidia_smi_line()}): {json.dumps(backbones)}")
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "twostage"]:   # the two-stage family alone: no result line
         rows = timed("kernels", phase_kernels)
         rows += timed("mask-kernels", phase_mask_kernels)
@@ -7122,6 +7376,7 @@ def main():
     twostage2 = timed("twostage2", phase_twostage2, rows)
     onestage = timed("onestage", phase_onestage, rows)
     transformer = timed("transformer", phase_transformer, rows)
+    backbones, backbones_prof = timed("backbones", phase_backbones, rows)
 
     for _, profile in trains.values():
         timed("profile-train", profile)
@@ -7133,6 +7388,7 @@ def main():
         summary[name]["serving_busy"] = timed("profile-serving", serving_profile, name)
     timed("profile-evaluate", evaluate_profile)
     timed("profile-train-loop", loop_profile)
+    timed("profile-backbones", backbones_prof)
     del trains
     torch.cuda.empty_cache()
     log("train", f"per dtype and chain ({nvidia_smi_line()}): {json.dumps(summary)}")
@@ -7149,6 +7405,7 @@ def main():
     log("twostage2", f"summary ({nvidia_smi_line()}): {json.dumps(twostage2)}")
     log("onestage", f"summary ({nvidia_smi_line()}): {json.dumps(onestage)}")
     log("transformer", f"summary ({nvidia_smi_line()}): {json.dumps(transformer)}")
+    log("backbones", f"summary ({nvidia_smi_line()}): {json.dumps(backbones)}")
     for name in DTYPES:
         timed("train-reference", phase_train_reference, name)
         timed("train-reference", phase_train_reference, name, BASELINE, "baseline-reference")

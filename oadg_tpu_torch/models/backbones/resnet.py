@@ -25,16 +25,43 @@ modulation from its ``conv_offset``, ``layers.ModulatedDeformConv``), and
 ResNeXt's grouped ``conv2`` (``ResNeXt``, ``BottleneckX``, ``:200-275``:
 ``groups`` x ``base_width`` channels a group, width
 ``int(planes * base_width / 64) * groups``).
+
+The deep stem and the avg-down shortcut that Res2Net and ResNeSt share
+(``DeepStem``, ``AvgDownShortcut``): three 3x3 convs (``stem_channels //
+2``, ``// 2``, then all of them; strides 2, 1, 1) each with a BN and a ReLU,
+then the 3x3/s2 max-pool; the shortcut an average pool of ``stride`` x
+``stride`` (floor sizes, where the stride is not 1), a 1x1 conv and a BN.
+mmdet's names (``stem.0`` .. ``stem.7``; ``downsample.1`` and
+``downsample.2`` after mmdet's ``AvgPool2d`` at ``downsample.0``). The JAX
+``frozen_mask`` freezes the three stem convs and the first stem BN (the
+stem's BNs are ``FrozenBN_0`` .. ``FrozenBN_2``, and it matches
+``FrozenBN_0``): the second and third stem BNs train, as the port keeps
+them (mmdet freezes the whole stem; ROADMAP C).
+
+``Res2Net`` (``:329``) and ``Bottle2neck`` (``:277``): ``conv1`` gives
+``scales`` chunks of ``int(planes * base_width / 64)`` channels;
+``scales - 1`` sequential 3x3s (``convs.k``, ``bns.k``), chunk k > 0 taking
+the previous 3x3's output added to it where the 3x3's stride is 1; the last
+chunk untouched, or average-pooled 3x3 with padding 1 (the padding
+counted) where the stride is not 1; then ``conv3`` and the avg-down
+shortcut. mmdet switches both on the block's ``stage_type``, so the first
+block of ``layer1`` (stride 1) adds hierarchically here and in the JAX
+package and not in mmdet (ROADMAP C). The JAX Res2Net stops the gradient
+after the stem and after each frozen stage (``:358``, ``:375``), so its
+trainable stem BNs get none; so does the port's. Frozen BNs fold into their
+convs (``_conv_bn``), live ones apply after them.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...utils.registry import BACKBONES
-from ..layers import (Conv, FrozenBN, ModulatedDeformConv, build_norm, conv_frozen_bn,
-                      max_pool_3x3_s2)
+from ..layers import (BatchNorm, Conv, FrozenBN, ModulatedDeformConv, build_norm,
+                      conv_frozen_bn, max_pool_3x3_s2)
 
 
 def _conv(cin, cout, k, stride=1, padding=0, device=None, dtype=None):
@@ -227,3 +254,159 @@ class ResNeXt(ResNet):
 
     def block_width(self, planes: int) -> int:
         return int(planes * (self.base_width / 64.0)) * self.groups
+
+
+def _bn(channels, norm_eval, bn_grad, device):
+    """A frozen BN (``norm_eval``) or a live one."""
+    if norm_eval:
+        return FrozenBN(channels, requires_grad=bn_grad, device=device)
+    return BatchNorm(channels, device=device)
+
+
+class DeepStem(nn.Sequential):
+    """``stem.0`` .. ``stem.8``: three (conv, BN, ReLU) of ``channels // 2``,
+    ``// 2`` and ``channels``, strides 2, 1, 1 (``_conv_bn``)."""
+
+    def __init__(self, channels: int, norm_eval: bool, bn_grad: bool, device=None, dtype=None):
+        half = channels // 2
+        layers = []
+        for cin, cout, stride in ((3, half, 2), (half, half, 1), (half, channels, 1)):
+            layers += [_conv(cin, cout, 3, stride, 1, device=device, dtype=dtype),
+                       _bn(cout, norm_eval, bn_grad, device), nn.ReLU(inplace=True)]
+        super().__init__(*layers)
+
+    def forward(self, x):
+        for i in (0, 3, 6):
+            x = torch.relu(_conv_bn(self[i], self[i + 1], x))
+        return x
+
+
+class AvgDownShortcut(nn.Sequential):
+    """``downsample.0`` mmdet's ``AvgPool2d`` (no parameters; floor sizes
+    here, as the JAX ``nn.avg_pool``), ``.1`` the 1x1 conv, ``.2`` its BN."""
+
+    def __init__(self, cin: int, cout: int, stride: int, norm_eval: bool, bn_grad: bool,
+                 device=None, dtype=None):
+        super().__init__(nn.AvgPool2d(stride, stride),
+                         _conv(cin, cout, 1, device=device, dtype=dtype),
+                         _bn(cout, norm_eval, bn_grad, device))
+        self.stride = stride
+
+    def forward(self, x):
+        if self.stride != 1:
+            x = F.avg_pool2d(x, self.stride, self.stride)
+        return _conv_bn(self[1], self[2], x)
+
+
+class DeepStemResNet(nn.Module):
+    """The deep stem, the max-pool and ``num_stages`` stages of ``block``s
+    (``make_block(inplanes, planes, stride, dilation, downsample)``), a
+    stage's first block with an avg-down shortcut where its stride is not 1
+    or the channels change; ``frozen_stages`` >= 0 freezes the three stem
+    convs and the first stem BN, and k >= 1 ``layer1`` .. ``layer<k>`` (the
+    JAX ``frozen_mask``); ``stop_gradient`` detaches the maps after the stem
+    and after each frozen stage, as the JAX Res2Net does."""
+
+    def __init__(self, depth, stages, num_stages, out_indices, strides, dilations,
+                 frozen_stages, norm_cfg, norm_eval, base_channels, stem_channels,
+                 stop_gradient, make_block, device=None, dtype=None):
+        super().__init__()
+        if norm_cfg is not None and norm_cfg.get("type", "BN") not in ("BN", "SyncBN", "MMSyncBN"):
+            raise NotImplementedError(f"norm {norm_cfg['type']}: the port's deep-stem backbones "
+                                      "build BN")
+        bn_grad = dict(norm_cfg or {}).get("requires_grad", True) is not False
+        self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages if stop_gradient else -1
+        self.stem = DeepStem(stem_channels, norm_eval, bn_grad, device, dtype)
+        inplanes = stem_channels
+        self.res_layers = []
+        for i, n in enumerate(stages[depth][:num_stages]):
+            planes = base_channels * 2 ** i
+            layers = []
+            for j in range(n):
+                stride = strides[i] if j == 0 else 1
+                ds = None
+                if j == 0 and (stride != 1 or inplanes != planes * 4):
+                    ds = AvgDownShortcut(inplanes, planes * 4, stride, norm_eval, bn_grad,
+                                         device, dtype)
+                layers.append(make_block(inplanes, planes, stride, dilations[i], ds,
+                                         norm_eval=norm_eval, bn_grad=bn_grad))
+                inplanes = planes * 4
+            self.add_module(f"layer{i + 1}", nn.Sequential(*layers))
+            self.res_layers.append(f"layer{i + 1}")
+        frozen = ([self.stem[0], self.stem[1], self.stem[3], self.stem[6]]
+                  if frozen_stages >= 0 else [])
+        frozen += [getattr(self, name) for name in self.res_layers[:max(frozen_stages, 0)]]
+        for module in frozen:
+            module.requires_grad_(False)
+
+    def forward(self, x):
+        x = max_pool_3x3_s2(self.stem(x))
+        if self.frozen_stages >= 0:
+            x = x.detach()
+        outs = []
+        for i, name in enumerate(self.res_layers):
+            x = getattr(self, name)(x)
+            if self.frozen_stages >= i + 1:
+                x = x.detach()
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)
+
+
+class Bottle2neck(nn.Module):
+    """Res2Net's block: ``conv1``/``bn1``, ``convs.k``/``bns.k`` (k <
+    ``scales - 1``), ``conv3``/``bn3``, ``downsample``."""
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None,
+                 style="pytorch", scales=4, base_width=26, norm_eval=True, bn_grad=True,
+                 device=None, dtype=None):
+        super().__init__()
+        width = int(planes * (base_width / 64.0))
+        s1, self.s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.width, self.scales = width, scales
+        self.conv1 = _conv(inplanes, width * scales, 1, s1, device=device, dtype=dtype)
+        self.bn1 = _bn(width * scales, norm_eval, bn_grad, device)
+        self.convs = nn.ModuleList(
+            Conv(width, width, 3, self.s2, dilation, dilation, bias=False, device=device,
+                 dtype=dtype) for _ in range(scales - 1))
+        self.bns = nn.ModuleList(_bn(width, norm_eval, bn_grad, device)
+                                 for _ in range(scales - 1))
+        self.conv3 = _conv(width * scales, planes * 4, 1, device=device, dtype=dtype)
+        self.bn3 = _bn(planes * 4, norm_eval, bn_grad, device)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = torch.relu(_conv_bn(self.conv1, self.bn1, x))
+        chunks = torch.split(out, self.width, dim=1)
+        parts, sp = [], None
+        for k, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            inp = chunks[k] if k == 0 or self.s2 != 1 else sp + chunks[k]
+            sp = torch.relu(_conv_bn(conv, bn, inp))
+            parts.append(sp)
+        last = chunks[-1]
+        if self.s2 != 1:
+            last = F.avg_pool2d(last, 3, self.s2, 1)
+        out = _conv_bn(self.conv3, self.bn3, torch.cat(parts + [last], dim=1))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)
+
+
+@BACKBONES.register_module()
+class Res2Net(DeepStemResNet):
+    def __init__(self, depth: int = 50, scales: int = 4, base_width: int = 26,
+                 num_stages: int = 4, out_indices: Sequence[int] = (0, 1, 2, 3),
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 dilations: Sequence[int] = (1, 1, 1, 1), style: str = "pytorch",
+                 frozen_stages: int = -1, norm_cfg=None, norm_eval: bool = True,
+                 base_channels: int = 64, stem_channels: int = 64, deep_stem: bool = True,
+                 init_cfg=None, pretrained=None, device=None, dtype=None):
+
+        def make_block(inplanes, planes, stride, dilation, ds, **kw):
+            return Bottle2neck(inplanes, planes, stride, dilation, ds, style, scales,
+                               base_width, device=device, dtype=dtype, **kw)
+
+        super().__init__(depth, {d: b for d, (_, b) in ARCH.items()}, num_stages, out_indices,
+                         strides, dilations, frozen_stages, norm_cfg, norm_eval,
+                         base_channels, stem_channels, stop_gradient=True,
+                         make_block=make_block, device=device, dtype=dtype)

@@ -20,7 +20,8 @@ Counterparts:
   uses (keys ``....conv.weight``, ``....conv.bias``); with a BN ``norm_cfg``
   the conv has no bias and the norm is ``self.bn`` (keys
   ``....bn.{weight,bias,running_mean,running_var}``), the activation
-  ``leaky_relu`` (slope 0.1).
+  ``leaky_relu`` (slope 0.1), ``relu`` or ``relu6``; ``groups`` groups the
+  conv (MobileNetV2's depthwise 3x3s).
 - ``BatchNorm`` <- ``FrozenBN`` (``:202-281``) applied unfolded, as
   ``build_norm`` (``:298-324``) builds it for a ``ConvModule``: in train
   mode the live statistics of ``FrozenBN(frozen=False)``, in eval mode (or
@@ -254,20 +255,20 @@ class ConvModule(nn.Module):
     """mmcv ConvModule: ``self.conv``, then ``self.bn`` with a BN
     ``norm_cfg`` (its ``eps`` and torch ``momentum`` honoured; the conv then
     has no bias unless ``bias`` says so, as the JAX ``Conv`` before a live
-    BN of YOLOF's head and neck has), then ``act`` (``"leaky_relu"``, slope 0.1, or
-    ``"relu"``). With neither it is the plain conv FPN uses."""
+    BN of YOLOF's head and neck has), then ``act`` (``"leaky_relu"``, slope 0.1,
+    ``"relu"`` or ``"relu6"``). With neither it is the plain conv FPN uses."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm_cfg=None, act=None,
-                 dilation: int = 1, bias=None, device=None, dtype=None):
+                 dilation: int = 1, bias=None, groups: int = 1, device=None, dtype=None):
         super().__init__()
         if norm_cfg is not None and norm_cfg.get("type", "BN") != "BN":
             raise NotImplementedError(f"ConvModule norm {norm_cfg['type']}")
-        if act not in (None, "leaky_relu", "relu"):
+        if act not in (None, "leaky_relu", "relu", "relu6"):
             raise NotImplementedError(f"ConvModule activation {act}")
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, padding,
                          dilation=dilation, bias=norm_cfg is None if bias is None else bias,
-                         device=device, dtype=dtype)
+                         groups=groups, device=device, dtype=dtype)
         self.bn = None if norm_cfg is None else build_norm(norm_cfg, out_channels, device)
         self.act = act
 
@@ -277,6 +278,8 @@ class ConvModule(nn.Module):
             x = self.bn(x)
         if self.act == "relu":
             return torch.relu(x)
+        if self.act == "relu6":
+            return F.relu6(x)
         return leaky_relu(x) if self.act == "leaky_relu" else x
 
 

@@ -197,6 +197,32 @@ deformable attention's one shared ``value_proj`` into every level's
 levels (mmdet's 4, the JAX ChannelMapper's 3) with ``ValueError``, and
 refuses DETR's decoder ``post_norm``, ChannelMapper's extra level and GNs
 and mmdet's PanopticFPNHead (``MMDET_ONLY``).
+MobileNetV2, RegNet, Res2Net, ResNeSt, FPN-CARAFE and FPG: MobileNetV2's ``stem`` / ``stem_bn`` and
+``conv2`` / ``conv2_bn`` become ``backbone.conv1.{conv,bn}`` and
+``backbone.conv2.{conv,bn}``, a block's ``expand``, ``dw`` and ``project``
+(and their ``_bn``) ``backbone.layer{s}.{b}.conv.{0,1,2}`` (``{0,1}`` where
+the block has no expand conv); RegNet's ``stem`` / ``stem_bn``
+``backbone.conv1`` / ``bn1`` and a block's ``bn{k}`` as they are; the deep
+stem's ``stem_conv{i}`` and ``FrozenBN_{k}`` ``backbone.stem.{3 (i - 1)}``
+and ``backbone.stem.{3 k + 1}``; a Bottle2neck's ``conv2_{k}`` ``convs.{k}``,
+its ``FrozenBN_0`` ``bn1``, ``FrozenBN_{k}`` ``bns.{k - 1}`` and the last
+``bn3``; a ResNeSt block's ``FrozenBN_0`` / ``_1`` / ``_2`` ``bn1`` /
+``bn3`` / ``downsample.2`` and its split-attention ``conv2`` (``conv``,
+``FrozenBN_0``, ``fc1``, ``FrozenBN_1``, ``fc2``) ``conv2.{conv, bn0, fc1,
+bn1, fc2}``; an avg-down shortcut's ``downsample_conv`` / ``downsample_bn``
+``downsample.1`` / ``.2`` (mmdet's ``AvgPool2d`` at ``.0``); FPN-CARAFE's
+``lateral{i}``, ``carafe_comp{i}`` / ``carafe_enc{i}`` and ``fpn_conv{i}``
+``neck.lateral_convs.{i}.conv``,
+``neck.upsample_modules.{i - 1}.channel_compressor`` / ``.content_encoder``
+and ``neck.fpn_convs.{i}``;
+FPG's ``lateral{i}``, ``s{s}_down{i}``, ``s{s}_up{i}`` and ``out{i}``
+``neck.lateral_convs.{i}``, ``neck.down_convs.{s}.{i - 1}``,
+``neck.up_convs.{s}.{i}`` and ``neck.out_convs.{i}``. ``load_mmdet_checkpoint``
+reorders a CARAFE ``content_encoder``'s outputs from mmcv's pixel-shuffle
+order to the JAX package's (``carafe_mmdet_order``), refuses mmdet's
+FPN-CARAFE extra P6 path and every key of mmdet's FPG (``MMDET_ONLY``), and
+refuses mmdet's ResNeSt weights, whose bottlenecks are 16 times wider than
+the JAX rule's (``ValueError`` naming the rule).
 A leaf with no mmdet name raises. The same map carries
 JAX gradients into the port's layout: ``jax_variables_to_state_dict({"params":
 grads})`` gives each trainable parameter's gradient under its mmdet key.
@@ -224,9 +250,12 @@ def _leaves(tree, prefix=()):
 
 def _bn_name(scope: str) -> str:
     """Frozen-BN module path inside a backbone block / the stem (a trident
-    block's fourth, ``FrozenBN_3``, is its downsample's)."""
+    block's fourth, ``FrozenBN_3``, is its downsample's; a RegNet block's
+    ``bn{k}`` keep their names)."""
     if scope in ("downsample_bn", "FrozenBN_3"):
         return "downsample.1"
+    if re.fullmatch(r"bn\d", scope):
+        return scope
     m = re.fullmatch(r"FrozenBN_(\d+)", scope)
     if m is None:
         raise KeyError(scope)
@@ -280,6 +309,108 @@ def _block_key(pre: str, rest: Tuple[str, ...]) -> str:
     if scope.startswith("conv"):
         return f"{pre}.{scope}.weight"
     return f"{pre}.{_bn_name(scope)}.{_BN_LEAF[rest[-1]]}"
+
+
+def _merged(a, b) -> Dict:
+    """Two variable trees (a collection's each) as one."""
+    out = dict(a)
+    for k, v in dict(b).items():
+        out[k] = _merged(out[k], v) if hasattr(v, "items") and k in out else v
+    return out
+
+
+def backbone_kind(bb: Dict) -> str:
+    """Which of MobileNetV2, RegNet, Res2Net and ResNeSt the JAX backbone tree
+    (its params and statistics) is ("" another)."""
+    first = dict(bb.get("layer1_0") or {})
+    if "dw_bn" in first:
+        return "mobilenet"
+    if "stem_bn" in bb:
+        return "regnet"
+    if "conv2_0" in first or "FrozenBN_4" in first:
+        return "res2net"
+    if "FrozenBN_1" in dict(first.get("conv2") or {}):
+        return "resnest"
+    return ""
+
+
+_MNV2_CONVS = {"expand": 0, "dw": 1, "project": 2}
+_RESNEST_BNS = {"FrozenBN_0": "bn1", "FrozenBN_1": "bn3", "FrozenBN_2": "downsample.2"}
+
+
+def _backbone_family_key(rest: Tuple[str, ...], bb: Dict, kind: str) -> Optional[str]:
+    """A leaf of a JAX MobileNetV2, RegNet, Res2Net or ResNeSt (``kind``,
+    ``bb`` its params tree) -> its key, or None (a RegNet block's, which
+    ``_block_key`` maps)."""
+    scope = rest[0]
+    bn_leaf = lambda: _BN_LEAF[rest[-1]]                    # noqa: E731
+    if kind == "mobilenet":
+        if scope in ("stem", "stem_bn", "conv2", "conv2_bn"):
+            mod = "conv1" if scope.startswith("stem") else "conv2"
+            return f"backbone.{mod}." + (f"bn.{bn_leaf()}" if scope.endswith("_bn")
+                                         else "conv.weight")
+        layer, block = re.fullmatch(r"layer(\d+)_(\d+)", scope).groups()
+        part = rest[1]
+        idx = _MNV2_CONVS[part[:-3] if part.endswith("_bn") else part] - (
+            "expand_bn" not in bb[scope])
+        leaf = f"bn.{bn_leaf()}" if part.endswith("_bn") else "conv.weight"
+        return f"backbone.layer{layer}.{block}.conv.{idx}.{leaf}"
+    if kind == "regnet":
+        if scope == "stem":
+            return "backbone.conv1.weight"
+        return f"backbone.bn1.{bn_leaf()}" if scope == "stem_bn" else None
+    m = re.fullmatch(r"stem_conv(\d)", scope)
+    if m:
+        return f"backbone.stem.{3 * (int(m.group(1)) - 1)}.weight"
+    m = re.fullmatch(r"FrozenBN_(\d)", scope)
+    if m:
+        return f"backbone.stem.{3 * int(m.group(1)) + 1}.{bn_leaf()}"
+    layer, block = re.fullmatch(r"layer(\d+)_(\d+)", scope).groups()
+    pre, sub = f"backbone.layer{layer}.{block}", rest[1]
+    if sub == "downsample_conv":
+        return f"{pre}.downsample.1.weight"
+    if sub in ("conv1", "conv3"):
+        return f"{pre}.{sub}.weight"
+    if kind == "res2net":
+        m = re.fullmatch(r"conv2_(\d+)", sub)
+        if m:
+            return f"{pre}.convs.{m.group(1)}.weight"
+        if sub == "downsample_bn":
+            return f"{pre}.downsample.2.{bn_leaf()}"
+        k = int(re.fullmatch(r"FrozenBN_(\d+)", sub).group(1))
+        scales = max(int(c[9:]) for c in bb[scope] if re.fullmatch(r"FrozenBN_\d+", c))
+        name = "bn1" if k == 0 else "bn3" if k == scales else f"bns.{k - 1}"
+        return f"{pre}.{name}.{bn_leaf()}"
+    if sub in _RESNEST_BNS:
+        return f"{pre}.{_RESNEST_BNS[sub]}.{bn_leaf()}"
+    part = rest[2]                                   # the split-attention conv2
+    if part in ("FrozenBN_0", "FrozenBN_1"):
+        return f"{pre}.conv2.bn{part[-1]}.{bn_leaf()}"
+    return f"{pre}.conv2.{part}.{_leaf(rest)}"
+
+
+def neck_kind(neck: Dict) -> str:
+    """``carafe`` or ``fpg`` for the JAX FPN_CARAFE and FPG necks ("" another)."""
+    if "carafe_comp1" in neck:
+        return "carafe"
+    return "fpg" if any(re.fullmatch(r"s\d+_(down|up)\d+", k) for k in neck) else ""
+
+
+def _carafe_fpg_key(rest: Tuple[str, ...], kind: str) -> str:
+    """A leaf of a JAX FPN_CARAFE or FPG neck -> its key."""
+    m = re.fullmatch(r"(lateral|carafe_comp|carafe_enc|fpn_conv|out)(\d+)", rest[0])
+    if m:
+        part, i = m.group(1), int(m.group(2))
+        if part == "lateral":
+            return f"neck.lateral_convs.{i}.{'conv.' if kind == 'carafe' else ''}{_leaf(rest)}"
+        if part.startswith("carafe"):
+            mod = "channel_compressor" if part == "carafe_comp" else "content_encoder"
+            return f"neck.upsample_modules.{i - 1}.{mod}.{_leaf(rest)}"
+        group = "fpn_convs" if part == "fpn_conv" else "out_convs"
+        return f"neck.{group}.{i}.{_conv_module(rest[1:])}"
+    stack, part, i = re.fullmatch(r"s(\d+)_(down|up)(\d+)", rest[0]).groups()
+    idx = int(i) - 1 if part == "down" else int(i)
+    return f"neck.{part}_convs.{stack}.{idx}.{_conv_module(rest[1:])}"
 
 
 # JAX dense-head scopes -> mmdet's module names (the rest keep their name)
@@ -530,16 +661,23 @@ def _head_kind(heads: Dict) -> str:
 
 def _torch_key(path: Tuple[str, ...], fpn_levels: int = 0, sepbn: bool = False,
                laterals: str = "lateral_convs", reppoints: bool = False,
-               kind: str = "") -> str:
+               kind: str = "", backbone: Optional[Dict] = None, neck: str = "") -> str:
     """Flax leaf path (collection dropped) -> mmdet state_dict key;
     ``fpn_levels`` is the FPN's lateral count (its ``extra_conv_k`` is
     ``fpn_convs.{fpn_levels + k}``), ``sepbn`` whether the dense head has
-    per-level BNs, ``laterals`` a NAS neck's lateral list. A KD detector's
-    ``teacher`` subtree (a detector's ``backbone_m``, ``neck_m`` and
-    ``head``) goes under mmdet's ``teacher_model.``."""
+    per-level BNs, ``laterals`` a NAS neck's lateral list, ``backbone`` the
+    JAX backbone's params tree, ``neck`` the neck's ``neck_kind``. A KD
+    detector's ``teacher`` subtree (a detector's ``backbone_m``, ``neck_m``
+    and ``head``) goes under mmdet's ``teacher_model.``."""
     head, rest = path[0], path[1:]
     if head == "teacher":
         return f"teacher_model.{_torch_key(rest, fpn_levels)}"
+    bb_kind = backbone_kind(backbone) if head == "backbone_m" and backbone else ""
+    key = _backbone_family_key(rest, backbone, bb_kind) if bb_kind else None
+    if key is not None:
+        return key
+    if head == "neck_m" and neck:
+        return _carafe_fpg_key(rest, neck)
     fifth = _fifth_key(head, rest, kind)
     if fifth is not None:
         return fifth
@@ -797,6 +935,9 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
     neck = dict(params.get("neck_m") or {})
     laterals = ("adapt_convs" if any(re.fullmatch(r"merge\d+", k) for k in neck)
                 else "lateral_convs")
+    stats = dict(variables.get("batch_stats") or {})
+    backbone = _merged(params.get("backbone_m") or {}, stats.get("backbone_m") or {})
+    necks = neck_kind(_merged(neck, stats.get("neck_m") or {}))
     maskiou = dict(dict(params.get("roi") or {}).get("maskiou") or {})
     convs = sorted((k for k in maskiou if re.fullmatch(r"conv\d+", k)), key=lambda k: int(k[4:]))
     maskiou_ch = (np.asarray(maskiou[convs[-1]]["Conv_0"]["kernel"]).shape[-1]
@@ -806,7 +947,7 @@ def jax_variables_to_state_dict(variables: Dict, roi_feat_size: int = 7,
         for path, v in _leaves(variables.get(collection) or {}):
             try:
                 key = _torch_key(path, fpn_levels["teacher" if path[0] == "teacher" else ""],
-                                 sepbn > 0, laterals, reppoints, kind)
+                                 sepbn > 0, laterals, reppoints, kind, backbone, necks)
             except (KeyError, AttributeError) as e:
                 raise KeyError(f"no mmdet name for {collection}/"
                                f"{'/'.join(path)}") from e
@@ -868,6 +1009,13 @@ _SECTIONS = ("backbone.", "neck.", "rpn_head.", "roi_head.", "bbox_head.", "mask
 # where the model lacks it (an ATSS model has the atss_* convs that a PAA
 # model lacks).
 MMDET_ONLY = {
+    r"neck\.(lateral_trans|fpn_transitions|output_transition)\.":
+        "mmdet's FPG (its lateral_trans, fpn_transitions and output_transition: the JAX FPG "
+        "is a simplified grid, lateral_convs, down_convs, up_convs and out_convs here)",
+    r"neck\.upsample_modules\.\d+\.":
+        "mmdet's FPN-CARAFE extra P6 path (extra_l_conv on C5 as lateral_convs.4, its CARAFE "
+        "as upsample_modules.3, extra_fpn_conv as fpn_convs.4; the JAX FPN_CARAFE max-pools P5 "
+        "for P6)",
     r"roi_head\.bbox_head\.\d+\.instance_interactive_conv\.fc_norm\.":
         "Sparse R-CNN's DynamicConv.fc_norm (the JAX DIIHead has no LayerNorm and ReLU "
         "after fc_layer)",
@@ -916,6 +1064,19 @@ MMDET_ONLY = {
         "mmdet's SSDNeck (its L2Norm and extra convs under neck., mmdet 2.18 on; the JAX "
         "SSDVGG holds them as backbone.l2_norm and backbone.extra, mmdet's older layout)",
 }
+
+
+RESNEST_WIDTH = ("mmdet's ResNeSt bottlenecks are planes wide where groups == 1; the JAX "
+                 "ResNeSt's (and the port's) int(planes * base_width / 64) * groups, planes / "
+                 "16 at base_width 4")
+
+
+def carafe_mmdet_order(w: torch.Tensor) -> torch.Tensor:
+    """A CARAFE ``content_encoder``'s output rows in mmcv's ``pixel_shuffle``
+    order (``tap * 4 + sy * 2 + sx``) -> the JAX package's ((``sy * 2 + sx)
+    * G * k * k + tap``)."""
+    taps = w.shape[0] // 4
+    return w[torch.tensor([t * 4 + p for p in range(4) for t in range(taps)])]
 
 
 def mmdet_state_dict(ckpt) -> Tuple[Dict[str, torch.Tensor], bool]:
@@ -987,6 +1148,16 @@ def load_mmdet_checkpoint(model: torch.nn.Module, checkpoint, logger=None
         from ..models.backbones.csp_darknet import focus_mmdet_order
         sd["backbone.stem.conv.conv.weight"] = focus_mmdet_order(sd["backbone.stem.conv.conv.weight"])
     sd = _detr_layout(sd, own)
+    if type(getattr(model, "neck", None)).__name__ == "FPN_CARAFE" and not backbone_only:
+        sd = {k: carafe_mmdet_order(v) if re.fullmatch(
+            r"neck\.upsample_modules\.\d+\.content_encoder\.(weight|bias)", k) and k in own
+            else v for k, v in sd.items()}
+    if type(getattr(model, "backbone", None)).__name__ == "ResNeSt":
+        wide = sorted(k for k, v in sd.items() if k.startswith("backbone.layer") and k in own
+                      and tuple(v.shape) != tuple(own[k].shape))
+        if wide:
+            raise ValueError(f"checkpoint tensor {wide[0]} has shape {tuple(sd[wide[0]].shape)}, "
+                             f"the model's {tuple(own[wide[0]].shape)}: {RESNEST_WIDTH}")
     for pattern, what in MMDET_ONLY.items():
         extra = sorted(k for k in sd if re.match(pattern, k) and k not in own)
         if extra:

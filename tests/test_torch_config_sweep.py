@@ -1,10 +1,10 @@
 """Every non-``_base_`` config under ``configs/`` through the port's
 ``build_detector`` (on ``device='meta'``: shapes, no storage) and its
 pipelines' ``PIPELINES`` entries, as ``tests/test_config_sweep.py`` builds
-them with the JAX package: the 64 configs the port has ported build as
+them with the JAX package: the 70 configs the port has ported build as
 given, NAS-FCOS raises its stride refusal (its neck's outputs at strides 4
 to 64 against its head's 8 to 128) and builds with
-``model.neck.start_level=1``, the other 15 raise the port's refusal (a type
+``model.neck.start_level=1``, the other 9 raise the port's refusal (a type
 the port has not ported, "the port builds only the ported slices'
 types"), never another error; TridentNet's refusal names the JAX
 detector's fault.
@@ -42,7 +42,10 @@ misreads or raises on them; and for DETR, Deformable DETR and PanopticFPN
 head; mmdet's ``input_proj`` as a 1x1 conv and its one shared deformable
 ``value_proj`` read into the port's layout, its DETR ``post_norm``, its
 4-level ChannelMapper and offsets, its GN ChannelMapper and its
-PanopticFPNHead refused).
+PanopticFPNHead refused); and for MobileNetV2, RegNetX-3.2GF, Res2Net-101,
+ResNeSt-50, FPN-CARAFE and FPG (each module at its published width;
+mmdet's CARAFE encoder read from its pixel-shuffle order, its FPN-CARAFE
+extra P6 path, its FPG and its ResNeSt weights refused).
 """
 import copy
 import glob
@@ -133,6 +136,12 @@ PORTED = {
     "detr/detr_r50_8x2_150e_coco.py",
     "deformable_detr/deformable_detr_r50_16x2_50e_coco.py",
     "panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py",
+    "yolo/yolov3_mobilenetv2_mstrain-416_300e_coco.py",
+    "regnet/faster_rcnn_regnetx-3.2GF_fpn_1x_coco.py",
+    "res2net/faster_rcnn_r2_101_fpn_2x_coco.py",
+    "resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco.py",
+    "carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py",
+    "fpg/faster_rcnn_r50_fpg_crop640_50e_coco.py",
 }
 REFUSAL = "the port builds only the ported slices' types"
 # refused at build for a fault of its own, with the config option that
@@ -169,14 +178,14 @@ def _build(rel, options=None):
 
 
 def test_the_sweep_counts_49_of_80():
-    """64 of the 80 build as given since DETR, Deformable DETR and
-    PanopticFPN (the name is the count's before GA-RetinaNet, SABL-RetinaNet
-    and NAS-FPN), NAS-FCOS with its neck's ``start_level`` set to 1, 15 are
-    refused."""
+    """70 of the 80 build as given since MobileNetV2, RegNetX, Res2Net,
+    ResNeSt, FPN-CARAFE and FPG (the name is the count's before
+    GA-RetinaNet, SABL-RetinaNet and NAS-FPN), NAS-FCOS with its neck's
+    ``start_level`` set to 1, 9 are refused."""
     assert len(ALL_CONFIGS) == 80
-    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 64
+    assert PORTED <= set(ALL_CONFIGS) and len(PORTED) == 70
     assert set(STRIDE_REFUSED) <= set(ALL_CONFIGS) - PORTED
-    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 15
+    assert len(set(ALL_CONFIGS) - PORTED - set(STRIDE_REFUSED)) == 9
 
 
 @pytest.mark.parametrize("rel", ALL_CONFIGS)
@@ -1328,3 +1337,169 @@ def test_detr_config_names_no_data_and_chip_smoke_gives_it_the_base():
     pan = chip_smoke.transformer_cfg("panoptic_fpn",
                                      "configs/panoptic_fpn/panoptic_fpn_r50_fpn_1x_coco.py")
     assert pan.model.roi_head.mask_roi_extractor.roi_layer.output_size == 14
+
+
+BACKBONES_NECKS = {"yolo/yolov3_mobilenetv2_mstrain-416_300e_coco.py": "MobileNetV2",
+       "regnet/faster_rcnn_regnetx-3.2GF_fpn_1x_coco.py": "RegNet",
+       "res2net/faster_rcnn_r2_101_fpn_2x_coco.py": "Res2Net",
+       "resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco.py": "ResNeSt",
+       "carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py": "FPN_CARAFE",
+       "fpg/faster_rcnn_r50_fpg_crop640_50e_coco.py": "FPG"}
+
+
+@pytest.mark.parametrize("rel", sorted(BACKBONES_NECKS))
+def test_backbone_and_neck_configs_build_their_modules(rel):
+    """The six configs of A.2.9a at full width as given: RegNetX-3.2GF's
+    stages of 96, 192, 432 and 1008 channels (groups of 48) with a stem of
+    32 and no max-pool; Res2Net-101's 3x3 chunks of 26 channels in
+    ``layer1`` (4 scales, 23 blocks in ``layer3``); ResNeSt-50's ``layer1``
+    split conv from 4 to 8 channels (JAX's width rule, ``planes / 16``)
+    with an ``fc1`` of 32; FPN-CARAFE's encoders of 100 outputs (4 phases
+    of 5x5 taps) on 64 compressed channels; FPG's 9 stacks of 4 stride-2
+    and 4 up convs with live BNs; MobileNetV2's outputs at 32, 96 and 320
+    channels under the YOLOv3 neck."""
+    det = _build(rel)
+    kind = BACKBONES_NECKS[rel]
+    bb, neck = det.backbone, det.neck
+    assert kind in (type(bb).__name__, type(neck).__name__)
+    if kind == "MobileNetV2":
+        assert [getattr(bb, f"layer{i}")[-1].conv[2].conv.weight.shape[0]
+                for i in (3, 5, 7)] == [32, 96, 320]
+        assert bb.out_indices == (2, 4, 6) and not hasattr(bb, "conv2")
+        assert bb.layer2[0].conv[1].conv.groups == 96 and type(bb.conv1.bn).__name__ == "BatchNorm"
+        assert neck.detect1.conv1.conv.weight.shape[1] == 320
+    if kind == "RegNet":
+        assert bb.conv1.weight.shape == (32, 3, 3, 3)
+        assert [getattr(bb, f"layer{i}")[0].conv1.weight.shape[0] for i in (1, 2, 3, 4)] == [
+            96, 192, 432, 1008]
+        assert [len(getattr(bb, f"layer{i}")) for i in (1, 2, 3, 4)] == [2, 6, 15, 2]
+        assert [getattr(bb, f"layer{i}")[0].conv2.groups for i in (1, 2, 3, 4)] == [2, 4, 9, 21]
+    if kind == "Res2Net":
+        blk = bb.layer1[0]
+        assert blk.width == 26 and len(blk.convs) == 3
+        assert blk.convs[0].weight.shape == (26, 26, 3, 3)
+        assert blk.conv1.weight.shape == (104, 64, 1, 1) and len(bb.layer3) == 23
+        assert bb.stem[0].weight.shape == (32, 3, 3, 3)
+        assert bb.stem[6].weight.shape == (64, 32, 3, 3)
+        assert bb.layer2[0].downsample[1].weight.shape == (512, 256, 1, 1)
+    if kind == "ResNeSt":
+        sa = bb.layer1[0].conv2
+        assert bb.layer1[0].conv1.weight.shape == (4, 64, 1, 1)
+        assert sa.conv.weight.shape == (8, 2, 3, 3) and sa.conv.groups == 2
+        assert sa.fc1.weight.shape == (32, 4, 1, 1) and sa.fc2.weight.shape == (8, 32, 1, 1)
+        assert bb.layer4[0].conv1.weight.shape == (32, 1024, 1, 1)
+        assert bb.layer2[0].avd_stride == 2 and bb.layer1[0].avd_stride == 1
+    if kind == "FPN_CARAFE":
+        assert len(neck.upsample_modules) == 3 and len(neck.fpn_convs) == 4
+        up = neck.upsample_modules[0]
+        assert up.channel_compressor.weight.shape == (64, 256, 1, 1)
+        assert up.content_encoder.weight.shape == (100, 64, 3, 3)
+    if kind == "FPG":
+        assert len(neck.down_convs) == len(neck.up_convs) == 9
+        assert [len(neck.down_convs[0]), len(neck.up_convs[0]), len(neck.out_convs)] == [4, 4, 5]
+        assert neck.down_convs[8][3].conv.stride == (2, 2)
+        assert type(neck.up_convs[0][0].bn).__name__ == "BatchNorm"
+        assert sum(1 for m in neck.modules() if type(m).__name__ == "BatchNorm") == 77
+    if kind != "MobileNetV2":
+        assert det.roi_head.bbox_roi_extractor.output_size == 7
+        assert det.neck.lateral_convs[3] is not None
+
+
+def _backbones_sd(name, src):
+    """The tiny model's ``state_dict`` under mmdet's names: a CARAFE
+    encoder's outputs in mmcv's pixel-shuffle order."""
+    from oadg_tpu_torch.utils.checkpoint import carafe_mmdet_order
+    sd = dict(src.state_dict())
+    for k in list(sd):
+        if re.fullmatch(r"neck\.upsample_modules\.\d+\.content_encoder\.(weight|bias)", k):
+            taps = sd[k].shape[0] // 4
+            inverse = np.argsort([t * 4 + p for p in range(4) for t in range(taps)])
+            sd[k] = sd[k][inverse]
+            assert carafe_mmdet_order(sd[k]).equal(src.state_dict()[k])
+    return sd
+
+
+@pytest.mark.parametrize("name", ["mobilenet_v2", "regnet", "res2net", "resnest", "carafe",
+                                  "fpg"])
+def test_mmdet_checkpoint_carries_the_backbones_and_necks(name, tmp_path):
+    """The six narrowed under mmdet's names (MobileNetV2's ``conv.{k}``
+    ConvModules, RegNet's ``conv1`` / ``bn1`` stem, the deep stems'
+    ``stem.{0..7}``, Bottle2neck's ``convs`` / ``bns``, the split
+    attention's ``bn0`` / ``fc1`` / ``bn1`` / ``fc2``, the avg-down
+    shortcuts' ``downsample.1`` / ``.2``, CARAFE's ``upsample_modules`` with
+    the encoder in mmcv's pixel-shuffle order on file): every tensor loaded,
+    the models equal. (A ResNeSt of the JAX widths; mmdet's own are refused
+    below.)"""
+    import torch
+    import torch_backbone_cases as bcases
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    model = bcases.torch_detector_model(name)
+    src = init_detector({"model": model}, device="cpu", seed=1).model
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.01)
+        for k, v in src.state_dict().items():
+            if ".running_" in k:
+                v.add_(0.5)
+    path = tmp_path / "model.pth"
+    torch.save({"state_dict": _backbones_sd(name, src), "meta": {}}, path)
+    dst = init_detector({"model": model}, device="cpu", seed=2).model
+    report = load_mmdet_checkpoint(dst, str(path))
+    assert not report["missing"] and not report["skipped"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+    want = {"mobilenet_v2": ["backbone.conv1.conv.weight", "backbone.layer1.0.conv.1.bn.bias",
+                             "backbone.layer7.0.conv.2.bn.running_var"],
+            "regnet": ["backbone.conv1.weight", "backbone.bn1.weight",
+                       "backbone.layer3.0.downsample.1.running_mean"],
+            "res2net": ["backbone.stem.7.weight", "backbone.layer1.0.convs.2.weight",
+                        "backbone.layer2.0.bns.0.running_var",
+                        "backbone.layer2.0.downsample.2.bias"],
+            "resnest": ["backbone.stem.4.running_mean", "backbone.layer1.0.conv2.bn0.weight",
+                        "backbone.layer2.0.conv2.fc1.bias",
+                        "backbone.layer2.0.downsample.1.weight"],
+            "carafe": ["neck.upsample_modules.2.content_encoder.weight",
+                       "neck.upsample_modules.0.channel_compressor.bias",
+                       "neck.lateral_convs.3.conv.weight", "neck.fpn_convs.0.conv.bias"],
+            "fpg": ["neck.down_convs.1.3.bn.running_var", "neck.up_convs.0.0.conv.weight",
+                    "neck.out_convs.4.bn.weight", "neck.lateral_convs.2.bias"]}[name]
+    assert set(want) <= set(report["loaded"])
+
+
+LACKS_BB = {
+    "carafe_extra_p6": ("carafe", ["neck.lateral_convs.4.conv.weight",
+                                   "neck.upsample_modules.3.content_encoder.weight",
+                                   "neck.fpn_convs.4.conv.weight"], KeyError,
+                        "mmdet's FPN-CARAFE extra P6 path"),
+    "fpg_mmdet": ("fpg", ["neck.lateral_trans.0.conv.weight",
+                          "neck.fpn_transitions.0.1.same_up.conv.weight",
+                          "neck.output_transition.0.conv.weight"], KeyError, "mmdet's FPG"),
+    "resnest_widths": ("resnest", None, ValueError,
+                       "mmdet's ResNeSt bottlenecks are planes wide where groups == 1"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LACKS_BB))
+def test_mmdet_checkpoint_names_the_backbone_parts_one_side_lacks(case):
+    """mmdet's FPN-CARAFE builds P6 with a stride-2 conv of C5, its own
+    CARAFE and an output conv, mmdet's FPG another structure, and mmdet's
+    ResNeSt bottlenecks ``planes`` wide: a checkpoint with such a tensor
+    raises naming it (``MMDET_ONLY``), one of mmdet's ResNeSt widths raises
+    naming the width rule."""
+    import torch
+    import torch_backbone_cases as bcases
+    from oadg_tpu_torch.apis import init_detector
+    from oadg_tpu_torch.utils.checkpoint import load_mmdet_checkpoint
+    name, extra, error, match = LACKS_BB[case]
+    if extra is None:           # the config's ResNeSt-50; mmdet's layer1 conv1 to 64, not 4
+        model = _build("resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco.py")
+        sd = dict(model.state_dict())
+        sd["backbone.layer1.0.conv1.weight"] = torch.zeros(64, 64, 1, 1)
+        match = "has shape (64, 64, 1, 1), the model's (4, 64, 1, 1): " + match
+    else:
+        model = init_detector({"model": bcases.torch_detector_model(name)}, device="cpu",
+                              seed=1).model
+        sd = dict(model.state_dict(), **{k: torch.zeros(4) for k in extra})
+    with pytest.raises(error, match=re.escape(match)):
+        load_mmdet_checkpoint(model, {"state_dict": sd})

@@ -2766,3 +2766,82 @@ def test_detr_and_panoptic_steps_on_the_card_match_the_cpu(name):
         assert err <= 1e-4 or float(c.abs().max()) < 1e-6, (k, err)
     for got, want in zip(tg, tc):
         assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnest_step_on_the_card_matches_the_cpu(dtype):
+    """The tiny ResNeSt Faster R-CNN of ``torch_backbone_cases`` (all four
+    stages of split-attention bottlenecks at base width 8, the FPN and heads
+    at 16 channels; the radix softmax in float32 in either dtype) on the
+    card against the CPU in the same dtype, on the same weights and the
+    CPU's sampler uniforms. The backbone's four maps within 1e-4 of each
+    largest in float32, ``TOL_BF16_CARD`` in bfloat16 (the convolutions sum
+    in other orders on each device); the step's losses float32 and finite,
+    rtol 1e-4 in float32; in bfloat16 the RPN's (on the anchors, with the
+    given uniforms) within ``TOL_BF16_LOSS``, the RoI head's finite (its
+    proposals come through an NMS whose near-ties bfloat16 rounding moves
+    on either device: on the CPU alone the bfloat16 step's ``loss_bbox``
+    reads 0.078 against float32's 0.139); every
+    trainable gradient float32 and finite, within 1e-4 of each largest in
+    float32 (bfloat16: finiteness, as
+    ``test_onestage5_step_on_the_card_matches_the_cpu``); the frozen stem
+    convs, first stem BN and ``layer1`` without a gradient, the second and
+    third stem BNs with one (the JAX ``frozen_mask``); B1 and B2 launched in
+    the card's step. Each distance is printed (``-s``)."""
+    import torch_backbone_cases as bcases
+    from oadg_tpu_torch.models import build_detector
+    from oadg_tpu_torch.utils.draws import UniformDraws
+    dev = _cuda()
+    model = bcases.torch_detector_model("resnest")
+    seed = build_detector(model, device="cpu")
+    seed.init_weights(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in bcases.batch("resnest").items()}
+    batch["img"] = batch["img"].permute(0, 3, 1, 2).contiguous()
+    draws, outs = None, []
+    for where in ("cpu", dev):
+        det = build_detector(model, device=where, dtype=dtype)
+        det.load_state_dict({k: v.to(where) for k, v in seed.state_dict().items()})
+        det.train()
+        b = {k: v.to(where) for k, v in batch.items()}
+        b["img"] = b["img"].to(dtype)
+        with torch.no_grad():
+            maps = [m.float().cpu() for m in det.backbone(b["img"])]
+        before = (ROI_ALIGN_FWD.launches, ROI_ALIGN_BWD.launches)
+        d = UniformDraws(torch.Generator().manual_seed(1)) if draws is None else \
+            UniformDraws(given=draws)
+        losses = det.forward_train(b, d)
+        draws = {k: v.cpu() for k, v in d.drawn.items()}
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        if where == dev:
+            torch.cuda.synchronize()
+            launched = (ROI_ALIGN_FWD.launches - before[0], ROI_ALIGN_BWD.launches - before[1])
+            assert min(launched) > 0, launched
+        params = dict(det.named_parameters())
+        assert params["backbone.stem.4.weight"].grad is not None
+        assert all(p.grad is None for k, p in params.items() if not p.requires_grad)
+        assert not params["backbone.stem.1.weight"].requires_grad
+        assert not params["backbone.layer1.0.conv2.fc1.weight"].requires_grad
+        outs.append((maps, losses, {k: p.grad.cpu() for k, p in params.items()
+                                    if p.grad is not None}))
+    (mc, lc, gc), (mg, lg, gg) = outs
+    f32 = dtype == torch.float32
+    for i, (g, c) in enumerate(zip(mg, mc)):
+        err = float((g - c).abs().max()) / float(c.abs().max())
+        print(f"resnest {dtype} C{i + 2}: card vs CPU {err:.3e} of the largest")
+        assert err <= (1e-4 if f32 else TOL_BF16_CARD), (i, err)
+    assert lg.keys() == lc.keys() and gg.keys() == gc.keys()
+    print(f"resnest {dtype}: losses card {({k: float(v) for k, v in lg.items()})} CPU "
+          f"{({k: float(v) for k, v in lc.items()})}")
+    for k in lc:
+        assert lg[k].dtype == torch.float32 and torch.isfinite(lg[k]), k
+        if f32 or k.startswith("loss_rpn"):
+            np.testing.assert_allclose(float(lg[k].detach()), float(lc[k].detach()),
+                                       rtol=1e-4 if f32 else TOL_BF16_LOSS, atol=1e-6, err_msg=k)
+    errs = {k: float((gg[k] - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+            for k, c in gc.items()}
+    print(f"resnest {dtype}: gradients' distance over their largest: "
+          f"{sorted(errs.items(), key=lambda kv: -kv[1])[:6]}")
+    for k, e in errs.items():
+        assert gg[k].dtype == torch.float32 and torch.isfinite(gg[k]).all(), k
+        assert not f32 or e <= 1e-4 or float(gc[k].abs().max()) < 1e-6, (k, e)
